@@ -1,13 +1,17 @@
-"""cellregmap_tpu_torch: CellRegMap's interaction scan in PyTorch + CUDA.
+"""cellregmap_tpu_torch: CellRegMap's interaction scan and association test
+in PyTorch + CUDA.
 
 A port of ``cellregmap_tpu`` (JAX) to PyTorch on an NVIDIA H100.  The
-Khatri-Rao contraction (K1), the best-rho score-factor rotation (K4) and
-the score statistic (K5) are hand-written CUDA kernels (``csrc/``), built
-with nvcc on first use; everything else is torch on the same device.  The
-port imports neither jax nor the JAX package.
+Khatri-Rao contraction (K1), the delta grid (K2), the REML/ML Newton
+stages (K3), the best-rho score-factor rotation (K4), the score statistic
+(K5) and the null fits over the rho grid (K10) are hand-written CUDA
+kernels (``csrc/``), built with nvcc on first use; the association refit
+(K7) runs the K2 and K3 kernels with the ML objective.  Everything else is
+torch on the same device.  The port imports neither jax nor the JAX
+package.
 """
 from ._config import DEFAULT_CONFIG, ScanConfig
-from .api import CellRegMap, get_L_values, run_interaction
+from .api import CellRegMap, get_L_values, run_association, run_interaction
 
 __all__ = ["CellRegMap", "DEFAULT_CONFIG", "ScanConfig", "get_L_values",
-           "run_interaction"]
+           "run_association", "run_interaction"]

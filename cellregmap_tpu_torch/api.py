@@ -1,8 +1,9 @@
 """Public CellRegMap API of the PyTorch port (NumPy in / NumPy out).
 
-Mirrors ``cellregmap_tpu.api`` for the interaction scan: ``CellRegMap``
-and ``run_interaction`` (the reference's _cellregmap.py:23-440 and
-:547-587, with the permutation index forwarded to ``idx_G``).  Every entry
+Mirrors ``cellregmap_tpu.api`` for the interaction scan and the
+association test: ``CellRegMap``, ``run_interaction`` (the reference's
+_cellregmap.py:23-440 and :547-587, with the permutation index forwarded
+to ``idx_G``) and ``run_association`` (:246-281, :471-500).  Every entry
 point runs on ``device``: CUDA unless the caller passes ``device="cpu"``.
 Without a card and without an explicit device it raises; it never falls
 back to the CPU.
@@ -60,6 +61,29 @@ def _batch_starts(total, batch, progress, desc):
     return starts
 
 
+def _pipelined(starts, launch, consume, timers, kind, device, window=4):
+    """Run ``launch(start)`` (a dict of device tensors) for each batch start
+    with up to ``window`` batches in flight: each batch's results are
+    copied to pinned host memory behind a CUDA event, and
+    ``consume(host arrays)`` of batch i runs while later batches compute."""
+    pending: list = []
+
+    def drain(k):
+        while len(pending) > k:
+            with trace.trace_scope(f"{kind}/device_get", timers):
+                host, event = pending.pop(0)
+                if event is not None:
+                    event.synchronize()
+                out = {kk: v.numpy() for kk, v in host.items()}
+            consume(out)
+
+    for start in starts:
+        with trace.trace_scope(f"{kind}/device", timers, device):
+            pending.append(_to_host_async(launch(start)))
+        drain(window - 1)
+    drain(0)
+
+
 def _to_host_async(out: dict):
     """Start copying a batch's results to pinned host memory; returns
     (host tensors, CUDA event recorded after the copies, or None)."""
@@ -82,7 +106,8 @@ class CellRegMap:
         b2 ~ N(0, v3 E0 E0^T),          e ~ N(0, v1 rho1 E1 E1^T),
         u ~ N(0, v1 (1-rho1) K (.) E2 E2^T),   eps ~ N(0, v2 I).
 
-    Interaction test: H0: v3 = 0 vs H1: v3 > 0 (score test).
+    Interaction test: H0: v3 = 0 vs H1: v3 > 0 (score test).  Association
+    test: H0: b1 = 0 vs H1: b1 != 0 (LRT with per-variant ML refits).
     """
 
     def __init__(self, y, E, W=None, Ls=None, E1=None, hK=None,
@@ -122,6 +147,7 @@ class CellRegMap:
         self._Ls, self._hK = Ls, hK
         self._n = n
         self._ctx_cache = None
+        self._null_assoc = None
 
     @property
     def device(self) -> torch.device:
@@ -154,6 +180,7 @@ class CellRegMap:
         new = object.__new__(CellRegMap)
         new.__dict__ = dict(self.__dict__)
         new._y = y
+        new._null_assoc = None
         ctx = self._ctx
         yt = self._upload(y)
         new._ctx_cache = ctx._replace(y=yt, Zy=ctx.Z.T @ yt, Wy=ctx.W.T @ yt,
@@ -208,38 +235,29 @@ class CellRegMap:
         delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
                      cfg.n_delta_grid_interaction, cfg.n_golden_iters)
 
-        window = 4
-        pending: list = []
         outs: list = []
         pv_parts: list = []
         lam_parts: list = []
 
-        def _drain(k):
-            while len(pending) > k:
-                with trace.trace_scope("interaction/device_get", timers):
-                    host, event = pending.pop(0)
-                    if event is not None:
-                        event.synchronize()
-                    out = {kk: v.numpy() for kk, v in host.items()}
-                outs.append({kk: out[kk] for kk in _INFO_KEYS})
-                with trace.trace_scope("interaction/pvalue_ladder", timers):
-                    pv_b, lam_b = self._pvalue_ladder(out["Q"], out["Wmat"])
-                pv_parts.append(pv_b)
-                lam_parts.append(lam_b)
+        def launch(start):
+            gb = self._upload(Gp[:, start : start + batch])
+            gsb = (gb if idx_G is None
+                   else self._upload(Gsp[:, start : start + batch]))
+            out = engine.interaction_batch(
+                ctx, gb, gsb, self._n, delta_cfg=delta_cfg,
+                localize_f32=cfg.hybrid_localization)
+            return {k: out[k] for k in _RESULT_KEYS}
 
-        for start in _batch_starts(Gp.shape[1], batch, cfg.progress,
-                                   "scan_interaction"):
-            with trace.trace_scope("interaction/device", timers, dev):
-                gb = self._upload(Gp[:, start : start + batch])
-                gsb = (gb if idx_G is None
-                       else self._upload(Gsp[:, start : start + batch]))
-                out = engine.interaction_batch(
-                    ctx, gb, gsb, self._n, delta_cfg=delta_cfg,
-                    localize_f32=cfg.hybrid_localization)
-                pending.append(_to_host_async(
-                    {k: out[k] for k in _RESULT_KEYS}))
-            _drain(window - 1)
-        _drain(0)
+        def consume(out):
+            outs.append({k: out[k] for k in _INFO_KEYS})
+            with trace.trace_scope("interaction/pvalue_ladder", timers):
+                pv_b, lam_b = self._pvalue_ladder(out["Q"], out["Wmat"])
+            pv_parts.append(pv_b)
+            lam_parts.append(lam_b)
+
+        _pipelined(_batch_starts(Gp.shape[1], batch, cfg.progress,
+                                 "scan_interaction"),
+                   launch, consume, timers, "interaction", dev)
 
         info = {k: np.concatenate([o[k] for o in outs])[:n_snps]
                 for k in _INFO_KEYS}
@@ -252,26 +270,107 @@ class CellRegMap:
                                for k, v in timers.summary().items()})
         return np.asarray(pvalues, float), info
 
-    def _auto_batch_cap(self) -> int:
+    def _auto_batch_cap(self, kind: str = "interaction") -> int:
         """Variant-batch cap keeping the batch's temporaries within half of
         the device's free memory (2 GB on the CPU).
 
-        Per variant, in f64 (8 B/element): the (nrho, R) families of the
-        Newton stages (rotated genotype products in three precisions, the
-        weight families and their reductions: ~48 live tensors at most),
-        the (R, C) score factor in K1 and K4 layouts (~4 copies) and the
-        (n, C + p) genotype-weighted operands (~3 copies).
+        Per variant, in f64 (8 B/element; the card stores f64 as 8 bytes).
+        ``interaction``: the (nrho, R) families of the Newton stages
+        (rotated genotype products in three precisions, the weight families
+        and their reductions: ~48 live tensors at most, in the plain
+        versions), the (R, C) score factor in K1 and K4 layouts (~4
+        copies) and the (n, C + p) genotype-weighted operands (~3 copies).
+        ``association``: the (n,) genotype column and its upload (~3
+        copies), the rotated (R,) column with its products and weight
+        families (~32 live tensors in the plain Newton), and the plain
+        grid's (K,) reductions (~p + 8 per grid point).
         """
         C = int(self._E0.shape[1])
         p = int(self._W.shape[1])
         nrho, R = (int(d) for d in self._ctx.S.shape)
-        per_variant = 8 * (48 * nrho * max(R, 1) + 4 * max(R, 1) * C
-                           + 3 * self._n * (C + p))
+        if kind == "interaction":
+            per_variant = 8 * (48 * nrho * max(R, 1) + 4 * max(R, 1) * C
+                               + 3 * self._n * (C + p))
+        else:  # association
+            per_variant = 8 * (3 * self._n + 32 * max(R, 1)
+                               + self._cfg.n_delta_grid * (p + 8))
         if self._device.type == "cuda":
             budget = torch.cuda.mem_get_info(self._device)[0] / 2
         else:
             budget = 2e9
         return max(16, int(budget / per_variant))
+
+    # -- association -------------------------------------------------------
+    def _fit_null_association(self):
+        """The covariate-only ML fits over the rho grid (K10) and the best
+        rho's index, as host arrays; built on first use."""
+        if self._null_assoc is None:
+            cfg = self._cfg
+            delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
+                         cfg.n_delta_grid, cfg.n_golden_iters)
+            fits, k = engine.null_association_fit(
+                self._ctx, self._n, restricted=False, delta_cfg=delta_cfg)
+            self._null_assoc = (
+                engine.FitResult(*(t.cpu().numpy() for t in fits)), int(k))
+        return self._null_assoc
+
+    def _assoc_info(self, fits, k):
+        rho_grid = self._ctx.rho.cpu().numpy()
+        rho1 = float(rho_grid[k] if rho_grid.shape[0] > 1 else 1.0)
+        v0 = float(fits.v0[k])
+        return {"rho1": np.asarray([rho1]), "e2": np.asarray([v0 * rho1]),
+                "g2": np.asarray([v0 * (1 - rho1)]),
+                "eps2": np.asarray([float(fits.v1[k])])}
+
+    def scan_association(self, G, checkpoint=None,
+                         checkpoint_every: int = 1):
+        """LRT association scan with per-variant ML refits (reference
+        :246-281).  Returns ``(pvalues, info)`` with info = {rho1, e2, g2,
+        eps2} of the null fit (and ``timers`` when ``config.trace``).
+
+        Batches are pipelined as in :meth:`scan_interaction`: up to four
+        in flight, each batch's alternative lmls copied back behind a CUDA
+        event.
+        """
+        cfg = self._cfg
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "checkpointed scans come with the durability slice")
+        G = np.asarray(G, float)
+        if G.ndim == 1:
+            G = G[:, None]
+        timers = trace.PhaseTimers() if cfg.trace else None
+        dev = self._device
+        with trace.trace_scope("association/setup", timers, dev):
+            fits, k = self._fit_null_association()
+        null_lml = float(fits.lml[k])
+        batch = min(cfg.snp_batch, self._auto_batch_cap("association"),
+                    max(G.shape[1], 1))
+        Gp, n_snps = _pad_batch(G, batch)
+        delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
+                     cfg.n_delta_grid, cfg.n_golden_iters)
+        ctx = self._ctx
+        parts: list = []
+
+        def launch(start):
+            lml, _ = engine.association_refit_batch(
+                ctx, self._upload(Gp[:, start : start + batch]), k,
+                self._n, delta_cfg=delta_cfg,
+                localize_f32=cfg.hybrid_localization)
+            return {"lml": lml}
+
+        _pipelined(_batch_starts(Gp.shape[1], batch, cfg.progress,
+                                 "scan_association"),
+                   launch, lambda out: parts.append(out["lml"]), timers,
+                   "association", dev)
+        alt_lmls = np.concatenate(parts)[:n_snps]
+        pv = pv_mod.lrt_pvalues(null_lml, alt_lmls, dof=1,
+                                clip_lo=cfg.pv_clip_lo,
+                                clip_hi=cfg.pv_clip_hi)
+        info = self._assoc_info(fits, k)
+        if timers is not None:
+            info["timers"] = timers.summary()
+        return np.asarray(pv, float), info
 
     def _pvalue_ladder(self, Q, Wmat):
         """Host LAPACK eigenvalues of the weight matrices, then the Davies
@@ -298,3 +397,11 @@ def run_interaction(y, E, G, W=None, E1=None, E2=None, hK=None, idx_G=None,
     crm = CellRegMap(y=y, E=E, W=W, E1=E1, Ls=Ls, config=config,
                      device=device)
     return crm.scan_interaction(G, idx_G=idx_G)
+
+
+def run_association(y, W, E, G, hK=None, config: ScanConfig = DEFAULT_CONFIG,
+                    device=None):
+    """Association test (LRT, per-variant ML refits).  Reference :471-500.
+    Runs on ``device`` (the card unless "cpu" is given)."""
+    crm = CellRegMap(y=y, E=E, W=W, hK=hK, config=config, device=device)
+    return crm.scan_association(G)

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the interaction scan, with their plain
-torch versions.
+"""Hand-written CUDA kernels of the interaction scan and the association
+test, with their plain torch versions.
 
 Each wrapper runs its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises); it counts its launches in the
@@ -7,10 +7,12 @@ module-level integer ``launches``.
 """
 from __future__ import annotations
 
-from . import best_rho_rotate, kr_contract, score_core
+from . import (best_rho_rotate, delta_grid, kr_contract, null_fit,
+               reml_newton, score_core)
 
-MODULES = {"kr_contract": kr_contract, "best_rho_rotate": best_rho_rotate,
-           "score_core": score_core}
+MODULES = {"kr_contract": kr_contract, "delta_grid": delta_grid,
+           "reml_newton": reml_newton, "best_rho_rotate": best_rho_rotate,
+           "score_core": score_core, "null_fit": null_fit}
 
 
 def reset_launches() -> None:

@@ -27,7 +27,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("kr_contract", "best_rho_rotate", "score_core")
+SOURCES = ("kr_contract", "delta_grid", "reml_newton", "best_rho_rotate",
+           "score_core", "null_fit")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}

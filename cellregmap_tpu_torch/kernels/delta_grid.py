@@ -1,0 +1,183 @@
+"""K2 (and the grid half of K7): the coarse delta grid of the profiled fits.
+
+For every variant s, rho point o and grid point k (delta_k = sigmoid of a
+linspace over logit(delta)), the lml of the GLS fit with X = [W, g] under
+the weights 1/((1 - delta_k) S_or + delta_k), then per (s, o) the argmax
+over k and the bracket [logit_{k-1}, logit_{k+1}] around it.  Two
+objectives share the code, and keep the reference's differences:
+
+* REML, the interaction scan (cellregmap_tpu/engine.py:460-532): nu =
+  n - p - 1, logdet(A) and logdet(X^T X); a grid point whose rss is below
+  128 eps(fast) q is cancellation noise and excluded (:500);
+* ML, the association refit (:957-989): n, no logdet terms; only an rss
+  below 8 tiny(fast) is excluded (:978).
+
+The grid runs in the working dtype ``fast`` (float32 under hybrid
+localization): the rotated products are formed in f64 and rounded, as the
+reference's tensor sets are.  On a CUDA tensor :func:`delta_grid` launches
+``csrc/delta_grid.cu``; on a CPU tensor it runs :func:`delta_grid_plain`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from ._normal_eqs import (Complements, lml_value, ne_family, products,
+                          tensor_set)
+from ..ops.linalg import (unrolled_chol_factor, unrolled_chol_logdet,
+                          unrolled_chol_solve)
+
+launches = 0
+
+MAX_FIXED = 16      # p + 1 of the CUDA kernel's small algebra
+
+
+def logit_grid(lo, hi, n_grid, device):
+    return torch.linspace(lo, hi, n_grid, dtype=torch.float64, device=device)
+
+
+def delta_grid_plain(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid,
+                     n, fast, restricted=True, return_lml=False):
+    """Plain torch version: the grid as snp-shared batched GEMMs of the
+    (nrho, K, R) weights against the rotated products.  ``return_lml``
+    adds the (S, nrho, K) lml grid to the result."""
+    p = comp.CWW.shape[0]
+    R = S.shape[1]
+    prod = products(WGt[:, :, :p], yt, WGt[:, :, p:])
+    TS = tensor_set(S, prod, comp, fast)
+    logit = logit_grid(lo, hi, n_grid, S.device)
+    deltas = torch.sigmoid(logit).to(fast)
+    d_grid = (1 - deltas)[None, :, None] * TS["S"][:, None, :] \
+        + deltas[None, :, None]                         # (nrho, K, R)
+    Wd = 1.0 / d_grid
+    logdet_grid = torch.log(d_grid).sum(dim=-1) \
+        + (n - R) * torch.log(deltas)[None, :]          # (nrho, K)
+    inv_d = (1.0 / deltas)[None, None]                  # (1, 1, K)
+
+    red_o = lambda w, t: torch.einsum("okr,or->ok", Wd, t)[None]  # noqa
+    red_s = lambda w, t: torch.bmm(Wd, t).permute(2, 0, 1)  # noqa: E731
+    TSg = dict(TS, CWg=TS["CWg"][:, :, None, None],
+               Cgy=TS["Cgy"][:, None, None], Cgg=TS["Cgg"][:, None, None])
+    A, b, q = ne_family(None, inv_d, TSg, red_s, red_o)  # (S|1, nrho, K)
+    L = unrolled_chol_factor(A)
+    beta = unrolled_chol_solve(L, b)
+    rss = q
+    for j in range(p + 1):
+        rss = rss - b[j] * beta[j]
+    if restricted:
+        # below ~eps(fast) * q the residual is cancellation noise: those
+        # points form spurious maxima at tiny delta (engine.py:493-500)
+        collapsed = rss <= 128 * torch.finfo(fast).eps * q
+        logdet_a = unrolled_chol_logdet(L)
+        ldx = ld_xx.to(fast)[:, None, None]
+    else:
+        collapsed = rss <= 8 * torch.finfo(fast).tiny   # engine.py:978
+        logdet_a = ldx = None
+    rss = torch.clamp(rss, min=torch.finfo(fast).tiny)
+    lml = lml_value(rss, logdet_grid[None], logdet_a, ldx, n, p + 1,
+                    restricted)                          # (S, nrho, K)
+    lml = torch.where(collapsed | ~torch.isfinite(lml), -torch.inf, lml)
+    # all-non-finite rows fall back to the full bracket
+    row_bad = (~torch.isfinite(lml)).all(dim=-1)         # (S, nrho)
+    k = lml.argmax(dim=-1)
+    br_lo = torch.where(row_bad, logit[0],
+                        logit[torch.clamp(k - 1, min=0)])
+    br_hi = torch.where(row_bad, logit[-1],
+                        logit[torch.clamp(k + 1, max=n_grid - 1)])
+    return (br_lo, br_hi, lml) if return_lml else (br_lo, br_hi)
+
+
+def bracket_shortfall(br_lo, br_hi, lml, lo, hi) -> float:
+    """How far a kernel's brackets fall short of the plain grid's argmax:
+    the largest relative gap, over (variant, rho), between a row's plain
+    maximum and the plain lml at the grid point the kernel's bracket was
+    built around.  0 where the kernel chose the plain argmax; small at a
+    near-tie (another summation order can pick the neighbouring point);
+    inf where the bracket belongs to no grid point.  ``lml`` is the plain
+    (S, nrho, K) grid."""
+    K = lml.shape[-1]
+    logit = logit_grid(lo, hi, K, lml.device)
+    ar = torch.arange(K, device=lml.device)
+    near = lambda a, b: (a - b).abs() <= 1e-12 * max(abs(lo), abs(hi))  # noqa
+    match = near(br_lo[..., None], logit[torch.clamp(ar - 1, min=0)]) \
+        & near(br_hi[..., None], logit[torch.clamp(ar + 1, max=K - 1)])
+    best = lml.amax(dim=-1)
+    at = torch.where(match, lml, -torch.inf).amax(dim=-1)
+    gap = (best - at) / best.abs()
+    # rows with no finite grid point take the full bracket
+    full = near(br_lo, torch.as_tensor(lo)) & near(br_hi, torch.as_tensor(hi))
+    gap = torch.where(torch.isfinite(best), gap,
+                      torch.where(full, 0.0, torch.inf))
+    return float(gap.max()) if gap.numel() else 0.0
+
+
+def _bind(lib):
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.crm_delta_grid.restype = ci
+    lib.crm_delta_grid.argtypes = [vp] * 12 + [cd, cd, ci, ci, ci, ci, ci,
+                                               ci, ci, ci, vp]
+
+
+def check_operands(name, S, WGt, yt, comp, ld_xx, restricted):
+    """Validate the shared operands of the K2/K3 kernels; returns
+    (nrho, R, p, nS)."""
+    nrho, R = S.shape
+    p = comp.CWW.shape[0]
+    nS = WGt.shape[2] - p
+    if p + 1 > MAX_FIXED:
+        raise ValueError(f"{name}: needs p + 1 <= {MAX_FIXED} fixed effects, "
+                         f"got {p + 1}")
+    f64 = torch.float64
+    for t, tn, shape in ((S, "S", (nrho, R)), (WGt, "WGt", (nrho, R, p + nS)),
+                         (yt, "yt", (nrho, R)), (comp.CWW, "CWW", (p, p)),
+                         (comp.CWy, "CWy", (p,)), (comp.Cyy, "Cyy", ()),
+                         (comp.CWg, "CWg", (p, nS)), (comp.Cgy, "Cgy", (nS,)),
+                         (comp.Cgg, "Cgg", (nS,))):
+        _build.require(t, f"{name}: {tn}", f64, shape)
+    if restricted:
+        _build.require(ld_xx, f"{name}: ld_xx", f64, (nS,))
+    return nrho, R, p, nS
+
+
+def delta_grid(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid, n,
+               fast, restricted=True):
+    """(br_lo, br_hi), each (S, nrho) f64: the grid bracket of every
+    (variant, rho) problem.
+
+    S (nrho, R) eigenvalues; WGt (nrho, R, p + S) the rotated [W | G];
+    yt (nrho, R) the rotated phenotype; ``comp`` the complement Grams;
+    ld_xx (S,) logdet(X^T X) (REML only, else None); the grid is
+    ``n_grid`` points of logit(delta) from ``lo`` to ``hi``; ``fast`` the
+    working dtype (float32 or float64); ``restricted`` REML or ML.
+    """
+    global launches
+    if S.device.type == "cpu":
+        return delta_grid_plain(S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n,
+                                fast, restricted)
+    check_operands("delta_grid", S, WGt, yt, comp, ld_xx, restricted)
+    out = call(_build.load("delta_grid", _bind), S, WGt, yt, comp, ld_xx, lo,
+               hi, n_grid, n, fast, restricted, _build.stream_ptr(S.device))
+    launches += 1
+    return out
+
+
+def call(lib, S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n, fast,
+         restricted=True, stream=None):
+    """Allocate the brackets and call ``lib``'s entry point (the card's
+    library, or an emulation of it on CPU tensors)."""
+    nrho, R = S.shape
+    p = comp.CWW.shape[0]
+    nS = WGt.shape[2] - p
+    br_lo = torch.empty((nS, nrho), dtype=torch.float64, device=S.device)
+    br_hi = torch.empty_like(br_lo)
+    if br_lo.numel() == 0:
+        return br_lo, br_hi
+    ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp)]
+    ptrs += [_build.ptr(ld_xx) if restricted else None, _build.ptr(br_lo),
+             _build.ptr(br_hi)]
+    _build.check(lib.crm_delta_grid(*ptrs, lo, hi, n_grid, n, nrho, R, p, nS,
+                                    int(fast == torch.float32),
+                                    int(restricted), stream), "delta_grid")
+    return br_lo, br_hi

@@ -1,0 +1,103 @@
+"""K10: the covariates-only fits over the rho grid, one profiled fit per rho.
+
+Per rho point: the lml on a grid of ``n_grid`` logit(delta) points, the
+argmax, ``n_iters`` golden-section steps in the bracket around it, and the
+final fit (cellregmap_tpu/engine.py:268-289 ``_fit_over_rho`` through
+models/lmm.py:211-251,333-351 ``fit_delta_eig``).  ``restricted`` selects
+REML (with logdet(A) and logdet(X^T X)) or ML; the association's null fit
+is ML, ``mean_fit_kernel``'s fits are REML.
+
+On a CUDA tensor :func:`null_fit` launches ``csrc/null_fit.cu`` (one block
+per rho point); on a CPU tensor it runs :func:`null_fit_plain`, which is
+``models.lmm.fit_delta_eig`` over the rho axis.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from ..models.lmm import EigData, FitResult, fit_delta_eig, lml_at_delta_eig
+
+launches = 0
+
+MAX_FIXED = 16      # p of the CUDA kernel's small algebra
+MAX_GRID = 1024     # grid points the kernel holds in shared memory
+
+
+def null_fit_plain(data: EigData, n, restricted, lo, hi, n_grid, n_iters):
+    """Plain torch version: :func:`models.lmm.fit_delta_eig`."""
+    return fit_delta_eig(data, n, restricted, lo, hi, n_grid, n_iters)
+
+
+def fit_gaps(fits: FitResult, plain: FitResult, data: EigData, n,
+             restricted) -> dict:
+    """Largest relative gaps of a fit against the plain one.
+
+    Two correct golden-section searches that sum in different orders stop
+    ~sqrt(eps) apart in delta, where the lml is flat to eps * |lml|, so
+    delta is not compared with delta: the plain objective is evaluated at
+    the fit's delta instead.  ``lml``: the fit's lml vs the plain maximum;
+    ``lml_at_delta``: the plain lml at the fit's delta vs the plain
+    maximum (the fit's delta is an optimum of the same objective);
+    ``beta``/``scale``: the fit's vs the plain ones at the fit's delta.
+    """
+    rel = lambda a, b: float(((a - b).abs() / b.abs()).max())  # noqa: E731
+    lml, beta, scale, _ = (t[:, 0] for t in lml_at_delta_eig(
+        fits.delta[:, None], data, n, restricted))
+    return {"lml": rel(fits.lml, plain.lml),
+            "lml_at_delta": rel(lml, plain.lml),
+            "beta": rel(fits.beta, beta), "scale": rel(fits.scale, scale)}
+
+
+def _bind(lib):
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.crm_null_fit.restype = ci
+    lib.crm_null_fit.argtypes = [vp] * 13 + [cd, cd] + [ci] * 7 + [vp]
+
+
+def null_fit(data: EigData, n, restricted, lo, hi, n_grid, n_iters):
+    """:class:`FitResult` of each rho's fit, fields (nrho,) and beta
+    (nrho, p).  ``data`` holds S (nrho, R), Xt (nrho, R, p), yt (nrho, R)
+    and the complements Cxx (nrho, p, p), cxy (nrho, p), cyy (nrho,), f64.
+    """
+    global launches
+    S = data.S
+    if S.device.type == "cpu":
+        return null_fit_plain(data, n, restricted, lo, hi, n_grid, n_iters)
+    nrho, R = S.shape
+    p = data.Xt.shape[2]
+    if not 1 <= p <= MAX_FIXED:
+        raise ValueError(f"null_fit: needs 1 <= p <= {MAX_FIXED} covariates, "
+                         f"got {p}")
+    if not 1 <= n_grid <= MAX_GRID:
+        raise ValueError(f"null_fit: needs 1 <= n_grid <= {MAX_GRID}, "
+                         f"got {n_grid}")
+    for t, name, shape in ((S, "S", (nrho, R)), (data.Xt, "Xt", (nrho, R, p)),
+                           (data.yt, "yt", (nrho, R)),
+                           (data.Cxx, "Cxx", (nrho, p, p)),
+                           (data.cxy, "cxy", (nrho, p)),
+                           (data.cyy, "cyy", (nrho,))):
+        _build.require(t, f"null_fit: {name}", torch.float64, shape)
+    out = call(_build.load("null_fit", _bind), data, n, restricted, lo, hi,
+               n_grid, n_iters, _build.stream_ptr(S.device))
+    launches += 1
+    return out
+
+
+def call(lib, data: EigData, n, restricted, lo, hi, n_grid, n_iters,
+         stream=None):
+    """Allocate the fits and call ``lib``'s entry point (the card's
+    library, or an emulation of it on CPU tensors)."""
+    nrho, R = data.S.shape
+    p = data.Xt.shape[2]
+    out = FitResult(*(torch.empty((nrho, p) if f == "beta" else (nrho,),
+                                  dtype=torch.float64, device=data.S.device)
+                      for f in FitResult._fields))
+    if nrho == 0:
+        return out
+    _build.check(lib.crm_null_fit(*(_build.ptr(t) for t in (*data, *out)),
+                                  lo, hi, n_grid, n_iters, n, nrho, R, p,
+                                  int(restricted), stream), "null_fit")
+    return out

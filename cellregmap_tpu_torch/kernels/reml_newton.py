@@ -1,0 +1,219 @@
+"""K3 (and the Newton half of K7): safeguarded Newton on the analytic
+derivative of the profiled lml, from the delta grid's brackets.
+
+Two entry points, each with its plain torch version:
+
+* :func:`reml_localize` (stages 1b and 2 of cellregmap_tpu/engine.py
+  :628-670): ``steps`` Newton steps on every (variant, rho) problem from
+  its bracket's midpoint, then one f64 lml evaluation at the localized
+  optimum and the argmax over rho.  Under hybrid localization the steps run
+  f64 arithmetic on f32-ROUNDED tensors (``round32``), as the reference's
+  type promotion does; the evaluation uses the unrounded tensors, and an
+  rss below 128 eps q there cannot win the argmax (:655).
+* :func:`reml_converge` (stage 3, :672-734, and the association refit's
+  Newton, :991-1062): at each variant's rho ``k_best`` (0 when None), f64
+  steps on the unrounded tensors from ``x0`` (the localized optimum; the
+  bracket midpoint when None) within the GRID bracket (:704-709), then the
+  final evaluation.  REML floors the final rss at 128 eps q (:724); ML
+  only at tiny (:1056) and has no logdet(A) trace terms (:1026-1028).
+
+On a CUDA tensor the wrappers launch ``csrc/reml_newton.cu``; on a CPU
+tensor they run the plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from ._normal_eqs import (Complements, lml_value, ne_family, newton_step,
+                          products, tensor_set)
+from .delta_grid import check_operands
+from ..ops.linalg import (unrolled_chol_factor, unrolled_chol_logdet,
+                          unrolled_chol_solve)
+
+launches = 0
+
+MAX_RHO = 16        # rho points of one localize block (a warp each)
+
+
+def _eval(delta, TS, rs, ro, n, R, ld_xx, restricted):
+    """(beta, rss, q, logdet(A), logdet(D)) of the GLS fit at ``delta``."""
+    dx = delta[..., None]
+    S = TS["S"][None] if (TS["S"].ndim == 2 and delta.ndim == 2) \
+        else TS["S"]
+    d = (1 - dx) * S + dx
+    A, b, q = ne_family(1.0 / d, 1.0 / delta, TS, rs, ro)
+    L = unrolled_chol_factor(A)
+    beta = unrolled_chol_solve(L, b)
+    rss = q - sum(b[j] * beta[j] for j in range(len(b)))
+    logdet_d = torch.log(d).sum(dim=-1) + (n - R) * torch.log(delta)
+    return beta, rss, q, unrolled_chol_logdet(L), logdet_d
+
+
+def reml_localize_plain(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi,
+                        n, steps, round32):
+    """Plain torch version: (x (S, nrho) localized logit(delta),
+    lml_all (S, nrho) f64 REML lml there, k_best (S,) argmax over rho)."""
+    p = comp.CWW.shape[0]
+    R = S.shape[1]
+    f64 = S.dtype
+    prod = products(WGt[:, :, :p], yt, WGt[:, :, p:])
+    TS64 = tensor_set(S, prod, comp, f64)
+    TS1b = tensor_set(S, prod, comp, torch.float32, f64) if round32 else TS64
+    ro = lambda w, t: torch.einsum("sor,or->so", w, t)  # noqa: E731
+    rs = lambda w, t: torch.einsum("sor,ors->so", w, t)  # noqa: E731
+
+    st = (0.5 * (br_lo + br_hi), br_lo, br_hi)
+    for _ in range(steps):
+        st = newton_step(st, TS1b, rs, ro, n, True)
+    x = st[0]
+    delta = torch.sigmoid(x)                             # (S, nrho)
+
+    beta, rss, q, logdet_a, logdet_d = _eval(delta, TS64, rs, ro, n, R,
+                                             ld_xx, True)
+    rss_bad = rss <= 128 * torch.finfo(f64).eps * q     # engine.py:655
+    rss = torch.clamp(rss, min=torch.finfo(f64).tiny)
+    lml_all = lml_value(rss, logdet_d, logdet_a, ld_xx[:, None], n, p + 1,
+                        True)
+    # noise-floor or NaN evaluations must not win the rho argmax
+    lml_all = torch.where(rss_bad | ~torch.isfinite(lml_all), -torch.inf,
+                          lml_all)
+    return x, lml_all, lml_all.argmax(dim=-1)
+
+
+def reml_converge_plain(S, WGt, yt, comp: Complements, ld_xx, k_best, x0,
+                        br_lo, br_hi, n, steps, restricted=True):
+    """Plain torch version: (delta, lml, scale, beta) per variant at its
+    rho ``k_best``; delta/lml/scale (S,), beta (S, p + 1)."""
+    p = comp.CWW.shape[0]
+    R = S.shape[1]
+    f64 = S.dtype
+    nS = WGt.shape[2] - p
+    ar = torch.arange(nS, device=S.device)
+    if k_best is None:
+        k_best = torch.zeros(nS, dtype=torch.int64, device=S.device)
+    # each variant's rho rows (the same bits as the gathered products)
+    prod = products(WGt[k_best, :, :p], yt[k_best],
+                    WGt[k_best, :, p + ar][:, :, None])
+    prod.update(GY=prod["GY"][..., 0], G2=prod["G2"][..., 0],
+                GW=[a[..., 0] for a in prod["GW"]])
+    TS = tensor_set(S[k_best], prod, comp, f64)
+    red = lambda w, t: (w * t).sum(dim=-1)              # noqa: E731
+
+    lo_b, hi_b = br_lo[ar, k_best], br_hi[ar, k_best]
+    x = 0.5 * (lo_b + hi_b) if x0 is None else x0[ar, k_best]
+    st = (x, lo_b, hi_b)
+    for _ in range(steps):
+        st = newton_step(st, TS, red, red, n, restricted)
+    delta = torch.sigmoid(st[0])
+
+    beta, rss, q, logdet_a, logdet_d = _eval(delta, TS, red, red, n, R,
+                                             ld_xx, restricted)
+    if restricted:
+        # the tensors' cancellation noise floor keeps a near-degenerate
+        # variant's scale finite (engine.py:722-724)
+        rss = torch.maximum(rss, 128 * torch.finfo(f64).eps * q)
+    rss = torch.clamp(rss, min=torch.finfo(f64).tiny)
+    lml = lml_value(rss, logdet_d, logdet_a, ld_xx, n, p + 1, restricted)
+    scale = rss / ((n - p - 1) if restricted else n)
+    return delta, lml, scale, torch.stack(beta, dim=-1)
+
+
+def _bind(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.crm_reml_localize.restype = ci
+    lib.crm_reml_localize.argtypes = [vp] * 15 + [ci] * 7 + [vp]
+    lib.crm_reml_converge.restype = ci
+    lib.crm_reml_converge.argtypes = [vp] * 18 + [ci] * 7 + [vp]
+
+
+def reml_localize(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi, n,
+                  steps, round32):
+    """(x (S, nrho), lml_all (S, nrho), k_best (S,) int64); see the module
+    doc.  Operands as :func:`delta_grid.delta_grid`'s, plus the grid
+    brackets br_lo/br_hi (S, nrho) f64."""
+    global launches
+    if S.device.type == "cpu":
+        return reml_localize_plain(S, WGt, yt, comp, ld_xx, br_lo, br_hi,
+                                   n, steps, round32)
+    nrho, R, p, nS = check_operands("reml_localize", S, WGt, yt, comp,
+                                    ld_xx, True)
+    for t, name in ((br_lo, "br_lo"), (br_hi, "br_hi")):
+        _build.require(t, f"reml_localize: {name}", torch.float64,
+                       (nS, nrho))
+    if nrho > MAX_RHO:
+        raise ValueError(f"reml_localize: at most {MAX_RHO} rho points, "
+                         f"got {nrho}")
+    out = call_localize(_build.load("reml_newton", _bind), S, WGt, yt, comp,
+                        ld_xx, br_lo, br_hi, n, steps, round32,
+                        _build.stream_ptr(S.device))
+    launches += 1
+    return out
+
+
+def call_localize(lib, S, WGt, yt, comp, ld_xx, br_lo, br_hi, n, steps,
+                  round32, stream=None):
+    """Allocate the outputs and call ``lib``'s localize entry point (the
+    card's library, or an emulation of it on CPU tensors)."""
+    nrho, R = S.shape
+    p = comp.CWW.shape[0]
+    nS = WGt.shape[2] - p
+    x = torch.empty((nS, nrho), dtype=torch.float64, device=S.device)
+    lml_all = torch.empty_like(x)
+    k_best = torch.empty((nS,), dtype=torch.int64, device=S.device)
+    if nS == 0:
+        return x, lml_all, k_best
+    ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp, ld_xx, br_lo, br_hi,
+                                    x, lml_all, k_best)]
+    _build.check(lib.crm_reml_localize(*ptrs, n, nrho, R, p, nS, steps,
+                                       int(round32), stream),
+                 "reml_localize")
+    return x, lml_all, k_best
+
+
+def reml_converge(S, WGt, yt, comp: Complements, ld_xx, k_best, x0, br_lo,
+                  br_hi, n, steps, restricted=True):
+    """(delta, lml, scale, beta) per variant; see the module doc.  k_best
+    (S,) int64 or None, x0 (S, nrho) f64 or None, br_lo/br_hi (S, nrho)."""
+    global launches
+    if S.device.type == "cpu":
+        return reml_converge_plain(S, WGt, yt, comp, ld_xx, k_best, x0,
+                                   br_lo, br_hi, n, steps, restricted)
+    nrho, R, p, nS = check_operands("reml_converge", S, WGt, yt, comp,
+                                    ld_xx, restricted)
+    for t, name in ((br_lo, "br_lo"), (br_hi, "br_hi"), (x0, "x0")):
+        if t is not None:
+            _build.require(t, f"reml_converge: {name}", torch.float64,
+                           (nS, nrho))
+    if k_best is not None:
+        _build.require(k_best, "reml_converge: k_best", torch.int64, (nS,))
+    out = call_converge(_build.load("reml_newton", _bind), S, WGt, yt, comp,
+                        ld_xx, k_best, x0, br_lo, br_hi, n, steps, restricted,
+                        _build.stream_ptr(S.device))
+    launches += 1
+    return out
+
+
+def call_converge(lib, S, WGt, yt, comp, ld_xx, k_best, x0, br_lo, br_hi, n,
+                  steps, restricted=True, stream=None):
+    """Allocate the outputs and call ``lib``'s converge entry point (the
+    card's library, or an emulation of it on CPU tensors)."""
+    nrho, R = S.shape
+    p = comp.CWW.shape[0]
+    nS = WGt.shape[2] - p
+    delta, lml, scale = (torch.empty((nS,), dtype=torch.float64,
+                                     device=S.device) for _ in range(3))
+    beta = torch.empty((nS, p + 1), dtype=torch.float64, device=S.device)
+    if nS == 0:
+        return delta, lml, scale, beta
+    opt = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
+    ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp)]
+    ptrs += [opt(ld_xx if restricted else None), opt(k_best), opt(x0),
+             _build.ptr(br_lo), _build.ptr(br_hi), _build.ptr(delta),
+             _build.ptr(lml), _build.ptr(scale), _build.ptr(beta)]
+    _build.check(lib.crm_reml_converge(*ptrs, n, nrho, R, p, nS, steps,
+                                       int(restricted), stream),
+                 "reml_converge")
+    return delta, lml, scale, beta

@@ -34,6 +34,17 @@ def sym_pseudo_solve(A: torch.Tensor, b: torch.Tensor,
     return torch.cholesky_solve(b, _chol(_ridge(A, rcond)))
 
 
+def sym_pseudo_solve_and_logdet(A: torch.Tensor, b: torch.Tensor,
+                                rcond: float = 1e-12):
+    """(robust solve, logdet) of a symmetric PSD normal matrix, sharing one
+    ridge Cholesky; ``b`` is (..., m) or (..., m, k)."""
+    L = _chol(_ridge(A, rcond))
+    vec = b.ndim == A.ndim - 1
+    x = torch.cholesky_solve(b[..., None] if vec else b, L)
+    logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(dim=-1)
+    return (x[..., 0] if vec else x), logdet
+
+
 def sym_pseudo_logdet(A: torch.Tensor, rcond: float = 1e-12) -> torch.Tensor:
     L = _chol(_ridge(A, rcond))
     return 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(dim=-1)

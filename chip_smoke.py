@@ -8,18 +8,25 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card, as nvidia-smi reports its name and power limit;
 2. build the CUDA kernels (one nvcc per source, in parallel) and the Davies
    library, from the sources in this checkout;
-3. each kernel (K1 kr_contract, K4 best_rho_rotate, K5 score_core) on the
-   inputs the main path gives it at the headline size, held against its
-   plain torch version, and timed with CUDA events beside its plain
-   version, the library call where one exists, and its bound;
-4. the main path, ``run_interaction(..., device="cuda")``, at the bench's
-   headline size (2000 cells, 10 contexts, 100 donors, 2048 variants,
-   batch 512): throughput, setup/scan split, the traced phase split, the
-   launch counts of every kernel, the planted GxC variant, and the first
-   64 variants against the port on the CPU;
-5. a second size users run (10k cells, 20 contexts, 125 donors, 512
-   variants);
-6. one JSON line of the kernels, then the result line.
+3. each kernel on the inputs the main paths give it at the headline size
+   (K1 kr_contract, K2 delta_grid, K3 reml_newton, K4 best_rho_rotate, K5
+   score_core on an interaction batch; K7, the ML delta grid and Newton,
+   on an association refit batch; K10 null_fit on the association's null
+   fit), held against its plain torch version, and timed with CUDA events
+   beside its plain version, the library call where one exists, and its
+   bound;
+4. the interaction path, ``run_interaction(..., device="cuda")``, at the
+   bench's headline size (2000 cells, 10 contexts, 100 donors, 2048
+   variants, batch 512): throughput, setup/scan split, the traced phase
+   split, the launch counts of every kernel, the planted GxC variant, and
+   the first 64 variants against the port on the CPU;
+5. a second interaction size users run (10k cells, 20 contexts, 125
+   donors, 512 variants);
+6. the association paths at the headline size: ``run_association(...,
+   hK=hK, device="cuda")`` (R = 110) and ``scan_association`` on the
+   headline's Ls scanner (R = 1010), each with its launch counts and the
+   first 64 variants against the port on the CPU;
+7. one JSON line of the kernels, then the result line.
 
 It imports neither jax nor the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -34,11 +41,14 @@ import time
 
 import numpy as np
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense): FP64 tensor
-# core rate and HBM3 bandwidth.  The bounds below are against these.
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): the FP64
+# tensor-core rate (the FP32 rate outside the tensor cores is the same 67
+# TFLOP/s) and HBM3 bandwidth.  The bounds below are against these.
 PEAK_F64_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 F64 = 8
+DELTA_CFG = (-18.0, 18.0, 64, 60)          # the interaction's grid
+ASSOC_DELTA_CFG = (-18.0, 18.0, 256, 60)   # the association's grid
 
 HEADLINE = dict(n_cells=2000, n_contexts=10, n_donors=100, n_snps=2048,
                 seed=0)
@@ -104,24 +114,25 @@ def bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def capture_kernel_inputs(ctx, G, n):
-    """One headline batch through the engine, recording each kernel
-    wrapper's inputs (and outputs) as the main path gives them."""
+def capture_kernel_inputs(run, names):
+    """Run ``run()`` through the engine, recording the positional and
+    keyword arguments of each kernel wrapper in ``names`` as the main path
+    gives them: name -> [(args, kwargs)]."""
     from cellregmap_tpu_torch import engine
 
-    calls = {"kr_contract": [], "best_rho_rotate": [], "score_core": []}
-    saved = {k: getattr(engine, k) for k in calls}
+    calls = {k: [] for k in names}
+    saved = {k: getattr(engine, k) for k in names}
 
     def recorder(name):
-        def f(*args):
-            calls[name].append(args)
-            return saved[name](*args)
+        def f(*args, **kw):
+            calls[name].append((args, kw))
+            return saved[name](*args, **kw)
         return f
 
-    for k in calls:
+    for k in names:
         setattr(engine, k, recorder(k))
     try:
-        engine.interaction_batch(ctx, G, G, n)
+        run()
     finally:
         for k, f in saved.items():
             setattr(engine, k, f)
@@ -131,11 +142,18 @@ def capture_kernel_inputs(ctx, G, n):
 def check_kernels(ctx, G, n):
     import torch
 
+    from cellregmap_tpu_torch import engine
     from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
     from cellregmap_tpu_torch.kernels import kr_contract as k1
     from cellregmap_tpu_torch.kernels import score_core as k5
 
-    calls = capture_kernel_inputs(ctx, G, n)
+    calls = capture_kernel_inputs(
+        lambda: engine.interaction_batch(ctx, G, G, n, delta_cfg=DELTA_CFG),
+        ["kr_contract", "delta_grid", "reml_localize", "reml_converge",
+         "best_rho_rotate", "score_core"])
+    calls = {k: [a for a, _ in v] if k in ("kr_contract", "best_rho_rotate",
+                                           "score_core") else v
+             for k, v in calls.items()}
     rows = []
 
     # K1: the three contractions of one batch
@@ -223,6 +241,10 @@ def check_kernels(ctx, G, n):
         plain_ms=cuda_ms(lambda: k5.score_core_plain(*args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         tolerance="max|err| <= 1e-10 * max|plain|, Q and Wmat"))
+    rows.insert(1, check_delta_grid(calls["delta_grid"][0]))
+    rows.insert(2, check_reml_newton(calls["reml_localize"][0],
+                                     calls["reml_converge"][0]))
+    rows += check_association_kernels(ctx, G, n)
     for r in rows:
         print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
               f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
@@ -231,6 +253,257 @@ def check_kernels(ctx, G, n):
               + (f"; distinct rho {r['distinct_rho']}"
                  if "distinct_rho" in r else ""), flush=True)
     return rows
+
+
+def _rel(a, b):
+    """max |a - b| / |b| over the finite entries of b (equal infinities
+    count as agreement)."""
+    import torch
+
+    fin = torch.isfinite(b)
+    assert torch.equal(fin, torch.isfinite(a)), "non-finite entries differ"
+    if not bool(fin.any()):
+        return 0.0
+    return float(((a - b).abs() / b.abs().clamp(min=1e-300))[fin].max())
+
+
+def _fit_flops(p1, R, problems, deriv_steps):
+    """Flops of the Newton kernel's reductions: per eigen row, the
+    normal-equation products (ne) with three weight families (2 flop
+    each) and the weights for a derivative step, one family for a value."""
+    ne = p1 * (p1 + 1) // 2 + p1 + 1
+    return problems * R * (deriv_steps * (7 * ne + 12) + (3 * ne + 4))
+
+
+def check_delta_grid(call, library=True):
+    """K2 (or K7's grid): the kernel against its plain version on one
+    call's operands; a bracket may sit on a near-tie neighbour of the
+    plain argmax (plain lml within 1e-5 relative of the maximum in
+    float32, 1e-12 in float64)."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import delta_grid as k2
+
+    args, kw = call
+    S, WGt, yt, comp, ld_xx, lo, hi, K, n, fast = args[:10]
+    restricted = kw.get("restricted", True)
+    br_lo, br_hi = k2.delta_grid(*args, **kw)
+    plo, phi, lml = k2.delta_grid_plain(*args, **kw, return_lml=True)
+    torch.cuda.synchronize()
+    gap = k2.bracket_shortfall(br_lo, br_hi, lml, lo, hi)
+    tol = 1e-5 if fast == torch.float32 else 1e-12
+    assert gap <= tol, f"delta_grid: bracket shortfall {gap} > {tol}"
+    err = max(float((br_lo - plo).abs().max()),
+              float((br_hi - phi).abs().max()))
+    nrho, R = S.shape
+    p = comp.CWW.shape[0]
+    nS = WGt.shape[2] - p
+    nsh = p * (p + 1) // 2 + p + 2
+    flops = 2 * nrho * K * R * (nS * (p + 2) + nsh)
+    nbytes = F64 * (WGt.numel() + 2 * S.numel() + nS * (p + 4)
+                    + 2 * nS * nrho)
+    b_ms, b_by = bound(flops, nbytes)
+    lib_ms = None
+    if library:
+        # the JAX form: the (nrho, K, R) weights, materialized, against
+        # the rotated products as one batched GEMM
+        dl = torch.sigmoid(k2.logit_grid(lo, hi, K, S.device)).to(fast)
+        Wd = 1.0 / ((1 - dl)[None, :, None] * S.to(fast)[:, None, :]
+                    + dl[None, :, None])
+        Gt, Wt = WGt[:, :, p:], WGt[:, :, :p]
+        fam = torch.cat([Gt * Wt[:, :, j:j + 1] for j in range(p)]
+                        + [Gt * Gt, Gt * yt[:, :, None]], dim=2).to(fast)
+        lib_ms = cuda_ms(lambda: torch.bmm(Wd, fam))
+    name = "delta_grid" if restricted else "delta_grid (ML)"
+    return dict(
+        name=name, route="cuda",
+        source="cellregmap_tpu_torch/csrc/delta_grid.cu",
+        replaces="cellregmap_tpu/engine.py:460", max_abs_err=err,
+        ms=cuda_ms(lambda: k2.delta_grid(*args, **kw)),
+        plain_ms=cuda_ms(lambda: k2.delta_grid_plain(*args, **kw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, flops=flops,
+        nbytes=nbytes, bracket_shortfall=gap,
+        tolerance=f"plain lml at the kernel's grid point within {tol} "
+                  "relative of the plain maximum")
+
+
+def _check_converge(call):
+    """The converge kernel against its plain version; rel errors <= 1e-9.
+    Returns (max abs err, ms, plain ms)."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    args, kw = call
+    got = k3.reml_converge(*args, **kw)
+    want = k3.reml_converge_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("delta", "lml", "scale", "beta")):
+        rel = _rel(g, w)
+        assert rel <= 1e-9, f"reml_converge {name}: rel {rel}"
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return (err, cuda_ms(lambda: k3.reml_converge(*args, **kw)),
+            cuda_ms(lambda: k3.reml_converge_plain(*args, **kw)))
+
+
+def check_reml_newton(loc_call, conv_call):
+    """K3: localize (k_best equal, x at rel 1e-9, lml at 1e-10) and
+    converge (rel 1e-9) against their plain versions."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    args, kw = loc_call
+    x, lml_all, kb = k3.reml_localize(*args, **kw)
+    xp, lml_p, kb_p = k3.reml_localize_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kb, kb_p), "reml_localize: k_best differs"
+    assert _rel(x, xp) <= 1e-9, f"reml_localize x: rel {_rel(x, xp)}"
+    assert _rel(lml_all, lml_p) <= 1e-10, \
+        f"reml_localize lml: rel {_rel(lml_all, lml_p)}"
+    fin = torch.isfinite(lml_p)
+    err = max(float((x - xp).abs().max()),
+              float((lml_all - lml_p)[fin].abs().max()))
+    loc_ms = cuda_ms(lambda: k3.reml_localize(*args, **kw))
+    loc_plain = cuda_ms(lambda: k3.reml_localize_plain(*args, **kw))
+    c_err, c_ms, c_plain = _check_converge(conv_call)
+
+    S, WGt, yt, comp = args[:4]
+    steps, steps3 = args[8], conv_call[0][10]
+    nrho, R = S.shape
+    p = comp.CWW.shape[0]
+    nS = WGt.shape[2] - p
+    flops = (_fit_flops(p + 1, R, nS * nrho, steps)
+             + _fit_flops(p + 1, R, nS, steps3))
+    n_k = int(torch.unique(kb).numel())
+    nbytes = F64 * (WGt.numel() + 2 * S.numel() + nS * (p + 4)
+                    + 2 * nS * nrho + 2 * nS * nrho + nS
+                    + n_k * R * (p + 2) + nS * (p + 4))
+    b_ms, b_by = bound(flops, nbytes)
+    return dict(
+        name="reml_newton", route="cuda",
+        source="cellregmap_tpu_torch/csrc/reml_newton.cu",
+        replaces="cellregmap_tpu/engine.py:538", max_abs_err=max(err, c_err),
+        ms=loc_ms + c_ms, plain_ms=loc_plain + c_plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, flops=flops, nbytes=nbytes,
+        split_ms={"localize": loc_ms, "converge": c_ms},
+        tolerance="localize: k_best equal, x rel <= 1e-9, lml rel <= "
+                  "1e-10; converge: delta, lml, scale, beta rel <= 1e-9")
+
+
+def check_association_kernels(ctx, G, n):
+    """K7 (the ML delta grid and the ML converge of one refit batch) and
+    K10 (the null fit over the rho grid) on the headline's Ls context."""
+    import torch
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+
+    k_rho = int(engine.null_association_fit(ctx, n,
+                                            delta_cfg=ASSOC_DELTA_CFG)[1])
+    calls = capture_kernel_inputs(
+        lambda: engine.association_refit_batch(ctx, G, k_rho, n,
+                                               delta_cfg=ASSOC_DELTA_CFG),
+        ["delta_grid", "reml_converge"])
+    grid = check_delta_grid(calls["delta_grid"][0], library=False)
+    c_err, c_ms, c_plain = _check_converge(calls["reml_converge"][0])
+    cargs = calls["reml_converge"][0][0]
+    S, WGt = cargs[0], cargs[1]
+    R = S.shape[1]
+    p = cargs[3].CWW.shape[0]
+    nS = WGt.shape[2] - p
+    flops = grid["flops"] + _fit_flops(p + 1, R, nS, cargs[10])
+    b_ms, b_by = bound(flops, grid["nbytes"] + F64 * nS * (p + 2))
+    k7 = dict(
+        name="association_refit", route="cuda",
+        source="cellregmap_tpu_torch/csrc/reml_newton.cu",
+        sources=["cellregmap_tpu_torch/csrc/delta_grid.cu",
+                 "cellregmap_tpu_torch/csrc/reml_newton.cu"],
+        replaces="cellregmap_tpu/engine.py:875",
+        max_abs_err=max(grid["max_abs_err"], c_err),
+        ms=grid["ms"] + c_ms, plain_ms=grid["plain_ms"] + c_plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        split_ms={"grid": grid["ms"], "converge": c_ms},
+        tolerance="grid: " + grid["tolerance"] + "; converge: delta, lml, "
+                  "scale, beta rel <= 1e-9")
+
+    calls = capture_kernel_inputs(
+        lambda: engine.null_association_fit(ctx, n,
+                                            delta_cfg=ASSOC_DELTA_CFG),
+        ["null_fit"])
+    (args, kw), = calls["null_fit"]
+    data, _, restricted, lo, hi, n_grid, n_iters = args
+    fits = k10.null_fit(*args, **kw)
+    plain = k10.null_fit_plain(*args, **kw)
+    torch.cuda.synchronize()
+    gaps = k10.fit_gaps(fits, plain, data, n, restricted)
+    assert max(gaps.values()) <= 1e-10, f"null_fit: {gaps}"
+    nrho, R = data.S.shape
+    p = data.Xt.shape[2]
+    evals = nrho * (n_grid + n_iters + 3)
+    flops = evals * R * (3 * (p * (p + 1) // 2 + p + 1) + 8)
+    nbytes = F64 * (nrho * R * (p + 2) + nrho * (p * p + p + 1)
+                    + nrho * (p + 6))
+    b_ms, b_by = bound(flops, nbytes)
+    k10_row = dict(
+        name="null_fit", route="cuda",
+        source="cellregmap_tpu_torch/csrc/null_fit.cu",
+        replaces="cellregmap_tpu/engine.py:268",
+        max_abs_err=float((fits.lml - plain.lml).abs().max()),
+        ms=cuda_ms(lambda: k10.null_fit(*args, **kw)),
+        plain_ms=cuda_ms(lambda: k10.null_fit_plain(*args, **kw), reps=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, gaps=gaps,
+        tolerance="lml, plain lml at the kernel's delta, beta and scale "
+                  "at that delta: rel <= 1e-10")
+    return [k7, k10_row]
+
+
+def association_path(label, d, cfg, Ls=None, cpu_check=64):
+    """One association main path as a user runs it: ``run_association``
+    with hK, or ``scan_association`` on an Ls scanner; launch counts of
+    the run, p-values in (0, 1], and the first ``cpu_check`` variants and
+    the null's best rho against the port on the CPU."""
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import kernels
+
+    n_snps = d["G"].shape[1]
+    batches = -(-n_snps // cfg.snp_batch)
+
+    def run(G, device):
+        if Ls is None:
+            return crp.run_association(d["y"], d["W"], d["E"], G,
+                                       hK=d["hK"], config=cfg, device=device)
+        return crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], Ls=Ls,
+                              config=cfg, device=device).scan_association(G)
+
+    run(d["G"][:, :cfg.snp_batch], "cuda")      # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pv, info = run(d["G"], "cuda")
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    assert pv.shape == (n_snps,) and np.all((pv > 0) & (pv <= 1)), \
+        f"{label}: p-values outside (0, 1]"
+    want = {"kr_contract": 0, "delta_grid": batches, "reml_newton": batches,
+            "best_rho_rotate": 0, "score_core": 0, "null_fit": 1}
+    assert counts == want, f"{label}: launches {counts} != {want}"
+    pv_c, info_c = run(d["G"][:, :cpu_check], "cpu")
+    gap = float(np.max(np.abs(pv[:cpu_check] - pv_c)))
+    assert gap <= 1e-9, f"{label}: |pv_gpu - pv_cpu| = {gap}"
+    assert np.array_equal(info["rho1"], info_c["rho1"]), \
+        f"{label}: the null's best rho differs between the card and the CPU"
+    out = dict(label=label, n_cells=len(d["y"]), n_snps=n_snps,
+               batch=cfg.snp_batch, e2e_s=e2e_s,
+               e2e_tests_per_s=n_snps / e2e_s, launches=counts,
+               rho1=float(info["rho1"][0]), min_pv=float(pv.min()),
+               cpu_check=dict(n=cpu_check, max_abs_pv_diff=gap,
+                              rho1_identical=True))
+    print(f"association {label}: " + json.dumps(out), flush=True)
+    return out, counts
 
 
 def scan_size(label, spec, cfg, warmup=True, cpu_check=0):
@@ -266,8 +539,9 @@ def scan_size(label, spec, cfg, warmup=True, cpu_check=0):
     assert pv.shape == (n_snps,) and np.all((pv > 0) & (pv <= 1)), \
         f"{label}: p-values outside (0, 1]"
     assert np.isfinite(info["Q"]).all()
-    want = {"kr_contract": 3 * batches, "best_rho_rotate": batches,
-            "score_core": batches}
+    want = {"kr_contract": 3 * batches, "delta_grid": batches,
+            "reml_newton": 2 * batches, "best_rho_rotate": batches,
+            "score_core": batches, "null_fit": 0}
     assert counts == want, f"{label}: launches {counts} != {want}"
 
     # setup apart from scan: a scanner's first scan builds the null
@@ -346,14 +620,26 @@ def main() -> int:
     Gb = torch.as_tensor(d["G"][:, :BATCH], device="cuda").contiguous()
     rows = check_kernels(ctx, Gb, len(d["y"]))
 
-    # --- the main path at the headline size, then a second size ---
+    # --- the interaction path at the headline size, then a second size ---
     head, counts = scan_size("headline", HEADLINE, cfg, cpu_check=64)
     assert head["pv_planted"] < 1e-6, \
         f"planted GxC variant {GXE_SNP}: pv {head['pv_planted']}"
     scan_size("cells10k", SECOND, cfg, warmup=False)
 
+    # --- the association paths at the headline size ---
+    _, c_hk = association_path("run_association_hK", d, cfg)
+    _, c_ls = association_path("scan_association_Ls", d, cfg,
+                               Ls=crp.get_L_values(d["hK"], d["E"]))
+
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        if r["name"] == "association_refit":
+            r["launches"] = sum(c[k] for c in (c_hk, c_ls)
+                                for k in ("delta_grid", "reml_newton"))
+        elif r["name"] == "null_fit":
+            r["launches"] = c_hk["null_fit"] + c_ls["null_fit"]
+        else:
+            r["launches"] = counts[r["name"]]
+        assert r["launches"] > 0, f"{r['name']}: no launch on its path"
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

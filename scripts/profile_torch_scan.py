@@ -5,8 +5,8 @@ cells, 10 contexts, 100 donors, 2048 variants, batch 512) once to warm up,
 then once under ``torch.profiler`` with CPU and CUDA activities, and prints:
 
 * the card (nvidia-smi name and power limit);
-* device time by kernel (``key_averages``), the hand-written kernels K1,
-  K4 and K5 apart from the rest;
+* device time by kernel (``key_averages``), the hand-written kernels (K1,
+  K2, K3, K4, K5) apart from the rest, and the device kernels per batch;
 * the device's busy time against the profiled wall time (its idle share);
 * the scan's seconds with ``hybrid_localization`` on and off, five
   alternating pairs on the same card, and the p-value gap between them;
@@ -34,7 +34,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import chip_smoke  # noqa: E402
 import cellregmap_tpu_torch as crp  # noqa: E402
 
-OURS = ("kr_contract_kernel", "best_rho_rotate_kernel", "score_core_kernel")
+OURS = ("kr_contract_kernel", "delta_grid_kernel", "localize_kernel",
+        "converge_kernel", "best_rho_rotate_kernel", "score_core_kernel")
 
 
 def main():
@@ -83,6 +84,8 @@ def main():
         "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
         "n_device_kernels": int(sum(n_launch.values())),
+        "device_kernels_per_batch": sum(n_launch.values())
+        / -(-d["G"].shape[1] // cfg.snp_batch),
         "ours_s": {k: v / 1e6 for k, v in ours_us.items()},
         "top_kernels": [{"name": n[:90], "s": us / 1e6,
                          "launches": n_launch[n]} for n, us in top],

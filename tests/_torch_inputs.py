@@ -1,9 +1,12 @@
-"""Seeded NumPy inputs for the kernel tests of the PyTorch port.
+"""Seeded inputs for the kernel tests of the PyTorch port.
 
-The arrays are consistent with the interaction scan's algebra: each rho has
-an orthonormal rotation of the cells, of which the first R rows play the
-eigenbasis and the rest the complement, so the full-space Grams exceed
-their eigenbasis parts by a PSD complement, as in the engine.
+The NumPy arrays are consistent with the interaction scan's algebra: each
+rho has an orthonormal rotation of the cells, of which the first R rows
+play the eigenbasis and the rest the complement, so the full-space Grams
+exceed their eigenbasis parts by a PSD complement, as in the engine.  The
+fit kernels take their operands from the engine itself: a small dataset's
+null context (:func:`fit_dataset`) run through the engine with the
+wrappers' arguments recorded (:func:`captured`).
 """
 import numpy as np
 
@@ -52,3 +55,51 @@ def score_inputs(seed, C=3, p=1, n=64, R=40, S=9, nrho=4):
     v1 = np.abs(rng.normal(size=S)) + 0.5
     return (Sv, WGt, yt, At, W.T @ W, W.T @ y, W.T @ G, (G * G).sum(0),
             G.T @ y, AW, Ag, Ay, AtA, k_best, v0, v1)
+
+
+def fit_dataset(seed, p=1, nrho=3, n=80, C=3, donors=8, S=7, device="cpu"):
+    """A small interaction/association problem on ``device``: the port's
+    null context over ``nrho`` rho points (E + K (.) EE^T background,
+    R = C (donors + 1)), genotypes G (n, S) as a tensor, and n."""
+    import torch
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.ops.hadamard import get_L_values
+
+    rng = np.random.default_rng(seed)
+    E = rng.normal(size=(n, C)) / np.sqrt(C)
+    W = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, p - 1))], 1)
+    hK = np.zeros((n, donors))
+    hK[np.arange(n), np.arange(n) % donors] = 1.0
+    G = rng.binomial(2, 0.3, size=(n, S)).astype(float)
+    G = (G - G.mean(0)) / np.maximum(G.std(0), 1e-9)
+    y = (rng.normal(size=n) + 0.5 * E @ rng.normal(size=C)
+         + 0.4 * hK @ rng.normal(size=donors) + 0.5 * G[:, 1] * E[:, 0])
+    ctx = engine.build_null_context(y, W, E, Ls=get_L_values(hK, E),
+                                    rho_grid=np.linspace(0, 1, nrho),
+                                    device=device)
+    return ctx, torch.as_tensor(G, device=device), n
+
+
+def captured(run, names):
+    """Run ``run()`` with the engine's kernel wrappers ``names`` recording
+    their positional and keyword arguments; returns name -> [(args, kw)]."""
+    from cellregmap_tpu_torch import engine
+
+    calls = {k: [] for k in names}
+    saved = {k: getattr(engine, k) for k in names}
+
+    def recorder(name):
+        def f(*args, **kw):
+            calls[name].append((args, kw))
+            return saved[name](*args, **kw)
+        return f
+
+    for k in names:
+        setattr(engine, k, recorder(k))
+    try:
+        run()
+    finally:
+        for k, f in saved.items():
+            setattr(engine, k, f)
+    return calls

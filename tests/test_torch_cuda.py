@@ -9,15 +9,22 @@ card and no jax:
 
 Tolerance: the kernels sum in another order than cuBLAS/torch, so the
 outputs agree at 1e-12 of their largest entry (1e-10 for K5, whose K0^{-1}
-forms subtract nearly equal Grams).
+forms subtract nearly equal Grams).  The fits are held as in
+tests/test_torch_cuda_emulated.py: a grid bracket may sit on a near-tie
+neighbour of the plain argmax (plain lml within 1e-5 of the maximum in
+float32, 1e-12 in float64), the Newton results at rtol 1e-9, and the
+golden-section fits through ``null_fit.fit_gaps`` at 1e-10.
 """
 import numpy as np
 import pytest
 import torch
 
-from _torch_inputs import kr_inputs, rotate_inputs, score_inputs
+from _torch_inputs import (captured, fit_dataset, kr_inputs, rotate_inputs,
+                           score_inputs)
 
 CASES = [(C, p) for C in (3, 10, 50) for p in (1, 2)]
+FIT_CASES = [(p, nrho, f32) for p in (1, 2) for nrho in (1, 3, 11)
+             for f32 in (True, False)] + [(5, 11, True), (5, 3, False)]
 
 
 @pytest.fixture
@@ -119,10 +126,115 @@ def test_scan_on_card_matches_cpu(cuda):
     kernels.reset_launches()
     pv_g, info_g = crp.run_interaction(y, E, G, hK=hK, config=cfg,
                                        device=cuda)
-    assert kernels.launch_counts() == {"kr_contract": 12,
+    assert kernels.launch_counts() == {"kr_contract": 12, "delta_grid": 4,
+                                       "reml_newton": 8,
                                        "best_rho_rotate": 4,
-                                       "score_core": 4}
+                                       "score_core": 4, "null_fit": 0}
     pv_c, info_c = crp.run_interaction(y, E, G, hK=hK, config=cfg,
                                        device="cpu")
     assert np.max(np.abs(pv_g - pv_c)) <= 1e-8
+    assert np.array_equal(info_g["rho1"], info_c["rho1"])
+
+
+def _fit_calls(cuda, p, nrho, f32, S=70):
+    """The fit wrappers' arguments on the card: the interaction batch
+    (REML) and the association refit (ML)."""
+    from cellregmap_tpu_torch import engine
+
+    ctx, G, n = fit_dataset(p + 10 * nrho, p=p, nrho=nrho, n=300, C=4,
+                            donors=30, S=S, device=cuda)
+    reml = captured(lambda: engine.interaction_batch(ctx, G, G, n,
+                                                     localize_f32=f32),
+                    ["delta_grid", "reml_localize", "reml_converge"])
+    ml = captured(lambda: engine.association_refit_batch(
+        ctx, G, nrho // 2, n, delta_cfg=(-18.0, 18.0, 256, 60),
+        localize_f32=f32), ["delta_grid", "reml_converge"])
+    return reml, ml
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,nrho,f32", FIT_CASES)
+def test_delta_grid_kernel_matches_plain(cuda, p, nrho, f32):
+    from cellregmap_tpu_torch.kernels import delta_grid as k2
+
+    for calls in _fit_calls(cuda, p, nrho, f32):
+        (args, kw), = calls["delta_grid"]
+        before = k2.launches
+        br_lo, br_hi = k2.delta_grid(*args, **kw)
+        assert k2.launches == before + 1
+        _, _, lml = k2.delta_grid_plain(*args, **kw, return_lml=True)
+        gap = k2.bracket_shortfall(br_lo, br_hi, lml, args[5], args[6])
+        assert gap <= (1e-5 if f32 else 1e-12), gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,nrho,f32", FIT_CASES)
+def test_reml_newton_kernel_matches_plain(cuda, p, nrho, f32):
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    reml, ml = _fit_calls(cuda, p, nrho, f32)
+    (args, kw), = reml["reml_localize"]
+    before = k3.launches
+    x, lml_all, kb = k3.reml_localize(*args, **kw)
+    assert k3.launches == before + 1
+    xp, lml_p, kb_p = k3.reml_localize_plain(*args, **kw)
+    assert torch.equal(kb, kb_p)
+    _close(x, xp, 1e-9)
+    _close(lml_all, lml_p, 1e-10)
+    for calls in (reml, ml):
+        (args, kw), = calls["reml_converge"]
+        got = k3.reml_converge(*args, **kw)
+        want = k3.reml_converge_plain(*args, **kw)
+        for g, w in zip(got, want):
+            assert float(((g - w).abs() / w.abs()).max()) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2, 5])
+@pytest.mark.parametrize("restricted", [False, True])
+def test_null_fit_kernel_matches_plain(cuda, p, restricted):
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+
+    ctx, G, n = fit_dataset(50 + p, p=p, nrho=11, n=300, C=4, donors=30,
+                            device=cuda)
+    M = torch.cat([ctx.W, G[:, :1]], dim=1) if restricted else ctx.W
+    calls = captured(lambda: engine._fit_over_rho(
+        ctx, ctx.Z.T @ M, M.T @ M, M.T @ ctx.y, n, restricted,
+        (-18.0, 18.0, 256, 60)), ["null_fit"])
+    (args, kw), = calls["null_fit"]
+    before = k10.launches
+    fits = k10.null_fit(*args, **kw)
+    assert k10.launches == before + 1
+    gaps = k10.fit_gaps(fits, k10.null_fit_plain(*args, **kw), args[0], n,
+                        restricted)
+    assert max(gaps.values()) <= 1e-10, gaps
+
+
+@pytest.mark.cuda
+def test_association_on_card_matches_cpu(cuda):
+    """A small association scan on the card equals the same scan on the
+    CPU, through the null-fit, grid and Newton kernels."""
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import kernels
+
+    rng = np.random.default_rng(2)
+    n, C, donors, S = 300, 4, 30, 50
+    E = rng.normal(size=(n, C)) / np.sqrt(C)
+    hK = np.zeros((n, donors))
+    hK[np.arange(n), np.arange(n) % donors] = 1.0
+    G = rng.binomial(2, 0.3, size=(n, S)).astype(float)
+    W = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, 1))], axis=1)
+    y = rng.normal(size=n) + 0.5 * hK @ rng.normal(size=donors)
+    cfg = crp.ScanConfig(snp_batch=16)
+    kernels.reset_launches()
+    pv_g, info_g = crp.run_association(y, W, E, G, hK=hK, config=cfg,
+                                       device=cuda)
+    assert kernels.launch_counts() == {"kr_contract": 0, "delta_grid": 4,
+                                       "reml_newton": 4,
+                                       "best_rho_rotate": 0,
+                                       "score_core": 0, "null_fit": 1}
+    pv_c, info_c = crp.run_association(y, W, E, G, hK=hK, config=cfg,
+                                       device="cpu")
+    assert np.max(np.abs(pv_g - pv_c)) <= 1e-9
     assert np.array_equal(info_g["rho1"], info_c["rho1"])
