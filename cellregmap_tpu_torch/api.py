@@ -1,9 +1,12 @@
 """Public CellRegMap API of the PyTorch port (NumPy in / NumPy out).
 
-Mirrors ``cellregmap_tpu.api`` for the interaction scan and the
-association test: ``CellRegMap``, ``run_interaction`` (the reference's
-_cellregmap.py:23-440 and :547-587, with the permutation index forwarded
-to ``idx_G``) and ``run_association`` (:246-281, :471-500).  Every entry
+Mirrors ``cellregmap_tpu.api`` for the interaction scan, the association
+tests and the effect sizes: ``CellRegMap``, ``run_interaction`` (the
+reference's _cellregmap.py:23-440 and :547-587, with the permutation index
+forwarded to ``idx_G``), ``run_association`` (:246-281, :471-500),
+``run_association_fast`` (:284-314, :502-531), ``estimate_betas``
+(:137-205, :640-682) and ``CellRegMap.estimate_aggregate_environment``
+(:207-244).  Every entry
 point runs on ``device``: CUDA unless the caller passes ``device="cpu"``.
 Without a card and without an explicit device it raises; it never falls
 back to the CPU.
@@ -18,6 +21,7 @@ from ._config import DEFAULT_CONFIG, ScanConfig
 from .models import pvalues as pv_mod
 from .ops.hadamard import get_L_values
 from .utils import trace
+from .utils.maf import compute_maf
 
 # per-variant results copied back from each device batch: the info
 # entries, plus the weight matrices that the host ladder consumes
@@ -148,6 +152,7 @@ class CellRegMap:
         self._n = n
         self._ctx_cache = None
         self._null_assoc = None
+        self._bctx = None
 
     @property
     def device(self) -> torch.device:
@@ -185,6 +190,12 @@ class CellRegMap:
         yt = self._upload(y)
         new._ctx_cache = ctx._replace(y=yt, Zy=ctx.Z.T @ yt, Wy=ctx.W.T @ yt,
                                       yy=yt @ yt)
+        # the betas context's y-independent parts (background eigenbasis,
+        # reduced design) are shared; only the y-rotations are recomputed
+        if self._bctx is not None:
+            b = self._bctx
+            new._bctx = b._replace(y=yt, uy=b.Zk.T @ yt, By=b.B.T @ yt,
+                                   yy=yt @ yt)
         return new
 
     def _upload(self, a) -> torch.Tensor:
@@ -283,17 +294,28 @@ class CellRegMap:
         ``association``: the (n,) genotype column and its upload (~3
         copies), the rotated (R,) column with its products and weight
         families (~32 live tensors in the plain Newton), and the plain
-        grid's (K,) reductions (~p + 8 per grid point).
+        grid's (K,) reductions (~p + 8 per grid point).  ``betas``: the
+        (Rk, q) column stack of the complement Grams, the (Rk, C) Ua with
+        its f32 copy (4 B) and the (Rk, C) products of the effect-size
+        algebra (~3 copies), and the (n,) genotype column (~3 copies); Rk
+        is the background's width, read without the null context.
         """
         C = int(self._E0.shape[1])
         p = int(self._W.shape[1])
-        nrho, R = (int(d) for d in self._ctx.S.shape)
-        if kind == "interaction":
-            per_variant = 8 * (48 * nrho * max(R, 1) + 4 * max(R, 1) * C
-                               + 3 * self._n * (C + p))
-        else:  # association
-            per_variant = 8 * (3 * self._n + 32 * max(R, 1)
-                               + self._cfg.n_delta_grid * (p + 8))
+        if kind == "betas":
+            Rk = max(sum(int(L.shape[1]) for L in self._Ls), 1)
+            q = C + p + C + 2          # [A | B, g | y], pB <= p + C
+            per_variant = (8 * (Rk * q + 4 * Rk * C + 3 * self._n)
+                           + 4 * Rk * (C + 2))
+        else:
+            nrho, R = (int(d) for d in self._ctx.S.shape)
+            R = max(R, 1)
+            if kind == "interaction":
+                per_variant = 8 * (48 * nrho * R + 4 * R * C
+                                   + 3 * self._n * (C + p))
+            else:  # association
+                per_variant = 8 * (3 * self._n + 32 * R
+                                   + self._cfg.n_delta_grid * (p + 8))
         if self._device.type == "cuda":
             budget = torch.cuda.mem_get_info(self._device)[0] / 2
         else:
@@ -372,6 +394,146 @@ class CellRegMap:
             info["timers"] = timers.summary()
         return np.asarray(pv, float), info
 
+    def scan_association_fast(self, G, checkpoint=None,
+                              checkpoint_every: int = 1):
+        """LRT association scan with the closed-form fast scanner (reference
+        :284-314): the null's ML fit (K10) once, then every variant's
+        alternative re-profiled at the null's delta and best rho (K8).
+        Returns ``(pvalues, info)`` as :meth:`scan_association`; batches
+        are pipelined in the same way."""
+        cfg = self._cfg
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "checkpointed scans come with the durability slice")
+        G = np.asarray(G, float)
+        if G.ndim == 1:
+            G = G[:, None]
+        timers = trace.PhaseTimers() if cfg.trace else None
+        dev = self._device
+        with trace.trace_scope("association_fast/setup", timers, dev):
+            fits, k = self._fit_null_association()
+        null_lml = float(fits.lml[k])
+        delta = float(fits.delta[k])
+        batch = min(cfg.snp_batch, max(G.shape[1], 1))
+        Gp, n_snps = _pad_batch(G, batch)
+        ctx = self._ctx
+        parts: list = []
+
+        def launch(start):
+            out = engine.fast_scan_batch(
+                ctx, self._upload(Gp[:, start : start + batch]), k, delta,
+                self._n)
+            return {"lml": out.lml}
+
+        _pipelined(_batch_starts(Gp.shape[1], batch, cfg.progress,
+                                 "scan_association_fast"),
+                   launch, lambda out: parts.append(out["lml"]), timers,
+                   "association_fast", dev)
+        alt_lmls = np.concatenate(parts)[:n_snps]
+        pv = pv_mod.lrt_pvalues(null_lml, alt_lmls, dof=1,
+                                clip_lo=cfg.pv_clip_lo,
+                                clip_hi=cfg.pv_clip_hi)
+        info = self._assoc_info(fits, k)
+        if timers is not None:
+            info["timers"] = timers.summary()
+        return np.asarray(pv, float), info
+
+    # -- effect sizes ------------------------------------------------------
+    def _betas_context(self) -> engine.BetasContext:
+        """The background factorization of the effect sizes, built once.
+        It never builds the null context: the rho grid is the scanner's
+        own (``Ls`` or ``hK`` given: n_rho points on [0, 1], else [1])."""
+        if self._bctx is None:
+            self._bctx = engine.build_betas_context(
+                self._y, self._W, self._E0, self._Ls,
+                rho_grid=self._rho_grid, device=self._device,
+                dtype=self._dtype)
+        return self._bctx
+
+    def predict_interaction(self, G, MAF, checkpoint=None,
+                            checkpoint_every: int = 1):
+        """Effect-size decomposition per variant (reference :137-205):
+        returns ``(beta_g (S,), beta_gxe (n, S))``.  Each variant's REML fit
+        over its own covariance family runs on the device (K1, K9); batches
+        are pipelined as in :meth:`scan_interaction`."""
+        cfg = self._cfg
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "checkpointed scans come with the durability slice")
+        G = np.asarray(G, float)
+        if G.ndim == 1:
+            G = G[:, None]
+        maf = np.atleast_1d(np.asarray(MAF, float))
+        norm = 1.0 / np.sqrt(2 * maf * (1 - maf))
+        timers = trace.PhaseTimers() if cfg.trace else None
+        dev = self._device
+        with trace.trace_scope("betas/setup", timers, dev):
+            bctx = self._betas_context()
+        delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
+                     min(16, cfg.n_delta_grid), cfg.n_golden_iters)
+        batch = min(cfg.snp_batch, self._auto_batch_cap("betas"),
+                    max(G.shape[1], 1))
+        Gp, n_snps = _pad_batch(G, batch)
+        normp = np.concatenate([norm, np.repeat(norm[:1],
+                                                Gp.shape[1] - len(norm))])
+        bg_parts: list = []
+        alpha_parts: list = []
+
+        def launch(start):
+            beta_g, alpha, _ = engine.predict_interaction_batch(
+                bctx, self._upload(Gp[:, start : start + batch]),
+                self._upload(normp[start : start + batch]), self._n,
+                delta_cfg=delta_cfg, localize_f32=cfg.hybrid_localization)
+            return {"beta_g": beta_g, "alpha": alpha}
+
+        def consume(out):
+            bg_parts.append(out["beta_g"])
+            alpha_parts.append(out["alpha"])
+
+        _pipelined(_batch_starts(Gp.shape[1], batch, cfg.progress,
+                                 "predict_interaction"),
+                   launch, consume, timers, "betas", dev)
+        beta_g = np.concatenate(bg_parts)[:n_snps]
+        alpha = np.concatenate(alpha_parts, axis=1)[:, :n_snps]
+        if timers is not None:
+            trace.log_event("predict_interaction", n_snps=n_snps,
+                            batch=batch,
+                            **{f"s_{k.rsplit('/', 1)[-1]}": v
+                               for k, v in timers.summary().items()})
+        return beta_g, self._E0 @ alpha
+
+    def estimate_aggregate_environment(self, g):
+        """Per-cell aggregate GxC environment E0 @ beta_gxe of one variant
+        (reference :207-244).  The REML fits over the null's rho grid with
+        the mean [B, g] run on the device (K10); the per-g covariance
+        solve is a Woodbury solve on the host."""
+        cfg = self._cfg
+        g = np.asarray(g, float).ravel()
+        n = self._n
+        E0, W, y = self._E0, self._W, self._y
+        gE = g[:, None] * E0
+        # the reduced full-rank design (see engine.BetasContext)
+        M = np.concatenate((engine.reduced_design_basis(W, E0), g[:, None]),
+                           axis=1)
+        delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
+                     cfg.n_delta_grid, cfg.n_golden_iters)
+        fits = engine.mean_fit(self._ctx, self._upload(M), n, True,
+                               delta_cfg)
+        fits = engine.FitResult(*(t.cpu().numpy() for t in fits))
+        k = int(np.argmax(fits.lml))
+        rho1 = float(self._rho_grid[k])
+        v0, v1 = float(fits.v0[k]), float(fits.v1[k])
+        yadj = y - M @ fits.beta[k]
+        # cov = B + c A A^T with B = v0 (1 - rho1) F F^T + v1 I, c = v0 rho1
+        F = (np.concatenate(self._Ls, axis=1) if len(self._Ls)
+             else np.zeros((n, 1)))
+        c = v0 * rho1
+        Bv = _lowrank_plus_diag_solve(F, v0 * (1 - rho1), v1, yadj)
+        BiA = _lowrank_plus_diag_solve(F, v0 * (1 - rho1), v1, gE)
+        cap = np.eye(E0.shape[1]) + c * (gE.T @ BiA)
+        v = Bv - BiA @ np.linalg.solve(cap, c * (gE.T @ Bv))
+        return E0 @ ((v0 * rho1) * (gE.T @ v))
+
     def _pvalue_ladder(self, Q, Wmat):
         """Host LAPACK eigenvalues of the weight matrices, then the Davies
         ladder; returns (pvalues, lambdas)."""
@@ -405,3 +567,34 @@ def run_association(y, W, E, G, hK=None, config: ScanConfig = DEFAULT_CONFIG,
     Runs on ``device`` (the card unless "cpu" is given)."""
     crm = CellRegMap(y=y, E=E, W=W, hK=hK, config=config, device=device)
     return crm.scan_association(G)
+
+
+def _lowrank_plus_diag_solve(F, a, b, rhs):
+    """(a F F^T + b I)^{-1} rhs via the capacitance identity (host)."""
+    if a == 0.0 or F.shape[1] == 0:
+        return rhs / b
+    cap = np.eye(F.shape[1]) + (a / b) * (F.T @ F)
+    return (rhs - F @ np.linalg.solve(cap, (a / b) * (F.T @ rhs))) / b
+
+
+def run_association_fast(y, W, E, G, hK=None,
+                         config: ScanConfig = DEFAULT_CONFIG, device=None):
+    """Association test (LRT, closed-form fast scanner).  Reference
+    :502-531.  Runs on ``device`` (the card unless "cpu" is given)."""
+    crm = CellRegMap(y=y, E=E, W=W, hK=hK, config=config, device=device)
+    return crm.scan_association_fast(G)
+
+
+def estimate_betas(y, W, E, G, maf=None, E1=None, E2=None, hK=None,
+                   checkpoint=None, config: ScanConfig = DEFAULT_CONFIG,
+                   device=None):
+    """Effect sizes: persistent beta_G and cell-level beta_GxC.  Reference
+    :640-682.  Runs on ``device`` (the card unless "cpu" is given)."""
+    E1 = E if E1 is None else E1
+    E2 = E if E2 is None else E2
+    Ls = None if hK is None else get_L_values(hK, E2)
+    crm = CellRegMap(y=y, E=E, W=W, E1=E1, Ls=Ls, config=config,
+                     device=device)
+    if maf is None:
+        maf = compute_maf(G)
+    return crm.predict_interaction(G, maf, checkpoint=checkpoint)

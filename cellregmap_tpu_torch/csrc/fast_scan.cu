@@ -1,0 +1,215 @@
+// K8: the fast association scan's closed-form alternative lmls, f64, for
+// sm_90a.
+//
+// At the null's fixed delta, with eigenvalues S_r, rotated covariates W_r
+// (p columns), phenotype y_r and candidates G_rs (r < R), and the
+// complements (CWW, cWy, cyy, CWG, cGy, cGG) (cellregmap_tpu/models/
+// lmm.py:863-909 `fast_scan`):
+//
+//   d_r = (1 - delta) S_r + delta,  w_r = 1 / d_r,
+//   A = sum_r w_r W_r W_r^T + CWW / delta,  b = sum_r w_r W_r y_r
+//   + cWy / delta,  yy = sum_r w_r y_r^2 + cyy / delta,
+//   U_s = sum_r w_r W_r G_rs + CWG_s / delta,  cgg_s = sum_r w_r G_rs^2
+//   + cGG_s / delta,  cgy_s = sum_r w_r y_r G_rs + cGy_s / delta,
+//   schur = cgg - U^T A^-1 U,  resid = cgy - b^T A^-1 U,
+//   beta_g = resid / schur,  beta_W = A^-1 b - A^-1 U beta_g,
+//   rss = max(yy - b^T A^-1 b - resid^2 / schur, tiny),
+//   lml = -(n log(2 pi rss / n) + sum_r log d_r + (n - R) log delta + n) / 2,
+//
+// with A^-1 through the ridge Cholesky of `sym_pseudo_solve` (rcond 1e-12 *
+// max(max|diag|, 1)).
+//
+// Replaces: cellregmap_tpu/engine.py `fast_scan_kernel` (:1132-1151) after
+// its rotations, which XLA ran as a handful of (p, R) x (R, S) products and
+// elementwise passes with a shared (p x p) solve.
+//
+// What bounds it on the H100: bytes.  It reads the (R, S) rotated
+// candidates once (4 MB at R = 1010, S = 512) and does ~2 (p + 2) flop per
+// element.  Design: a 256-thread block per 32 variants; lane l of every
+// warp takes variant l, and warp w the rows r = w mod 8, so that a warp
+// reads 32 neighbouring entries of a row of the row-major Gt (coalesced)
+// and the p + 2 sums stay in registers.  The eight warps' partial sums
+// meet in shared memory; warp 0 then reduces the variant-independent A, b,
+// yy and logdet D (lanes over r, an xor-shuffle tree), factors A on every
+// lane and finishes its 32 variants.
+#include <cuda_runtime.h>
+#include <cfloat>
+#include <cstdint>
+
+namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NT = 256;
+constexpr int NWARP = NT / 32;
+
+// Loops over the covariates run to the compile-time PMAX and skip what lies
+// outside [lo, hi), so the small arrays are indexed statically.
+#define SMALL_FOR(i, lo, hi) \
+  for (int i = 0; i < PMAX; ++i) \
+    if (i >= (lo) && i < (hi))
+
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// x = A^-1 v through the lower Cholesky factor L of A
+template <int PMAX>
+__device__ void solve(const double (&L)[PMAX][PMAX], const double* v,
+                      double* x, int p) {
+  SMALL_FOR(i, 0, p) {
+    double t = v[i];
+    SMALL_FOR(k, 0, i) t -= L[i][k] * x[k];
+    x[i] = t / L[i][i];
+  }
+  for (int i = PMAX - 1; i >= 0; --i) {
+    if (i >= p) continue;
+    double t = x[i];
+    SMALL_FOR(k, i + 1, p) t -= L[k][i] * x[k];
+    x[i] = t / L[i][i];
+  }
+}
+
+// max(x, tiny) that keeps a NaN, as torch.clamp and jnp.maximum do
+__device__ __forceinline__ double clamp_tiny(double x) {
+  return x < DBL_MIN ? DBL_MIN : x;
+}
+
+template <int PMAX>
+__global__ void __launch_bounds__(NT)
+fast_scan_kernel(const double* __restrict__ Sv, const double* __restrict__ Wt,
+                 const double* __restrict__ yt,
+                 const double* __restrict__ CWW,
+                 const double* __restrict__ cWy,
+                 const double* __restrict__ cyy,
+                 const double* __restrict__ Gt,
+                 const double* __restrict__ CWG,
+                 const double* __restrict__ cGy,
+                 const double* __restrict__ cGG, double* __restrict__ lml_out,
+                 double* __restrict__ bg_out, double* __restrict__ bW_out,
+                 double* __restrict__ scale_out, double delta, int n, int R,
+                 int p, int S) {
+  // each warp's partial sums over its slice of r, per variant (lane)
+  __shared__ double part[NWARP][PMAX + 2][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int s = blockIdx.x * 32 + lane;
+
+  // the variant's sums over the warp's r: a warp reads 32 neighbouring Gt
+  // entries of a row
+  double U[PMAX], cgg = 0.0, cgy = 0.0;
+  SMALL_FOR(j, 0, p) U[j] = 0.0;
+  if (s < S) {
+    for (int r = warp; r < R; r += NWARP) {
+      const double w = 1.0 / ((1.0 - delta) * Sv[r] + delta);
+      const double g = Gt[(int64_t)r * S + s];
+      const double gw = g * w;
+      const double* x = Wt + (int64_t)r * p;
+      SMALL_FOR(j, 0, p) U[j] += x[j] * gw;
+      cgg += g * gw;
+      cgy += yt[r] * gw;
+    }
+  }
+  SMALL_FOR(j, 0, p) part[warp][j][lane] = U[j];
+  part[warp][PMAX][lane] = cgg;
+  part[warp][PMAX + 1][lane] = cgy;
+  __syncthreads();
+  if (warp != 0) return;
+
+  // warp 0: the variant-independent A, b, yy and logdet D (lanes over r,
+  // an xor-shuffle tree), A's ridge Cholesky and A^-1 b on every lane
+  double A[PMAX][PMAX], b[PMAX], yyw = 0.0, logd = 0.0;
+  SMALL_FOR(i, 0, p) {
+    b[i] = 0.0;
+    SMALL_FOR(j, 0, i + 1) A[i][j] = 0.0;
+  }
+  for (int r = lane; r < R; r += 32) {
+    const double d = (1.0 - delta) * Sv[r] + delta;
+    const double w = 1.0 / d;
+    const double* x = Wt + (int64_t)r * p;
+    const double yv = yt[r];
+    SMALL_FOR(i, 0, p) {
+      const double xw = x[i] * w;
+      SMALL_FOR(j, 0, i + 1) A[i][j] += xw * x[j];
+      b[i] += xw * yv;
+    }
+    yyw += yv * yv * w;
+    logd += log(d);
+  }
+  SMALL_FOR(i, 0, p) {
+    SMALL_FOR(j, 0, i + 1)
+      A[i][j] = warp_sum(A[i][j]) + CWW[i * p + j] / delta;
+    b[i] = warp_sum(b[i]) + cWy[i] / delta;
+  }
+  yyw = warp_sum(yyw) + cyy[0] / delta;
+  logd = warp_sum(logd) + (n - R) * log(delta);
+  double dmax = 0.0;
+  SMALL_FOR(i, 0, p) dmax = fmax(dmax, fabs(A[i][i]));
+  const double ridge = 1e-12 * fmax(dmax, 1.0);
+  SMALL_FOR(j, 0, p) {
+    double dj = A[j][j] + ridge;
+    SMALL_FOR(k, 0, j) dj -= A[j][k] * A[j][k];
+    dj = sqrt(dj);
+    A[j][j] = dj;
+    SMALL_FOR(i, j + 1, p) {
+      double v = A[i][j];
+      SMALL_FOR(k, 0, j) v -= A[i][k] * A[j][k];
+      A[i][j] = v / dj;
+    }
+  }
+  double aib[PMAX], z[PMAX];
+  solve(A, b, aib, p);
+  if (s >= S) return;
+
+  // the variant's epilogue: the slices' sums, then the rank-1 update
+  SMALL_FOR(j, 0, p) {
+    double v = 0.0;
+    for (int w = 0; w < NWARP; ++w) v += part[w][j][lane];
+    U[j] = v + CWG[(int64_t)j * S + s] / delta;
+  }
+  cgg = cGG[s] / delta;
+  cgy = cGy[s] / delta;
+  for (int w = 0; w < NWARP; ++w) {
+    cgg += part[w][PMAX][lane];
+    cgy += part[w][PMAX + 1][lane];
+  }
+  solve(A, U, z, p);
+  double uau = 0.0, bau = 0.0, bab = 0.0;
+  SMALL_FOR(i, 0, p) {
+    uau += U[i] * z[i];
+    bau += b[i] * z[i];
+    bab += b[i] * aib[i];
+  }
+  const double schur = cgg - uau;
+  const double resid = cgy - bau;
+  const double beta_g = resid / schur;
+  SMALL_FOR(i, 0, p) bW_out[(int64_t)s * p + i] = aib[i] - z[i] * beta_g;
+  const double rss = clamp_tiny(yyw - bab - resid * resid / schur);
+  const double scale = rss / n;
+  bg_out[s] = beta_g;
+  scale_out[s] = scale;
+  lml_out[s] = -0.5 * (n * log(6.283185307179586 * scale) + logd + n);
+}
+
+}  // namespace
+
+// S (R,), Wt (R, p), yt (R,), CWW (p, p), cWy (p,), cyy (1,), Gt (R, S),
+// CWG (p, S), cGy (S,), cGG (S,) -> lml, beta_g (S,), beta_W (S, p),
+// scale (S,).
+// Row-major f64 on the card; 1 <= p <= 16.  Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int crm_fast_scan(const double* Sv, const double* Wt,
+                             const double* yt, const double* CWW,
+                             const double* cWy, const double* cyy,
+                             const double* Gt, const double* CWG,
+                             const double* cGy, const double* cGG,
+                             double* lml, double* beta_g, double* beta_W,
+                             double* scale, double delta, int n, int R, int p,
+                             int S, cudaStream_t stream) {
+  auto kernel = p <= 2   ? fast_scan_kernel<2>
+                : p <= 4 ? fast_scan_kernel<4>
+                         : fast_scan_kernel<16>;
+  kernel<<<(S + 31) / 32, NT, 0, stream>>>(Sv, Wt, yt, CWW, cWy, cyy, Gt,
+                                           CWG, cGy, cGG, lml, beta_g, beta_W,
+                                           scale, delta, n, R, p, S);
+  return (int)cudaGetLastError();
+}

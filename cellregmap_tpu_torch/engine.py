@@ -18,7 +18,15 @@ covariance factor ([E1, L_1..L_C]):
 * The association test fits the covariates-only null once per phenotype
   (K10, :func:`null_association_fit`) and refits each variant by ML at the
   null's best rho (K7: K2's and K3's kernels with the ML objective,
-  :func:`association_refit_batch`).
+  :func:`association_refit_batch`), or re-profiles it in closed form at
+  the null's delta (K8, :func:`fast_scan_batch`).
+* The effect sizes fit each variant's own covariance family rho (g E0)
+  (g E0)^T + (1 - rho) K (.) E E^T on the background's eigenbasis
+  (:func:`build_betas_context`): three Khatri-Rao contractions (K1) and the
+  Woodbury family evaluator (K9) in the zoom rounds of
+  ``models.lmm.fit_delta_woodbury_family``
+  (:func:`predict_interaction_batch`).  The aggregate environment's fits
+  over the null's rho grid are K10 with REML (:func:`mean_fit`).
 
 Zero eigenvalues are inert in every formula, so rank padding needs no
 masking and all shapes are static.
@@ -34,11 +42,14 @@ import torch
 from .kernels._normal_eqs import Complements
 from .kernels.best_rho_rotate import best_rho_rotate
 from .kernels.delta_grid import delta_grid
+from .kernels.fast_scan import fast_scan
 from .kernels.kr_contract import kr_contract
 from .kernels.null_fit import null_fit
 from .kernels.reml_newton import reml_converge, reml_localize
 from .kernels.score_core import score_core
-from .models.lmm import EigData, FitResult
+from .kernels.woodbury_family import family_eval
+from .models.lmm import (EigData, FamilyCols, FitResult, FastScanResult,
+                         fit_delta_woodbury_family)
 from .ops.linalg import sym_pseudo_logdet
 
 
@@ -64,7 +75,7 @@ def null_context_from_numpy(arrays: Mapping[str, np.ndarray], device,
     """A :class:`NullContext` on ``device`` from its fields as arrays (for
     instance the JAX engine's context, field by field)."""
     return NullContext(**{
-        f: torch.tensor(np.asarray(arrays[f], float), dtype=dtype,
+        f: torch.tensor(np.array(arrays[f], float, order="C"), dtype=dtype,
                         device=device)
         for f in NullContext._fields})
 
@@ -297,3 +308,177 @@ def association_refit_batch(ctx: NullContext, G: torch.Tensor, k_rho: int,
                                     br_lo, br_hi, n, newton_f64,
                                     restricted=False)
     return lml, beta
+
+
+def fast_scan_batch(ctx: NullContext, G: torch.Tensor, k_rho: int, delta,
+                    n: int) -> FastScanResult:
+    """Closed-form alternative lmls of a variant batch at the null's best
+    rho ``k_rho`` and its ``delta`` (K8; the JAX engine's
+    ``fast_scan_kernel``, reference _cellregmap.py:306-309 through
+    glimix-core's FastScanner).  The complements are those of the JAX
+    kernel, computed through the rotated columns and neither clamped nor
+    clipped."""
+    Vb, Sb = ctx.V[k_rho], ctx.S[k_rho]
+    Wt = Vb.T @ ctx.ZW
+    yt = Vb.T @ ctx.Zy
+    Gt = Vb.T @ (ctx.Z.T @ G)                           # (R, S)
+    CWG = ctx.W.T @ G - Wt.T @ Gt
+    cGy = G.T @ ctx.y - Gt.T @ yt
+    cGG = (G * G).sum(dim=0) - (Gt * Gt).sum(dim=0)
+    return fast_scan(delta, Sb, Wt, yt, ctx.WW - Wt.T @ Wt,
+                     ctx.Wy - Wt.T @ yt, ctx.yy - yt @ yt, Gt, CWG, cGy, cGG,
+                     n)
+
+
+def mean_fit(ctx: NullContext, M: torch.Tensor, n: int,
+             restricted: bool = True, delta_cfg=(-18.0, 18.0, 64, 60)):
+    """Fits over the null's rho grid with a mean matrix M (n, pM) (K10; the
+    JAX engine's ``mean_fit_kernel``, used by the aggregate environment,
+    reference :207-230)."""
+    return _fit_over_rho(ctx, ctx.Z.T @ M, M.T @ M, M.T @ ctx.y, n,
+                         restricted, delta_cfg)
+
+
+# --------------------------------------------------------------------------
+# effect sizes (Woodbury backend)
+# --------------------------------------------------------------------------
+class BetasContext(NamedTuple):
+    """State of the effect sizes: the fixed background U Lam U^T = sum_i
+    L_i L_i^T and the reduced mean design.
+
+    The mean design is D = [B, g] with B the full-rank economic-SVD
+    reduction of [W, E0] (glimix-core's tX = U S convention): the
+    reference's M = [W, g, E0] (_cellregmap.py:155) is often exactly rank
+    deficient.  beta_g is the last coefficient of the reduced design.
+    """
+
+    y: torch.Tensor       # (n,)
+    B: torch.Tensor       # (n, pB) reduced design basis of [W, E0]
+    E0: torch.Tensor      # (n, C)
+    Zk: torch.Tensor      # (n, Rk) eigenbasis of the background
+    Lam: torch.Tensor     # (Rk,)
+    rho: torch.Tensor     # (n_rho,)
+    uy: torch.Tensor      # (Rk,)  Zk^T y
+    UB: torch.Tensor      # (Rk, pB)
+    BB: torch.Tensor      # (pB, pB)
+    By: torch.Tensor      # (pB,)
+    yy: torch.Tensor      # ()
+
+
+def betas_context_from_numpy(arrays: Mapping[str, np.ndarray], device,
+                             dtype=torch.float64) -> BetasContext:
+    """A :class:`BetasContext` on ``device`` from its fields as arrays (for
+    instance the JAX engine's context, field by field)."""
+    return BetasContext(**{
+        f: torch.tensor(np.array(arrays[f], float, order="C"), dtype=dtype,
+                        device=device)
+        for f in BetasContext._fields})
+
+
+def reduced_design_basis(W, E0):
+    """Full-rank basis of span[W, E0] in glimix's tX = U S convention
+    (host NumPy)."""
+    WE = np.concatenate([np.asarray(W, float), np.asarray(E0, float)], axis=1)
+    U, sv, _ = np.linalg.svd(WE, full_matrices=False)
+    keep = sv >= np.sqrt(np.finfo(float).eps)
+    return U[:, keep] * sv[keep]
+
+
+def build_betas_context(y, W, E0, Ls: Optional[Sequence], rho_grid=None, *,
+                        device, dtype=torch.float64) -> BetasContext:
+    """Factorize the background once (host NumPy + one upload): the Gram
+    route basis of [L_1..L_C], the eigendecomposition of the covariance it
+    represents folded into Zk, and the reduced design."""
+    y_np = np.asarray(y, float).ravel()
+    n = y_np.shape[0]
+    W_np = np.ones((n, 1)) if W is None else np.asarray(W, float)
+    E0_np = np.asarray(E0, float)
+    B_np = reduced_design_basis(W_np, E0_np)
+    parts = [np.asarray(L, float) for L in (Ls or [])]
+    if parts:
+        Z0, T = _gram_basis(np.concatenate(parts, axis=1))
+        Lam, Vk = np.linalg.eigh(T @ T.T)
+        Lam = np.maximum(Lam, 0.0)
+        Zk = Z0 @ Vk
+    else:
+        # degenerate background (the reference still runs, with
+        # hSigma_p = sqrt(rho) gE only: _cellregmap.py:164-166)
+        Zk, Lam = np.zeros((n, 1)), np.zeros((1,))
+    rho_np = np.asarray(np.linspace(0.0, 1.0, 11) if rho_grid is None
+                        else rho_grid, float)
+    return betas_context_from_numpy(dict(
+        y=y_np, B=B_np, E0=E0_np, Zk=Zk, Lam=Lam, rho=rho_np, uy=Zk.T @ y_np,
+        UB=Zk.T @ B_np, BB=B_np.T @ B_np, By=B_np.T @ y_np,
+        yy=np.asarray(y_np @ y_np)), device, dtype)
+
+
+def predict_interaction_batch(ctx: BetasContext, G: torch.Tensor,
+                              norm: torch.Tensor, n: int,
+                              delta_cfg=(-18.0, 18.0, 64, 60),
+                              localize_f32: bool = False):
+    """Per-variant REML fits with the covariance rho (g E0)(g E0)^T + (1 -
+    rho) K (.) E E^T, and the effect sizes at each variant's best rho (the
+    JAX engine's ``predict_interaction_kernel``; reference
+    _cellregmap.py:152-198).
+
+    Returns (beta_g (S,), alpha (C, S), info) with beta_gxe = E0 @ alpha
+    computed by the caller, and info = {rho1, v0, v1, lml} (S,).  No host
+    synchronisation.
+    """
+    B, E0, y = ctx.B, ctx.E0, ctx.y
+    pB = B.shape[1]
+    C = E0.shape[1]
+    nS = G.shape[1]
+    lo, hi = delta_cfg[:2]
+
+    # the n-long contractions, once a batch: K1 three times, plain GEMMs
+    G2 = G * G
+    Ua = kr_contract(ctx.Zk, E0, G)                    # (Rk, C, S)
+    ZkG = ctx.Zk.T @ G                                 # (Rk, S)
+    M2 = kr_contract(E0, E0, G2)                       # (C, C, S)  A^T A
+    AB = kr_contract(E0, B, G)                         # (C, pB, S)  A^T B
+    ay = E0.T @ (G * y[:, None])                       # (C, S)
+    Ag2 = E0.T @ G2                                    # (C, S)  A^T g
+    Bg = B.T @ G                                       # (pB, S)
+    gg = G2.sum(dim=0)
+    gy = G.T @ y
+
+    # full-space Grams of [A | B, g | y]: (S, q, q)
+    Ax = torch.cat([AB, Ag2[:, None]], dim=1).permute(2, 0, 1)  # (S, C, p)
+    xx = torch.cat([
+        torch.cat([ctx.BB.expand(nS, pB, pB), Bg.T[:, :, None]], dim=2),
+        torch.cat([Bg.T[:, None, :], gg[:, None, None]], dim=2)], dim=1)
+    xy = torch.cat([ctx.By.expand(nS, pB), gy[:, None]], dim=1)  # (S, p)
+    ayS = ay.T
+    GfullS = torch.cat([
+        torch.cat([M2.permute(2, 0, 1), Ax, ayS[:, :, None]], dim=2),
+        torch.cat([Ax.transpose(1, 2), xx, xy[:, :, None]], dim=2),
+        torch.cat([ayS[:, None, :], xy[:, None, :],
+                   ctx.yy.expand(nS, 1, 1)], dim=2)], dim=1)
+
+    cols = FamilyCols(Ua=Ua, UB=ctx.UB, ug=ZkG, uy=ctx.uy)
+    lml, delta, beta, scale, v0, v1, rho1 = fit_delta_woodbury_family(
+        cols, GfullS, ctx.Lam, ctx.rho, n, True, C, lo, hi,
+        localize_f32=localize_f32, evaluate=family_eval)
+    beta_g = beta[:, pB]
+
+    # alpha = (v0 rho1) (g E0)^T v with v = (v0 Sigma + v1 I)^{-1} (y - M
+    # beta) = D^{-1} r / scale: batched small algebra at one (rho, delta)
+    UaS = Ua.permute(2, 0, 1)                          # (S, Rk, C)
+    Ux = torch.cat([ctx.UB.expand(nS, -1, -1), ZkG.T[:, :, None]], dim=2)
+    c = (1 - delta) * rho1
+    m = ((1 - delta) * (1 - rho1))[:, None] * ctx.Lam + delta[:, None]
+    wm = 1.0 / m                                       # (S, Rk)
+    ur = ctx.uy - (Ux @ beta[:, :, None])[..., 0]      # (S, Rk)
+    ar = ayS - (Ax @ beta[:, :, None])[..., 0]         # (S, C)
+    UaT = UaS.transpose(1, 2)
+    AmR = (UaT @ (ur * wm)[:, :, None])[..., 0] \
+        + (ar - (UaT @ ur[:, :, None])[..., 0]) / delta[:, None]
+    H = UaT @ (UaS * wm[:, :, None]) \
+        + (M2.permute(2, 0, 1) - UaT @ UaS) / delta[:, None, None]
+    cap = torch.eye(C, dtype=H.dtype, device=H.device) + c[:, None, None] * H
+    sol = torch.cholesky_solve(AmR[:, :, None],
+                               torch.linalg.cholesky_ex(cap)[0])
+    AdR = AmR - c[:, None] * (H @ sol)[..., 0]
+    alpha = (v0 * rho1)[:, None] * AdR / scale[:, None] * norm[:, None]
+    return beta_g, alpha.T, {"rho1": rho1, "v0": v0, "v1": v1, "lml": lml}

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the interaction scan and the association
-test, with their plain torch versions.
+"""Hand-written CUDA kernels of the interaction scan, the association tests
+and the effect sizes, with their plain torch versions.
 
 Each wrapper runs its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises); it counts its launches in the
@@ -7,12 +7,13 @@ module-level integer ``launches``.
 """
 from __future__ import annotations
 
-from . import (best_rho_rotate, delta_grid, kr_contract, null_fit,
-               reml_newton, score_core)
+from . import (best_rho_rotate, delta_grid, fast_scan, kr_contract, null_fit,
+               reml_newton, score_core, woodbury_family)
 
 MODULES = {"kr_contract": kr_contract, "delta_grid": delta_grid,
            "reml_newton": reml_newton, "best_rho_rotate": best_rho_rotate,
-           "score_core": score_core, "null_fit": null_fit}
+           "score_core": score_core, "null_fit": null_fit,
+           "fast_scan": fast_scan, "woodbury_family": woodbury_family}
 
 
 def reset_launches() -> None:

@@ -28,7 +28,7 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("kr_contract", "delta_grid", "reml_newton", "best_rho_rotate",
-           "score_core", "null_fit")
+           "score_core", "null_fit", "fast_scan", "woodbury_family")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}

@@ -26,7 +26,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    hK=hK, device="cuda")`` (R = 110) and ``scan_association`` on the
    headline's Ls scanner (R = 1010), each with its launch counts and the
    first 64 variants against the port on the CPU;
-7. one JSON line of the kernels, then the result line.
+7. K8 fast_scan on a headline batch of the Ls scanner and K9
+   woodbury_family on every call of a 512-variant effect-size batch (f32
+   zoom rounds, f64 rounds, the f64 fit with coefficients), each against
+   its plain version and timed as in 3, and K1 on that batch's three
+   contractions (K = Rk, V = E0 or B);
+8. the fast association paths, ``run_association_fast(..., hK=hK,
+   device="cuda")`` and ``scan_association_fast`` on the Ls scanner, at
+   2000 cells x 2048 variants, with launch counts and the first 64
+   variants against the CPU;
+9. the effect sizes, ``estimate_betas(..., hK=hK)`` at 2000 cells x 512
+   variants (a first and a steady call, the traced phase split, launch
+   counts, the first 32 variants' fits against the CPU), and
+   ``estimate_aggregate_environment`` of the planted variant against the
+   CPU (on the headline's scanner, and with an E1 outside E);
+10. one JSON line of the kernels, then the result line.
 
 It imports neither jax nor the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -34,6 +48,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -52,10 +67,12 @@ ASSOC_DELTA_CFG = (-18.0, 18.0, 256, 60)   # the association's grid
 
 HEADLINE = dict(n_cells=2000, n_contexts=10, n_donors=100, n_snps=2048,
                 seed=0)
+BETAS_SNPS = 512       # the JAX bench's betas_2k size (bench.py:462-477)
 SECOND = dict(n_cells=10_000, n_contexts=20, n_donors=125, n_snps=512,
               seed=1)
 BATCH = 512
 GXE_SNP = 7
+CARD = "cuda"          # the device of the main paths
 
 
 def make_dataset(n_cells, n_contexts, n_donors, n_snps, seed=0,
@@ -78,7 +95,7 @@ def make_dataset(n_cells, n_contexts, n_donors, n_snps, seed=0,
          + 0.5 * E @ rng.normal(size=n_contexts)
          + 0.4 * hK @ rng.normal(size=n_donors)
          + 0.2 * G[:, gxe_snp] * E[:, 0] * np.sqrt(n_contexts))
-    return dict(y=y, W=W, E=E, hK=hK, G=G)
+    return dict(y=y, W=W, E=E, hK=hK, G=G, maf=maf)
 
 
 def card_line() -> str:
@@ -112,6 +129,15 @@ def bound(flops, nbytes):
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def expected_launches(**counts):
+    """Every kernel's launch count: 0 unless given."""
+    from cellregmap_tpu_torch import kernels
+
+    want = dict.fromkeys(kernels.MODULES, 0)
+    want.update(counts)
+    return want
 
 
 def capture_kernel_inputs(run, names):
@@ -488,8 +514,8 @@ def association_path(label, d, cfg, Ls=None, cpu_check=64):
     counts = kernels.launch_counts()
     assert pv.shape == (n_snps,) and np.all((pv > 0) & (pv <= 1)), \
         f"{label}: p-values outside (0, 1]"
-    want = {"kr_contract": 0, "delta_grid": batches, "reml_newton": batches,
-            "best_rho_rotate": 0, "score_core": 0, "null_fit": 1}
+    want = expected_launches(delta_grid=batches, reml_newton=batches,
+                             null_fit=1)
     assert counts == want, f"{label}: launches {counts} != {want}"
     pv_c, info_c = run(d["G"][:, :cpu_check], "cpu")
     gap = float(np.max(np.abs(pv[:cpu_check] - pv_c)))
@@ -503,6 +529,371 @@ def association_path(label, d, cfg, Ls=None, cpu_check=64):
                cpu_check=dict(n=cpu_check, max_abs_pv_diff=gap,
                               rho1_identical=True))
     print(f"association {label}: " + json.dumps(out), flush=True)
+    return out, counts
+
+
+class _EventLog(logging.Handler):
+    """The package's structured log lines (``trace.log_event``) of a
+    ``with`` block, as dicts."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+        self._logger = logging.getLogger("cellregmap_tpu_torch")
+
+    def emit(self, record):
+        self.records.append(json.loads(record.getMessage()))
+
+    def __enter__(self):
+        self._level = self._logger.level
+        self._logger.setLevel(logging.INFO)
+        self._logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+        self._logger.setLevel(self._level)
+
+
+def check_fast_scan(ctx, G, n):
+    """K8 on one headline batch of the Ls scanner, at the null's best rho
+    and delta: every output within 1e-10 of max|plain|."""
+    import torch
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import fast_scan as k8
+
+    fits, k = engine.null_association_fit(ctx, n, delta_cfg=ASSOC_DELTA_CFG)
+    k = int(k)
+    delta = float(fits.delta[k])
+    calls = capture_kernel_inputs(
+        lambda: engine.fast_scan_batch(ctx, G, k, delta, n), ["fast_scan"])
+    (args, kw), = calls["fast_scan"]
+    got, want = k8.fast_scan(*args, **kw), k8.fast_scan_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w, name in zip(got, want, want._fields):
+        e = float((g - w).abs().max())
+        rel = e / float(w.abs().max())
+        assert rel <= 1e-10, f"fast_scan {name}: rel {rel}"
+        err = max(err, e)
+    R, p = args[2].shape
+    nS = args[7].shape[1]
+    flops = R * nS * (2 * p + 6) + R * (p * (p + 1) + 2 * p + 6)
+    nbytes = F64 * (R * nS + R * (p + 2) + p * p + p + 1 + nS * (p + 2)
+                    + nS * (p + 3))
+    b_ms, b_by = bound(flops, nbytes)
+
+    def library():
+        # one cuBLAS GEMM of the weighted rotated [W, y] against Gt: the
+        # reductions U and cgy alone
+        Sb, Wt, yt, Gt = args[1], args[2], args[3], args[7]
+        w = 1.0 / ((1 - delta) * Sb + delta)
+        torch.matmul((torch.cat([Wt, yt[:, None]], dim=1) * w[:, None]).T, Gt)
+
+    return dict(
+        name="fast_scan", route="cuda",
+        source="cellregmap_tpu_torch/csrc/fast_scan.cu",
+        replaces="cellregmap_tpu/engine.py:1132", max_abs_err=err,
+        ms=cuda_ms(lambda: k8.fast_scan(*args, **kw)),
+        plain_ms=cuda_ms(lambda: k8.fast_scan_plain(*args, **kw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library),
+        shapes=dict(R=R, p=p, S=nS),
+        tolerance="lml, beta_g, beta_W, scale: max|err| <= 1e-10 * "
+                  "max|plain|")
+
+
+def check_woodbury_family(bctx, G, norm, n):
+    """K9 on every call of one headline effect-size batch (five f32 zoom
+    rounds over all rho, three f64 rounds on the top-2 rho, the f64 fit
+    with coefficients): f64 lml within 1e-10 of max(|lml|, 1) with the same
+    non-finite points, beta and rss within 1e-9 of their largest entry;
+    f32 held to the f64 lml at no more than twice the plain f32 version's
+    distance from it (``woodbury_family.f32_gaps``)."""
+    import torch
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import kr_contract as k1
+    from cellregmap_tpu_torch.kernels import woodbury_family as k9
+
+    captured = capture_kernel_inputs(
+        lambda: engine.predict_interaction_batch(bctx, G, norm, n,
+                                                 localize_f32=True),
+        ["family_eval", "kr_contract"])
+    calls = captured["family_eval"]
+    # K1 at the effect sizes' widths (K = Rk, and V = B): 1e-12 as in 3
+    k1_rel = 0.0
+    for args, kw in captured["kr_contract"]:
+        out, ref = k1.kr_contract(*args), k1.kr_contract_plain(*args)
+        torch.cuda.synchronize()
+        k1_rel = max(k1_rel, float((out - ref).abs().max()
+                                   / ref.abs().max()))
+    assert k1_rel <= 1e-12, f"kr_contract on the betas path: rel {k1_rel}"
+    err, gaps32, gaps64 = 0.0, [], []
+    flops = nbytes = 0
+    pts = {"float32": 0, "float64": 0}
+    for args, kw in calls:
+        got, want = k9.family_eval(*args, **kw), k9.family_eval_plain(*args,
+                                                                     **kw)
+        torch.cuda.synchronize()
+        logits, cols, compS = args[0], args[2], args[3]
+        S, L = logits.shape
+        Rk, C, _ = cols.Ua.shape
+        q = compS.shape[1]
+        sz = logits.element_size()
+        flops += 2 * S * L * Rk * (q * (q + 1) // 2) + S * L * Rk * 6
+        nbytes += sz * (S * Rk * (C + 1) + Rk * (q - C) + S * q * q
+                        + 3 * S * L + S + Rk
+                        + (S * L * (q - C) if kw.get("want_beta") else 0))
+        pts[str(logits.dtype).split(".")[-1]] += L
+        if logits.dtype == torch.float32:
+            g = k9.f32_gaps(got, args, kw)
+            assert g["mask"] == 0 and g["excess"] <= 1e-5, f"K9 f32: {g}"
+            gaps32.append(g)
+            fin = torch.isfinite(got) & torch.isfinite(want)
+            err = max(err, float((got - want)[fin].abs().max()))
+            continue
+        if not kw.get("want_beta"):
+            got, want = (got,), (want,)
+        g = k9.lml_gaps(got[0], want[0])
+        assert g["mask"] == 0 and g["rel"] <= 1e-10, f"K9 f64: {g}"
+        gaps64.append(g)
+        fin = torch.isfinite(want[0])
+        err = max(err, float((got[0] - want[0])[fin].abs().max()))
+        for a, b in zip(got[1:], want[1:]):
+            rel = float((a - b).abs().max() / b.abs().max())
+            assert rel <= 1e-9, f"K9 beta/rss: rel {rel}"
+    b_ms, b_by = bound(flops, nbytes)
+
+    def library():
+        # the Gram alone, as one cuBLAS bmm per call: the points' weights
+        # (S, L, Rk) against the materialized pair products (S, Rk, q(q+1)/2)
+        for (args, _), (W, P) in zip(calls, lib_operands):
+            torch.bmm(W, P)
+
+    lib_operands = []
+    for args, _ in calls:
+        logits, rho, cols, _, Lam = args[:5]
+        dl = torch.sigmoid(logits)
+        W = 1.0 / ((1 - dl)[..., None] * ((1 - rho)[..., None] * Lam)
+                   + dl[..., None])
+        X = torch.cat([cols.Ua.permute(2, 0, 1),
+                       cols.UB.expand(logits.shape[0], -1, -1),
+                       cols.ug.T[:, :, None],
+                       cols.uy.expand(logits.shape[0], -1)[:, :, None]], 2)
+        iu = torch.triu_indices(X.shape[2], X.shape[2], device=X.device)
+        lib_operands.append((W, X[:, :, iu[0]] * X[:, :, iu[1]]))
+        del X
+    lib_ms = cuda_ms(library, reps=5)
+    del lib_operands
+    return dict(
+        name="woodbury_family", route="cuda",
+        source="cellregmap_tpu_torch/csrc/woodbury_family.cu",
+        replaces="cellregmap_tpu/models/lmm.py:435", max_abs_err=err,
+        ms=cuda_ms(lambda: [k9.family_eval(*a, **kw) for a, kw in calls],
+                   reps=5),
+        plain_ms=cuda_ms(lambda: [k9.family_eval_plain(*a, **kw)
+                                  for a, kw in calls], reps=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, calls=len(calls),
+        points_per_variant=pts, flops=flops, nbytes=nbytes,
+        f32_excess=max(g["excess"] for g in gaps32),
+        f64_rel=max(g["rel"] for g in gaps64), k1_betas_rel=k1_rel,
+        tolerance="f64: lml rel <= 1e-10 of max(|lml|, 1), same non-finite "
+                  "points, beta/rss <= 1e-9 of max; f32: |kernel - f64| <= "
+                  "2 |plain - f64| + 1e-5 max(|f64|, 1), masks equal where "
+                  "f32 resolves the lml to 1e-3")
+
+
+def fast_association_path(label, d, cfg, Ls=None, cpu_check=64):
+    """One fast association main path as a user runs it:
+    ``run_association_fast`` with hK, or ``scan_association_fast`` on an Ls
+    scanner; launch counts, p-values in (0, 1], and the first
+    ``cpu_check`` variants against the port on the CPU within the JAX
+    suite's fast-scan budget (rtol 1e-5, atol 1e-12: the null's golden
+    section stops ~1e-8 apart in delta on the two devices, and the
+    alternative lml at a fixed delta moves with it)."""
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import kernels
+
+    n_snps = d["G"].shape[1]
+    batches = -(-n_snps // cfg.snp_batch)
+
+    def run(G, device):
+        if Ls is None:
+            return crp.run_association_fast(d["y"], d["W"], d["E"], G,
+                                            hK=d["hK"], config=cfg,
+                                            device=device)
+        return crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], Ls=Ls,
+                              config=cfg, device=device
+                              ).scan_association_fast(G)
+
+    run(d["G"][:, :cfg.snp_batch], CARD)      # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pv, info = run(d["G"], CARD)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    assert pv.shape == (n_snps,) and np.all((pv > 0) & (pv <= 1)), \
+        f"{label}: p-values outside (0, 1]"
+    want = expected_launches(fast_scan=batches, null_fit=1)
+    assert counts == want, f"{label}: launches {counts} != {want}"
+    pv_c, info_c = run(d["G"][:, :cpu_check], "cpu")
+    gap = float(np.max(np.abs(pv[:cpu_check] - pv_c)))
+    excess = float(np.max(np.abs(pv[:cpu_check] - pv_c)
+                          - (1e-5 * np.abs(pv_c) + 1e-12)))
+    assert excess <= 0, f"{label}: |pv_gpu - pv_cpu| = {gap}"
+    assert np.array_equal(info["rho1"], info_c["rho1"]), \
+        f"{label}: the null's best rho differs between the card and the CPU"
+    out = dict(label=label, n_cells=len(d["y"]), n_snps=n_snps,
+               batch=cfg.snp_batch, e2e_s=e2e_s,
+               e2e_tests_per_s=n_snps / e2e_s, launches=counts,
+               rho1=float(info["rho1"][0]), min_pv=float(pv.min()),
+               cpu_check=dict(n=cpu_check, max_abs_pv_diff=gap,
+                              rho1_identical=True))
+    print(f"association_fast {label}: " + json.dumps(out), flush=True)
+    return out, counts
+
+
+def betas_path(d, cfg, cpu_check=32):
+    """The effect sizes as a user runs them, ``estimate_betas(...,
+    hK=hK)`` at 2000 cells x 512 variants: a first call (kernel modules,
+    the background factorization), a steady call, a traced call for the
+    phase split; launch counts; finite outputs; then the first
+    ``cpu_check`` variants' fits on the card against the CPU under the JAX
+    suite's hybrid rule (tests/test_hybrid.py:62-79: a rho flip only where
+    the lml gap is below 1e-4, beta_G within 1e-7 where rho agrees)."""
+    import dataclasses
+
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import engine, kernels
+
+    G, maf = d["G"][:, :BETAS_SNPS], d["maf"][:BETAS_SNPS]
+    batches = -(-BETAS_SNPS // cfg.snp_batch)
+
+    def run(c):
+        return crp.estimate_betas(d["y"], d["W"], d["E"], G, maf=maf,
+                                  hK=d["hK"], config=c, device=CARD)
+
+    t0 = time.perf_counter()
+    bg, bgxe = run(cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    bg2, bgxe2 = run(cfg)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = expected_launches(kr_contract=3 * batches,
+                             woodbury_family=9 * batches)
+    assert counts == want, f"betas: launches {counts} != {want}"
+    assert bg.shape == (BETAS_SNPS,) and bgxe.shape == (len(d["y"]),
+                                                        BETAS_SNPS)
+    assert np.isfinite(bg).all() and np.isfinite(bgxe).all(), \
+        "betas: non-finite effect sizes"
+    assert np.array_equal(bg, bg2) and np.array_equal(bgxe, bgxe2), \
+        "betas: rerun differs"
+    # traced call: the phase split, from the package's structured log
+    events = _EventLog()
+    with events:
+        t0 = time.perf_counter()
+        run(dataclasses.replace(cfg, trace=True))
+        traced_s = time.perf_counter() - t0
+    phases = {k: v for ev in events.records
+              if ev["event"] == "predict_interaction"
+              for k, v in ev.items() if k.startswith("s_")}
+
+    # the first variants' fits, card against CPU, with rho1 and lml
+    Ls = crp.get_L_values(d["hK"], d["E"])
+    norm = 1.0 / np.sqrt(2 * maf[:cpu_check] * (1 - maf[:cpu_check]))
+    res = {}
+    for dev in (CARD, "cpu"):
+        bctx = engine.build_betas_context(d["y"], d["W"], d["E"], Ls,
+                                          rho_grid=np.linspace(0, 1, 11),
+                                          device=dev)
+        bg_d, _, info = engine.predict_interaction_batch(
+            bctx, torch.as_tensor(G[:, :cpu_check], device=dev),
+            torch.as_tensor(norm, device=dev), len(d["y"]),
+            localize_f32=cfg.hybrid_localization)
+        res[dev] = (bg_d.cpu().numpy(), info["rho1"].cpu().numpy(),
+                    info["lml"].cpu().numpy())
+    (bg_g, rho_g, lml_g), (bg_c, rho_c, lml_c) = res[CARD], res["cpu"]
+    flipped = rho_g != rho_c
+    lml_gap = np.abs(lml_g - lml_c)
+    assert np.all(lml_gap[flipped] < 1e-4), \
+        f"betas: rho flips at lml gaps {lml_gap[flipped]}"
+    bg_gap = float(np.max(np.abs(bg_g - bg_c)[~flipped]))
+    assert bg_gap <= 1e-7, f"betas: |beta_g gpu - cpu| = {bg_gap}"
+    assert np.allclose(bg[:cpu_check][~flipped], bg_g[~flipped], rtol=0,
+                       atol=1e-12), "betas: the API and the engine differ"
+    out = dict(n_cells=len(d["y"]), n_snps=BETAS_SNPS, batch=cfg.snp_batch,
+               first_s=first_s, steady_s=steady_s,
+               steady_tests_per_s=BETAS_SNPS / steady_s, traced_s=traced_s,
+               traced_phase_s=phases, launches=counts,
+               beta_g_planted=float(bg[GXE_SNP]),
+               cpu_check=dict(n=cpu_check, rho_flips=int(flipped.sum()),
+                              max_abs_beta_g_diff=bg_gap,
+                              max_lml_gap=float(lml_gap.max())))
+    print("betas: " + json.dumps(out), flush=True)
+    return out, counts
+
+
+def aggregate_environment_phase(d, cfg):
+    """``estimate_aggregate_environment`` of the planted variant on the
+    headline's Ls scanner: K10 (REML, M = [B, g]) launched once, the result
+    finite and within 1e-5 (tests/test_api.py:180) of the CPU's.  With E1 =
+    E the null family's E E^T part lies in the span of [B, g], so the REML
+    best rho is 0 and the aggregate exactly 0; the same call on a scanner
+    whose E1 background (a seeded (n, C) draw) lies outside that span gives
+    a non-zero aggregate, held in the same way."""
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import engine, kernels
+
+    Ls = crp.get_L_values(d["hK"], d["E"])
+    g = d["G"][:, GXE_SNP]
+    n = len(d["y"])
+    rng = np.random.default_rng(GXE_SNP)
+    E1 = rng.normal(size=d["E"].shape) / np.sqrt(d["E"].shape[1])
+    y1 = d["y"] + E1 @ rng.normal(size=E1.shape[1])
+    out, counts = {}, None
+    for label, y, e1 in (("E1=E", d["y"], None), ("E1 outside E", y1, E1)):
+        crm = crp.CellRegMap(y=y, E=d["E"], E1=e1, W=d["W"], Ls=Ls,
+                             config=cfg, device=CARD)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        agg = crm.estimate_aggregate_environment(g)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        assert c == expected_launches(null_fit=1), \
+            f"aggregate environment: launches {c}"
+        counts = counts or c
+        agg_c = crp.CellRegMap(y=y, E=d["E"], E1=e1, W=d["W"], Ls=Ls,
+                               config=cfg, device="cpu"
+                               ).estimate_aggregate_environment(g)
+        assert agg.shape == (n,) and np.isfinite(agg).all()
+        gap = float(np.max(np.abs(agg - agg_c)))
+        assert gap <= 1e-5, f"aggregate environment: |gpu - cpu| = {gap}"
+        # the REML fits' best rho
+        M = np.concatenate([engine.reduced_design_basis(d["W"], d["E"]),
+                            g[:, None]], axis=1)
+        fits = engine.mean_fit(crm._ctx, torch.as_tensor(M, device=CARD), n,
+                               True, (cfg.delta_logit_lo, cfg.delta_logit_hi,
+                                      cfg.n_delta_grid, cfg.n_golden_iters))
+        out[label] = dict(e2e_s=e2e_s, launches=c, max_abs_diff_cpu=gap,
+                          max_abs=float(np.abs(agg).max()),
+                          rho1=float(crm._rho_grid[int(fits.lml.argmax())]))
+    assert out["E1 outside E"]["max_abs"] > 1e-3, \
+        "aggregate environment: zero where E1 lies outside E"
+    print("aggregate_environment: " + json.dumps(out), flush=True)
     return out, counts
 
 
@@ -539,9 +930,9 @@ def scan_size(label, spec, cfg, warmup=True, cpu_check=0):
     assert pv.shape == (n_snps,) and np.all((pv > 0) & (pv <= 1)), \
         f"{label}: p-values outside (0, 1]"
     assert np.isfinite(info["Q"]).all()
-    want = {"kr_contract": 3 * batches, "delta_grid": batches,
-            "reml_newton": 2 * batches, "best_rho_rotate": batches,
-            "score_core": batches, "null_fit": 0}
+    want = expected_launches(kr_contract=3 * batches, delta_grid=batches,
+                             reml_newton=2 * batches,
+                             best_rho_rotate=batches, score_core=batches)
     assert counts == want, f"{label}: launches {counts} != {want}"
 
     # setup apart from scan: a scanner's first scan builds the null
@@ -627,16 +1018,51 @@ def main() -> int:
     scan_size("cells10k", SECOND, cfg, warmup=False)
 
     # --- the association paths at the headline size ---
+    Ls = crp.get_L_values(d["hK"], d["E"])
     _, c_hk = association_path("run_association_hK", d, cfg)
-    _, c_ls = association_path("scan_association_Ls", d, cfg,
-                               Ls=crp.get_L_values(d["hK"], d["E"]))
+    _, c_ls = association_path("scan_association_Ls", d, cfg, Ls=Ls)
+
+    # --- K8 and K9 against their plain versions, at the headline shapes ---
+    n = len(d["y"])
+    rows.append(check_fast_scan(ctx, Gb, n))
+    bctx = engine.build_betas_context(d["y"], d["W"], d["E"], Ls,
+                                      rho_grid=np.linspace(0, 1, 11),
+                                      device="cuda")
+    maf = d["maf"][:BATCH]
+    norm = torch.as_tensor(1.0 / np.sqrt(2 * maf * (1 - maf)),
+                           device="cuda")
+    rows.append(check_woodbury_family(bctx, Gb, norm, n))
+    del bctx
+    for r in rows[-2:]:
+        print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
+              f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
+              f"{r['plain_ms']:.4f}  library_ms {r['library_ms']:.4f}  "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}); "
+              + json.dumps({k: r[k] for k in ("shapes", "calls",
+                                              "points_per_variant", "flops",
+                                              "nbytes", "f32_excess",
+                                              "f64_rel", "k1_betas_rel")
+                             if k in r}),
+              flush=True)
+
+    # --- fast association, effect sizes, aggregate environment ---
+    _, c_fhk = fast_association_path("run_association_fast_hK", d, cfg)
+    _, c_fls = fast_association_path("scan_association_fast_Ls", d, cfg,
+                                     Ls=Ls)
+    _, c_betas = betas_path(d, cfg)
+    _, c_agg = aggregate_environment_phase(d, cfg)
 
     for r in rows:
         if r["name"] == "association_refit":
             r["launches"] = sum(c[k] for c in (c_hk, c_ls)
                                 for k in ("delta_grid", "reml_newton"))
         elif r["name"] == "null_fit":
-            r["launches"] = c_hk["null_fit"] + c_ls["null_fit"]
+            r["launches"] = sum(c["null_fit"]
+                                for c in (c_hk, c_ls, c_fhk, c_fls, c_agg))
+        elif r["name"] == "fast_scan":
+            r["launches"] = c_fhk["fast_scan"] + c_fls["fast_scan"]
+        elif r["name"] == "woodbury_family":
+            r["launches"] = c_betas["woodbury_family"]
         else:
             r["launches"] = counts[r["name"]]
         assert r["launches"] > 0, f"{r['name']}: no launch on its path"

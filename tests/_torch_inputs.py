@@ -103,3 +103,26 @@ def captured(run, names):
         for k, f in saved.items():
             setattr(engine, k, f)
     return calls
+
+
+def betas_dataset(seed, p=1, n=80, C=3, donors=8, S=5, device="cpu"):
+    """A small effect-size problem on ``device``: the port's betas context
+    (background K (.) EE^T, Rk = C donors, rank permitting), genotypes G
+    (n, S) and their MAF norms as tensors, and n."""
+    import torch
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.ops.hadamard import get_L_values
+
+    rng = np.random.default_rng(seed)
+    E = rng.normal(size=(n, C)) / np.sqrt(C)
+    W = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, p - 1))], 1)
+    hK = np.zeros((n, donors))
+    hK[np.arange(n), np.arange(n) % donors] = 1.0
+    G = rng.binomial(2, 0.3, size=(n, S)).astype(float)
+    y = (rng.normal(size=n) + 0.5 * E @ rng.normal(size=C)
+         + 0.4 * hK @ rng.normal(size=donors) + 0.6 * G[:, 1] * E[:, 0])
+    bctx = engine.build_betas_context(y, W, E, get_L_values(hK, E),
+                                      device=device)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return bctx, t(G), t(np.linspace(1.1, 1.9, S)), n

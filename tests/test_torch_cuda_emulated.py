@@ -17,7 +17,11 @@ it agrees with the plain versions at 1e-12 of the output's largest entry
 a near-tie neighbour of the plain argmax (its plain lml within 1e-5 of the
 maximum in float32, 1e-12 in float64); the Newton results at rtol 1e-9 (a
 few f64 steps from the same bracket, summed in another order); the
-golden-section fits through ``null_fit.fit_gaps`` at 1e-10.
+golden-section fits through ``null_fit.fit_gaps`` at 1e-10.  K9 in float64
+at 1e-10 of max(|lml|, 1); in float32 the first zoom round spans the whole
+delta range, where float32 resolves the lml only to a few percent, so the
+kernel is held to the f64 lml at no more than twice the plain float32
+version's distance from it (``woodbury_family.f32_gaps``).
 """
 import ctypes
 import re
@@ -29,15 +33,17 @@ import pytest
 import torch
 from numpy.testing import assert_allclose
 
-from _torch_inputs import (captured, fit_dataset, kr_inputs, rotate_inputs,
-                           score_inputs)
+from _torch_inputs import (betas_dataset, captured, fit_dataset, kr_inputs,
+                           rotate_inputs, score_inputs)
 from cellregmap_tpu_torch import engine
 from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
 from cellregmap_tpu_torch.kernels import delta_grid as k2
+from cellregmap_tpu_torch.kernels import fast_scan as k8
 from cellregmap_tpu_torch.kernels import kr_contract as k1
 from cellregmap_tpu_torch.kernels import null_fit as k10
 from cellregmap_tpu_torch.kernels import reml_newton as k3
 from cellregmap_tpu_torch.kernels import score_core as k5
+from cellregmap_tpu_torch.kernels import woodbury_family as k9
 
 CSRC = Path(__file__).resolve().parent.parent / "cellregmap_tpu_torch" / "csrc"
 CASES = [(C, p) for C in (3, 10, 50) for p in (1, 2)]
@@ -83,7 +89,16 @@ inline unsigned char emu_xchg[1024][8];
 #define __shared__ static
 #define __restrict__
 #define __launch_bounds__(n)
+#define __align__(n) alignas(n)
+typedef int cudaError_t;
+constexpr int cudaSuccess = 0;
+constexpr int cudaErrorInvalidValue = 1;
+constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp_barriers[threadIdx.x / 32]->arrive_and_wait();
+}
 // value of thread `src` (same block) to every thread of the calling warp
 template <class T> T emu_exchange(T v, unsigned src) {
   const unsigned t = threadIdx.x;
@@ -132,6 +147,10 @@ void emu_launch(F kernel, dim3 grid, dim3 block, A... args) {
 def _emulated(name, workdir):
     src = (CSRC / f"{name}.cu").read_text()
     src = src.replace("#include <cuda_runtime.h>", '#include "emu_runtime.h"')
+    # dynamic shared memory: a block-wide static buffer of the card's limit
+    src = re.sub(r"extern __shared__ __align__\((\d+)\) unsigned char "
+                 r"(\w+)\[\];", r"alignas(\1) static unsigned char "
+                 r"\2[232448];", src)
     # kernel<<<grid, block, smem, stream>>>(args)  ->  emu_launch(kernel, ...)
     src, n = re.subn(r"(\w+)<<<([^,]+),\s*([^,]+),\s*[^,]+,\s*[^>]+>>>\(",
                      r"emu_launch(\1, \2, \3, ", src)
@@ -153,7 +172,8 @@ def libs(tmp_path_factory):
     out = {}
     for name, mod in (("kr_contract", k1), ("best_rho_rotate", k4),
                       ("score_core", k5), ("delta_grid", k2),
-                      ("reml_newton", k3), ("null_fit", k10)):
+                      ("reml_newton", k3), ("null_fit", k10),
+                      ("fast_scan", k8), ("woodbury_family", k9)):
         out[name] = _emulated(name, workdir)
         mod._bind(out[name])
     return out
@@ -182,6 +202,23 @@ def test_kr_contract_source_matches_plain(libs, C, p):
             _p(U), _p(V), _p(G), _p(M), n, K, width, S, None)
         assert err == 0
         _close(M, k1.kr_contract_plain(U, V, G), 1e-12)
+
+
+def test_kr_contract_source_at_the_betas_widths(libs):
+    """The effect sizes' contractions: U = Zk with K = Rk past two 64-row
+    tiles, V = E0 or the reduced design B (11 columns)."""
+    bctx, G, _, _ = betas_dataset(3, C=10, donors=15, n=200, S=9)
+    calls = captured(lambda: engine.predict_interaction_batch(
+        bctx, G, torch.ones(9, dtype=torch.float64), 200), ["kr_contract"])
+    assert bctx.Zk.shape[1] > 128 and bctx.B.shape[1] == 11
+    for args, _ in _contiguous(calls)["kr_contract"]:
+        U, V, Gm = args
+        M = torch.full((U.shape[1], V.shape[1], Gm.shape[1]), np.nan,
+                       dtype=torch.float64)
+        assert libs["kr_contract"].crm_kr_contract(
+            _p(U), _p(V), _p(Gm), _p(M), U.shape[0], U.shape[1], V.shape[1],
+            Gm.shape[1], None) == 0
+        _close(M, k1.kr_contract_plain(U, V, Gm), 1e-12)
 
 
 @pytest.mark.parametrize("C,p", CASES)
@@ -277,3 +314,75 @@ def test_null_fit_source_matches_plain(libs, p, restricted):
     plain = k10.null_fit_plain(*args, **kw)
     gaps = k10.fit_gaps(fits, plain, args[0], n, restricted)
     assert max(gaps.values()) <= 1e-10, gaps
+
+
+@pytest.mark.parametrize("p,nrho", [(1, 1), (2, 3), (5, 3)])
+def test_fast_scan_source_matches_plain(libs, p, nrho):
+    ctx, G, n = fit_dataset(60 + p, p=p, nrho=nrho, S=70)
+    calls = captured(lambda: engine.fast_scan_batch(ctx, G, nrho // 2, 0.41,
+                                                    n), ["fast_scan"])
+    (args, kw), = _contiguous(calls)["fast_scan"]
+    got = k8.call(libs["fast_scan"], *args, **kw)
+    want = k8.fast_scan_plain(*args, **kw)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-12)
+
+
+def _family_calls(seed, C, p=1, donors=8, n=80, S=3, f32=True):
+    """K9's arguments on the effect-size path at small shapes: the zoom
+    rounds' (float32 with ``f32``) and the final float64 call with the
+    coefficients."""
+    bctx, G, norm, n = betas_dataset(seed, p=p, n=n, C=C, donors=donors, S=S)
+    calls = captured(lambda: engine.predict_interaction_batch(
+        bctx, G, norm, n, localize_f32=f32), ["family_eval"])
+    return _contiguous(calls)["family_eval"]
+
+
+def _family_close(lib, args, kw):
+    """K9's source against its plain version on one call: float64 lml at
+    1e-10 of max(|lml|, 1) with the same non-finite points, beta and rss at
+    1e-9 of their largest entry; float32 through ``f32_gaps`` (module
+    doc)."""
+    got = k9.call(lib, *args, **kw)
+    if args[0].dtype == torch.float32:
+        gaps = k9.f32_gaps(got, args, kw)
+        assert gaps["mask"] == 0 and gaps["excess"] <= 1e-5, gaps
+        return got
+    want = k9.family_eval_plain(*args, **kw)
+    if not kw.get("want_beta"):
+        got, want = (got,), (want,)
+    gaps = k9.lml_gaps(got[0], want[0])
+    assert gaps["mask"] == 0 and gaps["rel"] <= 1e-10, gaps
+    for g, w in zip(got[1:], want[1:]):
+        _close(g, w, 1e-9)
+    return got[0]
+
+
+# (C, p, donors): q = C + rank[W, E] + 2 is 7 and 10 (4 points a thread
+# item), 47 (past the 44-column tile of the 4-point items: one point an
+# item); Rk = C donors crosses the 32-row chunk
+@pytest.mark.parametrize("C,p,donors", [(3, 1, 11), (4, 2, 9), (22, 1, 3)])
+def test_woodbury_family_source_matches_plain(libs, C, p, donors):
+    lib = libs["woodbury_family"]
+    calls = _family_calls(70 + C, C, p=p, donors=donors)
+    assert [a[0].dtype for a, _ in calls] == [torch.float32] * 5 \
+        + [torch.float64] * 4
+    assert calls[-1][1].get("want_beta")
+    # one call of each kind: the first f32 round (the whole delta range),
+    # the first f64 round (top-2 rho) and the fit with coefficients
+    for args, kw in (calls[0], calls[5], calls[-1]):
+        _family_close(lib, args, kw)
+
+
+def test_woodbury_family_source_masks_collapsed_f32_points(libs):
+    """A float32 point whose bordered Gram is not positive definite (here a
+    variant whose y complement is made negative) is -inf in both versions;
+    the other variants stay finite."""
+    args, kw = _family_calls(5, 3)[0]
+    assert args[0].dtype == torch.float32
+    comp = args[3].clone()
+    comp[0, -1, -1] = -1e30
+    args = (*args[:3], comp, *args[4:])
+    lml = _family_close(libs["woodbury_family"], args, kw)
+    assert bool(torch.isneginf(lml[0]).all())
+    assert bool(torch.isfinite(lml[1:]).all())
