@@ -33,8 +33,10 @@ class ScanConfig:
     snp_batch:
         Number of variants per device batch; the scan pads the last one.
     pvalue_method:
-        "davies" - host-side exact Davies tail for every test.  The device
-        tails ("auto", "saddlepoint", "liu") are not ported yet.
+        "davies" - host-side exact Davies tail for every test;
+        "liu" / "saddlepoint" - the device tails (kernel K6b) on the device
+        eigenvalues (K6a); "auto" - the saddlepoint, with the pairs below
+        ``davies_threshold`` refined by host eigenvalues and Davies.
     davies_threshold:
         Refinement threshold for pvalue_method="auto".
     davies_acc / davies_lim:

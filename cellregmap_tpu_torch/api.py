@@ -3,7 +3,9 @@
 Mirrors ``cellregmap_tpu.api`` for the interaction scan, the association
 tests and the effect sizes: ``CellRegMap``, ``run_interaction`` (the
 reference's _cellregmap.py:23-440 and :547-587, with the permutation index
-forwarded to ``idx_G``), ``run_association`` (:246-281, :471-500),
+forwarded to ``idx_G``), ``run_interaction_multigene`` (many genes sharing
+one factorization, a capability the reference lacks), ``run_association``
+(:246-281, :471-500),
 ``run_association_fast`` (:284-314, :502-531), ``estimate_betas``
 (:137-205, :640-682) and ``CellRegMap.estimate_aggregate_environment``
 (:207-244).  Every entry
@@ -24,11 +26,23 @@ from .utils import trace
 from .utils.maf import compute_maf
 
 # per-variant results copied back from each device batch: the info
-# entries, plus the weight matrices that the host ladder consumes
+# entries, plus what the p-value ladder consumes: the weight matrices (the
+# host eigenvalues of the davies and auto methods) and the device tails
 _INFO_KEYS = ("Q", "rho1", "e2", "g2", "eps2")
-_RESULT_KEYS = _INFO_KEYS + ("Wmat",)
-# K4 launches one grid row per variant: CUDA's grid y-extent limit
+_TAIL_KEYS = ("pv_liu", "pv_saddlepoint")
+_PVALUE_METHODS = ("davies", "liu", "saddlepoint", "auto")
+# K4 launches one grid row per (gene, variant) pair: CUDA's grid y-extent
+# limit
 _MAX_BATCH = 65535
+
+
+def _result_keys(method: str):
+    """(the device results a batch copies back, the info entries among
+    them) under ``method``: the device tails appear in info only off
+    davies (the JAX package's info contract)."""
+    info = _INFO_KEYS + (_TAIL_KEYS if method != "davies" else ())
+    keys = info + (("Wmat",) if method in ("davies", "auto") else ())
+    return keys + (("lambdas",) if method != "davies" else ()), info
 
 
 def _resolve_device(device=None) -> torch.device:
@@ -212,7 +226,9 @@ class CellRegMap:
         """Score test for GxC interaction per variant (reference :317-440).
 
         Returns ``(pvalues, info)`` with info = {rho1, e2, g2, eps2, Q,
-        lambdas} arrays (and ``timers`` when ``config.trace``).
+        lambdas} arrays, plus the device tails pv_liu and pv_saddlepoint
+        under the liu, saddlepoint and auto methods (and ``timers`` when
+        ``config.trace``).
 
         Up to four batches are in flight on the device: each batch's
         results are copied to pinned host memory behind a CUDA event, and
@@ -223,10 +239,7 @@ class CellRegMap:
         if checkpoint is not None:
             raise NotImplementedError(
                 "checkpointed scans come with the durability slice")
-        if cfg.pvalue_method != "davies":
-            raise NotImplementedError(
-                f"pvalue_method={cfg.pvalue_method!r}: the device tails "
-                "(Liu, saddlepoint) are not ported yet; use 'davies'")
+        method = self._pvalue_method()
         G = np.asarray(G, float)
         if G.ndim == 1:
             G = G[:, None]
@@ -246,6 +259,7 @@ class CellRegMap:
         delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
                      cfg.n_delta_grid_interaction, cfg.n_golden_iters)
 
+        keys, info_keys = _result_keys(method)
         outs: list = []
         pv_parts: list = []
         lam_parts: list = []
@@ -256,13 +270,14 @@ class CellRegMap:
                    else self._upload(Gsp[:, start : start + batch]))
             out = engine.interaction_batch(
                 ctx, gb, gsb, self._n, delta_cfg=delta_cfg,
-                localize_f32=cfg.hybrid_localization)
-            return {k: out[k] for k in _RESULT_KEYS}
+                localize_f32=cfg.hybrid_localization,
+                device_pvalues=method != "davies")
+            return {k: out[k] for k in keys}
 
         def consume(out):
-            outs.append({k: out[k] for k in _INFO_KEYS})
+            outs.append({k: out[k] for k in info_keys})
             with trace.trace_scope("interaction/pvalue_ladder", timers):
-                pv_b, lam_b = self._pvalue_ladder(out["Q"], out["Wmat"])
+                pv_b, lam_b = self._pvalue_ladder(out)
             pv_parts.append(pv_b)
             lam_parts.append(lam_b)
 
@@ -271,7 +286,7 @@ class CellRegMap:
                    launch, consume, timers, "interaction", dev)
 
         info = {k: np.concatenate([o[k] for o in outs])[:n_snps]
-                for k in _INFO_KEYS}
+                for k in info_keys}
         pvalues = np.concatenate(pv_parts)[:n_snps]
         info["lambdas"] = np.concatenate(lam_parts)[:n_snps]
         if timers is not None:
@@ -281,7 +296,8 @@ class CellRegMap:
                                for k, v in timers.summary().items()})
         return np.asarray(pvalues, float), info
 
-    def _auto_batch_cap(self, kind: str = "interaction") -> int:
+    def _auto_batch_cap(self, kind: str = "interaction",
+                        genes: int = 1) -> int:
         """Variant-batch cap keeping the batch's temporaries within half of
         the device's free memory (2 GB on the CPU).
 
@@ -299,6 +315,9 @@ class CellRegMap:
         its f32 copy (4 B) and the (Rk, C) products of the effect-size
         algebra (~3 copies), and the (n,) genotype column (~3 copies); Rk
         is the background's width, read without the null context.
+        ``multigene``: per (gene, variant) of a ``genes``-gene tile, the
+        interaction kind's Newton families, score factor and weight matrix;
+        per variant, the genotype-weighted operands once.
         """
         C = int(self._E0.shape[1])
         p = int(self._W.shape[1])
@@ -312,6 +331,10 @@ class CellRegMap:
             R = max(R, 1)
             if kind == "interaction":
                 per_variant = 8 * (48 * nrho * R + 4 * R * C
+                                   + 3 * self._n * (C + p))
+            elif kind == "multigene":
+                per_variant = 8 * (genes * (48 * nrho * R + 4 * R * C
+                                            + C * C)
                                    + 3 * self._n * (C + p))
             else:  # association
                 per_variant = 8 * (3 * self._n + 32 * R
@@ -534,16 +557,144 @@ class CellRegMap:
         v = Bv - BiA @ np.linalg.solve(cap, c * (gE.T @ Bv))
         return E0 @ ((v0 * rho1) * (gE.T @ v))
 
-    def _pvalue_ladder(self, Q, Wmat):
-        """Host LAPACK eigenvalues of the weight matrices, then the Davies
-        ladder; returns (pvalues, lambdas)."""
+    def _pvalue_method(self) -> str:
+        method = self._cfg.pvalue_method
+        if method not in _PVALUE_METHODS:
+            raise ValueError(f"unknown pvalue_method {method!r}")
+        return method
+
+    def _pvalue_ladder(self, out):
+        """P-values of one batch's host results ``out`` (the JAX package's
+        ladder, cellregmap_tpu/api.py:779-817); returns (pvalues,
+        lambdas).
+
+        ``davies``: host LAPACK eigenvalues of the weight matrices, then
+        the Davies ladder.  ``liu`` / ``saddlepoint``: the device tails as
+        they are.  ``auto``: the saddlepoint value, with the pairs below
+        ``davies_threshold`` refined by host eigenvalues of their weight
+        matrices and the Davies ladder.  The lambdas returned are the host
+        ones under davies and the device ones (K6a) otherwise.
+        """
         cfg = self._cfg
-        Wm = np.asarray(Wmat, float)
-        lambdas = np.linalg.eigvalsh((Wm + np.swapaxes(Wm, -1, -2)) / 2)
-        pv = pv_mod.davies_pvalue_batch(
-            Q, lambdas, lim=cfg.davies_lim, acc=cfg.davies_acc,
-            lambda_filter_ratio=cfg.lambda_filter_ratio)
-        return pv, lambdas
+        method = self._pvalue_method()
+        if method == "liu":
+            return out["pv_liu"], out["lambdas"]
+        if method == "saddlepoint":
+            return out["pv_saddlepoint"], out["lambdas"]
+        if method == "davies":
+            lambdas = _host_eigvalsh(out["Wmat"])
+            pv = pv_mod.davies_pvalue_batch(
+                out["Q"], lambdas, lim=cfg.davies_lim, acc=cfg.davies_acc,
+                lambda_filter_ratio=cfg.lambda_filter_ratio)
+            return pv, lambdas
+        pv = np.asarray(out["pv_saddlepoint"], float).copy()
+        refine = pv < cfg.davies_threshold
+        if refine.any():
+            pv[refine] = pv_mod.davies_pvalue_batch(
+                np.asarray(out["Q"])[refine],
+                _host_eigvalsh(out["Wmat"][refine]), lim=cfg.davies_lim,
+                acc=cfg.davies_acc,
+                lambda_filter_ratio=cfg.lambda_filter_ratio)
+        return pv, out["lambdas"]
+
+    # -- many genes --------------------------------------------------------
+    def scan_interaction_multigene(self, Y, G, gene_batch: int = 16,
+                                   checkpoint=None,
+                                   checkpoint_every: int = 1):
+        """Interaction scan for many genes sharing this factorization (the
+        JAX package's ``scan_interaction_multigene``, api.py:597-711).
+
+        ``Y`` is (n_cells, n_genes).  Genes run in tiles of ``gene_batch``:
+        per (tile, variant batch) the genotype's contractions and rotations
+        are computed once and every kernel launches once for all the
+        tile's genes (``engine.interaction_multigene_batch``).  Variant
+        batches of a tile are pipelined as in :meth:`scan_interaction`,
+        the p-value ladder of a batch running while later ones compute.
+        Returns ``(pvalues (n_genes, n_snps), info)`` with info arrays
+        shaped (n_genes, n_snps) (lambdas (n_genes, n_snps, C)).
+        """
+        cfg = self._cfg
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "checkpointed scans come with the durability slice")
+        method = self._pvalue_method()
+        Y = np.asarray(Y, float)
+        if Y.ndim == 1:
+            Y = Y[:, None]
+        if Y.shape[0] != self._n or Y.shape[1] < 1:
+            raise ValueError("Y must be (n_cells, n_genes) with at least one "
+                             "gene column")
+        if not np.isfinite(Y).all():
+            raise ValueError("Y contains non-finite values")
+        G = np.asarray(G, float)
+        if G.ndim == 1:
+            G = G[:, None]
+        if G.shape[1] < 1:
+            raise ValueError("G must have at least one variant column")
+        n_genes = Y.shape[1]
+        gtile = max(1, min(gene_batch, n_genes))
+        timers = trace.PhaseTimers() if cfg.trace else None
+        dev = self._device
+        with trace.trace_scope("multigene/setup", timers, dev):
+            ctx = self._ctx
+        batch = min(cfg.snp_batch, self._auto_batch_cap("multigene", gtile),
+                    _MAX_BATCH // gtile, max(G.shape[1], 1))
+        Gp, n_snps = _pad_batch(G, batch)
+        Yp, _ = _pad_batch(Y, gtile)
+        delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
+                     cfg.n_delta_grid_interaction, cfg.n_golden_iters)
+        keys, info_keys = _result_keys(method)
+        tiles: list = []
+        for g0 in range(0, Yp.shape[1], gtile):
+            # the tile's phenotypes, gene-major (the kernels take
+            # contiguous operands)
+            Yg = self._upload(np.ascontiguousarray(Yp[:, g0 : g0 + gtile].T))
+            ctx_g = ctx._replace(y=Yg, Zy=Yg @ ctx.Z, Wy=Yg @ ctx.W,
+                                 yy=(Yg * Yg).sum(dim=1))
+            parts: list = []
+
+            def launch(start):
+                gb = self._upload(Gp[:, start : start + batch])
+                out = engine.interaction_multigene_batch(
+                    ctx_g, gb, gb, self._n, delta_cfg=delta_cfg,
+                    device_pvalues=method != "davies",
+                    localize_f32=cfg.hybrid_localization)
+                return {k: out[k] for k in keys}
+
+            def consume(out):
+                # flatten (gene, variant) for the ladder, one batch at a time
+                flat = {k: v.reshape((-1,) + v.shape[2:])
+                        for k, v in out.items()}
+                with trace.trace_scope("multigene/pvalue_ladder", timers):
+                    pv_b, lam_b = self._pvalue_ladder(flat)
+                res = {k: out[k] for k in info_keys}
+                res["pv"] = np.reshape(pv_b, out["Q"].shape)
+                res["lambdas"] = np.reshape(lam_b, out["Q"].shape + (-1,))
+                parts.append(res)
+
+            _pipelined(_batch_starts(Gp.shape[1], batch, cfg.progress,
+                                     "scan_multigene"),
+                       launch, consume, timers, "multigene", dev)
+            tiles.append({k: np.concatenate([r[k] for r in parts],
+                                            axis=1)[:, :n_snps]
+                          for k in parts[0]})
+        res = {k: np.concatenate([t[k] for t in tiles])[:n_genes]
+               for k in tiles[0]}
+        pvalues = np.asarray(res.pop("pv"), float)
+        info = res
+        if timers is not None:
+            info["timers"] = timers.summary()
+            trace.log_event("scan_interaction_multigene", n_genes=n_genes,
+                            n_snps=n_snps, gene_batch=gtile, batch=batch,
+                            **{f"s_{k.rsplit('/', 1)[-1]}": v
+                               for k, v in timers.summary().items()})
+        return pvalues, info
+
+
+def _host_eigvalsh(Wmat):
+    """Host LAPACK eigenvalues of the symmetrized weight matrices."""
+    Wm = np.asarray(Wmat, float)
+    return np.linalg.eigvalsh((Wm + np.swapaxes(Wm, -1, -2)) / 2)
 
 
 def run_interaction(y, E, G, W=None, E1=None, E2=None, hK=None, idx_G=None,
@@ -559,6 +710,30 @@ def run_interaction(y, E, G, W=None, E1=None, E2=None, hK=None, idx_G=None,
     crm = CellRegMap(y=y, E=E, W=W, E1=E1, Ls=Ls, config=config,
                      device=device)
     return crm.scan_interaction(G, idx_G=idx_G)
+
+
+def run_interaction_multigene(Y, E, G, W=None, E1=None, E2=None, hK=None,
+                              Ls=None, gene_batch: int = 16,
+                              config: ScanConfig = DEFAULT_CONFIG,
+                              device=None):
+    """Interaction scan across many genes sharing one factorization (the
+    JAX package's ``run_interaction_multigene``, api.py:1250-1271).
+
+    ``Y`` is (n_cells, n_genes); the covariance family (E, W, K) is
+    factorized once and genes x variants run through the gene-batched
+    kernels.  Returns ``(pvalues (n_genes, n_snps), info)``.  Runs on
+    ``device`` (the card unless "cpu" is given).
+    """
+    Y = np.asarray(Y, float)
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    E1 = E if E1 is None else E1
+    E2 = E if E2 is None else E2
+    if Ls is None and hK is not None:
+        Ls = get_L_values(hK, E2)
+    base = CellRegMap(y=Y[:, 0], E=E, W=W, E1=E1, Ls=Ls, config=config,
+                      device=device)
+    return base.scan_interaction_multigene(Y, G, gene_batch=gene_batch)
 
 
 def run_association(y, W, E, G, hK=None, config: ScanConfig = DEFAULT_CONFIG,

@@ -18,11 +18,15 @@
 // V[k_s] (8 MB), i.e. 4 GB of V reads per batch, which only the 50 MB L2
 // can serve at speed.
 //
-// Design: one block per (variant, 128-wide q tile, 16-wide c block).  The
+// Gene axis: the gene-batched scan rotates one score factor T for every
+// gene of a tile, each gene at its own k_s: the blocks run over (gene,
+// variant) pairs, T is read once per pair and never copied.
+//
+// Design: one block per (pair, 128-wide q tile, 16-wide c block).  The
 // block walks r in chunks of 32, staging T[r-chunk, c-block, s] in shared
 // memory; each thread owns one output row q, reads V[k_s, r, q] coalesced
 // along q, and keeps 16 accumulators in registers (FMA).  The wrapper
-// passes the variants in k_best order (`order`), so blocks that share one
+// passes the pairs in k_best order (`order`), so blocks that share one
 // V[k] are scheduled together and hit it in L2.  Simple and correct: no
 // DMMA tiles, no cp.async/TMA staging yet.
 #include <cuda_runtime.h>
@@ -41,10 +45,11 @@ best_rho_rotate_kernel(const double* __restrict__ V,
                        const int64_t* __restrict__ order,
                        double* __restrict__ At, int R, int C, int S) {
   __shared__ double Ts[RC][CB];
-  const int s = (int)order[blockIdx.y];
+  const int64_t pair = order[blockIdx.y];  // gene * S + variant
+  const int64_t s = pair % S;
   const int q = blockIdx.x * QT + threadIdx.x;
   const int c0 = blockIdx.z * CB;
-  const double* Vk = V + k_best[s] * (int64_t)R * R;
+  const double* Vk = V + k_best[pair] * (int64_t)R * R;
 
   double acc[CB];
 #pragma unroll
@@ -69,7 +74,7 @@ best_rho_rotate_kernel(const double* __restrict__ V,
   }
 
   if (q < R) {
-    double* out = At + ((int64_t)s * R + q) * C;
+    double* out = At + (pair * R + q) * C;
 #pragma unroll
     for (int cc = 0; cc < CB; ++cc)
       if (c0 + cc < C) out[c0 + cc] = acc[cc];
@@ -78,14 +83,16 @@ best_rho_rotate_kernel(const double* __restrict__ V,
 
 }  // namespace
 
-// V (nrho, R, R), T (R, C, S), k_best (S,) int64, order (S,) int64 (a
-// permutation of the variants), At (S, R, C): row-major on the card.
-// Launches on `stream`; returns cudaGetLastError().
+// V (nrho, R, R), T (R, C, S), k_best (genes, S) int64, order (genes S,)
+// int64 (a permutation of the (gene, variant) pairs), At (genes, S, R, C):
+// row-major on the card; genes S <= 65535 (a single phenotype is genes =
+// 1).  Launches on `stream`; returns cudaGetLastError().
 extern "C" int crm_best_rho_rotate(const double* V, const double* T,
                                    const int64_t* k_best,
                                    const int64_t* order, double* At, int R,
-                                   int C, int S, cudaStream_t stream) {
-  const dim3 grid((R + QT - 1) / QT, S, (C + CB - 1) / CB);
+                                   int C, int S, int genes,
+                                   cudaStream_t stream) {
+  const dim3 grid((R + QT - 1) / QT, S * genes, (C + CB - 1) / CB);
   best_rho_rotate_kernel<<<grid, QT, 0, stream>>>(V, T, k_best, order, At, R,
                                                   C, S);
   return (int)cudaGetLastError();

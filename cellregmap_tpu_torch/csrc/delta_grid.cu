@@ -34,7 +34,8 @@
 // 0.014 ms) and does 2 nrho K R S (p + 2) = 2.2 GFLOP of reductions
 // (0.03 ms at the 67 TFLOP/s f32/f64 peak).
 //
-// Design: one 256-thread block per (tile of 32 variants, rho point).  A
+// Design: one 256-thread block per (tile of 32 variants, rho point, gene;
+// the gene-batched scan runs every gene of a tile in one launch).  A
 // lane owns one variant of the tile, a warp a set of grid points.  The
 // block streams the rotated rows in chunks through shared memory: the
 // per-variant products (g w_j, g^2, g y) formed from Gt on the fly
@@ -119,6 +120,16 @@ delta_grid_kernel(const double* __restrict__ Sv,
   // epilogue phase (aliases the above)
   T* shsum = smem;                             // [KP][NSH + 1]
   T* lmlb = shsum + C::KP * (C::NSH + 1);      // [KP][ST]
+
+  // the gene axis: the phenotype's operands and the brackets are offset by
+  // gene, the genotype's are shared
+  const int64_t gi = blockIdx.z;
+  yt += gi * nrho * R;
+  CWy += gi * p;
+  Cyy += gi;
+  Cgy += gi * nS;
+  br_lo += gi * nS * nrho;
+  br_hi += gi * nS * nrho;
 
   const int tid = threadIdx.x;
   const int lane = tid % ST;
@@ -364,12 +375,13 @@ void launch_t(bool reml, dim3 grid, cudaStream_t stream, const double* Sv,
 
 }  // namespace
 
-// Sv (nrho, R), WGt (nrho, R, p + nS), yt (nrho, R), CWW (p, p), CWy (p,),
-// Cyy (1,), CWg (p, nS), Cgy (nS,), Cgg (nS,), ld_xx (nS,) (REML only, else
-// null) -> br_lo, br_hi (nS, nrho).  Row-major f64 on the card; the grid is
-// K points of logit(delta) in [lo, hi]; fast32 selects the float working
-// type; 1 <= p + 1 <= 16.  Launches on `stream`; returns
-// cudaGetLastError().
+// Sv (nrho, R), WGt (nrho, R, p + nS), yt (genes, nrho, R), CWW (p, p),
+// CWy (genes, p), Cyy (genes,), CWg (p, nS), Cgy (genes, nS), Cgg (nS,),
+// ld_xx (nS,) (REML only, else null) -> br_lo, br_hi (genes, nS, nrho).
+// Row-major f64 on the card; the grid is K points of logit(delta) in
+// [lo, hi]; fast32 selects the float working type; 1 <= p + 1 <= 16; one
+// block row per gene (genes <= 65535; a single phenotype is genes = 1).
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int crm_delta_grid(const double* Sv, const double* WGt,
                               const double* yt, const double* CWW,
                               const double* CWy, const double* Cyy,
@@ -377,9 +389,9 @@ extern "C" int crm_delta_grid(const double* Sv, const double* WGt,
                               const double* Cgg, const double* ld_xx,
                               double* br_lo, double* br_hi, double lo,
                               double hi, int K, int n, int nrho, int R, int p,
-                              int nS, int fast32, int reml,
+                              int nS, int genes, int fast32, int reml,
                               cudaStream_t stream) {
-  const dim3 grid((nS + ST - 1) / ST, nrho);
+  const dim3 grid((nS + ST - 1) / ST, nrho, genes);
   if (fast32)
     launch_t<float>(reml != 0, grid, stream, Sv, WGt, yt, CWW, CWy, Cyy, CWg,
                     Cgy, Cgg, ld_xx, br_lo, br_hi, lo, hi, K, n, nrho, R, p,

@@ -26,12 +26,31 @@
 // a vmap over rho of 2 + n_grid + n_iters sequential tiny fits.
 //
 // What bounds it on the H100: latency.  The work is (n_grid + n_iters + 3)
-// reductions over R per rho (~0.02 GFLOP at R = 1010), but the
+// reductions over R per rho (~0.02 GFLOP at R = 1010, p = 1), but the
 // golden-section steps are sequential.  Design: one 256-thread block per
-// rho point.  The grid points are spread over the block's 8 warps (lanes
-// over r, an xor-shuffle tree, the (p x p) algebra on every lane); then
-// warp 0 runs the golden section alone, lane 0's objective value deciding
-// each step for the whole warp.
+// rho point, in two instantiations.
+//
+// Narrow (p <= 16): the grid points are spread over the block's 8 warps
+// (lanes over r, an xor-shuffle tree, the (p x p) algebra on every lane);
+// then warp 0 runs the golden section alone, lane 0's objective value
+// deciding each step for the whole warp.
+//
+// Wide (16 < p <= 64, the aggregate environment at many contexts, where
+// p = rank[W, E] + 1): per-lane (p x p) arrays would spill, so the normal
+// equations live in shared memory (packed lower triangle, 16.6 KB at
+// p = 64).  Every objective evaluation reduces over R with the whole
+// block: the rows stream through shared memory in chunks of 16, each
+// thread owning up to 9 of the p (p + 1) / 2 + p + 2 sums in registers.
+// The ridge Cholesky runs right-looking in shared memory (one column a
+// step, the trailing update over the block), the triangular solves and
+// the lml on thread 0.  An evaluation is one block's work, so the wide
+// fit runs as three launches: logdet(X^T X) per rho (REML), one block per
+// (grid point, rho) for the grid (the grid's evaluations are independent:
+// they fill the card), then one block per rho for the argmax, the golden
+// section and the final fit, each golden-section decision read from
+// shared memory so that the whole block follows one control flow.  The
+// grid values and the logdets pass through a scratch buffer of nrho
+// (n_grid + 1) doubles.
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
@@ -263,20 +282,321 @@ null_fit_kernel(const double* __restrict__ Sv, const double* __restrict__ Xt,
   }
 }
 
+// ---------------------------------------------------------------------------
+// wide instantiation: 16 < p <= 64, the algebra in shared memory
+// ---------------------------------------------------------------------------
+constexpr int WMAX = 64;                                // p of the wide kernel
+constexpr int WTRI = WMAX * (WMAX + 1) / 2;
+constexpr int WACC = (WTRI + WMAX + 2 + NT - 1) / NT;   // sums a thread
+constexpr int WRC = 16;                                 // rows a chunk
+
+struct Wide {
+  double A[WTRI];          // packed lower triangle: A[i (i + 1) / 2 + j]
+  double b[WMAX], z[WMAX];
+  double X[WRC * WMAX], y[WRC], w[WRC], ld[WRC];
+  double yDy, logd, val;
+};
+
+__device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
+
+// The normal equations of one rho point at delta (gram: the unweighted
+// Gram X^T X + Cxx instead) into sh.A, sh.b, sh.yDy, sh.logd: the whole
+// block reduces over R, complements added.  Ends with a barrier.
+__device__ void wide_sums(const Rho& o, double delta, bool gram, Wide& sh) {
+  const int tid = threadIdx.x, p = o.p;
+  const int ntri = p * (p + 1) / 2, nent = ntri + p + 2;
+  int ei[WACC], ej[WACC];
+  double acc[WACC];
+#pragma unroll
+  for (int t = 0; t < WACC; ++t) {
+    const int e = tid + t * NT;
+    int i = 0, j = 0;
+    if (e < ntri) {
+      i = (int)((sqrt(8.0 * e + 1.0) - 1.0) * 0.5);
+      while (tri(i, 0) > e) --i;
+      while (tri(i + 1, 0) <= e) ++i;
+      j = e - tri(i, 0);
+    } else if (e < ntri + p) {
+      i = e - ntri;          // b_i: X_i against y
+      j = -1;
+    } else {
+      i = e - ntri - p - 2;  // -2: y^2, -1: log d
+      j = -2;
+    }
+    ei[t] = i;
+    ej[t] = e < nent ? j : -3;
+    acc[t] = 0.0;
+  }
+  for (int r0 = 0; r0 < o.R; r0 += WRC) {
+    const int rows = min(WRC, o.R - r0);
+    for (int idx = tid; idx < rows * p; idx += NT)
+      sh.X[idx] = o.X[(int64_t)r0 * p + idx];
+    if (tid < rows) {
+      const double d = (1.0 - delta) * o.S[r0 + tid] + delta;
+      sh.y[tid] = o.y[r0 + tid];
+      sh.w[tid] = gram ? 1.0 : 1.0 / d;
+      sh.ld[tid] = log(d);
+    }
+    __syncthreads();
+    for (int rr = 0; rr < rows; ++rr) {
+      const double* x = sh.X + rr * p;
+      const double w = sh.w[rr], yv = sh.y[rr];
+#pragma unroll
+      for (int t = 0; t < WACC; ++t) {
+        const int i = ei[t], j = ej[t];
+        if (j >= 0) acc[t] += x[i] * w * x[j];
+        else if (j == -1) acc[t] += x[i] * w * yv;
+        else if (j == -2) acc[t] += i == -2 ? yv * yv * w : sh.ld[rr];
+      }
+    }
+    __syncthreads();
+  }
+  const double ic = gram ? 1.0 : 1.0 / delta;
+#pragma unroll
+  for (int t = 0; t < WACC; ++t) {
+    const int i = ei[t], j = ej[t];
+    if (j >= 0) sh.A[tri(i, j)] = acc[t] + o.Cxx[i * p + j] * ic;
+    else if (j == -1) sh.b[i] = acc[t] + o.cxy[i] * ic;
+    else if (j == -2 && i == -2) sh.yDy = acc[t] + o.cyy * ic;
+    else if (j == -2) sh.logd = acc[t] + (o.n - o.R) * log(delta);
+  }
+  __syncthreads();
+}
+
+// ridge Cholesky of sh.A in place (right-looking, over the block); returns
+// logdet on every thread.  Starts and ends with the block in step.
+__device__ double wide_chol(int p, Wide& sh) {
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    double dmax = 0.0;
+    for (int i = 0; i < p; ++i) dmax = fmax(dmax, fabs(sh.A[tri(i, i)]));
+    const double ridge = 1e-12 * fmax(dmax, 1.0);
+    for (int i = 0; i < p; ++i) sh.A[tri(i, i)] += ridge;
+  }
+  __syncthreads();
+  for (int j = 0; j < p; ++j) {
+    if (tid == 0) sh.A[tri(j, j)] = sqrt(sh.A[tri(j, j)]);
+    __syncthreads();
+    const double d = sh.A[tri(j, j)];
+    for (int i = j + 1 + tid; i < p; i += NT) sh.A[tri(i, j)] /= d;
+    __syncthreads();
+    // trailing update of the lower triangle: rows i > j, columns j < k <= i
+    const int m = p - j - 1;
+    for (int idx = tid; idx < m * (m + 1) / 2; idx += NT) {
+      int a = (int)((sqrt(8.0 * idx + 1.0) - 1.0) * 0.5);
+      while (a * (a + 1) / 2 > idx) --a;
+      while ((a + 1) * (a + 2) / 2 <= idx) ++a;
+      const int i = j + 1 + a, k = j + 1 + idx - a * (a + 1) / 2;
+      sh.A[tri(i, k)] -= sh.A[tri(i, j)] * sh.A[tri(k, j)];
+    }
+    __syncthreads();
+  }
+  double logdet = 0.0;
+  for (int i = 0; i < p; ++i) logdet += log(sh.A[tri(i, i)]);
+  return 2.0 * logdet;
+}
+
+// The fit at delta: lml (every thread), beta in sh.z, scale and rss on
+// thread 0.
+__device__ double wide_fit(const Rho& o, double delta, Wide& sh,
+                           double& scale, double& rss) {
+  const int p = o.p;
+  wide_sums(o, delta, false, sh);
+  const double logdet_a = wide_chol(p, sh);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p; ++i) {
+      double v = sh.b[i];
+      for (int k = 0; k < i; ++k) v -= sh.A[tri(i, k)] * sh.z[k];
+      sh.z[i] = v / sh.A[tri(i, i)];
+    }
+    for (int i = p - 1; i >= 0; --i) {
+      double v = sh.z[i];
+      for (int k = i + 1; k < p; ++k) v -= sh.A[tri(k, i)] * sh.z[k];
+      sh.z[i] = v / sh.A[tri(i, i)];
+    }
+    double bb = 0.0;
+    for (int i = 0; i < p; ++i) bb += sh.b[i] * sh.z[i];
+    rss = fmax(sh.yDy - bb, DBL_MIN);
+    const double two_pi = 6.283185307179586;
+    if (o.reml) {
+      const double nu = o.n - p;
+      scale = rss / nu;
+      sh.val = -0.5 * (nu * log(two_pi * scale) + sh.logd + logdet_a -
+                       o.ld_xx + nu);
+    } else {
+      scale = rss / o.n;
+      sh.val = -0.5 * (o.n * log(two_pi * scale) + sh.logd + o.n);
+    }
+  }
+  __syncthreads();
+  const double v = sh.val;
+  __syncthreads();
+  return v;
+}
+
+__device__ double wide_objective(const Rho& o, double x, Wide& sh) {
+  double scale, rss;
+  return wide_fit(o, sigmoid(x), sh, scale, rss);
+}
+
+// rho point ro's operands (logdet(X^T X) left at 0)
+__device__ Rho wide_rho(const double* Sv, const double* Xt, const double* yt,
+                        const double* Cxx, const double* cxy,
+                        const double* cyy, int ro, int n, int R, int p,
+                        int reml) {
+  Rho o;
+  o.S = Sv + (int64_t)ro * R;
+  o.X = Xt + (int64_t)ro * R * p;
+  o.y = yt + (int64_t)ro * R;
+  o.Cxx = Cxx + (int64_t)ro * p * p;
+  o.cxy = cxy + (int64_t)ro * p;
+  o.cyy = cyy[ro];
+  o.R = R;
+  o.p = p;
+  o.n = n;
+  o.reml = reml != 0;
+  o.ld_xx = 0.0;
+  return o;
+}
+
+// logdet(Xt^T Xt + Cxx) of each rho point (delta-independent; REML)
+__global__ void __launch_bounds__(NT)
+null_fit_wide_ldxx_kernel(const double* __restrict__ Sv,
+                          const double* __restrict__ Xt,
+                          const double* __restrict__ yt,
+                          const double* __restrict__ Cxx,
+                          const double* __restrict__ cxy,
+                          const double* __restrict__ cyy,
+                          double* __restrict__ ldxx, int n, int R, int p) {
+  __shared__ Wide sh;
+  const Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, blockIdx.x, n, R, p, 1);
+  wide_sums(o, 0.5, true, sh);
+  const double ld = wide_chol(p, sh);
+  if (threadIdx.x == 0) ldxx[blockIdx.x] = ld;
+}
+
+// the objective at grid point blockIdx.x of rho point blockIdx.y
+__global__ void __launch_bounds__(NT)
+null_fit_wide_grid_kernel(const double* __restrict__ Sv,
+                          const double* __restrict__ Xt,
+                          const double* __restrict__ yt,
+                          const double* __restrict__ Cxx,
+                          const double* __restrict__ cxy,
+                          const double* __restrict__ cyy,
+                          const double* __restrict__ ldxx,
+                          double* __restrict__ vals, double lo, double hi,
+                          int n_grid, int n, int R, int p, int reml) {
+  __shared__ Wide sh;
+  const int k = blockIdx.x, ro = blockIdx.y;
+  Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, ro, n, R, p, reml);
+  if (o.reml) o.ld_xx = ldxx[ro];
+  const double v = wide_objective(o, logit_at(lo, hi, n_grid, k), sh);
+  if (threadIdx.x == 0) vals[(int64_t)ro * n_grid + k] = v;
+}
+
+// the argmax of rho point blockIdx.x's grid, the golden section and the
+// final fit
+__global__ void __launch_bounds__(NT)
+null_fit_wide_kernel(const double* __restrict__ Sv,
+                     const double* __restrict__ Xt,
+                     const double* __restrict__ yt,
+                     const double* __restrict__ Cxx,
+                     const double* __restrict__ cxy,
+                     const double* __restrict__ cyy,
+                     const double* __restrict__ ldxx,
+                     const double* __restrict__ vals,
+                     double* __restrict__ lml_out,
+                     double* __restrict__ delta_out,
+                     double* __restrict__ beta_out,
+                     double* __restrict__ scale_out,
+                     double* __restrict__ v0_out, double* __restrict__ v1_out,
+                     double* __restrict__ rss_out, double lo, double hi,
+                     int n_grid, int n_iters, int n, int R, int p, int reml) {
+  __shared__ Wide sh;
+  const int ro = blockIdx.x;
+  Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, ro, n, R, p, reml);
+  if (o.reml) o.ld_xx = ldxx[ro];
+  const double* vr = vals + (int64_t)ro * n_grid;
+
+  // argmax (a NaN wins and stops the scan), on every thread
+  int kb = 0;
+  double best = vr[0];
+  for (int k = 1; k < n_grid && !isnan(best); ++k) {
+    const double v = vr[k];
+    if (isnan(v) || v > best) {
+      best = v;
+      kb = k;
+    }
+  }
+  double a = logit_at(lo, hi, n_grid, max(kb - 1, 0));
+  double b = logit_at(lo, hi, n_grid, min(kb + 1, n_grid - 1));
+
+  double h = b - a;
+  double x1 = a + INVPHI2 * h, x2 = a + INVPHI * h;
+  double f1 = wide_objective(o, x1, sh), f2 = wide_objective(o, x2, sh);
+  for (int it = 0; it < n_iters; ++it) {
+    const bool left = f1 > f2;
+    a = left ? a : x1;
+    b = left ? x2 : b;
+    h = b - a;
+    const double x1n = left ? a + INVPHI2 * h : x2;
+    const double x2n = left ? x1 : a + INVPHI * h;
+    const double fe = wide_objective(o, left ? x1n : x2n, sh);
+    const double f1n = left ? fe : f2;
+    f2 = left ? f1 : fe;
+    f1 = f1n;
+    x1 = x1n;
+    x2 = x2n;
+  }
+  const double delta = sigmoid(f1 > f2 ? x1 : x2);
+  double scale, rss;
+  const double lml = wide_fit(o, delta, sh, scale, rss);
+  if (threadIdx.x == 0) {
+    lml_out[ro] = lml;
+    delta_out[ro] = delta;
+    for (int i = 0; i < p; ++i) beta_out[(int64_t)ro * p + i] = sh.z[i];
+    scale_out[ro] = scale;
+    v0_out[ro] = scale * (1 - delta);
+    v1_out[ro] = scale * delta;
+    rss_out[ro] = rss;
+  }
+}
+
 }  // namespace
 
 // S (nrho, R), Xt (nrho, R, p), yt (nrho, R), Cxx (nrho, p, p), cxy
 // (nrho, p), cyy (nrho,) -> lml, delta (nrho,), beta (nrho, p), scale, v0,
-// v1, rss (nrho,).  Row-major f64 on the card; 1 <= p <= 16,
-// n_grid <= 1024.  Launches on `stream`; returns cudaGetLastError().
+// v1, rss (nrho,); scratch: nrho (n_grid + 1) doubles (the wide
+// instantiation's).  Row-major f64 on the card; 1 <= p <= 64 (the wide
+// instantiation above 16), n_grid <= 1024.  Launches on `stream`; returns
+// cudaGetLastError() after each launch.
 extern "C" int crm_null_fit(const double* Sv, const double* Xt,
                             const double* yt, const double* Cxx,
                             const double* cxy, const double* cyy, double* lml,
                             double* delta, double* beta, double* scale,
-                            double* v0, double* v1, double* rss, double lo,
-                            double hi, int n_grid, int n_iters, int n,
-                            int nrho, int R, int p, int reml,
-                            cudaStream_t stream) {
+                            double* v0, double* v1, double* rss,
+                            double* scratch, double lo, double hi,
+                            int n_grid, int n_iters, int n, int nrho, int R,
+                            int p, int reml, cudaStream_t stream) {
+  if (p > 16) {
+    double* ldxx = scratch;                  // (nrho,)
+    double* vals = scratch + nrho;           // (nrho, n_grid)
+    if (reml) {
+      null_fit_wide_ldxx_kernel<<<nrho, NT, 0, stream>>>(
+          Sv, Xt, yt, Cxx, cxy, cyy, ldxx, n, R, p);
+      const int err = (int)cudaGetLastError();
+      if (err) return err;
+    }
+    const dim3 grid(n_grid, nrho);
+    null_fit_wide_grid_kernel<<<grid, NT, 0, stream>>>(
+        Sv, Xt, yt, Cxx, cxy, cyy, ldxx, vals, lo, hi, n_grid, n, R, p, reml);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+    null_fit_wide_kernel<<<nrho, NT, 0, stream>>>(
+        Sv, Xt, yt, Cxx, cxy, cyy, ldxx, vals, lml, delta, beta, scale, v0,
+        v1, rss, lo, hi, n_grid, n_iters, n, R, p, reml);
+    return (int)cudaGetLastError();
+  }
   auto kernel = p <= 2   ? null_fit_kernel<2>
                 : p <= 4 ? null_fit_kernel<4>
                          : null_fit_kernel<16>;

@@ -379,6 +379,17 @@ localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                 double* __restrict__ lml_out, int64_t* __restrict__ k_best,
                 int n, int nrho, int R, int p, int nS, int steps, int r32) {
   __shared__ double lml_sh[LOC_MAX_WARPS];
+  // the gene axis: phenotype operands and outputs offset by gene
+  const int64_t gi = blockIdx.y;
+  yt += gi * nrho * R;
+  CWy += gi * p;
+  Cyy += gi;
+  Cgy += gi * nS;
+  br_lo += gi * nS * nrho;
+  br_hi += gi * nS * nrho;
+  x_out += gi * nS * nrho;
+  lml_out += gi * nS * nrho;
+  k_best += gi * nS;
   const int s = blockIdx.x;
   const int o = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -431,6 +442,19 @@ converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                 double* __restrict__ delta_out, double* __restrict__ lml_out,
                 double* __restrict__ scale_out, double* __restrict__ beta_out,
                 int n, int nrho, int R, int p, int nS, int steps) {
+  const int64_t gi = blockIdx.y;  // the gene axis, as in localize_kernel
+  yt += gi * nrho * R;
+  CWy += gi * p;
+  Cyy += gi;
+  Cgy += gi * nS;
+  br_lo += gi * nS * nrho;
+  br_hi += gi * nS * nrho;
+  if (k_best) k_best += gi * nS;
+  if (x0) x0 += gi * nS * nrho;
+  delta_out += gi * nS;
+  lml_out += gi * nS;
+  scale_out += gi * nS;
+  beta_out += gi * nS * (p + 1);
   const int s = blockIdx.x * CONV_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (s >= nS) return;  // whole warps only: no block-wide barrier here
@@ -456,12 +480,14 @@ converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
 
 }  // namespace
 
-// Shared operands: Sv (nrho, R), WGt (nrho, R, p + nS), yt (nrho, R),
-// CWW (p, p), CWy (p,), Cyy (1,), CWg (p, nS), Cgy (nS,), Cgg (nS,), ld_xx
-// (nS,) (REML), br_lo/br_hi (nS, nrho): row-major f64 on the card,
-// 1 <= p + 1 <= 16.  Launch on `stream`; return cudaGetLastError().
+// Operands: Sv (nrho, R), WGt (nrho, R, p + nS), CWW (p, p), CWg (p, nS),
+// Cgg (nS,), ld_xx (nS,) (REML), shared by the genes; yt (genes, nrho, R),
+// CWy (genes, p), Cyy (genes,), Cgy (genes, nS), br_lo/br_hi (genes, nS,
+// nrho) per gene: row-major f64 on the card, 1 <= p + 1 <= 16, genes <=
+// 65535 (a single phenotype is genes = 1).  Launch on `stream`; return
+// cudaGetLastError().
 
-// -> x, lml_all (nS, nrho), k_best (nS,) int64; nrho <= 16.
+// -> x, lml_all (genes, nS, nrho), k_best (genes, nS) int64; nrho <= 16.
 extern "C" int crm_reml_localize(const double* Sv, const double* WGt,
                                  const double* yt, const double* CWW,
                                  const double* CWy, const double* Cyy,
@@ -470,21 +496,22 @@ extern "C" int crm_reml_localize(const double* Sv, const double* WGt,
                                  const double* br_lo, const double* br_hi,
                                  double* x, double* lml_all, int64_t* k_best,
                                  int n, int nrho, int R, int p, int nS,
-                                 int steps, int round32,
+                                 int genes, int steps, int round32,
                                  cudaStream_t stream) {
   auto kernel = p + 1 <= 2   ? localize_kernel<2>
                 : p + 1 <= 4 ? localize_kernel<4>
                              : localize_kernel<16>;
-  kernel<<<nS, 32 * nrho, 0, stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
+  const dim3 grid(nS, genes);
+  kernel<<<grid, 32 * nrho, 0, stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
                                        Cgg, ld_xx, br_lo, br_hi, x, lml_all,
                                        k_best, n, nrho, R, p, nS, steps,
                                        round32);
   return (int)cudaGetLastError();
 }
 
-// k_best (nS,) int64 or null (rho 0), x0 (nS, nrho) or null (bracket
-// midpoint) -> delta, lml, scale (nS,), beta (nS, p + 1); ld_xx may be
-// null when reml == 0.
+// k_best (genes, nS) int64 or null (rho 0), x0 (genes, nS, nrho) or null
+// (bracket midpoint) -> delta, lml, scale (genes, nS), beta (genes, nS,
+// p + 1); ld_xx may be null when reml == 0.
 extern "C" int crm_reml_converge(const double* Sv, const double* WGt,
                                  const double* yt, const double* CWW,
                                  const double* CWy, const double* Cyy,
@@ -494,7 +521,7 @@ extern "C" int crm_reml_converge(const double* Sv, const double* WGt,
                                  const double* br_lo, const double* br_hi,
                                  double* delta, double* lml, double* scale,
                                  double* beta, int n, int nrho, int R, int p,
-                                 int nS, int steps, int reml,
+                                 int nS, int genes, int steps, int reml,
                                  cudaStream_t stream) {
   auto kernel = reml ? (p + 1 <= 2   ? converge_kernel<2, true>
                         : p + 1 <= 4 ? converge_kernel<4, true>
@@ -503,7 +530,8 @@ extern "C" int crm_reml_converge(const double* Sv, const double* WGt,
                         : p + 1 <= 4 ? converge_kernel<4, false>
                                      : converge_kernel<16, false>);
   const int blocks = (nS + CONV_WARPS - 1) / CONV_WARPS;
-  kernel<<<blocks, 32 * CONV_WARPS, 0, stream>>>(
+  const dim3 grid(blocks, genes);
+  kernel<<<grid, 32 * CONV_WARPS, 0, stream>>>(
       Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, k_best, x0, br_lo,
       br_hi, delta, lml, scale, beta, n, nrho, R, p, nS, steps);
   return (int)cudaGetLastError();

@@ -18,7 +18,9 @@
 // flop per byte.  Its real limit at this size is latency: one block per
 // variant walks R serially.
 //
-// Design: one 256-thread block per variant.  The block streams the rows of
+// Design: one 256-thread block per (variant, gene); the gene-batched scan
+// runs every gene of a tile in one launch, the phenotype's operands offset
+// by gene and the genotype's shared.  The block streams the rows of
 // [A | W_t | g_t | y_t] through shared memory in chunks of 16 and
 // accumulates the omega-weighted Gram of those m = C + p + 2 columns in
 // registers, each thread owning up to 8 of its m(m+1)/2 entries (m <= 63
@@ -50,13 +52,27 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                   const int64_t* __restrict__ k_best,
                   const double* __restrict__ v0s,
                   const double* __restrict__ v1s, double* __restrict__ Qout,
-                  double* __restrict__ Wout, int R, int C, int p, int S) {
+                  double* __restrict__ Wout, int nrho, int R, int C, int p,
+                  int S) {
   __shared__ double buf[64 * 64];          // row chunks, then the Gram
   __shared__ double om[RC];
   __shared__ double sA[MAXP1][MAXP1];       // XKX, then its Cholesky factor
   __shared__ double sB[MAXP1][MAXM + 1];    // [XKy | AKX^T], then solved
   __shared__ double sAKX[MAXM][MAXP1];
   __shared__ double sAPy[MAXM];
+
+  // the gene axis: the phenotype's operands and the outputs by gene
+  const int64_t gi = blockIdx.y;
+  yt += gi * nrho * R;
+  At += gi * S * (int64_t)R * C;
+  Wy += gi * p;
+  gy += gi * S;
+  Ay += gi * C * (int64_t)S;
+  k_best += gi * S;
+  v0s += gi * S;
+  v1s += gi * S;
+  Qout += gi * S;
+  Wout += gi * S * (int64_t)C * C;
 
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
@@ -221,11 +237,13 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
 
 }  // namespace
 
-// Sv (nrho, R), WGt (nrho, R, p+S), yt (nrho, R), At (S, R, C), WW (p, p),
-// Wy (p,), Wg (p, S), gg (S,), gy (S,), AW (C, p, S), Ag (C, S), Ay (C, S),
-// AtA (C, C, S), k_best (S,) int64, v0 (S,), v1 (S,) -> Q (S,),
-// Wmat (S, C, C).  Row-major f64 on the card; C + p + 2 <= 63, p + 1 <= 8.
-// Launches on `stream`; returns cudaGetLastError().
+// Shared by the genes: Sv (nrho, R), WGt (nrho, R, p+S), WW (p, p), Wg
+// (p, S), gg (S,), AW (C, p, S), Ag (C, S), AtA (C, C, S).  Per gene: yt
+// (genes, nrho, R), At (genes, S, R, C), Wy (genes, p), gy (genes, S), Ay
+// (genes, C, S), k_best (genes, S) int64, v0, v1 (genes, S) -> Q (genes,
+// S), Wmat (genes, S, C, C).  Row-major f64 on the card; C + p + 2 <= 63,
+// p + 1 <= 8, genes <= 65535 (a single phenotype is genes = 1).  Launches
+// on `stream`; returns cudaGetLastError().
 extern "C" int crm_score_core(const double* Sv, const double* WGt,
                               const double* yt, const double* At,
                               const double* WW, const double* Wy,
@@ -234,10 +252,11 @@ extern "C" int crm_score_core(const double* Sv, const double* WGt,
                               const double* Ag, const double* Ay,
                               const double* AtA, const int64_t* k_best,
                               const double* v0, const double* v1, double* Q,
-                              double* Wmat, int R, int C, int p, int S,
-                              cudaStream_t stream) {
-  score_core_kernel<<<S, NT, 0, stream>>>(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy,
-                                          AW, Ag, Ay, AtA, k_best, v0, v1, Q,
-                                          Wmat, R, C, p, S);
+                              double* Wmat, int nrho, int R, int C, int p,
+                              int S, int genes, cudaStream_t stream) {
+  const dim3 grid(S, genes);
+  score_core_kernel<<<grid, NT, 0, stream>>>(Sv, WGt, yt, At, WW, Wy, Wg, gg,
+                                             gy, AW, Ag, Ay, AtA, k_best, v0,
+                                             v1, Q, Wmat, nrho, R, C, p, S);
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,12 @@ covariance factor ([E1, L_1..L_C]):
   independent: the Khatri-Rao products (kernel K1) and plain GEMMs.
 * The per-variant work (the REML fits over the rho grid: the delta grid
   K2 and the Newton stages K3; the best-rho score factor rotation K4; the
-  score statistic K5) is batched over the variant axis: one sequence of
-  device launches per batch, with no host synchronisation inside
-  :func:`interaction_batch`.
+  score statistic K5; under the Liu, saddlepoint and auto p-value methods
+  the mixture weights K6a and the device tails K6b) is batched over the
+  variant axis: one sequence of device launches per batch, with no host
+  synchronisation inside :func:`interaction_batch`.  The gene-batched
+  scan (:func:`interaction_multigene_batch`) adds a gene axis to the
+  phenotype's terms and runs every gene of a tile in the same launches.
 * The association test fits the covariates-only null once per phenotype
   (K10, :func:`null_association_fit`) and refits each variant by ML at the
   null's best rho (K7: K2's and K3's kernels with the ML objective,
@@ -33,6 +36,7 @@ masking and all shapes are static.
 """
 from __future__ import annotations
 
+import functools
 from typing import Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -44,9 +48,11 @@ from .kernels.best_rho_rotate import best_rho_rotate
 from .kernels.delta_grid import delta_grid
 from .kernels.fast_scan import fast_scan
 from .kernels.kr_contract import kr_contract
+from .kernels.mixture_tails import mixture_tails
 from .kernels.null_fit import null_fit
 from .kernels.reml_newton import reml_converge, reml_localize
 from .kernels.score_core import score_core
+from .kernels.sym_eigvalsh import sym_eigvalsh
 from .kernels.woodbury_family import family_eval
 from .models.lmm import (EigData, FamilyCols, FitResult, FastScanResult,
                          fit_delta_woodbury_family)
@@ -165,10 +171,32 @@ def _complements(ctx: NullContext, ZG, Wg, gg, gy) -> Complements:
         Cgy=gy - ZG.T @ ctx.Zy, Cgg=gg - (ZG * ZG).sum(dim=0))
 
 
+def _phenotype_terms(y, Zy, Wy, yy, *, ctx, G, G_score, ZG, dCWW, Cgg):
+    """One phenotype's terms of an interaction batch: the rotated y, A^T y,
+    g^T y and the clamped y complements (CWy, Cyy, Cgy).  The gene-batched
+    scan maps it over the genes (``torch.func.vmap``); a single phenotype
+    calls it as it is."""
+    Ay = ctx.E0.T @ (G_score * y[:, None])             # (C, S)
+    gy = G.T @ y                                       # (S,)
+    yt_all = ctx.V.transpose(1, 2) @ Zy                # (nrho, R)
+    CWy = Wy - ctx.ZW.T @ Zy
+    Cyy = yy - Zy @ Zy
+    Cgy = gy - ZG.T @ Zy
+    # the complement Gram of [W, g, y] is PSD: Cyy clamped to its noise
+    # floor, the cross terms Cauchy-Schwarz-clipped (interaction_batch)
+    Cyy = torch.maximum(Cyy, 128 * torch.finfo(y.dtype).eps * yy)
+    cwy_b = torch.sqrt(dCWW * Cyy)
+    CWy = torch.clamp(CWy, -cwy_b, cwy_b)
+    cgy_b = torch.sqrt(Cgg * Cyy)
+    Cgy = torch.clamp(Cgy, -cgy_b, cgy_b)
+    return Ay, gy, yt_all, CWy, Cyy, Cgy
+
+
 def interaction_batch(ctx: NullContext, G: torch.Tensor,
                       G_score: torch.Tensor, n: int,
                       delta_cfg=(-18.0, 18.0, 64, 60), newton_f32: int = 6,
-                      newton_f64: int = 3, localize_f32: bool = True) -> dict:
+                      newton_f64: int = 3, localize_f32: bool = True,
+                      device_pvalues: bool = False) -> dict:
     """Score-test interaction scan of one variant batch.
 
     Per variant: the REML null fit over the rho grid with X = [W, g], then
@@ -177,12 +205,18 @@ def interaction_batch(ctx: NullContext, G: torch.Tensor,
     genotypes of the score part; the null fits use ``G``.  No host
     synchronisation: every branch is a ``torch.where``/argmax on the card.
 
-    Returns a dict of (S,)-leading tensors: Q, Wmat, rho1, e2, g2, eps2,
-    v0, v1, delta, lml.
+    ``ctx``'s phenotype fields (y, Zy, Wy, yy) may carry a leading gene
+    axis (:func:`interaction_multigene_batch`): the genotype's terms are
+    computed once and every kernel takes all the genes in one launch.
+
+    Returns a dict of ([genes,] S)-leading tensors: Q, Wmat, rho1, e2, g2,
+    eps2, v0, v1, delta, lml; with ``device_pvalues`` also the mixture
+    weights ``lambdas`` (K6a) and the device tails ``pv_liu`` and
+    ``pv_saddlepoint`` (K6b).
     """
-    Z, E0, y, W = ctx.Z, ctx.E0, ctx.y, ctx.W
+    Z, E0, W = ctx.Z, ctx.E0, ctx.W
     p = W.shape[1]
-    f64 = y.dtype
+    f64 = ctx.y.dtype
     nS = G.shape[1]
 
     # --- rho-independent contractions: K1 three times, plain GEMMs ---
@@ -190,36 +224,40 @@ def interaction_batch(ctx: NullContext, G: torch.Tensor,
     T = kr_contract(Z, E0, G_score)                # (R, C, S)
     AtA = kr_contract(E0, E0, G_score * G_score)   # (C, C, S)
     AW = kr_contract(E0, W, G_score)               # (C, p, S)
-    Ay = E0.T @ (G_score * y[:, None])             # (C, S)
     Ag = E0.T @ (G_score * G)                      # (C, S)  A^T g (unpermuted)
     Wg = W.T @ G                                   # (p, S)
     gg = (G * G).sum(dim=0)                        # (S,)
-    gy = G.T @ y                                   # (S,)
 
-    # --- per-rho rotations of [W | G] and y (batched GEMMs) ---
+    # --- per-rho rotations of [W | G] (batched GEMMs) ---
     WG_rot = torch.matmul(ctx.V.transpose(1, 2),
                           torch.cat([ctx.ZW, ZG], dim=1))  # (nrho, R, p+S)
-    yt_all = ctx.V.transpose(1, 2) @ ctx.Zy              # (nrho, R)
 
     lo, hi, n_grid, _ = delta_cfg
 
-    CWW, CWy, Cyy, CWg, Cgy, Cgg = _complements(ctx, ZG, Wg, gg, gy)
-    # When the basis rank approaches n the complements are ~0 and the
-    # subtractions return cancellation noise, which the 1/delta weights
-    # amplify into spurious lml maxima.  The complement Gram of [W, g, y] is
-    # PSD, so clamp its diagonal to the noise floor and Cauchy-Schwarz-clip
-    # the cross terms against the clamped diagonal.
+    # the genotype's complements.  When the basis rank approaches n the
+    # complements are ~0 and the subtractions return cancellation noise,
+    # which the 1/delta weights amplify into spurious lml maxima.  The
+    # complement Gram of [W, g, y] is PSD, so clamp its diagonal to the
+    # noise floor and Cauchy-Schwarz-clip the cross terms against the
+    # clamped diagonal (the y terms in _phenotype_terms).
     eps_c = 128 * torch.finfo(f64).eps
+    CWW = ctx.WW - ctx.ZW.T @ ctx.ZW
+    CWg = Wg - ctx.ZW.T @ ZG
+    Cgg = gg - (ZG * ZG).sum(dim=0)
     dCWW = torch.maximum(torch.diagonal(CWW), eps_c * torch.diagonal(ctx.WW))
     CWW = CWW - torch.diag(torch.diagonal(CWW)) + torch.diag(dCWW)
-    Cyy = torch.maximum(Cyy, eps_c * ctx.yy)
     Cgg = torch.maximum(Cgg, eps_c * gg)
-    cwy_b = torch.sqrt(dCWW * Cyy)
-    CWy = torch.clamp(CWy, -cwy_b, cwy_b)
     cwg_b = torch.sqrt(dCWW[:, None] * Cgg[None, :])
     CWg = torch.clamp(CWg, -cwg_b, cwg_b)
-    cgy_b = torch.sqrt(Cgg * Cyy)
-    Cgy = torch.clamp(Cgy, -cgy_b, cgy_b)
+
+    # --- the phenotype's terms, per gene ---
+    terms = functools.partial(_phenotype_terms, ctx=ctx, G=G,
+                              G_score=G_score, ZG=ZG, dCWW=dCWW, Cgg=Cgg)
+    if ctx.y.ndim == 2:
+        # the kernels take contiguous operands; vmap may return views
+        mapped = torch.func.vmap(terms)
+        terms = lambda *a: [t.contiguous() for t in mapped(*a)]  # noqa: E731
+    Ay, gy, yt_all, CWy, Cyy, Cgy = terms(ctx.y, ctx.Zy, ctx.Wy, ctx.yy)
 
     # --- the REML fits over the rho grid: K2, then K3 ---
     # Hybrid precision: the delta grid runs in f32 (``fast``); the
@@ -251,9 +289,45 @@ def interaction_batch(ctx: NullContext, G: torch.Tensor,
     Q, Wmat = score_core(ctx.S, WG_rot, yt_all, At_all, ctx.WW, ctx.Wy, Wg,
                          gg, gy, AW, Ag, Ay, AtA, k_best, v0_k, v1_k)
     rho1 = ctx.rho[k_best]
-    return {"Q": Q, "Wmat": Wmat, "rho1": rho1, "e2": v0_k * rho1,
-            "g2": v0_k * (1 - rho1), "eps2": v1_k, "v0": v0_k, "v1": v1_k,
-            "delta": delta_k, "lml": lml_k}
+    out = {"Q": Q, "Wmat": Wmat, "rho1": rho1, "e2": v0_k * rho1,
+           "g2": v0_k * (1 - rho1), "eps2": v1_k, "v0": v0_k, "v1": v1_k,
+           "delta": delta_k, "lml": lml_k}
+    if device_pvalues:
+        # the mixture weights (K6a) and both device tails (K6b)
+        C = Wmat.shape[-1]
+        lam = sym_eigvalsh(Wmat.reshape(-1, C, C))
+        pv_liu, pv_sp = mixture_tails(Q.reshape(-1), lam)
+        out.update(lambdas=lam.reshape(Wmat.shape[:-1]),
+                   pv_liu=pv_liu.reshape(Q.shape),
+                   pv_saddlepoint=pv_sp.reshape(Q.shape))
+    return out
+
+
+def interaction_multigene_batch(ctx: NullContext, G, G_score, n: int,
+                                delta_cfg=(-18.0, 18.0, 64, 60),
+                                newton_f32: int = 6, newton_f64: int = 3,
+                                localize_f32: bool = True,
+                                device_pvalues: bool = False) -> dict:
+    """Gene-batched interaction scan: genes x variants in one sequence of
+    launches (the JAX engine's ``interaction_multigene_batch``,
+    engine.py:813-846).
+
+    ``ctx``'s phenotype fields (y (genes, n), Zy (genes, R), Wy (genes,
+    p), yy (genes,)) carry a leading gene axis; everything else is the
+    shared per-dataset state.  The genotype's contractions (K1 x3), the
+    per-rho rotation of [W | G] and the genotype's complements are computed
+    once per batch and shared by every gene; K2, K3, K4 and K5 (and K6
+    with ``device_pvalues``) launch once for all the genes.  Returns
+    :func:`interaction_batch`'s dict with (genes, S)-leading tensors; the
+    arguments and their defaults are :func:`interaction_batch`'s.
+    """
+    if ctx.y.ndim != 2:
+        raise ValueError("interaction_multigene_batch: ctx.y must be "
+                         "(genes, n)")
+    return interaction_batch(ctx, G, G_score, n, delta_cfg=delta_cfg,
+                             newton_f32=newton_f32, newton_f64=newton_f64,
+                             localize_f32=localize_f32,
+                             device_pvalues=device_pvalues)
 
 
 # --------------------------------------------------------------------------

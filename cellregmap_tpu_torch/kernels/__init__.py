@@ -7,13 +7,15 @@ module-level integer ``launches``.
 """
 from __future__ import annotations
 
-from . import (best_rho_rotate, delta_grid, fast_scan, kr_contract, null_fit,
-               reml_newton, score_core, woodbury_family)
+from . import (best_rho_rotate, delta_grid, fast_scan, kr_contract,
+               mixture_tails, null_fit, reml_newton, score_core, sym_eigvalsh,
+               woodbury_family)
 
 MODULES = {"kr_contract": kr_contract, "delta_grid": delta_grid,
            "reml_newton": reml_newton, "best_rho_rotate": best_rho_rotate,
            "score_core": score_core, "null_fit": null_fit,
-           "fast_scan": fast_scan, "woodbury_family": woodbury_family}
+           "fast_scan": fast_scan, "woodbury_family": woodbury_family,
+           "sym_eigvalsh": sym_eigvalsh, "mixture_tails": mixture_tails}
 
 
 def reset_launches() -> None:

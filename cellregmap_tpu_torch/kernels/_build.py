@@ -28,7 +28,8 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("kr_contract", "delta_grid", "reml_newton", "best_rho_rotate",
-           "score_core", "null_fit", "fast_scan", "woodbury_family")
+           "score_core", "null_fit", "fast_scan", "woodbury_family",
+           "sym_eigvalsh", "mixture_tails")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}

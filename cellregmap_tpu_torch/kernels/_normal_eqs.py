@@ -27,7 +27,9 @@ from ..ops.linalg import (sym_components_full, sym_components_matvec,
 
 class Complements(NamedTuple):
     """Complement Grams of [W, g, y] (full space minus the eigenbasis):
-    CWW (p, p), CWy (p,), Cyy (), CWg (p, S), Cgy (S,), Cgg (S,)."""
+    CWW (p, p), CWy (p,), Cyy (), CWg (p, S), Cgy (S,), Cgg (S,).  In a
+    gene-batched call the phenotype's CWy, Cyy and Cgy carry a leading gene
+    axis."""
 
     CWW: torch.Tensor
     CWy: torch.Tensor
@@ -35,6 +37,12 @@ class Complements(NamedTuple):
     CWg: torch.Tensor
     Cgy: torch.Tensor
     Cgg: torch.Tensor
+
+
+def gene_comp(comp: Complements, g: int) -> Complements:
+    """Gene ``g``'s complements of a gene-batched set (CWy (genes, p), Cyy
+    (genes,), Cgy (genes, S)); the genotype's (CWW, CWg, Cgg) are shared."""
+    return comp._replace(CWy=comp.CWy[g], Cyy=comp.Cyy[g], Cgy=comp.Cgy[g])
 
 
 def products(Wt, yt, Gt):

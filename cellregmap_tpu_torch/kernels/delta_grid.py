@@ -16,22 +16,29 @@ The grid runs in the working dtype ``fast`` (float32 under hybrid
 localization): the rotated products are formed in f64 and rounded, as the
 reference's tensor sets are.  On a CUDA tensor :func:`delta_grid` launches
 ``csrc/delta_grid.cu``; on a CPU tensor it runs :func:`delta_grid_plain`.
+
+The gene-batched scan passes the phenotype's operands (yt, and the
+complements CWy, Cyy, Cgy) with a leading gene axis; the genotype's are
+shared, and the results gain the same leading axis.  One launch serves
+every gene.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
-from ._normal_eqs import (Complements, lml_value, ne_family, products,
-                          tensor_set)
+from ._normal_eqs import (Complements, gene_comp, lml_value, ne_family,
+                          products, tensor_set)
 from ..ops.linalg import (unrolled_chol_factor, unrolled_chol_logdet,
                           unrolled_chol_solve)
 
 launches = 0
 
 MAX_FIXED = 16      # p + 1 of the CUDA kernel's small algebra
+MAX_GENES = 65535   # genes of one launch (a grid axis)
 
 
 def logit_grid(lo, hi, n_grid, device):
@@ -41,8 +48,13 @@ def logit_grid(lo, hi, n_grid, device):
 def delta_grid_plain(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid,
                      n, fast, restricted=True, return_lml=False):
     """Plain torch version: the grid as snp-shared batched GEMMs of the
-    (nrho, K, R) weights against the rotated products.  ``return_lml``
-    adds the (S, nrho, K) lml grid to the result."""
+    (nrho, K, R) weights against the rotated products, one gene at a time.
+    ``return_lml`` adds the (S, nrho, K) lml grid to the result."""
+    if yt.ndim == 3:
+        return tuple(torch.stack(o) for o in zip(*(
+            delta_grid_plain(S, WGt, yt[g], gene_comp(comp, g), ld_xx, lo,
+                             hi, n_grid, n, fast, restricted, return_lml)
+            for g in range(yt.shape[0]))))
     p = comp.CWW.shape[0]
     R = S.shape[1]
     prod = products(WGt[:, :, :p], yt, WGt[:, :, p:])
@@ -116,38 +128,49 @@ def bracket_shortfall(br_lo, br_hi, lml, lo, hi) -> float:
 def _bind(lib):
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.crm_delta_grid.restype = ci
-    lib.crm_delta_grid.argtypes = [vp] * 12 + [cd, cd, ci, ci, ci, ci, ci,
-                                               ci, ci, ci, vp]
+    lib.crm_delta_grid.argtypes = [vp] * 12 + [cd, cd] + [ci] * 9 + [vp]
+
+
+def gene_shape(yt):
+    """The leading gene axis of a call, () for a single phenotype."""
+    return tuple(yt.shape[:-2])
 
 
 def check_operands(name, S, WGt, yt, comp, ld_xx, restricted):
-    """Validate the shared operands of the K2/K3 kernels; returns
-    (nrho, R, p, nS)."""
+    """Validate the operands of the K2/K3 kernels; returns (nrho, R, p,
+    nS, gene axis)."""
     nrho, R = S.shape
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
+    gs = gene_shape(yt)
     if p + 1 > MAX_FIXED:
         raise ValueError(f"{name}: needs p + 1 <= {MAX_FIXED} fixed effects, "
                          f"got {p + 1}")
+    if len(gs) > 1 or (gs and not 1 <= gs[0] <= MAX_GENES):
+        raise ValueError(f"{name}: a gene axis of 1..{MAX_GENES} genes, got "
+                         f"yt of shape {tuple(yt.shape)}")
     f64 = torch.float64
     for t, tn, shape in ((S, "S", (nrho, R)), (WGt, "WGt", (nrho, R, p + nS)),
-                         (yt, "yt", (nrho, R)), (comp.CWW, "CWW", (p, p)),
-                         (comp.CWy, "CWy", (p,)), (comp.Cyy, "Cyy", ()),
-                         (comp.CWg, "CWg", (p, nS)), (comp.Cgy, "Cgy", (nS,)),
+                         (yt, "yt", gs + (nrho, R)),
+                         (comp.CWW, "CWW", (p, p)),
+                         (comp.CWy, "CWy", gs + (p,)), (comp.Cyy, "Cyy", gs),
+                         (comp.CWg, "CWg", (p, nS)),
+                         (comp.Cgy, "Cgy", gs + (nS,)),
                          (comp.Cgg, "Cgg", (nS,))):
         _build.require(t, f"{name}: {tn}", f64, shape)
     if restricted:
         _build.require(ld_xx, f"{name}: ld_xx", f64, (nS,))
-    return nrho, R, p, nS
+    return nrho, R, p, nS, gs
 
 
 def delta_grid(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid, n,
                fast, restricted=True):
-    """(br_lo, br_hi), each (S, nrho) f64: the grid bracket of every
-    (variant, rho) problem.
+    """(br_lo, br_hi), each ([genes,] S, nrho) f64: the grid bracket of
+    every (variant, rho) problem.
 
     S (nrho, R) eigenvalues; WGt (nrho, R, p + S) the rotated [W | G];
-    yt (nrho, R) the rotated phenotype; ``comp`` the complement Grams;
+    yt ([genes,] nrho, R) the rotated phenotype; ``comp`` the complement
+    Grams (see the module doc for the gene axis);
     ld_xx (S,) logdet(X^T X) (REML only, else None); the grid is
     ``n_grid`` points of logit(delta) from ``lo`` to ``hi``; ``fast`` the
     working dtype (float32 or float64); ``restricted`` REML or ML.
@@ -170,7 +193,8 @@ def call(lib, S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n, fast,
     nrho, R = S.shape
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
-    br_lo = torch.empty((nS, nrho), dtype=torch.float64, device=S.device)
+    gs = gene_shape(yt)
+    br_lo = torch.empty(gs + (nS, nrho), dtype=torch.float64, device=S.device)
     br_hi = torch.empty_like(br_lo)
     if br_lo.numel() == 0:
         return br_lo, br_hi
@@ -178,6 +202,6 @@ def call(lib, S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n, fast,
     ptrs += [_build.ptr(ld_xx) if restricted else None, _build.ptr(br_lo),
              _build.ptr(br_hi)]
     _build.check(lib.crm_delta_grid(*ptrs, lo, hi, n_grid, n, nrho, R, p, nS,
-                                    int(fast == torch.float32),
+                                    math.prod(gs), int(fast == torch.float32),
                                     int(restricted), stream), "delta_grid")
     return br_lo, br_hi

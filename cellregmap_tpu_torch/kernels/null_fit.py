@@ -8,8 +8,11 @@ REML (with logdet(A) and logdet(X^T X)) or ML; the association's null fit
 is ML, ``mean_fit_kernel``'s fits are REML.
 
 On a CUDA tensor :func:`null_fit` launches ``csrc/null_fit.cu`` (one block
-per rho point); on a CPU tensor it runs :func:`null_fit_plain`, which is
-``models.lmm.fit_delta_eig`` over the rho axis.
+per rho point; above 16 mean columns the kernel's wide instantiation, whose
+normal equations live in shared memory and whose grid runs a block per
+(grid point, rho)); on a CPU tensor it runs
+:func:`null_fit_plain`, which is ``models.lmm.fit_delta_eig`` over the rho
+axis.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from ..models.lmm import EigData, FitResult, fit_delta_eig, lml_at_delta_eig
 
 launches = 0
 
-MAX_FIXED = 16      # p of the CUDA kernel's small algebra
+MAX_FIXED = 64      # p of the CUDA kernel's wide instantiation
 MAX_GRID = 1024     # grid points the kernel holds in shared memory
 
 
@@ -54,7 +57,7 @@ def fit_gaps(fits: FitResult, plain: FitResult, data: EigData, n,
 def _bind(lib):
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.crm_null_fit.restype = ci
-    lib.crm_null_fit.argtypes = [vp] * 13 + [cd, cd] + [ci] * 7 + [vp]
+    lib.crm_null_fit.argtypes = [vp] * 14 + [cd, cd] + [ci] * 7 + [vp]
 
 
 def null_fit(data: EigData, n, restricted, lo, hi, n_grid, n_iters):
@@ -97,7 +100,11 @@ def call(lib, data: EigData, n, restricted, lo, hi, n_grid, n_iters,
                       for f in FitResult._fields))
     if nrho == 0:
         return out
-    _build.check(lib.crm_null_fit(*(_build.ptr(t) for t in (*data, *out)),
+    # the wide instantiation's logdets and grid values
+    scratch = torch.empty((nrho * (n_grid + 1),), dtype=torch.float64,
+                          device=data.S.device)
+    _build.check(lib.crm_null_fit(*(_build.ptr(t)
+                                    for t in (*data, *out, scratch)),
                                   lo, hi, n_grid, n_iters, n, nrho, R, p,
                                   int(restricted), stream), "null_fit")
     return out

@@ -18,18 +18,21 @@ Two entry points, each with its plain torch version:
   only at tiny (:1056) and has no logdet(A) trace terms (:1026-1028).
 
 On a CUDA tensor the wrappers launch ``csrc/reml_newton.cu``; on a CPU
-tensor they run the plain versions.
+tensor they run the plain versions.  A gene-batched call gives the
+phenotype's operands, the brackets and ``k_best``/``x0`` a leading gene
+axis (as :mod:`.delta_grid` does); one launch serves every gene.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
-from ._normal_eqs import (Complements, lml_value, ne_family, newton_step,
-                          products, tensor_set)
-from .delta_grid import check_operands
+from ._normal_eqs import (Complements, gene_comp, lml_value, ne_family,
+                          newton_step, products, tensor_set)
+from .delta_grid import check_operands, gene_shape
 from ..ops.linalg import (unrolled_chol_factor, unrolled_chol_logdet,
                           unrolled_chol_solve)
 
@@ -55,7 +58,13 @@ def _eval(delta, TS, rs, ro, n, R, ld_xx, restricted):
 def reml_localize_plain(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi,
                         n, steps, round32):
     """Plain torch version: (x (S, nrho) localized logit(delta),
-    lml_all (S, nrho) f64 REML lml there, k_best (S,) argmax over rho)."""
+    lml_all (S, nrho) f64 REML lml there, k_best (S,) argmax over rho),
+    one gene at a time."""
+    if yt.ndim == 3:
+        return tuple(torch.stack(o) for o in zip(*(
+            reml_localize_plain(S, WGt, yt[g], gene_comp(comp, g), ld_xx,
+                                br_lo[g], br_hi[g], n, steps, round32)
+            for g in range(yt.shape[0]))))
     p = comp.CWW.shape[0]
     R = S.shape[1]
     f64 = S.dtype
@@ -86,7 +95,15 @@ def reml_localize_plain(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi,
 def reml_converge_plain(S, WGt, yt, comp: Complements, ld_xx, k_best, x0,
                         br_lo, br_hi, n, steps, restricted=True):
     """Plain torch version: (delta, lml, scale, beta) per variant at its
-    rho ``k_best``; delta/lml/scale (S,), beta (S, p + 1)."""
+    rho ``k_best``; delta/lml/scale (S,), beta (S, p + 1); one gene at a
+    time."""
+    if yt.ndim == 3:
+        at = lambda t, g: None if t is None else t[g]  # noqa: E731
+        return tuple(torch.stack(o) for o in zip(*(
+            reml_converge_plain(S, WGt, yt[g], gene_comp(comp, g), ld_xx,
+                                at(k_best, g), at(x0, g), br_lo[g], br_hi[g],
+                                n, steps, restricted)
+            for g in range(yt.shape[0]))))
     p = comp.CWW.shape[0]
     R = S.shape[1]
     f64 = S.dtype
@@ -124,25 +141,26 @@ def reml_converge_plain(S, WGt, yt, comp: Complements, ld_xx, k_best, x0,
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.crm_reml_localize.restype = ci
-    lib.crm_reml_localize.argtypes = [vp] * 15 + [ci] * 7 + [vp]
+    lib.crm_reml_localize.argtypes = [vp] * 15 + [ci] * 8 + [vp]
     lib.crm_reml_converge.restype = ci
-    lib.crm_reml_converge.argtypes = [vp] * 18 + [ci] * 7 + [vp]
+    lib.crm_reml_converge.argtypes = [vp] * 18 + [ci] * 8 + [vp]
 
 
 def reml_localize(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi, n,
                   steps, round32):
-    """(x (S, nrho), lml_all (S, nrho), k_best (S,) int64); see the module
-    doc.  Operands as :func:`delta_grid.delta_grid`'s, plus the grid
-    brackets br_lo/br_hi (S, nrho) f64."""
+    """(x ([genes,] S, nrho), lml_all ([genes,] S, nrho), k_best ([genes,]
+    S) int64); see the module doc.  Operands as
+    :func:`delta_grid.delta_grid`'s, plus the grid brackets br_lo/br_hi
+    ([genes,] S, nrho) f64."""
     global launches
     if S.device.type == "cpu":
         return reml_localize_plain(S, WGt, yt, comp, ld_xx, br_lo, br_hi,
                                    n, steps, round32)
-    nrho, R, p, nS = check_operands("reml_localize", S, WGt, yt, comp,
-                                    ld_xx, True)
+    nrho, R, p, nS, gs = check_operands("reml_localize", S, WGt, yt, comp,
+                                        ld_xx, True)
     for t, name in ((br_lo, "br_lo"), (br_hi, "br_hi")):
         _build.require(t, f"reml_localize: {name}", torch.float64,
-                       (nS, nrho))
+                       gs + (nS, nrho))
     if nrho > MAX_RHO:
         raise ValueError(f"reml_localize: at most {MAX_RHO} rho points, "
                          f"got {nrho}")
@@ -160,35 +178,38 @@ def call_localize(lib, S, WGt, yt, comp, ld_xx, br_lo, br_hi, n, steps,
     nrho, R = S.shape
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
-    x = torch.empty((nS, nrho), dtype=torch.float64, device=S.device)
+    gs = gene_shape(yt)
+    x = torch.empty(gs + (nS, nrho), dtype=torch.float64, device=S.device)
     lml_all = torch.empty_like(x)
-    k_best = torch.empty((nS,), dtype=torch.int64, device=S.device)
-    if nS == 0:
+    k_best = torch.empty(gs + (nS,), dtype=torch.int64, device=S.device)
+    if k_best.numel() == 0:
         return x, lml_all, k_best
     ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp, ld_xx, br_lo, br_hi,
                                     x, lml_all, k_best)]
-    _build.check(lib.crm_reml_localize(*ptrs, n, nrho, R, p, nS, steps,
-                                       int(round32), stream),
-                 "reml_localize")
+    _build.check(lib.crm_reml_localize(*ptrs, n, nrho, R, p, nS,
+                                       math.prod(gs), steps, int(round32),
+                                       stream), "reml_localize")
     return x, lml_all, k_best
 
 
 def reml_converge(S, WGt, yt, comp: Complements, ld_xx, k_best, x0, br_lo,
                   br_hi, n, steps, restricted=True):
     """(delta, lml, scale, beta) per variant; see the module doc.  k_best
-    (S,) int64 or None, x0 (S, nrho) f64 or None, br_lo/br_hi (S, nrho)."""
+    ([genes,] S) int64 or None, x0 ([genes,] S, nrho) f64 or None,
+    br_lo/br_hi ([genes,] S, nrho)."""
     global launches
     if S.device.type == "cpu":
         return reml_converge_plain(S, WGt, yt, comp, ld_xx, k_best, x0,
                                    br_lo, br_hi, n, steps, restricted)
-    nrho, R, p, nS = check_operands("reml_converge", S, WGt, yt, comp,
-                                    ld_xx, restricted)
+    nrho, R, p, nS, gs = check_operands("reml_converge", S, WGt, yt, comp,
+                                        ld_xx, restricted)
     for t, name in ((br_lo, "br_lo"), (br_hi, "br_hi"), (x0, "x0")):
         if t is not None:
             _build.require(t, f"reml_converge: {name}", torch.float64,
-                           (nS, nrho))
+                           gs + (nS, nrho))
     if k_best is not None:
-        _build.require(k_best, "reml_converge: k_best", torch.int64, (nS,))
+        _build.require(k_best, "reml_converge: k_best", torch.int64,
+                       gs + (nS,))
     out = call_converge(_build.load("reml_newton", _bind), S, WGt, yt, comp,
                         ld_xx, k_best, x0, br_lo, br_hi, n, steps, restricted,
                         _build.stream_ptr(S.device))
@@ -203,17 +224,18 @@ def call_converge(lib, S, WGt, yt, comp, ld_xx, k_best, x0, br_lo, br_hi, n,
     nrho, R = S.shape
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
-    delta, lml, scale = (torch.empty((nS,), dtype=torch.float64,
+    gs = gene_shape(yt)
+    delta, lml, scale = (torch.empty(gs + (nS,), dtype=torch.float64,
                                      device=S.device) for _ in range(3))
-    beta = torch.empty((nS, p + 1), dtype=torch.float64, device=S.device)
-    if nS == 0:
+    beta = torch.empty(gs + (nS, p + 1), dtype=torch.float64, device=S.device)
+    if delta.numel() == 0:
         return delta, lml, scale, beta
     opt = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
     ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp)]
     ptrs += [opt(ld_xx if restricted else None), opt(k_best), opt(x0),
              _build.ptr(br_lo), _build.ptr(br_hi), _build.ptr(delta),
              _build.ptr(lml), _build.ptr(scale), _build.ptr(beta)]
-    _build.check(lib.crm_reml_converge(*ptrs, n, nrho, R, p, nS, steps,
-                                       int(restricted), stream),
-                 "reml_converge")
+    _build.check(lib.crm_reml_converge(*ptrs, n, nrho, R, p, nS,
+                                       math.prod(gs), steps, int(restricted),
+                                       stream), "reml_converge")
     return delta, lml, scale, beta

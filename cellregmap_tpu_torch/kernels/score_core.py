@@ -4,11 +4,14 @@ weight matrix Wmat = 1/2 A^T P A at each variant's best rho.
 On a CUDA tensor :func:`score_core` launches the hand-written kernel
 (``csrc/score_core.cu``); on a CPU tensor it runs :func:`score_core_plain`.
 The arguments are the interaction batch's own tensors; each variant
-gathers its best rho's rows (k_best) itself.
+gathers its best rho's rows (k_best) itself.  The gene-batched scan gives
+the phenotype's operands (yt, At, Wy, gy, Ay, k_best, v0, v1) a leading
+gene axis; the genotype's are shared, and one launch serves every gene.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -19,11 +22,18 @@ launches = 0
 # shape limits of the CUDA kernel (csrc/score_core.cu)
 MAX_COLUMNS = 63   # C + p + 2
 MAX_FIXED = 8      # p + 1
+MAX_GENES = 65535  # genes of one launch (a grid axis)
 
 
 def score_core_plain(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
                      k_best, v0, v1):
-    """Plain torch version: ``score_test_core`` batched over variants."""
+    """Plain torch version: ``score_test_core`` batched over variants, one
+    gene at a time."""
+    if yt.ndim == 3:
+        return tuple(torch.stack(o) for o in zip(*(
+            score_core_plain(Sv, WGt, yt[g], At[g], WW, Wy[g], Wg, gg, gy[g],
+                             AW, Ag, Ay[g], AtA, k_best[g], v0[g], v1[g])
+            for g in range(yt.shape[0]))))
     S = At.shape[0]
     p = WW.shape[0]
     ar = torch.arange(S, device=At.device)
@@ -65,47 +75,66 @@ def score_core_plain(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.crm_score_core.restype = ci
-    lib.crm_score_core.argtypes = [vp] * 18 + [ci, ci, ci, ci, vp]
+    lib.crm_score_core.argtypes = [vp] * 18 + [ci] * 6 + [vp]
 
 
 def score_core(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
                k_best, v0, v1):
-    """(Q (S,), Wmat (S, C, C)) for one variant batch.
+    """(Q ([genes,] S), Wmat ([genes,] S, C, C)) for one variant batch.
 
     Sv (nrho, R) eigenvalues, WGt (nrho, R, p+S) rotated [W | G], yt
-    (nrho, R) rotated y, At (S, R, C) best-rho score factor, WW (p, p),
-    Wy (p,), Wg (p, S), gg (S,), gy (S,), AW (C, p, S), Ag (C, S),
-    Ay (C, S), AtA (C, C, S) full-space Grams, k_best (S,) int64 best-rho
-    index, v0/v1 (S,) variance components.  f64.
+    ([genes,] nrho, R) rotated y, At ([genes,] S, R, C) best-rho score
+    factor, WW (p, p), Wy ([genes,] p), Wg (p, S), gg (S,), gy ([genes,]
+    S), AW (C, p, S), Ag (C, S), Ay ([genes,] C, S), AtA (C, C, S)
+    full-space Grams, k_best ([genes,] S) int64 best-rho index, v0/v1
+    ([genes,] S) variance components.  f64.
     """
     global launches
     if At.device.type == "cpu":
         return score_core_plain(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW,
                                 Ag, Ay, AtA, k_best, v0, v1)
     nrho, R = Sv.shape
-    S, C = At.shape[0], At.shape[2]
+    S, C = At.shape[-3], At.shape[-1]
     p = WW.shape[0]
+    gs = tuple(yt.shape[:-2])
     if C + p + 2 > MAX_COLUMNS or p + 1 > MAX_FIXED:
         raise ValueError(f"score_core: needs C + p + 2 <= {MAX_COLUMNS} and "
                          f"p + 1 <= {MAX_FIXED}, got C={C}, p={p}")
+    if len(gs) > 1 or (gs and not 1 <= gs[0] <= MAX_GENES):
+        raise ValueError(f"score_core: a gene axis of 1..{MAX_GENES} genes, "
+                         f"got yt of shape {tuple(yt.shape)}")
     f64 = torch.float64
     for t, name, shape in (
             (Sv, "Sv", (nrho, R)), (WGt, "WGt", (nrho, R, p + S)),
-            (yt, "yt", (nrho, R)), (At, "At", (S, R, C)), (WW, "WW", (p, p)),
-            (Wy, "Wy", (p,)), (Wg, "Wg", (p, S)), (gg, "gg", (S,)),
-            (gy, "gy", (S,)), (AW, "AW", (C, p, S)), (Ag, "Ag", (C, S)),
-            (Ay, "Ay", (C, S)), (AtA, "AtA", (C, C, S)), (v0, "v0", (S,)),
-            (v1, "v1", (S,))):
+            (yt, "yt", gs + (nrho, R)), (At, "At", gs + (S, R, C)),
+            (WW, "WW", (p, p)), (Wy, "Wy", gs + (p,)), (Wg, "Wg", (p, S)),
+            (gg, "gg", (S,)), (gy, "gy", gs + (S,)), (AW, "AW", (C, p, S)),
+            (Ag, "Ag", (C, S)), (Ay, "Ay", gs + (C, S)),
+            (AtA, "AtA", (C, C, S)), (v0, "v0", gs + (S,)),
+            (v1, "v1", gs + (S,))):
         _build.require(t, name, f64, shape)
-    _build.require(k_best, "k_best", torch.int64, (S,))
-    Q = torch.empty((S,), dtype=f64, device=At.device)
-    Wmat = torch.empty((S, C, C), dtype=f64, device=At.device)
-    if S == 0:
+    _build.require(k_best, "k_best", torch.int64, gs + (S,))
+    out = call(_build.load("score_core", _bind), Sv, WGt, yt, At, WW, Wy, Wg,
+               gg, gy, AW, Ag, Ay, AtA, k_best, v0, v1,
+               _build.stream_ptr(At.device))
+    launches += 1
+    return out
+
+
+def call(lib, Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA, k_best,
+         v0, v1, stream=None):
+    """Allocate Q and Wmat and call ``lib``'s entry point (the card's
+    library, or an emulation of it on CPU tensors)."""
+    nrho, R = Sv.shape
+    S, C = At.shape[-3], At.shape[-1]
+    p = WW.shape[0]
+    gs = tuple(yt.shape[:-2])
+    Q = torch.empty(gs + (S,), dtype=torch.float64, device=At.device)
+    Wmat = torch.empty(gs + (S, C, C), dtype=torch.float64, device=At.device)
+    if Q.numel() == 0:
         return Q, Wmat
-    lib = _build.load("score_core", _bind)
     ptrs = [_build.ptr(t) for t in (Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW,
                                     Ag, Ay, AtA, k_best, v0, v1, Q, Wmat)]
-    err = lib.crm_score_core(*ptrs, R, C, p, S, _build.stream_ptr(At.device))
-    _build.check(err, "score_core")
-    launches += 1
+    _build.check(lib.crm_score_core(*ptrs, nrho, R, C, p, S, math.prod(gs),
+                                    stream), "score_core")
     return Q, Wmat

@@ -1,0 +1,72 @@
+"""K6a: the eigenvalues of the score test's weight matrices, ascending and
+clamped at 0: the mixture weights of Q's null law under the Liu,
+saddlepoint and auto p-value methods.
+
+The JAX package computes them as max(eigh(sym(A) + eps I) - eps, 0), eps =
+1e-12 max(max|diag|, 1) (cellregmap_tpu/ops/linalg.py ``safe_eigh``,
+:238-249, clamped in ``per_snp``, engine.py:759-769).  On a CUDA tensor
+:func:`sym_eigvalsh` launches ``csrc/sym_eigvalsh.cu`` (cyclic Jacobi, one
+block per matrix, which needs no shift); on a CPU tensor it runs
+:func:`sym_eigvalsh_plain`, the shifted form through
+``torch.linalg.eigvalsh``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+launches = 0
+
+MAX_C = 64          # matrix size the kernel holds in shared memory
+
+
+def sym_eigvalsh_plain(A: torch.Tensor) -> torch.Tensor:
+    """Plain torch version: eigvalsh of the symmetrized matrix shifted by
+    eps I, shifted back and clamped at 0 (the JAX package's form)."""
+    sym = 0.5 * (A + A.transpose(-1, -2))
+    diag = torch.diagonal(sym, dim1=-2, dim2=-1)
+    eps = 1e-12 * torch.clamp(diag.abs().amax(dim=-1), min=1.0)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    lam = torch.linalg.eigvalsh(sym + eps[..., None, None] * eye)
+    return torch.clamp(lam - eps[..., None], min=0.0)
+
+
+def _bind(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.crm_sym_eigvalsh.restype = ci
+    lib.crm_sym_eigvalsh.argtypes = [vp, vp, vp, ci, ci, vp]
+
+
+def sym_eigvalsh(A: torch.Tensor, return_sweeps: bool = False):
+    """(S, C) eigenvalues, ascending and clamped at 0, of the symmetric
+    parts of A (S, C, C) f64; with ``return_sweeps`` also the Jacobi sweeps
+    each matrix took (S,) int32 (on the CPU: None)."""
+    global launches
+    if A.device.type == "cpu":
+        lam = sym_eigvalsh_plain(A)
+        return (lam, None) if return_sweeps else lam
+    S, C = A.shape[0], A.shape[-1]
+    if C > MAX_C:
+        raise ValueError(f"sym_eigvalsh: at most {MAX_C} x {MAX_C} matrices, "
+                         f"got C={C}")
+    _build.require(A, "sym_eigvalsh: A", torch.float64, (S, C, C))
+    out = call(_build.load("sym_eigvalsh", _bind), A, return_sweeps,
+               _build.stream_ptr(A.device))
+    launches += 1
+    return out
+
+
+def call(lib, A, return_sweeps=False, stream=None):
+    """Allocate the outputs and call ``lib``'s entry point (the card's
+    library, or an emulation of it on CPU tensors)."""
+    S, C = A.shape[0], A.shape[-1]
+    lam = torch.empty((S, C), dtype=A.dtype, device=A.device)
+    sweeps = torch.zeros((S,), dtype=torch.int32, device=A.device)
+    if lam.numel():
+        _build.check(lib.crm_sym_eigvalsh(_build.ptr(A), _build.ptr(lam),
+                                          _build.ptr(sweeps), S, C, stream),
+                     "sym_eigvalsh")
+    return (lam, sweeps) if return_sweeps else lam

@@ -9,15 +9,20 @@ path (the reference's ``chiscore.davies_pvalue``) runs on the host:
 3. modified Liu (4-moment chi-squared match) as the last rung.
 
 A NumPy/SciPy port of ``cellregmap_tpu.models.pvalues`` (the ladder as it
-is) plus the port's own copy of ``oracle.imhof_sf``.  The device tails
-(batched Liu / saddlepoint on the card) come with a later slice.
+is) plus the port's own copy of ``oracle.imhof_sf``.  The device tails of
+the Liu, saddlepoint and auto methods (mod-Liu and the Kuonen saddlepoint,
+batched over pairs) are :func:`liu_sf_torch` and :func:`saddlepoint_sf_torch`
+here, in torch: the plain versions of the card's kernel
+(``kernels.mixture_tails``).
 """
 from __future__ import annotations
 
 import logging
+import math
 import warnings
 
 import numpy as np
+import torch
 from scipy.integrate import IntegrationWarning, quad
 from scipy.special import gammaincc, gammaln
 from scipy.stats import chi2
@@ -85,6 +90,91 @@ def _ncx2_sf(x, df, ncp, n_terms: int = 64):
     terms = _chi2_sf(x[..., None], df[..., None] + 2 * k)
     series = np.sum(w * terms, axis=-1)
     return np.where(ncp > 0, series, central)
+
+
+def liu_sf_torch(q, lam):
+    """mod-Liu Pr(Q > q) in torch, batched: q (...,), lam (..., C); the JAX
+    package's ``liu_sf`` (cellregmap_tpu/models/pvalues.py:31-69) op for
+    op.  Returns the p-values (...,)."""
+    c1 = lam.sum(dim=-1)
+    c2 = (lam ** 2).sum(dim=-1)
+    c3 = (lam ** 3).sum(dim=-1)
+    c4 = (lam ** 4).sum(dim=-1)
+    s1 = c3 / torch.sqrt(c2) ** 3
+    s2 = c4 / c2 ** 2
+    has_ncp = s1 ** 2 > s2
+    a = 1.0 / (s1 - torch.sqrt(torch.clamp(s1 ** 2 - s2, min=0.0)))
+    ncp_1 = s1 * a ** 3 - a ** 2
+    dof_1 = a ** 2 - 2 * ncp_1
+    dof_2 = 1.0 / s2
+    ncp_x = torch.where(has_ncp, ncp_1, torch.zeros_like(ncp_1))
+    dof_x = torch.where(has_ncp, dof_1, dof_2)
+    sigma_x = torch.sqrt(2 * (dof_x + 2 * ncp_x))
+    t = (q - c1) / torch.sqrt(2 * c2)
+    return _ncx2_sf_torch(t * sigma_x + dof_x + ncp_x, dof_x, ncp_x)
+
+
+def _ncx2_sf_torch(x, df, ncp, n_terms: int = 64):
+    """The 64-term Poisson series of central chi2 tails (the JAX
+    package's ``_ncx2_sf``, pvalues.py:76-91)."""
+    gcc = torch.special.gammaincc
+    xh = torch.clamp(x, min=0.0) / 2.0
+    central = gcc(df / 2.0, xh)
+    k = torch.arange(n_terms, dtype=x.dtype, device=x.device)
+    halfn = ncp[..., None] / 2.0
+    tiny = torch.finfo(x.dtype).tiny
+    w = torch.exp(-halfn + k * torch.log(torch.clamp(halfn, min=tiny))
+                  - torch.lgamma(k + 1))
+    w = torch.where((halfn == 0) & (k == 0), torch.ones_like(w),
+                    torch.where(halfn == 0, torch.zeros_like(w), w))
+    series = (w * gcc((df[..., None] + 2 * k) / 2.0, xh[..., None])).sum(-1)
+    return torch.where(ncp > 0, series, central)
+
+
+def _ndtr_torch(x):
+    """The standard normal CDF in the JAX package's form (its ``_ndtr``:
+    1 + erf inside |x| < 1, else from erfc), so that 1 - ndtr rounds as
+    there."""
+    half_sqrt_2 = 0.5 * math.sqrt(2.0)
+    w = x * half_sqrt_2
+    z = w.abs()
+    y = torch.where(z < half_sqrt_2, 1.0 + torch.erf(w),
+                    torch.where(w > 0, 2.0 - torch.erfc(z), torch.erfc(z)))
+    return 0.5 * y
+
+
+def saddlepoint_sf_torch(q, lam, n_iters: int = 40):
+    """Kuonen saddlepoint Pr(Q > q) in torch, batched: q (...,), lam (...,
+    C); the JAX package's ``saddlepoint_sf`` (pvalues.py:97-145) op for op:
+    ``n_iters + 60`` bisection steps on K'(t) = q over (lo, 1 / (2 lmax)),
+    Lugannani-Rice with 1 - ndtr(z), and the Liu value near the mean (|v| <
+    1e-8) or where lmax <= 0."""
+    lmax = lam.amax(dim=-1)
+    mean = lam.sum(dim=-1)
+    hi = 1.0 / (2.0 * lmax)
+    tiny = torch.finfo(q.dtype).tiny
+
+    def kp(t):
+        return (lam / (1.0 - 2.0 * t[..., None] * lam)).sum(dim=-1)
+
+    span = torch.clamp(mean, min=1.0) / torch.clamp(q, min=tiny)
+    a = -hi.abs() * 1e3 - span * 1e3 - 1e3
+    b = hi * (1.0 - 1e-12)
+    for _ in range(n_iters + 60):
+        mid = 0.5 * (a + b)
+        below = kp(mid) < q
+        a, b = torch.where(below, mid, a), torch.where(below, b, mid)
+    t = 0.5 * (a + b)
+    K = -0.5 * torch.log1p(-2.0 * t[..., None] * lam).sum(dim=-1)
+    w = torch.sign(t) * torch.sqrt(torch.clamp(2.0 * (t * q - K), min=0.0))
+    kpp = (2.0 * lam ** 2 / (1.0 - 2.0 * t[..., None] * lam) ** 2).sum(-1)
+    v = t * torch.sqrt(kpp)
+    near_mean = v.abs() < 1e-8
+    one = torch.ones_like(w)
+    w_safe = torch.where(near_mean, one, w)
+    v_safe = torch.where(near_mean, one, v)
+    sp = 1.0 - _ndtr_torch(w_safe + torch.log(v_safe / w_safe) / w_safe)
+    return torch.where(near_mean | (lmax <= 0), liu_sf_torch(q, lam), sp)
 
 
 def imhof_sf(q, lambdas, epsabs=1e-13, epsrel=1e-11):

@@ -10,37 +10,49 @@ Phases, in order; any failure raises and the script exits non-zero:
    library, from the sources in this checkout;
 3. each kernel on the inputs the main paths give it at the headline size
    (K1 kr_contract, K2 delta_grid, K3 reml_newton, K4 best_rho_rotate, K5
-   score_core on an interaction batch; K7, the ML delta grid and Newton,
-   on an association refit batch; K10 null_fit on the association's null
-   fit), held against its plain torch version, and timed with CUDA events
-   beside its plain version, the library call where one exists, and its
-   bound;
+   score_core, K6a sym_eigvalsh and K6b mixture_tails on an interaction
+   batch; K7, the ML delta grid and Newton, on an association refit batch;
+   K10 null_fit on the association's null fit), held against its plain
+   torch version, and timed with CUDA events beside its plain version, the
+   library call where one exists, and its bound;
 4. the interaction path, ``run_interaction(..., device="cuda")``, at the
    bench's headline size (2000 cells, 10 contexts, 100 donors, 2048
    variants, batch 512): throughput, setup/scan split, the traced phase
    split, the launch counts of every kernel, the planted GxC variant, and
-   the first 64 variants against the port on the CPU;
+   the first 64 variants against the port on the CPU; then the same under
+   ``pvalue_method="auto"`` (the device tails, K6a and K6b), its refined
+   pairs against the davies run;
 5. a second interaction size users run (10k cells, 20 contexts, 125
    donors, 512 variants);
-6. the association paths at the headline size: ``run_association(...,
+6. the gene-batched scan, ``run_interaction_multigene(..., device="cuda")``
+   at the JAX bench's ``multigene_16`` shape (the headline dataset, 16
+   genes, 512 variants, one tile): first and steady pairs/s, launch counts,
+   the per-gene loop on the same scanner, the first 2 genes x 64 variants
+   against the CPU, K2-K5 with the gene axis against their plain versions
+   (timed, with their bounds), and one call under "auto";
+7. the association paths at the headline size: ``run_association(...,
    hK=hK, device="cuda")`` (R = 110) and ``scan_association`` on the
    headline's Ls scanner (R = 1010), each with its launch counts and the
    first 64 variants against the port on the CPU;
-7. K8 fast_scan on a headline batch of the Ls scanner and K9
+8. K8 fast_scan on a headline batch of the Ls scanner and K9
    woodbury_family on every call of a 512-variant effect-size batch (f32
    zoom rounds, f64 rounds, the f64 fit with coefficients), each against
    its plain version and timed as in 3, and K1 on that batch's three
    contractions (K = Rk, V = E0 or B);
-8. the fast association paths, ``run_association_fast(..., hK=hK,
+9. the fast association paths, ``run_association_fast(..., hK=hK,
    device="cuda")`` and ``scan_association_fast`` on the Ls scanner, at
    2000 cells x 2048 variants, with launch counts and the first 64
    variants against the CPU;
-9. the effect sizes, ``estimate_betas(..., hK=hK)`` at 2000 cells x 512
-   variants (a first and a steady call, the traced phase split, launch
-   counts, the first 32 variants' fits against the CPU), and
-   ``estimate_aggregate_environment`` of the planted variant against the
-   CPU (on the headline's scanner, and with an E1 outside E);
-10. one JSON line of the kernels, then the result line.
+10. the effect sizes, ``estimate_betas(..., hK=hK)`` at 2000 cells x 512
+    variants (a first and a steady call, the traced phase split, launch
+    counts, the first 32 variants' fits against the CPU), and
+    ``estimate_aggregate_environment`` of the planted variant against the
+    CPU (on the headline's scanner, and with an E1 outside E);
+11. 50 contexts (2000 cells, 100 donors, an E1 outside E): the aggregate
+    environment through K10's wide instantiation (p = 52) against the CPU
+    and the kernel against its plain version, and K6a on one interaction
+    batch's 50 x 50 weight matrices;
+12. one JSON line of the kernels, then the result line.
 
 It imports neither jax nor the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -49,6 +61,7 @@ from __future__ import annotations
 
 import json
 import logging
+import math
 import statistics
 import subprocess
 import sys
@@ -70,6 +83,8 @@ HEADLINE = dict(n_cells=2000, n_contexts=10, n_donors=100, n_snps=2048,
 BETAS_SNPS = 512       # the JAX bench's betas_2k size (bench.py:462-477)
 SECOND = dict(n_cells=10_000, n_contexts=20, n_donors=125, n_snps=512,
               seed=1)
+WIDE = dict(n_cells=2000, n_contexts=50, n_donors=100, n_snps=512, seed=2)
+MULTIGENE = dict(genes=16, n_snps=512, seed=9)    # bench.py:479-506
 BATCH = 512
 GXE_SNP = 7
 CARD = "cuda"          # the device of the main paths
@@ -174,9 +189,12 @@ def check_kernels(ctx, G, n):
     from cellregmap_tpu_torch.kernels import score_core as k5
 
     calls = capture_kernel_inputs(
-        lambda: engine.interaction_batch(ctx, G, G, n, delta_cfg=DELTA_CFG),
+        lambda: engine.interaction_batch(ctx, G, G, n, delta_cfg=DELTA_CFG,
+                                         device_pvalues=True),
         ["kr_contract", "delta_grid", "reml_localize", "reml_converge",
-         "best_rho_rotate", "score_core"])
+         "best_rho_rotate", "score_core", "sym_eigvalsh", "mixture_tails"])
+    tails = (calls.pop("sym_eigvalsh")[0][0],
+             calls.pop("mixture_tails")[0][0])
     calls = {k: [a for a, _ in v] if k in ("kr_contract", "best_rho_rotate",
                                            "score_core") else v
              for k, v in calls.items()}
@@ -221,10 +239,8 @@ def check_kernels(ctx, G, n):
     err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
     assert rel <= 1e-12, f"best_rho_rotate: rel {rel}"
-    R, C, S = T.shape
-    n_k = int(torch.unique(kb).numel())
-    b_ms, b_by = bound(2 * R * R * C * S,
-                       F64 * (n_k * R * R + 2 * R * C * S + S))
+    S = T.shape[2]
+    b_ms, b_by, n_k, _ = k4_bound(V, T, kb)
 
     def k4_library(chunk=64):
         for s0 in range(0, S, chunk):
@@ -270,6 +286,7 @@ def check_kernels(ctx, G, n):
     rows.insert(1, check_delta_grid(calls["delta_grid"][0]))
     rows.insert(2, check_reml_newton(calls["reml_localize"][0],
                                      calls["reml_converge"][0]))
+    rows += [check_sym_eigvalsh(*tails[0]), check_mixture_tails(*tails[1])]
     rows += check_association_kernels(ctx, G, n)
     for r in rows:
         print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
@@ -279,6 +296,78 @@ def check_kernels(ctx, G, n):
               + (f"; distinct rho {r['distinct_rho']}"
                  if "distinct_rho" in r else ""), flush=True)
     return rows
+
+
+def check_sym_eigvalsh(A):
+    """K6a on one batch's weight matrices A (S, C, C): ascending, clamped
+    eigenvalues within 1e-12 of each row's largest |lambda| of the plain
+    version (the shifted ``torch.linalg.eigvalsh``), timed beside it and
+    beside one ``torch.linalg.eigvalsh`` call (cuSOLVER).  The operation
+    bound counts the sweeps this run's matrices took: a sweep is C (C - 1)
+    / 2 rotations of 12 C flop (two rows and two columns) and an
+    off-diagonal norm of 2 C^2."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a
+
+    lam, sweeps = k6a.sym_eigvalsh(A, return_sweeps=True)
+    want = k6a.sym_eigvalsh_plain(A)
+    torch.cuda.synchronize()
+    scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-300)
+    rel = float(((lam - want).abs() / scale).max())
+    assert rel <= 1e-12, f"sym_eigvalsh: rel {rel}"
+    assert bool((lam[:, 1:] >= lam[:, :-1]).all()), "sym_eigvalsh: order"
+    S, C = A.shape[0], A.shape[-1]
+    n_sw = int(sweeps.sum())
+    flops = n_sw * (6 * C * C * (C - 1) + 2 * C * C) + S * 2 * C * C
+    b_ms, b_by = bound(flops, F64 * (S * C * C + S * C))
+    return dict(
+        name="sym_eigvalsh", route="cuda",
+        source="cellregmap_tpu_torch/csrc/sym_eigvalsh.cu",
+        replaces="cellregmap_tpu/ops/linalg.py:238",
+        max_abs_err=float((lam - want).abs().max()),
+        ms=cuda_ms(lambda: k6a.sym_eigvalsh(A)),
+        plain_ms=cuda_ms(lambda: k6a.sym_eigvalsh_plain(A)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.linalg.eigvalsh(A)),
+        shapes=dict(S=S, C=C), sweeps_max=int(sweeps.max()),
+        sweeps_mean=n_sw / S,
+        tolerance="|err| <= 1e-12 * max|lambda| of each matrix")
+
+
+def check_mixture_tails(Q, lam, n_iters=40):
+    """K6b on one batch's (Q, lambda): both tails within 1e-9 relative
+    (floor 1e-300) of the plain version, NaN where it is NaN.  Its
+    operation bound counts, per pair, the saddlepoint's n_iters + 60
+    bisection steps (4 C flop each), the moment and K sums (~15 C) and the
+    64-term Liu series at 20 flop a term: a floor, since the gammaincc
+    iterations are not counted."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import mixture_tails as k6b
+
+    got = k6b.mixture_tails(Q, lam, n_iters)
+    want = k6b.mixture_tails_plain(Q, lam, n_iters)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w, name in zip(got, want, ("pv_liu", "pv_saddlepoint")):
+        nan = torch.isnan(w)
+        assert torch.equal(torch.isnan(g), nan), f"mixture_tails {name}: NaN"
+        gap = float(((g - w).abs() - 1e-9 * w.abs())[~nan].max())
+        assert gap <= 1e-300, f"mixture_tails {name}: excess {gap}"
+        err = max(err, float((g - w)[~nan].abs().max()))
+    P, C = lam.shape
+    flops = P * ((n_iters + 60) * 4 * C + 15 * C + 64 * 20)
+    b_ms, b_by = bound(flops, F64 * (P * C + P + 2 * P))
+    return dict(
+        name="mixture_tails", route="cuda",
+        source="cellregmap_tpu_torch/csrc/mixture_tails.cu",
+        replaces="cellregmap_tpu/models/pvalues.py:31", max_abs_err=err,
+        ms=cuda_ms(lambda: k6b.mixture_tails(Q, lam, n_iters)),
+        plain_ms=cuda_ms(lambda: k6b.mixture_tails_plain(Q, lam, n_iters)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        min_pv=[float(t[~torch.isnan(t)].min()) for t in got],
+        tolerance="|err| <= 1e-9 |plain| + 1e-300, NaN where plain is NaN")
 
 
 def _rel(a, b):
@@ -291,6 +380,23 @@ def _rel(a, b):
     if not bool(fin.any()):
         return 0.0
     return float(((a - b).abs() / b.abs().clamp(min=1e-300))[fin].max())
+
+
+def k4_bound(V, T, kb):
+    """K4's bound on one call: 2 R^2 C flop for each distinct (rho,
+    variant) pair of k_best ([genes,] S), since genes whose best rho
+    agrees share the product V[k]^T T[:, :, s]; V's used slices and T read
+    once, At and k_best written or read once per gene.  Returns (ms, by,
+    distinct rho points, distinct pairs)."""
+    import torch
+
+    R, C, S = T.shape
+    keys = kb.reshape(-1, S) * S + torch.arange(S, device=kb.device)
+    n_pairs = int(torch.unique(keys).numel())
+    n_k = int(torch.unique(kb).numel())
+    nbytes = F64 * (n_k * R * R + R * C * S + kb.numel() * (R * C + 1))
+    b_ms, b_by = bound(2 * R * R * C * n_pairs, nbytes)
+    return b_ms, b_by, n_k, n_pairs
 
 
 def _fit_flops(p1, R, problems, deriv_steps):
@@ -324,10 +430,15 @@ def check_delta_grid(call, library=True):
     nrho, R = S.shape
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
-    nsh = p * (p + 1) // 2 + p + 2
-    flops = 2 * nrho * K * R * (nS * (p + 2) + nsh)
-    nbytes = F64 * (WGt.numel() + 2 * S.numel() + nS * (p + 4)
-                    + 2 * nS * nrho)
+    genes = math.prod(yt.shape[:-2])      # 1, or the gene-batched scan's
+    # weighted sums per (rho, grid point, eigen row), 2 flop each: those
+    # that no phenotype enters (g W_j and g^2 per variant, W_i W_j and the
+    # log-determinant) counted once, the phenotype's (g y per variant,
+    # W_j y, y^2) once per gene
+    shared = nS * (p + 1) + p * (p + 1) // 2 + 1
+    flops = 2 * nrho * K * R * (shared + genes * (nS + p + 1))
+    nbytes = F64 * (WGt.numel() + (1 + genes) * S.numel()
+                    + genes * (nS * (p + 4) + 2 * nS * nrho))
     b_ms, b_by = bound(flops, nbytes)
     lib_ms = None
     if library:
@@ -399,12 +510,14 @@ def check_reml_newton(loc_call, conv_call):
     nrho, R = S.shape
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
-    flops = (_fit_flops(p + 1, R, nS * nrho, steps)
-             + _fit_flops(p + 1, R, nS, steps3))
+    genes = math.prod(yt.shape[:-2])      # 1, or the gene-batched scan's
+    flops = (_fit_flops(p + 1, R, genes * nS * nrho, steps)
+             + _fit_flops(p + 1, R, genes * nS, steps3))
     n_k = int(torch.unique(kb).numel())
-    nbytes = F64 * (WGt.numel() + 2 * S.numel() + nS * (p + 4)
-                    + 2 * nS * nrho + 2 * nS * nrho + nS
-                    + n_k * R * (p + 2) + nS * (p + 4))
+    nbytes = F64 * (WGt.numel() + (1 + genes) * S.numel()
+                    + genes * (nS * (p + 4) + 4 * nS * nrho + nS
+                               + nS * (p + 4))
+                    + n_k * R * (p + 2))
     b_ms, b_by = bound(flops, nbytes)
     return dict(
         name="reml_newton", route="cuda",
@@ -899,7 +1012,7 @@ def aggregate_environment_phase(d, cfg):
 
 def scan_size(label, spec, cfg, warmup=True, cpu_check=0):
     """The main path at one size, run as a user runs it; returns
-    (summary dict, launch counts of the untraced run)."""
+    (summary dict, launch counts of the untraced run, p-values, info)."""
     import dataclasses
 
     import torch
@@ -930,9 +1043,11 @@ def scan_size(label, spec, cfg, warmup=True, cpu_check=0):
     assert pv.shape == (n_snps,) and np.all((pv > 0) & (pv <= 1)), \
         f"{label}: p-values outside (0, 1]"
     assert np.isfinite(info["Q"]).all()
+    tails = 0 if cfg.pvalue_method == "davies" else batches
     want = expected_launches(kr_contract=3 * batches, delta_grid=batches,
                              reml_newton=2 * batches,
-                             best_rho_rotate=batches, score_core=batches)
+                             best_rho_rotate=batches, score_core=batches,
+                             sym_eigvalsh=tails, mixture_tails=tails)
     assert counts == want, f"{label}: launches {counts} != {want}"
 
     # setup apart from scan: a scanner's first scan builds the null
@@ -972,7 +1087,320 @@ def scan_size(label, spec, cfg, warmup=True, cpu_check=0):
         out["cpu_check"] = dict(n=cpu_check, max_abs_pv_diff=gap,
                                 rho1_identical=True)
     print(f"scan {label}: " + json.dumps(out), flush=True)
+    return out, counts, pv, info
+
+
+def auto_vs_davies(pv_auto, info_auto, pv_dav, cfg):
+    """The auto method against the davies run of the same data: the pairs
+    it refined (saddlepoint below davies_threshold) within 1e-8 of davies,
+    the others equal to the device saddlepoint."""
+    refined = info_auto["pv_saddlepoint"] < cfg.davies_threshold
+    gap = float(np.max(np.abs(pv_auto - pv_dav)[refined], initial=0.0))
+    assert gap <= 1e-8, f"auto: refined pairs {gap} from davies"
+    assert np.array_equal(pv_auto[~refined],
+                          info_auto["pv_saddlepoint"][~refined]), \
+        "auto: unrefined pairs are not the device saddlepoint"
+    sp_gap = np.abs(info_auto["pv_saddlepoint"] - pv_dav)
+    return dict(refined=int(refined.sum()), n=int(pv_auto.size),
+                max_abs_refined_vs_davies=gap,
+                max_abs_saddlepoint_vs_davies=float(sp_gap.max()),
+                max_abs_liu_vs_davies=float(np.max(
+                    np.abs(info_auto["pv_liu"] - pv_dav))))
+
+
+def check_gene_axis(ctx, Y, G, n):
+    """K2-K5 with the gene axis, on the operands of one gene-batched batch
+    at the multigene shape (the headline's context, Y's genes, G's
+    variants), each against its plain version (one gene at a time) with
+    the single-phenotype tolerances, timed beside it (plain: median of 3),
+    and its bound counted for all the genes: the genotype's operands read
+    once, and work that no phenotype enters (K2's genotype and W sums, K4's
+    product for a (rho, variant) pair that several genes pick) done once."""
+    import torch
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
+    from cellregmap_tpu_torch.kernels import score_core as k5
+
+    Yg = torch.as_tensor(np.ascontiguousarray(Y.T), device=CARD)
+    ctx_g = ctx._replace(y=Yg, Zy=Yg @ ctx.Z, Wy=Yg @ ctx.W,
+                         yy=(Yg * Yg).sum(dim=1))
+    Gb = torch.as_tensor(G, device=CARD).contiguous()
+    calls = capture_kernel_inputs(
+        lambda: engine.interaction_multigene_batch(
+            ctx_g, Gb, Gb, n, delta_cfg=DELTA_CFG, device_pvalues=False),
+        ["delta_grid", "reml_localize", "reml_converge", "best_rho_rotate",
+         "score_core"])
+    genes, nS = Y.shape[1], G.shape[1]
+    rows = {"delta_grid": check_delta_grid(calls["delta_grid"][0],
+                                           library=False),
+            "reml_newton": check_reml_newton(calls["reml_localize"][0],
+                                             calls["reml_converge"][0])}
+    (V, T, kb), _ = calls["best_rho_rotate"][0]
+    out, ref = k4.best_rho_rotate(V, T, kb), k4.best_rho_rotate_plain(V, T,
+                                                                        kb)
+    torch.cuda.synchronize()
+    rel = float((out - ref).abs().max() / ref.abs().max())
+    assert rel <= 1e-12, f"best_rho_rotate (gene axis): rel {rel}"
+    R, C, _ = T.shape
+    b_ms, b_by, n_k, n_pairs = k4_bound(V, T, kb)
+    rows["best_rho_rotate"] = dict(
+        max_abs_err=float((out - ref).abs().max()),
+        ms=cuda_ms(lambda: k4.best_rho_rotate(V, T, kb)),
+        plain_ms=cuda_ms(lambda: k4.best_rho_rotate_plain(V, T, kb), reps=3,
+                         warmup=1), bound_ms=b_ms, bound_by=b_by,
+        distinct_rho=n_k, distinct_rho_variant_pairs=n_pairs)
+    (args, _), = calls["score_core"]
+    (Q, Wm), (Qr, Wr) = k5.score_core(*args), k5.score_core_plain(*args)
+    torch.cuda.synchronize()
+    rel = max(float((Q - Qr).abs().max() / Qr.abs().max()),
+              float((Wm - Wr).abs().max() / Wr.abs().max()))
+    assert rel <= 1e-10, f"score_core (gene axis): rel {rel}"
+    p = args[4].shape[0]
+    m = C + p + 2
+    n_k = int(torch.unique(args[13]).numel())
+    b_ms, b_by = bound(
+        genes * nS * R * (3 * m * (m + 1) // 2 + 3),
+        F64 * (genes * nS * (R * C + R) + n_k * R * (p + 2)
+               + nS * (C * C + C * (p + 1)) + genes * nS * (C + p + 4)
+               + genes * nS * (C * C + 1)))
+    rows["score_core"] = dict(
+        max_abs_err=max(float((Q - Qr).abs().max()),
+                        float((Wm - Wr).abs().max())),
+        ms=cuda_ms(lambda: k5.score_core(*args)),
+        plain_ms=cuda_ms(lambda: k5.score_core_plain(*args), reps=3,
+                         warmup=1), bound_ms=b_ms, bound_by=b_by)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "split_ms", "distinct_rho", "distinct_rho_variant_pairs")
+    out = dict(genes=genes, n_snps=nS,
+               kernels={k: {kk: r[kk] for kk in keys if kk in r}
+                        for k, r in rows.items()})
+    print("gene axis: " + json.dumps(out), flush=True)
+    return out
+
+
+def multigene_phase(d, cfg):
+    """``run_interaction_multigene`` at the JAX bench's ``multigene_16``
+    shape (bench.py:479-506): Y = y + 0.1 N(0, 1) (rng 9) over 16 genes,
+    512 variants, gene_batch = 16.  A first call (the scanner's setup,
+    through ``run_interaction_multigene``) and a steady call on one
+    scanner, with launch counts (one per kernel per gene tile and variant
+    batch, K1 three times: shared by the genes); the per-gene loop
+    (``with_phenotype(...).scan_interaction``) on the same scanner; the
+    first 2 genes x 64 variants against the CPU (1e-8, rho1 identical);
+    K2-K5 with the gene axis against their plain versions
+    (:func:`check_gene_axis`); one steady call under "auto", its refined
+    pairs against davies."""
+    import dataclasses
+
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import kernels
+
+    genes, n_snps = MULTIGENE["genes"], MULTIGENE["n_snps"]
+    rng = np.random.default_rng(MULTIGENE["seed"])
+    n = len(d["y"])
+    Y = d["y"][:, None] + 0.1 * rng.normal(size=(n, genes))
+    G = d["G"][:, :n_snps]
+    Ls = crp.get_L_values(d["hK"], d["E"])
+    pairs = genes * n_snps
+    batches = -(-n_snps // cfg.snp_batch)
+
+    t0 = time.perf_counter()
+    pv0, _ = crp.run_interaction_multigene(Y, d["E"], G, W=d["W"], Ls=Ls,
+                                           gene_batch=genes, config=cfg,
+                                           device=CARD)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    crm = crp.CellRegMap(y=Y[:, 0], E=d["E"], W=d["W"], Ls=Ls, config=cfg,
+                         device=CARD)
+    crm.scan_interaction_multigene(Y[:, :2], G[:, :cfg.snp_batch])  # setup
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pv, info = crm.scan_interaction_multigene(Y, G, gene_batch=genes)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = expected_launches(kr_contract=3 * batches, delta_grid=batches,
+                             reml_newton=2 * batches,
+                             best_rho_rotate=batches, score_core=batches)
+    assert counts == want, f"multigene: launches {counts} != {want}"
+    assert pv.shape == (genes, n_snps) and np.all((pv > 0) & (pv <= 1))
+    assert np.array_equal(pv, pv0), "multigene: the first call differs"
+
+    # the per-gene loop on the same scanner
+    t0 = time.perf_counter()
+    loop = [crm.with_phenotype(Y[:, j]).scan_interaction(G)
+            for j in range(genes)]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    loop_gap = max(float(np.max(np.abs(pv[j] - pv_j)))
+                   for j, (pv_j, _) in enumerate(loop))
+    assert loop_gap <= 1e-8, f"multigene vs the per-gene loop: {loop_gap}"
+    assert all(np.array_equal(info["rho1"][j], info_j["rho1"])
+               for j, (_, info_j) in enumerate(loop)), \
+        "multigene: rho1 differs from the per-gene loop"
+
+    # card against CPU on the first genes and variants
+    pv_c, info_c = crp.CellRegMap(
+        y=Y[:, 0], E=d["E"], W=d["W"], Ls=Ls, config=cfg, device="cpu"
+    ).scan_interaction_multigene(Y[:, :2], G[:, :64])
+    cpu_gap = float(np.max(np.abs(pv[:2, :64] - pv_c)))
+    assert cpu_gap <= 1e-8, f"multigene: |pv_gpu - pv_cpu| = {cpu_gap}"
+    assert np.array_equal(info["rho1"][:2, :64], info_c["rho1"]), \
+        "multigene: rho1 differs between the card and the CPU"
+
+    # the gene axis of K2-K5 against the plain versions at this shape
+    gene_axis = check_gene_axis(crm._ctx, Y, G[:, :cfg.snp_batch], n)
+
+    # one call under auto, on a scanner sharing the factorization
+    cfg_auto = dataclasses.replace(cfg, pvalue_method="auto")
+    crm_auto = crp.CellRegMap(y=Y[:, 0], E=d["E"], W=d["W"], Ls=Ls,
+                              config=cfg_auto, device=CARD)
+    crm_auto._ctx_cache = crm._ctx
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pv_a, info_a = crm_auto.scan_interaction_multigene(Y, G,
+                                                       gene_batch=genes)
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t0
+    c_auto = kernels.launch_counts()
+    assert c_auto["sym_eigvalsh"] == c_auto["mixture_tails"] == batches, \
+        f"multigene auto: launches {c_auto}"
+    auto = auto_vs_davies(pv_a.ravel(), {k: v.ravel() for k, v in
+                                         info_a.items()
+                                         if k in ("pv_liu",
+                                                  "pv_saddlepoint")},
+                          pv.ravel(), cfg_auto)
+    out = dict(genes=genes, n_snps=n_snps, gene_batch=genes,
+               batch=cfg.snp_batch, first_s=first_s, steady_s=steady_s,
+               first_pairs_per_s=pairs / first_s,
+               steady_pairs_per_s=pairs / steady_s, launches=counts,
+               per_gene_loop_s=loop_s,
+               per_gene_loop_pairs_per_s=pairs / loop_s,
+               speedup_vs_per_gene_loop=loop_s / steady_s,
+               max_abs_vs_loop=loop_gap,
+               cpu_check=dict(genes=2, n=64, max_abs_pv_diff=cpu_gap,
+                              rho1_identical=True),
+               auto=dict(s=auto_s, pairs_per_s=pairs / auto_s,
+                         launches=c_auto, **auto),
+               gene_axis_ms={k: v["ms"] for k, v in
+                             gene_axis["kernels"].items()})
+    print("multigene: " + json.dumps(out), flush=True)
     return out, counts
+
+
+def wide_phase(cfg):
+    """50 contexts (2000 cells, 100 donors; an E1 of 10 seeded contexts
+    outside span(E), so that the aggregate is not 0): a CPU and a card
+    scanner, each factorizing the null family (on the host) and the card's
+    uploading its own.
+    ``estimate_aggregate_environment`` of a planted variant on the card
+    (K10 with p = rank[W, E] + 1 = 52: the wide instantiation, one launch)
+    within 1e-5 of the CPU; K10 against its plain version on that call's
+    operands (``null_fit.fit_gaps`` at 1e-10) and timed; K6a on one
+    512-variant interaction batch's 50 x 50 weight matrices."""
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import engine, kernels
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+
+    d = make_dataset(**WIDE)
+    n, C = d["E"].shape
+    rng = np.random.default_rng(WIDE["seed"])
+    E1 = rng.normal(size=(n, 10)) / np.sqrt(10)
+    y = d["y"] + E1 @ rng.normal(size=10)
+    Ls = crp.get_L_values(d["hK"], d["E"])
+    t0 = time.perf_counter()
+    crm_c = crp.CellRegMap(y=y, E=d["E"], E1=E1, W=d["W"], Ls=Ls,
+                           config=cfg, device="cpu")
+    crm_c._ctx                                # the factorization, timed
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    crm = crp.CellRegMap(y=y, E=d["E"], E1=E1, W=d["W"], Ls=Ls, config=cfg,
+                         device=CARD)
+    crm._ctx                                  # its own, uploaded
+    torch.cuda.synchronize()
+    card_setup_s = time.perf_counter() - t0
+    g = d["G"][:, GXE_SNP]
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    agg = crm.estimate_aggregate_environment(g)
+    torch.cuda.synchronize()
+    agg_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    assert counts == expected_launches(null_fit=1), \
+        f"wide aggregate environment: launches {counts}"
+    agg_c = crm_c.estimate_aggregate_environment(g)
+    assert agg.shape == (n,) and np.isfinite(agg).all()
+    gap = float(np.max(np.abs(agg - agg_c)))
+    assert gap <= 1e-5, f"wide aggregate environment: |gpu - cpu| = {gap}"
+    assert float(np.abs(agg_c).max()) > 1e-3, \
+        "wide aggregate environment: zero where E1 lies outside E"
+
+    # K10's wide instantiation against its plain version
+    M = np.concatenate([engine.reduced_design_basis(d["W"], d["E"]),
+                        g[:, None]], axis=1)
+    delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi, cfg.n_delta_grid,
+                 cfg.n_golden_iters)
+    calls = capture_kernel_inputs(
+        lambda: engine.mean_fit(crm._ctx, torch.as_tensor(M, device=CARD), n,
+                                True, delta_cfg), ["null_fit"])
+    (args, kw), = calls["null_fit"]
+    data, _, restricted, lo, hi, n_grid, n_iters = args
+    fits = k10.null_fit(*args, **kw)
+    plain = k10.null_fit_plain(*args, **kw)
+    torch.cuda.synchronize()
+    gaps = k10.fit_gaps(fits, plain, data, n, restricted)
+    assert max(gaps.values()) <= 1e-10, f"null_fit (wide): {gaps}"
+    nrho, R = data.S.shape
+    p = data.Xt.shape[2]
+    evals = nrho * (n_grid + n_iters + 3 + 1)   # + logdet(X^T X)
+    flops = evals * R * 2 * (p * (p + 1) // 2 + p + 2)
+    nbytes = F64 * (nrho * R * (p + 2) + nrho * (p * p + p + 1)
+                    + nrho * (p + 6))
+    b_ms, b_by = bound(flops, nbytes)
+    k10_row = dict(
+        name="null_fit (wide)", route="cuda",
+        source="cellregmap_tpu_torch/csrc/null_fit.cu",
+        replaces="cellregmap_tpu/engine.py:849",
+        max_abs_err=float((fits.lml - plain.lml).abs().max()),
+        ms=cuda_ms(lambda: k10.null_fit(*args, **kw), reps=5),
+        plain_ms=cuda_ms(lambda: k10.null_fit_plain(*args, **kw), reps=3,
+                         warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, gaps=gaps,
+        shapes=dict(nrho=nrho, R=R, p=p), launches=counts["null_fit"],
+        tolerance="lml, plain lml at the kernel's delta, beta and scale "
+                  "at that delta: rel <= 1e-10")
+
+    # K6a at C = 50 on one interaction batch's weight matrices
+    Gb = torch.as_tensor(d["G"][:, :BATCH], device=CARD).contiguous()
+    calls = capture_kernel_inputs(
+        lambda: engine.interaction_batch(crm._ctx, Gb, Gb, n,
+                                         delta_cfg=DELTA_CFG,
+                                         device_pvalues=True),
+        ["sym_eigvalsh"])
+    k6a_c50 = check_sym_eigvalsh(calls["sym_eigvalsh"][0][0][0])
+    out = dict(n_cells=n, n_contexts=C, n_donors=WIDE["n_donors"],
+               R=R, p=p, host_setup_s=setup_s,
+               card_setup_s=card_setup_s, aggregate_s=agg_s,
+               max_abs_diff_cpu=gap, max_abs=float(np.abs(agg).max()),
+               launches=counts, null_fit_gaps=gaps,
+               k6a_c50={k: k6a_c50[k] for k in
+                        ("max_abs_err", "ms", "plain_ms", "library_ms",
+                         "bound_ms", "bound_by", "sweeps_max",
+                         "sweeps_mean", "shapes")})
+    print("wide (C = 50): " + json.dumps(out), flush=True)
+    print(f"kernel {k10_row['name']}: max_abs_err "
+          f"{k10_row['max_abs_err']:.3e} ({k10_row['tolerance']}); ms "
+          f"{k10_row['ms']:.4f}  plain_ms {k10_row['plain_ms']:.4f}  "
+          f"bound_ms {k10_row['bound_ms']:.4f} ({k10_row['bound_by']})",
+          flush=True)
+    return out, k10_row
 
 
 def main() -> int:
@@ -1011,11 +1439,28 @@ def main() -> int:
     Gb = torch.as_tensor(d["G"][:, :BATCH], device="cuda").contiguous()
     rows = check_kernels(ctx, Gb, len(d["y"]))
 
-    # --- the interaction path at the headline size, then a second size ---
-    head, counts = scan_size("headline", HEADLINE, cfg, cpu_check=64)
+    # --- the interaction path at the headline size (davies, then auto),
+    # then a second size ---
+    head, counts, pv_dav, _ = scan_size("headline", HEADLINE, cfg,
+                                        cpu_check=64)
     assert head["pv_planted"] < 1e-6, \
         f"planted GxC variant {GXE_SNP}: pv {head['pv_planted']}"
+    cfg_auto = crp.ScanConfig(snp_batch=BATCH, pvalue_method="auto")
+    head_auto, c_auto, pv_auto, info_auto = scan_size(
+        "headline_auto", HEADLINE, cfg_auto, warmup=False, cpu_check=64)
+    assert head_auto["pv_planted"] < 1e-6, \
+        f"auto: planted GxC variant {GXE_SNP}: pv {head_auto['pv_planted']}"
+    auto = auto_vs_davies(pv_auto, info_auto, pv_dav, cfg_auto)
+    print("auto vs davies (headline): " + json.dumps(dict(
+        auto, scan_s={"davies": head["scan_s"], "auto": head_auto["scan_s"]},
+        pvalue_ladder_s={
+            "davies": head["traced_phase_s"]["pvalue_ladder"],
+            "auto": head_auto["traced_phase_s"]["pvalue_ladder"]})),
+        flush=True)
     scan_size("cells10k", SECOND, cfg, warmup=False)
+
+    # --- the gene-batched scan ---
+    multigene_phase(d, cfg)
 
     # --- the association paths at the headline size ---
     Ls = crp.get_L_values(d["hK"], d["E"])
@@ -1051,6 +1496,8 @@ def main() -> int:
                                      Ls=Ls)
     _, c_betas = betas_path(d, cfg)
     _, c_agg = aggregate_environment_phase(d, cfg)
+    _, k10_wide = wide_phase(cfg)
+    rows.append(k10_wide)
 
     for r in rows:
         if r["name"] == "association_refit":
@@ -1063,6 +1510,10 @@ def main() -> int:
             r["launches"] = c_fhk["fast_scan"] + c_fls["fast_scan"]
         elif r["name"] == "woodbury_family":
             r["launches"] = c_betas["woodbury_family"]
+        elif r["name"] in ("sym_eigvalsh", "mixture_tails"):
+            r["launches"] = c_auto[r["name"]]
+        elif r["name"] == "null_fit (wide)":
+            pass
         else:
             r["launches"] = counts[r["name"]]
         assert r["launches"] > 0, f"{r['name']}: no launch on its path"

@@ -126,3 +126,35 @@ def betas_dataset(seed, p=1, n=80, C=3, donors=8, S=5, device="cpu"):
                                       device=device)
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     return bctx, t(G), t(np.linspace(1.1, 1.9, S)), n
+
+
+def tail_battery(seed, n=48, C=10):
+    """(Q, lam) numpy pairs spanning the device tails' branches: random
+    spectra with zero padding, Q from below the mean into the deep tail, a
+    pair at the mean, a pair with lambda_max <= 0 (all zero: NaN in both
+    packages), one far in the tail and rank-1 spectra (for non-negative
+    weights s1^2 <= s2 by Cauchy-Schwarz, so Liu's noncentral branch is
+    taken only where one weight is non-zero and rounding tips the
+    equality)."""
+    rng = np.random.default_rng(seed)
+    lam = np.abs(rng.normal(size=(n, C))) * 10.0 ** rng.integers(
+        -3, 2, size=(n, 1))
+    lam[: n // 4, C // 2:] = 0.0
+    q = lam.sum(1) * 10.0 ** rng.uniform(-1.0, 1.3, size=n)
+    q[0] = lam[0].sum()
+    lam[1] = 0.0
+    q[2] = lam[2].sum() * 40.0
+    q[3] = lam[3].max() * 120.0
+    lam[4:8, 1:] = 0.0
+    return q, lam
+
+
+def assert_tails_close(got, want, rtol=1e-9):
+    """Tail p-values (arrays or tensors) at ``rtol`` relative with an
+    absolute floor of 1e-300, NaN exactly where ``want`` is NaN."""
+    got, want = (np.asarray(t.cpu() if hasattr(t, "cpu") else t)
+                 for t in (got, want))
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    gap = np.abs(got - want)[~nan] - rtol * np.abs(want)[~nan]
+    assert gap.max() <= 1e-300, gap.max()

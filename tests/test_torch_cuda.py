@@ -16,14 +16,16 @@ neighbour of the plain argmax (plain lml within 1e-5 of the maximum in
 float32, 1e-12 in float64), the Newton results at rtol 1e-9, the
 golden-section fits through ``null_fit.fit_gaps`` at 1e-10, K9 in float64
 at 1e-10 of max(|lml|, 1) (beta, rss at 1e-9) and in float32 through
-``woodbury_family.f32_gaps``.
+``woodbury_family.f32_gaps``.  K6a's eigenvalues at 1e-12 of each row's
+largest, K6b's tails at 1e-9 relative (floor 1e-300).
 """
 import numpy as np
 import pytest
 import torch
 
-from _torch_inputs import (betas_dataset, captured, fit_dataset, kr_inputs,
-                           rotate_inputs, score_inputs)
+from _torch_inputs import (assert_tails_close, betas_dataset, captured,
+                           fit_dataset, kr_inputs, rotate_inputs,
+                           score_inputs, tail_battery)
 
 CASES = [(C, p) for C in (3, 10, 50) for p in (1, 2)]
 FIT_CASES = [(p, nrho, f32) for p in (1, 2) for nrho in (1, 3, 11)
@@ -134,7 +136,9 @@ def test_scan_on_card_matches_cpu(cuda):
                                        "best_rho_rotate": 4,
                                        "score_core": 4, "null_fit": 0,
                                        "fast_scan": 0,
-                                       "woodbury_family": 0}
+                                       "woodbury_family": 0,
+                                       "sym_eigvalsh": 0,
+                                       "mixture_tails": 0}
     pv_c, info_c = crp.run_interaction(y, E, G, hK=hK, config=cfg,
                                        device="cpu")
     assert np.max(np.abs(pv_g - pv_c)) <= 1e-8
@@ -195,7 +199,7 @@ def test_reml_newton_kernel_matches_plain(cuda, p, nrho, f32):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [1, 2, 5])
+@pytest.mark.parametrize("p", [1, 2, 5, 20, 52])
 @pytest.mark.parametrize("restricted", [False, True])
 def test_null_fit_kernel_matches_plain(cuda, p, restricted):
     from cellregmap_tpu_torch import engine
@@ -240,7 +244,9 @@ def test_association_on_card_matches_cpu(cuda):
                                        "best_rho_rotate": 0,
                                        "score_core": 0, "null_fit": 1,
                                        "fast_scan": 0,
-                                       "woodbury_family": 0}
+                                       "woodbury_family": 0,
+                                       "sym_eigvalsh": 0,
+                                       "mixture_tails": 0}
     pv_c, info_c = crp.run_association(y, W, E, G, hK=hK, config=cfg,
                                        device="cpu")
     assert np.max(np.abs(pv_g - pv_c)) <= 1e-9
@@ -364,4 +370,167 @@ def test_betas_on_card_match_cpu(cuda):
     Ls = crp.get_L_values(hK, E)
     agg = [crp.CellRegMap(y=y, E=E, W=W, Ls=Ls, device=dev)
            .estimate_aggregate_environment(G[:, 3]) for dev in (cuda, "cpu")]
+    assert np.max(np.abs(agg[0] - agg[1])) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 10, 50])
+def test_sym_eigvalsh_kernel_matches_plain(cuda, C):
+    from cellregmap_tpu_torch.kernels import score_core as k5
+    from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a
+
+    args = [torch.as_tensor(a, device=cuda)
+            for a in score_inputs(C, C=C, p=1, n=160, R=130, S=40)]
+    _, Wmat = k5.score_core_plain(*args)
+    B = torch.as_tensor(np.random.default_rng(C).normal(size=(C, C // 2 + 1)),
+                        device=cuda)
+    A = torch.cat([Wmat, (B @ B.T)[None]])
+    before = k6a.launches
+    lam, sweeps = k6a.sym_eigvalsh(A, return_sweeps=True)
+    assert k6a.launches == before + 1
+    want = k6a.sym_eigvalsh_plain(A)
+    scale = want.abs().amax(dim=1, keepdim=True)
+    assert float(((lam - want).abs() / scale).max()) <= 1e-12
+    assert 0 < int(sweeps.max()) < 30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 10, 50])
+def test_mixture_tails_kernel_matches_plain(cuda, C):
+    from cellregmap_tpu_torch.kernels import mixture_tails as k6b
+
+    q, lam = (torch.as_tensor(a, device=cuda)
+              for a in tail_battery(C, n=300, C=C))
+    before = k6b.launches
+    got = k6b.mixture_tails(q, lam)
+    assert k6b.launches == before + 1
+    assert_tails_close(got[0], k6b.mixture_tails_plain(q, lam)[0])
+    assert_tails_close(got[1], k6b.mixture_tails_plain(q, lam)[1])
+
+
+def _multigene_ctx(cuda, genes, seed=5):
+    """A gene-batched null context on the card: ``genes`` phenotypes
+    sharing one factorization, and its genotypes."""
+    ctx, G, n = fit_dataset(seed, p=2, nrho=11, n=300, C=4, donors=30, S=70,
+                            device=cuda)
+    rng = np.random.default_rng(seed)
+    Y = ctx.y[None] + 0.4 * torch.as_tensor(rng.normal(size=(genes, n)),
+                                            device=cuda)
+    return ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W,
+                        yy=(Y * Y).sum(dim=1)), G, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genes", [1, 3])
+def test_gene_axis_kernels_match_plain(cuda, genes):
+    """K2-K5 with a gene axis on a gene-batched batch's own operands."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
+    from cellregmap_tpu_torch.kernels import delta_grid as k2
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+    from cellregmap_tpu_torch.kernels import score_core as k5
+
+    ctx, G, n = _multigene_ctx(cuda, genes)
+    calls = captured(lambda: engine.interaction_multigene_batch(
+        ctx, G, G, n, device_pvalues=False),
+        ["delta_grid", "reml_localize", "reml_converge", "best_rho_rotate",
+         "score_core"])
+    (args, kw), = calls["delta_grid"]
+    br_lo, br_hi = k2.delta_grid(*args, **kw)
+    _, _, lml = k2.delta_grid_plain(*args, **kw, return_lml=True)
+    assert br_lo.shape == (genes, 70, 11)
+    assert k2.bracket_shortfall(br_lo, br_hi, lml, args[5], args[6]) <= 1e-5
+    (args, kw), = calls["reml_localize"]
+    x, lml_all, kb = k3.reml_localize(*args, **kw)
+    xp, lml_p, kb_p = k3.reml_localize_plain(*args, **kw)
+    assert torch.equal(kb, kb_p)
+    _close(x, xp, 1e-9)
+    _close(lml_all, lml_p, 1e-10)
+    (args, kw), = calls["reml_converge"]
+    for g, w in zip(k3.reml_converge(*args, **kw),
+                    k3.reml_converge_plain(*args, **kw)):
+        assert float(((g - w).abs() / w.abs()).max()) <= 1e-9
+    (args, _), = calls["best_rho_rotate"]
+    _close(k4.best_rho_rotate(*args), k4.best_rho_rotate_plain(*args), 1e-12)
+    (args, _), = calls["score_core"]
+    for g, w in zip(k5.score_core(*args), k5.score_core_plain(*args)):
+        _close(g, w, 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["davies", "liu", "saddlepoint", "auto"])
+def test_pvalue_methods_on_card_match_cpu(cuda, method):
+    """scan_interaction under each method on the card against the CPU
+    (1e-8, rho1 identical); K6a and K6b launch once a batch off davies and
+    never under it."""
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import kernels
+
+    y, W, E, hK, G = _small_gxe(6)
+    Ls = crp.get_L_values(hK, E)
+    cfg = crp.ScanConfig(snp_batch=16, pvalue_method=method,
+                         davies_threshold=0.05)
+    kernels.reset_launches()
+    pv_g, info_g = crp.CellRegMap(y=y, E=E, W=W, Ls=Ls, config=cfg,
+                                  device=cuda).scan_interaction(G)
+    counts = kernels.launch_counts()
+    tails = 0 if method == "davies" else 4
+    assert counts["sym_eigvalsh"] == counts["mixture_tails"] == tails
+    pv_c, info_c = crp.CellRegMap(y=y, E=E, W=W, Ls=Ls, config=cfg,
+                                  device="cpu").scan_interaction(G)
+    assert np.array_equal(info_g["rho1"], info_c["rho1"])
+    assert np.max(np.abs(pv_g - pv_c)) <= 1e-8
+    assert ("pv_liu" in info_g) == (method != "davies")
+
+
+@pytest.mark.cuda
+def test_multigene_on_card_matches_cpu(cuda):
+    """run_interaction_multigene on the card: one launch of each kernel a
+    (gene tile, variant batch), K1 three times; within 1e-8 of the CPU with
+    identical rho1."""
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import kernels
+
+    y, W, E, hK, G = _small_gxe(7)
+    Y = y[:, None] + 0.3 * np.random.default_rng(7).normal(size=(len(y), 5))
+    cfg = crp.ScanConfig(snp_batch=16)
+    kernels.reset_launches()
+    pv_g, info_g = crp.run_interaction_multigene(
+        Y, E, G, W=W, hK=hK, gene_batch=2, config=cfg, device=cuda)
+    tiles_batches = 3 * 4
+    assert kernels.launch_counts() == dict(
+        kr_contract=3 * tiles_batches, delta_grid=tiles_batches,
+        reml_newton=2 * tiles_batches, best_rho_rotate=tiles_batches,
+        score_core=tiles_batches, null_fit=0, fast_scan=0,
+        woodbury_family=0, sym_eigvalsh=0, mixture_tails=0)
+    pv_c, info_c = crp.run_interaction_multigene(
+        Y, E, G, W=W, hK=hK, gene_batch=2, config=cfg, device="cpu")
+    assert pv_g.shape == (5, 50)
+    assert np.array_equal(info_g["rho1"], info_c["rho1"])
+    assert np.max(np.abs(pv_g - pv_c)) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_aggregate_environment_c50_on_card(cuda):
+    """estimate_aggregate_environment at C = 50 (p = rank[W, E] + 1 = 51:
+    K10's wide instantiation) on the card against the CPU within 1e-5, with
+    an E1 background outside span(E) so that the aggregate is not 0."""
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+
+    rng = np.random.default_rng(50)
+    n, C, donors = 600, 50, 30
+    E = rng.normal(size=(n, C)) / np.sqrt(C)
+    E1 = rng.normal(size=(n, 10)) / np.sqrt(10)
+    hK = np.zeros((n, donors))
+    hK[np.arange(n), np.arange(n) % donors] = 1.0
+    g = rng.binomial(2, 0.3, size=n).astype(float)
+    y = (rng.normal(size=n) + E1 @ rng.normal(size=10)
+         + 0.5 * hK @ rng.normal(size=donors) + 0.4 * g * E[:, 0])
+    Ls = crp.get_L_values(hK, E)
+    before = k10.launches
+    agg = [crp.CellRegMap(y=y, E=E, E1=E1, Ls=Ls, device=dev)
+           .estimate_aggregate_environment(g) for dev in (cuda, "cpu")]
+    assert k10.launches == before + 1
+    assert np.abs(agg[1]).max() > 1e-3
     assert np.max(np.abs(agg[0] - agg[1])) <= 1e-5

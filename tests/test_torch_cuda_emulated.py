@@ -33,16 +33,19 @@ import pytest
 import torch
 from numpy.testing import assert_allclose
 
-from _torch_inputs import (betas_dataset, captured, fit_dataset, kr_inputs,
-                           rotate_inputs, score_inputs)
+from _torch_inputs import (assert_tails_close, betas_dataset, captured,
+                           fit_dataset, kr_inputs, rotate_inputs,
+                           score_inputs, tail_battery)
 from cellregmap_tpu_torch import engine
 from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
 from cellregmap_tpu_torch.kernels import delta_grid as k2
 from cellregmap_tpu_torch.kernels import fast_scan as k8
 from cellregmap_tpu_torch.kernels import kr_contract as k1
+from cellregmap_tpu_torch.kernels import mixture_tails as k6b
 from cellregmap_tpu_torch.kernels import null_fit as k10
 from cellregmap_tpu_torch.kernels import reml_newton as k3
 from cellregmap_tpu_torch.kernels import score_core as k5
+from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a
 from cellregmap_tpu_torch.kernels import woodbury_family as k9
 
 CSRC = Path(__file__).resolve().parent.parent / "cellregmap_tpu_torch" / "csrc"
@@ -62,12 +65,18 @@ EMU_RUNTIME = r"""
 #include <memory>
 #include <thread>
 #include <vector>
+using std::erf;
+using std::erfc;
 using std::exp;
 using std::fabs;
 using std::fmax;
 using std::isfinite;
+using std::isinf;
 using std::isnan;
+using std::lgamma;
 using std::log;
+using std::log1p;
+using std::nan;
 using std::max;
 using std::min;
 using std::sqrt;
@@ -173,10 +182,32 @@ def libs(tmp_path_factory):
     for name, mod in (("kr_contract", k1), ("best_rho_rotate", k4),
                       ("score_core", k5), ("delta_grid", k2),
                       ("reml_newton", k3), ("null_fit", k10),
-                      ("fast_scan", k8), ("woodbury_family", k9)):
+                      ("fast_scan", k8), ("woodbury_family", k9),
+                      ("sym_eigvalsh", k6a), ("mixture_tails", k6b)):
         out[name] = _emulated(name, workdir)
         mod._bind(out[name])
     return out
+
+
+@pytest.fixture(autouse=True)
+def nan_outputs(monkeypatch):
+    """Every ``torch.empty`` and ``torch.empty_like`` of a test (the
+    wrappers' ``call`` helpers allocate the kernels' outputs with them)
+    comes back filled with a sentinel, NaN or -1, so that an output entry
+    the kernel never writes fails the comparison instead of holding
+    whatever was in memory."""
+    def sentinel(alloc):
+        def alloc_filled(*args, **kw):
+            t = alloc(*args, **kw)
+            if t.is_floating_point():
+                t.fill_(float("nan"))
+            elif t.dtype != torch.bool:
+                t.fill_(-1)
+            return t
+        return alloc_filled
+
+    for name in ("empty", "empty_like"):
+        monkeypatch.setattr(torch, name, sentinel(getattr(torch, name)))
 
 
 def _p(t):
@@ -225,12 +256,18 @@ def test_kr_contract_source_at_the_betas_widths(libs):
 def test_best_rho_rotate_source_matches_plain(libs, C, p):
     V, T, kb = (torch.as_tensor(a)
                 for a in rotate_inputs(C + p, R=130, C=C, S=5 + p))
-    R, C_, S = T.shape
-    At = torch.full((S, R, C_), np.nan, dtype=torch.float64)
-    order = torch.argsort(kb)
-    err = libs["best_rho_rotate"].crm_best_rho_rotate(
-        _p(V), _p(T), _p(kb), _p(order), _p(At), R, C_, S, None)
-    assert err == 0
+    At = k4.call(libs["best_rho_rotate"], V, T, kb)
+    _close(At, k4.best_rho_rotate_plain(V, T, kb), 1e-12)
+
+
+@pytest.mark.parametrize("genes", [1, 3])
+def test_best_rho_rotate_source_gene_axis(libs, genes):
+    """k_best (genes, S): every gene's variants rotated from the one T."""
+    V, T, _ = (torch.as_tensor(a) for a in rotate_inputs(5, R=70, C=4, S=6))
+    rng = np.random.default_rng(genes)
+    kb = torch.as_tensor(rng.integers(0, V.shape[0], size=(genes, 6)))
+    At = k4.call(libs["best_rho_rotate"], V, T, kb)
+    assert At.shape == (genes, 6, 70, 4)
     _close(At, k4.best_rho_rotate_plain(V, T, kb), 1e-12)
 
 
@@ -238,15 +275,36 @@ def test_best_rho_rotate_source_matches_plain(libs, C, p):
 def test_score_core_source_matches_plain(libs, C, p):
     args = [torch.as_tensor(a)
             for a in score_inputs(C + p, C=C, p=p, n=80, R=37, S=6)]
-    S, R, C_ = args[3].shape
-    Q = torch.full((S,), np.nan, dtype=torch.float64)
-    Wmat = torch.full((S, C_, C_), np.nan, dtype=torch.float64)
-    err = libs["score_core"].crm_score_core(
-        *[_p(t) for t in args + [Q, Wmat]], R, C_, p, S, None)
-    assert err == 0
+    Q, Wmat = k5.call(libs["score_core"], *args)
     Qr, Wr = k5.score_core_plain(*args)
     _close(Q, Qr, 1e-10)
     _close(Wmat, Wr, 1e-10)
+
+
+# the phenotype's operands of score_core (yt, At, Wy, gy, Ay, k_best, v0,
+# v1), by position
+SCORE_GENE_ARGS = (2, 3, 5, 8, 11, 13, 14, 15)
+
+
+@pytest.mark.parametrize("genes", [1, 3])
+def test_score_core_source_gene_axis(libs, genes):
+    """Per-gene operands stacked on a leading axis (each gene's own seeded
+    phenotype), the genotype's shared: one launch, each gene as alone."""
+    per = [[torch.as_tensor(a)
+            for a in score_inputs(9, C=4, p=2, n=60, R=31, S=5)]]
+    for g in range(1, genes):
+        other = [torch.as_tensor(a)
+                 for a in score_inputs(9 + g, C=4, p=2, n=60, R=31, S=5)]
+        per.append([other[i] if i in SCORE_GENE_ARGS else per[0][i]
+                    for i in range(len(other))])
+    args = [torch.stack([a[i] for a in per]) if i in SCORE_GENE_ARGS
+            else per[0][i] for i in range(len(per[0]))]
+    Q, Wmat = k5.call(libs["score_core"], *args)
+    assert Q.shape == (genes, 5) and Wmat.shape == (genes, 5, 4, 4)
+    for g, a in enumerate(per):
+        Qr, Wr = k5.score_core_plain(*a)
+        _close(Q[g], Qr, 1e-10)
+        _close(Wmat[g], Wr, 1e-10)
 
 
 def _contiguous(calls):
@@ -269,6 +327,57 @@ def _fit_calls(p, nrho, f32, seed=0):
         ctx, G, nrho // 2, n, delta_cfg=(-18.0, 18.0, 40, 60),
         localize_f32=f32), ["delta_grid", "reml_converge"])
     return _contiguous(reml), _contiguous(ml)
+
+
+def _gene_fit_calls(genes, p=2, nrho=3, f32=True, seed=5):
+    """The K2/K3 wrappers' arguments of a gene-batched interaction batch:
+    ``genes`` phenotypes sharing one null context."""
+    ctx, G, n = fit_dataset(seed, p=p, nrho=nrho)
+    rng = np.random.default_rng(seed)
+    Y = ctx.y[None] + 0.4 * torch.as_tensor(rng.normal(size=(genes, n)))
+    ctx_g = ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W,
+                         yy=(Y * Y).sum(dim=1))
+    calls = captured(lambda: engine.interaction_multigene_batch(
+        ctx_g, G, G, n, delta_cfg=(-18.0, 18.0, 20, 60),
+        device_pvalues=False, localize_f32=f32),
+        ["delta_grid", "reml_localize", "reml_converge", "best_rho_rotate",
+         "score_core"])
+    return _contiguous(calls)
+
+
+@pytest.mark.parametrize("genes", [1, 3])
+def test_fit_sources_gene_axis(libs, genes):
+    """K2 and K3 on a gene-batched batch: the brackets held as in the
+    single-phenotype tests, the Newton results at rtol 1e-9, and each
+    gene's slice of a launch equal to that gene's own plain version."""
+    calls = _gene_fit_calls(genes)
+    (args, kw), = calls["delta_grid"]
+    assert args[2].shape[0] == genes
+    br_lo, br_hi = k2.call(libs["delta_grid"], *args, **kw)
+    _, _, lml = k2.delta_grid_plain(*args, **kw, return_lml=True)
+    assert lml.shape[0] == genes
+    assert k2.bracket_shortfall(br_lo, br_hi, lml, args[5], args[6]) <= 1e-5
+    lib = libs["reml_newton"]
+    (args, kw), = calls["reml_localize"]
+    x, lml_all, kb = k3.call_localize(lib, *args, **kw)
+    xp, lml_p, kb_p = k3.reml_localize_plain(*args, **kw)
+    assert kb.shape == (genes, 7) and torch.equal(kb, kb_p)
+    assert_allclose(x.numpy(), xp.numpy(), rtol=1e-9, atol=1e-9)
+    assert_allclose(lml_all.numpy(), lml_p.numpy(), rtol=1e-10)
+    (args, kw), = calls["reml_converge"]
+    got = k3.call_converge(lib, *args, **kw)
+    want = k3.reml_converge_plain(*args, **kw)
+    for g, w, name in zip(got, want, ("delta", "lml", "scale", "beta")):
+        assert g.shape[0] == genes
+        assert_allclose(g.numpy(), w.numpy(), rtol=1e-9, atol=1e-12,
+                        err_msg=name)
+    (args, _), = calls["best_rho_rotate"]
+    _close(k4.call(libs["best_rho_rotate"], *args),
+           k4.best_rho_rotate_plain(*args), 1e-12)
+    (args, _), = calls["score_core"]
+    for got, want in zip(k5.call(libs["score_core"], *args),
+                         k5.score_core_plain(*args)):
+        _close(got, want, 1e-10)
 
 
 @pytest.mark.parametrize("p,nrho,f32", FIT_CASES)
@@ -301,7 +410,8 @@ def test_reml_newton_source_matches_plain(libs, p, nrho, f32):
                             err_msg=name)
 
 
-@pytest.mark.parametrize("p", [1, 2, 5])
+# p = 20 and 52 take the wide (shared-memory) instantiation
+@pytest.mark.parametrize("p", [1, 2, 5, 20, 52])
 @pytest.mark.parametrize("restricted", [False, True])
 def test_null_fit_source_matches_plain(libs, p, restricted):
     ctx, G, n = fit_dataset(40 + p, p=p, nrho=3)
@@ -386,3 +496,37 @@ def test_woodbury_family_source_masks_collapsed_f32_points(libs):
     lml = _family_close(libs["woodbury_family"], args, kw)
     assert bool(torch.isneginf(lml[0]).all())
     assert bool(torch.isfinite(lml[1:]).all())
+
+
+@pytest.mark.parametrize("C", [3, 10, 50])
+def test_sym_eigvalsh_source_matches_plain(libs, C):
+    """K6a: the Jacobi eigenvalues against the shifted eigvalsh, ascending
+    and clamped, within 1e-12 of each row's largest |lambda|; the matrices
+    are K5's (through ``score_inputs``) plus an exactly rank-deficient one
+    and a non-symmetric one."""
+    args = [torch.as_tensor(a)
+            for a in score_inputs(C + 7, C=C, p=1, n=80, R=37, S=4)]
+    _, Wmat = k5.score_core_plain(*args)
+    rng = np.random.default_rng(C)
+    B = torch.as_tensor(rng.normal(size=(C, max(C // 2, 1))))
+    A = torch.cat([Wmat, (B @ B.T)[None],
+                   torch.as_tensor(rng.normal(size=(1, C, C)))])
+    lam, sweeps = k6a.call(libs["sym_eigvalsh"], A, return_sweeps=True)
+    want = k6a.sym_eigvalsh_plain(A)
+    scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-300)
+    assert float(((lam - want).abs() / scale).max()) <= 1e-12
+    assert bool((lam[:, 1:] >= lam[:, :-1]).all()) and bool((lam >= 0).all())
+    assert 0 < int(sweeps.max()) < 30
+
+
+@pytest.mark.parametrize("C", [3, 10, 50])
+def test_mixture_tails_source_matches_plain(libs, C):
+    """K6b against the torch ports of the JAX package's tails (1e-9
+    relative, floor 1e-300; the kernel's gammaincc is its own series and
+    continued fraction, torch's is Cephes')."""
+    q, lam = (torch.as_tensor(a) for a in tail_battery(C, C=C))
+    got = k6b.call(libs["mixture_tails"], q, lam)
+    want = k6b.mixture_tails_plain(q, lam)
+    assert_tails_close(got, want)
+    liu = want[0][~torch.isnan(want[0])]
+    assert float(liu.min()) < 1e-20

@@ -19,7 +19,6 @@ Three parts:
    comparison carries up to davies_acc of error: 2 * davies_acc is the
    resolution of the method, not slack in the port.
 """
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -204,11 +203,9 @@ def test_unported_options_raise():
     crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], device="cpu")
     with pytest.raises(NotImplementedError):
         crm.scan_interaction(d["G"], checkpoint="ckpt")
-    liu = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], device="cpu",
-                         config=dataclasses.replace(crp.DEFAULT_CONFIG,
-                                                    pvalue_method="liu"))
     with pytest.raises(NotImplementedError):
-        liu.scan_interaction(d["G"])
+        crm.scan_interaction_multigene(
+            np.stack([d["y"], d["y"]], axis=1), d["G"], checkpoint="ckpt")
     with pytest.raises(NotImplementedError):
         crp.CellRegMap(y=d["y"], E=d["E"], device="cpu",
                        config=crp.ScanConfig(dtype="float32"))
