@@ -8,18 +8,22 @@ stages (K3), the best-rho score-factor rotation (K4), the score statistic
 association scan (K8), the Woodbury family evaluator of the effect sizes
 (K9) and the null fits over the rho grid (K10) are hand-written CUDA
 kernels (``csrc/``), built with nvcc on first use; the association refit
-(K7) runs the K2 and K3 kernels with the ML objective, and the
-gene-batched interaction scan runs K2-K6 with a gene axis.
+(K7) runs the K2 and K3 kernels with the ML objective, the
+gene-batched interaction scan runs K2-K6 with a gene axis, and the
+gene-batched association scans run K10, K8 and K7 with a gene axis (each
+gene at its own null's best rho).  Every scan takes ``checkpoint=``.
 Everything else is torch on the same device.  The port imports neither jax
 nor the JAX package.
 """
 from ._config import DEFAULT_CONFIG, ScanConfig
 from .api import (CellRegMap, estimate_betas, get_L_values, run_association,
-                  run_association_fast, run_interaction,
+                  run_association_fast, run_association_fast_multigene,
+                  run_association_multigene, run_interaction,
                   run_interaction_multigene)
 from .utils.maf import compute_maf
 
 __all__ = ["CellRegMap", "DEFAULT_CONFIG", "ScanConfig", "compute_maf",
            "estimate_betas", "get_L_values", "run_association",
-           "run_association_fast", "run_interaction",
+           "run_association_fast", "run_association_fast_multigene",
+           "run_association_multigene", "run_interaction",
            "run_interaction_multigene"]

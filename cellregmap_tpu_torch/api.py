@@ -7,21 +7,29 @@ forwarded to ``idx_G``), ``run_interaction_multigene`` (many genes sharing
 one factorization, a capability the reference lacks), ``run_association``
 (:246-281, :471-500),
 ``run_association_fast`` (:284-314, :502-531), ``estimate_betas``
-(:137-205, :640-682) and ``CellRegMap.estimate_aggregate_environment``
-(:207-244).  Every entry
+(:137-205, :640-682), ``CellRegMap.estimate_aggregate_environment``
+(:207-244), and the gene-batched association scans
+``run_association_multigene`` and ``run_association_fast_multigene``
+(many genes sharing one factorization).  Every entry
 point runs on ``device``: CUDA unless the caller passes ``device="cpu"``.
 Without a card and without an explicit device it raises; it never falls
-back to the CPU.
+back to the CPU.  Every scan takes ``checkpoint=``, a directory where
+completed units of work (variant batches, or gene tiles) are made durable
+and from which a restarted call with the same inputs resumes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+import hashlib
+
 from . import engine
 from ._config import DEFAULT_CONFIG, ScanConfig
+from .kernels.delta_grid import MAX_GENES
 from .models import pvalues as pv_mod
 from .ops.hadamard import get_L_values
+from .parallel.checkpoint import ScanCheckpoint
 from .utils import trace
 from .utils.maf import compute_maf
 
@@ -80,10 +88,11 @@ def _batch_starts(total, batch, progress, desc):
 
 
 def _pipelined(starts, launch, consume, timers, kind, device, window=4):
-    """Run ``launch(start)`` (a dict of device tensors) for each batch start
-    with up to ``window`` batches in flight: each batch's results are
-    copied to pinned host memory behind a CUDA event, and
-    ``consume(host arrays)`` of batch i runs while later batches compute."""
+    """Run ``launch(start)`` (a dict of device tensors, or of host arrays)
+    for each batch start with up to ``window`` batches in flight: each
+    batch's results are copied to pinned host memory behind a CUDA event,
+    and ``consume(host arrays)`` of batch i runs while later batches
+    compute."""
     pending: list = []
 
     def drain(k):
@@ -92,7 +101,8 @@ def _pipelined(starts, launch, consume, timers, kind, device, window=4):
                 host, event = pending.pop(0)
                 if event is not None:
                     event.synchronize()
-                out = {kk: v.numpy() for kk, v in host.items()}
+                out = {kk: v.numpy() if isinstance(v, torch.Tensor) else v
+                       for kk, v in host.items()}
             consume(out)
 
     for start in starts:
@@ -102,11 +112,68 @@ def _pipelined(starts, launch, consume, timers, kind, device, window=4):
     drain(0)
 
 
+def _run_checkpointed(starts, launch, checkpoint, ck_meta, timers, kind,
+                      device, checkpoint_every: int = 1, axes=None,
+                      finish=None, progress=False, desc="scan"):
+    """Run ``launch(start)`` for every start (the JAX package's
+    ``_run_checkpointed``, api.py:60-106) and return the results
+    concatenated on the host, key by key (along ``axes.get(key, 0)``).
+
+    Without a checkpoint the units run pipelined (:func:`_pipelined`,
+    window 4).  With one (a directory), they run one at a time and every
+    ``checkpoint_every``-th completed unit (and the last) is durable before
+    the next is launched; a call whose ``ck_meta`` (shapes and content
+    fingerprints) matches the stored one resumes at its cursor, any other
+    call starts over.  The checkpoint is cleared at the end.  ``finish``
+    maps a unit's host results to what is kept (a batch's p-value ladder,
+    run while later batches compute).
+    """
+    axes = axes or {}
+    starts = list(starts)
+    ckpt = None if checkpoint is None else ScanCheckpoint(checkpoint)
+    done, acc = 0, []
+    if ckpt is not None:
+        state = ckpt.load()
+        if state is not None and all(state["meta"].get(k) == v
+                                     for k, v in ck_meta.items()):
+            done = state["cursor"]
+            acc = [dict(state["results"])]
+
+    def cat(parts):
+        return {k: np.concatenate([a[k] for a in parts], axis=axes.get(k, 0))
+                for k in parts[0]}
+
+    def consume(out):
+        nonlocal done
+        acc.append(finish(out) if finish is not None else out)
+        if ckpt is not None:
+            done += 1
+            if done % checkpoint_every == 0 or done == len(starts):
+                flat = cat(acc)
+                ckpt.save(done, flat, ck_meta)
+                acc[:] = [flat]
+
+    _pipelined(_batch_starts(starts[done:], 1, progress, desc), launch,
+               consume, timers, kind, device,
+               window=4 if ckpt is None else 1)
+    if ckpt is not None:
+        ckpt.clear()
+    return cat(acc)
+
+
+def _content_sha(*arrays) -> str:
+    """Short content fingerprint of a scan's inputs (resume safety)."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a, float)).tobytes())
+    return h.hexdigest()[:16]
+
+
 def _to_host_async(out: dict):
     """Start copying a batch's results to pinned host memory; returns
     (host tensors, CUDA event recorded after the copies, or None)."""
     first = next(iter(out.values()))
-    if first.device.type != "cuda":
+    if not isinstance(first, torch.Tensor) or first.device.type != "cuda":
         return out, None
     host = {}
     for k, t in out.items():
@@ -212,6 +279,13 @@ class CellRegMap:
                                    yy=yt @ yt)
         return new
 
+    def _inputs_sha(self, *arrays) -> str:
+        """Fingerprint of a scan's inputs for its checkpoint: ``arrays`` and
+        the scanner's own (y, W, E, E1 and the background)."""
+        bg = list(self._Ls) + ([] if self._hK is None else [self._hK])
+        return _content_sha(self._y, self._W, self._E0, self._E1, *bg,
+                            *arrays)
+
     def _upload(self, a) -> torch.Tensor:
         """A host array on the scan's device: through pinned memory and a
         non-blocking copy on the card."""
@@ -234,11 +308,13 @@ class CellRegMap:
         results are copied to pinned host memory behind a CUDA event, and
         the host p-value ladder of batch i runs while batches i+1..i+3
         compute.
+
+        ``checkpoint``: optional directory; completed variant batches (and
+        their p-values) are persisted there, every ``checkpoint_every``
+        batches, and a restarted scan with the same inputs resumes from the
+        cursor.  Checkpointed batches run one at a time.
         """
         cfg = self._cfg
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpointed scans come with the durability slice")
         method = self._pvalue_method()
         G = np.asarray(G, float)
         if G.ndim == 1:
@@ -260,9 +336,6 @@ class CellRegMap:
                      cfg.n_delta_grid_interaction, cfg.n_golden_iters)
 
         keys, info_keys = _result_keys(method)
-        outs: list = []
-        pv_parts: list = []
-        lam_parts: list = []
 
         def launch(start):
             gb = self._upload(Gp[:, start : start + batch])
@@ -274,21 +347,24 @@ class CellRegMap:
                 device_pvalues=method != "davies")
             return {k: out[k] for k in keys}
 
-        def consume(out):
-            outs.append({k: out[k] for k in info_keys})
+        def ladder(out):
             with trace.trace_scope("interaction/pvalue_ladder", timers):
                 pv_b, lam_b = self._pvalue_ladder(out)
-            pv_parts.append(pv_b)
-            lam_parts.append(lam_b)
+            return dict({k: out[k] for k in info_keys}, pv=pv_b,
+                        lambdas=lam_b)
 
-        _pipelined(_batch_starts(Gp.shape[1], batch, cfg.progress,
-                                 "scan_interaction"),
-                   launch, consume, timers, "interaction", dev)
-
-        info = {k: np.concatenate([o[k] for o in outs])[:n_snps]
-                for k in info_keys}
-        pvalues = np.concatenate(pv_parts)[:n_snps]
-        info["lambdas"] = np.concatenate(lam_parts)[:n_snps]
+        idx = [np.asarray(i) for i in (idx_E, idx_G) if i is not None]
+        ck_meta = {"scan": "interaction", "n_snps": n_snps, "batch": batch,
+                   "method": method, "idx_E": idx_E is not None,
+                   "idx_G": idx_G is not None,
+                   "inputs_sha": (self._inputs_sha(G, *idx)
+                                  if checkpoint is not None else None)}
+        res = _run_checkpointed(
+            range(0, Gp.shape[1], batch), launch, checkpoint, ck_meta,
+            timers, "interaction", dev, checkpoint_every, finish=ladder,
+            progress=cfg.progress, desc="scan_interaction")
+        pvalues = res.pop("pv")[:n_snps]
+        info = {k: v[:n_snps] for k, v in res.items()}
         if timers is not None:
             info["timers"] = timers.summary()
             trace.log_event("scan_interaction", n_snps=n_snps, batch=batch,
@@ -318,6 +394,15 @@ class CellRegMap:
         ``multigene``: per (gene, variant) of a ``genes``-gene tile, the
         interaction kind's Newton families, score factor and weight matrix;
         per variant, the genotype-weighted operands once.
+        ``association_multigene``: per variant, the genotype column (~3
+        copies) and [W | G] rotated at each of the tile's m <=
+        min(genes, nrho) distinct best rho; per (gene, variant), the
+        association kind's Newton and grid temporaries and the (m,)
+        brackets (x2).  ``association_fast_multigene``: per variant, the
+        genotype column (~3 copies), Z^T G and the m rotated candidates
+        with their complements; per (gene, variant), the plain version's
+        three (R,) weighted products, the slot-masked phenotype products
+        (m) and the results (p + 6).
         """
         C = int(self._E0.shape[1])
         p = int(self._W.shape[1])
@@ -336,6 +421,16 @@ class CellRegMap:
                 per_variant = 8 * (genes * (48 * nrho * R + 4 * R * C
                                             + C * C)
                                    + 3 * self._n * (C + p))
+            elif kind == "association_multigene":
+                m = min(genes, nrho)
+                per_variant = 8 * (3 * self._n + m * R
+                                   + genes * (32 * R + 2 * m
+                                              + self._cfg.n_delta_grid
+                                              * (p + 8)))
+            elif kind == "association_fast_multigene":
+                m = min(genes, nrho)
+                per_variant = 8 * (3 * self._n + (1 + m) * (R + p + 1)
+                                   + genes * (3 * R + m + p + 6))
             else:  # association
                 per_variant = 8 * (3 * self._n + 32 * R
                                    + self._cfg.n_delta_grid * (p + 8))
@@ -375,12 +470,10 @@ class CellRegMap:
 
         Batches are pipelined as in :meth:`scan_interaction`: up to four
         in flight, each batch's alternative lmls copied back behind a CUDA
-        event.
+        event.  ``checkpoint``: as in :meth:`scan_interaction`, per
+        variant batch.
         """
         cfg = self._cfg
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpointed scans come with the durability slice")
         G = np.asarray(G, float)
         if G.ndim == 1:
             G = G[:, None]
@@ -395,7 +488,6 @@ class CellRegMap:
         delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
                      cfg.n_delta_grid, cfg.n_golden_iters)
         ctx = self._ctx
-        parts: list = []
 
         def launch(start):
             lml, _ = engine.association_refit_batch(
@@ -404,11 +496,15 @@ class CellRegMap:
                 localize_f32=cfg.hybrid_localization)
             return {"lml": lml}
 
-        _pipelined(_batch_starts(Gp.shape[1], batch, cfg.progress,
-                                 "scan_association"),
-                   launch, lambda out: parts.append(out["lml"]), timers,
-                   "association", dev)
-        alt_lmls = np.concatenate(parts)[:n_snps]
+        ck_meta = {"scan": "association", "n_snps": n_snps, "batch": batch,
+                   "k_rho": int(k),
+                   "inputs_sha": (self._inputs_sha(G)
+                                  if checkpoint is not None else None)}
+        res = _run_checkpointed(
+            range(0, Gp.shape[1], batch), launch, checkpoint, ck_meta,
+            timers, "association", dev, checkpoint_every,
+            progress=cfg.progress, desc="scan_association")
+        alt_lmls = res["lml"][:n_snps]
         pv = pv_mod.lrt_pvalues(null_lml, alt_lmls, dof=1,
                                 clip_lo=cfg.pv_clip_lo,
                                 clip_hi=cfg.pv_clip_hi)
@@ -423,11 +519,8 @@ class CellRegMap:
         :284-314): the null's ML fit (K10) once, then every variant's
         alternative re-profiled at the null's delta and best rho (K8).
         Returns ``(pvalues, info)`` as :meth:`scan_association`; batches
-        are pipelined in the same way."""
+        are pipelined, and ``checkpoint`` taken, in the same way."""
         cfg = self._cfg
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpointed scans come with the durability slice")
         G = np.asarray(G, float)
         if G.ndim == 1:
             G = G[:, None]
@@ -440,7 +533,6 @@ class CellRegMap:
         batch = min(cfg.snp_batch, max(G.shape[1], 1))
         Gp, n_snps = _pad_batch(G, batch)
         ctx = self._ctx
-        parts: list = []
 
         def launch(start):
             out = engine.fast_scan_batch(
@@ -448,11 +540,15 @@ class CellRegMap:
                 self._n)
             return {"lml": out.lml}
 
-        _pipelined(_batch_starts(Gp.shape[1], batch, cfg.progress,
-                                 "scan_association_fast"),
-                   launch, lambda out: parts.append(out["lml"]), timers,
-                   "association_fast", dev)
-        alt_lmls = np.concatenate(parts)[:n_snps]
+        ck_meta = {"scan": "association_fast", "n_snps": n_snps,
+                   "batch": batch, "k_rho": int(k),
+                   "inputs_sha": (self._inputs_sha(G)
+                                  if checkpoint is not None else None)}
+        res = _run_checkpointed(
+            range(0, Gp.shape[1], batch), launch, checkpoint, ck_meta,
+            timers, "association_fast", dev, checkpoint_every,
+            progress=cfg.progress, desc="scan_association_fast")
+        alt_lmls = res["lml"][:n_snps]
         pv = pv_mod.lrt_pvalues(null_lml, alt_lmls, dof=1,
                                 clip_lo=cfg.pv_clip_lo,
                                 clip_hi=cfg.pv_clip_hi)
@@ -478,11 +574,9 @@ class CellRegMap:
         """Effect-size decomposition per variant (reference :137-205):
         returns ``(beta_g (S,), beta_gxe (n, S))``.  Each variant's REML fit
         over its own covariance family runs on the device (K1, K9); batches
-        are pipelined as in :meth:`scan_interaction`."""
+        are pipelined, and ``checkpoint`` taken, as in
+        :meth:`scan_interaction`."""
         cfg = self._cfg
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpointed scans come with the durability slice")
         G = np.asarray(G, float)
         if G.ndim == 1:
             G = G[:, None]
@@ -499,8 +593,6 @@ class CellRegMap:
         Gp, n_snps = _pad_batch(G, batch)
         normp = np.concatenate([norm, np.repeat(norm[:1],
                                                 Gp.shape[1] - len(norm))])
-        bg_parts: list = []
-        alpha_parts: list = []
 
         def launch(start):
             beta_g, alpha, _ = engine.predict_interaction_batch(
@@ -509,15 +601,15 @@ class CellRegMap:
                 delta_cfg=delta_cfg, localize_f32=cfg.hybrid_localization)
             return {"beta_g": beta_g, "alpha": alpha}
 
-        def consume(out):
-            bg_parts.append(out["beta_g"])
-            alpha_parts.append(out["alpha"])
-
-        _pipelined(_batch_starts(Gp.shape[1], batch, cfg.progress,
-                                 "predict_interaction"),
-                   launch, consume, timers, "betas", dev)
-        beta_g = np.concatenate(bg_parts)[:n_snps]
-        alpha = np.concatenate(alpha_parts, axis=1)[:, :n_snps]
+        ck_meta = {"scan": "betas", "n_snps": n_snps, "batch": batch,
+                   "inputs_sha": (self._inputs_sha(G, norm)
+                                  if checkpoint is not None else None)}
+        res = _run_checkpointed(
+            range(0, Gp.shape[1], batch), launch, checkpoint, ck_meta,
+            timers, "betas", dev, checkpoint_every, axes={"alpha": 1},
+            progress=cfg.progress, desc="predict_interaction")
+        beta_g = res["beta_g"][:n_snps]
+        alpha = res["alpha"][:, :n_snps]
         if timers is not None:
             trace.log_event("predict_interaction", n_snps=n_snps,
                             batch=batch,
@@ -598,6 +690,33 @@ class CellRegMap:
         return pv, out["lambdas"]
 
     # -- many genes --------------------------------------------------------
+    def _gene_inputs(self, Y, G):
+        """``Y`` (n_cells, n_genes) and ``G`` (n_cells, n_snps) as float
+        arrays, validated as the JAX package's gene-batched scans do."""
+        Y = np.asarray(Y, float)
+        if Y.ndim == 1:
+            Y = Y[:, None]
+        if Y.ndim != 2 or Y.shape[0] != self._n or Y.shape[1] < 1:
+            raise ValueError("Y must be (n_cells, n_genes) with at least one "
+                             "gene column")
+        if not np.isfinite(Y).all():
+            raise ValueError("Y contains non-finite values")
+        G = np.asarray(G, float)
+        if G.ndim == 1:
+            G = G[:, None]
+        if G.ndim != 2 or G.shape[0] != self._n or G.shape[1] < 1:
+            raise ValueError("G must be (n_cells, n_snps) with at least one "
+                             "variant column")
+        return Y, G
+
+    def _gene_tile(self, ctx, Yp, g0, gtile):
+        """The context of the gene tile at ``g0``: its phenotypes uploaded
+        gene-major (the kernels take contiguous operands), with their
+        rotations."""
+        Yg = self._upload(np.ascontiguousarray(Yp[:, g0 : g0 + gtile].T))
+        return ctx._replace(y=Yg, Zy=Yg @ ctx.Z, Wy=Yg @ ctx.W,
+                            yy=(Yg * Yg).sum(dim=1))
+
     def scan_interaction_multigene(self, Y, G, gene_batch: int = 16,
                                    checkpoint=None,
                                    checkpoint_every: int = 1):
@@ -612,27 +731,16 @@ class CellRegMap:
         the p-value ladder of a batch running while later ones compute.
         Returns ``(pvalues (n_genes, n_snps), info)`` with info arrays
         shaped (n_genes, n_snps) (lambdas (n_genes, n_snps, C)).
+
+        ``checkpoint``: optional directory; completed gene tiles (the unit
+        of work) are persisted, and a restarted scan with the same inputs
+        resumes from the tile cursor.
         """
         cfg = self._cfg
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpointed scans come with the durability slice")
         method = self._pvalue_method()
-        Y = np.asarray(Y, float)
-        if Y.ndim == 1:
-            Y = Y[:, None]
-        if Y.shape[0] != self._n or Y.shape[1] < 1:
-            raise ValueError("Y must be (n_cells, n_genes) with at least one "
-                             "gene column")
-        if not np.isfinite(Y).all():
-            raise ValueError("Y contains non-finite values")
-        G = np.asarray(G, float)
-        if G.ndim == 1:
-            G = G[:, None]
-        if G.shape[1] < 1:
-            raise ValueError("G must have at least one variant column")
+        Y, G = self._gene_inputs(Y, G)
         n_genes = Y.shape[1]
-        gtile = max(1, min(gene_batch, n_genes))
+        gtile = max(1, min(gene_batch, n_genes, MAX_GENES))
         timers = trace.PhaseTimers() if cfg.trace else None
         dev = self._device
         with trace.trace_scope("multigene/setup", timers, dev):
@@ -644,13 +752,9 @@ class CellRegMap:
         delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
                      cfg.n_delta_grid_interaction, cfg.n_golden_iters)
         keys, info_keys = _result_keys(method)
-        tiles: list = []
-        for g0 in range(0, Yp.shape[1], gtile):
-            # the tile's phenotypes, gene-major (the kernels take
-            # contiguous operands)
-            Yg = self._upload(np.ascontiguousarray(Yp[:, g0 : g0 + gtile].T))
-            ctx_g = ctx._replace(y=Yg, Zy=Yg @ ctx.Z, Wy=Yg @ ctx.W,
-                                 yy=(Yg * Yg).sum(dim=1))
+
+        def tile(g0):
+            ctx_g = self._gene_tile(ctx, Yp, g0, gtile)
             parts: list = []
 
             def launch(start):
@@ -672,14 +776,22 @@ class CellRegMap:
                 res["lambdas"] = np.reshape(lam_b, out["Q"].shape + (-1,))
                 parts.append(res)
 
-            _pipelined(_batch_starts(Gp.shape[1], batch, cfg.progress,
-                                     "scan_multigene"),
-                       launch, consume, timers, "multigene", dev)
-            tiles.append({k: np.concatenate([r[k] for r in parts],
-                                            axis=1)[:, :n_snps]
-                          for k in parts[0]})
-        res = {k: np.concatenate([t[k] for t in tiles])[:n_genes]
-               for k in tiles[0]}
+            _pipelined(range(0, Gp.shape[1], batch), launch, consume, timers,
+                       "multigene", dev)
+            return {k: np.concatenate([r[k] for r in parts],
+                                      axis=1)[:, :n_snps]
+                    for k in parts[0]}
+
+        ck_meta = {"scan": "interaction_multigene", "n_snps": n_snps,
+                   "n_genes": n_genes, "gtile": gtile, "batch": batch,
+                   "method": method,
+                   "inputs_sha": (self._inputs_sha(Y, G)
+                                  if checkpoint is not None else None)}
+        res = _run_checkpointed(
+            range(0, Yp.shape[1], gtile), tile, checkpoint, ck_meta, None,
+            "multigene_tile", dev, checkpoint_every, progress=cfg.progress,
+            desc="scan_multigene")
+        res = {k: v[:n_genes] for k, v in res.items()}
         pvalues = np.asarray(res.pop("pv"), float)
         info = res
         if timers is not None:
@@ -689,6 +801,120 @@ class CellRegMap:
                             **{f"s_{k.rsplit('/', 1)[-1]}": v
                                for k, v in timers.summary().items()})
         return pvalues, info
+
+    def _association_multigene(self, Y, G, gene_batch, checkpoint,
+                               checkpoint_every, fast):
+        """The gene-batched association scans (JAX api.py:916-1080): per
+        gene tile, the tile's null fits in one K10 launch, then the variant
+        batches pipelined through the gene-batched refit (K7) or fast scan
+        (K8), each gene at its own null's best rho; LRT p-values on the
+        host.  Gene tiles run through :func:`_run_checkpointed`."""
+        cfg = self._cfg
+        kind = "association_fast_multigene" if fast else \
+            "association_multigene"
+        Y, G = self._gene_inputs(Y, G)
+        n_genes = Y.shape[1]
+        gtile = max(1, min(gene_batch, n_genes, MAX_GENES))
+        timers = trace.PhaseTimers() if cfg.trace else None
+        dev = self._device
+        with trace.trace_scope(f"{kind}/setup", timers, dev):
+            ctx = self._ctx
+        batch = min(cfg.snp_batch, self._auto_batch_cap(kind, gtile),
+                    _MAX_BATCH // gtile, max(G.shape[1], 1))
+        Gp, n_snps = _pad_batch(G, batch)
+        Yp, _ = _pad_batch(Y, gtile)
+        delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
+                     cfg.n_delta_grid, cfg.n_golden_iters)
+        rho_grid = ctx.rho.cpu().numpy()
+
+        def tile(g0):
+            ctx_g = self._gene_tile(ctx, Yp, g0, gtile)
+            with trace.trace_scope(f"{kind}/null_fit", timers, dev):
+                fits, k = engine.null_association_multigene_fit(
+                    ctx_g, self._n, restricted=False, delta_cfg=delta_cfg)
+                fits = engine.FitResult(*(t.cpu().numpy() for t in fits))
+                k = k.cpu().numpy()
+            rows = np.arange(k.shape[0])
+            if fast:
+                delta = self._upload(fits.delta[rows, k])
+            parts: list = []
+
+            def launch(start):
+                gb = self._upload(Gp[:, start : start + batch])
+                if fast:
+                    return {"lml": engine.fast_scan_multigene_batch(
+                        ctx_g, gb, k, delta, self._n).lml}
+                return {"lml": engine.association_refit_multigene_batch(
+                    ctx_g, gb, k, self._n, delta_cfg=delta_cfg,
+                    localize_f32=cfg.hybrid_localization)[0]}
+
+            _pipelined(range(0, Gp.shape[1], batch), launch,
+                       lambda out: parts.append(out["lml"]), timers, kind,
+                       dev)
+            alt = np.concatenate(parts, axis=1)[:, :n_snps]  # (gtile, S)
+            with trace.trace_scope(f"{kind}/lrt", timers):
+                pv = pv_mod.lrt_pvalues(fits.lml[rows, k][:, None], alt,
+                                        dof=1, clip_lo=cfg.pv_clip_lo,
+                                        clip_hi=cfg.pv_clip_hi)
+            rho1 = (rho_grid[k] if rho_grid.shape[0] > 1
+                    else np.ones(k.shape[0]))
+            v0 = fits.v0[rows, k]
+            return {"pv": np.asarray(pv, float), "rho1": rho1,
+                    "e2": v0 * rho1, "g2": v0 * (1 - rho1),
+                    "eps2": fits.v1[rows, k]}
+
+        ck_meta = {"scan": kind, "n_snps": n_snps, "n_genes": n_genes,
+                   "gtile": gtile, "batch": batch,
+                   "inputs_sha": (self._inputs_sha(Y, G)
+                                  if checkpoint is not None else None)}
+        res = _run_checkpointed(
+            range(0, Yp.shape[1], gtile), tile, checkpoint, ck_meta, None,
+            f"{kind}_tile", dev, checkpoint_every, progress=cfg.progress,
+            desc=kind)
+        pvalues = np.asarray(res.pop("pv")[:n_genes], float)
+        info = {k: v[:n_genes] for k, v in res.items()}
+        if timers is not None:
+            info["timers"] = timers.summary()
+            trace.log_event(f"scan_{kind}", n_genes=n_genes, n_snps=n_snps,
+                            gene_batch=gtile, batch=batch,
+                            **{f"s_{k.rsplit('/', 1)[-1]}": v
+                               for k, v in timers.summary().items()})
+        return pvalues, info
+
+    def scan_association_multigene(self, Y, G, gene_batch: int = 16,
+                                   checkpoint=None,
+                                   checkpoint_every: int = 1):
+        """LRT association scan with per-variant ML refits for many genes
+        sharing this factorization (the JAX package's
+        ``scan_association_multigene``, api.py:916-995).
+
+        ``Y`` is (n_cells, n_genes).  Per gene tile of ``gene_batch``: the
+        covariate-only null fits over the rho grid of every gene in one
+        launch (K10), then every (gene, variant) pair refit by ML at its
+        gene's null best rho (K7 with a per-gene rho: the genotype's
+        contractions shared, [W | G] rotated once per distinct best rho).
+        Returns ``(pvalues (n_genes, n_snps), info)`` with per-gene info
+        arrays rho1, e2, g2, eps2 (n_genes,) (and ``timers`` when
+        ``config.trace``).  ``checkpoint``: as in
+        :meth:`scan_interaction_multigene`, per gene tile.
+        """
+        return self._association_multigene(Y, G, gene_batch, checkpoint,
+                                           checkpoint_every, fast=False)
+
+    def scan_association_fast_multigene(self, Y, G, gene_batch: int = 64,
+                                        checkpoint=None,
+                                        checkpoint_every: int = 1):
+        """Closed-form LRT association scan for many genes sharing this
+        factorization (the JAX package's
+        ``scan_association_fast_multigene``, api.py:997-1080): per gene
+        tile, the null fits in one launch (K10), then every (gene, variant)
+        alternative re-profiled at its gene's null delta and best rho (K8
+        with the gene axis: the rotated candidates read once per distinct
+        best rho).  Returns and ``checkpoint`` as
+        :meth:`scan_association_multigene`.
+        """
+        return self._association_multigene(Y, G, gene_batch, checkpoint,
+                                           checkpoint_every, fast=True)
 
 
 def _host_eigvalsh(Wmat):
@@ -734,6 +960,44 @@ def run_interaction_multigene(Y, E, G, W=None, E1=None, E2=None, hK=None,
     base = CellRegMap(y=Y[:, 0], E=E, W=W, E1=E1, Ls=Ls, config=config,
                       device=device)
     return base.scan_interaction_multigene(Y, G, gene_batch=gene_batch)
+
+
+def _multigene_base(Y, E, W, hK, Ls, config, device):
+    """The scanner of a gene-batched run: the factorization built once, on
+    the first gene's phenotype."""
+    Y = np.asarray(Y, float)
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    return Y, CellRegMap(y=Y[:, 0], E=E, W=W, hK=hK, Ls=Ls, config=config,
+                         device=device)
+
+
+def run_association_multigene(Y, E, G, W=None, hK=None, Ls=None,
+                              gene_batch: int = 16,
+                              config: ScanConfig = DEFAULT_CONFIG,
+                              device=None):
+    """Association scan with per-variant ML refits across many genes
+    sharing one factorization (the JAX package's
+    ``run_association_multigene``, api.py:1274-1284); see
+    :meth:`CellRegMap.scan_association_multigene`.  ``Ls`` selects the
+    K (.) EE^T background, ``hK`` the plain-K one.  Runs on ``device``
+    (the card unless "cpu" is given)."""
+    Y, base = _multigene_base(Y, E, W, hK, Ls, config, device)
+    return base.scan_association_multigene(Y, G, gene_batch=gene_batch)
+
+
+def run_association_fast_multigene(Y, E, G, W=None, hK=None, Ls=None,
+                                   gene_batch: int = 64,
+                                   config: ScanConfig = DEFAULT_CONFIG,
+                                   device=None):
+    """Closed-form association scan across many genes sharing one
+    factorization (the JAX package's ``run_association_fast_multigene``,
+    api.py:1287-1306); see
+    :meth:`CellRegMap.scan_association_fast_multigene`.  Returns
+    ``(pvalues (n_genes, n_snps), info)`` with per-gene info arrays.  Runs
+    on ``device`` (the card unless "cpu" is given)."""
+    Y, base = _multigene_base(Y, E, W, hK, Ls, config, device)
+    return base.scan_association_fast_multigene(Y, G, gene_batch=gene_batch)
 
 
 def run_association(y, W, E, G, hK=None, config: ScanConfig = DEFAULT_CONFIG,

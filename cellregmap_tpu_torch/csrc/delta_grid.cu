@@ -48,6 +48,15 @@
 // the brackets (S, nrho) are written: the weights, the products and the
 // (S, nrho, K) lml grid never reach device memory.  Passes over the grid
 // points re-read the tile's rows from L2.
+//
+// Per-gene rho (the gene-batched association refit, cellregmap_tpu/
+// engine.py:1070-1098): each gene refits its variants at its own null's
+// best rho only.  The rotated [W | G] then holds the tile's distinct best
+// rho ("slots", nrho = m of them), and `slot[gene]` names the one each
+// gene runs: the grid has one block row per gene instead of one per rho,
+// so the work is genes x S at one rho, not x m.  The brackets keep their
+// (genes, S, m) layout and only the gene's slot column is written, where
+// the converge kernel reads it (k_best = slot).
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
@@ -108,6 +117,7 @@ delta_grid_kernel(const double* __restrict__ Sv,
                   const double* __restrict__ Cgy,
                   const double* __restrict__ Cgg,
                   const double* __restrict__ ld_xx,
+                  const int64_t* __restrict__ slot,
                   double* __restrict__ br_lo, double* __restrict__ br_hi,
                   double lo, double hi, int K, int n, int nrho, int R, int p,
                   int nS) {
@@ -134,7 +144,8 @@ delta_grid_kernel(const double* __restrict__ Sv,
   const int tid = threadIdx.x;
   const int lane = tid % ST;
   const int warp = tid / ST;
-  const int o = blockIdx.y;
+  // the rho point: the block row's, or the gene's own slot
+  const int o = slot ? (int)slot[gi] : (int)blockIdx.y;
   const int s = blockIdx.x * ST + lane;
   const bool live = s < nS;
   const int p1 = p + 1;
@@ -346,13 +357,13 @@ void launch_p(bool reml, dim3 grid, cudaStream_t stream, const double* Sv,
               const double* WGt, const double* yt, const double* CWW,
               const double* CWy, const double* Cyy, const double* CWg,
               const double* Cgy, const double* Cgg, const double* ld_xx,
-              double* br_lo, double* br_hi, double lo, double hi, int K,
-              int n, int nrho, int R, int p, int nS) {
+              const int64_t* slot, double* br_lo, double* br_hi, double lo,
+              double hi, int K, int n, int nrho, int R, int p, int nS) {
   auto kernel = reml ? delta_grid_kernel<T, P1MAX, true>
                      : delta_grid_kernel<T, P1MAX, false>;
   kernel<<<grid, NT, 0, stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg,
-                                  ld_xx, br_lo, br_hi, lo, hi, K, n, nrho, R,
-                                  p, nS);
+                                  ld_xx, slot, br_lo, br_hi, lo, hi, K, n,
+                                  nrho, R, p, nS);
 }
 
 template <class T>
@@ -360,17 +371,20 @@ void launch_t(bool reml, dim3 grid, cudaStream_t stream, const double* Sv,
               const double* WGt, const double* yt, const double* CWW,
               const double* CWy, const double* Cyy, const double* CWg,
               const double* Cgy, const double* Cgg, const double* ld_xx,
-              double* br_lo, double* br_hi, double lo, double hi, int K,
-              int n, int nrho, int R, int p, int nS) {
+              const int64_t* slot, double* br_lo, double* br_hi, double lo,
+              double hi, int K, int n, int nrho, int R, int p, int nS) {
   if (p + 1 <= 2)
     launch_p<T, 2>(reml, grid, stream, Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
-                   Cgg, ld_xx, br_lo, br_hi, lo, hi, K, n, nrho, R, p, nS);
+                   Cgg, ld_xx, slot, br_lo, br_hi, lo, hi, K, n, nrho, R, p,
+                   nS);
   else if (p + 1 <= 4)
     launch_p<T, 4>(reml, grid, stream, Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
-                   Cgg, ld_xx, br_lo, br_hi, lo, hi, K, n, nrho, R, p, nS);
+                   Cgg, ld_xx, slot, br_lo, br_hi, lo, hi, K, n, nrho, R, p,
+                   nS);
   else
     launch_p<T, 16>(reml, grid, stream, Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
-                    Cgg, ld_xx, br_lo, br_hi, lo, hi, K, n, nrho, R, p, nS);
+                    Cgg, ld_xx, slot, br_lo, br_hi, lo, hi, K, n, nrho, R, p,
+                   nS);
 }
 
 }  // namespace
@@ -381,24 +395,27 @@ void launch_t(bool reml, dim3 grid, cudaStream_t stream, const double* Sv,
 // Row-major f64 on the card; the grid is K points of logit(delta) in
 // [lo, hi]; fast32 selects the float working type; 1 <= p + 1 <= 16; one
 // block row per gene (genes <= 65535; a single phenotype is genes = 1).
-// Launches on `stream`; returns cudaGetLastError().
+// slot (genes,) int64 in [0, nrho), or null: each gene's grid at its slot
+// alone, writing only its (s, slot) brackets.  Launches on `stream`;
+// returns cudaGetLastError().
 extern "C" int crm_delta_grid(const double* Sv, const double* WGt,
                               const double* yt, const double* CWW,
                               const double* CWy, const double* Cyy,
                               const double* CWg, const double* Cgy,
                               const double* Cgg, const double* ld_xx,
-                              double* br_lo, double* br_hi, double lo,
-                              double hi, int K, int n, int nrho, int R, int p,
-                              int nS, int genes, int fast32, int reml,
+                              const int64_t* slot, double* br_lo,
+                              double* br_hi, double lo, double hi, int K,
+                              int n, int nrho, int R, int p, int nS,
+                              int genes, int fast32, int reml,
                               cudaStream_t stream) {
-  const dim3 grid((nS + ST - 1) / ST, nrho, genes);
+  const dim3 grid((nS + ST - 1) / ST, slot ? 1 : nrho, genes);
   if (fast32)
     launch_t<float>(reml != 0, grid, stream, Sv, WGt, yt, CWW, CWy, Cyy, CWg,
-                    Cgy, Cgg, ld_xx, br_lo, br_hi, lo, hi, K, n, nrho, R, p,
-                    nS);
+                    Cgy, Cgg, ld_xx, slot, br_lo, br_hi, lo, hi, K, n, nrho,
+                    R, p, nS);
   else
     launch_t<double>(reml != 0, grid, stream, Sv, WGt, yt, CWW, CWy, Cyy, CWg,
-                     Cgy, Cgg, ld_xx, br_lo, br_hi, lo, hi, K, n, nrho, R, p,
-                     nS);
+                     Cgy, Cgg, ld_xx, slot, br_lo, br_hi, lo, hi, K, n, nrho,
+                     R, p, nS);
   return (int)cudaGetLastError();
 }

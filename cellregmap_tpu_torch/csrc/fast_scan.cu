@@ -32,6 +32,22 @@
 // meet in shared memory; warp 0 then reduces the variant-independent A, b,
 // yy and logdet D (lanes over r, an xor-shuffle tree), factors A on every
 // lane and finishes its 32 variants.
+//
+// The gene axis (cellregmap_tpu/engine.py `fast_scan_multigene_kernel`,
+// :1176-1206): many phenotypes against one covariance family, each gene
+// at its own null's best rho and delta.  The rotated candidates depend on
+// the rho alone, so they come once per distinct best rho of the tile (a
+// "slot": S, Wt, CWW, Gt, CWG and cGG carry a leading slot axis), and
+// each gene brings its delta, yt, cWy, cyy and cGy and the index of its
+// slot.  The host orders the genes by slot.  A block takes (32 variants,
+// slot, chunk of GC of the slot's genes): it streams the slot's rows once,
+// in chunks of 64 rows whose per-gene weights 1 / ((1 - delta_g) S_r +
+// delta_g) and y_r w_r are formed in shared memory, and each lane holds
+// its variant's GC (p + 2) sums in registers, so that one read of a G
+// entry feeds every gene of the chunk.  Then warp w finishes gene w of the
+// chunk: its variant-independent sums over r, the Cholesky and the 32
+// variants' epilogues.  The chunks of a slot run side by side and read
+// the same rows of Gt, from device memory once per slot and from L2 after.
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
@@ -190,6 +206,182 @@ fast_scan_kernel(const double* __restrict__ Sv, const double* __restrict__ Wt,
   lml_out[s] = -0.5 * (n * log(6.283185307179586 * scale) + logd + n);
 }
 
+// ---------------------------------------------------------------------------
+// gene axis: a block per (32 variants, slot, chunk of the slot's genes)
+// ---------------------------------------------------------------------------
+constexpr int RCH = 64;  // eigen rows of a chunk's shared weights
+
+// genes of a chunk: the per-lane sums GC (PMAX + 2) in registers, the
+// warps' partials GC (PMAX + 2) 32 NWARP doubles in shared memory (<= 36 KB)
+template <int PMAX> struct GeneChunk {
+  static constexpr int GC = PMAX <= 2 ? 4 : (PMAX <= 4 ? 2 : 1);
+};
+
+template <int PMAX>
+__global__ void __launch_bounds__(NT)
+fast_scan_genes_kernel(const double* __restrict__ delta,
+                       const double* __restrict__ Sv,
+                       const double* __restrict__ Wt,
+                       const double* __restrict__ yt,
+                       const double* __restrict__ CWW,
+                       const double* __restrict__ cWy,
+                       const double* __restrict__ cyy,
+                       const double* __restrict__ Gt,
+                       const double* __restrict__ CWG,
+                       const double* __restrict__ cGy,
+                       const double* __restrict__ cGG,
+                       const int* __restrict__ order,
+                       const int* __restrict__ starts,
+                       double* __restrict__ lml_out,
+                       double* __restrict__ bg_out,
+                       double* __restrict__ bW_out,
+                       double* __restrict__ scale_out, int n, int R, int p,
+                       int S) {
+  constexpr int GC = GeneChunk<PMAX>::GC;
+  __shared__ double part[NWARP][GC][PMAX + 2][32];
+  __shared__ double wsh[GC][RCH], ywsh[GC][RCH];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sl = blockIdx.y;
+  const int s = blockIdx.x * 32 + lane;
+  // the slot's shared operands
+  const double* So = Sv + (int64_t)sl * R;
+  const double* Wo = Wt + (int64_t)sl * R * p;
+  const double* Go = Gt + (int64_t)sl * R * S;
+  const int g_end = starts[sl + 1];
+  const int c0 = starts[sl] + blockIdx.z * GC;
+  if (c0 >= g_end) return;  // the slot has fewer chunks: the whole block
+  const int ng = min(GC, g_end - c0);
+  double U[GC][PMAX], cgg[GC], cgy[GC];
+#pragma unroll
+  for (int gi = 0; gi < GC; ++gi) {
+    SMALL_FOR(j, 0, p) U[gi][j] = 0.0;
+    cgg[gi] = 0.0;
+    cgy[gi] = 0.0;
+  }
+  for (int r0 = 0; r0 < R; r0 += RCH) {
+    const int rows = min(RCH, R - r0);
+    // the chunk's weights and weighted phenotype, per gene (0 past ng)
+    for (int idx = threadIdx.x; idx < GC * RCH; idx += NT) {
+      const int gi = idx / RCH, rr = idx - gi * RCH;
+      double w = 0.0, yw = 0.0;
+      if (gi < ng && rr < rows) {
+        const int g = order[c0 + gi];
+        const double dg = delta[g];
+        w = 1.0 / ((1.0 - dg) * So[r0 + rr] + dg);
+        yw = yt[(int64_t)g * R + r0 + rr] * w;
+      }
+      wsh[gi][rr] = w;
+      ywsh[gi][rr] = yw;
+    }
+    __syncthreads();
+    if (s < S) {
+      for (int rr = warp; rr < rows; rr += NWARP) {
+        const int r = r0 + rr;
+        const double g = Go[(int64_t)r * S + s];
+        const double* x = Wo + (int64_t)r * p;
+        double xr[PMAX];
+        SMALL_FOR(j, 0, p) xr[j] = x[j];
+#pragma unroll
+        for (int gi = 0; gi < GC; ++gi) {
+          const double gw = g * wsh[gi][rr];
+          SMALL_FOR(j, 0, p) U[gi][j] += xr[j] * gw;
+          cgg[gi] += g * gw;
+          cgy[gi] += g * ywsh[gi][rr];
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int gi = 0; gi < GC; ++gi) {
+    SMALL_FOR(j, 0, p) part[warp][gi][j][lane] = U[gi][j];
+    part[warp][gi][PMAX][lane] = cgg[gi];
+    part[warp][gi][PMAX + 1][lane] = cgy[gi];
+  }
+  __syncthreads();
+
+  // warp w finishes gene w of the chunk
+  if (warp < ng) {
+    const int gi = warp;
+    const int g = order[c0 + gi];
+    const double dg = delta[g];
+    const double* yg = yt + (int64_t)g * R;
+    double A[PMAX][PMAX], b[PMAX], yyw = 0.0, logd = 0.0;
+    SMALL_FOR(i, 0, p) {
+      b[i] = 0.0;
+      SMALL_FOR(j, 0, i + 1) A[i][j] = 0.0;
+    }
+    for (int r = lane; r < R; r += 32) {
+      const double d = (1.0 - dg) * So[r] + dg;
+      const double w = 1.0 / d;
+      const double* x = Wo + (int64_t)r * p;
+      const double yv = yg[r];
+      SMALL_FOR(i, 0, p) {
+        const double xw = x[i] * w;
+        SMALL_FOR(j, 0, i + 1) A[i][j] += xw * x[j];
+        b[i] += xw * yv;
+      }
+      yyw += yv * yv * w;
+      logd += log(d);
+    }
+    const double* CWo = CWW + (int64_t)sl * p * p;
+    SMALL_FOR(i, 0, p) {
+      SMALL_FOR(j, 0, i + 1)
+        A[i][j] = warp_sum(A[i][j]) + CWo[i * p + j] / dg;
+      b[i] = warp_sum(b[i]) + cWy[(int64_t)g * p + i] / dg;
+    }
+    yyw = warp_sum(yyw) + cyy[g] / dg;
+    logd = warp_sum(logd) + (n - R) * log(dg);
+    double dmax = 0.0;
+    SMALL_FOR(i, 0, p) dmax = fmax(dmax, fabs(A[i][i]));
+    const double ridge = 1e-12 * fmax(dmax, 1.0);
+    SMALL_FOR(j, 0, p) {
+      double dj = A[j][j] + ridge;
+      SMALL_FOR(k, 0, j) dj -= A[j][k] * A[j][k];
+      dj = sqrt(dj);
+      A[j][j] = dj;
+      SMALL_FOR(i, j + 1, p) {
+        double v = A[i][j];
+        SMALL_FOR(k, 0, j) v -= A[i][k] * A[j][k];
+        A[i][j] = v / dj;
+      }
+    }
+    double aib[PMAX], z[PMAX], Us[PMAX];
+    solve(A, b, aib, p);
+    if (s < S) {
+      const double* CGo = CWG + (int64_t)sl * p * S;
+      SMALL_FOR(j, 0, p) {
+        double v = 0.0;
+        for (int w = 0; w < NWARP; ++w) v += part[w][gi][j][lane];
+        Us[j] = v + CGo[(int64_t)j * S + s] / dg;
+      }
+      double cg = cGG[(int64_t)sl * S + s] / dg;
+      double cy = cGy[(int64_t)g * S + s] / dg;
+      for (int w = 0; w < NWARP; ++w) {
+        cg += part[w][gi][PMAX][lane];
+        cy += part[w][gi][PMAX + 1][lane];
+      }
+      solve(A, Us, z, p);
+      double uau = 0.0, bau = 0.0, bab = 0.0;
+      SMALL_FOR(i, 0, p) {
+        uau += Us[i] * z[i];
+        bau += b[i] * z[i];
+        bab += b[i] * aib[i];
+      }
+      const double schur = cg - uau;
+      const double resid = cy - bau;
+      const double beta_g = resid / schur;
+      const int64_t gs = (int64_t)g * S + s;
+      SMALL_FOR(i, 0, p) bW_out[gs * p + i] = aib[i] - z[i] * beta_g;
+      const double rss = clamp_tiny(yyw - bab - resid * resid / schur);
+      const double scale = rss / n;
+      bg_out[gs] = beta_g;
+      scale_out[gs] = scale;
+      lml_out[gs] = -0.5 * (n * log(6.283185307179586 * scale) + logd + n);
+    }
+  }
+}
+
 }  // namespace
 
 // S (R,), Wt (R, p), yt (R,), CWW (p, p), cWy (p,), cyy (1,), Gt (R, S),
@@ -211,5 +403,37 @@ extern "C" int crm_fast_scan(const double* Sv, const double* Wt,
   kernel<<<(S + 31) / 32, NT, 0, stream>>>(Sv, Wt, yt, CWW, cWy, cyy, Gt,
                                            CWG, cGy, cGG, lml, beta_g, beta_W,
                                            scale, delta, n, R, p, S);
+  return (int)cudaGetLastError();
+}
+
+// The gene axis.  Per slot (m distinct best rho): S (m, R), Wt (m, R, p),
+// CWW (m, p, p), Gt (m, R, S), CWG (m, p, S), cGG (m, S); per gene: delta
+// (genes,), yt (genes, R), cWy (genes, p), cyy (genes,), cGy (genes, S);
+// order (genes,) int32, the genes ordered by slot, and starts (m + 1,)
+// int32, slot k's genes being order[starts[k] .. starts[k + 1]);
+// max_genes the most genes of a slot -> lml, beta_g, scale (genes, S),
+// beta_W (genes, S, p).  Row-major f64 on the card; 1 <= p <= 16, m <=
+// 65535.  Launches on `stream`; returns cudaGetLastError().
+extern "C" int crm_fast_scan_genes(const double* delta, const double* Sv,
+                                   const double* Wt, const double* yt,
+                                   const double* CWW, const double* cWy,
+                                   const double* cyy, const double* Gt,
+                                   const double* CWG, const double* cGy,
+                                   const double* cGG, const int* order,
+                                   const int* starts, double* lml,
+                                   double* beta_g, double* beta_W,
+                                   double* scale, int n, int R, int p, int S,
+                                   int m, int max_genes,
+                                   cudaStream_t stream) {
+  auto kernel = p <= 2   ? fast_scan_genes_kernel<2>
+                : p <= 4 ? fast_scan_genes_kernel<4>
+                         : fast_scan_genes_kernel<16>;
+  const int gc = p <= 2   ? GeneChunk<2>::GC
+                 : p <= 4 ? GeneChunk<4>::GC
+                          : GeneChunk<16>::GC;
+  const dim3 grid((S + 31) / 32, m, (max_genes + gc - 1) / gc);
+  kernel<<<grid, NT, 0, stream>>>(delta, Sv, Wt, yt, CWW, cWy, cyy, Gt, CWG,
+                                  cGy, cGG, order, starts, lml, beta_g,
+                                  beta_W, scale, n, R, p, S);
   return (int)cudaGetLastError();
 }

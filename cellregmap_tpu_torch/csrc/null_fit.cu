@@ -50,7 +50,17 @@
 // section and the final fit, each golden-section decision read from
 // shared memory so that the whole block follows one control flow.  The
 // grid values and the logdets pass through a scratch buffer of nrho
-// (n_grid + 1) doubles.
+// (genes n_grid + 1) doubles.
+//
+// The gene axis (the gene-batched association scans: many phenotypes, one
+// covariance family): the phenotype's operands (yt, cxy, cyy) and the fits
+// carry a leading gene axis, the eigenvalues, the rotated covariates and
+// their complement (S, Xt, Cxx) are shared.  Each instantiation takes the
+// genes as one more grid axis, so that one call is one launch of each of
+// its kernels for every gene: narrow, a block per (rho, gene); wide, the
+// logdets of X^T X once per rho (no phenotype enters them), the grid a
+// block per (grid point, rho, gene), the golden section a block per (rho,
+// gene).  A single phenotype is genes = 1.
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
@@ -198,14 +208,16 @@ null_fit_kernel(const double* __restrict__ Sv, const double* __restrict__ Xt,
   __shared__ double vals[MAX_GRID];
   __shared__ double ld_sh;
   const int ro = blockIdx.x;
+  // the phenotype's problem (gene, rho): its operands and its fit
+  const int64_t gr = (int64_t)blockIdx.y * gridDim.x + ro;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   Rho o;
   o.S = Sv + (int64_t)ro * R;
   o.X = Xt + (int64_t)ro * R * p;
-  o.y = yt + (int64_t)ro * R;
+  o.y = yt + gr * R;
   o.Cxx = Cxx + (int64_t)ro * p * p;
-  o.cxy = cxy + (int64_t)ro * p;
-  o.cyy = cyy[ro];
+  o.cxy = cxy + gr * p;
+  o.cyy = cyy[gr];
   o.R = R;
   o.p = p;
   o.n = n;
@@ -272,13 +284,13 @@ null_fit_kernel(const double* __restrict__ Sv, const double* __restrict__ Xt,
   double beta[PMAX], scale, rss;
   const double lml = fit_at<PMAX>(o, delta, beta, scale, rss);
   if (lane == 0) {
-    lml_out[ro] = lml;
-    delta_out[ro] = delta;
-    SMALL_FOR(i, 0, p) beta_out[(int64_t)ro * p + i] = beta[i];
-    scale_out[ro] = scale;
-    v0_out[ro] = scale * (1 - delta);
-    v1_out[ro] = scale * delta;
-    rss_out[ro] = rss;
+    lml_out[gr] = lml;
+    delta_out[gr] = delta;
+    SMALL_FOR(i, 0, p) beta_out[gr * p + i] = beta[i];
+    scale_out[gr] = scale;
+    v0_out[gr] = scale * (1 - delta);
+    v1_out[gr] = scale * delta;
+    rss_out[gr] = rss;
   }
 }
 
@@ -439,18 +451,19 @@ __device__ double wide_objective(const Rho& o, double x, Wide& sh) {
   return wide_fit(o, sigmoid(x), sh, scale, rss);
 }
 
-// rho point ro's operands (logdet(X^T X) left at 0)
+// the operands of rho point ro and phenotype problem gr = gene nrho + ro
+// (logdet(X^T X) left at 0)
 __device__ Rho wide_rho(const double* Sv, const double* Xt, const double* yt,
                         const double* Cxx, const double* cxy,
-                        const double* cyy, int ro, int n, int R, int p,
-                        int reml) {
+                        const double* cyy, int ro, int64_t gr, int n, int R,
+                        int p, int reml) {
   Rho o;
   o.S = Sv + (int64_t)ro * R;
   o.X = Xt + (int64_t)ro * R * p;
-  o.y = yt + (int64_t)ro * R;
+  o.y = yt + gr * R;
   o.Cxx = Cxx + (int64_t)ro * p * p;
-  o.cxy = cxy + (int64_t)ro * p;
-  o.cyy = cyy[ro];
+  o.cxy = cxy + gr * p;
+  o.cyy = cyy[gr];
   o.R = R;
   o.p = p;
   o.n = n;
@@ -469,13 +482,16 @@ null_fit_wide_ldxx_kernel(const double* __restrict__ Sv,
                           const double* __restrict__ cyy,
                           double* __restrict__ ldxx, int n, int R, int p) {
   __shared__ Wide sh;
-  const Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, blockIdx.x, n, R, p, 1);
+  // gene 0's phenotype: the Gram pass reads no phenotype sum
+  const Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, blockIdx.x, blockIdx.x,
+                         n, R, p, 1);
   wide_sums(o, 0.5, true, sh);
   const double ld = wide_chol(p, sh);
   if (threadIdx.x == 0) ldxx[blockIdx.x] = ld;
 }
 
-// the objective at grid point blockIdx.x of rho point blockIdx.y
+// the objective at grid point blockIdx.x of rho point blockIdx.y, gene
+// blockIdx.z
 __global__ void __launch_bounds__(NT)
 null_fit_wide_grid_kernel(const double* __restrict__ Sv,
                           const double* __restrict__ Xt,
@@ -488,14 +504,15 @@ null_fit_wide_grid_kernel(const double* __restrict__ Sv,
                           int n_grid, int n, int R, int p, int reml) {
   __shared__ Wide sh;
   const int k = blockIdx.x, ro = blockIdx.y;
-  Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, ro, n, R, p, reml);
+  const int64_t gr = (int64_t)blockIdx.z * gridDim.y + ro;
+  Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, ro, gr, n, R, p, reml);
   if (o.reml) o.ld_xx = ldxx[ro];
   const double v = wide_objective(o, logit_at(lo, hi, n_grid, k), sh);
-  if (threadIdx.x == 0) vals[(int64_t)ro * n_grid + k] = v;
+  if (threadIdx.x == 0) vals[gr * n_grid + k] = v;
 }
 
-// the argmax of rho point blockIdx.x's grid, the golden section and the
-// final fit
+// the argmax of the grid of rho point blockIdx.x, gene blockIdx.y, the
+// golden section and the final fit
 __global__ void __launch_bounds__(NT)
 null_fit_wide_kernel(const double* __restrict__ Sv,
                      const double* __restrict__ Xt,
@@ -514,9 +531,10 @@ null_fit_wide_kernel(const double* __restrict__ Sv,
                      int n_grid, int n_iters, int n, int R, int p, int reml) {
   __shared__ Wide sh;
   const int ro = blockIdx.x;
-  Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, ro, n, R, p, reml);
+  const int64_t gr = (int64_t)blockIdx.y * gridDim.x + ro;
+  Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, ro, gr, n, R, p, reml);
   if (o.reml) o.ld_xx = ldxx[ro];
-  const double* vr = vals + (int64_t)ro * n_grid;
+  const double* vr = vals + gr * n_grid;
 
   // argmax (a NaN wins and stops the scan), on every thread
   int kb = 0;
@@ -552,24 +570,25 @@ null_fit_wide_kernel(const double* __restrict__ Sv,
   double scale, rss;
   const double lml = wide_fit(o, delta, sh, scale, rss);
   if (threadIdx.x == 0) {
-    lml_out[ro] = lml;
-    delta_out[ro] = delta;
-    for (int i = 0; i < p; ++i) beta_out[(int64_t)ro * p + i] = sh.z[i];
-    scale_out[ro] = scale;
-    v0_out[ro] = scale * (1 - delta);
-    v1_out[ro] = scale * delta;
-    rss_out[ro] = rss;
+    lml_out[gr] = lml;
+    delta_out[gr] = delta;
+    for (int i = 0; i < p; ++i) beta_out[gr * p + i] = sh.z[i];
+    scale_out[gr] = scale;
+    v0_out[gr] = scale * (1 - delta);
+    v1_out[gr] = scale * delta;
+    rss_out[gr] = rss;
   }
 }
 
 }  // namespace
 
-// S (nrho, R), Xt (nrho, R, p), yt (nrho, R), Cxx (nrho, p, p), cxy
-// (nrho, p), cyy (nrho,) -> lml, delta (nrho,), beta (nrho, p), scale, v0,
-// v1, rss (nrho,); scratch: nrho (n_grid + 1) doubles (the wide
-// instantiation's).  Row-major f64 on the card; 1 <= p <= 64 (the wide
-// instantiation above 16), n_grid <= 1024.  Launches on `stream`; returns
-// cudaGetLastError() after each launch.
+// S (nrho, R), Xt (nrho, R, p), Cxx (nrho, p, p) shared; yt (genes, nrho,
+// R), cxy (genes, nrho, p), cyy (genes, nrho) per gene -> lml, delta
+// (genes, nrho), beta (genes, nrho, p), scale, v0, v1, rss (genes, nrho);
+// scratch: nrho (genes n_grid + 1) doubles (the wide instantiation's).
+// Row-major f64 on the card; 1 <= p <= 64 (the wide instantiation above
+// 16), n_grid <= 1024, genes <= 65535 (a single phenotype is genes = 1).
+// Launches on `stream`; returns cudaGetLastError() after each launch.
 extern "C" int crm_null_fit(const double* Sv, const double* Xt,
                             const double* yt, const double* Cxx,
                             const double* cxy, const double* cyy, double* lml,
@@ -577,22 +596,23 @@ extern "C" int crm_null_fit(const double* Sv, const double* Xt,
                             double* v0, double* v1, double* rss,
                             double* scratch, double lo, double hi,
                             int n_grid, int n_iters, int n, int nrho, int R,
-                            int p, int reml, cudaStream_t stream) {
+                            int p, int reml, int genes, cudaStream_t stream) {
   if (p > 16) {
     double* ldxx = scratch;                  // (nrho,)
-    double* vals = scratch + nrho;           // (nrho, n_grid)
+    double* vals = scratch + nrho;           // (genes, nrho, n_grid)
     if (reml) {
       null_fit_wide_ldxx_kernel<<<nrho, NT, 0, stream>>>(
           Sv, Xt, yt, Cxx, cxy, cyy, ldxx, n, R, p);
       const int err = (int)cudaGetLastError();
       if (err) return err;
     }
-    const dim3 grid(n_grid, nrho);
+    const dim3 grid(n_grid, nrho, genes);
     null_fit_wide_grid_kernel<<<grid, NT, 0, stream>>>(
         Sv, Xt, yt, Cxx, cxy, cyy, ldxx, vals, lo, hi, n_grid, n, R, p, reml);
     const int err = (int)cudaGetLastError();
     if (err) return err;
-    null_fit_wide_kernel<<<nrho, NT, 0, stream>>>(
+    const dim3 fits(nrho, genes);
+    null_fit_wide_kernel<<<fits, NT, 0, stream>>>(
         Sv, Xt, yt, Cxx, cxy, cyy, ldxx, vals, lml, delta, beta, scale, v0,
         v1, rss, lo, hi, n_grid, n_iters, n, R, p, reml);
     return (int)cudaGetLastError();
@@ -600,7 +620,8 @@ extern "C" int crm_null_fit(const double* Sv, const double* Xt,
   auto kernel = p <= 2   ? null_fit_kernel<2>
                 : p <= 4 ? null_fit_kernel<4>
                          : null_fit_kernel<16>;
-  kernel<<<nrho, NT, 0, stream>>>(Sv, Xt, yt, Cxx, cxy, cyy, lml, delta, beta,
+  const dim3 grid(nrho, genes);
+  kernel<<<grid, NT, 0, stream>>>(Sv, Xt, yt, Cxx, cxy, cyy, lml, delta, beta,
                                   scale, v0, v1, rss, lo, hi, n_grid, n_iters,
                                   n, R, p, reml);
   return (int)cudaGetLastError();

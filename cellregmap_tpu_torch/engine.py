@@ -22,7 +22,13 @@ covariance factor ([E1, L_1..L_C]):
   (K10, :func:`null_association_fit`) and refits each variant by ML at the
   null's best rho (K7: K2's and K3's kernels with the ML objective,
   :func:`association_refit_batch`), or re-profiles it in closed form at
-  the null's delta (K8, :func:`fast_scan_batch`).
+  the null's delta (K8, :func:`fast_scan_batch`).  The gene-batched
+  association scans fit a tile of phenotypes' nulls in one launch
+  (:func:`null_association_multigene_fit`) and run each gene at its own
+  null's best rho: the rotations are made once per distinct best rho of
+  the tile, and K7 and K8 take a per-gene index into them
+  (:func:`association_refit_multigene_batch`,
+  :func:`fast_scan_multigene_batch`).
 * The effect sizes fit each variant's own covariance family rho (g E0)
   (g E0)^T + (1 - rho) K (.) E E^T on the background's eigenbasis
   (:func:`build_betas_context`): three Khatri-Rao contractions (K1) and the
@@ -43,6 +49,7 @@ import numpy as np
 import scipy.linalg as sla
 import torch
 
+from .kernels import _build
 from .kernels._normal_eqs import Complements
 from .kernels.best_rho_rotate import best_rho_rotate
 from .kernels.delta_grid import delta_grid
@@ -402,6 +409,129 @@ def fast_scan_batch(ctx: NullContext, G: torch.Tensor, k_rho: int, delta,
     return fast_scan(delta, Sb, Wt, yt, ctx.WW - Wt.T @ Wt,
                      ctx.Wy - Wt.T @ yt, ctx.yy - yt @ yt, Gt, CWG, cGy, cGG,
                      n)
+
+
+def _require_genes(ctx: NullContext, name: str) -> int:
+    if ctx.y.ndim != 2:
+        raise ValueError(f"{name}: ctx.y must be (genes, n)")
+    return ctx.y.shape[0]
+
+
+def null_association_multigene_fit(ctx: NullContext, n: int,
+                                   restricted: bool = False,
+                                   delta_cfg=(-18.0, 18.0, 64, 60)):
+    """Covariate-only null fits over the rho grid for a tile of phenotypes
+    (the JAX engine's ``null_association_multigene_kernel``,
+    engine.py:1154-1173), in one K10 launch.
+
+    ``ctx``'s phenotype fields carry a leading gene axis (y (genes, n), Zy
+    (genes, R), Wy (genes, p), yy (genes,)).  The rotated covariates V[o]^T
+    Z^T W and their complement are formed once for the tile; only the
+    phenotype's rotations and complements are per gene.  Returns the fits,
+    fields (genes, nrho) and beta (genes, nrho, p), and each gene's best
+    rho index (genes,) on the context's device.
+    """
+    _require_genes(ctx, "null_association_multigene_fit")
+    lo, hi, n_grid, n_iters = delta_cfg
+    Vt = ctx.V.transpose(1, 2)
+    Xt = Vt @ ctx.ZW                                    # (nrho, R, p)
+    XtT = Xt.transpose(1, 2)
+    yt = torch.matmul(Vt, ctx.Zy.T).permute(2, 0, 1).contiguous()
+    data = EigData(S=ctx.S, Xt=Xt, yt=yt, Cxx=ctx.WW - XtT @ Xt,
+                   cxy=ctx.Wy[:, None, :] - (XtT @ yt[..., None])[..., 0],
+                   cyy=ctx.yy[:, None] - (yt * yt).sum(dim=-1))
+    fits = null_fit(data, n, restricted, lo, hi, n_grid, n_iters)
+    return fits, fits.lml.argmax(dim=1)
+
+
+def _slots(ctx: NullContext, k, genes: int):
+    """The tile's distinct best rho: (their rows of V^T (m, R, R) and S
+    (m, R), each gene's slot index (genes,) int64 on the host)."""
+    k = np.asarray(k, dtype=np.int64).ravel()
+    if k.shape != (genes,) or k.min() < 0 or k.max() >= ctx.S.shape[0]:
+        raise ValueError(f"k must hold one rho index in [0, "
+                         f"{ctx.S.shape[0]}) per gene, got {k}")
+    kd, slot = np.unique(k, return_inverse=True)
+    Vt = torch.stack([ctx.V[int(j)] for j in kd]).transpose(1, 2)
+    Sd = torch.stack([ctx.S[int(j)] for j in kd])
+    return Vt, Sd, slot.reshape(genes)
+
+
+def fast_scan_multigene_batch(ctx: NullContext, G: torch.Tensor, k, delta,
+                              n: int) -> FastScanResult:
+    """Closed-form alternative lmls of every (gene, variant) pair, each gene
+    at its own null's best rho ``k`` (genes,) (host ints) and ``delta``
+    (genes,) (K8 with the gene axis; the JAX engine's
+    ``fast_scan_multigene_kernel``, engine.py:1176-1206).
+
+    Z^T G, W^T G, g^T g and G^T y are computed once; the V[k]^T rotations
+    (plain GEMMs) once per distinct k of the tile, and the kernel reads
+    each slot's rotated candidates once for all its genes.  The complements
+    are the JAX kernel's, neither clamped nor clipped.  Returns a
+    :class:`FastScanResult` with (genes, S)-leading fields.
+    """
+    genes = _require_genes(ctx, "fast_scan_multigene_batch")
+    Vt, Sd, slot = _slots(ctx, k, genes)
+    m = Sd.shape[0]
+    delta = torch.as_tensor(delta, dtype=ctx.y.dtype, device=ctx.y.device)
+    ZG = ctx.Z.T @ G                                    # (R, S)
+    WG = ctx.W.T @ G                                    # (p, S)
+    gg = (G * G).sum(dim=0)                             # (S,)
+    GY = ctx.y @ G                                      # (genes, S)
+    Wt = Vt @ ctx.ZW                                    # (m, R, p)
+    Gt = Vt @ ZG                                        # (m, R, S)
+    WtT = Wt.transpose(1, 2)
+    # each gene's phenotype rotated at its own slot: every slot's rotation
+    # masked to the gene's (a one-hot sum selects it exactly)
+    onehot = (_build.upload(slot, ctx.y.device)[None, :]
+              == torch.arange(m, device=ctx.y.device)[:, None]
+              ).to(ctx.y.dtype)                         # (m, genes)
+    Ym = (Vt @ ctx.Zy.T) * onehot[:, None, :]           # (m, R, genes)
+    yt = Ym.sum(dim=0).T.contiguous()                   # (genes, R)
+    cWy = ctx.Wy - (WtT @ Ym).sum(dim=0).T              # (genes, p)
+    cGy = GY - (Gt.transpose(1, 2) @ Ym).sum(dim=0).T   # (genes, S)
+    return fast_scan(delta, Sd, Wt, yt, ctx.WW - WtT @ Wt, cWy.contiguous(),
+                     ctx.yy - (yt * yt).sum(dim=1), Gt, WG - WtT @ Gt,
+                     cGy.contiguous(), gg - (Gt * Gt).sum(dim=1), n,
+                     slot=slot)
+
+
+def association_refit_multigene_batch(ctx: NullContext, G: torch.Tensor, k,
+                                      n: int,
+                                      delta_cfg=(-18.0, 18.0, 64, 60),
+                                      newton_f64: int = 10,
+                                      localize_f32: bool = True):
+    """Per-(gene, variant) ML alternative fits, each gene at its own null's
+    best rho ``k`` (genes,) (host ints): K7 with a per-gene rho (the JAX
+    engine's ``association_refit_multigene_batch``, engine.py:1070-1098).
+
+    The genotype's contractions and complements are computed once; [W | G]
+    is rotated once per distinct k of the tile (a slot), and the delta
+    grid runs each gene at its slot alone, the converge kernel at the same
+    slot (k_best).  Returns (lml (genes, S), beta (genes, S, p + 1)).
+    """
+    genes = _require_genes(ctx, "association_refit_multigene_batch")
+    Vt, Sd, slot = _slots(ctx, k, genes)
+    f64 = ctx.y.dtype
+    fast = torch.float32 if (f64 == torch.float64 and localize_f32) else f64
+    lo, hi, n_grid, _ = delta_cfg
+    nS = G.shape[1]
+    ZG = ctx.Z.T @ G                                    # (R, S)
+    WGt = Vt @ torch.cat([ctx.ZW, ZG], dim=1)           # (m, R, p+S)
+    yt = torch.matmul(Vt, ctx.Zy.T).permute(2, 0, 1).contiguous()
+    comp = Complements(
+        CWW=ctx.WW - ctx.ZW.T @ ctx.ZW, CWy=ctx.Wy - ctx.Zy @ ctx.ZW,
+        Cyy=ctx.yy - (ctx.Zy * ctx.Zy).sum(dim=1),
+        CWg=ctx.W.T @ G - ctx.ZW.T @ ZG, Cgy=ctx.y @ G - ctx.Zy @ ZG,
+        Cgg=(G * G).sum(dim=0) - (ZG * ZG).sum(dim=0))
+    br_lo, br_hi = delta_grid(Sd, WGt, yt, comp, None, lo, hi, n_grid, n,
+                              fast, restricted=False, slot=slot)
+    k_best = _build.upload(np.repeat(slot[:, None], nS, axis=1),
+                           ctx.y.device)
+    _, lml, _, beta = reml_converge(Sd, WGt, yt, comp, None, k_best, None,
+                                    br_lo, br_hi, n, newton_f64,
+                                    restricted=False)
+    return lml, beta
 
 
 def mean_fit(ctx: NullContext, M: torch.Tensor, n: int,

@@ -117,6 +117,19 @@ def stream_ptr(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def upload(a, device):
+    """A small host array (an index) on ``device``: on the card through
+    pinned memory and a non-blocking copy, so that the stream is not
+    synchronised."""
+    import numpy as np
+    import torch
+
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def require(t, name: str, dtype, shape=None) -> None:
     """Validate a kernel operand: on the card, dtype, contiguity, shape."""
     if t.device.type != "cuda":

@@ -21,12 +21,19 @@ The gene-batched scan passes the phenotype's operands (yt, and the
 complements CWy, Cyy, Cgy) with a leading gene axis; the genotype's are
 shared, and the results gain the same leading axis.  One launch serves
 every gene.
+
+The gene-batched association refit runs each gene at its own null's best
+rho alone: ``slot`` (one int per gene) names the rho row of S and WGt (the
+tile's distinct best rho, m of them) that the gene's grid runs, and the
+gene's yt (genes, m, R) is read at that row.  The brackets keep their
+(genes, S, m) layout, NaN outside each gene's slot column.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from . import _build
@@ -46,10 +53,14 @@ def logit_grid(lo, hi, n_grid, device):
 
 
 def delta_grid_plain(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid,
-                     n, fast, restricted=True, return_lml=False):
+                     n, fast, restricted=True, return_lml=False, slot=None):
     """Plain torch version: the grid as snp-shared batched GEMMs of the
     (nrho, K, R) weights against the rotated products, one gene at a time.
-    ``return_lml`` adds the (S, nrho, K) lml grid to the result."""
+    ``return_lml`` adds the (S, nrho, K) lml grid to the result (with
+    ``slot``, each gene's (S, 1, K) grid at its slot)."""
+    if slot is not None:
+        return _slot_grid_plain(S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n,
+                                fast, restricted, return_lml, slot)
     if yt.ndim == 3:
         return tuple(torch.stack(o) for o in zip(*(
             delta_grid_plain(S, WGt, yt[g], gene_comp(comp, g), ld_xx, lo,
@@ -101,6 +112,27 @@ def delta_grid_plain(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid,
     return (br_lo, br_hi, lml) if return_lml else (br_lo, br_hi)
 
 
+def _slot_grid_plain(S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n, fast,
+                     restricted, return_lml, slot):
+    """Each gene's single-rho plain grid at its slot, its brackets placed in
+    the (genes, S, m) layout (NaN elsewhere)."""
+    m = S.shape[0]
+    nS = WGt.shape[2] - comp.CWW.shape[0]
+    br_lo = torch.full((len(slot), nS, m), math.nan, dtype=torch.float64,
+                       device=S.device)
+    br_hi = br_lo.clone()
+    grids = []
+    for g, k in enumerate(int(k) for k in slot):
+        out = delta_grid_plain(S[k:k + 1], WGt[k:k + 1], yt[g, k:k + 1],
+                               gene_comp(comp, g), ld_xx, lo, hi, n_grid, n,
+                               fast, restricted, return_lml)
+        br_lo[g, :, k], br_hi[g, :, k] = out[0][:, 0], out[1][:, 0]
+        grids.append(out[2:])
+    if return_lml:
+        return br_lo, br_hi, torch.stack([lml for lml, in grids])
+    return br_lo, br_hi
+
+
 def bracket_shortfall(br_lo, br_hi, lml, lo, hi) -> float:
     """How far a kernel's brackets fall short of the plain grid's argmax:
     the largest relative gap, over (variant, rho), between a row's plain
@@ -128,7 +160,7 @@ def bracket_shortfall(br_lo, br_hi, lml, lo, hi) -> float:
 def _bind(lib):
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.crm_delta_grid.restype = ci
-    lib.crm_delta_grid.argtypes = [vp] * 12 + [cd, cd] + [ci] * 9 + [vp]
+    lib.crm_delta_grid.argtypes = [vp] * 13 + [cd, cd] + [ci] * 9 + [vp]
 
 
 def gene_shape(yt):
@@ -136,9 +168,9 @@ def gene_shape(yt):
     return tuple(yt.shape[:-2])
 
 
-def check_operands(name, S, WGt, yt, comp, ld_xx, restricted):
-    """Validate the operands of the K2/K3 kernels; returns (nrho, R, p,
-    nS, gene axis)."""
+def check_operands(name, S, WGt, yt, comp, ld_xx, restricted, slot=None):
+    """Validate the operands of the K2/K3 kernels (and the host ``slot``
+    index, where given); returns (nrho, R, p, nS, gene axis)."""
     nrho, R = S.shape
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
@@ -149,6 +181,11 @@ def check_operands(name, S, WGt, yt, comp, ld_xx, restricted):
     if len(gs) > 1 or (gs and not 1 <= gs[0] <= MAX_GENES):
         raise ValueError(f"{name}: a gene axis of 1..{MAX_GENES} genes, got "
                          f"yt of shape {tuple(yt.shape)}")
+    if slot is not None and (len(gs) != 1 or len(slot) != gs[0] or not all(
+            0 <= int(k) < nrho for k in slot)):
+        raise ValueError(f"{name}: slot must name one of the {nrho} rho rows "
+                         f"for each gene of yt {tuple(yt.shape)}, got "
+                         f"{list(slot)}")
     f64 = torch.float64
     for t, tn, shape in ((S, "S", (nrho, R)), (WGt, "WGt", (nrho, R, p + nS)),
                          (yt, "yt", gs + (nrho, R)),
@@ -164,7 +201,7 @@ def check_operands(name, S, WGt, yt, comp, ld_xx, restricted):
 
 
 def delta_grid(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid, n,
-               fast, restricted=True):
+               fast, restricted=True, slot=None):
     """(br_lo, br_hi), each ([genes,] S, nrho) f64: the grid bracket of
     every (variant, rho) problem.
 
@@ -174,22 +211,28 @@ def delta_grid(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid, n,
     ld_xx (S,) logdet(X^T X) (REML only, else None); the grid is
     ``n_grid`` points of logit(delta) from ``lo`` to ``hi``; ``fast`` the
     working dtype (float32 or float64); ``restricted`` REML or ML.
+    ``slot`` (a host sequence, one int in [0, nrho) per gene of yt's gene
+    axis): each gene's grid at that rho row alone (the module doc).
     """
     global launches
     if S.device.type == "cpu":
         return delta_grid_plain(S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n,
-                                fast, restricted)
-    check_operands("delta_grid", S, WGt, yt, comp, ld_xx, restricted)
+                                fast, restricted, slot=slot)
+    check_operands("delta_grid", S, WGt, yt, comp, ld_xx, restricted, slot)
+    if slot is not None:
+        slot = _build.upload(np.asarray(slot, dtype=np.int64), S.device)
     out = call(_build.load("delta_grid", _bind), S, WGt, yt, comp, ld_xx, lo,
-               hi, n_grid, n, fast, restricted, _build.stream_ptr(S.device))
+               hi, n_grid, n, fast, restricted, _build.stream_ptr(S.device),
+               slot=slot)
     launches += 1
     return out
 
 
 def call(lib, S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n, fast,
-         restricted=True, stream=None):
+         restricted=True, stream=None, slot=None):
     """Allocate the brackets and call ``lib``'s entry point (the card's
-    library, or an emulation of it on CPU tensors)."""
+    library, or an emulation of it on CPU tensors); ``slot`` an int64
+    tensor on the operands' device, or None."""
     nrho, R = S.shape
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
@@ -198,8 +241,13 @@ def call(lib, S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n, fast,
     br_hi = torch.empty_like(br_lo)
     if br_lo.numel() == 0:
         return br_lo, br_hi
+    if slot is not None:
+        # only each gene's slot column is written
+        br_lo.fill_(math.nan)
+        br_hi.fill_(math.nan)
     ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp)]
-    ptrs += [_build.ptr(ld_xx) if restricted else None, _build.ptr(br_lo),
+    ptrs += [_build.ptr(ld_xx) if restricted else None,
+             None if slot is None else _build.ptr(slot), _build.ptr(br_lo),
              _build.ptr(br_hi)]
     _build.check(lib.crm_delta_grid(*ptrs, lo, hi, n_grid, n, nrho, R, p, nS,
                                     math.prod(gs), int(fast == torch.float32),

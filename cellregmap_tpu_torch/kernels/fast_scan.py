@@ -7,11 +7,21 @@ models/lmm.py:863-909 ``fast_scan``).  On a CUDA tensor :func:`fast_scan`
 launches ``csrc/fast_scan.cu`` (a block per 32 variants, the rows split over
 its warps); on a CPU tensor it runs :func:`fast_scan_plain`, which is
 ``models.lmm.fast_scan``.
+
+The gene-batched scan (``engine.fast_scan_multigene_batch``; the JAX
+engine's ``fast_scan_multigene_kernel``, engine.py:1176-1206) passes
+``slot``: each gene is re-profiled at its own null's best rho and delta,
+the rotated operands come once per distinct best rho of the tile (a slot:
+S, Wt, CWW, Gt, CWG and cGG gain a leading slot axis), the phenotype's
+(delta, yt, cWy, cyy, cGy) a leading gene axis, and ``slot[g]`` names gene
+g's.  One launch serves every gene; the plain version runs
+``models.lmm.fast_scan`` one gene at a time.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -21,20 +31,52 @@ from ..models.lmm import fast_scan as fast_scan_plain
 launches = 0
 
 MAX_FIXED = 16      # p of the CUDA kernel's small algebra
+MAX_SLOTS = 65535   # distinct best rho of one gene-batched launch
 
 
 def _bind(lib):
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.crm_fast_scan.restype = ci
     lib.crm_fast_scan.argtypes = [vp] * 14 + [cd] + [ci] * 4 + [vp]
+    lib.crm_fast_scan_genes.restype = ci
+    lib.crm_fast_scan_genes.argtypes = [vp] * 17 + [ci] * 6 + [vp]
+
+
+def fast_scan_genes_plain(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy,
+                          cGG, n, slot) -> FastScanResult:
+    """Plain torch version of the gene axis: ``models.lmm.fast_scan`` for
+    each gene at its slot."""
+    return FastScanResult(*(torch.stack(f) for f in zip(*(
+        fast_scan_plain(delta[g], S[k], Wt[k], yt[g], CWW[k], cWy[g],
+                        cyy[g], Gt[k], CWG[k], cGy[g], cGG[k], n)
+        for g, k in enumerate(int(k) for k in slot)))))
+
+
+def slot_order(slot, m):
+    """(genes ordered by slot, each slot's start in that order and the
+    end): the (genes + m + 1,) int32 index of the gene-axis kernel."""
+    slot = np.asarray(slot, dtype=np.int64)
+    order = np.argsort(slot, kind="stable")
+    starts = np.searchsorted(slot[order], np.arange(m + 1))
+    return np.concatenate([order, starts]).astype(np.int32)
 
 
 def fast_scan(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG,
-              n: int) -> FastScanResult:
+              n: int, slot=None) -> FastScanResult:
     """:class:`FastScanResult` of every variant: S (R,), Wt (R, p), yt
     (R,), CWW (p, p), cWy (p,), cyy (), Gt (R, nS), CWG (p, nS), cGy (nS,),
-    cGG (nS,), f64; ``delta`` the null's variance ratio (a number)."""
+    cGG (nS,), f64; ``delta`` the null's variance ratio (a number).
+
+    With ``slot`` (a host sequence of ``genes`` ints in [0, m)), the gene
+    axis: delta (genes,), yt (genes, R), cWy (genes, p), cyy (genes,), cGy
+    (genes, nS) per gene; S (m, R), Wt (m, R, p), CWW (m, p, p), Gt (m, R,
+    nS), CWG (m, p, nS), cGG (m, nS) per slot; the results gain a leading
+    gene axis.
+    """
     global launches
+    if slot is not None:
+        return _fast_scan_genes(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG,
+                                cGy, cGG, n, slot)
     if S.device.type == "cpu":
         return fast_scan_plain(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy,
                                cGG, n)
@@ -72,4 +114,64 @@ def call(lib, delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
         *(_build.ptr(t) for t in (S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy,
                                   cGG, *out)),
         float(delta), n, R, p, nS, stream), "fast_scan")
+    return out
+
+
+def _fast_scan_genes(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
+                     slot) -> FastScanResult:
+    global launches
+    if S.device.type == "cpu":
+        return fast_scan_genes_plain(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG,
+                                     cGy, cGG, n, slot)
+    m, R, p = Wt.shape
+    genes = len(slot)
+    nS = Gt.shape[2]
+    if not 1 <= p <= MAX_FIXED:
+        raise ValueError(f"fast_scan: needs 1 <= p <= {MAX_FIXED} "
+                         f"covariates, got {p}")
+    if not 1 <= m <= MAX_SLOTS:
+        raise ValueError(f"fast_scan: 1..{MAX_SLOTS} slots, got {m}")
+    if genes < 1 or not all(0 <= int(k) < m for k in slot):
+        raise ValueError(f"fast_scan: slot must name one of the {m} slots "
+                         f"for each of at least one gene, got {list(slot)}")
+    for t, name, shape in ((delta, "delta", (genes,)), (S, "S", (m, R)),
+                           (Wt, "Wt", (m, R, p)), (yt, "yt", (genes, R)),
+                           (CWW, "CWW", (m, p, p)),
+                           (cWy, "cWy", (genes, p)),
+                           (cyy, "cyy", (genes,)), (Gt, "Gt", (m, R, nS)),
+                           (CWG, "CWG", (m, p, nS)),
+                           (cGy, "cGy", (genes, nS)),
+                           (cGG, "cGG", (m, nS))):
+        _build.require(t, f"fast_scan: {name}", torch.float64, shape)
+    index = _build.upload(slot_order(slot, m), S.device)
+    out = call_genes(_build.load("fast_scan", _bind), delta, S, Wt, yt, CWW,
+                     cWy, cyy, Gt, CWG, cGy, cGG, n, slot, index,
+                     _build.stream_ptr(S.device))
+    launches += 1
+    return out
+
+
+def call_genes(lib, delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
+               slot, index, stream=None) -> FastScanResult:
+    """Allocate the gene axis's results and call ``lib``'s entry point
+    (the card's library, or an emulation of it on CPU tensors); ``index``
+    is :func:`slot_order` of the host ``slot``, as an int32 tensor on the
+    operands' device."""
+    m, R, p = Wt.shape
+    genes = yt.shape[0]
+    nS = Gt.shape[2]
+    new = lambda *shape: torch.empty(shape, dtype=torch.float64,  # noqa
+                                     device=Gt.device)
+    out = FastScanResult(lml=new(genes, nS), effsizes_g=new(genes, nS),
+                         effsizes_W=new(genes, nS, p), scale=new(genes, nS))
+    if nS == 0:
+        return out
+    max_genes = int(np.bincount(np.asarray(slot, dtype=np.int64),
+                                minlength=m).max())
+    order = index[:genes]
+    starts = index[genes:]
+    _build.check(lib.crm_fast_scan_genes(
+        *(_build.ptr(t) for t in (delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG,
+                                  cGy, cGG, order, starts, *out)),
+        n, R, p, nS, m, max_genes, stream), "fast_scan")
     return out

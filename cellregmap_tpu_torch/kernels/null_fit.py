@@ -13,10 +13,19 @@ normal equations live in shared memory and whose grid runs a block per
 (grid point, rho)); on a CPU tensor it runs
 :func:`null_fit_plain`, which is ``models.lmm.fit_delta_eig`` over the rho
 axis.
+
+The gene-batched association scans fit many phenotypes against one
+covariance family (cellregmap_tpu/engine.py:1154-1173
+``null_association_multigene_kernel``): the phenotype's operands (yt,
+cxy, cyy) carry a leading gene axis, S, Xt and Cxx are shared, and the
+fits gain the same leading axis.  One call serves every gene (the kernel
+takes the genes as a grid axis); the plain version fits one gene at a
+time.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -27,10 +36,23 @@ launches = 0
 
 MAX_FIXED = 64      # p of the CUDA kernel's wide instantiation
 MAX_GRID = 1024     # grid points the kernel holds in shared memory
+MAX_GENES = 65535   # genes of one launch (a grid axis)
+
+
+def gene_data(data: EigData, g: int) -> EigData:
+    """Gene ``g``'s problems of a gene-batched set (yt (genes, nrho, R),
+    cxy (genes, nrho, p), cyy (genes, nrho)); S, Xt and Cxx are shared."""
+    return data._replace(yt=data.yt[g], cxy=data.cxy[g], cyy=data.cyy[g])
 
 
 def null_fit_plain(data: EigData, n, restricted, lo, hi, n_grid, n_iters):
-    """Plain torch version: :func:`models.lmm.fit_delta_eig`."""
+    """Plain torch version: :func:`models.lmm.fit_delta_eig`, one gene at a
+    time."""
+    if data.yt.ndim == 3:
+        return FitResult(*(torch.stack(f) for f in zip(*(
+            fit_delta_eig(gene_data(data, g), n, restricted, lo, hi, n_grid,
+                          n_iters)
+            for g in range(data.yt.shape[0])))))
     return fit_delta_eig(data, n, restricted, lo, hi, n_grid, n_iters)
 
 
@@ -45,7 +67,13 @@ def fit_gaps(fits: FitResult, plain: FitResult, data: EigData, n,
     ``lml_at_delta``: the plain lml at the fit's delta vs the plain
     maximum (the fit's delta is an optimum of the same objective);
     ``beta``/``scale``: the fit's vs the plain ones at the fit's delta.
+    A gene-batched set reports the largest gap over its genes.
     """
+    if data.yt.ndim == 3:
+        per = [fit_gaps(FitResult(*(t[g] for t in fits)),
+                        FitResult(*(t[g] for t in plain)), gene_data(data, g),
+                        n, restricted) for g in range(data.yt.shape[0])]
+        return {k: max(gp[k] for gp in per) for k in per[0]}
     rel = lambda a, b: float(((a - b).abs() / b.abs()).max())  # noqa: E731
     lml, beta, scale, _ = (t[:, 0] for t in lml_at_delta_eig(
         fits.delta[:, None], data, n, restricted))
@@ -57,13 +85,14 @@ def fit_gaps(fits: FitResult, plain: FitResult, data: EigData, n,
 def _bind(lib):
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.crm_null_fit.restype = ci
-    lib.crm_null_fit.argtypes = [vp] * 14 + [cd, cd] + [ci] * 7 + [vp]
+    lib.crm_null_fit.argtypes = [vp] * 14 + [cd, cd] + [ci] * 8 + [vp]
 
 
 def null_fit(data: EigData, n, restricted, lo, hi, n_grid, n_iters):
-    """:class:`FitResult` of each rho's fit, fields (nrho,) and beta
-    (nrho, p).  ``data`` holds S (nrho, R), Xt (nrho, R, p), yt (nrho, R)
-    and the complements Cxx (nrho, p, p), cxy (nrho, p), cyy (nrho,), f64.
+    """:class:`FitResult` of each rho's fit, fields ([genes,] nrho) and
+    beta ([genes,] nrho, p).  ``data`` holds S (nrho, R), Xt (nrho, R, p),
+    yt ([genes,] nrho, R) and the complements Cxx (nrho, p, p), cxy
+    ([genes,] nrho, p), cyy ([genes,] nrho), f64.
     """
     global launches
     S = data.S
@@ -71,6 +100,10 @@ def null_fit(data: EigData, n, restricted, lo, hi, n_grid, n_iters):
         return null_fit_plain(data, n, restricted, lo, hi, n_grid, n_iters)
     nrho, R = S.shape
     p = data.Xt.shape[2]
+    gs = tuple(data.yt.shape[:-2])
+    if len(gs) > 1 or (gs and not 1 <= gs[0] <= MAX_GENES):
+        raise ValueError(f"null_fit: a gene axis of 1..{MAX_GENES} genes, "
+                         f"got yt of shape {tuple(data.yt.shape)}")
     if not 1 <= p <= MAX_FIXED:
         raise ValueError(f"null_fit: needs 1 <= p <= {MAX_FIXED} covariates, "
                          f"got {p}")
@@ -78,10 +111,10 @@ def null_fit(data: EigData, n, restricted, lo, hi, n_grid, n_iters):
         raise ValueError(f"null_fit: needs 1 <= n_grid <= {MAX_GRID}, "
                          f"got {n_grid}")
     for t, name, shape in ((S, "S", (nrho, R)), (data.Xt, "Xt", (nrho, R, p)),
-                           (data.yt, "yt", (nrho, R)),
+                           (data.yt, "yt", gs + (nrho, R)),
                            (data.Cxx, "Cxx", (nrho, p, p)),
-                           (data.cxy, "cxy", (nrho, p)),
-                           (data.cyy, "cyy", (nrho,))):
+                           (data.cxy, "cxy", gs + (nrho, p)),
+                           (data.cyy, "cyy", gs + (nrho,))):
         _build.require(t, f"null_fit: {name}", torch.float64, shape)
     out = call(_build.load("null_fit", _bind), data, n, restricted, lo, hi,
                n_grid, n_iters, _build.stream_ptr(S.device))
@@ -95,16 +128,20 @@ def call(lib, data: EigData, n, restricted, lo, hi, n_grid, n_iters,
     library, or an emulation of it on CPU tensors)."""
     nrho, R = data.S.shape
     p = data.Xt.shape[2]
-    out = FitResult(*(torch.empty((nrho, p) if f == "beta" else (nrho,),
+    gs = tuple(data.yt.shape[:-2])
+    genes = math.prod(gs)
+    out = FitResult(*(torch.empty(gs + ((nrho, p) if f == "beta"
+                                        else (nrho,)),
                                   dtype=torch.float64, device=data.S.device)
                       for f in FitResult._fields))
-    if nrho == 0:
+    if nrho * genes == 0:
         return out
-    # the wide instantiation's logdets and grid values
-    scratch = torch.empty((nrho * (n_grid + 1),), dtype=torch.float64,
-                          device=data.S.device)
+    # the wide instantiation's logdets (nrho) and grid values (genes, nrho,
+    # n_grid)
+    scratch = torch.empty((nrho * (genes * n_grid + 1),),
+                          dtype=torch.float64, device=data.S.device)
     _build.check(lib.crm_null_fit(*(_build.ptr(t)
                                     for t in (*data, *out, scratch)),
                                   lo, hi, n_grid, n_iters, n, nrho, R, p,
-                                  int(restricted), stream), "null_fit")
+                                  int(restricted), genes, stream), "null_fit")
     return out

@@ -52,13 +52,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     environment through K10's wide instantiation (p = 52) against the CPU
     and the kernel against its plain version, and K6a on one interaction
     batch's 50 x 50 weight matrices;
-12. one JSON line of the kernels, then the result line.
+12. the gene-batched association scans on the headline's Ls scanner
+    (R = 1010), at the JAX bench's ``assoc_multigene_16`` row (16 genes,
+    Y = y + 0.1 N(0, 1)): ``scan_association_fast_multigene`` at 2048
+    variants (first and steady pairs/s, launch counts, the per-gene loop,
+    the first 2 genes x 64 variants against the CPU) and
+    ``scan_association_multigene`` at 512 variants (steady pairs/s, the
+    per-gene loop, 2 genes x 64 against the CPU), with K10, K8 and K7 with
+    the gene axis against their plain versions (timed, with their
+    bounds);
+13. checkpointed scans on the card: a gene-batched fast association scan
+    stopped after its first gene tile and an interaction scan stopped
+    after its first variant batch, each resumed and held equal to a clean
+    run;
+14. one JSON line of the kernels, then the result line.
 
 It imports neither jax nor the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import faulthandler
 import json
 import logging
 import math
@@ -85,6 +99,8 @@ SECOND = dict(n_cells=10_000, n_contexts=20, n_donors=125, n_snps=512,
               seed=1)
 WIDE = dict(n_cells=2000, n_contexts=50, n_donors=100, n_snps=512, seed=2)
 MULTIGENE = dict(genes=16, n_snps=512, seed=9)    # bench.py:479-506
+# bench.py:559-573; the refit phase on the same genes at 512 variants
+ASSOC_MULTIGENE = dict(genes=16, n_snps=2048, refit_snps=512, seed=11)
 BATCH = 512
 GXE_SNP = 7
 CARD = "cuda"          # the device of the main paths
@@ -1403,6 +1419,464 @@ def wide_phase(cfg):
     return out, k10_row
 
 
+def _gene_ctx(ctx, Y):
+    """``ctx`` with the phenotypes Y (n, genes) on a leading gene axis, on
+    the card."""
+    import torch
+
+    Yg = torch.as_tensor(np.ascontiguousarray(Y.T), device=CARD)
+    return ctx._replace(y=Yg, Zy=Yg @ ctx.Z, Wy=Yg @ ctx.W,
+                        yy=(Yg * Yg).sum(dim=1))
+
+
+def check_null_fit_genes(ctx_g, n):
+    """K10 with the gene axis on a gene tile's null fits: every gene's fits
+    through ``null_fit.fit_gaps`` at 1e-10.  The bound counts the grid's
+    sums that no phenotype enters (the covariates' Gram and log d at the
+    shared grid points) once per (rho, grid point), the phenotype's
+    (X^T y, y^2) once per gene, and the golden section's and the final
+    fit's evaluations (each gene at its own delta) in full per gene."""
+    import torch
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+
+    calls = capture_kernel_inputs(
+        lambda: engine.null_association_multigene_fit(
+            ctx_g, n, delta_cfg=ASSOC_DELTA_CFG), ["null_fit"])
+    (args, kw), = calls["null_fit"]
+    data, _, restricted, lo, hi, n_grid, n_iters = args
+    fits = k10.null_fit(*args, **kw)
+    plain = k10.null_fit_plain(*args, **kw)
+    torch.cuda.synchronize()
+    gaps = k10.fit_gaps(fits, plain, data, n, restricted)
+    assert max(gaps.values()) <= 1e-10, f"null_fit (genes): {gaps}"
+    genes, nrho, R = data.yt.shape
+    p = data.Xt.shape[2]
+    ntri = p * (p + 1) // 2
+    shared, per_gene = 2 * ntri + 8, 2 * (p + 1)
+    flops = (nrho * n_grid * R * (shared + genes * per_gene)
+             + genes * nrho * (n_iters + 3) * R * (shared + per_gene))
+    nbytes = F64 * (nrho * R * (p + 1) + nrho * p * p
+                    + genes * nrho * (R + p + 1) + genes * nrho * (p + 6))
+    b_ms, b_by = bound(flops, nbytes)
+    return dict(
+        name="null_fit (genes)", route="cuda",
+        source="cellregmap_tpu_torch/csrc/null_fit.cu",
+        replaces="cellregmap_tpu/engine.py:1154",
+        max_abs_err=float((fits.lml - plain.lml).abs().max()),
+        ms=cuda_ms(lambda: k10.null_fit(*args, **kw)),
+        plain_ms=cuda_ms(lambda: k10.null_fit_plain(*args, **kw), reps=3,
+                         warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, gaps=gaps,
+        shapes=dict(genes=genes, nrho=nrho, R=R, p=p),
+        tolerance="per gene: lml, plain lml at the kernel's delta, beta and "
+                  "scale at that delta: rel <= 1e-10")
+
+
+def check_fast_scan_genes(ctx_g, G, k, delta, n):
+    """K8 with the gene axis on one batch of the gene tile, each gene at
+    its null's best rho and delta: every output within 1e-10 of max|plain|.
+    The bound reads the rotated candidates once per distinct best rho
+    (slot); the per-gene work is the weighted rank-1 sums.  The library
+    call is one batched GEMM of the genes' weighted [W, y] against each
+    slot's Gt (the sums U and cgy alone)."""
+    import torch
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import fast_scan as k8
+
+    calls = capture_kernel_inputs(
+        lambda: engine.fast_scan_multigene_batch(ctx_g, G, k, delta, n),
+        ["fast_scan"])
+    (args, kw), = calls["fast_scan"]
+    got = k8.fast_scan(*args, **kw)
+    want = k8.fast_scan_genes_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w, name in zip(got, want, want._fields):
+        e = float((g - w).abs().max())
+        assert e <= 1e-10 * float(w.abs().max()), \
+            f"fast_scan (genes) {name}: {e}"
+        err = max(err, e)
+    dl, Sd, Wt, yt = args[:4]
+    Gt = args[7]
+    slot = np.asarray(kw["slot"])
+    m, R, p = Wt.shape
+    genes, nS = yt.shape[0], Gt.shape[2]
+    flops = genes * (R * nS * (2 * p + 6) + R * (p * (p + 1) + 2 * p + 6))
+    nbytes = F64 * (m * (R * nS + R * (p + 1) + p * p + p * nS + nS)
+                    + genes * (R + p + 2 + nS) + genes * nS * (p + 3))
+    b_ms, b_by = bound(flops, nbytes)
+    # per slot, its genes' weighted [W, y] side by side (zero padded)
+    gmax = int(np.bincount(slot, minlength=m).max())
+    lhs = torch.zeros((m, R, gmax * (p + 1)), dtype=torch.float64,
+                      device=Gt.device)
+    fill = [0] * m
+    for g, sl in enumerate(slot):
+        w = 1.0 / ((1 - dl[g]) * Sd[sl] + dl[g])
+        c = fill[sl] * (p + 1)
+        lhs[sl, :, c:c + p + 1] = torch.cat([Wt[sl], yt[g][:, None]],
+                                             dim=1) * w[:, None]
+        fill[sl] += 1
+    lhsT = lhs.transpose(1, 2)
+    return dict(
+        name="fast_scan (genes)", route="cuda",
+        source="cellregmap_tpu_torch/csrc/fast_scan.cu",
+        replaces="cellregmap_tpu/engine.py:1176", max_abs_err=err,
+        ms=cuda_ms(lambda: k8.fast_scan(*args, **kw)),
+        plain_ms=cuda_ms(lambda: k8.fast_scan_genes_plain(*args, **kw),
+                         reps=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.bmm(lhsT, Gt)),
+        shapes=dict(genes=genes, slots=m, R=R, p=p, S=nS),
+        tolerance="lml, beta_g, beta_W, scale: max|err| <= 1e-10 * "
+                  "max|plain|")
+
+
+def check_refit_genes(ctx_g, G, k, n):
+    """K7 with a per-gene rho on one batch of the gene tile: the grid's
+    brackets at each gene's slot (NaN elsewhere, as the plain version's)
+    held as K7's, the converge at rel 1e-9.  The bound counts the grid's
+    sums that no phenotype enters once per (slot, grid point), the
+    phenotype's once per gene, and the Newton steps per (gene, variant)."""
+    import torch
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import delta_grid as k2
+
+    calls = capture_kernel_inputs(
+        lambda: engine.association_refit_multigene_batch(
+            ctx_g, G, k, n, delta_cfg=ASSOC_DELTA_CFG),
+        ["delta_grid", "reml_converge"])
+    (args, kw), = calls["delta_grid"]
+    S, WGt, yt, comp = args[:4]
+    lo, hi, K = args[5:8]
+    fast = args[9]
+    slot = kw["slot"]
+    br_lo, br_hi = k2.delta_grid(*args, **kw)
+    plo, phi, lml = k2.delta_grid_plain(*args, **kw, return_lml=True)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(br_lo), torch.isnan(plo)), \
+        "association_refit (genes): brackets outside the slots"
+    tol = 1e-5 if fast == torch.float32 else 1e-12
+    gap = max(k2.bracket_shortfall(br_lo[g, :, s:s + 1],
+                                   br_hi[g, :, s:s + 1], lml[g], lo, hi)
+              for g, s in enumerate(slot))
+    assert gap <= tol, f"association_refit (genes): shortfall {gap}"
+    fin = ~torch.isnan(plo)
+    err = max(float((br_lo - plo)[fin].abs().max()),
+              float((br_hi - phi)[fin].abs().max()))
+    c_err, c_ms, c_plain = _check_converge(calls["reml_converge"][0])
+    m, R = S.shape
+    p = comp.CWW.shape[0]
+    genes, nS = yt.shape[0], WGt.shape[2] - p
+    shared = nS * (p + 1) + p * (p + 1) // 2 + 1
+    steps = calls["reml_converge"][0][0][10]
+    flops = (2 * K * R * (m * shared + genes * (nS + p + 1))
+             + _fit_flops(p + 1, R, genes * nS, steps))
+    nbytes = F64 * (WGt.numel() + S.numel() + genes * R
+                    + genes * nS * (p + 4) + 2 * 2 * genes * nS
+                    + genes * nS * (p + 4))
+    b_ms, b_by = bound(flops, nbytes)
+    g_ms = cuda_ms(lambda: k2.delta_grid(*args, **kw))
+    g_plain = cuda_ms(lambda: k2.delta_grid_plain(*args, **kw), reps=3,
+                      warmup=1)
+    return dict(
+        name="association_refit (genes)", route="cuda",
+        source="cellregmap_tpu_torch/csrc/delta_grid.cu",
+        sources=["cellregmap_tpu_torch/csrc/delta_grid.cu",
+                 "cellregmap_tpu_torch/csrc/reml_newton.cu"],
+        replaces="cellregmap_tpu/engine.py:1070",
+        max_abs_err=max(err, c_err), ms=g_ms + c_ms,
+        plain_ms=g_plain + c_plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, split_ms={"grid": g_ms, "converge": c_ms},
+        shapes=dict(genes=genes, slots=m, R=R, p=p, S=nS, K=K),
+        tolerance=f"grid: plain lml at the kernel's grid point within {tol} "
+                  "relative of the plain maximum, at each gene's slot; "
+                  "converge: delta, lml, scale, beta rel <= 1e-9")
+
+
+def _multigene_genes(d):
+    """The JAX bench's gene set (bench.py:559-573): Y = y + 0.1 N(0, 1)
+    (rng 11) over 16 genes."""
+    rng = np.random.default_rng(ASSOC_MULTIGENE["seed"])
+    n = len(d["y"])
+    return d["y"][:, None] + 0.1 * rng.normal(
+        size=(n, ASSOC_MULTIGENE["genes"]))
+
+
+def assoc_multigene_phase(d, cfg, Ls):
+    """``scan_association_fast_multigene`` at the JAX bench's
+    ``assoc_multigene_16`` row (bench.py:559-573): the headline dataset on
+    its Ls scanner, 16 genes x 2048 variants, gene_batch = 16.  A first
+    call (the scanner's factorization included) and a steady call, with
+    launch counts (one K10 launch for the tile, one K8 a variant batch);
+    the per-gene loop of ``scan_association_fast`` on the same scanner
+    (each gene's own null fit and scan); the first 2 genes x 64 variants
+    against the CPU (rtol 1e-5, atol 1e-12, rho1 identical); K10 and K8
+    with the gene axis against their plain versions on the tile's
+    operands."""
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import engine, kernels
+
+    Y = _multigene_genes(d)
+    genes = Y.shape[1]
+    G = d["G"][:, :ASSOC_MULTIGENE["n_snps"]]
+    n_snps = G.shape[1]
+    pairs = genes * n_snps
+    batches = -(-n_snps // cfg.snp_batch)
+    n = len(d["y"])
+
+    t0 = time.perf_counter()
+    crm = crp.CellRegMap(y=Y[:, 0], E=d["E"], W=d["W"], Ls=Ls, config=cfg,
+                         device=CARD)
+    pv0, _ = crm.scan_association_fast_multigene(Y, G, gene_batch=genes)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pv, info = crm.scan_association_fast_multigene(Y, G, gene_batch=genes)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = expected_launches(null_fit=1, fast_scan=batches)
+    assert counts == want, f"assoc_multigene_16: launches {counts} != {want}"
+    assert pv.shape == (genes, n_snps) and np.all((pv > 0) & (pv <= 1))
+    assert np.array_equal(pv, pv0), "assoc_multigene_16: first call differs"
+
+    t0 = time.perf_counter()
+    loop = [crm.with_phenotype(Y[:, j]).scan_association_fast(G)
+            for j in range(genes)]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    loop_excess = max(float(np.max(np.abs(pv[j] - pv_j)
+                                   - (1e-5 * np.abs(pv_j) + 1e-12)))
+                      for j, (pv_j, _) in enumerate(loop))
+    assert loop_excess <= 0, "assoc_multigene_16 vs the per-gene loop"
+    assert all(info["rho1"][j] == info_j["rho1"][0]
+               for j, (_, info_j) in enumerate(loop)), \
+        "assoc_multigene_16: rho1 differs from the per-gene loop"
+
+    pv_c, info_c = crp.CellRegMap(
+        y=Y[:, 0], E=d["E"], W=d["W"], Ls=Ls, config=cfg, device="cpu"
+    ).scan_association_fast_multigene(Y[:, :2], G[:, :64])
+    cpu_gap = float(np.max(np.abs(pv[:2, :64] - pv_c)))
+    excess = float(np.max(np.abs(pv[:2, :64] - pv_c)
+                          - (1e-5 * np.abs(pv_c) + 1e-12)))
+    assert excess <= 0, f"assoc_multigene_16: |pv_gpu - pv_cpu| = {cpu_gap}"
+    assert np.array_equal(info["rho1"][:2], info_c["rho1"]), \
+        "assoc_multigene_16: rho1 differs between the card and the CPU"
+
+    # the kernels on the tile's operands
+    ctx_g = _gene_ctx(crm._ctx, Y)
+    fits, k = engine.null_association_multigene_fit(
+        ctx_g, n, delta_cfg=ASSOC_DELTA_CFG)
+    k = k.cpu().numpy()
+    delta = fits.delta[torch.arange(genes, device=CARD),
+                       torch.as_tensor(k, device=CARD)].contiguous()
+    Gb = torch.as_tensor(G[:, :cfg.snp_batch], device=CARD).contiguous()
+    rows = [check_null_fit_genes(ctx_g, n),
+            check_fast_scan_genes(ctx_g, Gb, k, delta, n)]
+    distinct = int(np.unique(k).size)
+    out = dict(genes=genes, n_snps=n_snps, gene_batch=genes,
+               batch=cfg.snp_batch, first_s=first_s, steady_s=steady_s,
+               first_pairs_per_s=pairs / first_s,
+               steady_pairs_per_s=pairs / steady_s, launches=counts,
+               per_gene_loop_s=loop_s,
+               per_gene_loop_pairs_per_s=pairs / loop_s,
+               speedup_vs_per_gene_loop=loop_s / steady_s,
+               distinct_best_rho=distinct, min_pv=float(pv.min()),
+               cpu_check=dict(genes=2, n=64, max_abs_pv_diff=cpu_gap,
+                              rho1_identical=True),
+               kernel_ms={r["name"]: r["ms"] for r in rows})
+    print("assoc_multigene_16: " + json.dumps(out), flush=True)
+    return out, counts, rows, crm
+
+
+def assoc_refit_multigene_phase(d, cfg, crm):
+    """``scan_association_multigene`` (ML refits) on the same scanner and
+    genes x 512 variants, gene_batch = 16: a steady call with launch counts
+    (one K10 launch for the tile, one K7 grid + converge a variant batch),
+    the per-gene loop of ``scan_association``, the first 2 genes x 64
+    variants against the CPU (1e-9, rho1 identical) and K7 with a per-gene
+    rho against its plain version on one batch's operands."""
+    import torch
+    from scipy.stats import chi2
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import engine, kernels
+
+    Y = _multigene_genes(d)
+    genes = Y.shape[1]
+    G = d["G"][:, :ASSOC_MULTIGENE["refit_snps"]]
+    n_snps = G.shape[1]
+    pairs = genes * n_snps
+    batches = -(-n_snps // cfg.snp_batch)
+    n = len(d["y"])
+    crm.scan_association_multigene(Y[:, :2], G[:, :64])       # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pv, info = crm.scan_association_multigene(Y, G, gene_batch=genes)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = expected_launches(null_fit=1, delta_grid=batches,
+                             reml_newton=batches)
+    assert counts == want, \
+        f"assoc_refit_multigene_16: launches {counts} != {want}"
+    assert pv.shape == (genes, n_snps) and np.all((pv > 0) & (pv <= 1))
+
+    t0 = time.perf_counter()
+    loop = [crm.with_phenotype(Y[:, j]).scan_association(G)
+            for j in range(genes)]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    # held on the LRT statistic: near p = 1 the chi2(1) tail's slope grows
+    # as 1 / sqrt(statistic), so the last bit of an lml of ~3000 (4.5e-13)
+    # moves such a p-value by ~1e-9; 2e-8 is twice the JAX suite's 1e-8 on
+    # an alternative lml
+    loop_gap = max(float(np.max(np.abs(pv[j] - pv_j)))
+                   for j, (pv_j, _) in enumerate(loop))
+    stat_gap = max(float(np.max(np.abs(chi2.isf(pv[j], 1)
+                                       - chi2.isf(pv_j, 1))))
+                   for j, (pv_j, _) in enumerate(loop))
+    assert stat_gap <= 2e-8, f"assoc_refit_multigene_16 vs loop: {stat_gap}"
+    assert all(info["rho1"][j] == info_j["rho1"][0]
+               for j, (_, info_j) in enumerate(loop)), \
+        "assoc_refit_multigene_16: rho1 differs from the per-gene loop"
+
+    pv_c, info_c = crp.CellRegMap(
+        y=Y[:, 0], E=d["E"], W=d["W"], Ls=crm._Ls, config=cfg, device="cpu"
+    ).scan_association_multigene(Y[:, :2], G[:, :64])
+    cpu_gap = float(np.max(np.abs(pv[:2, :64] - pv_c)))
+    assert cpu_gap <= 1e-9, f"assoc_refit_multigene_16: {cpu_gap}"
+    assert np.array_equal(info["rho1"][:2], info_c["rho1"]), \
+        "assoc_refit_multigene_16: rho1 differs between card and CPU"
+
+    ctx_g = _gene_ctx(crm._ctx, Y)
+    k = engine.null_association_multigene_fit(
+        ctx_g, n, delta_cfg=ASSOC_DELTA_CFG)[1].cpu().numpy()
+    Gb = torch.as_tensor(G[:, :cfg.snp_batch], device=CARD).contiguous()
+    row = check_refit_genes(ctx_g, Gb, k, n)
+    out = dict(genes=genes, n_snps=n_snps, gene_batch=genes,
+               batch=cfg.snp_batch, steady_s=steady_s,
+               steady_pairs_per_s=pairs / steady_s, launches=counts,
+               per_gene_loop_s=loop_s,
+               per_gene_loop_pairs_per_s=pairs / loop_s,
+               speedup_vs_per_gene_loop=loop_s / steady_s,
+               max_abs_vs_loop=loop_gap, max_abs_stat_vs_loop=stat_gap,
+               distinct_best_rho=int(np.unique(k).size),
+               cpu_check=dict(genes=2, n=64, max_abs_pv_diff=cpu_gap,
+                              rho1_identical=True),
+               kernel_ms={row["name"]: row["ms"]})
+    print("assoc_refit_multigene_16: " + json.dumps(out), flush=True)
+    return out, counts, row
+
+
+class _Stop(RuntimeError):
+    """Raised by a wrapped engine function to stop a checkpointed scan."""
+
+
+def _stopped_then_resumed(scan, fn_name, n_ok, ck):
+    """Run ``scan(ck)`` with engine.``fn_name`` raising after ``n_ok``
+    calls (the scan stops with a durable cursor), then again on the same
+    checkpoint; returns (resumed result, cursor at the stop, calls made by
+    the resumed run)."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.parallel.checkpoint import ScanCheckpoint
+
+    orig = getattr(engine, fn_name)
+    calls = {"n": 0}
+
+    def stopping(*a, **kw):
+        if calls["n"] >= n_ok:
+            raise _Stop(fn_name)
+        calls["n"] += 1
+        return orig(*a, **kw)
+
+    setattr(engine, fn_name, stopping)
+    try:
+        scan(ck)
+        raise AssertionError(f"checkpoint: {fn_name} did not stop the scan")
+    except _Stop:
+        pass
+    finally:
+        setattr(engine, fn_name, orig)
+    state = ScanCheckpoint(ck).load()
+    assert state is not None, f"checkpoint: nothing durable at {fn_name}"
+    cursor = state["cursor"]
+    resumed = {"n": 0}
+
+    def counting(*a, **kw):
+        resumed["n"] += 1
+        return orig(*a, **kw)
+
+    setattr(engine, fn_name, counting)
+    try:
+        out = scan(ck)
+    finally:
+        setattr(engine, fn_name, orig)
+    assert ScanCheckpoint(ck).load() is None, "checkpoint: not cleared"
+    return out, cursor, resumed["n"]
+
+
+def checkpoint_phase(d, cfg, crm_assoc):
+    """Checkpointed scans on the card, in a temporary directory: a
+    ``scan_association_fast_multigene`` (16 genes in tiles of 8 x 1024
+    variants) stopped after its first gene tile, and a ``scan_interaction``
+    (2048 variants) stopped after its first variant batch, each by an
+    exception from a wrapped engine function, then resumed; the resumed
+    results equal a clean run's (rtol 1e-12) and the checkpoint is cleared
+    at the end."""
+    import tempfile
+
+    import torch
+
+    Y = _multigene_genes(d)
+    G = d["G"][:, :1024]
+    batches = -(-G.shape[1] // cfg.snp_batch)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        clean = crm_assoc.scan_association_fast_multigene(Y, G, gene_batch=8)
+        t0 = time.perf_counter()
+        got, cursor, n_calls = _stopped_then_resumed(
+            lambda ck: crm_assoc.scan_association_fast_multigene(
+                Y, G, gene_batch=8, checkpoint=ck),
+            "fast_scan_multigene_batch", batches, f"{tmp}/assoc")
+        torch.cuda.synchronize()
+        for a, b in ((got[0], clean[0]),
+                     *((got[1][k], clean[1][k]) for k in clean[1])):
+            np.testing.assert_allclose(a, b, rtol=1e-12)
+        assert cursor == 1 and n_calls == batches, (cursor, n_calls)
+        out["assoc_fast_multigene"] = dict(
+            tiles=2, cursor_at_stop=cursor, resumed_calls=n_calls,
+            s=time.perf_counter() - t0)
+
+        # the headline phenotype on the same factorization
+        crm = crm_assoc.with_phenotype(d["y"])
+        Gi = d["G"]
+        clean = crm.scan_interaction(Gi)
+        t0 = time.perf_counter()
+        got, cursor, n_calls = _stopped_then_resumed(
+            lambda ck: crm.scan_interaction(Gi, checkpoint=ck),
+            "interaction_batch", 1, f"{tmp}/interaction")
+        torch.cuda.synchronize()
+        n_b = -(-Gi.shape[1] // cfg.snp_batch)
+        np.testing.assert_allclose(got[0], clean[0], rtol=1e-12)
+        for k in clean[1]:
+            np.testing.assert_allclose(got[1][k], clean[1][k], rtol=1e-12)
+        assert cursor == 1 and n_calls == n_b - 1, (cursor, n_calls)
+        out["interaction"] = dict(batches=n_b, cursor_at_stop=cursor,
+                                  resumed_calls=n_calls,
+                                  s=time.perf_counter() - t0)
+    print("checkpoint: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1414,6 +1888,7 @@ def main() -> int:
     from cellregmap_tpu_torch.kernels import _build
     from cellregmap_tpu_torch.utils.native import build_qfc
 
+    faulthandler.enable()         # a crash in native code prints its stack
     t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
@@ -1499,6 +1974,19 @@ def main() -> int:
     _, k10_wide = wide_phase(cfg)
     rows.append(k10_wide)
 
+    # --- the gene-batched association scans, then checkpointed scans ---
+    _, c_amg, amg_rows, crm_assoc = assoc_multigene_phase(d, cfg, Ls)
+    _, c_arm, arm_row = assoc_refit_multigene_phase(d, cfg, crm_assoc)
+    rows += amg_rows + [arm_row]
+    for r in rows[-3:]:
+        print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
+              f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
+              f"{r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}); "
+              + json.dumps({k: r[k] for k in ("shapes", "split_ms")
+                            if k in r}), flush=True)
+    checkpoint_phase(d, cfg, crm_assoc)
+
     for r in rows:
         if r["name"] == "association_refit":
             r["launches"] = sum(c[k] for c in (c_hk, c_ls)
@@ -1514,6 +2002,12 @@ def main() -> int:
             r["launches"] = c_auto[r["name"]]
         elif r["name"] == "null_fit (wide)":
             pass
+        elif r["name"] == "null_fit (genes)":
+            r["launches"] = c_amg["null_fit"] + c_arm["null_fit"]
+        elif r["name"] == "fast_scan (genes)":
+            r["launches"] = c_amg["fast_scan"]
+        elif r["name"] == "association_refit (genes)":
+            r["launches"] = c_arm["delta_grid"] + c_arm["reml_newton"]
         else:
             r["launches"] = counts[r["name"]]
         assert r["launches"] > 0, f"{r['name']}: no launch on its path"

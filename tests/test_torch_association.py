@@ -38,6 +38,7 @@ import torch
 from cellregmap_tpu import engine as jengine
 from cellregmap_tpu.models import lmm as jlmm
 from cellregmap_tpu_torch import engine as tengine
+from cellregmap_tpu_torch.parallel.checkpoint import ScanCheckpoint
 from test_api import _dataset
 
 DELTA_CFG = (-18.0, 18.0, 256, 60)
@@ -150,13 +151,15 @@ def test_run_association_matches_jax_in_ragged_batches():
     assert set(info) == {"rho1", "e2", "g2", "eps2"}
 
 
-def test_association_scanner_state():
+def test_association_scanner_state(tmp_path):
     d = _dataset(seed=37, S=4)
     crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], hK=d["hK"],
                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        crm.scan_association(d["G"], checkpoint="ckpt")
     pv0, _ = crm.scan_association(d["G"])
+    # a checkpointed scan gives the same p-values and clears its checkpoint
+    pv_ck, _ = crm.scan_association(d["G"], checkpoint=str(tmp_path / "ck"))
+    assert np.array_equal(pv_ck, pv0)
+    assert ScanCheckpoint(tmp_path / "ck").load() is None
     # another phenotype refits the null; the base scanner keeps its own
     y2 = d["y"] + np.random.default_rng(3).normal(size=d["n"])
     pv2, _ = crm.with_phenotype(y2).scan_association(d["G"])

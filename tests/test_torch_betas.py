@@ -154,7 +154,7 @@ def test_predict_interaction_hybrid_matches_jax(gxe):
                     atol=1e-7)
 
 
-def test_estimate_betas_matches_jax_in_ragged_batches():
+def test_estimate_betas_matches_jax_in_ragged_batches(tmp_path):
     """7 variants in batches of 3, full f64 on both sides."""
     d = _dataset(seed=23, S=7)
     maf = np.linspace(0.1, 0.4, 7)
@@ -173,8 +173,14 @@ def test_estimate_betas_matches_jax_in_ragged_batches():
                                1 - (d["G"] + 1).mean(0) / 2), rtol=1e-15)
     crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"],
                          Ls=crt.get_L_values(d["hK"], d["E"]), device="cpu")
-    with pytest.raises(NotImplementedError):
-        crm.predict_interaction(d["G"], maf, checkpoint="ckpt")
+    # checkpointed, in ragged batches of 3: the same effect sizes
+    crm_b = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"],
+                           Ls=crt.get_L_values(d["hK"], d["E"]),
+                           config=crp.ScanConfig(snp_batch=3), device="cpu")
+    bg_ck, bgxe_ck = crm_b.predict_interaction(
+        d["G"][:, :4], maf[:4], checkpoint=str(tmp_path / "ck"))
+    bg_u, bgxe_u = crm_b.predict_interaction(d["G"][:, :4], maf[:4])
+    assert np.array_equal(bg_ck, bg_u) and np.array_equal(bgxe_ck, bgxe_u)
     crm.predict_interaction(d["G"][:, :2], maf[:2])
     assert crm._ctx_cache is None     # the effect sizes never build it
 

@@ -534,3 +534,124 @@ def test_aggregate_environment_c50_on_card(cuda):
     assert k10.launches == before + 1
     assert np.abs(agg[1]).max() > 1e-3
     assert np.max(np.abs(agg[0] - agg[1])) <= 1e-5
+
+
+# -- the gene-batched association scans: K10, K8 and K7 with a gene axis --
+def _assoc_genes(cuda, genes, p, seed=8):
+    """A gene-batched null context on the card whose ``genes`` phenotypes
+    mix the base phenotype with seeded noise of growing weight, and its
+    genotypes."""
+    ctx, G, n = fit_dataset(seed, p=p, nrho=11, n=300, C=4, donors=30, S=70,
+                            device=cuda)
+    rng = np.random.default_rng(seed)
+    w = torch.as_tensor(np.linspace(0.1, 2.0, genes)[:, None], device=cuda)
+    Y = ctx.y[None] + w * torch.as_tensor(rng.normal(size=(genes, n)),
+                                          device=cuda)
+    return ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W,
+                        yy=(Y * Y).sum(dim=1)), G, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genes,p", [(1, 1), (5, 1), (5, 2), (3, 20)])
+def test_null_fit_gene_axis_kernel_matches_plain(cuda, genes, p):
+    """K10 with a gene axis (p = 20: the wide instantiation), one launch
+    for every gene."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+
+    ctx, _, n = _assoc_genes(cuda, genes, p)
+    calls = captured(lambda: engine.null_association_multigene_fit(
+        ctx, n, delta_cfg=(-18.0, 18.0, 256, 60)), ["null_fit"])
+    (args, kw), = calls["null_fit"]
+    before = k10.launches
+    fits = k10.null_fit(*args, **kw)
+    assert k10.launches == before + 1 and fits.lml.shape == (genes, 11)
+    gaps = k10.fit_gaps(fits, k10.null_fit_plain(*args, **kw), args[0], n,
+                        False)
+    assert max(gaps.values()) <= 1e-10, gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,k", [(1, [3, 3, 3, 3, 3, 3, 0, 10]),
+                                 (2, [0, 5, 10]), (5, [4, 4, 1])])
+def test_fast_scan_gene_axis_kernel_matches_plain(cuda, p, k):
+    """K8 with a gene axis: genes sharing a slot and genes on their own."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import fast_scan as k8
+
+    ctx, G, n = _assoc_genes(cuda, len(k), p)
+    delta = torch.linspace(0.1, 0.9, len(k), dtype=torch.float64,
+                           device=cuda)
+    calls = captured(lambda: engine.fast_scan_multigene_batch(
+        ctx, G, np.asarray(k), delta, n), ["fast_scan"])
+    (args, kw), = calls["fast_scan"]
+    for g, w in zip(k8.fast_scan(*args, **kw),
+                    k8.fast_scan_genes_plain(*args, **kw)):
+        assert g.shape[0] == len(k)
+        _close(g, w, 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32", [True, False])
+def test_refit_per_gene_rho_kernels_match_plain(cuda, f32):
+    """K7 with a per-gene rho: the grid at each gene's slot, the converge
+    kernel at the same slots."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import delta_grid as k2
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    k = [7, 0, 7, 10, 0]
+    ctx, G, n = _assoc_genes(cuda, len(k), 2)
+    calls = captured(lambda: engine.association_refit_multigene_batch(
+        ctx, G, np.asarray(k), n, delta_cfg=(-18.0, 18.0, 256, 60),
+        localize_f32=f32), ["delta_grid", "reml_converge"])
+    (args, kw), = calls["delta_grid"]
+    br_lo, br_hi = k2.delta_grid(*args, **kw)
+    plo, _, lml = k2.delta_grid_plain(*args, **kw, return_lml=True)
+    assert torch.equal(torch.isnan(br_lo), torch.isnan(plo))
+    for g, s in enumerate(kw["slot"]):
+        gap = k2.bracket_shortfall(br_lo[g, :, s:s + 1],
+                                   br_hi[g, :, s:s + 1], lml[g], args[5],
+                                   args[6])
+        assert gap <= (1e-5 if f32 else 1e-12), gap
+    (args, kw), = calls["reml_converge"]
+    for g, w in zip(k3.reml_converge(*args, **kw),
+                    k3.reml_converge_plain(*args, **kw)):
+        assert float(((g - w).abs() / w.abs()).max()) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+def test_association_multigene_on_card_matches_cpu(cuda, fast):
+    """run_association[_fast]_multigene on the card: one null-fit launch a
+    gene tile and one K7 (grid + converge) or K8 launch a (tile, variant
+    batch); against the CPU at the single-gene budgets (refit 1e-9; fast
+    rtol 1e-5 / atol 1e-12) with identical rho1."""
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import kernels
+
+    y, W, E, hK, G = _small_gxe(9)
+    rng = np.random.default_rng(9)
+    Y = y[:, None] + np.linspace(0.1, 2.0, 5) * rng.normal(size=(len(y), 5))
+    cfg = crp.ScanConfig(snp_batch=16)
+    run = (crp.run_association_fast_multigene if fast
+           else crp.run_association_multigene)
+    kernels.reset_launches()
+    pv_g, info_g = run(Y, E, G, W=W, hK=hK, gene_batch=2, config=cfg,
+                       device=cuda)
+    tiles, batches = 3, 4
+    want = dict.fromkeys(kernels.MODULES, 0)
+    want["null_fit"] = tiles
+    if fast:
+        want["fast_scan"] = tiles * batches
+    else:
+        want.update(delta_grid=tiles * batches, reml_newton=tiles * batches)
+    assert kernels.launch_counts() == want
+    pv_c, info_c = run(Y, E, G, W=W, hK=hK, gene_batch=2, config=cfg,
+                       device="cpu")
+    assert pv_g.shape == (5, 50)
+    assert np.array_equal(info_g["rho1"], info_c["rho1"])
+    if fast:
+        np.testing.assert_allclose(pv_g, pv_c, rtol=1e-5, atol=1e-12)
+    else:
+        assert np.max(np.abs(pv_g - pv_c)) <= 1e-9

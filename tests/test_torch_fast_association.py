@@ -74,7 +74,7 @@ def test_fast_scan_batch_matches_jax_at_the_ports_delta(mode, seed, pW):
 
 
 @pytest.mark.parametrize("mode,seed,pW", CASES)
-def test_scan_association_fast_matches_jax(mode, seed, pW):
+def test_scan_association_fast_matches_jax(mode, seed, pW, tmp_path):
     d = _dataset(seed=seed, pW=pW)
     pv_j, info_j = crt.CellRegMap(
         y=d["y"], E=d["E"], W=d["W"], **_bg(d, mode)).scan_association_fast(
@@ -85,8 +85,10 @@ def test_scan_association_fast_matches_jax(mode, seed, pW):
     assert np.array_equal(info_t["rho1"], info_j["rho1"])
     assert_allclose(pv_t, pv_j, rtol=1e-5, atol=1e-12)
     assert np.all((pv_t > 0) & (pv_t <= 1))
-    with pytest.raises(NotImplementedError):
-        crm.scan_association_fast(d["G"], checkpoint="ckpt")
+    # a checkpointed scan gives the same p-values
+    pv_ck, _ = crm.scan_association_fast(d["G"],
+                                         checkpoint=str(tmp_path / "ck"))
+    assert np.array_equal(pv_ck, pv_t)
 
 
 def test_run_association_fast_matches_jax_in_ragged_batches():

@@ -199,13 +199,9 @@ def test_traced_scan_reports_phases():
 
 
 def test_unported_options_raise():
+    """The float32 (screen) context is not ported yet; invalid phenotypes
+    raise ValueError."""
     d = _dataset(seed=49, S=3)
-    crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], device="cpu")
-    with pytest.raises(NotImplementedError):
-        crm.scan_interaction(d["G"], checkpoint="ckpt")
-    with pytest.raises(NotImplementedError):
-        crm.scan_interaction_multigene(
-            np.stack([d["y"], d["y"]], axis=1), d["G"], checkpoint="ckpt")
     with pytest.raises(NotImplementedError):
         crp.CellRegMap(y=d["y"], E=d["E"], device="cpu",
                        config=crp.ScanConfig(dtype="float32"))
