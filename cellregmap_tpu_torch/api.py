@@ -26,7 +26,9 @@ import hashlib
 
 from . import engine
 from ._config import DEFAULT_CONFIG, ScanConfig
+from .kernels import delta_grid, reml_newton, score_core, sym_eigvalsh
 from .kernels.delta_grid import MAX_GENES
+from .kernels.woodbury_family import MAX_Q
 from .models import pvalues as pv_mod
 from .ops.hadamard import get_L_values
 from .parallel.checkpoint import ScanCheckpoint
@@ -63,6 +65,32 @@ def _resolve_device(device=None) -> torch.device:
                 "port on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+# The card's envelope: the widest shapes every kernel on the scans' paths
+# takes (csrc/*.cu), checked when a scanner on the card is made, so that a
+# refused shape costs no setup time.  p counts W's columns, the intercept
+# included (K2, K3 and K5: p + 1 <= 33; K8: p <= 32); C the score
+# contexts (K6a: C <= 64; K5: C + p + 2 <= 98); the rho grid K3's
+# localize block.
+CARD_MAX_COVARIATES = min(delta_grid.MAX_FIXED, score_core.MAX_FIXED) - 1
+CARD_MAX_CONTEXTS = sym_eigvalsh.MAX_C
+CARD_MAX_RHO = reml_newton.MAX_RHO
+
+
+def _check_card_envelope(p: int, C: int, n_rho: int) -> None:
+    """Raise ValueError, naming the limit and the shape, where the card's
+    kernels would refuse the scanner's shapes."""
+    for what, got, limit in (("covariates (columns of W)", p,
+                              CARD_MAX_COVARIATES),
+                             ("contexts (columns of E)", C,
+                              CARD_MAX_CONTEXTS),
+                             ("rho grid points (config.n_rho)", n_rho,
+                              CARD_MAX_RHO)):
+        if got > limit:
+            raise ValueError(
+                f"the card's kernels take at most {limit} {what}, got {got}; "
+                f"pass device='cpu' to run this shape on the CPU")
 
 
 def _pad_batch(G, batch):
@@ -228,6 +256,9 @@ class CellRegMap:
             self._rho_grid = np.linspace(0, 1, config.n_rho)
         else:
             self._rho_grid = np.array([1.0])
+        if self._device.type == "cuda":
+            _check_card_envelope(W.shape[1], E0.shape[1],
+                                 len(self._rho_grid))
         self._y, self._W, self._E0, self._E1 = y, W, E0, E1
         self._Ls, self._hK = Ls, hK
         self._n = n
@@ -563,6 +594,15 @@ class CellRegMap:
         It never builds the null context: the rho grid is the scanner's
         own (``Ls`` or ``hK`` given: n_rho points on [0, 1], else [1])."""
         if self._bctx is None:
+            if self._device.type == "cuda":
+                # K9 takes q = C + rank[W, E] + 2 columns
+                q = self._E0.shape[1] + engine.reduced_design_basis(
+                    self._W, self._E0).shape[1] + 2
+                if q > MAX_Q:
+                    raise ValueError(
+                        f"the card's effect-size kernel takes q = C + "
+                        f"rank[W, E] + 2 <= {MAX_Q} columns, got {q}; pass "
+                        f"device='cpu' to run this shape on the CPU")
             self._bctx = engine.build_betas_context(
                 self._y, self._W, self._E0, self._Ls,
                 rho_grid=self._rho_grid, device=self._device,

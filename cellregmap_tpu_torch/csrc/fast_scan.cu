@@ -31,7 +31,10 @@
 // and the p + 2 sums stay in registers.  The eight warps' partial sums
 // meet in shared memory; warp 0 then reduces the variant-independent A, b,
 // yy and logdet D (lanes over r, an xor-shuffle tree), factors A on every
-// lane and finishes its 32 variants.
+// lane and finishes its 32 variants.  The wide instantiation (16 < p <=
+// 32), whose p x p factor no lane can hold, reduces those terms with the
+// whole block (threads over the sums) into shared memory, where warp 0
+// factors A and every lane's solves read it.
 //
 // The gene axis (cellregmap_tpu/engine.py `fast_scan_multigene_kernel`,
 // :1176-1206): many phenotypes against one covariance family, each gene
@@ -91,6 +94,119 @@ __device__ __forceinline__ double clamp_tiny(double x) {
   return x < DBL_MIN ? DBL_MIN : x;
 }
 
+
+// ---------------------------------------------------------------------------
+// The wide instantiation (16 < p <= 32): a lane cannot hold the p x p
+// factor, so the variant-independent terms are reduced by the whole block
+// (threads over the p(p+1)/2 + p + 2 sums, rows serial) into shared
+// memory, warp 0 factors A there (lane 0 the pivot, the lanes the column
+// below it), and each lane's solves read the factor from shared memory.
+// ---------------------------------------------------------------------------
+constexpr int WIDE_P = 32;
+template <int V> struct PC { static constexpr int value = V; };
+
+// words of the block's terms: L (p x p), b, A^-1 b (p each), yy, logdet D
+__host__ __device__ inline int gls_words(int p) { return p * p + 2 * p + 2; }
+
+// The block's GLS terms of one (rho, delta) into g (every thread calls).
+__device__ void block_gls(const double* So, const double* Wo,
+                          const double* yv, const double* CWo,
+                          const double* cWy, double cyy, double delta, int n,
+                          int R, int p, double* g) {
+  const int tid = threadIdx.x;
+  const int ntri = p * (p + 1) / 2, ne = ntri + p + 2;
+  double *L = g, *b = L + p * p, *aib = b + p, *sc = aib + p;
+  for (int e = tid; e < ne; e += NT) {
+    int i = -1, j = 0;
+    if (e < ntri) {
+      i = 0;
+      while ((i + 1) * (i + 2) / 2 <= e) ++i;
+      j = e - i * (i + 1) / 2;
+    }
+    double acc = 0.0;
+    for (int r = 0; r < R; ++r) {
+      const double d = (1.0 - delta) * So[r] + delta;
+      const double w = 1.0 / d;
+      const double* x = Wo + (int64_t)r * p;
+      if (i >= 0) acc += x[i] * w * x[j];
+      else if (e < ntri + p) acc += x[e - ntri] * w * yv[r];
+      else if (e == ntri + p) acc += yv[r] * yv[r] * w;
+      else acc += log(d);
+    }
+    if (i >= 0) L[i * p + j] = acc + CWo[i * p + j] / delta;
+    else if (e < ntri + p) b[e - ntri] = acc + cWy[e - ntri] / delta;
+    else if (e == ntri + p) sc[0] = acc + cyy / delta;
+    else sc[1] = acc + (n - R) * log(delta);
+  }
+  __syncthreads();
+  if (tid < 32) {
+    double dmax = 0.0;
+    for (int i = 0; i < p; ++i) dmax = fmax(dmax, fabs(L[i * p + i]));
+    const double ridge = 1e-12 * fmax(dmax, 1.0);
+    for (int jj = 0; jj < p; ++jj) {
+      if (tid == 0) {
+        double dj = L[jj * p + jj] + ridge;
+        for (int k = 0; k < jj; ++k) dj -= L[jj * p + k] * L[jj * p + k];
+        L[jj * p + jj] = sqrt(dj);
+      }
+      __syncwarp();
+      const double dj = L[jj * p + jj];
+      for (int i = jj + 1 + tid; i < p; i += 32) {
+        double v = L[i * p + jj];
+        for (int k = 0; k < jj; ++k) v -= L[i * p + k] * L[jj * p + k];
+        L[i * p + jj] = v / dj;
+      }
+      __syncwarp();
+    }
+    if (tid == 0) {  // A^-1 b
+      for (int i = 0; i < p; ++i) {
+        double t = b[i];
+        for (int k = 0; k < i; ++k) t -= L[i * p + k] * aib[k];
+        aib[i] = t / L[i * p + i];
+      }
+      for (int i = p - 1; i >= 0; --i) {
+        double t = aib[i];
+        for (int k = i + 1; k < p; ++k) t -= L[k * p + i] * aib[k];
+        aib[i] = t / L[i * p + i];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// One variant's results from its sums (U, cgg, cgy, complements added)
+// and the block's terms g; z a lane's scratch of p doubles.
+__device__ void finish_wide(const double* g, const double* U, double cg,
+                            double cy, double* z, int n, int p,
+                            double* lml, double* bg, double* bW,
+                            double* scale) {
+  const double *L = g, *b = L + p * p, *aib = b + p, *sc = aib + p;
+  for (int i = 0; i < p; ++i) {
+    double t = U[i];
+    for (int k = 0; k < i; ++k) t -= L[i * p + k] * z[k];
+    z[i] = t / L[i * p + i];
+  }
+  for (int i = p - 1; i >= 0; --i) {
+    double t = z[i];
+    for (int k = i + 1; k < p; ++k) t -= L[k * p + i] * z[k];
+    z[i] = t / L[i * p + i];
+  }
+  double uau = 0.0, bau = 0.0, bab = 0.0;
+  for (int i = 0; i < p; ++i) {
+    uau += U[i] * z[i];
+    bau += b[i] * z[i];
+    bab += b[i] * aib[i];
+  }
+  const double schur = cg - uau;
+  const double resid = cy - bau;
+  const double beta_g = resid / schur;
+  for (int i = 0; i < p; ++i) bW[i] = aib[i] - z[i] * beta_g;
+  const double rss = clamp_tiny(sc[0] - bab - resid * resid / schur);
+  *scale = rss / n;
+  *bg = beta_g;
+  *lml = -0.5 * (n * log(6.283185307179586 * *scale) + sc[1] + n);
+}
+
 template <int PMAX>
 __global__ void __launch_bounds__(NT)
 fast_scan_kernel(const double* __restrict__ Sv, const double* __restrict__ Wt,
@@ -105,8 +221,10 @@ fast_scan_kernel(const double* __restrict__ Sv, const double* __restrict__ Wt,
                  double* __restrict__ bg_out, double* __restrict__ bW_out,
                  double* __restrict__ scale_out, double delta, int n, int R,
                  int p, int S) {
-  // each warp's partial sums over its slice of r, per variant (lane)
-  __shared__ double part[NWARP][PMAX + 2][32];
+  // each warp's partial sums over its slice of r, per variant (lane), in
+  // dynamic shared memory (the wide instantiation's block terms after)
+  extern __shared__ __align__(16) unsigned char fs_dyn[];
+  auto part = reinterpret_cast<double (*)[PMAX + 2][32]>(fs_dyn);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int s = blockIdx.x * 32 + lane;
 
@@ -129,6 +247,26 @@ fast_scan_kernel(const double* __restrict__ Sv, const double* __restrict__ Wt,
   part[warp][PMAX][lane] = cgg;
   part[warp][PMAX + 1][lane] = cgy;
   __syncthreads();
+  if constexpr (PMAX > 16) {
+    double* gw = reinterpret_cast<double*>(fs_dyn) + NWARP * (PMAX + 2) * 32;
+    block_gls(Sv, Wt, yt, CWW, cWy, cyy[0], delta, n, R, p, gw);
+    if (warp != 0 || s >= S) return;
+    SMALL_FOR(j, 0, p) {
+      double v = 0.0;
+      for (int w = 0; w < NWARP; ++w) v += part[w][j][lane];
+      U[j] = v + CWG[(int64_t)j * S + s] / delta;
+    }
+    cgg = cGG[s] / delta;
+    cgy = cGy[s] / delta;
+    for (int w = 0; w < NWARP; ++w) {
+      cgg += part[w][PMAX][lane];
+      cgy += part[w][PMAX + 1][lane];
+    }
+    double z[PMAX];
+    finish_wide(gw, U, cgg, cgy, z, n, p, lml_out + s, bg_out + s,
+                bW_out + (int64_t)s * p, scale_out + s);
+    return;
+  }
   if (warp != 0) return;
 
   // warp 0: the variant-independent A, b, yy and logdet D (lanes over r,
@@ -217,6 +355,16 @@ template <int PMAX> struct GeneChunk {
   static constexpr int GC = PMAX <= 2 ? 4 : (PMAX <= 4 ? 2 : 1);
 };
 
+// dynamic shared memory of a block: the warps' partial sums, and the wide
+// instantiation's block terms; raises the kernel's limit where needed
+template <int PMAX, class F>
+int dyn_smem(F kernel, int gc, int p, int* bytes) {
+  *bytes = (int)sizeof(double) *
+           (NWARP * gc * (PMAX + 2) * 32 + (PMAX > 16 ? gls_words(p) : 0));
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes);
+}
+
 template <int PMAX>
 __global__ void __launch_bounds__(NT)
 fast_scan_genes_kernel(const double* __restrict__ delta,
@@ -238,7 +386,8 @@ fast_scan_genes_kernel(const double* __restrict__ delta,
                        double* __restrict__ scale_out, int n, int R, int p,
                        int S) {
   constexpr int GC = GeneChunk<PMAX>::GC;
-  __shared__ double part[NWARP][GC][PMAX + 2][32];
+  extern __shared__ __align__(16) unsigned char fs_dyn[];
+  auto part = reinterpret_cast<double (*)[GC][PMAX + 2][32]>(fs_dyn);
   __shared__ double wsh[GC][RCH], ywsh[GC][RCH];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sl = blockIdx.y;
@@ -300,6 +449,32 @@ fast_scan_genes_kernel(const double* __restrict__ delta,
   }
   __syncthreads();
 
+  if constexpr (PMAX > 16) {  // GC = 1: the block's gene, as above
+    const int g = order[c0];
+    const double dg = delta[g];
+    double* gw =
+        reinterpret_cast<double*>(fs_dyn) + NWARP * GC * (PMAX + 2) * 32;
+    block_gls(So, Wo, yt + (int64_t)g * R, CWW + (int64_t)sl * p * p,
+              cWy + (int64_t)g * p, cyy[g], dg, n, R, p, gw);
+    if (warp != 0 || s >= S) return;
+    const double* CGo = CWG + (int64_t)sl * p * S;
+    double Us[PMAX], z[PMAX];
+    SMALL_FOR(j, 0, p) {
+      double v = 0.0;
+      for (int w = 0; w < NWARP; ++w) v += part[w][0][j][lane];
+      Us[j] = v + CGo[(int64_t)j * S + s] / dg;
+    }
+    double cg = cGG[(int64_t)sl * S + s] / dg;
+    double cy = cGy[(int64_t)g * S + s] / dg;
+    for (int w = 0; w < NWARP; ++w) {
+      cg += part[w][0][PMAX][lane];
+      cy += part[w][0][PMAX + 1][lane];
+    }
+    const int64_t gs = (int64_t)g * S + s;
+    finish_wide(gw, Us, cg, cy, z, n, p, lml_out + gs, bg_out + gs,
+                bW_out + gs * p, scale_out + gs);
+    return;
+  }
   // warp w finishes gene w of the chunk
   if (warp < ng) {
     const int gi = warp;
@@ -387,7 +562,7 @@ fast_scan_genes_kernel(const double* __restrict__ delta,
 // S (R,), Wt (R, p), yt (R,), CWW (p, p), cWy (p,), cyy (1,), Gt (R, S),
 // CWG (p, S), cGy (S,), cGG (S,) -> lml, beta_g (S,), beta_W (S, p),
 // scale (S,).
-// Row-major f64 on the card; 1 <= p <= 16.  Launches on `stream`; returns
+// Row-major f64 on the card; 1 <= p <= 32.  Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int crm_fast_scan(const double* Sv, const double* Wt,
                              const double* yt, const double* CWW,
@@ -397,13 +572,20 @@ extern "C" int crm_fast_scan(const double* Sv, const double* Wt,
                              double* lml, double* beta_g, double* beta_W,
                              double* scale, double delta, int n, int R, int p,
                              int S, cudaStream_t stream) {
-  auto kernel = p <= 2   ? fast_scan_kernel<2>
-                : p <= 4 ? fast_scan_kernel<4>
-                         : fast_scan_kernel<16>;
-  kernel<<<(S + 31) / 32, NT, 0, stream>>>(Sv, Wt, yt, CWW, cWy, cyy, Gt,
-                                           CWG, cGy, cGG, lml, beta_g, beta_W,
-                                           scale, delta, n, R, p, S);
-  return (int)cudaGetLastError();
+  auto launch = [&](auto kernel, auto pmax) {
+    int smem;
+    const int err = dyn_smem<decltype(pmax)::value>(kernel, 1, p, &smem);
+    if (err) return err;
+    const int blocks = (S + 31) / 32;
+    kernel<<<blocks, NT, smem, stream>>>(Sv, Wt, yt, CWW, cWy, cyy, Gt, CWG,
+                                         cGy, cGG, lml, beta_g, beta_W,
+                                         scale, delta, n, R, p, S);
+    return (int)cudaGetLastError();
+  };
+  if (p <= 2) return launch(fast_scan_kernel<2>, PC<2>());
+  if (p <= 4) return launch(fast_scan_kernel<4>, PC<4>());
+  if (p <= 16) return launch(fast_scan_kernel<16>, PC<16>());
+  return launch(fast_scan_kernel<WIDE_P>, PC<WIDE_P>());
 }
 
 // The gene axis.  Per slot (m distinct best rho): S (m, R), Wt (m, R, p),
@@ -412,7 +594,7 @@ extern "C" int crm_fast_scan(const double* Sv, const double* Wt,
 // order (genes,) int32, the genes ordered by slot, and starts (m + 1,)
 // int32, slot k's genes being order[starts[k] .. starts[k + 1]);
 // max_genes the most genes of a slot -> lml, beta_g, scale (genes, S),
-// beta_W (genes, S, p).  Row-major f64 on the card; 1 <= p <= 16, m <=
+// beta_W (genes, S, p).  Row-major f64 on the card; 1 <= p <= 32, m <=
 // 65535.  Launches on `stream`; returns cudaGetLastError().
 extern "C" int crm_fast_scan_genes(const double* delta, const double* Sv,
                                    const double* Wt, const double* yt,
@@ -425,15 +607,20 @@ extern "C" int crm_fast_scan_genes(const double* delta, const double* Sv,
                                    double* scale, int n, int R, int p, int S,
                                    int m, int max_genes,
                                    cudaStream_t stream) {
-  auto kernel = p <= 2   ? fast_scan_genes_kernel<2>
-                : p <= 4 ? fast_scan_genes_kernel<4>
-                         : fast_scan_genes_kernel<16>;
-  const int gc = p <= 2   ? GeneChunk<2>::GC
-                 : p <= 4 ? GeneChunk<4>::GC
-                          : GeneChunk<16>::GC;
-  const dim3 grid((S + 31) / 32, m, (max_genes + gc - 1) / gc);
-  kernel<<<grid, NT, 0, stream>>>(delta, Sv, Wt, yt, CWW, cWy, cyy, Gt, CWG,
-                                  cGy, cGG, order, starts, lml, beta_g,
-                                  beta_W, scale, n, R, p, S);
-  return (int)cudaGetLastError();
+  auto launch = [&](auto kernel, auto pmax) {
+    constexpr int PM = decltype(pmax)::value;
+    constexpr int gc = GeneChunk<PM>::GC;
+    int smem;
+    const int err = dyn_smem<PM>(kernel, gc, p, &smem);
+    if (err) return err;
+    const dim3 grid((S + 31) / 32, m, (max_genes + gc - 1) / gc);
+    kernel<<<grid, NT, smem, stream>>>(delta, Sv, Wt, yt, CWW, cWy, cyy, Gt,
+                                       CWG, cGy, cGG, order, starts, lml,
+                                       beta_g, beta_W, scale, n, R, p, S);
+    return (int)cudaGetLastError();
+  };
+  if (p <= 2) return launch(fast_scan_genes_kernel<2>, PC<2>());
+  if (p <= 4) return launch(fast_scan_genes_kernel<4>, PC<4>());
+  if (p <= 16) return launch(fast_scan_genes_kernel<16>, PC<16>());
+  return launch(fast_scan_genes_kernel<WIDE_P>, PC<WIDE_P>());
 }

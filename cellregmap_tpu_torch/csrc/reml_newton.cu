@@ -23,12 +23,13 @@
 // and one safeguarded Newton step on logit(delta) inside the bracket
 // (:608-626, inclusive bounds).  Two entry points:
 //
-//   crm_reml_localize (stages 1b + 2, :628-670): one block per variant, one
-//     warp per rho point.  `steps` steps from the bracket midpoint on the
-//     tensors rounded to f32 when round32 (f64 arithmetic on f32-rounded
-//     tensors: the reference's type promotion), then one f64 REML lml at
-//     the localized delta on the unrounded tensors (rss <= 128 eps q there
-//     cannot win, :655), and the argmax over rho inside the block.
+//   crm_reml_localize (stages 1b + 2, :628-670): one block per variant,
+//     a warp per rho point at a time.  `steps` steps from the bracket
+//     midpoint on the tensors rounded to f32 when round32 (f64 arithmetic
+//     on f32-rounded tensors: the reference's type promotion), then one
+//     f64 REML lml at the localized delta on the unrounded tensors (rss
+//     <= 128 eps q there cannot win, :655), and the argmax over rho
+//     inside the block.
 //   crm_reml_converge (stage 3, :672-734; association refit, :991-1062):
 //     one warp per variant at its rho k_best (0 when null), `steps` steps
 //     on the unrounded tensors from x0 (the bracket midpoint when null)
@@ -46,6 +47,16 @@
 // every lane, and lane 0's iterate is broadcast so the lanes stay in step.
 // State x/lo/hi stays in registers across the steps; nothing but the
 // results is written.
+//
+// Instantiations: p + 1 <= 2, 4 and 16 keep each lane's sums and algebra
+// in registers.  The wide one (p + 1 <= 33: up to 3 x 595 sums a problem)
+// gives each warp a workspace in dynamic shared memory (a localize block
+// as many warps as fit, up to 8; a converge block 4):
+// the warp stages 32 rows at a time, each lane owns every 32nd sum and
+// accumulates it over the rows, and the algebra (the factor, A1^{-1} by
+// columns, the trace terms) runs there with the lanes over rows, columns
+// or entries.  A localize block's warps loop over the rho points (up to
+// 64), and its thread 0 takes the argmax over rho.
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
@@ -53,7 +64,8 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int LOC_MAX_WARPS = 16;  // rho points a localize block holds
+constexpr int LOC_MAX_WARPS = 16;  // warps of a localize block
+constexpr int MAX_RHO = 64;        // rho points of a localize block
 constexpr int CONV_WARPS = 4;      // variants a converge block holds
 
 // Loops over the small dimension run to the compile-time P1MAX and skip
@@ -96,6 +108,7 @@ struct Problem {
   const double* CWg;  // (p, nS) column s
   int nS;
   bool r32;
+  double* ws;         // the warp's workspace (wide instantiation only)
 };
 
 // Normal equations (NF families) of one problem at delta, summed over the
@@ -290,6 +303,326 @@ __device__ void derivs(const Problem& pb, double delta, int n, double& Lp,
   Lpp = -0.5 * (nu * (rss_pp / rss - u * u) + ld_pp + 2 * tr3 - tr2sq);
 }
 
+// ---------------------------------------------------------------------------
+// The wide instantiation (p + 1 <= 33): a warp per problem, as above, but
+// the normal equations of three families (up to 3 x 595 sums) do not fit
+// in a lane's registers.  The warp stages a chunk of rows in its own
+// shared-memory workspace; each lane owns every 32nd sum (a fixed set of
+// column pairs) and accumulates it over the chunk's rows; the small
+// algebra then runs in the workspace with the lanes over rows, columns or
+// entries.
+// ---------------------------------------------------------------------------
+constexpr int WRC = 32;    // rows of a staged chunk (a lane loads one)
+constexpr int WEPL = 19;   // sums a lane owns: ceil(3 x 595 / 32 / 3)
+// shared memory an SM gives one block (of its 228 KB), less the localize
+// block's static lml_sh: a wide localize block takes as many warps as
+// their workspaces fit (7 at p + 1 = 25, 4 at 33), up to WIDE_LOC_WARPS,
+// whose launch bound leaves each thread the 255 registers its sums need
+constexpr int SMEM_BLOCK = 227 * 1024 - 1024;
+constexpr int WIDE_LOC_WARPS = 8;
+
+// the workspace of one warp, in doubles, at p + 1 = p1
+__host__ __device__ inline int wide_ne(int p1) {
+  return p1 * (p1 + 1) / 2 + p1 + 1;
+}
+__host__ __device__ inline int wide_words(int p1) {
+  return WRC * (p1 + 1) + WRC * 3 + 3 * wide_ne(p1) + p1 * (p1 + 1) / 2 +
+         2 * p1 * p1 + 6 * p1;
+}
+
+struct WideWs {
+  double *xs, *wf, *acc, *L, *Ainv, *T2, *vec;
+  int p1, ne;
+};
+
+__device__ WideWs wide_ws(double* base, int p1) {
+  WideWs w;
+  w.p1 = p1;
+  w.ne = wide_ne(p1);
+  w.xs = base;                            // [WRC][p1 + 1]: [W, g], y
+  w.wf = w.xs + WRC * (p1 + 1);           // [WRC][3]: the weight families
+  w.acc = w.wf + WRC * 3;                 // [3][ne]: A lower, b, q
+  w.L = w.acc + 3 * w.ne;                 // lower triangle of the factor
+  w.Ainv = w.L + p1 * (p1 + 1) / 2;       // [p1][p1]
+  w.T2 = w.Ainv + p1 * p1;                // [p1][p1]
+  w.vec = w.T2 + p1 * p1;                 // 6 vectors of p1
+  return w;
+}
+
+// Normal equations of NF families at delta into ws.acc (complements
+// included); returns (sum e w1, sum e2 w1^2) or (sum log d, 0) on every
+// lane.
+template <int NF>
+__device__ void normal_eqs_wide(const Problem& pb, const WideWs& ws,
+                                double delta, double& ex1, double& ex2) {
+  const int lane = threadIdx.x % 32;
+  const int p = pb.p, p1 = p + 1, ne = ws.ne, cw = p1 + 1;
+  const int ntri = p1 * (p1 + 1) / 2;
+  const bool r32 = pb.r32;
+  // this lane's sums: entry e = lane + 32 t is the column pair (a, b) of
+  // [W, g, y] (a >= b), families f < NF
+  int ea[WEPL], eb[WEPL];
+  double acc[NF][WEPL];
+#pragma unroll
+  for (int t = 0; t < WEPL; ++t) {
+    const int e = lane + 32 * t;
+    int a = -1, b = 0;
+    if (e < ntri) {
+      a = 0;
+      while ((a + 1) * (a + 2) / 2 <= e) ++a;
+      b = e - a * (a + 1) / 2;
+    } else if (e < ne) {  // b_i (x_i y), then q (y y)
+      a = p1;
+      b = e - ntri;
+    }
+    ea[t] = a;
+    eb[t] = b;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) acc[f][t] = 0.0;
+  }
+  ex1 = 0.0;
+  ex2 = 0.0;
+  for (int r0 = 0; r0 < pb.R; r0 += WRC) {
+    const int rows = min(WRC, pb.R - r0);
+    if (lane < rows) {  // lane rr stages row r0 + rr
+      const int r = r0 + lane;
+      const double* row = pb.WG + (int64_t)r * pb.ps;
+      double* x = ws.xs + lane * cw;
+      for (int j = 0; j < p; ++j) x[j] = row[j];
+      x[p] = row[p + pb.s];
+      x[p1] = pb.y[r];
+      const double Sr = pb.S[r];
+      const double d = (1.0 - delta) * rnd(Sr, r32) + delta;
+      const double w1 = 1.0 / d;
+      double* wf = ws.wf + lane * 3;
+      wf[0] = w1;
+      if (NF == 3) {
+        const double e = rnd(1.0 - Sr, r32);
+        const double e2 = rnd((1.0 - Sr) * (1.0 - Sr), r32);
+        wf[1] = e * w1 * w1;
+        wf[2] = e2 * w1 * w1 * w1;
+        ex1 += w1 * e;
+        ex2 += w1 * w1 * e2;
+      } else {
+        ex1 += log(d);
+      }
+    }
+    __syncwarp();
+    for (int rr = 0; rr < rows; ++rr) {
+      const double* x = ws.xs + rr * cw;
+      const double* wf = ws.wf + rr * 3;
+#pragma unroll
+      for (int t = 0; t < WEPL; ++t) {
+        if (ea[t] < 0) continue;
+        const double v = rnd(x[ea[t]] * x[eb[t]], r32);
+#pragma unroll
+        for (int f = 0; f < NF; ++f) acc[f][t] += wf[f] * v;
+      }
+    }
+    __syncwarp();
+  }
+  ex1 = warp_sum(ex1);
+  ex2 = warp_sum(ex2);
+  // complement terms, weight 1/delta^(f+1)
+#pragma unroll
+  for (int t = 0; t < WEPL; ++t) {
+    if (ea[t] < 0) continue;
+    const int a = ea[t], b = eb[t];
+    double c;
+    if (a < p1) {  // A: (a, b), a >= b
+      c = a < p ? pb.CWW[a * p + b]
+                : (b < p ? pb.CWg[(int64_t)b * pb.nS + pb.s] : pb.cgg);
+      c = rnd(c, r32);
+    } else if (b < p1) {  // b_i
+      c = rnd(b < p ? pb.CWy[b] : pb.cgy, r32);
+    } else {
+      c = pb.cyy;
+    }
+    double ic = 1.0 / delta;
+    const double i1 = ic;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      ws.acc[f * ws.ne + lane + 32 * t] = acc[f][t] + c * ic;
+      ic *= i1;
+    }
+  }
+  __syncwarp();
+}
+
+// ridge Cholesky of family 0's A into ws.L (the order of chol above),
+// the lanes over the rows of each column
+__device__ void chol_wide(const WideWs& ws) {
+  const int lane = threadIdx.x % 32, p1 = ws.p1;
+  const double* A = ws.acc;
+  double* L = ws.L;
+  double dmax = A[0];
+  for (int i = 1; i < p1; ++i) dmax = fmax(dmax, A[tri(i, i)]);
+  const double ridge = 1e-12 * fmax(dmax, 1.0);
+  for (int j = 0; j < p1; ++j) {
+    if (lane == 0) {
+      double v = A[tri(j, j)] + ridge;
+      for (int k = 0; k < j; ++k) v -= L[tri(j, k)] * L[tri(j, k)];
+      L[tri(j, j)] = sqrt(v);
+    }
+    __syncwarp();
+    for (int i = j + 1 + lane; i < p1; i += 32) {
+      double v = A[tri(i, j)];
+      for (int k = 0; k < j; ++k) v -= L[tri(i, k)] * L[tri(j, k)];
+      L[tri(i, j)] = v / L[tri(j, j)];
+    }
+    __syncwarp();
+  }
+}
+
+// x = A^{-1} v through ws.L (x may alias v); one lane's work
+__device__ void solve_wide(const WideWs& ws, const double* v, double* x,
+                           int stride = 1) {
+  const int p1 = ws.p1;
+  const double* L = ws.L;
+  for (int i = 0; i < p1; ++i) {
+    double t = v[i * stride];
+    for (int k = 0; k < i; ++k) t -= L[tri(i, k)] * x[k * stride];
+    x[i * stride] = t / L[tri(i, i)];
+  }
+  for (int i = p1 - 1; i >= 0; --i) {
+    double t = x[i * stride];
+    for (int k = i + 1; k < p1; ++k) t -= L[tri(k, i)] * x[k * stride];
+    x[i * stride] = t / L[tri(i, i)];
+  }
+}
+
+// out = A x for family f's symmetric A; the lanes over rows
+__device__ void sym_mv_wide(const WideWs& ws, int f, const double* x,
+                            double* out) {
+  const int lane = threadIdx.x % 32, p1 = ws.p1;
+  const double* A = ws.acc + f * ws.ne;
+  for (int i = lane; i < p1; i += 32) {
+    double v = 0.0;
+    for (int k = 0; k < p1; ++k) v += A[i >= k ? tri(i, k) : tri(k, i)] * x[k];
+    out[i] = v;
+  }
+  __syncwarp();
+}
+
+// a . b over p1 entries, on every lane
+__device__ double dot_wide(const double* a, const double* b, int p1) {
+  const int lane = threadIdx.x % 32;
+  double v = 0.0;
+  for (int i = lane; i < p1; i += 32) v += a[i] * b[i];
+  return warp_sum(v);
+}
+
+template <bool REML>
+__device__ void derivs_wide(const Problem& pb, double delta, int n,
+                            double& Lp, double& Lpp) {
+  const int lane = threadIdx.x % 32;
+  const WideWs ws = wide_ws(pb.ws, pb.p + 1);
+  const int p1 = ws.p1, ne = ws.ne, ntri = p1 * (p1 + 1) / 2;
+  double sum_ew, sum_e2w2;
+  normal_eqs_wide<3>(pb, ws, delta, sum_ew, sum_e2w2);
+  const double *b1 = ws.acc + ntri, *b2 = ws.acc + ne + ntri,
+               *b3 = ws.acc + 2 * ne + ntri;
+  const double q1 = ws.acc[ne - 1], q2 = ws.acc[2 * ne - 1],
+               q3 = ws.acc[3 * ne - 1];
+  double *beta = ws.vec, *A2b = beta + p1, *A3b = A2b + p1, *t = A3b + p1,
+         *beta_p = t + p1, *A2bp = beta_p + p1;
+  chol_wide(ws);
+  if (lane == 0) solve_wide(ws, b1, beta);
+  __syncwarp();
+  double rss = fmax(q1 - dot_wide(b1, beta, p1), DBL_MIN);
+  sym_mv_wide(ws, 1, beta, A2b);
+  sym_mv_wide(ws, 2, beta, A3b);
+  for (int j = lane; j < p1; j += 32) t[j] = A2b[j] - b2[j];
+  __syncwarp();
+  if (lane == 0) solve_wide(ws, t, beta_p);
+  __syncwarp();
+  sym_mv_wide(ws, 1, beta_p, A2bp);
+  const double s_b2b = dot_wide(b2, beta, p1);
+  const double s_bA2b = dot_wide(beta, A2b, p1);
+  const double s_b3b = dot_wide(b3, beta, p1);
+  const double s_b2bp = dot_wide(b2, beta_p, p1);
+  const double s_bA2bp = dot_wide(beta, A2bp, p1);
+  const double s_bA3b = dot_wide(beta, A3b, p1);
+  const double rss_p = -q2 + 2 * s_b2b - s_bA2b;
+  const double rss_pp =
+      2 * q3 - 4 * s_b3b + 2 * s_b2bp - 2 * s_bA2bp + 2 * s_bA3b;
+  const int nR = n - pb.R;
+  const double i1 = 1.0 / delta;
+  const double ld_p = sum_ew + nR * i1;
+  const double ld_pp = -sum_e2w2 - nR * (i1 * i1);
+  const double u = rss_p / rss;
+  if (!REML) {
+    Lp = -0.5 * (n * u + ld_p);
+    Lpp = -0.5 * (n * (rss_pp / rss - u * u) + ld_pp);
+    return;
+  }
+  // A1^{-1} by columns (a lane a column), then T2 = A1^{-1} A2
+  double *Ainv = ws.Ainv, *T2 = ws.T2;
+  for (int kc = lane; kc < p1; kc += 32) {
+    for (int i = 0; i < p1; ++i) Ainv[i * p1 + kc] = i == kc ? 1.0 : 0.0;
+    solve_wide(ws, Ainv + kc, Ainv + kc, p1);
+  }
+  __syncwarp();
+  const double *A2 = ws.acc + ne, *A3 = ws.acc + 2 * ne;
+  auto full = [&](const double* A, int i, int j) {
+    return A[i >= j ? tri(i, j) : tri(j, i)];
+  };
+  double tr2 = 0, tr3 = 0, tr2sq = 0;
+  for (int e = lane; e < p1 * p1; e += 32) {
+    const int i = e / p1, j = e - i * p1;
+    double v = 0;
+    for (int k = 0; k < p1; ++k) v += Ainv[i * p1 + k] * full(A2, k, j);
+    T2[e] = v;
+  }
+  __syncwarp();
+  for (int i = lane; i < p1; i += 32) {
+    tr2 += T2[i * p1 + i];
+    for (int k = 0; k < p1; ++k) tr3 += Ainv[i * p1 + k] * full(A3, k, i);
+  }
+  for (int e = lane; e < p1 * p1; e += 32) {
+    const int i = e / p1, j = e - i * p1;
+    tr2sq += T2[i * p1 + j] * T2[j * p1 + i];
+  }
+  tr2 = warp_sum(tr2);
+  tr3 = warp_sum(tr3);
+  tr2sq = warp_sum(tr2sq);
+  __syncwarp();
+  const double nu = n - p1;
+  Lp = -0.5 * (nu * u + ld_p - tr2);
+  Lpp = -0.5 * (nu * (rss_pp / rss - u * u) + ld_pp + 2 * tr3 - tr2sq);
+}
+
+// The fit at delta: (lml, rss, beta in ws.vec) with the objective's rss
+// floor, on every lane
+template <bool REML, bool FLOOR_Q>
+__device__ double fit_at_wide(const Problem& pb, double delta, int n,
+                              double ld_xx, double& rss_out, bool& rss_bad) {
+  const int lane = threadIdx.x % 32;
+  const WideWs ws = wide_ws(pb.ws, pb.p + 1);
+  const int p1 = ws.p1, ntri = p1 * (p1 + 1) / 2;
+  double logd, unused;
+  normal_eqs_wide<1>(pb, ws, delta, logd, unused);
+  chol_wide(ws);
+  double* beta = ws.vec;
+  if (lane == 0) solve_wide(ws, ws.acc + ntri, beta);
+  __syncwarp();
+  const double q = ws.acc[ws.ne - 1];
+  double rss = q - dot_wide(ws.acc + ntri, beta, p1);
+  rss_bad = rss <= 128 * DBL_EPSILON * q;
+  if (FLOOR_Q) rss = fmax(rss, 128 * DBL_EPSILON * q);
+  rss = fmax(rss, DBL_MIN);
+  rss_out = rss;
+  const double two_pi = 6.283185307179586;
+  const double logdet_d = logd + (n - pb.R) * log(delta);
+  if (!REML) return -0.5 * (n * log(two_pi * rss / n) + logdet_d + n);
+  double logdet_a = 0;
+  for (int i = 0; i < p1; ++i) logdet_a += log(ws.L[tri(i, i)]);
+  logdet_a *= 2;
+  const double nu = n - p1;
+  return -0.5 * (nu * log(two_pi * rss / nu) + logdet_d + logdet_a - ld_xx +
+                 nu);
+}
+
 // `steps` safeguarded Newton steps; lane 0's iterate is the warp's
 template <int P1MAX, bool REML>
 __device__ void newton(const Problem& pb, int n, int steps, double& x,
@@ -297,7 +630,10 @@ __device__ void newton(const Problem& pb, int n, int steps, double& x,
   for (int it = 0; it < steps; ++it) {
     const double delta = sigmoid(x);
     double Lp, Lpp;
-    derivs<P1MAX, REML>(pb, delta, n, Lp, Lpp);
+    if constexpr (P1MAX == 0)
+      derivs_wide<REML>(pb, delta, n, Lp, Lpp);
+    else
+      derivs<P1MAX, REML>(pb, delta, n, Lp, Lpp);
     const double g = delta * (1 - delta);
     const double Lx_p = Lp * g;
     const double Lx_pp = Lpp * g * g + Lp * g * (1 - 2 * delta);
@@ -346,7 +682,7 @@ __device__ Problem make_problem(const double* Sv, const double* WGt,
                                 const double* CWy, const double* Cyy,
                                 const double* CWg, const double* Cgy,
                                 const double* Cgg, int o, int s, int R, int p,
-                                int nS, bool r32) {
+                                int nS, bool r32, double* ws) {
   Problem pb;
   pb.ps = p + nS;
   pb.S = Sv + (int64_t)o * R;
@@ -363,11 +699,41 @@ __device__ Problem make_problem(const double* Sv, const double* WGt,
   pb.cyy = rnd(Cyy[0], r32);
   pb.cgg = Cgg[s];
   pb.cgy = Cgy[s];
+  pb.ws = ws;
   return pb;
 }
 
+// The final fit of a problem (every lane): lml, rss and, with beta_out,
+// lane 0 writes the p + 1 coefficients there.  P1MAX == 0: the wide path.
+template <int P1MAX, bool REML, bool FLOOR_Q>
+__device__ double final_fit(const Problem& pb, double delta, int n,
+                            double ld_xx, double* beta_out, double& rss,
+                            bool& bad) {
+  const int lane = threadIdx.x % 32;
+  if constexpr (P1MAX == 0) {
+    const double lml =
+        fit_at_wide<REML, FLOOR_Q>(pb, delta, n, ld_xx, rss, bad);
+    const double* beta = wide_ws(pb.ws, pb.p + 1).vec;
+    if (beta_out && lane == 0)
+      for (int j = 0; j <= pb.p; ++j) beta_out[j] = beta[j];
+    __syncwarp();
+    return lml;
+  } else {
+    double beta[P1MAX];
+    const double lml =
+        fit_at<P1MAX, REML, FLOOR_Q>(pb, delta, n, ld_xx, beta, rss, bad);
+    if (beta_out && lane == 0) SMALL_FOR(j, 0, pb.p + 1) beta_out[j] = beta[j];
+    return lml;
+  }
+}
+
+// A block per variant; its warps loop over the rho points (warp w takes
+// w, w + warps, ...), and the argmax over rho is taken in the block.
+// P1MAX == 0: the wide path, each warp with its workspace in dynamic
+// shared memory.
 template <int P1MAX>
-__global__ void __launch_bounds__(32 * LOC_MAX_WARPS)
+__global__ void __launch_bounds__(32 * (P1MAX == 0 ? WIDE_LOC_WARPS
+                                                   : LOC_MAX_WARPS))
 localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                 const double* __restrict__ yt, const double* __restrict__ CWW,
                 const double* __restrict__ CWy, const double* __restrict__ Cyy,
@@ -378,7 +744,8 @@ localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                 const double* __restrict__ br_hi, double* __restrict__ x_out,
                 double* __restrict__ lml_out, int64_t* __restrict__ k_best,
                 int n, int nrho, int R, int p, int nS, int steps, int r32) {
-  __shared__ double lml_sh[LOC_MAX_WARPS];
+  extern __shared__ __align__(16) unsigned char loc_dyn[];
+  __shared__ double lml_sh[MAX_RHO];
   // the gene axis: phenotype operands and outputs offset by gene
   const int64_t gi = blockIdx.y;
   yt += gi * nrho * R;
@@ -391,28 +758,33 @@ localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   lml_out += gi * nS * nrho;
   k_best += gi * nS;
   const int s = blockIdx.x;
-  const int o = threadIdx.x / 32;
+  const int warp = threadIdx.x / 32, warps = blockDim.x / 32;
   const int lane = threadIdx.x % 32;
-  const int64_t so = (int64_t)s * nrho + o;
-  double lo = br_lo[so], hi = br_hi[so];
-  double x = 0.5 * (lo + hi);
-  // stage 1b: Newton on the (possibly f32-rounded) tensors
-  Problem pb = make_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, o, s,
-                            R, p, nS, r32 != 0);
-  newton<P1MAX, true>(pb, n, steps, x, lo, hi);
-  // stage 2: one f64 evaluation on the unrounded tensors
-  pb = make_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, o, s, R, p,
-                    nS, false);
-  double beta[P1MAX], rss;
-  bool bad;
-  double lml = fit_at<P1MAX, true, false>(pb, sigmoid(x), n, ld_xx[s], beta,
-                                          rss, bad);
-  // noise-floor or NaN evaluations must not win the rho argmax (:664-666)
-  if (bad || !isfinite(lml)) lml = -INFINITY;
-  if (lane == 0) {
-    x_out[so] = x;
-    lml_out[so] = lml;
-    lml_sh[o] = lml;
+  double* ws = P1MAX == 0 ? reinterpret_cast<double*>(loc_dyn) +
+                                (int64_t)warp * wide_words(p + 1)
+                          : nullptr;
+  for (int o = warp; o < nrho; o += warps) {
+    const int64_t so = (int64_t)s * nrho + o;
+    double lo = br_lo[so], hi = br_hi[so];
+    double x = 0.5 * (lo + hi);
+    // stage 1b: Newton on the (possibly f32-rounded) tensors
+    Problem pb = make_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, o,
+                              s, R, p, nS, r32 != 0, ws);
+    newton<P1MAX, true>(pb, n, steps, x, lo, hi);
+    // stage 2: one f64 evaluation on the unrounded tensors
+    pb = make_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, o, s, R, p,
+                      nS, false, ws);
+    double rss;
+    bool bad;
+    double lml = final_fit<P1MAX, true, false>(pb, sigmoid(x), n, ld_xx[s],
+                                               nullptr, rss, bad);
+    // noise-floor or NaN evaluations must not win the rho argmax (:664-666)
+    if (bad || !isfinite(lml)) lml = -INFINITY;
+    if (lane == 0) {
+      x_out[so] = x;
+      lml_out[so] = lml;
+      lml_sh[o] = lml;
+    }
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -442,6 +814,7 @@ converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                 double* __restrict__ delta_out, double* __restrict__ lml_out,
                 double* __restrict__ scale_out, double* __restrict__ beta_out,
                 int n, int nrho, int R, int p, int nS, int steps) {
+  extern __shared__ __align__(16) unsigned char conv_dyn[];
   const int64_t gi = blockIdx.y;  // the gene axis, as in localize_kernel
   yt += gi * nrho * R;
   CWy += gi * p;
@@ -455,27 +828,41 @@ converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   lml_out += gi * nS;
   scale_out += gi * nS;
   beta_out += gi * nS * (p + 1);
-  const int s = blockIdx.x * CONV_WARPS + threadIdx.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int s = blockIdx.x * CONV_WARPS + warp;
   const int lane = threadIdx.x % 32;
   if (s >= nS) return;  // whole warps only: no block-wide barrier here
+  double* ws = P1MAX == 0 ? reinterpret_cast<double*>(conv_dyn) +
+                                (int64_t)warp * wide_words(p + 1)
+                          : nullptr;
   const int o = k_best ? (int)k_best[s] : 0;
   const int64_t so = (int64_t)s * nrho + o;
   double lo = br_lo[so], hi = br_hi[so];
   double x = x0 ? x0[so] : 0.5 * (lo + hi);
   const Problem pb = make_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg,
-                                  o, s, R, p, nS, false);
+                                  o, s, R, p, nS, false, ws);
   newton<P1MAX, REML>(pb, n, steps, x, lo, hi);
   const double delta = sigmoid(x);
-  double beta[P1MAX], rss;
+  double rss;
   bool bad;
-  const double lml = fit_at<P1MAX, REML, REML>(
-      pb, delta, n, REML ? ld_xx[s] : 0.0, beta, rss, bad);
+  const double lml = final_fit<P1MAX, REML, REML>(
+      pb, delta, n, REML ? ld_xx[s] : 0.0, beta_out + (int64_t)s * (p + 1),
+      rss, bad);
   if (lane == 0) {
     delta_out[s] = delta;
     lml_out[s] = lml;
     scale_out[s] = rss / (REML ? (double)(n - p - 1) : (double)n);
-    SMALL_FOR(j, 0, p + 1) beta_out[(int64_t)s * (p + 1) + j] = beta[j];
   }
+}
+
+// dynamic shared memory of a wide block of `warps` warps, after raising
+// the kernel's limit; 0 for the register instantiations
+template <class F>
+int wide_smem(F kernel, bool wide, int warps, int p, size_t* bytes) {
+  *bytes = wide ? sizeof(double) * (size_t)warps * wide_words(p + 1) : 0;
+  if (!wide) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
 }
 
 }  // namespace
@@ -483,11 +870,11 @@ converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
 // Operands: Sv (nrho, R), WGt (nrho, R, p + nS), CWW (p, p), CWg (p, nS),
 // Cgg (nS,), ld_xx (nS,) (REML), shared by the genes; yt (genes, nrho, R),
 // CWy (genes, p), Cyy (genes,), Cgy (genes, nS), br_lo/br_hi (genes, nS,
-// nrho) per gene: row-major f64 on the card, 1 <= p + 1 <= 16, genes <=
+// nrho) per gene: row-major f64 on the card, 1 <= p + 1 <= 33, genes <=
 // 65535 (a single phenotype is genes = 1).  Launch on `stream`; return
-// cudaGetLastError().
+// the launch's CUDA error, 0 if none.
 
-// -> x, lml_all (genes, nS, nrho), k_best (genes, nS) int64; nrho <= 16.
+// -> x, lml_all (genes, nS, nrho), k_best (genes, nS) int64; nrho <= 64.
 extern "C" int crm_reml_localize(const double* Sv, const double* WGt,
                                  const double* yt, const double* CWW,
                                  const double* CWy, const double* Cyy,
@@ -498,14 +885,24 @@ extern "C" int crm_reml_localize(const double* Sv, const double* WGt,
                                  int n, int nrho, int R, int p, int nS,
                                  int genes, int steps, int round32,
                                  cudaStream_t stream) {
-  auto kernel = p + 1 <= 2   ? localize_kernel<2>
+  const bool wide = p + 1 > 16;
+  auto kernel = wide ? localize_kernel<0>
+                : p + 1 <= 2 ? localize_kernel<2>
                 : p + 1 <= 4 ? localize_kernel<4>
                              : localize_kernel<16>;
+  const int fit =
+      SMEM_BLOCK / (int)(sizeof(double) * (size_t)wide_words(p + 1));
+  const int warps =
+      min(nrho, wide ? max(1, min(fit, WIDE_LOC_WARPS)) : LOC_MAX_WARPS);
+  size_t smem;
+  const int err = wide_smem(kernel, wide, warps, p, &smem);
+  if (err) return err;
   const dim3 grid(nS, genes);
-  kernel<<<grid, 32 * nrho, 0, stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
-                                       Cgg, ld_xx, br_lo, br_hi, x, lml_all,
-                                       k_best, n, nrho, R, p, nS, steps,
-                                       round32);
+  const int threads = 32 * warps;
+  kernel<<<grid, threads, smem, stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg,
+                                          Cgy, Cgg, ld_xx, br_lo, br_hi, x,
+                                          lml_all, k_best, n, nrho, R, p, nS,
+                                          steps, round32);
   return (int)cudaGetLastError();
 }
 
@@ -523,15 +920,22 @@ extern "C" int crm_reml_converge(const double* Sv, const double* WGt,
                                  double* beta, int n, int nrho, int R, int p,
                                  int nS, int genes, int steps, int reml,
                                  cudaStream_t stream) {
-  auto kernel = reml ? (p + 1 <= 2   ? converge_kernel<2, true>
+  const bool wide = p + 1 > 16;
+  auto kernel = reml ? (wide         ? converge_kernel<0, true>
+                        : p + 1 <= 2 ? converge_kernel<2, true>
                         : p + 1 <= 4 ? converge_kernel<4, true>
                                      : converge_kernel<16, true>)
-                     : (p + 1 <= 2   ? converge_kernel<2, false>
+                     : (wide         ? converge_kernel<0, false>
+                        : p + 1 <= 2 ? converge_kernel<2, false>
                         : p + 1 <= 4 ? converge_kernel<4, false>
                                      : converge_kernel<16, false>);
+  size_t smem;
+  const int err = wide_smem(kernel, wide, CONV_WARPS, p, &smem);
+  if (err) return err;
   const int blocks = (nS + CONV_WARPS - 1) / CONV_WARPS;
   const dim3 grid(blocks, genes);
-  kernel<<<grid, 32 * CONV_WARPS, 0, stream>>>(
+  const int threads = 32 * CONV_WARPS;
+  kernel<<<grid, threads, smem, stream>>>(
       Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, k_best, x0, br_lo,
       br_hi, delta, lml, scale, beta, n, nrho, R, p, nS, steps);
   return (int)cudaGetLastError();

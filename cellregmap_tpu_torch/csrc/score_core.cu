@@ -23,24 +23,42 @@
 // by gene and the genotype's shared.  The block streams the rows of
 // [A | W_t | g_t | y_t] through shared memory in chunks of 16 and
 // accumulates the omega-weighted Gram of those m = C + p + 2 columns in
-// registers, each thread owning up to 8 of its m(m+1)/2 entries (m <= 63
-// and p <= 7, so C = 50 fits with up to 7 covariates; the 32 KB Gram lands
-// in shared memory afterwards).  The small algebra then runs in shared memory: the
-// complement subtraction and 1/v1 scaling, a ridge (rcond 1e-12 *
-// max(max|diag|, 1)) Cholesky of the (p+1)^2 system on one thread, the
-// 1 + C triangular solves on one thread each, and APA, Q and the
-// symmetrised Wmat in parallel over the C^2 entries.  Everything is f64.
+// registers, each thread owning up to NACC of its m(m+1)/2 entries.  Two
+// instantiations: the narrow one (8 entries a thread: m <= 63, p + 1 <= 8)
+// wherever it fits, and the wide one (19: m <= 98, p + 1 <= 33, so C = 64
+// with 32 covariates).  Every array of the block lives in dynamic shared
+// memory (the full m x m Gram at m = 98 is 77 KB, past the 48 KB a block
+// gets without cudaFuncSetAttribute).  The small algebra then runs in
+// shared memory: the complement subtraction and 1/v1 scaling, a ridge
+// (rcond 1e-12 * max(max|diag|, 1)) Cholesky of the (p+1)^2 system by a
+// warp (lane 0 the pivot, the lanes the column below it: serial on one
+// thread it would be (p+1)^3 / 6 steps at p + 1 = 33), the 1 + C
+// triangular solves on one thread each, and APA, Q and the symmetrised
+// Wmat in parallel over the C^2 entries.  Everything is f64.
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
 constexpr int NT = 256;    // threads per block (one block per variant)
-constexpr int MAXM = 63;   // columns of [A | X | y]: m(m+1)/2 <= NT * NACC
-constexpr int NACC = 8;    // Gram entries per thread
-constexpr int MAXP1 = 8;   // fixed effects p + 1
 constexpr int RC = 16;     // rows per shared-memory chunk
 
+// The two instantiations: m = C + p + 2 columns of [A | X | y], each
+// thread owning NACC of the m(m+1)/2 Gram entries.
+//   narrow: m <= 63, p + 1 <= 8   (NACC = 8)
+//   wide:   m <= 98, p + 1 <= 33  (NACC = 19: 4851 entries)
+constexpr int NACC_NARROW = 8, NACC_WIDE = 19;
+
+// Shared memory of a block, in doubles: the row chunks and then the Gram
+// (m x m, full), the chunk's omega, the (p+1)^2 system, [XKy | AKX^T],
+// AKX and APy.
+__host__ __device__ inline int smem_words(int C, int p) {
+  const int m = C + p + 2, p1 = p + 1;
+  const int buf = m * m > RC * m ? m * m : RC * m;
+  return buf + RC + p1 * p1 + p1 * (C + 1) + C * p1 + C;
+}
+
+template <int NACC>
 __global__ void __launch_bounds__(NT)
 score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                   const double* __restrict__ yt, const double* __restrict__ At,
@@ -54,12 +72,16 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                   const double* __restrict__ v1s, double* __restrict__ Qout,
                   double* __restrict__ Wout, int nrho, int R, int C, int p,
                   int S) {
-  __shared__ double buf[64 * 64];          // row chunks, then the Gram
-  __shared__ double om[RC];
-  __shared__ double sA[MAXP1][MAXP1];       // XKX, then its Cholesky factor
-  __shared__ double sB[MAXP1][MAXM + 1];    // [XKy | AKX^T], then solved
-  __shared__ double sAKX[MAXM][MAXP1];
-  __shared__ double sAPy[MAXM];
+  extern __shared__ __align__(16) unsigned char score_dyn[];
+  const int p1 = p + 1;
+  const int m = C + p1 + 1;
+  double* buf = reinterpret_cast<double*>(score_dyn);  // chunks, then Gram
+  double* om = buf + (m * m > RC * m ? m * m : RC * m);
+  double* sA = om + RC;         // [p1][p1]: XKX, then its Cholesky factor
+  double* sB = sA + p1 * p1;    // [p1][C + 1]: [XKy | AKX^T], then solved
+  double* sAKX = sB + p1 * (C + 1);  // [C][p1]
+  double* sAPy = sAKX + C * p1;      // [C]
+  const int nb = C + 1;
 
   // the gene axis: the phenotype's operands and the outputs by gene
   const int64_t gi = blockIdx.y;
@@ -76,8 +98,6 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
 
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
-  const int p1 = p + 1;
-  const int m = C + p1 + 1;
   const int xo = C;       // first X column of [A | X | y]
   const int yo = C + p1;  // the y column
   const int nent = m * (m + 1) / 2;
@@ -155,40 +175,46 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
     else if (i < p) xx = Wg[(int64_t)i * S + s];
     else if (j < p) xx = Wg[(int64_t)j * S + s];
     else xx = gg[s];
-    sA[i][j] = (xx - buf[(xo + i) * m + xo + j]) / v1;
+    sA[i * p1 + j] = (xx - buf[(xo + i) * m + xo + j]) / v1;
   }
   if (tid < p1) {
     const double xy = tid < p ? Wy[tid] : gy[s];
-    sB[tid][0] = (xy - buf[(xo + tid) * m + yo]) / v1;
+    sB[tid * nb] = (xy - buf[(xo + tid) * m + yo]) / v1;
   }
   for (int idx = tid; idx < C * p1; idx += NT) {
     const int c = idx / p1, i = idx - c * p1;
     const double ax = i < p ? AW[((int64_t)c * p + i) * S + s]
                             : Ag[(int64_t)c * S + s];
     const double v = (ax - buf[c * m + xo + i]) / v1;
-    sAKX[c][i] = v;
-    sB[i][1 + c] = v;
+    sAKX[c * p1 + i] = v;
+    sB[i * nb + 1 + c] = v;
   }
   for (int c = tid; c < C; c += NT)
     sAPy[c] = (Ay[(int64_t)c * S + s] - buf[c * m + yo]) / v1;
   __syncthreads();
 
-  // ridge + Cholesky of the (p+1)^2 system, lower factor in place
-  if (tid == 0) {
+  // ridge + Cholesky of the (p+1)^2 system, lower factor in place, by
+  // warp 0: lane 0 the diagonal, the lanes the column below it
+  if (tid < 32) {
     double dmax = 0.0;
-    for (int i = 0; i < p1; ++i) dmax = fmax(dmax, fabs(sA[i][i]));
+    for (int i = 0; i < p1; ++i) dmax = fmax(dmax, fabs(sA[i * p1 + i]));
     const double ridge = 1e-12 * fmax(dmax, 1.0);
-    for (int i = 0; i < p1; ++i) sA[i][i] += ridge;
+    if (tid < p1) sA[tid * p1 + tid] += ridge;
+    __syncwarp();
     for (int j = 0; j < p1; ++j) {
-      double d = sA[j][j];
-      for (int l = 0; l < j; ++l) d -= sA[j][l] * sA[j][l];
-      d = sqrt(d);
-      sA[j][j] = d;
-      for (int i = j + 1; i < p1; ++i) {
-        double v = sA[i][j];
-        for (int l = 0; l < j; ++l) v -= sA[i][l] * sA[j][l];
-        sA[i][j] = v / d;
+      if (tid == 0) {
+        double d = sA[j * p1 + j];
+        for (int l = 0; l < j; ++l) d -= sA[j * p1 + l] * sA[j * p1 + l];
+        sA[j * p1 + j] = sqrt(d);
       }
+      __syncwarp();
+      const double d = sA[j * p1 + j];
+      for (int i = j + 1 + tid; i < p1; i += 32) {
+        double v = sA[i * p1 + j];
+        for (int l = 0; l < j; ++l) v -= sA[i * p1 + l] * sA[j * p1 + l];
+        sA[i * p1 + j] = v / d;
+      }
+      __syncwarp();
     }
   }
   __syncthreads();
@@ -196,14 +222,14 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   // B = A^{-1} [XKy | AKX^T], one right-hand side per thread
   for (int t = tid; t < 1 + C; t += NT) {
     for (int i = 0; i < p1; ++i) {
-      double v = sB[i][t];
-      for (int l = 0; l < i; ++l) v -= sA[i][l] * sB[l][t];
-      sB[i][t] = v / sA[i][i];
+      double v = sB[i * nb + t];
+      for (int l = 0; l < i; ++l) v -= sA[i * p1 + l] * sB[l * nb + t];
+      sB[i * nb + t] = v / sA[i * p1 + i];
     }
     for (int i = p1 - 1; i >= 0; --i) {
-      double v = sB[i][t];
-      for (int l = i + 1; l < p1; ++l) v -= sA[l][i] * sB[l][t];
-      sB[i][t] = v / sA[i][i];
+      double v = sB[i * nb + t];
+      for (int l = i + 1; l < p1; ++l) v -= sA[l * p1 + i] * sB[l * nb + t];
+      sB[i * nb + t] = v / sA[i * p1 + i];
     }
   }
   __syncthreads();
@@ -213,12 +239,12 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   for (int idx = tid; idx < C * C; idx += NT) {
     const int c = idx / C, d = idx - c * C;
     double v = (AtA[((int64_t)c * C + d) * S + s] - buf[c * m + d]) / v1;
-    for (int i = 0; i < p1; ++i) v -= sAKX[c][i] * sB[i][1 + d];
+    for (int i = 0; i < p1; ++i) v -= sAKX[c * p1 + i] * sB[i * nb + 1 + d];
     buf[c * m + d] = v;
   }
   for (int c = tid; c < C; c += NT) {
     double v = sAPy[c];
-    for (int i = 0; i < p1; ++i) v -= sAKX[c][i] * sB[i][0];
+    for (int i = 0; i < p1; ++i) v -= sAKX[c * p1 + i] * sB[i * nb];
     sAPy[c] = v;
   }
   __syncthreads();
@@ -255,8 +281,16 @@ extern "C" int crm_score_core(const double* Sv, const double* WGt,
                               double* Wmat, int nrho, int R, int C, int p,
                               int S, int genes, cudaStream_t stream) {
   const dim3 grid(S, genes);
-  score_core_kernel<<<grid, NT, 0, stream>>>(Sv, WGt, yt, At, WW, Wy, Wg, gg,
-                                             gy, AW, Ag, Ay, AtA, k_best, v0,
-                                             v1, Q, Wmat, nrho, R, C, p, S);
+  // the narrow instantiation where it fits, else the wide one
+  const bool wide = C + p + 2 > 63 || p + 1 > 8;
+  auto kernel = wide ? score_core_kernel<NACC_WIDE>
+                     : score_core_kernel<NACC_NARROW>;
+  const int smem = (int)sizeof(double) * smem_words(C, p);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, NT, smem, stream>>>(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW,
+                                     Ag, Ay, AtA, k_best, v0, v1, Q, Wmat,
+                                     nrho, R, C, p, S);
   return (int)cudaGetLastError();
 }

@@ -388,6 +388,31 @@ def association_refit_batch(ctx: NullContext, G: torch.Tensor, k_rho: int,
     _, lml, _, beta = reml_converge(S, WG_rot, yt, comp, None, None, None,
                                     br_lo, br_hi, n, newton_f64,
                                     restricted=False)
+    return _best_of_grid_ends(S, WG_rot, yt, comp, None, br_lo, br_hi, n,
+                              lml, beta, lo, hi)
+
+
+def _best_of_grid_ends(S, WGt, yt, comp, k_best, br_lo, br_hi, n, lml, beta,
+                       lo, hi):
+    """The refit's (lml, beta) or the f64 fit at either end of the delta
+    grid, whichever has the larger lml (K3's converge kernel with no steps,
+    at x0 = lo and x0 = hi).
+
+    Under hybrid localization a variant whose ML profile rises flat to the
+    grid's end has its float32 grid argmax at float32 noise: its bracket
+    lies short of the end, and the f64 Newton steps stop at the bracket's
+    edge, up to ~3e-6 below the f64 optimum (the JAX package's
+    ``association_refit_batch`` keeps that shortfall).  A profile that
+    rises to the end of the grid has its grid optimum there, so the f64
+    value at the end repairs it; for any other profile the ends score
+    lower and change nothing."""
+    for end in (lo, hi):
+        _, lml_e, _, beta_e = reml_converge(
+            S, WGt, yt, comp, None, k_best, torch.full_like(br_lo, end),
+            br_lo, br_hi, n, 0, restricted=False)
+        better = lml_e > lml
+        lml = torch.where(better, lml_e, lml)
+        beta = torch.where(better[..., None], beta_e, beta)
     return lml, beta
 
 
@@ -531,7 +556,8 @@ def association_refit_multigene_batch(ctx: NullContext, G: torch.Tensor, k,
     _, lml, _, beta = reml_converge(Sd, WGt, yt, comp, None, k_best, None,
                                     br_lo, br_hi, n, newton_f64,
                                     restricted=False)
-    return lml, beta
+    return _best_of_grid_ends(Sd, WGt, yt, comp, k_best, br_lo, br_hi, n,
+                              lml, beta, lo, hi)
 
 
 def mean_fit(ctx: NullContext, M: torch.Tensor, n: int,

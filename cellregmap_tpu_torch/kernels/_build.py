@@ -7,10 +7,11 @@ first use with
          -Xcompiler -fPIC
 
 into ``cellregmap_tpu_torch/build/`` (ignored by git), keyed by a hash of
-the source and the flags.  Nothing is built at import time.
-:func:`build_all` starts one nvcc per source at once and waits for all of
-them.  Entry points take ``c_void_p`` pointers and the stream, launch on
-it, and return ``cudaGetLastError()``; :func:`check` raises on non-zero.
+the source, the shared headers (``csrc/*.cuh``) and the flags.  Nothing
+is built at import time.  :func:`build_all` starts one nvcc per source at
+once and waits for all of them.  Entry points take ``c_void_p`` pointers
+and the stream, launch on it, and return ``cudaGetLastError()``;
+:func:`check` raises on non-zero.
 """
 from __future__ import annotations
 
@@ -48,7 +49,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and the headers it may include
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

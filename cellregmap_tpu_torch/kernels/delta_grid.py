@@ -44,7 +44,7 @@ from ..ops.linalg import (unrolled_chol_factor, unrolled_chol_logdet,
 
 launches = 0
 
-MAX_FIXED = 16      # p + 1 of the CUDA kernel's small algebra
+MAX_FIXED = 33      # p + 1 of the CUDA kernel's small algebra
 MAX_GENES = 65535   # genes of one launch (a grid axis)
 
 
@@ -160,7 +160,9 @@ def bracket_shortfall(br_lo, br_hi, lml, lo, hi) -> float:
 def _bind(lib):
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.crm_delta_grid.restype = ci
-    lib.crm_delta_grid.argtypes = [vp] * 13 + [cd, cd] + [ci] * 9 + [vp]
+    lib.crm_delta_grid.argtypes = [vp] * 14 + [cd, cd] + [ci] * 9 + [vp]
+    lib.crm_delta_grid_workspace.restype = ctypes.c_int64
+    lib.crm_delta_grid_workspace.argtypes = [ci] * 7
 
 
 def gene_shape(yt):
@@ -245,11 +247,16 @@ def call(lib, S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n, fast,
         # only each gene's slot column is written
         br_lo.fill_(math.nan)
         br_hi.fill_(math.nan)
+    genes, f32 = math.prod(gs), int(fast == torch.float32)
+    # the kernels' scratch: weights, shared and per-variant sums
+    work = torch.empty(lib.crm_delta_grid_workspace(nrho, R, n_grid, p, nS,
+                                                    genes, f32),
+                       dtype=torch.uint8, device=S.device)
     ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp)]
     ptrs += [_build.ptr(ld_xx) if restricted else None,
              None if slot is None else _build.ptr(slot), _build.ptr(br_lo),
-             _build.ptr(br_hi)]
+             _build.ptr(br_hi), _build.ptr(work)]
     _build.check(lib.crm_delta_grid(*ptrs, lo, hi, n_grid, n, nrho, R, p, nS,
-                                    math.prod(gs), int(fast == torch.float32),
-                                    int(restricted), stream), "delta_grid")
+                                    genes, f32, int(restricted), stream),
+                 "delta_grid")
     return br_lo, br_hi

@@ -30,7 +30,7 @@ from ..models.lmm import fast_scan as fast_scan_plain
 
 launches = 0
 
-MAX_FIXED = 16      # p of the CUDA kernel's small algebra
+MAX_FIXED = 32      # p of the CUDA kernel's small algebra
 MAX_SLOTS = 65535   # distinct best rho of one gene-batched launch
 
 

@@ -38,7 +38,7 @@ from ..ops.linalg import (unrolled_chol_factor, unrolled_chol_logdet,
 
 launches = 0
 
-MAX_RHO = 16        # rho points of one localize block (a warp each)
+MAX_RHO = 64        # rho points of a localize block (its warps loop)
 
 
 def _eval(delta, TS, rs, ro, n, R, ld_xx, restricted):

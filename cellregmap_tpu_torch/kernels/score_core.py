@@ -19,9 +19,9 @@ from . import _build
 
 launches = 0
 
-# shape limits of the CUDA kernel (csrc/score_core.cu)
-MAX_COLUMNS = 63   # C + p + 2
-MAX_FIXED = 8      # p + 1
+# shape limits of the CUDA kernel (csrc/score_core.cu, its wide instantiation)
+MAX_COLUMNS = 98   # C + p + 2
+MAX_FIXED = 33     # p + 1
 MAX_GENES = 65535  # genes of one launch (a grid axis)
 
 

@@ -8,12 +8,16 @@ path (the reference's ``chiscore.davies_pvalue``) runs on the host:
 2. an Imhof quadrature when Davies fails;
 3. modified Liu (4-moment chi-squared match) as the last rung.
 
-A NumPy/SciPy port of ``cellregmap_tpu.models.pvalues`` (the ladder as it
-is) plus the port's own copy of ``oracle.imhof_sf``.  The device tails of
-the Liu, saddlepoint and auto methods (mod-Liu and the Kuonen saddlepoint,
-batched over pairs) are :func:`liu_sf_torch` and :func:`saddlepoint_sf_torch`
-here, in torch: the plain versions of the card's kernel
-(``kernels.mixture_tails``).
+A NumPy/SciPy port of ``cellregmap_tpu.models.pvalues`` plus the port's
+own copy of ``oracle.imhof_sf``, with two deep-tail repairs of the
+reference's ladder: a Davies refinement flagged ifault 2 (round-off) is
+accepted only inside a relative band of an independent inversion of the
+tail (:func:`imhof_sf`, which the port extends past Imhof's cancellation
+limit), and a batch result below zero goes through the ladder.  The
+device tails of the Liu, saddlepoint and auto methods (mod-Liu and the
+Kuonen saddlepoint, batched over pairs) are :func:`liu_sf_torch` and
+:func:`saddlepoint_sf_torch` here, in torch: the plain versions of the
+card's kernel (``kernels.mixture_tails``).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import warnings
 import numpy as np
 import torch
 from scipy.integrate import IntegrationWarning, quad
+from scipy.optimize import brentq
 from scipy.special import gammaincc, gammaln
 from scipy.stats import chi2
 
@@ -180,9 +185,12 @@ def saddlepoint_sf_torch(q, lam, n_iters: int = 40):
 def imhof_sf(q, lambdas, epsabs=1e-13, epsrel=1e-11):
     """Pr(Q > q) for Q = sum_i lambda_i chi2_1 by Imhof (1961) inversion.
 
-    Independent of Davies' algorithm.  The quadrature loses absolute
-    accuracy in the far tail (pv < ~1e-7) and for very few distinct
-    eigenvalues; all-equal spectra (a scaled chi2) use the closed form.
+    Independent of Davies' algorithm.  Imhof's form adds the integral to
+    1/2, so it loses absolute accuracy in the far tail (pv < ~1e-7); there
+    (q above twice the mean, a tail below 1e-6) the same inversion runs
+    along a contour shifted to the saddlepoint (:func:`_tail_inversion`),
+    whose integrand is of the tail's own size.  All-equal spectra (a
+    scaled chi2) use the closed form.
     """
     lambdas = np.asarray(lambdas, float)
     lambdas = lambdas[lambdas != 0.0]
@@ -190,6 +198,11 @@ def imhof_sf(q, lambdas, epsabs=1e-13, epsrel=1e-11):
         return 1.0 if q <= 0 else 0.0
     if np.all(lambdas == lambdas[0]) and lambdas[0] > 0:
         return float(chi2.sf(q / lambdas[0], lambdas.size))
+
+    if q > 2.0 * lambdas.sum() and lambdas.max() > 0:
+        tail = _tail_inversion(float(q), lambdas)
+        if np.isfinite(tail) and 0.0 <= tail < 1e-6:
+            return tail
 
     def theta(u):
         return 0.5 * np.sum(np.arctan(lambdas * u)) - 0.5 * q * u
@@ -210,6 +223,50 @@ def imhof_sf(q, lambdas, epsabs=1e-13, epsrel=1e-11):
         val, _ = quad(integrand, 0.0, np.inf, epsabs=epsabs, epsrel=epsrel,
                       limit=2000)
     return float(np.clip(0.5 + val / np.pi, 0.0, 1.0))
+
+
+def _tail_inversion(q, lambdas):
+    """Pr(Q > q), q above the mean, by the inversion integral
+    (1 / pi) int_0^inf Re[exp(K(c + iy) - (c + iy) q) / (c + iy)] dy of
+    the cumulant generating function K(s) = -1/2 sum log(1 - 2 lambda s),
+    on the line Re s = c through the saddlepoint K'(c) = q: there the
+    integrand is of the size of the tail itself, so no 1/2 cancels.  The
+    integrand is h(y) exp(-i y q) with h smooth: the saddle's neighbourhood
+    (100 times the narrowest scale (1 - 2 lambda c) / (2 lambda)) by
+    adaptive quadrature, the rest by QUADPACK's Fourier-integral rule."""
+    lam = lambdas[lambdas > 0]
+    hi = 0.5 / lam.max()
+    kp = lambda t: np.sum(lam / (1.0 - 2.0 * lam * t)) - q  # noqa: E731
+    c = brentq(kp, 0.0, hi * (1.0 - 1e-15), xtol=1e-300, rtol=1e-15,
+               maxiter=500)
+    rest = lambdas[lambdas < 0]
+    K = lambda s: -0.5 * (np.sum(np.log(1.0 - 2.0 * lam * s))  # noqa: E731
+                          + np.sum(np.log(1.0 - 2.0 * rest * s)))
+    Kc = float(np.real(K(c)))
+    h = lambda y: np.exp(K(c + 1j * y) - Kc) / (c + 1j * y)  # noqa: E731
+    y0 = 100.0 * float(np.min((1.0 - 2.0 * lam * c) / (2.0 * lam)))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", IntegrationWarning)
+        near, _ = quad(lambda y: float(np.real(h(y) * np.exp(-1j * y * q))),
+                       0.0, y0, epsabs=0.0, epsrel=1e-9, limit=1000)
+        fc, _ = quad(lambda y: float(np.real(h(y))), y0, np.inf,
+                     weight="cos", wvar=q, limlst=200)
+        fs, _ = quad(lambda y: float(np.imag(h(y))), y0, np.inf,
+                     weight="sin", wvar=q, limlst=200)
+    return math.exp(Kc - c * q) * (near + fc + fs) / math.pi
+
+
+def _flagged_refinement_ok(q, lam, pv_r, pv, acc_ref, cur_acc):
+    """Whether a Davies refinement flagged ifault 2 (round-off possibly
+    significant), requested at ``acc_ref`` (a fraction of the current
+    estimate ``pv``), is kept: only inside a band relative to the current
+    estimate's scale, 2 max(acc_ref, 1e-2 ref), around an independent
+    inversion of the tail, ``ref`` = :func:`imhof_sf`.  (The reference
+    keeps any flagged value within 2 cur_acc of ``pv``: at pv ~ 1e-13 and
+    cur_acc = 1e-8 that band is 1e5 times the estimate.)  ``cur_acc`` is
+    the accuracy the current estimate was computed at."""
+    ref = imhof_sf(float(q), lam)
+    return ref > 0.0 and abs(pv_r - ref) <= 2.0 * max(acc_ref, 1e-2 * ref)
 
 
 def _davies_native(q, lambdas, lim, acc):
@@ -268,8 +325,9 @@ def davies_pvalue(q, weight_matrix=None, lambdas=None, lim=20_000_000,
                 pv = res[0]
                 break
     # tail results are refined at an accuracy proportional to the result;
-    # a round-off-flagged (ifault 2) refinement is accepted only inside the
-    # current estimate's own error band
+    # a round-off-flagged (ifault 2) refinement is kept only inside a
+    # relative band of an independent inversion, else the next finer
+    # accuracy is tried
     if pv is not None and pv < acc * 1e4:
         cur_acc = acc
         for acc_ref in (max(pv * 1e-1, 1e-15), max(pv * 1e-3, 1e-16)):
@@ -281,10 +339,11 @@ def davies_pvalue(q, weight_matrix=None, lambdas=None, lim=20_000_000,
             pv_r, if_r = res
             if not (0.0 < pv_r <= 1.0):
                 break
-            if if_r == 0 or (if_r == 2 and abs(pv_r - pv) <= 2 * cur_acc):
+            if if_r == 0 or (if_r == 2 and _flagged_refinement_ok(
+                    q, lam, pv_r, pv, acc_ref, cur_acc)):
                 pv = pv_r
                 cur_acc = acc_ref
-            else:
+            elif if_r != 2:
                 break
     if pv is None:
         try:
@@ -312,8 +371,9 @@ def davies_pvalue_batch(qs, lambda_rows, lim=20_000_000, acc=1e-8,
     """Davies over many (q, (S, C) zero-padded spectrum) problems.
 
     The native threaded batch first; problems it faults on, and deep-tail
-    results below ~1e4 * acc (large RELATIVE error at an absolute acc), go
-    through the scalar ladder.  Without the library: a Python loop.
+    results below ~1e4 * acc (large RELATIVE error at an absolute acc,
+    negative ones included), go through the scalar ladder.  Without the
+    library: a Python loop.
     """
     qs = np.asarray(qs, float)
     lam = np.asarray(lambda_rows, float)
@@ -327,7 +387,9 @@ def davies_pvalue_batch(qs, lambda_rows, lim=20_000_000, acc=1e-8,
                                      n_threads)
     for i in np.nonzero(fault != 0)[0]:
         pv[i] = ladder(i)
-    for i in np.nonzero((pv >= 0.0) & (pv < acc * 1e4))[0]:
+    # deep-tail results, a result cancelled below zero included, go through
+    # the ladder (the reference's mask, pv >= 0, returned those as they are)
+    for i in np.nonzero(pv < acc * 1e4)[0]:
         pv[i] = ladder(i)
     return pv
 

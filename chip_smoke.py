@@ -65,7 +65,14 @@ Phases, in order; any failure raises and the script exits non-zero:
     stopped after its first gene tile and an interaction scan stopped
     after its first variant batch, each resumed and held equal to a clean
     run;
-14. one JSON line of the kernels, then the result line.
+14. ``covariates_24``: the headline dataset with p = 24 columns of W and
+    21 rho points, 512 variants through ``run_interaction`` (davies),
+    ``run_association_fast`` and ``run_association`` (hK), each with its
+    launch counts (K2, K3, K5 and K8 in their wide instantiations) and its
+    first 64 variants against the CPU at the headline budgets; K2, K3, K5,
+    K7 and K8 at that width against their plain versions; and a p = 33
+    scanner on the card, refused before any setup (the refusal timed);
+15. one JSON line of the kernels, then the result line.
 
 It imports neither jax nor the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -101,6 +108,8 @@ WIDE = dict(n_cells=2000, n_contexts=50, n_donors=100, n_snps=512, seed=2)
 MULTIGENE = dict(genes=16, n_snps=512, seed=9)    # bench.py:479-506
 # bench.py:559-573; the refit phase on the same genes at 512 variants
 ASSOC_MULTIGENE = dict(genes=16, n_snps=2048, refit_snps=512, seed=11)
+# covariates_24: the headline dataset with p = 24 columns of W, 21 rho
+COVARIATES = dict(p=24, n_rho=21, n_snps=512, seed=24)
 BATCH = 512
 GXE_SNP = 7
 CARD = "cuda"          # the device of the main paths
@@ -423,7 +432,7 @@ def _fit_flops(p1, R, problems, deriv_steps):
     return problems * R * (deriv_steps * (7 * ne + 12) + (3 * ne + 4))
 
 
-def check_delta_grid(call, library=True):
+def check_delta_grid(call, library=True, plain_reps=10):
     """K2 (or K7's grid): the kernel against its plain version on one
     call's operands; a bracket may sit on a near-tie neighbour of the
     plain argmax (plain lml within 1e-5 relative of the maximum in
@@ -473,14 +482,15 @@ def check_delta_grid(call, library=True):
         source="cellregmap_tpu_torch/csrc/delta_grid.cu",
         replaces="cellregmap_tpu/engine.py:460", max_abs_err=err,
         ms=cuda_ms(lambda: k2.delta_grid(*args, **kw)),
-        plain_ms=cuda_ms(lambda: k2.delta_grid_plain(*args, **kw)),
+        plain_ms=cuda_ms(lambda: k2.delta_grid_plain(*args, **kw),
+                         reps=plain_reps, warmup=min(2, plain_reps)),
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, flops=flops,
         nbytes=nbytes, bracket_shortfall=gap,
         tolerance=f"plain lml at the kernel's grid point within {tol} "
                   "relative of the plain maximum")
 
 
-def _check_converge(call):
+def _check_converge(call, plain_reps=10):
     """The converge kernel against its plain version; rel errors <= 1e-9.
     Returns (max abs err, ms, plain ms)."""
     import torch
@@ -496,10 +506,26 @@ def _check_converge(call):
         assert rel <= 1e-9, f"reml_converge {name}: rel {rel}"
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     return (err, cuda_ms(lambda: k3.reml_converge(*args, **kw)),
-            cuda_ms(lambda: k3.reml_converge_plain(*args, **kw)))
+            cuda_ms(lambda: k3.reml_converge_plain(*args, **kw),
+                    reps=plain_reps, warmup=min(2, plain_reps)))
 
 
-def check_reml_newton(loc_call, conv_call):
+def _check_refit_converge(calls, plain_reps=10, genes=1):
+    """K7's converge launches of one refit batch (the Newton steps, then
+    the f64 fit at each end of the grid) against their plain versions:
+    (max abs err, ms, plain ms, flops) summed over the launches."""
+    err = ms = plain = flops = 0.0
+    for call in calls:
+        e, m, pl = _check_converge(call, plain_reps)
+        err, ms, plain = max(err, e), ms + m, plain + pl
+        args = call[0]
+        p = args[3].CWW.shape[0]
+        flops += _fit_flops(p + 1, args[0].shape[1],
+                            genes * (args[1].shape[2] - p), args[10])
+    return err, ms, plain, flops
+
+
+def check_reml_newton(loc_call, conv_call, plain_reps=10):
     """K3: localize (k_best equal, x at rel 1e-9, lml at 1e-10) and
     converge (rel 1e-9) against their plain versions."""
     import torch
@@ -518,8 +544,9 @@ def check_reml_newton(loc_call, conv_call):
     err = max(float((x - xp).abs().max()),
               float((lml_all - lml_p)[fin].abs().max()))
     loc_ms = cuda_ms(lambda: k3.reml_localize(*args, **kw))
-    loc_plain = cuda_ms(lambda: k3.reml_localize_plain(*args, **kw))
-    c_err, c_ms, c_plain = _check_converge(conv_call)
+    loc_plain = cuda_ms(lambda: k3.reml_localize_plain(*args, **kw),
+                        reps=plain_reps, warmup=min(2, plain_reps))
+    c_err, c_ms, c_plain = _check_converge(conv_call, plain_reps)
 
     S, WGt, yt, comp = args[:4]
     steps, steps3 = args[8], conv_call[0][10]
@@ -546,7 +573,7 @@ def check_reml_newton(loc_call, conv_call):
                   "1e-10; converge: delta, lml, scale, beta rel <= 1e-9")
 
 
-def check_association_kernels(ctx, G, n):
+def check_association_kernels(ctx, G, n, plain_reps=10):
     """K7 (the ML delta grid and the ML converge of one refit batch) and
     K10 (the null fit over the rho grid) on the headline's Ls context."""
     import torch
@@ -560,14 +587,15 @@ def check_association_kernels(ctx, G, n):
         lambda: engine.association_refit_batch(ctx, G, k_rho, n,
                                                delta_cfg=ASSOC_DELTA_CFG),
         ["delta_grid", "reml_converge"])
-    grid = check_delta_grid(calls["delta_grid"][0], library=False)
-    c_err, c_ms, c_plain = _check_converge(calls["reml_converge"][0])
+    grid = check_delta_grid(calls["delta_grid"][0], library=False,
+                            plain_reps=plain_reps)
+    c_err, c_ms, c_plain, c_flops = _check_refit_converge(
+        calls["reml_converge"], plain_reps)
     cargs = calls["reml_converge"][0][0]
-    S, WGt = cargs[0], cargs[1]
-    R = S.shape[1]
+    WGt = cargs[1]
     p = cargs[3].CWW.shape[0]
     nS = WGt.shape[2] - p
-    flops = grid["flops"] + _fit_flops(p + 1, R, nS, cargs[10])
+    flops = grid["flops"] + c_flops
     b_ms, b_by = bound(flops, grid["nbytes"] + F64 * nS * (p + 2))
     k7 = dict(
         name="association_refit", route="cuda",
@@ -613,6 +641,65 @@ def check_association_kernels(ctx, G, n):
     return [k7, k10_row]
 
 
+def check_wide_kernels(ctx, ctx_assoc, G, n):
+    """K2, K3, K5, K7 and K8 in their wide instantiations (the contexts'
+    p columns of W, nrho rho points) on one batch's operands, each
+    against its plain version with the headline's tolerances: K2, K3 and
+    K5 on the interaction's context ``ctx``, K7 and K8 on the association's
+    ``ctx_assoc``.  Returns their kernel rows, named with the width."""
+    import torch
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import score_core as k5
+
+    p = ctx.W.shape[1]
+    tag = f" (p = {p})"
+    calls = capture_kernel_inputs(
+        lambda: engine.interaction_batch(ctx, G, G, n, delta_cfg=DELTA_CFG),
+        ["delta_grid", "reml_localize", "reml_converge", "score_core"])
+    # the plain versions at this width take seconds a call: timed once
+    k2_row = check_delta_grid(calls["delta_grid"][0], library=False,
+                              plain_reps=1)
+    k3_row = check_reml_newton(calls["reml_localize"][0],
+                               calls["reml_converge"][0], plain_reps=1)
+    (args, _), = calls["score_core"]
+    (Q, Wm), (Qr, Wr) = k5.score_core(*args), k5.score_core_plain(*args)
+    torch.cuda.synchronize()
+    rel = max(float((Q - Qr).abs().max() / Qr.abs().max()),
+              float((Wm - Wr).abs().max() / Wr.abs().max()))
+    assert rel <= 1e-10, f"score_core{tag}: rel {rel}"
+    Sv, At = args[0], args[3]
+    S, R, C = At.shape
+    m = C + p + 2
+    n_k = int(torch.unique(args[13]).numel())
+    b_ms, b_by = bound(S * R * (3 * m * (m + 1) // 2 + 3),
+                       F64 * (S * (R * C + R) + n_k * R * (p + 2)
+                              + S * (C * C + C * (p + 1)) + S * (C + p + 4)
+                              + S * (C * C + 1)))
+    k5_row = dict(
+        name="score_core", route="cuda",
+        source="cellregmap_tpu_torch/csrc/score_core.cu",
+        replaces="cellregmap_tpu/engine.py:234",
+        max_abs_err=max(float((Q - Qr).abs().max()),
+                        float((Wm - Wr).abs().max())),
+        ms=cuda_ms(lambda: k5.score_core(*args)),
+        plain_ms=cuda_ms(lambda: k5.score_core_plain(*args), reps=3,
+                         warmup=1), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, tolerance="Q, Wmat: max|err| <= 1e-10 * max|plain|")
+    k7_row, _ = check_association_kernels(ctx_assoc, G, n, plain_reps=1)
+    k8_row = check_fast_scan(ctx_assoc, G, n, plain_reps=1)
+    rows = [k2_row, k3_row, k5_row, k7_row, k8_row]
+    for r in rows:
+        r["name"] += tag
+        print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
+              f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
+              f"{r['plain_ms']:.4f}  bound_ms {r['bound_ms']:.4f} "
+              f"({r['bound_by']})" + (f"; split {json.dumps(r['split_ms'])}"
+                                      if "split_ms" in r else ""),
+              flush=True)
+    return rows
+
+
 def association_path(label, d, cfg, Ls=None, cpu_check=64):
     """One association main path as a user runs it: ``run_association``
     with hK, or ``scan_association`` on an Ls scanner; launch counts of
@@ -643,7 +730,9 @@ def association_path(label, d, cfg, Ls=None, cpu_check=64):
     counts = kernels.launch_counts()
     assert pv.shape == (n_snps,) and np.all((pv > 0) & (pv <= 1)), \
         f"{label}: p-values outside (0, 1]"
-    want = expected_launches(delta_grid=batches, reml_newton=batches,
+    # K3's converge three times a batch: the Newton steps, then the f64
+    # fit at each end of the grid (engine._best_of_grid_ends)
+    want = expected_launches(delta_grid=batches, reml_newton=3 * batches,
                              null_fit=1)
     assert counts == want, f"{label}: launches {counts} != {want}"
     pv_c, info_c = run(d["G"][:, :cpu_check], "cpu")
@@ -684,7 +773,7 @@ class _EventLog(logging.Handler):
         self._logger.setLevel(self._level)
 
 
-def check_fast_scan(ctx, G, n):
+def check_fast_scan(ctx, G, n, plain_reps=10):
     """K8 on one headline batch of the Ls scanner, at the null's best rho
     and delta: every output within 1e-10 of max|plain|."""
     import torch
@@ -725,7 +814,8 @@ def check_fast_scan(ctx, G, n):
         source="cellregmap_tpu_torch/csrc/fast_scan.cu",
         replaces="cellregmap_tpu/engine.py:1132", max_abs_err=err,
         ms=cuda_ms(lambda: k8.fast_scan(*args, **kw)),
-        plain_ms=cuda_ms(lambda: k8.fast_scan_plain(*args, **kw)),
+        plain_ms=cuda_ms(lambda: k8.fast_scan_plain(*args, **kw),
+                         reps=plain_reps, warmup=min(2, plain_reps)),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library),
         shapes=dict(R=R, p=p, S=nS),
         tolerance="lml, beta_g, beta_W, scale: max|err| <= 1e-10 * "
@@ -1104,6 +1194,103 @@ def scan_size(label, spec, cfg, warmup=True, cpu_check=0):
                                 rho1_identical=True)
     print(f"scan {label}: " + json.dumps(out), flush=True)
     return out, counts, pv, info
+
+
+def covariates_phase(d, cpu_check=64):
+    """``covariates_24``: the headline dataset (2000 cells, 10 contexts, 100
+    donors) with W = [1, 23 columns of N(0, 1) (rng 24)], p = 24, and
+    ``ScanConfig(n_rho=21)``, 512 variants through ``run_interaction``
+    (davies), ``run_association_fast`` and ``run_association`` (hK), each
+    with its launch counts (K2, K3, K5 and K8 in their wide
+    instantiations: p + 1 > 16) and its first ``cpu_check`` variants
+    against the port on the CPU at the headline budgets; then K2, K3, K5,
+    K7 and K8 against their plain versions on the phase's operands; then a
+    p = 33 scanner on the card, refused before any setup."""
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import engine, kernels
+
+    n = len(d["y"])
+    rng = np.random.default_rng(COVARIATES["seed"])
+    W = np.concatenate([np.ones((n, 1)),
+                        rng.normal(size=(n, COVARIATES["p"] - 1))], axis=1)
+    G = d["G"][:, :COVARIATES["n_snps"]]
+    cfg = crp.ScanConfig(snp_batch=BATCH, n_rho=COVARIATES["n_rho"])
+    args = dict(y=d["y"], E=d["E"], W=W, hK=d["hK"], config=cfg)
+    runs = (
+        ("run_interaction", lambda g, dev: crp.run_interaction(
+            G=g, device=dev, **args)),
+        ("run_association_fast", lambda g, dev: crp.run_association_fast(
+            d["y"], W, d["E"], g, hK=d["hK"], config=cfg, device=dev)),
+        ("run_association", lambda g, dev: crp.run_association(
+            d["y"], W, d["E"], g, hK=d["hK"], config=cfg, device=dev)),
+    )
+    want_wide = {"run_interaction": ("delta_grid", "reml_newton",
+                                     "score_core"),
+                 "run_association_fast": ("fast_scan",),
+                 "run_association": ("delta_grid", "reml_newton")}
+    out, counts = dict(p=W.shape[1], n_rho=cfg.n_rho, n_snps=G.shape[1]), {}
+    for name, run in runs:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        pv, info = run(G, CARD)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        counts[name] = c
+        for k in want_wide[name]:
+            assert c[k] > 0, f"covariates_24 {name}: {k} not launched"
+        assert pv.shape == (G.shape[1],) and np.all((pv > 0) & (pv <= 1)), \
+            f"covariates_24 {name}: p-values outside (0, 1]"
+        t0 = time.perf_counter()
+        pv_c, info_c = run(G[:, :cpu_check], "cpu")
+        cpu_s = time.perf_counter() - t0
+        gap = float(np.max(np.abs(pv[:cpu_check] - pv_c)))
+        if name == "run_association_fast":
+            rel = np.abs(pv[:cpu_check] - pv_c) - 1e-5 * np.abs(pv_c)
+            assert float(rel.max()) <= 1e-12, \
+                f"covariates_24 {name}: |gpu - cpu| = {gap}"
+        else:
+            tol = 1e-8 if name == "run_interaction" else 1e-9
+            assert gap <= tol, f"covariates_24 {name}: |gpu - cpu| = {gap}"
+        rho1 = np.asarray(info["rho1"])
+        rho1 = rho1[:cpu_check] if rho1.shape else rho1
+        assert np.array_equal(rho1, np.asarray(info_c["rho1"])), \
+            f"covariates_24 {name}: rho1 differs between the card and CPU"
+        out[name] = dict(e2e_s=e2e_s, tests_per_s=G.shape[1] / e2e_s,
+                         launches={k: v for k, v in c.items() if v},
+                         cpu_check=dict(n=cpu_check, max_abs_pv_diff=gap,
+                                        cpu_s=cpu_s))
+    print("covariates_24: " + json.dumps(out), flush=True)
+
+    # the paths' own contexts: run_interaction takes hK as the K (.) E E^T
+    # background (R = 1010), the association tests as K (R = 110)
+    rho = np.linspace(0.0, 1.0, cfg.n_rho)
+    ctx = engine.build_null_context(
+        d["y"], W, d["E"], Ls=crp.get_L_values(d["hK"], d["E"]),
+        rho_grid=rho, device=CARD)
+    ctx_assoc = engine.build_null_context(d["y"], W, d["E"], hK=d["hK"],
+                                          rho_grid=rho, device=CARD)
+    Gb = torch.as_tensor(G[:, :BATCH], device=CARD).contiguous()
+    rows = check_wide_kernels(ctx, ctx_assoc, Gb, n)
+
+    # a scanner past the card's envelope is refused before any setup
+    W33 = np.concatenate([W, rng.normal(size=(n, 9))], axis=1)
+    t0 = time.perf_counter()
+    try:
+        crp.CellRegMap(y=d["y"], E=d["E"], W=W33, hK=d["hK"], device=CARD)
+    except ValueError as e:
+        refuse_s = time.perf_counter() - t0
+        msg = str(e)
+    else:
+        raise AssertionError("covariates_24: a p = 33 scanner was accepted "
+                             "on the card")
+    assert "32" in msg and "33" in msg, msg
+    assert refuse_s < 0.1, f"covariates_24: the refusal took {refuse_s} s"
+    print(f"covariates_24 refusal (p = 33): {refuse_s * 1e3:.3f} ms: {msg}",
+          flush=True)
+    return out, counts, rows
 
 
 def auto_vs_davies(pv_auto, info_auto, pv_dav, cfg):
@@ -1567,14 +1754,14 @@ def check_refit_genes(ctx_g, G, k, n):
     fin = ~torch.isnan(plo)
     err = max(float((br_lo - plo)[fin].abs().max()),
               float((br_hi - phi)[fin].abs().max()))
-    c_err, c_ms, c_plain = _check_converge(calls["reml_converge"][0])
+    genes = yt.shape[0]
+    c_err, c_ms, c_plain, c_flops = _check_refit_converge(
+        calls["reml_converge"], genes=genes)
     m, R = S.shape
     p = comp.CWW.shape[0]
-    genes, nS = yt.shape[0], WGt.shape[2] - p
+    nS = WGt.shape[2] - p
     shared = nS * (p + 1) + p * (p + 1) // 2 + 1
-    steps = calls["reml_converge"][0][0][10]
-    flops = (2 * K * R * (m * shared + genes * (nS + p + 1))
-             + _fit_flops(p + 1, R, genes * nS, steps))
+    flops = 2 * K * R * (m * shared + genes * (nS + p + 1)) + c_flops
     nbytes = F64 * (WGt.numel() + S.numel() + genes * R
                     + genes * nS * (p + 4) + 2 * 2 * genes * nS
                     + genes * nS * (p + 4))
@@ -1725,7 +1912,7 @@ def assoc_refit_multigene_phase(d, cfg, crm):
     steady_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
     want = expected_launches(null_fit=1, delta_grid=batches,
-                             reml_newton=batches)
+                             reml_newton=3 * batches)
     assert counts == want, \
         f"assoc_refit_multigene_16: launches {counts} != {want}"
     assert pv.shape == (genes, n_snps) and np.all((pv > 0) & (pv <= 1))
@@ -1987,6 +2174,10 @@ def main() -> int:
                             if k in r}), flush=True)
     checkpoint_phase(d, cfg, crm_assoc)
 
+    # --- the card's covariate envelope: p = 24, 21 rho ---
+    _, c_cov, cov_rows = covariates_phase(d)
+    rows += cov_rows
+
     for r in rows:
         if r["name"] == "association_refit":
             r["launches"] = sum(c[k] for c in (c_hk, c_ls)
@@ -2008,6 +2199,15 @@ def main() -> int:
             r["launches"] = c_amg["fast_scan"]
         elif r["name"] == "association_refit (genes)":
             r["launches"] = c_arm["delta_grid"] + c_arm["reml_newton"]
+        elif r["name"].endswith("(p = 24)"):
+            base = r["name"][:-len(" (p = 24)")]
+            if base == "association_refit":
+                c = c_cov["run_association"]
+                r["launches"] = c["delta_grid"] + c["reml_newton"]
+            elif base == "fast_scan":
+                r["launches"] = c_cov["run_association_fast"]["fast_scan"]
+            else:
+                r["launches"] = c_cov["run_interaction"][base]
         else:
             r["launches"] = counts[r["name"]]
         assert r["launches"] > 0, f"{r['name']}: no launch on its path"

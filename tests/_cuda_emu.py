@@ -63,6 +63,7 @@ inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
 inline unsigned char emu_xchg[1024][8];
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __shared__ static
 #define __restrict__
@@ -127,7 +128,9 @@ void emu_launch(F kernel, dim3 grid, dim3 block, cudaStream_t stream,
 """
 
 
-def emulated(name, workdir):
+def emulated(name, workdir, defines=()):
+    """The library of ``csrc/<name>.cu`` built for the emulator in
+    ``workdir``; ``defines`` are extra ``-D`` macro definitions."""
     src = (CSRC / f"{name}.cu").read_text()
     src = src.replace("#include <cuda_runtime.h>", '#include "emu_runtime.h"')
     # dynamic shared memory: a block-wide static buffer of the card's limit
@@ -143,7 +146,9 @@ def emulated(name, workdir):
     cpp.write_text(src)
     lib = workdir / f"lib{name}.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
-                    "-I", str(workdir), "-o", str(lib), str(cpp),
+                    *(f"-D{d}" for d in defines),
+                    "-I", str(workdir), "-I", str(CSRC), "-o", str(lib),
+                    str(cpp),
                     "-lpthread"], check=True, capture_output=True,
                    timeout=300)
     return ctypes.CDLL(str(lib))

@@ -221,7 +221,7 @@ def test_fit_sources_gene_axis(libs, genes):
     assert kb.shape == (genes, 7) and torch.equal(kb, kb_p)
     assert_allclose(x.numpy(), xp.numpy(), rtol=1e-9, atol=1e-9)
     assert_allclose(lml_all.numpy(), lml_p.numpy(), rtol=1e-10)
-    (args, kw), = calls["reml_converge"]
+    (args, kw) = calls["reml_converge"][0]
     got = k3.call_converge(lib, *args, **kw)
     want = k3.reml_converge_plain(*args, **kw)
     for g, w, name in zip(got, want, ("delta", "lml", "scale", "beta")):
@@ -259,7 +259,7 @@ def test_reml_newton_source_matches_plain(libs, p, nrho, f32):
     assert_allclose(x.numpy(), xp.numpy(), rtol=1e-9, atol=1e-9)
     assert_allclose(lml_all.numpy(), lml_p.numpy(), rtol=1e-10)
     for calls in (reml, ml):
-        (args, kw), = calls["reml_converge"]
+        (args, kw) = calls["reml_converge"][0]
         got = k3.call_converge(lib, *args, **kw)
         want = k3.reml_converge_plain(*args, **kw)
         for g, w, name in zip(got, want, ("delta", "lml", "scale", "beta")):

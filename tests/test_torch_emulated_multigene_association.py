@@ -139,7 +139,7 @@ def test_refit_sources_per_gene_rho(libs, f32, p, k):
         gap = k2.bracket_shortfall(br_lo[g, :, s:s + 1], br_hi[g, :, s:s + 1],
                                    lml[g], args[5], args[6])
         assert gap <= (1e-5 if f32 else 1e-12), gap
-    (args, kw), = calls["reml_converge"]
+    (args, kw) = calls["reml_converge"][0]
     assert torch.equal(args[5], torch.as_tensor(slot)[:, None].expand(
         genes, G.shape[1]))
     got = k3.call_converge(libs["reml_newton"], *args, **kw)

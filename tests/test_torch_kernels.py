@@ -157,7 +157,7 @@ def test_refit_plains_match_jax(pW):
         ctx_t, torch.as_tensor(d["G"]), k, d["n"], delta_cfg=cfg),
         ["delta_grid", "reml_converge"])
     (ga, gkw), = calls["delta_grid"]
-    (ca, ckw), = calls["reml_converge"]
+    (ca, ckw) = calls["reml_converge"][0]
     br_lo, br_hi = k2.delta_grid_plain(*ga, **gkw)
     _, lml, _, beta = k3.reml_converge_plain(*ca[:7], br_lo, br_hi, *ca[9:],
                                              **ckw)
@@ -261,19 +261,21 @@ def test_wrappers_refuse_other_devices_without_launching():
 
 
 def test_fit_kernels_reject_too_many_covariates():
-    """p + 1 > 16 is refused on a card tensor, never run by the plain
+    """p + 1 > 33 is refused on a card tensor, never run by the plain
     version."""
-    ctx, G, n = fit_dataset(9, p=16, nrho=2, n=60)
-    calls = captured(lambda: tengine.interaction_batch(ctx, G, G, n),
-                     ["delta_grid"])
+    ctx, G, n = fit_dataset(9, p=33, nrho=2, n=60, S=2)
+    calls = captured(lambda: tengine.association_refit_batch(
+        ctx, G, 0, n, delta_cfg=(-18.0, 18.0, 8, 60), newton_f64=1),
+        ["delta_grid"])
     (args, kw), = calls["delta_grid"]
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
-    with pytest.raises(ValueError, match="p \\+ 1 <= 16"):
+    with pytest.raises(ValueError, match="p \\+ 1 <= 33"):
         k2.delta_grid(*meta, **kw)
 
 
 def test_score_core_rejects_too_many_columns():
-    args = [torch.as_tensor(a) for a in score_inputs(5, C=62)]
+    """C + p + 2 > 98 (the wide instantiation's limit) is refused."""
+    args = [torch.as_tensor(a) for a in score_inputs(5, C=96, n=100, S=2)]
     args = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="C \\+ p \\+ 2"):
         k5.score_core(*args)

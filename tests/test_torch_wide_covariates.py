@@ -1,0 +1,155 @@
+"""The port at the card's covariate envelope against the JAX package, on the
+CPU, and the envelope's refusal at construction.
+
+1. p = 24 columns of W (the intercept and 23 seeded normal columns) and
+   ``ScanConfig(n_rho=21)``, through ``run_association`` and
+   ``run_association_fast`` against the JAX package at the headline
+   budgets (tests/test_torch_association.py,
+   test_torch_fast_association.py): association within 1e-9 absolute,
+   fast association at rtol 1e-5 / atol 1e-12, rho1 identical; through
+   ``run_interaction`` against the package's dense oracle at p = 24 (the
+   JAX engine's program does not compile in a test's time at that width)
+   and against the JAX engine at p = 8 (within 1e-8, rho1 identical);
+2. a scanner on the card whose shape lies past the card's kernels (p > 32
+   columns of W, C > 64 contexts, more than 64 rho points) raises
+   ``ValueError`` naming the limit when it is made, before the null
+   context is built; effect sizes past K9's q = C + rank[W, E] + 2 <= 128
+   raise before the betas context is built.  Without a card, the device
+   is made to read as CUDA (``api._resolve_device``) and the factorizations
+   are replaced by functions that fail the test if called.
+"""
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+import cellregmap_tpu as crt
+import cellregmap_tpu_torch as crp
+from cellregmap_tpu import oracle
+from cellregmap_tpu_torch import api, engine
+
+N_RHO = 21
+
+
+def _data(seed=24, n=90, C=3, S=6, p=24):
+    rng = np.random.default_rng(seed)
+    E = rng.normal(size=(n, C))
+    W = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, p - 1))],
+                       axis=1)
+    G = rng.choice([0.0, 1.0, 2.0], size=(n, S), p=[0.49, 0.42, 0.09])
+    G = (G - G.mean(0)) / G.std(0)
+    hK = rng.normal(size=(n, 8)) / np.sqrt(8)
+    y = (0.5 * rng.normal(size=n) + 0.3 * E @ rng.normal(size=C)
+         + hK @ rng.normal(size=8) + W[:, 1:] @ rng.normal(size=p - 1)
+         + 0.4 * G[:, 2] * E[:, 0])
+    return dict(y=y, W=W, E=E, G=G, hK=hK)
+
+
+def test_interaction_p24_matches_dense_oracle():
+    """At p = 24 the JAX engine's interaction program takes longer than a
+    quarter of an hour to compile on the CPU (its small algebra is unrolled
+    over (p + 1)^3 terms), so the reference is the package's dense oracle,
+    at the JAX suite's own oracle budgets (tests/test_api.py:38-43): rho1
+    identical, Q at rtol 1e-6, p-values within 5e-8."""
+    d = _data()
+    # run_interaction's background from hK: K (.) E E^T
+    pv_o, info_o = oracle.scan_interaction_dense(
+        d["y"], d["W"], d["E"], G=d["G"],
+        Ls=crp.get_L_values(d["hK"], d["E"]),
+        rho_grid=np.linspace(0.0, 1.0, N_RHO))
+    pv_t, info_t = crp.run_interaction(
+        y=d["y"], E=d["E"], G=d["G"], W=d["W"], hK=d["hK"],
+        config=crp.ScanConfig(n_rho=N_RHO), device="cpu")
+    assert np.all((pv_t > 0) & (pv_t <= 1))
+    assert np.array_equal(info_t["rho1"], info_o["rho1"])
+    assert_allclose(info_t["Q"], info_o["Q"], rtol=1e-6)
+    assert_allclose(pv_t, pv_o, rtol=0, atol=5e-8)
+
+
+def test_interaction_p8_matches_jax():
+    """p = 8, past the 8-column limit of K5's narrow instantiation, with 21
+    rho points, against the JAX engine at the headline budget."""
+    d = _data(seed=27, p=8)
+    pv_j, info_j = crt.run_interaction(
+        y=d["y"], E=d["E"], G=d["G"], W=d["W"], hK=d["hK"],
+        config=crt.ScanConfig(n_rho=N_RHO))
+    pv_t, info_t = crp.run_interaction(
+        y=d["y"], E=d["E"], G=d["G"], W=d["W"], hK=d["hK"],
+        config=crp.ScanConfig(n_rho=N_RHO), device="cpu")
+    assert np.array_equal(info_t["rho1"], info_j["rho1"])
+    assert_allclose(pv_t, pv_j, rtol=0, atol=1e-8)
+
+
+def test_association_p24_matches_jax():
+    d = _data(seed=25)
+    cfg = dict(n_rho=N_RHO)
+    pv_j, info_j = crt.run_association(d["y"], d["W"], d["E"], d["G"],
+                                       hK=d["hK"],
+                                       config=crt.ScanConfig(**cfg))
+    pv_t, info_t = crp.run_association(d["y"], d["W"], d["E"], d["G"],
+                                       hK=d["hK"],
+                                       config=crp.ScanConfig(**cfg),
+                                       device="cpu")
+    assert np.array_equal(info_t["rho1"], info_j["rho1"])
+    assert_allclose(pv_t, pv_j, rtol=0, atol=1e-9)
+
+
+def test_fast_association_p24_matches_jax():
+    d = _data(seed=26)
+    cfg = dict(n_rho=N_RHO)
+    pv_j, info_j = crt.run_association_fast(d["y"], d["W"], d["E"], d["G"],
+                                            hK=d["hK"],
+                                            config=crt.ScanConfig(**cfg))
+    pv_t, info_t = crp.run_association_fast(d["y"], d["W"], d["E"],
+                                            d["G"], hK=d["hK"],
+                                            config=crp.ScanConfig(**cfg),
+                                            device="cpu")
+    assert np.array_equal(info_t["rho1"], info_j["rho1"])
+    assert_allclose(pv_t, pv_j, rtol=1e-5, atol=1e-12)
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """The device reads as CUDA; a factorization fails the test."""
+    monkeypatch.setattr(api, "_resolve_device",
+                        lambda device=None: torch.device("cuda"))
+
+    def never(*a, **kw):
+        raise AssertionError("setup ran for a shape the card refuses")
+
+    monkeypatch.setattr(engine, "build_null_context", never)
+    monkeypatch.setattr(engine, "build_betas_context", never)
+
+
+# (p, C, n_rho, the limit named): each past one limit of the envelope
+REFUSED = [(33, 3, 11, "32 covariates"), (2, 65, 11, "64 contexts"),
+           (2, 3, 65, "64 rho grid points")]
+
+
+@pytest.mark.parametrize("p,C,n_rho,limit", REFUSED)
+def test_card_scanner_refused_at_construction(card, p, C, n_rho, limit):
+    d = _data(p=p, C=C, n=120)
+    with pytest.raises(ValueError, match=limit):
+        crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], hK=d["hK"],
+                       config=crp.ScanConfig(n_rho=n_rho))
+    with pytest.raises(ValueError, match=limit):
+        crp.run_interaction(y=d["y"], E=d["E"], G=d["G"], W=d["W"],
+                            hK=d["hK"], config=crp.ScanConfig(n_rho=n_rho))
+
+
+def test_card_scanner_at_the_envelope_is_accepted(card):
+    """p = 32, C = 64 and 64 rho points make a scanner on the card (the
+    null context is built on first use, not here)."""
+    d = _data(p=32, C=64, n=120)
+    crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], hK=d["hK"],
+                         config=crp.ScanConfig(n_rho=64))
+    assert crm.device.type == "cuda" and len(crm._rho_grid) == 64
+
+
+def test_card_effect_sizes_refused_before_setup(card):
+    """C + rank[W, E] + 2 = 60 + 90 + 2 > 128: the effect sizes raise
+    before the betas context is built."""
+    d = _data(p=30, C=60, n=120)
+    crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], hK=d["hK"])
+    with pytest.raises(ValueError, match="q = C \\+ rank"):
+        crm.predict_interaction(d["G"], np.full(d["G"].shape[1], 0.3))
