@@ -28,6 +28,7 @@ from . import engine
 from ._config import DEFAULT_CONFIG, ScanConfig
 from .kernels import delta_grid, reml_newton, score_core, sym_eigvalsh
 from .kernels.delta_grid import MAX_GENES
+from .kernels.null_fit import MAX_FIXED as NULL_FIT_MAX_FIXED
 from .kernels.woodbury_family import MAX_Q
 from .models import pvalues as pv_mod
 from .ops.hadamard import get_L_values
@@ -670,6 +671,13 @@ class CellRegMap:
         # the reduced full-rank design (see engine.BetasContext)
         M = np.concatenate((engine.reduced_design_basis(W, E0), g[:, None]),
                            axis=1)
+        if self._device.type == "cuda" and M.shape[1] > NULL_FIT_MAX_FIXED:
+            # K10 takes at most MAX_FIXED mean columns: refuse before the
+            # null context is built
+            raise ValueError(
+                f"the card's null fit takes rank[W, E] + 1 <= "
+                f"{NULL_FIT_MAX_FIXED} mean columns, got {M.shape[1]}; pass "
+                f"device='cpu' to run this shape on the CPU")
         delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
                      cfg.n_delta_grid, cfg.n_golden_iters)
         fits = engine.mean_fit(self._ctx, self._upload(M), n, True,

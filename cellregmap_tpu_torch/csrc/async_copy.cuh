@@ -19,6 +19,17 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 #endif
 }
 
+// 8 bytes from global to shared memory, both 8-byte aligned
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
+#else
+  std::memcpy(smem, gmem, 8);
+#endif
+}
+
 // close the group of copies issued since the last commit
 __device__ __forceinline__ void cp_async_commit() {
 #ifdef __CUDA_ARCH__
@@ -31,6 +42,14 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
 #ifdef __CUDA_ARCH__
   asm volatile("cp.async.wait_group 0;\n" ::);
+#endif
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 #endif
 }
 

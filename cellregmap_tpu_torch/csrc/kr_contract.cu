@@ -12,90 +12,320 @@
 // f64 flop on 16 MB of input and 41 MB of output: ~250 flop per byte, far
 // above the f64 ridge point (67 TFLOP/s FP64 tensor core / 3.35 TB/s = 20).
 //
-// Design: a tiled GEMM C = U^T B with B = (V o G) of shape (n, p*S) that
-// is never written to device memory.  Each 64 x 64 output tile loops over
-// n in chunks of 16; per chunk the block stages U[n-chunk, k-tile] in
-// shared memory and forms B[n, (j,s)] = V[n, j] * G[n, s] as it loads the
-// B tile into shared memory, so the 8 n p S bytes of the materialized
-// operand (82 MB at the headline) never touch HBM.  Each of 256 threads
-// accumulates a 4 x 4 register micro-tile with FMA (strided by 16, so the
-// shared-memory reads are conflict-free broadcasts).  Loads of U and G are
-// coalesced along k and s.  This is the simple, correct version: no DMMA
-// (mma.sync.m8n8k4.f64), no cp.async/TMA pipeline yet.
+// Design: a tiled product M = U^T (V o G) on the FP64 tensor cores
+// (dmma.cuh, mma.sync m16n8k8: the shape that reaches the card's 67 TFLOP/s
+// with four warps a block).  A block's output tile lies within columns j0,
+// j0 + JB of V and one 32- or 64-wide range of s, so the Khatri-Rao
+// operand is never materialized: the block stages U[cells, k-tile],
+// G[cells, s-tile] and V[cells, j0 .. j0 + JB) and each warp scales its G
+// fragment by V[n, j] as it loads it (the product V G rounded as the plain
+// version's `V[:, j] * G`), so one staged G tile serves JB columns of V.
+//
+// Two kernels, one launch a call, M written once with no scratch:
+// * K > 32 (T = Z^T (E0 o G), the effect sizes' Ua): a 64 (k) x 64 (s)
+//   tile of four warps (2 x 2, each a 32 x 32 x JB sub-tile) over a
+//   three-stage cp.async ring of 32-cell chunks (16-byte copies where the
+//   rows allow, 8-byte ones at odd widths), one barrier a chunk; the
+//   shared rows are padded to 4 mod 16 doubles, so the fragment loads of a
+//   half-warp fall in distinct banks.
+// * K <= 32 (the context Grams: kr_small_kernel below), the cells split
+//   over a block's warps.
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "async_copy.cuh"
+#include "dmma.cuh"
+
 namespace {
 
-constexpr int BM = 64;   // k tile
-constexpr int BN = 64;   // (j, s) column tile
-constexpr int BK = 16;   // cell (n) chunk
-constexpr int TPB = 256; // 16 x 16 threads, 4 x 4 outputs each
-constexpr int TM = 4;
-constexpr int TN = 4;
+// the ring's depth and the columns of V a block takes: the fastest of
+// 16 or 32 cells a chunk, 3 or 4 stages and 1 or 2 columns at the
+// headline's T (an H100 80GB HBM3 at 700 W: 0.555 ms for a 32-cell ring
+// of 3 with 2 columns, 0.61-0.69 ms for the others)
+constexpr int THREADS = 128;  // four warps
+constexpr int NC = 32;        // cells a staged chunk
+constexpr int STAGES = 3;     // chunks in flight
+constexpr int JB_MAX = 2;     // columns of V a large-K block takes
+constexpr int PAD = 4;        // row padding: 4 mod 16 doubles
 
-__global__ void __launch_bounds__(TPB)
+constexpr int WK = 2;          // warps along k
+constexpr int BM = 32 * WK;    // k rows a block
+constexpr int BS = 64;         // s columns a block (two warps)
+constexpr int LDU = BM + PAD;
+constexpr int LDG = BS + PAD;
+constexpr int STAGE = NC * (LDU + LDG);  // doubles, V apart
+
+template <int JB>
+constexpr int smem_doubles() {
+  return STAGES * (STAGE + NC * JB);
+}
+
+// rows [n0, n0 + NC) of a row-major (n, width) matrix, columns [c0, c0 +
+// cols), into a shared tile of leading dimension ld; zero outside
+__device__ __forceinline__ void stage_rows(double* dst, int ld,
+                                           const double* __restrict__ src,
+                                           int n, int width, int n0, int c0,
+                                           int cols, bool vec) {
+  if (vec) {  // width even and src 16-byte aligned: pairs of columns
+    const int pairs = cols / 2;
+    for (int e = threadIdx.x; e < NC * pairs; e += THREADS) {
+      const int r = e / pairs, c = 2 * (e - r * pairs);
+      double* d = dst + r * ld + c;
+      if (n0 + r < n && c0 + c < width) {
+        cp_async16(d, src + (int64_t)(n0 + r) * width + c0 + c);
+      } else {
+        d[0] = 0.0;
+        d[1] = 0.0;
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < NC * cols; e += THREADS) {
+      const int r = e / cols, c = e - r * cols;
+      double* d = dst + r * ld + c;
+      if (n0 + r < n && c0 + c < width)
+        cp_async8(d, src + (int64_t)(n0 + r) * width + c0 + c);
+      else
+        *d = 0.0;
+    }
+  }
+}
+
+template <int JB>
+__global__ void __launch_bounds__(THREADS)
 kr_contract_kernel(const double* __restrict__ U, const double* __restrict__ V,
                    const double* __restrict__ G, double* __restrict__ M,
-                   int n, int K, int p, int S) {
-  __shared__ double As[BK][BM];  // As[kk][m] = U[n0 + kk, k0 + m]
-  __shared__ double Bs[BK][BN];  // Bs[kk][c] = V[n0 + kk, j] * G[n0 + kk, s]
-  const int PS = p * S;
+                   int n, int K, int p, int S, int vec_u, int vec_g) {
+  extern __shared__ __align__(16) unsigned char kr_dyn[];
+  double* sm = reinterpret_cast<double*>(kr_dyn);
+  const int s0 = blockIdx.x * BS;
   const int k0 = blockIdx.y * BM;
-  const int c0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int j0 = blockIdx.z * JB;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk = warp % WK, ws = warp / WK;  // the warp's sub-tile
 
-  double acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0;
+  auto u_tile = [&](int b) { return sm + b * (STAGE + NC * JB); };
+  auto g_tile = [&](int b) { return u_tile(b) + NC * LDU; };
+  auto v_tile = [&](int b) { return u_tile(b) + STAGE; };
 
-  for (int n0 = 0; n0 < n; n0 += BK) {
-    for (int i = tid; i < BK * BM; i += TPB) {
-      const int kk = i / BM, m = i % BM;
-      const int nn = n0 + kk, k = k0 + m;
-      As[kk][m] = (nn < n && k < K) ? U[(int64_t)nn * K + k] : 0.0;
+  auto load = [&](int b, int chunk) {
+    const int n0 = chunk * NC;
+    stage_rows(u_tile(b), LDU, U, n, K, n0, k0, BM, vec_u != 0);
+    stage_rows(g_tile(b), LDG, G, n, S, n0, s0, BS, vec_g != 0);
+    for (int e = threadIdx.x; e < NC * JB; e += THREADS) {
+      const int r = e / JB, jj = e - r * JB;
+      double* d = v_tile(b) + e;
+      if (n0 + r < n && j0 + jj < p)
+        cp_async8(d, V + (int64_t)(n0 + r) * p + j0 + jj);
+      else
+        *d = 0.0;
     }
-    for (int i = tid; i < BK * BN; i += TPB) {
-      const int kk = i / BN, c = i % BN;
-      const int nn = n0 + kk, cc = c0 + c;
-      double b = 0.0;
-      if (nn < n && cc < PS) {
-        const int j = cc / S;
-        const int s = cc - j * S;
-        b = V[(int64_t)nn * p + j] * G[(int64_t)nn * S + s];
+  };
+
+  double acc[JB][2][4][4];
+#pragma unroll
+  for (int jj = 0; jj < JB; ++jj)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[jj][mt][nt][i] = 0.0;
+
+  const int chunks = (n + NC - 1) / NC;
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < chunks) load(c, c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = c + STAGES - 1;
+    if (next < chunks) load(next % STAGES, next);
+    cp_async_commit();
+    const int b = c % STAGES;
+    const double* us = u_tile(b) + wk * 32;
+    const double* gs = g_tile(b) + ws * 32;
+    const double* vs = v_tile(b);
+#pragma unroll
+    for (int step = 0; step < NC / 8; ++step) {
+      const int c8 = step * 8;
+      double a[2][4], bg[4][2], v[JB][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[mt][i] = us[(c8 + t + 4 * (i >> 1)) * LDU + mt * 16 + g +
+                        8 * (i & 1)];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          bg[nt][i] = gs[(c8 + t + 4 * i) * LDG + nt * 8 + g];
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) v[jj][i] = vs[(c8 + t + 4 * i) * JB + jj];
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const double bv[2] = {v[jj][0] * bg[nt][0], v[jj][1] * bg[nt][1]};
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            dmma_m16n8k8(acc[jj][mt][nt], a[mt], bv);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  // d[i] of tile (mt, nt): row mt 16 + g + 8 (i >> 1), column nt 8 + 2t + (i & 1)
+#pragma unroll
+  for (int jj = 0; jj < JB; ++jj)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = k0 + wk * 32 + mt * 16 + g + 8 * (i >> 1);
+          const int sc = s0 + ws * 32 + nt * 8 + 2 * t + (i & 1);
+          const int j = j0 + jj;
+          if (k < K && sc < S && j < p)
+            M[((int64_t)k * p + j) * S + sc] = acc[jj][mt][nt][i];
+        }
+}
+
+// K <= 32 (the context Grams A^T A, A^T W, A^T B: K = C): a block a (32
+// s, JB j) tile of all K rows (MT m16 tiles), its SPLIT warps over the
+// cells, each loading its fragments from global memory (the operands are
+// L2-resident at these widths: G is read once a column group of V) and
+// unrolling the 8-cell steps, so that many independent loads are in
+// flight; the warps' partials are then added in shared memory in warp
+// order, so a result never depends on the schedule (no atomics).  A
+// 64-row tile would leave 84% of it empty at K = 10, and a block that
+// walked all the cells alone would wait on one chunk's latency at a time.
+constexpr int SPLIT = 8;  // warps of a small-K block
+
+template <int MT, int JB>
+constexpr int small_smem_doubles() {
+  return SPLIT * JB * MT * 16 * 32;
+}
+
+template <int MT, int JB>
+__global__ void __launch_bounds__(32 * SPLIT)
+kr_small_kernel(const double* __restrict__ U, const double* __restrict__ V,
+                const double* __restrict__ G, double* __restrict__ M, int n,
+                int K, int p, int S) {
+  extern __shared__ __align__(16) unsigned char kr_small_dyn[];
+  double* red = reinterpret_cast<double*>(kr_small_dyn);
+  constexpr int ROWS = MT * 16;
+  const int s0 = blockIdx.x * 32;
+  const int j0 = blockIdx.y * JB;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int steps = (n + 7) / 8;
+  const int per = (steps + SPLIT - 1) / SPLIT;  // 8-cell steps a warp
+  const int st0 = warp * per, st1 = min(steps, st0 + per);
+
+  double acc[JB][MT][4][4];
+#pragma unroll
+  for (int jj = 0; jj < JB; ++jj)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[jj][mt][nt][i] = 0.0;
+
+#pragma unroll 4
+  for (int st = st0; st < st1; ++st) {
+    const int c8 = st * 8;
+    double a[MT][4], bg[4][2], v[JB][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int nn = c8 + t + 4 * (i >> 1), k = mt * 16 + g + 8 * (i & 1);
+        a[mt][i] = nn < n && k < K ? U[(int64_t)nn * K + k] : 0.0;
       }
-      Bs[kk][c] = b;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int nn = c8 + t + 4 * i;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int sc = s0 + nt * 8 + g;
+        bg[nt][i] = nn < n && sc < S ? G[(int64_t)nn * S + sc] : 0.0;
+      }
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj)
+        v[jj][i] = nn < n && j0 + jj < p ? V[(int64_t)nn * p + j0 + jj] : 0.0;
     }
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      double a[TM], b[TN];
+    for (int jj = 0; jj < JB; ++jj)
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
+      for (int nt = 0; nt < 4; ++nt) {
+        const double bv[2] = {v[jj][0] * bg[nt][0], v[jj][1] * bg[nt][1]};
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+        for (int mt = 0; mt < MT; ++mt)
+          dmma_m16n8k8(acc[jj][mt][nt], a[mt], bv);
+      }
   }
 
+  // d[i] of tile (mt, nt): row mt 16 + g + 8 (i >> 1), column nt 8 + 2t + (i & 1)
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int k = k0 + ty + 16 * i;
-    if (k >= K) continue;
+  for (int jj = 0; jj < JB; ++jj)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < PS) M[(int64_t)k * PS + c] = acc[i][j];
-    }
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = mt * 16 + g + 8 * (i >> 1);
+          const int col = nt * 8 + 2 * t + (i & 1);
+          red[((warp * JB + jj) * ROWS + row) * 32 + col] = acc[jj][mt][nt][i];
+        }
+  __syncthreads();
+  for (int e = threadIdx.x; e < JB * ROWS * 32; e += 32 * SPLIT) {
+    double v = red[e];
+#pragma unroll
+    for (int w = 1; w < SPLIT; ++w) v += red[w * JB * ROWS * 32 + e];
+    const int jj = e / (ROWS * 32), k = (e / 32) % ROWS, s = s0 + e % 32;
+    const int j = j0 + jj;
+    if (k < K && s < S && j < p) M[((int64_t)k * p + j) * S + s] = v;
   }
+}
+
+template <int MT, int JB>
+int launch_small(const double* U, const double* V, const double* G,
+                 double* M, int n, int K, int p, int S, cudaStream_t stream) {
+  auto kernel = kr_small_kernel<MT, JB>;
+  const int bytes = (int)sizeof(double) * small_smem_doubles<MT, JB>();
+  // the shared-memory limit, raised once a process
+  static const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err) return err;
+  const dim3 grid((S + 31) / 32, (p + JB - 1) / JB);
+  kernel<<<grid, 32 * SPLIT, bytes, stream>>>(U, V, G, M, n, K, p, S);
+  return (int)cudaGetLastError();
+}
+
+template <int JB>
+int launch(const double* U, const double* V, const double* G, double* M,
+           int n, int K, int p, int S, cudaStream_t stream) {
+  auto kernel = kr_contract_kernel<JB>;
+  const int bytes = (int)sizeof(double) * smem_doubles<JB>();
+  // the shared-memory limit, raised once a process
+  static const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err) return err;
+  const dim3 grid((S + BS - 1) / BS, (K + BM - 1) / BM, (p + JB - 1) / JB);
+  const int vec_u = K % 2 == 0 && (reinterpret_cast<uintptr_t>(U) & 15) == 0;
+  const int vec_g = S % 2 == 0 && (reinterpret_cast<uintptr_t>(G) & 15) == 0;
+  kernel<<<grid, THREADS, bytes, stream>>>(U, V, G, M, n, K, p, S, vec_u,
+                                           vec_g);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -105,7 +335,12 @@ kr_contract_kernel(const double* __restrict__ U, const double* __restrict__ V,
 extern "C" int crm_kr_contract(const double* U, const double* V,
                                const double* G, double* M, int n, int K,
                                int p, int S, cudaStream_t stream) {
-  const dim3 grid((p * S + BN - 1) / BN, (K + BM - 1) / BM);
-  kr_contract_kernel<<<grid, TPB, 0, stream>>>(U, V, G, M, n, K, p, S);
-  return (int)cudaGetLastError();
+  if (K <= 16)
+    return p >= 2 ? launch_small<1, 2>(U, V, G, M, n, K, p, S, stream)
+                  : launch_small<1, 1>(U, V, G, M, n, K, p, S, stream);
+  if (K <= 32)
+    return p >= 2 ? launch_small<2, 2>(U, V, G, M, n, K, p, S, stream)
+                  : launch_small<2, 1>(U, V, G, M, n, K, p, S, stream);
+  return p >= 2 ? launch<JB_MAX>(U, V, G, M, n, K, p, S, stream)
+                : launch<1>(U, V, G, M, n, K, p, S, stream);
 }

@@ -24,7 +24,8 @@
 // (:608-626, inclusive bounds).  Two entry points:
 //
 //   crm_reml_localize (stages 1b + 2, :628-670): one block per variant,
-//     a warp per rho point at a time.  `steps` steps from the bracket
+//     a warp per rho point at a time (p + 1 < LOC_GEMM_MIN_P1; from there
+//     the product route below, the same steps in another order of sums).  `steps` steps from the bracket
 //     midpoint on the tensors rounded to f32 when round32 (f64 arithmetic
 //     on f32-rounded tensors: the reference's type promotion), then one
 //     f64 REML lml at the localized delta on the unrounded tensors (rss
@@ -48,18 +49,25 @@
 // State x/lo/hi stays in registers across the steps; nothing but the
 // results is written.
 //
-// Instantiations: p + 1 <= 2, 4 and 16 keep each lane's sums and algebra
-// in registers.  The wide one (p + 1 <= 33: up to 3 x 595 sums a problem)
-// gives each warp a workspace in dynamic shared memory (a localize block
-// as many warps as fit, up to 8; a converge block 4):
-// the warp stages 32 rows at a time, each lane owns every 32nd sum and
-// accumulates it over the rows, and the algebra (the factor, A1^{-1} by
-// columns, the trace terms) runs there with the lanes over rows, columns
-// or entries.  A localize block's warps loop over the rho points (up to
-// 64), and its thread 0 takes the argmax over rho.
+// Instantiations: p + 1 <= 2, 4 (localize and converge) and 16 (converge)
+// keep each lane's sums and algebra in registers (a localize block's warps
+// loop over the rho points, up to 64, and its thread 0 takes the argmax
+// over rho).  The wide converge
+// (p + 1 <= 33: up to 3 x 595 sums a problem) gives each warp a workspace
+// in dynamic shared memory (4 warps a block): the warp stages 32 rows at
+// a time, each lane owns every 32nd sum and accumulates it over the rows,
+// and the algebra (the factor, A1^{-1} by columns, the trace terms) runs
+// there with the lanes over rows, columns or entries.  The localize from
+// p + 1 = LOC_GEMM_MIN_P1 up is the product route (below): most of its
+// sums are one product a rho on the FP64 tensor cores, and the same
+// workspace algebra is its epilogue.
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <cfloat>
 #include <cstdint>
+
+#include "async_copy.cuh"
+#include "dmma.cuh"
 
 namespace {
 
@@ -313,13 +321,13 @@ __device__ void derivs(const Problem& pb, double delta, int n, double& Lp,
 // entries.
 // ---------------------------------------------------------------------------
 constexpr int WRC = 32;    // rows of a staged chunk (a lane loads one)
+constexpr int WIDE_P1MAX = 33;  // p + 1 of the widest instantiation
 constexpr int WEPL = 19;   // sums a lane owns: ceil(3 x 595 / 32 / 3)
-// shared memory an SM gives one block (of its 228 KB), less the localize
-// block's static lml_sh: a wide localize block takes as many warps as
-// their workspaces fit (7 at p + 1 = 25, 4 at 33), up to WIDE_LOC_WARPS,
-// whose launch bound leaves each thread the 255 registers its sums need
+// shared memory an SM gives one block (of its 228 KB): a localize
+// epilogue block takes as many warps as their workspaces fit (10 at p + 1
+// = 25, 6 at 33), up to WIDE_LOC_WARPS
 constexpr int SMEM_BLOCK = 227 * 1024 - 1024;
-constexpr int WIDE_LOC_WARPS = 8;
+constexpr int WIDE_LOC_WARPS = 12;
 
 // the workspace of one warp, in doubles, at p + 1 = p1
 __host__ __device__ inline int wide_ne(int p1) {
@@ -327,25 +335,32 @@ __host__ __device__ inline int wide_ne(int p1) {
 }
 __host__ __device__ inline int wide_words(int p1) {
   return WRC * (p1 + 1) + WRC * 3 + 3 * wide_ne(p1) + p1 * (p1 + 1) / 2 +
-         2 * p1 * p1 + 6 * p1;
+         2 * p1 * p1 + 7 * p1;
 }
 
 struct WideWs {
-  double *xs, *wf, *acc, *L, *Ainv, *T2, *vec;
+  double *xs, *wf, *acc, *L, *Ainv, *T2, *vec, *rd;
   int p1, ne;
 };
 
-__device__ WideWs wide_ws(double* base, int p1) {
+// the workspace of one warp with no staged rows (the localize epilogue)
+__host__ __device__ inline int epi_words(int p1) {
+  return wide_words(p1) - WRC * (p1 + 1) - WRC * 3;
+}
+
+// staged: the converge warps' layout, whose rows come first
+__device__ WideWs wide_ws(double* base, int p1, bool staged = true) {
   WideWs w;
   w.p1 = p1;
   w.ne = wide_ne(p1);
-  w.xs = base;                            // [WRC][p1 + 1]: [W, g], y
-  w.wf = w.xs + WRC * (p1 + 1);           // [WRC][3]: the weight families
-  w.acc = w.wf + WRC * 3;                 // [3][ne]: A lower, b, q
+  w.xs = staged ? base : nullptr;         // [WRC][p1 + 1]: [W, g], y
+  w.wf = staged ? w.xs + WRC * (p1 + 1) : nullptr;  // [WRC][3]: weights
+  w.acc = staged ? w.wf + WRC * 3 : base;  // [3][ne]: A lower, b, q
   w.L = w.acc + 3 * w.ne;                 // lower triangle of the factor
   w.Ainv = w.L + p1 * (p1 + 1) / 2;       // [p1][p1]
   w.T2 = w.Ainv + p1 * p1;                // [p1][p1]
   w.vec = w.T2 + p1 * p1;                 // 6 vectors of p1
+  w.rd = w.vec + 6 * p1;                  // 1 / L[i][i]
   return w;
 }
 
@@ -450,7 +465,9 @@ __device__ void normal_eqs_wide(const Problem& pb, const WideWs& ws,
 }
 
 // ridge Cholesky of family 0's A into ws.L (the order of chol above),
-// the lanes over the rows of each column
+// the lanes over the rows of each column; ws.rd the reciprocals of its
+// diagonal, so that the solves multiply (a division is a long dependent
+// sequence on the card; the solves' chains would wait on p1 of them)
 __device__ void chol_wide(const WideWs& ws) {
   const int lane = threadIdx.x % 32, p1 = ws.p1;
   const double* A = ws.acc;
@@ -463,32 +480,71 @@ __device__ void chol_wide(const WideWs& ws) {
       double v = A[tri(j, j)] + ridge;
       for (int k = 0; k < j; ++k) v -= L[tri(j, k)] * L[tri(j, k)];
       L[tri(j, j)] = sqrt(v);
+      ws.rd[j] = 1.0 / L[tri(j, j)];
     }
     __syncwarp();
     for (int i = j + 1 + lane; i < p1; i += 32) {
       double v = A[tri(i, j)];
       for (int k = 0; k < j; ++k) v -= L[tri(i, k)] * L[tri(j, k)];
-      L[tri(i, j)] = v / L[tri(j, j)];
+      L[tri(i, j)] = v * ws.rd[j];
     }
     __syncwarp();
   }
 }
 
-// x = A^{-1} v through ws.L (x may alias v); one lane's work
-__device__ void solve_wide(const WideWs& ws, const double* v, double* x,
-                           int stride = 1) {
-  const int p1 = ws.p1;
+// X = A^{-1} V through ws.L and ws.rd for nb <= NB columns at once, v(i, c)
+// the right-hand side and out(i, c, value) the solution's sink, on the
+// whole warp: the lanes over the rows (row lane, and lane + 32 at p1 =
+// 33), the columns in registers, each substitution step's pivot
+// broadcast by a shuffle.  (One lane's substitution through a column in
+// shared memory made each of its ~p1^2 steps wait on the load of the
+// element the step before stored: ~20k cycles a solve at p1 = 25 on an
+// H100 80GB HBM3.)
+template <int NB, class Vf, class Of>
+__device__ void solve_warp(const WideWs& ws, int nb, Vf v, Of out) {
+  const int lane = threadIdx.x % 32, p1 = ws.p1;
+  const int r0 = lane, r1 = lane + 32;
   const double* L = ws.L;
-  for (int i = 0; i < p1; ++i) {
-    double t = v[i * stride];
-    for (int k = 0; k < i; ++k) t -= L[tri(i, k)] * x[k * stride];
-    x[i * stride] = t / L[tri(i, i)];
+  double t0[NB], t1[NB];
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    t0[c] = c < nb && r0 < p1 ? v(r0, c) : 0.0;
+    t1[c] = c < nb && r1 < p1 ? v(r1, c) : 0.0;
   }
-  for (int i = p1 - 1; i >= 0; --i) {
-    double t = x[i * stride];
-    for (int k = i + 1; k < p1; ++k) t -= L[tri(k, i)] * x[k * stride];
-    x[i * stride] = t / L[tri(i, i)];
+  for (int k = 0; k < p1; ++k) {  // L y = v, by columns of L
+    const double rk = ws.rd[k];
+    const double l0 = r0 > k && r0 < p1 ? L[tri(r0, k)] : 0.0;
+    const double l1 = r1 > k && r1 < p1 ? L[tri(r1, k)] : 0.0;
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      const double xk = (k < 32 ? __shfl_sync(FULL, t0[c], k)
+                                : __shfl_sync(FULL, t1[c], k - 32)) * rk;
+      if (r0 == k) t0[c] = xk;
+      else if (r0 > k) t0[c] -= l0 * xk;
+      if (r1 == k) t1[c] = xk;
+      else if (r1 > k) t1[c] -= l1 * xk;
+    }
   }
+  for (int k = p1 - 1; k >= 0; --k) {  // L^T x = y, by rows of L
+    const double rk = ws.rd[k];
+    const double l0 = r0 < k ? L[tri(k, r0)] : 0.0;
+    const double l1 = r1 < k ? L[tri(k, r1)] : 0.0;
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      const double xk = (k < 32 ? __shfl_sync(FULL, t0[c], k)
+                                : __shfl_sync(FULL, t1[c], k - 32)) * rk;
+      if (r0 == k) t0[c] = xk;
+      else if (r0 < k) t0[c] -= l0 * xk;
+      if (r1 == k) t1[c] = xk;
+      else if (r1 < k) t1[c] -= l1 * xk;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    if (c < nb && r0 < p1) out(r0, c, t0[c]);
+    if (c < nb && r1 < p1) out(r1, c, t1[c]);
+  }
+  __syncwarp();
 }
 
 // out = A x for family f's symmetric A; the lanes over rows
@@ -512,14 +568,47 @@ __device__ double dot_wide(const double* a, const double* b, int p1) {
   return warp_sum(v);
 }
 
+// C = A B for (p1 x p1) operands on the FP64 tensor cores, the whole warp:
+// a(r, k), b(k, c) the operands' entries, out(r, c, value) the sink; tiles
+// of 16 x 8, 8 deep, zero past p1 (the loops are warp-uniform, as mma.sync
+// needs)
+template <class Af, class Bf, class Of>
+__device__ void warp_gemm(int p1, Af af, Bf bf, Of out) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, tq = lane & 3;
+  for (int m0 = 0; m0 < p1; m0 += 16)
+    for (int n0 = 0; n0 < p1; n0 += 8) {
+      double d[4] = {0.0, 0.0, 0.0, 0.0};
+      for (int k0 = 0; k0 < p1; k0 += 8) {
+        double a[4], b[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = m0 + g + 8 * (i & 1), c = k0 + tq + 4 * (i >> 1);
+          a[i] = r < p1 && c < p1 ? af(r, c) : 0.0;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int k = k0 + tq + 4 * i, c = n0 + g;
+          b[i] = k < p1 && c < p1 ? bf(k, c) : 0.0;
+        }
+        dmma_m16n8k8(d, a, b);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = m0 + g + 8 * (i >> 1), c = n0 + 2 * tq + (i & 1);
+        if (r < p1 && c < p1) out(r, c, d[i]);
+      }
+    }
+  __syncwarp();
+}
+
+// (L', L'') from the three families' normal equations in ws.acc (the
+// algebra of derivs above, the lanes over rows, columns or entries)
 template <bool REML>
-__device__ void derivs_wide(const Problem& pb, double delta, int n,
-                            double& Lp, double& Lpp) {
+__device__ void derivs_tail_wide(const WideWs& ws, int R, int n,
+                                 double delta, double sum_ew,
+                                 double sum_e2w2, double& Lp, double& Lpp) {
   const int lane = threadIdx.x % 32;
-  const WideWs ws = wide_ws(pb.ws, pb.p + 1);
   const int p1 = ws.p1, ne = ws.ne, ntri = p1 * (p1 + 1) / 2;
-  double sum_ew, sum_e2w2;
-  normal_eqs_wide<3>(pb, ws, delta, sum_ew, sum_e2w2);
   const double *b1 = ws.acc + ntri, *b2 = ws.acc + ne + ntri,
                *b3 = ws.acc + 2 * ne + ntri;
   const double q1 = ws.acc[ne - 1], q2 = ws.acc[2 * ne - 1],
@@ -527,15 +616,15 @@ __device__ void derivs_wide(const Problem& pb, double delta, int n,
   double *beta = ws.vec, *A2b = beta + p1, *A3b = A2b + p1, *t = A3b + p1,
          *beta_p = t + p1, *A2bp = beta_p + p1;
   chol_wide(ws);
-  if (lane == 0) solve_wide(ws, b1, beta);
-  __syncwarp();
+  solve_warp<1>(ws, 1, [&](int i, int) { return b1[i]; },
+                [&](int i, int, double x) { beta[i] = x; });
   double rss = fmax(q1 - dot_wide(b1, beta, p1), DBL_MIN);
   sym_mv_wide(ws, 1, beta, A2b);
   sym_mv_wide(ws, 2, beta, A3b);
   for (int j = lane; j < p1; j += 32) t[j] = A2b[j] - b2[j];
   __syncwarp();
-  if (lane == 0) solve_wide(ws, t, beta_p);
-  __syncwarp();
+  solve_warp<1>(ws, 1, [&](int i, int) { return t[i]; },
+                [&](int i, int, double x) { beta_p[i] = x; });
   sym_mv_wide(ws, 1, beta_p, A2bp);
   const double s_b2b = dot_wide(b2, beta, p1);
   const double s_bA2b = dot_wide(beta, A2b, p1);
@@ -546,7 +635,7 @@ __device__ void derivs_wide(const Problem& pb, double delta, int n,
   const double rss_p = -q2 + 2 * s_b2b - s_bA2b;
   const double rss_pp =
       2 * q3 - 4 * s_b3b + 2 * s_b2bp - 2 * s_bA2bp + 2 * s_bA3b;
-  const int nR = n - pb.R;
+  const int nR = n - R;
   const double i1 = 1.0 / delta;
   const double ld_p = sum_ew + nR * i1;
   const double ld_pp = -sum_e2w2 - nR * (i1 * i1);
@@ -556,25 +645,33 @@ __device__ void derivs_wide(const Problem& pb, double delta, int n,
     Lpp = -0.5 * (n * (rss_pp / rss - u * u) + ld_pp);
     return;
   }
-  // A1^{-1} by columns (a lane a column), then T2 = A1^{-1} A2
-  double *Ainv = ws.Ainv, *T2 = ws.T2;
+  // A1^{-1} = X^T X with X = L^{-1} (a lane a column of X, forward from
+  // its diagonal: half a solve), then T2 = A1^{-1} A2, both products on
+  // the tensor cores; X is held in T2's storage until then
+  double *Ainv = ws.Ainv, *T2 = ws.T2, *X = ws.T2;
   for (int kc = lane; kc < p1; kc += 32) {
-    for (int i = 0; i < p1; ++i) Ainv[i * p1 + kc] = i == kc ? 1.0 : 0.0;
-    solve_wide(ws, Ainv + kc, Ainv + kc, p1);
+    for (int i = 0; i < kc; ++i) X[i * p1 + kc] = 0.0;
+    X[kc * p1 + kc] = ws.rd[kc];
+    for (int i = kc + 1; i < p1; ++i) {
+      double t = 0.0;
+      for (int k = kc; k < i; ++k) t -= ws.L[tri(i, k)] * X[k * p1 + kc];
+      X[i * p1 + kc] = t * ws.rd[i];
+    }
   }
   __syncwarp();
+  warp_gemm(
+      p1, [&](int r, int c) { return X[c * p1 + r]; },
+      [&](int k, int c) { return X[k * p1 + c]; },
+      [&](int r, int c, double v) { Ainv[r * p1 + c] = v; });
   const double *A2 = ws.acc + ne, *A3 = ws.acc + 2 * ne;
   auto full = [&](const double* A, int i, int j) {
     return A[i >= j ? tri(i, j) : tri(j, i)];
   };
   double tr2 = 0, tr3 = 0, tr2sq = 0;
-  for (int e = lane; e < p1 * p1; e += 32) {
-    const int i = e / p1, j = e - i * p1;
-    double v = 0;
-    for (int k = 0; k < p1; ++k) v += Ainv[i * p1 + k] * full(A2, k, j);
-    T2[e] = v;
-  }
-  __syncwarp();
+  warp_gemm(
+      p1, [&](int r, int c) { return Ainv[r * p1 + c]; },
+      [&](int k, int c) { return full(A2, k, c); },
+      [&](int r, int c, double v) { T2[r * p1 + c] = v; });
   for (int i = lane; i < p1; i += 32) {
     tr2 += T2[i * p1 + i];
     for (int k = 0; k < p1; ++k) tr3 += Ainv[i * p1 + k] * full(A3, k, i);
@@ -592,20 +689,28 @@ __device__ void derivs_wide(const Problem& pb, double delta, int n,
   Lpp = -0.5 * (nu * (rss_pp / rss - u * u) + ld_pp + 2 * tr3 - tr2sq);
 }
 
-// The fit at delta: (lml, rss, beta in ws.vec) with the objective's rss
+template <bool REML>
+__device__ void derivs_wide(const Problem& pb, double delta, int n,
+                            double& Lp, double& Lpp) {
+  const WideWs ws = wide_ws(pb.ws, pb.p + 1);
+  double sum_ew, sum_e2w2;
+  normal_eqs_wide<3>(pb, ws, delta, sum_ew, sum_e2w2);
+  derivs_tail_wide<REML>(ws, pb.R, n, delta, sum_ew, sum_e2w2, Lp, Lpp);
+}
+
+// The fit at delta from family 0's normal equations in ws.acc and
+// logd = sum log d: (lml, rss, beta in ws.vec) with the objective's rss
 // floor, on every lane
 template <bool REML, bool FLOOR_Q>
-__device__ double fit_at_wide(const Problem& pb, double delta, int n,
-                              double ld_xx, double& rss_out, bool& rss_bad) {
+__device__ double fit_tail_wide(const WideWs& ws, int R, double delta, int n,
+                                double ld_xx, double logd, double& rss_out,
+                                bool& rss_bad) {
   const int lane = threadIdx.x % 32;
-  const WideWs ws = wide_ws(pb.ws, pb.p + 1);
   const int p1 = ws.p1, ntri = p1 * (p1 + 1) / 2;
-  double logd, unused;
-  normal_eqs_wide<1>(pb, ws, delta, logd, unused);
   chol_wide(ws);
   double* beta = ws.vec;
-  if (lane == 0) solve_wide(ws, ws.acc + ntri, beta);
-  __syncwarp();
+  solve_warp<1>(ws, 1, [&](int i, int) { return ws.acc[ntri + i]; },
+                [&](int i, int, double x) { beta[i] = x; });
   const double q = ws.acc[ws.ne - 1];
   double rss = q - dot_wide(ws.acc + ntri, beta, p1);
   rss_bad = rss <= 128 * DBL_EPSILON * q;
@@ -613,7 +718,7 @@ __device__ double fit_at_wide(const Problem& pb, double delta, int n,
   rss = fmax(rss, DBL_MIN);
   rss_out = rss;
   const double two_pi = 6.283185307179586;
-  const double logdet_d = logd + (n - pb.R) * log(delta);
+  const double logdet_d = logd + (n - R) * log(delta);
   if (!REML) return -0.5 * (n * log(two_pi * rss / n) + logdet_d + n);
   double logdet_a = 0;
   for (int i = 0; i < p1; ++i) logdet_a += log(ws.L[tri(i, i)]);
@@ -621,6 +726,16 @@ __device__ double fit_at_wide(const Problem& pb, double delta, int n,
   const double nu = n - p1;
   return -0.5 * (nu * log(two_pi * rss / nu) + logdet_d + logdet_a - ld_xx +
                  nu);
+}
+
+template <bool REML, bool FLOOR_Q>
+__device__ double fit_at_wide(const Problem& pb, double delta, int n,
+                              double ld_xx, double& rss_out, bool& rss_bad) {
+  const WideWs ws = wide_ws(pb.ws, pb.p + 1);
+  double logd, unused;
+  normal_eqs_wide<1>(pb, ws, delta, logd, unused);
+  return fit_tail_wide<REML, FLOOR_Q>(ws, pb.R, delta, n, ld_xx, logd,
+                                      rss_out, rss_bad);
 }
 
 // `steps` safeguarded Newton steps; lane 0's iterate is the warp's
@@ -728,12 +843,11 @@ __device__ double final_fit(const Problem& pb, double delta, int n,
 }
 
 // A block per variant; its warps loop over the rho points (warp w takes
-// w, w + warps, ...), and the argmax over rho is taken in the block.
-// P1MAX == 0: the wide path, each warp with its workspace in dynamic
-// shared memory.
+// w, w + warps, ...), and the argmax over rho is taken in the block: the
+// register instantiations (p + 1 < LOC_GEMM_MIN_P1).  The wider localize
+// is the product route below.
 template <int P1MAX>
-__global__ void __launch_bounds__(32 * (P1MAX == 0 ? WIDE_LOC_WARPS
-                                                   : LOC_MAX_WARPS))
+__global__ void __launch_bounds__(32 * LOC_MAX_WARPS)
 localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                 const double* __restrict__ yt, const double* __restrict__ CWW,
                 const double* __restrict__ CWy, const double* __restrict__ Cyy,
@@ -744,7 +858,6 @@ localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                 const double* __restrict__ br_hi, double* __restrict__ x_out,
                 double* __restrict__ lml_out, int64_t* __restrict__ k_best,
                 int n, int nrho, int R, int p, int nS, int steps, int r32) {
-  extern __shared__ __align__(16) unsigned char loc_dyn[];
   __shared__ double lml_sh[MAX_RHO];
   // the gene axis: phenotype operands and outputs offset by gene
   const int64_t gi = blockIdx.y;
@@ -760,20 +873,17 @@ localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   const int s = blockIdx.x;
   const int warp = threadIdx.x / 32, warps = blockDim.x / 32;
   const int lane = threadIdx.x % 32;
-  double* ws = P1MAX == 0 ? reinterpret_cast<double*>(loc_dyn) +
-                                (int64_t)warp * wide_words(p + 1)
-                          : nullptr;
   for (int o = warp; o < nrho; o += warps) {
     const int64_t so = (int64_t)s * nrho + o;
     double lo = br_lo[so], hi = br_hi[so];
     double x = 0.5 * (lo + hi);
     // stage 1b: Newton on the (possibly f32-rounded) tensors
     Problem pb = make_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, o,
-                              s, R, p, nS, r32 != 0, ws);
+                              s, R, p, nS, r32 != 0, nullptr);
     newton<P1MAX, true>(pb, n, steps, x, lo, hi);
     // stage 2: one f64 evaluation on the unrounded tensors
     pb = make_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, o, s, R, p,
-                      nS, false, ws);
+                      nS, false, nullptr);
     double rss;
     bool bad;
     double lml = final_fit<P1MAX, true, false>(pb, sigmoid(x), n, ld_xx[s],
@@ -797,6 +907,517 @@ localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
       }
     k_best[s] = kb;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The product route of the localize (p + 1 >= LOC_GEMM_MIN_P1, up to 33).
+//
+// Of a problem's 3 x (p + 2)(p + 3)/2 weighted sums, those over the pairs of
+// [W, y] (W W, W y, y y: 325 of 351 at p = 24) are, for every variant at
+// one rho, the same row products P_o[r, ab] = rnd(x_a x_b) under the
+// problem's own weights: sum_r w_f[s, o, r] P_o[r, ab].  So each Newton
+// step is, per rho, one product of the (3 S x R) weights and the (R x
+// npp) pairs on the FP64 tensor cores (loc_gemm_kernel; 2.1e10 flop a step
+// at p = 24, 21 rho, 512 variants), with the weights made in the A
+// fragments from the problem's delta and the staged eigenvalue rows (one
+// division a (variant, row) for the three families) and P_o staged by a
+// cp.async ring.  The p + 2 sums with the genotype (W g, g g, g y) and the
+// log-determinant sums are a pass of their own (loc_gsums_kernel, a lane a
+// variant, warps over the pairs).  The algebra of each problem and its
+// safeguarded update are the epilogue (loc_epilogue_kernel, a warp a
+// problem, the wide workspace code above).  P_o is formed once a call
+// (rounded to f32 for the steps when round32, and unrounded for the final
+// f64 evaluation), per gene of a gene-batched call; a gene's launches run
+// one after another from crm_reml_localize, with no host between them.
+// The scratch (P, the sums, the bracket state) is one allocation, sized by
+// crm_reml_localize_workspace.  What bounds it: the pair product is
+// operations on the tensor cores; the genotype's pass and the epilogue
+// (the Cholesky's column steps, the substitutions) are latency, a warp a
+// problem, with as many warps an SM as their workspaces fit.  Rounding
+// points are those of the plain version: f64 arithmetic on f32-rounded S,
+// e, e2, products and complements when round32; the order of the sums
+// differs, and the substitutions multiply by 1 / L[i][i] where the plain
+// version divides, and form A1^{-1} as X^T X with X = L^{-1}.
+// ---------------------------------------------------------------------------
+constexpr int LOC_GEMM_MIN_P1 = 5;  // p + 1 from which the route is taken
+#ifndef CRM_LOC_GEMM_WARPS  // the emulated tests build with fewer
+#define CRM_LOC_GEMM_WARPS 4
+#endif
+constexpr int GW = CRM_LOC_GEMM_WARPS;  // warps of a product block
+constexpr int GV = 16 * GW;         // variants of a product block
+constexpr int PT = 32;              // pairs of a product block
+constexpr int GRC = 32;             // rows of a staged chunk
+constexpr int GSTAGES = 3;          // chunks in flight
+constexpr int LDP = PT + 4;         // 4 mod 16 doubles: no bank conflicts
+constexpr int GPASS_WARPS = 8;      // warps of a genotype-pass block
+
+__host__ __device__ inline int loc_npp(int p) {  // pairs of [W, y]
+  return (p + 1) * (p + 2) / 2;
+}
+__host__ __device__ inline int loc_nppad(int p) {
+  return (loc_npp(p) + PT - 1) / PT * PT;
+}
+__host__ __device__ inline int loc_gs(int p) {  // a problem's genotype sums
+  return 3 * (p + 2) + 2;
+}
+
+// the scratch, in doubles
+struct LocLayout {
+  int64_t p32, p64, sum, gs, lo, hi, total;
+};
+
+inline LocLayout loc_layout(int nrho, int R, int p, int nS, bool r32) {
+  LocLayout L;
+  const int64_t np = (int64_t)nrho * R * loc_nppad(p);
+  const int64_t probs = (int64_t)nS * nrho;
+  L.p32 = 0;
+  L.p64 = r32 ? np : 0;
+  L.sum = r32 ? 2 * np : np;
+  L.gs = L.sum + probs * 3 * loc_nppad(p);
+  L.lo = L.gs + probs * loc_gs(p);
+  L.hi = L.lo + probs;
+  L.total = L.hi + probs;
+  return L;
+}
+
+// P[o, r, e] = x_a x_b over the pairs e = tri(a, b) of [W, y] (zero past
+// npp), rounded to f32 into P32 when r32 (P64 the unrounded products)
+__global__ void loc_products_kernel(const double* __restrict__ WGt,
+                                    const double* __restrict__ yt,
+                                    double* __restrict__ P32,
+                                    double* __restrict__ P64, int R, int p,
+                                    int nS, int r32) {
+  const int o = blockIdx.y;
+  const int npp = loc_npp(p), nppad = loc_nppad(p);
+  const int64_t total = (int64_t)R * nppad;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int r = (int)(i / nppad), e = (int)(i - (int64_t)r * nppad);
+    double v = 0.0;
+    if (e < npp) {
+      int a = 0;
+      while ((a + 1) * (a + 2) / 2 <= e) ++a;
+      const int b = e - a * (a + 1) / 2;
+      const double* row = WGt + ((int64_t)o * R + r) * (p + nS);
+      const double yv = yt[(int64_t)o * R + r];
+      v = (a < p ? row[a] : yv) * (b < p ? row[b] : yv);
+    }
+    const int64_t at = (int64_t)o * total + i;
+    if (r32) {
+      P32[at] = (double)(float)v;
+      P64[at] = v;
+    } else {
+      P32[at] = v;
+    }
+  }
+}
+
+// the bracket state: x at the midpoint of each (s, o) problem's bracket
+__global__ void loc_init_kernel(const double* __restrict__ br_lo,
+                                const double* __restrict__ br_hi,
+                                double* __restrict__ x,
+                                double* __restrict__ lo,
+                                double* __restrict__ hi, int64_t probs) {
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i >= probs) return;
+  lo[i] = br_lo[i];
+  hi[i] = br_hi[i];
+  x[i] = 0.5 * (br_lo[i] + br_hi[i]);
+}
+
+// sum[o, s, f, e] = sum_r w_f(delta_so, S_or) P[o, r, e]: a block a (64
+// variants, 32 pairs, rho), a warp 16 variants x NF families x 32 pairs
+template <int NF>
+__global__ void __launch_bounds__(32 * GW)
+loc_gemm_kernel(const double* __restrict__ Sv, const double* __restrict__ P,
+                const double* __restrict__ x, double* __restrict__ sum,
+                int nrho, int R, int p, int nS, int r32) {
+  __align__(16) __shared__ double ps[GSTAGES][GRC * LDP];
+  __shared__ double srow[GSTAGES][3][GRC];  // S, e, e2 of the chunk's rows
+  const int nppad = loc_nppad(p);
+  const int e0 = blockIdx.x * PT;
+  const int o = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int sw = blockIdx.y * GV + warp * 16;  // the warp's first variant
+  const bool active = sw < nS;                 // warp-uniform
+  const double* Po = P + (int64_t)o * R * nppad;
+  const double* So = Sv + (int64_t)o * R;
+  // the deltas of the warp's rows g and g + 8 (a variant past nS: any)
+  double dl[2], om[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int sv = min(sw + g + 8 * h, nS - 1);
+    dl[h] = sigmoid(x[(int64_t)sv * nrho + o]);
+    om[h] = 1.0 - dl[h];
+  }
+
+  auto load = [&](int b, int chunk) {
+    const int r0 = chunk * GRC;
+    for (int i = threadIdx.x; i < GRC * PT / 2; i += 32 * GW) {
+      const int rr = i / (PT / 2), c = 2 * (i - rr * (PT / 2));
+      double* d = &ps[b][rr * LDP + c];
+      if (r0 + rr < R) {
+        cp_async16(d, Po + (int64_t)(r0 + rr) * nppad + e0 + c);
+      } else {
+        d[0] = 0.0;
+        d[1] = 0.0;
+      }
+    }
+    for (int rr = threadIdx.x; rr < GRC; rr += 32 * GW) {
+      const double Sr = r0 + rr < R ? So[r0 + rr] : 1.0;  // e = 0 past R
+      srow[b][0][rr] = rnd(Sr, r32);
+      srow[b][1][rr] = rnd(1.0 - Sr, r32);
+      srow[b][2][rr] = rnd((1.0 - Sr) * (1.0 - Sr), r32);
+    }
+  };
+
+  double acc[NF][4][4];
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[f][nt][i] = 0.0;
+
+  const int chunks = (R + GRC - 1) / GRC;
+#pragma unroll
+  for (int c = 0; c < GSTAGES - 1; ++c) {
+    if (c < chunks) load(c, c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<GSTAGES - 2>();
+    __syncthreads();
+    const int next = c + GSTAGES - 1;
+    if (next < chunks) load(next % GSTAGES, next);
+    cp_async_commit();
+    const int b = c % GSTAGES;
+    if (!active) continue;
+    const int steps = min(GRC, R - c * GRC);  // rows of the chunk
+    for (int k8 = 0; k8 < steps; k8 += 8) {
+      // A fragment i: variant row g + 8 (i & 1), eigen row k8 + t + 4 (i >> 1)
+      double a[NF][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rr = k8 + t + 4 * (i >> 1), h = i & 1;
+        const double d = om[h] * srow[b][0][rr] + dl[h];
+        const double w1 = 1.0 / d;
+        a[0][i] = w1;
+        if constexpr (NF == 3) {
+          a[1][i] = srow[b][1][rr] * w1 * w1;
+          a[2][i] = srow[b][2][rr] * w1 * w1 * w1;
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const double bf[2] = {ps[b][(k8 + t) * LDP + nt * 8 + g],
+                              ps[b][(k8 + t + 4) * LDP + nt * 8 + g]};
+#pragma unroll
+        for (int f = 0; f < NF; ++f) dmma_m16n8k8(acc[f][nt], a[f], bf);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  // d[i]: variant row g + 8 (i >> 1), pair 2t + (i & 1) of tile nt
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = sw + g + 8 * (i >> 1);
+    if (s >= nS) continue;
+    double* out = sum + ((int64_t)o * nS + s) * 3 * nppad + e0;
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        out[f * nppad + nt * 8 + 2 * t + (i & 1)] = acc[f][nt][i];
+  }
+}
+
+// The genotype's sums of a problem: sum_r w_f rnd(x_a g) for x_a = W_j
+// (j < p), g, y, and sum e w1, sum e2 w1^2 (NF == 3) or sum log d: a block
+// a (32 variants, rho), a lane a variant, warps over the pairs; a chunk's
+// rows, genotypes and weights are staged in shared memory (each weight
+// formed once), and the warps' partial log-determinant sums are added in
+// warp order (no atomics).  (Holding all of a variant's pairs in registers
+// with the warps over the rows instead was 2.2x slower on an H100 80GB
+// HBM3 at 700 W: 162 registers left one block an SM, and each chunk's
+// staging stood exposed.)
+template <int NF>
+__global__ void __launch_bounds__(32 * GPASS_WARPS)
+loc_gsums_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
+                 const double* __restrict__ yt, const double* __restrict__ x,
+                 double* __restrict__ gs, int nrho, int R, int p, int nS,
+                 int r32) {
+  constexpr int RCH = 32;                    // rows a chunk
+  constexpr int EPT = (33 + 2 + GPASS_WARPS - 1) / GPASS_WARPS;  // pairs
+  __shared__ double xs[RCH][34];             // [W, y] of the chunk's rows
+  __shared__ double gv[RCH][32];             // g of the block's variants
+  __shared__ double wt[NF][RCH][32];         // the weight families
+  __shared__ double ex[2][GPASS_WARPS][32];
+  const int o = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int s = blockIdx.x * 32 + lane;
+  const int sl = min(s, nS - 1);
+  const int ng = p + 2, ps = p + nS;
+  const double dl = sigmoid(x[(int64_t)sl * nrho + o]);
+  const double* So = Sv + (int64_t)o * R;
+  const double* Wo = WGt + (int64_t)o * R * ps;
+  double acc[NF][EPT], ex1 = 0.0, ex2 = 0.0;
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int k = 0; k < EPT; ++k) acc[f][k] = 0.0;
+  for (int r0 = 0; r0 < R; r0 += RCH) {
+    const int rows = min(RCH, R - r0);
+    for (int i = threadIdx.x; i < rows * (p + 1); i += blockDim.x) {
+      const int rr = i / (p + 1), j = i - rr * (p + 1);
+      xs[rr][j] = j < p ? Wo[(int64_t)(r0 + rr) * ps + j]
+                        : yt[(int64_t)o * R + r0 + rr];
+    }
+    // a thread's (row, variant) pairs keep its lane's variant
+    for (int rr = warp; rr < rows; rr += GPASS_WARPS) {
+      const int r = r0 + rr;
+      gv[rr][lane] = Wo[(int64_t)r * ps + p + sl];
+      const double Sr = So[r];
+      const double d = (1.0 - dl) * rnd(Sr, r32) + dl;
+      const double w1 = 1.0 / d;
+      wt[0][rr][lane] = w1;
+      if constexpr (NF == 3) {
+        const double e = rnd(1.0 - Sr, r32);
+        const double e2 = rnd((1.0 - Sr) * (1.0 - Sr), r32);
+        wt[1][rr][lane] = e * w1 * w1;
+        wt[2][rr][lane] = e2 * w1 * w1 * w1;
+        ex1 += w1 * e;
+        ex2 += w1 * w1 * e2;
+      } else {
+        ex1 += log(d);
+      }
+    }
+    __syncthreads();
+    for (int rr = 0; rr < rows; ++rr) {
+      const double gval = gv[rr][lane];
+#pragma unroll
+      for (int k = 0; k < EPT; ++k) {
+        const int a = warp + GPASS_WARPS * k;
+        if (a >= ng) break;
+        const double xa = a < p ? xs[rr][a] : (a == p ? gval : xs[rr][p]);
+        const double v = rnd(xa * gval, r32);
+#pragma unroll
+        for (int f = 0; f < NF; ++f) acc[f][k] += wt[f][rr][lane] * v;
+      }
+    }
+    __syncthreads();
+  }
+  ex[0][warp][lane] = ex1;
+  ex[1][warp][lane] = ex2;
+  __syncthreads();
+  if (s >= nS) return;
+  double* out = gs + ((int64_t)o * nS + s) * loc_gs(p);
+#pragma unroll
+  for (int k = 0; k < EPT; ++k) {
+    const int a = warp + GPASS_WARPS * k;
+    if (a >= ng) break;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) out[f * ng + a] = acc[f][k];
+  }
+  if (warp < 2) {  // the warps' partial log-determinant sums, in order
+    double v = 0.0;
+    for (int w = 0; w < GPASS_WARPS; ++w) v += ex[warp][w][lane];
+    out[3 * ng + warp] = v;
+  }
+}
+
+// The algebra of each (s, o) problem from its sums, a warp a problem:
+// FINAL == false, one safeguarded Newton step of the REML objective on
+// the bracket state (x, lo, hi); FINAL == true, the f64 REML lml at x
+// (-inf where rss is at the noise floor or the lml is not finite).
+template <bool FINAL>
+__global__ void __launch_bounds__(32 * WIDE_LOC_WARPS)
+loc_epilogue_kernel(const double* __restrict__ sum,
+                    const double* __restrict__ gs,
+                    const double* __restrict__ CWW,
+                    const double* __restrict__ CWy,
+                    const double* __restrict__ Cyy,
+                    const double* __restrict__ CWg,
+                    const double* __restrict__ Cgy,
+                    const double* __restrict__ Cgg,
+                    const double* __restrict__ ld_xx, double* __restrict__ x,
+                    double* __restrict__ lo, double* __restrict__ hi,
+                    double* __restrict__ lml_out, int n, int nrho, int R,
+                    int p, int nS, int r32) {
+  extern __shared__ __align__(16) unsigned char epi_dyn[];
+  // the row a of each lower-triangle entry e = tri(a, b), once a block
+  __shared__ unsigned char tri_row[WIDE_P1MAX * (WIDE_P1MAX + 1) / 2];
+  constexpr int NF = FINAL ? 1 : 3;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int a = warp; a <= p; a += blockDim.x / 32)
+    for (int b = lane; b <= a; b += 32) tri_row[tri(a, b)] = (unsigned char)a;
+  __syncthreads();
+  const int64_t pid = (int64_t)blockIdx.x * (blockDim.x / 32) + warp;
+  if (pid >= (int64_t)nS * nrho) return;  // whole warps: no block barrier
+  const int s = (int)(pid / nrho), o = (int)(pid - (int64_t)s * nrho);
+  const int p1 = p + 1, ng = p + 2, nppad = loc_nppad(p);
+  const WideWs ws = wide_ws(reinterpret_cast<double*>(epi_dyn) +
+                                (int64_t)warp * epi_words(p1), p1, false);
+  const int ne = ws.ne, ntri = p1 * (p1 + 1) / 2, ntw = p * (p + 1) / 2;
+  const double* su = sum + ((int64_t)o * nS + s) * 3 * nppad;
+  const double* gp = gs + ((int64_t)o * nS + s) * loc_gs(p);
+  const double xv = x[pid];
+  const double delta = sigmoid(xv);
+  const double i1 = 1.0 / delta;
+  // entry e of [A lower | b | q] over [W, g], y, complements included
+#pragma unroll 4  // the loads of several entries in flight at once
+  for (int e = lane; e < ne; e += 32) {
+    double v[NF], c;
+    if (e < ntri) {
+      const int a = tri_row[e], b = e - a * (a + 1) / 2;
+      if (a < p) {
+        for (int f = 0; f < NF; ++f) v[f] = su[f * nppad + e];
+        c = CWW[a * p + b];
+      } else {
+        for (int f = 0; f < NF; ++f) v[f] = gp[f * ng + b];  // W_b g, g g
+        c = b < p ? CWg[(int64_t)b * nS + s] : Cgg[s];
+      }
+      c = rnd(c, r32);
+    } else if (e < ntri + p1) {
+      const int i = e - ntri;
+      if (i < p) {
+        for (int f = 0; f < NF; ++f) v[f] = su[f * nppad + ntw + i];
+        c = CWy[i];
+      } else {
+        for (int f = 0; f < NF; ++f) v[f] = gp[f * ng + p + 1];  // g y
+        c = Cgy[s];
+      }
+      c = rnd(c, r32);
+    } else {
+      for (int f = 0; f < NF; ++f) v[f] = su[f * nppad + ntw + p];  // y y
+      c = rnd(Cyy[0], r32);
+    }
+    double ic = i1;
+    for (int f = 0; f < NF; ++f) {
+      ws.acc[f * ne + e] = v[f] + c * ic;
+      ic *= i1;
+    }
+  }
+  __syncwarp();
+  const double ex1 = gp[3 * ng], ex2 = gp[3 * ng + 1];
+  if constexpr (FINAL) {
+    double rss;
+    bool bad;
+    double lml = fit_tail_wide<true, false>(ws, R, delta, n, ld_xx[s], ex1,
+                                            rss, bad);
+    if (bad || !isfinite(lml)) lml = -INFINITY;
+    if (lane == 0) lml_out[pid] = lml;
+  } else {
+    double Lp, Lpp;
+    derivs_tail_wide<true>(ws, R, n, delta, ex1, ex2, Lp, Lpp);
+    if (lane == 0) {
+      const double l = lo[pid], h = hi[pid];
+      const double gsg = delta * (1 - delta);
+      const double Lx_p = Lp * gsg;
+      const double Lx_pp = Lpp * gsg * gsg + Lp * gsg * (1 - 2 * delta);
+      const double lo2 = Lx_p > 0 ? xv : l;
+      const double hi2 = Lx_p > 0 ? h : xv;
+      const double xn = xv - Lx_p / Lx_pp;
+      // inclusive bounds: at convergence xn == x == a bracket end
+      const bool ok = Lx_pp < 0 && xn >= lo2 && xn <= hi2 && isfinite(xn);
+      x[pid] = ok ? xn : 0.5 * (lo2 + hi2);
+      lo[pid] = lo2;
+      hi[pid] = hi2;
+    }
+  }
+}
+
+// k_best[s] = the first argmax over rho of lml[s, :]
+__global__ void loc_argmax_kernel(const double* __restrict__ lml,
+                                  int64_t* __restrict__ k_best, int nrho,
+                                  int nS) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= nS) return;
+  const double* l = lml + (int64_t)s * nrho;
+  int kb = 0;
+  double best = l[0];
+  for (int k = 1; k < nrho; ++k)
+    if (l[k] > best) {
+      best = l[k];
+      kb = k;
+    }
+  k_best[s] = kb;
+}
+
+// warps of an epilogue block at p + 1 = p1, as their workspaces fit
+inline int epi_warps(int p1) {
+  const int fit = SMEM_BLOCK / (int)(sizeof(double) * (size_t)epi_words(p1));
+  return max(1, min(fit, WIDE_LOC_WARPS));
+}
+
+struct LocArgs {
+  const double *Sv, *WGt, *yt, *CWW, *CWy, *Cyy, *CWg, *Cgy, *Cgg, *ld_xx,
+      *br_lo, *br_hi;
+  double *x, *lml;
+  int64_t* k_best;
+  int n, nrho, R, p, nS, steps, r32;
+};
+
+// one gene's localize by the product route
+int localize_products(const LocArgs& a, double* work, cudaStream_t stream) {
+  const LocLayout L = loc_layout(a.nrho, a.R, a.p, a.nS, a.r32 != 0);
+  double *P32 = work + L.p32, *P64 = a.r32 ? work + L.p64 : P32;
+  double *sum = work + L.sum, *gsum = work + L.gs, *lo = work + L.lo,
+         *hi = work + L.hi;
+  const int64_t probs = (int64_t)a.nS * a.nrho;
+  const int nppad = loc_nppad(a.p), p1 = a.p + 1;
+  int err;
+  // 16 products a thread (a grid-stride loop)
+  const dim3 prgrid((unsigned)(((int64_t)a.R * nppad + 4095) / 4096), a.nrho);
+  auto products = loc_products_kernel;
+  products<<<prgrid, 256, 0, stream>>>(a.WGt, a.yt, P32, P64, a.R, a.p, a.nS,
+                                       a.r32);
+  if ((err = (int)cudaGetLastError())) return err;
+  const unsigned iblocks = (unsigned)((probs + 255) / 256);
+  auto init = loc_init_kernel;
+  init<<<iblocks, 256, 0, stream>>>(a.br_lo, a.br_hi, a.x, lo, hi, probs);
+  if ((err = (int)cudaGetLastError())) return err;
+  const dim3 ggrid(nppad / PT, (a.nS + GV - 1) / GV, a.nrho);
+  const dim3 pgrid((a.nS + 31) / 32, a.nrho);
+  const int ew = epi_warps(p1);
+  const int ebytes = (int)sizeof(double) * ew * epi_words(p1);
+  const unsigned eblocks = (unsigned)((probs + ew - 1) / ew);
+  // the epilogues' shared-memory limit (epi_warps keeps a block within
+  // SMEM_BLOCK at every width), raised once a process
+  static const int set = [] {
+    const int e = (int)cudaFuncSetAttribute(
+        loc_epilogue_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BLOCK);
+    return e ? e
+             : (int)cudaFuncSetAttribute(
+                   loc_epilogue_kernel<true>,
+                   cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BLOCK);
+  }();
+  if ((err = set)) return err;
+  for (int it = 0; it <= a.steps; ++it) {
+    const bool fin = it == a.steps;  // then the f64 evaluation
+    const double* P = fin ? P64 : P32;
+    const int r32 = fin ? 0 : a.r32;
+    auto gemm = fin ? loc_gemm_kernel<1> : loc_gemm_kernel<3>;
+    auto gsums = fin ? loc_gsums_kernel<1> : loc_gsums_kernel<3>;
+    auto epi = fin ? loc_epilogue_kernel<true> : loc_epilogue_kernel<false>;
+    gemm<<<ggrid, 32 * GW, 0, stream>>>(a.Sv, P, a.x, sum, a.nrho, a.R, a.p,
+                                        a.nS, r32);
+    if ((err = (int)cudaGetLastError())) return err;
+    gsums<<<pgrid, 32 * GPASS_WARPS, 0, stream>>>(
+        a.Sv, a.WGt, a.yt, a.x, gsum, a.nrho, a.R, a.p, a.nS, r32);
+    if ((err = (int)cudaGetLastError())) return err;
+    epi<<<eblocks, 32 * ew, ebytes, stream>>>(
+        sum, gsum, a.CWW, a.CWy, a.Cyy, a.CWg, a.Cgy, a.Cgg, a.ld_xx, a.x, lo,
+        hi, a.lml, a.n, a.nrho, a.R, a.p, a.nS, r32);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  const unsigned ablocks = (unsigned)((a.nS + 127) / 128);
+  auto argmax = loc_argmax_kernel;
+  argmax<<<ablocks, 128, 0, stream>>>(a.lml, a.k_best, a.nrho, a.nS);
+  return (int)cudaGetLastError();
 }
 
 template <int P1MAX, bool REML>
@@ -874,7 +1495,18 @@ int wide_smem(F kernel, bool wide, int warps, int p, size_t* bytes) {
 // 65535 (a single phenotype is genes = 1).  Launch on `stream`; return
 // the launch's CUDA error, 0 if none.
 
+// Bytes of scratch a crm_reml_localize call with these sizes needs (0 for
+// the register instantiations, p + 1 < LOC_GEMM_MIN_P1).
+extern "C" int64_t crm_reml_localize_workspace(int nrho, int R, int p, int nS,
+                                               int round32) {
+  if (p + 1 < LOC_GEMM_MIN_P1) return 0;
+  return (int64_t)sizeof(double) *
+         loc_layout(nrho, R, p, nS, round32 != 0).total;
+}
+
 // -> x, lml_all (genes, nS, nrho), k_best (genes, nS) int64; nrho <= 64.
+// work: crm_reml_localize_workspace bytes on the card, 16-byte aligned
+// (null when that is 0).
 extern "C" int crm_reml_localize(const double* Sv, const double* WGt,
                                  const double* yt, const double* CWW,
                                  const double* CWy, const double* Cyy,
@@ -882,27 +1514,47 @@ extern "C" int crm_reml_localize(const double* Sv, const double* WGt,
                                  const double* Cgg, const double* ld_xx,
                                  const double* br_lo, const double* br_hi,
                                  double* x, double* lml_all, int64_t* k_best,
-                                 int n, int nrho, int R, int p, int nS,
-                                 int genes, int steps, int round32,
+                                 void* work, int n, int nrho, int R, int p,
+                                 int nS, int genes, int steps, int round32,
                                  cudaStream_t stream) {
-  const bool wide = p + 1 > 16;
-  auto kernel = wide ? localize_kernel<0>
-                : p + 1 <= 2 ? localize_kernel<2>
-                : p + 1 <= 4 ? localize_kernel<4>
-                             : localize_kernel<16>;
-  const int fit =
-      SMEM_BLOCK / (int)(sizeof(double) * (size_t)wide_words(p + 1));
-  const int warps =
-      min(nrho, wide ? max(1, min(fit, WIDE_LOC_WARPS)) : LOC_MAX_WARPS);
-  size_t smem;
-  const int err = wide_smem(kernel, wide, warps, p, &smem);
-  if (err) return err;
+  if (p + 1 >= LOC_GEMM_MIN_P1) {
+    for (int gi = 0; gi < genes; ++gi) {  // a gene at a time, one scratch
+      const int64_t gp = (int64_t)gi * nS * nrho;
+      const LocArgs a{Sv,
+                      WGt,
+                      yt + (int64_t)gi * nrho * R,
+                      CWW,
+                      CWy + (int64_t)gi * p,
+                      Cyy + gi,
+                      CWg,
+                      Cgy + (int64_t)gi * nS,
+                      Cgg,
+                      ld_xx,
+                      br_lo + gp,
+                      br_hi + gp,
+                      x + gp,
+                      lml_all + gp,
+                      k_best + (int64_t)gi * nS,
+                      n,
+                      nrho,
+                      R,
+                      p,
+                      nS,
+                      steps,
+                      round32};
+      const int err =
+          localize_products(a, static_cast<double*>(work), stream);
+      if (err) return err;
+    }
+    return 0;
+  }
+  auto kernel = p + 1 <= 2 ? localize_kernel<2> : localize_kernel<4>;
   const dim3 grid(nS, genes);
-  const int threads = 32 * warps;
-  kernel<<<grid, threads, smem, stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg,
-                                          Cgy, Cgg, ld_xx, br_lo, br_hi, x,
-                                          lml_all, k_best, n, nrho, R, p, nS,
-                                          steps, round32);
+  const int threads = 32 * min(nrho, LOC_MAX_WARPS);
+  kernel<<<grid, threads, 0, stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
+                                       Cgg, ld_xx, br_lo, br_hi, x, lml_all,
+                                       k_best, n, nrho, R, p, nS, steps,
+                                       round32);
   return (int)cudaGetLastError();
 }
 

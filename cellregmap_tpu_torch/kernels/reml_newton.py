@@ -18,9 +18,15 @@ Two entry points, each with its plain torch version:
   only at tiny (:1056) and has no logdet(A) trace terms (:1026-1028).
 
 On a CUDA tensor the wrappers launch ``csrc/reml_newton.cu``; on a CPU
-tensor they run the plain versions.  A gene-batched call gives the
-phenotype's operands, the brackets and ``k_best``/``x0`` a leading gene
-axis (as :mod:`.delta_grid` does); one launch serves every gene.
+tensor they run the plain versions.  From p + 1 = 5 the localize takes
+the product route: per Newton step and rho, the sums over the pairs of
+[W, y], which no variant's genotype enters, are one product of the
+problems' weights and those pairs on the FP64 tensor cores, the
+genotype's sums a pass of their own, and each problem's algebra an
+epilogue; its scratch is one allocation sized by the source's workspace
+query.  A gene-batched call gives the phenotype's operands, the brackets
+and ``k_best``/``x0`` a leading gene axis (as :mod:`.delta_grid` does);
+one launch of the wrapper serves every gene.
 """
 from __future__ import annotations
 
@@ -141,7 +147,9 @@ def reml_converge_plain(S, WGt, yt, comp: Complements, ld_xx, k_best, x0,
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.crm_reml_localize.restype = ci
-    lib.crm_reml_localize.argtypes = [vp] * 15 + [ci] * 8 + [vp]
+    lib.crm_reml_localize.argtypes = [vp] * 16 + [ci] * 8 + [vp]
+    lib.crm_reml_localize_workspace.restype = ctypes.c_int64
+    lib.crm_reml_localize_workspace.argtypes = [ci] * 5
     lib.crm_reml_converge.restype = ci
     lib.crm_reml_converge.argtypes = [vp] * 18 + [ci] * 8 + [vp]
 
@@ -173,8 +181,9 @@ def reml_localize(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi, n,
 
 def call_localize(lib, S, WGt, yt, comp, ld_xx, br_lo, br_hi, n, steps,
                   round32, stream=None):
-    """Allocate the outputs and call ``lib``'s localize entry point (the
-    card's library, or an emulation of it on CPU tensors)."""
+    """Allocate the outputs and the scratch and call ``lib``'s localize
+    entry point (the card's library, or an emulation of it on CPU
+    tensors)."""
     nrho, R = S.shape
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
@@ -184,8 +193,11 @@ def call_localize(lib, S, WGt, yt, comp, ld_xx, br_lo, br_hi, n, steps,
     k_best = torch.empty(gs + (nS,), dtype=torch.int64, device=S.device)
     if k_best.numel() == 0:
         return x, lml_all, k_best
+    nbytes = lib.crm_reml_localize_workspace(nrho, R, p, nS, int(round32))
+    work = torch.empty(nbytes, dtype=torch.uint8, device=S.device)
     ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp, ld_xx, br_lo, br_hi,
                                     x, lml_all, k_best)]
+    ptrs.append(_build.ptr(work) if nbytes else None)
     _build.check(lib.crm_reml_localize(*ptrs, n, nrho, R, p, nS,
                                        math.prod(gs), steps, int(round32),
                                        stream), "reml_localize")

@@ -14,7 +14,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch; K7, the ML delta grid and Newton, on an association refit batch;
    K10 null_fit on the association's null fit), held against its plain
    torch version, and timed with CUDA events beside its plain version, the
-   library call where one exists, and its bound;
+   library call where one exists, and its bound (K1 a row a call: T, A^T A
+   and A^T W);
 4. the interaction path, ``run_interaction(..., device="cuda")``, at the
    bench's headline size (2000 cells, 10 contexts, 100 donors, 2048
    variants, batch 512): throughput, setup/scan split, the traced phase
@@ -23,7 +24,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``pvalue_method="auto"`` (the device tails, K6a and K6b), its refined
    pairs against the davies run;
 5. a second interaction size users run (10k cells, 20 contexts, 125
-   donors, 512 variants);
+   donors, 512 variants), and K1 on the three contractions of its batch,
+   captured from that run;
 6. the gene-batched scan, ``run_interaction_multigene(..., device="cuda")``
    at the JAX bench's ``multigene_16`` shape (the headline dataset, 16
    genes, 512 variants, one tile): first and steady pairs/s, launch counts,
@@ -70,7 +72,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``run_association_fast`` and ``run_association`` (hK), each with its
     launch counts (K2, K3, K5 and K8 in their wide instantiations) and its
     first 64 variants against the CPU at the headline budgets; K2, K3, K5,
-    K7 and K8 at that width against their plain versions; and a p = 33
+    K7 and K8 at that width against their plain versions (K3's localize
+    split by kernel from torch.profiler); and a p = 33
     scanner on the card, refused before any setup (the refusal timed);
 15. one JSON line of the kernels, then the result line.
 
@@ -210,7 +213,6 @@ def check_kernels(ctx, G, n):
 
     from cellregmap_tpu_torch import engine
     from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
-    from cellregmap_tpu_torch.kernels import kr_contract as k1
     from cellregmap_tpu_torch.kernels import score_core as k5
 
     calls = capture_kernel_inputs(
@@ -225,37 +227,8 @@ def check_kernels(ctx, G, n):
              for k, v in calls.items()}
     rows = []
 
-    # K1: the three contractions of one batch
-    err = 0.0
-    for U, V, Gm in calls["kr_contract"]:
-        out, ref = k1.kr_contract(U, V, Gm), k1.kr_contract_plain(U, V, Gm)
-        torch.cuda.synchronize()
-        e = float((out - ref).abs().max())
-        rel = e / float(ref.abs().max())
-        assert rel <= 1e-12, f"kr_contract {tuple(out.shape)}: rel {rel}"
-        err = max(err, e)
-    k1_args = calls["kr_contract"]
-    flops = sum(2 * U.shape[0] * U.shape[1] * V.shape[1] * Gm.shape[1]
-                for U, V, Gm in k1_args)
-    nbytes = F64 * sum(U.numel() + V.numel() + Gm.numel()
-                       + U.shape[1] * V.shape[1] * Gm.shape[1]
-                       for U, V, Gm in k1_args)
-
-    def k1_library():
-        for U, V, Gm in k1_args:
-            nn = U.shape[0]
-            torch.matmul(U.T, (V[:, :, None] * Gm[:, None, :]).reshape(nn, -1))
-
-    b_ms, b_by = bound(flops, nbytes)
-    rows.append(dict(
-        name="kr_contract", route="cuda",
-        source="cellregmap_tpu_torch/csrc/kr_contract.cu",
-        replaces="cellregmap_tpu/engine.py:184", max_abs_err=err,
-        ms=cuda_ms(lambda: [k1.kr_contract(*a) for a in k1_args]),
-        plain_ms=cuda_ms(lambda: [k1.kr_contract_plain(*a)
-                                  for a in k1_args]),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(k1_library),
-        tolerance="max|err| <= 1e-12 * max|plain|, per call"))
+    # K1: the three contractions of one batch, a row each
+    rows += check_kr_contract(calls["kr_contract"], K1_CALLS)
 
     # K4
     (V, T, kb), = calls["best_rho_rotate"]
@@ -308,9 +281,10 @@ def check_kernels(ctx, G, n):
         plain_ms=cuda_ms(lambda: k5.score_core_plain(*args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         tolerance="max|err| <= 1e-10 * max|plain|, Q and Wmat"))
-    rows.insert(1, check_delta_grid(calls["delta_grid"][0]))
-    rows.insert(2, check_reml_newton(calls["reml_localize"][0],
-                                     calls["reml_converge"][0]))
+    rows[len(K1_CALLS):len(K1_CALLS)] = [
+        check_delta_grid(calls["delta_grid"][0]),
+        check_reml_newton(calls["reml_localize"][0],
+                          calls["reml_converge"][0])]
     rows += [check_sym_eigvalsh(*tails[0]), check_mixture_tails(*tails[1])]
     rows += check_association_kernels(ctx, G, n)
     for r in rows:
@@ -321,6 +295,60 @@ def check_kernels(ctx, G, n):
               + (f"; distinct rho {r['distinct_rho']}"
                  if "distinct_rho" in r else ""), flush=True)
     return rows
+
+
+K1_CALLS = ("T", "AtA", "AtW")    # the interaction batch's K1 calls
+
+
+def check_kr_contract(calls, names, tag=None):
+    """K1 on each captured call (U, V, G): within 1e-12 of max|plain| of
+    the plain version, timed beside it and beside one ``matmul`` of U^T
+    against the materialized V o G.  One row a call named ``kr_contract
+    (<name>)``; with ``tag``, one row ``kr_contract (<tag>)`` of all the
+    calls, their times summed, with each call's split."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import kr_contract as k1
+
+    rows = []
+    for (U, V, Gm), name in zip(calls, names):
+        out, ref = k1.kr_contract(U, V, Gm), k1.kr_contract_plain(U, V, Gm)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        assert rel <= 1e-12, f"kr_contract {name} {tuple(out.shape)}: rel {rel}"
+        del out, ref
+        nn, K = U.shape
+        p, S = V.shape[1], Gm.shape[1]
+        b_ms, b_by = bound(2 * nn * K * p * S,
+                           F64 * (U.numel() + V.numel() + Gm.numel()
+                                  + K * p * S))
+
+        def library():
+            torch.matmul(U.T, (V[:, :, None] * Gm[:, None, :]).reshape(nn, -1))
+
+        rows.append(dict(
+            name=f"kr_contract ({name})", route="cuda",
+            source="cellregmap_tpu_torch/csrc/kr_contract.cu",
+            replaces="cellregmap_tpu/engine.py:184", max_abs_err=err,
+            ms=cuda_ms(lambda: k1.kr_contract(U, V, Gm)),
+            plain_ms=cuda_ms(lambda: k1.kr_contract_plain(U, V, Gm)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library),
+            shape=dict(n=nn, K=K, p=p, S=S), rel=rel,
+            tolerance="max|err| <= 1e-12 * max|plain|"))
+    if tag is None:
+        return rows
+    row = dict(rows[0], name=f"kr_contract ({tag})",
+               split_ms={r["name"]: r["ms"] for r in rows},
+               shapes=[r["shape"] for r in rows],
+               tolerance="max|err| <= 1e-12 * max|plain|, per call")
+    row.pop("shape")
+    for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        row[k] = sum(r[k] for r in rows)
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    # what bounds the sum: that of its largest term
+    row["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    return [row]
 
 
 def check_sym_eigvalsh(A):
@@ -641,6 +669,35 @@ def check_association_kernels(ctx, G, n, plain_reps=10):
     return [k7, k10_row]
 
 
+def device_split(fn, reps=3):
+    """Device milliseconds a call of ``fn`` spends in each CUDA kernel, by
+    the kernel's name (its template arguments kept), from
+    ``torch.profiler`` over ``reps`` calls after one warm-up."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us > 0:  # a kernel (its launch on the host has none)
+            name = re.sub(r"\(.*", "", e.key.replace(
+                "(anonymous namespace)::", "").replace("void ", ""))
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    assert out, "the profiler saw no device time"
+    return out
+
+
 def check_wide_kernels(ctx, ctx_assoc, G, n):
     """K2, K3, K5, K7 and K8 in their wide instantiations (the contexts'
     p columns of W, nrho rho points) on one batch's operands, each
@@ -650,6 +707,7 @@ def check_wide_kernels(ctx, ctx_assoc, G, n):
     import torch
 
     from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
     from cellregmap_tpu_torch.kernels import score_core as k5
 
     p = ctx.W.shape[1]
@@ -662,6 +720,9 @@ def check_wide_kernels(ctx, ctx_assoc, G, n):
                               plain_reps=1)
     k3_row = check_reml_newton(calls["reml_localize"][0],
                                calls["reml_converge"][0], plain_reps=1)
+    k3_row["split_ms"]["localize_kernels"] = device_split(
+        lambda: k3.reml_localize(*calls["reml_localize"][0][0],
+                                 **calls["reml_localize"][0][1]))
     (args, _), = calls["score_core"]
     (Q, Wm), (Qr, Wr) = k5.score_core(*args), k5.score_core_plain(*args)
     torch.cuda.synchronize()
@@ -2064,6 +2125,35 @@ def checkpoint_phase(d, cfg, crm_assoc):
     return out
 
 
+def ptxas_report(log):
+    """Each kernel of an ``nvcc -Xptxas -v`` log with its registers, stack
+    and spills: ["name: Used N registers, ...; S bytes stack frame, ...",
+    ...], the names demangled where c++filt is at hand."""
+    import re
+    import shutil
+
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", ln)
+        if m:
+            name = m.group(1)
+        elif name and ("registers" in ln or "spill" in ln):
+            out.append((name, ln.split(":", 1)[-1].strip()))
+    if shutil.which("c++filt"):
+        names = sorted({n for n, _ in out})
+        demangled = subprocess.run(["c++filt", *names], capture_output=True,
+                                   text=True, timeout=60).stdout.split("\n")
+        short = {n: re.sub(r"\(.*", "", d.replace(
+                     "(anonymous namespace)::", "").replace("void ", ""))
+                 for n, d in zip(names, demangled)}
+        out = [(short.get(n, n), r) for n, r in out]
+    merged = {}
+    for n, r in out:
+        merged.setdefault(n, []).append(r)
+    return [f"{n}: " + "; ".join(rs) for n, rs in merged.items()]
+
+
 def main() -> int:
     import torch
 
@@ -2087,10 +2177,8 @@ def main() -> int:
     assert build_qfc() is not None, "qfc.cc did not build"
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name in _build.SOURCES:
-        log = built.get(f"{name}.ptxas", "")
-        report = [ln.strip() for ln in log.splitlines()
-                  if "registers" in ln or "spill" in ln]
-        print(f"ptxas {name}: " + " | ".join(report), flush=True)
+        print(f"ptxas {name}: " + " | ".join(
+            ptxas_report(built.get(f"{name}.ptxas", ""))), flush=True)
 
     # --- kernels against their plain versions, at the headline shapes ---
     cfg = crp.ScanConfig(snp_batch=BATCH)
@@ -2119,7 +2207,25 @@ def main() -> int:
             "davies": head["traced_phase_s"]["pvalue_ladder"],
             "auto": head_auto["traced_phase_s"]["pvalue_ladder"]})),
         flush=True)
-    scan_size("cells10k", SECOND, cfg, warmup=False)
+    # cells10k, its first batch's K1 operands captured from the run
+    held = {}
+    k1_10k = capture_kernel_inputs(
+        lambda: held.update(counts=scan_size("cells10k", SECOND, cfg,
+                                             warmup=False)[1]),
+        ["kr_contract"])["kr_contract"][:len(K1_CALLS)]
+    c_10k = held["counts"]
+    rows += check_kr_contract([a for a, _ in k1_10k], K1_CALLS,
+                              tag="cells10k")
+    del k1_10k
+    # hand the row's cached blocks back: the scans size their batches by
+    # the card's free memory
+    torch.cuda.empty_cache()
+    print(f"kernel {rows[-1]['name']}: max_abs_err "
+          f"{rows[-1]['max_abs_err']:.3e}; ms {rows[-1]['ms']:.4f}  plain_ms "
+          f"{rows[-1]['plain_ms']:.4f}  library_ms {rows[-1]['library_ms']:.4f}"
+          f"  bound_ms {rows[-1]['bound_ms']:.4f}; "
+          + json.dumps({k: rows[-1][k] for k in ("split_ms", "shapes")}),
+          flush=True)
 
     # --- the gene-batched scan ---
     multigene_phase(d, cfg)
@@ -2179,7 +2285,13 @@ def main() -> int:
     rows += cov_rows
 
     for r in rows:
-        if r["name"] == "association_refit":
+        if r["name"] == "kr_contract (cells10k)":
+            r["launches"] = c_10k["kr_contract"]
+        elif r["name"].startswith("kr_contract ("):
+            # the headline run launches each of the batch's calls once a batch
+            assert counts["kr_contract"] % len(K1_CALLS) == 0
+            r["launches"] = counts["kr_contract"] // len(K1_CALLS)
+        elif r["name"] == "association_refit":
             r["launches"] = sum(c[k] for c in (c_hk, c_ls)
                                 for k in ("delta_grid", "reml_newton"))
         elif r["name"] == "null_fit":

@@ -128,10 +128,11 @@ void emu_launch(F kernel, dim3 grid, dim3 block, cudaStream_t stream,
 """
 
 
-def emulated(name, workdir, defines=()):
-    """The library of ``csrc/<name>.cu`` built for the emulator in
+def emulated(name, workdir, defines=(), source=None):
+    """The library of ``csrc/<name>.cu`` (or of the CUDA text ``source``,
+    which may include the ``csrc`` headers) built for the emulator in
     ``workdir``; ``defines`` are extra ``-D`` macro definitions."""
-    src = (CSRC / f"{name}.cu").read_text()
+    src = source if source is not None else (CSRC / f"{name}.cu").read_text()
     src = src.replace("#include <cuda_runtime.h>", '#include "emu_runtime.h"')
     # dynamic shared memory: a block-wide static buffer of the card's limit
     src = re.sub(r"extern __shared__ __align__\((\d+)\) unsigned char "

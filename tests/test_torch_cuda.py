@@ -659,3 +659,45 @@ def test_association_multigene_on_card_matches_cpu(cuda, fast):
         np.testing.assert_allclose(pv_g, pv_c, rtol=1e-5, atol=1e-12)
     else:
         assert np.max(np.abs(pv_g - pv_c)) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,p,S", [(2000, 1010, 10, 512),
+                                     (2000, 10, 10, 512), (2000, 10, 1, 512),
+                                     (301, 79, 3, 37), (97, 23, 1, 50),
+                                     (513, 32, 11, 70), (9, 5, 2, 9)])
+def test_kr_contract_tensor_core_tiles_on_card(cuda, n, K, p, S):
+    """K1's DMMA kernels at the headline's three calls (T, A^T A, A^T W)
+    and at ragged K, p S, n and odd widths (the small-K kernel from K <=
+    32), one launch a call, within 1e-12 of the plain version."""
+    from cellregmap_tpu_torch.kernels import kr_contract as k1
+
+    rng = np.random.default_rng(n + K + p)
+    U, V, G = (torch.as_tensor(rng.normal(size=s), device=cuda)
+               for s in ((n, K), (n, p), (n, S)))
+    before = k1.launches
+    got = k1.kr_contract(U, V, G)
+    assert k1.launches == before + 1
+    _close(got, k1.kr_contract_plain(U, V, G), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32", [True, False])
+@pytest.mark.parametrize("p1", [5, 9, 17, 25, 33])
+def test_localize_product_route_on_card(cuda, p1, f32):
+    """K3's localize from p + 1 = 5 (the pair sums a tensor-core product a
+    rho, the genotype's sums, the epilogue) over 21 rho points: one launch
+    of the wrapper, k_best equal, x at rtol 1e-9, lml at 1e-10."""
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    reml, _ = _fit_calls(cuda, p1 - 1, 21, f32)
+    (args, kw), = reml["reml_localize"]
+    before = k3.launches
+    x, lml_all, kb = k3.reml_localize(*args, **kw)
+    assert k3.launches == before + 1
+    xp, lml_p, kb_p = k3.reml_localize_plain(*args, **kw)
+    assert torch.equal(kb, kb_p)
+    fin = torch.isfinite(lml_p)
+    assert torch.equal(fin, torch.isfinite(lml_all))
+    assert float(((x - xp).abs() / xp.abs().clamp(min=1e-300)).max()) <= 1e-9
+    assert float(((lml_all - lml_p).abs() / lml_p.abs())[fin].max()) <= 1e-10

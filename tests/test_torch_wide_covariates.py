@@ -14,7 +14,9 @@ CPU, and the envelope's refusal at construction.
    columns of W, C > 64 contexts, more than 64 rho points) raises
    ``ValueError`` naming the limit when it is made, before the null
    context is built; effect sizes past K9's q = C + rank[W, E] + 2 <= 128
-   raise before the betas context is built.  Without a card, the device
+   raise before the betas context is built, and the aggregate environment
+   past K10's rank[W, E] + 1 <= 64 mean columns before the null context
+   is built.  Without a card, the device
    is made to read as CUDA (``api._resolve_device``) and the factorizations
    are replaced by functions that fail the test if called.
 """
@@ -153,3 +155,12 @@ def test_card_effect_sizes_refused_before_setup(card):
     crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], hK=d["hK"])
     with pytest.raises(ValueError, match="q = C \\+ rank"):
         crm.predict_interaction(d["G"], np.full(d["G"].shape[1], 0.3))
+
+
+def test_card_aggregate_environment_refused_before_setup(card):
+    """rank[W, E] + 1 = 90 + 1 > 64 mean columns: the aggregate environment
+    raises, naming K10's limit, before the null context is built."""
+    d = _data(p=30, C=60, n=120)
+    crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], hK=d["hK"])
+    with pytest.raises(ValueError, match="rank\\[W, E\\] \\+ 1 <= 64"):
+        crm.estimate_aggregate_environment(d["G"][:, 0])
