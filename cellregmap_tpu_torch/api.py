@@ -28,8 +28,6 @@ from . import engine
 from ._config import DEFAULT_CONFIG, ScanConfig
 from .kernels import delta_grid, reml_newton, score_core, sym_eigvalsh
 from .kernels.delta_grid import MAX_GENES
-from .kernels.null_fit import MAX_FIXED as NULL_FIT_MAX_FIXED
-from .kernels.woodbury_family import MAX_Q
 from .models import pvalues as pv_mod
 from .ops.hadamard import get_L_values
 from .parallel.checkpoint import ScanCheckpoint
@@ -73,7 +71,9 @@ def _resolve_device(device=None) -> torch.device:
 # refused shape costs no setup time.  p counts W's columns, the intercept
 # included (K2, K3 and K5: p + 1 <= 33; K8: p <= 32); C the score
 # contexts (K6a: C <= 64; K5: C + p + 2 <= 98); the rho grid K3's
-# localize block.
+# localize block.  Inside it rank[W, E] <= p + C <= 96, which the effect
+# sizes (K9: q = C + rank[W, E] + 2 <= 162 columns) and the aggregate
+# environment (K10: rank[W, E] + 1 <= 128 mean columns) take.
 CARD_MAX_COVARIATES = min(delta_grid.MAX_FIXED, score_core.MAX_FIXED) - 1
 CARD_MAX_CONTEXTS = sym_eigvalsh.MAX_C
 CARD_MAX_RHO = reml_newton.MAX_RHO
@@ -595,15 +595,6 @@ class CellRegMap:
         It never builds the null context: the rho grid is the scanner's
         own (``Ls`` or ``hK`` given: n_rho points on [0, 1], else [1])."""
         if self._bctx is None:
-            if self._device.type == "cuda":
-                # K9 takes q = C + rank[W, E] + 2 columns
-                q = self._E0.shape[1] + engine.reduced_design_basis(
-                    self._W, self._E0).shape[1] + 2
-                if q > MAX_Q:
-                    raise ValueError(
-                        f"the card's effect-size kernel takes q = C + "
-                        f"rank[W, E] + 2 <= {MAX_Q} columns, got {q}; pass "
-                        f"device='cpu' to run this shape on the CPU")
             self._bctx = engine.build_betas_context(
                 self._y, self._W, self._E0, self._Ls,
                 rho_grid=self._rho_grid, device=self._device,
@@ -671,13 +662,6 @@ class CellRegMap:
         # the reduced full-rank design (see engine.BetasContext)
         M = np.concatenate((engine.reduced_design_basis(W, E0), g[:, None]),
                            axis=1)
-        if self._device.type == "cuda" and M.shape[1] > NULL_FIT_MAX_FIXED:
-            # K10 takes at most MAX_FIXED mean columns: refuse before the
-            # null context is built
-            raise ValueError(
-                f"the card's null fit takes rank[W, E] + 1 <= "
-                f"{NULL_FIT_MAX_FIXED} mean columns, got {M.shape[1]}; pass "
-                f"device='cpu' to run this shape on the CPU")
         delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
                      cfg.n_delta_grid, cfg.n_golden_iters)
         fits = engine.mean_fit(self._ctx, self._upload(M), n, True,

@@ -30,6 +30,17 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
 #endif
 }
 
+// 4 bytes from global to shared memory, both 4-byte aligned
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+#else
+  std::memcpy(smem, gmem, 4);
+#endif
+}
+
 // close the group of copies issued since the last commit
 __device__ __forceinline__ void cp_async_commit() {
 #ifdef __CUDA_ARCH__

@@ -8,9 +8,11 @@ REML (with logdet(A) and logdet(X^T X)) or ML; the association's null fit
 is ML, ``mean_fit_kernel``'s fits are REML.
 
 On a CUDA tensor :func:`null_fit` launches ``csrc/null_fit.cu`` (one block
-per rho point; above 16 mean columns the kernel's wide instantiation, whose
-normal equations live in shared memory and whose grid runs a block per
-(grid point, rho)); on a CPU tensor it runs
+per rho point; above 16 mean columns, up to 128, the wide instantiation:
+every evaluation a tensor-core product over R and a factorization in
+registers, the grid a block per (grid point, rho), each golden-section
+step one launch spreading its evaluations over several blocks a rho
+point); on a CPU tensor it runs
 :func:`null_fit_plain`, which is ``models.lmm.fit_delta_eig`` over the rho
 axis.
 
@@ -34,7 +36,7 @@ from ..models.lmm import EigData, FitResult, fit_delta_eig, lml_at_delta_eig
 
 launches = 0
 
-MAX_FIXED = 64      # p of the CUDA kernel's wide instantiation
+MAX_FIXED = 128     # p of the CUDA kernel's wide instantiation
 MAX_GRID = 1024     # grid points the kernel holds in shared memory
 MAX_GENES = 65535   # genes of one launch (a grid axis)
 
@@ -86,6 +88,8 @@ def _bind(lib):
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.crm_null_fit.restype = ci
     lib.crm_null_fit.argtypes = [vp] * 14 + [cd, cd] + [ci] * 8 + [vp]
+    lib.crm_null_fit_scratch.restype = ctypes.c_longlong
+    lib.crm_null_fit_scratch.argtypes = [ci] * 5
 
 
 def null_fit(data: EigData, n, restricted, lo, hi, n_grid, n_iters):
@@ -136,9 +140,10 @@ def call(lib, data: EigData, n, restricted, lo, hi, n_grid, n_iters,
                       for f in FitResult._fields))
     if nrho * genes == 0:
         return out
-    # the wide instantiation's logdets (nrho) and grid values (genes, nrho,
-    # n_grid)
-    scratch = torch.empty((nrho * (genes * n_grid + 1),),
+    # the wide instantiation's logdets, grid values and golden-section
+    # partial sums and states
+    scratch = torch.empty((lib.crm_null_fit_scratch(p, nrho, R, n_grid,
+                                                    genes),),
                           dtype=torch.float64, device=data.S.device)
     _build.check(lib.crm_null_fit(*(_build.ptr(t)
                                     for t in (*data, *out, scratch)),

@@ -8,7 +8,8 @@ ML) lml, optionally with the GLS coefficients and the residual
 zoom round (f32 or f64) and once for the final fit with coefficients.
 
 On a CUDA tensor :func:`family_eval` launches ``csrc/woodbury_family.cu``
-(one block per variant and group of points); on a CPU tensor it runs
+(the Gram a tensor-core product a variant into a scratch, then a warp a
+point for the factorization); on a CPU tensor it runs
 :func:`family_eval_plain`, which is ``models.lmm._family_eval_batch`` on the
 stacked columns.
 """
@@ -23,7 +24,8 @@ from ..models.lmm import FamilyCols, _family_eval_batch, stack_cols
 
 launches = 0
 
-MAX_Q = 128     # columns [Ua | UB, g | y] the kernel takes
+MAX_Q = 162     # columns [Ua | UB, g | y] the kernel takes
+SCRATCH_BYTES = 256 << 20   # the Gram's scratch, a chunk of variants
 
 
 def family_eval_plain(logits, rho, cols: FamilyCols, compS, Lam, C, n,
@@ -72,7 +74,7 @@ def _bind(lib):
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.crm_woodbury_family_f32, lib.crm_woodbury_family_f64):
         fn.restype = ci
-        fn.argtypes = [vp] * 12 + [cd] + [ci] * 8 + [vp]
+        fn.argtypes = [vp] * 13 + [cd] + [ci] * 9 + [vp]
 
 
 def family_eval(logits, rho, cols: FamilyCols, compS, Lam, C, n, restricted,
@@ -127,8 +129,13 @@ def call(lib, logits, rho, cols: FamilyCols, compS, Lam, C, n, restricted,
     if lml.numel():
         fn = (lib.crm_woodbury_family_f64 if dt == torch.float64
               else lib.crm_woodbury_family_f32)
+        # the Gram's sums of as many variants as the scratch holds
+        per_variant = L * (C + pB + 2) * (C + pB + 3) // 2
+        chunk = max(1, min(S, SCRATCH_BYTES // (per_variant
+                                                * lml.element_size())))
+        scratch = new(chunk * per_variant)
         _build.check(fn(*(_build.ptr(t) for t in (
-            logits, rho, *cols, compS, Lam, ld_xx, lml, beta, rss)),
+            logits, rho, *cols, compS, Lam, ld_xx, lml, beta, rss, scratch)),
             float(rcond), n, S, L, Rk, C, pB, int(restricted),
-            int(want_beta), stream), "woodbury_family")
+            int(want_beta), chunk, stream), "woodbury_family")
     return (lml, beta, rss) if want_beta else lml

@@ -53,7 +53,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. 50 contexts (2000 cells, 100 donors, an E1 outside E): the aggregate
     environment through K10's wide instantiation (p = 52) against the CPU
     and the kernel against its plain version, and K6a on one interaction
-    batch's 50 x 50 weight matrices;
+    batch's 50 x 50 weight matrices; then the same dataset with W widened
+    to 32 columns (rank[W, E] = 82): the aggregate environment at 83 mean
+    columns and one 64-variant ``estimate_betas`` batch at K9's q = 134,
+    each against the CPU and each kernel call against its plain version;
 12. the gene-batched association scans on the headline's Ls scanner
     (R = 1010), at the JAX bench's ``assoc_multigene_16`` row (16 genes,
     Y = y + 0.1 N(0, 1)): ``scan_association_fast_multigene`` at 2048
@@ -113,6 +116,7 @@ MULTIGENE = dict(genes=16, n_snps=512, seed=9)    # bench.py:479-506
 ASSOC_MULTIGENE = dict(genes=16, n_snps=2048, refit_snps=512, seed=11)
 # covariates_24: the headline dataset with p = 24 columns of W, 21 rho
 COVARIATES = dict(p=24, n_rho=21, n_snps=512, seed=24)
+WIDE_COVARIATES = dict(p=32, seed=32)   # W's columns on WIDE's dataset
 BATCH = 512
 GXE_SNP = 7
 CARD = "cuda"          # the device of the main paths
@@ -883,13 +887,18 @@ def check_fast_scan(ctx, G, n, plain_reps=10):
                   "max|plain|")
 
 
-def check_woodbury_family(bctx, G, norm, n):
-    """K9 on every call of one headline effect-size batch (five f32 zoom
-    rounds over all rho, three f64 rounds on the top-2 rho, the f64 fit
-    with coefficients): f64 lml within 1e-10 of max(|lml|, 1) with the same
+def check_woodbury_family(bctx, G, norm, n, tag=None, with_library=True,
+                          reps=5):
+    """K9 on every call of one effect-size batch (five f32 zoom rounds over
+    all rho, three f64 rounds on the top-2 rho, the f64 fit with
+    coefficients): f64 lml within 1e-10 of max(|lml|, 1) with the same
     non-finite points, beta and rss within 1e-9 of their largest entry;
     f32 held to the f64 lml at no more than twice the plain f32 version's
-    distance from it (``woodbury_family.f32_gaps``)."""
+    distance from it (``woodbury_family.f32_gaps``).  ``with_library``: time
+    the Gram alone as one ``bmm`` a call (its materialized pair products
+    take S Rk q (q + 1) / 2 doubles: the headline's widths only); ``reps``
+    the timed runs of the kernel (the plain version's: reps - 2, at least
+    1)."""
     import torch
 
     from cellregmap_tpu_torch import engine
@@ -952,7 +961,7 @@ def check_woodbury_family(bctx, G, norm, n):
             torch.bmm(W, P)
 
     lib_operands = []
-    for args, _ in calls:
+    for args, _ in (calls if with_library else ()):
         logits, rho, cols, _, Lam = args[:5]
         dl = torch.sigmoid(logits)
         W = 1.0 / ((1 - dl)[..., None] * ((1 - rho)[..., None] * Lam)
@@ -964,20 +973,29 @@ def check_woodbury_family(bctx, G, norm, n):
         iu = torch.triu_indices(X.shape[2], X.shape[2], device=X.device)
         lib_operands.append((W, X[:, :, iu[0]] * X[:, :, iu[1]]))
         del X
-    lib_ms = cuda_ms(library, reps=5)
+    lib_ms = cuda_ms(library, reps=5) if with_library else None
     del lib_operands
+    by_kind = {}
+    for args, kw in calls:
+        kind = ("f32" if args[0].dtype == torch.float32
+                else "f64 beta" if kw.get("want_beta") else "f64")
+        by_kind[kind] = by_kind.get(kind, 0.0) + cuda_ms(
+            lambda a=args, k=kw: k9.family_eval(*a, **k), reps=reps)
     return dict(
-        name="woodbury_family", route="cuda",
+        name="woodbury_family" + (f" ({tag})" if tag else ""), route="cuda",
         source="cellregmap_tpu_torch/csrc/woodbury_family.cu",
         replaces="cellregmap_tpu/models/lmm.py:435", max_abs_err=err,
         ms=cuda_ms(lambda: [k9.family_eval(*a, **kw) for a, kw in calls],
-                   reps=5),
+                   reps=reps),
         plain_ms=cuda_ms(lambda: [k9.family_eval_plain(*a, **kw)
-                                  for a, kw in calls], reps=3, warmup=1),
+                                  for a, kw in calls], reps=max(1, reps - 2),
+                         warmup=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, calls=len(calls),
         points_per_variant=pts, flops=flops, nbytes=nbytes,
         f32_excess=max(g["excess"] for g in gaps32),
         f64_rel=max(g["rel"] for g in gaps64), k1_betas_rel=k1_rel,
+        split_ms=by_kind, shapes=dict(S=G.shape[1], Rk=bctx.Zk.shape[1],
+                                      q=calls[0][0][3].shape[1]),
         tolerance="f64: lml rel <= 1e-10 of max(|lml|, 1), same non-finite "
                   "points, beta/rss <= 1e-9 of max; f32: |kernel - f64| <= "
                   "2 |plain - f64| + 1e-5 max(|f64|, 1), masks equal where "
@@ -1667,6 +1685,155 @@ def wide_phase(cfg):
     return out, k10_row
 
 
+def wide_covariates_phase(cfg, cpu_check=64):
+    """The card's envelope on the effect-size paths: ``WIDE``'s dataset (50
+    contexts, 2000 cells, 100 donors, the same E1 of 10 seeded contexts)
+    with W = [1, 31 columns of N(0, 1) (rng ``WIDE_COVARIATES["seed"]``, as
+    ``covariates_phase`` makes them)], so rank[W, E] = 82:
+    ``estimate_aggregate_environment`` of the planted variant (K10 at 83
+    mean columns, one launch) within 1e-5 of the CPU, the K10 call against
+    its plain version (``fit_gaps`` at 1e-10); one ``estimate_betas`` batch
+    of ``cpu_check`` variants (K9 at q = 50 + 82 + 2 = 134, nine launches;
+    K1 three), finite and its fits against the CPU's under the hybrid rule
+    of ``betas_path``; every K9 call of that batch against its plain
+    version as ``check_woodbury_family`` holds it.  Returns the phase's
+    record and the K10 and K9 rows."""
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import engine, kernels
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+
+    d = make_dataset(**WIDE)
+    n, C = d["E"].shape
+    rng = np.random.default_rng(WIDE["seed"])
+    E1 = rng.normal(size=(n, 10)) / np.sqrt(10)
+    y = d["y"] + E1 @ rng.normal(size=10)
+    rng = np.random.default_rng(WIDE_COVARIATES["seed"])
+    W = np.concatenate([np.ones((n, 1)),
+                        rng.normal(size=(n, WIDE_COVARIATES["p"] - 1))],
+                       axis=1)
+    Ls = crp.get_L_values(d["hK"], d["E"])
+    B = engine.reduced_design_basis(W, d["E"])
+    assert B.shape[1] == WIDE_COVARIATES["p"] + C, B.shape
+    g = d["G"][:, GXE_SNP]
+
+    # the aggregate environment at rank[W, E] + 1 = 83 mean columns
+    crm = crp.CellRegMap(y=y, E=d["E"], E1=E1, W=W, Ls=Ls, config=cfg,
+                         device=CARD)
+    crm._ctx
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    agg = crm.estimate_aggregate_environment(g)
+    torch.cuda.synchronize()
+    agg_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    assert counts == expected_launches(null_fit=1), \
+        f"wide covariates aggregate environment: launches {counts}"
+    agg_c = crp.CellRegMap(y=y, E=d["E"], E1=E1, W=W, Ls=Ls, config=cfg,
+                           device="cpu").estimate_aggregate_environment(g)
+    assert agg.shape == (n,) and np.isfinite(agg).all()
+    gap = float(np.max(np.abs(agg - agg_c)))
+    assert gap <= 1e-5, f"wide covariates aggregate: |gpu - cpu| = {gap}"
+    M = np.concatenate([B, g[:, None]], axis=1)
+    delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi, cfg.n_delta_grid,
+                 cfg.n_golden_iters)
+    (args, kw), = capture_kernel_inputs(
+        lambda: engine.mean_fit(crm._ctx, torch.as_tensor(M, device=CARD), n,
+                                True, delta_cfg), ["null_fit"])["null_fit"]
+    data, _, restricted, lo, hi, n_grid, n_iters = args
+    fits = k10.null_fit(*args, **kw)
+    plain = k10.null_fit_plain(*args, **kw)
+    torch.cuda.synchronize()
+    gaps = k10.fit_gaps(fits, plain, data, n, restricted)
+    assert max(gaps.values()) <= 1e-10, f"null_fit (83 columns): {gaps}"
+    nrho, R = data.S.shape
+    p = data.Xt.shape[2]
+    evals = nrho * (n_grid + n_iters + 3 + 1)
+    b_ms, b_by = bound(evals * R * 2 * (p * (p + 1) // 2 + p + 2),
+                       F64 * (nrho * R * (p + 2) + nrho * (p * p + p + 1)
+                              + nrho * (p + 6)))
+    k10_row = dict(
+        name=f"null_fit (wide, p = {p})", route="cuda",
+        source="cellregmap_tpu_torch/csrc/null_fit.cu",
+        replaces="cellregmap_tpu/engine.py:849",
+        max_abs_err=float((fits.lml - plain.lml).abs().max()),
+        ms=cuda_ms(lambda: k10.null_fit(*args, **kw), reps=5),
+        plain_ms=cuda_ms(lambda: k10.null_fit_plain(*args, **kw), reps=3,
+                         warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, gaps=gaps,
+        shapes=dict(nrho=nrho, R=R, p=p), launches=counts["null_fit"],
+        tolerance="lml, plain lml at the kernel's delta, beta and scale "
+                  "at that delta: rel <= 1e-10")
+    del crm, args, kw, data, fits, plain
+
+    # one batch of effect sizes at q = C + rank[W, E] + 2 = 134
+    G = d["G"][:, :cpu_check]
+    maf = d["maf"][:cpu_check]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    bg, bgxe = crp.estimate_betas(d["y"], W, d["E"], G, maf=maf, hK=d["hK"],
+                                  config=cfg, device=CARD)
+    torch.cuda.synchronize()
+    betas_s = time.perf_counter() - t0
+    c_betas = kernels.launch_counts()
+    assert c_betas == expected_launches(kr_contract=3, woodbury_family=9), \
+        f"wide covariates betas: launches {c_betas}"
+    assert np.isfinite(bg).all() and np.isfinite(bgxe).all(), \
+        "wide covariates betas: non-finite effect sizes"
+    Lh = crp.get_L_values(d["hK"], d["E"])
+    norm = 1.0 / np.sqrt(2 * maf * (1 - maf))
+    res, bctx_card = {}, None
+    for dev in (CARD, "cpu"):
+        bctx = engine.build_betas_context(d["y"], W, d["E"], Lh,
+                                          rho_grid=np.linspace(0, 1, 11),
+                                          device=dev)
+        bg_d, _, info = engine.predict_interaction_batch(
+            bctx, torch.as_tensor(G, device=dev),
+            torch.as_tensor(norm, device=dev), n,
+            localize_f32=cfg.hybrid_localization)
+        res[dev] = (bg_d.cpu().numpy(), info["rho1"].cpu().numpy(),
+                    info["lml"].cpu().numpy())
+        if dev == CARD:
+            bctx_card = bctx
+    (bg_g, rho_g, lml_g), (bg_c, rho_c, lml_c) = res[CARD], res["cpu"]
+    flipped = rho_g != rho_c
+    lml_gap = np.abs(lml_g - lml_c)
+    assert np.all(lml_gap[flipped] < 1e-4), \
+        f"wide covariates betas: rho flips at lml gaps {lml_gap[flipped]}"
+    bg_gap = float(np.max(np.abs(bg_g - bg_c)[~flipped]))
+    assert bg_gap <= 1e-7, f"wide covariates betas: |beta_g gpu - cpu| = " \
+        f"{bg_gap}"
+    Gt = torch.as_tensor(G, device=CARD).contiguous()
+    k9_row = check_woodbury_family(bctx_card, Gt,
+                                   torch.as_tensor(norm, device=CARD), n,
+                                   tag="q = 134", with_library=False,
+                                   reps=2)
+    k9_row["launches"] = c_betas["woodbury_family"]
+    out = dict(n_cells=n, n_contexts=C, p=WIDE_COVARIATES["p"],
+               mean_columns=M.shape[1], q=k9_row["shapes"]["q"],
+               aggregate_s=agg_s, aggregate_max_abs_diff_cpu=gap,
+               null_fit_gaps=gaps, betas_s=betas_s, launches=c_betas,
+               betas_cpu_check=dict(n=cpu_check,
+                                    rho_flips=int(flipped.sum()),
+                                    max_abs_beta_g_diff=bg_gap,
+                                    max_lml_gap=float(lml_gap.max())))
+    del bctx, bctx_card, Gt
+    # hand the phase's cached blocks back: the later scans size their
+    # batches by the card's free memory
+    torch.cuda.empty_cache()
+    print("wide covariates (C = 50, p = 32): " + json.dumps(out), flush=True)
+    for r in (k10_row, k9_row):
+        print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
+              f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
+              f"{r['plain_ms']:.4f}  bound_ms {r['bound_ms']:.4f} "
+              f"({r['bound_by']}); "
+              + json.dumps({k: r[k] for k in ("shapes", "split_ms", "gaps")
+                            if k in r}), flush=True)
+    return out, [k10_row, k9_row]
+
+
 def _gene_ctx(ctx, Y):
     """``ctx`` with the phenotypes Y (n, genes) on a leading gene axis, on
     the card."""
@@ -2254,7 +2421,8 @@ def main() -> int:
               + json.dumps({k: r[k] for k in ("shapes", "calls",
                                               "points_per_variant", "flops",
                                               "nbytes", "f32_excess",
-                                              "f64_rel", "k1_betas_rel")
+                                              "f64_rel", "k1_betas_rel",
+                                              "split_ms")
                              if k in r}),
               flush=True)
 
@@ -2266,6 +2434,8 @@ def main() -> int:
     _, c_agg = aggregate_environment_phase(d, cfg)
     _, k10_wide = wide_phase(cfg)
     rows.append(k10_wide)
+    _, wide_cov_rows = wide_covariates_phase(cfg)
+    rows += wide_cov_rows
 
     # --- the gene-batched association scans, then checkpointed scans ---
     _, c_amg, amg_rows, crm_assoc = assoc_multigene_phase(d, cfg, Ls)
@@ -2303,7 +2473,8 @@ def main() -> int:
             r["launches"] = c_betas["woodbury_family"]
         elif r["name"] in ("sym_eigvalsh", "mixture_tails"):
             r["launches"] = c_auto[r["name"]]
-        elif r["name"] == "null_fit (wide)":
+        elif r["name"] == "null_fit (wide)" or any(r is w
+                                                   for w in wide_cov_rows):
             pass
         elif r["name"] == "null_fit (genes)":
             r["launches"] = c_amg["null_fit"] + c_arm["null_fit"]

@@ -1,26 +1,38 @@
-"""K1 (``csrc/kr_contract.cu``) and the wide K3 localize
-(``csrc/reml_newton.cu``) of this checkout against another checkout's, on
-the same operands, on one card in one process:
+"""K1 (``csrc/kr_contract.cu``), the wide K3 localize
+(``csrc/reml_newton.cu``), the wide K10 (``csrc/null_fit.cu``) and K9
+(``csrc/woodbury_family.cu``) of this checkout against another checkout's,
+on the same operands, on one card in one process:
 
 * K1 on the three contractions of a headline interaction batch (2000
   cells, 10 contexts, 100 donors, 512 variants: T = Z^T (E0 o G), A^T A,
   A^T W), each call apart;
 * K3's localize at ``covariates_24`` (the headline dataset with W = [1, 23
   columns of N(0, 1), rng 24], 21 rho points) and at p = 8 (the first 8
-  columns of that W), both from the batch's own K2 brackets.
+  columns of that W), both from the batch's own K2 brackets;
+* the wide K10 on the aggregate environment's mean fit at 50 contexts
+  (``chip_smoke.WIDE``: 2000 cells, 100 donors, an E1 of 10 seeded
+  contexts; p = rank[W, E] + 1 = 52 mean columns, R = 2000, 11 rho);
+* K9 on each of the 9 calls of one headline effect-size batch (512
+  variants, Rk = 1000, q = 23: five f32 zoom rounds, three f64 rounds, the
+  f64 fit with coefficients), each call apart and their sums by precision.
 
 The operands come from this checkout's engine; the other checkout's
 package is loaded under another name, builds its own kernels into its own
 ``build/``, and is called through its own wrappers (whose signatures are
 the same).  Each call is held to this checkout's plain version (K1 within
 1e-12 of max|plain|; the localize with k_best equal, x within rel 1e-9 and
-lml within rel 1e-10), then timed by CUDA events (the median of 20 runs,
-10 for the localize) in the order other, this, this, other, and profiled
-with ``torch.profiler`` (device milliseconds a call in each kernel).
-Prints one JSON line per call and one of the whole; ``--out`` also writes
-that line to a file.
+lml within rel 1e-10; K10 through ``null_fit.fit_gaps`` at 1e-10; K9 f64
+lml within 1e-10 of max(|lml|, 1) with the same non-finite points, beta
+and rss within 1e-9 of their largest entry, f32 through
+``woodbury_family.f32_gaps``), then timed by CUDA events (the median of 20
+runs, 10 for the localize and K9, 5 for K10) in the order other, this,
+this, other, and profiled with ``torch.profiler`` (device milliseconds a
+call in each kernel).  Prints one JSON line per call and one of the whole;
+``--out`` also writes that line to a file; ``--kernels`` picks some of
+k1, k3, k10, k9.
 
     python3 scripts/profile_kernel_ab.py --other <checkout> [--out FILE]
+        [--kernels k10,k9]
 """
 import argparse
 import importlib.util
@@ -37,7 +49,12 @@ import cellregmap_tpu_torch as crp  # noqa: E402
 from cellregmap_tpu_torch import engine  # noqa: E402
 from cellregmap_tpu_torch.kernels import _build  # noqa: E402
 from cellregmap_tpu_torch.kernels import kr_contract as k1  # noqa: E402
+from cellregmap_tpu_torch.kernels import null_fit as k10  # noqa: E402
 from cellregmap_tpu_torch.kernels import reml_newton as k3  # noqa: E402
+from cellregmap_tpu_torch.kernels import woodbury_family as k9  # noqa: E402
+
+KERNELS = {"k1": "kr_contract", "k3": "reml_newton", "k10": "null_fit",
+           "k9": "woodbury_family"}
 
 
 def load_other(root: Path, name="other_crp"):
@@ -48,8 +65,8 @@ def load_other(root: Path, name="other_crp"):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    importlib.import_module(f"{name}.kernels.kr_contract")
-    importlib.import_module(f"{name}.kernels.reml_newton")
+    for kernel in KERNELS.values():
+        importlib.import_module(f"{name}.kernels.{kernel}")
     return mod
 
 
@@ -74,64 +91,173 @@ def compare(name, this_fn, other_fn, check, reps):
     return row
 
 
+def k10_wide_call():
+    """The wide K10's operands on the aggregate environment's mean fit at
+    50 contexts (``chip_smoke.wide_phase``'s dataset and scanner)."""
+    d = cs.make_dataset(**cs.WIDE)
+    n = len(d["y"])
+    rng = np.random.default_rng(cs.WIDE["seed"])
+    E1 = rng.normal(size=(n, 10)) / np.sqrt(10)
+    y = d["y"] + E1 @ rng.normal(size=10)
+    crm = crp.CellRegMap(y=y, E=d["E"], E1=E1, W=d["W"],
+                         Ls=crp.get_L_values(d["hK"], d["E"]),
+                         config=crp.ScanConfig(), device="cuda")
+    cfg = crm._cfg
+    M = np.concatenate([engine.reduced_design_basis(d["W"], d["E"]),
+                        d["G"][:, cs.GXE_SNP][:, None]], axis=1)
+    (args, kw), = cs.capture_kernel_inputs(
+        lambda: engine.mean_fit(crm._ctx, torch.as_tensor(M, device="cuda"),
+                                n, True, (cfg.delta_logit_lo,
+                                          cfg.delta_logit_hi,
+                                          cfg.n_delta_grid,
+                                          cfg.n_golden_iters)),
+        ["null_fit"])["null_fit"]
+    return args, kw
+
+
+def k9_calls(d):
+    """K9's 9 calls of one headline effect-size batch."""
+    n = len(d["y"])
+    bctx = engine.build_betas_context(
+        d["y"], d["W"], d["E"], crp.get_L_values(d["hK"], d["E"]),
+        rho_grid=np.linspace(0, 1, 11), device="cuda")
+    G = torch.as_tensor(d["G"][:, :cs.BATCH], device="cuda").contiguous()
+    maf = d["maf"][:cs.BATCH]
+    norm = torch.as_tensor(1.0 / np.sqrt(2 * maf * (1 - maf)), device="cuda")
+    return cs.capture_kernel_inputs(
+        lambda: engine.predict_interaction_batch(bctx, G, norm, n,
+                                                 localize_f32=True),
+        ["family_eval"])["family_eval"]
+
+
+def check_k9(args, kw):
+    """K9 against this checkout's plain version, as chip_smoke holds it."""
+    if args[0].dtype == torch.float32:
+        def check(label, got):
+            g = k9.f32_gaps(got, args, kw)
+            assert g["mask"] == 0 and g["excess"] <= 1e-5, f"K9 ({label}): {g}"
+        return check
+    want = k9.family_eval_plain(*args, **kw)
+    want = want if kw.get("want_beta") else (want,)
+
+    def check(label, got):
+        got = got if kw.get("want_beta") else (got,)
+        g = k9.lml_gaps(got[0], want[0])
+        assert g["mask"] == 0 and g["rel"] <= 1e-10, f"K9 ({label}): {g}"
+        for a, b in zip(got[1:], want[1:]):
+            rel = float((a - b).abs().max() / b.abs().max())
+            assert rel <= 1e-9, f"K9 beta/rss ({label}): rel {rel}"
+    return check
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--kernels", default="k1,k3,k10,k9")
     opt = ap.parse_args()
+    picked = opt.kernels.split(",")
+    assert set(picked) <= set(KERNELS), f"--kernels: some of {list(KERNELS)}"
+    sources = tuple(KERNELS[k] for k in picked)
 
     other = load_other(opt.other.resolve())
-    ok1, ok3 = other.kernels.kr_contract, other.kernels.reml_newton
-    _build.build_all(("kr_contract", "reml_newton"))
-    other.kernels._build.build_all(("kr_contract", "reml_newton"))
+    ok = {k: getattr(other.kernels, KERNELS[k]) for k in picked}
+    _build.build_all(sources)
+    other.kernels._build.build_all(sources)
     out = {"card": cs.card_line(), "other": str(opt.other), "calls": []}
 
     d = cs.make_dataset(**cs.HEADLINE)
     n = len(d["y"])
     Ls = crp.get_L_values(d["hK"], d["E"])
     G = torch.as_tensor(d["G"][:, :cs.BATCH], device="cuda").contiguous()
-    ctx = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
-                                    device="cuda")
-    calls = cs.capture_kernel_inputs(
-        lambda: engine.interaction_batch(ctx, G, G, n,
-                                         delta_cfg=cs.DELTA_CFG),
-        ["kr_contract"])["kr_contract"]
-    for (args, _), name in zip(calls, cs.K1_CALLS):
-        ref = k1.kr_contract_plain(*args)
-
-        def check(label, got, ref=ref, name=name):
-            rel = float((got - ref).abs().max() / ref.abs().max())
-            assert rel <= 1e-12, f"K1 {name} ({label}): rel {rel}"
-
-        out["calls"].append(compare(
-            f"kr_contract ({name})", lambda a=args: k1.kr_contract(*a),
-            lambda a=args: ok1.kr_contract(*a), check, reps=20))
-        del ref
-
-    rng = np.random.default_rng(cs.COVARIATES["seed"])
-    W = np.concatenate([np.ones((n, 1)),
-                        rng.normal(size=(n, cs.COVARIATES["p"] - 1))], axis=1)
-    rho = np.linspace(0.0, 1.0, cs.COVARIATES["n_rho"])
-    for p in (cs.COVARIATES["p"], 8):
-        ctx_w = engine.build_null_context(d["y"], W[:, :p], d["E"], Ls=Ls,
-                                          rho_grid=rho, device="cuda")
-        (args, kw), = cs.capture_kernel_inputs(
-            lambda: engine.interaction_batch(ctx_w, G, G, n,
+    if "k1" in picked:
+        ctx = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                        device="cuda")
+        calls = cs.capture_kernel_inputs(
+            lambda: engine.interaction_batch(ctx, G, G, n,
                                              delta_cfg=cs.DELTA_CFG),
-            ["reml_localize"])["reml_localize"]
-        want = k3.reml_localize_plain(*args, **kw)
+            ["kr_contract"])["kr_contract"]
+        for (args, _), name in zip(calls, cs.K1_CALLS):
+            ref = k1.kr_contract_plain(*args)
 
-        def check(label, got, want=want, p=p):
-            assert torch.equal(got[2], want[2]), f"K3 p={p} ({label}): k_best"
-            assert cs._rel(got[0], want[0]) <= 1e-9, f"K3 p={p} ({label}): x"
-            assert cs._rel(got[1], want[1]) <= 1e-10, \
-                f"K3 p={p} ({label}): lml"
+            def check(label, got, ref=ref, name=name):
+                rel = float((got - ref).abs().max() / ref.abs().max())
+                assert rel <= 1e-12, f"K1 {name} ({label}): rel {rel}"
+
+            out["calls"].append(compare(
+                f"kr_contract ({name})", lambda a=args: k1.kr_contract(*a),
+                lambda a=args: ok["k1"].kr_contract(*a), check, reps=20))
+            del ref
+        del ctx, calls
+
+    if "k3" in picked:
+        rng = np.random.default_rng(cs.COVARIATES["seed"])
+        W = np.concatenate([np.ones((n, 1)),
+                            rng.normal(size=(n, cs.COVARIATES["p"] - 1))],
+                           axis=1)
+        rho = np.linspace(0.0, 1.0, cs.COVARIATES["n_rho"])
+        for p in (cs.COVARIATES["p"], 8):
+            ctx_w = engine.build_null_context(d["y"], W[:, :p], d["E"],
+                                              Ls=Ls, rho_grid=rho,
+                                              device="cuda")
+            (args, kw), = cs.capture_kernel_inputs(
+                lambda: engine.interaction_batch(ctx_w, G, G, n,
+                                                 delta_cfg=cs.DELTA_CFG),
+                ["reml_localize"])["reml_localize"]
+            want = k3.reml_localize_plain(*args, **kw)
+
+            def check(label, got, want=want, p=p):
+                assert torch.equal(got[2], want[2]), \
+                    f"K3 p={p} ({label}): k_best"
+                assert cs._rel(got[0], want[0]) <= 1e-9, \
+                    f"K3 p={p} ({label}): x"
+                assert cs._rel(got[1], want[1]) <= 1e-10, \
+                    f"K3 p={p} ({label}): lml"
+
+            out["calls"].append(compare(
+                f"reml_localize (p = {p})",
+                lambda a=args, k=kw: k3.reml_localize(*a, **k),
+                lambda a=args, k=kw: ok["k3"].reml_localize(*a, **k), check,
+                reps=10))
+            del want, ctx_w
+
+    if "k10" in picked:
+        args, kw = k10_wide_call()
+        data, n_c, restricted = args[:3]
+        plain = k10.null_fit_plain(*args, **kw)
+
+        def check(label, got):
+            gaps = k10.fit_gaps(got, plain, data, n_c, restricted)
+            assert max(gaps.values()) <= 1e-10, f"K10 wide ({label}): {gaps}"
 
         out["calls"].append(compare(
-            f"reml_localize (p = {p})",
-            lambda a=args, k=kw: k3.reml_localize(*a, **k),
-            lambda a=args, k=kw: ok3.reml_localize(*a, **k), check, reps=10))
-        del want, ctx_w
+            f"null_fit (wide, p = {data.Xt.shape[2]})",
+            lambda: k10.null_fit(*args, **kw),
+            lambda: ok["k10"].null_fit(*args, **kw), check, reps=5))
+        del args, kw, data, plain
+
+    if "k9" in picked:
+        rows = []
+        for i, (args, kw) in enumerate(k9_calls(d)):
+            kind = ("f32" if args[0].dtype == torch.float32
+                    else "f64 beta" if kw.get("want_beta") else "f64")
+            rows.append(compare(
+                f"woodbury_family (call {i}: {kind}, "
+                f"L = {args[0].shape[1]})",
+                lambda a=args, k=kw: k9.family_eval(*a, **k),
+                lambda a=args, k=kw: ok["k9"].family_eval(*a, **k),
+                check_k9(args, kw), reps=10))
+            rows[-1]["kind"] = kind
+        out["calls"] += rows
+        sums = {}
+        for r in rows:
+            for side, ms in r["ms"].items():
+                key = (r["kind"].split()[0], side)
+                sums.setdefault(key, [0.0] * len(ms))
+                sums[key] = [a + b for a, b in zip(sums[key], ms)]
+        out["woodbury_family_sums_ms"] = {
+            f"{kind} {side}": ms for (kind, side), ms in sums.items()}
+        print(json.dumps(out["woodbury_family_sums_ms"]), flush=True)
     line = json.dumps(out)
     print(line, flush=True)
     if opt.out:

@@ -67,13 +67,15 @@ inline unsigned char emu_xchg[1024][8];
 #define __forceinline__ inline
 #define __shared__ static
 #define __restrict__
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
+inline float __frcp_rn(float x) { return 1.0f / x; }
+inline double __drcp_rn(double x) { return 1.0 / x; }
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_warp_barriers[threadIdx.x / 32]->arrive_and_wait();

@@ -7,8 +7,46 @@ exceed their eigenbasis parts by a PSD complement, as in the engine.  The
 fit kernels take their operands from the engine itself: a small dataset's
 null context (:func:`fit_dataset`) run through the engine with the
 wrappers' arguments recorded (:func:`captured`).
+
+:func:`jax_davies_library` keeps the JAX reference's Davies p-values
+steady under pytest-xdist (import it into a test module: it is autouse).
 """
+import os
+
 import numpy as np
+import pytest
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_davies_library(tmp_path_factory):
+    """The JAX package's native Davies library, loaded in this process.
+
+    The package compiles it at first use into one cache file shared by
+    every process (``cellregmap_tpu/utils/native.py``) and loads it once
+    a process.  A worker that finds the file while another worker is still
+    writing it fails to load it and, for the rest of its life, takes the
+    package's Python ladder (Imhof / modified Liu) instead: interaction
+    p-values up to 1.9e-7 away from Davies' (seen on
+    ``test_interaction_p8_matches_jax`` under six workers, and reproduced
+    with a truncated library in a fresh cache).  Where this process's load
+    failed, the library is built again into a cache of the worker's own and
+    loaded from there, so the reference is the package's Davies path."""
+    from cellregmap_tpu.utils import native
+
+    if native.get_qfc() is None:
+        saved = os.environ.get("CELLREGMAP_TPU_CACHE")
+        os.environ["CELLREGMAP_TPU_CACHE"] = str(
+            tmp_path_factory.mktemp("jax_qfc"))
+        try:
+            native._TRIED = False
+            native.get_qfc()
+        finally:
+            if saved is None:
+                del os.environ["CELLREGMAP_TPU_CACHE"]
+            else:
+                os.environ["CELLREGMAP_TPU_CACHE"] = saved
+    assert native.get_qfc() is not None, \
+        "the JAX package's Davies library did not load"
 
 
 def kr_inputs(seed, n=97, K=23, p=3, S=37):

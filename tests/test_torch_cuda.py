@@ -221,6 +221,31 @@ def test_null_fit_kernel_matches_plain(cuda, p, restricted):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("restricted", [False, True])
+def test_null_fit_wide_kernel_at_the_envelope(cuda, restricted):
+    """K10 at p = 97 mean columns (rank[W, E] + 1 at p = 32, C = 64), 11
+    rho points, the interaction's 256-point grid and 60 golden steps."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+
+    p = 97
+    ctx, G, n = fit_dataset(50 + p, p=p - 1 if restricted else p, nrho=11,
+                            n=600, C=4, donors=30, device=cuda)
+    M = torch.cat([ctx.W, G[:, :1]], dim=1) if restricted else ctx.W
+    calls = captured(lambda: engine._fit_over_rho(
+        ctx, ctx.Z.T @ M, M.T @ M, M.T @ ctx.y, n, restricted,
+        (-18.0, 18.0, 256, 60)), ["null_fit"])
+    (args, kw), = calls["null_fit"]
+    assert args[0].Xt.shape[2] == p
+    before = k10.launches
+    fits = k10.null_fit(*args, **kw)
+    assert k10.launches == before + 1
+    gaps = k10.fit_gaps(fits, k10.null_fit_plain(*args, **kw), args[0], n,
+                        restricted)
+    assert max(gaps.values()) <= 1e-10, gaps
+
+
+@pytest.mark.cuda
 def test_association_on_card_matches_cpu(cuda):
     """A small association scan on the card equals the same scan on the
     CPU, through the null-fit, grid and Newton kernels."""
@@ -274,16 +299,17 @@ def test_fast_scan_kernel_matches_plain(cuda, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,n,donors,S", [(10, 2000, 100, 64),
-                                          (31, 800, 20, 24),
-                                          (50, 400, 6, 8)])
-def test_woodbury_family_kernel_matches_plain(cuda, C, n, donors, S):
+@pytest.mark.parametrize("C,p,n,donors,S", [(10, 1, 2000, 100, 64),
+                                            (31, 1, 800, 20, 24),
+                                            (50, 1, 400, 6, 8),
+                                            (64, 32, 800, 8, 8)])
+def test_woodbury_family_kernel_matches_plain(cuda, C, p, n, donors, S):
     """The effect sizes' K9 calls at the headline's q = 23 (Rk = 1000),
-    q = 65 and q = 103."""
+    q = 65, q = 103 and the envelope's corner q = 64 + 96 + 2 = 162."""
     from cellregmap_tpu_torch import engine
     from cellregmap_tpu_torch.kernels import woodbury_family as k9
 
-    bctx, G, norm, n = betas_dataset(C, n=n, C=C, donors=donors, S=S,
+    bctx, G, norm, n = betas_dataset(C, p=p, n=n, C=C, donors=donors, S=S,
                                      device=cuda)
     calls = captured(lambda: engine.predict_interaction_batch(
         bctx, G, norm, n, localize_f32=True), ["family_eval"])

@@ -33,6 +33,7 @@ from cellregmap_tpu import oracle
 from cellregmap_tpu_torch import engine as tengine
 from test_api import _dataset
 from test_many_contexts import _dataset as _c50_dataset
+from _torch_inputs import jax_davies_library  # noqa: F401
 
 DELTA_CFG = (-18.0, 18.0, 64, 60)
 

@@ -25,7 +25,8 @@ import cellregmap_tpu as crt
 import cellregmap_tpu_torch as crp
 from cellregmap_tpu import engine as jengine
 from cellregmap_tpu_torch import engine as tengine
-from _torch_inputs import assert_tails_close, captured
+from _torch_inputs import (assert_tails_close, captured,  # noqa: F401
+                           jax_davies_library)
 from test_api import _dataset
 
 DELTA_CFG = (-18.0, 18.0, 64, 60)

@@ -16,6 +16,7 @@ from cellregmap_tpu import oracle
 from cellregmap_tpu.models import pvalues as jpv
 from cellregmap_tpu_torch.models import pvalues as tpv
 from cellregmap_tpu_torch.utils.native import get_qfc
+from _torch_inputs import jax_davies_library  # noqa: F401
 
 
 def _random_spectra(rng, n_cases, max_c=6):

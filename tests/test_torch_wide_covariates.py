@@ -13,10 +13,10 @@ CPU, and the envelope's refusal at construction.
 2. a scanner on the card whose shape lies past the card's kernels (p > 32
    columns of W, C > 64 contexts, more than 64 rho points) raises
    ``ValueError`` naming the limit when it is made, before the null
-   context is built; effect sizes past K9's q = C + rank[W, E] + 2 <= 128
-   raise before the betas context is built, and the aggregate environment
-   past K10's rank[W, E] + 1 <= 64 mean columns before the null context
-   is built.  Without a card, the device
+   context is built; inside the envelope, up to its corner (p = 32, C =
+   64), the effect sizes (K9, q = C + rank[W, E] + 2 <= 162) and the
+   aggregate environment (K10, rank[W, E] + 1 <= 97 mean columns) go on to
+   their setup with no refusal.  Without a card, the device
    is made to read as CUDA (``api._resolve_device``) and the factorizations
    are replaced by functions that fail the test if called.
 """
@@ -29,6 +29,7 @@ import cellregmap_tpu as crt
 import cellregmap_tpu_torch as crp
 from cellregmap_tpu import oracle
 from cellregmap_tpu_torch import api, engine
+from _torch_inputs import jax_davies_library  # noqa: F401
 
 N_RHO = 21
 
@@ -148,19 +149,30 @@ def test_card_scanner_at_the_envelope_is_accepted(card):
     assert crm.device.type == "cuda" and len(crm._rho_grid) == 64
 
 
-def test_card_effect_sizes_refused_before_setup(card):
-    """C + rank[W, E] + 2 = 60 + 90 + 2 > 128: the effect sizes raise
-    before the betas context is built."""
-    d = _data(p=30, C=60, n=120)
+# (p, C): effect sizes at q = C + rank[W, E] + 2 = 152 and the aggregate
+# environment at rank[W, E] + 1 = 91 mean columns (past PR 7's 128 and 64),
+# and the envelope's corner, q = 162 and 97 mean columns
+WIDEST = [(30, 60), (32, 64)]
+
+
+@pytest.mark.parametrize("p,C", WIDEST)
+def test_card_effect_sizes_taken_to_setup(card, p, C):
+    """K9 takes every q the envelope allows: the effect sizes go on to
+    build the betas context (the ``card`` fixture's stand-in fails there)
+    with no ``ValueError`` first."""
+    d = _data(p=p, C=C, n=120)
     crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], hK=d["hK"])
-    with pytest.raises(ValueError, match="q = C \\+ rank"):
+    with pytest.raises(AssertionError, match="setup ran"):
         crm.predict_interaction(d["G"], np.full(d["G"].shape[1], 0.3))
 
 
-def test_card_aggregate_environment_refused_before_setup(card):
-    """rank[W, E] + 1 = 90 + 1 > 64 mean columns: the aggregate environment
-    raises, naming K10's limit, before the null context is built."""
-    d = _data(p=30, C=60, n=120)
+@pytest.mark.parametrize("p,C", WIDEST)
+def test_card_aggregate_environment_taken_to_setup(card, p, C):
+    """K10 takes every count of mean columns the envelope allows: the
+    aggregate environment goes on to build the null context with no
+    ``ValueError`` first."""
+    d = _data(p=p, C=C, n=120)
     crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], hK=d["hK"])
-    with pytest.raises(ValueError, match="rank\\[W, E\\] \\+ 1 <= 64"):
+    assert engine.reduced_design_basis(d["W"], d["E"]).shape[1] == p + C
+    with pytest.raises(AssertionError, match="setup ran"):
         crm.estimate_aggregate_environment(d["G"][:, 0])
