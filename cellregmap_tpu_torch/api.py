@@ -26,7 +26,7 @@ import hashlib
 
 from . import engine
 from ._config import DEFAULT_CONFIG, ScanConfig
-from .kernels import delta_grid, reml_newton, score_core, sym_eigvalsh
+from .kernels import delta_grid, score_core, sym_eigvalsh
 from .kernels.delta_grid import MAX_GENES
 from .models import pvalues as pv_mod
 from .ops.hadamard import get_L_values
@@ -40,8 +40,9 @@ from .utils.maf import compute_maf
 _INFO_KEYS = ("Q", "rho1", "e2", "g2", "eps2")
 _TAIL_KEYS = ("pv_liu", "pv_saddlepoint")
 _PVALUE_METHODS = ("davies", "liu", "saddlepoint", "auto")
-# K4 launches one grid row per (gene, variant) pair: CUDA's grid y-extent
-# limit
+# the most variants a batch takes, with or without a gene tile: the
+# kernels' grids put the variants on their 2^31-wide dimension and the
+# genes on a 65535-wide one, so a gene tile does not shrink it
 _MAX_BATCH = 65535
 
 
@@ -70,24 +71,21 @@ def _resolve_device(device=None) -> torch.device:
 # takes (csrc/*.cu), checked when a scanner on the card is made, so that a
 # refused shape costs no setup time.  p counts W's columns, the intercept
 # included (K2, K3 and K5: p + 1 <= 33; K8: p <= 32); C the score
-# contexts (K6a: C <= 64; K5: C + p + 2 <= 98); the rho grid K3's
-# localize block.  Inside it rank[W, E] <= p + C <= 96, which the effect
+# contexts (K6a: C <= 64; K5: C + p + 2 <= 98).  The rho grid has no
+# limit of its own.  Inside it rank[W, E] <= p + C <= 96, which the effect
 # sizes (K9: q = C + rank[W, E] + 2 <= 162 columns) and the aggregate
 # environment (K10: rank[W, E] + 1 <= 128 mean columns) take.
 CARD_MAX_COVARIATES = min(delta_grid.MAX_FIXED, score_core.MAX_FIXED) - 1
 CARD_MAX_CONTEXTS = sym_eigvalsh.MAX_C
-CARD_MAX_RHO = reml_newton.MAX_RHO
 
 
-def _check_card_envelope(p: int, C: int, n_rho: int) -> None:
+def _check_card_envelope(p: int, C: int) -> None:
     """Raise ValueError, naming the limit and the shape, where the card's
     kernels would refuse the scanner's shapes."""
     for what, got, limit in (("covariates (columns of W)", p,
                               CARD_MAX_COVARIATES),
                              ("contexts (columns of E)", C,
-                              CARD_MAX_CONTEXTS),
-                             ("rho grid points (config.n_rho)", n_rho,
-                              CARD_MAX_RHO)):
+                              CARD_MAX_CONTEXTS)):
         if got > limit:
             raise ValueError(
                 f"the card's kernels take at most {limit} {what}, got {got}; "
@@ -258,8 +256,7 @@ class CellRegMap:
         else:
             self._rho_grid = np.array([1.0])
         if self._device.type == "cuda":
-            _check_card_envelope(W.shape[1], E0.shape[1],
-                                 len(self._rho_grid))
+            _check_card_envelope(W.shape[1], E0.shape[1])
         self._y, self._W, self._E0, self._E1 = y, W, E0, E1
         self._Ls, self._hK = Ls, hK
         self._n = n
@@ -424,8 +421,10 @@ class CellRegMap:
         algebra (~3 copies), and the (n,) genotype column (~3 copies); Rk
         is the background's width, read without the null context.
         ``multigene``: per (gene, variant) of a ``genes``-gene tile, the
-        interaction kind's Newton families, score factor and weight matrix;
-        per variant, the genotype-weighted operands once.
+        interaction kind's Newton families and the weight matrix; per
+        variant, the score factor in K1's layout and in K4's transposed
+        scratch, K4's m = min(genes, nrho) factor slots, and the
+        genotype-weighted operands once.
         ``association_multigene``: per variant, the genotype column (~3
         copies) and [W | G] rotated at each of the tile's m <=
         min(genes, nrho) distinct best rho; per (gene, variant), the
@@ -450,8 +449,9 @@ class CellRegMap:
                 per_variant = 8 * (48 * nrho * R + 4 * R * C
                                    + 3 * self._n * (C + p))
             elif kind == "multigene":
-                per_variant = 8 * (genes * (48 * nrho * R + 4 * R * C
-                                            + C * C)
+                m = min(genes, nrho)
+                per_variant = 8 * (genes * (48 * nrho * R + C * C)
+                                   + (2 + m) * R * C
                                    + 3 * self._n * (C + p))
             elif kind == "association_multigene":
                 m = min(genes, nrho)
@@ -778,7 +778,7 @@ class CellRegMap:
         with trace.trace_scope("multigene/setup", timers, dev):
             ctx = self._ctx
         batch = min(cfg.snp_batch, self._auto_batch_cap("multigene", gtile),
-                    _MAX_BATCH // gtile, max(G.shape[1], 1))
+                    _MAX_BATCH, max(G.shape[1], 1))
         Gp, n_snps = _pad_batch(G, batch)
         Yp, _ = _pad_batch(Y, gtile)
         delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
@@ -852,7 +852,7 @@ class CellRegMap:
         with trace.trace_scope(f"{kind}/setup", timers, dev):
             ctx = self._ctx
         batch = min(cfg.snp_batch, self._auto_batch_cap(kind, gtile),
-                    _MAX_BATCH // gtile, max(G.shape[1], 1))
+                    _MAX_BATCH, max(G.shape[1], 1))
         Gp, n_snps = _pad_batch(G, batch)
         Yp, _ = _pad_batch(Y, gtile)
         delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,

@@ -1,99 +1,376 @@
 // K4: best-rho rotation of the score factor, f64, for sm_90a.
 //
-//   At[s, q, c] = sum_r V[k_s, r, q] * T[r, c, s]        -> (S, R, C)
+//   At[g, s, q, c] = sum_r V[k_gs, r, q] * T[r, c, s]
 //
 // V (nrho, R, R) holds the per-rho eigenvectors, T (R, C, S) the
-// Khatri-Rao rotated score factor (K1's output layout), k_s the variant's
-// best rho.
+// Khatri-Rao rotated score factor (K1's output layout), k_gs gene g's best
+// rho at variant s (one gene for a single phenotype; a tile of genes for
+// the gene-batched scan, all rotating the one shared T).
 //
 // Replaces: cellregmap_tpu/engine.py `interaction_batch` lines 672-688,
 // which on the TPU ran as a masked sum over ALL nrho rotations
-// (nrho x 2 R^2 C S flop) because the gathered form's thin (R, R) @ (R, C)
-// products tile-padded the MXU.  Here each variant is rotated once, at its
-// own k_s: 2 R^2 C S flop, 1/nrho of the JAX form.
+// (nrho x 2 R^2 C S flop).
 //
-// What bounds it on the H100: operations.  At the headline (R=1010, C=10,
-// S=512) it does 1.0e10 flop; its inputs are V (90 MB for 11 rho), T and
-// At (41 MB each).  The catch is reuse: each variant reads all of its
-// V[k_s] (8 MB), i.e. 4 GB of V reads per batch, which only the 50 MB L2
-// can serve at speed.
+// The contract: each distinct (rho, variant) pair is rotated and stored
+// once.  At variant s the rho points that some gene picks are ranked in
+// ascending order; slot[g, s] is the rank of k_gs, and
 //
-// Gene axis: the gene-batched scan rotates one score factor T for every
-// gene of a tile, each gene at its own k_s: the blocks run over (gene,
-// variant) pairs, T is read once per pair and never copied.
+//   At_slots[slot[g, s], s] = V[k_gs]^T T[:, :, s]      (m, S, R, C)
 //
-// Design: one block per (pair, 128-wide q tile, 16-wide c block).  The
-// block walks r in chunks of 32, staging T[r-chunk, c-block, s] in shared
-// memory; each thread owns one output row q, reads V[k_s, r, q] coalesced
-// along q, and keeps 16 accumulators in registers (FMA).  The wrapper
-// passes the pairs in k_best order (`order`), so blocks that share one
-// V[k] are scheduled together and hit it in L2.  Simple and correct: no
-// DMMA tiles, no cp.async/TMA staging yet.
+// with m = min(genes, nrho) slots (one for a single phenotype, so that
+// At_slots is the (S, R, C) score factor).  Genes that share a best rho
+// share its product: at 16 genes x 512 variants (11 rho) only ~500 of the
+// 8192 products are distinct.  Slots past a variant's count of distinct
+// rho are never written (the caller allocates At_slots uninitialised).
+//
+// What bounds it on the H100: operations, 2 R^2 C flop per distinct pair
+// (1.05e10 at R = 1010, C = 10, 512 pairs), on the FP64 tensor cores.
+//
+// Design: a grouped GEMM, one group per rho k.  The variants that any gene
+// sends to k, in ascending order, give N_k = C n_k columns (variant-major,
+// context-minor), multiplied by the R x R V[k]^T.  Four launches from one
+// entry point, with no host between them:
+// * rotate_slots_kernel, a thread a variant: the used (k, s) pairs, their
+//   ranks (the slots) and slot[g, s];
+// * rotate_lists_kernel, a block a rho: the variants that use k, in order
+//   (a block-wide prefix sum), and their count n_k;
+// * rotate_transpose_kernel: T (R, C, S) to Tt (S, R, C), so that a
+//   variant's rows of C contexts are contiguous (a gathered column of T
+//   would read one 32-byte sector for each 8-byte value);
+// * rotate_gemm_kernel: one block per (64-column tile of one rho's
+//   columns, 64-row q tile), four warps of 32 x 32 on mma.sync m16n8k8
+//   (dmma.cuh), fed by a three-stage cp.async ring of 32-row chunks of
+//   V[k] (16-byte copies) and of the gathered Tt columns (8-byte copies),
+//   as K1's T (kr_contract.cu).  The work list is (rho, column tile) in
+//   rho order, read from the counts by each block; the grid is sized for
+//   the most tiles the pairs could need, and a block past the last tile
+//   exits at once.  The q tiles of a column tile run next to each other
+//   (its Tt columns stay in L2), and a rho's tiles follow one another
+//   (its V[k], 8 MB, stays in L2).
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "async_copy.cuh"
+#include "dmma.cuh"
+
 namespace {
 
-constexpr int QT = 128;  // q tile, one thread per output row
-constexpr int RC = 32;   // r chunk staged in shared memory
-constexpr int CB = 16;   // c block held in registers
+constexpr int THREADS = 128;   // four warps
+constexpr int NC = 32;         // rows of r a staged chunk
+constexpr int STAGES = 3;      // chunks in flight
+constexpr int PAD = 4;         // row padding: 4 mod 16 doubles
+constexpr int BM = 64;         // q rows a block (two warps)
+constexpr int BN = 64;         // columns a block (two warps)
+constexpr int LDA = BM + PAD;
+constexpr int LDB = BN + PAD;
+constexpr int STAGE = NC * (LDA + LDB);  // doubles a stage
+constexpr int SCAN = 256;      // threads of a lists block
 
-__global__ void __launch_bounds__(QT)
-best_rho_rotate_kernel(const double* __restrict__ V,
-                       const double* __restrict__ T,
-                       const int64_t* __restrict__ k_best,
-                       const int64_t* __restrict__ order,
-                       double* __restrict__ At, int R, int C, int S) {
-  __shared__ double Ts[RC][CB];
-  const int64_t pair = order[blockIdx.y];  // gene * S + variant
-  const int64_t s = pair % S;
-  const int q = blockIdx.x * QT + threadIdx.x;
-  const int c0 = blockIdx.z * CB;
-  const double* Vk = V + k_best[pair] * (int64_t)R * R;
+inline int64_t round_up(int64_t a, int64_t b) {
+  return (a + b - 1) / b * b;
+}
 
-  double acc[CB];
-#pragma unroll
-  for (int cc = 0; cc < CB; ++cc) acc[cc] = 0.0;
+// the scratch, in bytes: rank (nrho, S) and list (nrho, S) int32, count
+// (nrho,) int32, then Tt (S, R, C) f64 at a 256-byte boundary
+struct Layout {
+  int64_t rank, list, count, tt, total;
+};
 
-  for (int r0 = 0; r0 < R; r0 += RC) {
-    for (int i = threadIdx.x; i < RC * CB; i += QT) {
-      const int rr = i / CB, cc = i % CB;
-      const int r = r0 + rr, c = c0 + cc;
-      Ts[rr][cc] = (r < R && c < C) ? T[((int64_t)r * C + c) * S + s] : 0.0;
-    }
+inline Layout layout(int nrho, int R, int C, int S) {
+  Layout L;
+  const int64_t ks = (int64_t)nrho * S * 4;
+  L.rank = 0;
+  L.list = round_up(ks, 256);
+  L.count = L.list + round_up(ks, 256);
+  L.tt = L.count + round_up((int64_t)nrho * 4, 256);
+  L.total = L.tt + (int64_t)S * R * C * 8;
+  return L;
+}
+
+// tiles of 64 columns that the pairs could need at most: C P / 64 + nrho
+// with P <= min(genes, nrho) S distinct pairs
+inline int64_t max_tiles(int nrho, int C, int S, int genes) {
+  const int64_t m = genes < nrho ? genes : nrho;
+  return (int64_t)C * m * S / BN + nrho;
+}
+
+// rank[k, s]: the slot of rho k at variant s (-1 where no gene picks it);
+// slot[g, s] = rank[k_best[g, s], s]
+__global__ void rotate_slots_kernel(const int64_t* __restrict__ k_best,
+                                    int* __restrict__ rank,
+                                    int64_t* __restrict__ slot, int nrho,
+                                    int S, int genes) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  for (int k = 0; k < nrho; ++k) rank[(int64_t)k * S + s] = -1;
+  for (int g = 0; g < genes; ++g)  // marked 0: picked by some gene
+    rank[k_best[(int64_t)g * S + s] * S + s] = 0;
+  int used = 0;
+  for (int k = 0; k < nrho; ++k) {
+    int* r = rank + (int64_t)k * S + s;
+    if (*r == 0) *r = used++;
+  }
+  for (int g = 0; g < genes; ++g) {
+    const int64_t i = (int64_t)g * S + s;
+    slot[i] = rank[k_best[i] * S + s];
+  }
+}
+
+// list[k, 0 .. n_k): the variants at which some gene picks rho k, in
+// ascending order; count[k] = n_k.  A block a rho, a prefix sum over each
+// SCAN variants in shared memory.
+__global__ void __launch_bounds__(SCAN)
+rotate_lists_kernel(const int* __restrict__ rank, int* __restrict__ list,
+                    int* __restrict__ count, int S) {
+  __shared__ int scan[2][SCAN];
+  const int k = blockIdx.x;
+  const int t = threadIdx.x;
+  const int* rk = rank + (int64_t)k * S;
+  int* lk = list + (int64_t)k * S;
+  int base = 0;
+  for (int s0 = 0; s0 < S; s0 += SCAN) {
+    const int s = s0 + t;
+    const int flag = s < S && rk[s] >= 0 ? 1 : 0;
+    int cur = 0;
+    scan[0][t] = flag;
     __syncthreads();
-    if (q < R) {
-      const int rmax = min(RC, R - r0);
-      for (int rr = 0; rr < rmax; ++rr) {
-        const double v = Vk[(int64_t)(r0 + rr) * R + q];
-#pragma unroll
-        for (int cc = 0; cc < CB; ++cc) acc[cc] = fma(v, Ts[rr][cc], acc[cc]);
+    for (int off = 1; off < SCAN; off <<= 1) {  // inclusive, Hillis-Steele
+      const int v = scan[cur][t] + (t >= off ? scan[cur][t - off] : 0);
+      scan[cur ^ 1][t] = v;
+      cur ^= 1;
+      __syncthreads();
+    }
+    if (flag) lk[base + scan[cur][t] - 1] = s;
+    base += scan[cur][SCAN - 1];
+    __syncthreads();  // the buffers are rewritten by the next chunk
+  }
+  if (t == 0) count[k] = base;
+}
+
+// Tt (S, R C) = T (R C, S)^T, 32 x 32 tiles through shared memory
+__global__ void __launch_bounds__(256)
+rotate_transpose_kernel(const double* __restrict__ T,
+                        double* __restrict__ Tt, int64_t RC, int S) {
+  __shared__ double tile[32][33];
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int s0 = blockIdx.x * 32;
+  const int64_t e0 = (int64_t)blockIdx.y * 32;
+  for (int i = ty; i < 32; i += 8) {
+    const int64_t e = e0 + i;
+    const int s = s0 + tx;
+    if (e < RC && s < S) tile[i][tx] = T[e * S + s];
+  }
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    const int s = s0 + i;
+    const int64_t e = e0 + tx;
+    if (e < RC && s < S) Tt[(int64_t)s * RC + e] = tile[tx][i];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+rotate_gemm_kernel(const double* __restrict__ V,
+                   const double* __restrict__ Tt, const int* __restrict__ rank,
+                   const int* __restrict__ list, const int* __restrict__ count,
+                   double* __restrict__ At, int nrho, int R, int C, int S,
+                   int qtiles, int vec_a) {
+  extern __shared__ __align__(16) unsigned char rot_dyn[];
+  double* sm = reinterpret_cast<double*>(rot_dyn);
+  // per column of the tile: its source offset in Tt (without the row)
+  // and its destination offset in At_slots (without q), -1 past N_k
+  int64_t* src = reinterpret_cast<int64_t*>(sm + STAGES * STAGE);
+  int64_t* dst = src + BN;
+
+  // the work item: (rho k, column tile) in rho order, then the q tile
+  const int64_t item = blockIdx.x / qtiles;
+  const int q0 = (int)(blockIdx.x % qtiles) * BM;
+  int k = -1;
+  int64_t n0 = 0, ncols = 0;
+  {
+    int64_t start = 0;
+    for (int kk = 0; kk < nrho; ++kk) {
+      const int64_t nk = (int64_t)count[kk] * C;
+      const int64_t tiles = (nk + BN - 1) / BN;
+      if (item < start + tiles) {
+        k = kk;
+        n0 = (item - start) * BN;
+        ncols = nk;
+        break;
+      }
+      start += tiles;
+    }
+  }
+  if (k < 0) return;  // past the last tile: the whole block exits
+
+  const int64_t RCs = (int64_t)R * C;
+  for (int col = threadIdx.x; col < BN; col += THREADS) {
+    const int64_t n = n0 + col;
+    if (n < ncols) {
+      const int j = (int)(n / C), c = (int)(n - (int64_t)j * C);
+      const int s = list[(int64_t)k * S + j];
+      const int sl = rank[(int64_t)k * S + s];
+      src[col] = s * RCs + c;
+      dst[col] = ((int64_t)sl * S + s) * RCs + c;
+    } else {
+      src[col] = -1;
+      dst[col] = -1;
+    }
+  }
+  __syncthreads();
+
+  const double* Vk = V + (int64_t)k * R * R;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % 2, wn = warp / 2;  // the warp's 32 x 32 sub-tile
+  auto a_tile = [&](int b) { return sm + b * STAGE; };
+  auto b_tile = [&](int b) { return sm + b * STAGE + NC * LDA; };
+
+  auto load = [&](int b, int chunk) {
+    const int r0 = chunk * NC;
+    double* as = a_tile(b);
+    if (vec_a) {  // R even: pairs of q, 16-byte aligned
+      for (int e = threadIdx.x; e < NC * BM / 2; e += THREADS) {
+        const int rr = e / (BM / 2), qq = 2 * (e - rr * (BM / 2));
+        double* d = as + rr * LDA + qq;
+        if (r0 + rr < R && q0 + qq < R) {
+          cp_async16(d, Vk + (int64_t)(r0 + rr) * R + q0 + qq);
+        } else {
+          d[0] = 0.0;
+          d[1] = 0.0;
+        }
+      }
+    } else {
+      for (int e = threadIdx.x; e < NC * BM; e += THREADS) {
+        const int rr = e / BM, qq = e - rr * BM;
+        double* d = as + rr * LDA + qq;
+        if (r0 + rr < R && q0 + qq < R)
+          cp_async8(d, Vk + (int64_t)(r0 + rr) * R + q0 + qq);
+        else
+          *d = 0.0;
       }
     }
-    __syncthreads();
-  }
+    double* bs = b_tile(b);
+    for (int e = threadIdx.x; e < NC * BN; e += THREADS) {
+      const int rr = e / BN, col = e - rr * BN;
+      double* d = bs + rr * LDB + col;
+      if (r0 + rr < R && src[col] >= 0)
+        cp_async8(d, Tt + src[col] + (int64_t)(r0 + rr) * C);
+      else
+        *d = 0.0;
+    }
+  };
 
-  if (q < R) {
-    double* out = At + (pair * R + q) * C;
+  double acc[2][4][4];
 #pragma unroll
-    for (int cc = 0; cc < CB; ++cc)
-      if (c0 + cc < C) out[c0 + cc] = acc[cc];
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0;
+
+  const int chunks = (R + NC - 1) / NC;
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < chunks) load(c, c);
+    cp_async_commit();
   }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = c + STAGES - 1;
+    if (next < chunks) load(next % STAGES, next);
+    cp_async_commit();
+    const int b = c % STAGES;
+    const double* as = a_tile(b) + wm * 32;
+    const double* bs = b_tile(b) + wn * 32;
+#pragma unroll
+    for (int step = 0; step < NC / 8; ++step) {
+      const int c8 = step * 8;
+      double a[2][4], bb[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[mt][i] = as[(c8 + t + 4 * (i >> 1)) * LDA + mt * 16 + g +
+                        8 * (i & 1)];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          bb[nt][i] = bs[(c8 + t + 4 * i) * LDB + nt * 8 + g];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) dmma_m16n8k8(acc[mt][nt], a[mt], bb[nt]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // d[i] of tile (mt, nt): row mt 16 + g + 8 (i >> 1), column
+  // nt 8 + 2t + (i & 1)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = q0 + wm * 32 + mt * 16 + g + 8 * (i >> 1);
+        const int col = wn * 32 + nt * 8 + 2 * t + (i & 1);
+        if (q < R && dst[col] >= 0)
+          At[dst[col] + (int64_t)q * C] = acc[mt][nt][i];
+      }
 }
 
 }  // namespace
 
-// V (nrho, R, R), T (R, C, S), k_best (genes, S) int64, order (genes S,)
-// int64 (a permutation of the (gene, variant) pairs), At (genes, S, R, C):
-// row-major on the card; genes S <= 65535 (a single phenotype is genes =
-// 1).  Launches on `stream`; returns cudaGetLastError().
+// Bytes of scratch a crm_best_rho_rotate call with these sizes needs.
+extern "C" int64_t crm_best_rho_rotate_workspace(int nrho, int R, int C,
+                                                 int S) {
+  return layout(nrho, R, C, S).total;
+}
+
+// V (nrho, R, R), T (R, C, S), k_best (genes, S) int64 in [0, nrho) ->
+// At_slots (min(genes, nrho), S, R, C), slot (genes, S) int64: row-major
+// on the card (a single phenotype is genes = 1).  work:
+// crm_best_rho_rotate_workspace bytes, 256-byte aligned.  Launches on
+// `stream`; returns the first launch's CUDA error, 0 if none.
 extern "C" int crm_best_rho_rotate(const double* V, const double* T,
-                                   const int64_t* k_best,
-                                   const int64_t* order, double* At, int R,
-                                   int C, int S, int genes,
+                                   const int64_t* k_best, double* At,
+                                   int64_t* slot, void* work, int nrho,
+                                   int R, int C, int S, int genes,
                                    cudaStream_t stream) {
-  const dim3 grid((R + QT - 1) / QT, S * genes, (C + CB - 1) / CB);
-  best_rho_rotate_kernel<<<grid, QT, 0, stream>>>(V, T, k_best, order, At, R,
-                                                  C, S);
+  const Layout L = layout(nrho, R, C, S);
+  unsigned char* base = static_cast<unsigned char*>(work);
+  int* rank = reinterpret_cast<int*>(base + L.rank);
+  int* list = reinterpret_cast<int*>(base + L.list);
+  int* count = reinterpret_cast<int*>(base + L.count);
+  double* Tt = reinterpret_cast<double*>(base + L.tt);
+  int err;
+
+  auto slots = rotate_slots_kernel;
+  const unsigned sblocks = (unsigned)((S + 127) / 128);
+  slots<<<sblocks, 128, 0, stream>>>(k_best, rank, slot, nrho, S, genes);
+  if ((err = (int)cudaGetLastError())) return err;
+
+  auto lists = rotate_lists_kernel;
+  lists<<<nrho, SCAN, 0, stream>>>(rank, list, count, S);
+  if ((err = (int)cudaGetLastError())) return err;
+
+  const int64_t RC = (int64_t)R * C;
+  const dim3 tgrid((unsigned)((S + 31) / 32), (unsigned)((RC + 31) / 32));
+  auto transpose = rotate_transpose_kernel;
+  transpose<<<tgrid, 256, 0, stream>>>(T, Tt, RC, S);
+  if ((err = (int)cudaGetLastError())) return err;
+
+  const int qtiles = (R + BM - 1) / BM;
+  const unsigned blocks = (unsigned)(max_tiles(nrho, C, S, genes) * qtiles);
+  const int smem = (int)(sizeof(double) * STAGES * STAGE +
+                         sizeof(int64_t) * 2 * BN);
+  static const int set = (int)cudaFuncSetAttribute(
+      rotate_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if ((err = set)) return err;
+  auto gemm = rotate_gemm_kernel;
+  gemm<<<blocks, THREADS, smem, stream>>>(V, Tt, rank, list, count, At, nrho,
+                                          R, C, S, qtiles, R % 2 == 0);
   return (int)cudaGetLastError();
 }

@@ -23,14 +23,16 @@
 // and one safeguarded Newton step on logit(delta) inside the bracket
 // (:608-626, inclusive bounds).  Two entry points:
 //
-//   crm_reml_localize (stages 1b + 2, :628-670): one block per variant,
-//     a warp per rho point at a time (p + 1 < LOC_GEMM_MIN_P1; from there
-//     the product route below, the same steps in another order of sums).  `steps` steps from the bracket
-//     midpoint on the tensors rounded to f32 when round32 (f64 arithmetic
-//     on f32-rounded tensors: the reference's type promotion), then one
-//     f64 REML lml at the localized delta on the unrounded tensors (rss
-//     <= 128 eps q there cannot win, :655), and the argmax over rho
-//     inside the block.
+//   crm_reml_localize (stages 1b + 2, :628-670): a warp per (gene,
+//     variant, rho) problem, a block per rho point and tile of variants
+//     and genes whose shared rows it stages (p + 1 < LOC_GEMM_MIN_P1; from
+//     there the product route below, the same steps in another order of
+//     sums).  `steps` steps from the bracket midpoint on the tensors
+//     rounded to f32 when round32 (f64 arithmetic on f32-rounded tensors:
+//     the reference's type promotion), then one f64 REML lml at the
+//     localized delta on the unrounded tensors (rss <= 128 eps q there
+//     cannot win, :655), and the argmax over rho (a kernel of its own,
+//     the first maximum winning).
 //   crm_reml_converge (stage 3, :672-734; association refit, :991-1062):
 //     one warp per variant at its rho k_best (0 when null), `steps` steps
 //     on the unrounded tensors from x0 (the bracket midpoint when null)
@@ -47,12 +49,14 @@
 // (lanes over r, then an xor-shuffle tree); the (p+1)^2 algebra runs on
 // every lane, and lane 0's iterate is broadcast so the lanes stay in step.
 // State x/lo/hi stays in registers across the steps; nothing but the
-// results is written.
+// results is written.  The register localize stages the rows a block's
+// problems share in shared memory, so that the strided genotype is read
+// once a block and chunk (not once a problem and step) and the f32
+// roundings of the products no phenotype or no genotype enters are made
+// once a block.
 //
 // Instantiations: p + 1 <= 2, 4 (localize and converge) and 16 (converge)
-// keep each lane's sums and algebra in registers (a localize block's warps
-// loop over the rho points, up to 64, and its thread 0 takes the argmax
-// over rho).  The wide converge
+// keep each lane's sums and algebra in registers.  The wide converge
 // (p + 1 <= 33: up to 3 x 595 sums a problem) gives each warp a workspace
 // in dynamic shared memory (4 warps a block): the warp stages 32 rows at
 // a time, each lane owns every 32nd sum and accumulates it over the rows,
@@ -72,8 +76,10 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int LOC_MAX_WARPS = 16;  // warps of a localize block
-constexpr int MAX_RHO = 64;        // rho points of a localize block
+#ifndef CRM_LOC_MAX_WARPS  // the emulated tests build some with fewer
+#define CRM_LOC_MAX_WARPS 16
+#endif
+constexpr int LOC_MAX_WARPS = CRM_LOC_MAX_WARPS;  // of a register localize
 constexpr int CONV_WARPS = 4;      // variants a converge block holds
 
 // Loops over the small dimension run to the compile-time P1MAX and skip
@@ -119,10 +125,42 @@ struct Problem {
   double* ws;         // the warp's workspace (wide instantiation only)
 };
 
+// The complements and the warp's sum of normal equations whose rows each
+// lane has accumulated: acc[f] = [A lower (TRI) | b (P1MAX) | q], plus
+// sum e w1, sum e2 w1^2 (NF == 3) or sum log d (NF == 1).  Every lane
+// returns the full sums, complements included.
+template <int P1MAX, int NF>
+__device__ void ne_finish(const Problem& pb, double delta,
+                          double (&acc)[NF][Cfg<P1MAX>::NE], double& ex1,
+                          double& ex2) {
+  constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
+  const int p = pb.p, p1 = p + 1;
+  const bool r32 = pb.r32;
+  for (int f = 0; f < NF; ++f)
+    for (int e = 0; e < NE; ++e) acc[f][e] = warp_sum(acc[f][e]);
+  ex1 = warp_sum(ex1);
+  ex2 = warp_sum(ex2);
+  // complement terms, weight 1/delta^(f+1)
+  double ic = 1.0 / delta;
+  const double i1 = ic;
+  for (int f = 0; f < NF; ++f) {
+    SMALL_FOR(i, 0, p1) {
+      SMALL_FOR(j, 0, i + 1) {
+        const double c = i < p ? pb.CWW[i * p + j]
+                               : (j < p ? pb.CWg[(int64_t)j * pb.nS + pb.s]
+                                        : pb.cgg);
+        acc[f][tri(i, j)] += rnd(c, r32) * ic;
+      }
+      const double cb = i < p ? pb.CWy[i] : pb.cgy;
+      acc[f][TRI + i] += rnd(cb, r32) * ic;
+    }
+    acc[f][NE - 1] += pb.cyy * ic;
+    ic *= i1;
+  }
+}
+
 // Normal equations (NF families) of one problem at delta, summed over the
-// warp: acc[f] = [A lower (TRI) | b (P1MAX) | q], plus sum e w1,
-// sum e2 w1^2 (NF == 3) or sum log d (NF == 1).  Every lane returns the
-// full sums, complements included.
+// warp (ne_finish), its rows read from the problem's tensors.
 template <int P1MAX, int NF>
 __device__ void normal_eqs(const Problem& pb, double delta,
                            double (&acc)[NF][Cfg<P1MAX>::NE],
@@ -169,27 +207,7 @@ __device__ void normal_eqs(const Problem& pb, double delta,
     const double v = rnd(yv * yv, r32);
     for (int f = 0; f < NF; ++f) acc[f][NE - 1] += wf[f] * v;
   }
-  for (int f = 0; f < NF; ++f)
-    for (int e = 0; e < NE; ++e) acc[f][e] = warp_sum(acc[f][e]);
-  ex1 = warp_sum(ex1);
-  ex2 = warp_sum(ex2);
-  // complement terms, weight 1/delta^(f+1)
-  double ic = 1.0 / delta;
-  const double i1 = ic;
-  for (int f = 0; f < NF; ++f) {
-    SMALL_FOR(i, 0, p1) {
-      SMALL_FOR(j, 0, i + 1) {
-        const double c = i < p ? pb.CWW[i * p + j]
-                               : (j < p ? pb.CWg[(int64_t)j * pb.nS + pb.s]
-                                        : pb.cgg);
-        acc[f][tri(i, j)] += rnd(c, r32) * ic;
-      }
-      const double cb = i < p ? pb.CWy[i] : pb.cgy;
-      acc[f][TRI + i] += rnd(cb, r32) * ic;
-    }
-    acc[f][NE - 1] += pb.cyy * ic;
-    ic *= i1;
-  }
+  ne_finish<P1MAX, NF>(pb, delta, acc, ex1, ex2);
 }
 
 // Ridge Cholesky of the lower components in place (ops/linalg.py
@@ -235,14 +253,15 @@ __device__ void sym_mv(const double* A, const double* x, double* out, int p1) {
   }
 }
 
-// (L', L'') of the profiled objective at delta
+// (L', L'') of the profiled objective at delta from the three families'
+// normal equations (ne_finish's sums)
 template <int P1MAX, bool REML>
-__device__ void derivs(const Problem& pb, double delta, int n, double& Lp,
-                       double& Lpp) {
+__device__ void derivs_sums(const Problem& pb, double delta, int n,
+                            const double (&acc)[3][Cfg<P1MAX>::NE],
+                            double sum_ew, double sum_e2w2, double& Lp,
+                            double& Lpp) {
   constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
   const int p1 = pb.p + 1;
-  double acc[3][NE], sum_ew, sum_e2w2;
-  normal_eqs<P1MAX, 3>(pb, delta, acc, sum_ew, sum_e2w2);
   const double *A1 = acc[0], *A2 = acc[1], *A3 = acc[2];
   const double *b1 = acc[0] + TRI, *b2 = acc[1] + TRI, *b3 = acc[2] + TRI;
   const double q1 = acc[0][NE - 1], q2 = acc[1][NE - 1], q3 = acc[2][NE - 1];
@@ -309,6 +328,14 @@ __device__ void derivs(const Problem& pb, double delta, int n, double& Lp,
   const double nu = n - p1;
   Lp = -0.5 * (nu * u + ld_p - tr2);
   Lpp = -0.5 * (nu * (rss_pp / rss - u * u) + ld_pp + 2 * tr3 - tr2sq);
+}
+
+template <int P1MAX, bool REML>
+__device__ void derivs(const Problem& pb, double delta, int n, double& Lp,
+                       double& Lpp) {
+  double acc[3][Cfg<P1MAX>::NE], sum_ew, sum_e2w2;
+  normal_eqs<P1MAX, 3>(pb, delta, acc, sum_ew, sum_e2w2);
+  derivs_sums<P1MAX, REML>(pb, delta, n, acc, sum_ew, sum_e2w2, Lp, Lpp);
 }
 
 // ---------------------------------------------------------------------------
@@ -738,7 +765,24 @@ __device__ double fit_at_wide(const Problem& pb, double delta, int n,
                                       rss_out, rss_bad);
 }
 
-// `steps` safeguarded Newton steps; lane 0's iterate is the warp's
+// One safeguarded Newton step on logit(delta) from (L', L'') at delta =
+// sigmoid(x); lane 0's iterate is the warp's
+__device__ void newton_update(double delta, double Lp, double Lpp, double& x,
+                              double& lo, double& hi) {
+  const double g = delta * (1 - delta);
+  const double Lx_p = Lp * g;
+  const double Lx_pp = Lpp * g * g + Lp * g * (1 - 2 * delta);
+  const double lo2 = Lx_p > 0 ? x : lo;
+  const double hi2 = Lx_p > 0 ? hi : x;
+  const double xn = x - Lx_p / Lx_pp;
+  // inclusive bounds: at convergence xn == x == a bracket end
+  const bool ok = Lx_pp < 0 && xn >= lo2 && xn <= hi2 && isfinite(xn);
+  x = __shfl_sync(FULL, ok ? xn : 0.5 * (lo2 + hi2), 0);
+  lo = __shfl_sync(FULL, lo2, 0);
+  hi = __shfl_sync(FULL, hi2, 0);
+}
+
+// `steps` safeguarded Newton steps
 template <int P1MAX, bool REML>
 __device__ void newton(const Problem& pb, int n, int steps, double& x,
                        double& lo, double& hi) {
@@ -749,28 +793,19 @@ __device__ void newton(const Problem& pb, int n, int steps, double& x,
       derivs_wide<REML>(pb, delta, n, Lp, Lpp);
     else
       derivs<P1MAX, REML>(pb, delta, n, Lp, Lpp);
-    const double g = delta * (1 - delta);
-    const double Lx_p = Lp * g;
-    const double Lx_pp = Lpp * g * g + Lp * g * (1 - 2 * delta);
-    const double lo2 = Lx_p > 0 ? x : lo;
-    const double hi2 = Lx_p > 0 ? hi : x;
-    const double xn = x - Lx_p / Lx_pp;
-    // inclusive bounds: at convergence xn == x == a bracket end
-    const bool ok = Lx_pp < 0 && xn >= lo2 && xn <= hi2 && isfinite(xn);
-    x = __shfl_sync(FULL, ok ? xn : 0.5 * (lo2 + hi2), 0);
-    lo = __shfl_sync(FULL, lo2, 0);
-    hi = __shfl_sync(FULL, hi2, 0);
+    newton_update(delta, Lp, Lpp, x, lo, hi);
   }
 }
 
-// The fit at delta: (lml, rss, beta) with the objective's rss floor
+// The fit at delta from its normal equations (ne_finish's sums, logd =
+// sum log d): (lml, rss, beta) with the objective's rss floor
 template <int P1MAX, bool REML, bool FLOOR_Q>
-__device__ double fit_at(const Problem& pb, double delta, int n, double ld_xx,
-                         double* beta, double& rss_out, bool& rss_bad) {
+__device__ double fit_sums(const Problem& pb, double delta, int n,
+                           double ld_xx, const double (&acc)[1][Cfg<P1MAX>::NE],
+                           double logd, double* beta, double& rss_out,
+                           bool& rss_bad) {
   constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
   const int p1 = pb.p + 1;
-  double acc[1][NE], logd, unused;
-  normal_eqs<P1MAX, 1>(pb, delta, acc, logd, unused);
   double L[P1MAX][P1MAX];
   chol<P1MAX>(L, acc[0], p1);
   chol_solve<P1MAX>(L, acc[0] + TRI, beta, p1);
@@ -790,6 +825,15 @@ __device__ double fit_at(const Problem& pb, double delta, int n, double ld_xx,
   const double nu = n - p1;
   return -0.5 * (nu * log(two_pi * rss / nu) + logdet_d + logdet_a - ld_xx +
                  nu);
+}
+
+template <int P1MAX, bool REML, bool FLOOR_Q>
+__device__ double fit_at(const Problem& pb, double delta, int n, double ld_xx,
+                         double* beta, double& rss_out, bool& rss_bad) {
+  double acc[1][Cfg<P1MAX>::NE], logd, unused;
+  normal_eqs<P1MAX, 1>(pb, delta, acc, logd, unused);
+  return fit_sums<P1MAX, REML, FLOOR_Q>(pb, delta, n, ld_xx, acc, logd, beta,
+                                        rss_out, rss_bad);
 }
 
 __device__ Problem make_problem(const double* Sv, const double* WGt,
@@ -842,12 +886,269 @@ __device__ double final_fit(const Problem& pb, double delta, int n,
   }
 }
 
-// A block per variant; its warps loop over the rho points (warp w takes
-// w, w + warps, ...), and the argmax over rho is taken in the block: the
-// register instantiations (p + 1 < LOC_GEMM_MIN_P1).  The wider localize
-// is the product route below.
+// The register localize (p + 1 < LOC_GEMM_MIN_P1): a block per (tile of
+// VT consecutive variants, rho point, tile of GC genes), a warp per
+// (variant, gene) problem of the tile, VT GC <= LOC_MAX_WARPS.  The rows
+// that the tile's problems share are staged in shared memory, and every
+// warp then reads them from there: the rho's S and W, each variant's g,
+// each gene's y, and the fields derived from them, S, e, e2 and the W W
+// products (shared by all the problems) and each gene's W y and y y
+// products (shared by the tile's variants), and, where they fit, each
+// variant's g W and g g products (shared by the tile's genes).  The
+// products are rounded to f32 there, once a block, where the Newton steps
+// round them (round32), instead of once a problem and step; g y, and g W
+// and g g where they are not staged, are formed (and rounded) in the
+// sums.  The lanes run over the rows with the sums in registers, then the
+// xor-shuffle tree and the (p+1)^2 algebra, as in the converge kernel, so
+// every value is the one the per-problem loop (normal_eqs) computes, in
+// the same order.  Where every row fits the block's shared memory (LOC_G:
+// one gene and 16 variants, p = 1, R <= 1024; LOC_PRODUCTS, the variants'
+// products staged too: 16 genes and 4 variants, 6-7% faster there), the
+// rows are staged straight from the tensors twice, for the Newton steps
+// and, unrounded, for the final evaluation, and the passes between need
+// no barrier and no copy; else (LOC_CHUNKED: 10 000 cells) a chunk of rch
+// rows at a time by cp.async into two alternating raw buffers, the next
+// chunk in flight while the warps sum the current one.  The argmax over
+// rho is loc_argmax_kernel, over the block's outputs (no limit on the rho
+// points).
+#ifndef CRM_LOC_SMEM_KB  // the emulated tests build some with less, so
+#define CRM_LOC_SMEM_KB 227  // that their small R reaches every layout
+#endif
+constexpr int LOC_SMEM = CRM_LOC_SMEM_KB * 1024;  // of a localize block
+
+// how the localize stages its rows
+enum LocStaging { LOC_CHUNKED = 0, LOC_G = 1, LOC_PRODUCTS = 2 };
+
+// the derived fields, in units of rch doubles: [S, e, e2 | W W products |
+// per gene (GC): y, W y (p), y y]
+__host__ __device__ inline int loc_fields(int p, int gc) {
+  return 3 + p * (p + 1) / 2 + gc * (p + 2);
+}
+// a raw buffer, in units of rch doubles: [S | W (p) | g (VT) | y (GC)];
+// resident, after the fields, LOC_G: [W (p) | g (VT)], LOC_PRODUCTS: [g
+// (VT) | per variant: g W (p), g g]
+__host__ __device__ inline int loc_raw(int p, int vt, int gc) {
+  return 1 + p + vt + gc;
+}
+__host__ __device__ inline int loc_resident(int p, int vt, int layout) {
+  return layout == LOC_PRODUCTS ? vt * (p + 2) : p + vt;
+}
+
+// rows [0, R) of rho o from the tensors, resident: the fields (rounded
+// when r32), then the tile's g at gv and W at gv - p rch, or with
+// `products` the variants' g W and g g (rounded) after the g
+__device__ void loc_stage(double* sm, double* gv, int rch,
+                          const double* __restrict__ Sv,
+                          const double* __restrict__ WGt,
+                          const double* __restrict__ yt, int o, int R, int p,
+                          int nS, int nrho, int s0, int nv, int vt, int g0,
+                          int ng, bool products, bool r32) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int ps = p + nS, ntri = p * (p + 1) / 2;
+  const double* Wo = WGt + (int64_t)o * R * ps;
+  for (int r = tid; r < R; r += nt) {
+    const double Sr = Sv[(int64_t)o * R + r];
+    sm[r] = rnd(Sr, r32);
+    sm[rch + r] = rnd(1.0 - Sr, r32);
+    sm[2 * rch + r] = rnd((1.0 - Sr) * (1.0 - Sr), r32);
+    const double* row = Wo + (int64_t)r * ps;
+    for (int i = 0; i < p; ++i) {
+      if (!products) gv[(i - p) * rch + r] = row[i];
+      for (int j = 0; j <= i; ++j)
+        sm[(3 + tri(i, j)) * rch + r] = rnd(row[i] * row[j], r32);
+    }
+  }
+  // the variants' genotype, each row's nv values contiguous
+  for (int e = tid; e < R * nv; e += nt) {
+    const int r = e / nv, v = e - r * nv;
+    const double* row = Wo + (int64_t)r * ps;
+    const double g = row[p + s0 + v];
+    gv[v * rch + r] = g;
+    if (!products) continue;
+    double* f = gv + (vt + v * (p + 1)) * rch + r;
+    for (int j = 0; j < p; ++j) f[j * rch] = rnd(g * row[j], r32);
+    f[p * rch] = rnd(g * g, r32);
+  }
+  // the genes' phenotype, each gene's rows contiguous
+  for (int e = tid; e < R * ng; e += nt) {
+    const int c = e / R, r = e - c * R;
+    const double* row = Wo + (int64_t)r * ps;
+    const double y = yt[((int64_t)(g0 + c) * nrho + o) * R + r];
+    double* f = sm + (3 + ntri + c * (p + 2)) * rch + r;
+    f[0] = y;
+    for (int j = 0; j < p; ++j) f[(1 + j) * rch] = rnd(row[j] * y, r32);
+    f[(p + 1) * rch] = rnd(y * y, r32);
+  }
+}
+
+// cp.async of rows [r0, r0 + rows) of rho o into the raw buffer
+__device__ void loc_fetch(double* raw, int rch, const double* __restrict__ Sv,
+                          const double* __restrict__ WGt,
+                          const double* __restrict__ yt, int o, int r0,
+                          int rows, int R, int p, int nS, int nrho, int s0,
+                          int nv, int vt, int g0, int ng) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int ps = p + nS;
+  const double* Wo = WGt + ((int64_t)o * R + r0) * ps;
+  // S and the genes' y: rows contiguous
+  for (int e = tid; e < rows * (1 + ng); e += nt) {
+    const int c = e / rows, rr = e - c * rows;
+    const double* src =
+        c == 0 ? Sv + (int64_t)o * R + r0 + rr
+               : yt + ((int64_t)(g0 + c - 1) * nrho + o) * R + r0 + rr;
+    cp_async8(raw + (c == 0 ? 0 : p + vt + c) * rch + rr, src);
+  }
+  // a row's W and the tile's g: p and nv values, at W's columns and the
+  // variants' (contiguous)
+  const int w = p + nv;
+  for (int e = tid; e < rows * w; e += nt) {
+    const int rr = e / w, j = e - rr * w;
+    cp_async8(raw + (1 + j) * rch + rr,
+              Wo + (int64_t)rr * ps + (j < p ? j : s0 + j));
+  }
+}
+
+// the fields of a chunk's rows from its raw buffer (rounded when r32)
+__device__ void loc_derive(double* sm, const double* raw, int rch, int rows,
+                           int p, int vt, int ng, bool r32) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int ntri = p * (p + 1) / 2;
+  const double* W = raw + rch;
+  for (int rr = tid; rr < rows; rr += nt) {
+    const double Sr = raw[rr];
+    sm[rr] = rnd(Sr, r32);
+    sm[rch + rr] = rnd(1.0 - Sr, r32);
+    sm[2 * rch + rr] = rnd((1.0 - Sr) * (1.0 - Sr), r32);
+    for (int i = 0; i < p; ++i)
+      for (int j = 0; j <= i; ++j)
+        sm[(3 + tri(i, j)) * rch + rr] =
+            rnd(W[i * rch + rr] * W[j * rch + rr], r32);
+  }
+  for (int e = tid; e < rows * ng; e += nt) {
+    const int c = e / rows, rr = e - c * rows;
+    const double y = raw[(1 + p + vt + c) * rch + rr];
+    double* f = sm + (3 + ntri + c * (p + 2)) * rch + rr;
+    f[0] = y;
+    for (int j = 0; j < p; ++j)
+      f[(1 + j) * rch] = rnd(W[j * rch + rr] * y, r32);
+    f[(p + 1) * rch] = rnd(y * y, r32);
+  }
+}
+
+// a lane's staged rows [0, rows) into the sums of problem (v, c): the
+// fields at sm, the tile's (vt) g at gv, and W at gv - p rch or,
+// PRODUCTS, the variants' g W and g g after the g
+template <int P1MAX, int NF, bool PRODUCTS>
+__device__ void loc_rows(const double* sm, const double* gv, int rch,
+                         int rows, int p, int vt, int v, int c, double delta,
+                         bool r32, double (&acc)[NF][Cfg<P1MAX>::NE],
+                         double& ex1, double& ex2) {
+  constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
+  const int p1 = p + 1, ntri = p * (p + 1) / 2;
+  const double* fv = gv + v * rch;
+  const double* fw = gv - p * rch;
+  const double* gp = gv + (vt + v * p1) * rch;
+  const double* fc = sm + (3 + ntri + c * (p + 2)) * rch;
+  for (int rr = threadIdx.x % 32; rr < rows; rr += 32) {
+    const double d = (1.0 - delta) * sm[rr] + delta;
+    const double w1 = 1.0 / d;
+    double wf[NF];
+    wf[0] = w1;
+    if constexpr (NF == 3) {
+      const double e = sm[rch + rr];
+      const double e2 = sm[2 * rch + rr];
+      wf[1] = e * w1 * w1;
+      wf[2] = e2 * w1 * w1 * w1;
+      ex1 += w1 * e;
+      ex2 += w1 * w1 * e2;
+    } else {
+      ex1 += log(d);
+    }
+    const double g = fv[rr], y = fc[rr];
+    SMALL_FOR(i, 0, p1) {
+      SMALL_FOR(j, 0, i + 1) {
+        const double x =
+            i < p      ? sm[(3 + tri(i, j)) * rch + rr]
+            : PRODUCTS ? gp[j * rch + rr]
+                       : rnd(g * (j < p ? fw[j * rch + rr] : g), r32);
+        for (int f = 0; f < NF; ++f) acc[f][tri(i, j)] += wf[f] * x;
+      }
+      const double x = i < p ? fc[(1 + i) * rch + rr] : rnd(g * y, r32);
+      for (int f = 0; f < NF; ++f) acc[f][TRI + i] += wf[f] * x;
+    }
+    const double x = fc[(p + 1) * rch + rr];
+    for (int f = 0; f < NF; ++f) acc[f][NE - 1] += wf[f] * x;
+  }
+}
+
+// the staged rows: the fields (f rch doubles), then, resident, W, the
+// tile's g and its products (w rch doubles), or, chunked, two raw buffers
+// (w each)
+struct LocStage {
+  double* sm;
+  int rch, f, w, layout;
+  __device__ double* raw(int c) const { return sm + (f + (c & 1) * w) * rch; }
+};
+
+// one pass of every problem of the block over the rows: its NF families'
+// sums (the lanes' parts; ne_finish adds them up).  Resident: `stage`
+// makes the fields (else they are there from an earlier pass).  Chunked:
+// the chunks' raw rows are copied and their fields derived.
+template <int P1MAX, int NF>
+__device__ void loc_pass(const LocStage& st, bool stage, bool active,
+                         const double* Sv, const double* WGt,
+                         const double* yt, int o, int R, int p, int nS,
+                         int nrho, int s0, int nv, int vt, int g0, int ng,
+                         int v, int c, double delta, bool r32,
+                         double (&acc)[NF][Cfg<P1MAX>::NE], double& ex1,
+                         double& ex2) {
+  for (int f = 0; f < NF; ++f)
+    for (int e = 0; e < Cfg<P1MAX>::NE; ++e) acc[f][e] = 0.0;
+  ex1 = 0.0;
+  ex2 = 0.0;
+  const int rch = st.rch;
+  if (st.layout != LOC_CHUNKED) {
+    const bool products = st.layout == LOC_PRODUCTS;
+    double* gv = st.sm + (st.f + (products ? 0 : p)) * rch;
+    if (stage) {
+      __syncthreads();  // every warp is done with the previous fields
+      loc_stage(st.sm, gv, rch, Sv, WGt, yt, o, R, p, nS, nrho, s0, nv, vt,
+                g0, ng, products, r32);
+      __syncthreads();
+    }
+    if (active && products)
+      loc_rows<P1MAX, NF, true>(st.sm, gv, rch, R, p, vt, v, c, delta, r32,
+                                acc, ex1, ex2);
+    else if (active)
+      loc_rows<P1MAX, NF, false>(st.sm, gv, rch, R, p, vt, v, c, delta, r32,
+                                 acc, ex1, ex2);
+    return;
+  }
+  const int chunks = (R + rch - 1) / rch;
+  __syncthreads();  // every warp is done with the last pass's raw rows
+  loc_fetch(st.raw(0), rch, Sv, WGt, yt, o, 0, min(rch, R), R, p, nS, nrho,
+            s0, nv, vt, g0, ng);
+  cp_async_commit();
+  for (int k = 0; k < chunks; ++k) {
+    const int r0 = k * rch, rows = min(rch, R - r0);
+    cp_async_wait<0>();
+    __syncthreads();  // the chunk landed; every warp is done with the
+                      // previous chunk's fields and raw rows
+    if (k + 1 < chunks)  // the next chunk in flight during this one
+      loc_fetch(st.raw(k + 1), rch, Sv, WGt, yt, o, r0 + rch,
+                min(rch, R - r0 - rch), R, p, nS, nrho, s0, nv, vt, g0, ng);
+    cp_async_commit();
+    loc_derive(st.sm, st.raw(k), rch, rows, p, vt, ng, r32);
+    __syncthreads();
+    if (active)  // the fields, and W and g from the raw rows
+      loc_rows<P1MAX, NF, false>(st.sm, st.raw(k) + (1 + p) * rch, rch,
+                                 rows, p, vt, v, c, delta, r32, acc, ex1,
+                                 ex2);
+  }
+}
+
 template <int P1MAX>
-__global__ void __launch_bounds__(32 * LOC_MAX_WARPS)
+__global__ void __launch_bounds__(32 * LOC_MAX_WARPS, 1)
 localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                 const double* __restrict__ yt, const double* __restrict__ CWW,
                 const double* __restrict__ CWy, const double* __restrict__ Cyy,
@@ -856,56 +1157,65 @@ localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                 const double* __restrict__ ld_xx,
                 const double* __restrict__ br_lo,
                 const double* __restrict__ br_hi, double* __restrict__ x_out,
-                double* __restrict__ lml_out, int64_t* __restrict__ k_best,
-                int n, int nrho, int R, int p, int nS, int steps, int r32) {
-  __shared__ double lml_sh[MAX_RHO];
-  // the gene axis: phenotype operands and outputs offset by gene
-  const int64_t gi = blockIdx.y;
-  yt += gi * nrho * R;
-  CWy += gi * p;
-  Cyy += gi;
-  Cgy += gi * nS;
-  br_lo += gi * nS * nrho;
-  br_hi += gi * nS * nrho;
-  x_out += gi * nS * nrho;
-  lml_out += gi * nS * nrho;
-  k_best += gi * nS;
-  const int s = blockIdx.x;
-  const int warp = threadIdx.x / 32, warps = blockDim.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int o = warp; o < nrho; o += warps) {
-    const int64_t so = (int64_t)s * nrho + o;
-    double lo = br_lo[so], hi = br_hi[so];
-    double x = 0.5 * (lo + hi);
-    // stage 1b: Newton on the (possibly f32-rounded) tensors
-    Problem pb = make_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, o,
-                              s, R, p, nS, r32 != 0, nullptr);
-    newton<P1MAX, true>(pb, n, steps, x, lo, hi);
-    // stage 2: one f64 evaluation on the unrounded tensors
-    pb = make_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, o, s, R, p,
-                      nS, false, nullptr);
-    double rss;
-    bool bad;
-    double lml = final_fit<P1MAX, true, false>(pb, sigmoid(x), n, ld_xx[s],
-                                               nullptr, rss, bad);
-    // noise-floor or NaN evaluations must not win the rho argmax (:664-666)
-    if (bad || !isfinite(lml)) lml = -INFINITY;
-    if (lane == 0) {
-      x_out[so] = x;
-      lml_out[so] = lml;
-      lml_sh[o] = lml;
+                double* __restrict__ lml_out, int n, int nrho, int R, int p,
+                int nS, int genes, int steps, int r32, int vt, int gc,
+                int rch, int layout) {
+  extern __shared__ __align__(16) unsigned char loc_dyn[];
+  const LocStage st{reinterpret_cast<double*>(loc_dyn), rch,
+                    loc_fields(p, gc),
+                    layout == LOC_CHUNKED ? loc_raw(p, vt, gc)
+                                          : loc_resident(p, vt, layout),
+                    layout};
+  constexpr int NE = Cfg<P1MAX>::NE;
+  const int s0 = blockIdx.x * vt, o = blockIdx.y, g0 = blockIdx.z * gc;
+  const int nv = min(vt, nS - s0), ng = min(gc, genes - g0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int v = warp % vt, c = warp / vt;
+  const bool active = v < nv && c < ng;
+  const int s = s0 + min(v, nv - 1), gi = g0 + min(c, ng - 1);
+  const int64_t so = ((int64_t)gi * nS + s) * nrho + o;
+  double lo = br_lo[so], hi = br_hi[so];
+  double x = 0.5 * (lo + hi);
+  // the problem's complements (gene gi, variant s); its rows are staged
+  const Problem pb32 =
+      make_problem(Sv, WGt, yt + (int64_t)gi * nrho * R, CWW,
+                   CWy + (int64_t)gi * p, Cyy + gi, CWg,
+                   Cgy + (int64_t)gi * nS, Cgg, o, s, R, p, nS, r32 != 0,
+                   nullptr);
+  // stage 1b: Newton on the (possibly f32-rounded) tensors
+  for (int it = 0; it < steps; ++it) {
+    const double delta = sigmoid(x);
+    double acc[3][NE], ex1, ex2;
+    loc_pass<P1MAX, 3>(st, it == 0, active, Sv, WGt, yt, o, R, p, nS, nrho,
+                       s0, nv, vt, g0, ng, v, c, delta, r32 != 0, acc, ex1,
+                       ex2);
+    if (active) {
+      ne_finish<P1MAX, 3>(pb32, delta, acc, ex1, ex2);
+      double Lp, Lpp;
+      derivs_sums<P1MAX, true>(pb32, delta, n, acc, ex1, ex2, Lp, Lpp);
+      newton_update(delta, Lp, Lpp, x, lo, hi);
     }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int kb = 0;
-    double best = lml_sh[0];
-    for (int k = 1; k < nrho; ++k)
-      if (lml_sh[k] > best) {  // the first maximum wins, as argmax's
-        best = lml_sh[k];
-        kb = k;
-      }
-    k_best[s] = kb;
+  // stage 2: one f64 evaluation on the unrounded tensors
+  Problem pb = pb32;
+  pb.r32 = false;
+  pb.cyy = Cyy[gi];
+  const double delta = sigmoid(x);
+  double acc[1][NE], logd, unused;
+  loc_pass<P1MAX, 1>(st, steps == 0 || r32, active, Sv, WGt, yt, o, R, p,
+                     nS, nrho, s0, nv, vt, g0, ng, v, c, delta, false, acc,
+                     logd, unused);
+  if (!active) return;
+  ne_finish<P1MAX, 1>(pb, delta, acc, logd, unused);
+  double beta[P1MAX], rss;
+  bool bad;
+  double lml = fit_sums<P1MAX, true, false>(pb, delta, n, ld_xx[s], acc,
+                                            logd, beta, rss, bad);
+  // noise-floor or NaN evaluations must not win the rho argmax (:664-666)
+  if (bad || !isfinite(lml)) lml = -INFINITY;
+  if (lane == 0) {
+    x_out[so] = x;
+    lml_out[so] = lml;
   }
 }
 
@@ -1504,7 +1814,7 @@ extern "C" int64_t crm_reml_localize_workspace(int nrho, int R, int p, int nS,
          loc_layout(nrho, R, p, nS, round32 != 0).total;
 }
 
-// -> x, lml_all (genes, nS, nrho), k_best (genes, nS) int64; nrho <= 64.
+// -> x, lml_all (genes, nS, nrho), k_best (genes, nS) int64.
 // work: crm_reml_localize_workspace bytes on the card, 16-byte aligned
 // (null when that is 0).
 extern "C" int crm_reml_localize(const double* Sv, const double* WGt,
@@ -1548,13 +1858,53 @@ extern "C" int crm_reml_localize(const double* Sv, const double* WGt,
     }
     return 0;
   }
+  // the register route: a tile of gc genes and vt variants a block
   auto kernel = p + 1 <= 2 ? localize_kernel<2> : localize_kernel<4>;
-  const dim3 grid(nS, genes);
-  const int threads = 32 * min(nrho, LOC_MAX_WARPS);
-  kernel<<<grid, threads, 0, stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
-                                       Cgg, ld_xx, br_lo, br_hi, x, lml_all,
-                                       k_best, n, nrho, R, p, nS, steps,
-                                       round32);
+  const int gc = min(genes, 4), vt = LOC_MAX_WARPS / gc;
+  // resident when every row fits (with the variants' products if they
+  // do), else chunks through two raw buffers
+  const int all = (R + 31) / 32 * 32, fields = loc_fields(p, gc);
+  auto fits = [&](int layout) {
+    return (int64_t)sizeof(double) * (fields + loc_resident(p, vt, layout)) *
+               all <=
+           LOC_SMEM;
+  };
+  int layout = fits(LOC_PRODUCTS) ? LOC_PRODUCTS
+               : fits(LOC_G)      ? LOC_G
+                                  : LOC_CHUNKED;
+#ifdef CRM_LOC_CHUNKED  // the emulated tests build the chunked path apart
+  layout = LOC_CHUNKED;
+#endif
+  const bool chunked = layout == LOC_CHUNKED;
+  const int per_row = fields + (chunked ? 2 * loc_raw(p, vt, gc)
+                                        : loc_resident(p, vt, layout));
+  const int rch =
+      chunked ? LOC_SMEM / (int)(sizeof(double) * per_row) / 32 * 32 : all;
+  const int smem = (int)sizeof(double) * per_row * rch;
+  static const int set = [] {
+    const int e = (int)cudaFuncSetAttribute(
+        localize_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        LOC_SMEM);
+    return e ? e
+             : (int)cudaFuncSetAttribute(
+                   localize_kernel<4>,
+                   cudaFuncAttributeMaxDynamicSharedMemorySize, LOC_SMEM);
+  }();
+  if (set) return set;
+  const dim3 grid((unsigned)((nS + vt - 1) / vt), (unsigned)nrho,
+                  (unsigned)((genes + gc - 1) / gc));
+  const int threads = 32 * vt * gc;
+  kernel<<<grid, threads, smem, stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg,
+                                          Cgy, Cgg, ld_xx, br_lo, br_hi, x,
+                                          lml_all, n, nrho, R, p, nS, genes,
+                                          steps, round32, vt, gc, rch,
+                                          layout);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int64_t rows = (int64_t)genes * nS;
+  auto argmax = loc_argmax_kernel;
+  argmax<<<(unsigned)((rows + 127) / 128), 128, 0, stream>>>(
+      lml_all, k_best, nrho, (int)rows);
   return (int)cudaGetLastError();
 }
 

@@ -20,7 +20,9 @@
 //
 // Design: one 256-thread block per (variant, gene); the gene-batched scan
 // runs every gene of a tile in one launch, the phenotype's operands offset
-// by gene and the genotype's shared.  The block streams the rows of
+// by gene and the genotype's shared, the score factor At_slots[slot[g, s],
+// s] read where K4 put it (the genes of a variant that share a best rho
+// read one copy from L2).  The block streams the rows of
 // [A | W_t | g_t | y_t] through shared memory in chunks of 16 and
 // accumulates the omega-weighted Gram of those m = C + p + 2 columns in
 // registers, each thread owning up to NACC of its m(m+1)/2 entries.  Two
@@ -69,7 +71,8 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                   const double* __restrict__ AtA,
                   const int64_t* __restrict__ k_best,
                   const double* __restrict__ v0s,
-                  const double* __restrict__ v1s, double* __restrict__ Qout,
+                  const double* __restrict__ v1s,
+                  const int64_t* __restrict__ slot, double* __restrict__ Qout,
                   double* __restrict__ Wout, int nrho, int R, int C, int p,
                   int S) {
   extern __shared__ __align__(16) unsigned char score_dyn[];
@@ -86,7 +89,7 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   // the gene axis: the phenotype's operands and the outputs by gene
   const int64_t gi = blockIdx.y;
   yt += gi * nrho * R;
-  At += gi * S * (int64_t)R * C;
+  slot += gi * S;
   Wy += gi * p;
   gy += gi * S;
   Ay += gi * C * (int64_t)S;
@@ -108,7 +111,7 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   const double* Sk = Sv + k * R;
   const double* WGk = WGt + k * (int64_t)R * ps;
   const double* yk = yt + k * R;
-  const double* Ak = At + (int64_t)s * R * C;
+  const double* Ak = At + (slot[s] * S + s) * (int64_t)R * C;
 
   // this thread's Gram entries (i >= j) at triangular index i(i+1)/2 + j
   int ei[NACC], ej[NACC];
@@ -264,12 +267,13 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
 }  // namespace
 
 // Shared by the genes: Sv (nrho, R), WGt (nrho, R, p+S), WW (p, p), Wg
-// (p, S), gg (S,), AW (C, p, S), Ag (C, S), AtA (C, C, S).  Per gene: yt
-// (genes, nrho, R), At (genes, S, R, C), Wy (genes, p), gy (genes, S), Ay
-// (genes, C, S), k_best (genes, S) int64, v0, v1 (genes, S) -> Q (genes,
-// S), Wmat (genes, S, C, C).  Row-major f64 on the card; C + p + 2 <= 63,
-// p + 1 <= 8, genes <= 65535 (a single phenotype is genes = 1).  Launches
-// on `stream`; returns cudaGetLastError().
+// (p, S), gg (S,), AW (C, p, S), Ag (C, S), AtA (C, C, S), At (m, S, R, C)
+// K4's slots.  Per gene: yt (genes, nrho, R), Wy (genes, p), gy (genes,
+// S), Ay (genes, C, S), k_best (genes, S) int64, v0, v1 (genes, S), slot
+// (genes, S) int64 in [0, m) -> Q (genes, S), Wmat (genes, S, C, C).
+// Row-major f64 on the card; C + p + 2 <= 98, p + 1 <= 33, genes <= 65535
+// (a single phenotype is genes = 1).  Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int crm_score_core(const double* Sv, const double* WGt,
                               const double* yt, const double* At,
                               const double* WW, const double* Wy,
@@ -277,9 +281,10 @@ extern "C" int crm_score_core(const double* Sv, const double* WGt,
                               const double* gy, const double* AW,
                               const double* Ag, const double* Ay,
                               const double* AtA, const int64_t* k_best,
-                              const double* v0, const double* v1, double* Q,
-                              double* Wmat, int nrho, int R, int C, int p,
-                              int S, int genes, cudaStream_t stream) {
+                              const double* v0, const double* v1,
+                              const int64_t* slot, double* Q, double* Wmat,
+                              int nrho, int R, int C, int p, int S,
+                              int genes, cudaStream_t stream) {
   const dim3 grid(S, genes);
   // the narrow instantiation where it fits, else the wide one
   const bool wide = C + p + 2 > 63 || p + 1 > 8;
@@ -290,7 +295,7 @@ extern "C" int crm_score_core(const double* Sv, const double* WGt,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<grid, NT, smem, stream>>>(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW,
-                                     Ag, Ay, AtA, k_best, v0, v1, Q, Wmat,
-                                     nrho, R, C, p, S);
+                                     Ag, Ay, AtA, k_best, v0, v1, slot, Q,
+                                     Wmat, nrho, R, C, p, S);
   return (int)cudaGetLastError();
 }

@@ -283,7 +283,9 @@ def interaction_batch(ctx: NullContext, G: torch.Tensor,
     x32, _, k_best = reml_localize(ctx.S, WG_rot, yt_all, comp, ld_xx,
                                    br_lo, br_hi, n, newton_f32,
                                    fast != f64)         # K3
-    At_all = best_rho_rotate(ctx.V, T, k_best)          # (S, R, C)  K4
+    # each distinct (rho, variant) pair's factor once: (m, S, R, C), m =
+    # min(genes, nrho) slots (one for a single phenotype)
+    At_slots, slot = best_rho_rotate(ctx.V, T, k_best)  # K4
     # restart from the GRID bracket, not the Newton-shrunk one: near the
     # optimum the localized derivative signs are noise (engine.py:704-709)
     delta_k, lml_k, scale_k, _ = reml_converge(
@@ -293,8 +295,9 @@ def interaction_batch(ctx: NullContext, G: torch.Tensor,
     v1_k = scale_k * delta_k
 
     # --- score statistic at the best rho (K5) ---
-    Q, Wmat = score_core(ctx.S, WG_rot, yt_all, At_all, ctx.WW, ctx.Wy, Wg,
-                         gg, gy, AW, Ag, Ay, AtA, k_best, v0_k, v1_k)
+    Q, Wmat = score_core(ctx.S, WG_rot, yt_all, At_slots, ctx.WW, ctx.Wy,
+                         Wg, gg, gy, AW, Ag, Ay, AtA, k_best, v0_k, v1_k,
+                         slot)
     rho1 = ctx.rho[k_best]
     out = {"Q": Q, "Wmat": Wmat, "rho1": rho1, "e2": v0_k * rho1,
            "g2": v0_k * (1 - rho1), "eps2": v1_k, "v0": v0_k, "v1": v1_k,

@@ -18,7 +18,14 @@ Two entry points, each with its plain torch version:
   only at tiny (:1056) and has no logdet(A) trace terms (:1026-1028).
 
 On a CUDA tensor the wrappers launch ``csrc/reml_newton.cu``; on a CPU
-tensor they run the plain versions.  From p + 1 = 5 the localize takes
+tensor they run the plain versions.  Up to p + 1 = 4 the localize is the
+register route: a warp a (gene, variant, rho) problem, a block a rho
+point and a tile of variants and genes, the rows its problems share
+(the rho's eigenvalues and W, each variant's genotype, each gene's
+phenotype, and the f32-rounded products of W and of the phenotype)
+staged in shared memory once a block, every row at once where they fit,
+else in chunks, then a small argmax kernel over rho; any number of rho
+points.  From p + 1 = 5 the localize takes
 the product route: per Newton step and rho, the sums over the pairs of
 [W, y], which no variant's genotype enters, are one product of the
 problems' weights and those pairs on the FP64 tensor cores, the
@@ -43,8 +50,6 @@ from ..ops.linalg import (unrolled_chol_factor, unrolled_chol_logdet,
                           unrolled_chol_solve)
 
 launches = 0
-
-MAX_RHO = 64        # rho points of a localize block (its warps loop)
 
 
 def _eval(delta, TS, rs, ro, n, R, ld_xx, restricted):
@@ -169,9 +174,6 @@ def reml_localize(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi, n,
     for t, name in ((br_lo, "br_lo"), (br_hi, "br_hi")):
         _build.require(t, f"reml_localize: {name}", torch.float64,
                        gs + (nS, nrho))
-    if nrho > MAX_RHO:
-        raise ValueError(f"reml_localize: at most {MAX_RHO} rho points, "
-                         f"got {nrho}")
     out = call_localize(_build.load("reml_newton", _bind), S, WGt, yt, comp,
                         ld_xx, br_lo, br_hi, n, steps, round32,
                         _build.stream_ptr(S.device))

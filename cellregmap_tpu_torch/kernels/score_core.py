@@ -4,9 +4,12 @@ weight matrix Wmat = 1/2 A^T P A at each variant's best rho.
 On a CUDA tensor :func:`score_core` launches the hand-written kernel
 (``csrc/score_core.cu``); on a CPU tensor it runs :func:`score_core_plain`.
 The arguments are the interaction batch's own tensors; each variant
-gathers its best rho's rows (k_best) itself.  The gene-batched scan gives
-the phenotype's operands (yt, At, Wy, gy, Ay, k_best, v0, v1) a leading
-gene axis; the genotype's are shared, and one launch serves every gene.
+gathers its best rho's rows (k_best) itself, and its score factor from
+K4's slots: At_slots[slot[g, s], s] (:mod:`.best_rho_rotate`).  The
+gene-batched scan gives the phenotype's operands (yt, Wy, gy, Ay, k_best,
+v0, v1, slot) a leading gene axis; the genotype's (and the slots, which
+the genes that share a best rho share) are shared, and one launch serves
+every gene.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import math
 import torch
 
 from . import _build
+from .best_rho_rotate import gather
 
 launches = 0
 
@@ -26,14 +30,16 @@ MAX_GENES = 65535  # genes of one launch (a grid axis)
 
 
 def score_core_plain(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
-                     k_best, v0, v1):
+                     k_best, v0, v1, slot):
     """Plain torch version: ``score_test_core`` batched over variants, one
-    gene at a time."""
+    gene at a time, each on its factor At_slots[slot, s]."""
     if yt.ndim == 3:
         return tuple(torch.stack(o) for o in zip(*(
-            score_core_plain(Sv, WGt, yt[g], At[g], WW, Wy[g], Wg, gg, gy[g],
-                             AW, Ag, Ay[g], AtA, k_best[g], v0[g], v1[g])
+            score_core_plain(Sv, WGt, yt[g], At, WW, Wy[g], Wg, gg, gy[g],
+                             AW, Ag, Ay[g], AtA, k_best[g], v0[g], v1[g],
+                             slot[g])
             for g in range(yt.shape[0]))))
+    At = gather(At, slot)                                    # (S, R, C)
     S = At.shape[0]
     p = WW.shape[0]
     ar = torch.arange(S, device=At.device)
@@ -75,26 +81,27 @@ def score_core_plain(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.crm_score_core.restype = ci
-    lib.crm_score_core.argtypes = [vp] * 18 + [ci] * 6 + [vp]
+    lib.crm_score_core.argtypes = [vp] * 19 + [ci] * 6 + [vp]
 
 
 def score_core(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
-               k_best, v0, v1):
+               k_best, v0, v1, slot):
     """(Q ([genes,] S), Wmat ([genes,] S, C, C)) for one variant batch.
 
     Sv (nrho, R) eigenvalues, WGt (nrho, R, p+S) rotated [W | G], yt
-    ([genes,] nrho, R) rotated y, At ([genes,] S, R, C) best-rho score
-    factor, WW (p, p), Wy ([genes,] p), Wg (p, S), gg (S,), gy ([genes,]
+    ([genes,] nrho, R) rotated y, At (m, S, R, C) K4's best-rho score
+    factors, WW (p, p), Wy ([genes,] p), Wg (p, S), gg (S,), gy ([genes,]
     S), AW (C, p, S), Ag (C, S), Ay ([genes,] C, S), AtA (C, C, S)
     full-space Grams, k_best ([genes,] S) int64 best-rho index, v0/v1
-    ([genes,] S) variance components.  f64.
+    ([genes,] S) variance components, slot ([genes,] S) int64 in [0, m):
+    the factor's slot in At.  f64.
     """
     global launches
     if At.device.type == "cpu":
         return score_core_plain(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW,
-                                Ag, Ay, AtA, k_best, v0, v1)
+                                Ag, Ay, AtA, k_best, v0, v1, slot)
     nrho, R = Sv.shape
-    S, C = At.shape[-3], At.shape[-1]
+    m, S, C = At.shape[0], At.shape[-3], At.shape[-1]
     p = WW.shape[0]
     gs = tuple(yt.shape[:-2])
     if C + p + 2 > MAX_COLUMNS or p + 1 > MAX_FIXED:
@@ -106,23 +113,24 @@ def score_core(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
     f64 = torch.float64
     for t, name, shape in (
             (Sv, "Sv", (nrho, R)), (WGt, "WGt", (nrho, R, p + S)),
-            (yt, "yt", gs + (nrho, R)), (At, "At", gs + (S, R, C)),
+            (yt, "yt", gs + (nrho, R)), (At, "At", (m, S, R, C)),
             (WW, "WW", (p, p)), (Wy, "Wy", gs + (p,)), (Wg, "Wg", (p, S)),
             (gg, "gg", (S,)), (gy, "gy", gs + (S,)), (AW, "AW", (C, p, S)),
             (Ag, "Ag", (C, S)), (Ay, "Ay", gs + (C, S)),
             (AtA, "AtA", (C, C, S)), (v0, "v0", gs + (S,)),
             (v1, "v1", gs + (S,))):
         _build.require(t, name, f64, shape)
-    _build.require(k_best, "k_best", torch.int64, gs + (S,))
+    for t, name in ((k_best, "k_best"), (slot, "slot")):
+        _build.require(t, name, torch.int64, gs + (S,))
     out = call(_build.load("score_core", _bind), Sv, WGt, yt, At, WW, Wy, Wg,
-               gg, gy, AW, Ag, Ay, AtA, k_best, v0, v1,
+               gg, gy, AW, Ag, Ay, AtA, k_best, v0, v1, slot,
                _build.stream_ptr(At.device))
     launches += 1
     return out
 
 
 def call(lib, Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA, k_best,
-         v0, v1, stream=None):
+         v0, v1, slot, stream=None):
     """Allocate Q and Wmat and call ``lib``'s entry point (the card's
     library, or an emulation of it on CPU tensors)."""
     nrho, R = Sv.shape
@@ -134,7 +142,8 @@ def call(lib, Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA, k_best,
     if Q.numel() == 0:
         return Q, Wmat
     ptrs = [_build.ptr(t) for t in (Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW,
-                                    Ag, Ay, AtA, k_best, v0, v1, Q, Wmat)]
+                                    Ag, Ay, AtA, k_best, v0, v1, slot, Q,
+                                    Wmat)]
     _build.check(lib.crm_score_core(*ptrs, nrho, R, C, p, S, math.prod(gs),
                                     stream), "score_core")
     return Q, Wmat

@@ -78,7 +78,13 @@ Phases, in order; any failure raises and the script exits non-zero:
     K7 and K8 at that width against their plain versions (K3's localize
     split by kernel from torch.profiler); and a p = 33
     scanner on the card, refused before any setup (the refusal timed);
-15. one JSON line of the kernels, then the result line.
+15. ``ScanConfig(n_rho=80)`` (past the 64 rho points the localize took
+    before) through ``run_interaction`` at 1000 cells, 10 contexts, 50
+    donors and 512 variants: launch counts, the first 64 variants against
+    the CPU, and K3 at 80 rho points against its plain version;
+16. one JSON line of the kernels (every row's times a wrapper call, as
+    its launches count them; a row timed over a batch's several calls
+    keeps the batch's times beside), then the result line.
 
 It imports neither jax nor the JAX package.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -117,6 +123,11 @@ ASSOC_MULTIGENE = dict(genes=16, n_snps=2048, refit_snps=512, seed=11)
 # covariates_24: the headline dataset with p = 24 columns of W, 21 rho
 COVARIATES = dict(p=24, n_rho=21, n_snps=512, seed=24)
 WIDE_COVARIATES = dict(p=32, seed=32)   # W's columns on WIDE's dataset
+# 80 rho points, past the 64 the localize took before; the dataset cut to
+# 1000 cells and 50 donors (R = 510) so that the host setup's 80
+# eigendecompositions, on the card's scanner and the CPU's, stay short
+RHO80 = dict(n_cells=1000, n_contexts=10, n_donors=50, n_snps=512, seed=80)
+N_RHO80 = 80
 BATCH = 512
 GXE_SNP = 7
 CARD = "cuda"          # the device of the main paths
@@ -236,27 +247,17 @@ def check_kernels(ctx, G, n):
 
     # K4
     (V, T, kb), = calls["best_rho_rotate"]
-    out, ref = k4.best_rho_rotate(V, T, kb), k4.best_rho_rotate_plain(V, T, kb)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    rel = err / float(ref.abs().max())
-    assert rel <= 1e-12, f"best_rho_rotate: rel {rel}"
-    S = T.shape[2]
+    err = check_best_rho_rotate(V, T, kb, "best_rho_rotate")
     b_ms, b_by, n_k, _ = k4_bound(V, T, kb)
-
-    def k4_library(chunk=64):
-        for s0 in range(0, S, chunk):
-            sl = slice(s0, s0 + chunk)
-            torch.bmm(V[kb[sl]].transpose(1, 2), T[:, :, sl].permute(2, 0, 1))
-
     rows.append(dict(
         name="best_rho_rotate", route="cuda",
         source="cellregmap_tpu_torch/csrc/best_rho_rotate.cu",
         replaces="cellregmap_tpu/engine.py:672", max_abs_err=err,
         ms=cuda_ms(lambda: k4.best_rho_rotate(V, T, kb)),
         plain_ms=cuda_ms(lambda: k4.best_rho_rotate_plain(V, T, kb)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(k4_library),
-        tolerance="max|err| <= 1e-12 * max|plain|", distinct_rho=n_k))
+        bound_ms=b_ms, bound_by=b_by, library_ms=k4_library_ms(V, T, kb),
+        tolerance="slots equal; the gathered factors' max|err| <= 1e-12 * "
+                  "max|plain|", distinct_rho=n_k))
 
     # K5
     (args,) = calls["score_core"]
@@ -268,7 +269,7 @@ def check_kernels(ctx, G, n):
     assert rel <= 1e-10, f"score_core: rel {rel}"
     Sv, WGt, yt, At, WW = args[:5]
     kb5 = args[13]
-    S, R, C = At.shape
+    _, S, R, C = At.shape
     p = WW.shape[0]
     m = C + p + 2
     n_k = int(torch.unique(kb5).numel())
@@ -287,8 +288,8 @@ def check_kernels(ctx, G, n):
         tolerance="max|err| <= 1e-10 * max|plain|, Q and Wmat"))
     rows[len(K1_CALLS):len(K1_CALLS)] = [
         check_delta_grid(calls["delta_grid"][0]),
-        check_reml_newton(calls["reml_localize"][0],
-                          calls["reml_converge"][0])]
+        *check_reml_newton(calls["reml_localize"][0],
+                           calls["reml_converge"][0])]
     rows += [check_sym_eigvalsh(*tails[0]), check_mixture_tails(*tails[1])]
     rows += check_association_kernels(ctx, G, n)
     for r in rows:
@@ -308,8 +309,7 @@ def check_kr_contract(calls, names, tag=None):
     """K1 on each captured call (U, V, G): within 1e-12 of max|plain| of
     the plain version, timed beside it and beside one ``matmul`` of U^T
     against the materialized V o G.  One row a call named ``kr_contract
-    (<name>)``; with ``tag``, one row ``kr_contract (<tag>)`` of all the
-    calls, their times summed, with each call's split."""
+    (<name>)``, or with ``tag`` ``kr_contract (<name>, <tag>)``."""
     import torch
 
     from cellregmap_tpu_torch.kernels import kr_contract as k1
@@ -332,7 +332,8 @@ def check_kr_contract(calls, names, tag=None):
             torch.matmul(U.T, (V[:, :, None] * Gm[:, None, :]).reshape(nn, -1))
 
         rows.append(dict(
-            name=f"kr_contract ({name})", route="cuda",
+            name=f"kr_contract ({name}{', ' + tag if tag else ''})",
+            route="cuda",
             source="cellregmap_tpu_torch/csrc/kr_contract.cu",
             replaces="cellregmap_tpu/engine.py:184", max_abs_err=err,
             ms=cuda_ms(lambda: k1.kr_contract(U, V, Gm)),
@@ -340,19 +341,7 @@ def check_kr_contract(calls, names, tag=None):
             bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library),
             shape=dict(n=nn, K=K, p=p, S=S), rel=rel,
             tolerance="max|err| <= 1e-12 * max|plain|"))
-    if tag is None:
-        return rows
-    row = dict(rows[0], name=f"kr_contract ({tag})",
-               split_ms={r["name"]: r["ms"] for r in rows},
-               shapes=[r["shape"] for r in rows],
-               tolerance="max|err| <= 1e-12 * max|plain|, per call")
-    row.pop("shape")
-    for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
-        row[k] = sum(r[k] for r in rows)
-    row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
-    # what bounds the sum: that of its largest term
-    row["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
-    return [row]
+    return rows
 
 
 def check_sym_eigvalsh(A):
@@ -439,21 +428,60 @@ def _rel(a, b):
     return float(((a - b).abs() / b.abs().clamp(min=1e-300))[fin].max())
 
 
-def k4_bound(V, T, kb):
+def k4_bound(V, T, kb, per_gene=False):
     """K4's bound on one call: 2 R^2 C flop for each distinct (rho,
     variant) pair of k_best ([genes,] S), since genes whose best rho
     agrees share the product V[k]^T T[:, :, s]; V's used slices and T read
-    once, At and k_best written or read once per gene.  Returns (ms, by,
-    distinct rho points, distinct pairs)."""
+    once, each distinct pair's factor written once (K4's slots), k_best
+    read and the slots written once.  ``per_gene``: the bound of the
+    contract before the slots, a factor written for every (gene,
+    variant).  Returns (ms, by, distinct rho points, distinct pairs)."""
     import torch
 
     R, C, S = T.shape
     keys = kb.reshape(-1, S) * S + torch.arange(S, device=kb.device)
     n_pairs = int(torch.unique(keys).numel())
     n_k = int(torch.unique(kb).numel())
-    nbytes = F64 * (n_k * R * R + R * C * S + kb.numel() * (R * C + 1))
+    if per_gene:
+        nbytes = F64 * (n_k * R * R + R * C * S + kb.numel() * (R * C + 1))
+    else:
+        nbytes = F64 * (n_k * R * R + R * C * S + n_pairs * R * C
+                        + 2 * kb.numel())
     b_ms, b_by = bound(2 * R * R * C * n_pairs, nbytes)
     return b_ms, b_by, n_k, n_pairs
+
+
+def k4_library_ms(V, T, kb, chunk=64):
+    """K4's yardstick on one call: ``bmm`` of V gathered at each variant's
+    best rho against T, ``chunk`` variants at a time."""
+    import torch
+
+    def library():
+        for s0 in range(0, T.shape[2], chunk):
+            sl = slice(s0, s0 + chunk)
+            torch.bmm(V[kb[sl]].transpose(1, 2), T[:, :, sl].permute(2, 0, 1))
+
+    return cuda_ms(library)
+
+
+def check_best_rho_rotate(V, T, kb, what):
+    """K4 against its plain version on one call: the slots equal, the
+    factors gathered through them within 1e-12 of max|plain|.  Returns the
+    max abs error of the gathered factors."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
+
+    (At, slot), (At_p, slot_p) = (k4.best_rho_rotate(V, T, kb),
+                                  k4.best_rho_rotate_plain(V, T, kb))
+    torch.cuda.synchronize()
+    assert At.shape == At_p.shape, f"{what}: {At.shape} != {At_p.shape}"
+    assert torch.equal(slot, slot_p), f"{what}: the slots differ"
+    got, ref = k4.gather(At, slot), k4.gather(At_p, slot_p)
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    assert rel <= 1e-12, f"{what}: rel {rel}"
+    return err
 
 
 def _fit_flops(p1, R, problems, deriv_steps):
@@ -545,21 +573,26 @@ def _check_converge(call, plain_reps=10):
 def _check_refit_converge(calls, plain_reps=10, genes=1):
     """K7's converge launches of one refit batch (the Newton steps, then
     the f64 fit at each end of the grid) against their plain versions:
-    (max abs err, ms, plain ms, flops) summed over the launches."""
-    err = ms = plain = flops = 0.0
+    (max abs err, ms, plain ms, flops, bytes) summed over the launches,
+    each launch's S, W G and y read once and its outputs written once."""
+    err = ms = plain = flops = nbytes = 0.0
     for call in calls:
         e, m, pl = _check_converge(call, plain_reps)
         err, ms, plain = max(err, e), ms + m, plain + pl
         args = call[0]
         p = args[3].CWW.shape[0]
-        flops += _fit_flops(p + 1, args[0].shape[1],
-                            genes * (args[1].shape[2] - p), args[10])
-    return err, ms, plain, flops
+        nS = args[1].shape[2] - p
+        flops += _fit_flops(p + 1, args[0].shape[1], genes * nS, args[10])
+        nbytes += F64 * (args[0].numel() + args[1].numel() + args[2].numel()
+                         + genes * nS * (p + 4))
+    return err, ms, plain, flops, nbytes
 
 
-def check_reml_newton(loc_call, conv_call, plain_reps=10):
+def check_reml_newton(loc_call, conv_call, plain_reps=10, tag=None):
     """K3: localize (k_best equal, x at rel 1e-9, lml at 1e-10) and
-    converge (rel 1e-9) against their plain versions."""
+    converge (rel 1e-9) against their plain versions.  Two rows, a
+    wrapper call each: ``reml_newton (localize[, <tag>])`` and
+    ``reml_newton (converge[, <tag>])``."""
     import torch
 
     from cellregmap_tpu_torch.kernels import reml_newton as k3
@@ -586,23 +619,50 @@ def check_reml_newton(loc_call, conv_call, plain_reps=10):
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
     genes = math.prod(yt.shape[:-2])      # 1, or the gene-batched scan's
-    flops = (_fit_flops(p + 1, R, genes * nS * nrho, steps)
-             + _fit_flops(p + 1, R, genes * nS, steps3))
     n_k = int(torch.unique(kb).numel())
-    nbytes = F64 * (WGt.numel() + (1 + genes) * S.numel()
-                    + genes * (nS * (p + 4) + 4 * nS * nrho + nS
-                               + nS * (p + 4))
-                    + n_k * R * (p + 2))
-    b_ms, b_by = bound(flops, nbytes)
-    return dict(
-        name="reml_newton", route="cuda",
-        source="cellregmap_tpu_torch/csrc/reml_newton.cu",
-        replaces="cellregmap_tpu/engine.py:538", max_abs_err=max(err, c_err),
-        ms=loc_ms + c_ms, plain_ms=loc_plain + c_plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, flops=flops, nbytes=nbytes,
-        split_ms={"localize": loc_ms, "converge": c_ms},
-        tolerance="localize: k_best equal, x rel <= 1e-9, lml rel <= "
-                  "1e-10; converge: delta, lml, scale, beta rel <= 1e-9")
+    # the localize: every rho's rows, the complements and the brackets
+    # read, x, lml and k_best written; the converge: the best rho points'
+    # rows and the brackets read, delta, lml, scale and beta written
+    loc_bound = bound(
+        _fit_flops(p + 1, R, genes * nS * nrho, steps),
+        F64 * (WGt.numel() + (1 + genes) * S.numel()
+               + genes * (nS * (p + 4) + 4 * nS * nrho + nS)))
+    conv_bound = bound(_fit_flops(p + 1, R, genes * nS, steps3),
+                       F64 * (n_k * R * (p + 2) + genes * nS * (p + 4)))
+    suffix = f", {tag})" if tag else ")"
+    common = dict(route="cuda",
+                  source="cellregmap_tpu_torch/csrc/reml_newton.cu",
+                  replaces="cellregmap_tpu/engine.py:538", library_ms=None)
+    return [
+        dict(common, name="reml_newton (localize" + suffix, max_abs_err=err,
+             ms=loc_ms, plain_ms=loc_plain, bound_ms=loc_bound[0],
+             bound_by=loc_bound[1],
+             tolerance="k_best equal, x rel <= 1e-9, lml rel <= 1e-10"),
+        dict(common, name="reml_newton (converge" + suffix,
+             max_abs_err=c_err, ms=c_ms, plain_ms=c_plain,
+             bound_ms=conv_bound[0], bound_by=conv_bound[1],
+             tolerance="delta, lml, scale, beta rel <= 1e-9")]
+
+
+def refit_rows(grid, conv_calls, replaces, tag, plain_reps=10, genes=1):
+    """K7's two rows from its grid's row and its converge launches of one
+    batch: ``association_refit (grid[, <tag>])``, one wrapper call, and
+    ``association_refit (converge[, <tag>])``, timed over the batch's
+    converge calls (the same kernel each)."""
+    c_err, c_ms, c_plain, c_flops, c_bytes = _check_refit_converge(
+        conv_calls, plain_reps, genes=genes)
+    suffix = f", {tag})" if tag else ")"
+    common = dict(route="cuda", replaces="cellregmap_tpu/" + replaces,
+                  library_ms=None)
+    b_ms, b_by = bound(c_flops, c_bytes)
+    return [
+        dict(grid, **common, name="association_refit (grid" + suffix,
+             source="cellregmap_tpu_torch/csrc/delta_grid.cu"),
+        dict(common, name="association_refit (converge" + suffix,
+             source="cellregmap_tpu_torch/csrc/reml_newton.cu",
+             max_abs_err=c_err, ms=c_ms, plain_ms=c_plain, bound_ms=b_ms,
+             bound_by=b_by, calls=len(conv_calls),
+             tolerance="delta, lml, scale, beta rel <= 1e-9")]
 
 
 def check_association_kernels(ctx, G, n, plain_reps=10):
@@ -621,26 +681,8 @@ def check_association_kernels(ctx, G, n, plain_reps=10):
         ["delta_grid", "reml_converge"])
     grid = check_delta_grid(calls["delta_grid"][0], library=False,
                             plain_reps=plain_reps)
-    c_err, c_ms, c_plain, c_flops = _check_refit_converge(
-        calls["reml_converge"], plain_reps)
-    cargs = calls["reml_converge"][0][0]
-    WGt = cargs[1]
-    p = cargs[3].CWW.shape[0]
-    nS = WGt.shape[2] - p
-    flops = grid["flops"] + c_flops
-    b_ms, b_by = bound(flops, grid["nbytes"] + F64 * nS * (p + 2))
-    k7 = dict(
-        name="association_refit", route="cuda",
-        source="cellregmap_tpu_torch/csrc/reml_newton.cu",
-        sources=["cellregmap_tpu_torch/csrc/delta_grid.cu",
-                 "cellregmap_tpu_torch/csrc/reml_newton.cu"],
-        replaces="cellregmap_tpu/engine.py:875",
-        max_abs_err=max(grid["max_abs_err"], c_err),
-        ms=grid["ms"] + c_ms, plain_ms=grid["plain_ms"] + c_plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        split_ms={"grid": grid["ms"], "converge": c_ms},
-        tolerance="grid: " + grid["tolerance"] + "; converge: delta, lml, "
-                  "scale, beta rel <= 1e-9")
+    k7 = refit_rows(grid, calls["reml_converge"], "engine.py:875", None,
+                    plain_reps)
 
     calls = capture_kernel_inputs(
         lambda: engine.null_association_fit(ctx, n,
@@ -670,7 +712,7 @@ def check_association_kernels(ctx, G, n, plain_reps=10):
         bound_ms=b_ms, bound_by=b_by, library_ms=None, gaps=gaps,
         tolerance="lml, plain lml at the kernel's delta, beta and scale "
                   "at that delta: rel <= 1e-10")
-    return [k7, k10_row]
+    return k7 + [k10_row]
 
 
 def device_split(fn, reps=3):
@@ -702,6 +744,14 @@ def device_split(fn, reps=3):
     return out
 
 
+def tagged(name, tag):
+    """A kernel row's name with ``tag`` added: ``base (part, tag)`` or
+    ``base (tag)``."""
+    if name.endswith(")"):
+        return f"{name[:-1]}, {tag})"
+    return f"{name} ({tag})"
+
+
 def check_wide_kernels(ctx, ctx_assoc, G, n):
     """K2, K3, K5, K7 and K8 in their wide instantiations (the contexts'
     p columns of W, nrho rho points) on one batch's operands, each
@@ -715,16 +765,16 @@ def check_wide_kernels(ctx, ctx_assoc, G, n):
     from cellregmap_tpu_torch.kernels import score_core as k5
 
     p = ctx.W.shape[1]
-    tag = f" (p = {p})"
+    tag = f"p = {p}"
     calls = capture_kernel_inputs(
         lambda: engine.interaction_batch(ctx, G, G, n, delta_cfg=DELTA_CFG),
         ["delta_grid", "reml_localize", "reml_converge", "score_core"])
     # the plain versions at this width take seconds a call: timed once
     k2_row = check_delta_grid(calls["delta_grid"][0], library=False,
                               plain_reps=1)
-    k3_row = check_reml_newton(calls["reml_localize"][0],
-                               calls["reml_converge"][0], plain_reps=1)
-    k3_row["split_ms"]["localize_kernels"] = device_split(
+    k3_rows = check_reml_newton(calls["reml_localize"][0],
+                                calls["reml_converge"][0], plain_reps=1)
+    k3_rows[0]["split_ms"] = device_split(
         lambda: k3.reml_localize(*calls["reml_localize"][0][0],
                                  **calls["reml_localize"][0][1]))
     (args, _), = calls["score_core"]
@@ -732,9 +782,9 @@ def check_wide_kernels(ctx, ctx_assoc, G, n):
     torch.cuda.synchronize()
     rel = max(float((Q - Qr).abs().max() / Qr.abs().max()),
               float((Wm - Wr).abs().max() / Wr.abs().max()))
-    assert rel <= 1e-10, f"score_core{tag}: rel {rel}"
+    assert rel <= 1e-10, f"score_core ({tag}): rel {rel}"
     Sv, At = args[0], args[3]
-    S, R, C = At.shape
+    _, S, R, C = At.shape
     m = C + p + 2
     n_k = int(torch.unique(args[13]).numel())
     b_ms, b_by = bound(S * R * (3 * m * (m + 1) // 2 + 3),
@@ -751,11 +801,11 @@ def check_wide_kernels(ctx, ctx_assoc, G, n):
         plain_ms=cuda_ms(lambda: k5.score_core_plain(*args), reps=3,
                          warmup=1), bound_ms=b_ms, bound_by=b_by,
         library_ms=None, tolerance="Q, Wmat: max|err| <= 1e-10 * max|plain|")
-    k7_row, _ = check_association_kernels(ctx_assoc, G, n, plain_reps=1)
+    k7_rows = check_association_kernels(ctx_assoc, G, n, plain_reps=1)[:2]
     k8_row = check_fast_scan(ctx_assoc, G, n, plain_reps=1)
-    rows = [k2_row, k3_row, k5_row, k7_row, k8_row]
+    rows = [k2_row, *k3_rows, k5_row, *k7_rows, k8_row]
     for r in rows:
-        r["name"] += tag
+        r["name"] = tagged(r["name"], tag)
         print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
               f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
               f"{r['plain_ms']:.4f}  bound_ms {r['bound_ms']:.4f} "
@@ -1372,6 +1422,71 @@ def covariates_phase(d, cpu_check=64):
     return out, counts, rows
 
 
+def rho80_phase(cfg, cpu_check=64):
+    """``ScanConfig(n_rho=80)`` through ``run_interaction`` on the card
+    (``RHO80``: 1000 cells, 10 contexts, 50 donors, 512 variants): the
+    launch counts, p-values in (0, 1], the first ``cpu_check`` variants
+    against the CPU port (1e-8, rho1 identical), and K3's localize at 80
+    rho points on one batch's operands against its plain version (k_best
+    equal, x rel <= 1e-9, lml rel <= 1e-10), its converge beside it.
+    Returns (summary, launch counts, K3's two kernel rows)."""
+    import dataclasses
+
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import engine, kernels
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    d = make_dataset(**RHO80)
+    n_snps = RHO80["n_snps"]
+    cfg80 = dataclasses.replace(cfg, n_rho=N_RHO80)
+    batches = -(-n_snps // cfg80.snp_batch)
+    run = lambda G, device: crp.run_interaction(  # noqa: E731
+        y=d["y"], E=d["E"], G=G, W=d["W"], hK=d["hK"], config=cfg80,
+        device=device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pv, info = run(d["G"], CARD)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = expected_launches(kr_contract=3 * batches, delta_grid=batches,
+                             reml_newton=2 * batches,
+                             best_rho_rotate=batches, score_core=batches)
+    assert counts == want, f"n_rho = 80: launches {counts} != {want}"
+    assert np.all((pv > 0) & (pv <= 1)), "n_rho = 80: p-values outside (0, 1]"
+    t0 = time.perf_counter()
+    pv_c, info_c = run(d["G"][:, :cpu_check], "cpu")
+    cpu_s = time.perf_counter() - t0
+    gap = float(np.max(np.abs(pv[:cpu_check] - pv_c)))
+    assert gap <= 1e-8, f"n_rho = 80: |pv_gpu - pv_cpu| = {gap}"
+    assert np.array_equal(info["rho1"][:cpu_check], info_c["rho1"]), \
+        "n_rho = 80: rho1 differs between the card and the CPU"
+
+    # the localize at 80 rho points against its plain version
+    n = len(d["y"])
+    ctx = engine.build_null_context(
+        d["y"], d["W"], d["E"], Ls=crp.get_L_values(d["hK"], d["E"]),
+        rho_grid=np.linspace(0, 1, N_RHO80), device=CARD)
+    Gb = torch.as_tensor(d["G"][:, :cfg80.snp_batch], device=CARD)
+    calls = capture_kernel_inputs(
+        lambda: engine.interaction_batch(ctx, Gb, Gb, n, delta_cfg=DELTA_CFG),
+        ["reml_localize", "reml_converge"])
+    k3_rows = check_reml_newton(calls["reml_localize"][0],
+                                calls["reml_converge"][0], plain_reps=3,
+                                tag=f"n_rho = {N_RHO80}")
+    out = dict(n_cells=RHO80["n_cells"], n_donors=RHO80["n_donors"],
+               n_rho=N_RHO80, n_snps=n_snps, e2e_s=e2e_s,
+               e2e_tests_per_s=n_snps / e2e_s, launches=counts,
+               cpu_check=dict(n=cpu_check, max_abs_pv_diff=gap,
+                              rho1_identical=True, cpu_s=cpu_s),
+               reml_newton={r["name"]: {k: r[k] for k in (
+                   "max_abs_err", "ms", "bound_ms")} for r in k3_rows})
+    print("n_rho = 80: " + json.dumps(out), flush=True)
+    return out, counts, k3_rows
+
+
 def auto_vs_davies(pv_auto, info_auto, pv_dav, cfg):
     """The auto method against the davies run of the same data: the pairs
     it refined (saddlepoint below davies_threshold) within 1e-8 of davies,
@@ -1414,23 +1529,21 @@ def check_gene_axis(ctx, Y, G, n):
         ["delta_grid", "reml_localize", "reml_converge", "best_rho_rotate",
          "score_core"])
     genes, nS = Y.shape[1], G.shape[1]
+    loc, conv = check_reml_newton(calls["reml_localize"][0],
+                                  calls["reml_converge"][0])
     rows = {"delta_grid": check_delta_grid(calls["delta_grid"][0],
                                            library=False),
-            "reml_newton": check_reml_newton(calls["reml_localize"][0],
-                                             calls["reml_converge"][0])}
+            "reml_localize": loc, "reml_converge": conv}
     (V, T, kb), _ = calls["best_rho_rotate"][0]
-    out, ref = k4.best_rho_rotate(V, T, kb), k4.best_rho_rotate_plain(V, T,
-                                                                        kb)
-    torch.cuda.synchronize()
-    rel = float((out - ref).abs().max() / ref.abs().max())
-    assert rel <= 1e-12, f"best_rho_rotate (gene axis): rel {rel}"
+    err = check_best_rho_rotate(V, T, kb, "best_rho_rotate (gene axis)")
     R, C, _ = T.shape
     b_ms, b_by, n_k, n_pairs = k4_bound(V, T, kb)
     rows["best_rho_rotate"] = dict(
-        max_abs_err=float((out - ref).abs().max()),
+        max_abs_err=err,
         ms=cuda_ms(lambda: k4.best_rho_rotate(V, T, kb)),
         plain_ms=cuda_ms(lambda: k4.best_rho_rotate_plain(V, T, kb), reps=3,
                          warmup=1), bound_ms=b_ms, bound_by=b_by,
+        bound_ms_per_gene_store=k4_bound(V, T, kb, per_gene=True)[0],
         distinct_rho=n_k, distinct_rho_variant_pairs=n_pairs)
     (args, _), = calls["score_core"]
     (Q, Wm), (Qr, Wr) = k5.score_core(*args), k5.score_core_plain(*args)
@@ -1441,10 +1554,11 @@ def check_gene_axis(ctx, Y, G, n):
     p = args[4].shape[0]
     m = C + p + 2
     n_k = int(torch.unique(args[13]).numel())
+    # each distinct pair's factor read once (K4's slots)
     b_ms, b_by = bound(
         genes * nS * R * (3 * m * (m + 1) // 2 + 3),
-        F64 * (genes * nS * (R * C + R) + n_k * R * (p + 2)
-               + nS * (C * C + C * (p + 1)) + genes * nS * (C + p + 4)
+        F64 * (n_pairs * R * C + genes * nS * R + n_k * R * (p + 2)
+               + nS * (C * C + C * (p + 1)) + genes * nS * (C + p + 5)
                + genes * nS * (C * C + 1)))
     rows["score_core"] = dict(
         max_abs_err=max(float((Q - Qr).abs().max()),
@@ -1453,7 +1567,8 @@ def check_gene_axis(ctx, Y, G, n):
         plain_ms=cuda_ms(lambda: k5.score_core_plain(*args), reps=3,
                          warmup=1), bound_ms=b_ms, bound_by=b_by)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "split_ms", "distinct_rho", "distinct_rho_variant_pairs")
+            "bound_ms_per_gene_store", "split_ms", "distinct_rho",
+            "distinct_rho_variant_pairs")
     out = dict(genes=genes, n_snps=nS,
                kernels={k: {kk: r[kk] for kk in keys if kk in r}
                         for k, r in rows.items()})
@@ -1954,7 +2069,8 @@ def check_refit_genes(ctx_g, G, k, n):
     brackets at each gene's slot (NaN elsewhere, as the plain version's)
     held as K7's, the converge at rel 1e-9.  The bound counts the grid's
     sums that no phenotype enters once per (slot, grid point), the
-    phenotype's once per gene, and the Newton steps per (gene, variant)."""
+    phenotype's once per gene, and the Newton steps per (gene, variant).
+    Returns K7's two rows (:func:`refit_rows`), tagged ``genes``."""
     import torch
 
     from cellregmap_tpu_torch import engine
@@ -1983,33 +2099,23 @@ def check_refit_genes(ctx_g, G, k, n):
     err = max(float((br_lo - plo)[fin].abs().max()),
               float((br_hi - phi)[fin].abs().max()))
     genes = yt.shape[0]
-    c_err, c_ms, c_plain, c_flops = _check_refit_converge(
-        calls["reml_converge"], genes=genes)
     m, R = S.shape
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
     shared = nS * (p + 1) + p * (p + 1) // 2 + 1
-    flops = 2 * K * R * (m * shared + genes * (nS + p + 1)) + c_flops
-    nbytes = F64 * (WGt.numel() + S.numel() + genes * R
-                    + genes * nS * (p + 4) + 2 * 2 * genes * nS
-                    + genes * nS * (p + 4))
-    b_ms, b_by = bound(flops, nbytes)
-    g_ms = cuda_ms(lambda: k2.delta_grid(*args, **kw))
-    g_plain = cuda_ms(lambda: k2.delta_grid_plain(*args, **kw), reps=3,
-                      warmup=1)
-    return dict(
-        name="association_refit (genes)", route="cuda",
-        source="cellregmap_tpu_torch/csrc/delta_grid.cu",
-        sources=["cellregmap_tpu_torch/csrc/delta_grid.cu",
-                 "cellregmap_tpu_torch/csrc/reml_newton.cu"],
-        replaces="cellregmap_tpu/engine.py:1070",
-        max_abs_err=max(err, c_err), ms=g_ms + c_ms,
-        plain_ms=g_plain + c_plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, split_ms={"grid": g_ms, "converge": c_ms},
+    b_ms, b_by = bound(
+        2 * K * R * (m * shared + genes * (nS + p + 1)),
+        F64 * (WGt.numel() + S.numel() + genes * R + genes * nS * (p + 4)
+               + 2 * 2 * genes * nS))
+    grid = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: k2.delta_grid(*args, **kw)),
+        plain_ms=cuda_ms(lambda: k2.delta_grid_plain(*args, **kw), reps=3,
+                         warmup=1), bound_ms=b_ms, bound_by=b_by,
         shapes=dict(genes=genes, slots=m, R=R, p=p, S=nS, K=K),
-        tolerance=f"grid: plain lml at the kernel's grid point within {tol} "
-                  "relative of the plain maximum, at each gene's slot; "
-                  "converge: delta, lml, scale, beta rel <= 1e-9")
+        tolerance=f"plain lml at the kernel's grid point within {tol} "
+                  "relative of the plain maximum, at each gene's slot")
+    return refit_rows(grid, calls["reml_converge"], "engine.py:1070",
+                      "genes", genes=genes)
 
 
 def _multigene_genes(d):
@@ -2176,7 +2282,7 @@ def assoc_refit_multigene_phase(d, cfg, crm):
     k = engine.null_association_multigene_fit(
         ctx_g, n, delta_cfg=ASSOC_DELTA_CFG)[1].cpu().numpy()
     Gb = torch.as_tensor(G[:, :cfg.snp_batch], device=CARD).contiguous()
-    row = check_refit_genes(ctx_g, Gb, k, n)
+    k7_rows = check_refit_genes(ctx_g, Gb, k, n)
     out = dict(genes=genes, n_snps=n_snps, gene_batch=genes,
                batch=cfg.snp_batch, steady_s=steady_s,
                steady_pairs_per_s=pairs / steady_s, launches=counts,
@@ -2187,9 +2293,9 @@ def assoc_refit_multigene_phase(d, cfg, crm):
                distinct_best_rho=int(np.unique(k).size),
                cpu_check=dict(genes=2, n=64, max_abs_pv_diff=cpu_gap,
                               rho1_identical=True),
-               kernel_ms={row["name"]: row["ms"]})
+               kernel_ms={r["name"]: r["ms"] for r in k7_rows})
     print("assoc_refit_multigene_16: " + json.dumps(out), flush=True)
-    return out, counts, row
+    return out, counts, k7_rows
 
 
 class _Stop(RuntimeError):
@@ -2330,6 +2436,7 @@ def main() -> int:
     import cellregmap_tpu_torch as crp
     from cellregmap_tpu_torch import engine
     from cellregmap_tpu_torch.kernels import _build
+    from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
     from cellregmap_tpu_torch.utils.native import build_qfc
 
     faulthandler.enable()         # a crash in native code prints its stack
@@ -2374,25 +2481,45 @@ def main() -> int:
             "davies": head["traced_phase_s"]["pvalue_ladder"],
             "auto": head_auto["traced_phase_s"]["pvalue_ladder"]})),
         flush=True)
-    # cells10k, its first batch's K1 operands captured from the run
+    # cells10k (R = 2500, C = 20: the localize stages its rows in chunks),
+    # its first batch's K1, K3 and K4 operands captured from the run
     held = {}
-    k1_10k = capture_kernel_inputs(
+    cap = capture_kernel_inputs(
         lambda: held.update(counts=scan_size("cells10k", SECOND, cfg,
                                              warmup=False)[1]),
-        ["kr_contract"])["kr_contract"][:len(K1_CALLS)]
+        ["kr_contract", "reml_localize", "reml_converge", "best_rho_rotate"])
     c_10k = held["counts"]
-    rows += check_kr_contract([a for a, _ in k1_10k], K1_CALLS,
-                              tag="cells10k")
-    del k1_10k
-    # hand the row's cached blocks back: the scans size their batches by
+    rows_10k = check_kr_contract([a for a, _ in cap["kr_contract"][:3]],
+                                 K1_CALLS, tag="cells10k")
+    rows_10k += check_reml_newton(cap["reml_localize"][0],
+                                  cap["reml_converge"][0], plain_reps=3,
+                                  tag="cells10k")
+    (V, T, kb), _ = cap["best_rho_rotate"][0]
+    del cap
+    b_ms, b_by, _, _ = k4_bound(V, T, kb)
+    rows_10k.append(dict(
+        name="best_rho_rotate (cells10k)", route="cuda",
+        source="cellregmap_tpu_torch/csrc/best_rho_rotate.cu",
+        replaces="cellregmap_tpu/engine.py:672",
+        max_abs_err=check_best_rho_rotate(V, T, kb,
+                                          "best_rho_rotate (cells10k)"),
+        ms=cuda_ms(lambda: k4.best_rho_rotate(V, T, kb)),
+        plain_ms=cuda_ms(lambda: k4.best_rho_rotate_plain(V, T, kb),
+                         reps=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=k4_library_ms(V, T, kb, chunk=16),
+        tolerance="slots equal; the gathered factors' max|err| <= 1e-12 * "
+                  "max|plain|"))
+    del V, T, kb
+    # hand the rows' cached blocks back: the scans size their batches by
     # the card's free memory
     torch.cuda.empty_cache()
-    print(f"kernel {rows[-1]['name']}: max_abs_err "
-          f"{rows[-1]['max_abs_err']:.3e}; ms {rows[-1]['ms']:.4f}  plain_ms "
-          f"{rows[-1]['plain_ms']:.4f}  library_ms {rows[-1]['library_ms']:.4f}"
-          f"  bound_ms {rows[-1]['bound_ms']:.4f}; "
-          + json.dumps({k: rows[-1][k] for k in ("split_ms", "shapes")}),
-          flush=True)
+    for r in rows_10k:
+        print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
+              f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
+              f"{r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    rows += rows_10k
 
     # --- the gene-batched scan ---
     multigene_phase(d, cfg)
@@ -2439,9 +2566,9 @@ def main() -> int:
 
     # --- the gene-batched association scans, then checkpointed scans ---
     _, c_amg, amg_rows, crm_assoc = assoc_multigene_phase(d, cfg, Ls)
-    _, c_arm, arm_row = assoc_refit_multigene_phase(d, cfg, crm_assoc)
-    rows += amg_rows + [arm_row]
-    for r in rows[-3:]:
+    _, c_arm, arm_rows = assoc_refit_multigene_phase(d, cfg, crm_assoc)
+    rows += amg_rows + arm_rows
+    for r in rows[-4:]:
         print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
               f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
               f"{r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
@@ -2450,50 +2577,59 @@ def main() -> int:
                             if k in r}), flush=True)
     checkpoint_phase(d, cfg, crm_assoc)
 
-    # --- the card's covariate envelope: p = 24, 21 rho ---
+    # --- the card's covariate envelope: p = 24, 21 rho; 80 rho ---
     _, c_cov, cov_rows = covariates_phase(d)
     rows += cov_rows
+    _, c_rho80, rho80_rows = rho80_phase(cfg)
+    rows += rho80_rows
 
+    # each row's launches: its wrapper's count on the run its operands
+    # came from (tagged rows: their phase's run), divided by the wrapper's
+    # calls a batch there when the row is one of them (K1's three calls,
+    # K3's localize and converge)
+    def total(*cs):
+        return {k: sum(c[k] for c in cs) for k in counts}
+
+    runs = {None: counts, "cells10k": c_10k, f"n_rho = {N_RHO80}": c_rho80,
+            "p = 24": c_cov["run_interaction"], "genes": c_arm}
     for r in rows:
-        if r["name"] == "kr_contract (cells10k)":
-            r["launches"] = c_10k["kr_contract"]
-        elif r["name"].startswith("kr_contract ("):
-            # the headline run launches each of the batch's calls once a batch
-            assert counts["kr_contract"] % len(K1_CALLS) == 0
-            r["launches"] = counts["kr_contract"] // len(K1_CALLS)
-        elif r["name"] == "association_refit":
-            r["launches"] = sum(c[k] for c in (c_hk, c_ls)
-                                for k in ("delta_grid", "reml_newton"))
-        elif r["name"] == "null_fit":
-            r["launches"] = sum(c["null_fit"]
-                                for c in (c_hk, c_ls, c_fhk, c_fls, c_agg))
-        elif r["name"] == "fast_scan":
-            r["launches"] = c_fhk["fast_scan"] + c_fls["fast_scan"]
-        elif r["name"] == "woodbury_family":
-            r["launches"] = c_betas["woodbury_family"]
-        elif r["name"] in ("sym_eigvalsh", "mixture_tails"):
-            r["launches"] = c_auto[r["name"]]
-        elif r["name"] == "null_fit (wide)" or any(r is w
-                                                   for w in wide_cov_rows):
-            pass
-        elif r["name"] == "null_fit (genes)":
-            r["launches"] = c_amg["null_fit"] + c_arm["null_fit"]
-        elif r["name"] == "fast_scan (genes)":
-            r["launches"] = c_amg["fast_scan"]
-        elif r["name"] == "association_refit (genes)":
-            r["launches"] = c_arm["delta_grid"] + c_arm["reml_newton"]
-        elif r["name"].endswith("(p = 24)"):
-            base = r["name"][:-len(" (p = 24)")]
-            if base == "association_refit":
-                c = c_cov["run_association"]
-                r["launches"] = c["delta_grid"] + c["reml_newton"]
-            elif base == "fast_scan":
-                r["launches"] = c_cov["run_association_fast"]["fast_scan"]
-            else:
-                r["launches"] = c_cov["run_interaction"][base]
-        else:
-            r["launches"] = counts[r["name"]]
+        if "launches" in r:       # counted by its phase
+            continue
+        base, _, inner = r["name"].partition(" (")
+        parts = inner.rstrip(")").split(", ") if inner else []
+        tag = next((s for s in parts if s in runs), None)
+        c, module, per_batch = runs[tag], base, 1
+        if base == "kr_contract":
+            per_batch = len(K1_CALLS)
+        elif base == "reml_newton":
+            per_batch = 2
+        elif base == "association_refit":
+            module = "delta_grid" if "grid" in parts else "reml_newton"
+            c = {None: total(c_hk, c_ls), "genes": c_arm,
+                 "p = 24": c_cov["run_association"]}[tag]
+        elif base in ("sym_eigvalsh", "mixture_tails"):
+            c = c_auto
+        elif base == "null_fit":
+            c = (total(c_amg, c_arm) if tag == "genes"
+                 else total(c_hk, c_ls, c_fhk, c_fls, c_agg))
+        elif base == "fast_scan":
+            c = {None: total(c_fhk, c_fls), "genes": c_amg,
+                 "p = 24": c_cov["run_association_fast"]}[tag]
+        elif base == "woodbury_family":
+            c = c_betas
+        assert c[module] % per_batch == 0, f"{r['name']}: {c[module]}"
+        r["launches"] = c[module] // per_batch
         assert r["launches"] > 0, f"{r['name']}: no launch on its path"
+    # one unit for every row: launches count wrapper calls, so a row
+    # timed over a batch's `calls` calls of its wrapper (K7's converge,
+    # K9) gives its times a call (the batch's beside them)
+    for r in rows:
+        if r.get("calls", 1) > 1:
+            r["batch_ms"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "library_ms")}
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                if r[k] is not None:
+                    r[k] /= r["calls"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

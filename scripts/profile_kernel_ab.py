@@ -14,7 +14,15 @@ on the same operands, on one card in one process:
   contexts; p = rank[W, E] + 1 = 52 mean columns, R = 2000, 11 rho);
 * K9 on each of the 9 calls of one headline effect-size batch (512
   variants, Rk = 1000, q = 23: five f32 zoom rounds, three f64 rounds, the
-  f64 fit with coefficients), each call apart and their sums by precision.
+  f64 fit with coefficients), each call apart and their sums by precision;
+* K4 (``csrc/best_rho_rotate.cu``) and K3's register localize (p = 1) on
+  a headline interaction batch, on a ``multigene_16`` batch (the
+  headline dataset, Y = y + 0.1 N(0, 1) over 16 genes, rng 9) and on a
+  ``cells10k`` batch (R = 2500, C = 20: the localize's rows staged in
+  chunks), from the batch's own k_best and K2 brackets.  K4's contract
+  changed (each distinct (rho, variant) pair once, through slots), so
+  each side's factors are compared per (gene, variant): this checkout's
+  gathered through its slots.
 
 The operands come from this checkout's engine; the other checkout's
 package is loaded under another name, builds its own kernels into its own
@@ -29,10 +37,10 @@ runs, 10 for the localize and K9, 5 for K10) in the order other, this,
 this, other, and profiled with ``torch.profiler`` (device milliseconds a
 call in each kernel).  Prints one JSON line per call and one of the whole;
 ``--out`` also writes that line to a file; ``--kernels`` picks some of
-k1, k3, k10, k9.
+k1, k3, k10, k9, k4, k3reg.
 
     python3 scripts/profile_kernel_ab.py --other <checkout> [--out FILE]
-        [--kernels k10,k9]
+        [--kernels k4,k3reg]
 """
 import argparse
 import importlib.util
@@ -48,13 +56,15 @@ import chip_smoke as cs  # noqa: E402
 import cellregmap_tpu_torch as crp  # noqa: E402
 from cellregmap_tpu_torch import engine  # noqa: E402
 from cellregmap_tpu_torch.kernels import _build  # noqa: E402
+from cellregmap_tpu_torch.kernels import best_rho_rotate as k4  # noqa: E402
 from cellregmap_tpu_torch.kernels import kr_contract as k1  # noqa: E402
 from cellregmap_tpu_torch.kernels import null_fit as k10  # noqa: E402
 from cellregmap_tpu_torch.kernels import reml_newton as k3  # noqa: E402
 from cellregmap_tpu_torch.kernels import woodbury_family as k9  # noqa: E402
 
 KERNELS = {"k1": "kr_contract", "k3": "reml_newton", "k10": "null_fit",
-           "k9": "woodbury_family"}
+           "k9": "woodbury_family", "k4": "best_rho_rotate",
+           "k3reg": "reml_newton"}
 
 
 def load_other(root: Path, name="other_crp"):
@@ -150,15 +160,54 @@ def check_k9(args, kw):
     return check
 
 
+def rotate_localize_calls(d, n, G, Ls):
+    """(label, K4's (V, T, k_best), K3's localize (args, kw)) of a headline
+    interaction batch, of a ``multigene_16`` batch and of a ``cells10k``
+    batch (``chip_smoke.SECOND``: 10 000 cells, 20 contexts, 125 donors,
+    R = 2500; its first 512 variants)."""
+    ctx = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                    device="cuda")
+    d10 = cs.make_dataset(**cs.SECOND)
+    n10 = len(d10["y"])
+    ctx10 = engine.build_null_context(
+        d10["y"], d10["W"], d10["E"],
+        Ls=crp.get_L_values(d10["hK"], d10["E"]), device="cuda")
+    G10 = torch.as_tensor(d10["G"][:, :cs.BATCH], device="cuda").contiguous()
+    rng = np.random.default_rng(cs.MULTIGENE["seed"])
+    Y = d["y"][:, None] + 0.1 * rng.normal(size=(n, cs.MULTIGENE["genes"]))
+    Yg = torch.as_tensor(np.ascontiguousarray(Y.T), device="cuda")
+    ctx_g = ctx._replace(y=Yg, Zy=Yg @ ctx.Z, Wy=Yg @ ctx.W,
+                         yy=(Yg * Yg).sum(dim=1))
+    out = []
+    for label, run in (
+            ("headline", lambda: engine.interaction_batch(
+                ctx, G, G, n, delta_cfg=cs.DELTA_CFG)),
+            ("multigene_16", lambda: engine.interaction_multigene_batch(
+                ctx_g, G, G, n, delta_cfg=cs.DELTA_CFG)),
+            ("cells10k", lambda: engine.interaction_batch(
+                ctx10, G10, G10, n10, delta_cfg=cs.DELTA_CFG))):
+        calls = cs.capture_kernel_inputs(run, ["best_rho_rotate",
+                                               "reml_localize"])
+        out.append((label, calls["best_rho_rotate"][0][0],
+                    calls["reml_localize"][0]))
+    return out
+
+
+def factors(got):
+    """K4's factors per (gene, variant): this checkout's (At_slots, slot)
+    gathered, an older checkout's At as it is."""
+    return k4.gather(*got) if isinstance(got, tuple) else got
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
-    ap.add_argument("--kernels", default="k1,k3,k10,k9")
+    ap.add_argument("--kernels", default="k1,k3,k10,k9,k4,k3reg")
     opt = ap.parse_args()
     picked = opt.kernels.split(",")
     assert set(picked) <= set(KERNELS), f"--kernels: some of {list(KERNELS)}"
-    sources = tuple(KERNELS[k] for k in picked)
+    sources = tuple(sorted({KERNELS[k] for k in picked}))
 
     other = load_other(opt.other.resolve())
     ok = {k: getattr(other.kernels, KERNELS[k]) for k in picked}
@@ -220,6 +269,38 @@ def main():
                 lambda a=args, k=kw: ok["k3"].reml_localize(*a, **k), check,
                 reps=10))
             del want, ctx_w
+
+    if "k4" in picked or "k3reg" in picked:
+        for label, rot, (args, kw) in rotate_localize_calls(d, n, G, Ls):
+            if "k4" in picked:
+                ref = factors(k4.best_rho_rotate_plain(*rot))
+
+                def check(label, got, ref=ref):
+                    rel = float((factors(got) - ref).abs().max()
+                                / ref.abs().max())
+                    assert rel <= 1e-12, f"K4 ({label}): rel {rel}"
+
+                out["calls"].append(compare(
+                    f"best_rho_rotate ({label})",
+                    lambda a=rot: k4.best_rho_rotate(*a),
+                    lambda a=rot: ok["k4"].best_rho_rotate(*a), check,
+                    reps=10))
+                del ref
+            if "k3reg" in picked:
+                want = k3.reml_localize_plain(*args, **kw)
+
+                def check(label, got, want=want):
+                    assert torch.equal(got[2], want[2]), f"K3 ({label}): k_best"
+                    assert cs._rel(got[0], want[0]) <= 1e-9, f"K3 ({label}): x"
+                    assert cs._rel(got[1], want[1]) <= 1e-10, \
+                        f"K3 ({label}): lml"
+
+                out["calls"].append(compare(
+                    f"reml_localize (p = 1, {label})",
+                    lambda a=args, k=kw: k3.reml_localize(*a, **k),
+                    lambda a=args, k=kw: ok["k3reg"].reml_localize(*a, **k),
+                    check, reps=10))
+                del want
 
     if "k10" in picked:
         args, kw = k10_wide_call()

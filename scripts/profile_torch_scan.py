@@ -35,7 +35,7 @@ import chip_smoke  # noqa: E402
 import cellregmap_tpu_torch as crp  # noqa: E402
 
 OURS = ("kr_contract_kernel", "delta_grid_kernel", "localize_kernel",
-        "converge_kernel", "best_rho_rotate_kernel", "score_core_kernel")
+        "converge_kernel", "rotate_", "score_core_kernel")
 
 
 def main():

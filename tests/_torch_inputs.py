@@ -69,8 +69,10 @@ def rotate_inputs(seed, nrho=5, R=41, C=3, S=19):
 
 def score_inputs(seed, C=3, p=1, n=64, R=40, S=9, nrho=4):
     """The positional arguments of ``score_core`` as numpy arrays:
-    (Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA, k_best, v0, v1).
-    """
+    (Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA, k_best, v0, v1,
+    slot).  At holds two slots in K4's layout (2, S, R, C): variant s's
+    factor in slot s % 2 (``slot``), a decoy of other values in the
+    other."""
     rng = np.random.default_rng(seed)
     W = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, p - 1))], 1)
     E0 = rng.normal(size=(n, C)) / np.sqrt(C)
@@ -84,7 +86,12 @@ def score_inputs(seed, C=3, p=1, n=64, R=40, S=9, nrho=4):
     yt = np.stack([(Q.T @ y)[:R] for Q in Qn])            # (nrho, R)
     k_best = (np.arange(S) % nrho).astype(np.int64)
     A = G[:, None, :] * E0[:, :, None]                    # (n, C, S)
-    At = np.stack([(Qn[k_best[s]].T @ A[:, :, s])[:R] for s in range(S)])
+    At1 = np.stack([(Qn[k_best[s]].T @ A[:, :, s])[:R] for s in range(S)])
+    slot = (np.arange(S) % 2).astype(np.int64)
+    At = np.empty((2,) + At1.shape)
+    At[slot, np.arange(S)] = At1
+    At[1 - slot, np.arange(S)] = 100.0 * np.random.default_rng(
+        seed + 1).normal(size=At1.shape)
     AW = np.einsum("ncs,nj->cjs", A, W)
     Ag = np.einsum("ncs,ns->cs", A, G)
     Ay = np.einsum("ncs,n->cs", A, y)
@@ -92,13 +99,15 @@ def score_inputs(seed, C=3, p=1, n=64, R=40, S=9, nrho=4):
     v0 = np.abs(rng.normal(size=S)) + 0.2
     v1 = np.abs(rng.normal(size=S)) + 0.5
     return (Sv, WGt, yt, At, W.T @ W, W.T @ y, W.T @ G, (G * G).sum(0),
-            G.T @ y, AW, Ag, Ay, AtA, k_best, v0, v1)
+            G.T @ y, AW, Ag, Ay, AtA, k_best, v0, v1, slot)
 
 
-def fit_dataset(seed, p=1, nrho=3, n=80, C=3, donors=8, S=7, device="cpu"):
+def fit_dataset(seed, p=1, nrho=3, n=80, C=3, donors=8, S=7, device="cpu",
+                rho_grid=None):
     """A small interaction/association problem on ``device``: the port's
-    null context over ``nrho`` rho points (E + K (.) EE^T background,
-    R = C (donors + 1)), genotypes G (n, S) as a tensor, and n."""
+    null context over ``nrho`` rho points (``rho_grid``, else evenly
+    spaced in [0, 1]; E + K (.) EE^T background, R = C (donors + 1)),
+    genotypes G (n, S) as a tensor, and n."""
     import torch
 
     from cellregmap_tpu_torch import engine
@@ -114,7 +123,9 @@ def fit_dataset(seed, p=1, nrho=3, n=80, C=3, donors=8, S=7, device="cpu"):
     y = (rng.normal(size=n) + 0.5 * E @ rng.normal(size=C)
          + 0.4 * hK @ rng.normal(size=donors) + 0.5 * G[:, 1] * E[:, 0])
     ctx = engine.build_null_context(y, W, E, Ls=get_L_values(hK, E),
-                                    rho_grid=np.linspace(0, 1, nrho),
+                                    rho_grid=(np.linspace(0, 1, nrho)
+                                              if rho_grid is None
+                                              else rho_grid),
                                     device=device)
     return ctx, torch.as_tensor(G, device=device), n
 

@@ -68,9 +68,31 @@ def test_best_rho_rotate_kernel_matches_plain(cuda, C, p):
     V, T, kb = (torch.as_tensor(a, device=cuda)
                 for a in rotate_inputs(C + p, R=201, C=C, S=33 + p))
     before = k4.launches
-    got = k4.best_rho_rotate(V, T, kb)
+    _rotate_close(V, T, kb)
     assert k4.launches == before + 1
-    _close(got, k4.best_rho_rotate_plain(V, T, kb), 1e-12)
+
+
+def _rotate_close(V, T, kb):
+    """K4 against its plain version: the slots equal, the factors gathered
+    through them within 1e-12 of the largest."""
+    from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
+
+    At, slot = k4.best_rho_rotate(V, T, kb)
+    At_p, slot_p = k4.best_rho_rotate_plain(V, T, kb)
+    assert At.shape == At_p.shape and torch.equal(slot, slot_p)
+    _close(k4.gather(At, slot), k4.gather(At_p, slot_p), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genes,nrho", [(3, 11), (16, 11), (13, 3)])
+def test_best_rho_rotate_kernel_gene_axis(cuda, genes, nrho):
+    """k_best (genes, S): each distinct (rho, variant) pair once."""
+    V, T, _ = (torch.as_tensor(a, device=cuda)
+               for a in rotate_inputs(genes, nrho=nrho, R=201, C=10, S=70))
+    rng = np.random.default_rng(genes)
+    kb = torch.as_tensor(rng.integers(0, nrho, size=(genes, 70)),
+                         device=cuda)
+    _rotate_close(V, T, kb)
 
 
 @pytest.mark.cuda
@@ -111,6 +133,50 @@ def test_interaction_batch_never_syncs(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(out["Q"]).all())
+
+
+@pytest.mark.cuda
+def test_interaction_multigene_batch_never_syncs(cuda):
+    """The gene-batched batch program (K4's slots included) enqueues its
+    work without waiting for the card."""
+    from cellregmap_tpu_torch import engine
+
+    ctx, G, n = _multigene_ctx(cuda, 5)
+    engine.interaction_multigene_batch(ctx, G, G, n)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = engine.interaction_multigene_batch(ctx, G, G, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out["Q"].shape == (5, 70) and bool(torch.isfinite(out["Q"]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genes", [1, 3])
+def test_reml_localize_kernel_past_64_rho(cuda, genes):
+    """The register localize at 80 rho points (a block held at most 64
+    before): k_best equal, x at 1e-9, lml at 1e-10."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    ctx, G, n = fit_dataset(80, p=1, nrho=80, n=300, C=4, donors=30, S=40,
+                            device=cuda)
+    if genes > 1:
+        rng = np.random.default_rng(genes)
+        Y = ctx.y[None] + 0.4 * torch.as_tensor(
+            rng.normal(size=(genes, n)), device=cuda)
+        ctx = ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W,
+                           yy=(Y * Y).sum(dim=1))
+    calls = captured(lambda: engine.interaction_batch(ctx, G, G, n),
+                     ["reml_localize"])
+    (args, kw), = calls["reml_localize"]
+    assert args[0].shape[0] == 80
+    x, lml_all, kb = k3.reml_localize(*args, **kw)
+    xp, lml_p, kb_p = k3.reml_localize_plain(*args, **kw)
+    assert torch.equal(kb, kb_p)
+    _close(x, xp, 1e-9)
+    _close(lml_all, lml_p, 1e-10)
 
 
 @pytest.mark.cuda
@@ -453,7 +519,6 @@ def _multigene_ctx(cuda, genes, seed=5):
 def test_gene_axis_kernels_match_plain(cuda, genes):
     """K2-K5 with a gene axis on a gene-batched batch's own operands."""
     from cellregmap_tpu_torch import engine
-    from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
     from cellregmap_tpu_torch.kernels import delta_grid as k2
     from cellregmap_tpu_torch.kernels import reml_newton as k3
     from cellregmap_tpu_torch.kernels import score_core as k5
@@ -479,7 +544,7 @@ def test_gene_axis_kernels_match_plain(cuda, genes):
                     k3.reml_converge_plain(*args, **kw)):
         assert float(((g - w).abs() / w.abs()).max()) <= 1e-9
     (args, _), = calls["best_rho_rotate"]
-    _close(k4.best_rho_rotate(*args), k4.best_rho_rotate_plain(*args), 1e-12)
+    _rotate_close(*args)
     (args, _), = calls["score_core"]
     for g, w in zip(k5.score_core(*args), k5.score_core_plain(*args)):
         _close(g, w, 1e-10)

@@ -109,23 +109,33 @@ def test_kr_contract_source_at_the_betas_widths(libs):
         _close(M, k1.kr_contract_plain(U, V, Gm), 1e-12)
 
 
+def _rotate_close(lib, V, T, kb):
+    """K4's source against its plain version: the slots equal, the
+    gathered factors within 1e-12 of max|plain|; returns the slots."""
+    At, slot = k4.call(lib, V, T, kb)
+    At_p, slot_p = k4.best_rho_rotate_plain(V, T, kb)
+    assert At.shape == At_p.shape and torch.equal(slot, slot_p)
+    _close(k4.gather(At, slot), k4.gather(At_p, slot_p), 1e-12)
+    return At, slot
+
+
 @pytest.mark.parametrize("C,p", CASES)
 def test_best_rho_rotate_source_matches_plain(libs, C, p):
     V, T, kb = (torch.as_tensor(a)
                 for a in rotate_inputs(C + p, R=130, C=C, S=5 + p))
-    At = k4.call(libs["best_rho_rotate"], V, T, kb)
-    _close(At, k4.best_rho_rotate_plain(V, T, kb), 1e-12)
+    At, _ = _rotate_close(libs["best_rho_rotate"], V, T, kb)
+    assert At.shape == (1, 5 + p, 130, C)
 
 
 @pytest.mark.parametrize("genes", [1, 3])
 def test_best_rho_rotate_source_gene_axis(libs, genes):
-    """k_best (genes, S): every gene's variants rotated from the one T."""
+    """k_best (genes, S): every gene's variants rotated from the one T,
+    each distinct (rho, variant) pair once."""
     V, T, _ = (torch.as_tensor(a) for a in rotate_inputs(5, R=70, C=4, S=6))
     rng = np.random.default_rng(genes)
     kb = torch.as_tensor(rng.integers(0, V.shape[0], size=(genes, 6)))
-    At = k4.call(libs["best_rho_rotate"], V, T, kb)
+    At, _ = _rotate_close(libs["best_rho_rotate"], V, T, kb)
     assert At.shape == (genes, 6, 70, 4)
-    _close(At, k4.best_rho_rotate_plain(V, T, kb), 1e-12)
 
 
 @pytest.mark.parametrize("C,p", CASES)
@@ -138,24 +148,29 @@ def test_score_core_source_matches_plain(libs, C, p):
     _close(Wmat, Wr, 1e-10)
 
 
-# the phenotype's operands of score_core (yt, At, Wy, gy, Ay, k_best, v0,
-# v1), by position
-SCORE_GENE_ARGS = (2, 3, 5, 8, 11, 13, 14, 15)
+# the phenotype's operands of score_core (yt, Wy, gy, Ay, k_best, v0, v1,
+# slot), by position, and the slots' (At)
+SCORE_GENE_ARGS = (2, 5, 8, 11, 13, 14, 15, 16)
+SCORE_AT = 3
 
 
 @pytest.mark.parametrize("genes", [1, 3])
 def test_score_core_source_gene_axis(libs, genes):
     """Per-gene operands stacked on a leading axis (each gene's own seeded
-    phenotype), the genotype's shared: one launch, each gene as alone."""
+    phenotype), the genotype's shared, each gene's two factor slots
+    appended to one At (gene g's slots at 2 g, 2 g + 1): one launch, each
+    gene as alone."""
     per = [[torch.as_tensor(a)
             for a in score_inputs(9, C=4, p=2, n=60, R=31, S=5)]]
     for g in range(1, genes):
         other = [torch.as_tensor(a)
                  for a in score_inputs(9 + g, C=4, p=2, n=60, R=31, S=5)]
-        per.append([other[i] if i in SCORE_GENE_ARGS else per[0][i]
-                    for i in range(len(other))])
+        per.append([other[i] if i in SCORE_GENE_ARGS + (SCORE_AT,)
+                    else per[0][i] for i in range(len(other))])
     args = [torch.stack([a[i] for a in per]) if i in SCORE_GENE_ARGS
             else per[0][i] for i in range(len(per[0]))]
+    args[SCORE_AT] = torch.cat([a[SCORE_AT] for a in per])
+    args[16] = args[16] + 2 * torch.arange(genes)[:, None]
     Q, Wmat = k5.call(libs["score_core"], *args)
     assert Q.shape == (genes, 5) and Wmat.shape == (genes, 5, 4, 4)
     for g, a in enumerate(per):
@@ -229,8 +244,7 @@ def test_fit_sources_gene_axis(libs, genes):
         assert_allclose(g.numpy(), w.numpy(), rtol=1e-9, atol=1e-12,
                         err_msg=name)
     (args, _), = calls["best_rho_rotate"]
-    _close(k4.call(libs["best_rho_rotate"], *args),
-           k4.best_rho_rotate_plain(*args), 1e-12)
+    _rotate_close(libs["best_rho_rotate"], *args)
     (args, _), = calls["score_core"]
     for got, want in zip(k5.call(libs["score_core"], *args),
                          k5.score_core_plain(*args)):

@@ -78,18 +78,22 @@ def test_best_rho_rotate_plain_matches_jax(C, p):
     for o in range(nrho):
         To = jnp.einsum("rq,crs->sqc", jnp.asarray(V[o]), Tj)
         want = want + O_k[:, o][:, None, None] * To
-    got = k4.best_rho_rotate_plain(torch.as_tensor(V), torch.as_tensor(T),
-                                   torch.as_tensor(kb))
-    _close(got, want, 1e-12)
+    At, slot = k4.best_rho_rotate_plain(torch.as_tensor(V),
+                                        torch.as_tensor(T),
+                                        torch.as_tensor(kb))
+    # one phenotype: one slot, the (S, R, C) factor
+    assert At.shape == (1,) + tuple(want.shape) and not bool(slot.any())
+    _close(k4.gather(At, slot), want, 1e-12)
 
 
 @pytest.mark.parametrize("C,p", CASES)
 def test_score_core_plain_matches_jax(C, p):
     args = score_inputs(100 * C + p, C=C, p=p)
     (Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA, kb, v0,
-     v1) = args
+     v1, slot) = args
     Q, Wmat = k5.score_core_plain(*[torch.as_tensor(a) for a in args])
-    S = At.shape[0]
+    S = At.shape[1]
+    At = At[slot, np.arange(S)]               # each variant's own slot
     for s in range(S):
         k = kb[s]
         Xt = np.concatenate([WGt[k, :, :p], WGt[k, :, p + s][:, None]], 1)
@@ -242,7 +246,9 @@ def test_wrappers_refuse_other_devices_without_launching():
         k4.best_rho_rotate(meta(2, 4, 4), meta(4, 2, 3),
                            torch.zeros(3, dtype=torch.int64, device="meta"))
     args = [meta(*np.shape(a)) for a in score_inputs(4)]
-    args[13] = torch.zeros(args[13].shape, dtype=torch.int64, device="meta")
+    for i in (13, 16):                      # k_best, slot
+        args[i] = torch.zeros(args[i].shape, dtype=torch.int64,
+                              device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         k5.score_core(*args)
     assert (k1.launches, k4.launches, k5.launches) == before

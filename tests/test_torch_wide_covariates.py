@@ -11,12 +11,12 @@ CPU, and the envelope's refusal at construction.
    JAX engine's program does not compile in a test's time at that width)
    and against the JAX engine at p = 8 (within 1e-8, rho1 identical);
 2. a scanner on the card whose shape lies past the card's kernels (p > 32
-   columns of W, C > 64 contexts, more than 64 rho points) raises
-   ``ValueError`` naming the limit when it is made, before the null
-   context is built; inside the envelope, up to its corner (p = 32, C =
-   64), the effect sizes (K9, q = C + rank[W, E] + 2 <= 162) and the
-   aggregate environment (K10, rank[W, E] + 1 <= 97 mean columns) go on to
-   their setup with no refusal.  Without a card, the device
+   columns of W, C > 64 contexts) raises ``ValueError`` naming the limit
+   when it is made, before the null context is built; a rho grid of any
+   length is accepted (65 and 128 points); inside the envelope, up to its
+   corner (p = 32, C = 64), the effect sizes (K9, q = C + rank[W, E] + 2
+   <= 162) and the aggregate environment (K10, rank[W, E] + 1 <= 97 mean
+   columns) go on to their setup with no refusal.  Without a card, the device
    is made to read as CUDA (``api._resolve_device``) and the factorizations
    are replaced by functions that fail the test if called.
 """
@@ -67,6 +67,22 @@ def test_interaction_p24_matches_dense_oracle():
     assert np.array_equal(info_t["rho1"], info_o["rho1"])
     assert_allclose(info_t["Q"], info_o["Q"], rtol=1e-6)
     assert_allclose(pv_t, pv_o, rtol=0, atol=5e-8)
+
+
+def test_interaction_80_rho_matches_jax():
+    """``ScanConfig(n_rho=80)``, past the 64 rho points that the card's
+    localize took before, against the JAX engine at the headline budget
+    (within 1e-8, rho1 identical)."""
+    d = _data(seed=80, p=2)
+    cfg = dict(n_rho=80)
+    pv_j, info_j = crt.run_interaction(
+        y=d["y"], E=d["E"], G=d["G"], W=d["W"], hK=d["hK"],
+        config=crt.ScanConfig(**cfg))
+    pv_t, info_t = crp.run_interaction(
+        y=d["y"], E=d["E"], G=d["G"], W=d["W"], hK=d["hK"],
+        config=crp.ScanConfig(**cfg), device="cpu")
+    assert np.array_equal(info_t["rho1"], info_j["rho1"])
+    assert_allclose(pv_t, pv_j, rtol=0, atol=1e-8)
 
 
 def test_interaction_p8_matches_jax():
@@ -125,8 +141,7 @@ def card(monkeypatch):
 
 
 # (p, C, n_rho, the limit named): each past one limit of the envelope
-REFUSED = [(33, 3, 11, "32 covariates"), (2, 65, 11, "64 contexts"),
-           (2, 3, 65, "64 rho grid points")]
+REFUSED = [(33, 3, 11, "32 covariates"), (2, 65, 11, "64 contexts")]
 
 
 @pytest.mark.parametrize("p,C,n_rho,limit", REFUSED)
@@ -138,6 +153,16 @@ def test_card_scanner_refused_at_construction(card, p, C, n_rho, limit):
     with pytest.raises(ValueError, match=limit):
         crp.run_interaction(y=d["y"], E=d["E"], G=d["G"], W=d["W"],
                             hK=d["hK"], config=crp.ScanConfig(n_rho=n_rho))
+
+
+@pytest.mark.parametrize("n_rho", [65, 128])
+def test_card_scanner_takes_any_rho_grid(card, n_rho):
+    """A rho grid of any length makes a scanner on the card (the
+    localize's argmax over rho is a kernel of its own)."""
+    d = _data(p=2, n=120)
+    crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], hK=d["hK"],
+                         config=crp.ScanConfig(n_rho=n_rho))
+    assert crm.device.type == "cuda" and len(crm._rho_grid) == n_rho
 
 
 def test_card_scanner_at_the_envelope_is_accepted(card):
