@@ -34,37 +34,39 @@
 //     cannot win, :655), and the argmax over rho (a kernel of its own,
 //     the first maximum winning).
 //   crm_reml_converge (stage 3, :672-734; association refit, :991-1062):
-//     one warp per variant at its rho k_best (0 when null), `steps` steps
-//     on the unrounded tensors from x0 (the bracket midpoint when null)
-//     inside the GRID bracket, then the final lml: REML floors rss at
-//     128 eps q (:724), ML at tiny only (:1056).
+//     a warp per (gene, variant) problem at its rho k_best (0 when null),
+//     a block per rho and tile of that rho's problems (listed on the
+//     card) whose shared rows it stages; `steps` steps on the unrounded
+//     tensors from x0 (the bracket midpoint when null) inside the GRID
+//     bracket, then the final lml: REML floors rss at 128 eps q (:724),
+//     ML at tiny only (:1056).
 //
 // Replaces: the XLA programs of those stages, which materialize the three
 // (S, nrho, R) weight families and their reductions for every step.
 //
 // What bounds it on the H100: latency.  Per step a problem reads its R
-// rows (Gt strided by S, W, y and S shared by the variants) and does
-// ~20 R flop (p = 1): 0.9 GFLOP and 45 MB of Gt per step at the headline,
-// a few hundredths of a ms each.  The reductions over R run across a warp
-// (lanes over r, then an xor-shuffle tree); the (p+1)^2 algebra runs on
-// every lane, and lane 0's iterate is broadcast so the lanes stay in step.
-// State x/lo/hi stays in registers across the steps; nothing but the
-// results is written.  The register localize stages the rows a block's
+// rows (its genotype column of the rotated [W | G], strided by p + S; W,
+// y and S shared by the variants) and does ~20 R flop (p = 1): 0.9 GFLOP
+// and 45 MB of rows per step at the headline, a few hundredths of a ms
+// each.  The reductions over R run across a warp (lanes over r, then an
+// xor-shuffle tree); the (p+1)^2 algebra runs on every lane, and lane 0's
+// iterate is broadcast so the lanes stay in step.  State x/lo/hi stays in
+// registers across the steps; nothing but the results is written.  Both
+// the register localize and the converge stage the rows a block's
 // problems share in shared memory, so that the strided genotype is read
-// once a block and chunk (not once a problem and step) and the f32
-// roundings of the products no phenotype or no genotype enters are made
-// once a block.
+// once a block (and chunk), along the variants, not once a problem and
+// step; the localize also makes the f32 roundings of the products that no
+// phenotype or no genotype enters once a block.
 //
 // Instantiations: p + 1 <= 2, 4 (localize and converge) and 16 (converge)
 // keep each lane's sums and algebra in registers.  The wide converge
 // (p + 1 <= 33: up to 3 x 595 sums a problem) gives each warp a workspace
-// in dynamic shared memory (4 warps a block): the warp stages 32 rows at
-// a time, each lane owns every 32nd sum and accumulates it over the rows,
-// and the algebra (the factor, A1^{-1} by columns, the trace terms) runs
-// there with the lanes over rows, columns or entries.  The localize from
-// p + 1 = LOC_GEMM_MIN_P1 up is the product route (below): most of its
-// sums are one product a rho on the FP64 tensor cores, and the same
-// workspace algebra is its epilogue.
+// in dynamic shared memory: each lane owns 4 x 4 blocks of the sums and
+// accumulates them over the staged rows, and the algebra (the factor,
+// A1^{-1} by columns, the trace terms) runs there with the lanes over
+// rows, columns or entries.  The localize from p + 1 = LOC_GEMM_MIN_P1 up
+// is the product route (below): most of its sums are one product a rho on
+// the FP64 tensor cores, and the same workspace algebra is its epilogue.
 #include <cuda_runtime.h>
 #include <algorithm>
 #include <cfloat>
@@ -80,7 +82,6 @@ constexpr unsigned FULL = 0xffffffffu;
 #define CRM_LOC_MAX_WARPS 16
 #endif
 constexpr int LOC_MAX_WARPS = CRM_LOC_MAX_WARPS;  // of a register localize
-constexpr int CONV_WARPS = 4;      // variants a converge block holds
 
 // Loops over the small dimension run to the compile-time P1MAX and skip
 // what lies outside [lo, hi): after unrolling, every array of the (p+1)^2
@@ -109,38 +110,26 @@ __device__ __forceinline__ double warp_sum(double v) {
 
 __device__ double sigmoid(double x) { return 1.0 / (1.0 + exp(-x)); }
 
-// One problem's rows and complements.
+// One problem's complements (its rows are staged by the kernel that runs
+// it).
 struct Problem {
-  const double* S;    // (R,) eigenvalues of its rho
-  const double* WG;   // (R, p + nS) rotated [W | G] of its rho
-  const double* y;    // (R,) rotated phenotype of its rho
-  int s, p, ps, R;
+  int s, p, R, nS;
   double cyy;         // complements, already rounded when round32
   const double* CWW;  // (p, p)
   const double* CWy;  // (p,)
   double cgg, cgy;
   const double* CWg;  // (p, nS) column s
-  int nS;
   bool r32;
-  double* ws;         // the warp's workspace (wide instantiation only)
 };
 
-// The complements and the warp's sum of normal equations whose rows each
-// lane has accumulated: acc[f] = [A lower (TRI) | b (P1MAX) | q], plus
-// sum e w1, sum e2 w1^2 (NF == 3) or sum log d (NF == 1).  Every lane
-// returns the full sums, complements included.
+// The complement terms of the normal equations acc[f] = [A lower (TRI) |
+// b (P1MAX) | q] of NF families, weight 1/delta^(f+1).
 template <int P1MAX, int NF>
-__device__ void ne_finish(const Problem& pb, double delta,
-                          double (&acc)[NF][Cfg<P1MAX>::NE], double& ex1,
-                          double& ex2) {
+__device__ void ne_complements(const Problem& pb, double delta,
+                               double (&acc)[NF][Cfg<P1MAX>::NE]) {
   constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
   const int p = pb.p, p1 = p + 1;
   const bool r32 = pb.r32;
-  for (int f = 0; f < NF; ++f)
-    for (int e = 0; e < NE; ++e) acc[f][e] = warp_sum(acc[f][e]);
-  ex1 = warp_sum(ex1);
-  ex2 = warp_sum(ex2);
-  // complement terms, weight 1/delta^(f+1)
   double ic = 1.0 / delta;
   const double i1 = ic;
   for (int f = 0; f < NF; ++f) {
@@ -159,55 +148,19 @@ __device__ void ne_finish(const Problem& pb, double delta,
   }
 }
 
-// Normal equations (NF families) of one problem at delta, summed over the
-// warp (ne_finish), its rows read from the problem's tensors.
+// The complements and the warp's sum of normal equations whose rows each
+// lane has accumulated: acc[f] = [A lower (TRI) | b (P1MAX) | q], plus
+// sum e w1, sum e2 w1^2 (NF == 3) or sum log d (NF == 1).  Every lane
+// returns the full sums, complements included.
 template <int P1MAX, int NF>
-__device__ void normal_eqs(const Problem& pb, double delta,
-                           double (&acc)[NF][Cfg<P1MAX>::NE],
-                           double& ex1, double& ex2) {
-  constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
-  const int lane = threadIdx.x % 32;
-  const int p = pb.p, p1 = p + 1;
-  const bool r32 = pb.r32;
+__device__ void ne_finish(const Problem& pb, double delta,
+                          double (&acc)[NF][Cfg<P1MAX>::NE], double& ex1,
+                          double& ex2) {
   for (int f = 0; f < NF; ++f)
-    for (int e = 0; e < NE; ++e) acc[f][e] = 0.0;
-  ex1 = 0.0;
-  ex2 = 0.0;
-  for (int r = lane; r < pb.R; r += 32) {
-    const double* row = pb.WG + (int64_t)r * pb.ps;
-    const double Sr = pb.S[r];
-    const double yv = pb.y[r];
-    const double g = row[p + pb.s];
-    const double d = (1.0 - delta) * rnd(Sr, r32) + delta;
-    const double w1 = 1.0 / d;
-    double wf[NF];
-    wf[0] = w1;
-    if constexpr (NF == 3) {
-      const double e = rnd(1.0 - Sr, r32);
-      const double e2 = rnd((1.0 - Sr) * (1.0 - Sr), r32);
-      wf[1] = e * w1 * w1;
-      wf[2] = e2 * w1 * w1 * w1;
-      ex1 += w1 * e;
-      ex2 += w1 * w1 * e2;
-    } else {
-      ex1 += log(d);
-    }
-    // columns x = [W, g] and y; the products are rounded where the
-    // reference's tensor sets are
-    SMALL_FOR(i, 0, p1) {
-      const double xi = i < p ? row[i] : g;
-      SMALL_FOR(j, 0, i + 1) {
-        const double xj = j < p ? row[j] : g;
-        const double v = rnd(xi * xj, r32);
-        for (int f = 0; f < NF; ++f) acc[f][tri(i, j)] += wf[f] * v;
-      }
-      const double v = rnd(xi * yv, r32);
-      for (int f = 0; f < NF; ++f) acc[f][TRI + i] += wf[f] * v;
-    }
-    const double v = rnd(yv * yv, r32);
-    for (int f = 0; f < NF; ++f) acc[f][NE - 1] += wf[f] * v;
-  }
-  ne_finish<P1MAX, NF>(pb, delta, acc, ex1, ex2);
+    for (int e = 0; e < Cfg<P1MAX>::NE; ++e) acc[f][e] = warp_sum(acc[f][e]);
+  ex1 = warp_sum(ex1);
+  ex2 = warp_sum(ex2);
+  ne_complements<P1MAX, NF>(pb, delta, acc);
 }
 
 // Ridge Cholesky of the lower components in place (ops/linalg.py
@@ -330,59 +283,41 @@ __device__ void derivs_sums(const Problem& pb, double delta, int n,
   Lpp = -0.5 * (nu * (rss_pp / rss - u * u) + ld_pp + 2 * tr3 - tr2sq);
 }
 
-template <int P1MAX, bool REML>
-__device__ void derivs(const Problem& pb, double delta, int n, double& Lp,
-                       double& Lpp) {
-  double acc[3][Cfg<P1MAX>::NE], sum_ew, sum_e2w2;
-  normal_eqs<P1MAX, 3>(pb, delta, acc, sum_ew, sum_e2w2);
-  derivs_sums<P1MAX, REML>(pb, delta, n, acc, sum_ew, sum_e2w2, Lp, Lpp);
-}
-
 // ---------------------------------------------------------------------------
-// The wide instantiation (p + 1 <= 33): a warp per problem, as above, but
-// the normal equations of three families (up to 3 x 595 sums) do not fit
-// in a lane's registers.  The warp stages a chunk of rows in its own
-// shared-memory workspace; each lane owns every 32nd sum (a fixed set of
-// column pairs) and accumulates it over the chunk's rows; the small
-// algebra then runs in the workspace with the lanes over rows, columns or
-// entries.
+// The wide algebra (p + 1 <= 33): the normal equations of three families
+// (up to 3 x 595 sums) and their algebra do not fit in a lane's
+// registers, so a warp works in a shared-memory workspace, the lanes over
+// rows, columns or entries.  The localize's product route (its epilogue)
+// and the wide converge (below) put their sums there.
 // ---------------------------------------------------------------------------
-constexpr int WRC = 32;    // rows of a staged chunk (a lane loads one)
+constexpr int WRC = 32;    // rows whose weights a converge warp makes at once
 constexpr int WIDE_P1MAX = 33;  // p + 1 of the widest instantiation
-constexpr int WEPL = 19;   // sums a lane owns: ceil(3 x 595 / 32 / 3)
 // shared memory an SM gives one block (of its 228 KB): a localize
 // epilogue block takes as many warps as their workspaces fit (10 at p + 1
 // = 25, 6 at 33), up to WIDE_LOC_WARPS
 constexpr int SMEM_BLOCK = 227 * 1024 - 1024;
 constexpr int WIDE_LOC_WARPS = 12;
 
-// the workspace of one warp, in doubles, at p + 1 = p1
 __host__ __device__ inline int wide_ne(int p1) {
   return p1 * (p1 + 1) / 2 + p1 + 1;
 }
-__host__ __device__ inline int wide_words(int p1) {
-  return WRC * (p1 + 1) + WRC * 3 + 3 * wide_ne(p1) + p1 * (p1 + 1) / 2 +
-         2 * p1 * p1 + 7 * p1;
-}
 
 struct WideWs {
-  double *xs, *wf, *acc, *L, *Ainv, *T2, *vec, *rd;
+  double *wf, *acc, *L, *Ainv, *T2, *vec, *rd;
   int p1, ne;
 };
 
-// the workspace of one warp with no staged rows (the localize epilogue)
+// the workspace of one warp's algebra, in doubles, at p + 1 = p1
 __host__ __device__ inline int epi_words(int p1) {
-  return wide_words(p1) - WRC * (p1 + 1) - WRC * 3;
+  return 3 * wide_ne(p1) + p1 * (p1 + 1) / 2 + 2 * p1 * p1 + 7 * p1;
 }
 
-// staged: the converge warps' layout, whose rows come first
-__device__ WideWs wide_ws(double* base, int p1, bool staged = true) {
+__device__ WideWs wide_ws(double* base, int p1) {
   WideWs w;
   w.p1 = p1;
   w.ne = wide_ne(p1);
-  w.xs = staged ? base : nullptr;         // [WRC][p1 + 1]: [W, g], y
-  w.wf = staged ? w.xs + WRC * (p1 + 1) : nullptr;  // [WRC][3]: weights
-  w.acc = staged ? w.wf + WRC * 3 : base;  // [3][ne]: A lower, b, q
+  w.wf = nullptr;                         // the converge's row weights
+  w.acc = base;                           // [3][ne]: A lower, b, q
   w.L = w.acc + 3 * w.ne;                 // lower triangle of the factor
   w.Ainv = w.L + p1 * (p1 + 1) / 2;       // [p1][p1]
   w.T2 = w.Ainv + p1 * p1;                // [p1][p1]
@@ -390,107 +325,6 @@ __device__ WideWs wide_ws(double* base, int p1, bool staged = true) {
   w.rd = w.vec + 6 * p1;                  // 1 / L[i][i]
   return w;
 }
-
-// Normal equations of NF families at delta into ws.acc (complements
-// included); returns (sum e w1, sum e2 w1^2) or (sum log d, 0) on every
-// lane.
-template <int NF>
-__device__ void normal_eqs_wide(const Problem& pb, const WideWs& ws,
-                                double delta, double& ex1, double& ex2) {
-  const int lane = threadIdx.x % 32;
-  const int p = pb.p, p1 = p + 1, ne = ws.ne, cw = p1 + 1;
-  const int ntri = p1 * (p1 + 1) / 2;
-  const bool r32 = pb.r32;
-  // this lane's sums: entry e = lane + 32 t is the column pair (a, b) of
-  // [W, g, y] (a >= b), families f < NF
-  int ea[WEPL], eb[WEPL];
-  double acc[NF][WEPL];
-#pragma unroll
-  for (int t = 0; t < WEPL; ++t) {
-    const int e = lane + 32 * t;
-    int a = -1, b = 0;
-    if (e < ntri) {
-      a = 0;
-      while ((a + 1) * (a + 2) / 2 <= e) ++a;
-      b = e - a * (a + 1) / 2;
-    } else if (e < ne) {  // b_i (x_i y), then q (y y)
-      a = p1;
-      b = e - ntri;
-    }
-    ea[t] = a;
-    eb[t] = b;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) acc[f][t] = 0.0;
-  }
-  ex1 = 0.0;
-  ex2 = 0.0;
-  for (int r0 = 0; r0 < pb.R; r0 += WRC) {
-    const int rows = min(WRC, pb.R - r0);
-    if (lane < rows) {  // lane rr stages row r0 + rr
-      const int r = r0 + lane;
-      const double* row = pb.WG + (int64_t)r * pb.ps;
-      double* x = ws.xs + lane * cw;
-      for (int j = 0; j < p; ++j) x[j] = row[j];
-      x[p] = row[p + pb.s];
-      x[p1] = pb.y[r];
-      const double Sr = pb.S[r];
-      const double d = (1.0 - delta) * rnd(Sr, r32) + delta;
-      const double w1 = 1.0 / d;
-      double* wf = ws.wf + lane * 3;
-      wf[0] = w1;
-      if (NF == 3) {
-        const double e = rnd(1.0 - Sr, r32);
-        const double e2 = rnd((1.0 - Sr) * (1.0 - Sr), r32);
-        wf[1] = e * w1 * w1;
-        wf[2] = e2 * w1 * w1 * w1;
-        ex1 += w1 * e;
-        ex2 += w1 * w1 * e2;
-      } else {
-        ex1 += log(d);
-      }
-    }
-    __syncwarp();
-    for (int rr = 0; rr < rows; ++rr) {
-      const double* x = ws.xs + rr * cw;
-      const double* wf = ws.wf + rr * 3;
-#pragma unroll
-      for (int t = 0; t < WEPL; ++t) {
-        if (ea[t] < 0) continue;
-        const double v = rnd(x[ea[t]] * x[eb[t]], r32);
-#pragma unroll
-        for (int f = 0; f < NF; ++f) acc[f][t] += wf[f] * v;
-      }
-    }
-    __syncwarp();
-  }
-  ex1 = warp_sum(ex1);
-  ex2 = warp_sum(ex2);
-  // complement terms, weight 1/delta^(f+1)
-#pragma unroll
-  for (int t = 0; t < WEPL; ++t) {
-    if (ea[t] < 0) continue;
-    const int a = ea[t], b = eb[t];
-    double c;
-    if (a < p1) {  // A: (a, b), a >= b
-      c = a < p ? pb.CWW[a * p + b]
-                : (b < p ? pb.CWg[(int64_t)b * pb.nS + pb.s] : pb.cgg);
-      c = rnd(c, r32);
-    } else if (b < p1) {  // b_i
-      c = rnd(b < p ? pb.CWy[b] : pb.cgy, r32);
-    } else {
-      c = pb.cyy;
-    }
-    double ic = 1.0 / delta;
-    const double i1 = ic;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      ws.acc[f * ws.ne + lane + 32 * t] = acc[f][t] + c * ic;
-      ic *= i1;
-    }
-  }
-  __syncwarp();
-}
-
 // ridge Cholesky of family 0's A into ws.L (the order of chol above),
 // the lanes over the rows of each column; ws.rd the reciprocals of its
 // diagonal, so that the solves multiply (a division is a long dependent
@@ -716,15 +550,6 @@ __device__ void derivs_tail_wide(const WideWs& ws, int R, int n,
   Lpp = -0.5 * (nu * (rss_pp / rss - u * u) + ld_pp + 2 * tr3 - tr2sq);
 }
 
-template <bool REML>
-__device__ void derivs_wide(const Problem& pb, double delta, int n,
-                            double& Lp, double& Lpp) {
-  const WideWs ws = wide_ws(pb.ws, pb.p + 1);
-  double sum_ew, sum_e2w2;
-  normal_eqs_wide<3>(pb, ws, delta, sum_ew, sum_e2w2);
-  derivs_tail_wide<REML>(ws, pb.R, n, delta, sum_ew, sum_e2w2, Lp, Lpp);
-}
-
 // The fit at delta from family 0's normal equations in ws.acc and
 // logd = sum log d: (lml, rss, beta in ws.vec) with the objective's rss
 // floor, on every lane
@@ -755,16 +580,6 @@ __device__ double fit_tail_wide(const WideWs& ws, int R, double delta, int n,
                  nu);
 }
 
-template <bool REML, bool FLOOR_Q>
-__device__ double fit_at_wide(const Problem& pb, double delta, int n,
-                              double ld_xx, double& rss_out, bool& rss_bad) {
-  const WideWs ws = wide_ws(pb.ws, pb.p + 1);
-  double logd, unused;
-  normal_eqs_wide<1>(pb, ws, delta, logd, unused);
-  return fit_tail_wide<REML, FLOOR_Q>(ws, pb.R, delta, n, ld_xx, logd,
-                                      rss_out, rss_bad);
-}
-
 // One safeguarded Newton step on logit(delta) from (L', L'') at delta =
 // sigmoid(x); lane 0's iterate is the warp's
 __device__ void newton_update(double delta, double Lp, double Lpp, double& x,
@@ -780,21 +595,6 @@ __device__ void newton_update(double delta, double Lp, double Lpp, double& x,
   x = __shfl_sync(FULL, ok ? xn : 0.5 * (lo2 + hi2), 0);
   lo = __shfl_sync(FULL, lo2, 0);
   hi = __shfl_sync(FULL, hi2, 0);
-}
-
-// `steps` safeguarded Newton steps
-template <int P1MAX, bool REML>
-__device__ void newton(const Problem& pb, int n, int steps, double& x,
-                       double& lo, double& hi) {
-  for (int it = 0; it < steps; ++it) {
-    const double delta = sigmoid(x);
-    double Lp, Lpp;
-    if constexpr (P1MAX == 0)
-      derivs_wide<REML>(pb, delta, n, Lp, Lpp);
-    else
-      derivs<P1MAX, REML>(pb, delta, n, Lp, Lpp);
-    newton_update(delta, Lp, Lpp, x, lo, hi);
-  }
 }
 
 // The fit at delta from its normal equations (ne_finish's sums, logd =
@@ -827,26 +627,11 @@ __device__ double fit_sums(const Problem& pb, double delta, int n,
                  nu);
 }
 
-template <int P1MAX, bool REML, bool FLOOR_Q>
-__device__ double fit_at(const Problem& pb, double delta, int n, double ld_xx,
-                         double* beta, double& rss_out, bool& rss_bad) {
-  double acc[1][Cfg<P1MAX>::NE], logd, unused;
-  normal_eqs<P1MAX, 1>(pb, delta, acc, logd, unused);
-  return fit_sums<P1MAX, REML, FLOOR_Q>(pb, delta, n, ld_xx, acc, logd, beta,
-                                        rss_out, rss_bad);
-}
-
-__device__ Problem make_problem(const double* Sv, const double* WGt,
-                                const double* yt, const double* CWW,
-                                const double* CWy, const double* Cyy,
-                                const double* CWg, const double* Cgy,
-                                const double* Cgg, int o, int s, int R, int p,
-                                int nS, bool r32, double* ws) {
+__device__ Problem make_problem(const double* CWW, const double* CWy,
+                                const double* Cyy, const double* CWg,
+                                const double* Cgy, const double* Cgg, int s,
+                                int R, int p, int nS, bool r32) {
   Problem pb;
-  pb.ps = p + nS;
-  pb.S = Sv + (int64_t)o * R;
-  pb.WG = WGt + (int64_t)o * R * pb.ps;
-  pb.y = yt + (int64_t)o * R;
   pb.s = s;
   pb.p = p;
   pb.R = R;
@@ -858,34 +643,8 @@ __device__ Problem make_problem(const double* Sv, const double* WGt,
   pb.cyy = rnd(Cyy[0], r32);
   pb.cgg = Cgg[s];
   pb.cgy = Cgy[s];
-  pb.ws = ws;
   return pb;
 }
-
-// The final fit of a problem (every lane): lml, rss and, with beta_out,
-// lane 0 writes the p + 1 coefficients there.  P1MAX == 0: the wide path.
-template <int P1MAX, bool REML, bool FLOOR_Q>
-__device__ double final_fit(const Problem& pb, double delta, int n,
-                            double ld_xx, double* beta_out, double& rss,
-                            bool& bad) {
-  const int lane = threadIdx.x % 32;
-  if constexpr (P1MAX == 0) {
-    const double lml =
-        fit_at_wide<REML, FLOOR_Q>(pb, delta, n, ld_xx, rss, bad);
-    const double* beta = wide_ws(pb.ws, pb.p + 1).vec;
-    if (beta_out && lane == 0)
-      for (int j = 0; j <= pb.p; ++j) beta_out[j] = beta[j];
-    __syncwarp();
-    return lml;
-  } else {
-    double beta[P1MAX];
-    const double lml =
-        fit_at<P1MAX, REML, FLOOR_Q>(pb, delta, n, ld_xx, beta, rss, bad);
-    if (beta_out && lane == 0) SMALL_FOR(j, 0, pb.p + 1) beta_out[j] = beta[j];
-    return lml;
-  }
-}
-
 // The register localize (p + 1 < LOC_GEMM_MIN_P1): a block per (tile of
 // VT consecutive variants, rho point, tile of GC genes), a warp per
 // (variant, gene) problem of the tile, VT GC <= LOC_MAX_WARPS.  The rows
@@ -900,7 +659,7 @@ __device__ double final_fit(const Problem& pb, double delta, int n,
 // and g g where they are not staged, are formed (and rounded) in the
 // sums.  The lanes run over the rows with the sums in registers, then the
 // xor-shuffle tree and the (p+1)^2 algebra, as in the converge kernel, so
-// every value is the one the per-problem loop (normal_eqs) computes, in
+// every value is the one a per-problem loop over the rows computes, in
 // the same order.  Where every row fits the block's shared memory (LOC_G:
 // one gene and 16 variants, p = 1, R <= 1024; LOC_PRODUCTS, the variants'
 // products staged too: 16 genes and 4 variants, 6-7% faster there), the
@@ -1178,10 +937,8 @@ localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   double x = 0.5 * (lo + hi);
   // the problem's complements (gene gi, variant s); its rows are staged
   const Problem pb32 =
-      make_problem(Sv, WGt, yt + (int64_t)gi * nrho * R, CWW,
-                   CWy + (int64_t)gi * p, Cyy + gi, CWg,
-                   Cgy + (int64_t)gi * nS, Cgg, o, s, R, p, nS, r32 != 0,
-                   nullptr);
+      make_problem(CWW, CWy + (int64_t)gi * p, Cyy + gi, CWg,
+                   Cgy + (int64_t)gi * nS, Cgg, s, R, p, nS, r32 != 0);
   // stage 1b: Newton on the (possibly f32-rounded) tensors
   for (int it = 0; it < steps; ++it) {
     const double delta = sigmoid(x);
@@ -1569,7 +1326,7 @@ loc_epilogue_kernel(const double* __restrict__ sum,
   const int s = (int)(pid / nrho), o = (int)(pid - (int64_t)s * nrho);
   const int p1 = p + 1, ng = p + 2, nppad = loc_nppad(p);
   const WideWs ws = wide_ws(reinterpret_cast<double*>(epi_dyn) +
-                                (int64_t)warp * epi_words(p1), p1, false);
+                                (int64_t)warp * epi_words(p1), p1);
   const int ne = ws.ne, ntri = p1 * (p1 + 1) / 2, ntw = p * (p + 1) / 2;
   const double* su = sum + ((int64_t)o * nS + s) * 3 * nppad;
   const double* gp = gs + ((int64_t)o * nS + s) * loc_gs(p);
@@ -1730,72 +1487,622 @@ int localize_products(const LocArgs& a, double* work, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int P1MAX, bool REML>
-__global__ void __launch_bounds__(32 * CONV_WARPS)
+// ---------------------------------------------------------------------------
+// The converge (crm_reml_converge; stage 3, :672-734, and the association
+// refit's Newton, :991-1062): a warp a problem, the (gene g, variant s)
+// pair at its rho k_best[g, s] (rho 0 when null); a block a (rho k, tile
+// of up to CONV_WARPS of the problems at k).  conv_lists_kernel lists each
+// rho's problems i = g nS + s in ascending order, a block a rho (a ballot
+// a warp and a prefix over the warps' counts: best_rho_rotate.cu's
+// per-rho lists, for the problems instead of the variants), so that the
+// grouping needs no host; a block reads its tile from the counts (rho
+// order), and the blocks past the last tile (the grid is sized for the
+// most tiles the problems could need) exit at once.  The block stages
+// the rows its problems share: the rho's eigenvalues and W once, each
+// problem's genotype column (the tile's variants ascending, read along
+// the variants of a row, so that neighbours share a 32-byte sector where
+// a warp a problem read one sector a value) and each of the tile's genes'
+// phenotype once.  Every row stays resident where the tile's rows fit
+// CONV_SMEM (two blocks an SM), staged once for all the steps and the
+// final fit; else the rows pass in chunks through two cp.async buffers,
+// the next chunk in flight while the warps sum the current one.  A call
+// with no Newton steps (the refit's fits at the grid's ends) reads its
+// one pass's rows where they lie (the tile's warps share them through
+// L1), as staging them first serialised the copy and the sums.  A
+// problem's iterate and bracket stay in registers; at p + 1 <= 2, where
+// Newton steps run or the problems are few, two warps split its rows
+// (conv_reduce adds their sums in one order, so that both take the same
+// steps).  The sums run with the
+// lanes over the staged rows: up to p + 1 = 16 in registers (the products
+// in the localize's order, ne_finish's shuffle tree, derivs_sums'
+// algebra); wide (p + 1 <= 33) each lane owns one or two 4 x 4 blocks of
+// the column pairs of [W, g, y] and accumulates them over the rows from
+// eight staged values a row and block (two shared-memory loads a sum
+// before), and the algebra runs in the warp's workspace
+// (derivs_tail_wide, fit_tail_wide).  The arithmetic is the plain
+// version's: f64 on the unrounded tensors, REML's final rss floored at
+// 128 eps q, ML's at tiny only.
+// ---------------------------------------------------------------------------
+constexpr int CONV_WARPS = 4;      // problems a converge block holds
+constexpr int LIST_THREADS = 128;  // threads of a lists block
+constexpr int LIST_ITEMS = 8;      // problems a lists thread takes a chunk
+#ifndef CRM_CONV_LIST_CHUNK  // the emulated tests build one with 2, so
+#define CRM_CONV_LIST_CHUNK 128  // that their few rho take several chunks
+#endif
+constexpr int LIST_CHUNK = CRM_CONV_LIST_CHUNK;  // counts a block reads at once
+#ifndef CRM_CONV_SMEM_KB  // the emulated tests build some with less, so
+#define CRM_CONV_SMEM_KB 110  // that their small R takes the chunks
+#endif
+// a block's staged rows: two blocks an SM, with their static shared
+// memory and the 1 KB the card keeps a block, within its 228 KB
+constexpr int CONV_SMEM = CRM_CONV_SMEM_KB * 1024;
+constexpr int WBLK = 2;  // 4 x 4 column blocks a wide lane owns (<= 45)
+// rows whose d's product one log takes (d >= sigmoid(-18) ~ 1.5e-8 and
+// an eigenvalue, so that the product of 8 stays within f64's range)
+constexpr int LOG_GROUP = 8;
+// problems below which a call with no Newton steps still splits each
+// problem's rows over two warps (p + 1 <= 2): 4 blocks of 4 an SM hold
+// 2112 at one warp each
+#ifndef CRM_CONV_SPLIT_BELOW  // the emulated tests build one with 0, so
+#define CRM_CONV_SPLIT_BELOW 4096  // that their few problems take one warp
+#endif
+constexpr int CONV_SPLIT_BELOW = CRM_CONV_SPLIT_BELOW;
+
+// blocks an SM of a converge instantiation (its launch bounds): at
+// p + 1 <= 2, where a problem's registers are fewest, two of eight warps
+// (WPP = 2: two warps a problem, its rows split between them) or four of
+// four (WPP = 1: many problems and no Newton steps, whose one pass gains
+// less from the split than the tile's tail loses at the barriers), at
+// 128 registers; else one
+__host__ __device__ constexpr int conv_min_blocks(int P1MAX, int WPP) {
+  return P1MAX != 2 ? 1 : WPP == 2 ? 2 : 4;
+}
+
+// list[k, 0 .. n_k): the problems i = g nS + s whose best rho is k
+// (k_best null: every problem at rho 0), ascending; count[k] = n_k.  A
+// block a rho; each thread takes LIST_ITEMS consecutive problems of a
+// chunk, and a prefix over the threads' counts (a shuffle scan a warp,
+// then the warps' totals) places them.
+__global__ void __launch_bounds__(LIST_THREADS)
+conv_lists_kernel(const int64_t* __restrict__ k_best, int* __restrict__ list,
+                  int* __restrict__ count, int P) {
+  __shared__ int wtotal[LIST_THREADS / 32];
+  const int k = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  int* lk = list + (int64_t)k * P;
+  int base = 0;
+  for (int i0 = 0; i0 < P; i0 += LIST_THREADS * LIST_ITEMS) {
+    const int first = i0 + tid * LIST_ITEMS;
+    unsigned on = 0;  // bit j: problem first + j is at rho k
+    for (int j = 0; j < LIST_ITEMS; ++j) {
+      const int i = first + j;
+      if (i < P && (k_best ? (int)k_best[i] : 0) == k) on |= 1u << j;
+    }
+    int incl = __popc(on);  // the warp's inclusive scan of the counts
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, d);
+      if (lane >= d) incl += v;
+    }
+    if (lane == 31) wtotal[warp] = incl;
+    __syncthreads();
+    int at = base + incl - __popc(on), total = 0;
+    for (int w = 0; w < LIST_THREADS / 32; ++w) {
+      at += w < warp ? wtotal[w] : 0;
+      total += wtotal[w];
+    }
+    for (int j = 0; j < LIST_ITEMS; ++j)
+      if (on >> j & 1u) lk[at++] = first + j;
+    base += total;
+    __syncthreads();  // wtotal is rewritten by the next chunk
+  }
+  if (tid == 0) count[k] = base;
+}
+
+// the staged rows, in units of rch doubles: [S | W (p) | g (a problem
+// each) | y (at each gene's first problem of the tile)]
+__host__ __device__ inline int conv_width(int p) {
+  return 1 + p + 2 * CONV_WARPS;
+}
+
+// one buffer (every row) or two (chunks)
+struct ConvStage {
+  double* sm;
+  int rch, chunks, w;
+  __device__ double* buf(int c) const { return sm + (c & 1) * w * rch; }
+};
+
+// cp.async of rows [r0, r0 + rows) of rho k (S and W at Sk and Wk) into
+// buf, for the tile's nv problems prob[]
+__device__ void conv_fetch(double* buf, int rch, const double* __restrict__ Sk,
+                           const double* __restrict__ Wk,
+                           const double* __restrict__ yt, const int* prob,
+                           int nv, int k, int r0, int rows, int R, int p,
+                           int nS, int nrho) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int64_t ps = p + nS;
+  for (int e = tid; e < rows * (1 + p); e += nt) {
+    const int rr = e / (1 + p), c = e - rr * (1 + p);
+    const int64_t r = r0 + rr;
+    cp_async8(buf + c * rch + rr, c == 0 ? Sk + r : Wk + r * ps + (c - 1));
+  }
+  // the problems' genotype, a row's nv values along the variants
+  for (int e = tid; e < rows * nv; e += nt) {
+    const int rr = e / nv, v = e - rr * nv;
+    cp_async8(buf + (1 + p + v) * rch + rr,
+              Wk + (r0 + rr) * ps + p + prob[v] % nS);
+  }
+  // each gene's phenotype, at its first problem of the tile
+  for (int e = tid; e < rows * nv; e += nt) {
+    const int v = e / rows, rr = e - v * rows;
+    const int g = prob[v] / nS;
+    if (v > 0 && prob[v - 1] / nS == g) continue;
+    cp_async8(buf + (1 + p + CONV_WARPS + v) * rch + rr,
+              yt + ((int64_t)g * nrho + k) * R + r0 + rr);
+  }
+}
+
+// One pass of the block over the rows: use(buf, rows) on each staged
+// chunk.  Resident (one chunk): staged at the first pass, then read in
+// place.  Chunked: the next chunk is fetched while the current one is
+// used.
+template <class Fetch, class Use>
+__device__ void conv_pass(const ConvStage& st, int R, bool& staged,
+                          Fetch fetch, Use use) {
+  if (st.chunks == 1) {
+    if (!staged) {
+      fetch(st.buf(0), 0, R);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      staged = true;
+    }
+    use(st.buf(0), R);
+    return;
+  }
+  __syncthreads();  // every warp is done with the last pass's chunks
+  fetch(st.buf(0), 0, min(st.rch, R));
+  cp_async_commit();
+  for (int c = 0; c < st.chunks; ++c) {
+    const int r0 = c * st.rch;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c landed; every warp is done with c - 1
+    if (c + 1 < st.chunks)
+      fetch(st.buf(c + 1), r0 + st.rch, min(st.rch, R - r0 - st.rch));
+    cp_async_commit();
+    use(st.buf(c), min(st.rch, R - r0));
+  }
+}
+
+// One problem's rows, where they lie: row r's eigenvalue at S[r], W's
+// column j at W[j wc + r wr], the genotype at g[r gs], the phenotype at
+// y[r]: the staged rows (columns of rch doubles) or the tensors.
+struct ConvRows {
+  const double *S, *W, *g, *y;
+  int64_t wc, wr, gs;
+};
+
+// the lane's rows first, first + step, ... < rows into the NF families'
+// sums of its problem: the products of the localize's per-problem loop,
+// unrounded
+template <int P1MAX, int NF>
+__device__ void conv_rows(const ConvRows& x, int rows, int first, int step,
+                          int p, double delta,
+                          double (&acc)[NF][Cfg<P1MAX>::NE], double& ex1,
+                          double& ex2) {
+  constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
+  const int p1 = p + 1;
+  double dprod = 1.0;  // NF == 1: sum log d a log of LOG_GROUP rows
+  int nprod = 0;
+  for (int rr = first; rr < rows; rr += step) {
+    const double Sr = x.S[rr];
+    const double d = (1.0 - delta) * Sr + delta;
+    const double w1 = 1.0 / d;
+    double wf[NF];
+    wf[0] = w1;
+    if constexpr (NF == 3) {
+      const double e = 1.0 - Sr;
+      const double e2 = (1.0 - Sr) * (1.0 - Sr);
+      wf[1] = e * w1 * w1;
+      wf[2] = e2 * w1 * w1 * w1;
+      ex1 += w1 * e;
+      ex2 += w1 * w1 * e2;
+    } else {
+      dprod *= d;
+      if (++nprod == LOG_GROUP) {
+        ex1 += log(dprod);
+        dprod = 1.0;
+        nprod = 0;
+      }
+    }
+    const double g = x.g[rr * x.gs], yv = x.y[rr];
+    const double* W = x.W + rr * x.wr;
+    SMALL_FOR(i, 0, p1) {
+      const double xi = i < p ? W[i * x.wc] : g;
+      SMALL_FOR(j, 0, i + 1) {
+        const double v = xi * (j < p ? W[j * x.wc] : g);
+        for (int f = 0; f < NF; ++f) acc[f][tri(i, j)] += wf[f] * v;
+      }
+      const double v = xi * yv;
+      for (int f = 0; f < NF; ++f) acc[f][TRI + i] += wf[f] * v;
+    }
+    const double v = yv * yv;
+    for (int f = 0; f < NF; ++f) acc[f][NE - 1] += wf[f] * v;
+  }
+  if (NF == 1) ex1 += log(dprod);
+}
+
+// the warps of a problem (two at p + 1 <= 2, its rows split between them)
+// add up their sums, each warp over its lanes and then the two warps' in
+// one order, so that both hold the same sums and take the same steps;
+// red: [2][CONV_WARPS][NF NE + 2] doubles
+template <int P1MAX, int NF>
+__device__ void conv_reduce(double* red, int v, int half, bool active,
+                            double (&acc)[NF][Cfg<P1MAX>::NE], double& ex1,
+                            double& ex2) {
+  constexpr int NE = Cfg<P1MAX>::NE, W = NF * NE + 2;
+  for (int f = 0; f < NF; ++f)
+    for (int e = 0; e < NE; ++e) acc[f][e] = warp_sum(acc[f][e]);
+  ex1 = warp_sum(ex1);
+  ex2 = warp_sum(ex2);
+  double* mine = red + (half * CONV_WARPS + v) * W;
+  if (active && threadIdx.x % 32 == 0) {
+    for (int f = 0; f < NF; ++f)
+      for (int e = 0; e < NE; ++e) mine[f * NE + e] = acc[f][e];
+    mine[NF * NE] = ex1;
+    mine[NF * NE + 1] = ex2;
+  }
+  __syncthreads();
+  const double* r0 = red + v * W;
+  const double* r1 = red + (CONV_WARPS + v) * W;
+  for (int f = 0; f < NF; ++f)
+    for (int e = 0; e < NE; ++e) acc[f][e] = r0[f * NE + e] + r1[f * NE + e];
+  ex1 = r0[NF * NE] + r1[NF * NE];
+  ex2 = r0[NF * NE + 1] + r1[NF * NE + 1];
+  __syncthreads();  // both warps have read before the next pass's sums
+}
+
+// a wide lane's blocks (rows 4 bi .. 4 bi + 3, columns 4 bj .. 4 bj + 3)
+// of the column pairs of [W, g, y] (ncol = p + 2), bi >= bj; bi = -1
+// where the lane has none
+__device__ void wide_blocks(int ncol, int (&bi)[WBLK], int (&bj)[WBLK]) {
+  const int lane = threadIdx.x % 32;
+  const int nbk = (ncol + 3) / 4, nbl = nbk * (nbk + 1) / 2;
+  for (int t = 0; t < WBLK; ++t) {
+    const int e = lane + 32 * t;
+    int a = -1, b = 0;
+    if (e < nbl) {
+      a = 0;
+      while ((a + 1) * (a + 2) / 2 <= e) ++a;
+      b = e - a * (a + 1) / 2;
+    }
+    bi[t] = a;
+    bj[t] = b;
+  }
+}
+
+// a wide lane's staged rows [0, rows) into its blocks' NF families' sums
+// (oa, ob: the blocks' columns in the staged rows); ws.wf holds the
+// weights of WRC rows at a time, a lane a row
+template <int NF>
+__device__ void wide_rows(const WideWs& ws, const double* buf, int rows,
+                          const int (&bi)[WBLK], const int (&oa)[WBLK][4],
+                          const int (&ob)[WBLK][4], double delta,
+                          double (&acc)[NF][WBLK][16], double& ex1,
+                          double& ex2) {
+  const int lane = threadIdx.x % 32;
+  double dprod = 1.0;  // NF == 1: sum log d a log of LOG_GROUP rows
+  int nprod = 0;
+  for (int rb = 0; rb < rows; rb += WRC) {
+    const int nr = min(WRC, rows - rb);
+    if (lane < nr) {
+      const double Sr = buf[rb + lane];
+      const double d = (1.0 - delta) * Sr + delta;
+      const double w1 = 1.0 / d;
+      double* wf = ws.wf + lane * 3;
+      wf[0] = w1;
+      if constexpr (NF == 3) {
+        const double e = 1.0 - Sr;
+        const double e2 = (1.0 - Sr) * (1.0 - Sr);
+        wf[1] = e * w1 * w1;
+        wf[2] = e2 * w1 * w1 * w1;
+        ex1 += w1 * e;
+        ex2 += w1 * w1 * e2;
+      } else {
+        dprod *= d;
+        if (++nprod == LOG_GROUP) {
+          ex1 += log(dprod);
+          dprod = 1.0;
+          nprod = 0;
+        }
+      }
+    }
+    __syncwarp();
+    for (int rr = 0; rr < nr; ++rr) {
+      const int r = rb + rr;
+      double w[NF];
+#pragma unroll
+      for (int f = 0; f < NF; ++f) w[f] = ws.wf[rr * 3 + f];
+#pragma unroll
+      for (int t = 0; t < WBLK; ++t) {
+        if (bi[t] < 0) continue;
+        double xa[4], xb[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          xa[u] = buf[oa[t][u] + r];
+          xb[u] = buf[ob[t][u] + r];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const double pr = xa[u] * xb[v];
+#pragma unroll
+            for (int f = 0; f < NF; ++f) acc[f][t][4 * u + v] += w[f] * pr;
+          }
+      }
+    }
+    __syncwarp();
+  }
+  if (NF == 1) ex1 += log(dprod);
+}
+
+// the wide sums into ws.acc ([A lower | b | q] over [W, g], y), the
+// complements added with weight 1/delta^(f+1); ex1, ex2 summed over the
+// warp
+template <int NF>
+__device__ void wide_finish(const Problem& pb, const WideWs& ws,
+                            double delta, const int (&bi)[WBLK],
+                            const int (&bj)[WBLK],
+                            const double (&acc)[NF][WBLK][16], double& ex1,
+                            double& ex2) {
+  const int p = pb.p, p1 = p + 1, ntri = p1 * (p1 + 1) / 2;
+  ex1 = warp_sum(ex1);
+  ex2 = warp_sum(ex2);
+  const double i1 = 1.0 / delta;
+#pragma unroll
+  for (int t = 0; t < WBLK; ++t) {
+    if (bi[t] < 0) continue;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int a = 4 * bi[t] + u, b = 4 * bj[t] + v;
+        if (a > p1 || b > a) continue;
+        int e;
+        double c;
+        if (a < p1) {  // A: x_a x_b
+          e = tri(a, b);
+          c = a < p ? pb.CWW[a * p + b]
+                    : (b < p ? pb.CWg[(int64_t)b * pb.nS + pb.s] : pb.cgg);
+        } else if (b < p1) {  // b: x_b y
+          e = ntri + b;
+          c = b < p ? pb.CWy[b] : pb.cgy;
+        } else {  // q: y y
+          e = ws.ne - 1;
+          c = pb.cyy;
+        }
+        double ic = i1;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          ws.acc[f * ws.ne + e] = acc[f][t][4 * u + v] + c * ic;
+          ic *= i1;
+        }
+      }
+  }
+  __syncwarp();
+}
+
+// the doubles of a wide converge warp's workspace: its rows' weights,
+// then the algebra's
+__host__ __device__ inline int conv_ws_words(int p1) {
+  return 3 * WRC + epi_words(p1);
+}
+
+template <int P1MAX, bool REML, int WPP>
+__global__ void __launch_bounds__(32 * CONV_WARPS * WPP,
+                                  conv_min_blocks(P1MAX, WPP))
 converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
                 const double* __restrict__ yt, const double* __restrict__ CWW,
                 const double* __restrict__ CWy, const double* __restrict__ Cyy,
                 const double* __restrict__ CWg, const double* __restrict__ Cgy,
                 const double* __restrict__ Cgg,
                 const double* __restrict__ ld_xx,
-                const int64_t* __restrict__ k_best,
                 const double* __restrict__ x0,
                 const double* __restrict__ br_lo,
                 const double* __restrict__ br_hi,
+                const int* __restrict__ list, const int* __restrict__ count,
                 double* __restrict__ delta_out, double* __restrict__ lml_out,
                 double* __restrict__ scale_out, double* __restrict__ beta_out,
-                int n, int nrho, int R, int p, int nS, int steps) {
+                int n, int nrho, int R, int p, int nS, int genes, int steps,
+                int rch) {
   extern __shared__ __align__(16) unsigned char conv_dyn[];
-  const int64_t gi = blockIdx.y;  // the gene axis, as in localize_kernel
-  yt += gi * nrho * R;
-  CWy += gi * p;
-  Cyy += gi;
-  Cgy += gi * nS;
-  br_lo += gi * nS * nrho;
-  br_hi += gi * nS * nrho;
-  if (k_best) k_best += gi * nS;
-  if (x0) x0 += gi * nS * nrho;
-  delta_out += gi * nS;
-  lml_out += gi * nS;
-  scale_out += gi * nS;
-  beta_out += gi * nS * (p + 1);
-  const int warp = threadIdx.x / 32;
-  const int s = blockIdx.x * CONV_WARPS + warp;
-  const int lane = threadIdx.x % 32;
-  if (s >= nS) return;  // whole warps only: no block-wide barrier here
-  double* ws = P1MAX == 0 ? reinterpret_cast<double*>(conv_dyn) +
-                                (int64_t)warp * wide_words(p + 1)
-                          : nullptr;
-  const int o = k_best ? (int)k_best[s] : 0;
-  const int64_t so = (int64_t)s * nrho + o;
+  __shared__ int prob[CONV_WARPS];
+  // the two warps' sums of each problem (WPP == 2)
+  __shared__ double red[WPP == 2 ? 2 * CONV_WARPS * (3 * Cfg<P1MAX>::NE + 2)
+                                 : 1];
+  // the block's tile: problems t0 .. t0 + nv of rho k's list, found in
+  // the counts, read LIST_CHUNK rho at a time by as many threads (not
+  // one after another: each read is a round trip to L2)
+  __shared__ int cnt[LIST_CHUNK];
+  __shared__ int tile[3];  // k (-1: none yet), t0, nv
+  if (threadIdx.x == 0) tile[0] = -1;
+  for (int k0 = 0, start = 0; k0 < nrho; k0 += LIST_CHUNK) {
+    if (threadIdx.x < LIST_CHUNK)
+      cnt[threadIdx.x] = k0 + (int)threadIdx.x < nrho
+                             ? count[k0 + threadIdx.x] : 0;
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int j = 0; j < LIST_CHUNK && k0 + j < nrho; ++j) {
+        const int tiles = (cnt[j] + CONV_WARPS - 1) / CONV_WARPS;
+        if ((int)blockIdx.x < start + tiles) {
+          tile[0] = k0 + j;
+          tile[1] = ((int)blockIdx.x - start) * CONV_WARPS;
+          tile[2] = min(CONV_WARPS, cnt[j] - tile[1]);
+          break;
+        }
+        start += tiles;
+      }
+    __syncthreads();
+    if (tile[0] >= 0) break;
+  }
+  const int k = tile[0], t0 = tile[1], nv = tile[2];
+  if (k < 0) return;  // past the last tile: the whole block exits
+  const int P = genes * nS;
+  if ((int)threadIdx.x < nv)
+    prob[threadIdx.x] = list[(int64_t)k * P + t0 + threadIdx.x];
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int half = warp / CONV_WARPS;  // the warp's share of the rows
+  const bool active = warp % CONV_WARPS < nv;  // the others only stage
+  const int v = min(warp % CONV_WARPS, nv - 1);
+  const int i = prob[v], gi = i / nS, s = i - gi * nS;
+  int head = v;  // the gene's first problem of the tile holds its y
+  while (head > 0 && prob[head - 1] / nS == gi) --head;
+  const int p1 = p + 1, w = conv_width(p);
+  const int chunks = (R + rch - 1) / rch;
+  const ConvStage st{reinterpret_cast<double*>(conv_dyn), rch, chunks, w};
+  const int gcol = 1 + p + v, ycol = 1 + p + CONV_WARPS + head;
+  const double* Sk = Sv + (int64_t)k * R;
+  const double* Wk = WGt + (int64_t)k * R * (p + nS);
+  auto fetch = [&](double* buf, int r0, int rows) {
+    conv_fetch(buf, rch, Sk, Wk, yt, prob, nv, k, r0, rows, R, p, nS, nrho);
+  };
+  const Problem pb =
+      make_problem(CWW, CWy + (int64_t)gi * p, Cyy + gi, CWg,
+                   Cgy + (int64_t)gi * nS, Cgg, s, R, p, nS, false);
+  const int64_t so = (int64_t)i * nrho + k;
   double lo = br_lo[so], hi = br_hi[so];
   double x = x0 ? x0[so] : 0.5 * (lo + hi);
-  const Problem pb = make_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg,
-                                  o, s, R, p, nS, false, ws);
-  newton<P1MAX, REML>(pb, n, steps, x, lo, hi);
-  const double delta = sigmoid(x);
-  double rss;
+  const double ldx = REML ? ld_xx[s] : 0.0;
+  bool staged = false;
+  double delta, lml, rss;
   bool bad;
-  const double lml = final_fit<P1MAX, REML, REML>(
-      pb, delta, n, REML ? ld_xx[s] : 0.0, beta_out + (int64_t)s * (p + 1),
-      rss, bad);
+  if constexpr (P1MAX == 0) {
+    double* base = st.sm + (chunks == 1 ? 1 : 2) * w * rch +
+                   (int64_t)warp * conv_ws_words(p1);
+    WideWs ws = wide_ws(base + 3 * WRC, p1);
+    ws.wf = base;
+    int bi[WBLK], bj[WBLK], oa[WBLK][4], ob[WBLK][4];
+    wide_blocks(p1 + 1, bi, bj);
+    // column c of [W, g, y] in the staged rows (padding: any column)
+    auto col = [&](int c) {
+      return (c < p ? 1 + c : c == p ? gcol : c == p1 ? ycol : 0) * rch;
+    };
+    for (int t = 0; t < WBLK; ++t)
+      for (int u = 0; u < 4; ++u) {
+        oa[t][u] = col(4 * max(bi[t], 0) + u);
+        ob[t][u] = col(4 * bj[t] + u);
+      }
+    for (int it = 0; it < steps; ++it) {
+      delta = sigmoid(x);
+      double acc[3][WBLK][16] = {}, ex1 = 0.0, ex2 = 0.0;
+      conv_pass(st, R, staged, fetch, [&](const double* buf, int rows) {
+        if (active)
+          wide_rows<3>(ws, buf, rows, bi, oa, ob, delta, acc, ex1, ex2);
+      });
+      if (active) {
+        wide_finish<3>(pb, ws, delta, bi, bj, acc, ex1, ex2);
+        double Lp, Lpp;
+        derivs_tail_wide<REML>(ws, R, n, delta, ex1, ex2, Lp, Lpp);
+        newton_update(delta, Lp, Lpp, x, lo, hi);
+      }
+    }
+    delta = sigmoid(x);
+    double acc[1][WBLK][16] = {}, logd = 0.0, unused = 0.0;
+    conv_pass(st, R, staged, fetch, [&](const double* buf, int rows) {
+      if (active)
+        wide_rows<1>(ws, buf, rows, bi, oa, ob, delta, acc, logd, unused);
+    });
+    if (!active) return;
+    wide_finish<1>(pb, ws, delta, bi, bj, acc, logd, unused);
+    lml = fit_tail_wide<REML, REML>(ws, R, delta, n, ldx, logd, rss, bad);
+    if (lane == 0)
+      for (int j = 0; j < p1; ++j) beta_out[(int64_t)i * p1 + j] = ws.vec[j];
+  } else {
+    constexpr int NE = Cfg<P1MAX>::NE;
+    const int first = half * 32 + lane, step = 32 * WPP;
+    auto staged_rows = [&](const double* buf) {
+      return ConvRows{buf, buf + rch, buf + gcol * rch, buf + ycol * rch,
+                      rch, 1, 1};
+    };
+    for (int it = 0; it < steps; ++it) {
+      delta = sigmoid(x);
+      double acc[3][NE] = {}, ex1 = 0.0, ex2 = 0.0;
+      conv_pass(st, R, staged, fetch, [&](const double* buf, int rows) {
+        if (active)
+          conv_rows<P1MAX, 3>(staged_rows(buf), rows, first, step, p, delta,
+                              acc, ex1, ex2);
+      });
+      if constexpr (WPP == 2) {
+        conv_reduce<P1MAX, 3>(red, v, half, active, acc, ex1, ex2);
+        if (active) ne_complements<P1MAX, 3>(pb, delta, acc);
+      } else if (active) {
+        ne_finish<P1MAX, 3>(pb, delta, acc, ex1, ex2);
+      }
+      if (active) {
+        double Lp, Lpp;
+        derivs_sums<P1MAX, REML>(pb, delta, n, acc, ex1, ex2, Lp, Lpp);
+        newton_update(delta, Lp, Lpp, x, lo, hi);
+      }
+    }
+    delta = sigmoid(x);
+    double acc[1][NE] = {}, logd = 0.0, unused = 0.0;
+    if (steps == 0) {  // one pass: the rows read where they lie
+      const int64_t ps = p + nS;
+      if (active)
+        conv_rows<P1MAX, 1>(ConvRows{Sk, Wk, Wk + p + s,
+                                     yt + ((int64_t)gi * nrho + k) * R, 1,
+                                     ps, ps},
+                            R, first, step, p, delta, acc, logd, unused);
+    } else {
+      conv_pass(st, R, staged, fetch, [&](const double* buf, int rows) {
+        if (active)
+          conv_rows<P1MAX, 1>(staged_rows(buf), rows, first, step, p, delta,
+                              acc, logd, unused);
+      });
+    }
+    if constexpr (WPP == 2)
+      conv_reduce<P1MAX, 1>(red, v, half, active, acc, logd, unused);
+    if (!active || half > 0) return;  // the first warp of a problem writes
+    if constexpr (WPP == 2)
+      ne_complements<P1MAX, 1>(pb, delta, acc);
+    else
+      ne_finish<P1MAX, 1>(pb, delta, acc, logd, unused);
+    double beta[P1MAX];
+    lml = fit_sums<P1MAX, REML, REML>(pb, delta, n, ldx, acc, logd, beta, rss,
+                                      bad);
+    if (lane == 0)
+      SMALL_FOR(j, 0, p1) beta_out[(int64_t)i * p1 + j] = beta[j];
+  }
   if (lane == 0) {
-    delta_out[s] = delta;
-    lml_out[s] = lml;
-    scale_out[s] = rss / (REML ? (double)(n - p - 1) : (double)n);
+    delta_out[i] = delta;
+    lml_out[i] = lml;
+    scale_out[i] = rss / (REML ? (double)(n - p - 1) : (double)n);
   }
 }
 
-// dynamic shared memory of a wide block of `warps` warps, after raising
-// the kernel's limit; 0 for the register instantiations
-template <class F>
-int wide_smem(F kernel, bool wide, int warps, int p, size_t* bytes) {
-  *bytes = wide ? sizeof(double) * (size_t)warps * wide_words(p + 1) : 0;
-  if (!wide) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+// the converge's rows a chunk (every row, rounded to 32, where they fit),
+// and the bytes of dynamic shared memory of a block (none for a narrow
+// call with no Newton steps: its one pass reads the tensors)
+inline int conv_rows_per_chunk(int R, int p, int steps, int* smem) {
+  const bool wide = p + 1 > 16;
+  if (!wide && steps == 0) {  // one pass reads its rows where they lie
+    *smem = 0;
+    return R;
+  }
+  const int w = conv_width(p);
+  const int ws = wide ? (int)sizeof(double) * CONV_WARPS *
+                            conv_ws_words(p + 1)
+                      : 0;
+  const int budget = wide ? min(CONV_SMEM, SMEM_BLOCK - ws) : CONV_SMEM;
+  const int all = (R + 31) / 32 * 32;
+  int rch = all;
+  if ((int)sizeof(double) * w * all > budget)
+    rch = max(32, budget / ((int)sizeof(double) * 2 * w) / 32 * 32);
+  const int nbuf = (R + rch - 1) / rch == 1 ? 1 : 2;
+  *smem = (int)sizeof(double) * nbuf * w * rch + ws;
+  return rch;
 }
-
 }  // namespace
 
 // Operands: Sv (nrho, R), WGt (nrho, R, p + nS), CWW (p, p), CWg (p, nS),
@@ -1908,9 +2215,17 @@ extern "C" int crm_reml_localize(const double* Sv, const double* WGt,
   return (int)cudaGetLastError();
 }
 
+// Bytes of scratch a crm_reml_converge call with these sizes needs (the
+// per-rho problem lists and their counts).
+extern "C" int64_t crm_reml_converge_workspace(int nrho, int nS, int genes) {
+  return (int64_t)sizeof(int) * nrho * ((int64_t)genes * nS + 1);
+}
+
 // k_best (genes, nS) int64 or null (rho 0), x0 (genes, nS, nrho) or null
 // (bracket midpoint) -> delta, lml, scale (genes, nS), beta (genes, nS,
-// p + 1); ld_xx may be null when reml == 0.
+// p + 1); ld_xx may be null when reml == 0.  work:
+// crm_reml_converge_workspace bytes on the card, 4-byte aligned;
+// genes nS < 2^31.
 extern "C" int crm_reml_converge(const double* Sv, const double* WGt,
                                  const double* yt, const double* CWW,
                                  const double* CWy, const double* Cyy,
@@ -1919,26 +2234,43 @@ extern "C" int crm_reml_converge(const double* Sv, const double* WGt,
                                  const int64_t* k_best, const double* x0,
                                  const double* br_lo, const double* br_hi,
                                  double* delta, double* lml, double* scale,
-                                 double* beta, int n, int nrho, int R, int p,
-                                 int nS, int genes, int steps, int reml,
-                                 cudaStream_t stream) {
-  const bool wide = p + 1 > 16;
-  auto kernel = reml ? (wide         ? converge_kernel<0, true>
-                        : p + 1 <= 2 ? converge_kernel<2, true>
-                        : p + 1 <= 4 ? converge_kernel<4, true>
-                                     : converge_kernel<16, true>)
-                     : (wide         ? converge_kernel<0, false>
-                        : p + 1 <= 2 ? converge_kernel<2, false>
-                        : p + 1 <= 4 ? converge_kernel<4, false>
-                                     : converge_kernel<16, false>);
-  size_t smem;
-  const int err = wide_smem(kernel, wide, CONV_WARPS, p, &smem);
+                                 double* beta, void* work, int n, int nrho,
+                                 int R, int p, int nS, int genes, int steps,
+                                 int reml, cudaStream_t stream) {
+  const int P = genes * nS;
+  int* list = static_cast<int*>(work);
+  int* count = list + (int64_t)nrho * P;
+  auto lists = conv_lists_kernel;
+  lists<<<nrho, LIST_THREADS, 0, stream>>>(k_best, list, count, P);
+  int err = (int)cudaGetLastError();
   if (err) return err;
-  const int blocks = (nS + CONV_WARPS - 1) / CONV_WARPS;
-  const dim3 grid(blocks, genes);
-  const int threads = 32 * CONV_WARPS;
-  kernel<<<grid, threads, smem, stream>>>(
-      Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, k_best, x0, br_lo,
-      br_hi, delta, lml, scale, beta, n, nrho, R, p, nS, steps);
+  const bool wide = p + 1 > 16;
+  // two warps a problem at p + 1 <= 2 where Newton steps run or where the
+  // problems are too few to fill the card at one warp each (K7's fits at
+  // the grid's ends on an H100 80GB HBM3: 0.018 against 0.028 ms at 512
+  // problems; 0.141 against 0.119 at 16 x 512, PERF.md)
+  const int wpp =
+      !wide && p + 1 <= 2 && (steps > 0 || P < CONV_SPLIT_BELOW) ? 2 : 1;
+  auto kernel = reml ? (wide         ? converge_kernel<0, true, 1>
+                        : wpp == 2   ? converge_kernel<2, true, 2>
+                        : p + 1 <= 2 ? converge_kernel<2, true, 1>
+                        : p + 1 <= 4 ? converge_kernel<4, true, 1>
+                                     : converge_kernel<16, true, 1>)
+                     : (wide         ? converge_kernel<0, false, 1>
+                        : wpp == 2   ? converge_kernel<2, false, 2>
+                        : p + 1 <= 2 ? converge_kernel<2, false, 1>
+                        : p + 1 <= 4 ? converge_kernel<4, false, 1>
+                                     : converge_kernel<16, false, 1>);
+  int smem;
+  const int rch = conv_rows_per_chunk(R, p, steps, &smem);
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  // the most tiles the problems could need: one partial tile a rho
+  const unsigned blocks = (unsigned)((P + CONV_WARPS - 1) / CONV_WARPS + nrho);
+  const int threads = 32 * CONV_WARPS * wpp;
+  kernel<<<blocks, threads, smem, stream>>>(
+      Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, x0, br_lo, br_hi, list,
+      count, delta, lml, scale, beta, n, nrho, R, p, nS, genes, steps, rch);
   return (int)cudaGetLastError();
 }

@@ -31,9 +31,16 @@ the product route: per Newton step and rho, the sums over the pairs of
 problems' weights and those pairs on the FP64 tensor cores, the
 genotype's sums a pass of their own, and each problem's algebra an
 epilogue; its scratch is one allocation sized by the source's workspace
-query.  A gene-batched call gives the phenotype's operands, the brackets
-and ``k_best``/``x0`` a leading gene axis (as :mod:`.delta_grid` does);
-one launch of the wrapper serves every gene.
+query.  The converge lists each rho's (gene, variant) problems on the
+card and gives a block a rho and a tile of four of its problems, whose
+shared rows (the rho's eigenvalues and W, the problems' genotype
+columns, the tile's phenotypes) it stages once for every Newton step and
+the final fit (in chunks where they do not fit; a call with no steps
+reads them in place); its scratch is the lists, sized by the source's
+workspace query.  A gene-batched call gives
+the phenotype's operands, the brackets and ``k_best``/``x0`` a leading
+gene axis (as :mod:`.delta_grid` does); one launch of the wrapper serves
+every gene.
 """
 from __future__ import annotations
 
@@ -155,8 +162,10 @@ def _bind(lib):
     lib.crm_reml_localize.argtypes = [vp] * 16 + [ci] * 8 + [vp]
     lib.crm_reml_localize_workspace.restype = ctypes.c_int64
     lib.crm_reml_localize_workspace.argtypes = [ci] * 5
+    lib.crm_reml_converge_workspace.restype = ctypes.c_int64
+    lib.crm_reml_converge_workspace.argtypes = [ci] * 3
     lib.crm_reml_converge.restype = ci
-    lib.crm_reml_converge.argtypes = [vp] * 18 + [ci] * 8 + [vp]
+    lib.crm_reml_converge.argtypes = [vp] * 19 + [ci] * 8 + [vp]
 
 
 def reml_localize(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi, n,
@@ -224,6 +233,9 @@ def reml_converge(S, WGt, yt, comp: Complements, ld_xx, k_best, x0, br_lo,
     if k_best is not None:
         _build.require(k_best, "reml_converge: k_best", torch.int64,
                        gs + (nS,))
+    if math.prod(gs) * nS >= 2 ** 31:
+        raise ValueError(f"reml_converge: genes x variants < 2^31, got "
+                         f"{math.prod(gs)} x {nS}")
     out = call_converge(_build.load("reml_newton", _bind), S, WGt, yt, comp,
                         ld_xx, k_best, x0, br_lo, br_hi, n, steps, restricted,
                         _build.stream_ptr(S.device))
@@ -233,8 +245,9 @@ def reml_converge(S, WGt, yt, comp: Complements, ld_xx, k_best, x0, br_lo,
 
 def call_converge(lib, S, WGt, yt, comp, ld_xx, k_best, x0, br_lo, br_hi, n,
                   steps, restricted=True, stream=None):
-    """Allocate the outputs and call ``lib``'s converge entry point (the
-    card's library, or an emulation of it on CPU tensors)."""
+    """Allocate the outputs and the scratch (the per-rho problem lists) and
+    call ``lib``'s converge entry point (the card's library, or an
+    emulation of it on CPU tensors)."""
     nrho, R = S.shape
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
@@ -244,12 +257,16 @@ def call_converge(lib, S, WGt, yt, comp, ld_xx, k_best, x0, br_lo, br_hi, n,
     beta = torch.empty(gs + (nS, p + 1), dtype=torch.float64, device=S.device)
     if delta.numel() == 0:
         return delta, lml, scale, beta
+    genes = math.prod(gs)
+    work = torch.empty(lib.crm_reml_converge_workspace(nrho, nS, genes),
+                       dtype=torch.uint8, device=S.device)
     opt = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
     ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp)]
     ptrs += [opt(ld_xx if restricted else None), opt(k_best), opt(x0),
              _build.ptr(br_lo), _build.ptr(br_hi), _build.ptr(delta),
-             _build.ptr(lml), _build.ptr(scale), _build.ptr(beta)]
-    _build.check(lib.crm_reml_converge(*ptrs, n, nrho, R, p, nS,
-                                       math.prod(gs), steps, int(restricted),
-                                       stream), "reml_converge")
+             _build.ptr(lml), _build.ptr(scale), _build.ptr(beta),
+             _build.ptr(work)]
+    _build.check(lib.crm_reml_converge(*ptrs, n, nrho, R, p, nS, genes,
+                                       steps, int(restricted), stream),
+                 "reml_converge")
     return delta, lml, scale, beta

@@ -1,15 +1,19 @@
 """K5: the per-variant score statistic Q = 1/2 ||A^T P y||^2 and the
 weight matrix Wmat = 1/2 A^T P A at each variant's best rho.
 
-On a CUDA tensor :func:`score_core` launches the hand-written kernel
-(``csrc/score_core.cu``); on a CPU tensor it runs :func:`score_core_plain`.
-The arguments are the interaction batch's own tensors; each variant
-gathers its best rho's rows (k_best) itself, and its score factor from
-K4's slots: At_slots[slot[g, s], s] (:mod:`.best_rho_rotate`).  The
-gene-batched scan gives the phenotype's operands (yt, Wy, gy, Ay, k_best,
-v0, v1, slot) a leading gene axis; the genotype's (and the slots, which
-the genes that share a best rho share) are shared, and one launch serves
-every gene.
+On a CUDA tensor :func:`score_core` launches the hand-written kernels
+(``csrc/score_core.cu``: the genotype columns of the distinct (slot,
+variant) pairs gathered into a contiguous scratch, then a block a variant
+taking its slots in turn, whose Grams run on the FP64 tensor cores); on a
+CPU tensor it runs
+:func:`score_core_plain`.  The arguments are the interaction batch's own
+tensors; each variant gathers its best rho's rows (k_best) itself, and its
+score factor from K4's slots: At_slots[slot[g, s], s]
+(:mod:`.best_rho_rotate`).  The gene-batched scan gives the phenotype's
+operands (yt, Wy, gy, Ay, k_best, v0, v1, slot) a leading gene axis; the
+genotype's (and the slots, which the genes that share a best rho share)
+are shared, and one call serves every gene: a block stages a slot's rows
+once for all the genes there.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ launches = 0
 # shape limits of the CUDA kernel (csrc/score_core.cu, its wide instantiation)
 MAX_COLUMNS = 98   # C + p + 2
 MAX_FIXED = 33     # p + 1
-MAX_GENES = 65535  # genes of one launch (a grid axis)
+MAX_GENES = 65535  # genes of one call (and slots: a grid axis)
 
 
 def score_core_plain(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
@@ -81,7 +85,7 @@ def score_core_plain(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.crm_score_core.restype = ci
-    lib.crm_score_core.argtypes = [vp] * 19 + [ci] * 6 + [vp]
+    lib.crm_score_core.argtypes = [vp] * 20 + [ci] * 7 + [vp]
 
 
 def score_core(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
@@ -131,19 +135,23 @@ def score_core(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
 
 def call(lib, Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA, k_best,
          v0, v1, slot, stream=None):
-    """Allocate Q and Wmat and call ``lib``'s entry point (the card's
-    library, or an emulation of it on CPU tensors)."""
+    """Allocate Q, Wmat and the scratch and call ``lib``'s entry point (the
+    card's library, or an emulation of it on CPU tensors)."""
     nrho, R = Sv.shape
-    S, C = At.shape[-3], At.shape[-1]
+    m, S, C = At.shape[0], At.shape[-3], At.shape[-1]
     p = WW.shape[0]
     gs = tuple(yt.shape[:-2])
     Q = torch.empty(gs + (S,), dtype=torch.float64, device=At.device)
     Wmat = torch.empty(gs + (S, C, C), dtype=torch.float64, device=At.device)
     if Q.numel() == 0:
         return Q, Wmat
+    # the gathered genotype column of each (slot, variant) pair, then each
+    # pair's rho
+    work = torch.empty(m * S * (R + 1), dtype=torch.float64,
+                       device=At.device)
     ptrs = [_build.ptr(t) for t in (Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW,
                                     Ag, Ay, AtA, k_best, v0, v1, slot, Q,
-                                    Wmat)]
+                                    Wmat, work)]
     _build.check(lib.crm_score_core(*ptrs, nrho, R, C, p, S, math.prod(gs),
-                                    stream), "score_core")
+                                    m, stream), "score_core")
     return Q, Wmat

@@ -224,11 +224,8 @@ def capture_kernel_inputs(run, names):
 
 
 def check_kernels(ctx, G, n):
-    import torch
-
     from cellregmap_tpu_torch import engine
     from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
-    from cellregmap_tpu_torch.kernels import score_core as k5
 
     calls = capture_kernel_inputs(
         lambda: engine.interaction_batch(ctx, G, G, n, delta_cfg=DELTA_CFG,
@@ -261,31 +258,7 @@ def check_kernels(ctx, G, n):
 
     # K5
     (args,) = calls["score_core"]
-    (Q, Wm), (Qr, Wr) = k5.score_core(*args), k5.score_core_plain(*args)
-    torch.cuda.synchronize()
-    err = max(float((Q - Qr).abs().max()), float((Wm - Wr).abs().max()))
-    rel = max(float((Q - Qr).abs().max() / Qr.abs().max()),
-              float((Wm - Wr).abs().max() / Wr.abs().max()))
-    assert rel <= 1e-10, f"score_core: rel {rel}"
-    Sv, WGt, yt, At, WW = args[:5]
-    kb5 = args[13]
-    _, S, R, C = At.shape
-    p = WW.shape[0]
-    m = C + p + 2
-    n_k = int(torch.unique(kb5).numel())
-    flops = S * R * (3 * m * (m + 1) // 2 + 3)
-    nbytes = F64 * (S * R * C + S * R + n_k * R * (p + 2)
-                    + S * (C * C + C * (p + 1) + C + p + 4)
-                    + S * (C * C + 1))
-    b_ms, b_by = bound(flops, nbytes)
-    rows.append(dict(
-        name="score_core", route="cuda",
-        source="cellregmap_tpu_torch/csrc/score_core.cu",
-        replaces="cellregmap_tpu/engine.py:234", max_abs_err=err,
-        ms=cuda_ms(lambda: k5.score_core(*args)),
-        plain_ms=cuda_ms(lambda: k5.score_core_plain(*args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        tolerance="max|err| <= 1e-10 * max|plain|, Q and Wmat"))
+    rows.append(check_score_core(args))
     rows[len(K1_CALLS):len(K1_CALLS)] = [
         check_delta_grid(calls["delta_grid"][0]),
         *check_reml_newton(calls["reml_localize"][0],
@@ -300,6 +273,56 @@ def check_kernels(ctx, G, n):
               + (f"; distinct rho {r['distinct_rho']}"
                  if "distinct_rho" in r else ""), flush=True)
     return rows
+
+
+K5_NOTE = ("the genotype columns of the distinct (slot, variant) "
+           "pairs gathered once a call; a block a variant takes its used "
+           "slots in turn, up to 16 genes a pass sharing the staged rows; "
+           "the Gram on mma.sync m16n8k8 (FP64 tensor cores), the algebra "
+           "a warp a gene")
+CONVERGE_NOTE = ("the problems listed a rho on the card; a block a "
+                 "(rho, tile of 4 problems) stages the rows they share (the "
+                 "genotype read along the variants), resident up to 110 KB "
+                 "or in chunks, read in place with no Newton steps; two "
+                 "warps a problem at p + 1 <= 2; wide: 4 x 4 blocks of sums "
+                 "a lane")
+
+
+def check_score_core(args, tag=None, plain_reps=10):
+    """K5 on one call's operands (a single phenotype) against its plain
+    version, Q and Wmat within 1e-10 of max|plain|, timed beside it; the
+    bound counts the factor, the rows of each best rho and the Grams read
+    once, Q and Wmat written once.  One row, ``score_core[ (<tag>)]``."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import score_core as k5
+
+    name = "score_core" + (f" ({tag})" if tag else "")
+    (Q, Wm), (Qr, Wr) = k5.score_core(*args), k5.score_core_plain(*args)
+    torch.cuda.synchronize()
+    rel = max(float((Q - Qr).abs().max() / Qr.abs().max()),
+              float((Wm - Wr).abs().max() / Wr.abs().max()))
+    assert rel <= 1e-10, f"{name}: rel {rel}"
+    At, WW = args[3], args[4]
+    _, S, R, C = At.shape
+    p = WW.shape[0]
+    m = C + p + 2
+    n_k = int(torch.unique(args[13]).numel())
+    b_ms, b_by = bound(S * R * (3 * m * (m + 1) // 2 + 3),
+                       F64 * (S * (R * C + R) + n_k * R * (p + 2)
+                              + S * (C * C + C * (p + 1)) + S * (C + p + 4)
+                              + S * (C * C + 1)))
+    return dict(
+        name=name, route="cuda",
+        source="cellregmap_tpu_torch/csrc/score_core.cu",
+        replaces="cellregmap_tpu/engine.py:234",
+        max_abs_err=max(float((Q - Qr).abs().max()),
+                        float((Wm - Wr).abs().max())),
+        ms=cuda_ms(lambda: k5.score_core(*args)),
+        plain_ms=cuda_ms(lambda: k5.score_core_plain(*args), reps=plain_reps,
+                         warmup=min(2, plain_reps)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        tolerance="Q, Wmat: max|err| <= 1e-10 * max|plain|", note=K5_NOTE)
 
 
 K1_CALLS = ("T", "AtA", "AtW")    # the interaction batch's K1 calls
@@ -641,7 +664,8 @@ def check_reml_newton(loc_call, conv_call, plain_reps=10, tag=None):
         dict(common, name="reml_newton (converge" + suffix,
              max_abs_err=c_err, ms=c_ms, plain_ms=c_plain,
              bound_ms=conv_bound[0], bound_by=conv_bound[1],
-             tolerance="delta, lml, scale, beta rel <= 1e-9")]
+             tolerance="delta, lml, scale, beta rel <= 1e-9",
+             note=CONVERGE_NOTE)]
 
 
 def refit_rows(grid, conv_calls, replaces, tag, plain_reps=10, genes=1):
@@ -662,7 +686,8 @@ def refit_rows(grid, conv_calls, replaces, tag, plain_reps=10, genes=1):
              source="cellregmap_tpu_torch/csrc/reml_newton.cu",
              max_abs_err=c_err, ms=c_ms, plain_ms=c_plain, bound_ms=b_ms,
              bound_by=b_by, calls=len(conv_calls),
-             tolerance="delta, lml, scale, beta rel <= 1e-9")]
+             tolerance="delta, lml, scale, beta rel <= 1e-9",
+             note=CONVERGE_NOTE)]
 
 
 def check_association_kernels(ctx, G, n, plain_reps=10):
@@ -718,7 +743,9 @@ def check_association_kernels(ctx, G, n, plain_reps=10):
 def device_split(fn, reps=3):
     """Device milliseconds a call of ``fn`` spends in each CUDA kernel, by
     the kernel's name (its template arguments kept), from
-    ``torch.profiler`` over ``reps`` calls after one warm-up."""
+    ``torch.profiler`` over ``reps`` calls after one warm-up.  A trace
+    with no device events (the profiler now and then returns none) is
+    taken once more."""
     import re
 
     import torch
@@ -726,20 +753,23 @@ def device_split(fn, reps=3):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0)
-        if us > 0:  # a kernel (its launch on the host has none)
-            name = re.sub(r"\(.*", "", e.key.replace(
-                "(anonymous namespace)::", "").replace("void ", ""))
-            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            if us > 0:  # a kernel (its launch on the host has none)
+                name = re.sub(r"\(.*", "", e.key.replace(
+                    "(anonymous namespace)::", "").replace("void ", ""))
+                out[name] = out.get(name, 0.0) + us / 1e3 / reps
+        if out:
+            break
     assert out, "the profiler saw no device time"
     return out
 
@@ -758,11 +788,8 @@ def check_wide_kernels(ctx, ctx_assoc, G, n):
     against its plain version with the headline's tolerances: K2, K3 and
     K5 on the interaction's context ``ctx``, K7 and K8 on the association's
     ``ctx_assoc``.  Returns their kernel rows, named with the width."""
-    import torch
-
     from cellregmap_tpu_torch import engine
     from cellregmap_tpu_torch.kernels import reml_newton as k3
-    from cellregmap_tpu_torch.kernels import score_core as k5
 
     p = ctx.W.shape[1]
     tag = f"p = {p}"
@@ -778,29 +805,7 @@ def check_wide_kernels(ctx, ctx_assoc, G, n):
         lambda: k3.reml_localize(*calls["reml_localize"][0][0],
                                  **calls["reml_localize"][0][1]))
     (args, _), = calls["score_core"]
-    (Q, Wm), (Qr, Wr) = k5.score_core(*args), k5.score_core_plain(*args)
-    torch.cuda.synchronize()
-    rel = max(float((Q - Qr).abs().max() / Qr.abs().max()),
-              float((Wm - Wr).abs().max() / Wr.abs().max()))
-    assert rel <= 1e-10, f"score_core ({tag}): rel {rel}"
-    Sv, At = args[0], args[3]
-    _, S, R, C = At.shape
-    m = C + p + 2
-    n_k = int(torch.unique(args[13]).numel())
-    b_ms, b_by = bound(S * R * (3 * m * (m + 1) // 2 + 3),
-                       F64 * (S * (R * C + R) + n_k * R * (p + 2)
-                              + S * (C * C + C * (p + 1)) + S * (C + p + 4)
-                              + S * (C * C + 1)))
-    k5_row = dict(
-        name="score_core", route="cuda",
-        source="cellregmap_tpu_torch/csrc/score_core.cu",
-        replaces="cellregmap_tpu/engine.py:234",
-        max_abs_err=max(float((Q - Qr).abs().max()),
-                        float((Wm - Wr).abs().max())),
-        ms=cuda_ms(lambda: k5.score_core(*args)),
-        plain_ms=cuda_ms(lambda: k5.score_core_plain(*args), reps=3,
-                         warmup=1), bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, tolerance="Q, Wmat: max|err| <= 1e-10 * max|plain|")
+    k5_row = check_score_core(args, plain_reps=3)
     k7_rows = check_association_kernels(ctx_assoc, G, n, plain_reps=1)[:2]
     k8_row = check_fast_scan(ctx_assoc, G, n, plain_reps=1)
     rows = [k2_row, *k3_rows, k5_row, *k7_rows, k8_row]
@@ -1428,15 +1433,14 @@ def rho80_phase(cfg, cpu_check=64):
     launch counts, p-values in (0, 1], the first ``cpu_check`` variants
     against the CPU port (1e-8, rho1 identical), and K3's localize at 80
     rho points on one batch's operands against its plain version (k_best
-    equal, x rel <= 1e-9, lml rel <= 1e-10), its converge beside it.
-    Returns (summary, launch counts, K3's two kernel rows)."""
+    equal, x rel <= 1e-9, lml rel <= 1e-10), its converge and K5 beside
+    it.  Returns (summary, launch counts, K3's two and K5's kernel rows)."""
     import dataclasses
 
     import torch
 
     import cellregmap_tpu_torch as crp
     from cellregmap_tpu_torch import engine, kernels
-    from cellregmap_tpu_torch.kernels import reml_newton as k3
 
     d = make_dataset(**RHO80)
     n_snps = RHO80["n_snps"]
@@ -1472,16 +1476,18 @@ def rho80_phase(cfg, cpu_check=64):
     Gb = torch.as_tensor(d["G"][:, :cfg80.snp_batch], device=CARD)
     calls = capture_kernel_inputs(
         lambda: engine.interaction_batch(ctx, Gb, Gb, n, delta_cfg=DELTA_CFG),
-        ["reml_localize", "reml_converge"])
+        ["reml_localize", "reml_converge", "score_core"])
     k3_rows = check_reml_newton(calls["reml_localize"][0],
                                 calls["reml_converge"][0], plain_reps=3,
                                 tag=f"n_rho = {N_RHO80}")
+    k3_rows.append(check_score_core(calls["score_core"][0][0],
+                                    tag=f"n_rho = {N_RHO80}", plain_reps=3))
     out = dict(n_cells=RHO80["n_cells"], n_donors=RHO80["n_donors"],
                n_rho=N_RHO80, n_snps=n_snps, e2e_s=e2e_s,
                e2e_tests_per_s=n_snps / e2e_s, launches=counts,
                cpu_check=dict(n=cpu_check, max_abs_pv_diff=gap,
                               rho1_identical=True, cpu_s=cpu_s),
-               reml_newton={r["name"]: {k: r[k] for k in (
+               kernels={r["name"]: {k: r[k] for k in (
                    "max_abs_err", "ms", "bound_ms")} for r in k3_rows})
     print("n_rho = 80: " + json.dumps(out), flush=True)
     return out, counts, k3_rows
@@ -2487,13 +2493,16 @@ def main() -> int:
     cap = capture_kernel_inputs(
         lambda: held.update(counts=scan_size("cells10k", SECOND, cfg,
                                              warmup=False)[1]),
-        ["kr_contract", "reml_localize", "reml_converge", "best_rho_rotate"])
+        ["kr_contract", "reml_localize", "reml_converge", "best_rho_rotate",
+         "score_core"])
     c_10k = held["counts"]
     rows_10k = check_kr_contract([a for a, _ in cap["kr_contract"][:3]],
                                  K1_CALLS, tag="cells10k")
     rows_10k += check_reml_newton(cap["reml_localize"][0],
                                   cap["reml_converge"][0], plain_reps=3,
                                   tag="cells10k")
+    rows_10k.append(check_score_core(cap["score_core"][0][0],
+                                     tag="cells10k", plain_reps=3))
     (V, T, kb), _ = cap["best_rho_rotate"][0]
     del cap
     b_ms, b_by, _, _ = k4_bound(V, T, kb)

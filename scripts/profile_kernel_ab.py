@@ -22,7 +22,19 @@ on the same operands, on one card in one process:
   chunks), from the batch's own k_best and K2 brackets.  K4's contract
   changed (each distinct (rho, variant) pair once, through slots), so
   each side's factors are compared per (gene, variant): this checkout's
-  gathered through its slots.
+  gathered through its slots;
+* K5 (``csrc/score_core.cu``) and K3's converge (``csrc/reml_newton.cu``)
+  on the batches ``chip_smoke.py`` holds them on: a headline interaction
+  batch, a ``multigene_16`` batch, a ``cells10k`` batch, a
+  ``covariates_24`` batch (p = 24, 21 rho: K5 at m = 36 and the wide
+  converge) and an ``n_rho = 80`` batch (``chip_smoke.RHO80``: 1000
+  cells, R = 510); the converge also on each call of K7's association
+  refit batch (the headline's Ls scanner, 512 variants at the null's best
+  rho: the Newton steps, then the two zero-step fits at the grid's ends),
+  of K7 with the gene axis (``assoc_refit_multigene_16``: 16 genes, Y = y
+  + 0.1 N(0, 1), rng 11, each at its own null's best rho) and of the wide
+  K7 (``covariates_24``'s hK scanner, R = 110).  K5 within 1e-10 of
+  max|plain|, the converge's delta, lml, scale and beta within rel 1e-9.
 
 The operands come from this checkout's engine; the other checkout's
 package is loaded under another name, builds its own kernels into its own
@@ -35,12 +47,12 @@ and rss within 1e-9 of their largest entry, f32 through
 ``woodbury_family.f32_gaps``), then timed by CUDA events (the median of 20
 runs, 10 for the localize and K9, 5 for K10) in the order other, this,
 this, other, and profiled with ``torch.profiler`` (device milliseconds a
-call in each kernel).  Prints one JSON line per call and one of the whole;
+call in each kernel; None where the profiler saw no kernel).  Prints one JSON line per call and one of the whole;
 ``--out`` also writes that line to a file; ``--kernels`` picks some of
-k1, k3, k10, k9, k4, k3reg.
+k1, k3, k10, k9, k4, k3reg, k5, k3conv.
 
     python3 scripts/profile_kernel_ab.py --other <checkout> [--out FILE]
-        [--kernels k4,k3reg]
+        [--kernels k5,k3conv]
 """
 import argparse
 import importlib.util
@@ -60,11 +72,12 @@ from cellregmap_tpu_torch.kernels import best_rho_rotate as k4  # noqa: E402
 from cellregmap_tpu_torch.kernels import kr_contract as k1  # noqa: E402
 from cellregmap_tpu_torch.kernels import null_fit as k10  # noqa: E402
 from cellregmap_tpu_torch.kernels import reml_newton as k3  # noqa: E402
+from cellregmap_tpu_torch.kernels import score_core as k5  # noqa: E402
 from cellregmap_tpu_torch.kernels import woodbury_family as k9  # noqa: E402
 
 KERNELS = {"k1": "kr_contract", "k3": "reml_newton", "k10": "null_fit",
            "k9": "woodbury_family", "k4": "best_rho_rotate",
-           "k3reg": "reml_newton"}
+           "k3reg": "reml_newton", "k5": "score_core", "k3conv": "reml_newton"}
 
 
 def load_other(root: Path, name="other_crp"):
@@ -94,9 +107,12 @@ def compare(name, this_fn, other_fn, check, reps):
         torch.cuda.synchronize()
     ms = timed([("other", other_fn), ("this", this_fn), ("this", this_fn),
                 ("other", other_fn)], reps)
-    row = dict(call=name, ms=ms,
-               profile={"this": cs.device_split(this_fn),
-                        "other": cs.device_split(other_fn)})
+    row = dict(call=name, ms=ms, profile={})
+    for label, fn in (("this", this_fn), ("other", other_fn)):
+        try:
+            row["profile"][label] = cs.device_split(fn)
+        except AssertionError:  # the profiler saw no kernel, twice
+            row["profile"][label] = None
     print(json.dumps(row), flush=True)
     return row
 
@@ -190,6 +206,67 @@ def rotate_localize_calls(d, n, G, Ls):
                                                "reml_localize"])
         out.append((label, calls["best_rho_rotate"][0][0],
                     calls["reml_localize"][0]))
+    return out
+
+
+def score_converge_calls(d, n, G, Ls):
+    """(label, K5's args or None, [K3's converge (args, kw)]) of the
+    batches the module doc lists."""
+    ctx = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                    device="cuda")
+    rng = np.random.default_rng(cs.MULTIGENE["seed"])
+    Y = d["y"][:, None] + 0.1 * rng.normal(size=(n, cs.MULTIGENE["genes"]))
+    ctx_g = cs._gene_ctx(ctx, Y)
+    d10 = cs.make_dataset(**cs.SECOND)
+    ctx10 = engine.build_null_context(
+        d10["y"], d10["W"], d10["E"],
+        Ls=crp.get_L_values(d10["hK"], d10["E"]), device="cuda")
+    G10 = torch.as_tensor(d10["G"][:, :cs.BATCH], device="cuda").contiguous()
+    rng = np.random.default_rng(cs.COVARIATES["seed"])
+    W24 = np.concatenate([np.ones((n, 1)),
+                          rng.normal(size=(n, cs.COVARIATES["p"] - 1))],
+                         axis=1)
+    rho21 = np.linspace(0.0, 1.0, cs.COVARIATES["n_rho"])
+    ctx24 = engine.build_null_context(d["y"], W24, d["E"], Ls=Ls,
+                                      rho_grid=rho21, device="cuda")
+    ctx24a = engine.build_null_context(d["y"], W24, d["E"], hK=d["hK"],
+                                       rho_grid=rho21, device="cuda")
+    d80 = cs.make_dataset(**cs.RHO80)
+    ctx80 = engine.build_null_context(
+        d80["y"], d80["W"], d80["E"],
+        Ls=crp.get_L_values(d80["hK"], d80["E"]),
+        rho_grid=np.linspace(0.0, 1.0, cs.N_RHO80), device="cuda")
+    G80 = torch.as_tensor(d80["G"][:, :cs.BATCH], device="cuda").contiguous()
+    ctx_ag = cs._gene_ctx(ctx, cs._multigene_genes(d))
+    k_ag = engine.null_association_multigene_fit(
+        ctx_ag, n, delta_cfg=cs.ASSOC_DELTA_CFG)[1].cpu().numpy()
+
+    def refit(c):
+        k_rho = int(engine.null_association_fit(
+            c, n, delta_cfg=cs.ASSOC_DELTA_CFG)[1])
+        return lambda: engine.association_refit_batch(
+            c, G, k_rho, n, delta_cfg=cs.ASSOC_DELTA_CFG)
+
+    out = []
+    for label, run in (
+            ("headline", lambda: engine.interaction_batch(
+                ctx, G, G, n, delta_cfg=cs.DELTA_CFG)),
+            ("multigene_16", lambda: engine.interaction_multigene_batch(
+                ctx_g, G, G, n, delta_cfg=cs.DELTA_CFG)),
+            ("cells10k", lambda: engine.interaction_batch(
+                ctx10, G10, G10, len(d10["y"]), delta_cfg=cs.DELTA_CFG)),
+            ("covariates_24", lambda: engine.interaction_batch(
+                ctx24, G, G, n, delta_cfg=cs.DELTA_CFG)),
+            ("rho80", lambda: engine.interaction_batch(
+                ctx80, G80, G80, len(d80["y"]), delta_cfg=cs.DELTA_CFG)),
+            ("K7", refit(ctx)),
+            ("K7-MG", lambda: engine.association_refit_multigene_batch(
+                ctx_ag, G, k_ag, n, delta_cfg=cs.ASSOC_DELTA_CFG)),
+            ("wide K7", refit(ctx24a))):
+        calls = cs.capture_kernel_inputs(run, ["score_core",
+                                               "reml_converge"])
+        sc = calls["score_core"][0][0] if calls["score_core"] else None
+        out.append((label, sc, calls["reml_converge"]))
     return out
 
 
@@ -301,6 +378,48 @@ def main():
                     lambda a=args, k=kw: ok["k3reg"].reml_localize(*a, **k),
                     check, reps=10))
                 del want
+
+    if "k5" in picked or "k3conv" in picked:
+        sums = {}
+        for label, sc, conv in score_converge_calls(d, n, G, Ls):
+            if "k5" in picked and sc is not None:
+                Qr, Wr = k5.score_core_plain(*sc)
+
+                def check(label, got, Qr=Qr, Wr=Wr):
+                    for g, w in zip(got, (Qr, Wr)):
+                        rel = float((g - w).abs().max() / w.abs().max())
+                        assert rel <= 1e-10, f"K5 ({label}): rel {rel}"
+
+                out["calls"].append(compare(
+                    f"score_core ({label})",
+                    lambda a=sc: k5.score_core(*a),
+                    lambda a=sc: ok["k5"].score_core(*a), check, reps=10))
+                del Qr, Wr
+            if "k3conv" not in picked:
+                continue
+            for i, (args, kw) in enumerate(conv):
+                want = k3.reml_converge_plain(*args, **kw)
+
+                def check(label, got, want=want):
+                    for g, w, name in zip(got, want, ("delta", "lml",
+                                                      "scale", "beta")):
+                        assert cs._rel(g, w) <= 1e-9, \
+                            f"converge {name} ({label})"
+
+                row = compare(
+                    f"reml_converge ({label}, call {i}, steps {args[10]})",
+                    lambda a=args, k=kw: k3.reml_converge(*a, **k),
+                    lambda a=args, k=kw: ok["k3conv"].reml_converge(*a, **k),
+                    check, reps=10)
+                out["calls"].append(row)
+                for side, ms in row["ms"].items():
+                    key = f"reml_converge ({label}) {side}"
+                    sums[key] = [a + b for a, b in zip(
+                        sums.get(key, [0.0] * len(ms)), ms)]
+                del want
+        if sums:
+            out["reml_converge_sums_ms"] = sums
+            print(json.dumps(sums), flush=True)
 
     if "k10" in picked:
         args, kw = k10_wide_call()

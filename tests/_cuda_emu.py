@@ -98,6 +98,23 @@ template <class T> T __shfl_xor_sync(unsigned, T v, int mask) {
 template <class T> T __shfl_sync(unsigned, T v, int lane) {
   return emu_exchange(v, (threadIdx.x & ~31u) | ((unsigned)lane & 31u));
 }
+// the lanes' predicates as a mask (whole warps of 32)
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const unsigned t = threadIdx.x, w0 = t & ~31u;
+  std::barrier<>& bar = *emu_warp_barriers[t / 32];
+  emu_xchg[t][0] = pred ? 1 : 0;
+  bar.arrive_and_wait();
+  unsigned m = 0;
+  for (unsigned l = 0; l < 32 && w0 + l < blockDim.x; ++l)
+    if (emu_xchg[w0 + l][0]) m |= 1u << l;
+  bar.arrive_and_wait();
+  return m;
+}
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned d) {
+  const unsigned t = threadIdx.x;
+  return emu_exchange(v, (t & 31u) >= d ? t - d : t);
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 template <class F, class... A>
 void emu_launch(F kernel, dim3 grid, dim3 block, cudaStream_t stream,
                 A... args) {

@@ -102,6 +102,57 @@ def score_inputs(seed, C=3, p=1, n=64, R=40, S=9, nrho=4):
             G.T @ y, AW, Ag, Ay, AtA, k_best, v0, v1, slot)
 
 
+def k_best_pattern(pattern, genes, nrho, S, rng):
+    """(genes, S) best rho: every gene at a variant's one rho ("one"), each
+    at its own ("distinct", genes <= nrho) or drawn (else)."""
+    if pattern == "one":          # every gene at one rho (a variant's own)
+        kb = np.tile(np.arange(S) % nrho, (genes, 1))
+    elif pattern == "distinct":   # every gene at its own rho
+        kb = np.stack([rng.permutation(nrho)[:genes] for _ in range(S)]).T
+    else:
+        kb = rng.integers(0, nrho, size=(genes, S))
+    return np.ascontiguousarray(kb, dtype=np.int64)
+
+
+def score_gene_inputs(seed, genes, pattern, C=3, p=2, n=64, R=37, S=5,
+                      nrho=4, device="cpu"):
+    """``score_core``'s positional arguments with a gene axis: each gene's
+    phenotype seeded apart, its best rho by ``pattern``, the factors in
+    K4's slots (each distinct (rho, variant) pair once; NaN in the slots
+    that no gene uses) and every Gram consistent with the rotations (the
+    complements PSD, as the engine's); ``device`` the tensors'."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels.best_rho_rotate import slots
+
+    rng = np.random.default_rng(seed)
+    W = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, p - 1))], 1)
+    E0 = rng.normal(size=(n, C)) / np.sqrt(C)
+    G = rng.normal(size=(n, S))
+    Y = rng.normal(size=(genes, n)) + 0.3 * G[:, 0] * E0[:, 0]
+    Qn = [np.linalg.qr(rng.normal(size=(n, n)))[0] for _ in range(nrho)]
+    Sv = np.abs(rng.normal(size=(nrho, R))) * 2.0
+    Sv[:, -3:] = 0.0                          # padded (inert) directions
+    WGt = np.stack([(Q.T @ np.concatenate([W, G], 1))[:R] for Q in Qn])
+    yt = np.stack([np.stack([(Q.T @ y)[:R] for Q in Qn]) for y in Y])
+    kb = k_best_pattern(pattern, genes, nrho, S, rng)
+    slot, rank = slots(torch.as_tensor(kb), nrho)
+    A = G[:, None, :] * E0[:, :, None]                    # (n, C, S)
+    At = np.full((min(genes, nrho), S, R, C), np.nan)
+    for k in range(nrho):
+        for s in range(S):
+            if rank[k, s] >= 0:
+                At[int(rank[k, s]), s] = (Qn[k].T @ A[:, :, s])[:R]
+    arrays = (Sv, WGt, yt, At, W.T @ W, Y @ W, W.T @ G, (G * G).sum(0),
+              Y @ G, np.einsum("ncs,nj->cjs", A, W),
+              np.einsum("ncs,ns->cs", A, G), np.einsum("ncs,gn->gcs", A, Y),
+              np.einsum("ncs,nds->cds", A, A), kb,
+              np.abs(rng.normal(size=(genes, S))) + 0.2,
+              np.abs(rng.normal(size=(genes, S))) + 0.5)
+    return [torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in arrays] + [slot.to(device)]
+
+
 def fit_dataset(seed, p=1, nrho=3, n=80, C=3, donors=8, S=7, device="cpu",
                 rho_grid=None):
     """A small interaction/association problem on ``device``: the port's

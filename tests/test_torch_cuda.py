@@ -25,7 +25,7 @@ import torch
 
 from _torch_inputs import (assert_tails_close, betas_dataset, captured,
                            fit_dataset, kr_inputs, rotate_inputs,
-                           score_inputs, tail_battery)
+                           score_gene_inputs, score_inputs, tail_battery)
 
 CASES = [(C, p) for C in (3, 10, 50) for p in (1, 2)]
 FIT_CASES = [(p, nrho, f32) for p in (1, 2) for nrho in (1, 3, 11)
@@ -792,3 +792,85 @@ def test_localize_product_route_on_card(cuda, p1, f32):
     assert torch.equal(fin, torch.isfinite(lml_all))
     assert float(((x - xp).abs() / xp.abs().clamp(min=1e-300)).max()) <= 1e-9
     assert float(((lml_all - lml_p).abs() / lml_p.abs())[fin].max()) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern,genes,C,p,R", [
+    ("one", 16, 10, 1, 1000), ("distinct", 4, 10, 1, 1000),
+    ("random", 16, 10, 1, 1000), ("one", 3, 50, 31, 300),
+    ("distinct", 3, 50, 31, 300)])
+def test_score_core_kernel_genes_on_slots(cuda, pattern, genes, C, p, R):
+    """K5 with the gene axis at the headline's widths (C = 10, p = 1, R =
+    1000; 64 variants, 4 rho points): 16 genes on one rho, 4 each on its
+    own, 16 drawn; and the wide instantiation (m = 83) on 3 genes.  One
+    launch of the wrapper, each gene at 1e-10 of its plain version."""
+    from cellregmap_tpu_torch.kernels import score_core as k5
+
+    args = score_gene_inputs(genes + C + p, genes, pattern, C=C, p=p,
+                             n=R + 100, R=R, S=64 if C == 10 else 16,
+                             nrho=4, device=cuda)
+    before = k5.launches
+    Q, Wmat = k5.score_core(*args)
+    assert k5.launches == before + 1
+    Qr, Wr = k5.score_core_plain(*args)
+    _close(Q, Qr, 1e-10)
+    _close(Wmat, Wr, 1e-10)
+
+
+def _converge_on_card(call):
+    """One recorded converge call: the kernel (one launch of the wrapper)
+    against its plain version, delta, lml, scale and beta at rel 1e-9."""
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    args, kw = call
+    before = k3.launches
+    got = k3.reml_converge(*args, **kw)
+    assert k3.launches == before + 1
+    for g, w in zip(got, k3.reml_converge_plain(*args, **kw)):
+        assert g.shape == w.shape
+        assert float(((g - w).abs() / w.abs()).max()) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 3, 6, 17])
+def test_converge_kernel_reml_gene_axis(cuda, p):
+    """K3's converge (REML) on a gene-batched interaction batch: 4 genes x
+    64 variants over 5 rho points, R = 183."""
+    from cellregmap_tpu_torch import engine
+
+    ctx, G, n = fit_dataset(400 + p, p=p, nrho=5, n=600, donors=60, S=64,
+                            device=cuda)
+    rng = np.random.default_rng(p)
+    Y = ctx.y[None] + 0.6 * torch.as_tensor(rng.normal(size=(4, n)),
+                                            device=cuda)
+    ctx = ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W, yy=(Y * Y).sum(dim=1))
+    (call,) = captured(lambda: engine.interaction_batch(
+        ctx, G, G, n, delta_cfg=(-18.0, 18.0, 32, 60)),
+        ["reml_converge"])["reml_converge"]
+    assert call[0][5].shape == (4, 64)
+    _converge_on_card(call)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 17])
+def test_converge_kernel_ml_refit(cuda, p):
+    """K7's converge (ML): the refit's Newton steps and its two zero-step
+    fits at the grid's ends, one phenotype at one rho (k_best None), and
+    three genes each at its own rho."""
+    from cellregmap_tpu_torch import engine
+
+    ctx, G, n = fit_dataset(420 + p, p=p, nrho=3, n=600, donors=60, S=64,
+                            device=cuda)
+    calls = captured(lambda: engine.association_refit_batch(
+        ctx, G, 1, n, delta_cfg=(-18.0, 18.0, 64, 60)),
+        ["reml_converge"])["reml_converge"]
+    assert [c[0][10] for c in calls] == [10, 0, 0]
+    rng = np.random.default_rng(p)
+    Y = ctx.y[None] + 0.6 * torch.as_tensor(rng.normal(size=(3, n)),
+                                            device=cuda)
+    ctx = ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W, yy=(Y * Y).sum(dim=1))
+    calls += captured(lambda: engine.association_refit_multigene_batch(
+        ctx, G, np.array([2, 0, 2]), n, delta_cfg=(-18.0, 18.0, 64, 60)),
+        ["reml_converge"])["reml_converge"]
+    for call in calls:
+        _converge_on_card(call)
