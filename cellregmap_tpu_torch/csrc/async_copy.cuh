@@ -1,5 +1,6 @@
 // Small device helpers shared by the kernels: asynchronous global ->
-// shared copies (cp.async) and four-wide shared-memory loads and stores.
+// shared copies (cp.async), four-wide shared-memory loads and stores, and
+// branch-free f64 reciprocals and reciprocal square roots.
 //
 // On the card (__CUDA_ARCH__ defined) each helper is one PTX instruction
 // or one vector access.  The portable body beside it is what a host
@@ -94,4 +95,31 @@ __device__ __forceinline__ void store4(T* p, const T (&v)[4]) {
 #else
   for (int i = 0; i < 4; ++i) p[i] = v[i];
 #endif
+}
+
+// 1 / x and 1 / sqrt(x) for a positive normal x with no branch: the
+// hardware's f64 estimate, then two Newton steps (~1 ulp).  The library's
+// division and square root check for special cases and branch to a slow
+// path, which keeps neighbouring operations from overlapping with them.
+__device__ __forceinline__ double rcp_nr(double x) {
+#ifdef __CUDA_ARCH__
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(x));
+#else
+  double r = (double)(1.0f / (float)x);
+#endif
+  r = fma(r, fma(-x, r, 1.0), r);
+  return fma(r, fma(-x, r, 1.0), r);
+}
+
+__device__ __forceinline__ double rsqrt_nr(double x) {
+#ifdef __CUDA_ARCH__
+  double y;
+  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
+#else
+  double y = (double)(1.0f / __builtin_sqrtf((float)x));
+#endif
+  const double h = 0.5 * x;
+  y = y * fma(-h * y, y, 1.5);
+  return y * fma(-h * y, y, 1.5);
 }

@@ -13,12 +13,11 @@
 //
 // On the card (__CUDA_ARCH__ defined) each is one PTX instruction (nvcc's
 // host pass sees an empty body).  The portable body beside it is what a
-// host compiler sees (the tests'
-// emulator, one host thread a CUDA thread): every lane puts its own
-// fragment registers in a per-warp exchange buffer, the warp meets at
-// __syncwarp, and each lane reads the A rows and B columns that its d
-// entries need by the same layout, so a kernel whose fragment indexing is
-// wrong fails the emulated tests.  (The buffer takes the place of 32
+// host compiler sees (the tests' emulator, a coroutine a CUDA thread):
+// every lane puts its own fragment registers in a per-warp exchange
+// buffer, the warp meets at __syncwarp, and each lane reads the A rows and
+// B columns that its d entries need by the same layout, so a kernel whose
+// fragment indexing is wrong fails the emulated tests.  (The buffer takes the place of 32
 // __shfl_sync calls a product, which the emulator cannot afford.)  Two
 // buffers alternate: a lane writes one only after the whole warp has met
 // once more, so every lane has finished reading it.
@@ -34,14 +33,14 @@ struct Exchange {
 };
 template <int NA, int NB>
 inline Exchange<NA, NB> exchange;
-inline thread_local int phase = 0;
+inline int phase[MAX_WARPS * 32];   // each lane's, by threadIdx.x
 
 // lane's fragments into the warp's buffer; returns the buffer's half
 template <int NA, int NB>
 inline int deposit(const double* a, const double* b) {
   Exchange<NA, NB>& x = exchange<NA, NB>;
-  const int h = phase;
-  phase ^= 1;
+  const int h = phase[threadIdx.x];
+  phase[threadIdx.x] ^= 1;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int i = 0; i < NA; ++i) x.a[h][w][lane][i] = a[i];
   for (int i = 0; i < NB; ++i) x.b[h][w][lane][i] = b[i];

@@ -30,10 +30,35 @@
 // golden-section steps are sequential.  Design: 256-thread blocks, in two
 // instantiations.
 //
-// Narrow (p <= 16): the grid points are spread over the block's 8 warps
-// (lanes over r, an xor-shuffle tree, the (p x p) algebra on every lane);
-// then warp 0 runs the golden section alone, lane 0's objective value
-// deciding each step for the whole warp.
+// Narrow (p <= 16; the association's null fits at p = 1, the aggregate
+// environment's at p = rank[B] + 1, 12 at 10 contexts): every evaluation
+// runs on a whole 256-thread block, on the problem's rows staged in shared
+// memory (resident where the rows and their weights fit in CRM_NF_SMEM_KB,
+// else a two-stage cp.async ring of CRM_NF_CHUNK rows).  A pass over the
+// rows: the weights 1 / d_r a thread a few rows, the packed lower triangle
+// of [X | y]^T diag(w) [X | y] in 2 x 2 (p <= 4) or 4 x 4 register tiles,
+// each tile's rows split over a power-of-two number of row groups, one
+// reduction (xor shuffles within a warp's segment, the warps' partials in
+// shared memory), then the bordered matrix factored on warp 0 (a
+// __syncwarp a column; at p = 1 in registers), as the wide factor does.
+// An evaluation is a chain of dependent steps, so what sets its time is
+// latency, and an f64 logarithm is long: the weights take a branch-free
+// reciprocal (async_copy.cuh's rcp_nr), sum log d_r is one running
+// product a thread with its exponent carried apart (one log a pass, not
+// one a row), the lml's logs are one call on the factoring warp, a lane
+// each (lanes that took them on different paths would take them one
+// after another), its terms added in the reference's order (the lml's
+// profile over delta can be flat to rounding, where the argmax follows
+// the last bits), and while warp 0 factors, the last warp makes the
+// golden section's next point under either decision, so that the
+// decision only selects.  2-3 block barriers a pass.  Three launches:
+// logdet(X^T X) a block a rho point (REML); the grid a block per (tile of
+// at least 8 grid points, rho, gene), or at p = 1 with several genes per
+// (tile of points, rho, tile of up to 16 genes); the golden section and
+// the final fit a block per (rho, gene), every thread keeping the same
+// bracket.  p = 1 makes its weights in the row loop and solves its 2 x 2
+// in registers: against the 2 x 2 tiles' path 0.203 against 0.255 device
+// ms at the headline (scripts/profile_wide_fit.py, H100 80GB HBM3, 700 W).
 //
 // Wide (16 < p <= 128, the aggregate environment at many contexts, where
 // p = rank[W, E] + 1; the card's envelope needs 97): the normal equations
@@ -73,7 +98,13 @@
 // carry a leading gene axis, the eigenvalues, the rotated covariates and
 // their complement (S, Xt, Cxx) are shared.  Each instantiation takes the
 // genes as one more grid axis, so that one call's launches serve every
-// gene: narrow, a block per (rho, gene); wide, the
+// gene: narrow, the grid a block per (tile of grid points, rho, gene),
+// the golden section a block per (rho, gene); at p = 1 (an intercept
+// alone, the usual gene-batched null fit) the grid a block per (tile of
+// points, rho, tile of up to 16 genes), whose pass a point makes each
+// row's weight once for the whole tile (16 genes x 11 rho, R = 1000: the
+// grid 0.141 against 0.311 device ms a gene a block, the same script and
+// card); wide, the
 // logdets of X^T X once per rho (no phenotype enters them), the grid a
 // block per (grid point, rho, gene), the golden section's steps up to
 // NSPLIT blocks per (rho, gene), the final fit a block per (rho, gene).
@@ -90,15 +121,8 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NT = 256;
-constexpr int MAX_GRID = 1024;
 constexpr double INVPHI = 0.6180339887498949;
 constexpr double INVPHI2 = 0.3819660112501051;
-
-// Loops over the covariates run to the compile-time PMAX and skip what lies
-// outside [lo, hi), so the small arrays are indexed statically.
-#define SMALL_FOR(i, lo, hi) \
-  for (int i = 0; i < PMAX; ++i) \
-    if (i >= (lo) && i < (hi))
 
 __device__ __forceinline__ double warp_sum(double v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
@@ -114,29 +138,6 @@ __device__ double logit_at(double lo, double hi, int K, int k) {
                    : hi - step * (double)(K - 1 - k);
 }
 
-// ridge Cholesky of a full symmetric (p x p) matrix given by its lower
-// triangle, in place; returns logdet
-template <int PMAX>
-__device__ double ridge_chol(double (&A)[PMAX][PMAX], int p) {
-  double dmax = 0.0;
-  SMALL_FOR(i, 0, p) dmax = fmax(dmax, fabs(A[i][i]));
-  const double ridge = 1e-12 * fmax(dmax, 1.0);
-  double logdet = 0.0;
-  SMALL_FOR(j, 0, p) {
-    double d = A[j][j] + ridge;
-    SMALL_FOR(k, 0, j) d -= A[j][k] * A[j][k];
-    d = sqrt(d);
-    A[j][j] = d;
-    logdet += log(d);
-    SMALL_FOR(i, j + 1, p) {
-      double v = A[i][j];
-      SMALL_FOR(k, 0, j) v -= A[i][k] * A[j][k];
-      A[i][j] = v / d;
-    }
-  }
-  return 2.0 * logdet;
-}
-
 struct Rho {
   const double* S;    // (R,)
   const double* X;    // (R, p)
@@ -148,172 +149,6 @@ struct Rho {
   bool reml;
   double ld_xx;
 };
-
-// The fit at delta, on every lane of the calling warp: returns the lml and
-// fills beta (p,), scale and rss
-template <int PMAX>
-__device__ double fit_at(const Rho& o, double delta, double* beta,
-                         double& scale, double& rss) {
-  const int lane = threadIdx.x % 32;
-  const int p = o.p;
-  double A[PMAX][PMAX], b[PMAX], yDy = 0.0, logd = 0.0;
-  SMALL_FOR(i, 0, p) {
-    b[i] = 0.0;
-    SMALL_FOR(j, 0, i + 1) A[i][j] = 0.0;
-  }
-  for (int r = lane; r < o.R; r += 32) {
-    const double d = (1.0 - delta) * o.S[r] + delta;
-    const double w = 1.0 / d;
-    const double* x = o.X + (int64_t)r * p;
-    const double yv = o.y[r];
-    SMALL_FOR(i, 0, p) {
-      const double xw = x[i] * w;
-      SMALL_FOR(j, 0, i + 1) A[i][j] += xw * x[j];
-      b[i] += xw * yv;
-    }
-    yDy += yv * yv * w;
-    logd += log(d);
-  }
-  SMALL_FOR(i, 0, p) {
-    SMALL_FOR(j, 0, i + 1)
-      A[i][j] = warp_sum(A[i][j]) + o.Cxx[i * p + j] / delta;
-    b[i] = warp_sum(b[i]) + o.cxy[i] / delta;
-  }
-  yDy = warp_sum(yDy) + o.cyy / delta;
-  const double logdet_d = warp_sum(logd) + (o.n - o.R) * log(delta);
-  const double logdet_a = ridge_chol<PMAX>(A, p);
-  SMALL_FOR(i, 0, p) {
-    double v = b[i];
-    SMALL_FOR(k, 0, i) v -= A[i][k] * beta[k];
-    beta[i] = v / A[i][i];
-  }
-  for (int i = PMAX - 1; i >= 0; --i) {
-    if (i >= p) continue;
-    double v = beta[i];
-    SMALL_FOR(k, i + 1, p) v -= A[k][i] * beta[k];
-    beta[i] = v / A[i][i];
-  }
-  double bb = 0.0;
-  SMALL_FOR(i, 0, p) bb += b[i] * beta[i];
-  rss = fmax(yDy - bb, DBL_MIN);
-  const double two_pi = 6.283185307179586;
-  if (o.reml) {
-    const double nu = o.n - p;
-    scale = rss / nu;
-    return -0.5 * (nu * log(two_pi * scale) + logdet_d + logdet_a - o.ld_xx +
-                   nu);
-  }
-  scale = rss / o.n;
-  return -0.5 * (o.n * log(two_pi * scale) + logdet_d + o.n);
-}
-
-// the objective at logit x, lane 0's value on every lane
-template <int PMAX>
-__device__ double objective(const Rho& o, double x) {
-  double beta[PMAX], scale, rss;
-  const double v = fit_at<PMAX>(o, sigmoid(x), beta, scale, rss);
-  return __shfl_sync(FULL, v, 0);
-}
-
-template <int PMAX>
-__global__ void __launch_bounds__(NT)
-null_fit_kernel(const double* __restrict__ Sv, const double* __restrict__ Xt,
-                const double* __restrict__ yt, const double* __restrict__ Cxx,
-                const double* __restrict__ cxy,
-                const double* __restrict__ cyy, double* __restrict__ lml_out,
-                double* __restrict__ delta_out, double* __restrict__ beta_out,
-                double* __restrict__ scale_out, double* __restrict__ v0_out,
-                double* __restrict__ v1_out, double* __restrict__ rss_out,
-                double lo, double hi, int n_grid, int n_iters, int n, int R,
-                int p, int reml) {
-  __shared__ double vals[MAX_GRID];
-  __shared__ double ld_sh;
-  const int ro = blockIdx.x;
-  // the phenotype's problem (gene, rho): its operands and its fit
-  const int64_t gr = (int64_t)blockIdx.y * gridDim.x + ro;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  Rho o;
-  o.S = Sv + (int64_t)ro * R;
-  o.X = Xt + (int64_t)ro * R * p;
-  o.y = yt + gr * R;
-  o.Cxx = Cxx + (int64_t)ro * p * p;
-  o.cxy = cxy + gr * p;
-  o.cyy = cyy[gr];
-  o.R = R;
-  o.p = p;
-  o.n = n;
-  o.reml = reml != 0;
-  o.ld_xx = 0.0;
-
-  // logdet(Xt^T Xt + Cxx): delta-independent (REML only)
-  if (o.reml && warp == 0) {
-    double G[PMAX][PMAX];
-    SMALL_FOR(i, 0, p) SMALL_FOR(j, 0, i + 1) G[i][j] = 0.0;
-    for (int r = lane; r < R; r += 32) {
-      const double* x = o.X + (int64_t)r * p;
-      SMALL_FOR(i, 0, p) SMALL_FOR(j, 0, i + 1) G[i][j] += x[i] * x[j];
-    }
-    SMALL_FOR(i, 0, p)
-    SMALL_FOR(j, 0, i + 1) G[i][j] = warp_sum(G[i][j]) + o.Cxx[i * p + j];
-    const double ld = ridge_chol<PMAX>(G, p);
-    if (lane == 0) ld_sh = ld;
-  }
-  __syncthreads();
-  if (o.reml) o.ld_xx = ld_sh;
-
-  // the grid, spread over the warps
-  for (int k = warp; k < n_grid; k += NT / 32) {
-    const double v = objective<PMAX>(o, logit_at(lo, hi, n_grid, k));
-    if (lane == 0) vals[k] = v;
-  }
-  __syncthreads();
-  if (warp != 0) return;
-
-  // argmax (a NaN wins and stops the scan, as torch's and jnp's argmax)
-  int kb = 0;
-  double best = vals[0];
-  for (int k = 1; k < n_grid && !isnan(best); ++k) {
-    const double v = vals[k];
-    if (isnan(v) || v > best) {
-      best = v;
-      kb = k;
-    }
-  }
-  double a = logit_at(lo, hi, n_grid, max(kb - 1, 0));
-  double b = logit_at(lo, hi, n_grid, min(kb + 1, n_grid - 1));
-
-  // golden section (models/lmm.py `_golden`)
-  double h = b - a;
-  double x1 = a + INVPHI2 * h, x2 = a + INVPHI * h;
-  double f1 = objective<PMAX>(o, x1), f2 = objective<PMAX>(o, x2);
-  for (int it = 0; it < n_iters; ++it) {
-    const bool left = f1 > f2;
-    a = left ? a : x1;
-    b = left ? x2 : b;
-    h = b - a;
-    const double x1n = left ? a + INVPHI2 * h : x2;
-    const double x2n = left ? x1 : a + INVPHI * h;
-    const double fe = objective<PMAX>(o, left ? x1n : x2n);
-    const double f1n = left ? fe : f2;
-    f2 = left ? f1 : fe;
-    f1 = f1n;
-    x1 = x1n;
-    x2 = x2n;
-  }
-  const double delta = sigmoid(f1 > f2 ? x1 : x2);
-
-  double beta[PMAX], scale, rss;
-  const double lml = fit_at<PMAX>(o, delta, beta, scale, rss);
-  if (lane == 0) {
-    lml_out[gr] = lml;
-    delta_out[gr] = delta;
-    SMALL_FOR(i, 0, p) beta_out[gr * p + i] = beta[i];
-    scale_out[gr] = scale;
-    v0_out[gr] = scale * (1 - delta);
-    v1_out[gr] = scale * delta;
-    rss_out[gr] = rss;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // wide instantiation: 16 < p <= 128, every evaluation a tensor-core product
@@ -404,22 +239,6 @@ __device__ Owned<TMAX> owned_entries(const WideGeom& s) {
   }
   return ow;
 }
-
-#ifdef NULL_FIT_CLOCKS
-// scripts/profile_wide_fit.py's build: clock64 sections of block (0, 0,
-// 0)'s golden-section steps, summed: the previous point's factorization
-// (its partial sums gathered), this point's partial sums
-__device__ unsigned long long nf_clocks[2];
-#define NF_CLOCK(k)                                                      \
-  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&         \
-      blockIdx.z == 0) {                                                 \
-    const long long now = clock64();                                     \
-    atomicAdd(&nf_clocks[k], (unsigned long long)(now - nf_t0));         \
-    nf_t0 = now;                                                         \
-  }
-#else
-#define NF_CLOCK(k)
-#endif
 
 struct WideSh {
   double red[2][NW];   // the warps' partial sums of log d, max |diag|
@@ -693,7 +512,7 @@ __device__ double wide_eval(const Rho& o, const WideGeom& gm,
 
 // the operands of rho point ro and phenotype problem gr = gene nrho + ro
 // (logdet(X^T X) left at 0)
-__device__ Rho wide_rho(const double* Sv, const double* Xt, const double* yt,
+__device__ Rho rho_of(const double* Sv, const double* Xt, const double* yt,
                         const double* Cxx, const double* cxy,
                         const double* cyy, int ro, int64_t gr, int n, int R,
                         int p, int reml) {
@@ -735,7 +554,7 @@ null_fit_wide_ldxx_kernel(const double* __restrict__ Sv,
   double* sm = reinterpret_cast<double*>(nf_ldxx_dyn);
   const WideGeom gm = wide_geom(p);
   // gene 0's phenotype: the Gram pass reads no phenotype sum
-  const Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, blockIdx.x, blockIdx.x,
+  const Rho o = rho_of(Sv, Xt, yt, Cxx, cxy, cyy, blockIdx.x, blockIdx.x,
                          n, R, p, 1);
   double scale, rss;
   const double ld =
@@ -763,7 +582,7 @@ null_fit_wide_grid_kernel(const double* __restrict__ Sv,
   const WideGeom gm = wide_geom(p);
   const int k = blockIdx.x, ro = blockIdx.y;
   const int64_t gr = (int64_t)blockIdx.z * gridDim.y + ro;
-  Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, ro, gr, n, R, p, reml);
+  Rho o = rho_of(Sv, Xt, yt, Cxx, cxy, cyy, ro, gr, n, R, p, reml);
   if (o.reml) o.ld_xx = ldxx[ro];
   double scale, rss;
   const double v = wide_eval<TMAX>(
@@ -806,7 +625,7 @@ null_fit_golden_step_kernel(const double* __restrict__ Sv,
   const int nrho = gridDim.y;
   const int64_t gr = (int64_t)blockIdx.z * nrho + ro;
   const int64_t problems = (int64_t)gridDim.z * nrho;
-  Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, ro, gr, n, R, p, reml);
+  Rho o = rho_of(Sv, Xt, yt, Cxx, cxy, cyy, ro, gr, n, R, p, reml);
   if (o.reml) o.ld_xx = ldxx[ro];
   const int nsum = npack_of(gm) + 1;                  // the sums, log d
   const int64_t pstride = (int64_t)nsplit * nsum;     // a problem's
@@ -814,9 +633,6 @@ null_fit_golden_step_kernel(const double* __restrict__ Sv,
   const double* st_prev =
       state + (((step + 1) & 1) * problems + gr) * NSTATE;
   double* st_now = state + ((step & 1) * problems + gr) * NSTATE;
-#ifdef NULL_FIT_CLOCKS
-  long long nf_t0 = clock64();
-#endif
 
   double a, b, x1, x2, f1 = 0.0, f2 = 0.0, x1n = 0.0, x2n = 0.0, x;
   bool left = false;
@@ -884,7 +700,6 @@ null_fit_golden_step_kernel(const double* __restrict__ Sv,
       }
     }
   }
-  NF_CLOCK(0)
   const double dl = sigmoid(x);
   if (split == 0 && threadIdx.x == 0) {
     const double vs[NSTATE] = {a,   b,   x1,  x2,           f1,
@@ -897,7 +712,6 @@ null_fit_golden_step_kernel(const double* __restrict__ Sv,
   const double logd = wide_sums<TMAX>(o, gm, warp_tiles<TMAX>(gm), dl, false,
                                       r0, r1, sm, sh, part_now + split * nsum);
   if (threadIdx.x == 0) part_now[split * nsum + nsum - 1] = logd;
-  NF_CLOCK(1)
 }
 
 // the final fit at the last step's point, from its partial sums
@@ -926,7 +740,7 @@ null_fit_final_kernel(const double* __restrict__ Sv,
   const int ro = blockIdx.x;
   const int64_t gr = (int64_t)blockIdx.y * gridDim.x + ro;
   const int64_t problems = (int64_t)gridDim.y * gridDim.x;
-  Rho o = wide_rho(Sv, Xt, yt, Cxx, cxy, cyy, ro, gr, n, R, p, reml);
+  Rho o = rho_of(Sv, Xt, yt, Cxx, cxy, cyy, ro, gr, n, R, p, reml);
   if (o.reml) o.ld_xx = ldxx[ro];
   const int nsum = npack_of(gm) + 1;
   const double* pp = part + ((last & 1) * problems + gr) * nsplit * nsum;
@@ -1029,12 +843,841 @@ int launch_wide(const double* Sv, const double* Xt, const double* yt,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// narrow instantiation: p <= 16, every evaluation on the whole block
+// ---------------------------------------------------------------------------
+// Resident rows: a (rho, gene) problem's rows are staged once, in shared
+// memory, when they fit in CRM_NF_SMEM_KB; else every evaluation streams
+// them in chunks of CRM_NF_CHUNK rows through a two-stage cp.async ring.
+#ifndef CRM_NF_SMEM_KB
+#define CRM_NF_SMEM_KB 200
+#endif
+#ifndef CRM_NF_CHUNK
+#define CRM_NF_CHUNK 128
+#endif
+// genes a block of the gene-tiled grid (p = 1), at most
+#ifndef CRM_NF_GENE_TILE
+#define CRM_NF_GENE_TILE 16
+#endif
+constexpr int NMAX = 16;                   // p of the narrow kernels
+constexpr int NQ = NMAX + 1;               // columns [X | y]
+constexpr int NTRI = NQ * (NQ + 1) / 2;    // the bordered matrix's triangle
+constexpr int NPART = 256;                 // the tiles' partial sums
+
+// The shapes of one evaluation at p covariates and R rows: the lower
+// triangle of the (q x q) sums of [X | y], q = p + 1, in ts x ts tiles (2
+// up to p = 4, else 4), a tile's rows split over ng row groups (a power of
+// two, tile-major: a warp's lanes are one tile's groups, reduced by xor
+// shuffles, or 32 / ng tiles' aligned segments of groups); a staged row
+// is [X | y | zeros | S], ldr = qt ts + 1 doubles (odd: consecutive rows
+// fall in distinct banks).
+struct NarrowGeom {
+  int q, ts, qt, ntiles, ng, nsub, ldr;
+  bool resident;
+};
+
+__host__ __device__ inline NarrowGeom narrow_geom(int p, int R) {
+  NarrowGeom g;
+  g.q = p + 1;
+  g.ts = p <= 4 ? 2 : 4;
+  g.qt = (g.q + g.ts - 1) / g.ts;
+  g.ntiles = g.qt * (g.qt + 1) / 2;
+  g.ng = 1;
+  while (2 * g.ng * g.ntiles <= NT) g.ng *= 2;
+  g.nsub = g.ng > 32 ? g.ng / 32 : 1;
+  g.ldr = g.qt * g.ts + 1;
+  g.resident = (int64_t)R * (g.ldr + 1) * 8 <= (int64_t)CRM_NF_SMEM_KB * 1024;
+  return g;
+}
+
+// doubles of dynamic shared memory: the rows and their weights, resident
+// or two chunks and one chunk's weights
+__host__ __device__ inline int narrow_smem_doubles(const NarrowGeom& g,
+                                                   int R) {
+  return g.resident ? R * (g.ldr + 1)
+                    : (2 * g.ldr + 1) * CRM_NF_CHUNK;
+}
+
+constexpr double LN2 = 0.6931471805599453;
+
+struct NarrowSh {
+  double part[NPART];            // the tiles' sums, per warp of groups
+  double M[NQ * NQ];             // the bordered matrix (leading dim. q)
+  double cxx[NMAX * NMAX], cxy[NMAX], cyy;   // the complements
+  double red[NT / 32][2];        // the warps' products of d: mantissa,
+                                 // exponent
+  double val[3];                 // lml (or logdet), scale, rss
+  double spec[2][6];             // the golden section's next point, per
+                                 // decision: a, b, x1n, x2n, x, delta
+  double beta[NMAX];
+  int tri[NTRI];                 // the triangle's (i << 8 | k), by column
+};
+
+// rows [r0, r1) of the problem into st ([X | y | zeros | S] a row), by
+// cp.async; the caller commits
+__device__ void narrow_stage(const Rho& o, const NarrowGeom& g, int r0,
+                             int r1, double* st) {
+  const int cnt = (r1 - r0) * g.ldr;
+  for (int f = threadIdx.x; f < cnt; f += NT) {
+    const int r = f / g.ldr, c = f - r * g.ldr, row = r0 + r;
+    if (c < o.p)
+      cp_async8(st + f, o.X + (int64_t)row * o.p + c);
+    else if (c == o.p)
+      cp_async8(st + f, o.y + row);
+    else if (c == g.ldr - 1)
+      cp_async8(st + f, o.S + row);
+    else
+      st[f] = 0.0;
+  }
+}
+
+// Once a block: the triangle's entries in column order, the complements
+// in shared memory, and the resident rows staged.  Ends in step.
+__device__ void narrow_setup(const Rho& o, const NarrowGeom& g, double* dyn,
+                             NarrowSh& sh) {
+  const int tid = threadIdx.x, p = o.p, q = g.q;
+  for (int f = tid; f < q * (q + 1) / 2; f += NT) {
+    int k = 0, off = 0;
+    while (f >= off + q - k) off += q - k++;
+    sh.tri[f] = (k + f - off) << 8 | k;
+  }
+  for (int f = tid; f < p * p; f += NT) sh.cxx[f] = o.Cxx[f];
+  for (int f = tid; f < p; f += NT) sh.cxy[f] = o.cxy[f];
+  if (tid == 0) sh.cyy = o.cyy;
+  if (g.resident) {
+    narrow_stage(o, g, 0, o.R, dyn);
+    cp_async_commit();
+    cp_async_wait_all();
+  }
+  __syncthreads();
+}
+
+// m * 2^e with m brought back to [1, 2), e growing by its exponent: the
+// d_r's running product, whose log is taken once a pass (a log a row, or
+// a thread, would sit on the pass's path); a zero, infinite or NaN m
+// makes e NaN
+__device__ __forceinline__ void renorm(double& m, double& e) {
+  const long long bits = __double_as_longlong(m);
+  const long long ex = ((bits >> 52) & 0x7ff) - 1023;
+  m = __longlong_as_double((bits & 0x800fffffffffffffLL) | (1023LL << 52));
+  e += (ex == 1024 || ex == -1023) ? __longlong_as_double(0x7ff8000000000000LL)
+                                   : (double)ex;
+}
+
+// d into the running product (m, e), renormalized every 8 factors
+__device__ __forceinline__ void log_factor(double d, double& m, double& e,
+                                           int& n) {
+  m *= d;
+  if (++n == 8) {
+    renorm(m, e);
+    n = 0;
+  }
+}
+
+// The sums of nrows staged rows st with weights wv into the thread's tile
+// accumulators (a tile's row group).
+template <int TS>
+__device__ void narrow_rows(const double* st, const double* wv, int nrows,
+                            const NarrowGeom& g, int tile_a, int tile_b,
+                            int grp, double (&acc)[TS * TS]) {
+  const int ldr = g.ldr;
+  const double* xi = st + tile_a * TS;
+  const double* xj = st + tile_b * TS;
+#pragma unroll 2
+  for (int r = grp; r < nrows; r += g.ng) {
+    const double w = wv[r];
+    double u[TS], v[TS];
+#pragma unroll
+    for (int e = 0; e < TS; ++e) {
+      u[e] = xi[r * ldr + e] * w;
+      v[e] = xj[r * ldr + e];
+    }
+#pragma unroll
+    for (int e = 0; e < TS; ++e)
+#pragma unroll
+      for (int f = 0; f < TS; ++f) acc[e * TS + f] += u[e] * v[f];
+  }
+}
+
+// p = 1 (one 2 x 2 tile, rows over every thread): the weights made in the
+// row loop
+__device__ void narrow_rows1(const double* st, int nrows, double delta,
+                             bool gram, double (&acc)[4], double& pm,
+                             double& pe, int& nprod) {
+#pragma unroll 4
+  for (int r = threadIdx.x; r < nrows; r += NT) {
+    const double x = st[r * 3], y = st[r * 3 + 1], s = st[r * 3 + 2];
+    const double d = (1.0 - delta) * s + delta;
+    const double w = gram ? 1.0 : rcp_nr(d);
+    const double u0 = x * w, u1 = y * w;
+    acc[0] += u0 * x;
+    acc[1] += u0 * y;
+    acc[2] += u1 * x;
+    acc[3] += u1 * y;
+    log_factor(d, pm, pe, nprod);
+  }
+}
+
+// the weights w_r = 1 / d_r of nrows staged rows into wv (1 where gram),
+// d_r into the running product, rows over every thread
+__device__ void narrow_weights(const double* st, int nrows, int ldr,
+                               double delta, bool gram, double* wv,
+                               double& pm, double& pe, int& nprod) {
+#pragma unroll 4
+  for (int r = threadIdx.x; r < nrows; r += NT) {
+    const double d = (1.0 - delta) * st[r * ldr + ldr - 1] + delta;
+    wv[r] = gram ? 1.0 : rcp_nr(d);
+    log_factor(d, pm, pe, nprod);
+  }
+}
+
+// The lml from logdet A's pivots (`pivot`: lane l's own, l < p), the
+// residual rss and the warps' products of d, on warp 0; the value on lane
+// 0.  Its logs are one call, a lane each and all at once (lanes of one
+// warp that called log on different paths would take them one after
+// another): lanes 0..p-1 the pivots (REML or gram), lane p log(2 pi
+// scale), lane p + 1 log d's mantissa (its exponent added), lane p + 2 log
+// delta; then the terms are added in the reference's order
+// (models/lmm.py `lml_at_delta_eig`), so that on a flat profile the two
+// round alike.  mode 0 (gram): logdet A alone.
+__device__ __forceinline__ double narrow_lml(const Rho& o, int p, bool gram,
+                                             double pivot, double rs,
+                                             double delta,
+                                             const NarrowSh& sh) {
+  const int lane = threadIdx.x % 32;
+  const double nn = o.reml ? o.n - p : o.n;
+  double arg = 1.0, add = 0.0;
+  if (lane < p)
+    arg = pivot > 0 ? pivot : -1.0;   // NaN where not positive, as the
+                                      // JAX engine's Cholesky
+  else if (lane == p)
+    arg = 6.283185307179586 * (rs / nn);
+  else if (lane == p + 1) {
+    double m = 1.0, e = 0.0;
+    for (int w = 0; w < NT / 32; ++w) {
+      m *= sh.red[w][0];
+      e += sh.red[w][1];
+    }
+    arg = m;
+    add = e * LN2;
+  } else if (lane == p + 2) {
+    arg = delta;
+  }
+  const double v = log(arg) + add;
+  double la = lane < p ? v : 0.0;
+  for (int off = 1; off < p; off <<= 1) la += __shfl_xor_sync(FULL, la, off);
+  const double l2pi = __shfl_sync(FULL, v, p);
+  const double logd = __shfl_sync(FULL, v, p + 1);
+  const double ldel = __shfl_sync(FULL, v, p + 2);
+  if (gram) return la;
+  const double logdet_d = logd + (o.n - o.R) * ldel;
+  return o.reml ? -0.5 * (nn * l2pi + logdet_d + la - o.ld_xx + nn)
+                : -0.5 * (nn * l2pi + logdet_d + nn);
+}
+
+// p = 1, warp 0: the 2 x 2 bordered matrix [[A + ridge, b], [b, yDy]] from
+// tile 0's partial sums and the complements (over delta; as they are
+// where gram), solved in registers on every lane.  Lane 0 writes the lml
+// (mode 0: logdet A), scale and rss to sh.val, and beta to sh.beta in
+// mode 2.
+__device__ void narrow_finish1(const Rho& o, const NarrowGeom& g,
+                               double delta, double invd, int mode,
+                               NarrowSh& sh) {
+  const bool gram = mode == 0;
+  double A = 0.0, b = 0.0, c = 0.0;
+  for (int s = 0; s < g.nsub; ++s) {
+    A += sh.part[s * 4];
+    b += sh.part[s * 4 + 2];
+    c += sh.part[s * 4 + 3];
+  }
+  A += gram ? sh.cxx[0] : sh.cxx[0] * invd;
+  b += gram ? sh.cxy[0] : sh.cxy[0] * invd;
+  c += gram ? sh.cyy : sh.cyy * invd;
+  // the ridge (sym_pseudo_solve_and_logdet's)
+  const double D = A + 1e-12 * fmax(fabs(A), 1.0);
+  const double rss_raw = c - b * (1.0 / D) * b;
+  const double rs = rss_raw < DBL_MIN ? DBL_MIN : rss_raw;   // keeps NaN
+  const double lml = narrow_lml(o, 1, gram, D, rs, delta, sh);
+  if (threadIdx.x == 0) {
+    sh.val[0] = lml;
+    sh.val[1] = rs / (o.reml ? o.n - 1 : o.n);
+    sh.val[2] = rs;
+    if (mode == 2) sh.beta[0] = b / D;
+  }
+}
+
+// Warp 0 (p > 1): the bordered matrix [[A + ridge, b], [b^T, yDy]] from
+// the tiles' partial sums and the complements (over delta; as they are
+// where gram), factored right-looking in shared memory (a __syncwarp a
+// column): the first p pivots give logdet A, the last the residual rss =
+// yDy - b^T A^{-1} b.  Writes the lml (mode 0: logdet(X^T X + Cxx)),
+// scale and rss to sh.val, and beta to sh.beta in mode 2.
+template <int TS>
+__device__ void narrow_finish(const Rho& o, const NarrowGeom& g,
+                              double delta, double invd, int mode,
+                              NarrowSh& sh) {
+  const int lane = threadIdx.x % 32, p = o.p, q = g.q;
+  const int ntri = q * (q + 1) / 2;
+  const bool gram = mode == 0;
+  double dmax = 0.0;
+  for (int f = lane; f < ntri; f += 32) {
+    const int c = sh.tri[f], i = c >> 8, k = c & 0xff;
+    const int a = i / TS, b = k / TS;
+    const double* pt =
+        sh.part + ((a * (a + 1) / 2 + b) * g.nsub) * TS * TS +
+        (i - a * TS) * TS + (k - b * TS);
+    double v = 0.0;
+    for (int s = 0; s < g.nsub; ++s) v += pt[s * TS * TS];
+    const double c0 = i < p ? sh.cxx[i * p + k] : k < p ? sh.cxy[k] : sh.cyy;
+    v += gram ? c0 : c0 * invd;
+    sh.M[i * q + k] = v;
+    if (i == k && i < p) dmax = fmax(dmax, fabs(v));
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    dmax = fmax(dmax, __shfl_xor_sync(FULL, dmax, off));
+  __syncwarp();
+  // the ridge (sym_pseudo_solve_and_logdet's) on A's diagonal
+  if (lane < p) sh.M[lane * q + lane] += 1e-12 * fmax(dmax, 1.0);
+  __syncwarp();
+  int off = 0;
+  for (int j = 0; j < q - 1; ++j) {
+    off += q - j;          // the entries of columns 0..j
+    const double rd = 1.0 / sh.M[j * q + j];
+    for (int f = off + lane; f < ntri; f += 32) {
+      const int c = sh.tri[f], i = c >> 8, k = c & 0xff;
+      sh.M[i * q + k] -= sh.M[i * q + j] * rd * sh.M[k * q + j];
+    }
+    __syncwarp();
+  }
+  const double rss_raw = sh.M[p * q + p];
+  const double rs = rss_raw < DBL_MIN ? DBL_MIN : rss_raw;   // keeps NaN
+  const double lml = narrow_lml(
+      o, p, gram, lane < p ? sh.M[lane * q + lane] : 0.0, rs, delta, sh);
+  if (lane == 0) {
+    sh.val[0] = lml;
+    sh.val[1] = rs / (o.reml ? o.n - p : o.n);
+    sh.val[2] = rs;
+    // beta = L^{-T} (D^{-1} L^{-1} b) by a back substitution (L[i][j] =
+    // M[i][j] / D_j, L^{-1} b = M[p][:p])
+    if (mode == 2) {
+      for (int j = p - 1; j >= 0; --j) {
+        const double dj = sh.M[j * q + j];
+        double v = sh.M[p * q + j] / dj;
+        for (int k = j + 1; k < p; ++k) v -= sh.M[k * q + j] / dj * sh.beta[k];
+        sh.beta[j] = v;
+      }
+    }
+  }
+}
+
+// One evaluation at delta on the whole block: the weights (a thread a few
+// rows; the d_r's running product for sum log d_r), the sums of the packed
+// triangle in tiles (a thread a tile's row group), one reduction (xor
+// shuffles, then the warps' partials in shared memory), the factorization
+// on warp 0 (p = 1: in registers).  mode 0: logdet(X^T X + Cxx); 1: the
+// lml; 2: the lml, scale, rss and beta (sh.beta).  `side()` runs on the
+// last warp's lane 0 while warp 0 factors.  Returns the same value on
+// every thread; starts and ends with the block in step.
+template <int TS, class Side = void (*)()>
+__device__ double narrow_eval(const Rho& o, const NarrowGeom& g,
+                              double delta, int mode, double* dyn,
+                              NarrowSh& sh, double& scale, double& rss,
+                              const Side& side = [] {}) {
+  const int tid = threadIdx.x, warp = tid / 32;
+  const bool gram = mode == 0;
+  const bool fused = g.ntiles == 1;   // p = 1: rows over every thread
+  const double invd = 1.0 / delta;    // off the factorization's path
+  const int tile = tid / g.ng, grp = tid - tile * g.ng;
+  int ta = 0;
+  while ((ta + 1) * (ta + 2) / 2 <= tile) ++ta;
+  const int tb = tile - ta * (ta + 1) / 2;
+  const bool active = tile < g.ntiles;
+  double acc[TS * TS];
+#pragma unroll
+  for (int e = 0; e < TS * TS; ++e) acc[e] = 0.0;
+  double pm = 1.0, pe = 0.0;
+  int nprod = 0;
+  // the rows staged at st
+  auto rows = [&](const double* st, double* wv, int nrows) {
+    if constexpr (TS == 2) {
+      if (fused) {
+        narrow_rows1(st, nrows, delta, gram, acc, pm, pe, nprod);
+        return;
+      }
+    }
+    narrow_weights(st, nrows, g.ldr, delta, gram, wv, pm, pe, nprod);
+    __syncthreads();
+    if (active) narrow_rows<TS>(st, wv, nrows, g, ta, tb, grp, acc);
+  };
+  if (g.resident) {
+    rows(dyn, dyn + o.R * g.ldr, o.R);
+  } else {
+    // chunks through a two-stage cp.async ring
+    constexpr int CH = CRM_NF_CHUNK;
+    double* buf[2] = {dyn, dyn + CH * g.ldr};
+    double* wv = dyn + 2 * CH * g.ldr;
+    const int nch = (o.R + CH - 1) / CH;
+    narrow_stage(o, g, 0, min(o.R, CH), buf[0]);
+    cp_async_commit();
+    for (int c = 0; c < nch; ++c) {
+      const int r0 = c * CH, r1 = min(o.R, r0 + CH);
+      if (c + 1 < nch) narrow_stage(o, g, r1, min(o.R, r1 + CH), buf[~c & 1]);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      rows(buf[c & 1], wv, r1 - r0);
+      __syncthreads();
+    }
+  }
+  // the tile's row groups (xor shuffles within their segment of the warp)
+  // and the warp's product of d (mantissas in [1, 2): 32 of them stay in
+  // range), side by side
+  renorm(pm, pe);
+  const int seg = g.ng < 32 ? g.ng : 32;
+  for (int off = 16; off > 0; off >>= 1) {
+    if (off < seg) {
+#pragma unroll
+      for (int e = 0; e < TS * TS; ++e)
+        acc[e] += __shfl_xor_sync(FULL, acc[e], off);
+    }
+    pm *= __shfl_xor_sync(FULL, pm, off);
+    pe += __shfl_xor_sync(FULL, pe, off);
+  }
+  if (active && (grp & 31) == 0) {
+#pragma unroll
+    for (int e = 0; e < TS * TS; ++e)
+      sh.part[(tile * g.nsub + grp / 32) * TS * TS + e] = acc[e];
+  }
+  if (tid % 32 == 0) {
+    renorm(pm, pe);
+    sh.red[warp][0] = pm;
+    sh.red[warp][1] = pe;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    if (fused)
+      narrow_finish1(o, g, delta, invd, mode, sh);
+    else
+      narrow_finish<TS>(o, g, delta, invd, mode, sh);
+  }
+  if (tid == 32 * (NT / 32 - 1)) side();   // the last warp's lane 0
+  __syncthreads();
+  scale = sh.val[1];
+  rss = sh.val[2];
+  return sh.val[0];
+}
+
+// logdet(Xt^T Xt + Cxx) of each rho point (delta-independent; REML), a
+// block a rho point
+template <int TS>
+__global__ void __launch_bounds__(NT)
+null_fit_narrow_ldxx_kernel(const double* __restrict__ Sv,
+                            const double* __restrict__ Xt,
+                            const double* __restrict__ yt,
+                            const double* __restrict__ Cxx,
+                            const double* __restrict__ cxy,
+                            const double* __restrict__ cyy,
+                            double* __restrict__ ldxx, int n, int R, int p) {
+  extern __shared__ __align__(16) unsigned char nf_nldxx_dyn[];
+  __shared__ NarrowSh sh;
+  double* dyn = reinterpret_cast<double*>(nf_nldxx_dyn);
+  const NarrowGeom g = narrow_geom(p, R);
+  // gene 0's phenotype: the Gram pass reads no phenotype sum
+  const Rho o = rho_of(Sv, Xt, yt, Cxx, cxy, cyy, blockIdx.x, blockIdx.x, n,
+                       R, p, 1);
+  narrow_setup(o, g, dyn, sh);
+  double scale, rss;
+  const double ld = narrow_eval<TS>(o, g, 0.5, 0, dyn, sh, scale, rss);
+  if (threadIdx.x == 0) ldxx[blockIdx.x] = ld;
+}
+
+// the objective at the grid points of tile blockIdx.x (gpb points a tile)
+// of rho point blockIdx.y, gene blockIdx.z, one after another on the
+// staged rows (eight points a pass, each factored by a warp of its own,
+// measured slower at p = 1: scripts/profile_wide_fit.py).  Its passes are
+// latency-bound, so at p <= 4 the registers are held to 64 for four
+// blocks an SM (16% off the 16 genes' grid; at p = 12 the spills cost
+// more than the blocks gain)
+template <int TS>
+__global__ void __launch_bounds__(NT, TS == 2 ? 4 : 1)
+null_fit_narrow_grid_kernel(const double* __restrict__ Sv,
+                            const double* __restrict__ Xt,
+                            const double* __restrict__ yt,
+                            const double* __restrict__ Cxx,
+                            const double* __restrict__ cxy,
+                            const double* __restrict__ cyy,
+                            const double* __restrict__ ldxx,
+                            double* __restrict__ vals, double lo, double hi,
+                            int n_grid, int gpb, int n, int R, int p,
+                            int reml) {
+  extern __shared__ __align__(16) unsigned char nf_ngrid_dyn[];
+  __shared__ NarrowSh sh;
+  double* dyn = reinterpret_cast<double*>(nf_ngrid_dyn);
+  const NarrowGeom g = narrow_geom(p, R);
+  const int ro = blockIdx.y;
+  const int64_t gr = (int64_t)blockIdx.z * gridDim.y + ro;
+  Rho o = rho_of(Sv, Xt, yt, Cxx, cxy, cyy, ro, gr, n, R, p, reml);
+  if (o.reml) o.ld_xx = ldxx[ro];
+  narrow_setup(o, g, dyn, sh);
+  const int k0 = blockIdx.x * gpb, k1 = min(n_grid, k0 + gpb);
+  for (int k = k0; k < k1; ++k) {
+    double scale, rss;
+    const double v = narrow_eval<TS>(
+        o, g, sigmoid(logit_at(lo, hi, n_grid, k)), 1, dyn, sh, scale, rss);
+    if (threadIdx.x == 0) vals[gr * n_grid + k] = v;
+  }
+}
+
+// The grid of a tile of genes at p = 1 (the gene-batched association null
+// fits, an intercept alone): the grid points of tile blockIdx.x of rho
+// point blockIdx.y for genes [blockIdx.z gt, + gt), one pass over the rows
+// a point for all of the tile's genes.  The weights, sum log d_r and
+// x^T W x depend on delta alone, so a row's weight is made once and feeds
+// each gene's two sums (x^T W y_g, y_g^T W y_g); one reduction of the
+// tile's 2 gt + 1 sums, then lane g of warp 0 finishes gene g's lml as
+// the per-gene path's p = 1 does (the same sums in the same order: the
+// same values).  The rows x, S and the tile's phenotypes stay resident.
+// The partial sums are double-buffered by the point's parity: one block
+// barrier a point.
+constexpr int GTMAX = CRM_NF_GENE_TILE;
+
+__global__ void __launch_bounds__(NT)
+null_fit_narrow_grid_genes_kernel(const double* __restrict__ Sv,
+                                  const double* __restrict__ Xt,
+                                  const double* __restrict__ yt,
+                                  const double* __restrict__ Cxx,
+                                  const double* __restrict__ cxy,
+                                  const double* __restrict__ cyy,
+                                  const double* __restrict__ ldxx,
+                                  double* __restrict__ vals, double lo,
+                                  double hi, int n_grid, int gpb, int n,
+                                  int R, int gt, int genes, int reml) {
+  extern __shared__ __align__(16) unsigned char nf_ngenes_dyn[];
+  __shared__ double part[2][NT / 32][2 * GTMAX + 1];
+  __shared__ double red[2][NT / 32][2];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int ro = blockIdx.y, nrho = gridDim.y;
+  const int g0 = blockIdx.z * gt, ng = min(gt, genes - g0);
+  double* sx = reinterpret_cast<double*>(nf_ngenes_dyn);   // x (R)
+  double* ss = sx + R;                                      // S (R)
+  double* sy = ss + R;                                      // y (ng, R)
+  for (int r = tid; r < R; r += NT) {
+    cp_async8(sx + r, Xt + (int64_t)ro * R + r);
+    cp_async8(ss + r, Sv + (int64_t)ro * R + r);
+  }
+  for (int f = tid; f < ng * R; f += NT) {
+    const int g = f / R, r = f - g * R;
+    cp_async8(sy + f, yt + ((int64_t)(g0 + g) * nrho + ro) * R + r);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  // lane g of warp 0: gene g0 + g's complements
+  const int64_t gr = (int64_t)(g0 + min(lane, ng - 1)) * nrho + ro;
+  const double cxx0 = Cxx[ro], cxy0 = cxy[gr], cyy0 = cyy[gr];
+  const double ld_xx = reml ? ldxx[ro] : 0.0;
+  const double nn = reml ? n - 1 : n;
+
+  const int k0 = blockIdx.x * gpb, k1 = min(n_grid, k0 + gpb);
+  for (int k = k0; k < k1; ++k) {
+    const int buf = k & 1;
+    const double delta = sigmoid(logit_at(lo, hi, n_grid, k));
+    const double invd = 1.0 / delta;
+    double A = 0.0, b[GTMAX], c[GTMAX];
+#pragma unroll
+    for (int g = 0; g < GTMAX; ++g) b[g] = c[g] = 0.0;
+    double pm = 1.0, pe = 0.0;
+    int nprod = 0;
+    for (int r = tid; r < R; r += NT) {
+      const double x = sx[r], d = (1.0 - delta) * ss[r] + delta;
+      const double w = rcp_nr(d), u0 = x * w;
+      A += u0 * x;
+#pragma unroll
+      for (int g = 0; g < GTMAX; ++g) {
+        if (g < ng) {
+          const double y = sy[g * R + r], u1 = y * w;
+          b[g] += u1 * x;
+          c[g] += u1 * y;
+        }
+      }
+      log_factor(d, pm, pe, nprod);
+    }
+    renorm(pm, pe);
+    for (int off = 16; off > 0; off >>= 1) {
+      A += __shfl_xor_sync(FULL, A, off);
+#pragma unroll
+      for (int g = 0; g < GTMAX; ++g) {
+        if (g < ng) {
+          b[g] += __shfl_xor_sync(FULL, b[g], off);
+          c[g] += __shfl_xor_sync(FULL, c[g], off);
+        }
+      }
+      pm *= __shfl_xor_sync(FULL, pm, off);
+      pe += __shfl_xor_sync(FULL, pe, off);
+    }
+    if (lane == 0) {
+      part[buf][warp][0] = A;
+#pragma unroll
+      for (int g = 0; g < GTMAX; ++g) {
+        if (g < ng) {
+          part[buf][warp][1 + 2 * g] = b[g];
+          part[buf][warp][2 + 2 * g] = c[g];
+        }
+      }
+      renorm(pm, pe);
+      red[buf][warp][0] = pm;
+      red[buf][warp][1] = pe;
+    }
+    __syncthreads();
+    if (warp == 0 && lane < ng) {
+      double Aw = 0.0, bw = 0.0, cw = 0.0, m = 1.0, e = 0.0;
+      for (int w = 0; w < NT / 32; ++w) {
+        Aw += part[buf][w][0];
+        bw += part[buf][w][1 + 2 * lane];
+        cw += part[buf][w][2 + 2 * lane];
+        m *= red[buf][w][0];
+        e += red[buf][w][1];
+      }
+      Aw += cxx0 * invd;
+      bw += cxy0 * invd;
+      cw += cyy0 * invd;
+      // the ridge (sym_pseudo_solve_and_logdet's), the lml's terms in the
+      // reference's order (narrow_lml's)
+      const double D = Aw + 1e-12 * fmax(fabs(Aw), 1.0);
+      const double rss_raw = cw - bw * (1.0 / D) * bw;
+      const double rs = rss_raw < DBL_MIN ? DBL_MIN : rss_raw;
+      const double la = log(D > 0 ? D : -1.0);
+      const double l2pi = log(6.283185307179586 * (rs / nn));
+      const double logd = log(m) + e * LN2;
+      const double logdet_d = logd + (n - R) * log(delta);
+      vals[((int64_t)(g0 + lane) * nrho + ro) * n_grid + k] =
+          reml ? -0.5 * (nn * l2pi + logdet_d + la - ld_xx + nn)
+               : -0.5 * (nn * l2pi + logdet_d + nn);
+    }
+  }
+}
+
+// The grid's argmax, the golden section (models/lmm.py `_golden`) and the
+// final fit of problem (rho blockIdx.x, gene blockIdx.y), every
+// evaluation on the whole block; every thread keeps the same bracket.
+template <int TS>
+__global__ void __launch_bounds__(NT)
+null_fit_narrow_golden_kernel(
+    const double* __restrict__ Sv, const double* __restrict__ Xt,
+    const double* __restrict__ yt, const double* __restrict__ Cxx,
+    const double* __restrict__ cxy, const double* __restrict__ cyy,
+    const double* __restrict__ ldxx, const double* __restrict__ vals,
+    double* __restrict__ lml_out, double* __restrict__ delta_out,
+    double* __restrict__ beta_out, double* __restrict__ scale_out,
+    double* __restrict__ v0_out, double* __restrict__ v1_out,
+    double* __restrict__ rss_out, double lo, double hi, int n_grid,
+    int n_iters, int n, int R, int p, int reml) {
+  extern __shared__ __align__(16) unsigned char nf_ngold_dyn[];
+  __shared__ NarrowSh sh;
+  double* dyn = reinterpret_cast<double*>(nf_ngold_dyn);
+  const NarrowGeom g = narrow_geom(p, R);
+  const int ro = blockIdx.x;
+  const int64_t gr = (int64_t)blockIdx.y * gridDim.x + ro;
+  Rho o = rho_of(Sv, Xt, yt, Cxx, cxy, cyy, ro, gr, n, R, p, reml);
+  if (o.reml) o.ld_xx = ldxx[ro];
+  narrow_setup(o, g, dyn, sh);
+
+  // argmax (a NaN wins and stops the scan, as torch's and jnp's argmax)
+  const double* vr = vals + gr * n_grid;
+  int kb = 0;
+  double best = vr[0];
+  for (int k = 1; k < n_grid && !isnan(best); ++k) {
+    const double v = vr[k];
+    if (isnan(v) || v > best) {
+      best = v;
+      kb = k;
+    }
+  }
+  double a = logit_at(lo, hi, n_grid, max(kb - 1, 0));
+  double b = logit_at(lo, hi, n_grid, min(kb + 1, n_grid - 1));
+
+  // step 0 evaluates x1, step 1 x2, steps 2 .. n_iters + 1 the
+  // iterations' new points, step n_iters + 2 is the final fit: one call
+  // site of the evaluation.  While warp 0 factors a step's sums, the last
+  // warp makes the next step's point under either decision (with its
+  // delta, 1 / delta and log delta), so that the decision only selects.
+  const double h = b - a;
+  double x1 = a + INVPHI2 * h, x2 = a + INVPHI * h;
+  double f1 = 0.0, f2 = 0.0, x1n = 0.0, x2n = 0.0;
+  double scale, rss, lml, delta;
+  double dl = sigmoid(x1);
+  bool left = false;
+  for (int step = 0;; ++step) {
+    const bool last = step == n_iters + 2;
+    // the point after this step's: spec[1] if the decision is "left"
+    // (f1 > f2), else spec[0]
+    auto next = [&] {
+      auto put = [&](int k, double na, double nb, double n1, double n2,
+                     double nx) {
+        const double v[6] = {na, nb, n1, n2, nx, sigmoid(nx)};
+        for (int e = 0; e < 6; ++e) sh.spec[k][e] = v[e];
+      };
+      if (last) return;
+      if (step == 0) {
+        put(0, a, b, x1n, x2n, x2);
+        put(1, a, b, x1n, x2n, x2);
+        return;
+      }
+      // the bracket's points once this step's value is in
+      const double y1 = step == 1 ? x1 : x1n, y2 = step == 1 ? x2 : x2n;
+      if (step - 1 < n_iters) {
+        for (int k = 0; k < 2; ++k) {
+          const bool l = k == 1;
+          const double na = l ? a : y1, nb = l ? y2 : b, hh = nb - na;
+          const double n1 = l ? na + INVPHI2 * hh : y2;
+          const double n2 = l ? y1 : na + INVPHI * hh;
+          put(k, na, nb, n1, n2, l ? n1 : n2);
+        }
+      } else {   // the final fit's point
+        put(0, a, b, x1n, x2n, y2);
+        put(1, a, b, x1n, x2n, y1);
+      }
+    };
+    const double f = narrow_eval<TS>(o, g, dl, last ? 2 : 1, dyn, sh,
+                                     scale, rss, next);
+    if (last) {
+      lml = f;
+      delta = dl;
+      break;
+    }
+    if (step == 0) {
+      f1 = f;
+    } else if (step == 1) {
+      f2 = f;
+    } else {   // the pending iteration's new point was evaluated
+      const double f1n = left ? f : f2;
+      f2 = left ? f1 : f;
+      f1 = f1n;
+      x1 = x1n;
+      x2 = x2n;
+    }
+    const int k = step == 0 ? 0 : f1 > f2;
+    const double* sp = sh.spec[k];
+    if (step > 0 && step - 1 < n_iters) {
+      left = k == 1;
+      a = sp[0];
+      b = sp[1];
+      x1n = sp[2];
+      x2n = sp[3];
+    }
+    dl = sp[5];
+  }
+
+  for (int i = threadIdx.x; i < p; i += NT) beta_out[gr * p + i] = sh.beta[i];
+  if (threadIdx.x == 0) {
+    lml_out[gr] = lml;
+    delta_out[gr] = delta;
+    scale_out[gr] = scale;
+    v0_out[gr] = scale * (1 - delta);
+    v1_out[gr] = scale * delta;
+    rss_out[gr] = rss;
+  }
+}
+
+// grid points a block of the narrow grid kernel: at least 8 (a block's
+// staging shared by several evaluations), and no more than ~1056 blocks
+// (8 an SM) over the problems' grid points
+inline int narrow_gpb(int64_t problems, int n_grid) {
+  const int64_t gpb = std::max<int64_t>(8, (problems * n_grid + 1055) / 1056);
+  return (int)std::min<int64_t>(n_grid, gpb);
+}
+
+// genes a block of the gene-tiled grid at p = 1: the genes in as few tiles
+// of at most CRM_NF_GENE_TILE as they take, evened out, where the rows x,
+// S and a tile's phenotypes fit in CRM_NF_SMEM_KB; 0 (a gene a block)
+// elsewhere
+inline int narrow_gene_tile(int p, int R, int genes) {
+  if (p != 1 || genes < 2) return 0;
+  const int64_t room = (int64_t)CRM_NF_SMEM_KB * 1024 / (8 * (int64_t)R) - 2;
+  const int64_t most = std::min<int64_t>(GTMAX, room);
+  if (most < 2) return 0;
+  const int64_t tiles = (genes + most - 1) / most;
+  return (int)((genes + tiles - 1) / tiles);
+}
+
+// scratch doubles of a narrow fit: the logdets (nrho), the grid's values
+// (genes nrho n_grid)
+inline int64_t narrow_scratch(int nrho, int n_grid, int genes) {
+  return nrho + (int64_t)genes * nrho * n_grid;
+}
+
+// the launches of a narrow fit, at TS-wide tiles: logdet(X^T X) (REML),
+// the grid, the golden section with the final fit
+template <int TS>
+int launch_narrow(const double* Sv, const double* Xt, const double* yt,
+                  const double* Cxx, const double* cxy, const double* cyy,
+                  double* lml, double* delta, double* beta, double* scale,
+                  double* v0, double* v1, double* rss, double* scratch,
+                  double lo, double hi, int n_grid, int n_iters, int n,
+                  int nrho, int R, int p, int reml, int genes,
+                  cudaStream_t stream) {
+  auto ldxx_kernel = null_fit_narrow_ldxx_kernel<TS>;
+  auto grid_kernel = null_fit_narrow_grid_kernel<TS>;
+  auto golden_kernel = null_fit_narrow_golden_kernel<TS>;
+  auto genes_kernel = null_fit_narrow_grid_genes_kernel;
+  // the shared-memory limit, raised once a process
+  static const int err_set =
+      (int)cudaFuncSetAttribute(ldxx_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                CRM_NF_SMEM_KB * 1024) |
+      (int)cudaFuncSetAttribute(grid_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                CRM_NF_SMEM_KB * 1024) |
+      (int)cudaFuncSetAttribute(genes_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                CRM_NF_SMEM_KB * 1024) |
+      (int)cudaFuncSetAttribute(golden_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                CRM_NF_SMEM_KB * 1024);
+  if (err_set) return err_set;
+  const NarrowGeom g = narrow_geom(p, R);
+  const int bytes = (int)sizeof(double) * narrow_smem_doubles(g, R);
+  double* ldxx = scratch;            // (nrho,)
+  double* vals = ldxx + nrho;        // (genes, nrho, n_grid)
+  int err;
+  if (reml) {
+    const dim3 rhos(nrho);
+    ldxx_kernel<<<rhos, NT, bytes, stream>>>(Sv, Xt, yt, Cxx, cxy, cyy, ldxx,
+                                            n, R, p);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  const int gt = narrow_gene_tile(p, R, genes);
+  if (gt) {
+    const int tiles = (genes + gt - 1) / gt;
+    const int gpb = narrow_gpb((int64_t)tiles * nrho, n_grid);
+    const dim3 grid((n_grid + gpb - 1) / gpb, nrho, tiles);
+    const int gbytes = (int)sizeof(double) * (2 + gt) * R;
+    genes_kernel<<<grid, NT, gbytes, stream>>>(Sv, Xt, yt, Cxx, cxy, cyy,
+                                               ldxx, vals, lo, hi, n_grid,
+                                               gpb, n, R, gt, genes, reml);
+  } else {
+    const int gpb = narrow_gpb((int64_t)genes * nrho, n_grid);
+    const dim3 grid((n_grid + gpb - 1) / gpb, nrho, genes);
+    grid_kernel<<<grid, NT, bytes, stream>>>(Sv, Xt, yt, Cxx, cxy, cyy, ldxx,
+                                             vals, lo, hi, n_grid, gpb, n, R,
+                                             p, reml);
+  }
+  if ((err = (int)cudaGetLastError())) return err;
+  const dim3 fits(nrho, genes);
+  golden_kernel<<<fits, NT, bytes, stream>>>(Sv, Xt, yt, Cxx, cxy, cyy, ldxx,
+                                             vals, lml, delta, beta, scale,
+                                             v0, v1, rss, lo, hi, n_grid,
+                                             n_iters, n, R, p, reml);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The scratch doubles crm_null_fit needs at these shapes.
 extern "C" long long crm_null_fit_scratch(int p, int nrho, int R, int n_grid,
                                           int genes) {
-  return p > 16 ? wide_scratch(p, nrho, R, n_grid, genes) : 1;
+  return p > 16 ? wide_scratch(p, nrho, R, n_grid, genes)
+                : narrow_scratch(nrho, n_grid, genes);
 }
 
 // S (nrho, R), Xt (nrho, R, p), Cxx (nrho, p, p) shared; yt (genes, nrho,
@@ -1061,22 +1704,8 @@ extern "C" int crm_null_fit(const double* Sv, const double* Xt,
                   rss, scratch, lo, hi, n_grid, n_iters, n, nrho, R, p, reml,
                   genes, stream);
   }
-  auto kernel = p <= 2   ? null_fit_kernel<2>
-                : p <= 4 ? null_fit_kernel<4>
-                         : null_fit_kernel<16>;
-  const dim3 grid(nrho, genes);
-  kernel<<<grid, NT, 0, stream>>>(Sv, Xt, yt, Cxx, cxy, cyy, lml, delta, beta,
-                                  scale, v0, v1, rss, lo, hi, n_grid, n_iters,
-                                  n, R, p, reml);
-  return (int)cudaGetLastError();
+  auto launch = p <= 4 ? launch_narrow<2> : launch_narrow<4>;
+  return launch(Sv, Xt, yt, Cxx, cxy, cyy, lml, delta, beta, scale, v0, v1,
+                rss, scratch, lo, hi, n_grid, n_iters, n, nrho, R, p, reml,
+                genes, stream);
 }
-
-#ifdef NULL_FIT_CLOCKS
-// the summed clock64 sections (then zeroed): see nf_clocks
-extern "C" int crm_null_fit_clocks(unsigned long long* out) {
-  int err = (int)cudaMemcpyFromSymbol(out, nf_clocks, sizeof(nf_clocks));
-  const unsigned long long zero[2] = {0, 0};
-  if (!err) err = (int)cudaMemcpyToSymbol(nf_clocks, zero, sizeof(zero));
-  return err;
-}
-#endif

@@ -7,182 +7,408 @@
 // max(eigh(sym(A) + eps I) - eps, 0) with eps = 1e-12 max(max|diag|, 1)
 // (cellregmap_tpu/ops/linalg.py `safe_eigh`, :238-249, clamped in
 // `per_snp`, engine.py:759-769): the shift keeps the TPU's QDWH eigh off
-// exactly singular inputs.  Jacobi needs no shift: its rotations are
-// defined for any symmetric input, so the eigenvalues of sym(A) are those
-// of the shifted matrix, shifted back, to rounding.
+// exactly singular inputs.  Neither route here needs it: Jacobi rotations
+// and Householder reflections are defined for any symmetric input, so the
+// eigenvalues of sym(A) are those of the shifted matrix, shifted back, to
+// rounding.  A matrix with a non-finite entry gives C NaNs (as eigh's).
 //
 // Replaces: the batched device eigh of `per_snp` (engine.py:759-769) under
 // the Liu, saddlepoint and auto p-value methods.
 //
-// What bounds it on the H100: latency.  A matrix is small (C <= 60:
-// 28.8 KB), and each Jacobi sweep is C - 1 dependent rounds of C/2
-// independent rotations, each touching two rows and two columns: at the
-// headline (C = 10, S = 512) a sweep is ~4 C^3 = 4000 flop a matrix, far
-// below any rate bound; the rounds' barriers set the time.
+// What bounds it on the H100: latency.  A matrix is small (C <= 64) and
+// its work a few C^3 flop (4000 at the headline's C = 10), far below any
+// rate bound; what sets the time is the number of dependent steps and the
+// synchronisation between them.  Two routes, by size:
 //
-// Design: one block per matrix, the matrix in shared memory.  Cyclic
-// Jacobi with the round-robin (circle) order: in round r of a sweep the
-// indices 0..m-1 (m = C rounded up to even; the pad index takes no
-// rotation) form m/2 disjoint pairs, so the round's rotations commute and
-// run together.  A round: each pair's thread computes its rotation
-// (Golub & Van Loan's symmetric Schur pair, t = sign(tau) / (|tau| +
-// sqrt(1 + tau^2))); the block applies J^T from the left (rows p, q of
-// every pair) and then J from the right (columns p, q); the pair's thread
-// writes a_pp - t a_pq, a_qq + t a_pq and 0 into the pair's own 2 x 2
-// block.  After each sweep the block reduces the off-diagonal norm and
-// stops when it is below eps ||A||_F (at most MAX_SWEEPS sweeps; the count
-// is written out).  Then each thread ranks one diagonal entry (ties by
-// index) and writes max(lambda, 0) to its ascending position.
+// * C <= 32 (the headline's C = 10, 20 at 10k cells): one warp a matrix,
+//   WPB matrices a block, each in shared memory with the odd leading
+//   dimension C | 1 (a column pass's 32 rows fall in distinct banks).
+//   Cyclic Jacobi in the round-robin (circle) order: in round r of a sweep
+//   the indices 0..m-1 (m = C rounded up to even; the pad index takes no
+//   rotation) form m/2 disjoint pairs, taken from a table made once a
+//   block, so the round's rotations commute and run together.  A round:
+//   each pair's lane computes its rotation (Golub & Van Loan's symmetric
+//   Schur pair, t = sign(d) e / (|d| + sqrt(d^2 + e^2)), d = a_qq - a_pp,
+//   e = 2 a_pq, which is their t = sign(tau) / (|tau| + sqrt(1 + tau^2))
+//   with one division fewer, its reciprocals and square roots branch-free
+//   Newton steps: the rotation is the round's path); the warp
+//   applies J^T from the left (rows p, q of every pair) and then J from
+//   the right (columns p, q); the pair's lane writes a_pp - t a_pq, a_qq +
+//   t a_pq and 0 into its own 2 x 2 block (an a_pq below half an ulp of
+//   sqrt(a_pp a_qq) is zeroed with no rotation, so that a repeated
+//   eigenvalue's block ends the sweeps).  Four __syncwarp a round and no
+//   block barrier.  After each sweep the warp reduces the off-diagonal
+//   norm and stops below eps ||A||_F (at most MAX_SWEEPS sweeps; the count
+//   is written out).  Each lane then ranks one diagonal entry (ties by
+//   index) and writes max(lambda, 0) to its ascending position.
+// * 32 < C (C = 50 of the aggregate environment and the `contexts50`
+//   cell): one block a matrix, in dynamic shared memory.  Householder
+//   reduction to tridiagonal form (C - 2 steps, each a reflector made on
+//   warp 0, the matrix-vector product two threads a row, the rank-2 update
+//   of the trailing block two threads a row: three block barriers a step,
+//   one where the reflector is trivial),
+//   then each eigenvalue on its own thread by Sturm-count bisection on the
+//   Gershgorin interval (LAPACK dstebz's pivmin guard) to 2 eps of the
+//   interval's scale, with no barrier; a prefix maximum keeps the
+//   ascending order exact where two eigenvalues tie to rounding.  The
+//   count written out is the most bisection steps of the matrix.
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
 
+#include "async_copy.cuh"
+
 namespace {
 
-constexpr int NT = 256;          // threads per block
-constexpr int MAXC = 64;         // matrix size held in shared memory
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARP_MAX_C = 32;   // the warp route's largest matrix
+constexpr int WPB = 4;           // matrices (warps) a block, warp route
+constexpr int NTB = 128;         // threads a block, block route
 constexpr int MAX_SWEEPS = 30;
+constexpr int MAX_BISECT = 128;
 
-// the partner pair (p, q) of slot k in round r of the circle order over m
-// (even) indices: index 0 stays, the others rotate
-__device__ void round_pair(int m, int r, int k, int& p, int& q) {
-  auto at = [&](int pos) { return pos == 0 ? 0 : 1 + (pos - 1 + r) % (m - 1); };
-  const int a = at(k), b = at(m - 1 - k);
-  p = min(a, b);
-  q = max(a, b);
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
 }
 
-__global__ void __launch_bounds__(NT)
-sym_eigvalsh_kernel(const double* __restrict__ Ain, double* __restrict__ lam,
-                    int* __restrict__ sweeps_out, int C) {
-  __shared__ double A[MAXC * MAXC];
-  __shared__ double cs[MAXC / 2], sn[MAXC / 2];
-  __shared__ double red[2][NT / 32];
-  __shared__ int done;
-  const int s = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int m = C + (C & 1);
-  const int npair = m / 2;
-  const double* src = Ain + (int64_t)s * C * C;
-
-  for (int idx = tid; idx < C * C; idx += NT) {
-    const int i = idx / C, j = idx - i * C;
-    A[i * MAXC + j] = 0.5 * (src[i * C + j] + src[j * C + i]);
+// The eigenvalues of WPB matrices a block, one warp each (C <= 32).
+__global__ void __launch_bounds__(32 * WPB)
+sym_eigvalsh_warp_kernel(const double* __restrict__ Ain,
+                         double* __restrict__ lam,
+                         int* __restrict__ sweeps_out, int S, int C) {
+  extern __shared__ __align__(16) unsigned char ev_warp_dyn[];
+  // round r's pairs (p << 8 | q), the rotations of each warp's round
+  __shared__ unsigned short pairs[(WARP_MAX_C - 1) * (WARP_MAX_C / 2)];
+  __shared__ double cs[WPB][WARP_MAX_C / 2], sn[WPB][WARP_MAX_C / 2];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m = C + (C & 1), npair = m / 2, LD = C | 1;
+  for (int f = threadIdx.x; f < (m - 1) * npair; f += 32 * WPB) {
+    const int r = f / npair, k = f - r * npair;
+    // the circle order: index 0 stays, the others rotate
+    const int a = k == 0 ? 0 : 1 + (k - 1 + r) % (m - 1);
+    const int b = 1 + (m - 2 - k + r) % (m - 1);
+    pairs[f] = (unsigned short)(min(a, b) << 8 | max(a, b));
   }
-  if (tid == 0) done = 0;
   __syncthreads();
+  const int s = blockIdx.x * WPB + warp;
+  if (s >= S) return;   // the whole warp, after the block's one barrier
+  double* M = reinterpret_cast<double*>(ev_warp_dyn) + warp * C * LD;
+  const double* src = Ain + (int64_t)s * C * C;
+  bool bad = false;
+  for (int idx = lane; idx < C * C; idx += 32) {
+    const int i = idx / C, j = idx - i * C;
+    const double v = 0.5 * (src[i * C + j] + src[j * C + i]);
+    bad = bad || !isfinite(v);
+    M[i * LD + j] = v;
+  }
+  if (__ballot_sync(FULL, bad)) {
+    if (lane < C) lam[(int64_t)s * C + lane] = nan("");
+    if (lane == 0 && sweeps_out) sweeps_out[s] = 0;
+    return;
+  }
+  __syncwarp();
 
+  // the lane's first element (pair k, row or column c) of a flattened
+  // pass over npair x C, and its step by 32
+  const int k0 = lane / C, c0 = lane - k0 * C;
+  const int dk = 32 / C, dc = 32 - dk * C;
   int sweep = 0;
   for (;;) {
-    // off-diagonal and total squared norms, over the block
+    // off-diagonal and total squared norms
     double off = 0.0, tot = 0.0;
-    for (int idx = tid; idx < C * C; idx += NT) {
+    for (int idx = lane; idx < C * C; idx += 32) {
       const int i = idx / C, j = idx - i * C;
-      const double v = A[i * MAXC + j];
+      const double v = M[i * LD + j];
       tot += v * v;
       if (i != j) off += v * v;
     }
-    for (int o = 16; o > 0; o >>= 1) {
-      off += __shfl_xor_sync(0xffffffffu, off, o);
-      tot += __shfl_xor_sync(0xffffffffu, tot, o);
-    }
-    if (lane == 0) {
-      red[0][warp] = off;
-      red[1][warp] = tot;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      double o2 = 0.0, t2 = 0.0;
-      for (int w = 0; w < NT / 32; ++w) {
-        o2 += red[0][w];
-        t2 += red[1][w];
-      }
-      done = !(o2 > DBL_EPSILON * DBL_EPSILON * t2) || sweep >= MAX_SWEEPS;
-    }
-    __syncthreads();
-    if (done) break;
+    off = warp_sum(off);
+    tot = warp_sum(tot);
+    if (!(off > DBL_EPSILON * DBL_EPSILON * tot) || sweep >= MAX_SWEEPS)
+      break;
     ++sweep;
 
     for (int r = 0; r < m - 1; ++r) {
-      // each pair's rotation from its 2 x 2 block
+      const unsigned short* pr = pairs + r * npair;
+      // each pair's rotation from its 2 x 2 block: with d = a_qq - a_pp
+      // and e = 2 a_pq, t = sign(d) e / (|d| + sqrt(d^2 + e^2)) (the
+      // Schur pair's smaller root, one square root and one division on
+      // the round's path), c = 1 / sqrt(1 + t^2); an a_pq below half an
+      // ulp of sqrt(a_pp a_qq) is zeroed with no rotation (t = 0), so
+      // that a repeated eigenvalue's block ends the sweeps
       double app = 0.0, aqq = 0.0, apq = 0.0, t = 0.0;
-      int pp = 0, qq = 0;
-      if (tid < npair) {
-        round_pair(m, r, tid, pp, qq);
+      int pp = 0, qq = C;
+      if (lane < npair) {
+        pp = pr[lane] >> 8;
+        qq = pr[lane] & 0xff;
         double c = 1.0, sv = 0.0;
         if (qq < C) {
-          app = A[pp * MAXC + pp];
-          aqq = A[qq * MAXC + qq];
-          apq = A[pp * MAXC + qq];
-          if (apq != 0.0) {
-            const double tau = (aqq - app) / (2.0 * apq);
-            t = fabs(tau) > 1e150
-                    ? 0.5 / tau
-                    : (tau >= 0.0 ? 1.0 : -1.0) /
-                          (fabs(tau) + sqrt(1.0 + tau * tau));
-            c = 1.0 / sqrt(1.0 + t * t);
-            sv = t * c;
-          }
+          app = M[pp * LD + pp];
+          aqq = M[qq * LD + qq];
+          apq = M[pp * LD + qq];
+          // (branch-free: where a_pq = 0 the candidate is NaN and unused)
+          const double d = aqq - app, e = 2.0 * apq, h2 = d * d + e * e;
+          const double tt =
+              (d >= 0.0 ? e : -e) * rcp_nr(fabs(d) + h2 * rsqrt_nr(h2));
+          const double aa = fabs(app * aqq);
+          const double gm = aa > 0.0 ? aa * rsqrt_nr(aa) : 0.0;
+          const bool rot =
+              apq != 0.0 && fabs(apq) > 0.5 * DBL_EPSILON * gm;
+          t = rot ? tt : 0.0;
+          c = rsqrt_nr(1.0 + t * t);
+          sv = t * c;
         }
-        cs[tid] = c;
-        sn[tid] = sv;
+        cs[warp][lane] = c;
+        sn[warp][lane] = sv;
       }
-      __syncthreads();
-      // rows p, q of every pair: A <- J^T A
-      for (int idx = tid; idx < npair * C; idx += NT) {
-        const int k = idx / C, col = idx - k * C;
-        int p, q;
-        round_pair(m, r, k, p, q);
-        if (q >= C) continue;
-        const double c = cs[k], sv = sn[k];
-        const double x = A[p * MAXC + col], y = A[q * MAXC + col];
-        A[p * MAXC + col] = c * x - sv * y;
-        A[q * MAXC + col] = sv * x + c * y;
+      __syncwarp();
+      // rows p, q of every pair: M <- J^T M
+      for (int idx = lane, k = k0, col = c0; idx < npair * C; idx += 32) {
+        const int pk = pr[k] >> 8, qk = pr[k] & 0xff;
+        if (qk < C) {
+          const double c = cs[warp][k], sv = sn[warp][k];
+          const double x = M[pk * LD + col], y = M[qk * LD + col];
+          M[pk * LD + col] = c * x - sv * y;
+          M[qk * LD + col] = sv * x + c * y;
+        }
+        k += dk;
+        col += dc;
+        if (col >= C) {
+          col -= C;
+          ++k;
+        }
       }
-      __syncthreads();
-      // columns p, q of every pair: A <- A J
-      for (int idx = tid; idx < npair * C; idx += NT) {
-        const int k = idx / C, row = idx - k * C;
-        int p, q;
-        round_pair(m, r, k, p, q);
-        if (q >= C) continue;
-        const double c = cs[k], sv = sn[k];
-        const double x = A[row * MAXC + p], y = A[row * MAXC + q];
-        A[row * MAXC + p] = c * x - sv * y;
-        A[row * MAXC + q] = sv * x + c * y;
+      __syncwarp();
+      // columns p, q of every pair: M <- M J
+      for (int idx = lane, k = k0, row = c0; idx < npair * C; idx += 32) {
+        const int pk = pr[k] >> 8, qk = pr[k] & 0xff;
+        if (qk < C) {
+          const double c = cs[warp][k], sv = sn[warp][k];
+          const double x = M[row * LD + pk], y = M[row * LD + qk];
+          M[row * LD + pk] = c * x - sv * y;
+          M[row * LD + qk] = sv * x + c * y;
+        }
+        k += dk;
+        row += dc;
+        if (row >= C) {
+          row -= C;
+          ++k;
+        }
       }
-      __syncthreads();
+      __syncwarp();
       // the pair's own block, in the exact form
-      if (tid < npair && qq < C && apq != 0.0) {
-        A[pp * MAXC + pp] = app - t * apq;
-        A[qq * MAXC + qq] = aqq + t * apq;
-        A[pp * MAXC + qq] = 0.0;
-        A[qq * MAXC + pp] = 0.0;
+      if (qq < C && apq != 0.0) {
+        M[pp * LD + pp] = app - t * apq;
+        M[qq * LD + qq] = aqq + t * apq;
+        M[pp * LD + qq] = 0.0;
+        M[qq * LD + pp] = 0.0;
       }
-      __syncthreads();
+      __syncwarp();
     }
   }
 
-  // ascending order: each thread ranks one diagonal entry
-  for (int i = tid; i < C; i += NT) {
-    const double v = A[i * MAXC + i];
+  // ascending order: each lane ranks one diagonal entry
+  if (lane < C) {
+    const double v = M[lane * LD + lane];
     int rank = 0;
     for (int j = 0; j < C; ++j) {
-      const double u = A[j * MAXC + j];
-      rank += (u < v) || (u == v && j < i);
+      const double u = M[j * LD + j];
+      rank += (u < v) || (u == v && j < lane);
     }
-    lam[(int64_t)s * C + rank] = v < 0.0 ? 0.0 : v;  // NaN stays NaN
+    lam[(int64_t)s * C + rank] = v < 0.0 ? 0.0 : v;
   }
-  if (tid == 0 && sweeps_out) sweeps_out[s] = sweep;
+  if (lane == 0 && sweeps_out) sweeps_out[s] = sweep;
+}
+
+// the number of eigenvalues of the tridiagonal (d, e^2) below x (the
+// Sturm count of T - x I, LAPACK dlaebz's pivmin guard)
+__device__ int sturm_count(const double* d, const double* e2, int C,
+                           double x, double pivmin) {
+  double q = d[0] - x;
+  if (fabs(q) < pivmin) q = -pivmin;
+  int cnt = q < 0.0;
+  for (int j = 1; j < C; ++j) {
+    q = d[j] - x - e2[j - 1] / q;
+    if (fabs(q) < pivmin) q = -pivmin;
+    cnt += q < 0.0;
+  }
+  return cnt;
+}
+
+// The eigenvalues of one matrix a block (C > 32): Householder
+// tridiagonalization, then bisection an eigenvalue a thread.
+__global__ void __launch_bounds__(NTB)
+sym_eigvalsh_block_kernel(const double* __restrict__ Ain,
+                          double* __restrict__ lam,
+                          int* __restrict__ sweeps_out, int C) {
+  extern __shared__ __align__(16) unsigned char ev_block_dyn[];
+  // a step's tau, by the step's parity: a step whose reflector is trivial
+  // (tau = 0) has one barrier, so warp 0 may write the next step's tau
+  // while the other warps still read this one's
+  __shared__ double tau_sh[2];
+  __shared__ int bad_sh, iters_sh[NTB / 32];
+  const int s = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int LD = C | 1;
+  double* M = reinterpret_cast<double*>(ev_block_dyn);   // C x LD
+  double* v = M + C * LD;    // the reflector (v_0 = 1), then the eigenvalues
+  double* pw = v + C;        // tau A v
+  double* d = pw + C;        // the tridiagonal's diagonal
+  double* e2 = d + C;        // its squared off-diagonal
+  const double* src = Ain + (int64_t)s * C * C;
+  if (tid == 0) bad_sh = 0;
+  __syncthreads();
+  for (int idx = tid; idx < C * C; idx += NTB) {
+    const int i = idx / C, j = idx - i * C;
+    const double x = 0.5 * (src[i * C + j] + src[j * C + i]);
+    if (!isfinite(x)) bad_sh = 1;
+    M[i * LD + j] = x;
+  }
+  __syncthreads();
+  if (bad_sh) {
+    for (int i = tid; i < C; i += NTB) lam[(int64_t)s * C + i] = nan("");
+    if (tid == 0 && sweeps_out) sweeps_out[s] = 0;
+    return;
+  }
+
+  // Householder: step k maps column k below the diagonal onto e_1
+  for (int k = 0; k + 2 < C; ++k) {
+    const int m = C - k - 1;                // the trailing block's size
+    double* T = M + (k + 1) * LD + k + 1;   // the trailing block
+    if (warp == 0) {
+      double ss = 0.0;
+      for (int i = 2 + lane; i <= m; i += 32) {
+        const double x = M[(k + i) * LD + k];
+        ss += x * x;
+      }
+      ss = warp_sum(ss);
+      const double alpha = M[(k + 1) * LD + k];
+      double beta = alpha, tau = 0.0, scal = 0.0;
+      if (ss != 0.0) {   // LAPACK dlarfg
+        const double r = sqrt(alpha * alpha + ss);
+        beta = alpha >= 0.0 ? -r : r;
+        tau = (beta - alpha) / beta;
+        scal = 1.0 / (alpha - beta);
+      }
+      for (int i = 1 + lane; i < m; i += 32)
+        v[i] = M[(k + 1 + i) * LD + k] * scal;
+      if (lane == 0) {
+        v[0] = 1.0;
+        tau_sh[k & 1] = tau;
+        e2[k] = beta * beta;
+      }
+    }
+    __syncthreads();
+    const double tau = tau_sh[k & 1];
+    if (tau != 0.0) {
+      // pw = tau T v, two threads a row (every thread takes the shuffle)
+      for (int base = 0; base < 2 * m; base += NTB) {
+        const int i = (base + tid) >> 1, half = tid & 1;
+        double acc = 0.0;
+        if (i < m)
+          for (int j = half; j < m; j += 2) acc += T[i * LD + j] * v[j];
+        acc += __shfl_xor_sync(FULL, acc, 1);
+        if (i < m && half == 0) pw[i] = tau * acc;
+      }
+      __syncthreads();
+      // T -= v w^T + w v^T, w = pw - (tau / 2) (v . pw) v
+      double K = 0.0;
+      for (int j = 0; j < m; ++j) K += v[j] * pw[j];
+      K *= 0.5 * tau;
+      for (int base = 0; base < 2 * m; base += NTB) {
+        const int i = (base + tid) >> 1, half = tid & 1;
+        if (i < m) {
+          const double vi = v[i], wi = pw[i] - K * vi;
+          for (int j = half; j < m; j += 2)
+            T[i * LD + j] -= vi * (pw[j] - K * v[j]) + wi * v[j];
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = tid; i < C; i += NTB) d[i] = M[i * LD + i];
+  if (tid == 0) {
+    const double x = M[(C - 1) * LD + C - 2];
+    e2[C - 2] = x * x;
+  }
+  __syncthreads();
+
+  // the Gershgorin interval and pivmin (every thread)
+  double gl = d[0], gu = d[0], emax = 0.0;
+  for (int j = 0; j < C; ++j) {
+    const double r = (j > 0 ? sqrt(e2[j - 1]) : 0.0) +
+                     (j + 1 < C ? sqrt(e2[j]) : 0.0);
+    gl = fmin(gl, d[j] - r);
+    gu = fmax(gu, d[j] + r);
+    if (j + 1 < C) emax = fmax(emax, e2[j]);
+  }
+  const double pivmin = DBL_MIN * fmax(1.0, emax);
+  const double tnorm = fmax(fabs(gl), fabs(gu));
+  gl -= 2.1 * tnorm * DBL_EPSILON * C + 4.2 * pivmin;
+  gu += 2.1 * tnorm * DBL_EPSILON * C + 2.1 * pivmin;
+  const double tol = 2.0 * DBL_EPSILON * tnorm;
+
+  // eigenvalue i: the least x whose count reaches i + 1
+  int iters = 0;
+  for (int i = tid; i < C; i += NTB) {
+    double lo = gl, hi = gu;
+    int it = 0;
+    while (it < MAX_BISECT && hi - lo > tol) {
+      const double mid = 0.5 * (lo + hi);
+      if (mid <= lo || mid >= hi) break;
+      ++it;
+      if (sturm_count(d, e2, C, mid, pivmin) > i)
+        hi = mid;
+      else
+        lo = mid;
+    }
+    v[i] = 0.5 * (lo + hi);
+    iters = max(iters, it);
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    iters = max(iters, __shfl_xor_sync(FULL, iters, off));
+  if (lane == 0) iters_sh[warp] = iters;
+  __syncthreads();
+  // ascending exactly: a prefix maximum (ties to rounding), clamped at 0
+  for (int i = tid; i < C; i += NTB) {
+    double x = v[0];
+    for (int j = 1; j <= i; ++j) x = fmax(x, v[j]);
+    lam[(int64_t)s * C + i] = x < 0.0 ? 0.0 : x;
+  }
+  if (tid == 0 && sweeps_out) {
+    int most = 0;
+    for (int w = 0; w < NTB / 32; ++w) most = max(most, iters_sh[w]);
+    sweeps_out[s] = most;
+  }
 }
 
 }  // namespace
 
-// A (S, C, C) row-major f64 on the card, C <= 64 -> lam (S, C) ascending,
-// clamped at 0; sweeps (S,) int32 (may be null): the Jacobi sweeps each
-// matrix took.  Launches on `stream`; returns cudaGetLastError().
+// A (S, C, C) row-major f64 on the card -> lam (S, C) ascending, clamped at
+// 0 (NaN for a matrix with a non-finite entry); sweeps (S,) int32 (may be
+// null): the Jacobi sweeps each matrix took (C <= 32) or its most
+// bisection steps (C > 32).  Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int crm_sym_eigvalsh(const double* A, double* lam, int* sweeps,
                                 int S, int C, cudaStream_t stream) {
-  sym_eigvalsh_kernel<<<S, NT, 0, stream>>>(A, lam, sweeps, C);
+  const int LD = C | 1;
+  if (C <= WARP_MAX_C) {
+    const int bytes = (int)sizeof(double) * WPB * C * LD;
+    const dim3 blocks((S + WPB - 1) / WPB);
+    sym_eigvalsh_warp_kernel<<<blocks, 32 * WPB, bytes, stream>>>(
+        A, lam, sweeps, S, C);
+    return (int)cudaGetLastError();
+  }
+  const int bytes = (int)sizeof(double) * (C * LD + 4 * C);
+  if (bytes > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        sym_eigvalsh_block_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err) return err;
+  }
+  const dim3 blocks(S);
+  sym_eigvalsh_block_kernel<<<blocks, NTB, bytes, stream>>>(A, lam, sweeps,
+                                                            C);
   return (int)cudaGetLastError();
 }

@@ -7,12 +7,14 @@ models/lmm.py:211-251,333-351 ``fit_delta_eig``).  ``restricted`` selects
 REML (with logdet(A) and logdet(X^T X)) or ML; the association's null fit
 is ML, ``mean_fit_kernel``'s fits are REML.
 
-On a CUDA tensor :func:`null_fit` launches ``csrc/null_fit.cu`` (one block
-per rho point; above 16 mean columns, up to 128, the wide instantiation:
-every evaluation a tensor-core product over R and a factorization in
-registers, the grid a block per (grid point, rho), each golden-section
-step one launch spreading its evaluations over several blocks a rho
-point); on a CPU tensor it runs
+On a CUDA tensor :func:`null_fit` launches ``csrc/null_fit.cu`` (up to 16
+mean columns every evaluation on a whole block over the rows staged in
+shared memory: the grid a launch of blocks of 8 or more grid points, the
+golden section and the final fit a block per rho point; above 16, up to
+128, the wide instantiation: every evaluation a tensor-core product over
+R and a factorization in registers, the grid a block per (grid point,
+rho), each golden-section step one launch spreading its evaluations over
+several blocks a rho point); on a CPU tensor it runs
 :func:`null_fit_plain`, which is ``models.lmm.fit_delta_eig`` over the rho
 axis.
 
@@ -21,8 +23,9 @@ covariance family (cellregmap_tpu/engine.py:1154-1173
 ``null_association_multigene_kernel``): the phenotype's operands (yt,
 cxy, cyy) carry a leading gene axis, S, Xt and Cxx are shared, and the
 fits gain the same leading axis.  One call serves every gene (the kernel
-takes the genes as a grid axis); the plain version fits one gene at a
-time.
+takes the genes as a grid axis; at p = 1 the grid takes them in tiles of
+up to 16, one pass over the rows a grid point for the whole tile); the
+plain version fits one gene at a time.
 """
 from __future__ import annotations
 
@@ -134,17 +137,21 @@ def call(lib, data: EigData, n, restricted, lo, hi, n_grid, n_iters,
     p = data.Xt.shape[2]
     gs = tuple(data.yt.shape[:-2])
     genes = math.prod(gs)
-    out = FitResult(*(torch.empty(gs + ((nrho, p) if f == "beta"
-                                        else (nrho,)),
-                                  dtype=torch.float64, device=data.S.device)
-                      for f in FitResult._fields))
-    if nrho * genes == 0:
+    problems = genes * nrho
+    dev = data.S.device
+    # the scalar fields in one allocation (unbound into views), beta apart
+    lml, delta, scale, v0, v1, rss = torch.empty(
+        (6,) + gs + (nrho,), dtype=torch.float64, device=dev).unbind(0)
+    out = FitResult(lml, delta, torch.empty(gs + (nrho, p),
+                                            dtype=torch.float64, device=dev),
+                    scale, v0, v1, rss)
+    if problems == 0:
         return out
-    # the wide instantiation's logdets, grid values and golden-section
+    # the logdets and grid values, the wide instantiation's golden-section
     # partial sums and states
     scratch = torch.empty((lib.crm_null_fit_scratch(p, nrho, R, n_grid,
                                                     genes),),
-                          dtype=torch.float64, device=data.S.device)
+                          dtype=torch.float64, device=dev)
     _build.check(lib.crm_null_fit(*(_build.ptr(t)
                                     for t in (*data, *out, scratch)),
                                   lo, hi, n_grid, n_iters, n, nrho, R, p,

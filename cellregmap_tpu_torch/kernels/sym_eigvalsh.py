@@ -4,11 +4,13 @@ saddlepoint and auto p-value methods.
 
 The JAX package computes them as max(eigh(sym(A) + eps I) - eps, 0), eps =
 1e-12 max(max|diag|, 1) (cellregmap_tpu/ops/linalg.py ``safe_eigh``,
-:238-249, clamped in ``per_snp``, engine.py:759-769).  On a CUDA tensor
-:func:`sym_eigvalsh` launches ``csrc/sym_eigvalsh.cu`` (cyclic Jacobi, one
-block per matrix, which needs no shift); on a CPU tensor it runs
-:func:`sym_eigvalsh_plain`, the shifted form through
-``torch.linalg.eigvalsh``.
+:238-249, clamped in ``per_snp``, engine.py:759-769); a matrix with a
+non-finite entry gives NaNs, as ``eigh`` does there.  On a CUDA tensor
+:func:`sym_eigvalsh` launches ``csrc/sym_eigvalsh.cu`` (neither route
+needs the shift: up to ``WARP_MAX_C`` cyclic Jacobi, a warp a matrix;
+above it Householder tridiagonalization and Sturm bisection, a block a
+matrix); on a CPU tensor it runs :func:`sym_eigvalsh_plain`, the shifted
+form through ``torch.linalg.eigvalsh``.
 """
 from __future__ import annotations
 
@@ -20,18 +22,25 @@ from . import _build
 
 launches = 0
 
-MAX_C = 64          # matrix size the kernel holds in shared memory
+MAX_C = 64          # matrix size the card takes (api.CARD_MAX_CONTEXTS)
+WARP_MAX_C = 32     # the Jacobi route's largest matrix, a warp a matrix
+MAX_SWEEPS = 30     # Jacobi sweeps, at most
+MAX_BISECT = 128    # bisection steps an eigenvalue, at most
 
 
 def sym_eigvalsh_plain(A: torch.Tensor) -> torch.Tensor:
     """Plain torch version: eigvalsh of the symmetrized matrix shifted by
-    eps I, shifted back and clamped at 0 (the JAX package's form)."""
+    eps I, shifted back and clamped at 0 (the JAX package's form); NaN for
+    a matrix with a non-finite entry (whose eigvalsh would raise)."""
     sym = 0.5 * (A + A.transpose(-1, -2))
+    bad = ~torch.isfinite(sym).all(dim=-1).all(dim=-1)
+    sym = torch.where(bad[..., None, None], 0.0, sym)
     diag = torch.diagonal(sym, dim1=-2, dim2=-1)
     eps = 1e-12 * torch.clamp(diag.abs().amax(dim=-1), min=1.0)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     lam = torch.linalg.eigvalsh(sym + eps[..., None, None] * eye)
-    return torch.clamp(lam - eps[..., None], min=0.0)
+    lam = torch.clamp(lam - eps[..., None], min=0.0)
+    return torch.where(bad[..., None], float("nan"), lam)
 
 
 def _bind(lib):
@@ -42,8 +51,10 @@ def _bind(lib):
 
 def sym_eigvalsh(A: torch.Tensor, return_sweeps: bool = False):
     """(S, C) eigenvalues, ascending and clamped at 0, of the symmetric
-    parts of A (S, C, C) f64; with ``return_sweeps`` also the Jacobi sweeps
-    each matrix took (S,) int32 (on the CPU: None)."""
+    parts of A (S, C, C) f64; with ``return_sweeps`` also each matrix's
+    iteration count (S,) int32 (on the CPU: None): the Jacobi sweeps it
+    took up to ``WARP_MAX_C``, above it the most bisection steps of its
+    eigenvalues (0 for a matrix with a non-finite entry)."""
     global launches
     if A.device.type == "cpu":
         lam = sym_eigvalsh_plain(A)
@@ -64,9 +75,12 @@ def call(lib, A, return_sweeps=False, stream=None):
     library, or an emulation of it on CPU tensors)."""
     S, C = A.shape[0], A.shape[-1]
     lam = torch.empty((S, C), dtype=A.dtype, device=A.device)
-    sweeps = torch.zeros((S,), dtype=torch.int32, device=A.device)
+    # the counts only where asked for (the kernel writes every matrix's)
+    sweeps = (torch.empty((S,), dtype=torch.int32, device=A.device)
+              if return_sweeps else None)
     if lam.numel():
-        _build.check(lib.crm_sym_eigvalsh(_build.ptr(A), _build.ptr(lam),
-                                          _build.ptr(sweeps), S, C, stream),
-                     "sym_eigvalsh")
+        _build.check(lib.crm_sym_eigvalsh(
+            _build.ptr(A), _build.ptr(lam),
+            _build.ptr(sweeps) if return_sweeps else None, S, C, stream),
+            "sym_eigvalsh")
     return (lam, sweeps) if return_sweeps else lam

@@ -49,11 +49,14 @@ Phases, in order; any failure raises and the script exits non-zero:
     variants (a first and a steady call, the traced phase split, launch
     counts, the first 32 variants' fits against the CPU), and
     ``estimate_aggregate_environment`` of the planted variant against the
-    CPU (on the headline's scanner, and with an E1 outside E);
+    CPU (on the headline's scanner, and with an E1 outside E, whose REML
+    mean fit, K10's narrow instantiation at p = 12, is held against its
+    plain version and timed);
 11. 50 contexts (2000 cells, 100 donors, an E1 outside E): the aggregate
     environment through K10's wide instantiation (p = 52) against the CPU
     and the kernel against its plain version, and K6a on one interaction
-    batch's 50 x 50 weight matrices; then the same dataset with W widened
+    batch's 50 x 50 weight matrices and on 512 seeded PSD 64 x 64 ones
+    (the card's widest C); then the same dataset with W widened
     to 32 columns (rank[W, E] = 82): the aggregate environment at 83 mean
     columns and one 64-variant ``estimate_betas`` batch at K9's q = 134,
     each against the CPU and each kernel call against its plain version;
@@ -372,9 +375,11 @@ def check_sym_eigvalsh(A):
     eigenvalues within 1e-12 of each row's largest |lambda| of the plain
     version (the shifted ``torch.linalg.eigvalsh``), timed beside it and
     beside one ``torch.linalg.eigvalsh`` call (cuSOLVER).  The operation
-    bound counts the sweeps this run's matrices took: a sweep is C (C - 1)
-    / 2 rotations of 12 C flop (two rows and two columns) and an
-    off-diagonal norm of 2 C^2."""
+    bound counts what the function needs, whatever the route takes (not
+    the kernel's Jacobi sweeps or bisection steps): a matrix's reduction
+    to tridiagonal form, 4 C^3 / 3 flop, and the tridiagonal's
+    eigenvalues, O(C^2), counted at 2 C flop an eigenvalue (a floor: one
+    pass over the tridiagonal each)."""
     import torch
 
     from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a
@@ -388,8 +393,8 @@ def check_sym_eigvalsh(A):
     assert bool((lam[:, 1:] >= lam[:, :-1]).all()), "sym_eigvalsh: order"
     S, C = A.shape[0], A.shape[-1]
     n_sw = int(sweeps.sum())
-    flops = n_sw * (6 * C * C * (C - 1) + 2 * C * C) + S * 2 * C * C
-    b_ms, b_by = bound(flops, F64 * (S * C * C + S * C))
+    b_ms, b_by = bound(S * (4 * C ** 3 // 3 + 2 * C * C),
+                       F64 * (S * C * C + S * C))
     return dict(
         name="sym_eigvalsh", route="cuda",
         source="cellregmap_tpu_torch/csrc/sym_eigvalsh.cu",
@@ -402,6 +407,16 @@ def check_sym_eigvalsh(A):
         shapes=dict(S=S, C=C), sweeps_max=int(sweeps.max()),
         sweeps_mean=n_sw / S,
         tolerance="|err| <= 1e-12 * max|lambda| of each matrix")
+
+
+def k6a_c64_matrices(S=BATCH, C=64, seed=64):
+    """S seeded PSD (C x C) matrices B B^T / 96, B of N(0, 1) entries (C x
+    96): weight matrices at the card's widest C, which no bench dataset
+    reaches (a 64-context scanner's setup alone would take ~20 s)."""
+    import torch
+
+    B = np.random.default_rng(seed).normal(size=(S, C, 96))
+    return torch.as_tensor(B @ np.swapaxes(B, 1, 2) / 96.0, device=CARD)
 
 
 def check_mixture_tails(Q, lam, n_iters=40):
@@ -693,10 +708,7 @@ def refit_rows(grid, conv_calls, replaces, tag, plain_reps=10, genes=1):
 def check_association_kernels(ctx, G, n, plain_reps=10):
     """K7 (the ML delta grid and the ML converge of one refit batch) and
     K10 (the null fit over the rho grid) on the headline's Ls context."""
-    import torch
-
     from cellregmap_tpu_torch import engine
-    from cellregmap_tpu_torch.kernels import null_fit as k10
 
     k_rho = int(engine.null_association_fit(ctx, n,
                                             delta_cfg=ASSOC_DELTA_CFG)[1])
@@ -714,30 +726,44 @@ def check_association_kernels(ctx, G, n, plain_reps=10):
                                             delta_cfg=ASSOC_DELTA_CFG),
         ["null_fit"])
     (args, kw), = calls["null_fit"]
-    data, _, restricted, lo, hi, n_grid, n_iters = args
+    return k7 + [check_null_fit_narrow(args, kw, "null_fit",
+                                       "cellregmap_tpu/engine.py:268")]
+
+
+def check_null_fit_narrow(args, kw, name, replaces, plain_reps=3):
+    """K10's narrow instantiation on one call's operands: its fits through
+    ``null_fit.fit_gaps`` at 1e-10, timed beside its plain version.  The
+    bound counts each evaluation's pass over the rows (the weights, a log
+    and the packed triangle's sums) at every grid point, golden-section
+    step and final fit, and logdet(X^T X) once a rho point where REML."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+
+    data, n, restricted, lo, hi, n_grid, n_iters = args
     fits = k10.null_fit(*args, **kw)
     plain = k10.null_fit_plain(*args, **kw)
     torch.cuda.synchronize()
     gaps = k10.fit_gaps(fits, plain, data, n, restricted)
-    assert max(gaps.values()) <= 1e-10, f"null_fit: {gaps}"
+    assert max(gaps.values()) <= 1e-10, f"{name}: {gaps}"
     nrho, R = data.S.shape
     p = data.Xt.shape[2]
-    evals = nrho * (n_grid + n_iters + 3)
+    evals = nrho * (n_grid + n_iters + 3 + int(restricted))
     flops = evals * R * (3 * (p * (p + 1) // 2 + p + 1) + 8)
     nbytes = F64 * (nrho * R * (p + 2) + nrho * (p * p + p + 1)
                     + nrho * (p + 6))
     b_ms, b_by = bound(flops, nbytes)
-    k10_row = dict(
-        name="null_fit", route="cuda",
-        source="cellregmap_tpu_torch/csrc/null_fit.cu",
-        replaces="cellregmap_tpu/engine.py:268",
+    return dict(
+        name=name, route="cuda",
+        source="cellregmap_tpu_torch/csrc/null_fit.cu", replaces=replaces,
         max_abs_err=float((fits.lml - plain.lml).abs().max()),
         ms=cuda_ms(lambda: k10.null_fit(*args, **kw)),
-        plain_ms=cuda_ms(lambda: k10.null_fit_plain(*args, **kw), reps=3),
+        plain_ms=cuda_ms(lambda: k10.null_fit_plain(*args, **kw),
+                         reps=plain_reps),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, gaps=gaps,
+        shapes=dict(nrho=nrho, R=R, p=p, n_grid=n_grid, n_iters=n_iters),
         tolerance="lml, plain lml at the kernel's delta, beta and scale "
                   "at that delta: rel <= 1e-10")
-    return k7 + [k10_row]
 
 
 def device_split(fn, reps=3):
@@ -1197,14 +1223,55 @@ def betas_path(d, cfg, cpu_check=32):
     return out, counts
 
 
+def _aggregate_cases(d):
+    """The aggregate environment's two scanners on the headline dataset:
+    (label, y, E1): E1 = E, and a seeded (n, C) E1 outside E's span."""
+    rng = np.random.default_rng(GXE_SNP)
+    E1 = rng.normal(size=d["E"].shape) / np.sqrt(d["E"].shape[1])
+    y1 = d["y"] + E1 @ rng.normal(size=E1.shape[1])
+    return (("E1=E", d["y"], None), ("E1 outside E", y1, E1))
+
+
+def _aggregate_M(d, g):
+    """The aggregate environment's mean matrix [B, g], B the reduced design
+    basis of [W, E] (rank 11 at 10 contexts: p = 12)."""
+    from cellregmap_tpu_torch import engine
+
+    return np.concatenate([engine.reduced_design_basis(d["W"], d["E"]),
+                           g[:, None]], axis=1)
+
+
+def aggregate_fit_call(d, cfg, crm=None):
+    """K10's (args, kw) of the aggregate environment's REML mean fit on the
+    scanner with an E1 outside E (``crm``, else made here on the card)."""
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import engine
+
+    if crm is None:
+        _, y, e1 = _aggregate_cases(d)[1]
+        crm = crp.CellRegMap(y=y, E=d["E"], E1=e1, W=d["W"],
+                             Ls=crp.get_L_values(d["hK"], d["E"]),
+                             config=cfg, device=CARD)
+    M = torch.as_tensor(_aggregate_M(d, d["G"][:, GXE_SNP]), device=CARD)
+    (args, kw), = capture_kernel_inputs(
+        lambda: engine.mean_fit(crm._ctx, M, len(d["y"]), True,
+                                (cfg.delta_logit_lo, cfg.delta_logit_hi,
+                                 cfg.n_delta_grid, cfg.n_golden_iters)),
+        ["null_fit"])["null_fit"]
+    return args, kw
+
+
 def aggregate_environment_phase(d, cfg):
     """``estimate_aggregate_environment`` of the planted variant on the
-    headline's Ls scanner: K10 (REML, M = [B, g]) launched once, the result
-    finite and within 1e-5 (tests/test_api.py:180) of the CPU's.  With E1 =
-    E the null family's E E^T part lies in the span of [B, g], so the REML
-    best rho is 0 and the aggregate exactly 0; the same call on a scanner
-    whose E1 background (a seeded (n, C) draw) lies outside that span gives
-    a non-zero aggregate, held in the same way."""
+    headline's Ls scanner: K10 (REML, M = [B, g], p = 12) launched once,
+    the result finite and within 1e-5 (tests/test_api.py:180) of the CPU's.
+    With E1 = E the null family's E E^T part lies in the span of [B, g], so
+    the REML best rho is 0 and the aggregate exactly 0; the same call on a
+    scanner whose E1 background (a seeded (n, C) draw) lies outside that
+    span gives a non-zero aggregate, held in the same way; that call's K10
+    operands give the p = 12 row (against the plain version, timed)."""
     import torch
 
     import cellregmap_tpu_torch as crp
@@ -1213,11 +1280,8 @@ def aggregate_environment_phase(d, cfg):
     Ls = crp.get_L_values(d["hK"], d["E"])
     g = d["G"][:, GXE_SNP]
     n = len(d["y"])
-    rng = np.random.default_rng(GXE_SNP)
-    E1 = rng.normal(size=d["E"].shape) / np.sqrt(d["E"].shape[1])
-    y1 = d["y"] + E1 @ rng.normal(size=E1.shape[1])
     out, counts = {}, None
-    for label, y, e1 in (("E1=E", d["y"], None), ("E1 outside E", y1, E1)):
+    for label, y, e1 in _aggregate_cases(d):
         crm = crp.CellRegMap(y=y, E=d["E"], E1=e1, W=d["W"], Ls=Ls,
                              config=cfg, device=CARD)
         kernels.reset_launches()
@@ -1236,18 +1300,21 @@ def aggregate_environment_phase(d, cfg):
         gap = float(np.max(np.abs(agg - agg_c)))
         assert gap <= 1e-5, f"aggregate environment: |gpu - cpu| = {gap}"
         # the REML fits' best rho
-        M = np.concatenate([engine.reduced_design_basis(d["W"], d["E"]),
-                            g[:, None]], axis=1)
-        fits = engine.mean_fit(crm._ctx, torch.as_tensor(M, device=CARD), n,
-                               True, (cfg.delta_logit_lo, cfg.delta_logit_hi,
-                                      cfg.n_delta_grid, cfg.n_golden_iters))
+        M = torch.as_tensor(_aggregate_M(d, g), device=CARD)
+        fits = engine.mean_fit(crm._ctx, M, n, True,
+                               (cfg.delta_logit_lo, cfg.delta_logit_hi,
+                                cfg.n_delta_grid, cfg.n_golden_iters))
         out[label] = dict(e2e_s=e2e_s, launches=c, max_abs_diff_cpu=gap,
                           max_abs=float(np.abs(agg).max()),
                           rho1=float(crm._rho_grid[int(fits.lml.argmax())]))
     assert out["E1 outside E"]["max_abs"] > 1e-3, \
         "aggregate environment: zero where E1 lies outside E"
     print("aggregate_environment: " + json.dumps(out), flush=True)
-    return out, counts
+    args, kw = aggregate_fit_call(d, cfg, crm)
+    row = check_null_fit_narrow(args, kw, "null_fit (p = 12)",
+                                "cellregmap_tpu/engine.py:849")
+    row["launches"] = counts["null_fit"]
+    return out, counts, row
 
 
 def scan_size(label, spec, cfg, warmup=True, cpu_check=0):
@@ -1788,15 +1855,18 @@ def wide_phase(cfg):
                                          device_pvalues=True),
         ["sym_eigvalsh"])
     k6a_c50 = check_sym_eigvalsh(calls["sym_eigvalsh"][0][0][0])
+    k6a_c64 = check_sym_eigvalsh(k6a_c64_matrices())
     out = dict(n_cells=n, n_contexts=C, n_donors=WIDE["n_donors"],
                R=R, p=p, host_setup_s=setup_s,
                card_setup_s=card_setup_s, aggregate_s=agg_s,
                max_abs_diff_cpu=gap, max_abs=float(np.abs(agg).max()),
                launches=counts, null_fit_gaps=gaps,
-               k6a_c50={k: k6a_c50[k] for k in
+               **{key: {k: r[k] for k in
                         ("max_abs_err", "ms", "plain_ms", "library_ms",
                          "bound_ms", "bound_by", "sweeps_max",
-                         "sweeps_mean", "shapes")})
+                         "sweeps_mean", "shapes")}
+                  for key, r in (("k6a_c50", k6a_c50),
+                                 ("k6a_c64", k6a_c64))})
     print("wide (C = 50): " + json.dumps(out), flush=True)
     print(f"kernel {k10_row['name']}: max_abs_err "
           f"{k10_row['max_abs_err']:.3e} ({k10_row['tolerance']}); ms "
@@ -1966,7 +2036,8 @@ def _gene_ctx(ctx, Y):
 
 
 def check_null_fit_genes(ctx_g, n):
-    """K10 with the gene axis on a gene tile's null fits: every gene's fits
+    """K10 with the gene axis on a gene tile's null fits (p = 1: the grid a
+    block per tile of up to 16 genes): every gene's fits
     through ``null_fit.fit_gaps`` at 1e-10.  The bound counts the grid's
     sums that no phenotype enters (the covariates' Gram and log d at the
     shared grid points) once per (rho, grid point), the phenotype's
@@ -2567,7 +2638,8 @@ def main() -> int:
     _, c_fls = fast_association_path("scan_association_fast_Ls", d, cfg,
                                      Ls=Ls)
     _, c_betas = betas_path(d, cfg)
-    _, c_agg = aggregate_environment_phase(d, cfg)
+    _, c_agg, k10_p12 = aggregate_environment_phase(d, cfg)
+    rows.append(k10_p12)
     _, k10_wide = wide_phase(cfg)
     rows.append(k10_wide)
     _, wide_cov_rows = wide_covariates_phase(cfg)

@@ -9,9 +9,26 @@ on the same operands, on one card in one process:
 * K3's localize at ``covariates_24`` (the headline dataset with W = [1, 23
   columns of N(0, 1), rng 24], 21 rho points) and at p = 8 (the first 8
   columns of that W), both from the batch's own K2 brackets;
-* the wide K10 on the aggregate environment's mean fit at 50 contexts
-  (``chip_smoke.WIDE``: 2000 cells, 100 donors, an E1 of 10 seeded
-  contexts; p = rank[W, E] + 1 = 52 mean columns, R = 2000, 11 rho);
+* K10 (``k10``) on the headline's association null fit (the Ls
+  scanner: p = 1, R = 1000, 11 rho, the association's 256-point grid and
+  60 golden-section steps, ML), on the aggregate environment's mean fit
+  on that scanner with an E1 outside E (``chip_smoke``'s phase: p = 12,
+  REML) and, wide, at 50 contexts (``chip_smoke.WIDE``: 2000 cells, 100
+  donors, an E1 of 10 seeded contexts; p = rank[W, E] + 1 = 52 mean
+  columns, R = 2000, 11 rho); K10 with the gene axis (``k10mg``) on the
+  ``assoc_multigene_16`` tile's null fit (16 genes, Y = y + 0.1 N(0, 1),
+  rng 11, p = 1);
+* K6a (``k6a``, ``csrc/sym_eigvalsh.cu``) on a headline interaction
+  batch's 512 weight matrices (C = 10), on a 512-variant batch at 50
+  contexts (``chip_smoke.WIDE``) and on 512 seeded PSD matrices at C =
+  64 (``chip_smoke.k6a_c64_matrices``), eigenvalues within 1e-12 of each
+  row's largest |lambda| of this checkout's plain version;
+* the headline scan (``scan``): ``scan_interaction`` of the headline's
+  2048 variants on a scanner already set up (2000 cells, the Ls
+  background), under davies and under auto, each side's scanner built
+  once and timed by host clock over ``--scan-reps`` scans a turn, in the
+  order other, this, this, other (every scan's seconds kept: their spread
+  is the run-to-run spread of one card and process);
 * K9 on each of the 9 calls of one headline effect-size batch (512
   variants, Rk = 1000, q = 23: five f32 zoom rounds, three f64 rounds, the
   f64 fit with coefficients), each call apart and their sums by precision;
@@ -49,15 +66,16 @@ runs, 10 for the localize and K9, 5 for K10) in the order other, this,
 this, other, and profiled with ``torch.profiler`` (device milliseconds a
 call in each kernel; None where the profiler saw no kernel).  Prints one JSON line per call and one of the whole;
 ``--out`` also writes that line to a file; ``--kernels`` picks some of
-k1, k3, k10, k9, k4, k3reg, k5, k3conv.
+k1, k3, k10, k10mg, k6a, k9, k4, k3reg, k5, k3conv, scan.
 
     python3 scripts/profile_kernel_ab.py --other <checkout> [--out FILE]
-        [--kernels k5,k3conv]
+        [--kernels k10,k10mg,k6a,scan] [--scan-reps 5]
 """
 import argparse
 import importlib.util
 import json
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -73,11 +91,14 @@ from cellregmap_tpu_torch.kernels import kr_contract as k1  # noqa: E402
 from cellregmap_tpu_torch.kernels import null_fit as k10  # noqa: E402
 from cellregmap_tpu_torch.kernels import reml_newton as k3  # noqa: E402
 from cellregmap_tpu_torch.kernels import score_core as k5  # noqa: E402
+from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a  # noqa: E402
 from cellregmap_tpu_torch.kernels import woodbury_family as k9  # noqa: E402
 
 KERNELS = {"k1": "kr_contract", "k3": "reml_newton", "k10": "null_fit",
+           "k10mg": "null_fit", "k6a": "sym_eigvalsh",
            "k9": "woodbury_family", "k4": "best_rho_rotate",
-           "k3reg": "reml_newton", "k5": "score_core", "k3conv": "reml_newton"}
+           "k3reg": "reml_newton", "k5": "score_core", "k3conv": "reml_newton",
+           "scan": None}
 
 
 def load_other(root: Path, name="other_crp"):
@@ -88,7 +109,7 @@ def load_other(root: Path, name="other_crp"):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    for kernel in KERNELS.values():
+    for kernel in set(KERNELS.values()) - {None}:
         importlib.import_module(f"{name}.kernels.{kernel}")
     return mod
 
@@ -139,6 +160,90 @@ def k10_wide_call():
                                           cfg.n_golden_iters)),
         ["null_fit"])["null_fit"]
     return args, kw
+
+
+def k10_calls(d, n, Ls, picked):
+    """(label, K10's (args, kw)) of the calls the module doc lists: with
+    ``k10`` the headline's association null fit, the aggregate
+    environment's p = 12 mean fit and the wide fit at 50 contexts; with
+    ``k10mg`` the ``assoc_multigene_16`` tile's null fit."""
+    ctx = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                    device="cuda")
+    out = []
+    if "k10" in picked:
+        out += [("headline Ls, p = 1", cs.capture_kernel_inputs(
+                    lambda: engine.null_association_fit(
+                        ctx, n, delta_cfg=cs.ASSOC_DELTA_CFG),
+                    ["null_fit"])["null_fit"][0]),
+                ("aggregate environment, p = 12",
+                 cs.aggregate_fit_call(d, crp.ScanConfig())),
+                ("wide, p = 52", k10_wide_call())]
+    if "k10mg" in picked:
+        ctx_g = cs._gene_ctx(ctx, cs._multigene_genes(d))
+        out.append(("genes", cs.capture_kernel_inputs(
+            lambda: engine.null_association_multigene_fit(
+                ctx_g, n, delta_cfg=cs.ASSOC_DELTA_CFG),
+            ["null_fit"])["null_fit"][0]))
+    return out
+
+
+def k6a_calls(d, n, G, Ls):
+    """(label, K6a's A (S, C, C)) of a headline interaction batch, of a
+    512-variant batch at 50 contexts and of 512 seeded PSD matrices at C =
+    64."""
+    ctx = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                    device="cuda")
+    head = cs.capture_kernel_inputs(
+        lambda: engine.interaction_batch(ctx, G, G, n,
+                                         delta_cfg=cs.DELTA_CFG,
+                                         device_pvalues=True),
+        ["sym_eigvalsh"])["sym_eigvalsh"][0][0][0]
+    dw = cs.make_dataset(**cs.WIDE)
+    nw = len(dw["y"])
+    ctx_w = engine.build_null_context(
+        dw["y"], dw["W"], dw["E"], Ls=crp.get_L_values(dw["hK"], dw["E"]),
+        device="cuda")
+    Gw = torch.as_tensor(dw["G"][:, :cs.BATCH], device="cuda").contiguous()
+    c50 = cs.capture_kernel_inputs(
+        lambda: engine.interaction_batch(ctx_w, Gw, Gw, nw,
+                                         delta_cfg=cs.DELTA_CFG,
+                                         device_pvalues=True),
+        ["sym_eigvalsh"])["sym_eigvalsh"][0][0][0]
+    return [("headline, C = 10", head), ("C = 50", c50),
+            ("C = 64", cs.k6a_c64_matrices())]
+
+
+def scan_ab(d, Ls, other, reps):
+    """The headline scan of both checkouts under davies and auto: each
+    side's scanner set up and scanned once, then ``reps`` timed scans a
+    turn in the order other, this, this, other, held equal to the first
+    scan of this checkout within 1e-8 (absolute)."""
+    out = {}
+    for method in ("davies", "auto"):
+        crms = {}
+        for side, pkg in (("this", crp), ("other", other)):
+            crms[side] = pkg.CellRegMap(
+                y=d["y"], E=d["E"], W=d["W"], Ls=Ls, device="cuda",
+                config=pkg.ScanConfig(snp_batch=cs.BATCH,
+                                      pvalue_method=method))
+            pv, _ = crms[side].scan_interaction(d["G"])
+            if side == "this":
+                ref = pv
+            assert np.max(np.abs(pv - ref)) <= 1e-8, f"scan {method} ({side})"
+        times = {"this": [], "other": []}
+        for side in ("other", "this", "this", "other"):
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                crms[side].scan_interaction(d["G"])
+                torch.cuda.synchronize()
+                times[side].append(time.perf_counter() - t0)
+        out[method] = {side: dict(median_s=float(np.median(t)),
+                                  min_s=min(t), max_s=max(t), s=t)
+                       for side, t in times.items()}
+        print(json.dumps({"scan": method, **out[method]}), flush=True)
+        del crms
+    return out
 
 
 def k9_calls(d):
@@ -281,16 +386,27 @@ def main():
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--kernels", default="k1,k3,k10,k9,k4,k3reg")
+    ap.add_argument("--scan-reps", type=int, default=5)
     opt = ap.parse_args()
     picked = opt.kernels.split(",")
     assert set(picked) <= set(KERNELS), f"--kernels: some of {list(KERNELS)}"
-    sources = tuple(sorted({KERNELS[k] for k in picked}))
+    sources = tuple(sorted({KERNELS[k] for k in picked} - {None}))
+    if "scan" in picked:
+        sources = _build.SOURCES
 
     other = load_other(opt.other.resolve())
-    ok = {k: getattr(other.kernels, KERNELS[k]) for k in picked}
-    _build.build_all(sources)
-    other.kernels._build.build_all(sources)
-    out = {"card": cs.card_line(), "other": str(opt.other), "calls": []}
+    ok = {k: getattr(other.kernels, KERNELS[k]) for k in picked
+          if KERNELS[k]}
+    out = {"card": cs.card_line(), "other": str(opt.other), "calls": [],
+           "ptxas": {}}
+    # every source built (with -Xptxas -v) before anything runs; the
+    # picked kernels' registers, stack and spills on each side
+    for side, build in (("this", _build), ("other", other.kernels._build)):
+        logs = build.build_all(sources, verbose=True)
+        out["ptxas"][side] = {
+            name: cs.ptxas_report(logs.get(f"{name}.ptxas", ""))
+            for name in sorted({KERNELS[k] for k in picked} - {None})}
+    print(json.dumps({"ptxas": out["ptxas"]}), flush=True)
 
     d = cs.make_dataset(**cs.HEADLINE)
     n = len(d["y"])
@@ -421,20 +537,44 @@ def main():
             out["reml_converge_sums_ms"] = sums
             print(json.dumps(sums), flush=True)
 
-    if "k10" in picked:
-        args, kw = k10_wide_call()
-        data, n_c, restricted = args[:3]
-        plain = k10.null_fit_plain(*args, **kw)
+    if "k10" in picked or "k10mg" in picked:
+        for label, (args, kw) in k10_calls(d, n, Ls, picked):
+            data, n_c, restricted = args[:3]
+            plain = k10.null_fit_plain(*args, **kw)
 
-        def check(label, got):
-            gaps = k10.fit_gaps(got, plain, data, n_c, restricted)
-            assert max(gaps.values()) <= 1e-10, f"K10 wide ({label}): {gaps}"
+            def check(side, got, plain=plain, data=data, n_c=n_c,
+                      restricted=restricted, label=label):
+                gaps = k10.fit_gaps(got, plain, data, n_c, restricted)
+                assert max(gaps.values()) <= 1e-10, \
+                    f"K10 {label} ({side}): {gaps}"
 
-        out["calls"].append(compare(
-            f"null_fit (wide, p = {data.Xt.shape[2]})",
-            lambda: k10.null_fit(*args, **kw),
-            lambda: ok["k10"].null_fit(*args, **kw), check, reps=5))
-        del args, kw, data, plain
+            key = "k10mg" if label == "genes" else "k10"
+            out["calls"].append(compare(
+                f"null_fit ({label})",
+                lambda a=args, k=kw: k10.null_fit(*a, **k),
+                lambda a=args, k=kw, key=key: ok[key].null_fit(*a, **k),
+                check, reps=5))
+            del args, kw, data, plain
+
+    if "k6a" in picked:
+        for label, A in k6a_calls(d, n, G, Ls):
+            want = k6a.sym_eigvalsh_plain(A)
+            scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-300)
+
+            def check(side, got, want=want, scale=scale, label=label):
+                rel = float(((got - want).abs() / scale).max())
+                assert rel <= 1e-12, f"K6a {label} ({side}): rel {rel}"
+                assert bool((got[:, 1:] >= got[:, :-1]).all()), \
+                    f"K6a {label} ({side}): order"
+
+            out["calls"].append(compare(
+                f"sym_eigvalsh ({label})",
+                lambda A=A: k6a.sym_eigvalsh(A),
+                lambda A=A: ok["k6a"].sym_eigvalsh(A), check, reps=20))
+            del A, want
+
+    if "scan" in picked:
+        out["scans"] = scan_ab(d, Ls, other, opt.scan_reps)
 
     if "k9" in picked:
         rows = []

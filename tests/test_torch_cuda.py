@@ -265,7 +265,7 @@ def test_reml_newton_kernel_matches_plain(cuda, p, nrho, f32):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [1, 2, 5, 20, 52])
+@pytest.mark.parametrize("p", [1, 2, 5, 12, 16, 20, 52])
 @pytest.mark.parametrize("restricted", [False, True])
 def test_null_fit_kernel_matches_plain(cuda, p, restricted):
     from cellregmap_tpu_torch import engine
@@ -282,6 +282,33 @@ def test_null_fit_kernel_matches_plain(cuda, p, restricted):
     fits = k10.null_fit(*args, **kw)
     assert k10.launches == before + 1
     gaps = k10.fit_gaps(fits, k10.null_fit_plain(*args, **kw), args[0], n,
+                        restricted)
+    assert max(gaps.values()) <= 1e-10, gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genes", [3, 17])
+@pytest.mark.parametrize("restricted", [False, True])
+def test_null_fit_kernel_gene_tiles(cuda, genes, restricted):
+    """K10 at p = 1 with a gene axis: the grid a block per tile of up to 16
+    genes (17: tiles of 9 and 8), each gene's fits as the plain
+    version's."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+
+    ctx, _, n = fit_dataset(60 + genes, p=1, nrho=11, n=300, C=4, donors=30,
+                            device=cuda)
+    rng = np.random.default_rng(genes)
+    Y = ctx.y[None] + 0.4 * torch.as_tensor(rng.normal(size=(genes, n)),
+                                            device=cuda)
+    ctx = ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W, yy=(Y * Y).sum(dim=1))
+    (args, kw), = captured(lambda: engine.null_association_multigene_fit(
+        ctx, n, delta_cfg=(-18.0, 18.0, 256, 60)), ["null_fit"])["null_fit"]
+    data = args[0]
+    assert data.yt.shape[:2] == (genes, 11) and data.Xt.shape[2] == 1
+    args = (data, n, restricted, *args[3:])
+    fits = k10.null_fit(*args, **kw)
+    gaps = k10.fit_gaps(fits, k10.null_fit_plain(*args, **kw), data, n,
                         restricted)
     assert max(gaps.values()) <= 1e-10, gaps
 
@@ -468,7 +495,7 @@ def test_betas_on_card_match_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [3, 10, 50])
+@pytest.mark.parametrize("C", [3, 10, 32, 33, 50, 64])
 def test_sym_eigvalsh_kernel_matches_plain(cuda, C):
     from cellregmap_tpu_torch.kernels import score_core as k5
     from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a
@@ -485,7 +512,29 @@ def test_sym_eigvalsh_kernel_matches_plain(cuda, C):
     want = k6a.sym_eigvalsh_plain(A)
     scale = want.abs().amax(dim=1, keepdim=True)
     assert float(((lam - want).abs() / scale).max()) <= 1e-12
-    assert 0 < int(sweeps.max()) < 30
+    # Jacobi sweeps up to 32 contexts, bisection steps above
+    cap = k6a.MAX_SWEEPS if C <= k6a.WARP_MAX_C else k6a.MAX_BISECT
+    assert 0 < int(sweeps.max()) < cap
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_shapes_past_the_envelope(cuda):
+    """The wrappers raise before any launch on a shape their kernels do not
+    take: K6a past 64 contexts, K10 past 128 mean columns."""
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+    from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a
+
+    before = (k6a.launches, k10.launches)
+    with pytest.raises(ValueError, match="64 x 64"):
+        k6a.sym_eigvalsh(torch.zeros((2, 65, 65), dtype=torch.float64,
+                                     device=cuda))
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float64,  # noqa: E731
+                                   device=cuda)
+    data = k10.EigData(S=z(2, 40), Xt=z(2, 40, 129), yt=z(2, 40),
+                       Cxx=z(2, 129, 129), cxy=z(2, 129), cyy=z(2))
+    with pytest.raises(ValueError, match="p <= 128"):
+        k10.null_fit(data, 500, True, -18.0, 18.0, 64, 60)
+    assert (k6a.launches, k10.launches) == before
 
 
 @pytest.mark.cuda

@@ -36,7 +36,8 @@ from cellregmap_tpu_torch import engine as tengine
 from cellregmap_tpu_torch.kernels import mixture_tails as k6b
 from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a
 from cellregmap_tpu_torch.models import pvalues as tpv
-from _torch_inputs import assert_tails_close, tail_battery
+from _torch_inputs import (assert_tails_close,  # noqa: F401
+                           jax_davies_library, tail_battery)
 from test_api import _dataset
 
 DELTA_CFG = (-18.0, 18.0, 64, 60)
