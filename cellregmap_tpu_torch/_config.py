@@ -45,8 +45,11 @@ class ScanConfig:
     lambda_filter_ratio:
         Mixture-weight filter: keep eigenvalues > mean(positive)/ratio.
     dtype:
-        "float64" (statistical parity).  The float32 screen context is not
-        ported yet.
+        "float64" (statistical parity) or "float32": the interaction
+        scans' heavy tensors (contractions, rotations, the delta grid, the
+        localizing Newton steps, the score factors, the mixture weights) in
+        f32, their per-variant statistics in f64, as the JAX package's
+        float32 context.  The other scans refuse it.
     hybrid_localization:
         Localize the REML optimum (delta grid + first Newton steps) in f32,
         then converge and score in f64.

@@ -8,9 +8,14 @@ one factorization, a capability the reference lacks), ``run_association``
 (:246-281, :471-500),
 ``run_association_fast`` (:284-314, :502-531), ``estimate_betas``
 (:137-205, :640-682), ``CellRegMap.estimate_aggregate_environment``
-(:207-244), and the gene-batched association scans
+(:207-244), the gene-batched association scans
 ``run_association_multigene`` and ``run_association_fast_multigene``
-(many genes sharing one factorization).  Every entry
+(many genes sharing one factorization), and the two-pass interaction
+scans ``run_interaction_screen`` / ``CellRegMap.scan_interaction_screen``
+and ``CellRegMap.scan_interaction_multigene_screen`` (a float32 screen of
+every pair, then the float64 Davies scan of the candidate hits).
+``ScanConfig(dtype="float32")`` runs the interaction scans in the float32
+context; every other scan refuses it.  Every entry
 point runs on ``device``: CUDA unless the caller passes ``device="cpu"``.
 Without a card and without an explicit device it raises; it never falls
 back to the CPU.  Every scan takes ``checkpoint=``, a directory where
@@ -19,14 +24,16 @@ and from which a restarted call with the same inputs resumes.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import os
+
 import numpy as np
 import torch
 
-import hashlib
-
 from . import engine
 from ._config import DEFAULT_CONFIG, ScanConfig
-from .kernels import delta_grid, score_core, sym_eigvalsh
+from .kernels import delta_grid, reml_newton, score_core, sym_eigvalsh
 from .kernels.delta_grid import MAX_GENES
 from .models import pvalues as pv_mod
 from .ops.hadamard import get_L_values
@@ -39,6 +46,8 @@ from .utils.maf import compute_maf
 # host eigenvalues of the davies and auto methods) and the device tails
 _INFO_KEYS = ("Q", "rho1", "e2", "g2", "eps2")
 _TAIL_KEYS = ("pv_liu", "pv_saddlepoint")
+# what a screen batch copies back: the device tails and the info entries
+_SCREEN_KEYS = _TAIL_KEYS + _INFO_KEYS
 _PVALUE_METHODS = ("davies", "liu", "saddlepoint", "auto")
 # the most variants a batch takes, with or without a gene tile: the
 # kernels' grids put the variants on their 2^31-wide dimension and the
@@ -75,15 +84,20 @@ def _resolve_device(device=None) -> torch.device:
 # limit of its own.  Inside it rank[W, E] <= p + C <= 96, which the effect
 # sizes (K9: q = C + rank[W, E] + 2 <= 162 columns) and the aggregate
 # environment (K10: rank[W, E] + 1 <= 128 mean columns) take.
+# The float32 context's Newton kernels take p + 1 <= 16 (K3's f32
+# instantiations).
 CARD_MAX_COVARIATES = min(delta_grid.MAX_FIXED, score_core.MAX_FIXED) - 1
+CARD_MAX_COVARIATES_F32 = reml_newton.MAX_FIXED_F32 - 1
 CARD_MAX_CONTEXTS = sym_eigvalsh.MAX_C
 
 
-def _check_card_envelope(p: int, C: int) -> None:
+def _check_card_envelope(p: int, C: int, f32: bool = False) -> None:
     """Raise ValueError, naming the limit and the shape, where the card's
-    kernels would refuse the scanner's shapes."""
+    kernels would refuse the scanner's shapes (``f32``: the float32
+    context's)."""
     for what, got, limit in (("covariates (columns of W)", p,
-                              CARD_MAX_COVARIATES),
+                              CARD_MAX_COVARIATES_F32 if f32
+                              else CARD_MAX_COVARIATES),
                              ("contexts (columns of E)", C,
                               CARD_MAX_CONTEXTS)):
         if got > limit:
@@ -141,7 +155,7 @@ def _pipelined(starts, launch, consume, timers, kind, device, window=4):
 
 def _run_checkpointed(starts, launch, checkpoint, ck_meta, timers, kind,
                       device, checkpoint_every: int = 1, axes=None,
-                      finish=None, progress=False, desc="scan"):
+                      finish=None, progress=False, desc="scan", keep=False):
     """Run ``launch(start)`` for every start (the JAX package's
     ``_run_checkpointed``, api.py:60-106) and return the results
     concatenated on the host, key by key (along ``axes.get(key, 0)``).
@@ -151,9 +165,12 @@ def _run_checkpointed(starts, launch, checkpoint, ck_meta, timers, kind,
     ``checkpoint_every``-th completed unit (and the last) is durable before
     the next is launched; a call whose ``ck_meta`` (shapes and content
     fingerprints) matches the stored one resumes at its cursor, any other
-    call starts over.  The checkpoint is cleared at the end.  ``finish``
-    maps a unit's host results to what is kept (a batch's p-value ladder,
-    run while later batches compute).
+    call starts over.  The checkpoint is cleared at the end, unless
+    ``keep`` (a pass that later work depends on: the screen's, which a
+    stop in the confirm pass must not lose); a kept, complete checkpoint
+    resumes with no unit left to run.  ``finish`` maps a unit's host
+    results to what is kept (a batch's p-value ladder, run while later
+    batches compute).
     """
     axes = axes or {}
     starts = list(starts)
@@ -183,7 +200,7 @@ def _run_checkpointed(starts, launch, checkpoint, ck_meta, timers, kind,
     _pipelined(_batch_starts(starts[done:], 1, progress, desc), launch,
                consume, timers, kind, device,
                window=4 if ckpt is None else 1)
-    if ckpt is not None:
+    if ckpt is not None and not keep:
         ckpt.clear()
     return cat(acc)
 
@@ -220,17 +237,20 @@ class CellRegMap:
 
     Interaction test: H0: v3 = 0 vs H1: v3 > 0 (score test).  Association
     test: H0: b1 = 0 vs H1: b1 != 0 (LRT with per-variant ML refits).
+
+    ``config.dtype``: "float64", or "float32" (the float32 context: the
+    interaction scans' heavy tensors f32 and their statistics f64, as the
+    JAX package's; the other scans refuse it).
     """
 
     def __init__(self, y, E, W=None, Ls=None, E1=None, hK=None,
                  config: ScanConfig = DEFAULT_CONFIG, device=None):
-        if config.dtype != "float64":
-            raise NotImplementedError(
-                "the port runs float64 contexts only; the float32 screen "
-                "context comes with the screen slice")
+        if config.dtype not in ("float64", "float32"):
+            raise ValueError(f"unknown dtype {config.dtype!r}")
         self._cfg = config
         self._device = _resolve_device(device)
-        self._dtype = torch.float64
+        self._dtype = (torch.float64 if config.dtype == "float64"
+                       else torch.float32)
 
         y = np.asarray(y, float).ravel()
         E0 = np.asarray(E, float)
@@ -256,11 +276,13 @@ class CellRegMap:
         else:
             self._rho_grid = np.array([1.0])
         if self._device.type == "cuda":
-            _check_card_envelope(W.shape[1], E0.shape[1])
+            _check_card_envelope(W.shape[1], E0.shape[1],
+                                 self._dtype == torch.float32)
         self._y, self._W, self._E0, self._E1 = y, W, E0, E1
         self._Ls, self._hK = Ls, hK
         self._n = n
         self._ctx_cache = None
+        self._ctx32_cache = None
         self._null_assoc = None
         self._bctx = None
 
@@ -296,6 +318,7 @@ class CellRegMap:
         new.__dict__ = dict(self.__dict__)
         new._y = y
         new._null_assoc = None
+        new._ctx32_cache = None
         ctx = self._ctx
         yt = self._upload(y)
         new._ctx_cache = ctx._replace(y=yt, Zy=ctx.Z.T @ yt, Wy=ctx.W.T @ yt,
@@ -315,13 +338,24 @@ class CellRegMap:
         return _content_sha(self._y, self._W, self._E0, self._E1, *bg,
                             *arrays)
 
-    def _upload(self, a) -> torch.Tensor:
-        """A host array on the scan's device: through pinned memory and a
+    def _upload(self, a, dtype=None) -> torch.Tensor:
+        """A host array on the scan's device in ``dtype`` (the scanner's
+        context dtype by default): through pinned memory and a
         non-blocking copy on the card."""
-        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64))
+        dtype = self._dtype if dtype is None else dtype
+        t = torch.from_numpy(np.ascontiguousarray(
+            a, dtype=np.float32 if dtype == torch.float32 else np.float64))
         if self._device.type == "cuda":
             return t.pin_memory().to(self._device, non_blocking=True)
         return t.to(self._device)
+
+    def _require_float64(self, path: str) -> None:
+        """Refuse the float32 context on a path that has no f32 kernels."""
+        if self._dtype != torch.float64:
+            raise NotImplementedError(
+                f"{path} runs in float64 only: ScanConfig(dtype='float32') "
+                f"is taken by scan_interaction and "
+                f"scan_interaction_multigene (and the screens' f32 pass)")
 
     # -- interaction -------------------------------------------------------
     def scan_interaction(self, G, idx_E=None, idx_G=None, checkpoint=None,
@@ -400,6 +434,212 @@ class CellRegMap:
                             **{f"s_{k.rsplit('/', 1)[-1]}": v
                                for k, v in timers.summary().items()})
         return np.asarray(pvalues, float), info
+
+    # -- two-pass screen -> confirm (f32 screen, f64 + Davies confirm) -----
+    def _with_config(self, config: ScanConfig) -> "CellRegMap":
+        """A view of this scanner with another config (shared caches)."""
+        new = object.__new__(CellRegMap)
+        new.__dict__ = dict(self.__dict__)
+        new._cfg = config
+        return new
+
+    @property
+    def _ctx32(self) -> engine.NullContext:
+        """The float32 copy of the null context for the screen pass: a
+        device cast of the float64 context, built once (no second host
+        factorization)."""
+        if self._ctx32_cache is None:
+            self._ctx32_cache = engine.NullContext(
+                *(t.to(torch.float32) for t in self._ctx))
+        return self._ctx32_cache
+
+    def _confirm_scanner(self) -> "CellRegMap":
+        """The confirm pass's scanner: Davies tails always, on a float64
+        base config."""
+        if self._cfg.dtype != "float64":
+            raise ValueError(
+                "screen->confirm scans need a float64 base config (the "
+                "confirm pass re-tests hits at full precision)")
+        if self._cfg.pvalue_method == "davies":
+            return self
+        return self._with_config(dataclasses.replace(
+            self._cfg, pvalue_method="davies"))
+
+    @staticmethod
+    def _screen_pvalues(scr, thr):
+        """(screen_pv, hits, info) of a screen's results: the saddlepoint
+        value where it is finite, else Liu; the hits below ``thr`` or not
+        finite; the info entries as f64."""
+        sp = np.asarray(scr["pv_saddlepoint"], float)
+        screen_pv = np.where(np.isfinite(sp), sp,
+                             np.asarray(scr["pv_liu"], float))
+        hits = (~np.isfinite(screen_pv)) | (screen_pv < thr)
+        info = {k: np.asarray(scr[k], float) for k in _INFO_KEYS}
+        return screen_pv, hits, info
+
+    def _confirm(self, confirm, G, idx, checkpoint=None,
+                 checkpoint_every: int = 1):
+        """The f64 Davies scan of the variants ``idx`` of G, padded to one
+        canonical width by repeating the first hit's column (hit sets are
+        small by design: the JAX package's 64, api.py:475-481)."""
+        cb = min(64, self._cfg.snp_batch, self._auto_batch_cap())
+        Gh = G[:, idx]
+        pad = (-Gh.shape[1]) % cb
+        if pad:
+            Gh = np.concatenate([Gh, np.repeat(Gh[:, :1], pad, axis=1)],
+                                axis=1)
+        pv_c, info_c = confirm.scan_interaction(
+            Gh, checkpoint=checkpoint, checkpoint_every=checkpoint_every)
+        return pv_c[: idx.size], {k: np.asarray(info_c[k], float)[: idx.size]
+                                  for k in _INFO_KEYS}
+
+    def scan_interaction_screen(self, G, significance: float = 5e-8,
+                                screen_margin: float = 100.0,
+                                checkpoint=None, checkpoint_every: int = 1):
+        """Two-pass interaction scan (the JAX package's, api.py:402-501): a
+        float32 screen of every variant, then the float64 Davies re-test
+        of the candidate hits.
+
+        Pass 1 runs the interaction batch in the float32 context (the
+        f32 instantiations of K1-K4 and K6a, K5 on f32 operands; the
+        statistics f64) with the device tails.  Pass 2 re-tests every
+        variant whose screen p-value (the saddlepoint value, else Liu) is
+        below ``significance * screen_margin`` (capped at 1) or not finite,
+        through :meth:`scan_interaction` with Davies tails, in batches of
+        one canonical width.
+
+        Contract: a variant whose f64 p-value is below ``significance`` is
+        confirmed and reported with its f64 Davies p-value, as long as the
+        screen's error stays within ``screen_margin``; the others carry
+        their screen p-value.  Returns ``(pvalues, info)``: info holds
+        rho1, e2, g2, eps2, Q (the confirm's where confirmed),
+        ``screen_pv``, ``confirmed``, ``screen_threshold`` and
+        ``n_confirmed``.
+
+        ``checkpoint``: optional directory; the screen's batches are made
+        durable under ``screen/`` and the confirm's under ``confirm/``.
+        The screen's checkpoint is kept until the confirm pass is done, so
+        that a stop in the confirm pass resumes without the screen.
+        """
+        cfg = self._cfg
+        confirm = self._confirm_scanner()
+        G = np.asarray(G, float)
+        if G.ndim == 1:
+            G = G[:, None]
+        n_snps = G.shape[1]
+        thr = min(1.0, float(significance) * float(screen_margin))
+        timers = trace.PhaseTimers() if cfg.trace else None
+        dev = self._device
+        with trace.trace_scope("screen/setup", timers, dev):
+            ctx32 = self._ctx32
+        batch = min(cfg.snp_batch * 2, 4 * self._auto_batch_cap(),
+                    _MAX_BATCH, max(n_snps, 1))
+        Gp, _ = _pad_batch(G, batch)
+        delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
+                     cfg.n_delta_grid_interaction, cfg.n_golden_iters)
+
+        def launch(start):
+            gb = self._upload(Gp[:, start : start + batch], torch.float32)
+            out = engine.interaction_batch(ctx32, gb, gb, self._n,
+                                           delta_cfg=delta_cfg,
+                                           device_pvalues=True)
+            return {k: out[k] for k in _SCREEN_KEYS}
+
+        ck = (None, None) if checkpoint is None else (
+            os.path.join(str(checkpoint), "screen"),
+            os.path.join(str(checkpoint), "confirm"))
+        ck_meta = {"scan": "interaction_screen", "n_snps": n_snps,
+                   "batch": batch,
+                   "inputs_sha": (self._inputs_sha(G)
+                                  if checkpoint is not None else None)}
+        scr = _run_checkpointed(
+            range(0, Gp.shape[1], batch), launch, ck[0], ck_meta, timers,
+            "screen", dev, checkpoint_every, progress=cfg.progress,
+            desc="screen", keep=True)
+        screen_pv, hits, info = self._screen_pvalues(
+            {k: v[:n_snps] for k, v in scr.items()}, thr)
+        idx = np.flatnonzero(hits)
+        pvalues = screen_pv.copy()
+        if idx.size:
+            with trace.trace_scope("screen/confirm", timers, dev):
+                pvalues[idx], info_c = self._confirm(confirm, G, idx, ck[1],
+                                                     checkpoint_every)
+            for k in info:
+                info[k][idx] = info_c[k]
+        if ck[0] is not None:
+            ScanCheckpoint(ck[0]).clear()
+        info.update(screen_pv=screen_pv, confirmed=hits,
+                    screen_threshold=thr, n_confirmed=int(idx.size))
+        if timers is not None:
+            info["timers"] = timers.summary()
+        return pvalues, info
+
+    def scan_interaction_multigene_screen(self, Y, G, gene_batch: int = 16,
+                                          significance: float = 5e-8,
+                                          screen_margin: float = 100.0):
+        """Gene-batched two-pass interaction scan (the JAX package's,
+        api.py:503-595): the float32 screen of every (gene, variant) pair
+        through the gene-batched interaction batch, then each gene's
+        candidate hits re-tested through the single-gene float64 Davies
+        scan (see :meth:`scan_interaction_screen` for the contract).
+
+        Returns ``(pvalues (n_genes, n_snps), info)`` with ``confirmed`` /
+        ``screen_pv`` shaped like pvalues.  No ``checkpoint=``: the JAX
+        method has none.
+        """
+        cfg = self._cfg
+        confirm = self._confirm_scanner()
+        Y, G = self._gene_inputs(Y, G)
+        n_genes, n_snps = Y.shape[1], G.shape[1]
+        gtile = max(1, min(gene_batch, n_genes, MAX_GENES))
+        thr = min(1.0, float(significance) * float(screen_margin))
+        dev = self._device
+        ctx32 = self._ctx32
+        nrho, R = (int(d) for d in ctx32.S.shape)
+        C = int(ctx32.E0.shape[1])
+        # the JAX package's accounting: the statistics stages hold the
+        # f64 (gene, S, nrho, R) weight families (its api.py:532-537)
+        per_gv = (nrho * R * 2 + (3 * C + 6) * R) * 8 * 8
+        batch = min(cfg.snp_batch * 2, max(16, int(5e9 / per_gv / gtile)),
+                    _MAX_BATCH, max(n_snps, 1))
+        Gp, _ = _pad_batch(G, batch)
+        Yp, _ = _pad_batch(Y, gtile)
+        delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
+                     cfg.n_delta_grid_interaction, cfg.n_golden_iters)
+
+        tiles = []
+        for g0 in _batch_starts(range(0, Yp.shape[1], gtile), gtile,
+                                cfg.progress, "screen_multigene"):
+            ctx_g = self._gene_tile(ctx32, Yp, g0, gtile)
+            parts: list = []
+
+            def launch(start):
+                gb = self._upload(Gp[:, start : start + batch],
+                                  torch.float32)
+                out = engine.interaction_multigene_batch(
+                    ctx_g, gb, gb, self._n, delta_cfg=delta_cfg,
+                    device_pvalues=True)
+                return {k: out[k] for k in _SCREEN_KEYS}
+
+            _pipelined(range(0, Gp.shape[1], batch), launch, parts.append,
+                       None, "screen_multigene", dev, window=2)
+            tiles.append({k: np.concatenate([o[k] for o in parts],
+                                            axis=1)[:, :n_snps]
+                          for k in parts[0]})
+        scr = {k: np.concatenate([t[k] for t in tiles])[:n_genes]
+               for k in tiles[0]}
+        screen_pv, hits, info = self._screen_pvalues(scr, thr)
+        pvalues = screen_pv.copy()
+        for g in range(n_genes):
+            idx = np.flatnonzero(hits[g])
+            if idx.size:
+                pvalues[g, idx], info_c = self._confirm(
+                    confirm.with_phenotype(Y[:, g]), G, idx)
+                for k in info:
+                    info[k][g, idx] = info_c[k]
+        info.update(screen_pv=screen_pv, confirmed=hits,
+                    screen_threshold=thr, n_confirmed=int(hits.sum()))
+        return pvalues, info
 
     def _auto_batch_cap(self, kind: str = "interaction",
                         genes: int = 1) -> int:
@@ -505,6 +745,7 @@ class CellRegMap:
         event.  ``checkpoint``: as in :meth:`scan_interaction`, per
         variant batch.
         """
+        self._require_float64("scan_association")
         cfg = self._cfg
         G = np.asarray(G, float)
         if G.ndim == 1:
@@ -552,6 +793,7 @@ class CellRegMap:
         alternative re-profiled at the null's delta and best rho (K8).
         Returns ``(pvalues, info)`` as :meth:`scan_association`; batches
         are pipelined, and ``checkpoint`` taken, in the same way."""
+        self._require_float64("scan_association_fast")
         cfg = self._cfg
         G = np.asarray(G, float)
         if G.ndim == 1:
@@ -608,6 +850,7 @@ class CellRegMap:
         over its own covariance family runs on the device (K1, K9); batches
         are pipelined, and ``checkpoint`` taken, as in
         :meth:`scan_interaction`."""
+        self._require_float64("predict_interaction (estimate_betas)")
         cfg = self._cfg
         G = np.asarray(G, float)
         if G.ndim == 1:
@@ -654,6 +897,7 @@ class CellRegMap:
         (reference :207-244).  The REML fits over the null's rho grid with
         the mean [B, g] run on the device (K10); the per-g covariance
         solve is a Woodbury solve on the host."""
+        self._require_float64("estimate_aggregate_environment")
         cfg = self._cfg
         g = np.asarray(g, float).ravel()
         n = self._n
@@ -743,9 +987,10 @@ class CellRegMap:
 
     def _gene_tile(self, ctx, Yp, g0, gtile):
         """The context of the gene tile at ``g0``: its phenotypes uploaded
-        gene-major (the kernels take contiguous operands), with their
-        rotations."""
-        Yg = self._upload(np.ascontiguousarray(Yp[:, g0 : g0 + gtile].T))
+        gene-major (the kernels take contiguous operands) in ``ctx``'s
+        dtype, with their rotations."""
+        Yg = self._upload(np.ascontiguousarray(Yp[:, g0 : g0 + gtile].T),
+                          ctx.y.dtype)
         return ctx._replace(y=Yg, Zy=Yg @ ctx.Z, Wy=Yg @ ctx.W,
                             yy=(Yg * Yg).sum(dim=1))
 
@@ -844,6 +1089,7 @@ class CellRegMap:
         cfg = self._cfg
         kind = "association_fast_multigene" if fast else \
             "association_multigene"
+        self._require_float64(f"scan_{kind}")
         Y, G = self._gene_inputs(Y, G)
         n_genes = Y.shape[1]
         gtile = max(1, min(gene_batch, n_genes, MAX_GENES))
@@ -1069,3 +1315,22 @@ def estimate_betas(y, W, E, G, maf=None, E1=None, E2=None, hK=None,
     if maf is None:
         maf = compute_maf(G)
     return crm.predict_interaction(G, maf, checkpoint=checkpoint)
+
+
+def run_interaction_screen(y, E, G, W=None, E1=None, E2=None, hK=None,
+                           significance: float = 5e-8,
+                           screen_margin: float = 100.0,
+                           config: ScanConfig = DEFAULT_CONFIG, device=None):
+    """Two-pass interaction scan: a float32 screen of every variant, the
+    float64 Davies re-test of the candidate hits (screen p-value below
+    ``significance * screen_margin``); the JAX package's
+    ``run_interaction_screen`` (api.py:1220-1235).  See
+    :meth:`CellRegMap.scan_interaction_screen` for the contract.  Runs on
+    ``device`` (the card unless "cpu" is given)."""
+    E1 = E if E1 is None else E1
+    E2 = E if E2 is None else E2
+    Ls = None if hK is None else get_L_values(hK, E2)
+    crm = CellRegMap(y=y, E=E, W=W, E1=E1, Ls=Ls, config=config,
+                     device=device)
+    return crm.scan_interaction_screen(G, significance=significance,
+                                       screen_margin=screen_margin)

@@ -47,6 +47,15 @@
 //   exits at once.  The q tiles of a column tile run next to each other
 //   (its Tt columns stay in L2), and a rho's tiles follow one another
 //   (its V[k], 8 MB, stays in L2).
+//
+// The float32 context (the screen's, engine.py:672-688 on an f32
+// NullContext: V and T f32, the product and its sums f32) runs the same
+// slots, lists and transpose, then rotate_gemm_f32_kernel: plain FP32 FMA
+// (mma.sync has no f32 form, and TF32 is not the reference's f32), a block
+// per (64-column tile of one rho's columns, 64-row q tile) as above, 256
+// threads of 4 x 4 sums each over a two-stage cp.async ring of 16-row
+// chunks (4-byte copies).  Its bound is the same 2 R^2 C flop per distinct
+// pair, at the 67 TFLOP/s of the FP32 pipes.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -76,14 +85,14 @@ struct Layout {
   int64_t rank, list, count, tt, total;
 };
 
-inline Layout layout(int nrho, int R, int C, int S) {
+inline Layout layout(int nrho, int R, int C, int S, int esize = 8) {
   Layout L;
   const int64_t ks = (int64_t)nrho * S * 4;
   L.rank = 0;
   L.list = round_up(ks, 256);
   L.count = L.list + round_up(ks, 256);
   L.tt = L.count + round_up((int64_t)nrho * 4, 256);
-  L.total = L.tt + (int64_t)S * R * C * 8;
+  L.total = L.tt + (int64_t)S * R * C * esize;
   return L;
 }
 
@@ -148,10 +157,11 @@ rotate_lists_kernel(const int* __restrict__ rank, int* __restrict__ list,
 }
 
 // Tt (S, R C) = T (R C, S)^T, 32 x 32 tiles through shared memory
+template <class F>
 __global__ void __launch_bounds__(256)
-rotate_transpose_kernel(const double* __restrict__ T,
-                        double* __restrict__ Tt, int64_t RC, int S) {
-  __shared__ double tile[32][33];
+rotate_transpose_kernel(const F* __restrict__ T, F* __restrict__ Tt,
+                        int64_t RC, int S) {
+  __shared__ F tile[32][33];
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   const int s0 = blockIdx.x * 32;
   const int64_t e0 = (int64_t)blockIdx.y * 32;
@@ -321,6 +331,120 @@ rotate_gemm_kernel(const double* __restrict__ V,
       }
 }
 
+// The float32 context's grouped product: the work item as in
+// rotate_gemm_kernel, a 64 (q) x 64 (column) tile, 256 threads of 4 x 4
+// FP32 sums over 16-row chunks of V[k] and of the gathered Tt columns.
+constexpr int F_THREADS = 256;
+constexpr int F_NC = 16;  // rows of r a staged chunk
+
+__global__ void __launch_bounds__(F_THREADS)
+rotate_gemm_f32_kernel(const float* __restrict__ V,
+                       const float* __restrict__ Tt,
+                       const int* __restrict__ rank,
+                       const int* __restrict__ list,
+                       const int* __restrict__ count, float* __restrict__ At,
+                       int nrho, int R, int C, int S, int qtiles) {
+  __align__(16) __shared__ float as[2][F_NC][BM];
+  __align__(16) __shared__ float bs[2][F_NC][BN];
+  __shared__ int64_t src[BN], dst[BN];
+  const int64_t item = blockIdx.x / qtiles;
+  const int q0 = (int)(blockIdx.x % qtiles) * BM;
+  int k = -1;
+  int64_t n0 = 0, ncols = 0;
+  {
+    int64_t start = 0;
+    for (int kk = 0; kk < nrho; ++kk) {
+      const int64_t nk = (int64_t)count[kk] * C;
+      const int64_t tiles = (nk + BN - 1) / BN;
+      if (item < start + tiles) {
+        k = kk;
+        n0 = (item - start) * BN;
+        ncols = nk;
+        break;
+      }
+      start += tiles;
+    }
+  }
+  if (k < 0) return;  // past the last tile: the whole block exits
+
+  const int64_t RCs = (int64_t)R * C;
+  const int tid = threadIdx.x;
+  for (int col = tid; col < BN; col += F_THREADS) {
+    const int64_t n = n0 + col;
+    if (n < ncols) {
+      const int j = (int)(n / C), c = (int)(n - (int64_t)j * C);
+      const int s = list[(int64_t)k * S + j];
+      const int sl = rank[(int64_t)k * S + s];
+      src[col] = s * RCs + c;
+      dst[col] = ((int64_t)sl * S + s) * RCs + c;
+    } else {
+      src[col] = -1;
+      dst[col] = -1;
+    }
+  }
+  __syncthreads();
+
+  const float* Vk = V + (int64_t)k * R * R;
+  const int tq = tid / 16, tc = tid % 16;  // rows 4 tq.., columns 4 tc..
+  auto load = [&](int b, int chunk) {
+    const int r0 = chunk * F_NC;
+    for (int e = tid; e < F_NC * BM; e += F_THREADS) {
+      const int rr = e / BM, qq = e - rr * BM;
+      float* d = &as[b][rr][qq];
+      if (r0 + rr < R && q0 + qq < R)
+        cp_async4(d, Vk + (int64_t)(r0 + rr) * R + q0 + qq);
+      else
+        *d = 0.0f;
+    }
+    for (int e = tid; e < F_NC * BN; e += F_THREADS) {
+      const int rr = e / BN, col = e - rr * BN;
+      float* d = &bs[b][rr][col];
+      if (r0 + rr < R && src[col] >= 0)
+        cp_async4(d, Tt + src[col] + (int64_t)(r0 + rr) * C);
+      else
+        *d = 0.0f;
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  const int chunks = (R + F_NC - 1) / F_NC;
+  load(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) load((c + 1) & 1, c + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // chunk c landed for every thread
+    const int b = c & 1;
+#pragma unroll
+    for (int rr = 0; rr < F_NC; ++rr) {
+      float a[4], v[4];
+      load4(&as[b][rr][tq * 4], a);
+      load4(&bs[b][rr][tc * 4], v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
+    }
+    __syncthreads();  // every thread is done with buffer b before its reload
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = q0 + tq * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = tc * 4 + j;
+      if (q < R && dst[col] >= 0) At[dst[col] + (int64_t)q * C] = acc[i][j];
+    }
+  }
+}
+
 }  // namespace
 
 // Bytes of scratch a crm_best_rho_rotate call with these sizes needs.
@@ -358,7 +482,7 @@ extern "C" int crm_best_rho_rotate(const double* V, const double* T,
 
   const int64_t RC = (int64_t)R * C;
   const dim3 tgrid((unsigned)((S + 31) / 32), (unsigned)((RC + 31) / 32));
-  auto transpose = rotate_transpose_kernel;
+  auto transpose = rotate_transpose_kernel<double>;
   transpose<<<tgrid, 256, 0, stream>>>(T, Tt, RC, S);
   if ((err = (int)cudaGetLastError())) return err;
 
@@ -372,5 +496,52 @@ extern "C" int crm_best_rho_rotate(const double* V, const double* T,
   auto gemm = rotate_gemm_kernel;
   gemm<<<blocks, THREADS, smem, stream>>>(V, Tt, rank, list, count, At, nrho,
                                           R, C, S, qtiles, R % 2 == 0);
+  return (int)cudaGetLastError();
+}
+
+// Bytes of scratch a crm_best_rho_rotate_f32 call with these sizes needs.
+extern "C" int64_t crm_best_rho_rotate_f32_workspace(int nrho, int R, int C,
+                                                     int S) {
+  return layout(nrho, R, C, S, 4).total;
+}
+
+// The float32 context: V (nrho, R, R) and T (R, C, S) f32, k_best as
+// crm_best_rho_rotate's -> At_slots (min(genes, nrho), S, R, C) f32, slot
+// (genes, S) int64.  work: crm_best_rho_rotate_f32_workspace bytes, 256-byte
+// aligned.  Launches on `stream`; returns the first launch's CUDA error, 0
+// if none.
+extern "C" int crm_best_rho_rotate_f32(const float* V, const float* T,
+                                       const int64_t* k_best, float* At,
+                                       int64_t* slot, void* work, int nrho,
+                                       int R, int C, int S, int genes,
+                                       cudaStream_t stream) {
+  const Layout L = layout(nrho, R, C, S, 4);
+  unsigned char* base = static_cast<unsigned char*>(work);
+  int* rank = reinterpret_cast<int*>(base + L.rank);
+  int* list = reinterpret_cast<int*>(base + L.list);
+  int* count = reinterpret_cast<int*>(base + L.count);
+  float* Tt = reinterpret_cast<float*>(base + L.tt);
+  int err;
+
+  auto slots = rotate_slots_kernel;
+  const unsigned sblocks = (unsigned)((S + 127) / 128);
+  slots<<<sblocks, 128, 0, stream>>>(k_best, rank, slot, nrho, S, genes);
+  if ((err = (int)cudaGetLastError())) return err;
+
+  auto lists = rotate_lists_kernel;
+  lists<<<nrho, SCAN, 0, stream>>>(rank, list, count, S);
+  if ((err = (int)cudaGetLastError())) return err;
+
+  const int64_t RC = (int64_t)R * C;
+  const dim3 tgrid((unsigned)((S + 31) / 32), (unsigned)((RC + 31) / 32));
+  auto transpose = rotate_transpose_kernel<float>;
+  transpose<<<tgrid, 256, 0, stream>>>(T, Tt, RC, S);
+  if ((err = (int)cudaGetLastError())) return err;
+
+  const int qtiles = (R + BM - 1) / BM;
+  const unsigned blocks = (unsigned)(max_tiles(nrho, C, S, genes) * qtiles);
+  auto gemm = rotate_gemm_f32_kernel;
+  gemm<<<blocks, F_THREADS, 0, stream>>>(V, Tt, rank, list, count, At, nrho,
+                                         R, C, S, qtiles);
   return (int)cudaGetLastError();
 }

@@ -86,6 +86,13 @@
 // sums at every slot of the tile, usually one or two).  The brackets keep
 // their (genes, S, m) layout and only the gene's slot column is written,
 // where the converge kernel reads it (k_best = slot).
+//
+// The float32 context (the screen's, engine.py:460-532 on an f32 context)
+// takes its operands in f32 (a template on the operand type TO; the
+// products are formed from the widened values and rounded to T = float,
+// which is the f32 product) and writes the brackets as the f32-rounded grid
+// logits, widened exactly (the reference's `linspace(lo, hi,
+// n_grid).astype(ctx dtype)`, :528).
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
@@ -181,9 +188,9 @@ __device__ double sigmoid(double x) { return 1.0 / (1.0 + exp(-x)); }
 // fastest axis (coalesced), zero past K and R, and each row block's sum
 // log d on its own (the epilogue adds them in a fixed order).  Many small
 // blocks: each row's load is a round trip, so the rows are spread wide.
-template <class T>
+template <class T, class TO>
 __global__ void __launch_bounds__(NT)
-weights_kernel(const double* __restrict__ Sv, T* __restrict__ wbuf,
+weights_kernel(const TO* __restrict__ Sv, T* __restrict__ wbuf,
                T* __restrict__ ldbuf, double lo, double hi, int K, int Kp,
                int R, int Rp) {
   constexpr int NW = NT / 32;
@@ -193,7 +200,7 @@ weights_kernel(const double* __restrict__ Sv, T* __restrict__ wbuf,
   const int rb = blockIdx.z, nrb = gridDim.z;
   const int r0 = (int)((int64_t)rb * Rp / nrb);
   const int r1 = (int)((int64_t)(rb + 1) * Rp / nrb);
-  const double* So = Sv + (int64_t)o * R;
+  const TO* So = Sv + (int64_t)o * R;
   T* wo = wbuf + (int64_t)o * Rp * Kp;
   const bool live = k < K;
   const T dk = live ? (T)sigmoid(logit_at(lo, hi, K, k)) : T(1);
@@ -227,17 +234,19 @@ weights_kernel(const double* __restrict__ Sv, T* __restrict__ wbuf,
 //   mode 2 (shs):  c < nww, P = W_i W_j (tri index c, none past ntri);
 //                  then per gene gl of the chunk, P = W_j y (j < p) or
 //                  y^2 at c = nww + gl (p + 1) + j.
+template <class TO>
 struct Factor {
-  const double *a, *b;
+  const TO *a, *b;
   int sa, sb;
   bool live;
 };
 
-__device__ Factor column(const double* WGo, const double* yt, int mode,
-                         int c, int ncols, int R, int p, int nS, int nrho,
-                         int o, int g0, int nww) {
+template <class TO>
+__device__ Factor<TO> column(const TO* WGo, const TO* yt, int mode, int c,
+                             int ncols, int R, int p, int nS, int nrho, int o,
+                             int g0, int nww) {
   const int ps = p + nS, p1 = p + 1;
-  Factor f{WGo, WGo, ps, ps, c < ncols};
+  Factor<TO> f{WGo, WGo, ps, ps, c < ncols};
   if (!f.live) return f;
   if (mode == 0) {
     const int s = c / p1, j = c - s * p1;
@@ -258,7 +267,7 @@ __device__ Factor column(const double* WGo, const double* yt, int mode,
       f.b = WGo + (c - i * (i + 1) / 2);
     } else {
       const int gl = (c - nww) / p1, j = (c - nww) - gl * p1;
-      const double* y = yt + ((int64_t)(g0 + gl) * nrho + o) * R;
+      const TO* y = yt + ((int64_t)(g0 + gl) * nrho + o) * R;
       f.b = y;
       f.sb = 1;
       if (j < p) {
@@ -275,9 +284,9 @@ __device__ Factor column(const double* WGo, const double* yt, int mode,
 // One launch for the three column sets: blockIdx.x < ntg tiles the
 // genotype's columns (mode 0), the next nty the chunk's g y (mode 1), the
 // rest the shared sums (mode 2); blockIdx.z = o RS + split.
-template <class T>
+template <class T, class TO>
 __global__ void __launch_bounds__(GT)
-gemm_kernel(const double* __restrict__ WGt, const double* __restrict__ yt,
+gemm_kernel(const TO* __restrict__ WGt, const TO* __restrict__ yt,
             const T* __restrict__ wbuf, T* __restrict__ geno,
             T* __restrict__ gy, T* __restrict__ shs, int Kp, int nrho, int R,
             int Rp, int p, int nS, int ntg, int nty, int Cg, int ncols_gy,
@@ -298,7 +307,7 @@ gemm_kernel(const double* __restrict__ WGt, const double* __restrict__ yt,
   const int nch = Rp / GR;
   const int ch0 = (int)((int64_t)z * nch / RS);
   const int ch1 = (int)((int64_t)(z + 1) * nch / RS);
-  const double* WGo = WGt + (int64_t)o * R * (p + nS);
+  const TO* WGo = WGt + (int64_t)o * R * (p + nS);
   const T* wsrc = wbuf + (int64_t)o * Rp * Kp + k0;
   // this thread's micro-tile: grid points MK tk.. and two groups of four
   // columns, 4 tc.. and TC / 2 + 4 tc.. (neighbouring lanes read
@@ -307,7 +316,7 @@ gemm_kernel(const double* __restrict__ WGt, const double* __restrict__ yt,
   // its share of a chunk's product tile: row pr, columns PQ pc..
   constexpr int PQ = GR * TC / GT;
   const int pr = tid / (TC / PQ), pc = (tid % (TC / PQ)) * PQ;
-  Factor fc[PQ];
+  Factor<TO> fc[PQ];
 #pragma unroll
   for (int q = 0; q < PQ; ++q)
     fc[q] = column(WGo, yt, mode, c0 + pc + q, ncols, R, p, nS, nrho, o, g0,
@@ -329,8 +338,8 @@ gemm_kernel(const double* __restrict__ WGt, const double* __restrict__ yt,
 #pragma unroll
     for (int q = 0; q < PQ; ++q) {
       const bool ok = fc[q].live && r < R;
-      fa[q] = ok ? fc[q].a[r * fc[q].sa] : 0.0;
-      fb[q] = ok ? fc[q].b[r * fc[q].sb] : 0.0;
+      fa[q] = ok ? (double)fc[q].a[r * fc[q].sa] : 0.0;
+      fb[q] = ok ? (double)fc[q].b[r * fc[q].sb] : 0.0;
     }
   };
   auto put = [&](int buf, const double (&fa)[PQ], const double (&fb)[PQ]) {
@@ -467,14 +476,14 @@ __device__ T solve_lml(T* A, T* b, T* z, int st, int p1, T q, T logdet_d,
 // A warp per (gene, rho, variant), lanes over the grid points.  LIM > 0:
 // the systems in registers (p + 1 <= LIM), EPI_WARPS warps a block; LIM
 // == 0: each lane's system in dynamic shared memory, one warp a block.
-template <class T, int LIM, bool REML>
+template <class T, class TO, int LIM, bool REML>
 __global__ void __launch_bounds__(LIM > 0 ? 32 * EPI_WARPS : 32)
 epilogue_kernel(const T* __restrict__ ldb, const T* __restrict__ shs,
                 const T* __restrict__ geno, const T* __restrict__ gy,
-                const double* __restrict__ CWW, const double* __restrict__ CWy,
-                const double* __restrict__ Cyy, const double* __restrict__ CWg,
-                const double* __restrict__ Cgy, const double* __restrict__ Cgg,
-                const double* __restrict__ ld_xx,
+                const TO* __restrict__ CWW, const TO* __restrict__ CWy,
+                const TO* __restrict__ Cyy, const TO* __restrict__ CWg,
+                const TO* __restrict__ Cgy, const TO* __restrict__ Cgg,
+                const TO* __restrict__ ld_xx,
                 const int64_t* __restrict__ slot, double* __restrict__ br_lo,
                 double* __restrict__ br_hi, double lo, double hi, int K,
                 int Kp, int n, int nrho, int R, int p, int nS, int Csh,
@@ -567,13 +576,16 @@ epilogue_kernel(const T* __restrict__ ldb, const T* __restrict__ shs,
     // no finite grid point: the full bracket (engine.py:521-532)
     const bool bad = !(best > -INFINITY);
     const int64_t at = ((int64_t)g * nS + s) * nrho + o;
-    br_lo[at] = bad ? lo : logit_at(lo, hi, K, max(kbest - 1, 0));
-    br_hi[at] = bad ? hi : logit_at(lo, hi, K, min(kbest + 1, K - 1));
+    // the grid logits in the context's type TO, widened exactly
+    br_lo[at] = (double)(TO)(bad ? lo : logit_at(lo, hi, K, max(kbest - 1, 0)));
+    br_hi[at] =
+        (double)(TO)(bad ? hi : logit_at(lo, hi, K, min(kbest + 1, K - 1)));
   }
 }
 
+template <class TO>
 struct Args {
-  const double *Sv, *WGt, *yt, *CWW, *CWy, *Cyy, *CWg, *Cgy, *Cgg, *ld_xx;
+  const TO *Sv, *WGt, *yt, *CWW, *CWy, *Cyy, *CWg, *Cgy, *Cgg, *ld_xx;
   const int64_t* slot;
   double *br_lo, *br_hi;
   double lo, hi;
@@ -581,14 +593,14 @@ struct Args {
   bool reml;
 };
 
-template <class T, int LIM, bool REML>
-int launch_epilogue(const Args& a, const Layout& L, T* base, int g0, int gc,
-                    cudaStream_t stream) {
+template <class T, class TO, int LIM, bool REML>
+int launch_epilogue(const Args<TO>& a, const Layout& L, T* base, int g0,
+                    int gc, cudaStream_t stream) {
   const int p1 = a.p + 1;
   const dim3 grid(LIM > 0 ? (a.nS + EPI_WARPS - 1) / EPI_WARPS : a.nS,
                   a.slot ? 1 : a.nrho, gc);
   size_t dyn = 0;
-  auto kernel = epilogue_kernel<T, LIM, REML>;
+  auto kernel = epilogue_kernel<T, TO, LIM, REML>;
   if (LIM == 0) {
     dyn = sizeof(T) * 32 * (size_t)(p1 * (p1 + 1) / 2 + 2 * p1);
     const cudaError_t e = cudaFuncSetAttribute(
@@ -604,27 +616,30 @@ int launch_epilogue(const Args& a, const Layout& L, T* base, int g0, int gc,
   return (int)cudaGetLastError();
 }
 
-template <class T, bool REML>
-int epilogue(const Args& a, const Layout& L, T* base, int g0, int gc,
+template <class T, class TO, bool REML>
+int epilogue(const Args<TO>& a, const Layout& L, T* base, int g0, int gc,
              cudaStream_t stream) {
   const int p1 = a.p + 1;
-  if (p1 <= 2) return launch_epilogue<T, 2, REML>(a, L, base, g0, gc, stream);
-  if (p1 <= 4) return launch_epilogue<T, 4, REML>(a, L, base, g0, gc, stream);
-  if (p1 <= 8) return launch_epilogue<T, 8, REML>(a, L, base, g0, gc, stream);
-  return launch_epilogue<T, 0, REML>(a, L, base, g0, gc, stream);
+  if (p1 <= 2)
+    return launch_epilogue<T, TO, 2, REML>(a, L, base, g0, gc, stream);
+  if (p1 <= 4)
+    return launch_epilogue<T, TO, 4, REML>(a, L, base, g0, gc, stream);
+  if (p1 <= 8)
+    return launch_epilogue<T, TO, 8, REML>(a, L, base, g0, gc, stream);
+  return launch_epilogue<T, TO, 0, REML>(a, L, base, g0, gc, stream);
 }
 
-template <class T>
-int run(const Args& a, void* work, cudaStream_t stream) {
+template <class T, class TO>
+int run(const Args<TO>& a, void* work, cudaStream_t stream) {
   const Layout L = layout(a.nrho, a.R, a.K, a.p, a.nS, a.genes, sizeof(T));
   T* base = static_cast<T*>(work);
-  auto wk = weights_kernel<T>;
+  auto wk = weights_kernel<T, TO>;
   const dim3 wgrid((unsigned)(L.Kp / 32), a.nrho, (unsigned)L.RB);
   wk<<<wgrid, NT, 0, stream>>>(a.Sv, base + L.w, base + L.ld, a.lo, a.hi,
                                a.K, (int)L.Kp, a.R, (int)L.Rp);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  auto gk = gemm_kernel<T>;
+  auto gk = gemm_kernel<T, TO>;
   for (int g0 = 0; g0 < a.genes; g0 += (int)L.Gc) {
     const int gc = (int)(a.genes - g0 < L.Gc ? a.genes - g0 : L.Gc);
     // the genotype's columns and the W W sums once (first chunk), each
@@ -643,8 +658,8 @@ int run(const Args& a, void* work, cudaStream_t stream) {
         (int)L.Kp, a.nrho, a.R, (int)L.Rp, a.p, a.nS, ntg, nty, (int)L.Cg,
         gc * a.nS, (int)L.Cy, nsh, (int)L.Csh, nww, (int)L.RS, g0);
     if ((err = (int)cudaGetLastError())) return err;
-    err = a.reml ? epilogue<T, true>(a, L, base, g0, gc, stream)
-                 : epilogue<T, false>(a, L, base, g0, gc, stream);
+    err = a.reml ? epilogue<T, TO, true>(a, L, base, g0, gc, stream)
+                 : epilogue<T, TO, false>(a, L, base, g0, gc, stream);
     if (err) return err;
   }
   return 0;
@@ -680,8 +695,29 @@ extern "C" int crm_delta_grid(const double* Sv, const double* WGt,
                               int K, int n, int nrho, int R, int p, int nS,
                               int genes, int fast32, int reml,
                               cudaStream_t stream) {
-  const Args a{Sv,   WGt,   yt,    CWW, CWy, Cyy, CWg,   Cgy,  Cgg, ld_xx,
-               slot, br_lo, br_hi, lo,  hi,  K,   n,     nrho, R,   p,
-               nS,   genes, reml != 0};
-  return fast32 ? run<float>(a, work, stream) : run<double>(a, work, stream);
+  const Args<double> a{Sv,   WGt,   yt,    CWW, CWy, Cyy, CWg,  Cgy,
+                       Cgg,  ld_xx, slot,  br_lo, br_hi, lo, hi, K,
+                       n,    nrho,  R,     p,   nS,  genes, reml != 0};
+  return fast32 ? run<float, double>(a, work, stream)
+                : run<double, double>(a, work, stream);
+}
+
+// The float32 context: the operands of crm_delta_grid in f32 (the working
+// type float; the scratch crm_delta_grid_workspace(..., fast32 = 1)
+// bytes) -> br_lo, br_hi (genes, nS, nrho) f64 holding the f32-rounded grid
+// logits.
+extern "C" int crm_delta_grid_f32(const float* Sv, const float* WGt,
+                                  const float* yt, const float* CWW,
+                                  const float* CWy, const float* Cyy,
+                                  const float* CWg, const float* Cgy,
+                                  const float* Cgg, const float* ld_xx,
+                                  const int64_t* slot, double* br_lo,
+                                  double* br_hi, void* work, double lo,
+                                  double hi, int K, int n, int nrho, int R,
+                                  int p, int nS, int genes, int reml,
+                                  cudaStream_t stream) {
+  const Args<float> a{Sv,   WGt,   yt,    CWW, CWy, Cyy, CWg,  Cgy,
+                      Cgg,  ld_xx, slot,  br_lo, br_hi, lo, hi, K,
+                      n,    nrho,  R,     p,   nS,  genes, reml != 0};
+  return run<float, float>(a, work, stream);
 }

@@ -30,6 +30,17 @@
 //   half-warp fall in distinct banks.
 // * K <= 32 (the context Grams: kr_small_kernel below), the cells split
 //   over a block's warps.
+//
+// The float32 context (the screen's, cellregmap_tpu/engine.py:316-326 run
+// on an f32 NullContext) takes the same contraction in f32 with f32 sums:
+// kr_f32_kernel below, plain FP32 FMA on the CUDA cores.  mma.sync has no
+// f32 form, and TF32 (10 mantissa bits) is not the reference's f32.  A
+// block is a 64 (k) x 64 (s) tile of one column j of V, 256 threads of 4 x
+// 4 sums each, over a two-stage cp.async ring of 16-cell chunks of U, G and
+// V[:, j]; each staged G value is scaled by V[n, j] as it is read (the
+// product rounded to f32, as the plain version's `V[:, j] * G`).  Its
+// bound at the screen's T (n = 2000, K = R = 1000, C = 10, S = 1024) is
+// operations: 2 n K C S = 4.1e10 flop, 0.61 ms at 67 TFLOP/s.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -328,6 +339,92 @@ int launch(const double* U, const double* V, const double* G, double* M,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The float32 context: FP32 FMA, a 64 x 64 tile of one column of V a block
+// ---------------------------------------------------------------------------
+constexpr int F_THREADS = 256;  // 16 x 16 threads, 4 x 4 sums each
+constexpr int F_BM = 64;        // k rows a block
+constexpr int F_BS = 64;        // s columns a block
+constexpr int F_NC = 16;        // cells a staged chunk
+
+__global__ void __launch_bounds__(F_THREADS)
+kr_f32_kernel(const float* __restrict__ U, const float* __restrict__ V,
+              const float* __restrict__ G, float* __restrict__ M, int n,
+              int K, int p, int S) {
+  __align__(16) __shared__ float us[2][F_NC][F_BM];
+  __align__(16) __shared__ float gs[2][F_NC][F_BS];
+  __shared__ float vs[2][F_NC];
+  const int s0 = blockIdx.x * F_BS, k0 = blockIdx.y * F_BM, j = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  auto load = [&](int b, int chunk) {
+    const int n0 = chunk * F_NC;
+    for (int e = tid; e < F_NC * F_BM; e += F_THREADS) {
+      const int r = e / F_BM, c = e - r * F_BM;
+      float* d = &us[b][r][c];
+      if (n0 + r < n && k0 + c < K)
+        cp_async4(d, U + (int64_t)(n0 + r) * K + k0 + c);
+      else
+        *d = 0.0f;
+    }
+    for (int e = tid; e < F_NC * F_BS; e += F_THREADS) {
+      const int r = e / F_BS, c = e - r * F_BS;
+      float* d = &gs[b][r][c];
+      if (n0 + r < n && s0 + c < S)
+        cp_async4(d, G + (int64_t)(n0 + r) * S + s0 + c);
+      else
+        *d = 0.0f;
+    }
+    for (int r = tid; r < F_NC; r += F_THREADS) {
+      if (n0 + r < n)
+        cp_async4(&vs[b][r], V + (int64_t)(n0 + r) * p + j);
+      else
+        vs[b][r] = 0.0f;
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
+
+  const int chunks = (n + F_NC - 1) / F_NC;
+  load(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) load((c + 1) & 1, c + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // chunk c landed for every thread
+    const int b = c & 1;
+#pragma unroll
+    for (int r = 0; r < F_NC; ++r) {
+      float a[4], g[4];
+      load4(&us[b][r][ty * 4], a);
+      load4(&gs[b][r][tx * 4], g);
+      const float v = vs[b][r];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float gv = v * g[q];  // V G rounded as the plain version's
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][q] = fmaf(a[i], gv, acc[i][q]);
+      }
+    }
+    __syncthreads();  // every thread is done with buffer b before its reload
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty * 4 + i;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int sc = s0 + tx * 4 + q;
+      if (k < K && sc < S) M[((int64_t)k * p + j) * S + sc] = acc[i][q];
+    }
+  }
+}
+
 }  // namespace
 
 // U (n, K), V (n, p), G (n, S), M (K, p, S): all row-major f64 on the card.
@@ -343,4 +440,16 @@ extern "C" int crm_kr_contract(const double* U, const double* V,
                   : launch_small<2, 1>(U, V, G, M, n, K, p, S, stream);
   return p >= 2 ? launch<JB_MAX>(U, V, G, M, n, K, p, S, stream)
                 : launch<1>(U, V, G, M, n, K, p, S, stream);
+}
+
+// The float32 context's contraction: U (n, K), V (n, p), G (n, S), M (K,
+// p, S), all row-major f32 on the card, f32 sums.  Launches on `stream`;
+// returns cudaGetLastError().
+extern "C" int crm_kr_contract_f32(const float* U, const float* V,
+                                   const float* G, float* M, int n, int K,
+                                   int p, int S, cudaStream_t stream) {
+  const dim3 grid((S + F_BS - 1) / F_BS, (K + F_BM - 1) / F_BM, p);
+  auto kernel = kr_f32_kernel;
+  kernel<<<grid, F_THREADS, 0, stream>>>(U, V, G, M, n, K, p, S);
+  return (int)cudaGetLastError();
 }

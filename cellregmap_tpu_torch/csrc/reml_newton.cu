@@ -2103,6 +2103,393 @@ inline int conv_rows_per_chunk(int R, int p, int steps, int* smem) {
   *smem = (int)sizeof(double) * nbuf * w * rch + ws;
   return rch;
 }
+// ---------------------------------------------------------------------------
+// The float32 context (the screen's: engine.py:538-734 on an f32 context)
+// ---------------------------------------------------------------------------
+// Every tensor is f32: the eigenvalues, the rotated [W | G] and y, and the
+// complements; the rotated products (W_i W_j, g W_j, g^2, W_j y, g y, y^2)
+// and e = 1 - S, e2 = e^2 are the f32 products the reference forms.  The
+// arithmetic follows the reference's type promotion:
+// * stage 1b (c32_localize_kernel's steps): f32 arithmetic with f32 state
+//   (x, lo, hi), from the bracket midpoint in f32;
+// * stage 2 (the same kernel's evaluation): one f64 lml at the localized
+//   optimum, the f32 values widened as they are loaded; an rss at or below
+//   128 eps(f32) q is cancellation noise of the f32 tensors and cannot win
+//   the argmax (:655);
+// * stage 3 (c32_converge_kernel): f64 steps and the final fit at each
+//   variant's best rho on the widened f32 tensors, the rss floored at 128
+//   eps(f32) q (:724).
+// The floors take the context's eps as an argument (eps_ctx): once the
+// operands are widened, f64's eps would let spurious maxima through (the
+// note at engine.py:357-366).
+// A warp per problem (the lanes over the rows, then an xor-shuffle tree;
+// lane 0's iterate broadcast so that the lanes stay in step), rows read
+// where they lie: the simple form, REML only (the float32 context runs the
+// interaction scans alone), p + 1 <= 16.
+constexpr int C32_WARPS = 4;  // problems a block
+
+template <class T> struct C32Lim;
+template <> struct C32Lim<float> {
+  static constexpr float tiny = FLT_MIN;
+};
+template <> struct C32Lim<double> {
+  static constexpr double tiny = DBL_MIN;
+};
+
+template <class T>
+__device__ __forceinline__ T c32_warp_sum(T v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+template <class T>
+__device__ __forceinline__ T c32_sigmoid(T x) {
+  return T(1) / (T(1) + exp(-x));
+}
+
+// One problem's f32 operands: the rows at its rho, its complements.
+struct C32Problem {
+  const float *S, *WG, *y;   // (R,), (R, p + nS) stride ps, (R,)
+  const float *CWW, *CWy;    // (p, p), the gene's (p,)
+  const float* CWg;          // (p, nS), column s
+  float cyy, cgy, cgg;
+  int s, p, ps, nS, R;
+};
+
+// The normal equations of NF families at delta in T: acc[f] = [A lower
+// (TRI) | b (P1MAX) | q] with weights w1 = 1/d, we2 = e w1^2, we3 = e2 w1^3
+// and complement weights 1/delta^(f+1); ex1 = sum e w1 and ex2 = sum e2
+// w1^2 (NF == 3), or ex1 = sum log d (NF == 1).  Every lane returns the
+// full sums.
+template <class T, int P1MAX, int NF>
+__device__ void c32_sums(const C32Problem& pb, T delta, int lane,
+                         T (&acc)[NF][Cfg<P1MAX>::NE], T& ex1, T& ex2) {
+  constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
+  const int p = pb.p, p1 = p + 1;
+  for (int f = 0; f < NF; ++f)
+    for (int e = 0; e < NE; ++e) acc[f][e] = T(0);
+  ex1 = T(0);
+  ex2 = T(0);
+  for (int r = lane; r < pb.R; r += 32) {
+    const float* row = pb.WG + (int64_t)r * pb.ps;
+    float xr[P1MAX];
+    SMALL_FOR(j, 0, p1) xr[j] = j < p ? row[j] : row[p + pb.s];
+    const float yr = pb.y[r], Sr = pb.S[r];
+    const float er = 1.0f - Sr, e2r = er * er;
+    const T d = (T(1) - delta) * (T)Sr + delta;
+    const T w1 = T(1) / d;
+    T w[NF];
+    w[0] = w1;
+    if constexpr (NF == 3) {
+      w[1] = (T)er * w1 * w1;
+      w[2] = (T)e2r * w1 * w1 * w1;
+      ex1 += w1 * (T)er;
+      ex2 += w1 * w1 * (T)e2r;
+    } else {
+      ex1 += log(d);
+    }
+    for (int f = 0; f < NF; ++f) {
+      SMALL_FOR(i, 0, p1) {
+        SMALL_FOR(j, 0, i + 1) acc[f][tri(i, j)] += w[f] * (T)(xr[i] * xr[j]);
+        acc[f][TRI + i] += w[f] * (T)(xr[i] * yr);
+      }
+      acc[f][NE - 1] += w[f] * (T)(yr * yr);
+    }
+  }
+  for (int f = 0; f < NF; ++f)
+    for (int e = 0; e < NE; ++e) acc[f][e] = c32_warp_sum(acc[f][e]);
+  ex1 = c32_warp_sum(ex1);
+  ex2 = c32_warp_sum(ex2);
+  const T i1 = T(1) / delta;
+  T ic = i1;
+  for (int f = 0; f < NF; ++f) {
+    SMALL_FOR(i, 0, p1) {
+      SMALL_FOR(j, 0, i + 1) {
+        const float c = i < p ? pb.CWW[i * p + j]
+                              : (j < p ? pb.CWg[(int64_t)j * pb.nS + pb.s]
+                                       : pb.cgg);
+        acc[f][tri(i, j)] += (T)c * ic;
+      }
+      acc[f][TRI + i] += (T)(i < p ? pb.CWy[i] : pb.cgy) * ic;
+    }
+    acc[f][NE - 1] += (T)pb.cyy * ic;
+    ic *= i1;
+  }
+}
+
+template <class T, int P1MAX>
+__device__ void c32_chol(T (&L)[P1MAX][P1MAX], const T* A, int p1) {
+  T dmax = A[0];
+  SMALL_FOR(i, 1, p1) dmax = fmax(dmax, A[tri(i, i)]);
+  const T ridge = T(1e-12) * fmax(dmax, T(1));
+  SMALL_FOR(i, 0, p1) {
+    SMALL_FOR(j, 0, i + 1) {
+      T v = A[tri(i, j)];
+      if (i == j) v += ridge;
+      SMALL_FOR(k, 0, j) v -= L[i][k] * L[j][k];
+      L[i][j] = i == j ? sqrt(v) : v / L[j][j];
+    }
+  }
+}
+
+template <class T, int P1MAX>
+__device__ void c32_solve(const T (&L)[P1MAX][P1MAX], const T* b, T* x,
+                          int p1) {
+  SMALL_FOR(i, 0, p1) {
+    T v = b[i];
+    SMALL_FOR(k, 0, i) v -= L[i][k] * x[k];
+    x[i] = v / L[i][i];
+  }
+  for (int i = P1MAX - 1; i >= 0; --i) {
+    if (i >= p1) continue;
+    T v = x[i];
+    SMALL_FOR(k, i + 1, p1) v -= L[k][i] * x[k];
+    x[i] = v / L[i][i];
+  }
+}
+
+template <class T, int P1MAX>
+__device__ void c32_mv(const T* A, const T* x, T* out, int p1) {
+  SMALL_FOR(i, 0, p1) {
+    T v = T(0);
+    SMALL_FOR(k, 0, p1) v += A[i >= k ? tri(i, k) : tri(k, i)] * x[k];
+    out[i] = v;
+  }
+}
+
+// (L', L'') of the REML objective at delta (the algebra of derivs_sums in
+// T)
+template <class T, int P1MAX>
+__device__ void c32_derivs(int p1, int R, int n, T delta,
+                           const T (&acc)[3][Cfg<P1MAX>::NE], T sum_ew,
+                           T sum_e2w2, T& Lp, T& Lpp) {
+  constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
+  const T *A1 = acc[0], *A2 = acc[1], *A3 = acc[2];
+  const T *b1 = acc[0] + TRI, *b2 = acc[1] + TRI, *b3 = acc[2] + TRI;
+  const T q1 = acc[0][NE - 1], q2 = acc[1][NE - 1], q3 = acc[2][NE - 1];
+  T L[P1MAX][P1MAX], beta[P1MAX], A2b[P1MAX], A3b[P1MAX], t[P1MAX],
+      beta_p[P1MAX], A2bp[P1MAX];
+  c32_chol<T, P1MAX>(L, A1, p1);
+  c32_solve<T, P1MAX>(L, b1, beta, p1);
+  T rss = q1;
+  SMALL_FOR(j, 0, p1) rss -= b1[j] * beta[j];
+  rss = fmax(rss, C32Lim<T>::tiny);
+  c32_mv<T, P1MAX>(A2, beta, A2b, p1);
+  c32_mv<T, P1MAX>(A3, beta, A3b, p1);
+  SMALL_FOR(j, 0, p1) t[j] = A2b[j] - b2[j];
+  c32_solve<T, P1MAX>(L, t, beta_p, p1);
+  c32_mv<T, P1MAX>(A2, beta_p, A2bp, p1);
+  T s_b2b = 0, s_bA2b = 0, s_b3b = 0, s_b2bp = 0, s_bA2bp = 0, s_bA3b = 0;
+  SMALL_FOR(j, 0, p1) {
+    s_b2b += b2[j] * beta[j];
+    s_bA2b += beta[j] * A2b[j];
+    s_b3b += b3[j] * beta[j];
+    s_b2bp += b2[j] * beta_p[j];
+    s_bA2bp += beta[j] * A2bp[j];
+    s_bA3b += beta[j] * A3b[j];
+  }
+  const T rss_p = -q2 + T(2) * s_b2b - s_bA2b;
+  const T rss_pp = T(2) * q3 - T(4) * s_b3b + T(2) * s_b2bp -
+                   T(2) * s_bA2bp + T(2) * s_bA3b;
+  const T nR = (T)(n - R);
+  const T i1 = T(1) / delta;
+  const T ld_p = sum_ew + nR * i1;
+  const T ld_pp = -sum_e2w2 - nR * (i1 * i1);
+  const T u = rss_p / rss;
+  T Ainv[P1MAX][P1MAX];
+  SMALL_FOR(kc, 0, p1) {
+    T ecol[P1MAX], col[P1MAX];
+    SMALL_FOR(i, 0, p1) ecol[i] = i == kc ? T(1) : T(0);
+    c32_solve<T, P1MAX>(L, ecol, col, p1);
+    SMALL_FOR(i, 0, p1) Ainv[i][kc] = col[i];
+  }
+  auto full = [&](const T* A, int i, int j) {
+    return A[i >= j ? tri(i, j) : tri(j, i)];
+  };
+  T tr2 = 0, tr3 = 0, tr2sq = 0;
+  T T2[P1MAX][P1MAX];
+  SMALL_FOR(i, 0, p1) {
+    SMALL_FOR(j, 0, p1) {
+      T v = 0;
+      SMALL_FOR(k, 0, p1) v += Ainv[i][k] * full(A2, k, j);
+      T2[i][j] = v;
+    }
+  }
+  SMALL_FOR(i, 0, p1) {
+    tr2 += T2[i][i];
+    SMALL_FOR(k, 0, p1) tr3 += Ainv[i][k] * full(A3, k, i);
+    SMALL_FOR(j, 0, p1) tr2sq += T2[i][j] * T2[j][i];
+  }
+  const T nu = (T)(n - p1);
+  Lp = T(-0.5) * (nu * u + ld_p - tr2);
+  Lpp = T(-0.5) * (nu * (rss_pp / rss - u * u) + ld_pp + T(2) * tr3 - tr2sq);
+}
+
+// One safeguarded Newton step on logit(delta) in T (engine.py:608-626,
+// inclusive bounds); lane 0's iterate is every lane's
+template <class T, int P1MAX>
+__device__ void c32_step(const C32Problem& pb, int n, int lane, T& x, T& lo,
+                         T& hi) {
+  constexpr int NE = Cfg<P1MAX>::NE;
+  const T delta = c32_sigmoid(x);
+  T acc[3][NE], ex1, ex2, Lp, Lpp;
+  c32_sums<T, P1MAX, 3>(pb, delta, lane, acc, ex1, ex2);
+  c32_derivs<T, P1MAX>(pb.p + 1, pb.R, n, delta, acc, ex1, ex2, Lp, Lpp);
+  const T g = delta * (T(1) - delta);
+  const T Lx_p = Lp * g;
+  const T Lx_pp = Lpp * g * g + Lp * g * (T(1) - T(2) * delta);
+  const T lo2 = Lx_p > T(0) ? x : lo;
+  const T hi2 = Lx_p > T(0) ? hi : x;
+  const T xn = x - Lx_p / Lx_pp;
+  const bool ok = Lx_pp < T(0) && xn >= lo2 && xn <= hi2 && isfinite(xn);
+  x = __shfl_sync(FULL, ok ? xn : T(0.5) * (lo2 + hi2), 0);
+  lo = __shfl_sync(FULL, lo2, 0);
+  hi = __shfl_sync(FULL, hi2, 0);
+}
+
+// The f64 GLS fit at delta on the widened f32 tensors: beta, rss, q,
+// logdet(A), logdet(D)
+template <int P1MAX>
+__device__ void c32_eval(const C32Problem& pb, int n, int lane, double delta,
+                         double (&beta)[P1MAX], double& rss, double& q,
+                         double& logdet_a, double& logdet_d) {
+  constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
+  const int p1 = pb.p + 1;
+  double acc[1][NE], sum_logd, unused;
+  c32_sums<double, P1MAX, 1>(pb, delta, lane, acc, sum_logd, unused);
+  double L[P1MAX][P1MAX];
+  c32_chol<double, P1MAX>(L, acc[0], p1);
+  c32_solve<double, P1MAX>(L, acc[0] + TRI, beta, p1);
+  q = acc[0][NE - 1];
+  rss = q;
+  SMALL_FOR(j, 0, p1) rss -= acc[0][TRI + j] * beta[j];
+  logdet_a = 0.0;
+  SMALL_FOR(i, 0, p1) logdet_a += log(L[i][i]);
+  logdet_a *= 2.0;
+  logdet_d = sum_logd + (double)(n - pb.R) * log(delta);
+}
+
+__device__ __forceinline__ double c32_lml(double rss, double logdet_d,
+                                          double logdet_a, double ld_xx,
+                                          int n, int p1) {
+  const double nu = (double)(n - p1);
+  return -0.5 * (nu * log(6.283185307179586 * rss / nu) + logdet_d +
+                 logdet_a - ld_xx + nu);
+}
+
+__device__ inline C32Problem c32_problem(
+    const float* Sv, const float* WGt, const float* yt, const float* CWW,
+    const float* CWy, const float* Cyy, const float* CWg, const float* Cgy,
+    const float* Cgg, int g, int s, int o, int nrho, int R, int p, int nS) {
+  C32Problem pb;
+  pb.S = Sv + (int64_t)o * R;
+  pb.WG = WGt + (int64_t)o * R * (p + nS);
+  pb.y = yt + ((int64_t)g * nrho + o) * R;
+  pb.CWW = CWW;
+  pb.CWy = CWy + (int64_t)g * p;
+  pb.CWg = CWg;
+  pb.cyy = Cyy[g];
+  pb.cgy = Cgy[(int64_t)g * nS + s];
+  pb.cgg = Cgg[s];
+  pb.s = s;
+  pb.p = p;
+  pb.ps = p + nS;
+  pb.nS = nS;
+  pb.R = R;
+  return pb;
+}
+
+// Stages 1b and 2: a warp per (gene, variant, rho) problem
+template <int P1MAX>
+__global__ void __launch_bounds__(32 * C32_WARPS)
+c32_localize_kernel(const float* __restrict__ Sv, const float* __restrict__ WGt,
+                    const float* __restrict__ yt, const float* __restrict__ CWW,
+                    const float* __restrict__ CWy,
+                    const float* __restrict__ Cyy,
+                    const float* __restrict__ CWg,
+                    const float* __restrict__ Cgy,
+                    const float* __restrict__ Cgg,
+                    const float* __restrict__ ld_xx,
+                    const double* __restrict__ br_lo,
+                    const double* __restrict__ br_hi, double* __restrict__ x_out,
+                    double* __restrict__ lml_out, int n, int nrho, int R,
+                    int p, int nS, int genes, int steps, double eps_ctx) {
+  const int lane = threadIdx.x % 32;
+  const int64_t P = (int64_t)blockIdx.x * C32_WARPS + threadIdx.x / 32;
+  if (P >= (int64_t)genes * nS * nrho) return;  // the whole warp
+  const int o = (int)(P % nrho);
+  const int s = (int)((P / nrho) % nS);
+  const int g = (int)(P / ((int64_t)nrho * nS));
+  const C32Problem pb = c32_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
+                                    Cgg, g, s, o, nrho, R, p, nS);
+  // stage 1b: f32 steps with f32 state from the bracket midpoint
+  float lo = (float)br_lo[P], hi = (float)br_hi[P];
+  float x = 0.5f * (lo + hi);
+  for (int it = 0; it < steps; ++it) c32_step<float, P1MAX>(pb, n, lane, x, lo, hi);
+  // stage 2: one f64 lml at the localized optimum
+  const double delta = c32_sigmoid((double)x);
+  double beta[P1MAX], rss, q, logdet_a, logdet_d;
+  c32_eval<P1MAX>(pb, n, lane, delta, beta, rss, q, logdet_a, logdet_d);
+  const bool bad = rss <= 128.0 * eps_ctx * q;
+  rss = fmax(rss, DBL_MIN);
+  double lml = c32_lml(rss, logdet_d, logdet_a, (double)ld_xx[s], n, p + 1);
+  if (bad || !isfinite(lml)) lml = -INFINITY;
+  if (lane == 0) {
+    x_out[P] = (double)x;
+    lml_out[P] = lml;
+  }
+}
+
+// Stage 3: a warp per (gene, variant) problem at its rho k_best (0 when
+// null): f64 steps from x0 (the bracket midpoint when null) within the
+// grid bracket, then the final fit
+template <int P1MAX>
+__global__ void __launch_bounds__(32 * C32_WARPS)
+c32_converge_kernel(const float* __restrict__ Sv, const float* __restrict__ WGt,
+                    const float* __restrict__ yt, const float* __restrict__ CWW,
+                    const float* __restrict__ CWy,
+                    const float* __restrict__ Cyy,
+                    const float* __restrict__ CWg,
+                    const float* __restrict__ Cgy,
+                    const float* __restrict__ Cgg,
+                    const float* __restrict__ ld_xx,
+                    const int64_t* __restrict__ k_best,
+                    const double* __restrict__ x0,
+                    const double* __restrict__ br_lo,
+                    const double* __restrict__ br_hi,
+                    double* __restrict__ delta_out,
+                    double* __restrict__ lml_out,
+                    double* __restrict__ scale_out,
+                    double* __restrict__ beta_out, int n, int nrho, int R,
+                    int p, int nS, int genes, int steps, double eps_ctx) {
+  const int lane = threadIdx.x % 32;
+  const int64_t P = (int64_t)blockIdx.x * C32_WARPS + threadIdx.x / 32;
+  if (P >= (int64_t)genes * nS) return;  // the whole warp
+  const int s = (int)(P % nS), g = (int)(P / nS);
+  const int o = k_best ? (int)k_best[P] : 0;
+  const C32Problem pb = c32_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
+                                    Cgg, g, s, o, nrho, R, p, nS);
+  const int64_t at = P * nrho + o;
+  double lo = br_lo[at], hi = br_hi[at];
+  double x = x0 ? x0[at] : 0.5 * (lo + hi);
+  for (int it = 0; it < steps; ++it)
+    c32_step<double, P1MAX>(pb, n, lane, x, lo, hi);
+  const double delta = c32_sigmoid(x);
+  double beta[P1MAX], rss, q, logdet_a, logdet_d;
+  c32_eval<P1MAX>(pb, n, lane, delta, beta, rss, q, logdet_a, logdet_d);
+  // the f32 tensors' cancellation noise floor (engine.py:722-724)
+  rss = fmax(rss, 128.0 * eps_ctx * q);
+  rss = fmax(rss, DBL_MIN);
+  const int p1 = p + 1;
+  const double lml = c32_lml(rss, logdet_d, logdet_a, (double)ld_xx[s], n, p1);
+  if (lane == 0) {
+    delta_out[P] = delta;
+    lml_out[P] = lml;
+    scale_out[P] = rss / (double)(n - p1);
+    SMALL_FOR(j, 0, p1) beta_out[P * p1 + j] = beta[j];
+  }
+}
+
 }  // namespace
 
 // Operands: Sv (nrho, R), WGt (nrho, R, p + nS), CWW (p, p), CWg (p, nS),
@@ -2272,5 +2659,65 @@ extern "C" int crm_reml_converge(const double* Sv, const double* WGt,
   kernel<<<blocks, threads, smem, stream>>>(
       Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, x0, br_lo, br_hi, list,
       count, delta, lml, scale, beta, n, nrho, R, p, nS, genes, steps, rch);
+  return (int)cudaGetLastError();
+}
+
+// The float32 context (see c32_localize_kernel): the operands of
+// crm_reml_localize in f32 (REML), p + 1 <= 16; eps_ctx the context's eps
+// (FLT_EPSILON) for the stage-2 noise floor.  -> x (the f32 state, widened),
+// lml_all (genes, nS, nrho), k_best (genes, nS) int64.  No scratch.
+extern "C" int crm_reml_localize_f32(const float* Sv, const float* WGt,
+                                     const float* yt, const float* CWW,
+                                     const float* CWy, const float* Cyy,
+                                     const float* CWg, const float* Cgy,
+                                     const float* Cgg, const float* ld_xx,
+                                     const double* br_lo, const double* br_hi,
+                                     double* x, double* lml_all,
+                                     int64_t* k_best, int n, int nrho, int R,
+                                     int p, int nS, int genes, int steps,
+                                     double eps_ctx, cudaStream_t stream) {
+  auto kernel = p + 1 <= 2   ? c32_localize_kernel<2>
+                : p + 1 <= 4 ? c32_localize_kernel<4>
+                : p + 1 <= 8 ? c32_localize_kernel<8>
+                             : c32_localize_kernel<16>;
+  const int64_t P = (int64_t)genes * nS * nrho;
+  kernel<<<(unsigned)((P + C32_WARPS - 1) / C32_WARPS), 32 * C32_WARPS, 0,
+           stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, br_lo,
+                     br_hi, x, lml_all, n, nrho, R, p, nS, genes, steps,
+                     eps_ctx);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int64_t rows = (int64_t)genes * nS;
+  auto argmax = loc_argmax_kernel;
+  argmax<<<(unsigned)((rows + 127) / 128), 128, 0, stream>>>(
+      lml_all, k_best, nrho, (int)rows);
+  return (int)cudaGetLastError();
+}
+
+// The float32 context (see c32_converge_kernel): the operands of
+// crm_reml_converge in f32 (REML; k_best, x0 and the brackets as there),
+// p + 1 <= 16, eps_ctx the context's eps for the rss floor -> delta, lml,
+// scale (genes, nS), beta (genes, nS, p + 1) f64.  No scratch.
+extern "C" int crm_reml_converge_f32(const float* Sv, const float* WGt,
+                                     const float* yt, const float* CWW,
+                                     const float* CWy, const float* Cyy,
+                                     const float* CWg, const float* Cgy,
+                                     const float* Cgg, const float* ld_xx,
+                                     const int64_t* k_best, const double* x0,
+                                     const double* br_lo,
+                                     const double* br_hi, double* delta,
+                                     double* lml, double* scale, double* beta,
+                                     int n, int nrho, int R, int p, int nS,
+                                     int genes, int steps, double eps_ctx,
+                                     cudaStream_t stream) {
+  auto kernel = p + 1 <= 2   ? c32_converge_kernel<2>
+                : p + 1 <= 4 ? c32_converge_kernel<4>
+                : p + 1 <= 8 ? c32_converge_kernel<8>
+                             : c32_converge_kernel<16>;
+  const int64_t P = (int64_t)genes * nS;
+  kernel<<<(unsigned)((P + C32_WARPS - 1) / C32_WARPS), 32 * C32_WARPS, 0,
+           stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, k_best,
+                     x0, br_lo, br_hi, delta, lml, scale, beta, n, nrho, R, p,
+                     nS, genes, steps, eps_ctx);
   return (int)cudaGetLastError();
 }

@@ -54,6 +54,14 @@
 //   instantiations: MAXJ = 4 (m <= 80: up to 30 tiles a gene, 16 genes a
 //   pass at the headline's m = 13, two blocks an SM) and MAXJ = 8 (m <=
 //   98: 55 tiles, so C = 64 with 32 covariates).
+//
+// The float32 context (the screen's, engine.py:234-265 on an f32 context:
+// the score factors, rotated rows and full-space Grams f32, v0 and v1 f64,
+// so that the reference's type promotion runs the whole statistic in f64)
+// takes the same kernels with f32 operands, each value widened to f64 as
+// it is loaded (a template on the load type): the gathered genotype
+// columns and the staged rows are f64 in shared memory, and the Gram runs
+// on the FP64 tensor cores as above.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -140,9 +148,10 @@ __global__ void score_kslot_kernel(const int64_t* __restrict__ k_best,
 }
 
 // Gs[j, s, r] = WGt[kslot[j, s], r, p + s] where kslot[j, s] >= 0; a
-// block a (32 variants, 32 rows, slot)
+// block a (32 variants, 32 rows, slot); an f32 WGt is widened as it is read
+template <class TL>
 __global__ void __launch_bounds__(256)
-score_gather_kernel(const double* __restrict__ WGt,
+score_gather_kernel(const TL* __restrict__ WGt,
                     const int64_t* __restrict__ kslot,
                     double* __restrict__ Gs, int R, int p, int S) {
   __shared__ double tile[32][33];
@@ -163,16 +172,26 @@ score_gather_kernel(const double* __restrict__ WGt,
   }
 }
 
-template <int MAXJ>
+// one staged value of the load type TL, as f64: a cp.async for f64, a
+// widening load for f32
+template <class TL>
+__device__ __forceinline__ void stage_value(double* d, const TL* src) {
+  if constexpr (sizeof(TL) == 8)
+    cp_async8(d, src);
+  else
+    *d = (double)*src;
+}
+
+template <int MAXJ, class TL>
 __global__ void __launch_bounds__(NT, MAXJ == MAXJ_NARROW ? 2 : 1)
-score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
-                  const double* __restrict__ yt, const double* __restrict__ At,
+score_core_kernel(const TL* __restrict__ Sv, const TL* __restrict__ WGt,
+                  const TL* __restrict__ yt, const TL* __restrict__ At,
                   const double* __restrict__ Gs,
-                  const double* __restrict__ WW, const double* __restrict__ Wy,
-                  const double* __restrict__ Wg, const double* __restrict__ gg,
-                  const double* __restrict__ gy, const double* __restrict__ AW,
-                  const double* __restrict__ Ag, const double* __restrict__ Ay,
-                  const double* __restrict__ AtA,
+                  const TL* __restrict__ WW, const TL* __restrict__ Wy,
+                  const TL* __restrict__ Wg, const TL* __restrict__ gg,
+                  const TL* __restrict__ gy, const TL* __restrict__ AW,
+                  const TL* __restrict__ Ag, const TL* __restrict__ Ay,
+                  const TL* __restrict__ AtA,
                   const int64_t* __restrict__ kslot,
                   const double* __restrict__ v0s,
                   const double* __restrict__ v1s,
@@ -238,9 +257,9 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
           vv[2 * e] = v0s[i];
           vv[2 * e + 1] = v1s[i];
         }
-        const double* Sk = Sv + k * R;
-        const double* Wk = WGt + k * (int64_t)R * ps;
-        const double* Ak = At + ((int64_t)j * S + s) * R * C;
+        const TL* Sk = Sv + k * R;
+        const TL* Wk = WGt + k * (int64_t)R * ps;
+        const TL* Ak = At + ((int64_t)j * S + s) * R * C;
         const double* Gk = Gs + ((int64_t)j * S + s) * R;
 
         // this warp's jobs (pass gene gi, tile ti, tj) and its share of the
@@ -296,9 +315,17 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
             double* d = st + rr * ldz + c;
             if (rr < rows) {
               const int64_t r = r0 + rr;
-              cp_async8(d, c < C       ? Ak + r * C + c
-                           : c < C + p ? Wk + r * ps + (c - C)
-                                       : Gk + r);
+              if constexpr (sizeof(TL) == 8) {
+                cp_async8(d, c < C       ? Ak + r * C + c
+                             : c < C + p ? Wk + r * ps + (c - C)
+                                         : Gk + r);
+              } else if (c < C) {
+                stage_value(d, Ak + r * C + c);
+              } else if (c < C + p) {
+                stage_value(d, Wk + r * ps + (c - C));
+              } else {
+                cp_async8(d, Gk + r);
+              }
             } else {
               *d = 0.0;
             }
@@ -307,15 +334,15 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
           for (int e = tid; e < gc * RC; e += NT) {
             const int gi = e / RC, rr = e - gi * RC;
             if (rr < rows)
-              cp_async8(yc + e,
-                        yt + ((int64_t)glist[gi] * nrho + k) * R + r0 + rr);
+              stage_value(yc + e,
+                          yt + ((int64_t)glist[gi] * nrho + k) * R + r0 + rr);
             else
               yc[e] = 0.0;
           }
           double* sc = yc + gb * RC;
           for (int rr = tid; rr < RC; rr += NT) {
             if (rr < rows)
-              cp_async8(sc + rr, Sk + r0 + rr);
+              stage_value(sc + rr, Sk + r0 + rr);
             else
               sc[rr] = 0.0;
           }
@@ -395,8 +422,8 @@ score_core_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
           double* sAPy = sAKX + C * p1;      // [C]
           const int nb = C + 1;
           const double v1 = vv[2 * gi + 1];
-          const double* Wyg = Wy + (int64_t)g * p;
-          const double* Ayg = Ay + (int64_t)g * C * S;
+          const TL* Wyg = Wy + (int64_t)g * p;
+          const TL* Ayg = Ay + (int64_t)g * C * S;
           // K0^{-1} forms: (full-space Gram - weighted eigenbasis Gram) / v1
           for (int idx = lane; idx < p1 * p1; idx += 32) {
             const int i = idx / p1, jj = idx - i * p1;
@@ -523,6 +550,42 @@ inline int pass_genes(int C, int p, int genes, int maxj) {
 // f64 on the card; C + p + 2 <= 98, p + 1 <= 33, genes and nslots <= 65535
 // (a single phenotype is genes = 1).  Launches on `stream`; returns the
 // first launch's CUDA error, 0 if none.
+template <class TL>
+int run(const TL* Sv, const TL* WGt, const TL* yt, const TL* At,
+        const TL* WW, const TL* Wy, const TL* Wg, const TL* gg, const TL* gy,
+        const TL* AW, const TL* Ag, const TL* Ay, const TL* AtA,
+        const int64_t* k_best, const double* v0, const double* v1,
+        const int64_t* slot, double* Q, double* Wmat, double* work, int nrho,
+        int R, int C, int p, int S, int genes, int nslots,
+        cudaStream_t stream) {
+  double* Gs = work;
+  int64_t* kslot = reinterpret_cast<int64_t*>(work + (int64_t)nslots * S * R);
+  auto ks = score_kslot_kernel;
+  ks<<<(unsigned)((S + 127) / 128), 128, 0, stream>>>(k_best, slot, kslot, S,
+                                                      genes, nslots);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const dim3 ggrid((unsigned)((S + 31) / 32), (unsigned)((R + 31) / 32),
+                   (unsigned)nslots);
+  auto gather = score_gather_kernel<TL>;
+  gather<<<ggrid, 256, 0, stream>>>(WGt, kslot, Gs, R, p, S);
+  if ((err = (int)cudaGetLastError())) return err;
+  // the narrow instantiation where a gene's tiles fit 4 a warp
+  const bool wide = n_tiles(C + p + 2) > NW * MAXJ_NARROW;
+  auto kernel = wide ? score_core_kernel<MAXJ_WIDE, TL>
+                     : score_core_kernel<MAXJ_NARROW, TL>;
+  const int gb = pass_genes(C, p, genes, wide ? MAXJ_WIDE : MAXJ_NARROW);
+  const int smem = smem_bytes(C, p, gb);
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  kernel<<<(unsigned)S, NT, smem, stream>>>(Sv, WGt, yt, At, Gs, WW, Wy, Wg,
+                                            gg, gy, AW, Ag, Ay, AtA, kslot,
+                                            v0, v1, slot, Q, Wmat, nrho, R, C,
+                                            p, S, genes, nslots, gb);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int crm_score_core(const double* Sv, const double* WGt,
                               const double* yt, const double* At,
                               const double* WW, const double* Wy,
@@ -535,30 +598,27 @@ extern "C" int crm_score_core(const double* Sv, const double* WGt,
                               double* work, int nrho, int R, int C, int p,
                               int S, int genes, int nslots,
                               cudaStream_t stream) {
-  double* Gs = work;
-  int64_t* kslot = reinterpret_cast<int64_t*>(work + (int64_t)nslots * S * R);
-  auto ks = score_kslot_kernel;
-  ks<<<(unsigned)((S + 127) / 128), 128, 0, stream>>>(k_best, slot, kslot, S,
-                                                      genes, nslots);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const dim3 ggrid((unsigned)((S + 31) / 32), (unsigned)((R + 31) / 32),
-                   (unsigned)nslots);
-  auto gather = score_gather_kernel;
-  gather<<<ggrid, 256, 0, stream>>>(WGt, kslot, Gs, R, p, S);
-  if ((err = (int)cudaGetLastError())) return err;
-  // the narrow instantiation where a gene's tiles fit 4 a warp
-  const bool wide = n_tiles(C + p + 2) > NW * MAXJ_NARROW;
-  auto kernel = wide ? score_core_kernel<MAXJ_WIDE>
-                     : score_core_kernel<MAXJ_NARROW>;
-  const int gb = pass_genes(C, p, genes, wide ? MAXJ_WIDE : MAXJ_NARROW);
-  const int smem = smem_bytes(C, p, gb);
-  err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err) return err;
-  kernel<<<(unsigned)S, NT, smem, stream>>>(Sv, WGt, yt, At, Gs, WW, Wy, Wg,
-                                            gg, gy, AW, Ag, Ay, AtA, kslot,
-                                            v0, v1, slot, Q, Wmat, nrho, R, C,
-                                            p, S, genes, nslots, gb);
-  return (int)cudaGetLastError();
+  return run<double>(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
+                     k_best, v0, v1, slot, Q, Wmat, work, nrho, R, C, p, S,
+                     genes, nslots, stream);
+}
+
+// The float32 context: the operands of crm_score_core in f32 (v0, v1 and
+// the results f64, the scratch as there), each widened to f64 as it is
+// loaded.
+extern "C" int crm_score_core_f32(const float* Sv, const float* WGt,
+                                  const float* yt, const float* At,
+                                  const float* WW, const float* Wy,
+                                  const float* Wg, const float* gg,
+                                  const float* gy, const float* AW,
+                                  const float* Ag, const float* Ay,
+                                  const float* AtA, const int64_t* k_best,
+                                  const double* v0, const double* v1,
+                                  const int64_t* slot, double* Q,
+                                  double* Wmat, double* work, int nrho,
+                                  int R, int C, int p, int S, int genes,
+                                  int nslots, cudaStream_t stream) {
+  return run<float>(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
+                    k_best, v0, v1, slot, Q, Wmat, work, nrho, R, C, p, S,
+                    genes, nslots, stream);
 }

@@ -220,6 +220,16 @@ def interaction_batch(ctx: NullContext, G: torch.Tensor,
     eps2, v0, v1, delta, lml; with ``device_pvalues`` also the mixture
     weights ``lambdas`` (K6a) and the device tails ``pv_liu`` and
     ``pv_saddlepoint`` (K6b).
+
+    A float32 context (every field f32, with G and G_score: the screen's,
+    the JAX engine's f32 ``interaction_batch``) is mixed precision as the
+    reference's type promotion makes it: the contractions (K1), the
+    rotations, the complements, logdet(X^T X), the delta grid (K2), the
+    localizing Newton steps (K3) and the best-rho rotation (K4) run in f32;
+    the per-variant statistics (K3's evaluation and converge, the score
+    statistic K5) in f64 on the widened f32 tensors; the mixture weights
+    (K6a) are the f32 eigenvalues of Wmat rounded to f32.  The results are
+    f64 either way.
     """
     Z, E0, W = ctx.Z, ctx.E0, ctx.W
     p = W.shape[1]
@@ -298,14 +308,16 @@ def interaction_batch(ctx: NullContext, G: torch.Tensor,
     Q, Wmat = score_core(ctx.S, WG_rot, yt_all, At_slots, ctx.WW, ctx.Wy,
                          Wg, gg, gy, AW, Ag, Ay, AtA, k_best, v0_k, v1_k,
                          slot)
-    rho1 = ctx.rho[k_best]
+    rho1 = ctx.rho[k_best].to(torch.float64)
     out = {"Q": Q, "Wmat": Wmat, "rho1": rho1, "e2": v0_k * rho1,
            "g2": v0_k * (1 - rho1), "eps2": v1_k, "v0": v0_k, "v1": v1_k,
            "delta": delta_k, "lml": lml_k}
     if device_pvalues:
-        # the mixture weights (K6a) and both device tails (K6b)
+        # the mixture weights (K6a: in the context's dtype, the weight
+        # matrices rounded to it, engine.py:759-769) and both device tails
+        # (K6b, f64)
         C = Wmat.shape[-1]
-        lam = sym_eigvalsh(Wmat.reshape(-1, C, C))
+        lam = sym_eigvalsh(Wmat.reshape(-1, C, C).to(f64)).to(torch.float64)
         pv_liu, pv_sp = mixture_tails(Q.reshape(-1), lam)
         out.update(lambdas=lam.reshape(Wmat.shape[:-1]),
                    pv_liu=pv_liu.reshape(Q.shape),

@@ -133,6 +133,17 @@ def upload(a, device):
     return t.to(device)
 
 
+def context_dtype(t, name: str):
+    """The dtype of a kernel call's context (float64, or float32 for the
+    float32 context) from its first operand; raises on any other."""
+    import torch
+
+    if t.dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"{name}: expected float64 or float32 (the float32 "
+                        f"context), got {t.dtype}")
+    return t.dtype
+
+
 def require(t, name: str, dtype, shape=None) -> None:
     """Validate a kernel operand: on the card, dtype, contiguity, shape."""
     if t.device.type != "cuda":

@@ -15,6 +15,10 @@ slot for a single phenotype); a slot past a variant's count of distinct
 rho holds no value (the kernel leaves it unwritten).  K5 reads the
 factor through the slot (:mod:`.score_core`); :func:`gather` returns the
 per-gene layout.
+
+The float32 context (the screen's) takes f32 V and T: an instantiation of
+its own (``crm_best_rho_rotate_f32``: the same slots and lists, the product
+in FP32 FMA with f32 sums), whose factors are f32.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 from . import _build
 
 launches = 0
+launches_f32 = 0  # of them, the float32 context's instantiation
 
 
 def slots(k_best: torch.Tensor, nrho: int):
@@ -71,13 +76,17 @@ def _bind(lib):
     lib.crm_best_rho_rotate_workspace.argtypes = [ci] * 4
     lib.crm_best_rho_rotate.restype = ci
     lib.crm_best_rho_rotate.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+    lib.crm_best_rho_rotate_f32_workspace.restype = ctypes.c_int64
+    lib.crm_best_rho_rotate_f32_workspace.argtypes = [ci] * 4
+    lib.crm_best_rho_rotate_f32.restype = ci
+    lib.crm_best_rho_rotate_f32.argtypes = [vp] * 6 + [ci] * 5 + [vp]
 
 
 def best_rho_rotate(V: torch.Tensor, T: torch.Tensor, k_best: torch.Tensor):
     """(At_slots (min(genes, nrho), S, R, C), slot ([genes,] S) int64) from
-    V (nrho, R, R), T (R, C, S) f64 and k_best ([genes,] S) int64 in
-    [0, nrho)."""
-    global launches
+    V (nrho, R, R), T (R, C, S) f64 (or both f32: the float32 context) and
+    k_best ([genes,] S) int64 in [0, nrho)."""
+    global launches, launches_f32
     if V.device.type == "cpu":
         return best_rho_rotate_plain(V, T, k_best)
     nrho, R = V.shape[0], V.shape[1]
@@ -85,12 +94,14 @@ def best_rho_rotate(V: torch.Tensor, T: torch.Tensor, k_best: torch.Tensor):
     if k_best.ndim not in (1, 2):
         raise ValueError(f"best_rho_rotate: k_best (S,) or (genes, S), got "
                          f"{tuple(k_best.shape)}")
-    _build.require(V, "V", torch.float64, (nrho, R, R))
-    _build.require(T, "T", torch.float64, (R, C, S))
+    dt = _build.context_dtype(V, "best_rho_rotate: V")
+    _build.require(V, "V", dt, (nrho, R, R))
+    _build.require(T, "T", dt, (R, C, S))
     _build.require(k_best, "k_best", torch.int64, k_best.shape[:-1] + (S,))
     out = call(_build.load("best_rho_rotate", _bind), V, T, k_best,
                _build.stream_ptr(V.device))
     launches += 1
+    launches_f32 += dt == torch.float32
     return out
 
 
@@ -105,9 +116,12 @@ def call(lib, V, T, k_best, stream=None):
     slot = torch.empty(k_best.shape, dtype=torch.int64, device=T.device)
     if At.numel() == 0:
         return At, slot
-    nbytes = lib.crm_best_rho_rotate_workspace(nrho, R, C, S)
+    f32 = T.dtype == torch.float32  # the float32 context
+    nbytes = (lib.crm_best_rho_rotate_f32_workspace if f32
+              else lib.crm_best_rho_rotate_workspace)(nrho, R, C, S)
     work = torch.empty(nbytes, dtype=torch.uint8, device=T.device)
-    _build.check(lib.crm_best_rho_rotate(
+    entry = lib.crm_best_rho_rotate_f32 if f32 else lib.crm_best_rho_rotate
+    _build.check(entry(
         _build.ptr(V), _build.ptr(T), _build.ptr(k_best), _build.ptr(At),
         _build.ptr(slot), _build.ptr(work), nrho, R, C, S, genes, stream),
         "best_rho_rotate")

@@ -22,6 +22,11 @@ complements CWy, Cyy, Cgy) with a leading gene axis; the genotype's are
 shared, and the results gain the same leading axis.  One launch serves
 every gene.
 
+The float32 context (the screen's) takes f32 operands (S, WGt, yt, the
+complements, ld_xx) and f32 working sums: an instantiation of its own
+(``crm_delta_grid_f32``), whose brackets are the grid logits rounded to f32
+(engine.py:528), widened exactly; its plain version rounds them alike.
+
 The gene-batched association refit runs each gene at its own null's best
 rho alone: ``slot`` (one int per gene) names the rho row of S and WGt (the
 tile's distinct best rho, m of them) that the gene's grid runs, and the
@@ -43,13 +48,17 @@ from ..ops.linalg import (unrolled_chol_factor, unrolled_chol_logdet,
                           unrolled_chol_solve)
 
 launches = 0
+launches_f32 = 0  # of them, the float32 context's instantiation
 
 MAX_FIXED = 33      # p + 1 of the CUDA kernel's small algebra
 MAX_GENES = 65535   # genes of one launch (a grid axis)
 
 
-def logit_grid(lo, hi, n_grid, device):
-    return torch.linspace(lo, hi, n_grid, dtype=torch.float64, device=device)
+def logit_grid(lo, hi, n_grid, device, ctx_dtype=torch.float64):
+    """The grid's logits, f64, rounded to the context's dtype (the
+    brackets' values)."""
+    grid = torch.linspace(lo, hi, n_grid, dtype=torch.float64, device=device)
+    return grid.to(ctx_dtype).to(torch.float64)
 
 
 def delta_grid_plain(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid,
@@ -70,8 +79,8 @@ def delta_grid_plain(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid,
     R = S.shape[1]
     prod = products(WGt[:, :, :p], yt, WGt[:, :, p:])
     TS = tensor_set(S, prod, comp, fast)
-    logit = logit_grid(lo, hi, n_grid, S.device)
-    deltas = torch.sigmoid(logit).to(fast)
+    deltas = torch.sigmoid(logit_grid(lo, hi, n_grid, S.device)).to(fast)
+    logit = logit_grid(lo, hi, n_grid, S.device, S.dtype)  # the brackets
     d_grid = (1 - deltas)[None, :, None] * TS["S"][:, None, :] \
         + deltas[None, :, None]                         # (nrho, K, R)
     Wd = 1.0 / d_grid
@@ -133,16 +142,18 @@ def _slot_grid_plain(S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n, fast,
     return br_lo, br_hi
 
 
-def bracket_shortfall(br_lo, br_hi, lml, lo, hi) -> float:
+def bracket_shortfall(br_lo, br_hi, lml, lo, hi,
+                      ctx_dtype=torch.float64) -> float:
     """How far a kernel's brackets fall short of the plain grid's argmax:
     the largest relative gap, over (variant, rho), between a row's plain
     maximum and the plain lml at the grid point the kernel's bracket was
     built around.  0 where the kernel chose the plain argmax; small at a
     near-tie (another summation order can pick the neighbouring point);
     inf where the bracket belongs to no grid point.  ``lml`` is the plain
-    (S, nrho, K) grid."""
+    (S, nrho, K) grid; ``ctx_dtype`` the context's dtype, to which the
+    brackets' logits are rounded."""
     K = lml.shape[-1]
-    logit = logit_grid(lo, hi, K, lml.device)
+    logit = logit_grid(lo, hi, K, lml.device, ctx_dtype)
     ar = torch.arange(K, device=lml.device)
     near = lambda a, b: (a - b).abs() <= 1e-12 * max(abs(lo), abs(hi))  # noqa
     match = near(br_lo[..., None], logit[torch.clamp(ar - 1, min=0)]) \
@@ -161,6 +172,8 @@ def _bind(lib):
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.crm_delta_grid.restype = ci
     lib.crm_delta_grid.argtypes = [vp] * 14 + [cd, cd] + [ci] * 9 + [vp]
+    lib.crm_delta_grid_f32.restype = ci
+    lib.crm_delta_grid_f32.argtypes = [vp] * 14 + [cd, cd] + [ci] * 8 + [vp]
     lib.crm_delta_grid_workspace.restype = ctypes.c_int64
     lib.crm_delta_grid_workspace.argtypes = [ci] * 7
 
@@ -172,7 +185,8 @@ def gene_shape(yt):
 
 def check_operands(name, S, WGt, yt, comp, ld_xx, restricted, slot=None):
     """Validate the operands of the K2/K3 kernels (and the host ``slot``
-    index, where given); returns (nrho, R, p, nS, gene axis)."""
+    index, where given): all float64, or all float32 (the float32
+    context); returns (nrho, R, p, nS, gene axis)."""
     nrho, R = S.shape
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
@@ -188,7 +202,7 @@ def check_operands(name, S, WGt, yt, comp, ld_xx, restricted, slot=None):
         raise ValueError(f"{name}: slot must name one of the {nrho} rho rows "
                          f"for each gene of yt {tuple(yt.shape)}, got "
                          f"{list(slot)}")
-    f64 = torch.float64
+    f64 = _build.context_dtype(S, f"{name}: S")
     for t, tn, shape in ((S, "S", (nrho, R)), (WGt, "WGt", (nrho, R, p + nS)),
                          (yt, "yt", gs + (nrho, R)),
                          (comp.CWW, "CWW", (p, p)),
@@ -212,21 +226,26 @@ def delta_grid(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid, n,
     Grams (see the module doc for the gene axis);
     ld_xx (S,) logdet(X^T X) (REML only, else None); the grid is
     ``n_grid`` points of logit(delta) from ``lo`` to ``hi``; ``fast`` the
-    working dtype (float32 or float64); ``restricted`` REML or ML.
+    working dtype (float32 or float64; float32 in the float32 context,
+    whose operands are f32); ``restricted`` REML or ML.
     ``slot`` (a host sequence, one int in [0, nrho) per gene of yt's gene
     axis): each gene's grid at that rho row alone (the module doc).
     """
-    global launches
+    global launches, launches_f32
     if S.device.type == "cpu":
         return delta_grid_plain(S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n,
                                 fast, restricted, slot=slot)
     check_operands("delta_grid", S, WGt, yt, comp, ld_xx, restricted, slot)
+    if S.dtype == torch.float32 and fast != torch.float32:
+        raise TypeError("delta_grid: the float32 context's grid runs in "
+                        "float32")
     if slot is not None:
         slot = _build.upload(np.asarray(slot, dtype=np.int64), S.device)
     out = call(_build.load("delta_grid", _bind), S, WGt, yt, comp, ld_xx, lo,
                hi, n_grid, n, fast, restricted, _build.stream_ptr(S.device),
                slot=slot)
     launches += 1
+    launches_f32 += S.dtype == torch.float32
     return out
 
 
@@ -256,7 +275,11 @@ def call(lib, S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n, fast,
     ptrs += [_build.ptr(ld_xx) if restricted else None,
              None if slot is None else _build.ptr(slot), _build.ptr(br_lo),
              _build.ptr(br_hi), _build.ptr(work)]
-    _build.check(lib.crm_delta_grid(*ptrs, lo, hi, n_grid, n, nrho, R, p, nS,
-                                    genes, f32, int(restricted), stream),
-                 "delta_grid")
+    if S.dtype == torch.float32:  # the float32 context
+        err = lib.crm_delta_grid_f32(*ptrs, lo, hi, n_grid, n, nrho, R, p,
+                                     nS, genes, int(restricted), stream)
+    else:
+        err = lib.crm_delta_grid(*ptrs, lo, hi, n_grid, n, nrho, R, p, nS,
+                                 genes, f32, int(restricted), stream)
+    _build.check(err, "delta_grid")
     return br_lo, br_hi

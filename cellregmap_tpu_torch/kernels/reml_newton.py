@@ -41,6 +41,15 @@ workspace query.  A gene-batched call gives
 the phenotype's operands, the brackets and ``k_best``/``x0`` a leading
 gene axis (as :mod:`.delta_grid` does); one launch of the wrapper serves
 every gene.
+
+The float32 context (the screen's) takes f32 operands, REML only, p + 1 <=
+``MAX_FIXED_F32``: its localize runs the Newton steps in f32 arithmetic
+with f32 state (stage 1b as the reference computes it on an f32 context)
+and the evaluation in f64 on the widened tensors, the converge f64 on the
+widened tensors; the noise floors of both take eps(f32), the tensors'
+(engine.py:655, :724), and the products are the f32 products.  Its kernels
+(``crm_reml_localize_f32``, ``crm_reml_converge_f32``) take a warp a
+problem, the rows read where they lie.
 """
 from __future__ import annotations
 
@@ -57,6 +66,9 @@ from ..ops.linalg import (unrolled_chol_factor, unrolled_chol_logdet,
                           unrolled_chol_solve)
 
 launches = 0
+launches_f32 = 0  # of them, the float32 context's instantiations
+
+MAX_FIXED_F32 = 16  # p + 1 of the float32 context's kernels
 
 
 def _eval(delta, TS, rs, ro, n, R, ld_xx, restricted):
@@ -85,25 +97,33 @@ def reml_localize_plain(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi,
             for g in range(yt.shape[0]))))
     p = comp.CWW.shape[0]
     R = S.shape[1]
-    f64 = S.dtype
+    ctx, f64, f32 = S.dtype, torch.float64, torch.float32
     prod = products(WGt[:, :, :p], yt, WGt[:, :, p:])
-    TS64 = tensor_set(S, prod, comp, f64)
-    TS1b = tensor_set(S, prod, comp, torch.float32, f64) if round32 else TS64
+    # the context's tensors held in f64 (the float32 context's widened)
+    TS64 = tensor_set(S, prod, comp, ctx, f64)
     ro = lambda w, t: torch.einsum("sor,or->so", w, t)  # noqa: E731
     rs = lambda w, t: torch.einsum("sor,ors->so", w, t)  # noqa: E731
 
-    st = (0.5 * (br_lo + br_hi), br_lo, br_hi)
+    if ctx == f32:
+        # stage 1b of the float32 context: f32 arithmetic, f32 state
+        TS1b = tensor_set(S, prod, comp, f32)
+        lo32, hi32 = br_lo.to(f32), br_hi.to(f32)
+        st = (0.5 * (lo32 + hi32), lo32, hi32)
+    else:
+        TS1b = tensor_set(S, prod, comp, f32, f64) if round32 else TS64
+        st = (0.5 * (br_lo + br_hi), br_lo, br_hi)
     for _ in range(steps):
         st = newton_step(st, TS1b, rs, ro, n, True)
-    x = st[0]
+    x = st[0].to(f64)
     delta = torch.sigmoid(x)                             # (S, nrho)
 
     beta, rss, q, logdet_a, logdet_d = _eval(delta, TS64, rs, ro, n, R,
                                              ld_xx, True)
-    rss_bad = rss <= 128 * torch.finfo(f64).eps * q     # engine.py:655
+    # the tensors' noise floor: eps of the context (engine.py:655)
+    rss_bad = rss <= 128 * torch.finfo(ctx).eps * q
     rss = torch.clamp(rss, min=torch.finfo(f64).tiny)
-    lml_all = lml_value(rss, logdet_d, logdet_a, ld_xx[:, None], n, p + 1,
-                        True)
+    lml_all = lml_value(rss, logdet_d, logdet_a, ld_xx.to(f64)[:, None], n,
+                        p + 1, True)
     # noise-floor or NaN evaluations must not win the rho argmax
     lml_all = torch.where(rss_bad | ~torch.isfinite(lml_all), -torch.inf,
                           lml_all)
@@ -124,7 +144,7 @@ def reml_converge_plain(S, WGt, yt, comp: Complements, ld_xx, k_best, x0,
             for g in range(yt.shape[0]))))
     p = comp.CWW.shape[0]
     R = S.shape[1]
-    f64 = S.dtype
+    ctx, f64 = S.dtype, torch.float64
     nS = WGt.shape[2] - p
     ar = torch.arange(nS, device=S.device)
     if k_best is None:
@@ -134,7 +154,8 @@ def reml_converge_plain(S, WGt, yt, comp: Complements, ld_xx, k_best, x0,
                     WGt[k_best, :, p + ar][:, :, None])
     prod.update(GY=prod["GY"][..., 0], G2=prod["G2"][..., 0],
                 GW=[a[..., 0] for a in prod["GW"]])
-    TS = tensor_set(S[k_best], prod, comp, f64)
+    # the context's tensors held in f64 (the float32 context's widened)
+    TS = tensor_set(S[k_best], prod, comp, ctx, f64)
     red = lambda w, t: (w * t).sum(dim=-1)              # noqa: E731
 
     lo_b, hi_b = br_lo[ar, k_best], br_hi[ar, k_best]
@@ -148,8 +169,9 @@ def reml_converge_plain(S, WGt, yt, comp: Complements, ld_xx, k_best, x0,
                                              ld_xx, restricted)
     if restricted:
         # the tensors' cancellation noise floor keeps a near-degenerate
-        # variant's scale finite (engine.py:722-724)
-        rss = torch.maximum(rss, 128 * torch.finfo(f64).eps * q)
+        # variant's scale finite (engine.py:722-724); eps of the context
+        rss = torch.maximum(rss, 128 * torch.finfo(ctx).eps * q)
+        ld_xx = ld_xx.to(f64)
     rss = torch.clamp(rss, min=torch.finfo(f64).tiny)
     lml = lml_value(rss, logdet_d, logdet_a, ld_xx, n, p + 1, restricted)
     scale = rss / ((n - p - 1) if restricted else n)
@@ -166,6 +188,19 @@ def _bind(lib):
     lib.crm_reml_converge_workspace.argtypes = [ci] * 3
     lib.crm_reml_converge.restype = ci
     lib.crm_reml_converge.argtypes = [vp] * 19 + [ci] * 8 + [vp]
+    cd = ctypes.c_double
+    lib.crm_reml_localize_f32.restype = ci
+    lib.crm_reml_localize_f32.argtypes = [vp] * 15 + [ci] * 7 + [cd, vp]
+    lib.crm_reml_converge_f32.restype = ci
+    lib.crm_reml_converge_f32.argtypes = [vp] * 18 + [ci] * 7 + [cd, vp]
+
+
+def _check_f32(name, S, p, restricted):
+    """The float32 context's limits: REML, p + 1 <= MAX_FIXED_F32."""
+    if S.dtype == torch.float32 and (not restricted or p + 1 > MAX_FIXED_F32):
+        raise ValueError(f"{name}: the float32 context runs REML with p + 1 "
+                         f"<= {MAX_FIXED_F32}, got p + 1 = {p + 1}, "
+                         f"restricted={restricted}")
 
 
 def reml_localize(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi, n,
@@ -174,12 +209,13 @@ def reml_localize(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi, n,
     S) int64); see the module doc.  Operands as
     :func:`delta_grid.delta_grid`'s, plus the grid brackets br_lo/br_hi
     ([genes,] S, nrho) f64."""
-    global launches
+    global launches, launches_f32
     if S.device.type == "cpu":
         return reml_localize_plain(S, WGt, yt, comp, ld_xx, br_lo, br_hi,
                                    n, steps, round32)
     nrho, R, p, nS, gs = check_operands("reml_localize", S, WGt, yt, comp,
                                         ld_xx, True)
+    _check_f32("reml_localize", S, p, True)
     for t, name in ((br_lo, "br_lo"), (br_hi, "br_hi")):
         _build.require(t, f"reml_localize: {name}", torch.float64,
                        gs + (nS, nrho))
@@ -187,6 +223,7 @@ def reml_localize(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi, n,
                         ld_xx, br_lo, br_hi, n, steps, round32,
                         _build.stream_ptr(S.device))
     launches += 1
+    launches_f32 += S.dtype == torch.float32
     return out
 
 
@@ -204,6 +241,13 @@ def call_localize(lib, S, WGt, yt, comp, ld_xx, br_lo, br_hi, n, steps,
     k_best = torch.empty(gs + (nS,), dtype=torch.int64, device=S.device)
     if k_best.numel() == 0:
         return x, lml_all, k_best
+    if S.dtype == torch.float32:  # the float32 context: no scratch
+        ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp, ld_xx, br_lo,
+                                        br_hi, x, lml_all, k_best)]
+        _build.check(lib.crm_reml_localize_f32(
+            *ptrs, n, nrho, R, p, nS, math.prod(gs), steps,
+            float(torch.finfo(torch.float32).eps), stream), "reml_localize")
+        return x, lml_all, k_best
     nbytes = lib.crm_reml_localize_workspace(nrho, R, p, nS, int(round32))
     work = torch.empty(nbytes, dtype=torch.uint8, device=S.device)
     ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp, ld_xx, br_lo, br_hi,
@@ -220,12 +264,13 @@ def reml_converge(S, WGt, yt, comp: Complements, ld_xx, k_best, x0, br_lo,
     """(delta, lml, scale, beta) per variant; see the module doc.  k_best
     ([genes,] S) int64 or None, x0 ([genes,] S, nrho) f64 or None,
     br_lo/br_hi ([genes,] S, nrho)."""
-    global launches
+    global launches, launches_f32
     if S.device.type == "cpu":
         return reml_converge_plain(S, WGt, yt, comp, ld_xx, k_best, x0,
                                    br_lo, br_hi, n, steps, restricted)
     nrho, R, p, nS, gs = check_operands("reml_converge", S, WGt, yt, comp,
                                         ld_xx, restricted)
+    _check_f32("reml_converge", S, p, restricted)
     for t, name in ((br_lo, "br_lo"), (br_hi, "br_hi"), (x0, "x0")):
         if t is not None:
             _build.require(t, f"reml_converge: {name}", torch.float64,
@@ -240,6 +285,7 @@ def reml_converge(S, WGt, yt, comp: Complements, ld_xx, k_best, x0, br_lo,
                         ld_xx, k_best, x0, br_lo, br_hi, n, steps, restricted,
                         _build.stream_ptr(S.device))
     launches += 1
+    launches_f32 += S.dtype == torch.float32
     return out
 
 
@@ -258,9 +304,18 @@ def call_converge(lib, S, WGt, yt, comp, ld_xx, k_best, x0, br_lo, br_hi, n,
     if delta.numel() == 0:
         return delta, lml, scale, beta
     genes = math.prod(gs)
+    opt = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
+    if S.dtype == torch.float32:  # the float32 context: no scratch
+        ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp, ld_xx)]
+        ptrs += [opt(k_best), opt(x0), _build.ptr(br_lo), _build.ptr(br_hi),
+                 _build.ptr(delta), _build.ptr(lml), _build.ptr(scale),
+                 _build.ptr(beta)]
+        _build.check(lib.crm_reml_converge_f32(
+            *ptrs, n, nrho, R, p, nS, genes, steps,
+            float(torch.finfo(torch.float32).eps), stream), "reml_converge")
+        return delta, lml, scale, beta
     work = torch.empty(lib.crm_reml_converge_workspace(nrho, nS, genes),
                        dtype=torch.uint8, device=S.device)
-    opt = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
     ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp)]
     ptrs += [opt(ld_xx if restricted else None), opt(k_best), opt(x0),
              _build.ptr(br_lo), _build.ptr(br_hi), _build.ptr(delta),

@@ -14,6 +14,13 @@ operands (yt, Wy, gy, Ay, k_best, v0, v1, slot) a leading gene axis; the
 genotype's (and the slots, which the genes that share a best rho share)
 are shared, and one call serves every gene: a block stages a slot's rows
 once for all the genes there.
+
+The float32 context (the screen's) gives the factors, the rotated rows and
+the full-space Grams in f32 and v0, v1 in f64: the reference's type
+promotion then runs the whole statistic in f64 on the widened values
+(engine.py:234-265), and so do both versions here (the kernel widens each
+value as it loads it, ``crm_score_core_f32``; the plain version widens the
+operands first).  Q and Wmat are f64 in either context.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from . import _build
 from .best_rho_rotate import gather
 
 launches = 0
+launches_f32 = 0  # of them, on the float32 context's operands
 
 # shape limits of the CUDA kernel (csrc/score_core.cu, its wide instantiation)
 MAX_COLUMNS = 98   # C + p + 2
@@ -36,7 +44,12 @@ MAX_GENES = 65535  # genes of one call (and slots: a grid axis)
 def score_core_plain(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
                      k_best, v0, v1, slot):
     """Plain torch version: ``score_test_core`` batched over variants, one
-    gene at a time, each on its factor At_slots[slot, s]."""
+    gene at a time, each on its factor At_slots[slot, s]; f32 operands (the
+    float32 context) are widened to f64 first."""
+    if WW.dtype != torch.float64:
+        f64 = lambda t: t.to(torch.float64)  # noqa: E731
+        Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA = map(
+            f64, (Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA))
     if yt.ndim == 3:
         return tuple(torch.stack(o) for o in zip(*(
             score_core_plain(Sv, WGt, yt[g], At, WW, Wy[g], Wg, gg, gy[g],
@@ -86,6 +99,8 @@ def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.crm_score_core.restype = ci
     lib.crm_score_core.argtypes = [vp] * 20 + [ci] * 7 + [vp]
+    lib.crm_score_core_f32.restype = ci
+    lib.crm_score_core_f32.argtypes = [vp] * 20 + [ci] * 7 + [vp]
 
 
 def score_core(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
@@ -98,9 +113,10 @@ def score_core(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
     S), AW (C, p, S), Ag (C, S), Ay ([genes,] C, S), AtA (C, C, S)
     full-space Grams, k_best ([genes,] S) int64 best-rho index, v0/v1
     ([genes,] S) variance components, slot ([genes,] S) int64 in [0, m):
-    the factor's slot in At.  f64.
+    the factor's slot in At.  f64; in the float32 context every operand
+    but v0 and v1 f32.
     """
-    global launches
+    global launches, launches_f32
     if At.device.type == "cpu":
         return score_core_plain(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW,
                                 Ag, Ay, AtA, k_best, v0, v1, slot)
@@ -115,21 +131,24 @@ def score_core(Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA,
         raise ValueError(f"score_core: a gene axis of 1..{MAX_GENES} genes, "
                          f"got yt of shape {tuple(yt.shape)}")
     f64 = torch.float64
+    dt = _build.context_dtype(At, "score_core: At")
     for t, name, shape in (
             (Sv, "Sv", (nrho, R)), (WGt, "WGt", (nrho, R, p + S)),
             (yt, "yt", gs + (nrho, R)), (At, "At", (m, S, R, C)),
             (WW, "WW", (p, p)), (Wy, "Wy", gs + (p,)), (Wg, "Wg", (p, S)),
             (gg, "gg", (S,)), (gy, "gy", gs + (S,)), (AW, "AW", (C, p, S)),
             (Ag, "Ag", (C, S)), (Ay, "Ay", gs + (C, S)),
-            (AtA, "AtA", (C, C, S)), (v0, "v0", gs + (S,)),
-            (v1, "v1", gs + (S,))):
-        _build.require(t, name, f64, shape)
+            (AtA, "AtA", (C, C, S))):
+        _build.require(t, name, dt, shape)
+    for t, name in ((v0, "v0"), (v1, "v1")):
+        _build.require(t, name, f64, gs + (S,))
     for t, name in ((k_best, "k_best"), (slot, "slot")):
         _build.require(t, name, torch.int64, gs + (S,))
     out = call(_build.load("score_core", _bind), Sv, WGt, yt, At, WW, Wy, Wg,
                gg, gy, AW, Ag, Ay, AtA, k_best, v0, v1, slot,
                _build.stream_ptr(At.device))
     launches += 1
+    launches_f32 += dt == torch.float32
     return out
 
 
@@ -152,6 +171,8 @@ def call(lib, Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW, Ag, Ay, AtA, k_best,
     ptrs = [_build.ptr(t) for t in (Sv, WGt, yt, At, WW, Wy, Wg, gg, gy, AW,
                                     Ag, Ay, AtA, k_best, v0, v1, slot, Q,
                                     Wmat, work)]
-    _build.check(lib.crm_score_core(*ptrs, nrho, R, C, p, S, math.prod(gs),
-                                    m, stream), "score_core")
+    entry = (lib.crm_score_core_f32 if At.dtype == torch.float32
+             else lib.crm_score_core)
+    _build.check(entry(*ptrs, nrho, R, C, p, S, math.prod(gs), m, stream),
+                 "score_core")
     return Q, Wmat

@@ -394,6 +394,35 @@ def davies_pvalue_batch(qs, lambda_rows, lim=20_000_000, acc=1e-8,
     return pv
 
 
+def saddlepoint_sf(q, lambdas, n_iters: int = 40):
+    """Kuonen saddlepoint Pr(Q > q), NumPy in and out: q (...,), lambdas
+    (..., C) (the JAX package's ``saddlepoint_sf``, through
+    :func:`saddlepoint_sf_torch` in f64 on the CPU)."""
+    q_t = torch.as_tensor(np.asarray(q, float))
+    lam_t = torch.as_tensor(np.asarray(lambdas, float))
+    return saddlepoint_sf_torch(q_t, lam_t, n_iters).numpy()
+
+
+def score_statistic_liu_params(q, weights):
+    """Modified-Liu parameters and p-value of one statistic (reference
+    _math.py:163-180)."""
+    pv, dof_x, _, mu_q, sigma_q = liu_sf(q, weights)
+    return {"pv": float(pv), "mu_q": float(mu_q), "sigma_q": float(sigma_q),
+            "dof_x": float(dof_x)}
+
+
+def qmin(liu_params):
+    """SKAT-O style per-rho quantile combination (reference _math.py:
+    183-201)."""
+    T = min(p["pv"] for p in liu_params)
+    out = np.zeros(len(liu_params))
+    for i, lp in enumerate(liu_params):
+        qv = chi2.ppf(1 - T, lp["dof_x"])
+        dof = lp["dof_x"]
+        out[i] = (qv - dof) / (2 * dof) ** 0.5 * lp["sigma_q"] + lp["mu_q"]
+    return out
+
+
 def lrt_pvalues(null_lml, alt_lmls, dof=1, clip_lo=1e-300,
                 clip_hi=1.0 - 1.1e-16):
     """Likelihood-ratio-test p-values: chi2(dof).sf(2 (alt - null)), clipped

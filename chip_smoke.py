@@ -23,36 +23,51 @@ Phases, in order; any failure raises and the script exits non-zero:
    the first 64 variants against the port on the CPU; then the same under
    ``pvalue_method="auto"`` (the device tails, K6a and K6b), its refined
    pairs against the davies run;
-5. a second interaction size users run (10k cells, 20 contexts, 125
+5. the float32 context's instantiations (K1 T, A^T A and A^T W, K2, K3's
+   localize and converge, K4, K5 on f32 operands, K6a in f32) on the
+   operands of one screen batch (1024 variants of the headline dataset,
+   cast to f32 on the card), each against its plain f32 version (n-term
+   sums within sqrt(n) eps(f32) of the terms' magnitudes; the tolerances of
+   ``check_f32_kernels``), timed beside it, its bound and its library
+   call;
+6. ``screen_2k``: ``scan_interaction_screen`` on the headline dataset, all
+   2048 variants, significance 5e-8: every f64 Davies hit of phase 4
+   confirmed with its value, the screen within 0.5 decades of the f64
+   saddlepoint, the first 64 variants against the CPU screen, tests/s
+   beside the f64 scan under davies and auto (the spread of 3 runs), the
+   f32 instantiations' launch counts; then ``screen_multigene_16`` (16
+   genes, 2048 variants, gene_batch 16): pairs/s, launch counts with the
+   gene axis, gene 0 against its single-gene screen;
+7. a second interaction size users run (10k cells, 20 contexts, 125
    donors, 512 variants), and K1 on the three contractions of its batch,
    captured from that run;
-6. the gene-batched scan, ``run_interaction_multigene(..., device="cuda")``
+8. the gene-batched scan, ``run_interaction_multigene(..., device="cuda")``
    at the JAX bench's ``multigene_16`` shape (the headline dataset, 16
    genes, 512 variants, one tile): first and steady pairs/s, launch counts,
    the per-gene loop on the same scanner, the first 2 genes x 64 variants
    against the CPU, K2-K5 with the gene axis against their plain versions
    (timed, with their bounds), and one call under "auto";
-7. the association paths at the headline size: ``run_association(...,
+9. the association paths at the headline size: ``run_association(...,
    hK=hK, device="cuda")`` (R = 110) and ``scan_association`` on the
    headline's Ls scanner (R = 1010), each with its launch counts and the
    first 64 variants against the port on the CPU;
-8. K8 fast_scan on a headline batch of the Ls scanner and K9
+10. K8 fast_scan on a headline batch of the Ls scanner and K9
    woodbury_family on every call of a 512-variant effect-size batch (f32
    zoom rounds, f64 rounds, the f64 fit with coefficients), each against
    its plain version and timed as in 3, and K1 on that batch's three
    contractions (K = Rk, V = E0 or B);
-9. the fast association paths, ``run_association_fast(..., hK=hK,
+11. the fast association paths, ``run_association_fast(..., hK=hK,
    device="cuda")`` and ``scan_association_fast`` on the Ls scanner, at
    2000 cells x 2048 variants, with launch counts and the first 64
    variants against the CPU;
-10. the effect sizes, ``estimate_betas(..., hK=hK)`` at 2000 cells x 512
+12. the effect sizes, ``estimate_betas(..., hK=hK)`` at 2000 cells x 512
     variants (a first and a steady call, the traced phase split, launch
     counts, the first 32 variants' fits against the CPU), and
     ``estimate_aggregate_environment`` of the planted variant against the
     CPU (on the headline's scanner, and with an E1 outside E, whose REML
     mean fit, K10's narrow instantiation at p = 12, is held against its
     plain version and timed);
-11. 50 contexts (2000 cells, 100 donors, an E1 outside E): the aggregate
+13. 50 contexts (2000 cells, 100 donors, an E1 outside E): the aggregate
     environment through K10's wide instantiation (p = 52) against the CPU
     and the kernel against its plain version, and K6a on one interaction
     batch's 50 x 50 weight matrices and on 512 seeded PSD 64 x 64 ones
@@ -60,7 +75,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     to 32 columns (rank[W, E] = 82): the aggregate environment at 83 mean
     columns and one 64-variant ``estimate_betas`` batch at K9's q = 134,
     each against the CPU and each kernel call against its plain version;
-12. the gene-batched association scans on the headline's Ls scanner
+14. the gene-batched association scans on the headline's Ls scanner
     (R = 1010), at the JAX bench's ``assoc_multigene_16`` row (16 genes,
     Y = y + 0.1 N(0, 1)): ``scan_association_fast_multigene`` at 2048
     variants (first and steady pairs/s, launch counts, the per-gene loop,
@@ -69,11 +84,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     per-gene loop, 2 genes x 64 against the CPU), with K10, K8 and K7 with
     the gene axis against their plain versions (timed, with their
     bounds);
-13. checkpointed scans on the card: a gene-batched fast association scan
+15. checkpointed scans on the card: a gene-batched fast association scan
     stopped after its first gene tile and an interaction scan stopped
     after its first variant batch, each resumed and held equal to a clean
     run;
-14. ``covariates_24``: the headline dataset with p = 24 columns of W and
+16. ``covariates_24``: the headline dataset with p = 24 columns of W and
     21 rho points, 512 variants through ``run_interaction`` (davies),
     ``run_association_fast`` and ``run_association`` (hK), each with its
     launch counts (K2, K3, K5 and K8 in their wide instantiations) and its
@@ -81,11 +96,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     K7 and K8 at that width against their plain versions (K3's localize
     split by kernel from torch.profiler); and a p = 33
     scanner on the card, refused before any setup (the refusal timed);
-15. ``ScanConfig(n_rho=80)`` (past the 64 rho points the localize took
+17. ``ScanConfig(n_rho=80)`` (past the 64 rho points the localize took
     before) through ``run_interaction`` at 1000 cells, 10 contexts, 50
     donors and 512 variants: launch counts, the first 64 variants against
     the CPU, and K3 at 80 rho points against its plain version;
-16. one JSON line of the kernels (every row's times a wrapper call, as
+18. one JSON line of the kernels (every row's times a wrapper call, as
     its launches count them; a row timed over a batch's several calls
     keeps the batch's times beside), then the result line.
 
@@ -311,10 +326,13 @@ def check_score_core(args, tag=None, plain_reps=10):
     p = WW.shape[0]
     m = C + p + 2
     n_k = int(torch.unique(args[13]).numel())
+    # the operands in their own type (f32 in the float32 context); v0, v1,
+    # Q and Wmat f64
+    es = At.element_size()
     b_ms, b_by = bound(S * R * (3 * m * (m + 1) // 2 + 3),
-                       F64 * (S * (R * C + R) + n_k * R * (p + 2)
-                              + S * (C * C + C * (p + 1)) + S * (C + p + 4)
-                              + S * (C * C + 1)))
+                       es * (S * (R * C + R) + n_k * R * (p + 2)
+                             + S * (C * C + C * (p + 1)) + S * (C + p + 2))
+                       + F64 * (2 * S + S * (C * C + 1)))
     return dict(
         name=name, route="cuda",
         source="cellregmap_tpu_torch/csrc/score_core.cu",
@@ -370,7 +388,7 @@ def check_kr_contract(calls, names, tag=None):
     return rows
 
 
-def check_sym_eigvalsh(A):
+def check_sym_eigvalsh(A, tol=1e-12, tag=None):
     """K6a on one batch's weight matrices A (S, C, C): ascending, clamped
     eigenvalues within 1e-12 of each row's largest |lambda| of the plain
     version (the shifted ``torch.linalg.eigvalsh``), timed beside it and
@@ -379,24 +397,30 @@ def check_sym_eigvalsh(A):
     the kernel's Jacobi sweeps or bisection steps): a matrix's reduction
     to tridiagonal form, 4 C^3 / 3 flop, and the tridiagonal's
     eigenvalues, O(C^2), counted at 2 C flop an eigenvalue (a floor: one
-    pass over the tridiagonal each)."""
+    pass over the tridiagonal each).  ``tol`` (1e-12; 1e-5 for the float32
+    context's f32 matrices) and ``tag`` name the row."""
     import torch
 
     from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a
 
     lam, sweeps = k6a.sym_eigvalsh(A, return_sweeps=True)
     want = k6a.sym_eigvalsh_plain(A)
+    # the f64 eigenvalues of A as it is (an f32 A widened), clamped
+    exact = torch.linalg.eigvalsh(
+        0.5 * (A + A.transpose(1, 2)).double()).clamp(min=0.0)
     torch.cuda.synchronize()
     scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-300)
     rel = float(((lam - want).abs() / scale).max())
-    assert rel <= 1e-12, f"sym_eigvalsh: rel {rel}"
-    assert bool((lam[:, 1:] >= lam[:, :-1]).all()), "sym_eigvalsh: order"
+    rel_exact = float(((lam.double() - exact).abs() / scale).max())
+    name = "sym_eigvalsh" if tag is None else f"sym_eigvalsh ({tag})"
+    assert rel <= tol, f"{name}: rel {rel}"
+    assert bool((lam[:, 1:] >= lam[:, :-1]).all()), f"{name}: order"
     S, C = A.shape[0], A.shape[-1]
     n_sw = int(sweeps.sum())
     b_ms, b_by = bound(S * (4 * C ** 3 // 3 + 2 * C * C),
-                       F64 * (S * C * C + S * C))
+                       A.element_size() * (S * C * C + S * C))
     return dict(
-        name="sym_eigvalsh", route="cuda",
+        name=name, route="cuda",
         source="cellregmap_tpu_torch/csrc/sym_eigvalsh.cu",
         replaces="cellregmap_tpu/ops/linalg.py:238",
         max_abs_err=float((lam - want).abs().max()),
@@ -404,9 +428,10 @@ def check_sym_eigvalsh(A):
         plain_ms=cuda_ms(lambda: k6a.sym_eigvalsh_plain(A)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.linalg.eigvalsh(A)),
-        shapes=dict(S=S, C=C), sweeps_max=int(sweeps.max()),
+        shapes=dict(S=S, C=C), rel_to_f64=rel_exact,
+        sweeps_max=int(sweeps.max()),
         sweeps_mean=n_sw / S,
-        tolerance="|err| <= 1e-12 * max|lambda| of each matrix")
+        tolerance=f"|err| <= {tol} * max|lambda| of each matrix")
 
 
 def k6a_c64_matrices(S=BATCH, C=64, seed=64):
@@ -467,7 +492,8 @@ def _rel(a, b):
 
 
 def k4_bound(V, T, kb, per_gene=False):
-    """K4's bound on one call: 2 R^2 C flop for each distinct (rho,
+    """K4's bound on one call (V, T and the factors in their own type: f32
+    in the float32 context): 2 R^2 C flop for each distinct (rho,
     variant) pair of k_best ([genes,] S), since genes whose best rho
     agrees share the product V[k]^T T[:, :, s]; V's used slices and T read
     once, each distinct pair's factor written once (K4's slots), k_best
@@ -477,14 +503,16 @@ def k4_bound(V, T, kb, per_gene=False):
     import torch
 
     R, C, S = T.shape
+    es = T.element_size()
     keys = kb.reshape(-1, S) * S + torch.arange(S, device=kb.device)
     n_pairs = int(torch.unique(keys).numel())
     n_k = int(torch.unique(kb).numel())
     if per_gene:
-        nbytes = F64 * (n_k * R * R + R * C * S + kb.numel() * (R * C + 1))
+        nbytes = (es * (n_k * R * R + R * C * S + kb.numel() * R * C)
+                  + F64 * kb.numel())
     else:
-        nbytes = F64 * (n_k * R * R + R * C * S + n_pairs * R * C
-                        + 2 * kb.numel())
+        nbytes = (es * (n_k * R * R + R * C * S + n_pairs * R * C)
+                  + F64 * 2 * kb.numel())
     b_ms, b_by = bound(2 * R * R * C * n_pairs, nbytes)
     return b_ms, b_by, n_k, n_pairs
 
@@ -530,11 +558,13 @@ def _fit_flops(p1, R, problems, deriv_steps):
     return problems * R * (deriv_steps * (7 * ne + 12) + (3 * ne + 4))
 
 
-def check_delta_grid(call, library=True, plain_reps=10):
+def check_delta_grid(call, library=True, plain_reps=10, tag=None):
     """K2 (or K7's grid): the kernel against its plain version on one
     call's operands; a bracket may sit on a near-tie neighbour of the
     plain argmax (plain lml within 1e-5 relative of the maximum in
-    float32, 1e-12 in float64)."""
+    float32, 1e-12 in float64).  In the float32 context (f32 operands) the
+    brackets are the f32-rounded grid logits, and its operands count 4
+    bytes each in the bound."""
     import torch
 
     from cellregmap_tpu_torch.kernels import delta_grid as k2
@@ -545,7 +575,7 @@ def check_delta_grid(call, library=True, plain_reps=10):
     br_lo, br_hi = k2.delta_grid(*args, **kw)
     plo, phi, lml = k2.delta_grid_plain(*args, **kw, return_lml=True)
     torch.cuda.synchronize()
-    gap = k2.bracket_shortfall(br_lo, br_hi, lml, lo, hi)
+    gap = k2.bracket_shortfall(br_lo, br_hi, lml, lo, hi, S.dtype)
     tol = 1e-5 if fast == torch.float32 else 1e-12
     assert gap <= tol, f"delta_grid: bracket shortfall {gap} > {tol}"
     err = max(float((br_lo - plo).abs().max()),
@@ -560,8 +590,10 @@ def check_delta_grid(call, library=True, plain_reps=10):
     # W_j y, y^2) once per gene
     shared = nS * (p + 1) + p * (p + 1) // 2 + 1
     flops = 2 * nrho * K * R * (shared + genes * (nS + p + 1))
-    nbytes = F64 * (WGt.numel() + (1 + genes) * S.numel()
-                    + genes * (nS * (p + 4) + 2 * nS * nrho))
+    es = S.element_size()
+    nbytes = (es * (WGt.numel() + (1 + genes) * S.numel()
+                    + genes * nS * (p + 4))
+              + F64 * genes * 2 * nS * nrho)
     b_ms, b_by = bound(flops, nbytes)
     lib_ms = None
     if library:
@@ -575,6 +607,8 @@ def check_delta_grid(call, library=True, plain_reps=10):
                         + [Gt * Gt, Gt * yt[:, :, None]], dim=2).to(fast)
         lib_ms = cuda_ms(lambda: torch.bmm(Wd, fam))
     name = "delta_grid" if restricted else "delta_grid (ML)"
+    if tag:
+        name = tagged(name, tag)
     return dict(
         name=name, route="cuda",
         source="cellregmap_tpu_torch/csrc/delta_grid.cu",
@@ -2475,6 +2509,370 @@ def checkpoint_phase(d, cfg, crm_assoc):
     return out
 
 
+# The float32 context's kernels against their plain f32 versions: a sum of
+# n f32 terms within sqrt(n) units of f32 rounding of the sum of the terms'
+# magnitudes (the kernel adds its terms one after another, the plain
+# version in blocks: n roundings each, whose errors grow as sqrt(n) for
+# rounding that behaves randomly; n eps is the worst case)
+EPS32 = 2.0 ** -23
+F32 = 4
+
+
+def _f32_sums_check(got, want, mags, n_terms, what):
+    """(max abs err, the largest error in eps(f32) of the magnitudes' sum)
+    of an f32 kernel's sums of ``n_terms`` terms against the plain
+    version's; raises past sqrt(n_terms)."""
+    err = (got.double() - want.double()).abs()
+    ulp = float((err / (mags + 1e-300)).max()) / EPS32
+    assert ulp <= math.sqrt(n_terms), \
+        f"{what}: {ulp} eps(f32) of the terms' sums, n = {n_terms}"
+    return float(err.max()), ulp
+
+
+def check_f32_kernels(ctx32, G32, n):
+    """The float32 context's instantiations on the operands of one screen
+    batch (``engine.interaction_batch`` on an f32 context, with the device
+    tails), each against its plain f32 version and timed beside it, its
+    bound (f32 operands at 4 bytes, the 67 TFLOP/s of FP32 and FP64) and
+    the library call where one exists: K1 (T, A^T A, A^T W: sums within
+    sqrt(n) eps(f32) of the terms' magnitudes; ``matmul`` on the
+    materialized V o G), K2 (brackets on the plain argmax or a tie within
+    1e-5; the f32 ``bmm``), K3's localize (the f64 lml at the localized
+    optimum within 1e-6 of max(|lml|, 1), the argmax a tie within 1e-6)
+    and converge (rtol 1e-9), K4 (as K1; the chunked f32 ``bmm``), K5 on
+    f32 operands (1e-10 of max|plain|: f64 arithmetic) and K6a in f32
+    (1e-5 of each matrix's largest |lambda|; ``eigvalsh`` in f32).  Rows
+    named ``<kernel> (..., f32)``."""
+    import torch
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
+    from cellregmap_tpu_torch.kernels import kr_contract as k1
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    calls = capture_kernel_inputs(
+        lambda: engine.interaction_batch(ctx32, G32, G32, n,
+                                         delta_cfg=DELTA_CFG,
+                                         device_pvalues=True),
+        ["kr_contract", "delta_grid", "reml_localize", "reml_converge",
+         "best_rho_rotate", "score_core", "sym_eigvalsh"])
+    rows = []
+    for (args, _), name in zip(calls["kr_contract"], K1_CALLS):
+        U, V, Gm = args
+        assert U.dtype == torch.float32
+        out, ref = k1.kr_contract(U, V, Gm), k1.kr_contract_plain(U, V, Gm)
+        mags = k1.kr_contract_plain(U.double().abs(), V.double().abs(),
+                                    Gm.double().abs())
+        err, ulp = _f32_sums_check(out, ref, mags, U.shape[0],
+                                   f"kr_contract ({name}, f32)")
+        del out, ref, mags
+        nn, K = U.shape
+        p, S = V.shape[1], Gm.shape[1]
+        b_ms, b_by = bound(2 * nn * K * p * S,
+                           F32 * (U.numel() + V.numel() + Gm.numel()
+                                  + K * p * S))
+
+        def library():
+            torch.matmul(U.T, (V[:, :, None] * Gm[:, None, :]).reshape(nn, -1))
+
+        rows.append(dict(
+            name=f"kr_contract ({name}, f32)", route="cuda",
+            source="cellregmap_tpu_torch/csrc/kr_contract.cu",
+            replaces="cellregmap_tpu/engine.py:184", max_abs_err=err,
+            ms=cuda_ms(lambda: k1.kr_contract(U, V, Gm)),
+            plain_ms=cuda_ms(lambda: k1.kr_contract_plain(U, V, Gm)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library),
+            shape=dict(n=nn, K=K, p=p, S=S), eps32_of_sums=ulp,
+            tolerance="|err| <= sqrt(n) eps(f32) x sum |terms|"))
+    rows.append(check_delta_grid(calls["delta_grid"][0], tag="f32"))
+
+    # K3: the localize's f32 steps part from the plain version's at f32
+    # rounding; the f64 evaluation there, and the converge, as stated
+    (args, kw), = calls["reml_localize"]
+    x, lml_all, kb = k3.reml_localize(*args, **kw)
+    xp, lml_p, kb_p = k3.reml_localize_plain(*args, **kw)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(lml_p)
+    assert torch.equal(torch.isfinite(lml_all), fin), "localize (f32): inf"
+    scale = lml_p.abs().clamp(min=1.0)
+    lrel = float(((lml_all - lml_p).abs() / scale)[fin].max())
+    assert lrel <= 1e-6, f"reml_newton (localize, f32): lml rel {lrel}"
+    best = lml_p.amax(dim=-1)
+    at_k = lml_p.gather(-1, kb[..., None])[..., 0]
+    tie = float(((best - at_k) / best.abs().clamp(min=1.0)).max())
+    assert tie <= 1e-6, f"reml_newton (localize, f32): argmax gap {tie}"
+    loc_err = max(float((x - xp).abs().max()),
+                  float((lml_all - lml_p)[fin].abs().max()))
+    c_err, c_ms, c_plain = _check_converge(calls["reml_converge"][0])
+    S_, WGt, yt, comp = args[:4]
+    steps, steps3 = args[8], calls["reml_converge"][0][0][10]
+    nrho, R = S_.shape
+    p = comp.CWW.shape[0]
+    nS = WGt.shape[2] - p
+    n_k = int(torch.unique(kb).numel())
+    loc_bound = bound(_fit_flops(p + 1, R, nS * nrho, steps),
+                      F32 * (WGt.numel() + 2 * S_.numel() + nS * (p + 4))
+                      + F64 * (4 * nS * nrho + nS))
+    conv_bound = bound(_fit_flops(p + 1, R, nS, steps3),
+                       F32 * (n_k * R * (p + 2) + nS * (p + 4))
+                       + F64 * nS * (p + 8))
+    common = dict(route="cuda",
+                  source="cellregmap_tpu_torch/csrc/reml_newton.cu",
+                  replaces="cellregmap_tpu/engine.py:538", library_ms=None)
+    rows += [
+        dict(common, name="reml_newton (localize, f32)", max_abs_err=loc_err,
+             ms=cuda_ms(lambda: k3.reml_localize(*args, **kw)),
+             plain_ms=cuda_ms(lambda: k3.reml_localize_plain(*args, **kw)),
+             bound_ms=loc_bound[0], bound_by=loc_bound[1], lml_rel=lrel,
+             k_best_identical=float((kb == kb_p).double().mean()),
+             tolerance="f64 lml at the localized optimum within 1e-6 of "
+                       "max(|lml|, 1); the argmax a tie within 1e-6"),
+        dict(common, name="reml_newton (converge, f32)", max_abs_err=c_err,
+             ms=c_ms, plain_ms=c_plain, bound_ms=conv_bound[0],
+             bound_by=conv_bound[1],
+             tolerance="delta, lml, scale, beta rel <= 1e-9")]
+
+    (args, _), = calls["best_rho_rotate"]
+    V, T, kbest = args
+    (At, slot), (At_p, slot_p) = (k4.best_rho_rotate(V, T, kbest),
+                                  k4.best_rho_rotate_plain(V, T, kbest))
+    assert torch.equal(slot, slot_p), "best_rho_rotate (f32): the slots"
+    mags = k4.gather(k4.best_rho_rotate_plain(V.double().abs(),
+                                              T.double().abs(), kbest)[0],
+                     slot_p)
+    err, ulp = _f32_sums_check(k4.gather(At, slot), k4.gather(At_p, slot_p),
+                               mags, V.shape[1], "best_rho_rotate (f32)")
+    del At, At_p, mags
+    b_ms, b_by, n_k, _ = k4_bound(V, T, kbest)
+    rows.append(dict(
+        name="best_rho_rotate (f32)", route="cuda",
+        source="cellregmap_tpu_torch/csrc/best_rho_rotate.cu",
+        replaces="cellregmap_tpu/engine.py:672", max_abs_err=err,
+        ms=cuda_ms(lambda: k4.best_rho_rotate(V, T, kbest)),
+        plain_ms=cuda_ms(lambda: k4.best_rho_rotate_plain(V, T, kbest)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=k4_library_ms(V, T, kbest), eps32_of_sums=ulp,
+        tolerance="slots equal; |err| <= sqrt(R) eps(f32) x sum |terms|",
+        distinct_rho=n_k))
+    (args, _), = calls["score_core"]
+    rows.append(check_score_core(args, tag="f32"))
+    (A,), _ = calls["sym_eigvalsh"][0]
+    assert A.dtype == torch.float32
+    rows.append(check_sym_eigvalsh(A, tol=1e-5, tag="f32"))
+    for r in rows:
+        print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
+              f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
+              f"{r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return rows
+
+
+SCREEN_SIGNIFICANCE = 5e-8     # bench.py:525-539
+SCREEN_MULTIGENE = dict(genes=16, seed=13)   # bench.py:541-557
+
+
+def davies_tolerance(pv):
+    """How far two Davies p-values of one pair, from inputs equal to
+    rounding (the same fits in batches of other widths), may part: the
+    ladder's accuracy on each side, 1e-8 absolute, and below 1e-4 the
+    refinement's 1e-3 of the value (models/pvalues.py ``davies_pvalue``)."""
+    pv = np.asarray(pv, float)
+    return np.where(pv < 1e-4, 2e-3 * pv, 2e-8)
+
+
+def _timed(fn, reps):
+    """(host seconds of each of ``reps`` calls, synchronised; the last
+    call's result)."""
+    import torch
+
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, out
+
+
+def screen_phase(d, cfg, pv_dav, info_auto, cpu_check=64, reps=3):
+    """``screen_2k`` (bench.py:525-539): the headline dataset, all 2048
+    variants, ``scan_interaction_screen`` at significance 5e-8 on the
+    card.  Every variant whose f64 Davies p-value on the card (the
+    headline davies run, ``pv_dav``) is below 5e-8 is confirmed and
+    reported with that value, within the Davies ladder's accuracy
+    (``davies_tolerance``: the confirm reruns Davies on another batch's
+    f64 fits, equal to rounding); the screen p-values within
+    0.5 decades of the f64 saddlepoint (the headline auto run's device
+    tails), the JAX test's bound; the first ``cpu_check`` variants'
+    screen against the port's CPU screen (the same discovery set and
+    confirmed values to 1e-8, screen_pv to rtol 0.05 where rho1 agrees:
+    two f32 programs); the screen's tests/s beside the f64 scan's under
+    davies and auto on the same scanner, ``reps`` runs each in turns
+    (setup excluded; the spread is max - min); the f32 instantiations'
+    launch counts on one screen.  Returns (summary, f32 launch counts,
+    screen batches)."""
+    import dataclasses
+
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import kernels
+
+    G = d["G"]
+    n_snps = G.shape[1]
+    Ls = crp.get_L_values(d["hK"], d["E"])
+    crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], Ls=Ls, config=cfg,
+                         device="cuda")
+    crm_auto = crm._with_config(dataclasses.replace(cfg,
+                                                    pvalue_method="auto"))
+    screen = lambda: crm.scan_interaction_screen(  # noqa: E731
+        G, significance=SCREEN_SIGNIFICANCE)
+    screen()          # the f32 context's setup, the kernels' first calls
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    pv, info = screen()
+    torch.cuda.synchronize()
+    counts, counts32 = kernels.launch_counts(), kernels.launch_counts_f32()
+    batch = min(cfg.snp_batch * 2, n_snps)
+    n_batches = -(-n_snps // batch)
+    hits = int(info["n_confirmed"])
+    assert counts32 == dict(kr_contract=3 * n_batches, delta_grid=n_batches,
+                            reml_newton=2 * n_batches,
+                            best_rho_rotate=n_batches, score_core=n_batches,
+                            sym_eigvalsh=n_batches), counts32
+    assert counts["mixture_tails"] == n_batches, counts
+    # the discoveries: every f64 Davies hit confirmed with its value
+    below = pv_dav < SCREEN_SIGNIFICANCE
+    assert below.any(), "screen_2k: no f64 hit; the check is vacuous"
+    assert np.all(info["confirmed"][below]), "screen_2k: a screen miss"
+    conf_rel = float(np.max(np.abs(pv[below] - pv_dav[below])
+                            / pv_dav[below]))
+    assert np.all(np.abs(pv[below] - pv_dav[below])
+                  <= davies_tolerance(pv_dav[below])), \
+        f"screen_2k: confirmed pv rel {conf_rel}"
+    assert np.array_equal(pv < SCREEN_SIGNIFICANCE, below), \
+        "screen_2k: the discovery set differs from the f64 davies scan's"
+    far = ~info["confirmed"]
+    assert np.all(pv[far] == info["screen_pv"][far])
+    pv32, sp64 = info["screen_pv"], np.asarray(info_auto["pv_saddlepoint"])
+    ok = (np.isfinite(pv32) & (pv32 > 0) & np.isfinite(sp64)
+          & (sp64 > 1e-30))
+    assert ok.sum() >= 0.9 * n_snps
+    dlog = np.abs(np.log10(pv32[ok]) - np.log10(sp64[ok]))
+    q99 = float(np.quantile(dlog, 0.99))
+    assert dlog.max() < 0.5, f"screen_2k: max |log10 ratio| {dlog.max()}"
+    # throughput: screen, f64 davies and f64 auto in turns
+    t_scr, t_dav, t_auto = [], [], []
+    crm.scan_interaction(G)
+    crm_auto.scan_interaction(G)
+    for _ in range(reps):
+        t_scr += _timed(screen, 1)[0]
+        t_dav += _timed(lambda: crm.scan_interaction(G), 1)[0]
+        t_auto += _timed(lambda: crm_auto.scan_interaction(G), 1)[0]
+    # the traced split (every phase synchronises): setup, the batches'
+    # device and copy-back phases, the confirm pass
+    crm_t = crm._with_config(dataclasses.replace(cfg, trace=True))
+    _, info_t = crm_t.scan_interaction_screen(
+        G, significance=SCREEN_SIGNIFICANCE)
+    phases = {k.split("/", 1)[-1]: v for k, v in info_t["timers"].items()}
+    out = dict(
+        label="screen_2k", n_cells=len(d["y"]), n_snps=n_snps,
+        significance=SCREEN_SIGNIFICANCE, screen_batch=batch,
+        screen_batches=n_batches, n_confirmed=hits,
+        n_f64_hits=int(below.sum()), confirmed_pv_rel_max=conf_rel,
+        log10_ratio_vs_f64_saddlepoint=dict(max=float(dlog.max()), q99=q99,
+                                            n=int(ok.sum())),
+        screen_s=t_scr, davies_s=t_dav, auto_s=t_auto,
+        tests_per_s={k: n_snps / statistics.median(v) for k, v in
+                     (("screen", t_scr), ("davies", t_dav),
+                      ("auto", t_auto))},
+        spread_s={k: max(v) - min(v) for k, v in
+                  (("screen", t_scr), ("davies", t_dav), ("auto", t_auto))},
+        traced_phase_s=phases, launches=counts, launches_f32=counts32)
+    if cpu_check:
+        Gc = G[:, :cpu_check]
+        pv_g, info_g = crm.scan_interaction_screen(
+            Gc, significance=SCREEN_SIGNIFICANCE)
+        crm_c = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], Ls=Ls,
+                               config=cfg, device="cpu")
+        pv_c, info_c = crm_c.scan_interaction_screen(
+            Gc, significance=SCREEN_SIGNIFICANCE)
+        assert np.array_equal(info_g["confirmed"], info_c["confirmed"])
+        conf = info_c["confirmed"]
+        gap = float(np.max(np.abs(pv_g[conf] - pv_c[conf]), initial=0.0))
+        assert gap <= 1e-8, f"screen_2k: confirmed |pv_gpu - pv_cpu| {gap}"
+        same = info_g["rho1"] == info_c["rho1"]
+        assert same.mean() >= 0.9, f"screen_2k: rho1 agrees {same.mean()}"
+        sp_rel = float(np.max(np.abs(info_g["screen_pv"][same]
+                                     - info_c["screen_pv"][same])
+                              / info_c["screen_pv"][same]))
+        assert sp_rel <= 0.05, f"screen_2k: screen_pv rel {sp_rel}"
+        out["cpu_check"] = dict(n=cpu_check, confirmed=int(conf.sum()),
+                                confirmed_max_abs_pv_diff=gap,
+                                rho1_identical=float(same.mean()),
+                                screen_pv_rel_max=sp_rel)
+    print("scan screen_2k: " + json.dumps(out), flush=True)
+    return out, counts32
+
+
+def screen_multigene_phase(d, cfg):
+    """``screen_multigene_16`` (bench.py:541-557): 16 genes, Y = y + 0.1
+    N(0, 1) (rng 13), 2048 variants, gene_batch = 16, significance 5e-8,
+    through ``scan_interaction_multigene_screen`` on the card: a first and
+    a steady call (pairs/s), the f32 instantiations' launch counts with
+    the gene axis, every gene's screen p-value finite, the planted
+    variant confirmed in every gene, and gene 0 against its single-gene
+    screen on the card (screen p-values within rtol 0.05, the JAX suite's
+    tolerance across two f32 programs; confirmed values within the Davies
+    ladder's accuracy, ``davies_tolerance``).  Returns (summary, f32 launch
+    counts)."""
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import kernels
+
+    genes = SCREEN_MULTIGENE["genes"]
+    rng = np.random.default_rng(SCREEN_MULTIGENE["seed"])
+    Y = d["y"][:, None] + 0.1 * rng.normal(size=(len(d["y"]), genes))
+    G = d["G"]
+    Ls = crp.get_L_values(d["hK"], d["E"])
+    crm = crp.CellRegMap(y=Y[:, 0], E=d["E"], W=d["W"], Ls=Ls, config=cfg,
+                         device="cuda")
+    run = lambda: crm.scan_interaction_multigene_screen(  # noqa: E731
+        Y, G, gene_batch=genes, significance=SCREEN_SIGNIFICANCE)
+    first_s, _ = _timed(run, 1)
+    kernels.reset_launches()
+    steady_s, (pv, info) = _timed(run, 1)
+    counts32 = kernels.launch_counts_f32()
+    assert pv.shape == (genes, G.shape[1])
+    assert np.isfinite(info["screen_pv"]).all()
+    assert np.all(info["confirmed"][:, GXE_SNP]), "the planted variant"
+    assert all(counts32[k] > 0 for k in counts32), counts32
+    pv0, info0 = crm.scan_interaction_screen(
+        G, significance=SCREEN_SIGNIFICANCE)
+    same = info0["rho1"] == info["rho1"][0]
+    rel = float(np.max(np.abs(pv[0][same] - pv0[same]) / pv0[same]))
+    assert rel <= 0.05, f"screen_multigene_16: gene 0 rel {rel}"
+    both = info["confirmed"][0] & info0["confirmed"]
+    conf_rel = float(np.max(np.abs(pv[0][both] - pv0[both]) / pv0[both],
+                            initial=0.0))
+    assert np.all(np.abs(pv[0][both] - pv0[both])
+                  <= davies_tolerance(pv0[both])), \
+        f"screen_multigene_16: confirmed rel {conf_rel}"
+    torch.cuda.empty_cache()
+    pairs = genes * G.shape[1]
+    out = dict(label="screen_multigene_16", genes=genes,
+               n_snps=G.shape[1], first_s=first_s[0], steady_s=steady_s[0],
+               steady_pairs_per_s=pairs / steady_s[0],
+               n_confirmed=int(info["n_confirmed"]),
+               gene0_vs_single=dict(rho1_identical=float(same.mean()),
+                                    screen_pv_rel_max=rel,
+                                    confirmed_rel_max=conf_rel),
+               launches_f32=counts32)
+    print("scan screen_multigene_16: " + json.dumps(out), flush=True)
+    return out, counts32
+
+
 def ptxas_report(log):
     """Each kernel of an ``nvcc -Xptxas -v`` log with its registers, stack
     and spills: ["name: Used N registers, ...; S bytes stack frame, ...",
@@ -2558,6 +2956,23 @@ def main() -> int:
             "davies": head["traced_phase_s"]["pvalue_ladder"],
             "auto": head_auto["traced_phase_s"]["pvalue_ladder"]})),
         flush=True)
+    # the float32 context's kernels on one screen batch, then the screens
+    ctx32 = engine.NullContext(*(t.to(torch.float32) for t in ctx))
+    G32 = torch.as_tensor(d["G"][:, :2 * BATCH], device="cuda",
+                          dtype=torch.float32).contiguous()
+    rows32 = check_f32_kernels(ctx32, G32, len(d["y"]))
+    del ctx32, G32
+    torch.cuda.empty_cache()
+    _, c_screen = screen_phase(d, cfg, pv_dav, info_auto)
+    screen_multigene_phase(d, cfg)
+    # each f32 row's launches: its instantiation's on one screen_2k run
+    for r in rows32:
+        base = r["name"].split(" (")[0]
+        per = {"kr_contract": len(K1_CALLS), "reml_newton": 2}.get(base, 1)
+        assert c_screen[base] % per == 0 and c_screen[base] > 0, r["name"]
+        r["launches"] = c_screen[base] // per
+    rows += rows32
+
     # cells10k (R = 2500, C = 20: the localize stages its rows in chunks),
     # its first batch's K1, K3 and K4 operands captured from the run
     held = {}

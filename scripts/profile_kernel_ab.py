@@ -32,6 +32,9 @@ on the same operands, on one card in one process:
 * K9 on each of the 9 calls of one headline effect-size batch (512
   variants, Rk = 1000, q = 23: five f32 zoom rounds, three f64 rounds, the
   f64 fit with coefficients), each call apart and their sums by precision;
+* K2 (``k2``, ``csrc/delta_grid.cu``) on the same three batches as K4
+  below, each bracket on the plain grid's argmax or a tie within 1e-5
+  (the float32 grid of hybrid localization);
 * K4 (``csrc/best_rho_rotate.cu``) and K3's register localize (p = 1) on
   a headline interaction batch, on a ``multigene_16`` batch (the
   headline dataset, Y = y + 0.1 N(0, 1) over 16 genes, rng 9) and on a
@@ -66,7 +69,7 @@ runs, 10 for the localize and K9, 5 for K10) in the order other, this,
 this, other, and profiled with ``torch.profiler`` (device milliseconds a
 call in each kernel; None where the profiler saw no kernel).  Prints one JSON line per call and one of the whole;
 ``--out`` also writes that line to a file; ``--kernels`` picks some of
-k1, k3, k10, k10mg, k6a, k9, k4, k3reg, k5, k3conv, scan.
+k1, k2, k3, k10, k10mg, k6a, k9, k4, k3reg, k5, k3conv, scan.
 
     python3 scripts/profile_kernel_ab.py --other <checkout> [--out FILE]
         [--kernels k10,k10mg,k6a,scan] [--scan-reps 5]
@@ -87,6 +90,7 @@ import cellregmap_tpu_torch as crp  # noqa: E402
 from cellregmap_tpu_torch import engine  # noqa: E402
 from cellregmap_tpu_torch.kernels import _build  # noqa: E402
 from cellregmap_tpu_torch.kernels import best_rho_rotate as k4  # noqa: E402
+from cellregmap_tpu_torch.kernels import delta_grid as k2  # noqa: E402
 from cellregmap_tpu_torch.kernels import kr_contract as k1  # noqa: E402
 from cellregmap_tpu_torch.kernels import null_fit as k10  # noqa: E402
 from cellregmap_tpu_torch.kernels import reml_newton as k3  # noqa: E402
@@ -94,7 +98,8 @@ from cellregmap_tpu_torch.kernels import score_core as k5  # noqa: E402
 from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a  # noqa: E402
 from cellregmap_tpu_torch.kernels import woodbury_family as k9  # noqa: E402
 
-KERNELS = {"k1": "kr_contract", "k3": "reml_newton", "k10": "null_fit",
+KERNELS = {"k1": "kr_contract", "k2": "delta_grid", "k3": "reml_newton",
+           "k10": "null_fit",
            "k10mg": "null_fit", "k6a": "sym_eigvalsh",
            "k9": "woodbury_family", "k4": "best_rho_rotate",
            "k3reg": "reml_newton", "k5": "score_core", "k3conv": "reml_newton",
@@ -282,10 +287,10 @@ def check_k9(args, kw):
 
 
 def rotate_localize_calls(d, n, G, Ls):
-    """(label, K4's (V, T, k_best), K3's localize (args, kw)) of a headline
-    interaction batch, of a ``multigene_16`` batch and of a ``cells10k``
-    batch (``chip_smoke.SECOND``: 10 000 cells, 20 contexts, 125 donors,
-    R = 2500; its first 512 variants)."""
+    """(label, K4's (V, T, k_best), K3's localize (args, kw), K2's (args,
+    kw)) of a headline interaction batch, of a ``multigene_16`` batch and
+    of a ``cells10k`` batch (``chip_smoke.SECOND``: 10 000 cells, 20
+    contexts, 125 donors, R = 2500; its first 512 variants)."""
     ctx = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
                                     device="cuda")
     d10 = cs.make_dataset(**cs.SECOND)
@@ -308,9 +313,10 @@ def rotate_localize_calls(d, n, G, Ls):
             ("cells10k", lambda: engine.interaction_batch(
                 ctx10, G10, G10, n10, delta_cfg=cs.DELTA_CFG))):
         calls = cs.capture_kernel_inputs(run, ["best_rho_rotate",
-                                               "reml_localize"])
+                                               "reml_localize",
+                                               "delta_grid"])
         out.append((label, calls["best_rho_rotate"][0][0],
-                    calls["reml_localize"][0]))
+                    calls["reml_localize"][0], calls["delta_grid"][0]))
     return out
 
 
@@ -463,8 +469,26 @@ def main():
                 reps=10))
             del want, ctx_w
 
-    if "k4" in picked or "k3reg" in picked:
-        for label, rot, (args, kw) in rotate_localize_calls(d, n, G, Ls):
+    if "k4" in picked or "k3reg" in picked or "k2" in picked:
+        for label, rot, (args, kw), grid in rotate_localize_calls(d, n, G,
+                                                                  Ls):
+            if "k2" in picked:
+                g_args, g_kw = grid
+                lml = k2.delta_grid_plain(*g_args, **g_kw,
+                                          return_lml=True)[2]
+
+                def check(side, got, lml=lml, a=g_args, label=label):
+                    for g in np.ndindex(*got[0].shape[:-2]):
+                        gap = k2.bracket_shortfall(got[0][g], got[1][g],
+                                                   lml[g], a[5], a[6])
+                        assert gap <= 1e-5, f"K2 {label} ({side}): {gap}"
+
+                out["calls"].append(compare(
+                    f"delta_grid ({label})",
+                    lambda a=g_args, k=g_kw: k2.delta_grid(*a, **k),
+                    lambda a=g_args, k=g_kw: ok["k2"].delta_grid(*a, **k),
+                    check, reps=20))
+                del lml
             if "k4" in picked:
                 ref = factors(k4.best_rho_rotate_plain(*rot))
 

@@ -923,3 +923,181 @@ def test_converge_kernel_ml_refit(cuda, p):
         ["reml_converge"])["reml_converge"]
     for call in calls:
         _converge_on_card(call)
+
+
+# --------------------------------------------------------------------------
+# the float32 context (the screen's): its instantiations and the screen
+# --------------------------------------------------------------------------
+EPS32 = float(torch.finfo(torch.float32).eps)
+
+
+def _f32_sums_close(got, want, mags, n_terms):
+    """f32 sums of n terms: within sqrt(n) eps(f32) of the terms'
+    magnitudes (n roundings each side, in other orders)."""
+    err = (got.double() - want.double()).abs()
+    tol = np.sqrt(n_terms) * EPS32
+    assert bool((err <= tol * mags + 1e-30).all()), \
+        float((err / (mags + 1e-30)).max()) / EPS32
+
+
+def _f32_calls(cuda, genes=1, p=1, nrho=11, S=70):
+    """Every kernel wrapper's arguments of one float32 interaction batch
+    on the card (with the device tails), one phenotype or ``genes``."""
+    from cellregmap_tpu_torch import engine
+
+    ctx, G, n = fit_dataset(p + 10 * genes, p=p, nrho=nrho, n=300, C=4,
+                            donors=30, S=S, device=cuda)
+    if genes > 1:
+        rng = np.random.default_rng(genes)
+        Y = ctx.y[None] + 0.6 * torch.as_tensor(rng.normal(size=(genes, n)),
+                                                device=cuda)
+        ctx = ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W,
+                           yy=(Y * Y).sum(dim=1))
+    ctx = engine.NullContext(*(t.to(torch.float32) for t in ctx))
+    G = G.to(torch.float32)
+    return captured(lambda: engine.interaction_batch(
+        ctx, G, G, n, device_pvalues=True),
+        ["kr_contract", "delta_grid", "reml_localize", "reml_converge",
+         "best_rho_rotate", "score_core", "sym_eigvalsh"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genes,p", [(1, 1), (3, 1), (1, 5), (2, 12)])
+def test_f32_kernels_match_plain(cuda, genes, p):
+    """The float32 context's instantiations of K1-K5 and K6a against their
+    plain f32 versions (the tolerances of tests/test_torch_emulated_f32.py)
+    on one batch, each launch counted as an f32 one."""
+    from cellregmap_tpu_torch import kernels
+    from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
+    from cellregmap_tpu_torch.kernels import delta_grid as k2
+    from cellregmap_tpu_torch.kernels import kr_contract as k1
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+    from cellregmap_tpu_torch.kernels import score_core as k5
+    from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a
+
+    kernels.reset_launches()
+    calls = _f32_calls(cuda, genes, p)
+    assert kernels.launch_counts_f32() == dict(
+        kr_contract=3, delta_grid=1, reml_newton=2, best_rho_rotate=1,
+        score_core=1, sym_eigvalsh=1)
+    for (U, V, G), _ in calls["kr_contract"]:
+        mags = k1.kr_contract_plain(U.double().abs(), V.double().abs(),
+                                    G.double().abs())
+        _f32_sums_close(k1.kr_contract(U, V, G),
+                        k1.kr_contract_plain(U, V, G), mags, U.shape[0])
+    (args, kw), = calls["delta_grid"]
+    br_lo, br_hi = k2.delta_grid(*args, **kw)
+    _, _, lml = k2.delta_grid_plain(*args, **kw, return_lml=True)
+    for g in np.ndindex(*br_lo.shape[:-2]):
+        assert k2.bracket_shortfall(br_lo[g], br_hi[g], lml[g], args[5],
+                                    args[6], torch.float32) <= 1e-5
+    (args, kw), = calls["reml_localize"]
+    x, lml_all, kb = k3.reml_localize(*args, **kw)
+    _, lml_p, _ = k3.reml_localize_plain(*args, **kw)
+    fin = torch.isfinite(lml_p)
+    assert torch.equal(torch.isfinite(lml_all), fin)
+    scale = lml_p.abs().clamp(min=1.0)
+    assert float(((lml_all - lml_p).abs() / scale)[fin].max()) <= 1e-6
+    best, at_k = lml_p.amax(dim=-1), lml_p.gather(-1, kb[..., None])[..., 0]
+    assert float(((best - at_k) / best.abs().clamp(min=1.0)).max()) <= 1e-6
+    (args, kw), = calls["reml_converge"]
+    for g, w in zip(k3.reml_converge(*args, **kw),
+                    k3.reml_converge_plain(*args, **kw)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-9, atol=1e-12)
+    (V, T, kbest), _ = calls["best_rho_rotate"][0]
+    (At, slot), (At_p, slot_p) = (k4.best_rho_rotate(V, T, kbest),
+                                  k4.best_rho_rotate_plain(V, T, kbest))
+    assert torch.equal(slot, slot_p)
+    mags = k4.gather(k4.best_rho_rotate_plain(V.double().abs(),
+                                              T.double().abs(), kbest)[0],
+                     slot_p)
+    _f32_sums_close(k4.gather(At, slot), k4.gather(At_p, slot_p), mags,
+                    V.shape[1])
+    (args, _), = calls["score_core"]
+    assert args[3].dtype == torch.float32
+    for got, want in zip(k5.score_core(*args), k5.score_core_plain(*args)):
+        _close(got, want, 1e-10)
+    (A,), _ = calls["sym_eigvalsh"][0]
+    lam, want = k6a.sym_eigvalsh(A), k6a.sym_eigvalsh_plain(A)
+    assert lam.dtype == torch.float32
+    scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    assert float(((lam - want).abs() / scale).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 10, 32, 33, 50, 64])
+def test_sym_eigvalsh_f32_kernel_matches_plain(cuda, C):
+    """K6a in f32 on both routes, held to the f64 eigenvalues of its f32
+    matrices within 1e-5 of each one's largest |lambda|, and the plain f32
+    version alike: on the card the plain version's cuSOLVER f32 eigvalsh
+    is itself up to ~1.5e-5 away from them at C = 64, where the two f32
+    results part by more than 1e-5."""
+    B = np.random.default_rng(C).normal(size=(40, C, C + 3))
+    A = torch.as_tensor(B @ np.swapaxes(B, 1, 2) / C, dtype=torch.float32,
+                        device=cuda)
+    from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a
+
+    lam, want = k6a.sym_eigvalsh(A), k6a.sym_eigvalsh_plain(A)
+    exact = torch.linalg.eigvalsh(A.double()).clamp(min=0.0)
+    scale = exact.abs().amax(dim=1, keepdim=True)
+    assert float(((lam.double() - exact).abs() / scale).max()) <= 1e-5
+    assert float(((want.double() - exact).abs() / scale).max()) <= 2e-5
+
+
+def _screen_data():
+    rng = np.random.default_rng(0)
+    n, C, donors, S = 300, 4, 30, 50
+    E = rng.normal(size=(n, C)) / np.sqrt(C)
+    hK = np.zeros((n, donors))
+    hK[np.arange(n), np.arange(n) % donors] = 1.0
+    G = rng.binomial(2, 0.3, size=(n, S)).astype(float)
+    G = (G - G.mean(0)) / np.maximum(G.std(0), 1e-9)
+    y = rng.normal(size=n) + 0.8 * G[:, 3] * E[:, 0]
+    return y, E, hK, G
+
+
+@pytest.mark.cuda
+def test_float32_scan_on_card_matches_cpu(cuda):
+    """The float32 interaction scan on the card against the CPU's (two f32
+    programs: rtol 1e-3 and atol 1e-6, the JAX suite's f32 tolerance)."""
+    import cellregmap_tpu_torch as crp
+
+    y, E, hK, G = _screen_data()
+    cfg = crp.ScanConfig(snp_batch=16, dtype="float32")
+    pv_g, info_g = crp.run_interaction(y, E, G, hK=hK, config=cfg,
+                                       device=cuda)
+    pv_c, info_c = crp.run_interaction(y, E, G, hK=hK, config=cfg,
+                                       device="cpu")
+    np.testing.assert_allclose(pv_g, pv_c, rtol=1e-3, atol=1e-6)
+    assert np.mean(info_g["rho1"] == info_c["rho1"]) >= 0.95
+
+
+@pytest.mark.cuda
+def test_screen_on_card_matches_cpu(cuda):
+    """``run_interaction_screen`` on the card against the CPU: the same
+    discovery set and confirmed set, the confirmed p-values within 1e-8
+    (the f64 Davies path's card-vs-CPU bound), the screen p-values within
+    rtol 0.05 where rho1 agrees (two f32 programs)."""
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import kernels
+
+    y, E, hK, G = _screen_data()
+    cfg = crp.ScanConfig(snp_batch=16)
+    kernels.reset_launches()
+    pv_g, info_g = crp.run_interaction_screen(y, E, G, hK=hK,
+                                              significance=1e-3, config=cfg,
+                                              device=cuda)
+    assert all(v > 0 for v in kernels.launch_counts_f32().values())
+    pv_c, info_c = crp.run_interaction_screen(y, E, G, hK=hK,
+                                              significance=1e-3, config=cfg,
+                                              device="cpu")
+    assert info_g["n_confirmed"] > 0
+    assert np.array_equal(info_g["confirmed"], info_c["confirmed"])
+    assert np.array_equal(pv_g < 1e-3, pv_c < 1e-3)
+    conf = info_c["confirmed"]
+    assert np.max(np.abs(pv_g[conf] - pv_c[conf])) <= 1e-8
+    same = info_g["rho1"] == info_c["rho1"]
+    assert same.mean() >= 0.9
+    np.testing.assert_allclose(info_g["screen_pv"][same],
+                               info_c["screen_pv"][same], rtol=0.05)

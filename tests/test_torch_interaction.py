@@ -200,12 +200,14 @@ def test_traced_scan_reports_phases():
 
 
 def test_unported_options_raise():
-    """The float32 (screen) context is not ported yet; invalid phenotypes
+    """The float32 context runs the interaction scans only: the
+    association scan refuses it, naming its path; invalid phenotypes
     raise ValueError."""
     d = _dataset(seed=49, S=3)
-    with pytest.raises(NotImplementedError):
-        crp.CellRegMap(y=d["y"], E=d["E"], device="cpu",
-                       config=crp.ScanConfig(dtype="float32"))
+    crm32 = crp.CellRegMap(y=d["y"], E=d["E"], device="cpu",
+                           config=crp.ScanConfig(dtype="float32"))
+    with pytest.raises(NotImplementedError, match="scan_association"):
+        crm32.scan_association(d["G"])
     with pytest.raises(ValueError):
         crp.CellRegMap(y=np.full(d["n"], np.nan), E=d["E"], device="cpu")
 
