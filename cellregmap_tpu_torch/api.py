@@ -14,8 +14,9 @@ one factorization, a capability the reference lacks), ``run_association``
 scans ``run_interaction_screen`` / ``CellRegMap.scan_interaction_screen``
 and ``CellRegMap.scan_interaction_multigene_screen`` (a float32 screen of
 every pair, then the float64 Davies scan of the candidate hits).
-``ScanConfig(dtype="float32")`` runs the interaction scans in the float32
-context; every other scan refuses it.  Every entry
+``ScanConfig(dtype="float32")`` runs every scan and the effect sizes in
+the float32 context, as the JAX package does; the aggregate environment
+refuses it (the JAX package's float32 result is NaN).  Every entry
 point runs on ``device``: CUDA unless the caller passes ``device="cpu"``.
 Without a card and without an explicit device it raises; it never falls
 back to the CPU.  Every scan takes ``checkpoint=``, a directory where
@@ -238,9 +239,11 @@ class CellRegMap:
     Interaction test: H0: v3 = 0 vs H1: v3 > 0 (score test).  Association
     test: H0: b1 = 0 vs H1: b1 != 0 (LRT with per-variant ML refits).
 
-    ``config.dtype``: "float64", or "float32" (the float32 context: the
-    interaction scans' heavy tensors f32 and their statistics f64, as the
-    JAX package's; the other scans refuse it).
+    ``config.dtype``: "float64", or "float32" (the float32 context, as the
+    JAX package's: the interaction scans' heavy tensors f32 and their
+    statistics f64; the association scans, their null fits and the effect
+    sizes in f32 as the JAX package computes them on an f32 context; the
+    aggregate environment refuses it).
     """
 
     def __init__(self, y, E, W=None, Ls=None, E1=None, hK=None,
@@ -350,12 +353,16 @@ class CellRegMap:
         return t.to(self._device)
 
     def _require_float64(self, path: str) -> None:
-        """Refuse the float32 context on a path that has no f32 kernels."""
+        """Refuse the float32 context where the JAX package's float32 result
+        is wrong: the aggregate environment (ROADMAP queue 3, "In the
+        reference", item j)."""
         if self._dtype != torch.float64:
             raise NotImplementedError(
-                f"{path} runs in float64 only: ScanConfig(dtype='float32') "
-                f"is taken by scan_interaction and "
-                f"scan_interaction_multigene (and the screens' f32 pass)")
+                f"{path} runs in float64 only: in the JAX package's float32 "
+                f"context its REML fits over rho return a NaN lml at some "
+                f"rho (mean_fit_kernel; seen at n = 400, C = 4, rho 0.2 and "
+                f"0.3), np.argmax picks it and the aggregate environment is "
+                f"NaN; the port does not copy that fault")
 
     # -- interaction -------------------------------------------------------
     def scan_interaction(self, G, idx_E=None, idx_G=None, checkpoint=None,
@@ -745,7 +752,6 @@ class CellRegMap:
         event.  ``checkpoint``: as in :meth:`scan_interaction`, per
         variant batch.
         """
-        self._require_float64("scan_association")
         cfg = self._cfg
         G = np.asarray(G, float)
         if G.ndim == 1:
@@ -793,7 +799,6 @@ class CellRegMap:
         alternative re-profiled at the null's delta and best rho (K8).
         Returns ``(pvalues, info)`` as :meth:`scan_association`; batches
         are pipelined, and ``checkpoint`` taken, in the same way."""
-        self._require_float64("scan_association_fast")
         cfg = self._cfg
         G = np.asarray(G, float)
         if G.ndim == 1:
@@ -850,7 +855,6 @@ class CellRegMap:
         over its own covariance family runs on the device (K1, K9); batches
         are pipelined, and ``checkpoint`` taken, as in
         :meth:`scan_interaction`."""
-        self._require_float64("predict_interaction (estimate_betas)")
         cfg = self._cfg
         G = np.asarray(G, float)
         if G.ndim == 1:
@@ -1089,7 +1093,6 @@ class CellRegMap:
         cfg = self._cfg
         kind = "association_fast_multigene" if fast else \
             "association_multigene"
-        self._require_float64(f"scan_{kind}")
         Y, G = self._gene_inputs(Y, G)
         n_genes = Y.shape[1]
         gtile = max(1, min(gene_batch, n_genes, MAX_GENES))

@@ -90,9 +90,11 @@
 // The float32 context (the screen's, engine.py:460-532 on an f32 context)
 // takes its operands in f32 (a template on the operand type TO; the
 // products are formed from the widened values and rounded to T = float,
-// which is the f32 product) and writes the brackets as the f32-rounded grid
-// logits, widened exactly (the reference's `linspace(lo, hi,
-// n_grid).astype(ctx dtype)`, :528).
+// which is the f32 product) and writes the interaction's (REML) brackets
+// as the f32-rounded grid logits, widened exactly (the reference's
+// `linspace(lo, hi, n_grid).astype(ctx dtype)`, :528); the association
+// refit's (ML) keep the f64 logits, as its `linspace(lo, hi, n_grid)`
+// (:986-989) does.
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
@@ -419,6 +421,14 @@ __device__ __forceinline__ int tri(int i, int j) {
   return i * (i + 1) / 2 + j;
 }
 
+// max(x, floor) that keeps a NaN, as jnp.maximum and torch.clamp do (fmax
+// drops it: a failed factorization's NaN residual would become the floor,
+// a huge finite lml that wins the argmax)
+template <class T>
+__device__ __forceinline__ T floor_keep_nan(T x, T floor) {
+  return x < floor ? floor : x;
+}
+
 // The lml of one (variant, grid point) from its assembled system: A the
 // lower triangle (element e at A[e * st]), b and z (at [i * st]) of p1
 // entries; A is factored in place.
@@ -456,7 +466,7 @@ __device__ T solve_lml(T* A, T* b, T* z, int st, int p1, T q, T logdet_d,
   if (REML) {
     // engine.py:500: a relative noise floor
     collapsed = rss <= T(128) * Lim<T>::eps * q;
-    rss = fmax(rss, Lim<T>::tiny);
+    rss = floor_keep_nan(rss, Lim<T>::tiny);
     T logdet_a = T(0);
     EPI_FOR(i, 0, p1) logdet_a += log(A[tri(i, i) * st]);
     logdet_a *= T(2);
@@ -466,7 +476,7 @@ __device__ T solve_lml(T* A, T* b, T* z, int st, int p1, T q, T logdet_d,
   } else {
     // engine.py:978: only an absolute floor
     collapsed = rss <= T(8) * Lim<T>::tiny;
-    rss = fmax(rss, Lim<T>::tiny);
+    rss = floor_keep_nan(rss, Lim<T>::tiny);
     const T nn = (T)n;
     lml = T(-0.5) * (nn * log(two_pi * rss / nn) + logdet_d + nn);
   }
@@ -576,10 +586,12 @@ epilogue_kernel(const T* __restrict__ ldb, const T* __restrict__ shs,
     // no finite grid point: the full bracket (engine.py:521-532)
     const bool bad = !(best > -INFINITY);
     const int64_t at = ((int64_t)g * nS + s) * nrho + o;
-    // the grid logits in the context's type TO, widened exactly
-    br_lo[at] = (double)(TO)(bad ? lo : logit_at(lo, hi, K, max(kbest - 1, 0)));
-    br_hi[at] =
-        (double)(TO)(bad ? hi : logit_at(lo, hi, K, min(kbest + 1, K - 1)));
+    // the interaction's (REML) grid logits in the context's type TO,
+    // widened exactly; the association refit's (ML) in f64 (:986-989)
+    const double blo = bad ? lo : logit_at(lo, hi, K, max(kbest - 1, 0));
+    const double bhi = bad ? hi : logit_at(lo, hi, K, min(kbest + 1, K - 1));
+    br_lo[at] = REML ? (double)(TO)blo : blo;
+    br_hi[at] = REML ? (double)(TO)bhi : bhi;
   }
 }
 

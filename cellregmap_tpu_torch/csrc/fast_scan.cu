@@ -1,5 +1,5 @@
-// K8: the fast association scan's closed-form alternative lmls, f64, for
-// sm_90a.
+// K8: the fast association scan's closed-form alternative lmls, f64 and
+// f32, for sm_90a.
 //
 // At the null's fixed delta, with eigenvalues S_r, rotated covariates W_r
 // (p columns), phenotype y_r and candidates G_rs (r < R), and the
@@ -51,6 +51,12 @@
 // chunk: its variant-independent sums over r, the Cholesky and the 32
 // variants' epilogues.  The chunks of a slot run side by side and read
 // the same rows of Gt, from device memory once per slot and from L2 after.
+//
+// The float32 context (`fast_scan_kernel` on an f32 context): both
+// kernels are templates on the operand type T; T = float (p <= 16)
+// makes every sum, the Cholesky, the rank-1 update and the lml f32, as
+// the reference computes them on f32 tensors, the null's delta rounded to
+// f32 (`crm_fast_scan_f32`, `crm_fast_scan_genes_f32`).
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
@@ -67,23 +73,23 @@ constexpr int NWARP = NT / 32;
   for (int i = 0; i < PMAX; ++i) \
     if (i >= (lo) && i < (hi))
 
-__device__ __forceinline__ double warp_sum(double v) {
+template <class T>
+__device__ __forceinline__ T warp_sum(T v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
   return v;
 }
 
 // x = A^-1 v through the lower Cholesky factor L of A
-template <int PMAX>
-__device__ void solve(const double (&L)[PMAX][PMAX], const double* v,
-                      double* x, int p) {
+template <class T, int PMAX>
+__device__ void solve(const T (&L)[PMAX][PMAX], const T* v, T* x, int p) {
   SMALL_FOR(i, 0, p) {
-    double t = v[i];
+    T t = v[i];
     SMALL_FOR(k, 0, i) t -= L[i][k] * x[k];
     x[i] = t / L[i][i];
   }
   for (int i = PMAX - 1; i >= 0; --i) {
     if (i >= p) continue;
-    double t = x[i];
+    T t = x[i];
     SMALL_FOR(k, i + 1, p) t -= L[k][i] * x[k];
     x[i] = t / L[i][i];
   }
@@ -92,6 +98,9 @@ __device__ void solve(const double (&L)[PMAX][PMAX], const double* v,
 // max(x, tiny) that keeps a NaN, as torch.clamp and jnp.maximum do
 __device__ __forceinline__ double clamp_tiny(double x) {
   return x < DBL_MIN ? DBL_MIN : x;
+}
+__device__ __forceinline__ float clamp_tiny(float x) {
+  return x < FLT_MIN ? FLT_MIN : x;
 }
 
 
@@ -207,37 +216,37 @@ __device__ void finish_wide(const double* g, const double* U, double cg,
   *lml = -0.5 * (n * log(6.283185307179586 * *scale) + sc[1] + n);
 }
 
-template <int PMAX>
+template <class T, int PMAX>
 __global__ void __launch_bounds__(NT)
-fast_scan_kernel(const double* __restrict__ Sv, const double* __restrict__ Wt,
-                 const double* __restrict__ yt,
-                 const double* __restrict__ CWW,
-                 const double* __restrict__ cWy,
-                 const double* __restrict__ cyy,
-                 const double* __restrict__ Gt,
-                 const double* __restrict__ CWG,
-                 const double* __restrict__ cGy,
-                 const double* __restrict__ cGG, double* __restrict__ lml_out,
-                 double* __restrict__ bg_out, double* __restrict__ bW_out,
-                 double* __restrict__ scale_out, double delta, int n, int R,
+fast_scan_kernel(const T* __restrict__ Sv, const T* __restrict__ Wt,
+                 const T* __restrict__ yt,
+                 const T* __restrict__ CWW,
+                 const T* __restrict__ cWy,
+                 const T* __restrict__ cyy,
+                 const T* __restrict__ Gt,
+                 const T* __restrict__ CWG,
+                 const T* __restrict__ cGy,
+                 const T* __restrict__ cGG, T* __restrict__ lml_out,
+                 T* __restrict__ bg_out, T* __restrict__ bW_out,
+                 T* __restrict__ scale_out, T delta, int n, int R,
                  int p, int S) {
   // each warp's partial sums over its slice of r, per variant (lane), in
   // dynamic shared memory (the wide instantiation's block terms after)
   extern __shared__ __align__(16) unsigned char fs_dyn[];
-  auto part = reinterpret_cast<double (*)[PMAX + 2][32]>(fs_dyn);
+  auto part = reinterpret_cast<T (*)[PMAX + 2][32]>(fs_dyn);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int s = blockIdx.x * 32 + lane;
 
   // the variant's sums over the warp's r: a warp reads 32 neighbouring Gt
   // entries of a row
-  double U[PMAX], cgg = 0.0, cgy = 0.0;
-  SMALL_FOR(j, 0, p) U[j] = 0.0;
+  T U[PMAX], cgg = T(0), cgy = T(0);
+  SMALL_FOR(j, 0, p) U[j] = T(0);
   if (s < S) {
     for (int r = warp; r < R; r += NWARP) {
-      const double w = 1.0 / ((1.0 - delta) * Sv[r] + delta);
-      const double g = Gt[(int64_t)r * S + s];
-      const double gw = g * w;
-      const double* x = Wt + (int64_t)r * p;
+      const T w = T(1) / ((T(1) - delta) * Sv[r] + delta);
+      const T g = Gt[(int64_t)r * S + s];
+      const T gw = g * w;
+      const T* x = Wt + (int64_t)r * p;
       SMALL_FOR(j, 0, p) U[j] += x[j] * gw;
       cgg += g * gw;
       cgy += yt[r] * gw;
@@ -271,18 +280,18 @@ fast_scan_kernel(const double* __restrict__ Sv, const double* __restrict__ Wt,
 
   // warp 0: the variant-independent A, b, yy and logdet D (lanes over r,
   // an xor-shuffle tree), A's ridge Cholesky and A^-1 b on every lane
-  double A[PMAX][PMAX], b[PMAX], yyw = 0.0, logd = 0.0;
+  T A[PMAX][PMAX], b[PMAX], yyw = T(0), logd = T(0);
   SMALL_FOR(i, 0, p) {
-    b[i] = 0.0;
-    SMALL_FOR(j, 0, i + 1) A[i][j] = 0.0;
+    b[i] = T(0);
+    SMALL_FOR(j, 0, i + 1) A[i][j] = T(0);
   }
   for (int r = lane; r < R; r += 32) {
-    const double d = (1.0 - delta) * Sv[r] + delta;
-    const double w = 1.0 / d;
-    const double* x = Wt + (int64_t)r * p;
-    const double yv = yt[r];
+    const T d = (T(1) - delta) * Sv[r] + delta;
+    const T w = T(1) / d;
+    const T* x = Wt + (int64_t)r * p;
+    const T yv = yt[r];
     SMALL_FOR(i, 0, p) {
-      const double xw = x[i] * w;
+      const T xw = x[i] * w;
       SMALL_FOR(j, 0, i + 1) A[i][j] += xw * x[j];
       b[i] += xw * yv;
     }
@@ -295,28 +304,28 @@ fast_scan_kernel(const double* __restrict__ Sv, const double* __restrict__ Wt,
     b[i] = warp_sum(b[i]) + cWy[i] / delta;
   }
   yyw = warp_sum(yyw) + cyy[0] / delta;
-  logd = warp_sum(logd) + (n - R) * log(delta);
-  double dmax = 0.0;
+  logd = warp_sum(logd) + (T)(n - R) * log(delta);
+  T dmax = T(0);
   SMALL_FOR(i, 0, p) dmax = fmax(dmax, fabs(A[i][i]));
-  const double ridge = 1e-12 * fmax(dmax, 1.0);
+  const T ridge = T(1e-12) * fmax(dmax, T(1));
   SMALL_FOR(j, 0, p) {
-    double dj = A[j][j] + ridge;
+    T dj = A[j][j] + ridge;
     SMALL_FOR(k, 0, j) dj -= A[j][k] * A[j][k];
     dj = sqrt(dj);
     A[j][j] = dj;
     SMALL_FOR(i, j + 1, p) {
-      double v = A[i][j];
+      T v = A[i][j];
       SMALL_FOR(k, 0, j) v -= A[i][k] * A[j][k];
       A[i][j] = v / dj;
     }
   }
-  double aib[PMAX], z[PMAX];
-  solve(A, b, aib, p);
+  T aib[PMAX], z[PMAX];
+  solve<T, PMAX>(A, b, aib, p);
   if (s >= S) return;
 
   // the variant's epilogue: the slices' sums, then the rank-1 update
   SMALL_FOR(j, 0, p) {
-    double v = 0.0;
+    T v = T(0);
     for (int w = 0; w < NWARP; ++w) v += part[w][j][lane];
     U[j] = v + CWG[(int64_t)j * S + s] / delta;
   }
@@ -326,22 +335,23 @@ fast_scan_kernel(const double* __restrict__ Sv, const double* __restrict__ Wt,
     cgg += part[w][PMAX][lane];
     cgy += part[w][PMAX + 1][lane];
   }
-  solve(A, U, z, p);
-  double uau = 0.0, bau = 0.0, bab = 0.0;
+  solve<T, PMAX>(A, U, z, p);
+  T uau = T(0), bau = T(0), bab = T(0);
   SMALL_FOR(i, 0, p) {
     uau += U[i] * z[i];
     bau += b[i] * z[i];
     bab += b[i] * aib[i];
   }
-  const double schur = cgg - uau;
-  const double resid = cgy - bau;
-  const double beta_g = resid / schur;
+  const T schur = cgg - uau;
+  const T resid = cgy - bau;
+  const T beta_g = resid / schur;
   SMALL_FOR(i, 0, p) bW_out[(int64_t)s * p + i] = aib[i] - z[i] * beta_g;
-  const double rss = clamp_tiny(yyw - bab - resid * resid / schur);
-  const double scale = rss / n;
+  const T rss = clamp_tiny(yyw - bab - resid * resid / schur);
+  const T scale = rss / (T)n;
   bg_out[s] = beta_g;
   scale_out[s] = scale;
-  lml_out[s] = -0.5 * (n * log(6.283185307179586 * scale) + logd + n);
+  lml_out[s] = T(-0.5) * ((T)n * log(T(6.283185307179586) * scale) + logd +
+                          (T)n);
 }
 
 // ---------------------------------------------------------------------------
@@ -357,66 +367,66 @@ template <int PMAX> struct GeneChunk {
 
 // dynamic shared memory of a block: the warps' partial sums, and the wide
 // instantiation's block terms; raises the kernel's limit where needed
-template <int PMAX, class F>
+template <class T, int PMAX, class F>
 int dyn_smem(F kernel, int gc, int p, int* bytes) {
-  *bytes = (int)sizeof(double) *
+  *bytes = (int)sizeof(T) *
            (NWARP * gc * (PMAX + 2) * 32 + (PMAX > 16 ? gls_words(p) : 0));
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes);
 }
 
-template <int PMAX>
+template <class T, int PMAX>
 __global__ void __launch_bounds__(NT)
-fast_scan_genes_kernel(const double* __restrict__ delta,
-                       const double* __restrict__ Sv,
-                       const double* __restrict__ Wt,
-                       const double* __restrict__ yt,
-                       const double* __restrict__ CWW,
-                       const double* __restrict__ cWy,
-                       const double* __restrict__ cyy,
-                       const double* __restrict__ Gt,
-                       const double* __restrict__ CWG,
-                       const double* __restrict__ cGy,
-                       const double* __restrict__ cGG,
+fast_scan_genes_kernel(const T* __restrict__ delta,
+                       const T* __restrict__ Sv,
+                       const T* __restrict__ Wt,
+                       const T* __restrict__ yt,
+                       const T* __restrict__ CWW,
+                       const T* __restrict__ cWy,
+                       const T* __restrict__ cyy,
+                       const T* __restrict__ Gt,
+                       const T* __restrict__ CWG,
+                       const T* __restrict__ cGy,
+                       const T* __restrict__ cGG,
                        const int* __restrict__ order,
                        const int* __restrict__ starts,
-                       double* __restrict__ lml_out,
-                       double* __restrict__ bg_out,
-                       double* __restrict__ bW_out,
-                       double* __restrict__ scale_out, int n, int R, int p,
+                       T* __restrict__ lml_out,
+                       T* __restrict__ bg_out,
+                       T* __restrict__ bW_out,
+                       T* __restrict__ scale_out, int n, int R, int p,
                        int S) {
   constexpr int GC = GeneChunk<PMAX>::GC;
   extern __shared__ __align__(16) unsigned char fs_dyn[];
-  auto part = reinterpret_cast<double (*)[GC][PMAX + 2][32]>(fs_dyn);
-  __shared__ double wsh[GC][RCH], ywsh[GC][RCH];
+  auto part = reinterpret_cast<T (*)[GC][PMAX + 2][32]>(fs_dyn);
+  __shared__ T wsh[GC][RCH], ywsh[GC][RCH];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sl = blockIdx.y;
   const int s = blockIdx.x * 32 + lane;
   // the slot's shared operands
-  const double* So = Sv + (int64_t)sl * R;
-  const double* Wo = Wt + (int64_t)sl * R * p;
-  const double* Go = Gt + (int64_t)sl * R * S;
+  const T* So = Sv + (int64_t)sl * R;
+  const T* Wo = Wt + (int64_t)sl * R * p;
+  const T* Go = Gt + (int64_t)sl * R * S;
   const int g_end = starts[sl + 1];
   const int c0 = starts[sl] + blockIdx.z * GC;
   if (c0 >= g_end) return;  // the slot has fewer chunks: the whole block
   const int ng = min(GC, g_end - c0);
-  double U[GC][PMAX], cgg[GC], cgy[GC];
+  T U[GC][PMAX], cgg[GC], cgy[GC];
 #pragma unroll
   for (int gi = 0; gi < GC; ++gi) {
-    SMALL_FOR(j, 0, p) U[gi][j] = 0.0;
-    cgg[gi] = 0.0;
-    cgy[gi] = 0.0;
+    SMALL_FOR(j, 0, p) U[gi][j] = T(0);
+    cgg[gi] = T(0);
+    cgy[gi] = T(0);
   }
   for (int r0 = 0; r0 < R; r0 += RCH) {
     const int rows = min(RCH, R - r0);
     // the chunk's weights and weighted phenotype, per gene (0 past ng)
     for (int idx = threadIdx.x; idx < GC * RCH; idx += NT) {
       const int gi = idx / RCH, rr = idx - gi * RCH;
-      double w = 0.0, yw = 0.0;
+      T w = T(0), yw = T(0);
       if (gi < ng && rr < rows) {
         const int g = order[c0 + gi];
-        const double dg = delta[g];
-        w = 1.0 / ((1.0 - dg) * So[r0 + rr] + dg);
+        const T dg = delta[g];
+        w = T(1) / ((T(1) - dg) * So[r0 + rr] + dg);
         yw = yt[(int64_t)g * R + r0 + rr] * w;
       }
       wsh[gi][rr] = w;
@@ -426,13 +436,13 @@ fast_scan_genes_kernel(const double* __restrict__ delta,
     if (s < S) {
       for (int rr = warp; rr < rows; rr += NWARP) {
         const int r = r0 + rr;
-        const double g = Go[(int64_t)r * S + s];
-        const double* x = Wo + (int64_t)r * p;
-        double xr[PMAX];
+        const T g = Go[(int64_t)r * S + s];
+        const T* x = Wo + (int64_t)r * p;
+        T xr[PMAX];
         SMALL_FOR(j, 0, p) xr[j] = x[j];
 #pragma unroll
         for (int gi = 0; gi < GC; ++gi) {
-          const double gw = g * wsh[gi][rr];
+          const T gw = g * wsh[gi][rr];
           SMALL_FOR(j, 0, p) U[gi][j] += xr[j] * gw;
           cgg[gi] += g * gw;
           cgy[gi] += g * ywsh[gi][rr];
@@ -479,80 +489,81 @@ fast_scan_genes_kernel(const double* __restrict__ delta,
   if (warp < ng) {
     const int gi = warp;
     const int g = order[c0 + gi];
-    const double dg = delta[g];
-    const double* yg = yt + (int64_t)g * R;
-    double A[PMAX][PMAX], b[PMAX], yyw = 0.0, logd = 0.0;
+    const T dg = delta[g];
+    const T* yg = yt + (int64_t)g * R;
+    T A[PMAX][PMAX], b[PMAX], yyw = T(0), logd = T(0);
     SMALL_FOR(i, 0, p) {
-      b[i] = 0.0;
-      SMALL_FOR(j, 0, i + 1) A[i][j] = 0.0;
+      b[i] = T(0);
+      SMALL_FOR(j, 0, i + 1) A[i][j] = T(0);
     }
     for (int r = lane; r < R; r += 32) {
-      const double d = (1.0 - dg) * So[r] + dg;
-      const double w = 1.0 / d;
-      const double* x = Wo + (int64_t)r * p;
-      const double yv = yg[r];
+      const T d = (T(1) - dg) * So[r] + dg;
+      const T w = T(1) / d;
+      const T* x = Wo + (int64_t)r * p;
+      const T yv = yg[r];
       SMALL_FOR(i, 0, p) {
-        const double xw = x[i] * w;
+        const T xw = x[i] * w;
         SMALL_FOR(j, 0, i + 1) A[i][j] += xw * x[j];
         b[i] += xw * yv;
       }
       yyw += yv * yv * w;
       logd += log(d);
     }
-    const double* CWo = CWW + (int64_t)sl * p * p;
+    const T* CWo = CWW + (int64_t)sl * p * p;
     SMALL_FOR(i, 0, p) {
       SMALL_FOR(j, 0, i + 1)
         A[i][j] = warp_sum(A[i][j]) + CWo[i * p + j] / dg;
       b[i] = warp_sum(b[i]) + cWy[(int64_t)g * p + i] / dg;
     }
     yyw = warp_sum(yyw) + cyy[g] / dg;
-    logd = warp_sum(logd) + (n - R) * log(dg);
-    double dmax = 0.0;
+    logd = warp_sum(logd) + (T)(n - R) * log(dg);
+    T dmax = T(0);
     SMALL_FOR(i, 0, p) dmax = fmax(dmax, fabs(A[i][i]));
-    const double ridge = 1e-12 * fmax(dmax, 1.0);
+    const T ridge = T(1e-12) * fmax(dmax, T(1));
     SMALL_FOR(j, 0, p) {
-      double dj = A[j][j] + ridge;
+      T dj = A[j][j] + ridge;
       SMALL_FOR(k, 0, j) dj -= A[j][k] * A[j][k];
       dj = sqrt(dj);
       A[j][j] = dj;
       SMALL_FOR(i, j + 1, p) {
-        double v = A[i][j];
+        T v = A[i][j];
         SMALL_FOR(k, 0, j) v -= A[i][k] * A[j][k];
         A[i][j] = v / dj;
       }
     }
-    double aib[PMAX], z[PMAX], Us[PMAX];
-    solve(A, b, aib, p);
+    T aib[PMAX], z[PMAX], Us[PMAX];
+    solve<T, PMAX>(A, b, aib, p);
     if (s < S) {
-      const double* CGo = CWG + (int64_t)sl * p * S;
+      const T* CGo = CWG + (int64_t)sl * p * S;
       SMALL_FOR(j, 0, p) {
-        double v = 0.0;
+        T v = T(0);
         for (int w = 0; w < NWARP; ++w) v += part[w][gi][j][lane];
         Us[j] = v + CGo[(int64_t)j * S + s] / dg;
       }
-      double cg = cGG[(int64_t)sl * S + s] / dg;
-      double cy = cGy[(int64_t)g * S + s] / dg;
+      T cg = cGG[(int64_t)sl * S + s] / dg;
+      T cy = cGy[(int64_t)g * S + s] / dg;
       for (int w = 0; w < NWARP; ++w) {
         cg += part[w][gi][PMAX][lane];
         cy += part[w][gi][PMAX + 1][lane];
       }
-      solve(A, Us, z, p);
-      double uau = 0.0, bau = 0.0, bab = 0.0;
+      solve<T, PMAX>(A, Us, z, p);
+      T uau = T(0), bau = T(0), bab = T(0);
       SMALL_FOR(i, 0, p) {
         uau += Us[i] * z[i];
         bau += b[i] * z[i];
         bab += b[i] * aib[i];
       }
-      const double schur = cg - uau;
-      const double resid = cy - bau;
-      const double beta_g = resid / schur;
+      const T schur = cg - uau;
+      const T resid = cy - bau;
+      const T beta_g = resid / schur;
       const int64_t gs = (int64_t)g * S + s;
       SMALL_FOR(i, 0, p) bW_out[gs * p + i] = aib[i] - z[i] * beta_g;
-      const double rss = clamp_tiny(yyw - bab - resid * resid / schur);
-      const double scale = rss / n;
+      const T rss = clamp_tiny(yyw - bab - resid * resid / schur);
+      const T scale = rss / (T)n;
       bg_out[gs] = beta_g;
       scale_out[gs] = scale;
-      lml_out[gs] = -0.5 * (n * log(6.283185307179586 * scale) + logd + n);
+      lml_out[gs] = T(-0.5) * ((T)n * log(T(6.283185307179586) * scale) +
+                               logd + (T)n);
     }
   }
 }
@@ -574,7 +585,8 @@ extern "C" int crm_fast_scan(const double* Sv, const double* Wt,
                              int S, cudaStream_t stream) {
   auto launch = [&](auto kernel, auto pmax) {
     int smem;
-    const int err = dyn_smem<decltype(pmax)::value>(kernel, 1, p, &smem);
+    const int err =
+        dyn_smem<double, decltype(pmax)::value>(kernel, 1, p, &smem);
     if (err) return err;
     const int blocks = (S + 31) / 32;
     kernel<<<blocks, NT, smem, stream>>>(Sv, Wt, yt, CWW, cWy, cyy, Gt, CWG,
@@ -582,10 +594,10 @@ extern "C" int crm_fast_scan(const double* Sv, const double* Wt,
                                          scale, delta, n, R, p, S);
     return (int)cudaGetLastError();
   };
-  if (p <= 2) return launch(fast_scan_kernel<2>, PC<2>());
-  if (p <= 4) return launch(fast_scan_kernel<4>, PC<4>());
-  if (p <= 16) return launch(fast_scan_kernel<16>, PC<16>());
-  return launch(fast_scan_kernel<WIDE_P>, PC<WIDE_P>());
+  if (p <= 2) return launch(fast_scan_kernel<double, 2>, PC<2>());
+  if (p <= 4) return launch(fast_scan_kernel<double, 4>, PC<4>());
+  if (p <= 16) return launch(fast_scan_kernel<double, 16>, PC<16>());
+  return launch(fast_scan_kernel<double, WIDE_P>, PC<WIDE_P>());
 }
 
 // The gene axis.  Per slot (m distinct best rho): S (m, R), Wt (m, R, p),
@@ -611,7 +623,7 @@ extern "C" int crm_fast_scan_genes(const double* delta, const double* Sv,
     constexpr int PM = decltype(pmax)::value;
     constexpr int gc = GeneChunk<PM>::GC;
     int smem;
-    const int err = dyn_smem<PM>(kernel, gc, p, &smem);
+    const int err = dyn_smem<double, PM>(kernel, gc, p, &smem);
     if (err) return err;
     const dim3 grid((S + 31) / 32, m, (max_genes + gc - 1) / gc);
     kernel<<<grid, NT, smem, stream>>>(delta, Sv, Wt, yt, CWW, cWy, cyy, Gt,
@@ -619,8 +631,66 @@ extern "C" int crm_fast_scan_genes(const double* delta, const double* Sv,
                                        beta_g, beta_W, scale, n, R, p, S);
     return (int)cudaGetLastError();
   };
-  if (p <= 2) return launch(fast_scan_genes_kernel<2>, PC<2>());
-  if (p <= 4) return launch(fast_scan_genes_kernel<4>, PC<4>());
-  if (p <= 16) return launch(fast_scan_genes_kernel<16>, PC<16>());
-  return launch(fast_scan_genes_kernel<WIDE_P>, PC<WIDE_P>());
+  if (p <= 2) return launch(fast_scan_genes_kernel<double, 2>, PC<2>());
+  if (p <= 4) return launch(fast_scan_genes_kernel<double, 4>, PC<4>());
+  if (p <= 16) return launch(fast_scan_genes_kernel<double, 16>, PC<16>());
+  return launch(fast_scan_genes_kernel<double, WIDE_P>, PC<WIDE_P>());
+}
+
+// The float32 context: the operands and results of crm_fast_scan in f32
+// (delta rounded to f32), 1 <= p <= 16.
+extern "C" int crm_fast_scan_f32(const float* Sv, const float* Wt,
+                                 const float* yt, const float* CWW,
+                                 const float* cWy, const float* cyy,
+                                 const float* Gt, const float* CWG,
+                                 const float* cGy, const float* cGG,
+                                 float* lml, float* beta_g, float* beta_W,
+                                 float* scale, double delta, int n, int R,
+                                 int p, int S, cudaStream_t stream) {
+  if (p < 1 || p > 16) return (int)cudaErrorInvalidValue;
+  auto launch = [&](auto kernel, auto pmax) {
+    int smem;
+    const int err =
+        dyn_smem<float, decltype(pmax)::value>(kernel, 1, p, &smem);
+    if (err) return err;
+    const int blocks = (S + 31) / 32;
+    kernel<<<blocks, NT, smem, stream>>>(Sv, Wt, yt, CWW, cWy, cyy, Gt, CWG,
+                                         cGy, cGG, lml, beta_g, beta_W,
+                                         scale, (float)delta, n, R, p, S);
+    return (int)cudaGetLastError();
+  };
+  if (p <= 2) return launch(fast_scan_kernel<float, 2>, PC<2>());
+  if (p <= 4) return launch(fast_scan_kernel<float, 4>, PC<4>());
+  return launch(fast_scan_kernel<float, 16>, PC<16>());
+}
+
+// The float32 context's gene axis: the operands and results of
+// crm_fast_scan_genes in f32 (order and starts as there), 1 <= p <= 16.
+extern "C" int crm_fast_scan_genes_f32(const float* delta, const float* Sv,
+                                       const float* Wt, const float* yt,
+                                       const float* CWW, const float* cWy,
+                                       const float* cyy, const float* Gt,
+                                       const float* CWG, const float* cGy,
+                                       const float* cGG, const int* order,
+                                       const int* starts, float* lml,
+                                       float* beta_g, float* beta_W,
+                                       float* scale, int n, int R, int p,
+                                       int S, int m, int max_genes,
+                                       cudaStream_t stream) {
+  if (p < 1 || p > 16) return (int)cudaErrorInvalidValue;
+  auto launch = [&](auto kernel, auto pmax) {
+    constexpr int PM = decltype(pmax)::value;
+    constexpr int gc = GeneChunk<PM>::GC;
+    int smem;
+    const int err = dyn_smem<float, PM>(kernel, gc, p, &smem);
+    if (err) return err;
+    const dim3 grid((S + 31) / 32, m, (max_genes + gc - 1) / gc);
+    kernel<<<grid, NT, smem, stream>>>(delta, Sv, Wt, yt, CWW, cWy, cyy, Gt,
+                                       CWG, cGy, cGG, order, starts, lml,
+                                       beta_g, beta_W, scale, n, R, p, S);
+    return (int)cudaGetLastError();
+  };
+  if (p <= 2) return launch(fast_scan_genes_kernel<float, 2>, PC<2>());
+  if (p <= 4) return launch(fast_scan_genes_kernel<float, 4>, PC<4>());
+  return launch(fast_scan_genes_kernel<float, 16>, PC<16>());
 }

@@ -1,5 +1,6 @@
-// K10: the profiled fits over the rho grid, one per rho point, f64, for
-// sm_90a.
+// K10: the profiled fits over the rho grid, one per rho point, f64 (and
+// an f32 instantiation for the float32 context, at the end of the file),
+// for sm_90a.
 //
 // Per rho point o, with eigenvalues S_r, rotated covariates X_r (p columns)
 // and phenotype y_r (r < R) and the complements (Cxx, cxy, cyy), the lml at
@@ -121,6 +122,7 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NT = 256;
+constexpr int MAX_F32_GRID = 1024;  // the float32 kernel's grid values
 constexpr double INVPHI = 0.6180339887498949;
 constexpr double INVPHI2 = 0.3819660112501051;
 
@@ -1671,6 +1673,270 @@ int launch_narrow(const double* Sv, const double* Xt, const double* yt,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The float32 context: `fit_delta_eig` in f32 arithmetic (the association's
+// null fits on an f32 context, engine.py:865-873 and its gene axis
+// :1154-1174, every tensor f32): the grid's logits torch.linspace's f32
+// values, the sigmoid, the sums, the factorization and the lml in f32, the
+// golden section's state in f32, the rss floored at tiny(f32).  ML only
+// (the association is the float32 context's only caller of K10: the
+// aggregate environment's REML fit refuses it), p + 1 <= 16.
+//
+// A failed f32 factorization (the ridge is below f32's resolution, and
+// cancellation in the complement Gram Cxx can leave A indefinite at small
+// delta) is a NaN lml, as in the reference, but a NaN grid point never
+// wins the grid's argmax: the reference's argmax takes it and that rho's
+// fit is NaN.
+//
+// A block a (rho, gene) problem, one launch: the grid a warp a point (the
+// lanes over the rows, an xor-shuffle tree), its argmax on every thread,
+// then the golden section and the final fit,
+// each evaluation on the whole block (the rows over the threads, the
+// warps' sums meeting in shared memory).  Every thread factors the same
+// sums in the same order, so every thread keeps the same bracket and no
+// decision is broadcast: two barriers an evaluation.  The simple form:
+// rows read where they lie, no staging.
+// ---------------------------------------------------------------------------
+constexpr int F32_WARPS = NT / 32;
+constexpr float F32_INVPHI = 0.6180339887498949f;
+constexpr float F32_INVPHI2 = 0.3819660112501051f;
+
+template <int Q>
+struct F32Geom {
+  static constexpr int TRI = Q * (Q + 1) / 2;  // packed lower triangle
+  static constexpr int NE = TRI + 1;           // and sum log d
+};
+
+__device__ __forceinline__ int f32_tri(int i, int j) {
+  return i * (i + 1) / 2 + j;
+}
+
+// One problem's f32 operands at its rho point.
+struct F32Rho {
+  const float *S, *X, *y;  // (R,), (R, p), (R,)
+  const float *Cxx, *cxy;  // (p, p), (p,)
+  float cyy;
+  int R, p;
+};
+
+__device__ __forceinline__ float f32_sigmoid(float x) {
+  return 1.0f / (1.0f + exp(-x));
+}
+
+// torch.linspace's f32 value k of K points on [lo, hi]
+__device__ __forceinline__ float f32_logit_at(float lo, float hi, int K,
+                                              int k) {
+  if (K == 1) return lo;
+  const float step = (hi - lo) / (float)(K - 1);
+  return k < K / 2 ? lo + step * (float)k : hi - step * (float)(K - 1 - k);
+}
+
+// The sums over rows r0, r0 + stride, ... at delta: the packed lower
+// triangle of [X | y]^T diag(w) [X | y] (column p is y) and sum log d_r
+template <int Q>
+__device__ void f32_rows(const F32Rho& pr, float delta, int r0, int stride,
+                         float (&acc)[F32Geom<Q>::NE]) {
+  constexpr int NE = F32Geom<Q>::NE;
+  const int p = pr.p, q = p + 1;
+#pragma unroll
+  for (int e = 0; e < NE; ++e) acc[e] = 0.0f;
+  for (int r = r0; r < pr.R; r += stride) {
+    const float d = (1.0f - delta) * pr.S[r] + delta;
+    const float w = 1.0f / d;
+    float x[Q];
+#pragma unroll
+    for (int j = 0; j < Q; ++j)
+      x[j] = j < p ? pr.X[(int64_t)r * p + j] : (j == p ? pr.y[r] : 0.0f);
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      if (i >= q) continue;
+      const float xw = x[i] * w;
+#pragma unroll
+      for (int j = 0; j <= i; ++j) acc[f32_tri(i, j)] += xw * x[j];
+    }
+    acc[NE - 1] += log(d);
+  }
+}
+
+// The ML fit at delta from the full sums `tot`: the complements added,
+// the ridge Cholesky of A (`sym_pseudo_solve_and_logdet`'s, rcond 1e-12),
+// beta, rss = max(yDy - b.beta, tiny) and the lml (models/lmm.py:52-76,
+// 115-133 in f32)
+template <int Q>
+__device__ float f32_finish(const F32Rho& pr, float delta, const float* tot,
+                            int n, float (&beta)[Q], float& rss) {
+  const int p = pr.p;
+  float L[Q][Q], b[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    if (i >= p) continue;
+#pragma unroll
+    for (int j = 0; j <= i; ++j)
+      L[i][j] = tot[f32_tri(i, j)] + pr.Cxx[i * p + j] / delta;
+    b[i] = tot[f32_tri(p, i)] + pr.cxy[i] / delta;
+  }
+  const float yDy = tot[f32_tri(p, p)] + pr.cyy / delta;
+  float dmax = 0.0f;
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+    if (i < p) dmax = fmax(dmax, fabs(L[i][i]));
+  const float ridge = 1e-12f * fmax(dmax, 1.0f);
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    if (j >= p) continue;
+    float dj = L[j][j] + ridge;
+#pragma unroll
+    for (int k = 0; k < j; ++k) dj -= L[j][k] * L[j][k];
+    dj = sqrt(dj);
+    L[j][j] = dj;
+#pragma unroll
+    for (int i = j + 1; i < Q; ++i) {
+      if (i >= p) continue;
+      float v = L[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) v -= L[i][k] * L[j][k];
+      L[i][j] = v / dj;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    if (i >= p) continue;
+    float v = b[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) v -= L[i][k] * beta[k];
+    beta[i] = v / L[i][i];
+  }
+#pragma unroll
+  for (int i = Q - 1; i >= 0; --i) {
+    if (i >= p) continue;
+    float v = beta[i];
+#pragma unroll
+    for (int k = i + 1; k < Q; ++k)
+      if (k < p) v -= L[k][i] * beta[k];
+    beta[i] = v / L[i][i];
+  }
+  float bb = 0.0f;
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+    if (i < p) bb += b[i] * beta[i];
+  const float raw = yDy - bb;
+  rss = raw < FLT_MIN ? FLT_MIN : raw;  // keeps a NaN
+  const float logdet_d =
+      tot[F32Geom<Q>::NE - 1] + (float)(n - pr.R) * log(delta);
+  const float scale = rss / (float)n;
+  return -0.5f * ((float)n * log(6.283185307179586f * scale) + logdet_d +
+                  (float)n);
+}
+
+template <int Q>
+__global__ void __launch_bounds__(NT)
+null_fit_f32_kernel(const float* __restrict__ Sv, const float* __restrict__ Xt,
+                    const float* __restrict__ yt,
+                    const float* __restrict__ Cxx,
+                    const float* __restrict__ cxy,
+                    const float* __restrict__ cyy, float* __restrict__ lml,
+                    float* __restrict__ delta_out, float* __restrict__ beta,
+                    float* __restrict__ scale, float* __restrict__ v0,
+                    float* __restrict__ v1, float* __restrict__ rss_out,
+                    float lo, float hi, int n_grid, int n_iters, int n,
+                    int nrho, int R, int p) {
+  constexpr int NE = F32Geom<Q>::NE;
+  __shared__ float vals[MAX_F32_GRID];
+  __shared__ float part[F32_WARPS][NE];
+  __shared__ float tot[NE];
+  const int o = blockIdx.x, g = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t go = (int64_t)g * nrho + o;
+  F32Rho pr;
+  pr.S = Sv + (int64_t)o * R;
+  pr.X = Xt + (int64_t)o * R * p;
+  pr.y = yt + go * R;
+  pr.Cxx = Cxx + (int64_t)o * p * p;
+  pr.cxy = cxy + go * p;
+  pr.cyy = cyy[go];
+  pr.R = R;
+  pr.p = p;
+  float acc[NE], bt[Q], rss;
+
+  // the grid: a warp a point
+  for (int k = warp; k < n_grid; k += F32_WARPS) {
+    const float dk = f32_sigmoid(f32_logit_at(lo, hi, n_grid, k));
+    f32_rows<Q>(pr, dk, lane, 32, acc);
+#pragma unroll
+    for (int e = 0; e < NE; ++e)
+      for (int off = 16; off > 0; off >>= 1)
+        acc[e] += __shfl_xor_sync(FULL, acc[e], off);
+    const float v = f32_finish<Q>(pr, dk, acc, n, bt, rss);
+    if (lane == 0) vals[k] = v;
+  }
+  __syncthreads();
+  // the first maximum, a NaN (a failed factorization) never winning
+  int kb = 0;
+  float best = -INFINITY;
+  for (int k = 0; k < n_grid; ++k) {
+    const float v = vals[k];
+    if (v > best) {
+      best = v;
+      kb = k;
+    }
+  }
+
+  // one evaluation on the whole block; every thread returns the lml
+  auto evaluate = [&](float d) {
+    f32_rows<Q>(pr, d, threadIdx.x, NT, acc);
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      float v = acc[e];
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(FULL, v, off);
+      if (lane == 0) part[warp][e] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x < NE) {
+      float v = 0.0f;
+      for (int w = 0; w < F32_WARPS; ++w) v += part[w][threadIdx.x];
+      tot[threadIdx.x] = v;
+    }
+    __syncthreads();
+    return f32_finish<Q>(pr, d, tot, n, bt, rss);
+  };
+
+  // the golden section (models/lmm.py `_golden` in f32)
+  float a = f32_logit_at(lo, hi, n_grid, kb > 0 ? kb - 1 : 0);
+  float b = f32_logit_at(lo, hi, n_grid, kb + 1 < n_grid ? kb + 1 : kb);
+  float h = b - a;
+  float x1 = a + F32_INVPHI2 * h, x2 = a + F32_INVPHI * h;
+  float f1 = evaluate(f32_sigmoid(x1)), f2 = evaluate(f32_sigmoid(x2));
+  for (int it = 0; it < n_iters; ++it) {
+    const bool left = f1 > f2;
+    if (left) b = x2;
+    else a = x1;
+    h = b - a;
+    const float x1n = left ? a + F32_INVPHI2 * h : x2;
+    const float x2n = left ? x1 : a + F32_INVPHI * h;
+    const float fe = evaluate(f32_sigmoid(left ? x1n : x2n));
+    const float f1n = left ? fe : f2;
+    const float f2n = left ? f1 : fe;
+    x1 = x1n;
+    x2 = x2n;
+    f1 = f1n;
+    f2 = f2n;
+  }
+  const float dbest = f32_sigmoid(f1 > f2 ? x1 : x2);
+  const float lbest = evaluate(dbest);
+  if (threadIdx.x == 0) {
+    const float sc = rss / (float)n;
+    lml[go] = lbest;
+    delta_out[go] = dbest;
+    scale[go] = sc;
+    v0[go] = sc * (1.0f - dbest);
+    v1[go] = sc * dbest;
+    rss_out[go] = rss;
+    for (int j = 0; j < p; ++j) beta[go * p + j] = bt[j];
+  }
+}
+
 }  // namespace
 
 // The scratch doubles crm_null_fit needs at these shapes.
@@ -1708,4 +1974,28 @@ extern "C" int crm_null_fit(const double* Sv, const double* Xt,
   return launch(Sv, Xt, yt, Cxx, cxy, cyy, lml, delta, beta, scale, v0, v1,
                 rss, scratch, lo, hi, n_grid, n_iters, n, nrho, R, p, reml,
                 genes, stream);
+}
+
+// The float32 context: the operands of crm_null_fit in f32 -> the fits
+// in f32; ML only, 1 <= p + 1 <= 16, n_grid <= 1024, genes <= 65535; no
+// scratch.  One launch on `stream`; returns cudaGetLastError().
+extern "C" int crm_null_fit_f32(const float* Sv, const float* Xt,
+                                const float* yt, const float* Cxx,
+                                const float* cxy, const float* cyy,
+                                float* lml, float* delta, float* beta,
+                                float* scale, float* v0, float* v1,
+                                float* rss, double lo, double hi, int n_grid,
+                                int n_iters, int n, int nrho, int R, int p,
+                                int genes, cudaStream_t stream) {
+  if (p < 1 || p + 1 > 16 || n_grid < 1 || n_grid > MAX_F32_GRID)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = p + 1 <= 2   ? null_fit_f32_kernel<2>
+                : p + 1 <= 4 ? null_fit_f32_kernel<4>
+                : p + 1 <= 8 ? null_fit_f32_kernel<8>
+                             : null_fit_f32_kernel<16>;
+  const dim3 fits(nrho, genes);
+  kernel<<<fits, NT, 0, stream>>>(Sv, Xt, yt, Cxx, cxy, cyy, lml, delta, beta,
+                                  scale, v0, v1, rss, (float)lo, (float)hi,
+                                  n_grid, n_iters, n, nrho, R, p);
+  return (int)cudaGetLastError();
 }

@@ -2142,6 +2142,14 @@ __device__ __forceinline__ T c32_warp_sum(T v) {
   return v;
 }
 
+// max(x, floor) that keeps a NaN (a failed factorization's residual), as
+// the plain versions' torch.clamp / torch.maximum and the reference's
+// jnp.maximum do; fmax would drop it
+template <class T>
+__device__ __forceinline__ T c32_floor(T x, T floor) {
+  return x < floor ? floor : x;
+}
+
 template <class T>
 __device__ __forceinline__ T c32_sigmoid(T x) {
   return T(1) / (T(1) + exp(-x));
@@ -2258,8 +2266,9 @@ __device__ void c32_mv(const T* A, const T* x, T* out, int p1) {
 }
 
 // (L', L'') of the REML objective at delta (the algebra of derivs_sums in
-// T)
-template <class T, int P1MAX>
+// T), or with REML false of the ML objective (n for nu, no logdet(A)
+// trace terms: engine.py:1026-1028)
+template <class T, int P1MAX, bool REML = true>
 __device__ void c32_derivs(int p1, int R, int n, T delta,
                            const T (&acc)[3][Cfg<P1MAX>::NE], T sum_ew,
                            T sum_e2w2, T& Lp, T& Lpp) {
@@ -2273,7 +2282,7 @@ __device__ void c32_derivs(int p1, int R, int n, T delta,
   c32_solve<T, P1MAX>(L, b1, beta, p1);
   T rss = q1;
   SMALL_FOR(j, 0, p1) rss -= b1[j] * beta[j];
-  rss = fmax(rss, C32Lim<T>::tiny);
+  rss = c32_floor(rss, C32Lim<T>::tiny);
   c32_mv<T, P1MAX>(A2, beta, A2b, p1);
   c32_mv<T, P1MAX>(A3, beta, A3b, p1);
   SMALL_FOR(j, 0, p1) t[j] = A2b[j] - b2[j];
@@ -2296,6 +2305,12 @@ __device__ void c32_derivs(int p1, int R, int n, T delta,
   const T ld_p = sum_ew + nR * i1;
   const T ld_pp = -sum_e2w2 - nR * (i1 * i1);
   const T u = rss_p / rss;
+  if constexpr (!REML) {
+    const T nn = (T)n;
+    Lp = T(-0.5) * (nn * u + ld_p);
+    Lpp = T(-0.5) * (nn * (rss_pp / rss - u * u) + ld_pp);
+    return;
+  }
   T Ainv[P1MAX][P1MAX];
   SMALL_FOR(kc, 0, p1) {
     T ecol[P1MAX], col[P1MAX];
@@ -2326,15 +2341,17 @@ __device__ void c32_derivs(int p1, int R, int n, T delta,
 }
 
 // One safeguarded Newton step on logit(delta) in T (engine.py:608-626,
-// inclusive bounds); lane 0's iterate is every lane's
-template <class T, int P1MAX>
+// inclusive bounds; the ML objective's with REML false, :1030-1044);
+// lane 0's iterate is every lane's
+template <class T, int P1MAX, bool REML = true>
 __device__ void c32_step(const C32Problem& pb, int n, int lane, T& x, T& lo,
                          T& hi) {
   constexpr int NE = Cfg<P1MAX>::NE;
   const T delta = c32_sigmoid(x);
   T acc[3][NE], ex1, ex2, Lp, Lpp;
   c32_sums<T, P1MAX, 3>(pb, delta, lane, acc, ex1, ex2);
-  c32_derivs<T, P1MAX>(pb.p + 1, pb.R, n, delta, acc, ex1, ex2, Lp, Lpp);
+  c32_derivs<T, P1MAX, REML>(pb.p + 1, pb.R, n, delta, acc, ex1, ex2, Lp,
+                             Lpp);
   const T g = delta * (T(1) - delta);
   const T Lx_p = Lp * g;
   const T Lx_pp = Lpp * g * g + Lp * g * (T(1) - T(2) * delta);
@@ -2431,7 +2448,7 @@ c32_localize_kernel(const float* __restrict__ Sv, const float* __restrict__ WGt,
   double beta[P1MAX], rss, q, logdet_a, logdet_d;
   c32_eval<P1MAX>(pb, n, lane, delta, beta, rss, q, logdet_a, logdet_d);
   const bool bad = rss <= 128.0 * eps_ctx * q;
-  rss = fmax(rss, DBL_MIN);
+  rss = c32_floor(rss, DBL_MIN);
   double lml = c32_lml(rss, logdet_d, logdet_a, (double)ld_xx[s], n, p + 1);
   if (bad || !isfinite(lml)) lml = -INFINITY;
   if (lane == 0) {
@@ -2442,8 +2459,12 @@ c32_localize_kernel(const float* __restrict__ Sv, const float* __restrict__ WGt,
 
 // Stage 3: a warp per (gene, variant) problem at its rho k_best (0 when
 // null): f64 steps from x0 (the bracket midpoint when null) within the
-// grid bracket, then the final fit
-template <int P1MAX>
+// grid bracket, then the final fit.  With REML false the association
+// refit's Newton half on an f32 context (engine.py:991-1062: its brackets
+// are f64 logits, its steps and final fit f64 arithmetic on the f32
+// tensors): the ML objective, the rss floored at tiny(f32) (:1056), no
+// ld_xx
+template <int P1MAX, bool REML>
 __global__ void __launch_bounds__(32 * C32_WARPS)
 c32_converge_kernel(const float* __restrict__ Sv, const float* __restrict__ WGt,
                     const float* __restrict__ yt, const float* __restrict__ CWW,
@@ -2473,19 +2494,27 @@ c32_converge_kernel(const float* __restrict__ Sv, const float* __restrict__ WGt,
   double lo = br_lo[at], hi = br_hi[at];
   double x = x0 ? x0[at] : 0.5 * (lo + hi);
   for (int it = 0; it < steps; ++it)
-    c32_step<double, P1MAX>(pb, n, lane, x, lo, hi);
+    c32_step<double, P1MAX, REML>(pb, n, lane, x, lo, hi);
   const double delta = c32_sigmoid(x);
   double beta[P1MAX], rss, q, logdet_a, logdet_d;
   c32_eval<P1MAX>(pb, n, lane, delta, beta, rss, q, logdet_a, logdet_d);
-  // the f32 tensors' cancellation noise floor (engine.py:722-724)
-  rss = fmax(rss, 128.0 * eps_ctx * q);
-  rss = fmax(rss, DBL_MIN);
   const int p1 = p + 1;
-  const double lml = c32_lml(rss, logdet_d, logdet_a, (double)ld_xx[s], n, p1);
+  double lml, nu;
+  if constexpr (REML) {
+    // the f32 tensors' cancellation noise floor (engine.py:722-724)
+    rss = c32_floor(rss, 128.0 * eps_ctx * q);
+    rss = c32_floor(rss, DBL_MIN);
+    lml = c32_lml(rss, logdet_d, logdet_a, (double)ld_xx[s], n, p1);
+    nu = (double)(n - p1);
+  } else {
+    rss = rss < (double)FLT_MIN ? (double)FLT_MIN : rss;  // keeps a NaN
+    lml = -0.5 * (n * log(6.283185307179586 * rss / n) + logdet_d + n);
+    nu = (double)n;
+  }
   if (lane == 0) {
     delta_out[P] = delta;
     lml_out[P] = lml;
-    scale_out[P] = rss / (double)(n - p1);
+    scale_out[P] = rss / nu;
     SMALL_FOR(j, 0, p1) beta_out[P * p1 + j] = beta[j];
   }
 }
@@ -2695,8 +2724,9 @@ extern "C" int crm_reml_localize_f32(const float* Sv, const float* WGt,
 }
 
 // The float32 context (see c32_converge_kernel): the operands of
-// crm_reml_converge in f32 (REML; k_best, x0 and the brackets as there),
-// p + 1 <= 16, eps_ctx the context's eps for the rss floor -> delta, lml,
+// crm_reml_converge in f32 (k_best, x0 and the brackets as there), p + 1
+// <= 16, eps_ctx the context's eps for REML's rss floor, reml the
+// objective (ML: the association refit's; ld_xx unused) -> delta, lml,
 // scale (genes, nS), beta (genes, nS, p + 1) f64.  No scratch.
 extern "C" int crm_reml_converge_f32(const float* Sv, const float* WGt,
                                      const float* yt, const float* CWW,
@@ -2709,11 +2739,15 @@ extern "C" int crm_reml_converge_f32(const float* Sv, const float* WGt,
                                      double* lml, double* scale, double* beta,
                                      int n, int nrho, int R, int p, int nS,
                                      int genes, int steps, double eps_ctx,
-                                     cudaStream_t stream) {
-  auto kernel = p + 1 <= 2   ? c32_converge_kernel<2>
-                : p + 1 <= 4 ? c32_converge_kernel<4>
-                : p + 1 <= 8 ? c32_converge_kernel<8>
-                             : c32_converge_kernel<16>;
+                                     int reml, cudaStream_t stream) {
+  auto kernel = reml ? (p + 1 <= 2   ? c32_converge_kernel<2, true>
+                        : p + 1 <= 4 ? c32_converge_kernel<4, true>
+                        : p + 1 <= 8 ? c32_converge_kernel<8, true>
+                                     : c32_converge_kernel<16, true>)
+                     : (p + 1 <= 2   ? c32_converge_kernel<2, false>
+                        : p + 1 <= 4 ? c32_converge_kernel<4, false>
+                        : p + 1 <= 8 ? c32_converge_kernel<8, false>
+                                     : c32_converge_kernel<16, false>);
   const int64_t P = (int64_t)genes * nS;
   kernel<<<(unsigned)((P + C32_WARPS - 1) / C32_WARPS), 32 * C32_WARPS, 0,
            stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, k_best,

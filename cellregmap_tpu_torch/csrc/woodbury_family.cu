@@ -20,11 +20,13 @@
 //     - logdet X^TX + nu) / 2 (nu = n - p), ML -(n log(2 pi rss / n)
 //     + logdet D + n) / 2; in f32 a point with rss_raw <= 8 tiny_f32 or a
 //     non-finite lml is -inf.
-//   beta entry (f64): the same factorization, but the ridge (rcond *
+//   beta entry: the same factorization, but the ridge (rcond *
 //     max(max|diag A|, 1)) goes on the covariate block A of the Schur
 //     complement left after the first C columns, as
 //     `_family_blocks_matrix` ridges A; then beta = A^-1 b from the
-//     factor's last row and rss_raw = the last trailing entry.
+//     factor's last row and rss_raw = the last trailing entry.  In f32
+//     (the float32 context's final fit, :576-588) the capacitance block
+//     I + cvec H also takes + 1e-6 I, and the lml is masked as above.
 //
 // A failed factorization (a pivot <= 0 or NaN) is NaN throughout, as the
 // JAX engine's Cholesky returns it.
@@ -360,8 +362,7 @@ __device__ void point_epilogue(T* J, int q, int C, int p, T rcond, T dl,
   } else {
     lml = (T)-0.5 * ((T)n * log(two_pi * rss / (T)n) + logdet_d + (T)n);
   }
-  if (f32 && !want_beta &&
-      (rss_raw <= (T)8 * (T)FLT_MIN || !isfinite(lml)))
+  if (f32 && (rss_raw <= (T)8 * (T)FLT_MIN || !isfinite(lml)))
     lml = -INFINITY;
   *lml_out = lml;
   if (want_beta) *rss_out = rss;
@@ -386,6 +387,7 @@ family_epilogue_kernel(const T* __restrict__ logits,
   if (pt >= (int64_t)ns * L) return;
   const int s = s0 + (int)(pt / L);
   const int64_t at = (int64_t)s * L + pt % L;
+  const bool f32 = sizeof(T) == 4;
   T* J = reinterpret_cast<T*>(fe_dyn) + (int64_t)warp * npairs;
   const T dl = (T)1 / ((T)1 + exp(-logits[at]));
   const T omd = (T)1 - dl, omr = (T)1 - rho[at];
@@ -396,7 +398,10 @@ family_epilogue_kernel(const T* __restrict__ logits,
     const T wi = i < C ? sw : (T)1;
     for (int j = lane; j <= i; j += 32) {
       T v = (gp[tri(i) + j] + cp[i * q + j] * i1) * (wi * (j < C ? sw : (T)1));
-      if (i == j && i < C) v += (T)1;
+      if (i == j && i < C) {
+        v += (T)1;
+        if (f32 && want_beta) v += (T)1e-6;  // the f32 capacitance ridge
+      }
       J[tri(i) + j] = v;
     }
   }
@@ -443,7 +448,10 @@ family_epilogue_rows_kernel(const T* __restrict__ logits,
     const T wi = i < C ? sw : (T)1;
     for (int j = 0; j <= i; ++j) {
       T v = (gp[j] + cp[j] * i1) * (wi * (j < C ? sw : (T)1));
-      if (i == j && i < C) v += (T)1;
+      if (i == j && i < C) {
+        v += (T)1;
+        if (f32 && want_beta) v += (T)1e-6;  // the f32 capacitance ridge
+      }
       J[j * 32 + i] = v;
     }
   }
@@ -507,8 +515,7 @@ family_epilogue_rows_kernel(const T* __restrict__ logits,
   } else {
     lml = (T)-0.5 * ((T)n * log(two_pi * rss / (T)n) + logdet_d + (T)n);
   }
-  if (f32 && !want_beta &&
-      (rss_raw <= (T)8 * (T)FLT_MIN || !isfinite(lml)))
+  if (f32 && (rss_raw <= (T)8 * (T)FLT_MIN || !isfinite(lml)))
     lml = -INFINITY;
   lml_out[at] = lml;
   if (want_beta) rss_out[at] = rss;
@@ -594,7 +601,7 @@ int launch(const T* logits, const T* rho, const T* Ua, const T* UB,
 // comp (S, q, q), Lam (Rk,), ld_xx (S,) -> lml (S, L) and, with want_beta,
 // beta (S, L, pB + 1) and rss (S, L) (else unused); scratch: chunk L q (q +
 // 1) / 2 elements, the Gram of `chunk` variants at a time.  Row-major on
-// the card, f32 (the lml entry only) or f64; q = C + pB + 2 <= 162.
+// the card, f32 or f64; q = C + pB + 2 <= 162.
 // Launches on `stream`; returns a cudaError_t.
 extern "C" int crm_woodbury_family_f32(
     const float* logits, const float* rho, const float* Ua, const float* UB,

@@ -37,6 +37,14 @@ covariance factor ([E1, L_1..L_C]):
   (:func:`predict_interaction_batch`).  The aggregate environment's fits
   over the null's rho grid are K10 with REML (:func:`mean_fit`).
 
+In the float32 context (every field of the context f32, as the JAX
+engine's on an f32 context) the association's null fits (K10), the fast
+scan (K8), the refit's grid (K7's K2 kernels) and the effect sizes (K1,
+K9) run in f32; the refit's Newton steps and final fit (K7's converge)
+are f64 arithmetic on the f32 tensors, from brackets at the grid's f64
+logits, as the reference's type promotion makes them.  A rho whose f32
+null fit is NaN is never the best rho (:func:`_best_rho`).
+
 Zero eigenvalues are inert in every formula, so rank padding needs no
 masking and all shapes are static.
 """
@@ -371,13 +379,24 @@ def _fit_over_rho(ctx: NullContext, Xz, X_gram, X_y, n: int,
     return null_fit(data, n, restricted, lo, hi, n_grid, n_iters)
 
 
+def _best_rho(lml: torch.Tensor) -> torch.Tensor:
+    """The argmax over the last (rho) axis.  In the float32 context a NaN
+    lml (an f32 fit that failed) is never the best rho: the JAX package's
+    argmax takes it, and its f32 association scans and aggregate
+    environment are NaN from it (ROADMAP queue 3, "In the reference",
+    items j and k)."""
+    if lml.dtype == torch.float32:
+        lml = torch.where(torch.isnan(lml), -torch.inf, lml)
+    return lml.argmax(dim=-1)
+
+
 def null_association_fit(ctx: NullContext, n: int, restricted: bool = False,
                          delta_cfg=(-18.0, 18.0, 64, 60)):
     """Covariate-only null fits over the rho grid and the best rho's index
     (a 0-d tensor on the context's device); reference :246-266."""
     fits = _fit_over_rho(ctx, ctx.ZW, ctx.WW, ctx.Wy, n, restricted,
                          delta_cfg)
-    return fits, fits.lml.argmax()
+    return fits, _best_rho(fits.lml)
 
 
 def association_refit_batch(ctx: NullContext, G: torch.Tensor, k_rho: int,
@@ -387,7 +406,9 @@ def association_refit_batch(ctx: NullContext, G: torch.Tensor, k_rho: int,
     """Per-variant ML alternative fits (X = [W, g]) at the null's best rho
     ``k_rho`` (K7): the delta grid (K2's kernel with the ML objective, one
     rho), then ``newton_f64`` f64 Newton steps and the final fit (K3's
-    converge kernel, ML).  Returns (alt lml (S,), beta (S, p + 1))."""
+    converge kernel, ML).  Returns (alt lml (S,), beta (S, p + 1)), f64
+    in either context (the float32 context's grid is f32, its steps f64
+    arithmetic on the f32 tensors, as the JAX engine's)."""
     f64 = ctx.y.dtype
     fast = torch.float32 if (f64 == torch.float64 and localize_f32) else f64
     lo, hi, n_grid, _ = delta_cfg
@@ -481,7 +502,7 @@ def null_association_multigene_fit(ctx: NullContext, n: int,
                    cxy=ctx.Wy[:, None, :] - (XtT @ yt[..., None])[..., 0],
                    cyy=ctx.yy[:, None] - (yt * yt).sum(dim=-1))
     fits = null_fit(data, n, restricted, lo, hi, n_grid, n_iters)
-    return fits, fits.lml.argmax(dim=1)
+    return fits, _best_rho(fits.lml)
 
 
 def _slots(ctx: NullContext, k, genes: int):

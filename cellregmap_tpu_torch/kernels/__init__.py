@@ -21,7 +21,8 @@ MODULES = {"kr_contract": kr_contract, "delta_grid": delta_grid,
 
 # the modules with a float32-context instantiation
 F32_MODULES = ("kr_contract", "delta_grid", "reml_newton", "best_rho_rotate",
-               "score_core", "sym_eigvalsh")
+               "score_core", "sym_eigvalsh", "null_fit", "fast_scan",
+               "woodbury_family")
 
 
 def reset_launches() -> None:

@@ -24,8 +24,10 @@ every gene.
 
 The float32 context (the screen's) takes f32 operands (S, WGt, yt, the
 complements, ld_xx) and f32 working sums: an instantiation of its own
-(``crm_delta_grid_f32``), whose brackets are the grid logits rounded to f32
-(engine.py:528), widened exactly; its plain version rounds them alike.
+(``crm_delta_grid_f32``), whose REML brackets (the interaction's) are the
+grid logits rounded to f32 (engine.py:528), widened exactly, and whose ML
+brackets (the association refit's) the f64 logits (:986-989); its plain
+version makes them alike.
 
 The gene-batched association refit runs each gene at its own null's best
 rho alone: ``slot`` (one int per gene) names the rho row of S and WGt (the
@@ -80,7 +82,10 @@ def delta_grid_plain(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid,
     prod = products(WGt[:, :, :p], yt, WGt[:, :, p:])
     TS = tensor_set(S, prod, comp, fast)
     deltas = torch.sigmoid(logit_grid(lo, hi, n_grid, S.device)).to(fast)
-    logit = logit_grid(lo, hi, n_grid, S.device, S.dtype)  # the brackets
+    # the brackets: the interaction's (REML) logits rounded to the
+    # context's dtype, the association refit's (ML) f64 (engine.py:986-989)
+    logit = logit_grid(lo, hi, n_grid, S.device,
+                       S.dtype if restricted else torch.float64)
     d_grid = (1 - deltas)[None, :, None] * TS["S"][:, None, :] \
         + deltas[None, :, None]                         # (nrho, K, R)
     Wd = 1.0 / d_grid

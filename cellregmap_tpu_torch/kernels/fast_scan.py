@@ -16,6 +16,13 @@ S, Wt, CWW, Gt, CWG and cGG gain a leading slot axis), the phenotype's
 (delta, yt, cWy, cyy, cGy) a leading gene axis, and ``slot[g]`` names gene
 g's.  One launch serves every gene; the plain version runs
 ``models.lmm.fast_scan`` one gene at a time.
+
+The float32 context (``ScanConfig(dtype="float32")``: the JAX engine's
+f32 ``fast_scan_kernel`` and its gene axis) takes f32 operands and returns
+f32 results: the same kernels on the operand type float
+(``crm_fast_scan_f32``, ``crm_fast_scan_genes_f32``), p <= ``MAX_FIXED_F32``,
+every sum, solve and lml in f32 as ``models.lmm.fast_scan`` computes them
+on f32 tensors.  They count their launches in ``launches_f32`` too.
 """
 from __future__ import annotations
 
@@ -29,8 +36,10 @@ from ..models.lmm import FastScanResult
 from ..models.lmm import fast_scan as fast_scan_plain
 
 launches = 0
+launches_f32 = 0  # of them, the float32 context's instantiations
 
 MAX_FIXED = 32      # p of the CUDA kernel's small algebra
+MAX_FIXED_F32 = 16  # p of the float32 context's instantiations
 MAX_SLOTS = 65535   # distinct best rho of one gene-batched launch
 
 
@@ -40,6 +49,21 @@ def _bind(lib):
     lib.crm_fast_scan.argtypes = [vp] * 14 + [cd] + [ci] * 4 + [vp]
     lib.crm_fast_scan_genes.restype = ci
     lib.crm_fast_scan_genes.argtypes = [vp] * 17 + [ci] * 6 + [vp]
+    lib.crm_fast_scan_f32.restype = ci
+    lib.crm_fast_scan_f32.argtypes = [vp] * 14 + [cd] + [ci] * 4 + [vp]
+    lib.crm_fast_scan_genes_f32.restype = ci
+    lib.crm_fast_scan_genes_f32.argtypes = [vp] * 17 + [ci] * 6 + [vp]
+
+
+def _limit(name, S, p) -> torch.dtype:
+    """The call's dtype (float64, or float32: the float32 context) after
+    checking p against its instantiations' limit."""
+    dt = _build.context_dtype(S, f"{name}: S")
+    top = MAX_FIXED_F32 if dt == torch.float32 else MAX_FIXED
+    if not 1 <= p <= top:
+        raise ValueError(f"{name}: needs 1 <= p <= {top} covariates, got {p}"
+                         f" ({dt})")
+    return dt
 
 
 def fast_scan_genes_plain(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy,
@@ -65,7 +89,8 @@ def fast_scan(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG,
               n: int, slot=None) -> FastScanResult:
     """:class:`FastScanResult` of every variant: S (R,), Wt (R, p), yt
     (R,), CWW (p, p), cWy (p,), cyy (), Gt (R, nS), CWG (p, nS), cGy (nS,),
-    cGG (nS,), f64; ``delta`` the null's variance ratio (a number).
+    cGG (nS,), f64 (or all f32: the float32 context); ``delta`` the
+    null's variance ratio (a number).
 
     With ``slot`` (a host sequence of ``genes`` ints in [0, m)), the gene
     axis: delta (genes,), yt (genes, R), cWy (genes, p), cyy (genes,), cGy
@@ -73,7 +98,7 @@ def fast_scan(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG,
     nS), CWG (m, p, nS), cGG (m, nS) per slot; the results gain a leading
     gene axis.
     """
-    global launches
+    global launches, launches_f32
     if slot is not None:
         return _fast_scan_genes(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG,
                                 cGy, cGG, n, slot)
@@ -82,19 +107,18 @@ def fast_scan(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG,
                                cGG, n)
     R, p = Wt.shape
     nS = Gt.shape[1]
-    if not 1 <= p <= MAX_FIXED:
-        raise ValueError(f"fast_scan: needs 1 <= p <= {MAX_FIXED} "
-                         f"covariates, got {p}")
+    dt = _limit("fast_scan", S, p)
     for t, name, shape in ((S, "S", (R,)), (Wt, "Wt", (R, p)),
                            (yt, "yt", (R,)), (CWW, "CWW", (p, p)),
                            (cWy, "cWy", (p,)), (cyy, "cyy", ()),
                            (Gt, "Gt", (R, nS)),
                            (CWG, "CWG", (p, nS)), (cGy, "cGy", (nS,)),
                            (cGG, "cGG", (nS,))):
-        _build.require(t, f"fast_scan: {name}", torch.float64, shape)
+        _build.require(t, f"fast_scan: {name}", dt, shape)
     out = call(_build.load("fast_scan", _bind), delta, S, Wt, yt, CWW, cWy,
                cyy, Gt, CWG, cGy, cGG, n, _build.stream_ptr(S.device))
     launches += 1
+    launches_f32 += dt == torch.float32
     return out
 
 
@@ -104,13 +128,15 @@ def call(lib, delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
     library, or an emulation of it on CPU tensors)."""
     R, p = Wt.shape
     nS = Gt.shape[1]
-    new = lambda *shape: torch.empty(shape, dtype=torch.float64,  # noqa
+    new = lambda *shape: torch.empty(shape, dtype=Gt.dtype,  # noqa
                                      device=Gt.device)
     out = FastScanResult(lml=new(nS), effsizes_g=new(nS),
                          effsizes_W=new(nS, p), scale=new(nS))
     if nS == 0:
         return out
-    _build.check(lib.crm_fast_scan(
+    fn = (lib.crm_fast_scan_f32 if Gt.dtype == torch.float32
+          else lib.crm_fast_scan)
+    _build.check(fn(
         *(_build.ptr(t) for t in (S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy,
                                   cGG, *out)),
         float(delta), n, R, p, nS, stream), "fast_scan")
@@ -119,16 +145,14 @@ def call(lib, delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
 
 def _fast_scan_genes(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
                      slot) -> FastScanResult:
-    global launches
+    global launches, launches_f32
     if S.device.type == "cpu":
         return fast_scan_genes_plain(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG,
                                      cGy, cGG, n, slot)
     m, R, p = Wt.shape
     genes = len(slot)
     nS = Gt.shape[2]
-    if not 1 <= p <= MAX_FIXED:
-        raise ValueError(f"fast_scan: needs 1 <= p <= {MAX_FIXED} "
-                         f"covariates, got {p}")
+    dt = _limit("fast_scan", S, p)
     if not 1 <= m <= MAX_SLOTS:
         raise ValueError(f"fast_scan: 1..{MAX_SLOTS} slots, got {m}")
     if genes < 1 or not all(0 <= int(k) < m for k in slot):
@@ -142,12 +166,13 @@ def _fast_scan_genes(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
                            (CWG, "CWG", (m, p, nS)),
                            (cGy, "cGy", (genes, nS)),
                            (cGG, "cGG", (m, nS))):
-        _build.require(t, f"fast_scan: {name}", torch.float64, shape)
+        _build.require(t, f"fast_scan: {name}", dt, shape)
     index = _build.upload(slot_order(slot, m), S.device)
     out = call_genes(_build.load("fast_scan", _bind), delta, S, Wt, yt, CWW,
                      cWy, cyy, Gt, CWG, cGy, cGG, n, slot, index,
                      _build.stream_ptr(S.device))
     launches += 1
+    launches_f32 += dt == torch.float32
     return out
 
 
@@ -160,7 +185,7 @@ def call_genes(lib, delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
     m, R, p = Wt.shape
     genes = yt.shape[0]
     nS = Gt.shape[2]
-    new = lambda *shape: torch.empty(shape, dtype=torch.float64,  # noqa
+    new = lambda *shape: torch.empty(shape, dtype=Gt.dtype,  # noqa
                                      device=Gt.device)
     out = FastScanResult(lml=new(genes, nS), effsizes_g=new(genes, nS),
                          effsizes_W=new(genes, nS, p), scale=new(genes, nS))
@@ -170,7 +195,9 @@ def call_genes(lib, delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
                                 minlength=m).max())
     order = index[:genes]
     starts = index[genes:]
-    _build.check(lib.crm_fast_scan_genes(
+    fn = (lib.crm_fast_scan_genes_f32 if Gt.dtype == torch.float32
+          else lib.crm_fast_scan_genes)
+    _build.check(fn(
         *(_build.ptr(t) for t in (delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG,
                                   cGy, cGG, order, starts, *out)),
         n, R, p, nS, m, max_genes, stream), "fast_scan")

@@ -26,6 +26,15 @@ fits gain the same leading axis.  One call serves every gene (the kernel
 takes the genes as a grid axis; at p = 1 the grid takes them in tiles of
 up to 16, one pass over the rows a grid point for the whole tile); the
 plain version fits one gene at a time.
+
+The float32 context (``ScanConfig(dtype="float32")``: the association's
+null fits on f32 operands, the JAX engine's f32 ``null_association_kernel``
+and its gene axis) takes f32 operands and returns f32 fits: an
+instantiation of its own (``crm_null_fit_f32``), ML only, p + 1 <=
+``MAX_FIXED_F32``, whose sums, factorization, grid and golden section run
+in f32 as ``fit_delta_eig`` does on f32 tensors; its plain version is the
+same ``fit_delta_eig`` on the f32 tensors.  It counts its launches in
+``launches_f32`` too.
 """
 from __future__ import annotations
 
@@ -38,10 +47,12 @@ from . import _build
 from ..models.lmm import EigData, FitResult, fit_delta_eig, lml_at_delta_eig
 
 launches = 0
+launches_f32 = 0  # of them, the float32 context's instantiation
 
 MAX_FIXED = 128     # p of the CUDA kernel's wide instantiation
 MAX_GRID = 1024     # grid points the kernel holds in shared memory
 MAX_GENES = 65535   # genes of one launch (a grid axis)
+MAX_FIXED_F32 = 16  # p + 1 of the float32 context's instantiation
 
 
 def gene_data(data: EigData, g: int) -> EigData:
@@ -93,15 +104,18 @@ def _bind(lib):
     lib.crm_null_fit.argtypes = [vp] * 14 + [cd, cd] + [ci] * 8 + [vp]
     lib.crm_null_fit_scratch.restype = ctypes.c_longlong
     lib.crm_null_fit_scratch.argtypes = [ci] * 5
+    lib.crm_null_fit_f32.restype = ci
+    lib.crm_null_fit_f32.argtypes = [vp] * 13 + [cd, cd] + [ci] * 7 + [vp]
 
 
 def null_fit(data: EigData, n, restricted, lo, hi, n_grid, n_iters):
     """:class:`FitResult` of each rho's fit, fields ([genes,] nrho) and
     beta ([genes,] nrho, p).  ``data`` holds S (nrho, R), Xt (nrho, R, p),
     yt ([genes,] nrho, R) and the complements Cxx (nrho, p, p), cxy
-    ([genes,] nrho, p), cyy ([genes,] nrho), f64.
+    ([genes,] nrho, p), cyy ([genes,] nrho), f64; or all f32 (the float32
+    context: ML, p + 1 <= ``MAX_FIXED_F32``), whose fits are f32.
     """
-    global launches
+    global launches, launches_f32
     S = data.S
     if S.device.type == "cpu":
         return null_fit_plain(data, n, restricted, lo, hi, n_grid, n_iters)
@@ -117,15 +131,21 @@ def null_fit(data: EigData, n, restricted, lo, hi, n_grid, n_iters):
     if not 1 <= n_grid <= MAX_GRID:
         raise ValueError(f"null_fit: needs 1 <= n_grid <= {MAX_GRID}, "
                          f"got {n_grid}")
+    dt = _build.context_dtype(S, "null_fit: S")
+    if dt == torch.float32 and (restricted or p + 1 > MAX_FIXED_F32):
+        raise ValueError(f"null_fit: the float32 context runs ML with p + 1 "
+                         f"<= {MAX_FIXED_F32}, got p + 1 = {p + 1}, "
+                         f"restricted={restricted}")
     for t, name, shape in ((S, "S", (nrho, R)), (data.Xt, "Xt", (nrho, R, p)),
                            (data.yt, "yt", gs + (nrho, R)),
                            (data.Cxx, "Cxx", (nrho, p, p)),
                            (data.cxy, "cxy", gs + (nrho, p)),
                            (data.cyy, "cyy", gs + (nrho,))):
-        _build.require(t, f"null_fit: {name}", torch.float64, shape)
+        _build.require(t, f"null_fit: {name}", dt, shape)
     out = call(_build.load("null_fit", _bind), data, n, restricted, lo, hi,
                n_grid, n_iters, _build.stream_ptr(S.device))
     launches += 1
+    launches_f32 += dt == torch.float32
     return out
 
 
@@ -138,14 +158,19 @@ def call(lib, data: EigData, n, restricted, lo, hi, n_grid, n_iters,
     gs = tuple(data.yt.shape[:-2])
     genes = math.prod(gs)
     problems = genes * nrho
-    dev = data.S.device
+    dev, dt = data.S.device, data.S.dtype
     # the scalar fields in one allocation (unbound into views), beta apart
     lml, delta, scale, v0, v1, rss = torch.empty(
-        (6,) + gs + (nrho,), dtype=torch.float64, device=dev).unbind(0)
-    out = FitResult(lml, delta, torch.empty(gs + (nrho, p),
-                                            dtype=torch.float64, device=dev),
+        (6,) + gs + (nrho,), dtype=dt, device=dev).unbind(0)
+    out = FitResult(lml, delta, torch.empty(gs + (nrho, p), dtype=dt,
+                                            device=dev),
                     scale, v0, v1, rss)
     if problems == 0:
+        return out
+    if dt == torch.float32:  # the float32 context: no scratch
+        _build.check(lib.crm_null_fit_f32(
+            *(_build.ptr(t) for t in (*data, *out)), lo, hi, n_grid,
+            n_iters, n, nrho, R, p, genes, stream), "null_fit")
         return out
     # the logdets and grid values, the wide instantiation's golden-section
     # partial sums and states

@@ -42,12 +42,16 @@ the phenotype's operands, the brackets and ``k_best``/``x0`` a leading
 gene axis (as :mod:`.delta_grid` does); one launch of the wrapper serves
 every gene.
 
-The float32 context (the screen's) takes f32 operands, REML only, p + 1 <=
-``MAX_FIXED_F32``: its localize runs the Newton steps in f32 arithmetic
-with f32 state (stage 1b as the reference computes it on an f32 context)
-and the evaluation in f64 on the widened tensors, the converge f64 on the
-widened tensors; the noise floors of both take eps(f32), the tensors'
-(engine.py:655, :724), and the products are the f32 products.  Its kernels
+The float32 context takes f32 operands, p + 1 <= ``MAX_FIXED_F32``: the
+screen's localize (REML) runs the Newton steps in f32 arithmetic with f32
+state (stage 1b as the reference computes it on an f32 context) and the
+evaluation in f64 on the widened tensors, the converge f64 on the widened
+tensors; the noise floors of both take eps(f32), the tensors'
+(engine.py:655, :724), and the products are the f32 products.  The
+converge also takes the ML objective on an f32 context: the association
+refit's Newton half (K7, engine.py:991-1062, whose brackets are the grid's
+f64 logits and whose steps and final fit are f64 arithmetic on the f32
+tensors), its rss floored at tiny(f32) (:1056).  Its kernels
 (``crm_reml_localize_f32``, ``crm_reml_converge_f32``) take a warp a
 problem, the rows read where they lie.
 """
@@ -172,7 +176,10 @@ def reml_converge_plain(S, WGt, yt, comp: Complements, ld_xx, k_best, x0,
         # variant's scale finite (engine.py:722-724); eps of the context
         rss = torch.maximum(rss, 128 * torch.finfo(ctx).eps * q)
         ld_xx = ld_xx.to(f64)
-    rss = torch.clamp(rss, min=torch.finfo(f64).tiny)
+        rss = torch.clamp(rss, min=torch.finfo(f64).tiny)
+    else:
+        # ML: tiny of the context (engine.py:1056)
+        rss = torch.clamp(rss, min=torch.finfo(ctx).tiny)
     lml = lml_value(rss, logdet_d, logdet_a, ld_xx, n, p + 1, restricted)
     scale = rss / ((n - p - 1) if restricted else n)
     return delta, lml, scale, torch.stack(beta, dim=-1)
@@ -192,15 +199,14 @@ def _bind(lib):
     lib.crm_reml_localize_f32.restype = ci
     lib.crm_reml_localize_f32.argtypes = [vp] * 15 + [ci] * 7 + [cd, vp]
     lib.crm_reml_converge_f32.restype = ci
-    lib.crm_reml_converge_f32.argtypes = [vp] * 18 + [ci] * 7 + [cd, vp]
+    lib.crm_reml_converge_f32.argtypes = [vp] * 18 + [ci] * 7 + [cd, ci, vp]
 
 
-def _check_f32(name, S, p, restricted):
-    """The float32 context's limits: REML, p + 1 <= MAX_FIXED_F32."""
-    if S.dtype == torch.float32 and (not restricted or p + 1 > MAX_FIXED_F32):
-        raise ValueError(f"{name}: the float32 context runs REML with p + 1 "
-                         f"<= {MAX_FIXED_F32}, got p + 1 = {p + 1}, "
-                         f"restricted={restricted}")
+def _check_f32(name, S, p):
+    """The float32 context's limit: p + 1 <= MAX_FIXED_F32."""
+    if S.dtype == torch.float32 and p + 1 > MAX_FIXED_F32:
+        raise ValueError(f"{name}: the float32 context runs p + 1 <= "
+                         f"{MAX_FIXED_F32}, got p + 1 = {p + 1}")
 
 
 def reml_localize(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi, n,
@@ -215,7 +221,7 @@ def reml_localize(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi, n,
                                    n, steps, round32)
     nrho, R, p, nS, gs = check_operands("reml_localize", S, WGt, yt, comp,
                                         ld_xx, True)
-    _check_f32("reml_localize", S, p, True)
+    _check_f32("reml_localize", S, p)
     for t, name in ((br_lo, "br_lo"), (br_hi, "br_hi")):
         _build.require(t, f"reml_localize: {name}", torch.float64,
                        gs + (nS, nrho))
@@ -270,7 +276,7 @@ def reml_converge(S, WGt, yt, comp: Complements, ld_xx, k_best, x0, br_lo,
                                    br_lo, br_hi, n, steps, restricted)
     nrho, R, p, nS, gs = check_operands("reml_converge", S, WGt, yt, comp,
                                         ld_xx, restricted)
-    _check_f32("reml_converge", S, p, restricted)
+    _check_f32("reml_converge", S, p)
     for t, name in ((br_lo, "br_lo"), (br_hi, "br_hi"), (x0, "x0")):
         if t is not None:
             _build.require(t, f"reml_converge: {name}", torch.float64,
@@ -306,13 +312,14 @@ def call_converge(lib, S, WGt, yt, comp, ld_xx, k_best, x0, br_lo, br_hi, n,
     genes = math.prod(gs)
     opt = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
     if S.dtype == torch.float32:  # the float32 context: no scratch
-        ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp, ld_xx)]
-        ptrs += [opt(k_best), opt(x0), _build.ptr(br_lo), _build.ptr(br_hi),
-                 _build.ptr(delta), _build.ptr(lml), _build.ptr(scale),
-                 _build.ptr(beta)]
+        ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp)]
+        ptrs += [opt(ld_xx if restricted else None), opt(k_best), opt(x0),
+                 _build.ptr(br_lo), _build.ptr(br_hi), _build.ptr(delta),
+                 _build.ptr(lml), _build.ptr(scale), _build.ptr(beta)]
         _build.check(lib.crm_reml_converge_f32(
             *ptrs, n, nrho, R, p, nS, genes, steps,
-            float(torch.finfo(torch.float32).eps), stream), "reml_converge")
+            float(torch.finfo(torch.float32).eps), int(restricted), stream),
+            "reml_converge")
         return delta, lml, scale, beta
     work = torch.empty(lib.crm_reml_converge_workspace(nrho, nS, genes),
                        dtype=torch.uint8, device=S.device)

@@ -7,6 +7,13 @@ ML) lml, optionally with the GLS coefficients and the residual
 ``_family_blocks_matrix``).  ``fit_delta_woodbury_family`` calls it once per
 zoom round (f32 or f64) and once for the final fit with coefficients.
 
+Both entries run in f32 too: the lml rounds of hybrid localization (f32
+operands of an f64 context) and every call of the float32 context
+(``ScanConfig(dtype="float32")``), whose final fit takes the coefficients
+in f32 (the capacitance block ridged by 1e-6 and the lml masked as the
+JAX engine's f32 ``_family_blocks_matrix``).  Float32 calls count in
+``launches_f32`` too.
+
 On a CUDA tensor :func:`family_eval` launches ``csrc/woodbury_family.cu``
 (the Gram a tensor-core product a variant into a scratch, then a warp a
 point for the factorization); on a CPU tensor it runs
@@ -23,6 +30,7 @@ from . import _build
 from ..models.lmm import FamilyCols, _family_eval_batch, stack_cols
 
 launches = 0
+launches_f32 = 0  # of them, float32 calls
 
 MAX_Q = 162     # columns [Ua | UB, g | y] the kernel takes
 SCRATCH_BYTES = 256 << 20   # the Gram's scratch, a chunk of variants
@@ -82,8 +90,8 @@ def family_eval(logits, rho, cols: FamilyCols, compS, Lam, C, n, restricted,
     """lml (S, L) at the (logit, rho) points (S, L) of each variant, and
     with ``want_beta`` also (beta (S, L, pB + 1), rss (S, L)).  ``cols``:
     Ua (Rk, C, S), UB (Rk, pB), ug (Rk, S), uy (Rk,); compS (S, q, q), Lam
-    (Rk,), ld_xx (S,); all float32 (lml only) or all float64."""
-    global launches
+    (Rk,), ld_xx (S,); all float32 or all float64."""
+    global launches, launches_f32
     if logits.device.type == "cpu":
         return family_eval_plain(logits, rho, cols, compS, Lam, C, n,
                                  restricted, ld_xx, rcond, want_beta)
@@ -99,8 +107,6 @@ def family_eval(logits, rho, cols: FamilyCols, compS, Lam, C, n, restricted,
                          f"columns, got {q}")
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"family_eval: float32 or float64, got {dt}")
-    if want_beta and dt != torch.float64:
-        raise TypeError("family_eval: the coefficients are float64 only")
     for t, name, shape in ((logits, "logits", (S, L)), (rho, "rho", (S, L)),
                            (cols.Ua, "Ua", (Rk, C, S)),
                            (cols.UB, "UB", (Rk, pB)), (cols.ug, "ug", (Rk, S)),
@@ -111,6 +117,7 @@ def family_eval(logits, rho, cols: FamilyCols, compS, Lam, C, n, restricted,
                compS, Lam, C, n, restricted, ld_xx, rcond, want_beta,
                _build.stream_ptr(logits.device))
     launches += 1
+    launches_f32 += dt == torch.float32
     return out
 
 

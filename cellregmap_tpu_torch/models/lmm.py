@@ -129,9 +129,14 @@ def _golden(lml_fn, a, b, n_iters):
 
 
 def _fit_delta(lml_fn, lo, hi, n_grid, n_iters, batch, dtype, device):
-    """Coarse logit-grid argmax, then golden-section refinement."""
+    """Coarse logit-grid argmax, then golden-section refinement.  In
+    float32 a grid point whose factorization failed (a NaN lml) never wins
+    the argmax: the JAX engine's argmax takes it and that rho's whole fit
+    is NaN (ROADMAP queue 3, "In the reference", items j and k)."""
     grid = torch.linspace(lo, hi, n_grid, dtype=dtype, device=device)
     vals = lml_fn(torch.sigmoid(grid).expand(batch, n_grid))  # (B, K)
+    if dtype == torch.float32:
+        vals = torch.where(torch.isnan(vals), -torch.inf, vals)
     k = vals.argmax(dim=-1)
     a = grid[torch.clamp(k - 1, min=0)]
     b = grid[torch.clamp(k + 1, max=n_grid - 1)]

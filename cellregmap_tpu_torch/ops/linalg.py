@@ -25,7 +25,15 @@ def _ridge(A: torch.Tensor, rcond: float) -> torch.Tensor:
 def _chol(A: torch.Tensor) -> torch.Tensor:
     # cholesky_ex without error checking: no host sync on the card; a
     # failed factorization shows up as NaN downstream, as in the JAX engine
-    return torch.linalg.cholesky_ex(A, check_errors=False)[0]
+    L, info = torch.linalg.cholesky_ex(A, check_errors=False)
+    if A.dtype == torch.float32:
+        # float32 (the float32 context): a failed factorization is NaN
+        # throughout, as the JAX engine's and the f32 kernels' are (its
+        # ridge is below f32's resolution, so cancellation in a complement
+        # Gram can leave the matrix indefinite)
+        L = torch.where((info == 0)[..., None, None], L,
+                        torch.full_like(L, float("nan")))
+    return L
 
 
 def sym_pseudo_solve(A: torch.Tensor, b: torch.Tensor,

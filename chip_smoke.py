@@ -141,6 +141,7 @@ ASSOC_MULTIGENE = dict(genes=16, n_snps=2048, refit_snps=512, seed=11)
 # covariates_24: the headline dataset with p = 24 columns of W, 21 rho
 COVARIATES = dict(p=24, n_rho=21, n_snps=512, seed=24)
 WIDE_COVARIATES = dict(p=32, seed=32)   # W's columns on WIDE's dataset
+WIDE_BETAS_CPU = 16     # of its 64-variant q = 134 betas batch, on the CPU
 # 80 rho points, past the 64 the localize took before; the dataset cut to
 # 1000 cells and 50 donors (R = 510) so that the host setup's 80
 # eigendecompositions, on the card's scanner and the CPU's, stay short
@@ -563,8 +564,8 @@ def check_delta_grid(call, library=True, plain_reps=10, tag=None):
     call's operands; a bracket may sit on a near-tie neighbour of the
     plain argmax (plain lml within 1e-5 relative of the maximum in
     float32, 1e-12 in float64).  In the float32 context (f32 operands) the
-    brackets are the f32-rounded grid logits, and its operands count 4
-    bytes each in the bound."""
+    REML brackets are the f32-rounded grid logits (the ML ones the f64
+    logits), and its operands count 4 bytes each in the bound."""
     import torch
 
     from cellregmap_tpu_torch.kernels import delta_grid as k2
@@ -575,7 +576,9 @@ def check_delta_grid(call, library=True, plain_reps=10, tag=None):
     br_lo, br_hi = k2.delta_grid(*args, **kw)
     plo, phi, lml = k2.delta_grid_plain(*args, **kw, return_lml=True)
     torch.cuda.synchronize()
-    gap = k2.bracket_shortfall(br_lo, br_hi, lml, lo, hi, S.dtype)
+    # the brackets' logits: the context's dtype (REML), f64 (ML)
+    gap = k2.bracket_shortfall(br_lo, br_hi, lml, lo, hi,
+                               S.dtype if restricted else torch.float64)
     tol = 1e-5 if fast == torch.float32 else 1e-12
     assert gap <= tol, f"delta_grid: bracket shortfall {gap} > {tol}"
     err = max(float((br_lo - plo).abs().max()),
@@ -655,8 +658,9 @@ def _check_refit_converge(calls, plain_reps=10, genes=1):
         p = args[3].CWW.shape[0]
         nS = args[1].shape[2] - p
         flops += _fit_flops(p + 1, args[0].shape[1], genes * nS, args[10])
-        nbytes += F64 * (args[0].numel() + args[1].numel() + args[2].numel()
-                         + genes * nS * (p + 4))
+        nbytes += args[0].element_size() * (
+            args[0].numel() + args[1].numel() + args[2].numel()
+            + genes * nS * (p + 4))
     return err, ms, plain, flops, nbytes
 
 
@@ -764,6 +768,47 @@ def check_association_kernels(ctx, G, n, plain_reps=10):
                                        "cellregmap_tpu/engine.py:268")]
 
 
+def null_fits_agree(fits, plain, data, n, restricted, name):
+    """K10's fits against the plain ones; returns the gaps.  float64:
+    ``null_fit.fit_gaps`` at 1e-10.  float32 (two f32 golden sections stop
+    at different points of an lml flat to f32 resolution), gene by gene:
+    the lml within 1e-5 (relative), the f64 objective at the kernel's delta
+    no lower than at the plain one's by more than 1e-6 of it, beta and the
+    scale within 1e-3 of the f64 values at the kernel's delta (of their
+    largest entry)."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+    from cellregmap_tpu_torch.models.lmm import lml_at_delta_eig
+
+    if data.S.dtype == torch.float64:
+        gaps = k10.fit_gaps(fits, plain, data, n, restricted)
+        assert max(gaps.values()) <= 1e-10, f"{name}: {gaps}"
+        return gaps
+    genes = data.yt.shape[0] if data.yt.ndim == 3 else 0
+    gaps = dict(lml=0.0, lml_at_delta=0.0, beta=0.0, scale=0.0)
+    for g in range(max(genes, 1)):
+        pick = (lambda t: t[g]) if genes else (lambda t: t)  # noqa: E731
+        f, pl = type(fits)(*map(pick, fits)), type(plain)(*map(pick, plain))
+        dg = k10.gene_data(data, g) if genes else data
+        d64 = type(dg)(*(t.double() for t in dg))
+        at_k = lml_at_delta_eig(f.delta.double()[:, None], d64, n,
+                                restricted)
+        at_p = lml_at_delta_eig(pl.delta.double()[:, None], d64, n,
+                                restricted)
+        lk, lp = at_k[0][:, 0], at_p[0][:, 0]
+        gaps["lml"] = max(gaps["lml"], _rel(f.lml, pl.lml))
+        gaps["lml_at_delta"] = max(gaps["lml_at_delta"],
+                                   float(((lp - lk) / lp.abs()).max()))
+        for k, got, want in (("beta", f.beta, at_k[1][:, 0]),
+                             ("scale", f.scale, at_k[2][:, 0])):
+            gaps[k] = max(gaps[k], float((got.double() - want).abs().max()
+                                         / want.abs().max()))
+    assert gaps["lml"] <= 1e-5 and gaps["lml_at_delta"] <= 1e-6 \
+        and gaps["beta"] <= 1e-3 and gaps["scale"] <= 1e-3, f"{name}: {gaps}"
+    return gaps
+
+
 def check_null_fit_narrow(args, kw, name, replaces, plain_reps=3):
     """K10's narrow instantiation on one call's operands: its fits through
     ``null_fit.fit_gaps`` at 1e-10, timed beside its plain version.  The
@@ -778,14 +823,14 @@ def check_null_fit_narrow(args, kw, name, replaces, plain_reps=3):
     fits = k10.null_fit(*args, **kw)
     plain = k10.null_fit_plain(*args, **kw)
     torch.cuda.synchronize()
-    gaps = k10.fit_gaps(fits, plain, data, n, restricted)
-    assert max(gaps.values()) <= 1e-10, f"{name}: {gaps}"
+    gaps = null_fits_agree(fits, plain, data, n, restricted, name)
     nrho, R = data.S.shape
     p = data.Xt.shape[2]
     evals = nrho * (n_grid + n_iters + 3 + int(restricted))
     flops = evals * R * (3 * (p * (p + 1) // 2 + p + 1) + 8)
-    nbytes = F64 * (nrho * R * (p + 2) + nrho * (p * p + p + 1)
-                    + nrho * (p + 6))
+    nbytes = data.S.element_size() * (nrho * R * (p + 2)
+                                      + nrho * (p * p + p + 1)
+                                      + nrho * (p + 6))
     b_ms, b_by = bound(flops, nbytes)
     return dict(
         name=name, route="cuda",
@@ -796,8 +841,15 @@ def check_null_fit_narrow(args, kw, name, replaces, plain_reps=3):
                          reps=plain_reps),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, gaps=gaps,
         shapes=dict(nrho=nrho, R=R, p=p, n_grid=n_grid, n_iters=n_iters),
-        tolerance="lml, plain lml at the kernel's delta, beta and scale "
-                  "at that delta: rel <= 1e-10")
+        tolerance=NULL_FIT_TOLERANCE[str(data.S.dtype)])
+
+
+NULL_FIT_TOLERANCE = {
+    "torch.float64": "lml, plain lml at the kernel's delta, beta and scale "
+                     "at that delta: rel <= 1e-10",
+    "torch.float32": "lml rel <= 1e-5; the f64 objective at the kernel's "
+                     "delta >= at the plain one's - 1e-6 rel; beta, scale "
+                     "within 1e-3 of the f64 values there"}
 
 
 def device_split(fn, reps=3):
@@ -953,6 +1005,16 @@ class _EventLog(logging.Handler):
         self._logger.setLevel(self._level)
 
 
+FAST_SCAN_TOLERANCE = {
+    "torch.float64": dict(lml=1e-10, effsizes_g=1e-10, effsizes_W=1e-10,
+                          scale=1e-10, text="lml, beta_g, beta_W, scale: "
+                          "max|err| <= 1e-10 * max|plain|"),
+    # f32 sums over R, an f32 Cholesky and the rank-1 update
+    "torch.float32": dict(lml=1e-6, effsizes_g=1e-4, effsizes_W=1e-4,
+                          scale=1e-4, text="lml: max|err| <= 1e-6 * "
+                          "max|plain|; beta_g, beta_W, scale: 1e-4")}
+
+
 def check_fast_scan(ctx, G, n, plain_reps=10):
     """K8 on one headline batch of the Ls scanner, at the null's best rho
     and delta: every output within 1e-10 of max|plain|."""
@@ -969,17 +1031,18 @@ def check_fast_scan(ctx, G, n, plain_reps=10):
     (args, kw), = calls["fast_scan"]
     got, want = k8.fast_scan(*args, **kw), k8.fast_scan_plain(*args, **kw)
     torch.cuda.synchronize()
+    tols = FAST_SCAN_TOLERANCE[str(args[1].dtype)]
     err = 0.0
     for g, w, name in zip(got, want, want._fields):
         e = float((g - w).abs().max())
         rel = e / float(w.abs().max())
-        assert rel <= 1e-10, f"fast_scan {name}: rel {rel}"
+        assert rel <= tols[name], f"fast_scan {name}: rel {rel}"
         err = max(err, e)
     R, p = args[2].shape
     nS = args[7].shape[1]
     flops = R * nS * (2 * p + 6) + R * (p * (p + 1) + 2 * p + 6)
-    nbytes = F64 * (R * nS + R * (p + 2) + p * p + p + 1 + nS * (p + 2)
-                    + nS * (p + 3))
+    nbytes = args[1].element_size() * (R * nS + R * (p + 2) + p * p + p + 1
+                                       + nS * (p + 2) + nS * (p + 3))
     b_ms, b_by = bound(flops, nbytes)
 
     def library():
@@ -990,16 +1053,15 @@ def check_fast_scan(ctx, G, n, plain_reps=10):
         torch.matmul((torch.cat([Wt, yt[:, None]], dim=1) * w[:, None]).T, Gt)
 
     return dict(
-        name="fast_scan", route="cuda",
+        name="fast_scan" + (" (f32)" if args[1].dtype == torch.float32
+                            else ""), route="cuda",
         source="cellregmap_tpu_torch/csrc/fast_scan.cu",
         replaces="cellregmap_tpu/engine.py:1132", max_abs_err=err,
         ms=cuda_ms(lambda: k8.fast_scan(*args, **kw)),
         plain_ms=cuda_ms(lambda: k8.fast_scan_plain(*args, **kw),
                          reps=plain_reps, warmup=min(2, plain_reps)),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library),
-        shapes=dict(R=R, p=p, S=nS),
-        tolerance="lml, beta_g, beta_W, scale: max|err| <= 1e-10 * "
-                  "max|plain|")
+        shapes=dict(R=R, p=p, S=nS), tolerance=tols["text"])
 
 
 def check_woodbury_family(bctx, G, norm, n, tag=None, with_library=True,
@@ -1798,9 +1860,9 @@ def multigene_phase(d, cfg):
 
 def wide_phase(cfg):
     """50 contexts (2000 cells, 100 donors; an E1 of 10 seeded contexts
-    outside span(E), so that the aggregate is not 0): a CPU and a card
-    scanner, each factorizing the null family (on the host) and the card's
-    uploading its own.
+    outside span(E), so that the aggregate is not 0): a card scanner
+    factorizing the null family (on the host) and uploading it, and a CPU
+    scanner on a copy of that factorization.
     ``estimate_aggregate_environment`` of a planted variant on the card
     (K10 with p = rank[W, E] + 1 = 52: the wide instantiation, one launch)
     within 1e-5 of the CPU; K10 against its plain version on that call's
@@ -1819,16 +1881,16 @@ def wide_phase(cfg):
     y = d["y"] + E1 @ rng.normal(size=10)
     Ls = crp.get_L_values(d["hK"], d["E"])
     t0 = time.perf_counter()
-    crm_c = crp.CellRegMap(y=y, E=d["E"], E1=E1, W=d["W"], Ls=Ls,
-                           config=cfg, device="cpu")
-    crm_c._ctx                                # the factorization, timed
-    setup_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     crm = crp.CellRegMap(y=y, E=d["E"], E1=E1, W=d["W"], Ls=Ls, config=cfg,
                          device=CARD)
-    crm._ctx                                  # its own, uploaded
+    crm._ctx                          # the host factorization, uploaded
     torch.cuda.synchronize()
     card_setup_s = time.perf_counter() - t0
+    # the CPU scanner takes the same host factorization (made by the same
+    # NumPy code either way), copied back rather than made again
+    crm_c = crp.CellRegMap(y=y, E=d["E"], E1=E1, W=d["W"], Ls=Ls,
+                           config=cfg, device="cpu")
+    crm_c._ctx_cache = engine.NullContext(*(t.cpu() for t in crm._ctx))
     g = d["G"][:, GXE_SNP]
 
     kernels.reset_launches()
@@ -1891,8 +1953,7 @@ def wide_phase(cfg):
     k6a_c50 = check_sym_eigvalsh(calls["sym_eigvalsh"][0][0][0])
     k6a_c64 = check_sym_eigvalsh(k6a_c64_matrices())
     out = dict(n_cells=n, n_contexts=C, n_donors=WIDE["n_donors"],
-               R=R, p=p, host_setup_s=setup_s,
-               card_setup_s=card_setup_s, aggregate_s=agg_s,
+               R=R, p=p, card_setup_s=card_setup_s, aggregate_s=agg_s,
                max_abs_diff_cpu=gap, max_abs=float(np.abs(agg).max()),
                launches=counts, null_fit_gaps=gaps,
                **{key: {k: r[k] for k in
@@ -1919,10 +1980,11 @@ def wide_covariates_phase(cfg, cpu_check=64):
     mean columns, one launch) within 1e-5 of the CPU, the K10 call against
     its plain version (``fit_gaps`` at 1e-10); one ``estimate_betas`` batch
     of ``cpu_check`` variants (K9 at q = 50 + 82 + 2 = 134, nine launches;
-    K1 three), finite and its fits against the CPU's under the hybrid rule
-    of ``betas_path``; every K9 call of that batch against its plain
-    version as ``check_woodbury_family`` holds it.  Returns the phase's
-    record and the K10 and K9 rows."""
+    K1 three), finite and its first ``WIDE_BETAS_CPU`` fits against the
+    CPU's under the hybrid rule of ``betas_path``; every K9 call of that
+    batch against its plain version as ``check_woodbury_family`` holds it.
+    The CPU scanners take copies of the card scanners' host
+    factorizations.  Returns the phase's record and the K10 and K9 rows."""
     import torch
 
     import cellregmap_tpu_torch as crp
@@ -1956,8 +2018,12 @@ def wide_covariates_phase(cfg, cpu_check=64):
     counts = kernels.launch_counts()
     assert counts == expected_launches(null_fit=1), \
         f"wide covariates aggregate environment: launches {counts}"
-    agg_c = crp.CellRegMap(y=y, E=d["E"], E1=E1, W=W, Ls=Ls, config=cfg,
-                           device="cpu").estimate_aggregate_environment(g)
+    # the CPU scanner on a copy of the card scanner's host factorization
+    crm_c = crp.CellRegMap(y=y, E=d["E"], E1=E1, W=W, Ls=Ls, config=cfg,
+                           device="cpu")
+    crm_c._ctx_cache = engine.NullContext(*(t.cpu() for t in crm._ctx))
+    agg_c = crm_c.estimate_aggregate_environment(g)
+    del crm_c
     assert agg.shape == (n,) and np.isfinite(agg).all()
     gap = float(np.max(np.abs(agg - agg_c)))
     assert gap <= 1e-5, f"wide covariates aggregate: |gpu - cpu| = {gap}"
@@ -2009,19 +2075,23 @@ def wide_covariates_phase(cfg, cpu_check=64):
         "wide covariates betas: non-finite effect sizes"
     Lh = crp.get_L_values(d["hK"], d["E"])
     norm = 1.0 / np.sqrt(2 * maf * (1 - maf))
-    res, bctx_card = {}, None
-    for dev in (CARD, "cpu"):
-        bctx = engine.build_betas_context(d["y"], W, d["E"], Lh,
-                                          rho_grid=np.linspace(0, 1, 11),
-                                          device=dev)
+    bctx_card = engine.build_betas_context(d["y"], W, d["E"], Lh,
+                                           rho_grid=np.linspace(0, 1, 11),
+                                           device=CARD)
+    # the CPU fits the first ``WIDE_BETAS_CPU`` variants on a copy of the
+    # card's background factorization (the same host NumPy either way)
+    res = {}
+    for dev, bctx, m in ((CARD, bctx_card, cpu_check),
+                         ("cpu", engine.BetasContext(
+                             *(t.cpu() for t in bctx_card)),
+                          WIDE_BETAS_CPU)):
         bg_d, _, info = engine.predict_interaction_batch(
-            bctx, torch.as_tensor(G, device=dev),
-            torch.as_tensor(norm, device=dev), n,
+            bctx, torch.as_tensor(G[:, :m], device=dev),
+            torch.as_tensor(norm[:m], device=dev), n,
             localize_f32=cfg.hybrid_localization)
-        res[dev] = (bg_d.cpu().numpy(), info["rho1"].cpu().numpy(),
-                    info["lml"].cpu().numpy())
-        if dev == CARD:
-            bctx_card = bctx
+        res[dev] = (bg_d.cpu().numpy()[:WIDE_BETAS_CPU],
+                    info["rho1"].cpu().numpy()[:WIDE_BETAS_CPU],
+                    info["lml"].cpu().numpy()[:WIDE_BETAS_CPU])
     (bg_g, rho_g, lml_g), (bg_c, rho_c, lml_c) = res[CARD], res["cpu"]
     flipped = rho_g != rho_c
     lml_gap = np.abs(lml_g - lml_c)
@@ -2040,11 +2110,11 @@ def wide_covariates_phase(cfg, cpu_check=64):
                mean_columns=M.shape[1], q=k9_row["shapes"]["q"],
                aggregate_s=agg_s, aggregate_max_abs_diff_cpu=gap,
                null_fit_gaps=gaps, betas_s=betas_s, launches=c_betas,
-               betas_cpu_check=dict(n=cpu_check,
+               betas_cpu_check=dict(n=WIDE_BETAS_CPU,
                                     rho_flips=int(flipped.sum()),
                                     max_abs_beta_g_diff=bg_gap,
                                     max_lml_gap=float(lml_gap.max())))
-    del bctx, bctx_card, Gt
+    del bctx_card, Gt
     # hand the phase's cached blocks back: the later scans size their
     # batches by the card's free memory
     torch.cuda.empty_cache()
@@ -2061,10 +2131,11 @@ def wide_covariates_phase(cfg, cpu_check=64):
 
 def _gene_ctx(ctx, Y):
     """``ctx`` with the phenotypes Y (n, genes) on a leading gene axis, on
-    the card."""
+    the card, in the context's dtype."""
     import torch
 
-    Yg = torch.as_tensor(np.ascontiguousarray(Y.T), device=CARD)
+    Yg = torch.as_tensor(np.ascontiguousarray(Y.T), device=CARD,
+                         dtype=ctx.y.dtype)
     return ctx._replace(y=Yg, Zy=Yg @ ctx.Z, Wy=Yg @ ctx.W,
                         yy=(Yg * Yg).sum(dim=1))
 
@@ -2090,19 +2161,21 @@ def check_null_fit_genes(ctx_g, n):
     fits = k10.null_fit(*args, **kw)
     plain = k10.null_fit_plain(*args, **kw)
     torch.cuda.synchronize()
-    gaps = k10.fit_gaps(fits, plain, data, n, restricted)
-    assert max(gaps.values()) <= 1e-10, f"null_fit (genes): {gaps}"
+    f32 = data.S.dtype == torch.float32
+    name = "null_fit (genes, f32)" if f32 else "null_fit (genes)"
+    gaps = null_fits_agree(fits, plain, data, n, restricted, name)
     genes, nrho, R = data.yt.shape
     p = data.Xt.shape[2]
     ntri = p * (p + 1) // 2
     shared, per_gene = 2 * ntri + 8, 2 * (p + 1)
     flops = (nrho * n_grid * R * (shared + genes * per_gene)
              + genes * nrho * (n_iters + 3) * R * (shared + per_gene))
-    nbytes = F64 * (nrho * R * (p + 1) + nrho * p * p
-                    + genes * nrho * (R + p + 1) + genes * nrho * (p + 6))
+    nbytes = data.S.element_size() * (nrho * R * (p + 1) + nrho * p * p
+                                      + genes * nrho * (R + p + 1)
+                                      + genes * nrho * (p + 6))
     b_ms, b_by = bound(flops, nbytes)
     return dict(
-        name="null_fit (genes)", route="cuda",
+        name=name, route="cuda",
         source="cellregmap_tpu_torch/csrc/null_fit.cu",
         replaces="cellregmap_tpu/engine.py:1154",
         max_abs_err=float((fits.lml - plain.lml).abs().max()),
@@ -2111,8 +2184,7 @@ def check_null_fit_genes(ctx_g, n):
                          warmup=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, gaps=gaps,
         shapes=dict(genes=genes, nrho=nrho, R=R, p=p),
-        tolerance="per gene: lml, plain lml at the kernel's delta, beta and "
-                  "scale at that delta: rel <= 1e-10")
+        tolerance="per gene: " + NULL_FIT_TOLERANCE[str(data.S.dtype)])
 
 
 def check_fast_scan_genes(ctx_g, G, k, delta, n):
@@ -2134,10 +2206,11 @@ def check_fast_scan_genes(ctx_g, G, k, delta, n):
     got = k8.fast_scan(*args, **kw)
     want = k8.fast_scan_genes_plain(*args, **kw)
     torch.cuda.synchronize()
+    tols = FAST_SCAN_TOLERANCE[str(args[1].dtype)]
     err = 0.0
     for g, w, name in zip(got, want, want._fields):
         e = float((g - w).abs().max())
-        assert e <= 1e-10 * float(w.abs().max()), \
+        assert e <= tols[name] * float(w.abs().max()), \
             f"fast_scan (genes) {name}: {e}"
         err = max(err, e)
     dl, Sd, Wt, yt = args[:4]
@@ -2146,12 +2219,13 @@ def check_fast_scan_genes(ctx_g, G, k, delta, n):
     m, R, p = Wt.shape
     genes, nS = yt.shape[0], Gt.shape[2]
     flops = genes * (R * nS * (2 * p + 6) + R * (p * (p + 1) + 2 * p + 6))
-    nbytes = F64 * (m * (R * nS + R * (p + 1) + p * p + p * nS + nS)
-                    + genes * (R + p + 2 + nS) + genes * nS * (p + 3))
+    nbytes = Gt.element_size() * (
+        m * (R * nS + R * (p + 1) + p * p + p * nS + nS)
+        + genes * (R + p + 2 + nS) + genes * nS * (p + 3))
     b_ms, b_by = bound(flops, nbytes)
     # per slot, its genes' weighted [W, y] side by side (zero padded)
     gmax = int(np.bincount(slot, minlength=m).max())
-    lhs = torch.zeros((m, R, gmax * (p + 1)), dtype=torch.float64,
+    lhs = torch.zeros((m, R, gmax * (p + 1)), dtype=Gt.dtype,
                       device=Gt.device)
     fill = [0] * m
     for g, sl in enumerate(slot):
@@ -2162,7 +2236,8 @@ def check_fast_scan_genes(ctx_g, G, k, delta, n):
         fill[sl] += 1
     lhsT = lhs.transpose(1, 2)
     return dict(
-        name="fast_scan (genes)", route="cuda",
+        name="fast_scan (genes" + (", f32)" if Gt.dtype == torch.float32
+                                   else ")"), route="cuda",
         source="cellregmap_tpu_torch/csrc/fast_scan.cu",
         replaces="cellregmap_tpu/engine.py:1176", max_abs_err=err,
         ms=cuda_ms(lambda: k8.fast_scan(*args, **kw)),
@@ -2171,11 +2246,10 @@ def check_fast_scan_genes(ctx_g, G, k, delta, n):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.bmm(lhsT, Gt)),
         shapes=dict(genes=genes, slots=m, R=R, p=p, S=nS),
-        tolerance="lml, beta_g, beta_W, scale: max|err| <= 1e-10 * "
-                  "max|plain|")
+        tolerance=tols["text"])
 
 
-def check_refit_genes(ctx_g, G, k, n):
+def check_refit_genes(ctx_g, G, k, n, plain_reps=10):
     """K7 with a per-gene rho on one batch of the gene tile: the grid's
     brackets at each gene's slot (NaN elsewhere, as the plain version's)
     held as K7's, the converge at rel 1e-9.  The bound counts the grid's
@@ -2216,17 +2290,20 @@ def check_refit_genes(ctx_g, G, k, n):
     shared = nS * (p + 1) + p * (p + 1) // 2 + 1
     b_ms, b_by = bound(
         2 * K * R * (m * shared + genes * (nS + p + 1)),
-        F64 * (WGt.numel() + S.numel() + genes * R + genes * nS * (p + 4)
-               + 2 * 2 * genes * nS))
+        S.element_size() * (WGt.numel() + S.numel() + genes * R
+                            + genes * nS * (p + 4))
+        + F64 * 2 * 2 * genes * nS)
     grid = dict(
         max_abs_err=err, ms=cuda_ms(lambda: k2.delta_grid(*args, **kw)),
-        plain_ms=cuda_ms(lambda: k2.delta_grid_plain(*args, **kw), reps=3,
-                         warmup=1), bound_ms=b_ms, bound_by=b_by,
+        plain_ms=cuda_ms(lambda: k2.delta_grid_plain(*args, **kw),
+                         reps=min(3, plain_reps), warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
         shapes=dict(genes=genes, slots=m, R=R, p=p, S=nS, K=K),
         tolerance=f"plain lml at the kernel's grid point within {tol} "
                   "relative of the plain maximum, at each gene's slot")
     return refit_rows(grid, calls["reml_converge"], "engine.py:1070",
-                      "genes", genes=genes)
+                      "genes, f32" if S.dtype == torch.float32 else "genes",
+                      plain_reps=plain_reps, genes=genes)
 
 
 def _multigene_genes(d):
@@ -2393,7 +2470,7 @@ def assoc_refit_multigene_phase(d, cfg, crm):
     k = engine.null_association_multigene_fit(
         ctx_g, n, delta_cfg=ASSOC_DELTA_CFG)[1].cpu().numpy()
     Gb = torch.as_tensor(G[:, :cfg.snp_batch], device=CARD).contiguous()
-    k7_rows = check_refit_genes(ctx_g, Gb, k, n)
+    k7_rows = check_refit_genes(ctx_g, Gb, k, n, plain_reps=3)
     out = dict(genes=genes, n_snps=n_snps, gene_batch=genes,
                batch=cfg.snp_batch, steady_s=steady_s,
                steady_pairs_per_s=pairs / steady_s, launches=counts,
@@ -2407,6 +2484,389 @@ def assoc_refit_multigene_phase(d, cfg, crm):
                kernel_ms={r["name"]: r["ms"] for r in k7_rows})
     print("assoc_refit_multigene_16: " + json.dumps(out), flush=True)
     return out, counts, k7_rows
+
+
+# ---------------------------------------------------------------------------
+# the float32 context on the association scans and the effect sizes
+# ---------------------------------------------------------------------------
+# card f32 against CPU f32: the LRT statistics 2 (alt - null) within
+# 1e-5 of |null lml| (each lml of either f32 program is good to a few
+# 1e-6 of its magnitude: f32 sums of n terms, a golden section stopping
+# on an lml flat to f32 resolution)
+F32_STAT_REL = 1e-5
+
+
+def _decades(a, b):
+    return float(np.max(np.abs(np.log10(a) - np.log10(b))))
+
+
+def _stat_gap(pv, pv_c, null_lml):
+    """The largest |LRT statistic card - CPU| over |null lml| of two
+    p-value arrays (chi2(1) p-values of 2 (alt - null))."""
+    from scipy.stats import chi2
+
+    gap = np.abs(chi2.isf(pv, 1) - chi2.isf(pv_c, 1))
+    return float(np.max(gap / np.abs(np.asarray(null_lml)).reshape(
+        (-1,) + (1,) * (gap.ndim - 1))))
+
+
+def _f32_gap(got, args, kw):
+    """A float32 K9 call's lml against the plain f32 one through the f64
+    value at the same points: (the kernel's largest distance from f64, the
+    plain version's, both over max(|f64|, 1), where both are finite; the
+    masks' disagreements where f32 resolves the lml, as
+    ``woodbury_family.f32_gaps``)."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import woodbury_family as k9
+
+    c = lambda a: a.double() if isinstance(a, torch.Tensor) else a  # noqa
+    plain = k9.family_eval_plain(*args, **kw)
+    exact = k9.family_eval_plain(*(type(a)(*map(c, a))
+                                   if isinstance(a, tuple) else c(a)
+                                   for a in args), **kw)
+    if kw.get("want_beta"):
+        got, plain, exact = got[0], plain[0], exact[0]
+    ref = exact.abs().clamp(min=1.0)
+    eg, ep = (got - exact).abs() / ref, (plain - exact).abs() / ref
+    fin_g, fin_p = torch.isfinite(got), torch.isfinite(plain)
+    both = fin_g & fin_p
+    mask = int(((fin_g != fin_p)
+                & (torch.where(fin_g, eg, ep) <= 1e-3)).sum())
+    return float(eg[both].max()), float(ep[both].max()), mask
+
+
+def check_woodbury_family_f32(bctx, G, norm, n, reps=5):
+    """K9 on every call of one effect-size batch of the float32 context
+    (five f32 zoom rounds over every rho, then the f32 fit with the
+    coefficients): each call's largest lml distance from the f64 value at
+    most twice the plain f32 version's plus 1e-5 (of max(|f64|, 1)), masks
+    equal where f32 resolves the lml (a round over the whole delta range
+    has points where both f32 versions lie ~1e-4 from f64, so the rule
+    holds the largest distances, not each point's); the final fit's beta
+    and rss within 1e-3 of the plain f32 ones' largest entry.  K1 on the
+    batch's three f32 contractions (K = Rk, V = E0 or B) within sqrt(n)
+    eps(f32) of the terms' magnitudes.  Times a wrapper call of the
+    batch's 6, the Gram alone as one f32 ``bmm`` a call."""
+    import torch
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import kr_contract as k1
+    from cellregmap_tpu_torch.kernels import woodbury_family as k9
+
+    captured = capture_kernel_inputs(
+        lambda: engine.predict_interaction_batch(bctx, G, norm, n),
+        ["family_eval", "kr_contract"])
+    calls = captured["family_eval"]
+    assert [a[0].dtype for a, _ in calls] == [torch.float32] * 6, \
+        "woodbury_family (f32): a call outside float32"
+    k1_ulp = 0.0
+    for args, _ in captured["kr_contract"]:
+        U, V, Gm = args
+        mags = k1.kr_contract_plain(U.double().abs(), V.double().abs(),
+                                    Gm.double().abs())
+        k1_ulp = max(k1_ulp, _f32_sums_check(
+            k1.kr_contract(*args), k1.kr_contract_plain(*args), mags,
+            U.shape[0], "kr_contract (betas, f32)")[1])
+    err, worst, flops, nbytes = 0.0, [], 0, 0
+    for args, kw in calls:
+        got = k9.family_eval(*args, **kw)
+        torch.cuda.synchronize()
+        eg, ep, mask = _f32_gap(got, args, kw)
+        assert mask == 0 and eg <= 2 * ep + 1e-5, \
+            f"woodbury_family (f32): {eg} against plain {ep}, mask {mask}"
+        worst.append((eg, ep))
+        want = k9.family_eval_plain(*args, **kw)
+        if kw.get("want_beta"):
+            fin = torch.isfinite(got[0])
+            for a, b in zip(got[1:], want[1:]):
+                rel = float((a - b)[fin].abs().max() / b[fin].abs().max())
+                assert rel <= 1e-3, f"K9 f32 beta/rss: rel {rel}"
+            got, want = got[0], want[0]
+        fin = torch.isfinite(got) & torch.isfinite(want)
+        err = max(err, float((got - want)[fin].abs().max()))
+        logits, cols, compS = args[0], args[2], args[3]
+        S, L = logits.shape
+        Rk, C, _ = cols.Ua.shape
+        q = compS.shape[1]
+        flops += 2 * S * L * Rk * (q * (q + 1) // 2) + S * L * Rk * 6
+        nbytes += F32 * (S * Rk * (C + 1) + Rk * (q - C) + S * q * q
+                         + 3 * S * L + S + Rk
+                         + (S * L * (q - C) if kw.get("want_beta") else 0))
+    b_ms, b_by = bound(flops, nbytes)
+    lib_operands = []
+    for args, _ in calls:
+        logits, rho, cols, _, Lam = args[:5]
+        dl = torch.sigmoid(logits)
+        W = 1.0 / ((1 - dl)[..., None] * ((1 - rho)[..., None] * Lam)
+                   + dl[..., None])
+        X = torch.cat([cols.Ua.permute(2, 0, 1),
+                       cols.UB.expand(logits.shape[0], -1, -1),
+                       cols.ug.T[:, :, None],
+                       cols.uy.expand(logits.shape[0], -1)[:, :, None]], 2)
+        iu = torch.triu_indices(X.shape[2], X.shape[2], device=X.device)
+        lib_operands.append((W, X[:, :, iu[0]] * X[:, :, iu[1]]))
+        del X
+    lib_ms = cuda_ms(lambda: [torch.bmm(W, P) for W, P in lib_operands],
+                     reps=5)
+    del lib_operands
+    return dict(
+        name="woodbury_family (f32)", route="cuda",
+        source="cellregmap_tpu_torch/csrc/woodbury_family.cu",
+        replaces="cellregmap_tpu/models/lmm.py:435", max_abs_err=err,
+        ms=cuda_ms(lambda: [k9.family_eval(*a, **kw) for a, kw in calls],
+                   reps=reps),
+        plain_ms=cuda_ms(lambda: [k9.family_eval_plain(*a, **kw)
+                                  for a, kw in calls], reps=max(1, reps - 2),
+                         warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, calls=len(calls),
+        flops=flops, nbytes=nbytes, lml_f64_distance=worst,
+        k1_betas_eps32=k1_ulp,
+        shapes=dict(S=G.shape[1], Rk=bctx.Zk.shape[1],
+                    q=calls[0][0][3].shape[1]),
+        tolerance="a call's largest |kernel - f64| <= 2 x the plain f32 "
+                  "version's + 1e-5 of max(|f64|, 1), masks equal; beta, "
+                  "rss within 1e-3 of the plain ones' largest")
+
+
+def f32_association_phase(d, cfg, Ls):
+    """The float32 context (``ScanConfig(dtype="float32")``) through the
+    association scans and the effect sizes as a user runs them, at the
+    float64 phases' widths on the headline dataset: ``run_association``
+    (hK, R = 110) and ``scan_association`` (Ls, R = 1010) at 2048
+    variants, ``scan_association_fast`` at 2048 on the same Ls scanner,
+    the gene-batched ``assoc_multigene_16`` (fast, 16 genes x 2048) and
+    ``assoc_refit_multigene_16`` (16 x 512) on it too, and
+    ``estimate_betas`` (hK) at 512 variants.  Each is timed, its launches
+    counted (every launch a float32 one), its p-values in (0, 1] (finite
+    effect sizes), and its first 64 variants (2 genes x 64) held to the
+    port's float32 run on the CPU: the LRT statistics within
+    ``F32_STAT_REL`` of |null lml| and the same rho1; 32 effect-size fits
+    (through the engine, with their rho1 and lml): a rho flip only where
+    the two lmls lie within 1e-5 of |lml| (f32 resolution), beta_G within
+    1e-3 of the largest |beta_G| where rho agrees.  Then every kernel of
+    the slice on the Ls scanner's operands (a 512-variant batch; the
+    16-gene tile) against its plain f32 version: K10, K7's grid and
+    converge, K8, each with the gene axis, and K9.  Returns (the phase's
+    summary, its kernel rows, each with its launches on these paths)."""
+    import dataclasses
+
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import engine, kernels
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    n = len(d["y"])
+    G = d["G"]
+    n_snps = G.shape[1]
+    b = -(-n_snps // cfg.snp_batch)
+    Y = _multigene_genes(d)
+    genes = Y.shape[1]
+    G_mg = G[:, :ASSOC_MULTIGENE["refit_snps"]]
+    b_mg = -(-G_mg.shape[1] // cfg.snp_batch)
+    G_b, maf_b = G[:, :BETAS_SNPS], d["maf"][:BETAS_SNPS]
+    b_betas = -(-BETAS_SNPS // cfg.snp_batch)
+
+    def ls(dev):
+        return crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], Ls=Ls,
+                              config=cfg32, device=dev)
+
+    def hk(dev):
+        return crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], hK=d["hK"],
+                              config=cfg32, device=dev)
+
+    # one Ls scanner a device (its null fit cached after the first scan:
+    # the fast scan launches no null fit of its own)
+    crm, crm_c, hk_c = ls(CARD), ls("cpu"), hk("cpu")
+    paths = {
+        "association_hK": (
+            lambda: crp.run_association(d["y"], d["W"], d["E"], G,
+                                        hK=d["hK"], config=cfg32,
+                                        device=CARD),
+            lambda: hk_c.scan_association(G[:, :64]),
+            dict(null_fit=1, delta_grid=b, reml_newton=3 * b)),
+        "association_Ls": (
+            lambda: crm.scan_association(G),
+            lambda: crm_c.scan_association(G[:, :64]),
+            dict(null_fit=1, delta_grid=b, reml_newton=3 * b)),
+        "association_fast_Ls": (
+            lambda: crm.scan_association_fast(G),
+            lambda: crm_c.scan_association_fast(G[:, :64]),
+            dict(fast_scan=b)),
+        "assoc_multigene_16": (
+            lambda: crm.scan_association_fast_multigene(Y, G,
+                                                        gene_batch=genes),
+            lambda: crm_c.scan_association_fast_multigene(Y[:, :2],
+                                                          G[:, :64]),
+            dict(null_fit=1, fast_scan=b)),
+        "assoc_refit_multigene_16": (
+            lambda: crm.scan_association_multigene(Y, G_mg,
+                                                   gene_batch=genes),
+            lambda: crm_c.scan_association_multigene(Y[:, :2], G[:, :64]),
+            dict(null_fit=1, delta_grid=b_mg, reml_newton=3 * b_mg)),
+    }
+    out, counts32 = {}, {}
+    for label, (run, run_cpu, want) in paths.items():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        pv, info = run()
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        counts, c32 = kernels.launch_counts(), kernels.launch_counts_f32()
+        want = expected_launches(**want)
+        assert counts == want, f"{label} (f32): launches {counts} != {want}"
+        assert c32 == {k: want[k] for k in c32}, \
+            f"{label} (f32): float32 launches {c32}"
+        counts32[label] = c32
+        assert np.all((pv > 0) & (pv <= 1)), f"{label} (f32): p-values"
+        pv_c, info_c = run_cpu()
+        if pv.ndim == 2:
+            pv_g, rho_g = pv[:2, :64], info["rho1"][:2]
+        else:
+            pv_g, rho_g = pv[:64], info["rho1"]
+        assert np.allclose(rho_g, info_c["rho1"], rtol=1e-6, atol=0), \
+            f"{label} (f32): rho1 differs between the card and the CPU"
+        scan = hk_c if label == "association_hK" else crm_c
+        if pv.ndim == 2:
+            null_lml = [float(f.lml[k]) for f, k in (
+                crm_c.with_phenotype(Y[:, j])._fit_null_association()
+                for j in range(2))]
+        else:
+            f, k = scan._fit_null_association()
+            null_lml = [float(f.lml[k])]
+        gap = _stat_gap(pv_g, pv_c, null_lml)
+        assert gap <= F32_STAT_REL, f"{label} (f32): statistic gap {gap}"
+        out[label] = dict(shape=list(pv.shape), e2e_s=e2e_s,
+                          pairs_per_s=pv.size / e2e_s, launches_f32=c32,
+                          min_pv=float(pv.min()),
+                          cpu_check=dict(n=int(pv_g.size),
+                                         stat_gap_over_lml=gap,
+                                         max_log10_gap=_decades(pv_g, pv_c)))
+        print(f"f32 {label}: " + json.dumps(out[label]), flush=True)
+
+    # the effect sizes (hK): a first and a steady call, 32 fits on the CPU
+    def betas():
+        return crp.estimate_betas(d["y"], d["W"], d["E"], G_b, maf=maf_b,
+                                  hK=d["hK"], config=cfg32, device=CARD)
+
+    t0 = time.perf_counter()
+    betas()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    bg, bgxe = betas()
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    want = expected_launches(kr_contract=3 * b_betas,
+                             woodbury_family=6 * b_betas)
+    counts, c32 = kernels.launch_counts(), kernels.launch_counts_f32()
+    assert counts == want, f"betas_2k (f32): launches {counts} != {want}"
+    assert c32 == {k: want[k] for k in c32}, f"betas_2k (f32): {c32}"
+    counts32["betas_2k"] = c32
+    assert np.isfinite(bg).all() and np.isfinite(bgxe).all()
+    norm = 1.0 / np.sqrt(2 * maf_b[:32] * (1 - maf_b[:32]))
+    res = {}
+    for dev in (CARD, "cpu"):
+        bctx = engine.build_betas_context(
+            d["y"], d["W"], d["E"], crp.get_L_values(d["hK"], d["E"]),
+            rho_grid=np.linspace(0, 1, 11), device=dev, dtype=torch.float32)
+        bg_d, _, info = engine.predict_interaction_batch(
+            bctx, torch.as_tensor(G_b[:, :32], device=dev,
+                                  dtype=torch.float32),
+            torch.as_tensor(norm, device=dev, dtype=torch.float32), n)
+        res[dev] = [t.cpu().double().numpy()
+                    for t in (bg_d, info["rho1"], info["lml"])]
+    (bg_g, rho_g, lml_g), (bg_c, rho_c, lml_c) = res[CARD], res["cpu"]
+    flipped = np.abs(rho_g - rho_c) > 1e-6
+    lml_gap = np.abs(lml_g - lml_c) / np.abs(lml_c)
+    assert np.all(lml_gap[flipped] <= 1e-5), \
+        f"betas_2k (f32): rho flips at lml gaps {lml_gap[flipped]}"
+    bg_gap = float(np.max(np.abs(bg_g - bg_c)[~flipped])
+                   / np.max(np.abs(bg_c)))
+    assert bg_gap <= 1e-3, f"betas_2k (f32): beta_g gap {bg_gap}"
+    out["betas_2k"] = dict(n_snps=BETAS_SNPS, first_s=first_s,
+                           steady_s=steady_s,
+                           steady_tests_per_s=BETAS_SNPS / steady_s,
+                           launches_f32=c32,
+                           cpu_check=dict(n=32, rho_flips=int(flipped.sum()),
+                                          beta_g_rel=bg_gap,
+                                          max_lml_rel_gap=float(
+                                              lml_gap.max())))
+    print("f32 betas_2k: " + json.dumps(out["betas_2k"]), flush=True)
+    del crm_c, hk_c
+
+    # the kernels against their plain f32 versions, on the Ls scanner's
+    # operands
+    f32 = torch.float32
+    ctx32 = crm._ctx
+    assert ctx32.y.dtype == f32
+    G32 = torch.as_tensor(G[:, :cfg.snp_batch], device=CARD,
+                          dtype=f32).contiguous()
+    (args, kw), = capture_kernel_inputs(
+        lambda: engine.null_association_fit(ctx32, n,
+                                            delta_cfg=ASSOC_DELTA_CFG),
+        ["null_fit"])["null_fit"]
+    rows = [check_null_fit_narrow(args, kw, "null_fit (f32)",
+                                  "cellregmap_tpu/engine.py:865")]
+    k = int(engine.null_association_fit(ctx32, n,
+                                        delta_cfg=ASSOC_DELTA_CFG)[1])
+    calls = capture_kernel_inputs(
+        lambda: engine.association_refit_batch(ctx32, G32, k, n,
+                                               delta_cfg=ASSOC_DELTA_CFG),
+        ["delta_grid", "reml_converge"])
+    grid = check_delta_grid(calls["delta_grid"][0], library=False)
+    rows += refit_rows(grid, calls["reml_converge"], "engine.py:875", "f32")
+    rows.append(check_fast_scan(ctx32, G32, n))
+    ctx_g = _gene_ctx(ctx32, Y)
+    fits, kg = engine.null_association_multigene_fit(
+        ctx_g, n, delta_cfg=ASSOC_DELTA_CFG)
+    kg = kg.cpu().numpy()
+    delta = fits.delta[torch.arange(genes, device=CARD),
+                       torch.as_tensor(kg, device=CARD)].contiguous()
+    rows.append(check_null_fit_genes(ctx_g, n))
+    rows.append(check_fast_scan_genes(ctx_g, G32, kg, delta, n))
+    rows += check_refit_genes(ctx_g, G32, kg, n, plain_reps=2)
+    bctx = engine.build_betas_context(d["y"], d["W"], d["E"], Ls,
+                                      rho_grid=np.linspace(0, 1, 11),
+                                      device=CARD, dtype=f32)
+    norm = torch.as_tensor(1.0 / np.sqrt(2 * maf_b * (1 - maf_b)),
+                           device=CARD, dtype=f32)
+    rows.append(check_woodbury_family_f32(
+        bctx, torch.as_tensor(G_b, device=CARD, dtype=f32).contiguous(),
+        norm, n))
+    del bctx, ctx_g
+    torch.cuda.empty_cache()
+
+    # each row's launches: its f32 wrapper calls on the paths above
+    def total(module, *labels):
+        return sum(counts32[lb][module] for lb in labels)
+
+    single = ("association_hK", "association_Ls")
+    launches = {
+        "null_fit (f32)": total("null_fit", *single, "association_fast_Ls"),
+        "association_refit (grid, f32)": total("delta_grid", *single),
+        "association_refit (converge, f32)": total("reml_newton", *single),
+        "fast_scan (f32)": total("fast_scan", "association_fast_Ls"),
+        "null_fit (genes, f32)": total("null_fit", "assoc_multigene_16",
+                                       "assoc_refit_multigene_16"),
+        "fast_scan (genes, f32)": total("fast_scan", "assoc_multigene_16"),
+        "association_refit (grid, genes, f32)": total(
+            "delta_grid", "assoc_refit_multigene_16"),
+        "association_refit (converge, genes, f32)": total(
+            "reml_newton", "assoc_refit_multigene_16"),
+        "woodbury_family (f32)": total("woodbury_family", "betas_2k"),
+    }
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+        assert r["launches"] > 0, f"{r['name']}: no launch on its path"
+        print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
+              f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
+              f"{r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return out, rows
 
 
 class _Stop(RuntimeError):
@@ -2667,6 +3127,9 @@ def check_f32_kernels(ctx32, G32, n):
     return rows
 
 
+# the float32 context's kernel modules on the interaction path
+INTERACTION_F32 = ("kr_contract", "delta_grid", "reml_newton",
+                   "best_rho_rotate", "score_core", "sym_eigvalsh")
 SCREEN_SIGNIFICANCE = 5e-8     # bench.py:525-539
 SCREEN_MULTIGENE = dict(genes=16, seed=13)   # bench.py:541-557
 
@@ -2739,7 +3202,8 @@ def screen_phase(d, cfg, pv_dav, info_auto, cpu_check=64, reps=3):
     assert counts32 == dict(kr_contract=3 * n_batches, delta_grid=n_batches,
                             reml_newton=2 * n_batches,
                             best_rho_rotate=n_batches, score_core=n_batches,
-                            sym_eigvalsh=n_batches), counts32
+                            sym_eigvalsh=n_batches, null_fit=0, fast_scan=0,
+                            woodbury_family=0), counts32
     assert counts["mixture_tails"] == n_batches, counts
     # the discoveries: every f64 Davies hit confirmed with its value
     below = pv_dav < SCREEN_SIGNIFICANCE
@@ -2847,7 +3311,7 @@ def screen_multigene_phase(d, cfg):
     assert pv.shape == (genes, G.shape[1])
     assert np.isfinite(info["screen_pv"]).all()
     assert np.all(info["confirmed"][:, GXE_SNP]), "the planted variant"
-    assert all(counts32[k] > 0 for k in counts32), counts32
+    assert all(counts32[k] > 0 for k in INTERACTION_F32), counts32
     pv0, info0 = crm.scan_interaction_screen(
         G, significance=SCREEN_SIGNIFICANCE)
     same = info0["rho1"] == info["rho1"][0]
@@ -2916,6 +3380,12 @@ def main() -> int:
 
     faulthandler.enable()         # a crash in native code prints its stack
     t_start = time.perf_counter()
+
+    def mark(label):
+        # the phases' end times, for sizing the script's whole time
+        print(f"phase {label}: ends at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     card = card_line()
     print(card, flush=True)
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on"
@@ -2937,6 +3407,7 @@ def main() -> int:
         device="cuda")
     Gb = torch.as_tensor(d["G"][:, :BATCH], device="cuda").contiguous()
     rows = check_kernels(ctx, Gb, len(d["y"]))
+    mark("kernels")
 
     # --- the interaction path at the headline size (davies, then auto),
     # then a second size ---
@@ -2963,8 +3434,10 @@ def main() -> int:
     rows32 = check_f32_kernels(ctx32, G32, len(d["y"]))
     del ctx32, G32
     torch.cuda.empty_cache()
+    mark("headline scans, f32 kernels")
     _, c_screen = screen_phase(d, cfg, pv_dav, info_auto)
     screen_multigene_phase(d, cfg)
+    mark("screens")
     # each f32 row's launches: its instantiation's on one screen_2k run
     for r in rows32:
         base = r["name"].split(" (")[0]
@@ -3015,9 +3488,11 @@ def main() -> int:
               f"{r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
     rows += rows_10k
+    mark("cells10k")
 
     # --- the gene-batched scan ---
     multigene_phase(d, cfg)
+    mark("multigene_16")
 
     # --- the association paths at the headline size ---
     Ls = crp.get_L_values(d["hK"], d["E"])
@@ -3053,12 +3528,14 @@ def main() -> int:
     _, c_fls = fast_association_path("scan_association_fast_Ls", d, cfg,
                                      Ls=Ls)
     _, c_betas = betas_path(d, cfg)
+    mark("association, fast association, K8, K9, betas")
     _, c_agg, k10_p12 = aggregate_environment_phase(d, cfg)
     rows.append(k10_p12)
     _, k10_wide = wide_phase(cfg)
     rows.append(k10_wide)
     _, wide_cov_rows = wide_covariates_phase(cfg)
     rows += wide_cov_rows
+    mark("aggregate environment, C = 50")
 
     # --- the gene-batched association scans, then checkpointed scans ---
     _, c_amg, amg_rows, crm_assoc = assoc_multigene_phase(d, cfg, Ls)
@@ -3072,12 +3549,22 @@ def main() -> int:
               + json.dumps({k: r[k] for k in ("shapes", "split_ms")
                             if k in r}), flush=True)
     checkpoint_phase(d, cfg, crm_assoc)
+    del crm_assoc
+    torch.cuda.empty_cache()
+
+    # --- the float32 context on the association scans and the effect
+    # sizes: the paths, then their kernels (rows with their launches) ---
+    mark("assoc_multigene_16, assoc_refit_multigene_16, checkpoint")
+    _, f32_rows = f32_association_phase(d, cfg, Ls)
+    rows += f32_rows
+    mark("float32 association and effect sizes")
 
     # --- the card's covariate envelope: p = 24, 21 rho; 80 rho ---
     _, c_cov, cov_rows = covariates_phase(d)
     rows += cov_rows
     _, c_rho80, rho80_rows = rho80_phase(cfg)
     rows += rho80_rows
+    mark("covariates_24, n_rho = 80")
 
     # each row's launches: its wrapper's count on the run its operands
     # came from (tagged rows: their phase's run), divided by the wrapper's

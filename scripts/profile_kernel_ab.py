@@ -69,7 +69,11 @@ runs, 10 for the localize and K9, 5 for K10) in the order other, this,
 this, other, and profiled with ``torch.profiler`` (device milliseconds a
 call in each kernel; None where the profiler saw no kernel).  Prints one JSON line per call and one of the whole;
 ``--out`` also writes that line to a file; ``--kernels`` picks some of
-k1, k2, k3, k10, k10mg, k6a, k9, k4, k3reg, k5, k3conv, scan.
+k1, k2, k3, k10, k10mg, k6a, k9, k4, k3reg, k5, k3conv, k8, scan.  K8
+(``csrc/fast_scan.cu``): the headline's Ls fast-scan batch (512
+variants at the null's best rho and delta) and the ``assoc_multigene_16``
+tile's batch (16 genes, each at its own), every output within 1e-10 of
+max|plain|, timed over 20 runs.
 
     python3 scripts/profile_kernel_ab.py --other <checkout> [--out FILE]
         [--kernels k10,k10mg,k6a,scan] [--scan-reps 5]
@@ -103,7 +107,7 @@ KERNELS = {"k1": "kr_contract", "k2": "delta_grid", "k3": "reml_newton",
            "k10mg": "null_fit", "k6a": "sym_eigvalsh",
            "k9": "woodbury_family", "k4": "best_rho_rotate",
            "k3reg": "reml_newton", "k5": "score_core", "k3conv": "reml_newton",
-           "scan": None}
+           "k8": "fast_scan", "scan": None}
 
 
 def load_other(root: Path, name="other_crp"):
@@ -381,6 +385,29 @@ def score_converge_calls(d, n, G, Ls):
     return out
 
 
+def k8_calls(d, n, G, Ls):
+    """(label, K8's (args, kw)) on the headline's Ls scanner: a 512-variant
+    fast-scan batch at the null's best rho and delta, and the same batch
+    through the ``assoc_multigene_16`` tile (each gene at its own)."""
+    ctx = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                    device="cuda")
+    fits, k = engine.null_association_fit(ctx, n, delta_cfg=cs.ASSOC_DELTA_CFG)
+    k = int(k)
+    out = [("headline Ls", cs.capture_kernel_inputs(
+        lambda: engine.fast_scan_batch(ctx, G, k, float(fits.delta[k]), n),
+        ["fast_scan"])["fast_scan"][0])]
+    ctx_g = cs._gene_ctx(ctx, cs._multigene_genes(d))
+    fits, kg = engine.null_association_multigene_fit(
+        ctx_g, n, delta_cfg=cs.ASSOC_DELTA_CFG)
+    delta = fits.delta[torch.arange(kg.shape[0], device="cuda"),
+                       kg].contiguous()
+    kg = kg.cpu().numpy()
+    out.append(("genes", cs.capture_kernel_inputs(
+        lambda: engine.fast_scan_multigene_batch(ctx_g, G, kg, delta, n),
+        ["fast_scan"])["fast_scan"][0]))
+    return out
+
+
 def factors(got):
     """K4's factors per (gene, variant): this checkout's (At_slots, slot)
     gathered, an older checkout's At as it is."""
@@ -579,6 +606,25 @@ def main():
                 lambda a=args, k=kw, key=key: ok[key].null_fit(*a, **k),
                 check, reps=5))
             del args, kw, data, plain
+
+    if "k8" in picked:
+        from cellregmap_tpu_torch.kernels import fast_scan as k8
+
+        for label, (args, kw) in k8_calls(d, n, G, Ls):
+            plain = (k8.fast_scan_genes_plain(*args, **kw) if "slot" in kw
+                     else k8.fast_scan_plain(*args, **kw))
+
+            def check(side, got, plain=plain, label=label):
+                for g, w in zip(got, plain):
+                    rel = float((g - w).abs().max() / w.abs().max())
+                    assert rel <= 1e-10, f"K8 {label} ({side}): rel {rel}"
+
+            out["calls"].append(compare(
+                f"fast_scan ({label})",
+                lambda a=args, k=kw: k8.fast_scan(*a, **k),
+                lambda a=args, k=kw: ok["k8"].fast_scan(*a, **k), check,
+                reps=20))
+            del args, kw, plain
 
     if "k6a" in picked:
         for label, A in k6a_calls(d, n, G, Ls):

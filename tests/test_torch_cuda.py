@@ -929,6 +929,9 @@ def test_converge_kernel_ml_refit(cuda, p):
 # the float32 context (the screen's): its instantiations and the screen
 # --------------------------------------------------------------------------
 EPS32 = float(torch.finfo(torch.float32).eps)
+# the float32 context's kernel modules on the interaction path
+INTERACTION_F32 = ("kr_contract", "delta_grid", "reml_newton",
+                   "best_rho_rotate", "score_core", "sym_eigvalsh")
 
 
 def _f32_sums_close(got, want, mags, n_terms):
@@ -979,7 +982,8 @@ def test_f32_kernels_match_plain(cuda, genes, p):
     calls = _f32_calls(cuda, genes, p)
     assert kernels.launch_counts_f32() == dict(
         kr_contract=3, delta_grid=1, reml_newton=2, best_rho_rotate=1,
-        score_core=1, sym_eigvalsh=1)
+        score_core=1, sym_eigvalsh=1, null_fit=0, fast_scan=0,
+        woodbury_family=0)
     for (U, V, G), _ in calls["kr_contract"]:
         mags = k1.kr_contract_plain(U.double().abs(), V.double().abs(),
                                     G.double().abs())
@@ -1088,7 +1092,8 @@ def test_screen_on_card_matches_cpu(cuda):
     pv_g, info_g = crp.run_interaction_screen(y, E, G, hK=hK,
                                               significance=1e-3, config=cfg,
                                               device=cuda)
-    assert all(v > 0 for v in kernels.launch_counts_f32().values())
+    counts32 = kernels.launch_counts_f32()
+    assert all(counts32[k] > 0 for k in INTERACTION_F32), counts32
     pv_c, info_c = crp.run_interaction_screen(y, E, G, hK=hK,
                                               significance=1e-3, config=cfg,
                                               device="cpu")
@@ -1101,3 +1106,246 @@ def test_screen_on_card_matches_cpu(cuda):
     assert same.mean() >= 0.9
     np.testing.assert_allclose(info_g["screen_pv"][same],
                                info_c["screen_pv"][same], rtol=0.05)
+
+
+# --------------------------------------------------------------------------
+# the float32 context on the association scans and the effect sizes
+# (the tolerances of tests/test_torch_emulated_f32_association.py)
+# --------------------------------------------------------------------------
+def _context32(cuda, seed, p, genes=0, nrho=11):
+    """A float32 null context on the card (n = 600, R = 183; ``genes``
+    phenotypes on a leading axis when genes > 0), its f32 genotypes, n."""
+    from cellregmap_tpu_torch import engine
+
+    ctx, G, n = fit_dataset(seed, p=p, nrho=nrho, n=600, donors=60, S=96,
+                            device=cuda)
+    if genes:
+        rng = np.random.default_rng(seed)
+        Y = ctx.y[None] + 0.6 * torch.as_tensor(rng.normal(size=(genes, n)),
+                                                device=cuda)
+        ctx = ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W,
+                           yy=(Y * Y).sum(dim=1))
+    return (engine.NullContext(*(t.to(torch.float32) for t in ctx)),
+            G.to(torch.float32), n)
+
+
+def _null_fits_f32_close(fits, plain, data, n):
+    """K10-f32 against its plain version: the lml within 1e-5 (relative),
+    the f64 objective at the kernel's delta no lower than at the plain
+    one's by more than 1e-6 of it, beta and scale within 1e-3 of the f64
+    values at the kernel's delta."""
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+    from cellregmap_tpu_torch.models.lmm import lml_at_delta_eig
+
+    if data.yt.ndim == 3:
+        for g in range(data.yt.shape[0]):
+            _null_fits_f32_close(type(fits)(*(t[g] for t in fits)),
+                                 type(plain)(*(t[g] for t in plain)),
+                                 k10.gene_data(data, g), n)
+        return
+    assert fits.lml.dtype == torch.float32
+    assert float(((fits.lml - plain.lml).abs() / plain.lml.abs()).max()) \
+        <= 1e-5
+    d64 = type(data)(*(t.double() for t in data))
+    at_k = lml_at_delta_eig(fits.delta.double()[:, None], d64, n, False)
+    at_p = lml_at_delta_eig(plain.delta.double()[:, None], d64, n, False)
+    lk, lp = at_k[0][:, 0], at_p[0][:, 0]
+    assert bool((lk >= lp - 1e-6 * lp.abs()).all())
+    for got, want in ((fits.beta, at_k[1][:, 0]),
+                      (fits.scale, at_k[2][:, 0])):
+        _close(got.double(), want, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genes,p", [(0, 1), (0, 4), (16, 1), (3, 15)])
+def test_f32_null_fit_kernel_matches_plain(cuda, genes, p):
+    """K10-f32 (ML, 256 grid points, 60 golden-section steps) on one
+    phenotype or a gene axis, one f32 launch a call."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+
+    ctx, _, n = _context32(cuda, 500 + genes + p, p, genes)
+    fit = (engine.null_association_multigene_fit if genes
+           else engine.null_association_fit)
+    (args, kw), = captured(lambda: fit(
+        ctx, n, delta_cfg=(-18.0, 18.0, 256, 60)), ["null_fit"])["null_fit"]
+    before = k10.launches_f32
+    fits = k10.null_fit(*args, **kw)
+    assert k10.launches_f32 == before + 1
+    _null_fits_f32_close(fits, k10.null_fit_plain(*args, **kw), args[0], n)
+
+
+def _fast_f32_close(got, want):
+    assert float(((got.lml - want.lml).abs() / want.lml.abs()).max()) <= 1e-6
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32
+        _close(g, w, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 3, 15])
+def test_f32_fast_scan_kernels_match_plain(cuda, p):
+    """K8-f32, one phenotype (a batch of 96) and 16 genes over 3 slots."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import fast_scan as k8
+
+    ctx, G, n = _context32(cuda, 520 + p, p)
+    (args, kw), = captured(lambda: engine.fast_scan_batch(
+        ctx, G, 3, 0.41, n), ["fast_scan"])["fast_scan"]
+    before = k8.launches_f32
+    _fast_f32_close(k8.fast_scan(*args, **kw), k8.fast_scan_plain(*args,
+                                                                   **kw))
+    assert k8.launches_f32 == before + 1
+    ctx, G, n = _context32(cuda, 530 + p, p, genes=16)
+    k = np.arange(16) % 3 * 4
+    delta = torch.linspace(0.2, 0.8, 16, dtype=torch.float32, device=cuda)
+    (args, kw), = captured(lambda: engine.fast_scan_multigene_batch(
+        ctx, G, k, delta, n), ["fast_scan"])["fast_scan"]
+    before = k8.launches_f32
+    _fast_f32_close(k8.fast_scan(*args, **kw),
+                    k8.fast_scan_genes_plain(*args, slot=kw["slot"]))
+    assert k8.launches_f32 == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genes,p", [(0, 1), (0, 6), (4, 1), (3, 15)])
+def test_f32_refit_kernels_match_plain(cuda, genes, p):
+    """K7-f32: the ML grid (f64-logit brackets) and the ML converge with
+    its two zero-step fits, one phenotype at rho 5 or genes at their own
+    rho."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import delta_grid as k2
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    ctx, G, n = _context32(cuda, 540 + genes + p, p, genes)
+    cfg = (-18.0, 18.0, 256, 60)
+    if genes:
+        k = np.arange(genes) % 2 * 7
+        run = lambda: engine.association_refit_multigene_batch(  # noqa
+            ctx, G, k, n, delta_cfg=cfg)
+    else:
+        run = lambda: engine.association_refit_batch(  # noqa: E731
+            ctx, G, 5, n, delta_cfg=cfg)
+    calls = captured(run, ["delta_grid", "reml_converge"])
+    (args, kw), = calls["delta_grid"]
+    br_lo, br_hi = k2.delta_grid(*args, **kw)
+    _, _, lml = k2.delta_grid_plain(*args, **kw, return_lml=True)
+    if genes:
+        for g, s in enumerate(kw["slot"]):
+            assert k2.bracket_shortfall(br_lo[g, :, s:s + 1],
+                                        br_hi[g, :, s:s + 1], lml[g],
+                                        -18.0, 18.0) <= 1e-5
+    else:
+        assert k2.bracket_shortfall(br_lo, br_hi, lml, -18.0, 18.0) <= 1e-5
+    assert len(calls["reml_converge"]) == 3
+    before = k3.launches_f32
+    for call in calls["reml_converge"]:
+        _converge_on_card(call)
+    assert k3.launches_f32 == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,p,donors", [(10, 1, 30), (18, 3, 5)])
+def test_f32_family_eval_with_coefficients(cuda, C, p, donors):
+    """K9-f32's final fit (lml, beta, rss) against the plain f32 version:
+    the lml at most twice the plain version's distance from the f64 value
+    plus 1e-5 (of max(|lml|, 1)), the same finite points, beta and rss
+    within 1e-3 of the plain ones' largest entry."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import woodbury_family as k9
+
+    f32 = torch.float32
+    bctx, G, norm, n = betas_dataset(550 + C, p=p, n=400, C=C,
+                                     donors=donors, S=64, device=cuda)
+    bctx = engine.BetasContext(*(t.to(f32) for t in bctx))
+    calls = captured(lambda: engine.predict_interaction_batch(
+        bctx, G.to(f32), norm.to(f32), n), ["family_eval"])["family_eval"]
+    assert [a[0].dtype for a, _ in calls] == [f32] * 6
+    args, kw = calls[-1]
+    args = tuple(type(a)(*(t.contiguous() for t in a))
+                 if isinstance(a, tuple) else
+                 a.contiguous() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    before = k9.launches_f32
+    lml, beta, rss = k9.family_eval(*args, **kw)
+    assert k9.launches_f32 == before + 1
+    plml, pbeta, prss = k9.family_eval_plain(*args, **kw)
+    c = lambda a: a.double() if isinstance(a, torch.Tensor) else a  # noqa
+    exact = k9.family_eval_plain(*(type(a)(*map(c, a))
+                                   if isinstance(a, tuple) else c(a)
+                                   for a in args), **kw)[0]
+    ref = exact.abs().clamp(min=1.0)
+    fin = torch.isfinite(lml)
+    assert torch.equal(fin, torch.isfinite(plml))
+    eg, ep = (lml - exact).abs() / ref, (plml - exact).abs() / ref
+    assert float((eg - 2 * ep)[fin].max()) <= 1e-5
+    for got, want in ((beta, pbeta), (rss, prss)):
+        _close(got[fin], want[fin], 1e-3)
+
+
+@pytest.mark.cuda
+def test_float32_association_on_card_matches_cpu(cuda):
+    """The float32 association scans (single and gene-batched, refit and
+    fast) on the card against the CPU, two f32 programs: the LRT
+    statistics within 1e-4 of |null lml| (each f32 lml is good to a few
+    1e-6 of its magnitude at the headline; here, 300 cells whose
+    intercept lies in the donors' span, the complement Gram's f32
+    cancellation amplifies that: 1.6e-5 measured on an H100), the same
+    rho1; the effect sizes' fits through
+    the engine, a rho flip only where the two lmls lie within 1e-5 of
+    |lml|, beta_G within 1e-3 of the largest |beta_G| elsewhere; every
+    f32 kernel of the slice launched."""
+    from scipy.stats import chi2
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import engine, kernels
+
+    y, E, hK, G = _screen_data()
+    Y = np.stack([y, y + 0.5 * np.random.default_rng(1).normal(
+        size=len(y))], axis=1)
+    cfg = crp.ScanConfig(dtype="float32", snp_batch=32)
+    out = {}
+    kernels.reset_launches()
+    for dev in (cuda, "cpu"):
+        crm = crp.CellRegMap(y=y, E=E, hK=hK, config=cfg, device=dev)
+        out[str(dev)] = [crm.scan_association(G), crm.scan_association_fast(G),
+                         crm.scan_association_multigene(Y, G),
+                         crm.scan_association_fast_multigene(Y, G)]
+        if dev == cuda:
+            counts32 = kernels.launch_counts_f32()
+    assert all(counts32[k] > 0 for k in ("null_fit", "fast_scan",
+                                         "delta_grid", "reml_newton"))
+    crm = crp.CellRegMap(y=y, E=E, hK=hK, config=cfg, device="cpu")
+    null = [abs(float(f.lml[k])) for f, k in (
+        crm.with_phenotype(Y[:, j])._fit_null_association()
+        for j in range(2))]
+    for (pg, ig), (pc, ic) in zip(out[str(cuda)], out["cpu"]):
+        assert np.isfinite(pg).all()
+        np.testing.assert_allclose(ig["rho1"], ic["rho1"], rtol=1e-6)
+        gap = np.abs(chi2.isf(pg, 1) - chi2.isf(pc, 1))
+        scale = np.asarray(null[:gap.shape[0]] if gap.ndim == 2
+                           else null[:1])
+        assert float(np.max(gap / scale.reshape((-1,) + (1,) * (
+            gap.ndim - 1)))) <= 1e-4
+    from cellregmap_tpu_torch.ops.hadamard import get_L_values
+
+    res = {}
+    for dev in (cuda, "cpu"):
+        bctx = engine.build_betas_context(y, np.ones((len(y), 1)), E,
+                                          get_L_values(hK, E), device=dev,
+                                          dtype=torch.float32)
+        kernels.reset_launches()
+        bg, _, info = engine.predict_interaction_batch(
+            bctx, torch.as_tensor(G, device=dev, dtype=torch.float32),
+            torch.full((G.shape[1],), 1.5, device=dev,
+                       dtype=torch.float32), len(y))
+        if dev == cuda:
+            assert kernels.launch_counts_f32()["woodbury_family"] == 6
+        res[str(dev)] = [t.cpu().double().numpy()
+                         for t in (bg, info["rho1"], info["lml"])]
+    (bg_g, rho_g, lml_g), (bg_c, rho_c, lml_c) = res[str(cuda)], res["cpu"]
+    flipped = np.abs(rho_g - rho_c) > 1e-6
+    assert np.all(np.abs(lml_g - lml_c)[flipped]
+                  <= 1e-5 * np.abs(lml_c[flipped]))
+    assert np.max(np.abs(bg_g - bg_c)[~flipped]) <= \
+        1e-3 * np.max(np.abs(bg_c))

@@ -200,14 +200,15 @@ def test_traced_scan_reports_phases():
 
 
 def test_unported_options_raise():
-    """The float32 context runs the interaction scans only: the
-    association scan refuses it, naming its path; invalid phenotypes
-    raise ValueError."""
+    """The float32 context runs every scan but the aggregate environment,
+    which refuses it, naming its path; invalid phenotypes raise
+    ValueError."""
     d = _dataset(seed=49, S=3)
     crm32 = crp.CellRegMap(y=d["y"], E=d["E"], device="cpu",
                            config=crp.ScanConfig(dtype="float32"))
-    with pytest.raises(NotImplementedError, match="scan_association"):
-        crm32.scan_association(d["G"])
+    with pytest.raises(NotImplementedError,
+                       match="estimate_aggregate_environment"):
+        crm32.estimate_aggregate_environment(d["G"][:, 0])
     with pytest.raises(ValueError):
         crp.CellRegMap(y=np.full(d["n"], np.nan), E=d["E"], device="cpu")
 
