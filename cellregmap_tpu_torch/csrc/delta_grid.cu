@@ -88,18 +88,23 @@
 // where the converge kernel reads it (k_best = slot).
 //
 // The float32 context (the screen's, engine.py:460-532 on an f32 context)
-// takes its operands in f32 (a template on the operand type TO; the
-// products are formed from the widened values and rounded to T = float,
-// which is the f32 product) and writes the interaction's (REML) brackets
-// as the f32-rounded grid logits, widened exactly (the reference's
-// `linspace(lo, hi, n_grid).astype(ctx dtype)`, :528); the association
-// refit's (ML) keep the f64 logits, as its `linspace(lo, hi, n_grid)`
-// (:986-989) does.
+// takes its operands in f32 and an entry of its own, crm_delta_grid_f32:
+// two launches a gene chunk, sums_f32_kernel (the weights and the sums in
+// one kernel, the sums split-TF32 products on the tensor cores, tf32mma.cuh)
+// and the epilogue above on its scratch (the float working type).  Its
+// REML brackets (the interaction's) are the f32-rounded grid logits,
+// widened exactly (the reference's `linspace(lo, hi, n_grid).astype(ctx
+// dtype)`, :528); its ML brackets (the association refit's) keep the f64
+// logits, as its `linspace(lo, hi, n_grid)` (:986-989) does.  Its bound at
+// the screen batch (11 rho, 64 points, R = 1000, S = 1024, p = 1) is
+// operations: 3 x 4.3e9 TF32 flop, 0.026 ms (0.065 ms for the same sums
+// by FP32 FMA).
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
 
 #include "async_copy.cuh"
+#include "tf32mma.cuh"
 
 namespace {
 
@@ -677,6 +682,446 @@ int run(const Args<TO>& a, void* work, cudaStream_t stream) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// The float32 context: the weights and the sums in one kernel, split TF32
+// ---------------------------------------------------------------------------
+// out[z, o, column, k] = sum_{r in split z} w[o, k, r] P[o, r, column], a
+// block a (tile of up to 128 columns, 64 grid points, rho o and split z),
+// four warps of 64 points x 32 columns each (4 x 4 m16n8k8 tiles):
+// * 32-row chunks of the rotated rows arrive in a ring of 3 by 16-byte
+//   cp.async copies: of WGt's row the W columns and the tile's variants
+//   (each a 16-byte aligned span covering it, read at the row's offset
+//   into it), each of the tile's genes' y over the chunk's rows, and S;
+// * the block makes the next chunk's weights w = 1 / ((1 - delta_k) S_or
+//   + delta_k) from S and the grid's logits, a quarter before each 8-row
+//   step of this chunk's sums, splits each into (hi, lo) once and keeps
+//   them in a double-buffered tile;
+// * each warp forms its columns' products (g W_j, g^2, g y, W_i W_j, W_j
+//   y, y^2: the f32 product, which is the f64 product of the f32 factors
+//   rounded to f32) straight into its B fragments, split once (each product
+//   is used by one warp), and reduces over the rows with tf32x3_tiles, a
+//   fresh partial a step;
+// * the blocks of tile 0 (first gene chunk) add sum log d over their rows.
+// The columns of a tile: the genotype's (first chunk only) flat over (s, j)
+// as the epilogue reads them; the g y of one gene and up to 128 variants,
+// or of up to F_NYG genes and all nS < 128 variants; the shared sums W_i W_j
+// (first chunk, tile 0) then up to F_NYG genes' (W_j y, y^2).
+// Each split z writes its own partial sums, added in a fixed order by the
+// epilogue (the result does not depend on the schedule).
+constexpr int F_THREADS = 128;
+constexpr int F_TK = 64;                 // grid points a block
+constexpr int F_TC = 128;                // columns a block
+constexpr int F_RC = 32;                 // rows a chunk
+constexpr int F_STAGES = 3;
+constexpr int F_FRESH = 1;               // 8-row steps a partial
+constexpr double F_ROWS_A_BYTE = 5e-6;   // layout32's split cost
+constexpr int F_NYG = 16;                // genes of a g y or shared tile
+constexpr int F_MAXP = 15;               // p of the f32 entry (p + 1 <= 16)
+constexpr int F_WSEG = 20;               // >= p + 3, a multiple of 4
+constexpr int F_GSEG = 132;              // >= 128 + 3 variants
+constexpr int F_RW = F_WSEG + F_GSEG;    // floats a staged row
+constexpr int F_YLD = F_RC + 4;          // floats a staged y (or S) run
+constexpr int F_RAW = F_RC * F_RW + (F_NYG + 1) * F_YLD;   // a stage
+constexpr int F_WLD2 = F_TK + 4;         // (hi, lo) pairs a weight row
+constexpr int F_SMEM = 4 * (F_STAGES * F_RAW + 2 * 2 * F_RC * F_WLD2 +
+                            F_TC + 2 * F_TK);
+
+// A launch's tiles (the genotype's on the first gene chunk, then g y, then
+// shared) and the genes a g y or shared tile takes
+struct Tiling32 {
+  int ntg, nty, nsh;
+  int per;       // g y tiles a gene where nS >= F_TC, else 0
+  int gy;        // genes a g y tile where nS < F_TC
+  int gs0, gs;   // genes of the first shared tile, of the others
+};
+
+__host__ __device__ inline Tiling32 tiling32(int p, int nS, int gc,
+                                             bool first) {
+  const int p1 = p + 1, ntri = p * p1 / 2;
+  const auto least = [](int a, int b) { return a < b ? a : b; };
+  Tiling32 L;
+  L.ntg = first ? (nS * p1 + F_TC - 1) / F_TC : 0;
+  L.per = nS >= F_TC ? (nS + F_TC - 1) / F_TC : 0;
+  L.gy = nS >= F_TC ? 1 : least(F_TC / nS, F_NYG);
+  L.nty = L.per ? gc * L.per : (gc + L.gy - 1) / L.gy;
+  L.gs = least(F_TC / p1, F_NYG);
+  L.gs0 = first ? least((F_TC - ntri) / p1, F_NYG) : L.gs;
+  L.nsh = gc > L.gs0 ? 1 + (gc - L.gs0 + L.gs - 1) / L.gs : 1;
+  return L;
+}
+
+// the columns of one tile (every thread decodes the same tile)
+struct Tile32 {
+  int mode;        // 0 the genotype's, 1 g y, 2 shared
+  int s_lo, nvar;  // the staged variants
+  int g_lo, ng;    // the staged genes (chunk-local)
+  int nww;         // mode 2: the W_i W_j columns it leads with
+  int c0, nv;      // mode 0: its first flat column; mode 1: variants a gene
+};
+
+__device__ Tile32 tile32(int bx, const Tiling32& L, int p, int nS, int gc,
+                         bool first) {
+  const int p1 = p + 1, ntri = p * p1 / 2;
+  Tile32 T{0, 0, 0, 0, 0, 0, 0, 0};
+  if (bx < L.ntg) {
+    T.mode = 0;
+    T.c0 = bx * F_TC;
+    const int c1 = min(nS * p1, T.c0 + F_TC);
+    T.s_lo = T.c0 / p1;
+    T.nvar = (c1 - 1) / p1 + 1 - T.s_lo;
+  } else if (bx < L.ntg + L.nty) {
+    const int t = bx - L.ntg;
+    T.mode = 1;
+    if (L.per) {
+      T.g_lo = t / L.per;
+      T.ng = 1;
+      T.s_lo = (t % L.per) * F_TC;
+      T.nvar = min(F_TC, nS - T.s_lo);
+    } else {
+      T.g_lo = t * L.gy;
+      T.ng = min(L.gy, gc - T.g_lo);
+      T.nvar = nS;
+    }
+    T.nv = T.nvar;
+  } else {
+    const int t = bx - L.ntg - L.nty;
+    T.mode = 2;
+    T.nww = first && t == 0 ? ntri : 0;
+    T.g_lo = t == 0 ? 0 : L.gs0 + (t - 1) * L.gs;
+    T.ng = max(0, min(t == 0 ? L.gs0 : L.gs, gc - T.g_lo));
+  }
+  return T;
+}
+
+// A factor of a product column: where its value lies in a staged chunk.
+// kind 0: W_j (idx j), 1: g of the tile's variant idx, 2: y of the tile's
+// gene (idx its run's offset in the y buffer), 3: none (a dead column)
+struct Fac {
+  int kind, idx;
+};
+
+// (the address chosen first, so that the lanes of a warp, whose columns
+// mix the kinds, load at once with no branch)
+__device__ __forceinline__ float fac_value(Fac f, const float* row, int offW,
+                                           int offG, const float* ys,
+                                           int r) {
+  const float* at = f.kind == 2 ? ys + f.idx + r
+                                : row + f.idx + (f.kind == 0 ? offW
+                                                 : F_WSEG + offG);
+  const float v = *at;   // kind 3: a staged value, discarded
+  return f.kind == 3 ? 0.0f : v;
+}
+
+__global__ void __launch_bounds__(F_THREADS, 2)
+sums_f32_kernel(const float* __restrict__ Sv, const float* __restrict__ WGt,
+                const float* __restrict__ yt, float* __restrict__ ldbuf,
+                float* __restrict__ geno, float* __restrict__ gy,
+                float* __restrict__ shs, double lo, double hi, int K, int Kp,
+                int nrho, int R, int p, int nS, int Cg, int Cy, int Csh,
+                int RS, int g0, int gc, int first) {
+  extern __shared__ __align__(16) unsigned char sums32_dyn[];
+  float* sm = reinterpret_cast<float*>(sums32_dyn);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int kt = blockIdx.y, k0 = kt * F_TK;
+  const int o = blockIdx.z / RS, z = blockIdx.z - o * RS;
+  const int ps = p + nS, p1 = p + 1, ntri = p * p1 / 2;
+  const Tile32 T = tile32(blockIdx.x, tiling32(p, nS, gc, first != 0), p,
+                          nS, gc, first != 0);
+  const bool do_ld = first && blockIdx.x == 0;
+
+  auto raw = [&](int b) { return sm + b * F_RAW; };           // rows
+  auto raw_y = [&](int b) { return raw(b) + F_RC * F_RW; };   // genes' y
+  auto raw_s = [&](int b) { return raw_y(b) + F_NYG * F_YLD; };
+  float* wsplit = sm + F_STAGES * F_RAW;                      // 2 buffers
+  int* outcol = reinterpret_cast<int*>(wsplit + 2 * 2 * F_RC * F_WLD2);
+  float* ldred = reinterpret_cast<float*>(outcol + F_TC);
+
+  const float* WGo = WGt + (int64_t)o * R * ps;
+  const float* So = Sv + (int64_t)o * R;
+  const int nch = (R + F_RC - 1) / F_RC;
+  const int ch0 = (int)((int64_t)z * nch / RS);
+  const int ch1 = (int)((int64_t)(z + 1) * nch / RS);
+
+  // a 16-byte aligned span covering `cnt` floats from `src` into dst;
+  // returns the offset of src in it (every vector holds one of the floats)
+  auto span_of = [](const float* src) {
+    return (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  };
+  auto y_run = [&](int gi) {
+    return yt + ((int64_t)(g0 + T.g_lo + gi) * nrho + o) * R;
+  };
+
+  // the columns: this thread's four B-fragment columns' factors, and the
+  // block's output column of each tile column (-1: none)
+  auto decode = [&](int c, Fac& a, Fac& b) {
+    a = Fac{3, 0};
+    b = Fac{3, 0};
+    int out = -1;
+    if (T.mode == 0) {
+      const int flat = T.c0 + c;
+      if (flat < nS * p1) {
+        const int sv = flat / p1, j = flat - sv * p1;
+        a = Fac{1, sv - T.s_lo};
+        b = j < p ? Fac{0, j} : a;
+        out = flat;
+      }
+    } else if (T.mode == 1) {
+      if (c < T.ng * T.nv) {
+        const int gi = c / T.nv, sv = T.s_lo + c % T.nv;
+        a = Fac{1, sv - T.s_lo};
+        b = Fac{2, gi * F_YLD + span_of(y_run(gi))};
+        out = (T.g_lo + gi) * nS + sv;
+      }
+    } else if (c < T.nww) {
+      int i = 0;
+      while ((i + 1) * (i + 2) / 2 <= c) ++i;
+      a = Fac{0, i};
+      b = Fac{0, c - i * (i + 1) / 2};
+      out = c;
+    } else if (c - T.nww < T.ng * p1) {
+      const int gi = (c - T.nww) / p1, j = (c - T.nww) - gi * p1;
+      const Fac y{2, gi * F_YLD + span_of(y_run(gi))};
+      a = j < p ? Fac{0, j} : y;
+      b = y;
+      out = (F_TC * ((ntri + F_TC - 1) / F_TC)) + (T.g_lo + gi) * p1 + j;
+    }
+    return out;
+  };
+  Fac fa[4], fb[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) decode(warp * 32 + nt * 8 + g, fa[nt], fb[nt]);
+  {
+    Fac a, b;
+    outcol[tid] = decode(tid, a, b);   // F_THREADS == F_TC
+  }
+
+  // chunk ch into raw stage b
+  auto load = [&](int b, int ch) {
+    const int r0 = ch * F_RC, rows = min(F_RC, R - r0);
+    float* rb = raw(b);
+    const int vw = (p + 3 + 3) / 4, vg = (T.nvar + 3 + 3) / 4;
+    for (int e = tid; e < rows * (vw + vg); e += F_THREADS) {
+      const int r = e / (vw + vg), v = e - r * (vw + vg);
+      const float* row = WGo + (int64_t)(r0 + r) * ps;
+      const bool w = v < vw;
+      const int cnt = w ? p : T.nvar;
+      const float* src = w ? row : row + p + T.s_lo;
+      const int vv = w ? v : v - vw;
+      if (cnt > 0 && 4 * vv < span_of(src) + cnt)
+        cp_async16(rb + r * F_RW + (w ? 0 : F_WSEG) + 4 * vv,
+                   src - span_of(src) + 4 * vv);
+    }
+    const int vy = (rows + 3 + 3) / 4;
+    for (int e = tid; e < (T.ng + 1) * vy; e += F_THREADS) {
+      const int gi = e / vy, v = e - gi * vy;
+      const float* src = (gi < T.ng ? y_run(gi) : So) + r0;
+      if (4 * v < span_of(src) + rows)
+        cp_async16((gi < T.ng ? raw_y(b) + gi * F_YLD : raw_s(b)) + 4 * v,
+                   src - span_of(src) + 4 * v);
+    }
+  };
+
+  // the grid point of this thread's weights and its delta
+  const int kw = tid % F_TK, k = k0 + kw;
+  const float dk = k < K ? (float)sigmoid(logit_at(lo, hi, K, k)) : 1.0f;
+  const int offS = span_of(So);
+  float ldacc = 0.0f;
+  // chunk ch's weights (raw stage b) -> (hi, lo) pairs of buffer wb: rows
+  // 8 quarter .. 8 quarter + 7, one quarter between each two 8-row steps
+  // of the chunk before
+  auto weights = [&](int b, int wb, int ch, int quarter) {
+    const int r0 = ch * F_RC;
+    const float* sv = raw_s(b) + offS;
+    float* dst = wsplit + wb * 2 * F_RC * F_WLD2 + 2 * kw;
+    for (int r = 8 * quarter + tid / F_TK; r < 8 * quarter + 8;
+         r += F_THREADS / F_TK) {
+      float w = 0.0f;
+      if (r0 + r < R) {
+        const float d = (1.0f - dk) * sv[r] + dk;
+        w = rcp_f32(d);
+        if (do_ld && k < K) ldacc += log(d);
+      }
+      float h, l;
+      tf32_split(w, h, l);
+      store_pair(dst + 2 * r * F_WLD2, h, l, true, true);
+    }
+  };
+
+  float acc[4][4][4], part[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+
+  const int nloc = ch1 - ch0;
+  const uintptr_t wq = (reinterpret_cast<uintptr_t>(WGo) >> 2) & 3;
+  if (nloc > 0) load(0, ch0);
+  cp_async_commit();
+  if (nloc > 1) load(1, ch0 + 1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  if (nloc > 0)
+    for (int q = 0; q < 4; ++q) weights(0, 0, ch0, q);
+  for (int i = 0; i < nloc; ++i) {
+    cp_async_wait<0>();   // chunk i + 1 landed
+    // chunk i + 1 seen by every thread, chunk i - 1's sums done
+    __syncthreads();
+    if (i + 2 < nloc) load((i + 2) % F_STAGES, ch0 + i + 2);
+    cp_async_commit();
+    const bool more = i + 1 < nloc;
+    const int b = i % F_STAGES, r0 = (ch0 + i) * F_RC;
+    const float* rows = raw(b);
+    const float* ys = raw_y(b);
+    const float* ws = wsplit + (i & 1) * 2 * F_RC * F_WLD2 + 2 * g;
+    // the offsets of row r0's W and variants in their spans
+    const int q0 = (int)((wq + (uint64_t)(r0) * ps) & 3);
+    const int psq = ps & 3, sq = (p + T.s_lo) & 3;
+    // the 8-row steps in order, not unrolled (fewer live registers), a
+    // quarter of the next chunk's weights before each (their arithmetic
+    // issues while the warp's products run); a fresh partial each F_FRESH
+    // steps, then added to the sums
+#pragma unroll 1
+    for (int c8 = 0; c8 < F_RC; c8 += 8) {
+      if (more)
+        weights((i + 1) % F_STAGES, (i + 1) & 1, ch0 + i + 1, c8 / 8);
+      float ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+          load_pair(ws + 2 * ((c8 + t + 4 * (ii >> 1)) * F_WLD2 + mt * 16 +
+                              8 * (ii & 1)),
+                    ah[mt][ii], al[mt][ii]);
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int r = c8 + t + 4 * ii;
+        const int offW = (q0 + r * psq) & 3, offG = (offW + sq) & 3;
+        const float* row = rows + r * F_RW;
+        const bool live = r0 + r < R;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float x = fac_value(fa[nt], row, offW, offG, ys, r) *
+                          fac_value(fb[nt], row, offW, offG, ys, r);
+          tf32_split(live ? x : 0.0f, bh[nt][ii], bl[nt][ii]);
+        }
+      }
+      const int step = c8 / 8;
+      tf32x3_tiles(part, ah, al, bh, bl, step % F_FRESH == 0);
+      if (step % F_FRESH == F_FRESH - 1) tf32_flush(acc, part);
+    }
+  }
+  cp_async_wait<0>();
+
+  if (do_ld) {   // sum log d of the split's rows, its two halves in order
+    ldred[(tid / F_TK) * F_TK + kw] = ldacc;
+    __syncthreads();
+    if (tid < F_TK)
+      ldbuf[((int64_t)z * nrho + o) * Kp + k0 + tid] =
+          ldred[tid] + ldred[F_TK + tid];
+  }
+  // d[i] of tile (mt, nt): grid point mt 16 + g + 8 (i >> 1), column
+  // warp 32 + nt 8 + 2t + (i & 1)
+  const int Cpad = T.mode == 0 ? Cg : (T.mode == 1 ? Cy : Csh);
+  float* out = (T.mode == 0 ? geno : (T.mode == 1 ? gy : shs)) +
+               ((int64_t)z * nrho + o) * Cpad * Kp + k0;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int oc = outcol[warp * 32 + nt * 8 + 2 * t + e];
+      if (oc < 0) continue;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          out[(int64_t)oc * Kp + mt * 16 + g + 8 * h] = acc[mt][nt][2 * h + e];
+    }
+}
+
+// The float32 context's scratch, in floats, each 64-float aligned (RS the
+// sums' split of the rows; the ld, shs, geno and gy buffers as Layout's,
+// with RB = RS and no weights buffer)
+Layout layout32(int nrho, int R, int K, int p, int nS, int genes) {
+  Layout L;
+  L.Kp = round_up(K, F_TK);
+  L.Rp = round_up(R, F_RC);
+  L.ntri = (int64_t)p * (p + 1) / 2;
+  L.p1 = p + 1;
+  L.Cg = round_up((int64_t)nS * L.p1, F_TC);
+  const int64_t per_gene = nrho * L.Kp * (nS + 2 * L.p1) * 4;
+  int64_t gc = CAP / (per_gene > 0 ? per_gene : 1);
+  L.Gc = gc < 1 ? 1 : (gc > genes ? genes : gc);
+  L.Cy = round_up(L.Gc * nS, F_TC);
+  L.Csh = round_up(L.ntri, F_TC) + round_up(L.Gc * L.p1, F_TC);
+  // split the rows over up to 8 blocks: the split count that takes the
+  // least time on the card's 264 block slots (2 blocks an SM, 132 SMs),
+  // in rows a block walks: whole waves of R / rs rows, and each split's
+  // partial sums written and read back (F_ROWS_A_BYTE rows a byte: on an
+  // H100 a block reduces ~5 rows in the time the card moves ~1 MB of them)
+  const Tiling32 T = tiling32(p, nS, (int)L.Gc, true);
+  const int64_t blocks = (int64_t)(T.ntg + T.nty + T.nsh) * (L.Kp / F_TK) *
+                         nrho;
+  const int64_t nch = L.Rp / F_RC;
+  const double split_bytes = 2.0 * 4 * nrho * L.Kp *
+                             (double)(L.Cg + L.Cy + L.Csh);
+  double best = 1e300;
+  L.RS = 1;
+  for (int rs = 1; rs <= 8 && rs <= nch; ++rs) {
+    const double cost = (double)((blocks * rs + 263) / 264) * R / rs +
+                        F_ROWS_A_BYTE * rs * split_bytes;
+    if (cost < best) {
+      best = cost;
+      L.RS = rs;
+    }
+  }
+  // a gene chunk's scratch within CAP with its splits
+  const int64_t per_split_gene = per_gene * L.RS;
+  if (L.Gc > 1 && L.Gc * per_split_gene > CAP)
+    L.Gc = CAP / per_split_gene < 1 ? 1 : CAP / per_split_gene;
+  L.Cy = round_up(L.Gc * nS, F_TC);
+  L.Csh = round_up(L.ntri, F_TC) + round_up(L.Gc * L.p1, F_TC);
+  L.RB = L.RS;
+  L.w = 0;
+  L.ld = 0;
+  L.shs = L.ld + round_up(L.RS * nrho * L.Kp, 64);
+  L.geno = L.shs + round_up(L.RS * nrho * L.Csh * L.Kp, 64);
+  L.gy = L.geno + round_up(L.RS * nrho * L.Cg * L.Kp, 64);
+  L.total = L.gy + round_up(L.RS * nrho * L.Cy * L.Kp, 64);
+  return L;
+}
+
+int run32(const Args<float>& a, void* work, cudaStream_t stream) {
+  if (a.p < 1 || a.p > F_MAXP) return (int)cudaErrorInvalidValue;
+  const Layout L = layout32(a.nrho, a.R, a.K, a.p, a.nS, a.genes);
+  float* base = static_cast<float*>(work);
+  auto sk = sums_f32_kernel;
+  // the shared-memory limit, raised once a process
+  static const int attr = (int)cudaFuncSetAttribute(
+      sk, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (attr) return attr;
+  for (int g0 = 0; g0 < a.genes; g0 += (int)L.Gc) {
+    const int gc = (int)(a.genes - g0 < L.Gc ? a.genes - g0 : L.Gc);
+    const Tiling32 T = tiling32(a.p, a.nS, gc, g0 == 0);
+    const dim3 grid((unsigned)(T.ntg + T.nty + T.nsh),
+                    (unsigned)(L.Kp / F_TK), (unsigned)(a.nrho * L.RS));
+    sk<<<grid, F_THREADS, F_SMEM, stream>>>(
+        a.Sv, a.WGt, a.yt, base + L.ld, base + L.geno, base + L.gy,
+        base + L.shs, a.lo, a.hi, a.K, (int)L.Kp, a.nrho, a.R, a.p, a.nS,
+        (int)L.Cg, (int)L.Cy, (int)L.Csh, (int)L.RS, g0, gc,
+        g0 == 0 ? 1 : 0);
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    err = a.reml ? epilogue<float, float, true>(a, L, base, g0, gc, stream)
+                 : epilogue<float, float, false>(a, L, base, g0, gc, stream);
+    if (err) return err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // Bytes of scratch a crm_delta_grid call with these sizes needs (nrho the
@@ -714,10 +1159,17 @@ extern "C" int crm_delta_grid(const double* Sv, const double* WGt,
                 : run<double, double>(a, work, stream);
 }
 
+// Bytes of scratch a crm_delta_grid_f32 call with these sizes needs.
+extern "C" int64_t crm_delta_grid_f32_workspace(int nrho, int R, int K,
+                                                int p, int nS, int genes) {
+  return layout32(nrho, R, K, p, nS, genes).total * (int64_t)sizeof(float);
+}
+
 // The float32 context: the operands of crm_delta_grid in f32 (the working
-// type float; the scratch crm_delta_grid_workspace(..., fast32 = 1)
-// bytes) -> br_lo, br_hi (genes, nS, nrho) f64 holding the f32-rounded grid
-// logits.
+// type float; 1 <= p + 1 <= 16; the scratch crm_delta_grid_f32_workspace
+// bytes) -> br_lo, br_hi (genes, nS, nrho) f64 holding the f32-rounded
+// grid logits (REML) or the f64 logits (ML).  Two launches a gene chunk:
+// sums_f32_kernel, then the epilogue.
 extern "C" int crm_delta_grid_f32(const float* Sv, const float* WGt,
                                   const float* yt, const float* CWW,
                                   const float* CWy, const float* Cyy,
@@ -731,5 +1183,5 @@ extern "C" int crm_delta_grid_f32(const float* Sv, const float* WGt,
   const Args<float> a{Sv,   WGt,   yt,    CWW, CWy, Cyy, CWg,  Cgy,
                       Cgg,  ld_xx, slot,  br_lo, br_hi, lo, hi, K,
                       n,    nrho,  R,     p,   nS,  genes, reml != 0};
-  return run<float, float>(a, work, stream);
+  return run32(a, work, stream);
 }

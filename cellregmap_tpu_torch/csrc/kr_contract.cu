@@ -32,20 +32,24 @@
 //   over a block's warps.
 //
 // The float32 context (the screen's, cellregmap_tpu/engine.py:316-326 run
-// on an f32 NullContext) takes the same contraction in f32 with f32 sums:
-// kr_f32_kernel below, plain FP32 FMA on the CUDA cores.  mma.sync has no
-// f32 form, and TF32 (10 mantissa bits) is not the reference's f32.  A
-// block is a 64 (k) x 64 (s) tile of one column j of V, 256 threads of 4 x
-// 4 sums each, over a two-stage cp.async ring of 16-cell chunks of U, G and
-// V[:, j]; each staged G value is scaled by V[n, j] as it is read (the
-// product rounded to f32, as the plain version's `V[:, j] * G`).  Its
-// bound at the screen's T (n = 2000, K = R = 1000, C = 10, S = 1024) is
-// operations: 2 n K C S = 4.1e10 flop, 0.61 ms at 67 TFLOP/s.
+// on an f32 NullContext) takes the same contraction in f32 with f32 sums,
+// two routes chosen by K:
+// * K > 32 (T, the effect sizes' Ua, C > 32): kr_tf32_kernel below,
+//   split-TF32 products on the tensor cores (tf32mma.cuh: each operand
+//   hi + lo in TF32, three products a term, a fresh f32 partial a step):
+//   f32-accurate sums on the 495 TFLOP/s TF32 rate instead of the 67 of
+//   the FP32 pipes.  Its bound at the screen's T (n = 2000, K = R = 1000,
+//   C = 10, S = 1024) is operations: 3 x 2 n K C S = 1.2e11 TF32 flop,
+//   0.248 ms (0.611 ms for the same sums by FP32 FMA).
+// * K <= 32 (the context Grams A^T A, A^T W): kr_small_f32_kernel, FP32
+//   FMA with the cells split over a block's warps and over blocks, the
+//   blocks' partial sums added in a fixed order by a second launch.
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "async_copy.cuh"
 #include "dmma.cuh"
+#include "tf32mma.cuh"
 
 namespace {
 
@@ -340,89 +344,329 @@ int launch(const double* U, const double* V, const double* G, double* M,
 }
 
 // ---------------------------------------------------------------------------
-// The float32 context: FP32 FMA, a 64 x 64 tile of one column of V a block
+// The float32 context, K > 32: split TF32 on the tensor cores
 // ---------------------------------------------------------------------------
-constexpr int F_THREADS = 256;  // 16 x 16 threads, 4 x 4 sums each
-constexpr int F_BM = 64;        // k rows a block
-constexpr int F_BS = 64;        // s columns a block
-constexpr int F_NC = 16;        // cells a staged chunk
+// A block is a 128 (k) x 128 (column) tile of M = U^T B, B the Khatri-Rao
+// operand B[n, (j, s)] = V[n, j] G[n, s] of two columns of V (j0, j0 + 1)
+// and 64 of G; 8 warps, 2 (k) x 4 (columns), each a 64 x 32 sub-tile (4 x
+// 4 m16n8k8 tiles).  32-cell chunks of U, G and V arrive in a 3-stage ring
+// of cp.async copies (16 bytes where the rows allow); each staged value is
+// then split once, U[n, k] and V[n, j] G[n, s] (rounded to f32 as the
+// plain version's `V[:, j] * G`), into (hi, lo) pairs of a second,
+// double-buffered pair of tiles, rows padded to 4 mod 16 pairs so that a
+// half-warp's fragment loads fall in distinct banks.  A chunk's split runs
+// a chunk ahead of its products, one barrier a chunk.
+constexpr int T_THREADS = 256;
+constexpr int T_BM = 128;             // k rows a block
+constexpr int T_JB = 2;               // columns of V a block
+constexpr int T_BS = 64;              // columns of G a block
+constexpr int T_BC = T_JB * T_BS;     // Khatri-Rao columns a block
+constexpr int T_NC = 32;              // cells a chunk
+constexpr int T_STAGES = 3;
+constexpr int T_LD2 = 132;            // (hi, lo) pairs a split row
+constexpr int T_FRESH = 1;            // 8-cell steps a partial
+constexpr int T_RAW = T_NC * (T_BM + T_BS + T_JB);   // floats a raw stage
+constexpr int T_SPLIT = 2 * T_NC * T_LD2;            // floats a split tile
+constexpr int T_SMEM = 4 * (T_STAGES * T_RAW + 4 * T_SPLIT);   // bytes
 
-__global__ void __launch_bounds__(F_THREADS)
-kr_f32_kernel(const float* __restrict__ U, const float* __restrict__ V,
-              const float* __restrict__ G, float* __restrict__ M, int n,
-              int K, int p, int S) {
-  __align__(16) __shared__ float us[2][F_NC][F_BM];
-  __align__(16) __shared__ float gs[2][F_NC][F_BS];
-  __shared__ float vs[2][F_NC];
-  const int s0 = blockIdx.x * F_BS, k0 = blockIdx.y * F_BM, j = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+__global__ void __launch_bounds__(T_THREADS, 1)
+kr_tf32_kernel(const float* __restrict__ U, const float* __restrict__ V,
+               const float* __restrict__ G, float* __restrict__ M, int n,
+               int K, int p, int S, int vec_u, int vec_g) {
+  extern __shared__ __align__(16) unsigned char kr_tf32_dyn[];
+  float* sm = reinterpret_cast<float*>(kr_tf32_dyn);
+  const int s0 = blockIdx.x * T_BS, k0 = blockIdx.y * T_BM;
+  const int j0 = blockIdx.z * T_JB;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk = warp & 1, wc = warp >> 1;   // the warp's sub-tile
 
+  auto raw_u = [&](int b) { return sm + b * T_RAW; };
+  auto raw_g = [&](int b) { return raw_u(b) + T_NC * T_BM; };
+  auto raw_v = [&](int b) { return raw_g(b) + T_NC * T_BS; };
+  // split tiles: U's (cell, k) and B's (cell, column) pairs
+  auto split_a = [&](int b) { return sm + T_STAGES * T_RAW + b * 2 * T_SPLIT; };
+  auto split_b = [&](int b) { return split_a(b) + T_SPLIT; };
+
+  // chunk `chunk` into raw stage b (cells past n and columns past K, S
+  // are left as they are: the split masks them)
   auto load = [&](int b, int chunk) {
-    const int n0 = chunk * F_NC;
-    for (int e = tid; e < F_NC * F_BM; e += F_THREADS) {
-      const int r = e / F_BM, c = e - r * F_BM;
-      float* d = &us[b][r][c];
-      if (n0 + r < n && k0 + c < K)
-        cp_async4(d, U + (int64_t)(n0 + r) * K + k0 + c);
-      else
-        *d = 0.0f;
+    const int n0 = chunk * T_NC;
+    if (vec_u) {
+      for (int e = tid; e < T_NC * T_BM / 4; e += T_THREADS) {
+        const int r = e / (T_BM / 4), c = 4 * (e % (T_BM / 4));
+        if (n0 + r < n && k0 + c < K)
+          cp_async16(raw_u(b) + r * T_BM + c,
+                     U + (int64_t)(n0 + r) * K + k0 + c);
+      }
+    } else {
+      for (int e = tid; e < T_NC * T_BM; e += T_THREADS) {
+        const int r = e / T_BM, c = e % T_BM;
+        if (n0 + r < n && k0 + c < K)
+          cp_async4(raw_u(b) + e, U + (int64_t)(n0 + r) * K + k0 + c);
+      }
     }
-    for (int e = tid; e < F_NC * F_BS; e += F_THREADS) {
-      const int r = e / F_BS, c = e - r * F_BS;
-      float* d = &gs[b][r][c];
-      if (n0 + r < n && s0 + c < S)
-        cp_async4(d, G + (int64_t)(n0 + r) * S + s0 + c);
-      else
-        *d = 0.0f;
+    if (vec_g) {
+      for (int e = tid; e < T_NC * T_BS / 4; e += T_THREADS) {
+        const int r = e / (T_BS / 4), c = 4 * (e % (T_BS / 4));
+        if (n0 + r < n && s0 + c < S)
+          cp_async16(raw_g(b) + r * T_BS + c,
+                     G + (int64_t)(n0 + r) * S + s0 + c);
+      }
+    } else {
+      for (int e = tid; e < T_NC * T_BS; e += T_THREADS) {
+        const int r = e / T_BS, c = e % T_BS;
+        if (n0 + r < n && s0 + c < S)
+          cp_async4(raw_g(b) + e, G + (int64_t)(n0 + r) * S + s0 + c);
+      }
     }
-    for (int r = tid; r < F_NC; r += F_THREADS) {
-      if (n0 + r < n)
-        cp_async4(&vs[b][r], V + (int64_t)(n0 + r) * p + j);
-      else
-        vs[b][r] = 0.0f;
+    for (int e = tid; e < T_NC * T_JB; e += T_THREADS) {
+      const int r = e / T_JB, jj = e % T_JB;
+      if (n0 + r < n && j0 + jj < p)
+        cp_async4(raw_v(b) + e, V + (int64_t)(n0 + r) * p + j0 + jj);
     }
   };
 
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-
-  const int chunks = (n + F_NC - 1) / F_NC;
-  load(0, 0);
-  cp_async_commit();
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) load((c + 1) & 1, c + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // chunk c landed for every thread
-    const int b = c & 1;
-#pragma unroll
-    for (int r = 0; r < F_NC; ++r) {
-      float a[4], g[4];
-      load4(&us[b][r][ty * 4], a);
-      load4(&gs[b][r][tx * 4], g);
-      const float v = vs[b][r];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float gv = v * g[q];  // V G rounded as the plain version's
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][q] = fmaf(a[i], gv, acc[i][q]);
+  // raw stage b (chunk `chunk`) -> (hi, lo) tiles of buffer sb, in pairs
+  // of neighbouring values (a thread's pair one 16-byte store, the warp's
+  // stores contiguous); zero outside the operands.  A chunk's 4096 pairs
+  // (U's, then B's), 16 a thread, in four quarters (`quarter`), one
+  // before each 8-cell step of the chunk before.
+  auto split = [&](int b, int sb, int chunk, int quarter) {
+    const int n0 = chunk * T_NC;
+    for (int i = 4 * quarter; i < 4 * quarter + 4; ++i) {
+      int u = tid + i * T_THREADS;
+      const bool is_a = u < T_NC * T_BM / 2;
+      u -= is_a ? 0 : T_NC * T_BM / 2;
+      const int w = is_a ? T_BM / 2 : T_BC / 2;   // pairs a row
+      const int r = u / w, c = 2 * (u - r * w);
+      float x0, x1, v = 1.0f;
+      bool ok0 = n0 + r < n, ok1 = ok0;
+      if (is_a) {
+        load_pair(raw_u(b) + r * T_BM + c, x0, x1);
+        ok0 = ok0 && k0 + c < K;
+        ok1 = ok1 && k0 + c + 1 < K;
+      } else {
+        const int jj = c / T_BS, sc = c - jj * T_BS;
+        load_pair(raw_g(b) + r * T_BS + sc, x0, x1);
+        v = raw_v(b)[r * T_JB + jj];
+        ok0 = ok0 && j0 + jj < p && s0 + sc < S;
+        ok1 = ok0 && s0 + sc + 1 < S;
       }
+      // V G rounded as the plain version's (v = 1 for U)
+      float q[4];
+      tf32_split(ok0 ? v * x0 : 0.0f, q[0], q[1]);
+      tf32_split(ok1 ? v * x1 : 0.0f, q[2], q[3]);
+      store4((is_a ? split_a(sb) : split_b(sb)) + 2 * (r * T_LD2 + c), q);
     }
-    __syncthreads();  // every thread is done with buffer b before its reload
+  };
+
+  float acc[4][4][4], part[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+
+  const int chunks = (n + T_NC - 1) / T_NC;
+#pragma unroll
+  for (int c = 0; c < T_STAGES; ++c) {
+    if (c < chunks) load(c, c);
+    cp_async_commit();
+  }
+  cp_async_wait<T_STAGES - 1>();
+  __syncthreads();
+  for (int q = 0; q < 4; ++q) split(0, 0, 0, q);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<T_STAGES - 2>();   // chunk c + 1 landed
+    // chunk c + 1 seen by every thread, chunk c - 1's products done
+    __syncthreads();
+    if (c + T_STAGES < chunks) load(c % T_STAGES, c + T_STAGES);
+    cp_async_commit();
+    const bool more = c + 1 < chunks;
+    const float* sa = split_a(c & 1) + 2 * (wk * 64 + g);
+    const float* sbt = split_b(c & 1) + 2 * (wc * 32 + g);
+    // the 8-cell steps in order, not unrolled (fewer live registers), a
+    // quarter of the next chunk's split before each (the warp's loads,
+    // arithmetic and stores issue while its products run); a fresh
+    // partial each T_FRESH steps, then added to the sums
+#pragma unroll 1
+    for (int c8 = 0; c8 < T_NC; c8 += 8) {
+      if (more) split((c + 1) % T_STAGES, (c + 1) & 1, c + 1, c8 / 8);
+      float ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          load_pair(sa + 2 * ((c8 + t + 4 * (i >> 1)) * T_LD2 + mt * 16 +
+                              8 * (i & 1)),
+                    ah[mt][i], al[mt][i]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          load_pair(sbt + 2 * ((c8 + t + 4 * i) * T_LD2 + nt * 8),
+                    bh[nt][i], bl[nt][i]);
+      const int step = c8 / 8;
+      tf32x3_tiles(part, ah, al, bh, bl, step % T_FRESH == 0);
+      if (step % T_FRESH == T_FRESH - 1) tf32_flush(acc, part);
+    }
   }
   cp_async_wait<0>();
+
+  // d[i] of tile (mt, nt): row mt 16 + g + 8 (i >> 1), column nt 8 + 2t +
+  // (i & 1); a pair of neighbouring s a store where S is even
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int sc = s0 + tx * 4 + q;
-      if (k < K && sc < S) M[((int64_t)k * p + j) * S + sc] = acc[i][q];
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = k0 + wk * 64 + mt * 16 + g + 8 * h;
+        const int c = wc * 32 + nt * 8 + 2 * t;
+        const int j = j0 + c / T_BS, sc = s0 + c % T_BS;
+        if (k >= K || j >= p || sc >= S) continue;
+        float* dst = M + ((int64_t)k * p + j) * S + sc;
+        store_pair(dst, acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1],
+                   sc + 1 < S, (S & 1) == 0);
+      }
+}
+
+// ---------------------------------------------------------------------------
+// The float32 context, K <= 32: FP32 FMA, the cells split over warps and
+// blocks
+// ---------------------------------------------------------------------------
+// A block is a (32 s, JB j) tile of all K rows, its 8 warps over the cells
+// of the block's share (blockIdx.z of `splits`), a cell at a time: lane l
+// takes s0 + l, U's row and V's columns are loads every lane of the warp
+// shares.  The warps' sums are added in shared memory in warp order, and
+// the splits' (written to `part`) by kr_splits_kernel in split order, so a
+// result never depends on the schedule.  splits = 1: M directly.
+constexpr int S_WARPS = 8;
+
+template <int KM, int JB>
+__global__ void __launch_bounds__(32 * S_WARPS)
+kr_small_f32_kernel(const float* __restrict__ U, const float* __restrict__ V,
+                    const float* __restrict__ G, float* __restrict__ M,
+                    float* __restrict__ part, int n, int K, int p, int S) {
+  extern __shared__ __align__(16) unsigned char kr_small32_dyn[];
+  float* red = reinterpret_cast<float*>(kr_small32_dyn);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int s = blockIdx.x * 32 + lane, j0 = blockIdx.y * JB;
+  const int z = blockIdx.z, splits = gridDim.z;
+  const int n0 = (int)((int64_t)z * n / splits);
+  const int n1 = (int)((int64_t)(z + 1) * n / splits);
+  const bool live = s < S;
+
+  float acc[KM][JB];
+#pragma unroll
+  for (int k = 0; k < KM; ++k)
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj) acc[k][jj] = 0.0f;
+
+#pragma unroll 4
+  for (int nn = n0 + warp; nn < n1; nn += S_WARPS) {
+    const float gv = live ? G[(int64_t)nn * S + s] : 0.0f;
+    float vg[JB];
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj)   // V G rounded as the plain version's
+      vg[jj] = j0 + jj < p ? V[(int64_t)nn * p + j0 + jj] * gv : 0.0f;
+    const float* u = U + (int64_t)nn * K;
+#pragma unroll
+    for (int k = 0; k < KM; ++k) {
+      if (k < K) {
+        const float uk = u[k];
+#pragma unroll
+        for (int jj = 0; jj < JB; ++jj) acc[k][jj] = fmaf(uk, vg[jj], acc[k][jj]);
+      }
     }
   }
+
+#pragma unroll
+  for (int k = 0; k < KM; ++k)
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj)
+      red[((warp * KM + k) * JB + jj) * 32 + lane] = acc[k][jj];
+  __syncthreads();
+  for (int e = threadIdx.x; e < KM * JB * 32; e += 32 * S_WARPS) {
+    const int k = e / (JB * 32), jj = (e / 32) % JB;
+    const int sc = blockIdx.x * 32 + e % 32, j = j0 + jj;
+    if (k >= K || j >= p || sc >= S) continue;
+    float v = red[e];
+#pragma unroll
+    for (int w = 1; w < S_WARPS; ++w) v += red[w * KM * JB * 32 + e];
+    const int64_t at = ((int64_t)k * p + j) * S + sc;
+    if (splits == 1)
+      M[at] = v;
+    else
+      part[(int64_t)z * K * p * S + at] = v;
+  }
+}
+
+// M = the splits' partial sums, added in split order
+__global__ void __launch_bounds__(256)
+kr_splits_kernel(const float* __restrict__ part, float* __restrict__ M,
+                 int64_t total, int splits) {
+  const int64_t e = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  if (e >= total) return;
+  float v = part[e];
+  for (int z = 1; z < splits; ++z) v += part[z * total + e];
+  M[e] = v;
+}
+
+// the splits of the cells for a small-K call: enough blocks for two a SM
+// (132 SMs), each split at least 64 cells, at most 16
+int small_splits(int n, int K, int p, int S, int jb) {
+  const int tiles = (S + 31) / 32 * ((p + jb - 1) / jb);
+  int z = (2 * 132 + tiles - 1) / tiles;
+  z = z > 16 ? 16 : z;
+  z = z > n / 64 ? n / 64 : z;
+  return z < 1 ? 1 : z;
+}
+
+int small_jb(int K, int p) {
+  if (K <= 16) return p >= 4 ? 4 : (p >= 2 ? 2 : 1);
+  return p >= 2 ? 2 : 1;
+}
+
+template <int KM, int JB>
+int launch_small_f32(const float* U, const float* V, const float* G, float* M,
+                     float* part, int n, int K, int p, int S,
+                     cudaStream_t stream) {
+  auto kernel = kr_small_f32_kernel<KM, JB>;
+  const int bytes = (int)sizeof(float) * S_WARPS * KM * JB * 32;
+  // the shared-memory limit, raised once a process
+  static const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err) return err;
+  const int splits = small_splits(n, K, p, S, JB);
+  const dim3 grid((S + 31) / 32, (p + JB - 1) / JB, splits);
+  kernel<<<grid, 32 * S_WARPS, bytes, stream>>>(U, V, G, M, part, n, K, p,
+                                                S);
+  int e = (int)cudaGetLastError();
+  if (e || splits == 1) return e;
+  const int64_t total = (int64_t)K * p * S;
+  auto reduce = kr_splits_kernel;
+  reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(part, M, total,
+                                                              splits);
+  return (int)cudaGetLastError();
+}
+
+int launch_tf32(const float* U, const float* V, const float* G, float* M,
+                int n, int K, int p, int S, cudaStream_t stream) {
+  auto kernel = kr_tf32_kernel;
+  // the shared-memory limit, raised once a process
+  static const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+  if (err) return err;
+  const dim3 grid((S + T_BS - 1) / T_BS, (K + T_BM - 1) / T_BM,
+                  (p + T_JB - 1) / T_JB);
+  const int vec_u = K % 4 == 0 && (reinterpret_cast<uintptr_t>(U) & 15) == 0;
+  const int vec_g = S % 4 == 0 && (reinterpret_cast<uintptr_t>(G) & 15) == 0;
+  kernel<<<grid, T_THREADS, T_SMEM, stream>>>(U, V, G, M, n, K, p, S, vec_u,
+                                              vec_g);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -442,14 +686,34 @@ extern "C" int crm_kr_contract(const double* U, const double* V,
                 : launch<1>(U, V, G, M, n, K, p, S, stream);
 }
 
+// Bytes of scratch a crm_kr_contract_f32 call with these sizes needs: the
+// small-K route's split partial sums (none for K > 32 or one split).
+extern "C" int64_t crm_kr_contract_f32_workspace(int n, int K, int p,
+                                                 int S) {
+  if (K > 32) return 0;
+  const int z = small_splits(n, K, p, S, small_jb(K, p));
+  return z > 1 ? (int64_t)z * K * p * S * (int64_t)sizeof(float) : 0;
+}
+
 // The float32 context's contraction: U (n, K), V (n, p), G (n, S), M (K,
-// p, S), all row-major f32 on the card, f32 sums.  Launches on `stream`;
-// returns cudaGetLastError().
+// p, S), all row-major f32 on the card, f32 sums; work:
+// crm_kr_contract_f32_workspace bytes on the card (null where 0).
+// Launches on `stream`; returns the first CUDA error of its launches.
 extern "C" int crm_kr_contract_f32(const float* U, const float* V,
-                                   const float* G, float* M, int n, int K,
-                                   int p, int S, cudaStream_t stream) {
-  const dim3 grid((S + F_BS - 1) / F_BS, (K + F_BM - 1) / F_BM, p);
-  auto kernel = kr_f32_kernel;
-  kernel<<<grid, F_THREADS, 0, stream>>>(U, V, G, M, n, K, p, S);
-  return (int)cudaGetLastError();
+                                   const float* G, float* M, void* work,
+                                   int n, int K, int p, int S,
+                                   cudaStream_t stream) {
+  float* part = static_cast<float*>(work);
+  if (K > 32) return launch_tf32(U, V, G, M, n, K, p, S, stream);
+  const int jb = small_jb(K, p);
+  if (K <= 16) {
+    if (jb == 4)
+      return launch_small_f32<16, 4>(U, V, G, M, part, n, K, p, S, stream);
+    if (jb == 2)
+      return launch_small_f32<16, 2>(U, V, G, M, part, n, K, p, S, stream);
+    return launch_small_f32<16, 1>(U, V, G, M, part, n, K, p, S, stream);
+  }
+  if (jb == 2)
+    return launch_small_f32<32, 2>(U, V, G, M, part, n, K, p, S, stream);
+  return launch_small_f32<32, 1>(U, V, G, M, part, n, K, p, S, stream);
 }

@@ -23,11 +23,12 @@ shared, and the results gain the same leading axis.  One launch serves
 every gene.
 
 The float32 context (the screen's) takes f32 operands (S, WGt, yt, the
-complements, ld_xx) and f32 working sums: an instantiation of its own
-(``crm_delta_grid_f32``), whose REML brackets (the interaction's) are the
-grid logits rounded to f32 (engine.py:528), widened exactly, and whose ML
-brackets (the association refit's) the f64 logits (:986-989); its plain
-version makes them alike.
+complements, ld_xx) and f32 working sums, p + 1 <= 16: an entry of its
+own (``crm_delta_grid_f32``: the weights and the sums in one kernel, as
+split-TF32 tensor-core products, then the epilogue), whose REML brackets
+(the interaction's) are the grid logits rounded to f32 (engine.py:528),
+widened exactly, and whose ML brackets (the association refit's) the f64
+logits (:986-989); its plain version makes them alike.
 
 The gene-batched association refit runs each gene at its own null's best
 rho alone: ``slot`` (one int per gene) names the rho row of S and WGt (the
@@ -53,6 +54,7 @@ launches = 0
 launches_f32 = 0  # of them, the float32 context's instantiation
 
 MAX_FIXED = 33      # p + 1 of the CUDA kernel's small algebra
+MAX_FIXED_F32 = 16  # p + 1 of the float32 context's entry
 MAX_GENES = 65535   # genes of one launch (a grid axis)
 
 
@@ -181,6 +183,8 @@ def _bind(lib):
     lib.crm_delta_grid_f32.argtypes = [vp] * 14 + [cd, cd] + [ci] * 8 + [vp]
     lib.crm_delta_grid_workspace.restype = ctypes.c_int64
     lib.crm_delta_grid_workspace.argtypes = [ci] * 7
+    lib.crm_delta_grid_f32_workspace.restype = ctypes.c_int64
+    lib.crm_delta_grid_f32_workspace.argtypes = [ci] * 6
 
 
 def gene_shape(yt):
@@ -240,10 +244,14 @@ def delta_grid(S, WGt, yt, comp: Complements, ld_xx, lo, hi, n_grid, n,
     if S.device.type == "cpu":
         return delta_grid_plain(S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n,
                                 fast, restricted, slot=slot)
-    check_operands("delta_grid", S, WGt, yt, comp, ld_xx, restricted, slot)
+    _, _, p, _, _ = check_operands("delta_grid", S, WGt, yt, comp, ld_xx,
+                                   restricted, slot)
     if S.dtype == torch.float32 and fast != torch.float32:
         raise TypeError("delta_grid: the float32 context's grid runs in "
                         "float32")
+    if S.dtype == torch.float32 and p + 1 > MAX_FIXED_F32:
+        raise ValueError(f"delta_grid: the float32 context needs p + 1 <= "
+                         f"{MAX_FIXED_F32} fixed effects, got {p + 1}")
     if slot is not None:
         slot = _build.upload(np.asarray(slot, dtype=np.int64), S.device)
     out = call(_build.load("delta_grid", _bind), S, WGt, yt, comp, ld_xx, lo,
@@ -272,10 +280,12 @@ def call(lib, S, WGt, yt, comp, ld_xx, lo, hi, n_grid, n, fast,
         br_lo.fill_(math.nan)
         br_hi.fill_(math.nan)
     genes, f32 = math.prod(gs), int(fast == torch.float32)
-    # the kernels' scratch: weights, shared and per-variant sums
-    work = torch.empty(lib.crm_delta_grid_workspace(nrho, R, n_grid, p, nS,
-                                                    genes, f32),
-                       dtype=torch.uint8, device=S.device)
+    # the kernels' scratch: (weights,) shared and per-variant sums
+    nbytes = (lib.crm_delta_grid_f32_workspace(nrho, R, n_grid, p, nS, genes)
+              if S.dtype == torch.float32 else
+              lib.crm_delta_grid_workspace(nrho, R, n_grid, p, nS, genes,
+                                           f32))
+    work = torch.empty(nbytes, dtype=torch.uint8, device=S.device)
     ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp)]
     ptrs += [_build.ptr(ld_xx) if restricted else None,
              None if slot is None else _build.ptr(slot), _build.ptr(br_lo),

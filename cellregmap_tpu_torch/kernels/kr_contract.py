@@ -4,8 +4,11 @@ On a CUDA tensor :func:`kr_contract` launches the hand-written kernel
 (``csrc/kr_contract.cu``); on a CPU tensor it runs :func:`kr_contract_plain`.
 The scan calls it three times per variant batch: T = Z^T (E0 o G) as
 (R, C, S), the context Grams A^T A as (C, C, S), and A^T W as (C, p, S).
-The float32 context (the screen's) takes f32 operands: an instantiation of
-its own, FP32 FMA with f32 sums (``crm_kr_contract_f32``).
+The float32 context (the screen's) takes f32 operands and f32 sums
+(``crm_kr_contract_f32``): for K > 32 split-TF32 products on the tensor
+cores (each operand split into two TF32 values, three products a term),
+for K <= 32 FP32 FMA with the cells split over warps and blocks, the
+blocks' partial sums in scratch added in a fixed order.
 """
 from __future__ import annotations
 
@@ -31,7 +34,10 @@ def _bind(lib):
     lib.crm_kr_contract.restype = ci
     lib.crm_kr_contract.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.crm_kr_contract_f32.restype = ci
-    lib.crm_kr_contract_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.crm_kr_contract_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                        vp]
+    lib.crm_kr_contract_f32_workspace.restype = ctypes.c_int64
+    lib.crm_kr_contract_f32_workspace.argtypes = [ci, ci, ci, ci]
 
 
 def kr_contract(U: torch.Tensor, V: torch.Tensor,
@@ -63,8 +69,16 @@ def call(lib, U, V, G, stream=None):
     M = torch.empty((K, p, S), dtype=U.dtype, device=U.device)
     if M.numel() == 0:
         return M
-    entry = (lib.crm_kr_contract_f32 if U.dtype == torch.float32
-             else lib.crm_kr_contract)
-    _build.check(entry(_build.ptr(U), _build.ptr(V), _build.ptr(G),
-                       _build.ptr(M), n, K, p, S, stream), "kr_contract")
+    ptrs = [_build.ptr(U), _build.ptr(V), _build.ptr(G), _build.ptr(M)]
+    if U.dtype == torch.float32:
+        # the small-K route's partial sums a split of the cells
+        nbytes = lib.crm_kr_contract_f32_workspace(n, K, p, S)
+        work = (torch.empty(nbytes, dtype=torch.uint8, device=U.device)
+                if nbytes else None)
+        err = lib.crm_kr_contract_f32(*ptrs, None if work is None
+                                      else _build.ptr(work), n, K, p, S,
+                                      stream)
+    else:
+        err = lib.crm_kr_contract(*ptrs, n, K, p, S, stream)
+    _build.check(err, "kr_contract")
     return M

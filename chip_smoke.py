@@ -122,8 +122,10 @@ import numpy as np
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the FP64
 # tensor-core rate (the FP32 rate outside the tensor cores is the same 67
-# TFLOP/s) and HBM3 bandwidth.  The bounds below are against these.
+# TFLOP/s), the TF32 tensor-core rate and HBM3 bandwidth.  The bounds
+# below are against these.
 PEAK_F64_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 F64 = 8
 DELTA_CFG = (-18.0, 18.0, 64, 60)          # the interaction's grid
@@ -201,8 +203,12 @@ def cuda_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
-def bound(flops, nbytes):
-    t_ops = flops / PEAK_F64_FLOPS * 1e3
+def bound(flops, nbytes, split_tf32=False):
+    """(ms, "operations" or "bytes"): the least time for ``flops`` and
+    ``nbytes``; ``split_tf32``: a split-TF32 route's (three TF32 products
+    a term, on the tensor cores), else the FP64 / FP32 rate's."""
+    t_ops = (3 * flops / PEAK_TF32_FLOPS if split_tf32
+             else flops / PEAK_F64_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -597,7 +603,10 @@ def check_delta_grid(call, library=True, plain_reps=10, tag=None):
     nbytes = (es * (WGt.numel() + (1 + genes) * S.numel()
                     + genes * nS * (p + 4))
               + F64 * genes * 2 * nS * nrho)
-    b_ms, b_by = bound(flops, nbytes)
+    # the float32 context's sums are split-TF32 products (the FP32 FMA
+    # figure beside them)
+    tf32 = S.dtype == torch.float32
+    b_ms, b_by = bound(flops, nbytes, split_tf32=tf32)
     lib_ms = None
     if library:
         # the JAX form: the (nrho, K, R) weights, materialized, against
@@ -621,6 +630,7 @@ def check_delta_grid(call, library=True, plain_reps=10, tag=None):
                          reps=plain_reps, warmup=min(2, plain_reps)),
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, flops=flops,
         nbytes=nbytes, bracket_shortfall=gap,
+        bound_fp32_ms=bound(flops, nbytes)[0] if tf32 else None,
         tolerance=f"plain lml at the kernel's grid point within {tol} "
                   "relative of the plain maximum")
 
@@ -2288,16 +2298,18 @@ def check_refit_genes(ctx_g, G, k, n, plain_reps=10):
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
     shared = nS * (p + 1) + p * (p + 1) // 2 + 1
-    b_ms, b_by = bound(
-        2 * K * R * (m * shared + genes * (nS + p + 1)),
-        S.element_size() * (WGt.numel() + S.numel() + genes * R
-                            + genes * nS * (p + 4))
-        + F64 * 2 * 2 * genes * nS)
+    flops = 2 * K * R * (m * shared + genes * (nS + p + 1))
+    nbytes = (S.element_size() * (WGt.numel() + S.numel() + genes * R
+                                  + genes * nS * (p + 4))
+              + F64 * 2 * 2 * genes * nS)
+    tf32 = S.dtype == torch.float32   # split-TF32 sums
+    b_ms, b_by = bound(flops, nbytes, split_tf32=tf32)
     grid = dict(
         max_abs_err=err, ms=cuda_ms(lambda: k2.delta_grid(*args, **kw)),
         plain_ms=cuda_ms(lambda: k2.delta_grid_plain(*args, **kw),
                          reps=min(3, plain_reps), warmup=1),
         bound_ms=b_ms, bound_by=b_by,
+        bound_fp32_ms=bound(flops, nbytes)[0] if tf32 else None,
         shapes=dict(genes=genes, slots=m, R=R, p=p, S=nS, K=K),
         tolerance=f"plain lml at the kernel's grid point within {tol} "
                   "relative of the plain maximum, at each gene's slot")
@@ -2993,7 +3005,9 @@ def check_f32_kernels(ctx32, G32, n):
     """The float32 context's instantiations on the operands of one screen
     batch (``engine.interaction_batch`` on an f32 context, with the device
     tails), each against its plain f32 version and timed beside it, its
-    bound (f32 operands at 4 bytes, the 67 TFLOP/s of FP32 and FP64) and
+    bound (f32 operands at 4 bytes, the 67 TFLOP/s of FP32 and FP64; for
+    the split-TF32 routes, K1 at K > 32 and K2, three TF32 products a term
+    at 495 TFLOP/s, the FP32 figure beside it as ``bound_fp32_ms``) and
     the library call where one exists: K1 (T, A^T A, A^T W: sums within
     sqrt(n) eps(f32) of the terms' magnitudes; ``matmul`` on the
     materialized V o G), K2 (brackets on the plain argmax or a tie within
@@ -3028,9 +3042,11 @@ def check_f32_kernels(ctx32, G32, n):
         del out, ref, mags
         nn, K = U.shape
         p, S = V.shape[1], Gm.shape[1]
-        b_ms, b_by = bound(2 * nn * K * p * S,
-                           F32 * (U.numel() + V.numel() + Gm.numel()
-                                  + K * p * S))
+        # K > 32: split-TF32 products on the tensor cores (the FP32 FMA
+        # figure beside them); K <= 32: FP32 FMA
+        flops = 2 * nn * K * p * S
+        nbytes = F32 * (U.numel() + V.numel() + Gm.numel() + K * p * S)
+        b_ms, b_by = bound(flops, nbytes, split_tf32=K > 32)
 
         def library():
             torch.matmul(U.T, (V[:, :, None] * Gm[:, None, :]).reshape(nn, -1))
@@ -3042,6 +3058,8 @@ def check_f32_kernels(ctx32, G32, n):
             ms=cuda_ms(lambda: k1.kr_contract(U, V, Gm)),
             plain_ms=cuda_ms(lambda: k1.kr_contract_plain(U, V, Gm)),
             bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library),
+            bound_fp32_ms=bound(flops, nbytes)[0],
+            route_kind="split TF32" if K > 32 else "FP32 FMA",
             shape=dict(n=nn, K=K, p=p, S=S), eps32_of_sums=ulp,
             tolerance="|err| <= sqrt(n) eps(f32) x sum |terms|"))
     rows.append(check_delta_grid(calls["delta_grid"][0], tag="f32"))
@@ -3120,10 +3138,12 @@ def check_f32_kernels(ctx32, G32, n):
     assert A.dtype == torch.float32
     rows.append(check_sym_eigvalsh(A, tol=1e-5, tag="f32"))
     for r in rows:
+        fp32 = r.get("bound_fp32_ms")
         print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
               f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
               f"{r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
-              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
+              + (f"  bound_fp32_ms {fp32:.4f}" if fp32 else ""), flush=True)
     return rows
 
 

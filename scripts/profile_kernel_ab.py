@@ -32,6 +32,15 @@ on the same operands, on one card in one process:
 * K9 on each of the 9 calls of one headline effect-size batch (512
   variants, Rk = 1000, q = 23: five f32 zoom rounds, three f64 rounds, the
   f64 fit with coefficients), each call apart and their sums by precision;
+* the float32 context's K1 (``k1f32``) on the three contractions of one
+  screen batch (the headline's context cast to f32 on the card, 1024
+  variants), each sum within sqrt(n) eps(f32) of the terms' magnitudes
+  of this checkout's plain version, and its K2 (``k2f32``) on that
+  batch's REML grid, on its 16-gene tile (Y = y + 0.1 N(0, 1), rng 13)
+  and on K7-f32's ML grid (the float32 Ls scanner, 512 variants), each
+  bracket on the plain grid's argmax or a tie within 1e-5; each call's
+  profile splits its time by launch (K2-f32: the weights, the sums and
+  the epilogue, or the sums and the epilogue);
 * K2 (``k2``, ``csrc/delta_grid.cu``) on the same three batches as K4
   below, each bracket on the plain grid's argmax or a tie within 1e-5
   (the float32 grid of hybrid localization);
@@ -69,7 +78,8 @@ runs, 10 for the localize and K9, 5 for K10) in the order other, this,
 this, other, and profiled with ``torch.profiler`` (device milliseconds a
 call in each kernel; None where the profiler saw no kernel).  Prints one JSON line per call and one of the whole;
 ``--out`` also writes that line to a file; ``--kernels`` picks some of
-k1, k2, k3, k10, k10mg, k6a, k9, k4, k3reg, k5, k3conv, k8, scan.  K8
+k1, k1f32, k2, k2f32, k3, k10, k10mg, k6a, k9, k4, k3reg, k5, k3conv, k8,
+scan.  K8
 (``csrc/fast_scan.cu``): the headline's Ls fast-scan batch (512
 variants at the null's best rho and delta) and the ``assoc_multigene_16``
 tile's batch (16 genes, each at its own), every output within 1e-10 of
@@ -103,6 +113,7 @@ from cellregmap_tpu_torch.kernels import sym_eigvalsh as k6a  # noqa: E402
 from cellregmap_tpu_torch.kernels import woodbury_family as k9  # noqa: E402
 
 KERNELS = {"k1": "kr_contract", "k2": "delta_grid", "k3": "reml_newton",
+           "k1f32": "kr_contract", "k2f32": "delta_grid",
            "k10": "null_fit",
            "k10mg": "null_fit", "k6a": "sym_eigvalsh",
            "k9": "woodbury_family", "k4": "best_rho_rotate",
@@ -408,6 +419,47 @@ def k8_calls(d, n, G, Ls):
     return out
 
 
+def f32_calls(d, n, Ls):
+    """The float32 context's K1 and K2 calls: K1's three (T, A^T A, A^T W)
+    and K2's REML grid of one screen batch (the headline's f64 context
+    cast to f32 on the card, 1024 variants, as ``chip_smoke`` holds them),
+    K2 on that batch's 16-gene tile (``screen_multigene_16``'s genes: Y =
+    y + 0.1 N(0, 1), rng 13) and K7-f32's ML grid (the float32 Ls
+    scanner's context, 512 variants at the null's best rho).  Returns
+    (K1's [(args, kw)], [(label, K2's (args, kw))])."""
+    f32 = torch.float32
+    ctx = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                    device="cuda")
+    ctx32 = engine.NullContext(*(t.to(f32) for t in ctx))
+    G32 = torch.as_tensor(d["G"][:, :2 * cs.BATCH], device="cuda",
+                          dtype=f32).contiguous()
+    screen = cs.capture_kernel_inputs(
+        lambda: engine.interaction_batch(ctx32, G32, G32, n,
+                                         delta_cfg=cs.DELTA_CFG),
+        ["kr_contract", "delta_grid"])
+    rng = np.random.default_rng(cs.SCREEN_MULTIGENE["seed"])
+    Y = d["y"][:, None] + 0.1 * rng.normal(
+        size=(n, cs.SCREEN_MULTIGENE["genes"]))
+    ctx_g = cs._gene_ctx(ctx32, Y)
+    genes = cs.capture_kernel_inputs(
+        lambda: engine.interaction_multigene_batch(ctx_g, G32, G32, n,
+                                                   delta_cfg=cs.DELTA_CFG),
+        ["delta_grid"])
+    c32 = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                    device="cuda", dtype=f32)
+    k = int(engine.null_association_fit(c32, n,
+                                        delta_cfg=cs.ASSOC_DELTA_CFG)[1])
+    G_ml = G32[:, :cs.BATCH].contiguous()
+    ml = cs.capture_kernel_inputs(
+        lambda: engine.association_refit_batch(c32, G_ml, k, n,
+                                               delta_cfg=cs.ASSOC_DELTA_CFG),
+        ["delta_grid"])
+    return screen["kr_contract"], [
+        ("screen batch, S = 1024", screen["delta_grid"][0]),
+        ("16 genes x 1024", genes["delta_grid"][0]),
+        ("K7 ML, S = 512", ml["delta_grid"][0])]
+
+
 def factors(got):
     """K4's factors per (gene, variant): this checkout's (At_slots, slot)
     gathered, an older checkout's At as it is."""
@@ -464,6 +516,46 @@ def main():
                 lambda a=args: ok["k1"].kr_contract(*a), check, reps=20))
             del ref
         del ctx, calls
+
+    if "k1f32" in picked or "k2f32" in picked:
+        k1_calls, k2_calls = f32_calls(d, n, Ls)
+        for (args, _), name in zip(k1_calls if "k1f32" in picked else [],
+                                   cs.K1_CALLS):
+            U = args[0]
+            ref = k1.kr_contract_plain(*args)
+            mags = k1.kr_contract_plain(*(a.double().abs() for a in args))
+
+            def check(label, got, ref=ref, mags=mags, name=name,
+                      nt=U.shape[0]):
+                cs._f32_sums_check(got, ref, mags, nt,
+                                   f"K1-f32 {name} ({label})")
+
+            out["calls"].append(compare(
+                f"kr_contract ({name}, f32)",
+                lambda a=args: k1.kr_contract(*a),
+                lambda a=args: ok["k1f32"].kr_contract(*a), check, reps=20))
+            del ref, mags
+        for label, (g_args, g_kw) in (k2_calls if "k2f32" in picked
+                                      else []):
+            lml = k2.delta_grid_plain(*g_args, **g_kw, return_lml=True)[2]
+            # the brackets' logits: f32 (REML), f64 (ML)
+            dt = (torch.float32 if g_kw.get("restricted", True)
+                  else torch.float64)
+
+            def check(side, got, lml=lml, a=g_args, label=label, dt=dt):
+                for g in np.ndindex(*got[0].shape[:-2]):
+                    gap = k2.bracket_shortfall(got[0][g], got[1][g],
+                                               lml[g], a[5], a[6], dt)
+                    assert gap <= 1e-5, f"K2-f32 {label} ({side}): {gap}"
+
+            out["calls"].append(compare(
+                f"delta_grid ({label}, f32)",
+                lambda a=g_args, k=g_kw: k2.delta_grid(*a, **k),
+                lambda a=g_args, k=g_kw: ok["k2f32"].delta_grid(*a, **k),
+                check, reps=20))
+            del lml
+        del k1_calls, k2_calls
+        torch.cuda.empty_cache()
 
     if "k3" in picked:
         rng = np.random.default_rng(cs.COVARIATES["seed"])

@@ -1349,3 +1349,178 @@ def test_float32_association_on_card_matches_cpu(cuda):
                   <= 1e-5 * np.abs(lml_c[flipped]))
     assert np.max(np.abs(bg_g - bg_c)[~flipped]) <= \
         1e-3 * np.max(np.abs(bg_c))
+
+
+# --------------------------------------------------------------------------
+# K1-f32 and K2-f32 as redesigned for the tensor cores: K1 at K > 32 and
+# K2's sums as split-TF32 products, K1 at K <= 32 split over the cells
+# --------------------------------------------------------------------------
+# K1-f32's shapes: the screen batch's three (T, A^T A, A^T W: n = 2000,
+# R = 1000, C = 10, p = 1, S = 1024), then odd ones on each route
+K1_F32_SHAPES = [(2000, 1000, 10, 1024), (2000, 10, 10, 1024),
+                 (2000, 10, 1, 1024), (997, 131, 7, 333), (1001, 45, 1, 70),
+                 (301, 17, 3, 129), (64, 33, 2, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positive", [False, True])
+@pytest.mark.parametrize("n,K,p,S", K1_F32_SHAPES)
+def test_kr_contract_f32_routes_on_card(cuda, n, K, p, S, positive):
+    """Each route against its plain f32 version, and against the f64
+    product of the same f32 operands, both within sqrt(n) eps(f32) of the
+    terms' magnitudes; ``positive``: every term of one sign (the tensor
+    core's own sums, which may round toward zero, would drift there over
+    a long chain: the split adds a fresh partial a step)."""
+    from cellregmap_tpu_torch.kernels import kr_contract as k1
+
+    rng = np.random.default_rng(n + K + p + S)
+    U, V, G = (torch.as_tensor(np.abs(a) if positive else a,
+                               dtype=torch.float32, device=cuda)
+               for a in (rng.normal(size=(n, K)), rng.normal(size=(n, p)),
+                         rng.normal(size=(n, S))))
+    before = k1.launches_f32
+    got = k1.kr_contract(U, V, G)
+    torch.cuda.synchronize()
+    assert k1.launches_f32 == before + 1 and got.dtype == torch.float32
+    mags = k1.kr_contract_plain(U.double().abs(), V.double().abs(),
+                                G.double().abs())
+    _f32_sums_close(got, k1.kr_contract_plain(U, V, G), mags, n)
+    _f32_sums_close(got, k1.kr_contract_plain(U.double(), V.double(),
+                                              G.double()), mags, n)
+
+
+def _f32_grid_call(cuda, genes, p, ml, n=600, S=1024, donors=60):
+    """K2-f32's arguments on a float32 context on the card: the
+    interaction's REML grid (11 rho, 64 points) or the association
+    refit's ML grid (256 points; genes > 1: each gene at its own rho)."""
+    from cellregmap_tpu_torch import engine
+
+    ctx, G, n = fit_dataset(700 + genes + p, p=p, nrho=11, n=n, C=10,
+                            donors=donors, S=S, device=cuda)
+    if genes > 1:
+        rng = np.random.default_rng(genes)
+        Y = ctx.y[None] + 0.6 * torch.as_tensor(rng.normal(size=(genes, n)),
+                                                device=cuda)
+        ctx = ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W,
+                           yy=(Y * Y).sum(dim=1))
+    ctx = engine.NullContext(*(t.to(torch.float32) for t in ctx))
+    G = G.to(torch.float32)
+    if not ml:
+        run = lambda: engine.interaction_batch(  # noqa: E731
+            ctx, G, G, n, delta_cfg=(-18.0, 18.0, 64, 60))
+    elif genes == 1:
+        run = lambda: engine.association_refit_batch(  # noqa: E731
+            ctx, G, 5, n, delta_cfg=(-18.0, 18.0, 256, 60))
+    else:
+        run = lambda: engine.association_refit_multigene_batch(  # noqa
+            ctx, G, np.arange(genes) % 3 + 4, n,
+            delta_cfg=(-18.0, 18.0, 256, 60))
+    (args, kw), = captured(run, ["delta_grid"])["delta_grid"]
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genes,p,ml,S", [
+    (1, 1, False, 1024), (16, 1, False, 1024), (1, 1, True, 512),
+    (3, 1, True, 512), (1, 4, False, 333), (2, 15, True, 130)])
+def test_delta_grid_f32_fused_on_card(cuda, genes, p, ml, S):
+    """K2-f32 against its plain version: each bracket on the plain argmax
+    or a tie within 1e-5 (the brackets the f32-rounded logits for REML,
+    the f64 ones for ML; NaN outside each gene's slot)."""
+    from cellregmap_tpu_torch.kernels import delta_grid as k2
+
+    args, kw = _f32_grid_call(cuda, genes, p, ml, S=S)
+    before = k2.launches_f32
+    br_lo, br_hi = k2.delta_grid(*args, **kw)
+    plo, phi, lml = k2.delta_grid_plain(*args, **kw, return_lml=True)
+    torch.cuda.synchronize()
+    assert k2.launches_f32 == before + 1
+    assert torch.equal(torch.isnan(br_lo), torch.isnan(plo))
+    ctx_dt = torch.float64 if ml else torch.float32
+    lo, hi = args[5], args[6]
+    if "slot" in kw:
+        gap = max(k2.bracket_shortfall(br_lo[g, :, s:s + 1],
+                                       br_hi[g, :, s:s + 1], lml[g], lo, hi,
+                                       ctx_dt)
+                  for g, s in enumerate(kw["slot"]))
+    else:
+        gap = max(k2.bracket_shortfall(br_lo[g], br_hi[g], lml[g], lo, hi,
+                                       ctx_dt)
+                  for g in np.ndindex(*br_lo.shape[:-2]))
+    assert gap <= 1e-5, gap
+
+
+@pytest.mark.cuda
+def test_delta_grid_f32_refuses_p16(cuda):
+    """p + 1 = 17 in the float32 context: refused before any launch (the
+    operands made on the CPU, whose plain grid takes any p)."""
+    from cellregmap_tpu_torch.kernels import delta_grid as k2
+
+    args, kw = _f32_grid_call(torch.device("cpu"), 1, 16, False, n=300, S=8,
+                              donors=30)
+    args = [type(a)(*(t.to(cuda) for t in a)) if isinstance(a, tuple)
+            else a.to(cuda) if isinstance(a, torch.Tensor) else a
+            for a in args]
+    before = k2.launches
+    with pytest.raises(ValueError, match="p \\+ 1 <= 16"):
+        k2.delta_grid(*args, **kw)
+    assert k2.launches == before
+
+
+# sha256 of the f64 entry points' outputs on ``_f64_k1_k2_outputs``'s
+# inputs, recorded on the tree before K1-f32 and K2-f32 were redesigned
+# (an NVIDIA H100 80GB HBM3): the f64 kernels are deterministic (no
+# atomics, fixed summation orders), so the same sources give the same bits
+F64_DIGESTS = {
+    "k1 large":
+        "16909202f32c7b94c36f03ba7edd2256126a0ce9ecfff9af33d6bf58cab91dfa",
+    "k1 small":
+        "2a2a103d54821b17dce9ec58d5eb106b50e44283d841133aba3836456dbd9a50",
+    "k2 reml":
+        "4be0c6bd8a0466274b2442505c8bf189f20de10405de8c38fae46cf0ee34d924",
+    "k2 reml fast32":
+        "4be0c6bd8a0466274b2442505c8bf189f20de10405de8c38fae46cf0ee34d924",
+    "k2 ml":
+        "38728dc1aef0735c673407a566df2349cf153da03692fede50dfb6e3add1e127",
+}
+
+
+def _f64_k1_k2_outputs(cuda):
+    """K1 (a large-K and a small-K call) and K2 (REML f64, REML under
+    hybrid localization, ML) through the f64 entry points on seeded
+    inputs: name -> the outputs' bytes."""
+    import hashlib
+
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import delta_grid as k2
+    from cellregmap_tpu_torch.kernels import kr_contract as k1
+
+    out = {}
+    rng = np.random.default_rng(1413)
+    for name, (n, K, p, S) in (("k1 large", (503, 70, 3, 45)),
+                               ("k1 small", (503, 10, 3, 45))):
+        U, V, G = (torch.as_tensor(rng.normal(size=sh), device=cuda)
+                   for sh in ((n, K), (n, p), (n, S)))
+        out[name] = k1.kr_contract(U, V, G)
+    ctx, G, n = fit_dataset(1413, p=2, nrho=11, n=300, C=4, donors=30,
+                            S=40, device=cuda)
+    for name, run in (
+            ("k2 reml", lambda: engine.interaction_batch(
+                ctx, G, G, n, localize_f32=False)),
+            ("k2 reml fast32", lambda: engine.interaction_batch(
+                ctx, G, G, n, localize_f32=True)),
+            ("k2 ml", lambda: engine.association_refit_batch(
+                ctx, G, 3, n, delta_cfg=(-18.0, 18.0, 256, 60)))):
+        (args, kw), = captured(run, ["delta_grid"])["delta_grid"]
+        out[name] = torch.stack(k2.delta_grid(*args, **kw))
+    torch.cuda.synchronize()
+    return {k: hashlib.sha256(v.contiguous().cpu().numpy().tobytes())
+            .hexdigest() for k, v in out.items()}
+
+
+@pytest.mark.cuda
+def test_f64_k1_k2_bits_unchanged(cuda):
+    """crm_kr_contract and crm_delta_grid (f64, and K2's float working type
+    on f64 operands) return, bit for bit, what they returned before the
+    float32 context's kernels were redesigned."""
+    assert _f64_k1_k2_outputs(cuda) == F64_DIGESTS

@@ -11,8 +11,9 @@ Tolerances, and why:
   behaves randomly; n eps is the worst case).
 * K2: the kernel's bracket is the plain grid's argmax, or a point whose
   plain lml is within 1e-5 of the row's maximum (f32 sums in another
-  order break a tie either way); the brackets are the f32-rounded grid
-  logits.
+  order break a tie either way), and the argmax itself wherever the plain
+  maximum leads the runner-up by more than 1e-6; the brackets are the
+  f32-rounded grid logits.
 * K3's localize: the Newton steps run in f32, so the kernel's and the
   plain version's iterates part at f32 rounding; the f64 lml evaluated
   there agrees to 1e-6 of max(|lml|, 1) (the optimum is flat), and the
@@ -147,8 +148,13 @@ def test_delta_grid_f32_matches_plain(libs, genes, p):
         gap = k2.bracket_shortfall(br_lo[g], br_hi[g], lml[g], -18.0, 18.0,
                                    f32)
         assert gap <= 1e-5, gap
+    # the plain bracket itself wherever the plain grid resolves its
+    # maximum (the runner-up more than 1e-6 below it: outside the two f32
+    # programs' rounding); at a near-tie either neighbour, within 1e-5
     same = (br_lo == lo_p) & (br_hi == hi_p)
-    assert float(same.double().mean()) >= 0.8
+    top2 = lml.topk(2, dim=-1).values
+    resolved = (top2[..., 0] - top2[..., 1]) > 1e-6 * top2[..., 0].abs()
+    assert bool(resolved.any()) and bool(same[resolved].all())
 
 
 @pytest.mark.parametrize("genes,p", [(1, 1), (3, 1), (1, 4), (2, 7)])
