@@ -39,7 +39,8 @@
 //     card) whose shared rows it stages; `steps` steps on the unrounded
 //     tensors from x0 (the bracket midpoint when null) inside the GRID
 //     bracket, then the final lml: REML floors rss at 128 eps q (:724),
-//     ML at tiny only (:1056).
+//     ML at tiny only (:1056).  Its f32 entry (crm_reml_converge_f32, the
+//     float32 context) runs the same kernels on f32 rows.
 //
 // Replaces: the XLA programs of those stages, which materialize the three
 // (S, nrho, R) weight families and their reductions for every step.
@@ -71,6 +72,7 @@
 #include <algorithm>
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include "async_copy.cuh"
 #include "dmma.cuh"
@@ -111,21 +113,24 @@ __device__ __forceinline__ double warp_sum(double v) {
 __device__ double sigmoid(double x) { return 1.0 / (1.0 + exp(-x)); }
 
 // One problem's complements (its rows are staged by the kernel that runs
-// it).
-struct Problem {
+// it), in the operand type T (float: the float32 context's converge, the
+// values widened to f64 where they are read).
+template <class T>
+struct ProblemT {
   int s, p, R, nS;
-  double cyy;         // complements, already rounded when round32
-  const double* CWW;  // (p, p)
-  const double* CWy;  // (p,)
+  double cyy;    // complements, already rounded when round32
+  const T* CWW;  // (p, p)
+  const T* CWy;  // (p,)
   double cgg, cgy;
-  const double* CWg;  // (p, nS) column s
+  const T* CWg;  // (p, nS) column s
   bool r32;
 };
+using Problem = ProblemT<double>;
 
 // The complement terms of the normal equations acc[f] = [A lower (TRI) |
 // b (P1MAX) | q] of NF families, weight 1/delta^(f+1).
-template <int P1MAX, int NF>
-__device__ void ne_complements(const Problem& pb, double delta,
+template <int P1MAX, int NF, class PB>
+__device__ void ne_complements(const PB& pb, double delta,
                                double (&acc)[NF][Cfg<P1MAX>::NE]) {
   constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
   const int p = pb.p, p1 = p + 1;
@@ -152,8 +157,8 @@ __device__ void ne_complements(const Problem& pb, double delta,
 // lane has accumulated: acc[f] = [A lower (TRI) | b (P1MAX) | q], plus
 // sum e w1, sum e2 w1^2 (NF == 3) or sum log d (NF == 1).  Every lane
 // returns the full sums, complements included.
-template <int P1MAX, int NF>
-__device__ void ne_finish(const Problem& pb, double delta,
+template <int P1MAX, int NF, class PB>
+__device__ void ne_finish(const PB& pb, double delta,
                           double (&acc)[NF][Cfg<P1MAX>::NE], double& ex1,
                           double& ex2) {
   for (int f = 0; f < NF; ++f)
@@ -206,10 +211,29 @@ __device__ void sym_mv(const double* A, const double* x, double* out, int p1) {
   }
 }
 
+// the rss floors of the f64 context (fmax) and of the float32 context's
+// converge, which keep a NaN (a failed factorization's residual), as the
+// plain versions' torch.clamp / torch.maximum and the reference's
+// jnp.maximum do; eps and ml_tiny are the context's (engine.py:724, :1056)
+template <class T> struct Floors;
+template <> struct Floors<double> {
+  static constexpr bool keep_nan = false;
+  static constexpr double eps = DBL_EPSILON, ml_tiny = DBL_MIN;
+};
+template <> struct Floors<float> {
+  static constexpr bool keep_nan = true;
+  static constexpr double eps = FLT_EPSILON, ml_tiny = FLT_MIN;
+};
+template <class FL>
+__device__ __forceinline__ double floor_at(double x, double floor) {
+  if constexpr (FL::keep_nan) return x < floor ? floor : x;
+  return fmax(x, floor);
+}
+
 // (L', L'') of the profiled objective at delta from the three families'
 // normal equations (ne_finish's sums)
-template <int P1MAX, bool REML>
-__device__ void derivs_sums(const Problem& pb, double delta, int n,
+template <int P1MAX, bool REML, class FL = Floors<double>, class PB>
+__device__ void derivs_sums(const PB& pb, double delta, int n,
                             const double (&acc)[3][Cfg<P1MAX>::NE],
                             double sum_ew, double sum_e2w2, double& Lp,
                             double& Lpp) {
@@ -224,7 +248,7 @@ __device__ void derivs_sums(const Problem& pb, double delta, int n,
   chol_solve<P1MAX>(L, b1, beta, p1);
   double rss = q1;
   SMALL_FOR(j, 0, p1) rss -= b1[j] * beta[j];
-  rss = fmax(rss, DBL_MIN);
+  rss = floor_at<FL>(rss, DBL_MIN);
   sym_mv<P1MAX>(A2, beta, A2b, p1);
   sym_mv<P1MAX>(A3, beta, A3b, p1);
   SMALL_FOR(j, 0, p1) t[j] = A2b[j] - b2[j];
@@ -598,9 +622,11 @@ __device__ void newton_update(double delta, double Lp, double Lpp, double& x,
 }
 
 // The fit at delta from its normal equations (ne_finish's sums, logd =
-// sum log d): (lml, rss, beta) with the objective's rss floor
-template <int P1MAX, bool REML, bool FLOOR_Q>
-__device__ double fit_sums(const Problem& pb, double delta, int n,
+// sum log d): (lml, rss, beta) with the objective's rss floor (FL's: the
+// context's eps and, ML, tiny)
+template <int P1MAX, bool REML, bool FLOOR_Q, class FL = Floors<double>,
+          class PB>
+__device__ double fit_sums(const PB& pb, double delta, int n,
                            double ld_xx, const double (&acc)[1][Cfg<P1MAX>::NE],
                            double logd, double* beta, double& rss_out,
                            bool& rss_bad) {
@@ -612,9 +638,9 @@ __device__ double fit_sums(const Problem& pb, double delta, int n,
   const double q = acc[0][NE - 1];
   double rss = q;
   SMALL_FOR(j, 0, p1) rss -= acc[0][TRI + j] * beta[j];
-  rss_bad = rss <= 128 * DBL_EPSILON * q;
-  if (FLOOR_Q) rss = fmax(rss, 128 * DBL_EPSILON * q);
-  rss = fmax(rss, DBL_MIN);
+  rss_bad = rss <= 128 * FL::eps * q;
+  if (FLOOR_Q) rss = floor_at<FL>(rss, 128 * FL::eps * q);
+  rss = floor_at<FL>(rss, REML ? DBL_MIN : FL::ml_tiny);
   rss_out = rss;
   const double two_pi = 6.283185307179586;
   const double logdet_d = logd + (n - pb.R) * log(delta);
@@ -627,11 +653,11 @@ __device__ double fit_sums(const Problem& pb, double delta, int n,
                  nu);
 }
 
-__device__ Problem make_problem(const double* CWW, const double* CWy,
-                                const double* Cyy, const double* CWg,
-                                const double* Cgy, const double* Cgg, int s,
-                                int R, int p, int nS, bool r32) {
-  Problem pb;
+template <class T>
+__device__ ProblemT<T> make_problem(const T* CWW, const T* CWy, const T* Cyy,
+                                    const T* CWg, const T* Cgy, const T* Cgg,
+                                    int s, int R, int p, int nS, bool r32) {
+  ProblemT<T> pb;
   pb.s = s;
   pb.p = p;
   pb.R = R;
@@ -1522,6 +1548,15 @@ int localize_products(const LocArgs& a, double* work, cudaStream_t stream) {
 // (derivs_tail_wide, fit_tail_wide).  The arithmetic is the plain
 // version's: f64 on the unrounded tensors, REML's final rss floored at
 // 128 eps q, ML's at tiny only.
+//
+// The float32 context (converge_kernel<float>, p + 1 <= 16: the screen's
+// stage 3 and K7's Newton half on an f32 context, engine.py:672-734,
+// :991-1062): the rows are staged as f32, so twice as many fit the block's
+// CONV_SMEM; the products (W_i W_j, g W_j, g^2, W_j y, g y, y^2) and e =
+// 1 - S, e^2 are the f32 values the reference forms, widened; the
+// weights, sums, Newton steps and final fit are f64; the rss floors are
+// the context's (Floors<float>: 128 eps(f32) q for REML, tiny(f32) for ML)
+// and keep a NaN, and ML takes no ld_xx.
 // ---------------------------------------------------------------------------
 constexpr int CONV_WARPS = 4;      // problems a converge block holds
 constexpr int LIST_THREADS = 128;  // threads of a lists block
@@ -1553,9 +1588,13 @@ constexpr int CONV_SPLIT_BELOW = CRM_CONV_SPLIT_BELOW;
 // (WPP = 2: two warps a problem, its rows split between them) or four of
 // four (WPP = 1: many problems and no Newton steps, whose one pass gains
 // less from the split than the tile's tail loses at the barriers), at
-// 128 registers; else one
-__host__ __device__ constexpr int conv_min_blocks(int P1MAX, int WPP) {
-  return P1MAX != 2 ? 1 : WPP == 2 ? 2 : 4;
+// 128 registers; else one.  On f32 rows (es = 4) the WPP = 1
+// instantiation, which serves only those zero-step calls, takes eight
+// (64 registers: its unused Newton path spills; K7-MG-f32's fits at the
+// grid's ends 0.124 to 0.086 ms on an H100 80GB HBM3, PERF.md §6)
+__host__ __device__ constexpr int conv_min_blocks(int P1MAX, int WPP,
+                                                  int es) {
+  return P1MAX != 2 ? 1 : WPP == 2 ? 2 : es == 4 ? 8 : 4;
 }
 
 // list[k, 0 .. n_k): the problems i = g nS + s whose best rho is k
@@ -1598,24 +1637,34 @@ conv_lists_kernel(const int64_t* __restrict__ k_best, int* __restrict__ list,
   if (tid == 0) count[k] = base;
 }
 
-// the staged rows, in units of rch doubles: [S | W (p) | g (a problem
-// each) | y (at each gene's first problem of the tile)]
+// the staged rows, in units of rch values of the operand type: [S | W (p)
+// | g (a problem each) | y (at each gene's first problem of the tile)]
 __host__ __device__ inline int conv_width(int p) {
   return 1 + p + 2 * CONV_WARPS;
 }
 
 // one buffer (every row) or two (chunks)
+template <class T>
 struct ConvStage {
-  double* sm;
+  T* sm;
   int rch, chunks, w;
-  __device__ double* buf(int c) const { return sm + (c & 1) * w * rch; }
+  __device__ T* buf(int c) const { return sm + (c & 1) * w * rch; }
 };
+
+// cp.async of one value of the operand type
+__device__ __forceinline__ void cp_async_val(double* s, const double* g) {
+  cp_async8(s, g);
+}
+__device__ __forceinline__ void cp_async_val(float* s, const float* g) {
+  cp_async4(s, g);
+}
 
 // cp.async of rows [r0, r0 + rows) of rho k (S and W at Sk and Wk) into
 // buf, for the tile's nv problems prob[]
-__device__ void conv_fetch(double* buf, int rch, const double* __restrict__ Sk,
-                           const double* __restrict__ Wk,
-                           const double* __restrict__ yt, const int* prob,
+template <class T>
+__device__ void conv_fetch(T* buf, int rch, const T* __restrict__ Sk,
+                           const T* __restrict__ Wk,
+                           const T* __restrict__ yt, const int* prob,
                            int nv, int k, int r0, int rows, int R, int p,
                            int nS, int nrho) {
   const int nt = blockDim.x, tid = threadIdx.x;
@@ -1623,21 +1672,21 @@ __device__ void conv_fetch(double* buf, int rch, const double* __restrict__ Sk,
   for (int e = tid; e < rows * (1 + p); e += nt) {
     const int rr = e / (1 + p), c = e - rr * (1 + p);
     const int64_t r = r0 + rr;
-    cp_async8(buf + c * rch + rr, c == 0 ? Sk + r : Wk + r * ps + (c - 1));
+    cp_async_val(buf + c * rch + rr, c == 0 ? Sk + r : Wk + r * ps + (c - 1));
   }
   // the problems' genotype, a row's nv values along the variants
   for (int e = tid; e < rows * nv; e += nt) {
     const int rr = e / nv, v = e - rr * nv;
-    cp_async8(buf + (1 + p + v) * rch + rr,
-              Wk + (r0 + rr) * ps + p + prob[v] % nS);
+    cp_async_val(buf + (1 + p + v) * rch + rr,
+                 Wk + (r0 + rr) * ps + p + prob[v] % nS);
   }
   // each gene's phenotype, at its first problem of the tile
   for (int e = tid; e < rows * nv; e += nt) {
     const int v = e / rows, rr = e - v * rows;
     const int g = prob[v] / nS;
     if (v > 0 && prob[v - 1] / nS == g) continue;
-    cp_async8(buf + (1 + p + CONV_WARPS + v) * rch + rr,
-              yt + ((int64_t)g * nrho + k) * R + r0 + rr);
+    cp_async_val(buf + (1 + p + CONV_WARPS + v) * rch + rr,
+                 yt + ((int64_t)g * nrho + k) * R + r0 + rr);
   }
 }
 
@@ -1645,8 +1694,8 @@ __device__ void conv_fetch(double* buf, int rch, const double* __restrict__ Sk,
 // chunk.  Resident (one chunk): staged at the first pass, then read in
 // place.  Chunked: the next chunk is fetched while the current one is
 // used.
-template <class Fetch, class Use>
-__device__ void conv_pass(const ConvStage& st, int R, bool& staged,
+template <class T, class Fetch, class Use>
+__device__ void conv_pass(const ConvStage<T>& st, int R, bool& staged,
                           Fetch fetch, Use use) {
   if (st.chunks == 1) {
     if (!staged) {
@@ -1675,18 +1724,21 @@ __device__ void conv_pass(const ConvStage& st, int R, bool& staged,
 
 // One problem's rows, where they lie: row r's eigenvalue at S[r], W's
 // column j at W[j wc + r wr], the genotype at g[r gs], the phenotype at
-// y[r]: the staged rows (columns of rch doubles) or the tensors.
+// y[r]: the staged rows (columns of rch values) or the tensors.
+template <class T>
 struct ConvRows {
-  const double *S, *W, *g, *y;
+  const T *S, *W, *g, *y;
   int64_t wc, wr, gs;
 };
 
 // the lane's rows first, first + step, ... < rows into the NF families'
 // sums of its problem: the products of the localize's per-problem loop,
-// unrounded
-template <int P1MAX, int NF>
-__device__ void conv_rows(const ConvRows& x, int rows, int first, int step,
-                          int p, double delta,
+// unrounded.  On f32 rows (the float32 context) the products, e = 1 - S
+// and e^2 are the f32 values the reference forms on its f32 tensors
+// (engine.py:672-734, :991-1062), widened; the weights and the sums f64.
+template <int P1MAX, int NF, class T>
+__device__ void conv_rows(const ConvRows<T>& x, int rows, int first,
+                          int step, int p, double delta,
                           double (&acc)[NF][Cfg<P1MAX>::NE], double& ex1,
                           double& ex2) {
   constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
@@ -1694,14 +1746,15 @@ __device__ void conv_rows(const ConvRows& x, int rows, int first, int step,
   double dprod = 1.0;  // NF == 1: sum log d a log of LOG_GROUP rows
   int nprod = 0;
   for (int rr = first; rr < rows; rr += step) {
-    const double Sr = x.S[rr];
+    const T Sr = x.S[rr];
     const double d = (1.0 - delta) * Sr + delta;
     const double w1 = 1.0 / d;
     double wf[NF];
     wf[0] = w1;
     if constexpr (NF == 3) {
-      const double e = 1.0 - Sr;
-      const double e2 = (1.0 - Sr) * (1.0 - Sr);
+      const T er = T(1) - Sr;
+      const double e = er;
+      const double e2 = (T)(er * er);
       wf[1] = e * w1 * w1;
       wf[2] = e2 * w1 * w1 * w1;
       ex1 += w1 * e;
@@ -1714,18 +1767,18 @@ __device__ void conv_rows(const ConvRows& x, int rows, int first, int step,
         nprod = 0;
       }
     }
-    const double g = x.g[rr * x.gs], yv = x.y[rr];
-    const double* W = x.W + rr * x.wr;
+    const T g = x.g[rr * x.gs], yv = x.y[rr];
+    const T* W = x.W + rr * x.wr;
     SMALL_FOR(i, 0, p1) {
-      const double xi = i < p ? W[i * x.wc] : g;
+      const T xi = i < p ? W[i * x.wc] : g;
       SMALL_FOR(j, 0, i + 1) {
-        const double v = xi * (j < p ? W[j * x.wc] : g);
+        const double v = (T)(xi * (j < p ? W[j * x.wc] : g));
         for (int f = 0; f < NF; ++f) acc[f][tri(i, j)] += wf[f] * v;
       }
-      const double v = xi * yv;
+      const double v = (T)(xi * yv);
       for (int f = 0; f < NF; ++f) acc[f][TRI + i] += wf[f] * v;
     }
-    const double v = yv * yv;
+    const double v = (T)(yv * yv);
     for (int f = 0; f < NF; ++f) acc[f][NE - 1] += wf[f] * v;
   }
   if (NF == 1) ex1 += log(dprod);
@@ -1898,15 +1951,14 @@ __host__ __device__ inline int conv_ws_words(int p1) {
   return 3 * WRC + epi_words(p1);
 }
 
-template <int P1MAX, bool REML, int WPP>
+template <class T, int P1MAX, bool REML, int WPP>
 __global__ void __launch_bounds__(32 * CONV_WARPS * WPP,
-                                  conv_min_blocks(P1MAX, WPP))
-converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
-                const double* __restrict__ yt, const double* __restrict__ CWW,
-                const double* __restrict__ CWy, const double* __restrict__ Cyy,
-                const double* __restrict__ CWg, const double* __restrict__ Cgy,
-                const double* __restrict__ Cgg,
-                const double* __restrict__ ld_xx,
+                                  conv_min_blocks(P1MAX, WPP, sizeof(T)))
+converge_kernel(const T* __restrict__ Sv, const T* __restrict__ WGt,
+                const T* __restrict__ yt, const T* __restrict__ CWW,
+                const T* __restrict__ CWy, const T* __restrict__ Cyy,
+                const T* __restrict__ CWg, const T* __restrict__ Cgy,
+                const T* __restrict__ Cgg, const T* __restrict__ ld_xx,
                 const double* __restrict__ x0,
                 const double* __restrict__ br_lo,
                 const double* __restrict__ br_hi,
@@ -1960,14 +2012,15 @@ converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   while (head > 0 && prob[head - 1] / nS == gi) --head;
   const int p1 = p + 1, w = conv_width(p);
   const int chunks = (R + rch - 1) / rch;
-  const ConvStage st{reinterpret_cast<double*>(conv_dyn), rch, chunks, w};
+  const ConvStage<T> st{reinterpret_cast<T*>(conv_dyn), rch, chunks, w};
   const int gcol = 1 + p + v, ycol = 1 + p + CONV_WARPS + head;
-  const double* Sk = Sv + (int64_t)k * R;
-  const double* Wk = WGt + (int64_t)k * R * (p + nS);
-  auto fetch = [&](double* buf, int r0, int rows) {
+  const T* Sk = Sv + (int64_t)k * R;
+  const T* Wk = WGt + (int64_t)k * R * (p + nS);
+  auto fetch = [&](T* buf, int r0, int rows) {
     conv_fetch(buf, rch, Sk, Wk, yt, prob, nv, k, r0, rows, R, p, nS, nrho);
   };
-  const Problem pb =
+  using FL = Floors<T>;
+  const ProblemT<T> pb =
       make_problem(CWW, CWy + (int64_t)gi * p, Cyy + gi, CWg,
                    Cgy + (int64_t)gi * nS, Cgg, s, R, p, nS, false);
   const int64_t so = (int64_t)i * nrho + k;
@@ -1977,7 +2030,7 @@ converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   bool staged = false;
   double delta, lml, rss;
   bool bad;
-  if constexpr (P1MAX == 0) {
+  if constexpr (P1MAX == 0) {  // the wide instantiation: f64 only
     double* base = st.sm + (chunks == 1 ? 1 : 2) * w * rch +
                    (int64_t)warp * conv_ws_words(p1);
     WideWs ws = wide_ws(base + 3 * WRC, p1);
@@ -2021,14 +2074,14 @@ converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   } else {
     constexpr int NE = Cfg<P1MAX>::NE;
     const int first = half * 32 + lane, step = 32 * WPP;
-    auto staged_rows = [&](const double* buf) {
-      return ConvRows{buf, buf + rch, buf + gcol * rch, buf + ycol * rch,
-                      rch, 1, 1};
+    auto staged_rows = [&](const T* buf) {
+      return ConvRows<T>{buf, buf + rch, buf + gcol * rch, buf + ycol * rch,
+                         rch, 1, 1};
     };
     for (int it = 0; it < steps; ++it) {
       delta = sigmoid(x);
       double acc[3][NE] = {}, ex1 = 0.0, ex2 = 0.0;
-      conv_pass(st, R, staged, fetch, [&](const double* buf, int rows) {
+      conv_pass(st, R, staged, fetch, [&](const T* buf, int rows) {
         if (active)
           conv_rows<P1MAX, 3>(staged_rows(buf), rows, first, step, p, delta,
                               acc, ex1, ex2);
@@ -2041,7 +2094,7 @@ converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
       }
       if (active) {
         double Lp, Lpp;
-        derivs_sums<P1MAX, REML>(pb, delta, n, acc, ex1, ex2, Lp, Lpp);
+        derivs_sums<P1MAX, REML, FL>(pb, delta, n, acc, ex1, ex2, Lp, Lpp);
         newton_update(delta, Lp, Lpp, x, lo, hi);
       }
     }
@@ -2050,12 +2103,12 @@ converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
     if (steps == 0) {  // one pass: the rows read where they lie
       const int64_t ps = p + nS;
       if (active)
-        conv_rows<P1MAX, 1>(ConvRows{Sk, Wk, Wk + p + s,
-                                     yt + ((int64_t)gi * nrho + k) * R, 1,
-                                     ps, ps},
+        conv_rows<P1MAX, 1>(ConvRows<T>{Sk, Wk, Wk + p + s,
+                                        yt + ((int64_t)gi * nrho + k) * R, 1,
+                                        ps, ps},
                             R, first, step, p, delta, acc, logd, unused);
     } else {
-      conv_pass(st, R, staged, fetch, [&](const double* buf, int rows) {
+      conv_pass(st, R, staged, fetch, [&](const T* buf, int rows) {
         if (active)
           conv_rows<P1MAX, 1>(staged_rows(buf), rows, first, step, p, delta,
                               acc, logd, unused);
@@ -2069,8 +2122,8 @@ converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
     else
       ne_finish<P1MAX, 1>(pb, delta, acc, logd, unused);
     double beta[P1MAX];
-    lml = fit_sums<P1MAX, REML, REML>(pb, delta, n, ldx, acc, logd, beta, rss,
-                                      bad);
+    lml = fit_sums<P1MAX, REML, REML, FL>(pb, delta, n, ldx, acc, logd, beta,
+                                          rss, bad);
     if (lane == 0)
       SMALL_FOR(j, 0, p1) beta_out[(int64_t)i * p1 + j] = beta[j];
   }
@@ -2083,8 +2136,9 @@ converge_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
 
 // the converge's rows a chunk (every row, rounded to 32, where they fit),
 // and the bytes of dynamic shared memory of a block (none for a narrow
-// call with no Newton steps: its one pass reads the tensors)
-inline int conv_rows_per_chunk(int R, int p, int steps, int* smem) {
+// call with no Newton steps: its one pass reads the tensors); es the
+// bytes of an operand (4 on the float32 context: twice the rows fit)
+inline int conv_rows_per_chunk(int R, int p, int steps, int es, int* smem) {
   const bool wide = p + 1 > 16;
   if (!wide && steps == 0) {  // one pass reads its rows where they lie
     *smem = 0;
@@ -2097,10 +2151,10 @@ inline int conv_rows_per_chunk(int R, int p, int steps, int* smem) {
   const int budget = wide ? min(CONV_SMEM, SMEM_BLOCK - ws) : CONV_SMEM;
   const int all = (R + 31) / 32 * 32;
   int rch = all;
-  if ((int)sizeof(double) * w * all > budget)
-    rch = max(32, budget / ((int)sizeof(double) * 2 * w) / 32 * 32);
+  if (es * w * all > budget)
+    rch = max(32, budget / (es * 2 * w) / 32 * 32);
   const int nbuf = (R + rch - 1) / rch == 1 ? 1 : 2;
-  *smem = (int)sizeof(double) * nbuf * w * rch + ws;
+  *smem = es * nbuf * w * rch + ws;
   return rch;
 }
 // ---------------------------------------------------------------------------
@@ -2116,24 +2170,21 @@ inline int conv_rows_per_chunk(int R, int p, int steps, int* smem) {
 //   optimum, the f32 values widened as they are loaded; an rss at or below
 //   128 eps(f32) q is cancellation noise of the f32 tensors and cannot win
 //   the argmax (:655);
-// * stage 3 (c32_converge_kernel): f64 steps and the final fit at each
-//   variant's best rho on the widened f32 tensors, the rss floored at 128
-//   eps(f32) q (:724).
-// The floors take the context's eps as an argument (eps_ctx): once the
-// operands are widened, f64's eps would let spurious maxima through (the
-// note at engine.py:357-366).
-// A warp per problem (the lanes over the rows, then an xor-shuffle tree;
-// lane 0's iterate broadcast so that the lanes stay in step), rows read
-// where they lie: the simple form, REML only (the float32 context runs the
-// interaction scans alone), p + 1 <= 16.
+// * stage 3 (the converge's f32 instantiations, converge_kernel<float>):
+//   f64 steps and the final fit at each variant's best rho on the widened
+//   f32 tensors, the rss floored at 128 eps(f32) q (:724).
+// The floors take the context's eps (eps_ctx here, Floors<float> in the
+// converge): once the operands are widened, f64's eps would let spurious
+// maxima through (the note at engine.py:357-366).
+// The localize: a warp per problem (the lanes over the rows, then an
+// xor-shuffle tree; lane 0's iterate broadcast so that the lanes stay in
+// step), rows read where they lie: the simple form, REML only, p + 1 <=
+// 16.
 constexpr int C32_WARPS = 4;  // problems a block
 
 template <class T> struct C32Lim;
 template <> struct C32Lim<float> {
   static constexpr float tiny = FLT_MIN;
-};
-template <> struct C32Lim<double> {
-  static constexpr double tiny = DBL_MIN;
 };
 
 template <class T>
@@ -2266,9 +2317,8 @@ __device__ void c32_mv(const T* A, const T* x, T* out, int p1) {
 }
 
 // (L', L'') of the REML objective at delta (the algebra of derivs_sums in
-// T), or with REML false of the ML objective (n for nu, no logdet(A)
-// trace terms: engine.py:1026-1028)
-template <class T, int P1MAX, bool REML = true>
+// T)
+template <class T, int P1MAX>
 __device__ void c32_derivs(int p1, int R, int n, T delta,
                            const T (&acc)[3][Cfg<P1MAX>::NE], T sum_ew,
                            T sum_e2w2, T& Lp, T& Lpp) {
@@ -2305,12 +2355,6 @@ __device__ void c32_derivs(int p1, int R, int n, T delta,
   const T ld_p = sum_ew + nR * i1;
   const T ld_pp = -sum_e2w2 - nR * (i1 * i1);
   const T u = rss_p / rss;
-  if constexpr (!REML) {
-    const T nn = (T)n;
-    Lp = T(-0.5) * (nn * u + ld_p);
-    Lpp = T(-0.5) * (nn * (rss_pp / rss - u * u) + ld_pp);
-    return;
-  }
   T Ainv[P1MAX][P1MAX];
   SMALL_FOR(kc, 0, p1) {
     T ecol[P1MAX], col[P1MAX];
@@ -2341,17 +2385,15 @@ __device__ void c32_derivs(int p1, int R, int n, T delta,
 }
 
 // One safeguarded Newton step on logit(delta) in T (engine.py:608-626,
-// inclusive bounds; the ML objective's with REML false, :1030-1044);
-// lane 0's iterate is every lane's
-template <class T, int P1MAX, bool REML = true>
+// inclusive bounds); lane 0's iterate is every lane's
+template <class T, int P1MAX>
 __device__ void c32_step(const C32Problem& pb, int n, int lane, T& x, T& lo,
                          T& hi) {
   constexpr int NE = Cfg<P1MAX>::NE;
   const T delta = c32_sigmoid(x);
   T acc[3][NE], ex1, ex2, Lp, Lpp;
   c32_sums<T, P1MAX, 3>(pb, delta, lane, acc, ex1, ex2);
-  c32_derivs<T, P1MAX, REML>(pb.p + 1, pb.R, n, delta, acc, ex1, ex2, Lp,
-                             Lpp);
+  c32_derivs<T, P1MAX>(pb.p + 1, pb.R, n, delta, acc, ex1, ex2, Lp, Lpp);
   const T g = delta * (T(1) - delta);
   const T Lx_p = Lp * g;
   const T Lx_pp = Lpp * g * g + Lp * g * (T(1) - T(2) * delta);
@@ -2454,68 +2496,6 @@ c32_localize_kernel(const float* __restrict__ Sv, const float* __restrict__ WGt,
   if (lane == 0) {
     x_out[P] = (double)x;
     lml_out[P] = lml;
-  }
-}
-
-// Stage 3: a warp per (gene, variant) problem at its rho k_best (0 when
-// null): f64 steps from x0 (the bracket midpoint when null) within the
-// grid bracket, then the final fit.  With REML false the association
-// refit's Newton half on an f32 context (engine.py:991-1062: its brackets
-// are f64 logits, its steps and final fit f64 arithmetic on the f32
-// tensors): the ML objective, the rss floored at tiny(f32) (:1056), no
-// ld_xx
-template <int P1MAX, bool REML>
-__global__ void __launch_bounds__(32 * C32_WARPS)
-c32_converge_kernel(const float* __restrict__ Sv, const float* __restrict__ WGt,
-                    const float* __restrict__ yt, const float* __restrict__ CWW,
-                    const float* __restrict__ CWy,
-                    const float* __restrict__ Cyy,
-                    const float* __restrict__ CWg,
-                    const float* __restrict__ Cgy,
-                    const float* __restrict__ Cgg,
-                    const float* __restrict__ ld_xx,
-                    const int64_t* __restrict__ k_best,
-                    const double* __restrict__ x0,
-                    const double* __restrict__ br_lo,
-                    const double* __restrict__ br_hi,
-                    double* __restrict__ delta_out,
-                    double* __restrict__ lml_out,
-                    double* __restrict__ scale_out,
-                    double* __restrict__ beta_out, int n, int nrho, int R,
-                    int p, int nS, int genes, int steps, double eps_ctx) {
-  const int lane = threadIdx.x % 32;
-  const int64_t P = (int64_t)blockIdx.x * C32_WARPS + threadIdx.x / 32;
-  if (P >= (int64_t)genes * nS) return;  // the whole warp
-  const int s = (int)(P % nS), g = (int)(P / nS);
-  const int o = k_best ? (int)k_best[P] : 0;
-  const C32Problem pb = c32_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
-                                    Cgg, g, s, o, nrho, R, p, nS);
-  const int64_t at = P * nrho + o;
-  double lo = br_lo[at], hi = br_hi[at];
-  double x = x0 ? x0[at] : 0.5 * (lo + hi);
-  for (int it = 0; it < steps; ++it)
-    c32_step<double, P1MAX, REML>(pb, n, lane, x, lo, hi);
-  const double delta = c32_sigmoid(x);
-  double beta[P1MAX], rss, q, logdet_a, logdet_d;
-  c32_eval<P1MAX>(pb, n, lane, delta, beta, rss, q, logdet_a, logdet_d);
-  const int p1 = p + 1;
-  double lml, nu;
-  if constexpr (REML) {
-    // the f32 tensors' cancellation noise floor (engine.py:722-724)
-    rss = c32_floor(rss, 128.0 * eps_ctx * q);
-    rss = c32_floor(rss, DBL_MIN);
-    lml = c32_lml(rss, logdet_d, logdet_a, (double)ld_xx[s], n, p1);
-    nu = (double)(n - p1);
-  } else {
-    rss = rss < (double)FLT_MIN ? (double)FLT_MIN : rss;  // keeps a NaN
-    lml = -0.5 * (n * log(6.283185307179586 * rss / n) + logdet_d + n);
-    nu = (double)n;
-  }
-  if (lane == 0) {
-    delta_out[P] = delta;
-    lml_out[P] = lml;
-    scale_out[P] = rss / nu;
-    SMALL_FOR(j, 0, p1) beta_out[P * p1 + j] = beta[j];
   }
 }
 
@@ -2642,17 +2622,19 @@ extern "C" int64_t crm_reml_converge_workspace(int nrho, int nS, int genes) {
 // p + 1); ld_xx may be null when reml == 0.  work:
 // crm_reml_converge_workspace bytes on the card, 4-byte aligned;
 // genes nS < 2^31.
-extern "C" int crm_reml_converge(const double* Sv, const double* WGt,
-                                 const double* yt, const double* CWW,
-                                 const double* CWy, const double* Cyy,
-                                 const double* CWg, const double* Cgy,
-                                 const double* Cgg, const double* ld_xx,
-                                 const int64_t* k_best, const double* x0,
-                                 const double* br_lo, const double* br_hi,
-                                 double* delta, double* lml, double* scale,
-                                 double* beta, void* work, int n, int nrho,
-                                 int R, int p, int nS, int genes, int steps,
-                                 int reml, cudaStream_t stream) {
+namespace {
+
+// The converge's two launches (the per-rho lists, then the blocks) on
+// operands of type T (float: the float32 context, p + 1 <= 16)
+template <class T>
+int launch_converge(const T* Sv, const T* WGt, const T* yt, const T* CWW,
+                    const T* CWy, const T* Cyy, const T* CWg, const T* Cgy,
+                    const T* Cgg, const T* ld_xx, const int64_t* k_best,
+                    const double* x0, const double* br_lo,
+                    const double* br_hi, double* delta, double* lml,
+                    double* scale, double* beta, void* work, int n, int nrho,
+                    int R, int p, int nS, int genes, int steps, int reml,
+                    cudaStream_t stream) {
   const int P = genes * nS;
   int* list = static_cast<int*>(work);
   int* count = list + (int64_t)nrho * P;
@@ -2667,18 +2649,20 @@ extern "C" int crm_reml_converge(const double* Sv, const double* WGt,
   // problems; 0.141 against 0.119 at 16 x 512, PERF.md)
   const int wpp =
       !wide && p + 1 <= 2 && (steps > 0 || P < CONV_SPLIT_BELOW) ? 2 : 1;
-  auto kernel = reml ? (wide         ? converge_kernel<0, true, 1>
-                        : wpp == 2   ? converge_kernel<2, true, 2>
-                        : p + 1 <= 2 ? converge_kernel<2, true, 1>
-                        : p + 1 <= 4 ? converge_kernel<4, true, 1>
-                                     : converge_kernel<16, true, 1>)
-                     : (wide         ? converge_kernel<0, false, 1>
-                        : wpp == 2   ? converge_kernel<2, false, 2>
-                        : p + 1 <= 2 ? converge_kernel<2, false, 1>
-                        : p + 1 <= 4 ? converge_kernel<4, false, 1>
-                                     : converge_kernel<16, false, 1>);
+  // the wide instantiation (P1MAX 0) is f64's alone
+  constexpr int WIDE = std::is_same<T, double>::value ? 0 : 16;
+  auto kernel = reml ? (wide         ? converge_kernel<T, WIDE, true, 1>
+                        : wpp == 2   ? converge_kernel<T, 2, true, 2>
+                        : p + 1 <= 2 ? converge_kernel<T, 2, true, 1>
+                        : p + 1 <= 4 ? converge_kernel<T, 4, true, 1>
+                                     : converge_kernel<T, 16, true, 1>)
+                     : (wide         ? converge_kernel<T, WIDE, false, 1>
+                        : wpp == 2   ? converge_kernel<T, 2, false, 2>
+                        : p + 1 <= 2 ? converge_kernel<T, 2, false, 1>
+                        : p + 1 <= 4 ? converge_kernel<T, 4, false, 1>
+                                     : converge_kernel<T, 16, false, 1>);
   int smem;
-  const int rch = conv_rows_per_chunk(R, p, steps, &smem);
+  const int rch = conv_rows_per_chunk(R, p, steps, (int)sizeof(T), &smem);
   err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
@@ -2689,6 +2673,24 @@ extern "C" int crm_reml_converge(const double* Sv, const double* WGt,
       Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, x0, br_lo, br_hi, list,
       count, delta, lml, scale, beta, n, nrho, R, p, nS, genes, steps, rch);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int crm_reml_converge(const double* Sv, const double* WGt,
+                                 const double* yt, const double* CWW,
+                                 const double* CWy, const double* Cyy,
+                                 const double* CWg, const double* Cgy,
+                                 const double* Cgg, const double* ld_xx,
+                                 const int64_t* k_best, const double* x0,
+                                 const double* br_lo, const double* br_hi,
+                                 double* delta, double* lml, double* scale,
+                                 double* beta, void* work, int n, int nrho,
+                                 int R, int p, int nS, int genes, int steps,
+                                 int reml, cudaStream_t stream) {
+  return launch_converge(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx,
+                         k_best, x0, br_lo, br_hi, delta, lml, scale, beta,
+                         work, n, nrho, R, p, nS, genes, steps, reml, stream);
 }
 
 // The float32 context (see c32_localize_kernel): the operands of
@@ -2723,11 +2725,11 @@ extern "C" int crm_reml_localize_f32(const float* Sv, const float* WGt,
   return (int)cudaGetLastError();
 }
 
-// The float32 context (see c32_converge_kernel): the operands of
-// crm_reml_converge in f32 (k_best, x0 and the brackets as there), p + 1
-// <= 16, eps_ctx the context's eps for REML's rss floor, reml the
-// objective (ML: the association refit's; ld_xx unused) -> delta, lml,
-// scale (genes, nS), beta (genes, nS, p + 1) f64.  No scratch.
+// The float32 context: the operands of crm_reml_converge in f32 (k_best,
+// x0, the brackets, the outputs and the scratch as there), p + 1 <= 16;
+// the same kernels on f32 rows (see converge_kernel: f32 products, f64
+// weights, sums, steps and final fit), REML's rss floored at 128
+// eps(f32) q, ML's at tiny(f32), a NaN kept.
 extern "C" int crm_reml_converge_f32(const float* Sv, const float* WGt,
                                      const float* yt, const float* CWW,
                                      const float* CWy, const float* Cyy,
@@ -2737,21 +2739,11 @@ extern "C" int crm_reml_converge_f32(const float* Sv, const float* WGt,
                                      const double* br_lo,
                                      const double* br_hi, double* delta,
                                      double* lml, double* scale, double* beta,
-                                     int n, int nrho, int R, int p, int nS,
-                                     int genes, int steps, double eps_ctx,
+                                     void* work, int n, int nrho, int R,
+                                     int p, int nS, int genes, int steps,
                                      int reml, cudaStream_t stream) {
-  auto kernel = reml ? (p + 1 <= 2   ? c32_converge_kernel<2, true>
-                        : p + 1 <= 4 ? c32_converge_kernel<4, true>
-                        : p + 1 <= 8 ? c32_converge_kernel<8, true>
-                                     : c32_converge_kernel<16, true>)
-                     : (p + 1 <= 2   ? c32_converge_kernel<2, false>
-                        : p + 1 <= 4 ? c32_converge_kernel<4, false>
-                        : p + 1 <= 8 ? c32_converge_kernel<8, false>
-                                     : c32_converge_kernel<16, false>);
-  const int64_t P = (int64_t)genes * nS;
-  kernel<<<(unsigned)((P + C32_WARPS - 1) / C32_WARPS), 32 * C32_WARPS, 0,
-           stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, k_best,
-                     x0, br_lo, br_hi, delta, lml, scale, beta, n, nrho, R, p,
-                     nS, genes, steps, eps_ctx);
-  return (int)cudaGetLastError();
+  if (p + 1 > 16) return (int)cudaErrorInvalidValue;
+  return launch_converge(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx,
+                         k_best, x0, br_lo, br_hi, delta, lml, scale, beta,
+                         work, n, nrho, R, p, nS, genes, steps, reml, stream);
 }

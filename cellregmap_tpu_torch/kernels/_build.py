@@ -110,14 +110,22 @@ def check(err: int, name: str) -> None:
                            f"cudaError {err}")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """A tensor's address, for an entry point's ``c_void_p`` argument."""
+    return t.data_ptr()
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
+def stream_ptr(device) -> int:
+    """The handle of ``device``'s current CUDA stream, for an entry
+    point's ``cudaStream_t`` argument: the raw handle, with no Stream
+    object made on every call (``scripts/profile_wrapper_host.py`` times
+    both)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def upload(a, device):
@@ -142,6 +150,19 @@ def context_dtype(t, name: str):
         raise TypeError(f"{name}: expected float64 or float32 (the float32 "
                         f"context), got {t.dtype}")
     return t.dtype
+
+
+def require_all(name: str, dtype, specs) -> None:
+    """:func:`require` of each (tensor, its name, shape) of ``specs``: one
+    quick pass, and only where it finds a fault the checks that name it."""
+    for t, _, shape in specs:
+        if not (t.is_cuda and t.dtype == dtype and t.is_contiguous()
+                and t.shape == shape):
+            break
+    else:
+        return
+    for t, tn, shape in specs:
+        require(t, f"{name}: {tn}", dtype, shape)
 
 
 def require(t, name: str, dtype, shape=None) -> None:

@@ -212,16 +212,14 @@ def check_operands(name, S, WGt, yt, comp, ld_xx, restricted, slot=None):
                          f"for each gene of yt {tuple(yt.shape)}, got "
                          f"{list(slot)}")
     f64 = _build.context_dtype(S, f"{name}: S")
-    for t, tn, shape in ((S, "S", (nrho, R)), (WGt, "WGt", (nrho, R, p + nS)),
-                         (yt, "yt", gs + (nrho, R)),
-                         (comp.CWW, "CWW", (p, p)),
-                         (comp.CWy, "CWy", gs + (p,)), (comp.Cyy, "Cyy", gs),
-                         (comp.CWg, "CWg", (p, nS)),
-                         (comp.Cgy, "Cgy", gs + (nS,)),
-                         (comp.Cgg, "Cgg", (nS,))):
-        _build.require(t, f"{name}: {tn}", f64, shape)
+    specs = ((S, "S", (nrho, R)), (WGt, "WGt", (nrho, R, p + nS)),
+             (yt, "yt", gs + (nrho, R)), (comp.CWW, "CWW", (p, p)),
+             (comp.CWy, "CWy", gs + (p,)), (comp.Cyy, "Cyy", gs),
+             (comp.CWg, "CWg", (p, nS)), (comp.Cgy, "Cgy", gs + (nS,)),
+             (comp.Cgg, "Cgg", (nS,)))
     if restricted:
-        _build.require(ld_xx, f"{name}: ld_xx", f64, (nS,))
+        specs += ((ld_xx, "ld_xx", (nS,)),)
+    _build.require_all(name, f64, specs)
     return nrho, R, p, nS, gs
 
 

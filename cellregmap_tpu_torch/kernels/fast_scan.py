@@ -4,9 +4,12 @@ At the null's fixed delta, every variant's ML alternative [W, g] is
 re-profiled by a rank-1 update of the GLS normal equations
 (cellregmap_tpu/engine.py:1132-1151 ``fast_scan_kernel`` through
 models/lmm.py:863-909 ``fast_scan``).  On a CUDA tensor :func:`fast_scan`
-launches ``csrc/fast_scan.cu`` (a block per 32 variants, the rows split over
-its warps); on a CPU tensor it runs :func:`fast_scan_plain`, which is
-``models.lmm.fast_scan``.
+launches ``csrc/fast_scan.cu`` (two launches: the sums over the rows split
+across blocks, beside one block a gene computing its shared terms and A's
+factor; then an epilogue a block a (32 variants, gene) adding the splits
+in a fixed order); on a CPU tensor it runs :func:`fast_scan_plain`, which
+is ``models.lmm.fast_scan``.  Its scratch (the splits' sums, the genes'
+terms) is sized by ``crm_fast_scan_workspace``.
 
 The gene-batched scan (``engine.fast_scan_multigene_batch``; the JAX
 engine's ``fast_scan_multigene_kernel``, engine.py:1176-1206) passes
@@ -14,8 +17,9 @@ engine's ``fast_scan_multigene_kernel``, engine.py:1176-1206) passes
 the rotated operands come once per distinct best rho of the tile (a slot:
 S, Wt, CWW, Gt, CWG and cGG gain a leading slot axis), the phenotype's
 (delta, yt, cWy, cyy, cGy) a leading gene axis, and ``slot[g]`` names gene
-g's.  One launch serves every gene; the plain version runs
-``models.lmm.fast_scan`` one gene at a time.
+g's.  One call serves every gene (its slot index uploaded once for each
+slot pattern); the plain version runs ``models.lmm.fast_scan`` one gene at
+a time.
 
 The float32 context (``ScanConfig(dtype="float32")``: the JAX engine's
 f32 ``fast_scan_kernel`` and its gene axis) takes f32 operands and returns
@@ -27,6 +31,7 @@ on f32 tensors.  They count their launches in ``launches_f32`` too.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -37,6 +42,8 @@ from ..models.lmm import fast_scan as fast_scan_plain
 
 launches = 0
 launches_f32 = 0  # of them, the float32 context's instantiations
+_INDEX: dict = {}   # (device, m, slot) -> (slot index, most genes a slot)
+_INDEX_LOCK = threading.Lock()
 
 MAX_FIXED = 32      # p of the CUDA kernel's small algebra
 MAX_FIXED_F32 = 16  # p of the float32 context's instantiations
@@ -45,14 +52,14 @@ MAX_SLOTS = 65535   # distinct best rho of one gene-batched launch
 
 def _bind(lib):
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.crm_fast_scan.restype = ci
-    lib.crm_fast_scan.argtypes = [vp] * 14 + [cd] + [ci] * 4 + [vp]
-    lib.crm_fast_scan_genes.restype = ci
-    lib.crm_fast_scan_genes.argtypes = [vp] * 17 + [ci] * 6 + [vp]
-    lib.crm_fast_scan_f32.restype = ci
-    lib.crm_fast_scan_f32.argtypes = [vp] * 14 + [cd] + [ci] * 4 + [vp]
-    lib.crm_fast_scan_genes_f32.restype = ci
-    lib.crm_fast_scan_genes_f32.argtypes = [vp] * 17 + [ci] * 6 + [vp]
+    lib.crm_fast_scan_workspace.restype = ctypes.c_int64
+    lib.crm_fast_scan_workspace.argtypes = [ci] * 7
+    for name in ("crm_fast_scan", "crm_fast_scan_f32"):
+        getattr(lib, name).restype = ci
+        getattr(lib, name).argtypes = [vp] * 15 + [cd] + [ci] * 4 + [vp]
+    for name in ("crm_fast_scan_genes", "crm_fast_scan_genes_f32"):
+        getattr(lib, name).restype = ci
+        getattr(lib, name).argtypes = [vp] * 18 + [ci] * 7 + [vp]
 
 
 def _limit(name, S, p) -> torch.dtype:
@@ -108,13 +115,11 @@ def fast_scan(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG,
     R, p = Wt.shape
     nS = Gt.shape[1]
     dt = _limit("fast_scan", S, p)
-    for t, name, shape in ((S, "S", (R,)), (Wt, "Wt", (R, p)),
-                           (yt, "yt", (R,)), (CWW, "CWW", (p, p)),
-                           (cWy, "cWy", (p,)), (cyy, "cyy", ()),
-                           (Gt, "Gt", (R, nS)),
-                           (CWG, "CWG", (p, nS)), (cGy, "cGy", (nS,)),
-                           (cGG, "cGG", (nS,))):
-        _build.require(t, f"fast_scan: {name}", dt, shape)
+    _build.require_all("fast_scan", dt, (
+        (S, "S", (R,)), (Wt, "Wt", (R, p)), (yt, "yt", (R,)),
+        (CWW, "CWW", (p, p)), (cWy, "cWy", (p,)), (cyy, "cyy", ()),
+        (Gt, "Gt", (R, nS)), (CWG, "CWG", (p, nS)), (cGy, "cGy", (nS,)),
+        (cGG, "cGG", (nS,))))
     out = call(_build.load("fast_scan", _bind), delta, S, Wt, yt, CWW, cWy,
                cyy, Gt, CWG, cGy, cGG, n, _build.stream_ptr(S.device))
     launches += 1
@@ -128,19 +133,28 @@ def call(lib, delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
     library, or an emulation of it on CPU tensors)."""
     R, p = Wt.shape
     nS = Gt.shape[1]
-    new = lambda *shape: torch.empty(shape, dtype=Gt.dtype,  # noqa
-                                     device=Gt.device)
-    out = FastScanResult(lml=new(nS), effsizes_g=new(nS),
-                         effsizes_W=new(nS, p), scale=new(nS))
+    f32 = Gt.dtype == torch.float32
+    out, work = _outputs(lib, Gt, (), nS, p, (R, p, nS, 1, 1, 1, int(f32)))
     if nS == 0:
         return out
-    fn = (lib.crm_fast_scan_f32 if Gt.dtype == torch.float32
-          else lib.crm_fast_scan)
+    fn = lib.crm_fast_scan_f32 if f32 else lib.crm_fast_scan
     _build.check(fn(
         *(_build.ptr(t) for t in (S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy,
-                                  cGG, *out)),
+                                  cGG, *out, work)),
         float(delta), n, R, p, nS, stream), "fast_scan")
     return out
+
+
+def _outputs(lib, Gt, gs, nS, p, plan):
+    """The results (lml, beta_g, beta_W, scale with the leading axes
+    ``gs``) and the scratch of ``crm_fast_scan_workspace(*plan)`` bytes."""
+    new = lambda *shape: torch.empty(shape, dtype=Gt.dtype,  # noqa
+                                     device=Gt.device)
+    out = FastScanResult(lml=new(*gs, nS), effsizes_g=new(*gs, nS),
+                         effsizes_W=new(*gs, nS, p), scale=new(*gs, nS))
+    work = torch.empty(lib.crm_fast_scan_workspace(*plan) if nS else 0,
+                       dtype=torch.uint8, device=Gt.device)
+    return out, work
 
 
 def _fast_scan_genes(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
@@ -155,50 +169,69 @@ def _fast_scan_genes(delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
     dt = _limit("fast_scan", S, p)
     if not 1 <= m <= MAX_SLOTS:
         raise ValueError(f"fast_scan: 1..{MAX_SLOTS} slots, got {m}")
-    if genes < 1 or not all(0 <= int(k) < m for k in slot):
-        raise ValueError(f"fast_scan: slot must name one of the {m} slots "
-                         f"for each of at least one gene, got {list(slot)}")
-    for t, name, shape in ((delta, "delta", (genes,)), (S, "S", (m, R)),
-                           (Wt, "Wt", (m, R, p)), (yt, "yt", (genes, R)),
-                           (CWW, "CWW", (m, p, p)),
-                           (cWy, "cWy", (genes, p)),
-                           (cyy, "cyy", (genes,)), (Gt, "Gt", (m, R, nS)),
-                           (CWG, "CWG", (m, p, nS)),
-                           (cGy, "cGy", (genes, nS)),
-                           (cGG, "cGG", (m, nS))):
-        _build.require(t, f"fast_scan: {name}", dt, shape)
-    index = _build.upload(slot_order(slot, m), S.device)
+    if genes > MAX_SLOTS:
+        raise ValueError(f"fast_scan: at most {MAX_SLOTS} genes a launch, "
+                         f"got {genes}")
+    _build.require_all("fast_scan", dt, (
+        (delta, "delta", (genes,)), (S, "S", (m, R)), (Wt, "Wt", (m, R, p)),
+        (yt, "yt", (genes, R)), (CWW, "CWW", (m, p, p)),
+        (cWy, "cWy", (genes, p)), (cyy, "cyy", (genes,)),
+        (Gt, "Gt", (m, R, nS)), (CWG, "CWG", (m, p, nS)),
+        (cGy, "cGy", (genes, nS)), (cGG, "cGG", (m, nS))))
+    index, max_genes = _slot_index(slot, m, S.device)
     out = call_genes(_build.load("fast_scan", _bind), delta, S, Wt, yt, CWW,
                      cWy, cyy, Gt, CWG, cGy, cGG, n, slot, index,
-                     _build.stream_ptr(S.device))
+                     _build.stream_ptr(S.device), max_genes)
     launches += 1
     launches_f32 += dt == torch.float32
     return out
 
 
+def _slot_index(slot, m, device):
+    """(:func:`slot_order` of ``slot`` on ``device``, the most genes of a
+    slot), made and uploaded once for each slot pattern (a gene-batched
+    scan repeats its tile's for every batch; the 64 most recent are
+    kept)."""
+    s = np.asarray(slot, dtype=np.int64)
+    key = (str(device), m, s.tobytes())
+    with _INDEX_LOCK:
+        hit = _INDEX.get(key)
+        if hit is None:
+            if s.ndim != 1 or not s.size or s.min() < 0 or s.max() >= m:
+                raise ValueError(f"fast_scan: slot must name one of the {m} "
+                                 f"slots for each of at least one gene, got "
+                                 f"{s.tolist()}")
+            hit = (_build.upload(slot_order(s, m), device),
+                   int(np.bincount(s, minlength=m).max()))
+            if len(_INDEX) >= 64:
+                _INDEX.pop(next(iter(_INDEX)))
+            _INDEX[key] = hit
+    return hit
+
+
 def call_genes(lib, delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG, cGy, cGG, n,
-               slot, index, stream=None) -> FastScanResult:
+               slot, index, stream=None, max_genes=None) -> FastScanResult:
     """Allocate the gene axis's results and call ``lib``'s entry point
     (the card's library, or an emulation of it on CPU tensors); ``index``
     is :func:`slot_order` of the host ``slot``, as an int32 tensor on the
-    operands' device."""
+    operands' device; ``max_genes`` the most genes of a slot (counted from
+    ``slot`` when None)."""
     m, R, p = Wt.shape
     genes = yt.shape[0]
     nS = Gt.shape[2]
-    new = lambda *shape: torch.empty(shape, dtype=Gt.dtype,  # noqa
-                                     device=Gt.device)
-    out = FastScanResult(lml=new(genes, nS), effsizes_g=new(genes, nS),
-                         effsizes_W=new(genes, nS, p), scale=new(genes, nS))
+    f32 = Gt.dtype == torch.float32
+    if max_genes is None:
+        max_genes = int(np.bincount(np.asarray(slot, dtype=np.int64),
+                                    minlength=m).max())
+    out, work = _outputs(lib, Gt, (genes,), nS, p,
+                         (R, p, nS, genes, m, max_genes, int(f32)))
     if nS == 0:
         return out
-    max_genes = int(np.bincount(np.asarray(slot, dtype=np.int64),
-                                minlength=m).max())
     order = index[:genes]
     starts = index[genes:]
-    fn = (lib.crm_fast_scan_genes_f32 if Gt.dtype == torch.float32
-          else lib.crm_fast_scan_genes)
+    fn = lib.crm_fast_scan_genes_f32 if f32 else lib.crm_fast_scan_genes
     _build.check(fn(
         *(_build.ptr(t) for t in (delta, S, Wt, yt, CWW, cWy, cyy, Gt, CWG,
-                                  cGy, cGG, order, starts, *out)),
-        n, R, p, nS, m, max_genes, stream), "fast_scan")
+                                  cGy, cGG, order, starts, *out, work)),
+        n, R, p, nS, m, max_genes, genes, stream), "fast_scan")
     return out

@@ -51,9 +51,11 @@ tensors; the noise floors of both take eps(f32), the tensors'
 converge also takes the ML objective on an f32 context: the association
 refit's Newton half (K7, engine.py:991-1062, whose brackets are the grid's
 f64 logits and whose steps and final fit are f64 arithmetic on the f32
-tensors), its rss floored at tiny(f32) (:1056).  Its kernels
-(``crm_reml_localize_f32``, ``crm_reml_converge_f32``) take a warp a
-problem, the rows read where they lie.
+tensors), its rss floored at tiny(f32) (:1056).  The f32 localize
+(``crm_reml_localize_f32``) takes a warp a problem, the rows read where
+they lie; the f32 converge (``crm_reml_converge_f32``) is the converge's
+design above on f32 rows (staged as f32, twice as many a block), with the
+same lists and scratch.
 """
 from __future__ import annotations
 
@@ -199,7 +201,7 @@ def _bind(lib):
     lib.crm_reml_localize_f32.restype = ci
     lib.crm_reml_localize_f32.argtypes = [vp] * 15 + [ci] * 7 + [cd, vp]
     lib.crm_reml_converge_f32.restype = ci
-    lib.crm_reml_converge_f32.argtypes = [vp] * 18 + [ci] * 7 + [cd, ci, vp]
+    lib.crm_reml_converge_f32.argtypes = [vp] * 19 + [ci] * 8 + [vp]
 
 
 def _check_f32(name, S, p):
@@ -277,10 +279,9 @@ def reml_converge(S, WGt, yt, comp: Complements, ld_xx, k_best, x0, br_lo,
     nrho, R, p, nS, gs = check_operands("reml_converge", S, WGt, yt, comp,
                                         ld_xx, restricted)
     _check_f32("reml_converge", S, p)
-    for t, name in ((br_lo, "br_lo"), (br_hi, "br_hi"), (x0, "x0")):
-        if t is not None:
-            _build.require(t, f"reml_converge: {name}", torch.float64,
-                           gs + (nS, nrho))
+    _build.require_all("reml_converge", torch.float64, tuple(
+        (t, name, gs + (nS, nrho)) for t, name in (
+            (br_lo, "br_lo"), (br_hi, "br_hi"), (x0, "x0")) if t is not None))
     if k_best is not None:
         _build.require(k_best, "reml_converge: k_best", torch.int64,
                        gs + (nS,))
@@ -310,25 +311,16 @@ def call_converge(lib, S, WGt, yt, comp, ld_xx, k_best, x0, br_lo, br_hi, n,
     if delta.numel() == 0:
         return delta, lml, scale, beta
     genes = math.prod(gs)
-    opt = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
-    if S.dtype == torch.float32:  # the float32 context: no scratch
-        ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp)]
-        ptrs += [opt(ld_xx if restricted else None), opt(k_best), opt(x0),
-                 _build.ptr(br_lo), _build.ptr(br_hi), _build.ptr(delta),
-                 _build.ptr(lml), _build.ptr(scale), _build.ptr(beta)]
-        _build.check(lib.crm_reml_converge_f32(
-            *ptrs, n, nrho, R, p, nS, genes, steps,
-            float(torch.finfo(torch.float32).eps), int(restricted), stream),
-            "reml_converge")
-        return delta, lml, scale, beta
     work = torch.empty(lib.crm_reml_converge_workspace(nrho, nS, genes),
                        dtype=torch.uint8, device=S.device)
+    opt = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
     ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp)]
     ptrs += [opt(ld_xx if restricted else None), opt(k_best), opt(x0),
              _build.ptr(br_lo), _build.ptr(br_hi), _build.ptr(delta),
              _build.ptr(lml), _build.ptr(scale), _build.ptr(beta),
              _build.ptr(work)]
-    _build.check(lib.crm_reml_converge(*ptrs, n, nrho, R, p, nS, genes,
-                                       steps, int(restricted), stream),
-                 "reml_converge")
+    fn = (lib.crm_reml_converge_f32 if S.dtype == torch.float32
+          else lib.crm_reml_converge)
+    _build.check(fn(*ptrs, n, nrho, R, p, nS, genes, steps, int(restricted),
+                    stream), "reml_converge")
     return delta, lml, scale, beta

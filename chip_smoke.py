@@ -313,6 +313,23 @@ CONVERGE_NOTE = ("the problems listed a rho on the card; a block a "
                  "a lane")
 
 
+FAST_SCAN_NOTE = ("two launches: the sums a block a (variant tile, split "
+                  "of the rows, slot, chunk of genes), the splits filling "
+                  "two blocks an SM, beside a block a gene computing its "
+                  "shared terms and A's factor once; then an epilogue a "
+                  "block a (32 variants, gene) adding the splits in a "
+                  "fixed order")
+
+
+def device_ms(fn):
+    """Profiler milliseconds a call of ``fn`` by kernel, or None where the
+    profiler saw no device time."""
+    try:
+        return device_split(fn)
+    except AssertionError:
+        return None
+
+
 def check_score_core(args, tag=None, plain_reps=10):
     """K5 on one call's operands (a single phenotype) against its plain
     version, Q and Wmat within 1e-10 of max|plain|, timed beside it; the
@@ -865,9 +882,11 @@ NULL_FIT_TOLERANCE = {
 def device_split(fn, reps=3):
     """Device milliseconds a call of ``fn`` spends in each CUDA kernel, by
     the kernel's name (its template arguments kept), from
-    ``torch.profiler`` over ``reps`` calls after one warm-up.  A trace
-    with no device events (the profiler now and then returns none) is
-    taken once more."""
+    ``torch.profiler`` over ``reps`` calls after one warm-up.  The
+    profiler now and then drops a call's kernels (or every event): a
+    trace whose kernel counts are not whole multiples of ``reps`` is
+    taken again, up to four times, and each kernel's time a call is its
+    mean time a launch times its launches a call."""
     import re
 
     import torch
@@ -876,12 +895,13 @@ def device_split(fn, reps=3):
     fn()
     torch.cuda.synchronize()
     out = {}
-    for _ in range(2):
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        seen = {}
         for e in prof.key_averages():
             us = getattr(e, "device_time_total", None)
             if us is None:
@@ -889,8 +909,11 @@ def device_split(fn, reps=3):
             if us > 0:  # a kernel (its launch on the host has none)
                 name = re.sub(r"\(.*", "", e.key.replace(
                     "(anonymous namespace)::", "").replace("void ", ""))
-                out[name] = out.get(name, 0.0) + us / 1e3 / reps
-        if out:
+                t, c = seen.get(name, (0.0, 0))
+                seen[name] = (t + us / 1e3, c + e.count)
+        out = {name: t / c * max(1, round(c / reps))
+               for name, (t, c) in seen.items()}
+        if seen and all(c % reps == 0 for _, c in seen.values()):
             break
     assert out, "the profiler saw no device time"
     return out
@@ -1071,7 +1094,9 @@ def check_fast_scan(ctx, G, n, plain_reps=10):
         plain_ms=cuda_ms(lambda: k8.fast_scan_plain(*args, **kw),
                          reps=plain_reps, warmup=min(2, plain_reps)),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library),
-        shapes=dict(R=R, p=p, S=nS), tolerance=tols["text"])
+        shapes=dict(R=R, p=p, S=nS), tolerance=tols["text"],
+        split_ms=device_ms(lambda: k8.fast_scan(*args, **kw)),
+        note=FAST_SCAN_NOTE)
 
 
 def check_woodbury_family(bctx, G, norm, n, tag=None, with_library=True,
@@ -2256,7 +2281,9 @@ def check_fast_scan_genes(ctx_g, G, k, delta, n):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.bmm(lhsT, Gt)),
         shapes=dict(genes=genes, slots=m, R=R, p=p, S=nS),
-        tolerance=tols["text"])
+        tolerance=tols["text"],
+        split_ms=device_ms(lambda: k8.fast_scan(*args, **kw)),
+        note=FAST_SCAN_NOTE)
 
 
 def check_refit_genes(ctx_g, G, k, n, plain_reps=10):

@@ -15,6 +15,13 @@ refit batch, of K7 with the gene axis and of the wide K7):
   passes (what the staging, the barriers, the algebra and the final fit
   cost alone).
 
+With ``--f32`` the float32 converge instead, on ``profile_kernel_ab.py``'s
+``k3conv32`` calls (the screen's stage 3 at S = 1024, K7's three calls and
+K7 with 16 genes, on the float32 scanner): ``as built`` and ``f32_blocks4``
+(the f32 one-warp instantiation, which serves the zero-step calls of
+4096 problems and more, at the f64 one's four blocks an SM instead of
+eight).
+
 Each held variant matches the plain version (delta, lml, scale, beta
 within rel 1e-9).  Per call and variant: the CUDA-event median of 10
 wrapper calls (in the order given, then reversed) and the profiler's
@@ -22,7 +29,7 @@ device milliseconds of the converge kernel (None where the profiler
 saw no kernel of the variant's library).  Prints one JSON line a call
 and one of the whole; ``--out`` also writes that line to a file.
 
-    python3 scripts/profile_converge.py [--out FILE]
+    python3 scripts/profile_converge.py [--f32] [--out FILE]
 """
 import argparse
 import ctypes
@@ -40,7 +47,8 @@ import chip_smoke as cs  # noqa: E402
 import cellregmap_tpu_torch as crp  # noqa: E402
 from cellregmap_tpu_torch.kernels import _build  # noqa: E402
 from cellregmap_tpu_torch.kernels import reml_newton as k3  # noqa: E402
-from profile_kernel_ab import score_converge_calls  # noqa: E402
+from profile_kernel_ab import (f32_converge_calls,  # noqa: E402
+                               score_converge_calls)
 
 SOURCE = (_build.CSRC / "reml_newton.cu").read_text()
 
@@ -57,6 +65,12 @@ LOG_EACH_ROW = edit(SOURCE, "constexpr int LOG_GROUP = 8;",
                     "constexpr int LOG_GROUP = 1;")
 NO_ROWS = edit(SOURCE, "        if (active)\n          conv_rows<P1MAX, 3>",
                "        if (false)\n          conv_rows<P1MAX, 3>")
+F32_BLOCKS4 = edit(SOURCE, "WPP == 2 ? 2 : es == 4 ? 8 : 4;",
+                  "WPP == 2 ? 2 : 4;")
+F32_VARIANTS = {
+    "as built": (SOURCE, (), True),
+    "f32_blocks4": (F32_BLOCKS4, (), True),
+}
 # name -> (source text, -D defines, held to the plain version)
 VARIANTS = {
     "as built": (SOURCE, (), True),
@@ -67,11 +81,11 @@ VARIANTS = {
 }
 
 
-def build(work):
+def build(work, variants):
     """Every variant built in parallel."""
     work.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, (text, defines, _)) in enumerate(VARIANTS.items()):
+    for i, (name, (text, defines, _)) in enumerate(variants.items()):
         src = work / f"reml_newton_{i}.cu"
         src.write_text(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
@@ -95,15 +109,22 @@ def build(work):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--f32", action="store_true")
     opt = ap.parse_args()
-    libs, ptxas = build(_build.BUILD_DIR / "profile_converge")
+    variants = F32_VARIANTS if opt.f32 else VARIANTS
+    libs, ptxas = build(_build.BUILD_DIR / "profile_converge", variants)
     out = {"card": cs.card_line(), "ptxas": ptxas, "calls": []}
     d = cs.make_dataset(**cs.HEADLINE)
     n = len(d["y"])
     G = torch.as_tensor(d["G"][:, :cs.BATCH], device="cuda").contiguous()
     stream = _build.stream_ptr(G.device)
-    for label, _, conv in score_converge_calls(
-            d, n, G, crp.get_L_values(d["hK"], d["E"])):
+    Ls = crp.get_L_values(d["hK"], d["E"])
+    if opt.f32:
+        batches = [(label, None, conv) for label, conv in
+                   f32_converge_calls(d, n, G, Ls) if "f32" in label]
+    else:
+        batches = score_converge_calls(d, n, G, Ls)
+    for label, _, conv in batches:
         for i, (args, kw) in enumerate(conv):
             want = k3.reml_converge_plain(*args, **kw)
             row = {"call": f"{label}, call {i}, steps {args[10]}", "ms": {},
@@ -112,7 +133,7 @@ def main():
             for name, lib in order + order[::-1]:
                 fn = lambda lib=lib: k3.call_converge(  # noqa: E731
                     lib, *args, **kw, stream=stream)
-                if VARIANTS[name][2]:
+                if variants[name][2]:
                     got = fn()
                     torch.cuda.synchronize()
                     for g, w in zip(got, want):

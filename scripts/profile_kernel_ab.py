@@ -76,14 +76,24 @@ and rss within 1e-9 of their largest entry, f32 through
 ``woodbury_family.f32_gaps``), then timed by CUDA events (the median of 20
 runs, 10 for the localize and K9, 5 for K10) in the order other, this,
 this, other, and profiled with ``torch.profiler`` (device milliseconds a
-call in each kernel; None where the profiler saw no kernel).  Prints one JSON line per call and one of the whole;
+call in each kernel; None where the profiler saw no kernel); ``host_ms``
+is each side's host time a call (50 calls enqueued back to back).  Prints
+one JSON line per call and one of the whole;
 ``--out`` also writes that line to a file; ``--kernels`` picks some of
-k1, k1f32, k2, k2f32, k3, k10, k10mg, k6a, k9, k4, k3reg, k5, k3conv, k8,
-scan.  K8
-(``csrc/fast_scan.cu``): the headline's Ls fast-scan batch (512
-variants at the null's best rho and delta) and the ``assoc_multigene_16``
-tile's batch (16 genes, each at its own), every output within 1e-10 of
-max|plain|, timed over 20 runs.
+k1, k1f32, k2, k2f32, k3, k10, k10mg, k6a, k9, k4, k3reg, k5, k3conv,
+k3conv32, k8, scan, assoc (``assoc_ab``: the fast association scans
+end to end, f64 and f32, host clock).  K8 (``csrc/fast_scan.cu``): the
+headline's Ls
+fast-scan batch (512 variants at the null's best rho and delta) and the
+``assoc_multigene_16`` tile's batch (16 genes, each at its own), on the
+scanner built in f64 and in f32, and the wide instantiation at
+``covariates_24`` (the hK scanner, p = 24), each output within
+``chip_smoke.FAST_SCAN_TOLERANCE`` of max|plain|, timed over 20 runs,
+each call's profile split by launch.  The float32 converge
+(``k3conv32``): stage 3 of one screen batch (1024 variants of the
+headline's context cast to f32), K7's three calls of one refit batch and
+K7 with the gene axis, each on the float32 scanner, and the same calls
+in f64 as the yardstick, within rel 1e-9 of the plain version.
 
     python3 scripts/profile_kernel_ab.py --other <checkout> [--out FILE]
         [--kernels k10,k10mg,k6a,scan] [--scan-reps 5]
@@ -118,7 +128,8 @@ KERNELS = {"k1": "kr_contract", "k2": "delta_grid", "k3": "reml_newton",
            "k10mg": "null_fit", "k6a": "sym_eigvalsh",
            "k9": "woodbury_family", "k4": "best_rho_rotate",
            "k3reg": "reml_newton", "k5": "score_core", "k3conv": "reml_newton",
-           "k8": "fast_scan", "scan": None}
+           "k3conv32": "reml_newton", "k8": "fast_scan", "scan": None,
+           "assoc": None}
 
 
 def load_other(root: Path, name="other_crp"):
@@ -142,13 +153,32 @@ def timed(fns, reps):
     return out
 
 
+def host_ms(this_fn, other_fn, calls=50):
+    """Host milliseconds a call of each side spends before it returns (its
+    checks, allocations and launches), over ``calls`` calls enqueued back
+    to back after a synchronise, in the order other, this, this, other."""
+    out = {}
+    for label, fn in (("other", other_fn), ("this", this_fn),
+                      ("this", this_fn), ("other", other_fn)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.setdefault(label, []).append((time.perf_counter() - t0) * 1e3
+                                         / calls)
+        torch.cuda.synchronize()
+    return out
+
+
 def compare(name, this_fn, other_fn, check, reps):
     for label, fn in (("this", this_fn), ("other", other_fn)):
         check(label, fn())
         torch.cuda.synchronize()
     ms = timed([("other", other_fn), ("this", this_fn), ("this", this_fn),
                 ("other", other_fn)], reps)
-    row = dict(call=name, ms=ms, profile={})
+    row = dict(call=name, ms=ms, host_ms=host_ms(this_fn, other_fn),
+               profile={})
     for label, fn in (("this", this_fn), ("other", other_fn)):
         try:
             row["profile"][label] = cs.device_split(fn)
@@ -263,6 +293,62 @@ def scan_ab(d, Ls, other, reps):
                        for side, t in times.items()}
         print(json.dumps({"scan": method, **out[method]}), flush=True)
         del crms
+    return out
+
+
+def assoc_ab(d, Ls, other, reps):
+    """The fast association scans of both checkouts in f64 and f32
+    (``ScanConfig(dtype=...)``): ``scan_association_fast`` of the
+    headline's 2048 variants and ``scan_association_fast_multigene`` of
+    the ``assoc_multigene_16`` genes, each side's scanner set up and
+    scanned once, then ``reps`` timed scans a turn in the order other,
+    this, this, other (host clock).  The other checkout's first scan is
+    held to this one's by ``chip_smoke``'s rule for the float32 scans: the
+    LRT statistics within ``tol`` of |null lml| (f64 1e-8, f32
+    ``chip_smoke.F32_STAT_REL``: K8's sums run in another order)."""
+    Y = cs._multigene_genes(d)
+    out = {}
+    for dt, tag, tol in (("float64", "f64", 1e-8),
+                         ("float32", "f32", cs.F32_STAT_REL)):
+        crms, runs = {}, {}
+        for side, pkg in (("this", crp), ("other", other)):
+            crm = pkg.CellRegMap(
+                y=Y[:, 0], E=d["E"], W=d["W"], Ls=Ls, device="cuda",
+                config=pkg.ScanConfig(snp_batch=cs.BATCH, dtype=dt))
+            crms[side] = crm
+            runs[side] = {
+                "fast": lambda crm=crm: crm.scan_association_fast(d["G"]),
+                "fast_multigene": lambda crm=crm: (
+                    crm.scan_association_fast_multigene(Y, d["G"],
+                                                        gene_batch=16))}
+        crm = crms["this"]
+        null_lml = {
+            "fast": [float(f.lml[k]) for f, k in
+                     [crm._fit_null_association()]],
+            "fast_multigene": [
+                float(f.lml[k]) for f, k in (
+                    crm.with_phenotype(Y[:, j])._fit_null_association()
+                    for j in range(Y.shape[1]))]}
+        for kind in ("fast", "fast_multigene"):
+            ref = runs["this"][kind]()[0]
+            got = runs["other"][kind]()[0]
+            gap = cs._stat_gap(got, ref, null_lml[kind])
+            assert gap <= tol, f"assoc {kind} ({tag}): statistic gap {gap}"
+            times = {"this": [], "other": []}
+            for side in ("other", "this", "this", "other"):
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runs[side][kind]()
+                    torch.cuda.synchronize()
+                    times[side].append(time.perf_counter() - t0)
+            key = f"{kind} {tag}"
+            out[key] = {side: dict(median_s=float(np.median(t)),
+                                   min_s=min(t), max_s=max(t), s=t)
+                        for side, t in times.items()}
+            out[key]["stat_gap_over_null_lml"] = gap
+            print(json.dumps({"assoc": key, **out[key]}), flush=True)
+        del crms, runs
     return out
 
 
@@ -397,25 +483,84 @@ def score_converge_calls(d, n, G, Ls):
 
 
 def k8_calls(d, n, G, Ls):
-    """(label, K8's (args, kw)) on the headline's Ls scanner: a 512-variant
-    fast-scan batch at the null's best rho and delta, and the same batch
-    through the ``assoc_multigene_16`` tile (each gene at its own)."""
-    ctx = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
-                                    device="cuda")
-    fits, k = engine.null_association_fit(ctx, n, delta_cfg=cs.ASSOC_DELTA_CFG)
+    """(label, K8's (args, kw)) on the headline's Ls scanner, built in f64
+    and in f32: a 512-variant fast-scan batch at the null's best rho and
+    delta, and the same batch through the ``assoc_multigene_16`` tile
+    (each gene at its own); then the wide instantiation at
+    ``covariates_24`` (its hK scanner: p = 24, 21 rho, R = 110)."""
+    out = []
+    for dt, tag in ((torch.float64, ""), (torch.float32, ", f32")):
+        ctx = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                        device="cuda", dtype=dt)
+        Gd = G.to(dt)
+        fits, k = engine.null_association_fit(ctx, n,
+                                              delta_cfg=cs.ASSOC_DELTA_CFG)
+        k = int(k)
+        out.append((f"headline Ls{tag}", cs.capture_kernel_inputs(
+            lambda: engine.fast_scan_batch(ctx, Gd, k, float(fits.delta[k]),
+                                           n), ["fast_scan"])["fast_scan"][0]))
+        ctx_g = cs._gene_ctx(ctx, cs._multigene_genes(d))
+        fits, kg = engine.null_association_multigene_fit(
+            ctx_g, n, delta_cfg=cs.ASSOC_DELTA_CFG)
+        delta = fits.delta[torch.arange(kg.shape[0], device="cuda"),
+                           kg].contiguous()
+        kg = kg.cpu().numpy()
+        out.append((f"genes{tag}", cs.capture_kernel_inputs(
+            lambda: engine.fast_scan_multigene_batch(ctx_g, Gd, kg, delta, n),
+            ["fast_scan"])["fast_scan"][0]))
+    rng = np.random.default_rng(cs.COVARIATES["seed"])
+    W24 = np.concatenate([np.ones((n, 1)),
+                          rng.normal(size=(n, cs.COVARIATES["p"] - 1))],
+                         axis=1)
+    ctx24 = engine.build_null_context(
+        d["y"], W24, d["E"], hK=d["hK"],
+        rho_grid=np.linspace(0.0, 1.0, cs.COVARIATES["n_rho"]),
+        device="cuda")
+    fits, k = engine.null_association_fit(ctx24, n,
+                                          delta_cfg=cs.ASSOC_DELTA_CFG)
     k = int(k)
-    out = [("headline Ls", cs.capture_kernel_inputs(
-        lambda: engine.fast_scan_batch(ctx, G, k, float(fits.delta[k]), n),
-        ["fast_scan"])["fast_scan"][0])]
-    ctx_g = cs._gene_ctx(ctx, cs._multigene_genes(d))
-    fits, kg = engine.null_association_multigene_fit(
-        ctx_g, n, delta_cfg=cs.ASSOC_DELTA_CFG)
-    delta = fits.delta[torch.arange(kg.shape[0], device="cuda"),
-                       kg].contiguous()
-    kg = kg.cpu().numpy()
-    out.append(("genes", cs.capture_kernel_inputs(
-        lambda: engine.fast_scan_multigene_batch(ctx_g, G, kg, delta, n),
+    out.append(("covariates_24", cs.capture_kernel_inputs(
+        lambda: engine.fast_scan_batch(ctx24, G, k, float(fits.delta[k]), n),
         ["fast_scan"])["fast_scan"][0]))
+    return out
+
+
+def f32_converge_calls(d, n, G, Ls):
+    """(label, [K3's converge (args, kw)]) at the float32 context's three
+    converge shapes, in f32 and, as the yardstick, in f64: stage 3 of one
+    screen batch (the headline's context, cast to f32 on the card, and
+    1024 variants), K7's refit batch on the Ls scanner built in that
+    dtype (512 variants at the null's best rho: the Newton call, then the
+    two zero-step fits at the grid's ends) and K7 with the gene axis
+    (``assoc_refit_multigene_16``: 16 genes, each at its own null's best
+    rho)."""
+    out = []
+    ctx64 = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                      device="cuda")
+    G2 = torch.as_tensor(d["G"][:, :2 * cs.BATCH], device="cuda").contiguous()
+    for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        c = engine.NullContext(*(t.to(dt) for t in ctx64))
+        Gs = G2.to(dt)
+        out.append((f"stage 3, S = 1024, {tag}", cs.capture_kernel_inputs(
+            lambda: engine.interaction_batch(c, Gs, Gs, n,
+                                             delta_cfg=cs.DELTA_CFG),
+            ["reml_converge"])["reml_converge"]))
+        ca = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                       device="cuda", dtype=dt)
+        Gd = G.to(dt)
+        k = int(engine.null_association_fit(
+            ca, n, delta_cfg=cs.ASSOC_DELTA_CFG)[1])
+        out.append((f"K7, {tag}", cs.capture_kernel_inputs(
+            lambda: engine.association_refit_batch(
+                ca, Gd, k, n, delta_cfg=cs.ASSOC_DELTA_CFG),
+            ["reml_converge"])["reml_converge"]))
+        ctx_g = cs._gene_ctx(ca, cs._multigene_genes(d))
+        kg = engine.null_association_multigene_fit(
+            ctx_g, n, delta_cfg=cs.ASSOC_DELTA_CFG)[1].cpu().numpy()
+        out.append((f"K7-MG, {tag}", cs.capture_kernel_inputs(
+            lambda: engine.association_refit_multigene_batch(
+                ctx_g, Gd, kg, n, delta_cfg=cs.ASSOC_DELTA_CFG),
+            ["reml_converge"])["reml_converge"]))
     return out
 
 
@@ -466,6 +611,31 @@ def factors(got):
     return k4.gather(*got) if isinstance(got, tuple) else got
 
 
+def converge_rows(label, conv, other_k3, out, sums):
+    """K3's converge calls of one batch, this checkout's and the other's,
+    each held to the plain version (rel 1e-9), timed and profiled; their
+    CUDA-event medians summed by side into ``sums``."""
+    for i, (args, kw) in enumerate(conv):
+        want = k3.reml_converge_plain(*args, **kw)
+
+        def check(side, got, want=want):
+            for g, w, name in zip(got, want, ("delta", "lml", "scale",
+                                              "beta")):
+                assert cs._rel(g, w) <= 1e-9, f"converge {name} ({side})"
+
+        row = compare(
+            f"reml_converge ({label}, call {i}, steps {args[10]})",
+            lambda a=args, k=kw: k3.reml_converge(*a, **k),
+            lambda a=args, k=kw: other_k3.reml_converge(*a, **k),
+            check, reps=10)
+        out["calls"].append(row)
+        for side, ms in row["ms"].items():
+            key = f"reml_converge ({label}) {side}"
+            sums[key] = [a + b for a, b in zip(
+                sums.get(key, [0.0] * len(ms)), ms)]
+        del want
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, type=Path)
@@ -476,7 +646,7 @@ def main():
     picked = opt.kernels.split(",")
     assert set(picked) <= set(KERNELS), f"--kernels: some of {list(KERNELS)}"
     sources = tuple(sorted({KERNELS[k] for k in picked} - {None}))
-    if "scan" in picked:
+    if "scan" in picked or "assoc" in picked:
         sources = _build.SOURCES
 
     other = load_other(opt.other.resolve())
@@ -654,31 +824,18 @@ def main():
                     lambda a=sc: k5.score_core(*a),
                     lambda a=sc: ok["k5"].score_core(*a), check, reps=10))
                 del Qr, Wr
-            if "k3conv" not in picked:
-                continue
-            for i, (args, kw) in enumerate(conv):
-                want = k3.reml_converge_plain(*args, **kw)
-
-                def check(label, got, want=want):
-                    for g, w, name in zip(got, want, ("delta", "lml",
-                                                      "scale", "beta")):
-                        assert cs._rel(g, w) <= 1e-9, \
-                            f"converge {name} ({label})"
-
-                row = compare(
-                    f"reml_converge ({label}, call {i}, steps {args[10]})",
-                    lambda a=args, k=kw: k3.reml_converge(*a, **k),
-                    lambda a=args, k=kw: ok["k3conv"].reml_converge(*a, **k),
-                    check, reps=10)
-                out["calls"].append(row)
-                for side, ms in row["ms"].items():
-                    key = f"reml_converge ({label}) {side}"
-                    sums[key] = [a + b for a, b in zip(
-                        sums.get(key, [0.0] * len(ms)), ms)]
-                del want
+            if "k3conv" in picked:
+                converge_rows(label, conv, ok["k3conv"], out, sums)
         if sums:
             out["reml_converge_sums_ms"] = sums
             print(json.dumps(sums), flush=True)
+
+    if "k3conv32" in picked:
+        sums = {}
+        for label, conv in f32_converge_calls(d, n, G, Ls):
+            converge_rows(label, conv, ok["k3conv32"], out, sums)
+        out["reml_converge_f32_sums_ms"] = sums
+        print(json.dumps(sums), flush=True)
 
     if "k10" in picked or "k10mg" in picked:
         for label, (args, kw) in k10_calls(d, n, Ls, picked):
@@ -706,10 +863,13 @@ def main():
             plain = (k8.fast_scan_genes_plain(*args, **kw) if "slot" in kw
                      else k8.fast_scan_plain(*args, **kw))
 
-            def check(side, got, plain=plain, label=label):
-                for g, w in zip(got, plain):
+            tols = cs.FAST_SCAN_TOLERANCE[str(args[1].dtype)]
+
+            def check(side, got, plain=plain, label=label, tols=tols):
+                for g, w, name in zip(got, plain, plain._fields):
                     rel = float((g - w).abs().max() / w.abs().max())
-                    assert rel <= 1e-10, f"K8 {label} ({side}): rel {rel}"
+                    assert rel <= tols[name], \
+                        f"K8 {label} {name} ({side}): rel {rel}"
 
             out["calls"].append(compare(
                 f"fast_scan ({label})",
@@ -737,6 +897,8 @@ def main():
 
     if "scan" in picked:
         out["scans"] = scan_ab(d, Ls, other, opt.scan_reps)
+    if "assoc" in picked:
+        out["assoc"] = assoc_ab(d, Ls, other, opt.scan_reps)
 
     if "k9" in picked:
         rows = []

@@ -1524,3 +1524,482 @@ def test_f64_k1_k2_bits_unchanged(cuda):
     on f64 operands) return, bit for bit, what they returned before the
     float32 context's kernels were redesigned."""
     assert _f64_k1_k2_outputs(cuda) == F64_DIGESTS
+
+
+# K8's tolerance (chip_smoke.FAST_SCAN_TOLERANCE): f64 every output within
+# 1e-10 of its largest plain entry; f32 the lml within 1e-6, the rest 1e-4
+FAST_TOL = {torch.float64: dict(lml=1e-10, effsizes_g=1e-10,
+                                effsizes_W=1e-10, scale=1e-10),
+            torch.float32: dict(lml=1e-6, effsizes_g=1e-4, effsizes_W=1e-4,
+                                scale=1e-4)}
+
+
+def _fast_tol_close(got, want):
+    for g, w, name in zip(got, want, want._fields):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        _close(g, w, FAST_TOL[w.dtype][name])
+
+
+def _fast_scan_call(cuda, dt, p, S, n, C, donors, genes=0):
+    """K8's arguments from the engine on a dataset of R = C donors rows:
+    one phenotype at rho 6, or ``genes`` genes (Y = y + N(0, 1)
+    scaled) at rho 0, 4 and 8 in turn, in dtype ``dt``."""
+    from cellregmap_tpu_torch import engine
+
+    ctx, G, n = fit_dataset(1600 + p + S, p=p, nrho=11, n=n, C=C,
+                            donors=donors, S=S, device=cuda)
+    if genes:
+        rng = np.random.default_rng(S)
+        Y = ctx.y[None] + 0.3 * torch.as_tensor(
+            rng.normal(size=(genes, n)), device=cuda)
+        ctx = ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W,
+                           yy=(Y * Y).sum(dim=1))
+    ctx = engine.NullContext(*(t.to(dt) for t in ctx))
+    G = G.to(dt)
+    if genes:
+        delta = torch.linspace(0.2, 0.8, genes, dtype=dt, device=cuda)
+        run = lambda: engine.fast_scan_multigene_batch(  # noqa: E731
+            ctx, G, np.arange(genes) % 3 * 4, delta, n)
+    else:
+        run = lambda: engine.fast_scan_batch(ctx, G, 6, 0.37, n)  # noqa
+    (args, kw), = captured(run, ["fast_scan"])["fast_scan"]
+    return args, kw
+
+
+def _fast_plain(args, kw):
+    from cellregmap_tpu_torch.kernels import fast_scan as k8
+
+    if "slot" in kw:
+        return k8.fast_scan_genes_plain(*args, slot=kw["slot"])
+    return k8.fast_scan_plain(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p,S,n,C,donors,genes", [
+    (1, 512, 2000, 10, 100, 0), (1, 512, 2000, 10, 100, 16),
+    (2, 517, 600, 4, 60, 0), (3, 33, 300, 4, 30, 5), (1, 2, 120, 3, 2, 0),
+    (9, 70, 300, 4, 30, 3)])
+def test_fast_scan_split_rows_on_card(cuda, dt, p, S, n, C, donors, genes):
+    """K8 (rows split over blocks, the splits added in order, each gene's
+    terms once) at chip_smoke's shapes (R = 1000, 512 variants, one
+    phenotype and 16 genes over three slots) and at odd ones: 517 variants
+    (no 16-byte rows), 33 variants of 5 genes, R = 6 rows (fewer than a
+    split) and two variants, p = 9 (the 16-wide instantiation); one launch
+    a call, and a second launch returns the same bits."""
+    from cellregmap_tpu_torch.kernels import fast_scan as k8
+
+    args, kw = _fast_scan_call(cuda, dt, p, S, n, C, donors, genes)
+    before = k8.launches
+    got = k8.fast_scan(*args, **kw)
+    assert k8.launches == before + 1
+    _fast_tol_close(got, _fast_plain(args, kw))
+    for a, b in zip(got, k8.fast_scan(*args, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,S,n,C,donors,genes", [
+    (24, 512, 2000, 10, 100, 0), (17, 37, 300, 4, 30, 0),
+    (32, 64, 300, 4, 30, 3)])
+def test_fast_scan_wide_split_rows_on_card(cuda, p, S, n, C, donors, genes):
+    """The wide K8 (16 < p <= 32, f64): ``covariates_24``'s width at the
+    headline's R, and p = 17 and 32 (3 genes) at odd shapes."""
+    from cellregmap_tpu_torch.kernels import fast_scan as k8
+
+    args, kw = _fast_scan_call(cuda, torch.float64, p, S, n, C, donors,
+                               genes)
+    _fast_tol_close(k8.fast_scan(*args, **kw), _fast_plain(args, kw))
+
+
+def _f32_converge_calls(cuda, case):
+    """The float32 converge's calls of one path (the engine's arguments):
+    ``screen`` stage 3 of a 1024-variant batch at the headline's R = 1000,
+    ``refit`` K7's three calls on 512 of them, ``refit_genes`` K7 with 16
+    genes at their own rho, ``p15`` stage 3 at p + 1 = 16 with 3 genes,
+    ``chunked`` stage 3 and K7 at R = 3000 (the f32 rows pass in chunks)."""
+    from cellregmap_tpu_torch import engine
+
+    f32 = torch.float32
+    shape = dict(screen=(1, 2000, 10, 100, 1024, 1),
+                 refit=(1, 2000, 10, 100, 512, 1),
+                 refit_genes=(1, 2000, 10, 100, 512, 16),
+                 p15=(15, 600, 4, 60, 96, 3),
+                 chunked=(1, 3000, 3, 1000, 40, 1))[case]
+    p, n, C, donors, S, genes = shape
+    ctx, G, n = fit_dataset(1700 + p + S, p=p, nrho=11, n=n, C=C,
+                            donors=donors, S=S, device=cuda)
+    if genes > 1:
+        rng = np.random.default_rng(genes)
+        Y = ctx.y[None] + 0.3 * torch.as_tensor(
+            rng.normal(size=(genes, n)), device=cuda)
+        ctx = ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W,
+                           yy=(Y * Y).sum(dim=1))
+    ctx = engine.NullContext(*(t.to(f32) for t in ctx))
+    G = G.to(f32)
+    cfg = (-18.0, 18.0, 256, 60)
+    runs = []
+    if case in ("screen", "p15", "chunked"):
+        runs.append(lambda: engine.interaction_batch(ctx, G, G, n))
+    if case in ("refit", "chunked"):
+        runs.append(lambda: engine.association_refit_batch(
+            ctx, G, 5, n, delta_cfg=cfg))
+    if case == "refit_genes":
+        runs.append(lambda: engine.association_refit_multigene_batch(
+            ctx, G, np.arange(genes) % 3 * 4, n, delta_cfg=cfg))
+    return [c for run in runs
+            for c in captured(run, ["reml_converge"])["reml_converge"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["screen", "refit", "refit_genes", "p15",
+                                  "chunked"])
+def test_f32_converge_on_card(cuda, case):
+    """The float32 converge (the f64 converge's kernels on f32 rows) against
+    the plain version at rtol 1e-9, atol 1e-12, REML and ML, on every call
+    of the path."""
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    calls = _f32_converge_calls(cuda, case)
+    assert calls and all(a[0].dtype == torch.float32 for a, _ in calls)
+    for args, kw in calls:
+        before = k3.launches_f32
+        got = k3.reml_converge(*args, **kw)
+        assert k3.launches_f32 == before + 1
+        for g, w, name in zip(got, k3.reml_converge_plain(*args, **kw),
+                              ("delta", "lml", "scale", "beta")):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=1e-9, atol=1e-12,
+                                       err_msg=f"{case} {name}")
+
+
+# the wrappers whose calls the paths of ``_unmoved_outputs`` record (the
+# engine's names): every kernel but K8; the float32 context's converge and
+# what reads its results (K5, K6a, K6b) are left out of its paths
+UNMOVED_F64 = ("kr_contract", "delta_grid", "reml_localize", "reml_converge",
+               "best_rho_rotate", "score_core", "sym_eigvalsh",
+               "mixture_tails", "null_fit", "family_eval")
+UNMOVED_F32 = ("kr_contract", "delta_grid", "reml_localize",
+               "best_rho_rotate", "null_fit", "family_eval")
+
+
+def _digest(out):
+    """sha256 of a wrapper's outputs (tensors, in nested tuples)."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def add(t):
+        if isinstance(t, (tuple, list)):
+            for u in t:
+                add(u)
+        elif isinstance(t, torch.Tensor):
+            h.update(t.contiguous().cpu().numpy().tobytes())
+
+    add(out)
+    return h.hexdigest()
+
+
+def _unmoved_outputs(cuda):
+    """Every kernel but K8 and the float32 converge, through the engine's
+    paths on seeded inputs: interaction batches with the device tails at p
+    = 1 (under hybrid localization and without), 3, 8 and 20 (the
+    register and product localize, the converge's instantiations); a
+    3-gene interaction batch; the association refit (ML: the Newton call
+    and the zero-step fits at the grid's ends) and the null fit at p = 1
+    and 20; the gene-batched refit over 16 genes x 300 variants (4800
+    problems: the zero-step fits one warp a problem); an effect-size
+    batch; and in the float32 context an interaction batch at p = 1 and
+    4, the refit's grid, the null fit and an effect-size batch.  Each
+    recorded wrapper call is made again from its arguments: "path name i"
+    -> sha256 of its outputs (K4's gathered per gene and variant)."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
+
+    f32 = torch.float32
+    cfg = (-18.0, 18.0, 256, 60)
+    paths = []
+    for p in (1, 3, 8, 20):
+        ctx, G, n = fit_dataset(1515 + p, p=p, nrho=11, n=300, C=4,
+                                donors=30, S=40, device=cuda)
+        paths.append((f"interaction p={p}", UNMOVED_F64,
+                      lambda c=ctx, G=G, n=n: engine.interaction_batch(
+                          c, G, G, n, device_pvalues=True)))
+        if p in (1, 20):
+            paths += [
+                (f"refit p={p}", UNMOVED_F64,
+                 lambda c=ctx, G=G, n=n: engine.association_refit_batch(
+                     c, G, 3, n, delta_cfg=cfg)),
+                (f"null fit p={p}", UNMOVED_F64,
+                 lambda c=ctx, n=n: engine.null_association_fit(
+                     c, n, delta_cfg=cfg))]
+        if p == 1:
+            paths.append(("interaction p=1 f64 localize", UNMOVED_F64,
+                          lambda c=ctx, G=G, n=n: engine.interaction_batch(
+                              c, G, G, n, localize_f32=False)))
+    ctx_g, G, n = _multigene_ctx(cuda, 3, seed=1521)
+    paths.append(("interaction 3 genes", UNMOVED_F64,
+                  lambda: engine.interaction_multigene_batch(ctx_g, G, G,
+                                                             n)))
+    ctx_a, _, n = _assoc_genes(cuda, 16, 1, seed=1522)
+    G300 = torch.as_tensor(np.random.default_rng(1522).normal(
+        size=(n, 300)), device=cuda)
+    k_a = np.arange(16) % 3
+    paths.append(("refit 16 genes", UNMOVED_F64,
+                  lambda: engine.association_refit_multigene_batch(
+                      ctx_a, G300, k_a, n, delta_cfg=cfg)))
+    bctx, Gb, norm, nb = betas_dataset(1523, p=2, n=300, C=4, donors=30,
+                                       S=32, device=cuda)
+    paths.append(("betas", UNMOVED_F64,
+                  lambda: engine.predict_interaction_batch(bctx, Gb, norm,
+                                                           nb)))
+    for p in (1, 4):
+        c32, G32, n32 = _context32(cuda, 1530 + p, p)
+        paths.append((f"f32 interaction p={p}", UNMOVED_F32,
+                      lambda c=c32, G=G32, n=n32: engine.interaction_batch(
+                          c, G, G, n)))
+        if p == 1:
+            paths += [
+                ("f32 refit p=1", UNMOVED_F32,
+                 lambda c=c32, G=G32, n=n32: engine.association_refit_batch(
+                     c, G, 3, n, delta_cfg=cfg)),
+                ("f32 null fit p=1", UNMOVED_F32,
+                 lambda c=c32, n=n32: engine.null_association_fit(
+                     c, n, delta_cfg=cfg))]
+    b32 = engine.BetasContext(*(t.to(f32) for t in bctx))
+    paths.append(("f32 betas", UNMOVED_F32,
+                  lambda: engine.predict_interaction_batch(
+                      b32, Gb.to(f32), norm.to(f32), nb)))
+    out = {}
+    for label, names, run in paths:
+        for name, calls in captured(run, list(names)).items():
+            for i, (args, kw) in enumerate(calls):
+                got = getattr(engine, name)(*args, **kw)
+                if name == "best_rho_rotate":  # the slots no gene uses
+                    got = k4.gather(*got)      # are never written
+                out[f"{label} {name} {i}"] = _digest(got)
+    torch.cuda.synchronize()
+    return out
+
+
+# sha256 of ``_unmoved_outputs`` recorded on the tree before the float32
+# converge and K8 were redesigned (an NVIDIA H100 80GB HBM3): those kernels
+# are deterministic (no atomics, fixed summation orders), so the same
+# sources, and crm_reml_converge's f64 instantiations of the converge's
+# shared template, give the same bits
+UNMOVED_DIGESTS = {
+    "interaction p=1 kr_contract 0":
+        "de1e48165c3594d27b21a0933dfec3edd0598b40c5c889c3d08d7f41c31814fc",
+    "interaction p=1 kr_contract 1":
+        "6f7bafb77370d05d718939d74d89052ed4e8013bd8ce3cb61a9a58c54e94d140",
+    "interaction p=1 kr_contract 2":
+        "360f1e802814dc57ee637d692fcf5e2fd7b51eeb66a8c593dea2f49cd53c662d",
+    "interaction p=1 delta_grid 0":
+        "ea8d7f14c018137ec62aa498f6c9b165c878669c63150c7cbf2bf763da0dc536",
+    "interaction p=1 reml_localize 0":
+        "29a45257de972d0e47ef4f88998bc160bdaecbef9e4dc34d3e3d1d47482b5916",
+    "interaction p=1 reml_converge 0":
+        "b50d77ae6e3bbea2923c1333dc1cbfe1eabdb627d2b94df58e6acd490fc0a2ca",
+    "interaction p=1 best_rho_rotate 0":
+        "1d315b6434d0337a31ae336a34029670413223eb1f55b0b6b2244295108fc6d6",
+    "interaction p=1 score_core 0":
+        "576f622892987304cfa18dfc7ae214f245c7617afd4ba9212366f251bb703533",
+    "interaction p=1 sym_eigvalsh 0":
+        "3a64d07a071d298cc82865bb7513188f5ab04a84a07dfd2615bd67f7c49c3f63",
+    "interaction p=1 mixture_tails 0":
+        "2b7bd37ddc9b0909a6b752747d8f41abacc0ded321c5d8c79b736742c90ed791",
+    "refit p=1 delta_grid 0":
+        "777041b3dcb006cc8ef0c2ee831b562e419615c4087c1f9f029892a7de139ee5",
+    "refit p=1 reml_converge 0":
+        "73ad6e44b48cc830ab83de106449fe9a017756da73692946761d76204987e0b3",
+    "refit p=1 reml_converge 1":
+        "d9392a333bc7781807b0644d22705e51212e8b87698227643dc6f092f4a11947",
+    "refit p=1 reml_converge 2":
+        "eab1b7371fcf12d6931184d96fae75ba13983997b247baf5d2f6ee73dd26ccf2",
+    "null fit p=1 null_fit 0":
+        "dc4db4a609dcc9fc178dc802f6f1305fb64990bf06faeda689bff5691b914242",
+    "interaction p=1 f64 localize kr_contract 0":
+        "de1e48165c3594d27b21a0933dfec3edd0598b40c5c889c3d08d7f41c31814fc",
+    "interaction p=1 f64 localize kr_contract 1":
+        "6f7bafb77370d05d718939d74d89052ed4e8013bd8ce3cb61a9a58c54e94d140",
+    "interaction p=1 f64 localize kr_contract 2":
+        "360f1e802814dc57ee637d692fcf5e2fd7b51eeb66a8c593dea2f49cd53c662d",
+    "interaction p=1 f64 localize delta_grid 0":
+        "ea8d7f14c018137ec62aa498f6c9b165c878669c63150c7cbf2bf763da0dc536",
+    "interaction p=1 f64 localize reml_localize 0":
+        "6a6f2762a14681a81d4a99830ac2b9115fd22b2f463068dbc49e95a693bba8f7",
+    "interaction p=1 f64 localize reml_converge 0":
+        "4a75ecef138d9eb31b704f5dbd8983d037a3cb6d644fcec31bbe90fe0ea2514c",
+    "interaction p=1 f64 localize best_rho_rotate 0":
+        "1d315b6434d0337a31ae336a34029670413223eb1f55b0b6b2244295108fc6d6",
+    "interaction p=1 f64 localize score_core 0":
+        "e035af17d2bf457e1ddc9020fecb0fa30bdefe808e6186fee0408ccd8903b192",
+    "interaction p=3 kr_contract 0":
+        "74627508e885da440a86f1351456e0f9ab5bcf198c379cf17a82f3a7e970ece0",
+    "interaction p=3 kr_contract 1":
+        "f0b7b5cef7e01ea088b40a3b9a2312771002c11466e51888b055718ecead74f9",
+    "interaction p=3 kr_contract 2":
+        "75ede578132e4ee5fa39b1f365148fd90e7bd0594bce4ee1f0f231f971580b7d",
+    "interaction p=3 delta_grid 0":
+        "9a4fc0d5957f7c0c6cb5d48ebabac2d7bedefee6be9ad311c443f82eb28d695e",
+    "interaction p=3 reml_localize 0":
+        "588d03a7a270cde6c4d9b3a794cc85d5e1395a452386dad0da8b0e36de195f2c",
+    "interaction p=3 reml_converge 0":
+        "e6e00868bbb57802150f50f8e707928ad404cc65a34dd037874aff8690a8f591",
+    "interaction p=3 best_rho_rotate 0":
+        "8e139433756eb630bc089da94164f95d70a91b12d55b681ac6d7817f01633e70",
+    "interaction p=3 score_core 0":
+        "fd7f88524f03b531d4d111d52850f18227a08b2598dff0172151499cc693bd7a",
+    "interaction p=3 sym_eigvalsh 0":
+        "64763a7465969c98190adb0eacac2c241c7a0e6670aa9cf2aa7347776100bb6b",
+    "interaction p=3 mixture_tails 0":
+        "3259f1ae59bf22459de406247eb244625c23e1dd2e1831f6cc82cf47b9b89d80",
+    "interaction p=8 kr_contract 0":
+        "e55e3f9ac590aa85c359d89c65303c6a8e2fc5f7a6c3eb6367bec54958154aa6",
+    "interaction p=8 kr_contract 1":
+        "3c351aced4f384fed33a671f9c2f85eaecf772a37189067612104e0a68b64a87",
+    "interaction p=8 kr_contract 2":
+        "9547d1a61a3b91117e42ac32b8f5e593b5bc7cc1b2e6f9b2c32dc8e316aa69fd",
+    "interaction p=8 delta_grid 0":
+        "175fde648a95a1f6cb78c74038c76f3e3aea71086c9ef213591f04971855ff07",
+    "interaction p=8 reml_localize 0":
+        "8a8fe178d030c4f001869f35b2e9c37540def7e4f0b6679bbff719e03fa7f472",
+    "interaction p=8 reml_converge 0":
+        "e3aba288c0d064e5704df1bac398cdb5a92387d37929a4d2a8021fc7c6e73246",
+    "interaction p=8 best_rho_rotate 0":
+        "c7d099bea88b92df5c7e32bbc4348345e31880af45e471ddf2ec66a69ad14191",
+    "interaction p=8 score_core 0":
+        "25f3a35839cc4198166ef6189cf25b2706e5a13c4b900795233c5f13649f4538",
+    "interaction p=8 sym_eigvalsh 0":
+        "c0710d8f74acc4c9aaca329342270dca7439d5ce3e0bbc9d1ce730dda7e6dd24",
+    "interaction p=8 mixture_tails 0":
+        "3c182320d3da641e7c2ea604a982e7a6a3d242be5d8af52dd651b5dcdb427d84",
+    "interaction p=20 kr_contract 0":
+        "814dcfce362afc4570d44047b2c40567a3503e07d1ff7dd2286739ae6c9f94b5",
+    "interaction p=20 kr_contract 1":
+        "6bc95fc1a8834c1882cbc89568e871dd520d46e0051c13ecc5796953bc2813ee",
+    "interaction p=20 kr_contract 2":
+        "e2fdab43ae9739c113a532bce99b56b89caa912e6e7d497cf685cb0fd51ba7a0",
+    "interaction p=20 delta_grid 0":
+        "9a4fc0d5957f7c0c6cb5d48ebabac2d7bedefee6be9ad311c443f82eb28d695e",
+    "interaction p=20 reml_localize 0":
+        "f4915d902bd284a3cfe2423b52ea90b1658e17c4f00bfe45e5a0c83f2a7a5066",
+    "interaction p=20 reml_converge 0":
+        "117499ba55f046689b6d6b263c47d2bd12d233a7b8bbf5c94b2fcdf8ed34ef65",
+    "interaction p=20 best_rho_rotate 0":
+        "5f47fdcac22dae8bd7450a98d204b74c4b82ce982ea102f31092b070a16fe10b",
+    "interaction p=20 score_core 0":
+        "82383edbc17cd463c64f77a0196dd8d204de088c36e6e0992fb6a576458708c7",
+    "interaction p=20 sym_eigvalsh 0":
+        "c11b509070622a36d38b5519bf4a1e31901e598afd77f24513e4bd12950ac32b",
+    "interaction p=20 mixture_tails 0":
+        "8149b1ee4b476273cfafae1cf721835f1453df2e58b85b43567a3db3dfd77323",
+    "refit p=20 delta_grid 0":
+        "b019505846c0a976fed28e2a1382e77ae3b1febea9e64f66980192a48f36610b",
+    "refit p=20 reml_converge 0":
+        "1f93f5bf2e22b5af5d16155ceeeee029fbca69ff04e3fa0c31b45a24d4c235f6",
+    "refit p=20 reml_converge 1":
+        "49d5f36bb7361fdce96f30887f1231cddb5c2038f1bd21432ec1a11d066c7993",
+    "refit p=20 reml_converge 2":
+        "9e4e473a0bfce3e9857721cb76638233537452e616eafac9ffb0ca04c1fad8c5",
+    "null fit p=20 null_fit 0":
+        "1dbd790520b5694a7d601f1dc1b54b5da69a9c45c3f862981ecf00fc1ec3a43a",
+    "interaction 3 genes kr_contract 0":
+        "a32f679003ea85ff59fc05a32b21cf2bdc38d9e07f3d3f0ea16f667dc029f4b7",
+    "interaction 3 genes kr_contract 1":
+        "e61d4301a5d083c2e3f6ff728f42d8cd9e56f1e2bdc46f7e144b20b14ea8ab78",
+    "interaction 3 genes kr_contract 2":
+        "c787f11f9ed4b1590e3b12869ea91b8f1970858d3936857e2db463fd34d8e764",
+    "interaction 3 genes delta_grid 0":
+        "936dbd03642d867220f8bd2bccb3689e45a0f6787f25e2dc4d18d26a023fd32b",
+    "interaction 3 genes reml_localize 0":
+        "ef8f6516aa031b89093b59d890af6aa432cb88accea1a54f84535235111e14c0",
+    "interaction 3 genes reml_converge 0":
+        "303784fa3d82db9e407aa3481b52b225ecfecff88b8bc9de54102d9bb2aca366",
+    "interaction 3 genes best_rho_rotate 0":
+        "2df06206e51e83bf6cefb935a00ba9243bfbc06c653ca7ba1e0365b274d6341c",
+    "interaction 3 genes score_core 0":
+        "848b1218616d96fa1e16cc1eafc1b9e5842a3db9b2fa431e8d7f7190d355507e",
+    "refit 16 genes delta_grid 0":
+        "54f0adbff5a89538241fd12b3167686513d681e250d1e616a7beaa7a0253cff9",
+    "refit 16 genes reml_converge 0":
+        "26fe161842e6402726fa87edfa3dabd32d07245e86dc20f33aa4c56da2356973",
+    "refit 16 genes reml_converge 1":
+        "f073f3fb9d1d13012a59b569ca36189e52ea843a461cae1cdfab62e902843329",
+    "refit 16 genes reml_converge 2":
+        "1162392092cef4aedf6cfe2aca871e80a4ce14589e0eca224c90ab1a8dbf9029",
+    "betas kr_contract 0":
+        "cbf94dabd1f61711d70c9608507ca8d31a4dcf089959bcd67efeb84471155809",
+    "betas kr_contract 1":
+        "df3d5002ed766448986ce859414b0084237cc638e3e1d58fcd65dc5202e95ac6",
+    "betas kr_contract 2":
+        "0489cd13f8da69e3f6033ed5136f6b550c396534da25d77b69c4801132274505",
+    "betas family_eval 0":
+        "47a10bb82c6401d87fc74f0f5a03760e4ee354c85dad5eb76307f72fdf8f735c",
+    "betas family_eval 1":
+        "303e209f2920be8cbfaa43ae9da34dba05c0f0c21a290f452fe1ffe2867c7cd2",
+    "betas family_eval 2":
+        "8683d146503afd624e7fa2eb870358d674c8d16316e09f1d2a0c8690599bdb5a",
+    "betas family_eval 3":
+        "30b128edcedece495c26b365de88901dfa73ac701e9141004a2c913c77578974",
+    "betas family_eval 4":
+        "e44407141a6ad222e8cd87d43292f6faddc63d9c310cd96c81442d7478b5f338",
+    "betas family_eval 5":
+        "64daf11e9903424abb85cba57ab5dff813033c9dea14fd26c5414bcaa14b9630",
+    "f32 interaction p=1 kr_contract 0":
+        "2346c4a35467c56bf9fe0e335e89f75335e66222832ea9e81604a82117836eb5",
+    "f32 interaction p=1 kr_contract 1":
+        "75645a6e89ab79a097e876a8990b1d799f8c98af572a942dbbb26f6f037309b6",
+    "f32 interaction p=1 kr_contract 2":
+        "a80deda7a7c38bb12b02d98795d2c22cbd21514b534a1525a6c0b4be69b9012e",
+    "f32 interaction p=1 delta_grid 0":
+        "923dbdaba0d631e1d8cd877d598dc86d5f40bceba96bf2a7534571e5730faf77",
+    "f32 interaction p=1 reml_localize 0":
+        "fbdb547ed3a053c4d2efb81bf2b95212ef8418ae08cc3c91132ec6f09aa3f001",
+    "f32 interaction p=1 best_rho_rotate 0":
+        "c6c94eb9c058ae473506765390217f6645fbfc05bedbf9556fea25b439e00eae",
+    "f32 refit p=1 delta_grid 0":
+        "8b111367910db67068220d57544a1a184624aae50e6b6d826cf664029eec97e9",
+    "f32 null fit p=1 null_fit 0":
+        "c60a8833c098253df7a76aad797177fea8d9fc293dd9d0c0f8393aa8fc3affa5",
+    "f32 interaction p=4 kr_contract 0":
+        "ab517de0c49a6f810d3f4a06c4e29b134810fe05a1b80ca54f1bfbc91479190a",
+    "f32 interaction p=4 kr_contract 1":
+        "2eb9fe023595ea9b6cc75097fc25f75068bd7ae88dc418d82c2d62bc1714b7ca",
+    "f32 interaction p=4 kr_contract 2":
+        "f24c368aefab9276b1f361a6933f6604ace384c548784bd38ed45377d07ffb4f",
+    "f32 interaction p=4 delta_grid 0":
+        "7cd792dd115379418212b0cce3673b6205c683ae60ca79d48e75b14e3a725980",
+    "f32 interaction p=4 reml_localize 0":
+        "371764a93d47910aa9f9801512f6996f7c1a40fc777f7e1f5c50c9270a250803",
+    "f32 interaction p=4 best_rho_rotate 0":
+        "99a1f030f7951f70dac54e9596cd80aa5cc92fc260453b9218ed3f8ec0e6c6ce",
+    "f32 betas kr_contract 0":
+        "300c12cf336460f20d0baa66a2fa270e45a3b4cf537b99e1418f15f3aa14d4c1",
+    "f32 betas kr_contract 1":
+        "d089245622ed42a43e9fa72a91817e11d3e4c2f37713bf1e569acbd100838336",
+    "f32 betas kr_contract 2":
+        "0098cbb96c4dbbf95a418202988f9f4915d756b8b536f603fc9bbded9f7cf0f5",
+    "f32 betas family_eval 0":
+        "81314ac3c599fc9b585fe25131045705c00f6f12194a7dd2ee9a3ced79edf8cb",
+    "f32 betas family_eval 1":
+        "a3cfad91ea7b23508210f217b9f7d6332d3fa7e583d05acadd50a132f6bfea51",
+    "f32 betas family_eval 2":
+        "803384e4b17759ccc719593b30da3baa8c63a50597bd10874b1a20361f36f8b2",
+    "f32 betas family_eval 3":
+        "9fc1654463f20502edeff545c1956c27dadd349e146e4ad0357b27c9e4baab24",
+    "f32 betas family_eval 4":
+        "6de95620f4359f1c0351b0f19bca696c13843615f2eae5eb7b5168b9abede52e",
+    "f32 betas family_eval 5":
+        "bd526da1c8367aecc9aec0626011058f73c233575463795da5cf163a5800c608",
+}
+
+
+@pytest.mark.cuda
+def test_unmoved_kernels_bits_unchanged(cuda):
+    """Every entry point but K8's and the float32 converge (the f64
+    converge and both localizes among them) returns, bit for bit, what it
+    returned before those two were redesigned."""
+    got = _unmoved_outputs(cuda)
+    assert got.keys() == UNMOVED_DIGESTS.keys()
+    assert {k: v for k, v in got.items() if v != UNMOVED_DIGESTS[k]} == {}
