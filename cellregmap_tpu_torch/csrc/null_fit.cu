@@ -122,7 +122,7 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NT = 256;
-constexpr int MAX_F32_GRID = 1024;  // the float32 kernel's grid values
+constexpr int MAX_F32_GRID = 1024;  // grid points of the float32 context
 constexpr double INVPHI = 0.6180339887498949;
 constexpr double INVPHI2 = 0.3819660112501051;
 
@@ -1689,16 +1689,35 @@ int launch_narrow(const double* Sv, const double* Xt, const double* yt,
 // wins the grid's argmax: the reference's argmax takes it and that rho's
 // fit is NaN.
 //
-// A block a (rho, gene) problem, one launch: the grid a warp a point (the
-// lanes over the rows, an xor-shuffle tree), its argmax on every thread,
-// then the golden section and the final fit,
-// each evaluation on the whole block (the rows over the threads, the
-// warps' sums meeting in shared memory).  Every thread factors the same
-// sums in the same order, so every thread keeps the same bracket and no
-// decision is broadcast: two barriers an evaluation.  The simple form:
-// rows read where they lie, no staging.
+// The narrow design on f32 rows, in two launches:
+// * the grid (null_fit_f32_grid_kernel): a block per (tile of gpb grid
+//   points, rho, tile of genes: up to CRM_NF_GENE_TILE at p = 1, one
+//   above), its rows (S, X and the tile's phenotypes) staged in shared
+//   memory once (resident where they fit CRM_NF_SMEM_KB, else read where
+//   they lie), a warp a point: the lanes over the rows, the sums in
+//   registers, an xor-shuffle tree, then the point's fit on the lanes; at
+//   p = 1 a row's weight and d are made once for the tile's genes (x^T W
+//   x and sum log d depend on delta alone) and lane g finishes gene g, so
+//   a gene's values are the same in any tile.  The values go to the
+//   scratch, so that 11 rho x 256 points fill the card;
+// * the argmax, the golden section and the final fit
+//   (null_fit_f32_golden_kernel): a block per (rho, gene) of NF32_GT
+//   threads, its rows staged the same way; every evaluation runs over all
+//   of them, the threads over the rows, an xor-shuffle tree, and across
+//   the warps one barrier (their partial sums double-buffered by the
+//   evaluation's parity, every thread adding them in warp order); every
+//   thread factors the same sums in the same order, so every thread keeps
+//   the same bracket and no decision is broadcast.  One warp a problem,
+//   the shuffles alone, is slower: the golden section 0.355 against 0.111
+//   device ms at the Ls scanner's 11 rho (64 threads 0.206, 128 0.136, 512
+//   0.118; scripts/profile_null_fit_f32.py, H100 80GB HBM3, 700 W), as a
+//   lane then takes 32 of the 1000 rows.
+// sum log d_r is a running product of the d_r with its exponent carried
+// apart (frexpf every LOG32_GROUP rows) and one log a thread, the weights
+// the correctly rounded reciprocal (__frcp_rn, 1 / d's value).
 // ---------------------------------------------------------------------------
-constexpr int F32_WARPS = NT / 32;
+constexpr int NF32_GT = 256;  // threads of a golden-section block
+constexpr int LOG32_GROUP = 4;  // d's multiplied between renormalizations
 constexpr float F32_INVPHI = 0.6180339887498949f;
 constexpr float F32_INVPHI2 = 0.3819660112501051f;
 
@@ -1730,33 +1749,6 @@ __device__ __forceinline__ float f32_logit_at(float lo, float hi, int K,
   if (K == 1) return lo;
   const float step = (hi - lo) / (float)(K - 1);
   return k < K / 2 ? lo + step * (float)k : hi - step * (float)(K - 1 - k);
-}
-
-// The sums over rows r0, r0 + stride, ... at delta: the packed lower
-// triangle of [X | y]^T diag(w) [X | y] (column p is y) and sum log d_r
-template <int Q>
-__device__ void f32_rows(const F32Rho& pr, float delta, int r0, int stride,
-                         float (&acc)[F32Geom<Q>::NE]) {
-  constexpr int NE = F32Geom<Q>::NE;
-  const int p = pr.p, q = p + 1;
-#pragma unroll
-  for (int e = 0; e < NE; ++e) acc[e] = 0.0f;
-  for (int r = r0; r < pr.R; r += stride) {
-    const float d = (1.0f - delta) * pr.S[r] + delta;
-    const float w = 1.0f / d;
-    float x[Q];
-#pragma unroll
-    for (int j = 0; j < Q; ++j)
-      x[j] = j < p ? pr.X[(int64_t)r * p + j] : (j == p ? pr.y[r] : 0.0f);
-#pragma unroll
-    for (int i = 0; i < Q; ++i) {
-      if (i >= q) continue;
-      const float xw = x[i] * w;
-#pragma unroll
-      for (int j = 0; j <= i; ++j) acc[f32_tri(i, j)] += xw * x[j];
-    }
-    acc[NE - 1] += log(d);
-  }
 }
 
 // The ML fit at delta from the full sums `tot`: the complements added,
@@ -1829,76 +1821,271 @@ __device__ float f32_finish(const F32Rho& pr, float delta, const float* tot,
                   (float)n);
 }
 
+// The rows' d multiplied into m 2^e, m's exponent moved into e every
+// LOG32_GROUP factors (d >= sigmoid(-18) and an eigenvalue: four stay in
+// f32's range); a zero, infinite or NaN d stays in m, as its log in the
+// reference's sum
+struct LogProd32 {
+  float m = 1.0f;
+  int e = 0, k = 0;
+  __device__ void add(float d) {
+    m *= d;
+    if (++k == LOG32_GROUP) {
+      int x;
+      m = frexpf(m, &x);
+      e += x;
+      k = 0;
+    }
+  }
+  __device__ float log_sum() const {
+    return log(m) + (float)e * 0.6931471805599453f;
+  }
+};
+
+// The sums of rows r0, r0 + stride, ... < R at delta: the packed lower
+// triangle of [X | y]^T diag(w) [X | y] (column p is y) and sum log d_r
+template <int Q>
+__device__ void f32_rows(const F32Rho& pr, float delta, int r0, int stride,
+                         float (&acc)[F32Geom<Q>::NE]) {
+  constexpr int NE = F32Geom<Q>::NE;
+  const int p = pr.p, q = p + 1;
+#pragma unroll
+  for (int e = 0; e < NE; ++e) acc[e] = 0.0f;
+  LogProd32 lp;
+  for (int r = r0; r < pr.R; r += stride) {
+    const float d = (1.0f - delta) * pr.S[r] + delta;
+    const float w = __frcp_rn(d);
+    float x[Q];
+#pragma unroll
+    for (int j = 0; j < Q; ++j)
+      x[j] = j < p ? pr.X[(int64_t)r * p + j] : (j == p ? pr.y[r] : 0.0f);
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      if (i >= q) continue;
+      const float xw = x[i] * w;
+#pragma unroll
+      for (int j = 0; j <= i; ++j) acc[f32_tri(i, j)] += xw * x[j];
+    }
+    lp.add(d);
+  }
+  acc[NE - 1] = lp.log_sum();
+}
+
+template <int Q>
+__device__ __forceinline__ void f32_warp_tree(float (&acc)[F32Geom<Q>::NE]) {
+#pragma unroll
+  for (int e = 0; e < F32Geom<Q>::NE; ++e)
+    for (int off = 16; off > 0; off >>= 1)
+      acc[e] += __shfl_xor_sync(FULL, acc[e], off);
+}
+
+// a problem tile's rows in shared memory: [S | X (R p) | y (ng R)],
+// resident where they fit; returns the tile's pointers (the tensors'
+// where the rows are not staged) and the phenotypes' stride
+struct F32Tile {
+  const float *S, *X, *y;
+  int64_t ystride;
+};
+
+__device__ F32Tile f32_stage(float* sm, bool resident, const float* S,
+                             const float* X, const float* y, int64_t ystride,
+                             int R, int p, int ng) {
+  if (!resident) return F32Tile{S, X, y, ystride};
+  const int nt = blockDim.x, tid = threadIdx.x;
+  for (int f = tid; f < R; f += nt) cp_async4(sm + f, S + f);
+  for (int f = tid; f < R * p; f += nt) cp_async4(sm + R + f, X + f);
+  for (int f = tid; f < ng * R; f += nt) {
+    const int c = f / R, r = f - c * R;
+    cp_async4(sm + R + R * p + f, y + c * ystride + r);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  return F32Tile{sm, sm + R, sm + R + R * p, R};
+}
+
+__host__ __device__ inline bool f32_resident(int R, int p, int ng) {
+  return (int64_t)sizeof(float) * R * (1 + p + ng) <=
+         (int64_t)CRM_NF_SMEM_KB * 1024;
+}
+
+// The objective at the grid points of tile blockIdx.x (gpb points a tile)
+// of rho point blockIdx.y for genes [blockIdx.z gt, + gt), a warp a point,
+// into vals (genes, nrho, n_grid)
 template <int Q>
 __global__ void __launch_bounds__(NT)
-null_fit_f32_kernel(const float* __restrict__ Sv, const float* __restrict__ Xt,
-                    const float* __restrict__ yt,
-                    const float* __restrict__ Cxx,
-                    const float* __restrict__ cxy,
-                    const float* __restrict__ cyy, float* __restrict__ lml,
-                    float* __restrict__ delta_out, float* __restrict__ beta,
-                    float* __restrict__ scale, float* __restrict__ v0,
-                    float* __restrict__ v1, float* __restrict__ rss_out,
-                    float lo, float hi, int n_grid, int n_iters, int n,
-                    int nrho, int R, int p) {
+null_fit_f32_grid_kernel(const float* __restrict__ Sv,
+                         const float* __restrict__ Xt,
+                         const float* __restrict__ yt,
+                         const float* __restrict__ Cxx,
+                         const float* __restrict__ cxy,
+                         const float* __restrict__ cyy,
+                         float* __restrict__ vals, float lo, float hi,
+                         int n_grid, int gpb, int n, int nrho, int R, int p,
+                         int gt, int genes) {
+  extern __shared__ __align__(16) unsigned char nf32_grid_dyn[];
   constexpr int NE = F32Geom<Q>::NE;
-  __shared__ float vals[MAX_F32_GRID];
-  __shared__ float part[F32_WARPS][NE];
-  __shared__ float tot[NE];
+  const int o = blockIdx.y, g0 = blockIdx.z * gt, ng = min(gt, genes - g0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const F32Tile tl = f32_stage(
+      reinterpret_cast<float*>(nf32_grid_dyn), f32_resident(R, p, gt),
+      Sv + (int64_t)o * R, Xt + (int64_t)o * R * p,
+      yt + ((int64_t)g0 * nrho + o) * R, (int64_t)nrho * R, R, p, ng);
+  // gene g0 + c's operands at its rho point
+  auto rho_pr = [&](int c) {
+    const int64_t go = (int64_t)(g0 + c) * nrho + o;
+    F32Rho pr;
+    pr.S = tl.S;
+    pr.X = tl.X;
+    pr.y = tl.y + c * tl.ystride;
+    pr.Cxx = Cxx + (int64_t)o * p * p;
+    pr.cxy = cxy + go * p;
+    pr.cyy = cyy[go];
+    pr.R = R;
+    pr.p = p;
+    return pr;
+  };
+  const int k0 = blockIdx.x * gpb, k1 = min(n_grid, k0 + gpb);
+  for (int k = k0 + warp; k < k1; k += NT / 32) {
+    const float dk = f32_sigmoid(f32_logit_at(lo, hi, n_grid, k));
+    float bt[Q], rss;
+    if constexpr (Q == 2) {
+      // p = 1: x^T W x and sum log d once, each gene's x^T W y and y^T W
+      // y, in the order of f32_rows' sums
+      float A = 0.0f, b[GTMAX], c[GTMAX];
+#pragma unroll
+      for (int g = 0; g < GTMAX; ++g) b[g] = c[g] = 0.0f;
+      LogProd32 lp;
+      for (int r = lane; r < R; r += 32) {
+        const float d = (1.0f - dk) * tl.S[r] + dk;
+        const float w = __frcp_rn(d), x = tl.X[r], xw = x * w;
+        A += xw * x;
+#pragma unroll
+        for (int g = 0; g < GTMAX; ++g) {
+          if (g < ng) {
+            const float y = tl.y[g * tl.ystride + r], yw = y * w;
+            b[g] += yw * x;
+            c[g] += yw * y;
+          }
+        }
+        lp.add(d);
+      }
+      float ld = lp.log_sum();
+      for (int off = 16; off > 0; off >>= 1) {
+        A += __shfl_xor_sync(FULL, A, off);
+        ld += __shfl_xor_sync(FULL, ld, off);
+#pragma unroll
+        for (int g = 0; g < GTMAX; ++g) {
+          if (g < ng) {
+            b[g] += __shfl_xor_sync(FULL, b[g], off);
+            c[g] += __shfl_xor_sync(FULL, c[g], off);
+          }
+        }
+      }
+      float tot[NE] = {A, 0.0f, 0.0f, ld};
+#pragma unroll
+      for (int g = 0; g < GTMAX; ++g) {
+        if (g == lane) {
+          tot[1] = b[g];
+          tot[2] = c[g];
+        }
+      }
+      if (lane < ng) {
+        const float v = f32_finish<Q>(rho_pr(lane), dk, tot, n, bt, rss);
+        vals[((int64_t)(g0 + lane) * nrho + o) * n_grid + k] = v;
+      }
+    } else {
+      const F32Rho pr = rho_pr(0);
+      float acc[NE];
+      f32_rows<Q>(pr, dk, lane, 32, acc);
+      f32_warp_tree<Q>(acc);
+      if (lane == 0)
+        vals[((int64_t)g0 * nrho + o) * n_grid + k] =
+            f32_finish<Q>(pr, dk, acc, n, bt, rss);
+    }
+  }
+}
+
+// The grid's argmax, the golden section and the final fit of problem (rho
+// blockIdx.x, gene blockIdx.y)
+template <int Q>
+__global__ void __launch_bounds__(NF32_GT)
+null_fit_f32_golden_kernel(const float* __restrict__ Sv,
+                           const float* __restrict__ Xt,
+                           const float* __restrict__ yt,
+                           const float* __restrict__ Cxx,
+                           const float* __restrict__ cxy,
+                           const float* __restrict__ cyy,
+                           const float* __restrict__ vals,
+                           float* __restrict__ lml,
+                           float* __restrict__ delta_out,
+                           float* __restrict__ beta,
+                           float* __restrict__ scale, float* __restrict__ v0,
+                           float* __restrict__ v1, float* __restrict__ rss_out,
+                           float lo, float hi, int n_grid, int n_iters, int n,
+                           int nrho, int R, int p) {
+  extern __shared__ __align__(16) unsigned char nf32_gold_dyn[];
+  constexpr int NE = F32Geom<Q>::NE, NW = NF32_GT / 32;
+  __shared__ float part[2][NW][NE];  // the warps' sums, by parity
   const int o = blockIdx.x, g = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int64_t go = (int64_t)g * nrho + o;
+  const F32Tile tl = f32_stage(
+      reinterpret_cast<float*>(nf32_gold_dyn), f32_resident(R, p, 1),
+      Sv + (int64_t)o * R, Xt + (int64_t)o * R * p, yt + go * R, 0, R, p, 1);
   F32Rho pr;
-  pr.S = Sv + (int64_t)o * R;
-  pr.X = Xt + (int64_t)o * R * p;
-  pr.y = yt + go * R;
+  pr.S = tl.S;
+  pr.X = tl.X;
+  pr.y = tl.y;
   pr.Cxx = Cxx + (int64_t)o * p * p;
   pr.cxy = cxy + go * p;
   pr.cyy = cyy[go];
   pr.R = R;
   pr.p = p;
-  float acc[NE], bt[Q], rss;
 
-  // the grid: a warp a point
-  for (int k = warp; k < n_grid; k += F32_WARPS) {
-    const float dk = f32_sigmoid(f32_logit_at(lo, hi, n_grid, k));
-    f32_rows<Q>(pr, dk, lane, 32, acc);
-#pragma unroll
-    for (int e = 0; e < NE; ++e)
-      for (int off = 16; off > 0; off >>= 1)
-        acc[e] += __shfl_xor_sync(FULL, acc[e], off);
-    const float v = f32_finish<Q>(pr, dk, acc, n, bt, rss);
-    if (lane == 0) vals[k] = v;
-  }
-  __syncthreads();
-  // the first maximum, a NaN (a failed factorization) never winning
-  int kb = 0;
+  // the first maximum, a NaN (a failed factorization) never winning: on
+  // every warp, the lanes over the points
+  const float* vr = vals + go * n_grid;
   float best = -INFINITY;
-  for (int k = 0; k < n_grid; ++k) {
-    const float v = vals[k];
+  int kb = n_grid;
+  for (int k = lane; k < n_grid; k += 32) {
+    const float v = vr[k];
     if (v > best) {
       best = v;
       kb = k;
     }
   }
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ob = __shfl_xor_sync(FULL, best, off);
+    const int ok = __shfl_xor_sync(FULL, kb, off);
+    if (ob > best || (ob == best && ok < kb)) {
+      best = ob;
+      kb = ok;
+    }
+  }
+  if (kb == n_grid) kb = 0;  // no point above -inf: the first
 
-  // one evaluation on the whole block; every thread returns the lml
-  auto evaluate = [&](float d) {
-    f32_rows<Q>(pr, d, threadIdx.x, NT, acc);
+  // the sums of one evaluation over every row, the same on every thread
+  int parity = 0;
+  auto sums = [&](float d, float (&tot)[NE]) {
+    f32_rows<Q>(pr, d, threadIdx.x, NF32_GT, tot);
+    f32_warp_tree<Q>(tot);
+    const int buf = parity;
+    parity ^= 1;
+    if (lane == 0)
+#pragma unroll
+      for (int e = 0; e < NE; ++e) part[buf][warp][e] = tot[e];
+    __syncthreads();
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
-      float v = acc[e];
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(FULL, v, off);
-      if (lane == 0) part[warp][e] = v;
-    }
-    __syncthreads();
-    if (threadIdx.x < NE) {
       float v = 0.0f;
-      for (int w = 0; w < F32_WARPS; ++w) v += part[w][threadIdx.x];
-      tot[threadIdx.x] = v;
+      for (int w = 0; w < NW; ++w) v += part[buf][w][e];
+      tot[e] = v;
     }
-    __syncthreads();
+  };
+  auto evaluate = [&](float d) {
+    float tot[NE], bt[Q], rss;
+    sums(d, tot);
     return f32_finish<Q>(pr, d, tot, n, bt, rss);
   };
 
@@ -1924,7 +2111,9 @@ null_fit_f32_kernel(const float* __restrict__ Sv, const float* __restrict__ Xt,
     f2 = f2n;
   }
   const float dbest = f32_sigmoid(f1 > f2 ? x1 : x2);
-  const float lbest = evaluate(dbest);
+  float tot[NE], bt[Q], rss;
+  sums(dbest, tot);
+  const float lbest = f32_finish<Q>(pr, dbest, tot, n, bt, rss);
   if (threadIdx.x == 0) {
     const float sc = rss / (float)n;
     lml[go] = lbest;
@@ -1935,6 +2124,56 @@ null_fit_f32_kernel(const float* __restrict__ Sv, const float* __restrict__ Xt,
     rss_out[go] = rss;
     for (int j = 0; j < p; ++j) beta[go * p + j] = bt[j];
   }
+}
+
+// genes a block of the f32 grid: at p = 1 the genes in as few tiles of at
+// most CRM_NF_GENE_TILE as they take, evened out; one above
+inline int f32_gene_tile(int p, int genes) {
+  if (p != 1) return 1;
+  const int tiles = (genes + GTMAX - 1) / GTMAX;
+  return (genes + tiles - 1) / tiles;
+}
+
+// the launches of an f32 fit at Q = p + 1 rounded up: the grid, then the
+// golden section with the final fit
+template <int Q>
+int launch_f32(const float* Sv, const float* Xt, const float* yt,
+               const float* Cxx, const float* cxy, const float* cyy,
+               float* lml, float* delta, float* beta, float* scale, float* v0,
+               float* v1, float* rss, float* vals, float lo, float hi,
+               int n_grid, int n_iters, int n, int nrho, int R, int p,
+               int genes, cudaStream_t stream) {
+  auto grid_kernel = null_fit_f32_grid_kernel<Q>;
+  auto golden_kernel = null_fit_f32_golden_kernel<Q>;
+  static const int err_set =
+      (int)cudaFuncSetAttribute(grid_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                CRM_NF_SMEM_KB * 1024) |
+      (int)cudaFuncSetAttribute(golden_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                CRM_NF_SMEM_KB * 1024);
+  if (err_set) return err_set;
+  const int gt = f32_gene_tile(p, genes), tiles = (genes + gt - 1) / gt;
+  // grid points a block: at least a warp's each, and about four blocks an
+  // SM over the call's points
+  const int64_t points = (int64_t)tiles * nrho * n_grid;
+  const int gpb = (int)std::min<int64_t>(
+      n_grid, std::max<int64_t>(NT / 32, (points + 527) / 528));
+  const dim3 grid((n_grid + gpb - 1) / gpb, nrho, tiles);
+  const int gbytes = f32_resident(R, p, gt)
+                         ? (int)sizeof(float) * R * (1 + p + gt) : 0;
+  grid_kernel<<<grid, NT, gbytes, stream>>>(Sv, Xt, yt, Cxx, cxy, cyy, vals,
+                                            lo, hi, n_grid, gpb, n, nrho, R,
+                                            p, gt, genes);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const dim3 fits(nrho, genes);
+  const int bytes = f32_resident(R, p, 1)
+                        ? (int)sizeof(float) * R * (2 + p) : 0;
+  golden_kernel<<<fits, NF32_GT, bytes, stream>>>(
+      Sv, Xt, yt, Cxx, cxy, cyy, vals, lml, delta, beta, scale, v0, v1, rss,
+      lo, hi, n_grid, n_iters, n, nrho, R, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1977,25 +2216,25 @@ extern "C" int crm_null_fit(const double* Sv, const double* Xt,
 }
 
 // The float32 context: the operands of crm_null_fit in f32 -> the fits
-// in f32; ML only, 1 <= p + 1 <= 16, n_grid <= 1024, genes <= 65535; no
-// scratch.  One launch on `stream`; returns cudaGetLastError().
+// in f32; ML only, 1 <= p + 1 <= 16, n_grid <= 1024, genes <= 65535;
+// scratch: genes nrho n_grid floats (the grid's values).  Two launches on
+// `stream`; returns cudaGetLastError() after each.
 extern "C" int crm_null_fit_f32(const float* Sv, const float* Xt,
                                 const float* yt, const float* Cxx,
                                 const float* cxy, const float* cyy,
                                 float* lml, float* delta, float* beta,
                                 float* scale, float* v0, float* v1,
-                                float* rss, double lo, double hi, int n_grid,
-                                int n_iters, int n, int nrho, int R, int p,
-                                int genes, cudaStream_t stream) {
+                                float* rss, float* scratch, double lo,
+                                double hi, int n_grid, int n_iters, int n,
+                                int nrho, int R, int p, int genes,
+                                cudaStream_t stream) {
   if (p < 1 || p + 1 > 16 || n_grid < 1 || n_grid > MAX_F32_GRID)
     return (int)cudaErrorInvalidValue;
-  auto kernel = p + 1 <= 2   ? null_fit_f32_kernel<2>
-                : p + 1 <= 4 ? null_fit_f32_kernel<4>
-                : p + 1 <= 8 ? null_fit_f32_kernel<8>
-                             : null_fit_f32_kernel<16>;
-  const dim3 fits(nrho, genes);
-  kernel<<<fits, NT, 0, stream>>>(Sv, Xt, yt, Cxx, cxy, cyy, lml, delta, beta,
-                                  scale, v0, v1, rss, (float)lo, (float)hi,
-                                  n_grid, n_iters, n, nrho, R, p);
-  return (int)cudaGetLastError();
+  auto launch = p + 1 <= 2   ? launch_f32<2>
+                : p + 1 <= 4 ? launch_f32<4>
+                : p + 1 <= 8 ? launch_f32<8>
+                             : launch_f32<16>;
+  return launch(Sv, Xt, yt, Cxx, cxy, cyy, lml, delta, beta, scale, v0, v1,
+                rss, scratch, (float)lo, (float)hi, n_grid, n_iters, n, nrho,
+                R, p, genes, stream);
 }

@@ -68,6 +68,10 @@
 // rows, columns or entries.  The localize from p + 1 = LOC_GEMM_MIN_P1 up
 // is the product route (below): most of its sums are one product a rho on
 // the FP64 tensor cores, and the same workspace algebra is its epilogue.
+// The float32 context's localize (crm_reml_localize_f32, at the end) is
+// the register localize on f32 rows up to p + 1 = 4, and from 5 (to 16)
+// its sums split over warps that meet in the same workspace algebra, in
+// f32 (the helpers above take their arithmetic type as a parameter).
 #include <cuda_runtime.h>
 #include <algorithm>
 #include <cfloat>
@@ -104,13 +108,59 @@ __device__ __forceinline__ int tri(int i, int j) {
 __device__ __forceinline__ double rnd(double v, bool r32) {
   return r32 ? (double)(float)v : v;
 }
+__device__ __forceinline__ float rnd(float v, bool) { return v; }
 
-__device__ __forceinline__ double warp_sum(double v) {
+// rows whose d's product one log takes (d >= sigmoid(-18) ~ 1.5e-8 and
+// an eigenvalue, so that the product of 8 stays within f64's range)
+constexpr int LOG_GROUP = 8;
+
+template <class A>
+__device__ __forceinline__ A warp_sum(A v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
   return v;
 }
 
-__device__ double sigmoid(double x) { return 1.0 / (1.0 + exp(-x)); }
+// in the arithmetic type A: double, or float (the float32 context's
+// localizing steps)
+template <class A>
+__device__ A sigmoid(A x) { return A(1) / (A(1) + exp(-x)); }
+
+// A row's fields as the Newton steps' tensors hold them: e = 1 - S, e^2
+// and the products of two row values; on f64 rows rounded to f32 when r32
+// (the reference's f32-rounded tensors), on f32 rows (the float32
+// context) the f32 values the reference forms from its f32 tensors
+__device__ __forceinline__ double one_minus(double S, bool r32) {
+  return rnd(1.0 - S, r32);
+}
+__device__ __forceinline__ double e_sq(double S, bool r32) {
+  return rnd((1.0 - S) * (1.0 - S), r32);
+}
+__device__ __forceinline__ double prod(double a, double b, bool r32) {
+  return rnd(a * b, r32);
+}
+__device__ __forceinline__ float one_minus(float S, bool) { return 1.0f - S; }
+__device__ __forceinline__ float e_sq(float S, bool) {
+  const float e = 1.0f - S;
+  return e * e;
+}
+__device__ __forceinline__ float prod(float a, float b, bool) { return a * b; }
+
+// a row's weight 1 / d in the arithmetic type A from rows of type T: on
+// f64 rows the division; the f32 steps' the correctly rounded reciprocal
+// (__frcp_rn, the division's value); the f64 evaluation of f32 rows the
+// branch-free reciprocal (rcp_nr, ~1 ulp)
+template <class A, class T>
+__device__ __forceinline__ A weight(A d) {
+  if constexpr (std::is_same<T, double>::value) return A(1) / d;
+  else if constexpr (std::is_same<A, float>::value) return __frcp_rn(d);
+  else return rcp_nr(d);
+}
+
+// the smallest normal value of the arithmetic type: the derivatives' rss
+// floor (the reference's clamp at tiny of its arithmetic)
+template <class A> struct Tiny;
+template <> struct Tiny<double> { static constexpr double v = DBL_MIN; };
+template <> struct Tiny<float> { static constexpr float v = FLT_MIN; };
 
 // One problem's complements (its rows are staged by the kernel that runs
 // it), in the operand type T (float: the float32 context's converge, the
@@ -129,26 +179,26 @@ using Problem = ProblemT<double>;
 
 // The complement terms of the normal equations acc[f] = [A lower (TRI) |
 // b (P1MAX) | q] of NF families, weight 1/delta^(f+1).
-template <int P1MAX, int NF, class PB>
-__device__ void ne_complements(const PB& pb, double delta,
-                               double (&acc)[NF][Cfg<P1MAX>::NE]) {
+template <int P1MAX, int NF, class A, class PB>
+__device__ void ne_complements(const PB& pb, A delta,
+                               A (&acc)[NF][Cfg<P1MAX>::NE]) {
   constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
   const int p = pb.p, p1 = p + 1;
   const bool r32 = pb.r32;
-  double ic = 1.0 / delta;
-  const double i1 = ic;
+  A ic = A(1) / delta;
+  const A i1 = ic;
   for (int f = 0; f < NF; ++f) {
     SMALL_FOR(i, 0, p1) {
       SMALL_FOR(j, 0, i + 1) {
         const double c = i < p ? pb.CWW[i * p + j]
                                : (j < p ? pb.CWg[(int64_t)j * pb.nS + pb.s]
                                         : pb.cgg);
-        acc[f][tri(i, j)] += rnd(c, r32) * ic;
+        acc[f][tri(i, j)] += A(rnd(c, r32)) * ic;
       }
       const double cb = i < p ? pb.CWy[i] : pb.cgy;
-      acc[f][TRI + i] += rnd(cb, r32) * ic;
+      acc[f][TRI + i] += A(rnd(cb, r32)) * ic;
     }
-    acc[f][NE - 1] += pb.cyy * ic;
+    acc[f][NE - 1] += A(pb.cyy) * ic;
     ic *= i1;
   }
 }
@@ -157,27 +207,26 @@ __device__ void ne_complements(const PB& pb, double delta,
 // lane has accumulated: acc[f] = [A lower (TRI) | b (P1MAX) | q], plus
 // sum e w1, sum e2 w1^2 (NF == 3) or sum log d (NF == 1).  Every lane
 // returns the full sums, complements included.
-template <int P1MAX, int NF, class PB>
-__device__ void ne_finish(const PB& pb, double delta,
-                          double (&acc)[NF][Cfg<P1MAX>::NE], double& ex1,
-                          double& ex2) {
+template <int P1MAX, int NF, class A, class PB>
+__device__ void ne_finish(const PB& pb, A delta, A (&acc)[NF][Cfg<P1MAX>::NE],
+                          A& ex1, A& ex2) {
   for (int f = 0; f < NF; ++f)
     for (int e = 0; e < Cfg<P1MAX>::NE; ++e) acc[f][e] = warp_sum(acc[f][e]);
   ex1 = warp_sum(ex1);
   ex2 = warp_sum(ex2);
-  ne_complements<P1MAX, NF>(pb, delta, acc);
+  ne_complements<P1MAX, NF, A>(pb, delta, acc);
 }
 
 // Ridge Cholesky of the lower components in place (ops/linalg.py
 // unrolled_chol_factor); a failed factorization leaves NaN, as there.
-template <int P1MAX>
-__device__ void chol(double (&L)[P1MAX][P1MAX], const double* A, int p1) {
-  double dmax = A[0];
+template <int P1MAX, class T>
+__device__ void chol(T (&L)[P1MAX][P1MAX], const T* A, int p1) {
+  T dmax = A[0];
   SMALL_FOR(i, 1, p1) dmax = fmax(dmax, A[tri(i, i)]);
-  const double ridge = 1e-12 * fmax(dmax, 1.0);
+  const T ridge = T(1e-12) * fmax(dmax, T(1));
   SMALL_FOR(i, 0, p1) {
     SMALL_FOR(j, 0, i + 1) {
-      double v = A[tri(i, j)];
+      T v = A[tri(i, j)];
       if (i == j) v += ridge;
       SMALL_FOR(k, 0, j) v -= L[i][k] * L[j][k];
       L[i][j] = i == j ? sqrt(v) : v / L[j][j];
@@ -185,27 +234,27 @@ __device__ void chol(double (&L)[P1MAX][P1MAX], const double* A, int p1) {
   }
 }
 
-template <int P1MAX>
-__device__ void chol_solve(const double (&L)[P1MAX][P1MAX], const double* b,
-                           double* x, int p1) {
+template <int P1MAX, class T>
+__device__ void chol_solve(const T (&L)[P1MAX][P1MAX], const T* b, T* x,
+                           int p1) {
   SMALL_FOR(i, 0, p1) {
-    double v = b[i];
+    T v = b[i];
     SMALL_FOR(k, 0, i) v -= L[i][k] * x[k];
     x[i] = v / L[i][i];
   }
   for (int i = P1MAX - 1; i >= 0; --i) {
     if (i >= p1) continue;
-    double v = x[i];
+    T v = x[i];
     SMALL_FOR(k, i + 1, p1) v -= L[k][i] * x[k];
     x[i] = v / L[i][i];
   }
 }
 
 // symmetric matvec on lower components
-template <int P1MAX>
-__device__ void sym_mv(const double* A, const double* x, double* out, int p1) {
+template <int P1MAX, class T>
+__device__ void sym_mv(const T* A, const T* x, T* out, int p1) {
   SMALL_FOR(i, 0, p1) {
-    double v = 0.0;
+    T v = T(0);
     SMALL_FOR(k, 0, p1) v += A[i >= k ? tri(i, k) : tri(k, i)] * x[k];
     out[i] = v;
   }
@@ -224,38 +273,38 @@ template <> struct Floors<float> {
   static constexpr bool keep_nan = true;
   static constexpr double eps = FLT_EPSILON, ml_tiny = FLT_MIN;
 };
-template <class FL>
-__device__ __forceinline__ double floor_at(double x, double floor) {
+template <class FL, class A>
+__device__ __forceinline__ A floor_at(A x, A floor) {
   if constexpr (FL::keep_nan) return x < floor ? floor : x;
   return fmax(x, floor);
 }
 
 // (L', L'') of the profiled objective at delta from the three families'
-// normal equations (ne_finish's sums)
-template <int P1MAX, bool REML, class FL = Floors<double>, class PB>
-__device__ void derivs_sums(const PB& pb, double delta, int n,
-                            const double (&acc)[3][Cfg<P1MAX>::NE],
-                            double sum_ew, double sum_e2w2, double& Lp,
-                            double& Lpp) {
+// normal equations (ne_finish's sums), in the arithmetic type A (the rss
+// floored at tiny of A, a NaN kept where FL keeps it)
+template <int P1MAX, bool REML, class FL = Floors<double>, class A,
+          class PB>
+__device__ void derivs_sums(const PB& pb, A delta, int n,
+                            const A (&acc)[3][Cfg<P1MAX>::NE], A sum_ew,
+                            A sum_e2w2, A& Lp, A& Lpp) {
   constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
   const int p1 = pb.p + 1;
-  const double *A1 = acc[0], *A2 = acc[1], *A3 = acc[2];
-  const double *b1 = acc[0] + TRI, *b2 = acc[1] + TRI, *b3 = acc[2] + TRI;
-  const double q1 = acc[0][NE - 1], q2 = acc[1][NE - 1], q3 = acc[2][NE - 1];
-  double L[P1MAX][P1MAX], beta[P1MAX], A2b[P1MAX], A3b[P1MAX], t[P1MAX],
+  const A *A1 = acc[0], *A2 = acc[1], *A3 = acc[2];
+  const A *b1 = acc[0] + TRI, *b2 = acc[1] + TRI, *b3 = acc[2] + TRI;
+  const A q1 = acc[0][NE - 1], q2 = acc[1][NE - 1], q3 = acc[2][NE - 1];
+  A L[P1MAX][P1MAX], beta[P1MAX], A2b[P1MAX], A3b[P1MAX], t[P1MAX],
       beta_p[P1MAX], A2bp[P1MAX];
   chol<P1MAX>(L, A1, p1);
   chol_solve<P1MAX>(L, b1, beta, p1);
-  double rss = q1;
+  A rss = q1;
   SMALL_FOR(j, 0, p1) rss -= b1[j] * beta[j];
-  rss = floor_at<FL>(rss, DBL_MIN);
+  rss = floor_at<FL>(rss, Tiny<A>::v);
   sym_mv<P1MAX>(A2, beta, A2b, p1);
   sym_mv<P1MAX>(A3, beta, A3b, p1);
   SMALL_FOR(j, 0, p1) t[j] = A2b[j] - b2[j];
   chol_solve<P1MAX>(L, t, beta_p, p1);
   sym_mv<P1MAX>(A2, beta_p, A2bp, p1);
-  double s_b2b = 0, s_bA2b = 0, s_b3b = 0, s_b2bp = 0, s_bA2bp = 0,
-         s_bA3b = 0;
+  A s_b2b = 0, s_bA2b = 0, s_b3b = 0, s_b2bp = 0, s_bA2bp = 0, s_bA3b = 0;
   SMALL_FOR(j, 0, p1) {
     s_b2b += b2[j] * beta[j];
     s_bA2b += beta[j] * A2b[j];
@@ -264,35 +313,35 @@ __device__ void derivs_sums(const PB& pb, double delta, int n,
     s_bA2bp += beta[j] * A2bp[j];
     s_bA3b += beta[j] * A3b[j];
   }
-  const double rss_p = -q2 + 2 * s_b2b - s_bA2b;
-  const double rss_pp =
-      2 * q3 - 4 * s_b3b + 2 * s_b2bp - 2 * s_bA2bp + 2 * s_bA3b;
-  const int nR = n - pb.R;
-  const double i1 = 1.0 / delta;
-  const double ld_p = sum_ew + nR * i1;
-  const double ld_pp = -sum_e2w2 - nR * (i1 * i1);
-  const double u = rss_p / rss;
+  const A rss_p = -q2 + A(2) * s_b2b - s_bA2b;
+  const A rss_pp = A(2) * q3 - A(4) * s_b3b + A(2) * s_b2bp -
+                   A(2) * s_bA2bp + A(2) * s_bA3b;
+  const A nR = A(n - pb.R);
+  const A i1 = A(1) / delta;
+  const A ld_p = sum_ew + nR * i1;
+  const A ld_pp = -sum_e2w2 - nR * (i1 * i1);
+  const A u = rss_p / rss;
   if (!REML) {
-    Lp = -0.5 * (n * u + ld_p);
-    Lpp = -0.5 * (n * (rss_pp / rss - u * u) + ld_pp);
+    Lp = A(-0.5) * (A(n) * u + ld_p);
+    Lpp = A(-0.5) * (A(n) * (rss_pp / rss - u * u) + ld_pp);
     return;
   }
   // trace terms through the columns of A1^{-1}: Ainv[i][k] = (A1^{-1})_ik
-  double Ainv[P1MAX][P1MAX];
+  A Ainv[P1MAX][P1MAX];
   SMALL_FOR(kc, 0, p1) {
-    double ecol[P1MAX], col[P1MAX];
-    SMALL_FOR(i, 0, p1) ecol[i] = i == kc ? 1.0 : 0.0;
+    A ecol[P1MAX], col[P1MAX];
+    SMALL_FOR(i, 0, p1) ecol[i] = i == kc ? A(1) : A(0);
     chol_solve<P1MAX>(L, ecol, col, p1);
     SMALL_FOR(i, 0, p1) Ainv[i][kc] = col[i];
   }
-  auto full = [&](const double* A, int i, int j) {
-    return A[i >= j ? tri(i, j) : tri(j, i)];
+  auto full = [&](const A* M, int i, int j) {
+    return M[i >= j ? tri(i, j) : tri(j, i)];
   };
-  double tr2 = 0, tr3 = 0, tr2sq = 0;
-  double T2[P1MAX][P1MAX];
+  A tr2 = 0, tr3 = 0, tr2sq = 0;
+  A T2[P1MAX][P1MAX];
   SMALL_FOR(i, 0, p1) {
     SMALL_FOR(j, 0, p1) {
-      double v = 0;
+      A v = 0;
       SMALL_FOR(k, 0, p1) v += Ainv[i][k] * full(A2, k, j);
       T2[i][j] = v;
     }
@@ -302,9 +351,9 @@ __device__ void derivs_sums(const PB& pb, double delta, int n,
     SMALL_FOR(k, 0, p1) tr3 += Ainv[i][k] * full(A3, k, i);
     SMALL_FOR(j, 0, p1) tr2sq += T2[i][j] * T2[j][i];
   }
-  const double nu = n - p1;
-  Lp = -0.5 * (nu * u + ld_p - tr2);
-  Lpp = -0.5 * (nu * (rss_pp / rss - u * u) + ld_pp + 2 * tr3 - tr2sq);
+  const A nu = A(n - p1);
+  Lp = A(-0.5) * (nu * u + ld_p - tr2);
+  Lpp = A(-0.5) * (nu * (rss_pp / rss - u * u) + ld_pp + A(2) * tr3 - tr2sq);
 }
 
 // ---------------------------------------------------------------------------
@@ -326,18 +375,22 @@ __host__ __device__ inline int wide_ne(int p1) {
   return p1 * (p1 + 1) / 2 + p1 + 1;
 }
 
+// in the arithmetic type A (float: the float32 context's localizing
+// steps)
+template <class A = double>
 struct WideWs {
-  double *wf, *acc, *L, *Ainv, *T2, *vec, *rd;
+  A *wf, *acc, *L, *Ainv, *T2, *vec, *rd;
   int p1, ne;
 };
 
-// the workspace of one warp's algebra, in doubles, at p + 1 = p1
+// the workspace of one warp's algebra, in values of A, at p + 1 = p1
 __host__ __device__ inline int epi_words(int p1) {
   return 3 * wide_ne(p1) + p1 * (p1 + 1) / 2 + 2 * p1 * p1 + 7 * p1;
 }
 
-__device__ WideWs wide_ws(double* base, int p1) {
-  WideWs w;
+template <class A>
+__device__ WideWs<A> wide_ws(A* base, int p1) {
+  WideWs<A> w;
   w.p1 = p1;
   w.ne = wide_ne(p1);
   w.wf = nullptr;                         // the converge's row weights
@@ -353,23 +406,24 @@ __device__ WideWs wide_ws(double* base, int p1) {
 // the lanes over the rows of each column; ws.rd the reciprocals of its
 // diagonal, so that the solves multiply (a division is a long dependent
 // sequence on the card; the solves' chains would wait on p1 of them)
-__device__ void chol_wide(const WideWs& ws) {
+template <class T>
+__device__ void chol_wide(const WideWs<T>& ws) {
   const int lane = threadIdx.x % 32, p1 = ws.p1;
-  const double* A = ws.acc;
-  double* L = ws.L;
-  double dmax = A[0];
+  const T* A = ws.acc;
+  T* L = ws.L;
+  T dmax = A[0];
   for (int i = 1; i < p1; ++i) dmax = fmax(dmax, A[tri(i, i)]);
-  const double ridge = 1e-12 * fmax(dmax, 1.0);
+  const T ridge = T(1e-12) * fmax(dmax, T(1));
   for (int j = 0; j < p1; ++j) {
     if (lane == 0) {
-      double v = A[tri(j, j)] + ridge;
+      T v = A[tri(j, j)] + ridge;
       for (int k = 0; k < j; ++k) v -= L[tri(j, k)] * L[tri(j, k)];
       L[tri(j, j)] = sqrt(v);
-      ws.rd[j] = 1.0 / L[tri(j, j)];
+      ws.rd[j] = T(1) / L[tri(j, j)];
     }
     __syncwarp();
     for (int i = j + 1 + lane; i < p1; i += 32) {
-      double v = A[tri(i, j)];
+      T v = A[tri(i, j)];
       for (int k = 0; k < j; ++k) v -= L[tri(i, k)] * L[tri(j, k)];
       L[tri(i, j)] = v * ws.rd[j];
     }
@@ -385,24 +439,24 @@ __device__ void chol_wide(const WideWs& ws) {
 // shared memory made each of its ~p1^2 steps wait on the load of the
 // element the step before stored: ~20k cycles a solve at p1 = 25 on an
 // H100 80GB HBM3.)
-template <int NB, class Vf, class Of>
-__device__ void solve_warp(const WideWs& ws, int nb, Vf v, Of out) {
+template <int NB, class T, class Vf, class Of>
+__device__ void solve_warp(const WideWs<T>& ws, int nb, Vf v, Of out) {
   const int lane = threadIdx.x % 32, p1 = ws.p1;
   const int r0 = lane, r1 = lane + 32;
-  const double* L = ws.L;
-  double t0[NB], t1[NB];
+  const T* L = ws.L;
+  T t0[NB], t1[NB];
 #pragma unroll
   for (int c = 0; c < NB; ++c) {
-    t0[c] = c < nb && r0 < p1 ? v(r0, c) : 0.0;
-    t1[c] = c < nb && r1 < p1 ? v(r1, c) : 0.0;
+    t0[c] = c < nb && r0 < p1 ? v(r0, c) : T(0);
+    t1[c] = c < nb && r1 < p1 ? v(r1, c) : T(0);
   }
   for (int k = 0; k < p1; ++k) {  // L y = v, by columns of L
-    const double rk = ws.rd[k];
-    const double l0 = r0 > k && r0 < p1 ? L[tri(r0, k)] : 0.0;
-    const double l1 = r1 > k && r1 < p1 ? L[tri(r1, k)] : 0.0;
+    const T rk = ws.rd[k];
+    const T l0 = r0 > k && r0 < p1 ? L[tri(r0, k)] : T(0);
+    const T l1 = r1 > k && r1 < p1 ? L[tri(r1, k)] : T(0);
 #pragma unroll
     for (int c = 0; c < NB; ++c) {
-      const double xk = (k < 32 ? __shfl_sync(FULL, t0[c], k)
+      const T xk = (k < 32 ? __shfl_sync(FULL, t0[c], k)
                                 : __shfl_sync(FULL, t1[c], k - 32)) * rk;
       if (r0 == k) t0[c] = xk;
       else if (r0 > k) t0[c] -= l0 * xk;
@@ -411,12 +465,12 @@ __device__ void solve_warp(const WideWs& ws, int nb, Vf v, Of out) {
     }
   }
   for (int k = p1 - 1; k >= 0; --k) {  // L^T x = y, by rows of L
-    const double rk = ws.rd[k];
-    const double l0 = r0 < k ? L[tri(k, r0)] : 0.0;
-    const double l1 = r1 < k ? L[tri(k, r1)] : 0.0;
+    const T rk = ws.rd[k];
+    const T l0 = r0 < k ? L[tri(k, r0)] : T(0);
+    const T l1 = r1 < k ? L[tri(k, r1)] : T(0);
 #pragma unroll
     for (int c = 0; c < NB; ++c) {
-      const double xk = (k < 32 ? __shfl_sync(FULL, t0[c], k)
+      const T xk = (k < 32 ? __shfl_sync(FULL, t0[c], k)
                                 : __shfl_sync(FULL, t1[c], k - 32)) * rk;
       if (r0 == k) t0[c] = xk;
       else if (r0 < k) t0[c] -= l0 * xk;
@@ -433,12 +487,12 @@ __device__ void solve_warp(const WideWs& ws, int nb, Vf v, Of out) {
 }
 
 // out = A x for family f's symmetric A; the lanes over rows
-__device__ void sym_mv_wide(const WideWs& ws, int f, const double* x,
-                            double* out) {
+template <class T>
+__device__ void sym_mv_wide(const WideWs<T>& ws, int f, const T* x, T* out) {
   const int lane = threadIdx.x % 32, p1 = ws.p1;
-  const double* A = ws.acc + f * ws.ne;
+  const T* A = ws.acc + f * ws.ne;
   for (int i = lane; i < p1; i += 32) {
-    double v = 0.0;
+    T v = T(0);
     for (int k = 0; k < p1; ++k) v += A[i >= k ? tri(i, k) : tri(k, i)] * x[k];
     out[i] = v;
   }
@@ -446,9 +500,10 @@ __device__ void sym_mv_wide(const WideWs& ws, int f, const double* x,
 }
 
 // a . b over p1 entries, on every lane
-__device__ double dot_wide(const double* a, const double* b, int p1) {
+template <class T>
+__device__ T dot_wide(const T* a, const T* b, int p1) {
   const int lane = threadIdx.x % 32;
-  double v = 0.0;
+  T v = T(0);
   for (int i = lane; i < p1; i += 32) v += a[i] * b[i];
   return warp_sum(v);
 }
@@ -457,106 +512,117 @@ __device__ double dot_wide(const double* a, const double* b, int p1) {
 // a(r, k), b(k, c) the operands' entries, out(r, c, value) the sink; tiles
 // of 16 x 8, 8 deep, zero past p1 (the loops are warp-uniform, as mma.sync
 // needs)
-template <class Af, class Bf, class Of>
+template <class T = double, class Af, class Bf, class Of>
 __device__ void warp_gemm(int p1, Af af, Bf bf, Of out) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, tq = lane & 3;
-  for (int m0 = 0; m0 < p1; m0 += 16)
-    for (int n0 = 0; n0 < p1; n0 += 8) {
-      double d[4] = {0.0, 0.0, 0.0, 0.0};
-      for (int k0 = 0; k0 < p1; k0 += 8) {
-        double a[4], b[2];
+  const int lane = threadIdx.x % 32;
+  if constexpr (std::is_same<T, float>::value) {
+    // f32 (the float32 context's steps, p1 <= 16): a lane an entry at a
+    // time, in the order of the k sums
+    for (int e = lane; e < p1 * p1; e += 32) {
+      const int r = e / p1, c = e - r * p1;
+      float v = 0.0f;
+      for (int k = 0; k < p1; ++k) v += af(r, k) * bf(k, c);
+      out(r, c, v);
+    }
+  } else {
+    const int g = lane >> 2, tq = lane & 3;
+    for (int m0 = 0; m0 < p1; m0 += 16)
+      for (int n0 = 0; n0 < p1; n0 += 8) {
+        double d[4] = {0.0, 0.0, 0.0, 0.0};
+        for (int k0 = 0; k0 < p1; k0 += 8) {
+          double a[4], b[2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = m0 + g + 8 * (i & 1), c = k0 + tq + 4 * (i >> 1);
+            a[i] = r < p1 && c < p1 ? af(r, c) : 0.0;
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int k = k0 + tq + 4 * i, c = n0 + g;
+            b[i] = k < p1 && c < p1 ? bf(k, c) : 0.0;
+          }
+          dmma_m16n8k8(d, a, b);
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int r = m0 + g + 8 * (i & 1), c = k0 + tq + 4 * (i >> 1);
-          a[i] = r < p1 && c < p1 ? af(r, c) : 0.0;
+          const int r = m0 + g + 8 * (i >> 1), c = n0 + 2 * tq + (i & 1);
+          if (r < p1 && c < p1) out(r, c, d[i]);
         }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int k = k0 + tq + 4 * i, c = n0 + g;
-          b[i] = k < p1 && c < p1 ? bf(k, c) : 0.0;
-        }
-        dmma_m16n8k8(d, a, b);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = m0 + g + 8 * (i >> 1), c = n0 + 2 * tq + (i & 1);
-        if (r < p1 && c < p1) out(r, c, d[i]);
-      }
-    }
+  }
   __syncwarp();
 }
 
 // (L', L'') from the three families' normal equations in ws.acc (the
 // algebra of derivs above, the lanes over rows, columns or entries)
-template <bool REML>
-__device__ void derivs_tail_wide(const WideWs& ws, int R, int n,
-                                 double delta, double sum_ew,
-                                 double sum_e2w2, double& Lp, double& Lpp) {
+template <bool REML, class FL = Floors<double>, class T>
+__device__ void derivs_tail_wide(const WideWs<T>& ws, int R, int n, T delta,
+                                 T sum_ew, T sum_e2w2, T& Lp, T& Lpp) {
   const int lane = threadIdx.x % 32;
   const int p1 = ws.p1, ne = ws.ne, ntri = p1 * (p1 + 1) / 2;
-  const double *b1 = ws.acc + ntri, *b2 = ws.acc + ne + ntri,
-               *b3 = ws.acc + 2 * ne + ntri;
-  const double q1 = ws.acc[ne - 1], q2 = ws.acc[2 * ne - 1],
-               q3 = ws.acc[3 * ne - 1];
-  double *beta = ws.vec, *A2b = beta + p1, *A3b = A2b + p1, *t = A3b + p1,
+  const T *b1 = ws.acc + ntri, *b2 = ws.acc + ne + ntri,
+          *b3 = ws.acc + 2 * ne + ntri;
+  const T q1 = ws.acc[ne - 1], q2 = ws.acc[2 * ne - 1],
+          q3 = ws.acc[3 * ne - 1];
+  T *beta = ws.vec, *A2b = beta + p1, *A3b = A2b + p1, *t = A3b + p1,
          *beta_p = t + p1, *A2bp = beta_p + p1;
   chol_wide(ws);
   solve_warp<1>(ws, 1, [&](int i, int) { return b1[i]; },
-                [&](int i, int, double x) { beta[i] = x; });
-  double rss = fmax(q1 - dot_wide(b1, beta, p1), DBL_MIN);
+                [&](int i, int, T x) { beta[i] = x; });
+  const T rss = floor_at<FL>(q1 - dot_wide(b1, beta, p1), Tiny<T>::v);
   sym_mv_wide(ws, 1, beta, A2b);
   sym_mv_wide(ws, 2, beta, A3b);
   for (int j = lane; j < p1; j += 32) t[j] = A2b[j] - b2[j];
   __syncwarp();
   solve_warp<1>(ws, 1, [&](int i, int) { return t[i]; },
-                [&](int i, int, double x) { beta_p[i] = x; });
+                [&](int i, int, T x) { beta_p[i] = x; });
   sym_mv_wide(ws, 1, beta_p, A2bp);
-  const double s_b2b = dot_wide(b2, beta, p1);
-  const double s_bA2b = dot_wide(beta, A2b, p1);
-  const double s_b3b = dot_wide(b3, beta, p1);
-  const double s_b2bp = dot_wide(b2, beta_p, p1);
-  const double s_bA2bp = dot_wide(beta, A2bp, p1);
-  const double s_bA3b = dot_wide(beta, A3b, p1);
-  const double rss_p = -q2 + 2 * s_b2b - s_bA2b;
-  const double rss_pp =
-      2 * q3 - 4 * s_b3b + 2 * s_b2bp - 2 * s_bA2bp + 2 * s_bA3b;
-  const int nR = n - R;
-  const double i1 = 1.0 / delta;
-  const double ld_p = sum_ew + nR * i1;
-  const double ld_pp = -sum_e2w2 - nR * (i1 * i1);
-  const double u = rss_p / rss;
+  const T s_b2b = dot_wide(b2, beta, p1);
+  const T s_bA2b = dot_wide(beta, A2b, p1);
+  const T s_b3b = dot_wide(b3, beta, p1);
+  const T s_b2bp = dot_wide(b2, beta_p, p1);
+  const T s_bA2bp = dot_wide(beta, A2bp, p1);
+  const T s_bA3b = dot_wide(beta, A3b, p1);
+  const T rss_p = -q2 + T(2) * s_b2b - s_bA2b;
+  const T rss_pp = T(2) * q3 - T(4) * s_b3b + T(2) * s_b2bp -
+                   T(2) * s_bA2bp + T(2) * s_bA3b;
+  const T nR = T(n - R);
+  const T i1 = T(1) / delta;
+  const T ld_p = sum_ew + nR * i1;
+  const T ld_pp = -sum_e2w2 - nR * (i1 * i1);
+  const T u = rss_p / rss;
   if (!REML) {
-    Lp = -0.5 * (n * u + ld_p);
-    Lpp = -0.5 * (n * (rss_pp / rss - u * u) + ld_pp);
+    Lp = T(-0.5) * (T(n) * u + ld_p);
+    Lpp = T(-0.5) * (T(n) * (rss_pp / rss - u * u) + ld_pp);
     return;
   }
   // A1^{-1} = X^T X with X = L^{-1} (a lane a column of X, forward from
   // its diagonal: half a solve), then T2 = A1^{-1} A2, both products on
   // the tensor cores; X is held in T2's storage until then
-  double *Ainv = ws.Ainv, *T2 = ws.T2, *X = ws.T2;
+  T *Ainv = ws.Ainv, *T2 = ws.T2, *X = ws.T2;
   for (int kc = lane; kc < p1; kc += 32) {
-    for (int i = 0; i < kc; ++i) X[i * p1 + kc] = 0.0;
+    for (int i = 0; i < kc; ++i) X[i * p1 + kc] = T(0);
     X[kc * p1 + kc] = ws.rd[kc];
     for (int i = kc + 1; i < p1; ++i) {
-      double t = 0.0;
+      T t = T(0);
       for (int k = kc; k < i; ++k) t -= ws.L[tri(i, k)] * X[k * p1 + kc];
       X[i * p1 + kc] = t * ws.rd[i];
     }
   }
   __syncwarp();
-  warp_gemm(
+  warp_gemm<T>(
       p1, [&](int r, int c) { return X[c * p1 + r]; },
       [&](int k, int c) { return X[k * p1 + c]; },
-      [&](int r, int c, double v) { Ainv[r * p1 + c] = v; });
-  const double *A2 = ws.acc + ne, *A3 = ws.acc + 2 * ne;
-  auto full = [&](const double* A, int i, int j) {
-    return A[i >= j ? tri(i, j) : tri(j, i)];
+      [&](int r, int c, T v) { Ainv[r * p1 + c] = v; });
+  const T *A2 = ws.acc + ne, *A3 = ws.acc + 2 * ne;
+  auto full = [&](const T* M, int i, int j) {
+    return M[i >= j ? tri(i, j) : tri(j, i)];
   };
-  double tr2 = 0, tr3 = 0, tr2sq = 0;
-  warp_gemm(
+  T tr2 = 0, tr3 = 0, tr2sq = 0;
+  warp_gemm<T>(
       p1, [&](int r, int c) { return Ainv[r * p1 + c]; },
       [&](int k, int c) { return full(A2, k, c); },
-      [&](int r, int c, double v) { T2[r * p1 + c] = v; });
+      [&](int r, int c, T v) { T2[r * p1 + c] = v; });
   for (int i = lane; i < p1; i += 32) {
     tr2 += T2[i * p1 + i];
     for (int k = 0; k < p1; ++k) tr3 += Ainv[i * p1 + k] * full(A3, k, i);
@@ -569,16 +635,16 @@ __device__ void derivs_tail_wide(const WideWs& ws, int R, int n,
   tr3 = warp_sum(tr3);
   tr2sq = warp_sum(tr2sq);
   __syncwarp();
-  const double nu = n - p1;
-  Lp = -0.5 * (nu * u + ld_p - tr2);
-  Lpp = -0.5 * (nu * (rss_pp / rss - u * u) + ld_pp + 2 * tr3 - tr2sq);
+  const T nu = T(n - p1);
+  Lp = T(-0.5) * (nu * u + ld_p - tr2);
+  Lpp = T(-0.5) * (nu * (rss_pp / rss - u * u) + ld_pp + T(2) * tr3 - tr2sq);
 }
 
 // The fit at delta from family 0's normal equations in ws.acc and
 // logd = sum log d: (lml, rss, beta in ws.vec) with the objective's rss
 // floor, on every lane
-template <bool REML, bool FLOOR_Q>
-__device__ double fit_tail_wide(const WideWs& ws, int R, double delta, int n,
+template <bool REML, bool FLOOR_Q, class FL = Floors<double>>
+__device__ double fit_tail_wide(const WideWs<>& ws, int R, double delta, int n,
                                 double ld_xx, double logd, double& rss_out,
                                 bool& rss_bad) {
   const int lane = threadIdx.x % 32;
@@ -589,9 +655,9 @@ __device__ double fit_tail_wide(const WideWs& ws, int R, double delta, int n,
                 [&](int i, int, double x) { beta[i] = x; });
   const double q = ws.acc[ws.ne - 1];
   double rss = q - dot_wide(ws.acc + ntri, beta, p1);
-  rss_bad = rss <= 128 * DBL_EPSILON * q;
-  if (FLOOR_Q) rss = fmax(rss, 128 * DBL_EPSILON * q);
-  rss = fmax(rss, DBL_MIN);
+  rss_bad = rss <= 128 * FL::eps * q;
+  if (FLOOR_Q) rss = floor_at<FL>(rss, 128 * FL::eps * q);
+  rss = floor_at<FL>(rss, DBL_MIN);
   rss_out = rss;
   const double two_pi = 6.283185307179586;
   const double logdet_d = logd + (n - R) * log(delta);
@@ -606,17 +672,17 @@ __device__ double fit_tail_wide(const WideWs& ws, int R, double delta, int n,
 
 // One safeguarded Newton step on logit(delta) from (L', L'') at delta =
 // sigmoid(x); lane 0's iterate is the warp's
-__device__ void newton_update(double delta, double Lp, double Lpp, double& x,
-                              double& lo, double& hi) {
-  const double g = delta * (1 - delta);
-  const double Lx_p = Lp * g;
-  const double Lx_pp = Lpp * g * g + Lp * g * (1 - 2 * delta);
-  const double lo2 = Lx_p > 0 ? x : lo;
-  const double hi2 = Lx_p > 0 ? hi : x;
-  const double xn = x - Lx_p / Lx_pp;
+template <class A>
+__device__ void newton_update(A delta, A Lp, A Lpp, A& x, A& lo, A& hi) {
+  const A g = delta * (A(1) - delta);
+  const A Lx_p = Lp * g;
+  const A Lx_pp = Lpp * g * g + Lp * g * (A(1) - A(2) * delta);
+  const A lo2 = Lx_p > A(0) ? x : lo;
+  const A hi2 = Lx_p > A(0) ? hi : x;
+  const A xn = x - Lx_p / Lx_pp;
   // inclusive bounds: at convergence xn == x == a bracket end
-  const bool ok = Lx_pp < 0 && xn >= lo2 && xn <= hi2 && isfinite(xn);
-  x = __shfl_sync(FULL, ok ? xn : 0.5 * (lo2 + hi2), 0);
+  const bool ok = Lx_pp < A(0) && xn >= lo2 && xn <= hi2 && isfinite(xn);
+  x = __shfl_sync(FULL, ok ? xn : A(0.5) * (lo2 + hi2), 0);
   lo = __shfl_sync(FULL, lo2, 0);
   hi = __shfl_sync(FULL, hi2, 0);
 }
@@ -696,20 +762,39 @@ __device__ ProblemT<T> make_problem(const T* CWW, const T* CWy, const T* Cyy,
 // chunk in flight while the warps sum the current one.  The argmax over
 // rho is loc_argmax_kernel, over the block's outputs (no limit on the rho
 // points).
+//
+// The float32 context (T = float, p + 1 <= 4; the screen's stages 1b and
+// 2, engine.py:628-670 on an f32 context) runs the same kernel on f32
+// rows: the fields are staged as f32 (S, e = 1 - S, e^2 and the products
+// the f32 values the reference forms), so twice the rows fit a block
+// (LOC_PRODUCTS with 16 variants up to R = 1056); the Newton steps' weights,
+// sums, algebra and state are f32, from the f32-rounded bracket midpoint;
+// the final evaluation is f64 on the same staged rows, widened as they
+// are loaded (no second staging), its sum log d a log a LOG_GROUP rows, and
+// an rss at or below 128 eps(f32) q there cannot win the argmax (:655).
 #ifndef CRM_LOC_SMEM_KB  // the emulated tests build some with less, so
 #define CRM_LOC_SMEM_KB 227  // that their small R reaches every layout
 #endif
 constexpr int LOC_SMEM = CRM_LOC_SMEM_KB * 1024;  // of a localize block
 
+// warps of a register localize block: LOC_MAX_WARPS at 128 registers a
+// thread, but 8 for the f32 instantiation at p + 1 <= 4, whose f32 step
+// sums and f64 evaluation sums need up to 255 (none spilled)
+template <class T, int P1MAX>
+__host__ __device__ constexpr int loc_warps() {
+  return std::is_same<T, float>::value && P1MAX > 2 && LOC_MAX_WARPS > 8
+             ? 8 : LOC_MAX_WARPS;
+}
+
 // how the localize stages its rows
 enum LocStaging { LOC_CHUNKED = 0, LOC_G = 1, LOC_PRODUCTS = 2 };
 
-// the derived fields, in units of rch doubles: [S, e, e2 | W W products |
+// the derived fields, in units of rch values: [S, e, e2 | W W products |
 // per gene (GC): y, W y (p), y y]
 __host__ __device__ inline int loc_fields(int p, int gc) {
   return 3 + p * (p + 1) / 2 + gc * (p + 2);
 }
-// a raw buffer, in units of rch doubles: [S | W (p) | g (VT) | y (GC)];
+// a raw buffer, in units of rch values: [S | W (p) | g (VT) | y (GC)];
 // resident, after the fields, LOC_G: [W (p) | g (VT)], LOC_PRODUCTS: [g
 // (VT) | per variant: g W (p), g g]
 __host__ __device__ inline int loc_raw(int p, int vt, int gc) {
@@ -719,186 +804,259 @@ __host__ __device__ inline int loc_resident(int p, int vt, int layout) {
   return layout == LOC_PRODUCTS ? vt * (p + 2) : p + vt;
 }
 
+// cp.async of one value of the operand type
+__device__ __forceinline__ void cp_async_val(double* s, const double* g) {
+  cp_async8(s, g);
+}
+__device__ __forceinline__ void cp_async_val(float* s, const float* g) {
+  cp_async4(s, g);
+}
+
 // rows [0, R) of rho o from the tensors, resident: the fields (rounded
 // when r32), then the tile's g at gv and W at gv - p rch, or with
 // `products` the variants' g W and g g (rounded) after the g
-__device__ void loc_stage(double* sm, double* gv, int rch,
-                          const double* __restrict__ Sv,
-                          const double* __restrict__ WGt,
-                          const double* __restrict__ yt, int o, int R, int p,
+template <class T>
+__device__ void loc_stage(T* sm, T* gv, int rch, const T* __restrict__ Sv,
+                          const T* __restrict__ WGt,
+                          const T* __restrict__ yt, int o, int R, int p,
                           int nS, int nrho, int s0, int nv, int vt, int g0,
                           int ng, bool products, bool r32) {
   const int nt = blockDim.x, tid = threadIdx.x;
   const int ps = p + nS, ntri = p * (p + 1) / 2;
-  const double* Wo = WGt + (int64_t)o * R * ps;
+  const T* Wo = WGt + (int64_t)o * R * ps;
   for (int r = tid; r < R; r += nt) {
-    const double Sr = Sv[(int64_t)o * R + r];
+    const T Sr = Sv[(int64_t)o * R + r];
     sm[r] = rnd(Sr, r32);
-    sm[rch + r] = rnd(1.0 - Sr, r32);
-    sm[2 * rch + r] = rnd((1.0 - Sr) * (1.0 - Sr), r32);
-    const double* row = Wo + (int64_t)r * ps;
+    sm[rch + r] = one_minus(Sr, r32);
+    sm[2 * rch + r] = e_sq(Sr, r32);
+    const T* row = Wo + (int64_t)r * ps;
     for (int i = 0; i < p; ++i) {
       if (!products) gv[(i - p) * rch + r] = row[i];
       for (int j = 0; j <= i; ++j)
-        sm[(3 + tri(i, j)) * rch + r] = rnd(row[i] * row[j], r32);
+        sm[(3 + tri(i, j)) * rch + r] = prod(row[i], row[j], r32);
     }
   }
   // the variants' genotype, each row's nv values contiguous
   for (int e = tid; e < R * nv; e += nt) {
     const int r = e / nv, v = e - r * nv;
-    const double* row = Wo + (int64_t)r * ps;
-    const double g = row[p + s0 + v];
+    const T* row = Wo + (int64_t)r * ps;
+    const T g = row[p + s0 + v];
     gv[v * rch + r] = g;
     if (!products) continue;
-    double* f = gv + (vt + v * (p + 1)) * rch + r;
-    for (int j = 0; j < p; ++j) f[j * rch] = rnd(g * row[j], r32);
-    f[p * rch] = rnd(g * g, r32);
+    T* f = gv + (vt + v * (p + 1)) * rch + r;
+    for (int j = 0; j < p; ++j) f[j * rch] = prod(g, row[j], r32);
+    f[p * rch] = prod(g, g, r32);
   }
   // the genes' phenotype, each gene's rows contiguous
   for (int e = tid; e < R * ng; e += nt) {
     const int c = e / R, r = e - c * R;
-    const double* row = Wo + (int64_t)r * ps;
-    const double y = yt[((int64_t)(g0 + c) * nrho + o) * R + r];
-    double* f = sm + (3 + ntri + c * (p + 2)) * rch + r;
+    const T* row = Wo + (int64_t)r * ps;
+    const T y = yt[((int64_t)(g0 + c) * nrho + o) * R + r];
+    T* f = sm + (3 + ntri + c * (p + 2)) * rch + r;
     f[0] = y;
-    for (int j = 0; j < p; ++j) f[(1 + j) * rch] = rnd(row[j] * y, r32);
-    f[(p + 1) * rch] = rnd(y * y, r32);
+    for (int j = 0; j < p; ++j) f[(1 + j) * rch] = prod(row[j], y, r32);
+    f[(p + 1) * rch] = prod(y, y, r32);
+  }
+}
+
+// f32 rows, resident LOC_G: the raw rows (S, each gene's y at its first
+// field, the rho's W and the tile's g) by cp.async into their places, then
+// the derived fields (e, e2 and the W W, W y and y y products) from shared
+// memory: no global load sits on a thread's path
+__device__ void loc_stage_g32(float* sm, float* gv, int rch,
+                              const float* __restrict__ Sv,
+                              const float* __restrict__ WGt,
+                              const float* __restrict__ yt, int o, int R,
+                              int p, int nS, int nrho, int s0, int nv, int g0,
+                              int ng) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int ps = p + nS, ntri = p * (p + 1) / 2;
+  const float* Wo = WGt + (int64_t)o * R * ps;
+  for (int e = tid; e < R * (1 + ng); e += nt) {
+    const int c = e / R, r = e - c * R;
+    if (c == 0)
+      cp_async4(sm + r, Sv + (int64_t)o * R + r);
+    else
+      cp_async4(sm + (3 + ntri + (c - 1) * (p + 2)) * rch + r,
+                yt + ((int64_t)(g0 + c - 1) * nrho + o) * R + r);
+  }
+  // a row's W and the tile's g: p and nv values, contiguous in the row
+  const int w = p + nv;
+  for (int e = tid; e < R * w; e += nt) {
+    const int r = e / w, j = e - r * w;
+    cp_async4(gv + (j - p) * rch + r,
+              Wo + (int64_t)r * ps + (j < p ? j : s0 + j));
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  const float* W = gv - p * rch;
+  for (int r = tid; r < R; r += nt) {
+    const float e = 1.0f - sm[r];
+    sm[rch + r] = e;
+    sm[2 * rch + r] = e * e;
+    for (int i = 0; i < p; ++i)
+      for (int j = 0; j <= i; ++j)
+        sm[(3 + tri(i, j)) * rch + r] = W[i * rch + r] * W[j * rch + r];
+  }
+  for (int e = tid; e < R * ng; e += nt) {
+    const int c = e / R, r = e - c * R;
+    float* f = sm + (3 + ntri + c * (p + 2)) * rch + r;
+    const float y = f[0];
+    for (int j = 0; j < p; ++j) f[(1 + j) * rch] = W[j * rch + r] * y;
+    f[(p + 1) * rch] = y * y;
   }
 }
 
 // cp.async of rows [r0, r0 + rows) of rho o into the raw buffer
-__device__ void loc_fetch(double* raw, int rch, const double* __restrict__ Sv,
-                          const double* __restrict__ WGt,
-                          const double* __restrict__ yt, int o, int r0,
+template <class T>
+__device__ void loc_fetch(T* raw, int rch, const T* __restrict__ Sv,
+                          const T* __restrict__ WGt,
+                          const T* __restrict__ yt, int o, int r0,
                           int rows, int R, int p, int nS, int nrho, int s0,
                           int nv, int vt, int g0, int ng) {
   const int nt = blockDim.x, tid = threadIdx.x;
   const int ps = p + nS;
-  const double* Wo = WGt + ((int64_t)o * R + r0) * ps;
+  const T* Wo = WGt + ((int64_t)o * R + r0) * ps;
   // S and the genes' y: rows contiguous
   for (int e = tid; e < rows * (1 + ng); e += nt) {
     const int c = e / rows, rr = e - c * rows;
-    const double* src =
+    const T* src =
         c == 0 ? Sv + (int64_t)o * R + r0 + rr
                : yt + ((int64_t)(g0 + c - 1) * nrho + o) * R + r0 + rr;
-    cp_async8(raw + (c == 0 ? 0 : p + vt + c) * rch + rr, src);
+    cp_async_val(raw + (c == 0 ? 0 : p + vt + c) * rch + rr, src);
   }
   // a row's W and the tile's g: p and nv values, at W's columns and the
   // variants' (contiguous)
   const int w = p + nv;
   for (int e = tid; e < rows * w; e += nt) {
     const int rr = e / w, j = e - rr * w;
-    cp_async8(raw + (1 + j) * rch + rr,
-              Wo + (int64_t)rr * ps + (j < p ? j : s0 + j));
+    cp_async_val(raw + (1 + j) * rch + rr,
+                 Wo + (int64_t)rr * ps + (j < p ? j : s0 + j));
   }
 }
 
 // the fields of a chunk's rows from its raw buffer (rounded when r32)
-__device__ void loc_derive(double* sm, const double* raw, int rch, int rows,
-                           int p, int vt, int ng, bool r32) {
+template <class T>
+__device__ void loc_derive(T* sm, const T* raw, int rch, int rows, int p,
+                           int vt, int ng, bool r32) {
   const int nt = blockDim.x, tid = threadIdx.x;
   const int ntri = p * (p + 1) / 2;
-  const double* W = raw + rch;
+  const T* W = raw + rch;
   for (int rr = tid; rr < rows; rr += nt) {
-    const double Sr = raw[rr];
+    const T Sr = raw[rr];
     sm[rr] = rnd(Sr, r32);
-    sm[rch + rr] = rnd(1.0 - Sr, r32);
-    sm[2 * rch + rr] = rnd((1.0 - Sr) * (1.0 - Sr), r32);
+    sm[rch + rr] = one_minus(Sr, r32);
+    sm[2 * rch + rr] = e_sq(Sr, r32);
     for (int i = 0; i < p; ++i)
       for (int j = 0; j <= i; ++j)
         sm[(3 + tri(i, j)) * rch + rr] =
-            rnd(W[i * rch + rr] * W[j * rch + rr], r32);
+            prod(W[i * rch + rr], W[j * rch + rr], r32);
   }
   for (int e = tid; e < rows * ng; e += nt) {
     const int c = e / rows, rr = e - c * rows;
-    const double y = raw[(1 + p + vt + c) * rch + rr];
-    double* f = sm + (3 + ntri + c * (p + 2)) * rch + rr;
+    const T y = raw[(1 + p + vt + c) * rch + rr];
+    T* f = sm + (3 + ntri + c * (p + 2)) * rch + rr;
     f[0] = y;
-    for (int j = 0; j < p; ++j)
-      f[(1 + j) * rch] = rnd(W[j * rch + rr] * y, r32);
-    f[(p + 1) * rch] = rnd(y * y, r32);
+    for (int j = 0; j < p; ++j) f[(1 + j) * rch] = prod(W[j * rch + rr], y, r32);
+    f[(p + 1) * rch] = prod(y, y, r32);
   }
 }
 
-// a lane's staged rows [0, rows) into the sums of problem (v, c): the
-// fields at sm, the tile's (vt) g at gv, and W at gv - p rch or,
-// PRODUCTS, the variants' g W and g g after the g
-template <int P1MAX, int NF, bool PRODUCTS>
-__device__ void loc_rows(const double* sm, const double* gv, int rch,
-                         int rows, int p, int vt, int v, int c, double delta,
-                         bool r32, double (&acc)[NF][Cfg<P1MAX>::NE],
-                         double& ex1, double& ex2) {
+// a lane's staged rows [0, rows) into the sums of problem (v, c), in the
+// arithmetic type A: the fields at sm, the tile's (vt) g at gv, and W at
+// gv - p rch or, PRODUCTS, the variants' g W and g g after the g.  The f64
+// evaluation of f32 rows (NF == 1) takes a log a LOG_GROUP rows' d.
+template <int P1MAX, int NF, bool PRODUCTS, class A, class T>
+__device__ void loc_rows(const T* sm, const T* gv, int rch, int rows, int p,
+                         int vt, int v, int c, A delta, bool r32,
+                         A (&acc)[NF][Cfg<P1MAX>::NE], A& ex1, A& ex2) {
   constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
+  constexpr bool GROUPED = NF == 1 && std::is_same<T, float>::value;
   const int p1 = p + 1, ntri = p * (p + 1) / 2;
-  const double* fv = gv + v * rch;
-  const double* fw = gv - p * rch;
-  const double* gp = gv + (vt + v * p1) * rch;
-  const double* fc = sm + (3 + ntri + c * (p + 2)) * rch;
+  const T* fv = gv + v * rch;
+  const T* fw = gv - p * rch;
+  const T* gp = gv + (vt + v * p1) * rch;
+  const T* fc = sm + (3 + ntri + c * (p + 2)) * rch;
+  A dprod = A(1);
+  int nprod = 0;
   for (int rr = threadIdx.x % 32; rr < rows; rr += 32) {
-    const double d = (1.0 - delta) * sm[rr] + delta;
-    const double w1 = 1.0 / d;
-    double wf[NF];
+    const A d = (A(1) - delta) * A(sm[rr]) + delta;
+    const A w1 = weight<A, T>(d);
+    A wf[NF];
     wf[0] = w1;
     if constexpr (NF == 3) {
-      const double e = sm[rch + rr];
-      const double e2 = sm[2 * rch + rr];
+      const A e = sm[rch + rr];
+      const A e2 = sm[2 * rch + rr];
       wf[1] = e * w1 * w1;
       wf[2] = e2 * w1 * w1 * w1;
       ex1 += w1 * e;
       ex2 += w1 * w1 * e2;
+    } else if constexpr (GROUPED) {
+      dprod *= d;
+      if (++nprod == LOG_GROUP) {
+        ex1 += log(dprod);
+        dprod = A(1);
+        nprod = 0;
+      }
     } else {
       ex1 += log(d);
     }
-    const double g = fv[rr], y = fc[rr];
+    const T g = fv[rr], y = fc[rr];
     SMALL_FOR(i, 0, p1) {
       SMALL_FOR(j, 0, i + 1) {
-        const double x =
+        const A x =
             i < p      ? sm[(3 + tri(i, j)) * rch + rr]
             : PRODUCTS ? gp[j * rch + rr]
-                       : rnd(g * (j < p ? fw[j * rch + rr] : g), r32);
+                       : prod(g, j < p ? fw[j * rch + rr] : g, r32);
         for (int f = 0; f < NF; ++f) acc[f][tri(i, j)] += wf[f] * x;
       }
-      const double x = i < p ? fc[(1 + i) * rch + rr] : rnd(g * y, r32);
+      const A x = i < p ? fc[(1 + i) * rch + rr] : prod(g, y, r32);
       for (int f = 0; f < NF; ++f) acc[f][TRI + i] += wf[f] * x;
     }
-    const double x = fc[(p + 1) * rch + rr];
+    const A x = fc[(p + 1) * rch + rr];
     for (int f = 0; f < NF; ++f) acc[f][NE - 1] += wf[f] * x;
   }
+  if constexpr (GROUPED) ex1 += log(dprod);
 }
 
-// the staged rows: the fields (f rch doubles), then, resident, W, the
-// tile's g and its products (w rch doubles), or, chunked, two raw buffers
+// the staged rows: the fields (f rch values), then, resident, W, the
+// tile's g and its products (w rch values), or, chunked, two raw buffers
 // (w each)
+template <class T>
 struct LocStage {
-  double* sm;
+  T* sm;
   int rch, f, w, layout;
-  __device__ double* raw(int c) const { return sm + (f + (c & 1) * w) * rch; }
+  __device__ T* raw(int c) const { return sm + (f + (c & 1) * w) * rch; }
 };
 
 // one pass of every problem of the block over the rows: its NF families'
 // sums (the lanes' parts; ne_finish adds them up).  Resident: `stage`
 // makes the fields (else they are there from an earlier pass).  Chunked:
 // the chunks' raw rows are copied and their fields derived.
-template <int P1MAX, int NF>
-__device__ void loc_pass(const LocStage& st, bool stage, bool active,
-                         const double* Sv, const double* WGt,
-                         const double* yt, int o, int R, int p, int nS,
-                         int nrho, int s0, int nv, int vt, int g0, int ng,
-                         int v, int c, double delta, bool r32,
-                         double (&acc)[NF][Cfg<P1MAX>::NE], double& ex1,
-                         double& ex2) {
+template <int P1MAX, int NF, class A, class T>
+__device__ void loc_pass(const LocStage<T>& st, bool stage, bool active,
+                         const T* Sv, const T* WGt, const T* yt, int o,
+                         int R, int p, int nS, int nrho, int s0, int nv,
+                         int vt, int g0, int ng, int v, int c, A delta,
+                         bool r32, A (&acc)[NF][Cfg<P1MAX>::NE], A& ex1,
+                         A& ex2) {
   for (int f = 0; f < NF; ++f)
-    for (int e = 0; e < Cfg<P1MAX>::NE; ++e) acc[f][e] = 0.0;
-  ex1 = 0.0;
-  ex2 = 0.0;
+    for (int e = 0; e < Cfg<P1MAX>::NE; ++e) acc[f][e] = A(0);
+  ex1 = A(0);
+  ex2 = A(0);
   const int rch = st.rch;
   if (st.layout != LOC_CHUNKED) {
     const bool products = st.layout == LOC_PRODUCTS;
-    double* gv = st.sm + (st.f + (products ? 0 : p)) * rch;
+    T* gv = st.sm + (st.f + (products ? 0 : p)) * rch;
     if (stage) {
       __syncthreads();  // every warp is done with the previous fields
-      loc_stage(st.sm, gv, rch, Sv, WGt, yt, o, R, p, nS, nrho, s0, nv, vt,
-                g0, ng, products, r32);
+      if constexpr (std::is_same<T, float>::value)  // LOC_G: see the launch
+        loc_stage_g32(st.sm, gv, rch, Sv, WGt, yt, o, R, p, nS, nrho, s0,
+                      nv, g0, ng);
+      else
+        loc_stage(st.sm, gv, rch, Sv, WGt, yt, o, R, p, nS, nrho, s0, nv,
+                  vt, g0, ng, products, r32);
       __syncthreads();
     }
     if (active && products)
@@ -932,26 +1090,27 @@ __device__ void loc_pass(const LocStage& st, bool stage, bool active,
   }
 }
 
-template <int P1MAX>
-__global__ void __launch_bounds__(32 * LOC_MAX_WARPS, 1)
-localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
-                const double* __restrict__ yt, const double* __restrict__ CWW,
-                const double* __restrict__ CWy, const double* __restrict__ Cyy,
-                const double* __restrict__ CWg, const double* __restrict__ Cgy,
-                const double* __restrict__ Cgg,
-                const double* __restrict__ ld_xx,
+// T: the operands' type, which is also the Newton steps' arithmetic (f64,
+// or f32 on the float32 context); the final evaluation is f64
+template <class T, int P1MAX>
+__global__ void __launch_bounds__(32 * loc_warps<T, P1MAX>(), 1)
+localize_kernel(const T* __restrict__ Sv, const T* __restrict__ WGt,
+                const T* __restrict__ yt, const T* __restrict__ CWW,
+                const T* __restrict__ CWy, const T* __restrict__ Cyy,
+                const T* __restrict__ CWg, const T* __restrict__ Cgy,
+                const T* __restrict__ Cgg, const T* __restrict__ ld_xx,
                 const double* __restrict__ br_lo,
                 const double* __restrict__ br_hi, double* __restrict__ x_out,
                 double* __restrict__ lml_out, int n, int nrho, int R, int p,
                 int nS, int genes, int steps, int r32, int vt, int gc,
                 int rch, int layout) {
   extern __shared__ __align__(16) unsigned char loc_dyn[];
-  const LocStage st{reinterpret_cast<double*>(loc_dyn), rch,
-                    loc_fields(p, gc),
-                    layout == LOC_CHUNKED ? loc_raw(p, vt, gc)
-                                          : loc_resident(p, vt, layout),
-                    layout};
+  const LocStage<T> st{reinterpret_cast<T*>(loc_dyn), rch, loc_fields(p, gc),
+                       layout == LOC_CHUNKED ? loc_raw(p, vt, gc)
+                                             : loc_resident(p, vt, layout),
+                       layout};
   constexpr int NE = Cfg<P1MAX>::NE;
+  using FL = Floors<T>;  // the context's floors
   const int s0 = blockIdx.x * vt, o = blockIdx.y, g0 = blockIdx.z * gc;
   const int nv = min(vt, nS - s0), ng = min(gc, genes - g0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -959,31 +1118,31 @@ localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   const bool active = v < nv && c < ng;
   const int s = s0 + min(v, nv - 1), gi = g0 + min(c, ng - 1);
   const int64_t so = ((int64_t)gi * nS + s) * nrho + o;
-  double lo = br_lo[so], hi = br_hi[so];
-  double x = 0.5 * (lo + hi);
+  T lo = T(br_lo[so]), hi = T(br_hi[so]);
+  T x = T(0.5) * (lo + hi);
   // the problem's complements (gene gi, variant s); its rows are staged
-  const Problem pb32 =
+  const ProblemT<T> pb32 =
       make_problem(CWW, CWy + (int64_t)gi * p, Cyy + gi, CWg,
                    Cgy + (int64_t)gi * nS, Cgg, s, R, p, nS, r32 != 0);
   // stage 1b: Newton on the (possibly f32-rounded) tensors
   for (int it = 0; it < steps; ++it) {
-    const double delta = sigmoid(x);
-    double acc[3][NE], ex1, ex2;
+    const T delta = sigmoid(x);
+    T acc[3][NE], ex1, ex2;
     loc_pass<P1MAX, 3>(st, it == 0, active, Sv, WGt, yt, o, R, p, nS, nrho,
                        s0, nv, vt, g0, ng, v, c, delta, r32 != 0, acc, ex1,
                        ex2);
     if (active) {
       ne_finish<P1MAX, 3>(pb32, delta, acc, ex1, ex2);
-      double Lp, Lpp;
-      derivs_sums<P1MAX, true>(pb32, delta, n, acc, ex1, ex2, Lp, Lpp);
+      T Lp, Lpp;
+      derivs_sums<P1MAX, true, FL>(pb32, delta, n, acc, ex1, ex2, Lp, Lpp);
       newton_update(delta, Lp, Lpp, x, lo, hi);
     }
   }
   // stage 2: one f64 evaluation on the unrounded tensors
-  Problem pb = pb32;
+  ProblemT<T> pb = pb32;
   pb.r32 = false;
   pb.cyy = Cyy[gi];
-  const double delta = sigmoid(x);
+  const double delta = sigmoid((double)x);
   double acc[1][NE], logd, unused;
   loc_pass<P1MAX, 1>(st, steps == 0 || r32, active, Sv, WGt, yt, o, R, p,
                      nS, nrho, s0, nv, vt, g0, ng, v, c, delta, false, acc,
@@ -992,8 +1151,8 @@ localize_kernel(const double* __restrict__ Sv, const double* __restrict__ WGt,
   ne_finish<P1MAX, 1>(pb, delta, acc, logd, unused);
   double beta[P1MAX], rss;
   bool bad;
-  double lml = fit_sums<P1MAX, true, false>(pb, delta, n, ld_xx[s], acc,
-                                            logd, beta, rss, bad);
+  double lml = fit_sums<P1MAX, true, false, FL>(pb, delta, n, ld_xx[s], acc,
+                                                logd, beta, rss, bad);
   // noise-floor or NaN evaluations must not win the rho argmax (:664-666)
   if (bad || !isfinite(lml)) lml = -INFINITY;
   if (lane == 0) {
@@ -1351,7 +1510,7 @@ loc_epilogue_kernel(const double* __restrict__ sum,
   if (pid >= (int64_t)nS * nrho) return;  // whole warps: no block barrier
   const int s = (int)(pid / nrho), o = (int)(pid - (int64_t)s * nrho);
   const int p1 = p + 1, ng = p + 2, nppad = loc_nppad(p);
-  const WideWs ws = wide_ws(reinterpret_cast<double*>(epi_dyn) +
+  const WideWs<> ws = wide_ws(reinterpret_cast<double*>(epi_dyn) +
                                 (int64_t)warp * epi_words(p1), p1);
   const int ne = ws.ne, ntri = p1 * (p1 + 1) / 2, ntw = p * (p + 1) / 2;
   const double* su = sum + ((int64_t)o * nS + s) * 3 * nppad;
@@ -1572,9 +1731,6 @@ constexpr int LIST_CHUNK = CRM_CONV_LIST_CHUNK;  // counts a block reads at once
 // memory and the 1 KB the card keeps a block, within its 228 KB
 constexpr int CONV_SMEM = CRM_CONV_SMEM_KB * 1024;
 constexpr int WBLK = 2;  // 4 x 4 column blocks a wide lane owns (<= 45)
-// rows whose d's product one log takes (d >= sigmoid(-18) ~ 1.5e-8 and
-// an eigenvalue, so that the product of 8 stays within f64's range)
-constexpr int LOG_GROUP = 8;
 // problems below which a call with no Newton steps still splits each
 // problem's rows over two warps (p + 1 <= 2): 4 blocks of 4 an SM hold
 // 2112 at one warp each
@@ -1651,13 +1807,6 @@ struct ConvStage {
   __device__ T* buf(int c) const { return sm + (c & 1) * w * rch; }
 };
 
-// cp.async of one value of the operand type
-__device__ __forceinline__ void cp_async_val(double* s, const double* g) {
-  cp_async8(s, g);
-}
-__device__ __forceinline__ void cp_async_val(float* s, const float* g) {
-  cp_async4(s, g);
-}
 
 // cp.async of rows [r0, r0 + rows) of rho k (S and W at Sk and Wk) into
 // buf, for the tile's nv problems prob[]
@@ -1837,7 +1986,7 @@ __device__ void wide_blocks(int ncol, int (&bi)[WBLK], int (&bj)[WBLK]) {
 // (oa, ob: the blocks' columns in the staged rows); ws.wf holds the
 // weights of WRC rows at a time, a lane a row
 template <int NF>
-__device__ void wide_rows(const WideWs& ws, const double* buf, int rows,
+__device__ void wide_rows(const WideWs<>& ws, const double* buf, int rows,
                           const int (&bi)[WBLK], const int (&oa)[WBLK][4],
                           const int (&ob)[WBLK][4], double delta,
                           double (&acc)[NF][WBLK][16], double& ex1,
@@ -1903,7 +2052,7 @@ __device__ void wide_rows(const WideWs& ws, const double* buf, int rows,
 // complements added with weight 1/delta^(f+1); ex1, ex2 summed over the
 // warp
 template <int NF>
-__device__ void wide_finish(const Problem& pb, const WideWs& ws,
+__device__ void wide_finish(const Problem& pb, const WideWs<>& ws,
                             double delta, const int (&bi)[WBLK],
                             const int (&bj)[WBLK],
                             const double (&acc)[NF][WBLK][16], double& ex1,
@@ -2033,7 +2182,7 @@ converge_kernel(const T* __restrict__ Sv, const T* __restrict__ WGt,
   if constexpr (P1MAX == 0) {  // the wide instantiation: f64 only
     double* base = st.sm + (chunks == 1 ? 1 : 2) * w * rch +
                    (int64_t)warp * conv_ws_words(p1);
-    WideWs ws = wide_ws(base + 3 * WRC, p1);
+    WideWs<> ws = wide_ws(base + 3 * WRC, p1);
     ws.wf = base;
     int bi[WBLK], bj[WBLK], oa[WBLK][4], ob[WBLK][4];
     wide_blocks(p1 + 1, bi, bj);
@@ -2164,339 +2313,410 @@ inline int conv_rows_per_chunk(int R, int p, int steps, int es, int* smem) {
 // complements; the rotated products (W_i W_j, g W_j, g^2, W_j y, g y, y^2)
 // and e = 1 - S, e2 = e^2 are the f32 products the reference forms.  The
 // arithmetic follows the reference's type promotion:
-// * stage 1b (c32_localize_kernel's steps): f32 arithmetic with f32 state
-//   (x, lo, hi), from the bracket midpoint in f32;
-// * stage 2 (the same kernel's evaluation): one f64 lml at the localized
+// * stage 1b (the localize's steps: localize_kernel<float> up to p + 1 =
+//   4, localize_wide_kernel from 5): f32 arithmetic with f32 state (x, lo,
+//   hi), from the bracket midpoint in f32;
+// * stage 2 (the same kernels' evaluation): one f64 lml at the localized
 //   optimum, the f32 values widened as they are loaded; an rss at or below
 //   128 eps(f32) q is cancellation noise of the f32 tensors and cannot win
 //   the argmax (:655);
 // * stage 3 (the converge's f32 instantiations, converge_kernel<float>):
 //   f64 steps and the final fit at each variant's best rho on the widened
 //   f32 tensors, the rss floored at 128 eps(f32) q (:724).
-// The floors take the context's eps (eps_ctx here, Floors<float> in the
-// converge): once the operands are widened, f64's eps would let spurious
-// maxima through (the note at engine.py:357-366).
-// The localize: a warp per problem (the lanes over the rows, then an
-// xor-shuffle tree; lane 0's iterate broadcast so that the lanes stay in
-// step), rows read where they lie: the simple form, REML only, p + 1 <=
-// 16.
-constexpr int C32_WARPS = 4;  // problems a block
+// The floors take the context's eps (Floors<float>): once the operands are
+// widened, f64's eps would let spurious maxima through (the note at
+// engine.py:357-366).
+//
+// The localize from p + 1 = 5 (localize_wide_kernel, up to p + 1 = 16): a
+// problem's 3 (p + 2)(p + 3) / 2 sums a step (459 at p + 1 = 16) do not
+// fit a lane's registers, so they are split over G warps.  A block per
+// (rho, tile of LW_WARPS / G problems) stages the rows its problems share
+// as the converge does (conv_fetch: the rho's S and W, each problem's
+// genotype column, each gene's phenotype; resident, else in chunks
+// through two cp.async buffers); warp j of a problem sums the j-th of G
+// compile-time ranges of the packed lower triangle of [W, g, y] over the
+// staged rows (the lanes over the rows, the sums in registers, the
+// products f32), an xor-shuffle tree puts them in the problem's
+// shared-memory workspace, and the problem's first warp adds the
+// complements and runs the algebra there (derivs_tail_wide in f32, the
+// lanes over rows, columns or entries; at the end fit_tail_wide in f64)
+// and publishes the new iterate: two block barriers a step.  What bounds
+// it: that algebra, a chain of short dependent steps on one warp a
+// problem (37% of the warps' time at p = 7, 1024 variants, 11 rho;
+// scripts/profile_localize.py --f32, H100 80GB HBM3, 700 W); two blocks
+// an SM (2.65 against 4.3 device ms at one) hide part of it.
+constexpr int LW_WARPS = 8;  // warps of a wide f32 localize block
 
-template <class T> struct C32Lim;
-template <> struct C32Lim<float> {
-  static constexpr float tiny = FLT_MIN;
+// the packed triangle's entries of [W, g, y] at P1MAX + 1 columns, each of
+// G warps' share of them, and the problems of a block
+template <int P1MAX, int G>
+struct LwCfg {
+  static constexpr int NT = (P1MAX + 1) * (P1MAX + 2) / 2;
+  static constexpr int CNT = (NT + G - 1) / G;
+  static constexpr int NPB = LW_WARPS / G;
 };
 
-template <class T>
-__device__ __forceinline__ T c32_warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
-}
-
-// max(x, floor) that keeps a NaN (a failed factorization's residual), as
-// the plain versions' torch.clamp / torch.maximum and the reference's
-// jnp.maximum do; fmax would drop it
-template <class T>
-__device__ __forceinline__ T c32_floor(T x, T floor) {
-  return x < floor ? floor : x;
-}
-
-template <class T>
-__device__ __forceinline__ T c32_sigmoid(T x) {
-  return T(1) / (T(1) + exp(-x));
-}
-
-// One problem's f32 operands: the rows at its rho, its complements.
-struct C32Problem {
-  const float *S, *WG, *y;   // (R,), (R, p + nS) stride ps, (R,)
-  const float *CWW, *CWy;    // (p, p), the gene's (p,)
-  const float* CWg;          // (p, nS), column s
-  float cyy, cgy, cgg;
-  int s, p, ps, nS, R;
-};
-
-// The normal equations of NF families at delta in T: acc[f] = [A lower
-// (TRI) | b (P1MAX) | q] with weights w1 = 1/d, we2 = e w1^2, we3 = e2 w1^3
-// and complement weights 1/delta^(f+1); ex1 = sum e w1 and ex2 = sum e2
-// w1^2 (NF == 3), or ex1 = sum log d (NF == 1).  Every lane returns the
-// full sums.
-template <class T, int P1MAX, int NF>
-__device__ void c32_sums(const C32Problem& pb, T delta, int lane,
-                         T (&acc)[NF][Cfg<P1MAX>::NE], T& ex1, T& ex2) {
-  constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
-  const int p = pb.p, p1 = p + 1;
-  for (int f = 0; f < NF; ++f)
-    for (int e = 0; e < NE; ++e) acc[f][e] = T(0);
-  ex1 = T(0);
-  ex2 = T(0);
-  for (int r = lane; r < pb.R; r += 32) {
-    const float* row = pb.WG + (int64_t)r * pb.ps;
-    float xr[P1MAX];
-    SMALL_FOR(j, 0, p1) xr[j] = j < p ? row[j] : row[p + pb.s];
-    const float yr = pb.y[r], Sr = pb.S[r];
-    const float er = 1.0f - Sr, e2r = er * er;
-    const T d = (T(1) - delta) * (T)Sr + delta;
-    const T w1 = T(1) / d;
-    T w[NF];
-    w[0] = w1;
+// warp J's share of a problem's sums over rows [0, rows) of a staged
+// chunk (S at buf, W's column c at buf + (1 + c) rch, the genotype and
+// the phenotype at columns gcol and ycol): entries [J CNT, (J + 1) CNT) of
+// the packed triangle (A, then b, then q), NF families in the arithmetic
+// type A on the f32 products; warp 0 also takes sum e w1 and sum e2 w1^2
+// (NF == 3), or sum log d (NF == 1, a log a LOG_GROUP rows)
+template <int P1MAX, int G, int J, int NF, class A>
+__device__ void lw_rows(const float* buf, int rch, int rows, int p,
+                        int gcol, int ycol, A delta,
+                        A (&acc)[NF][LwCfg<P1MAX, G>::CNT], A& ex1, A& ex2) {
+  constexpr int CNT = LwCfg<P1MAX, G>::CNT, E0 = J * CNT;
+  const int p1 = p + 1;
+  A dprod = A(1);
+  int nprod = 0;
+  for (int rr = threadIdx.x % 32; rr < rows; rr += 32) {
+    const float Sr = buf[rr];
+    const A d = (A(1) - delta) * A(Sr) + delta;
+    const A w1 = weight<A, float>(d);
+    A wf[NF];
+    wf[0] = w1;
     if constexpr (NF == 3) {
-      w[1] = (T)er * w1 * w1;
-      w[2] = (T)e2r * w1 * w1 * w1;
-      ex1 += w1 * (T)er;
-      ex2 += w1 * w1 * (T)e2r;
-    } else {
-      ex1 += log(d);
+      const float er = 1.0f - Sr;
+      const A e = er, e2 = er * er;
+      wf[1] = e * w1 * w1;
+      wf[2] = e2 * w1 * w1 * w1;
+      if (J == 0) {
+        ex1 += w1 * e;
+        ex2 += w1 * w1 * e2;
+      }
+    } else if (J == 0) {
+      dprod *= d;
+      if (++nprod == LOG_GROUP) {
+        ex1 += log(dprod);
+        dprod = A(1);
+        nprod = 0;
+      }
     }
+    float x[P1MAX + 1];
+#pragma unroll
+    for (int c = 0; c <= P1MAX; ++c)
+      x[c] = c < p    ? buf[(1 + c) * rch + rr]
+             : c == p  ? buf[gcol * rch + rr]
+             : c == p1 ? buf[ycol * rch + rr]
+                       : 0.0f;
+#pragma unroll
+    for (int a = 0; a <= P1MAX; ++a) {
+      if (a > p1) continue;
+#pragma unroll
+      for (int b = 0; b <= a; ++b) {
+        const int e = tri(a, b) - E0;
+        if (e < 0 || e >= CNT) continue;
+        const A v = x[a] * x[b];
+        for (int f = 0; f < NF; ++f) acc[f][e] += wf[f] * v;
+      }
+    }
+  }
+  if constexpr (NF == 1)
+    if (J == 0) ex1 += log(dprod);
+}
+
+// lw_rows of warp j (runtime) of its problem
+template <int P1MAX, int G, int NF, class A>
+__device__ void lw_rows_of(int j, const float* buf, int rch, int rows, int p,
+                           int gcol, int ycol, A delta,
+                           A (&acc)[NF][LwCfg<P1MAX, G>::CNT], A& ex1,
+                           A& ex2) {
+  if (j == 0)
+    lw_rows<P1MAX, G, 0, NF>(buf, rch, rows, p, gcol, ycol, delta, acc, ex1,
+                             ex2);
+  if constexpr (G > 1)
+    if (j == 1)
+      lw_rows<P1MAX, G, 1, NF>(buf, rch, rows, p, gcol, ycol, delta, acc,
+                               ex1, ex2);
+  if constexpr (G > 2)
+    if (j == 2)
+      lw_rows<P1MAX, G, 2, NF>(buf, rch, rows, p, gcol, ycol, delta, acc,
+                               ex1, ex2);
+  if constexpr (G > 3)
+    if (j == 3)
+      lw_rows<P1MAX, G, 3, NF>(buf, rch, rows, p, gcol, ycol, delta, acc,
+                               ex1, ex2);
+}
+
+// warp j's sums, added over its lanes (every level of the xor tree for
+// every sum, then lane 0's stores), into the problem's ws.acc
+template <int P1MAX, int G, int NF, class A>
+__device__ void lw_publish(int j, const WideWs<A>& ws,
+                           A (&acc)[NF][LwCfg<P1MAX, G>::CNT]) {
+  constexpr int CNT = LwCfg<P1MAX, G>::CNT;
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < CNT; ++k)
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        acc[f][k] += __shfl_xor_sync(FULL, acc[f][k], off);
+  if (threadIdx.x % 32 != 0) return;
+#pragma unroll
+  for (int k = 0; k < CNT; ++k) {
+    const int e = j * CNT + k;
+    if (e < ws.ne)
+#pragma unroll
+      for (int f = 0; f < NF; ++f) ws.acc[f * ws.ne + e] = acc[f][k];
+  }
+}
+
+// the problem's complements at entries lane, lane + 32, ... of the packed
+// triangle of [W, g, y] (entry (a, b)), read once
+template <int K>
+__device__ void lw_complement_values(const ProblemT<float>& pb, int ne,
+                                     float (&cv)[K]) {
+  const int p = pb.p, p1 = p + 1;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = threadIdx.x % 32 + 32 * k;
+    int a = 0;
+    while ((a + 1) * (a + 2) / 2 <= e) ++a;
+    const int b = e - a * (a + 1) / 2;
+    cv[k] = e >= ne  ? 0.0f
+            : a < p1 ? (a < p ? pb.CWW[a * p + b]
+                        : b < p ? pb.CWg[(int64_t)b * pb.nS + pb.s]
+                                : (float)pb.cgg)
+            : b < p  ? pb.CWy[b]
+            : b == p ? (float)pb.cgy
+                     : (float)pb.cyy;
+  }
+}
+
+// the complements into the problem's ws.acc, family f with weight
+// 1 / delta^(f + 1)
+template <int NF, int K, class A>
+__device__ void lw_complements(const float (&cv)[K], const WideWs<A>& ws,
+                               A delta) {
+  const A i1 = A(1) / delta;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = threadIdx.x % 32 + 32 * k;
+    if (e >= ws.ne) continue;
+    A ic = i1;
     for (int f = 0; f < NF; ++f) {
-      SMALL_FOR(i, 0, p1) {
-        SMALL_FOR(j, 0, i + 1) acc[f][tri(i, j)] += w[f] * (T)(xr[i] * xr[j]);
-        acc[f][TRI + i] += w[f] * (T)(xr[i] * yr);
-      }
-      acc[f][NE - 1] += w[f] * (T)(yr * yr);
+      ws.acc[f * ws.ne + e] += A(cv[k]) * ic;
+      ic *= i1;
     }
   }
-  for (int f = 0; f < NF; ++f)
-    for (int e = 0; e < NE; ++e) acc[f][e] = c32_warp_sum(acc[f][e]);
-  ex1 = c32_warp_sum(ex1);
-  ex2 = c32_warp_sum(ex2);
-  const T i1 = T(1) / delta;
-  T ic = i1;
-  for (int f = 0; f < NF; ++f) {
-    SMALL_FOR(i, 0, p1) {
-      SMALL_FOR(j, 0, i + 1) {
-        const float c = i < p ? pb.CWW[i * p + j]
-                              : (j < p ? pb.CWg[(int64_t)j * pb.nS + pb.s]
-                                       : pb.cgg);
-        acc[f][tri(i, j)] += (T)c * ic;
-      }
-      acc[f][TRI + i] += (T)(i < p ? pb.CWy[i] : pb.cgy) * ic;
-    }
-    acc[f][NE - 1] += (T)pb.cyy * ic;
-    ic *= i1;
-  }
+  __syncwarp();
 }
 
-template <class T, int P1MAX>
-__device__ void c32_chol(T (&L)[P1MAX][P1MAX], const T* A, int p1) {
-  T dmax = A[0];
-  SMALL_FOR(i, 1, p1) dmax = fmax(dmax, A[tri(i, i)]);
-  const T ridge = T(1e-12) * fmax(dmax, T(1));
-  SMALL_FOR(i, 0, p1) {
-    SMALL_FOR(j, 0, i + 1) {
-      T v = A[tri(i, j)];
-      if (i == j) v += ridge;
-      SMALL_FOR(k, 0, j) v -= L[i][k] * L[j][k];
-      L[i][j] = i == j ? sqrt(v) : v / L[j][j];
-    }
-  }
+// bytes of a wide f32 localize block's staged rows (16-byte aligned; its
+// problems' workspaces follow)
+__host__ __device__ inline int lw_rows_bytes(int p, int R, int rch) {
+  const int nbuf = (R + rch - 1) / rch == 1 ? 1 : 2;
+  return ((int)sizeof(float) * nbuf * conv_width(p) * rch + 15) / 16 * 16;
 }
 
-template <class T, int P1MAX>
-__device__ void c32_solve(const T (&L)[P1MAX][P1MAX], const T* b, T* x,
-                          int p1) {
-  SMALL_FOR(i, 0, p1) {
-    T v = b[i];
-    SMALL_FOR(k, 0, i) v -= L[i][k] * x[k];
-    x[i] = v / L[i][i];
-  }
-  for (int i = P1MAX - 1; i >= 0; --i) {
-    if (i >= p1) continue;
-    T v = x[i];
-    SMALL_FOR(k, i + 1, p1) v -= L[k][i] * x[k];
-    x[i] = v / L[i][i];
-  }
-}
-
-template <class T, int P1MAX>
-__device__ void c32_mv(const T* A, const T* x, T* out, int p1) {
-  SMALL_FOR(i, 0, p1) {
-    T v = T(0);
-    SMALL_FOR(k, 0, p1) v += A[i >= k ? tri(i, k) : tri(k, i)] * x[k];
-    out[i] = v;
-  }
-}
-
-// (L', L'') of the REML objective at delta (the algebra of derivs_sums in
-// T)
-template <class T, int P1MAX>
-__device__ void c32_derivs(int p1, int R, int n, T delta,
-                           const T (&acc)[3][Cfg<P1MAX>::NE], T sum_ew,
-                           T sum_e2w2, T& Lp, T& Lpp) {
-  constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
-  const T *A1 = acc[0], *A2 = acc[1], *A3 = acc[2];
-  const T *b1 = acc[0] + TRI, *b2 = acc[1] + TRI, *b3 = acc[2] + TRI;
-  const T q1 = acc[0][NE - 1], q2 = acc[1][NE - 1], q3 = acc[2][NE - 1];
-  T L[P1MAX][P1MAX], beta[P1MAX], A2b[P1MAX], A3b[P1MAX], t[P1MAX],
-      beta_p[P1MAX], A2bp[P1MAX];
-  c32_chol<T, P1MAX>(L, A1, p1);
-  c32_solve<T, P1MAX>(L, b1, beta, p1);
-  T rss = q1;
-  SMALL_FOR(j, 0, p1) rss -= b1[j] * beta[j];
-  rss = c32_floor(rss, C32Lim<T>::tiny);
-  c32_mv<T, P1MAX>(A2, beta, A2b, p1);
-  c32_mv<T, P1MAX>(A3, beta, A3b, p1);
-  SMALL_FOR(j, 0, p1) t[j] = A2b[j] - b2[j];
-  c32_solve<T, P1MAX>(L, t, beta_p, p1);
-  c32_mv<T, P1MAX>(A2, beta_p, A2bp, p1);
-  T s_b2b = 0, s_bA2b = 0, s_b3b = 0, s_b2bp = 0, s_bA2bp = 0, s_bA3b = 0;
-  SMALL_FOR(j, 0, p1) {
-    s_b2b += b2[j] * beta[j];
-    s_bA2b += beta[j] * A2b[j];
-    s_b3b += b3[j] * beta[j];
-    s_b2bp += b2[j] * beta_p[j];
-    s_bA2bp += beta[j] * A2bp[j];
-    s_bA3b += beta[j] * A3b[j];
-  }
-  const T rss_p = -q2 + T(2) * s_b2b - s_bA2b;
-  const T rss_pp = T(2) * q3 - T(4) * s_b3b + T(2) * s_b2bp -
-                   T(2) * s_bA2bp + T(2) * s_bA3b;
-  const T nR = (T)(n - R);
-  const T i1 = T(1) / delta;
-  const T ld_p = sum_ew + nR * i1;
-  const T ld_pp = -sum_e2w2 - nR * (i1 * i1);
-  const T u = rss_p / rss;
-  T Ainv[P1MAX][P1MAX];
-  SMALL_FOR(kc, 0, p1) {
-    T ecol[P1MAX], col[P1MAX];
-    SMALL_FOR(i, 0, p1) ecol[i] = i == kc ? T(1) : T(0);
-    c32_solve<T, P1MAX>(L, ecol, col, p1);
-    SMALL_FOR(i, 0, p1) Ainv[i][kc] = col[i];
-  }
-  auto full = [&](const T* A, int i, int j) {
-    return A[i >= j ? tri(i, j) : tri(j, i)];
+// two blocks an SM up to p + 1 = 8 (128 registers, none spilled); one at
+// 16, whose sums need more
+template <int P1MAX, int G>
+__global__ void __launch_bounds__(32 * LW_WARPS, P1MAX <= 8 ? 2 : 1)
+localize_wide_kernel(const float* __restrict__ Sv,
+                     const float* __restrict__ WGt,
+                     const float* __restrict__ yt,
+                     const float* __restrict__ CWW,
+                     const float* __restrict__ CWy,
+                     const float* __restrict__ Cyy,
+                     const float* __restrict__ CWg,
+                     const float* __restrict__ Cgy,
+                     const float* __restrict__ Cgg,
+                     const float* __restrict__ ld_xx,
+                     const double* __restrict__ br_lo,
+                     const double* __restrict__ br_hi,
+                     double* __restrict__ x_out, double* __restrict__ lml_out,
+                     int n, int nrho, int R, int p, int nS, int genes,
+                     int steps, int rch) {
+  using C = LwCfg<P1MAX, G>;
+  static_assert(C::NPB <= CONV_WARPS, "a tile's problems: conv_fetch's");
+  extern __shared__ __align__(16) unsigned char lw_dyn[];
+  __shared__ int prob[C::NPB];
+  __shared__ float xs[C::NPB];
+  const int P = genes * nS, k = blockIdx.y, t0 = blockIdx.x * C::NPB;
+  const int nv = min(C::NPB, P - t0);
+  if ((int)threadIdx.x < nv) prob[threadIdx.x] = t0 + threadIdx.x;
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int v = warp % C::NPB, j = warp / C::NPB;
+  const bool active = v < nv;  // the others only stage
+  const int i = t0 + min(v, nv - 1), gi = i / nS, s = i - gi * nS;
+  int head = min(v, nv - 1);  // the gene's first problem of the tile
+  while (head > 0 && prob[head - 1] / nS == gi) --head;
+  const int p1 = p + 1, chunks = (R + rch - 1) / rch;
+  const ConvStage<float> st{reinterpret_cast<float*>(lw_dyn), rch, chunks,
+                            conv_width(p)};
+  const int gcol = 1 + p + v, ycol = 1 + p + CONV_WARPS + head;
+  const float* Sk = Sv + (int64_t)k * R;
+  const float* Wk = WGt + (int64_t)k * R * (p + nS);
+  auto fetch = [&](float* buf, int r0, int rows) {
+    conv_fetch(buf, rch, Sk, Wk, yt, prob, nv, k, r0, rows, R, p, nS, nrho);
   };
-  T tr2 = 0, tr3 = 0, tr2sq = 0;
-  T T2[P1MAX][P1MAX];
-  SMALL_FOR(i, 0, p1) {
-    SMALL_FOR(j, 0, p1) {
-      T v = 0;
-      SMALL_FOR(k, 0, p1) v += Ainv[i][k] * full(A2, k, j);
-      T2[i][j] = v;
-    }
-  }
-  SMALL_FOR(i, 0, p1) {
-    tr2 += T2[i][i];
-    SMALL_FOR(k, 0, p1) tr3 += Ainv[i][k] * full(A3, k, i);
-    SMALL_FOR(j, 0, p1) tr2sq += T2[i][j] * T2[j][i];
-  }
-  const T nu = (T)(n - p1);
-  Lp = T(-0.5) * (nu * u + ld_p - tr2);
-  Lpp = T(-0.5) * (nu * (rss_pp / rss - u * u) + ld_pp + T(2) * tr3 - tr2sq);
-}
-
-// One safeguarded Newton step on logit(delta) in T (engine.py:608-626,
-// inclusive bounds); lane 0's iterate is every lane's
-template <class T, int P1MAX>
-__device__ void c32_step(const C32Problem& pb, int n, int lane, T& x, T& lo,
-                         T& hi) {
-  constexpr int NE = Cfg<P1MAX>::NE;
-  const T delta = c32_sigmoid(x);
-  T acc[3][NE], ex1, ex2, Lp, Lpp;
-  c32_sums<T, P1MAX, 3>(pb, delta, lane, acc, ex1, ex2);
-  c32_derivs<T, P1MAX>(pb.p + 1, pb.R, n, delta, acc, ex1, ex2, Lp, Lpp);
-  const T g = delta * (T(1) - delta);
-  const T Lx_p = Lp * g;
-  const T Lx_pp = Lpp * g * g + Lp * g * (T(1) - T(2) * delta);
-  const T lo2 = Lx_p > T(0) ? x : lo;
-  const T hi2 = Lx_p > T(0) ? hi : x;
-  const T xn = x - Lx_p / Lx_pp;
-  const bool ok = Lx_pp < T(0) && xn >= lo2 && xn <= hi2 && isfinite(xn);
-  x = __shfl_sync(FULL, ok ? xn : T(0.5) * (lo2 + hi2), 0);
-  lo = __shfl_sync(FULL, lo2, 0);
-  hi = __shfl_sync(FULL, hi2, 0);
-}
-
-// The f64 GLS fit at delta on the widened f32 tensors: beta, rss, q,
-// logdet(A), logdet(D)
-template <int P1MAX>
-__device__ void c32_eval(const C32Problem& pb, int n, int lane, double delta,
-                         double (&beta)[P1MAX], double& rss, double& q,
-                         double& logdet_a, double& logdet_d) {
-  constexpr int NE = Cfg<P1MAX>::NE, TRI = Cfg<P1MAX>::TRI;
-  const int p1 = pb.p + 1;
-  double acc[1][NE], sum_logd, unused;
-  c32_sums<double, P1MAX, 1>(pb, delta, lane, acc, sum_logd, unused);
-  double L[P1MAX][P1MAX];
-  c32_chol<double, P1MAX>(L, acc[0], p1);
-  c32_solve<double, P1MAX>(L, acc[0] + TRI, beta, p1);
-  q = acc[0][NE - 1];
-  rss = q;
-  SMALL_FOR(j, 0, p1) rss -= acc[0][TRI + j] * beta[j];
-  logdet_a = 0.0;
-  SMALL_FOR(i, 0, p1) logdet_a += log(L[i][i]);
-  logdet_a *= 2.0;
-  logdet_d = sum_logd + (double)(n - pb.R) * log(delta);
-}
-
-__device__ __forceinline__ double c32_lml(double rss, double logdet_d,
-                                          double logdet_a, double ld_xx,
-                                          int n, int p1) {
-  const double nu = (double)(n - p1);
-  return -0.5 * (nu * log(6.283185307179586 * rss / nu) + logdet_d +
-                 logdet_a - ld_xx + nu);
-}
-
-__device__ inline C32Problem c32_problem(
-    const float* Sv, const float* WGt, const float* yt, const float* CWW,
-    const float* CWy, const float* Cyy, const float* CWg, const float* Cgy,
-    const float* Cgg, int g, int s, int o, int nrho, int R, int p, int nS) {
-  C32Problem pb;
-  pb.S = Sv + (int64_t)o * R;
-  pb.WG = WGt + (int64_t)o * R * (p + nS);
-  pb.y = yt + ((int64_t)g * nrho + o) * R;
-  pb.CWW = CWW;
-  pb.CWy = CWy + (int64_t)g * p;
-  pb.CWg = CWg;
-  pb.cyy = Cyy[g];
-  pb.cgy = Cgy[(int64_t)g * nS + s];
-  pb.cgg = Cgg[s];
-  pb.s = s;
-  pb.p = p;
-  pb.ps = p + nS;
-  pb.nS = nS;
-  pb.R = R;
-  return pb;
-}
-
-// Stages 1b and 2: a warp per (gene, variant, rho) problem
-template <int P1MAX>
-__global__ void __launch_bounds__(32 * C32_WARPS)
-c32_localize_kernel(const float* __restrict__ Sv, const float* __restrict__ WGt,
-                    const float* __restrict__ yt, const float* __restrict__ CWW,
-                    const float* __restrict__ CWy,
-                    const float* __restrict__ Cyy,
-                    const float* __restrict__ CWg,
-                    const float* __restrict__ Cgy,
-                    const float* __restrict__ Cgg,
-                    const float* __restrict__ ld_xx,
-                    const double* __restrict__ br_lo,
-                    const double* __restrict__ br_hi, double* __restrict__ x_out,
-                    double* __restrict__ lml_out, int n, int nrho, int R,
-                    int p, int nS, int genes, int steps, double eps_ctx) {
-  const int lane = threadIdx.x % 32;
-  const int64_t P = (int64_t)blockIdx.x * C32_WARPS + threadIdx.x / 32;
-  if (P >= (int64_t)genes * nS * nrho) return;  // the whole warp
-  const int o = (int)(P % nrho);
-  const int s = (int)((P / nrho) % nS);
-  const int g = (int)(P / ((int64_t)nrho * nS));
-  const C32Problem pb = c32_problem(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
-                                    Cgg, g, s, o, nrho, R, p, nS);
-  // stage 1b: f32 steps with f32 state from the bracket midpoint
-  float lo = (float)br_lo[P], hi = (float)br_hi[P];
+  // the problem's workspace: f32 for the steps, f64 for the evaluation,
+  // in the same place
+  double* base = reinterpret_cast<double*>(lw_dyn + lw_rows_bytes(p, R, rch)) +
+                 (int64_t)v * epi_words(p1);
+  const WideWs<float> wsf = wide_ws(reinterpret_cast<float*>(base), p1);
+  const WideWs<double> wsd = wide_ws(base, p1);
+  const ProblemT<float> pb =
+      make_problem(CWW, CWy + (int64_t)gi * p, Cyy + gi, CWg,
+                   Cgy + (int64_t)gi * nS, Cgg, s, R, p, nS, false);
+  float cv[(C::NT + 31) / 32];
+  lw_complement_values(pb, wsf.ne, cv);
+  const int64_t so = (int64_t)i * nrho + k;
+  float lo = (float)br_lo[so], hi = (float)br_hi[so];
   float x = 0.5f * (lo + hi);
-  for (int it = 0; it < steps; ++it) c32_step<float, P1MAX>(pb, n, lane, x, lo, hi);
-  // stage 2: one f64 lml at the localized optimum
-  const double delta = c32_sigmoid((double)x);
-  double beta[P1MAX], rss, q, logdet_a, logdet_d;
-  c32_eval<P1MAX>(pb, n, lane, delta, beta, rss, q, logdet_a, logdet_d);
-  const bool bad = rss <= 128.0 * eps_ctx * q;
-  rss = c32_floor(rss, DBL_MIN);
-  double lml = c32_lml(rss, logdet_d, logdet_a, (double)ld_xx[s], n, p + 1);
+  bool staged = false;
+  // stage 1b: f32 steps
+  for (int it = 0; it < steps; ++it) {
+    const float delta = sigmoid(x);
+    float acc[3][C::CNT] = {}, ex1 = 0.0f, ex2 = 0.0f;
+    conv_pass(st, R, staged, fetch, [&](const float* buf, int rows) {
+      if (active)
+        lw_rows_of<P1MAX, G, 3>(j, buf, rch, rows, p, gcol, ycol, delta, acc,
+                                ex1, ex2);
+    });
+    if (active) lw_publish<P1MAX, G, 3>(j, wsf, acc);
+    __syncthreads();
+    if (active && j == 0) {
+      ex1 = warp_sum(ex1);
+      ex2 = warp_sum(ex2);
+      lw_complements<3>(cv, wsf, delta);
+      float Lp, Lpp;
+      derivs_tail_wide<true, Floors<float>>(wsf, R, n, delta, ex1, ex2, Lp,
+                                            Lpp);
+      newton_update(delta, Lp, Lpp, x, lo, hi);
+      if (lane == 0) xs[v] = x;
+    }
+    __syncthreads();
+    if (active) x = xs[v];  // the problem's other warps take its iterate
+  }
+  // stage 2: one f64 evaluation on the same rows, widened
+  const double delta = sigmoid((double)x);
+  double acc[1][C::CNT] = {}, logd = 0.0, unused = 0.0;
+  conv_pass(st, R, staged, fetch, [&](const float* buf, int rows) {
+    if (active)
+      lw_rows_of<P1MAX, G, 1>(j, buf, rch, rows, p, gcol, ycol, delta, acc,
+                              logd, unused);
+  });
+  if (active) lw_publish<P1MAX, G, 1>(j, wsd, acc);
+  __syncthreads();
+  if (!active || j != 0) return;
+  logd = warp_sum(logd);
+  lw_complements<1>(cv, wsd, delta);
+  double rss;
+  bool bad;
+  double lml = fit_tail_wide<true, false, Floors<float>>(
+      wsd, R, delta, n, (double)ld_xx[s], logd, rss, bad);
+  // noise-floor or NaN evaluations must not win the rho argmax (:664-666)
   if (bad || !isfinite(lml)) lml = -INFINITY;
   if (lane == 0) {
-    x_out[P] = (double)x;
-    lml_out[P] = lml;
+    x_out[so] = x;
+    lml_out[so] = lml;
   }
+}
+
+// The register localize's launch (p + 1 <= 4) on operands of type T: a
+// tile of gc genes and vt variants a block, its rows resident when every
+// row fits (with the variants' products if they do), else in chunks
+// through two raw buffers; then the argmax over rho
+template <class T>
+int launch_localize_register(const T* Sv, const T* WGt, const T* yt,
+                             const T* CWW, const T* CWy, const T* Cyy,
+                             const T* CWg, const T* Cgy, const T* Cgg,
+                             const T* ld_xx, const double* br_lo,
+                             const double* br_hi, double* x, double* lml_all,
+                             int n, int nrho, int R, int p, int nS,
+                             int genes, int steps, int round32,
+                             cudaStream_t stream) {
+  auto kernel = p + 1 <= 2 ? localize_kernel<T, 2> : localize_kernel<T, 4>;
+  const int mw = p + 1 <= 2 ? loc_warps<T, 2>() : loc_warps<T, 4>();
+  const int gc = min(genes, 4), vt = mw / gc;
+  // f32 rows: LOC_G staged by cp.async (loc_stage_g32; forming g W and
+  // g g in the sums costs less than staging them), resident rows an odd
+  // number of values apart, so that a row's values fall in distinct banks
+  constexpr bool F32 = std::is_same<T, float>::value;
+  const int es = (int)sizeof(T);
+  const int all = (R + 31) / 32 * 32 + (F32 ? 1 : 0);
+  const int fields = loc_fields(p, gc);
+  auto fits = [&](int layout) {
+    return (int64_t)es * (fields + loc_resident(p, vt, layout)) * all <=
+           LOC_SMEM;
+  };
+  int layout = !F32 && fits(LOC_PRODUCTS) ? LOC_PRODUCTS
+               : fits(LOC_G)              ? LOC_G
+                                          : LOC_CHUNKED;
+#ifdef CRM_LOC_CHUNKED  // the emulated tests build the chunked path apart
+  layout = LOC_CHUNKED;
+#endif
+  const bool chunked = layout == LOC_CHUNKED;
+  const int per_row = fields + (chunked ? 2 * loc_raw(p, vt, gc)
+                                        : loc_resident(p, vt, layout));
+  const int rch =
+      chunked ? max(32, LOC_SMEM / (es * per_row) / 32 * 32) : all;
+  const int smem = es * per_row * rch;
+  static const int set = [] {
+    const int e = (int)cudaFuncSetAttribute(
+        localize_kernel<T, 2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        LOC_SMEM);
+    return e ? e
+             : (int)cudaFuncSetAttribute(
+                   localize_kernel<T, 4>,
+                   cudaFuncAttributeMaxDynamicSharedMemorySize, LOC_SMEM);
+  }();
+  if (set) return set;
+  const dim3 grid((unsigned)((nS + vt - 1) / vt), (unsigned)nrho,
+                  (unsigned)((genes + gc - 1) / gc));
+  const int threads = 32 * vt * gc;
+  kernel<<<grid, threads, smem, stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg,
+                                          Cgy, Cgg, ld_xx, br_lo, br_hi, x,
+                                          lml_all, n, nrho, R, p, nS, genes,
+                                          steps, round32, vt, gc, rch,
+                                          layout);
+  return (int)cudaGetLastError();
+}
+
+// The wide f32 localize's launch (5 <= p + 1 <= P1MAX): a block per (tile
+// of LW_WARPS / G problems, rho), its rows resident where they fit beside
+// the problems' workspaces, else in chunks
+template <int P1MAX, int G>
+int launch_localize_wide(const float* Sv, const float* WGt, const float* yt,
+                         const float* CWW, const float* CWy, const float* Cyy,
+                         const float* CWg, const float* Cgy, const float* Cgg,
+                         const float* ld_xx, const double* br_lo,
+                         const double* br_hi, double* x, double* lml_all,
+                         int n, int nrho, int R, int p, int nS, int genes,
+                         int steps, cudaStream_t stream) {
+  using C = LwCfg<P1MAX, G>;
+  auto kernel = localize_wide_kernel<P1MAX, G>;
+  const int w = conv_width(p);
+  const int ws = (int)sizeof(double) * C::NPB * epi_words(p + 1);
+  const int budget = min(LOC_SMEM, SMEM_BLOCK) - ws;
+  // resident rows an odd number of values apart (distinct banks for the
+  // copies of a row's values)
+  const int all = (R + 31) / 32 * 32 + 1;
+  int rch = all;
+  if ((int)sizeof(float) * w * all > budget)
+    rch = max(32, budget / ((int)sizeof(float) * 2 * w) / 32 * 32);
+  const int smem = lw_rows_bytes(p, R, rch) + ws;
+  int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  const int64_t P = (int64_t)genes * nS;
+  const dim3 grid((unsigned)((P + C::NPB - 1) / C::NPB), (unsigned)nrho);
+  kernel<<<grid, 32 * LW_WARPS, smem, stream>>>(
+      Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, br_lo, br_hi, x,
+      lml_all, n, nrho, R, p, nS, genes, steps, rch);
+  return (int)cudaGetLastError();
+}
+
+// k_best (rows,) int64: the first maximum of each row's lml over rho
+int launch_argmax(const double* lml_all, int64_t* k_best, int nrho,
+                  int64_t rows, cudaStream_t stream) {
+  auto argmax = loc_argmax_kernel;
+  argmax<<<(unsigned)((rows + 127) / 128), 128, 0, stream>>>(
+      lml_all, k_best, nrho, (int)rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -2561,54 +2781,11 @@ extern "C" int crm_reml_localize(const double* Sv, const double* WGt,
     }
     return 0;
   }
-  // the register route: a tile of gc genes and vt variants a block
-  auto kernel = p + 1 <= 2 ? localize_kernel<2> : localize_kernel<4>;
-  const int gc = min(genes, 4), vt = LOC_MAX_WARPS / gc;
-  // resident when every row fits (with the variants' products if they
-  // do), else chunks through two raw buffers
-  const int all = (R + 31) / 32 * 32, fields = loc_fields(p, gc);
-  auto fits = [&](int layout) {
-    return (int64_t)sizeof(double) * (fields + loc_resident(p, vt, layout)) *
-               all <=
-           LOC_SMEM;
-  };
-  int layout = fits(LOC_PRODUCTS) ? LOC_PRODUCTS
-               : fits(LOC_G)      ? LOC_G
-                                  : LOC_CHUNKED;
-#ifdef CRM_LOC_CHUNKED  // the emulated tests build the chunked path apart
-  layout = LOC_CHUNKED;
-#endif
-  const bool chunked = layout == LOC_CHUNKED;
-  const int per_row = fields + (chunked ? 2 * loc_raw(p, vt, gc)
-                                        : loc_resident(p, vt, layout));
-  const int rch =
-      chunked ? LOC_SMEM / (int)(sizeof(double) * per_row) / 32 * 32 : all;
-  const int smem = (int)sizeof(double) * per_row * rch;
-  static const int set = [] {
-    const int e = (int)cudaFuncSetAttribute(
-        localize_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        LOC_SMEM);
-    return e ? e
-             : (int)cudaFuncSetAttribute(
-                   localize_kernel<4>,
-                   cudaFuncAttributeMaxDynamicSharedMemorySize, LOC_SMEM);
-  }();
-  if (set) return set;
-  const dim3 grid((unsigned)((nS + vt - 1) / vt), (unsigned)nrho,
-                  (unsigned)((genes + gc - 1) / gc));
-  const int threads = 32 * vt * gc;
-  kernel<<<grid, threads, smem, stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg,
-                                          Cgy, Cgg, ld_xx, br_lo, br_hi, x,
-                                          lml_all, n, nrho, R, p, nS, genes,
-                                          steps, round32, vt, gc, rch,
-                                          layout);
-  int err = (int)cudaGetLastError();
+  const int err = launch_localize_register(
+      Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, br_lo, br_hi, x,
+      lml_all, n, nrho, R, p, nS, genes, steps, round32, stream);
   if (err) return err;
-  const int64_t rows = (int64_t)genes * nS;
-  auto argmax = loc_argmax_kernel;
-  argmax<<<(unsigned)((rows + 127) / 128), 128, 0, stream>>>(
-      lml_all, k_best, nrho, (int)rows);
-  return (int)cudaGetLastError();
+  return launch_argmax(lml_all, k_best, nrho, (int64_t)genes * nS, stream);
 }
 
 // Bytes of scratch a crm_reml_converge call with these sizes needs (the
@@ -2693,10 +2870,11 @@ extern "C" int crm_reml_converge(const double* Sv, const double* WGt,
                          work, n, nrho, R, p, nS, genes, steps, reml, stream);
 }
 
-// The float32 context (see c32_localize_kernel): the operands of
-// crm_reml_localize in f32 (REML), p + 1 <= 16; eps_ctx the context's eps
-// (FLT_EPSILON) for the stage-2 noise floor.  -> x (the f32 state, widened),
-// lml_all (genes, nS, nrho), k_best (genes, nS) int64.  No scratch.
+// The float32 context: the operands of crm_reml_localize in f32 (REML),
+// p + 1 <= 16, the stage-2 noise floor at 128 eps(f32) q (Floors<float>).  The register route (localize_kernel<float>) up
+// to p + 1 = 4, the wide f32 localize (localize_wide_kernel) from 5; then
+// the argmax.  -> x (the f32 state, widened), lml_all (genes, nS, nrho),
+// k_best (genes, nS) int64.  No scratch.
 extern "C" int crm_reml_localize_f32(const float* Sv, const float* WGt,
                                      const float* yt, const float* CWW,
                                      const float* CWy, const float* Cyy,
@@ -2706,23 +2884,20 @@ extern "C" int crm_reml_localize_f32(const float* Sv, const float* WGt,
                                      double* x, double* lml_all,
                                      int64_t* k_best, int n, int nrho, int R,
                                      int p, int nS, int genes, int steps,
-                                     double eps_ctx, cudaStream_t stream) {
-  auto kernel = p + 1 <= 2   ? c32_localize_kernel<2>
-                : p + 1 <= 4 ? c32_localize_kernel<4>
-                : p + 1 <= 8 ? c32_localize_kernel<8>
-                             : c32_localize_kernel<16>;
-  const int64_t P = (int64_t)genes * nS * nrho;
-  kernel<<<(unsigned)((P + C32_WARPS - 1) / C32_WARPS), 32 * C32_WARPS, 0,
-           stream>>>(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, br_lo,
-                     br_hi, x, lml_all, n, nrho, R, p, nS, genes, steps,
-                     eps_ctx);
-  int err = (int)cudaGetLastError();
+                                     cudaStream_t stream) {
+  if (p < 0 || p + 1 > 16) return (int)cudaErrorInvalidValue;
+  auto launch = p + 1 <= 8 ? launch_localize_wide<8, 2>
+                           : launch_localize_wide<16, 4>;
+  const int err =
+      p + 1 <= 4
+          ? launch_localize_register(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy,
+                                     Cgg, ld_xx, br_lo, br_hi, x, lml_all, n,
+                                     nrho, R, p, nS, genes, steps, 0, stream)
+          : launch(Sv, WGt, yt, CWW, CWy, Cyy, CWg, Cgy, Cgg, ld_xx, br_lo,
+                   br_hi, x, lml_all, n, nrho, R, p, nS, genes, steps,
+                   stream);
   if (err) return err;
-  const int64_t rows = (int64_t)genes * nS;
-  auto argmax = loc_argmax_kernel;
-  argmax<<<(unsigned)((rows + 127) / 128), 128, 0, stream>>>(
-      lml_all, k_best, nrho, (int)rows);
-  return (int)cudaGetLastError();
+  return launch_argmax(lml_all, k_best, nrho, (int64_t)genes * nS, stream);
 }
 
 // The float32 context: the operands of crm_reml_converge in f32 (k_best,

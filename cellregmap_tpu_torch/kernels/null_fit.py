@@ -32,8 +32,13 @@ null fits on f32 operands, the JAX engine's f32 ``null_association_kernel``
 and its gene axis) takes f32 operands and returns f32 fits: an
 instantiation of its own (``crm_null_fit_f32``), ML only, p + 1 <=
 ``MAX_FIXED_F32``, whose sums, factorization, grid and golden section run
-in f32 as ``fit_delta_eig`` does on f32 tensors; its plain version is the
-same ``fit_delta_eig`` on the f32 tensors.  It counts its launches in
+in f32 as ``fit_delta_eig`` does on f32 tensors, in the narrow design
+on f32 rows: the grid a launch of its own (a warp a grid point over rows
+staged in shared memory, blocks of grid points, at p = 1 a block a tile
+of up to 16 genes) into a scratch of the grid's values, then a block a
+(rho, gene) for the argmax, the golden section and the final fit, every
+evaluation on the whole block over its staged rows; its plain version is
+the same ``fit_delta_eig`` on the f32 tensors.  It counts its launches in
 ``launches_f32`` too.
 """
 from __future__ import annotations
@@ -105,7 +110,7 @@ def _bind(lib):
     lib.crm_null_fit_scratch.restype = ctypes.c_longlong
     lib.crm_null_fit_scratch.argtypes = [ci] * 5
     lib.crm_null_fit_f32.restype = ci
-    lib.crm_null_fit_f32.argtypes = [vp] * 13 + [cd, cd] + [ci] * 7 + [vp]
+    lib.crm_null_fit_f32.argtypes = [vp] * 14 + [cd, cd] + [ci] * 7 + [vp]
 
 
 def null_fit(data: EigData, n, restricted, lo, hi, n_grid, n_iters):
@@ -136,12 +141,10 @@ def null_fit(data: EigData, n, restricted, lo, hi, n_grid, n_iters):
         raise ValueError(f"null_fit: the float32 context runs ML with p + 1 "
                          f"<= {MAX_FIXED_F32}, got p + 1 = {p + 1}, "
                          f"restricted={restricted}")
-    for t, name, shape in ((S, "S", (nrho, R)), (data.Xt, "Xt", (nrho, R, p)),
-                           (data.yt, "yt", gs + (nrho, R)),
-                           (data.Cxx, "Cxx", (nrho, p, p)),
-                           (data.cxy, "cxy", gs + (nrho, p)),
-                           (data.cyy, "cyy", gs + (nrho,))):
-        _build.require(t, f"null_fit: {name}", dt, shape)
+    _build.require_all("null_fit", dt, (
+        (S, "S", (nrho, R)), (data.Xt, "Xt", (nrho, R, p)),
+        (data.yt, "yt", gs + (nrho, R)), (data.Cxx, "Cxx", (nrho, p, p)),
+        (data.cxy, "cxy", gs + (nrho, p)), (data.cyy, "cyy", gs + (nrho,))))
     out = call(_build.load("null_fit", _bind), data, n, restricted, lo, hi,
                n_grid, n_iters, _build.stream_ptr(S.device))
     launches += 1
@@ -159,17 +162,22 @@ def call(lib, data: EigData, n, restricted, lo, hi, n_grid, n_iters,
     genes = math.prod(gs)
     problems = genes * nrho
     dev, dt = data.S.device, data.S.dtype
-    # the scalar fields in one allocation (unbound into views), beta apart
-    lml, delta, scale, v0, v1, rss = torch.empty(
-        (6,) + gs + (nrho,), dtype=dt, device=dev).unbind(0)
+    f32 = dt == torch.float32
+    # the scalar fields in one allocation (unbound into views), with the
+    # grid's values behind them in the float32 context; beta apart
+    buf = torch.empty((6 + (n_grid if f32 else 0)) * problems, dtype=dt,
+                      device=dev)
+    lml, delta, scale, v0, v1, rss = buf[:6 * problems].view(
+        (6,) + gs + (nrho,)).unbind(0)
     out = FitResult(lml, delta, torch.empty(gs + (nrho, p), dtype=dt,
                                             device=dev),
                     scale, v0, v1, rss)
     if problems == 0:
         return out
-    if dt == torch.float32:  # the float32 context: no scratch
+    if f32:  # the float32 context: the grid's values are its scratch
+        vals = buf[6 * problems:]
         _build.check(lib.crm_null_fit_f32(
-            *(_build.ptr(t) for t in (*data, *out)), lo, hi, n_grid,
+            *(_build.ptr(t) for t in (*data, *out, vals)), lo, hi, n_grid,
             n_iters, n, nrho, R, p, genes, stream), "null_fit")
         return out
     # the logdets and grid values, the wide instantiation's golden-section

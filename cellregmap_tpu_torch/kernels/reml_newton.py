@@ -52,10 +52,16 @@ converge also takes the ML objective on an f32 context: the association
 refit's Newton half (K7, engine.py:991-1062, whose brackets are the grid's
 f64 logits and whose steps and final fit are f64 arithmetic on the f32
 tensors), its rss floored at tiny(f32) (:1056).  The f32 localize
-(``crm_reml_localize_f32``) takes a warp a problem, the rows read where
-they lie; the f32 converge (``crm_reml_converge_f32``) is the converge's
-design above on f32 rows (staged as f32, twice as many a block), with the
-same lists and scratch.
+(``crm_reml_localize_f32``) is, up to p + 1 = 4, the register localize
+above on f32 rows (the rows and their products staged as f32, twice as
+many a block; f32 steps, then the f64 evaluation on the same staged rows,
+widened) and, from p + 1 = 5, a block a (rho, tile of problems) staging
+their rows as the converge does, each problem's sums split over two or
+four warps (a compile-time range of the packed triangle of [W, g, y]
+each) that meet in the problem's shared-memory workspace, where one warp
+runs the algebra; no scratch.  The f32 converge (``crm_reml_converge_f32``)
+is the converge's design above on f32 rows (staged as f32, twice as many a
+block), with the same lists and scratch.
 """
 from __future__ import annotations
 
@@ -197,9 +203,8 @@ def _bind(lib):
     lib.crm_reml_converge_workspace.argtypes = [ci] * 3
     lib.crm_reml_converge.restype = ci
     lib.crm_reml_converge.argtypes = [vp] * 19 + [ci] * 8 + [vp]
-    cd = ctypes.c_double
     lib.crm_reml_localize_f32.restype = ci
-    lib.crm_reml_localize_f32.argtypes = [vp] * 15 + [ci] * 7 + [cd, vp]
+    lib.crm_reml_localize_f32.argtypes = [vp] * 15 + [ci] * 7 + [vp]
     lib.crm_reml_converge_f32.restype = ci
     lib.crm_reml_converge_f32.argtypes = [vp] * 19 + [ci] * 8 + [vp]
 
@@ -224,9 +229,8 @@ def reml_localize(S, WGt, yt, comp: Complements, ld_xx, br_lo, br_hi, n,
     nrho, R, p, nS, gs = check_operands("reml_localize", S, WGt, yt, comp,
                                         ld_xx, True)
     _check_f32("reml_localize", S, p)
-    for t, name in ((br_lo, "br_lo"), (br_hi, "br_hi")):
-        _build.require(t, f"reml_localize: {name}", torch.float64,
-                       gs + (nS, nrho))
+    _build.require_all("reml_localize", torch.float64, (
+        (br_lo, "br_lo", gs + (nS, nrho)), (br_hi, "br_hi", gs + (nS, nrho))))
     out = call_localize(_build.load("reml_newton", _bind), S, WGt, yt, comp,
                         ld_xx, br_lo, br_hi, n, steps, round32,
                         _build.stream_ptr(S.device))
@@ -244,8 +248,9 @@ def call_localize(lib, S, WGt, yt, comp, ld_xx, br_lo, br_hi, n, steps,
     p = comp.CWW.shape[0]
     nS = WGt.shape[2] - p
     gs = gene_shape(yt)
-    x = torch.empty(gs + (nS, nrho), dtype=torch.float64, device=S.device)
-    lml_all = torch.empty_like(x)
+    # x and lml_all in one allocation (unbound into views)
+    x, lml_all = torch.empty((2,) + gs + (nS, nrho), dtype=torch.float64,
+                             device=S.device).unbind(0)
     k_best = torch.empty(gs + (nS,), dtype=torch.int64, device=S.device)
     if k_best.numel() == 0:
         return x, lml_all, k_best
@@ -253,8 +258,8 @@ def call_localize(lib, S, WGt, yt, comp, ld_xx, br_lo, br_hi, n, steps,
         ptrs = [_build.ptr(t) for t in (S, WGt, yt, *comp, ld_xx, br_lo,
                                         br_hi, x, lml_all, k_best)]
         _build.check(lib.crm_reml_localize_f32(
-            *ptrs, n, nrho, R, p, nS, math.prod(gs), steps,
-            float(torch.finfo(torch.float32).eps), stream), "reml_localize")
+            *ptrs, n, nrho, R, p, nS, math.prod(gs), steps, stream),
+            "reml_localize")
         return x, lml_all, k_best
     nbytes = lib.crm_reml_localize_workspace(nrho, R, p, nS, int(round32))
     work = torch.empty(nbytes, dtype=torch.uint8, device=S.device)

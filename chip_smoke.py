@@ -3028,6 +3028,90 @@ def _f32_sums_check(got, want, mags, n_terms, what):
     return float(err.max()), ulp
 
 
+def check_localize_f32(call, name):
+    """The float32 localize (``crm_reml_localize_f32``) on one call's
+    operands against its plain version: the f64 lml at the localized
+    optimum within 1e-6 of max(|lml|, 1) with the same -inf entries, the
+    argmax a tie within 1e-6 (the f32 steps part from the plain version's
+    at f32 rounding); timed beside it, its bound the f32 rows read once
+    (4 bytes each) and the steps' and evaluation's flops at 67 TFLOP/s.
+    Returns (the row, the kernel's k_best)."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    args, kw = call
+    x, lml_all, kb = k3.reml_localize(*args, **kw)
+    xp, lml_p, kb_p = k3.reml_localize_plain(*args, **kw)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(lml_p)
+    assert torch.equal(torch.isfinite(lml_all), fin), f"{name}: inf"
+    scale = lml_p.abs().clamp(min=1.0)
+    lrel = float(((lml_all - lml_p).abs() / scale)[fin].max())
+    assert lrel <= 1e-6, f"{name}: lml rel {lrel}"
+    best = lml_p.amax(dim=-1)
+    at_k = lml_p.gather(-1, kb[..., None])[..., 0]
+    tie = float(((best - at_k) / best.abs().clamp(min=1.0)).max())
+    assert tie <= 1e-6, f"{name}: argmax gap {tie}"
+    err = max(float((x - xp).abs().max()),
+              float((lml_all - lml_p)[fin].abs().max()))
+    S_, WGt, _, comp = args[:4]
+    steps = args[8]
+    nrho, R = S_.shape
+    p = comp.CWW.shape[0]
+    nS = WGt.shape[2] - p
+    b_ms, b_by = bound(_fit_flops(p + 1, R, nS * nrho, steps),
+                       F32 * (WGt.numel() + 2 * S_.numel() + nS * (p + 4))
+                       + F64 * (4 * nS * nrho + nS))
+    return dict(
+        name=name, route="cuda",
+        source="cellregmap_tpu_torch/csrc/reml_newton.cu",
+        replaces="cellregmap_tpu/engine.py:538", library_ms=None,
+        max_abs_err=err, ms=cuda_ms(lambda: k3.reml_localize(*args, **kw)),
+        plain_ms=cuda_ms(lambda: k3.reml_localize_plain(*args, **kw)),
+        bound_ms=b_ms, bound_by=b_by, lml_rel=lrel,
+        k_best_identical=float((kb == kb_p).double().mean()),
+        shape=dict(nrho=nrho, R=R, p=p, S=nS, steps=steps),
+        tolerance="f64 lml at the localized optimum within 1e-6 of "
+                  "max(|lml|, 1); the argmax a tie within 1e-6"), kb
+
+
+def check_localize_f32_p7(d):
+    """The float32 localize at p = 7 (W = [1, 6 columns of N(0, 1), rng
+    24]: the wide f32 localize, its sums split over warps) on a
+    1024-variant screen batch of the headline dataset, through
+    ``check_localize_f32``.  The screens run p = 1, so this instantiation
+    is off their path and launches no time there: the row's launches are
+    0."""
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import engine
+
+    n = len(d["y"])
+    rng = np.random.default_rng(COVARIATES["seed"])
+    W = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, 6))], axis=1)
+    ctx = engine.build_null_context(d["y"], W, d["E"],
+                                    Ls=crp.get_L_values(d["hK"], d["E"]),
+                                    device=CARD)
+    ctx32 = engine.NullContext(*(t.to(torch.float32) for t in ctx))
+    G32 = torch.as_tensor(d["G"][:, :2 * BATCH], device=CARD,
+                          dtype=torch.float32).contiguous()
+    call, = capture_kernel_inputs(
+        lambda: engine.interaction_batch(ctx32, G32, G32, n,
+                                         delta_cfg=DELTA_CFG),
+        ["reml_localize"])["reml_localize"]
+    row, _ = check_localize_f32(call, "reml_newton (localize, p = 7, f32)")
+    row["launches"] = 0
+    row["off_main_path"] = ("the screens run p = 1: this instantiation "
+                            "launches no time on the main path")
+    print(f"kernel {row['name']}: max_abs_err {row['max_abs_err']:.3e} "
+          f"({row['tolerance']}); ms {row['ms']:.4f}  plain_ms "
+          f"{row['plain_ms']:.4f}  library_ms None  bound_ms "
+          f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+    return row
+
+
 def check_f32_kernels(ctx32, G32, n):
     """The float32 context's instantiations on the operands of one screen
     batch (``engine.interaction_batch`` on an f32 context, with the device
@@ -3049,7 +3133,6 @@ def check_f32_kernels(ctx32, G32, n):
     from cellregmap_tpu_torch import engine
     from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
     from cellregmap_tpu_torch.kernels import kr_contract as k1
-    from cellregmap_tpu_torch.kernels import reml_newton as k3
 
     calls = capture_kernel_inputs(
         lambda: engine.interaction_batch(ctx32, G32, G32, n,
@@ -3093,48 +3176,25 @@ def check_f32_kernels(ctx32, G32, n):
 
     # K3: the localize's f32 steps part from the plain version's at f32
     # rounding; the f64 evaluation there, and the converge, as stated
-    (args, kw), = calls["reml_localize"]
-    x, lml_all, kb = k3.reml_localize(*args, **kw)
-    xp, lml_p, kb_p = k3.reml_localize_plain(*args, **kw)
-    torch.cuda.synchronize()
-    fin = torch.isfinite(lml_p)
-    assert torch.equal(torch.isfinite(lml_all), fin), "localize (f32): inf"
-    scale = lml_p.abs().clamp(min=1.0)
-    lrel = float(((lml_all - lml_p).abs() / scale)[fin].max())
-    assert lrel <= 1e-6, f"reml_newton (localize, f32): lml rel {lrel}"
-    best = lml_p.amax(dim=-1)
-    at_k = lml_p.gather(-1, kb[..., None])[..., 0]
-    tie = float(((best - at_k) / best.abs().clamp(min=1.0)).max())
-    assert tie <= 1e-6, f"reml_newton (localize, f32): argmax gap {tie}"
-    loc_err = max(float((x - xp).abs().max()),
-                  float((lml_all - lml_p)[fin].abs().max()))
+    loc_call = calls["reml_localize"][0]
+    loc, kb = check_localize_f32(loc_call, "reml_newton (localize, f32)")
     c_err, c_ms, c_plain = _check_converge(calls["reml_converge"][0])
-    S_, WGt, yt, comp = args[:4]
-    steps, steps3 = args[8], calls["reml_converge"][0][0][10]
+    S_, WGt = loc_call[0][:2]
+    steps3 = calls["reml_converge"][0][0][10]
     nrho, R = S_.shape
-    p = comp.CWW.shape[0]
+    p = loc_call[0][3].CWW.shape[0]
     nS = WGt.shape[2] - p
     n_k = int(torch.unique(kb).numel())
-    loc_bound = bound(_fit_flops(p + 1, R, nS * nrho, steps),
-                      F32 * (WGt.numel() + 2 * S_.numel() + nS * (p + 4))
-                      + F64 * (4 * nS * nrho + nS))
     conv_bound = bound(_fit_flops(p + 1, R, nS, steps3),
                        F32 * (n_k * R * (p + 2) + nS * (p + 4))
                        + F64 * nS * (p + 8))
-    common = dict(route="cuda",
-                  source="cellregmap_tpu_torch/csrc/reml_newton.cu",
-                  replaces="cellregmap_tpu/engine.py:538", library_ms=None)
     rows += [
-        dict(common, name="reml_newton (localize, f32)", max_abs_err=loc_err,
-             ms=cuda_ms(lambda: k3.reml_localize(*args, **kw)),
-             plain_ms=cuda_ms(lambda: k3.reml_localize_plain(*args, **kw)),
-             bound_ms=loc_bound[0], bound_by=loc_bound[1], lml_rel=lrel,
-             k_best_identical=float((kb == kb_p).double().mean()),
-             tolerance="f64 lml at the localized optimum within 1e-6 of "
-                       "max(|lml|, 1); the argmax a tie within 1e-6"),
-        dict(common, name="reml_newton (converge, f32)", max_abs_err=c_err,
-             ms=c_ms, plain_ms=c_plain, bound_ms=conv_bound[0],
-             bound_by=conv_bound[1],
+        loc,
+        dict(name="reml_newton (converge, f32)", route="cuda",
+             source="cellregmap_tpu_torch/csrc/reml_newton.cu",
+             replaces="cellregmap_tpu/engine.py:538", library_ms=None,
+             max_abs_err=c_err, ms=c_ms, plain_ms=c_plain,
+             bound_ms=conv_bound[0], bound_by=conv_bound[1],
              tolerance="delta, lml, scale, beta rel <= 1e-9")]
 
     (args, _), = calls["best_rho_rotate"]
@@ -3480,13 +3540,17 @@ def main() -> int:
                           dtype=torch.float32).contiguous()
     rows32 = check_f32_kernels(ctx32, G32, len(d["y"]))
     del ctx32, G32
+    rows32.append(check_localize_f32_p7(d))
     torch.cuda.empty_cache()
     mark("headline scans, f32 kernels")
     _, c_screen = screen_phase(d, cfg, pv_dav, info_auto)
     screen_multigene_phase(d, cfg)
     mark("screens")
     # each f32 row's launches: its instantiation's on one screen_2k run
+    # (the p = 7 localize is off that path and keeps its 0)
     for r in rows32:
+        if "off_main_path" in r:
+            continue
         base = r["name"].split(" (")[0]
         per = {"kr_contract": len(K1_CALLS), "reml_newton": 2}.get(base, 1)
         assert c_screen[base] % per == 0 and c_screen[base] > 0, r["name"]

@@ -82,7 +82,7 @@ one JSON line per call and one of the whole;
 ``--out`` also writes that line to a file; ``--kernels`` picks some of
 k1, k1f32, k2, k2f32, k3, k10, k10mg, k6a, k9, k4, k3reg, k5, k3conv,
 k3conv32, k8, scan, assoc (``assoc_ab``: the fast association scans
-end to end, f64 and f32, host clock).  K8 (``csrc/fast_scan.cu``): the
+end to end, f64 and f32, host clock), k3loc32, k10f32, e2e32.  K8 (``csrc/fast_scan.cu``): the
 headline's Ls
 fast-scan batch (512 variants at the null's best rho and delta) and the
 ``assoc_multigene_16`` tile's batch (16 genes, each at its own), on the
@@ -93,7 +93,25 @@ each call's profile split by launch.  The float32 converge
 (``k3conv32``): stage 3 of one screen batch (1024 variants of the
 headline's context cast to f32), K7's three calls of one refit batch and
 K7 with the gene axis, each on the float32 scanner, and the same calls
-in f64 as the yardstick, within rel 1e-9 of the plain version.
+in f64 as the yardstick, within rel 1e-9 of the plain version.  The
+float32 localize (``k3loc32``): stages 1b and 2 of one screen batch (1024
+variants of the headline's context cast to f32) at p = 1, at p = 7 (W =
+[1, 6 columns of N(0, 1), rng 24]) and on ``screen_multigene_16``'s 16
+genes, held by ``chip_smoke.check_localize_f32``'s rule (the f64 lml at
+the localized optimum within 1e-6 of max(|lml|, 1), the same -inf
+entries, the argmax a tie within 1e-6).  K10-f32 (``k10f32``): the
+float32 Ls scanner's null fit and the ``assoc_multigene_16`` tile's,
+within ``chip_smoke.null_fits_agree``'s f32 budget.  ``e2e32``: the
+scans those two feed, end to end on both checkouts (host clock, every
+scan kept): ``screen_2k`` (``scan_interaction_screen`` of the headline's
+2048 variants at 5e-8, the discoveries equal on both sides),
+``screen_multigene_16`` (16 genes, Y = y + 0.1 N(0, 1), rng 13), the
+float32 ``scan_association`` on the Ls scanner (its null fit, K10, made
+again each scan, as a scanner's first scan makes it) and the float32
+``assoc_multigene_16`` (``scan_association_fast_multigene``), each
+side's scanner set up once, then ``--scan-reps`` rounds of one timed scan
+a side, the side that runs first alternating (10 rounds or more to tell
+a change from the spread), and each side's device milliseconds a scan.
 
     python3 scripts/profile_kernel_ab.py --other <checkout> [--out FILE]
         [--kernels k10,k10mg,k6a,scan] [--scan-reps 5]
@@ -129,7 +147,8 @@ KERNELS = {"k1": "kr_contract", "k2": "delta_grid", "k3": "reml_newton",
            "k9": "woodbury_family", "k4": "best_rho_rotate",
            "k3reg": "reml_newton", "k5": "score_core", "k3conv": "reml_newton",
            "k3conv32": "reml_newton", "k8": "fast_scan", "scan": None,
-           "assoc": None}
+           "assoc": None, "k3loc32": "reml_newton", "k10f32": "null_fit",
+           "e2e32": None}
 
 
 def load_other(root: Path, name="other_crp"):
@@ -349,6 +368,69 @@ def assoc_ab(d, Ls, other, reps):
             out[key]["stat_gap_over_null_lml"] = gap
             print(json.dumps({"assoc": key, **out[key]}), flush=True)
         del crms, runs
+    return out
+
+
+def e2e32_ab(d, Ls, other, reps):
+    """The scans of the module doc's ``e2e32`` entry, ``reps`` rounds of
+    one timed run a side, the side that runs first alternating from round
+    to round (other first in the even rounds); then each side's device
+    milliseconds a scan, summed over its kernels (``cs.device_split``)."""
+    G = d["G"]
+    rng = np.random.default_rng(cs.SCREEN_MULTIGENE["seed"])
+    Y13 = d["y"][:, None] + 0.1 * rng.normal(
+        size=(len(d["y"]), cs.SCREEN_MULTIGENE["genes"]))
+    Y11 = cs._multigene_genes(d)
+    def fresh(crm):
+        # the null fit (K10) is cached on the scanner: drop it, so that
+        # each scan fits it again, as a scanner's first scan does
+        crm._null_assoc = None
+        return crm
+
+    runs = {}
+    for side, pkg in (("this", crp), ("other", other)):
+        crm = pkg.CellRegMap(y=d["y"], E=d["E"], W=d["W"], Ls=Ls,
+                             device="cuda",
+                             config=pkg.ScanConfig(snp_batch=cs.BATCH))
+        crm32 = pkg.CellRegMap(y=Y11[:, 0], E=d["E"], W=d["W"], Ls=Ls,
+                               device="cuda",
+                               config=pkg.ScanConfig(snp_batch=cs.BATCH,
+                                                     dtype="float32"))
+        runs[side] = {
+            "screen_2k": (lambda c=crm: c.scan_interaction_screen(
+                G, significance=cs.SCREEN_SIGNIFICANCE)),
+            "screen_multigene_16": (
+                lambda c=crm: c.scan_interaction_multigene_screen(
+                    Y13, G, gene_batch=cs.SCREEN_MULTIGENE["genes"],
+                    significance=cs.SCREEN_SIGNIFICANCE)),
+            "scan_association f32": (
+                lambda c=crm32: fresh(c).scan_association(G)),
+            "assoc_multigene_16 f32": (
+                lambda c=crm32: c.scan_association_fast_multigene(
+                    Y11, G, gene_batch=16))}
+    out = {}
+    for kind in runs["this"]:
+        got = {side: runs[side][kind]() for side in ("this", "other")}
+        pv = {side: np.asarray(g[0]) for side, g in got.items()}
+        assert all(np.isfinite(v).all() for v in pv.values()), kind
+        if "screen" in kind:
+            assert np.array_equal(got["this"][1]["confirmed"],
+                                  got["other"][1]["confirmed"]), kind
+        times = {"this": [], "other": []}
+        for r in range(reps):
+            for side in ("other", "this") if r % 2 == 0 else ("this",
+                                                              "other"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[side][kind]()
+                torch.cuda.synchronize()
+                times[side].append(time.perf_counter() - t0)
+        out[kind] = {side: dict(median_s=float(np.median(t)), min_s=min(t),
+                                max_s=max(t), s=t,
+                                device_ms=sum(cs.device_split(
+                                    runs[side][kind], reps=1).values()))
+                     for side, t in times.items()}
+        print(json.dumps({"e2e32": kind, **out[kind]}), flush=True)
     return out
 
 
@@ -605,6 +687,51 @@ def f32_calls(d, n, Ls):
         ("K7 ML, S = 512", ml["delta_grid"][0])]
 
 
+def f32_localize_calls(d, n, Ls):
+    """(label, the float32 localize's (args, kw)) of the ``k3loc32`` calls
+    the module doc lists."""
+    f32 = torch.float32
+    rng = np.random.default_rng(cs.COVARIATES["seed"])
+    W = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, 6))], axis=1)
+    G32 = torch.as_tensor(d["G"][:, :2 * cs.BATCH], device="cuda",
+                          dtype=f32).contiguous()
+    out = []
+    for label, Wp, genes in (("screen batch, p = 1", d["W"], False),
+                             ("screen batch, p = 7", W, False),
+                             ("16 genes x 1024, p = 1", d["W"], True)):
+        ctx = engine.build_null_context(d["y"], Wp, d["E"], Ls=Ls,
+                                        device="cuda")
+        ctx = engine.NullContext(*(t.to(f32) for t in ctx))
+        if genes:
+            rng = np.random.default_rng(cs.SCREEN_MULTIGENE["seed"])
+            ctx = cs._gene_ctx(ctx, d["y"][:, None] + 0.1 * rng.normal(
+                size=(n, cs.SCREEN_MULTIGENE["genes"])))
+            run = (lambda c=ctx: engine.interaction_multigene_batch(
+                c, G32, G32, n, delta_cfg=cs.DELTA_CFG))
+        else:
+            run = (lambda c=ctx: engine.interaction_batch(
+                c, G32, G32, n, delta_cfg=cs.DELTA_CFG))
+        out.append((label, cs.capture_kernel_inputs(
+            run, ["reml_localize"])["reml_localize"][0]))
+    return out
+
+
+def f32_null_fit_calls(d, n, Ls):
+    """(label, K10-f32's (args, kw)): the float32 Ls scanner's null fit and
+    the ``assoc_multigene_16`` tile's."""
+    c32 = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                    device="cuda", dtype=torch.float32)
+    ctx_g = cs._gene_ctx(c32, cs._multigene_genes(d))
+    return [("Ls, p = 1, f32", cs.capture_kernel_inputs(
+                lambda: engine.null_association_fit(
+                    c32, n, delta_cfg=cs.ASSOC_DELTA_CFG),
+                ["null_fit"])["null_fit"][0]),
+            ("16 genes, f32", cs.capture_kernel_inputs(
+                lambda: engine.null_association_multigene_fit(
+                    ctx_g, n, delta_cfg=cs.ASSOC_DELTA_CFG),
+                ["null_fit"])["null_fit"][0])]
+
+
 def factors(got):
     """K4's factors per (gene, variant): this checkout's (At_slots, slot)
     gathered, an older checkout's At as it is."""
@@ -646,7 +773,7 @@ def main():
     picked = opt.kernels.split(",")
     assert set(picked) <= set(KERNELS), f"--kernels: some of {list(KERNELS)}"
     sources = tuple(sorted({KERNELS[k] for k in picked} - {None}))
-    if "scan" in picked or "assoc" in picked:
+    if "scan" in picked or "assoc" in picked or "e2e32" in picked:
         sources = _build.SOURCES
 
     other = load_other(opt.other.resolve())
@@ -837,6 +964,46 @@ def main():
         out["reml_converge_f32_sums_ms"] = sums
         print(json.dumps(sums), flush=True)
 
+    if "k3loc32" in picked:
+        for label, (args, kw) in f32_localize_calls(d, n, Ls):
+            want = k3.reml_localize_plain(*args, **kw)
+
+            def check(side, got, want=want, label=label):
+                x, lml, kb = got
+                fin = torch.isfinite(want[1])
+                assert torch.equal(torch.isfinite(lml), fin), \
+                    f"K3-f32 {label} ({side}): inf"
+                scale = want[1].abs().clamp(min=1.0)
+                rel = float(((lml - want[1]).abs() / scale)[fin].max())
+                assert rel <= 1e-6, f"K3-f32 {label} ({side}): lml {rel}"
+                best = want[1].amax(dim=-1)
+                at_k = want[1].gather(-1, kb[..., None])[..., 0]
+                tie = float(((best - at_k) / best.abs().clamp(min=1.0))
+                            .max())
+                assert tie <= 1e-6, f"K3-f32 {label} ({side}): tie {tie}"
+
+            out["calls"].append(compare(
+                f"reml_localize ({label})",
+                lambda a=args, k=kw: k3.reml_localize(*a, **k),
+                lambda a=args, k=kw: ok["k3loc32"].reml_localize(*a, **k),
+                check, reps=10))
+            del want
+
+    if "k10f32" in picked:
+        for label, (args, kw) in f32_null_fit_calls(d, n, Ls):
+            plain = k10.null_fit_plain(*args, **kw)
+
+            def check(side, got, plain=plain, a=args, label=label):
+                cs.null_fits_agree(got, plain, a[0], a[1], a[2],
+                                   f"K10-f32 {label} ({side})")
+
+            out["calls"].append(compare(
+                f"null_fit ({label})",
+                lambda a=args, k=kw: k10.null_fit(*a, **k),
+                lambda a=args, k=kw: ok["k10f32"].null_fit(*a, **k),
+                check, reps=10))
+            del plain
+
     if "k10" in picked or "k10mg" in picked:
         for label, (args, kw) in k10_calls(d, n, Ls, picked):
             data, n_c, restricted = args[:3]
@@ -899,6 +1066,8 @@ def main():
         out["scans"] = scan_ab(d, Ls, other, opt.scan_reps)
     if "assoc" in picked:
         out["assoc"] = assoc_ab(d, Ls, other, opt.scan_reps)
+    if "e2e32" in picked:
+        out["e2e32"] = e2e32_ab(d, Ls, other, opt.scan_reps)
 
     if "k9" in picked:
         rows = []

@@ -1673,14 +1673,106 @@ def test_f32_converge_on_card(cuda, case):
                                        err_msg=f"{case} {name}")
 
 
+
+def _f32_localize_call(cuda, case):
+    """The float32 localize's arguments at one path's shapes: ``screen`` a
+    1024-variant screen batch at the headline's R = 1000 (p = 1, 7 and 15:
+    the register localize and the wide f32 one), ``chunked`` 256 variants
+    at cells10k's R = 2500 (the register localize's rows in chunks),
+    ``genes`` 256 variants with 16 phenotypes (tiles of 4 genes) and
+    ``genes_p7`` 3 phenotypes at p = 7."""
+    from cellregmap_tpu_torch import engine
+
+    p, n, C, donors, S, genes = dict(
+        screen=(1, 2000, 10, 99, 1024, 1),
+        screen_p7=(7, 2000, 10, 99, 1024, 1),
+        screen_p15=(15, 2000, 10, 99, 1024, 1),
+        chunked=(1, 2600, 20, 124, 256, 1), genes=(1, 2000, 10, 99, 256, 16),
+        genes_p7=(7, 2000, 10, 99, 256, 3))[case]
+    ctx, G, n = fit_dataset(1600 + p + genes, p=p, nrho=11, n=n, C=C,
+                            donors=donors, S=S, device=cuda)
+    if genes > 1:
+        rng = np.random.default_rng(genes)
+        Y = ctx.y[None] + 0.3 * torch.as_tensor(
+            rng.normal(size=(genes, n)), device=cuda)
+        ctx = ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W,
+                           yy=(Y * Y).sum(dim=1))
+    ctx = engine.NullContext(*(t.to(torch.float32) for t in ctx))
+    G = G.to(torch.float32)
+    (args, kw), = captured(lambda: engine.interaction_batch(ctx, G, G, n),
+                           ["reml_localize"])["reml_localize"]
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["screen", "screen_p7", "screen_p15",
+                                  "chunked", "genes", "genes_p7"])
+def test_f32_localize_on_card(cuda, case):
+    """The float32 localize against its plain version: the f64 lml at the
+    localized optimum within 1e-6 of max(|lml|, 1), the same -inf entries,
+    the argmax a tie within 1e-6, x the f32 state; a second launch returns
+    the same bits (no atomics, fixed summation orders)."""
+    from cellregmap_tpu_torch.kernels import reml_newton as k3
+
+    args, kw = _f32_localize_call(cuda, case)
+    before = k3.launches_f32
+    x, lml, kb = got = k3.reml_localize(*args, **kw)
+    assert k3.launches_f32 == before + 1
+    _, lml_p, _ = k3.reml_localize_plain(*args, **kw)
+    assert torch.equal(x.to(torch.float32).double(), x)
+    fin = torch.isfinite(lml_p)
+    assert torch.equal(torch.isfinite(lml), fin)
+    scale = lml_p.abs().clamp(min=1.0)
+    assert float(((lml - lml_p).abs() / scale)[fin].max()) <= 1e-6
+    best, at_k = lml_p.amax(dim=-1), lml_p.gather(-1, kb[..., None])[..., 0]
+    assert float(((best - at_k) / best.abs().clamp(min=1.0)).max()) <= 1e-6
+    again = k3.reml_localize(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genes,p", [(0, 1), (16, 1), (17, 1), (0, 15)])
+def test_f32_null_fit_at_scale_on_card(cuda, genes, p):
+    """K10-f32 at the Ls scanner's shapes (2000 cells, R = 1000, 11 rho,
+    the association's 256-point grid and 60 golden-section steps): one
+    phenotype, a tile of 16 genes, 17 genes (tiles of 9 and 8) and p =
+    15, against its plain version (``_null_fits_f32_close``); a second
+    launch returns the same bits."""
+    from cellregmap_tpu_torch import engine
+    from cellregmap_tpu_torch.kernels import null_fit as k10
+
+    ctx, _, n = fit_dataset(1650 + genes + p, p=p, nrho=11, n=2000, C=10,
+                            donors=99, S=2, device=cuda)
+    if genes:
+        rng = np.random.default_rng(genes)
+        Y = ctx.y[None] + 0.1 * torch.as_tensor(
+            rng.normal(size=(genes, n)), device=cuda)
+        ctx = ctx._replace(y=Y, Zy=Y @ ctx.Z, Wy=Y @ ctx.W,
+                           yy=(Y * Y).sum(dim=1))
+    ctx = engine.NullContext(*(t.to(torch.float32) for t in ctx))
+    fit = (engine.null_association_multigene_fit if genes
+           else engine.null_association_fit)
+    (args, kw), = captured(lambda: fit(
+        ctx, n, delta_cfg=(-18.0, 18.0, 256, 60)), ["null_fit"])["null_fit"]
+    before = k10.launches_f32
+    fits = k10.null_fit(*args, **kw)
+    assert k10.launches_f32 == before + 1
+    _null_fits_f32_close(fits, k10.null_fit_plain(*args, **kw), args[0], n)
+    again = k10.null_fit(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(fits, again))
+    if genes:
+        one = k10.null_fit(k10.gene_data(args[0], genes - 1), *args[1:],
+                           **kw)
+        assert all(torch.equal(a[genes - 1], b) for a, b in zip(fits, one))
+
 # the wrappers whose calls the paths of ``_unmoved_outputs`` record (the
-# engine's names): every kernel but K8; the float32 context's converge and
-# what reads its results (K5, K6a, K6b) are left out of its paths
+# engine's names): every kernel but K8; the float32 context's converge,
+# localize and null fit and what reads their results (K4, K5, K6a, K6b)
+# are left out of its paths
 UNMOVED_F64 = ("kr_contract", "delta_grid", "reml_localize", "reml_converge",
                "best_rho_rotate", "score_core", "sym_eigvalsh",
                "mixture_tails", "null_fit", "family_eval")
-UNMOVED_F32 = ("kr_contract", "delta_grid", "reml_localize",
-               "best_rho_rotate", "null_fit", "family_eval")
+UNMOVED_F32 = ("kr_contract", "delta_grid", "family_eval")
 
 
 def _digest(out):
@@ -1701,7 +1793,8 @@ def _digest(out):
 
 
 def _unmoved_outputs(cuda):
-    """Every kernel but K8 and the float32 converge, through the engine's
+    """Every kernel but K8 and the float32 converge, localize and null fit
+    (and K4 on the float32 localize's k_best), through the engine's
     paths on seeded inputs: interaction batches with the device tails at p
     = 1 (under hybrid localization and without), 3, 8 and 20 (the
     register and product localize, the converge's instantiations); a
@@ -1710,7 +1803,7 @@ def _unmoved_outputs(cuda):
     and 20; the gene-batched refit over 16 genes x 300 variants (4800
     problems: the zero-step fits one warp a problem); an effect-size
     batch; and in the float32 context an interaction batch at p = 1 and
-    4, the refit's grid, the null fit and an effect-size batch.  Each
+    4 (K1 and K2), the refit's grid and an effect-size batch.  Each
     recorded wrapper call is made again from its arguments: "path name i"
     -> sha256 of its outputs (K4's gathered per gene and variant)."""
     from cellregmap_tpu_torch import engine
@@ -1759,13 +1852,10 @@ def _unmoved_outputs(cuda):
                       lambda c=c32, G=G32, n=n32: engine.interaction_batch(
                           c, G, G, n)))
         if p == 1:
-            paths += [
+            paths.append(
                 ("f32 refit p=1", UNMOVED_F32,
                  lambda c=c32, G=G32, n=n32: engine.association_refit_batch(
-                     c, G, 3, n, delta_cfg=cfg)),
-                ("f32 null fit p=1", UNMOVED_F32,
-                 lambda c=c32, n=n32: engine.null_association_fit(
-                     c, n, delta_cfg=cfg))]
+                     c, G, 3, n, delta_cfg=cfg)))
     b32 = engine.BetasContext(*(t.to(f32) for t in bctx))
     paths.append(("f32 betas", UNMOVED_F32,
                   lambda: engine.predict_interaction_batch(
@@ -1783,10 +1873,11 @@ def _unmoved_outputs(cuda):
 
 
 # sha256 of ``_unmoved_outputs`` recorded on the tree before the float32
-# converge and K8 were redesigned (an NVIDIA H100 80GB HBM3): those kernels
-# are deterministic (no atomics, fixed summation orders), so the same
-# sources, and crm_reml_converge's f64 instantiations of the converge's
-# shared template, give the same bits
+# converge and K8 were redesigned (an NVIDIA H100 80GB HBM3), less the
+# float32 localize's, K10's and K4's float32 entries since the float32
+# localize and K10 were: those kernels are deterministic (no atomics, fixed
+# summation orders), so the same sources, and the f64 instantiations of
+# the converge's and the localize's shared templates, give the same bits
 UNMOVED_DIGESTS = {
     "interaction p=1 kr_contract 0":
         "de1e48165c3594d27b21a0933dfec3edd0598b40c5c889c3d08d7f41c31814fc",
@@ -1954,14 +2045,8 @@ UNMOVED_DIGESTS = {
         "a80deda7a7c38bb12b02d98795d2c22cbd21514b534a1525a6c0b4be69b9012e",
     "f32 interaction p=1 delta_grid 0":
         "923dbdaba0d631e1d8cd877d598dc86d5f40bceba96bf2a7534571e5730faf77",
-    "f32 interaction p=1 reml_localize 0":
-        "fbdb547ed3a053c4d2efb81bf2b95212ef8418ae08cc3c91132ec6f09aa3f001",
-    "f32 interaction p=1 best_rho_rotate 0":
-        "c6c94eb9c058ae473506765390217f6645fbfc05bedbf9556fea25b439e00eae",
     "f32 refit p=1 delta_grid 0":
         "8b111367910db67068220d57544a1a184624aae50e6b6d826cf664029eec97e9",
-    "f32 null fit p=1 null_fit 0":
-        "c60a8833c098253df7a76aad797177fea8d9fc293dd9d0c0f8393aa8fc3affa5",
     "f32 interaction p=4 kr_contract 0":
         "ab517de0c49a6f810d3f4a06c4e29b134810fe05a1b80ca54f1bfbc91479190a",
     "f32 interaction p=4 kr_contract 1":
@@ -1970,10 +2055,6 @@ UNMOVED_DIGESTS = {
         "f24c368aefab9276b1f361a6933f6604ace384c548784bd38ed45377d07ffb4f",
     "f32 interaction p=4 delta_grid 0":
         "7cd792dd115379418212b0cce3673b6205c683ae60ca79d48e75b14e3a725980",
-    "f32 interaction p=4 reml_localize 0":
-        "371764a93d47910aa9f9801512f6996f7c1a40fc777f7e1f5c50c9270a250803",
-    "f32 interaction p=4 best_rho_rotate 0":
-        "99a1f030f7951f70dac54e9596cd80aa5cc92fc260453b9218ed3f8ec0e6c6ce",
     "f32 betas kr_contract 0":
         "300c12cf336460f20d0baa66a2fa270e45a3b4cf537b99e1418f15f3aa14d4c1",
     "f32 betas kr_contract 1":
@@ -1997,9 +2078,9 @@ UNMOVED_DIGESTS = {
 
 @pytest.mark.cuda
 def test_unmoved_kernels_bits_unchanged(cuda):
-    """Every entry point but K8's and the float32 converge (the f64
-    converge and both localizes among them) returns, bit for bit, what it
-    returned before those two were redesigned."""
+    """Every entry point but K8's and the float32 converge's, localize's
+    and null fit's (the f64 converge and localize among them) returns, bit
+    for bit, what it returned before those were redesigned."""
     got = _unmoved_outputs(cuda)
     assert got.keys() == UNMOVED_DIGESTS.keys()
     assert {k: v for k, v in got.items() if v != UNMOVED_DIGESTS[k]} == {}
