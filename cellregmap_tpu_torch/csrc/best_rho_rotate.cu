@@ -50,12 +50,23 @@
 //
 // The float32 context (the screen's, engine.py:672-688 on an f32
 // NullContext: V and T f32, the product and its sums f32) runs the same
-// slots, lists and transpose, then rotate_gemm_f32_kernel: plain FP32 FMA
-// (mma.sync has no f32 form, and TF32 is not the reference's f32), a block
-// per (64-column tile of one rho's columns, 64-row q tile) as above, 256
-// threads of 4 x 4 sums each over a two-stage cp.async ring of 16-row
-// chunks (4-byte copies).  Its bound is the same 2 R^2 C flop per distinct
-// pair, at the 67 TFLOP/s of the FP32 pipes.
+// slots, lists and transpose, then rotate_product_f32_kernel: plain FP32
+// FMA (mma.sync has no f32 form, and TF32 is not the reference's f32), on
+// the same work list with a 128 (q) x 128 (column) tile a block: 256
+// threads of 8 x 8 sums, each row step four float4 loads from shared
+// memory (two rows of V[k]'s tile, a broadcast, and two of the gathered
+// columns, a quarter warp 128 contiguous bytes: no bank conflict) for 64
+// FMAs, 4 a loaded float (a chunk's 32 row steps unrolled 8 at a time:
+// wholly unrolled they take more registers and run 13% slower).  A
+// three-stage cp.async ring of 32-row chunks with one barrier a chunk
+// (96 KB; two blocks an SM at <= 128 registers):
+// V[k]'s rows by 16-byte copies (4-byte where R % 4 != 0), and each
+// variant's run Tt[s, r0:r0+32, 0:C], contiguous, by 16-byte copies where
+// C % 4 == 0 (else 4-byte), to its columns of the tile.  Each sum runs
+// over r in order, one fmaf a row, so a launch's bits repeat.  The
+// 128-wide tiles halve the L2 traffic of 64-wide ones (each V[k] read
+// once a column tile, each column once a q tile).  Its bound is the same
+// 2 R^2 C flop per distinct pair, at the 67 TFLOP/s of the FP32 pipes.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -331,34 +342,54 @@ rotate_gemm_kernel(const double* __restrict__ V,
       }
 }
 
-// The float32 context's grouped product: the work item as in
-// rotate_gemm_kernel, a 64 (q) x 64 (column) tile, 256 threads of 4 x 4
-// FP32 sums over 16-row chunks of V[k] and of the gathered Tt columns.
-constexpr int F_THREADS = 256;
-constexpr int F_NC = 16;  // rows of r a staged chunk
+// The float32 context's grouped product (the header): a block a (128-column
+// tile of one rho's columns, 128-row q tile), 256 threads of 8 x 8 FP32
+// sums each, over a three-stage cp.async ring of 32-row chunks.
+constexpr int P32_THREADS = 256;
+constexpr int P32_BM = 128;      // q rows a block
+constexpr int P32_BN = 128;      // columns a block
+constexpr int P32_NC = 32;       // rows of r a staged chunk
+constexpr int P32_STAGE = P32_NC * (P32_BM + P32_BN);  // floats a stage
 
-__global__ void __launch_bounds__(F_THREADS)
-rotate_gemm_f32_kernel(const float* __restrict__ V,
-                       const float* __restrict__ Tt,
-                       const int* __restrict__ rank,
-                       const int* __restrict__ list,
-                       const int* __restrict__ count, float* __restrict__ At,
-                       int nrho, int R, int C, int S, int qtiles) {
-  __align__(16) __shared__ float as[2][F_NC][BM];
-  __align__(16) __shared__ float bs[2][F_NC][BN];
-  __shared__ int64_t src[BN], dst[BN];
+// column tiles the pairs could need at most: C P / 128 + nrho with P <=
+// min(genes, nrho) S distinct pairs
+inline int64_t max_tiles_f32(int nrho, int C, int S, int genes) {
+  const int64_t m = genes < nrho ? genes : nrho;
+  return (int64_t)C * m * S / P32_BN + nrho;
+}
+
+inline int rotate_f32_smem() {
+  return (int)(sizeof(float) * STAGES * P32_STAGE +
+               sizeof(int64_t) * 2 * P32_BN);
+}
+
+__global__ void __launch_bounds__(P32_THREADS, 2)
+rotate_product_f32_kernel(const float* __restrict__ V,
+                          const float* __restrict__ Tt,
+                          const int* __restrict__ rank,
+                          const int* __restrict__ list,
+                          const int* __restrict__ count,
+                          float* __restrict__ At, int nrho, int R, int C,
+                          int S, int qtiles, int vec_a, int vec_b) {
+  extern __shared__ __align__(16) unsigned char rot_dyn[];
+  float* sm = reinterpret_cast<float*>(rot_dyn);
+  // per column of the tile: its source offset in Tt (without the row)
+  // and its destination offset in At_slots (without q), -1 past N_k
+  int64_t* src = reinterpret_cast<int64_t*>(sm + STAGES * P32_STAGE);
+  int64_t* dst = src + P32_BN;
+
   const int64_t item = blockIdx.x / qtiles;
-  const int q0 = (int)(blockIdx.x % qtiles) * BM;
+  const int q0 = (int)(blockIdx.x % qtiles) * P32_BM;
   int k = -1;
   int64_t n0 = 0, ncols = 0;
   {
     int64_t start = 0;
     for (int kk = 0; kk < nrho; ++kk) {
       const int64_t nk = (int64_t)count[kk] * C;
-      const int64_t tiles = (nk + BN - 1) / BN;
+      const int64_t tiles = (nk + P32_BN - 1) / P32_BN;
       if (item < start + tiles) {
         k = kk;
-        n0 = (item - start) * BN;
+        n0 = (item - start) * P32_BN;
         ncols = nk;
         break;
       }
@@ -367,9 +398,9 @@ rotate_gemm_f32_kernel(const float* __restrict__ V,
   }
   if (k < 0) return;  // past the last tile: the whole block exits
 
-  const int64_t RCs = (int64_t)R * C;
   const int tid = threadIdx.x;
-  for (int col = tid; col < BN; col += F_THREADS) {
+  const int64_t RCs = (int64_t)R * C;
+  for (int col = tid; col < P32_BN; col += P32_THREADS) {
     const int64_t n = n0 + col;
     if (n < ncols) {
       const int j = (int)(n / C), c = (int)(n - (int64_t)j * C);
@@ -384,63 +415,119 @@ rotate_gemm_f32_kernel(const float* __restrict__ V,
   }
   __syncthreads();
 
+  // Each thread copies one column (or four) of each operand, the same at
+  // every chunk: a warp takes a row of V[k]'s tile (contiguous) and a row
+  // of the gathered columns, each variant's C contexts contiguous in Tt
+  // (over a chunk, the block reads each variant's run Tt[s, r0:r0+32,
+  // 0:C], contiguous).  Rows past R and columns past N_k are zeros.
   const float* Vk = V + (int64_t)k * R * R;
-  const int tq = tid / 16, tc = tid % 16;  // rows 4 tq.., columns 4 tc..
+  const int a_q = vec_a ? 4 * (tid % 32) : tid % P32_BM;
+  const int a_r = vec_a ? tid / 32 : tid / P32_BM;
+  const bool a_in = q0 + a_q < R;
+  const float* a_src = Vk + q0 + a_q;
+  const int b_col = vec_b ? 4 * (tid % 32) : tid % P32_BN;
+  const int b_r = vec_b ? tid / 32 : tid / P32_BN;
+  const int64_t b_off = src[b_col];
+  const float* b_src = Tt + b_off;
   auto load = [&](int b, int chunk) {
-    const int r0 = chunk * F_NC;
-    for (int e = tid; e < F_NC * BM; e += F_THREADS) {
-      const int rr = e / BM, qq = e - rr * BM;
-      float* d = &as[b][rr][qq];
-      if (r0 + rr < R && q0 + qq < R)
-        cp_async4(d, Vk + (int64_t)(r0 + rr) * R + q0 + qq);
-      else
-        *d = 0.0f;
+    const int r0 = chunk * P32_NC;
+    float* as = sm + b * P32_STAGE;
+    float* bs = as + P32_NC * P32_BM;
+    if (vec_a) {  // R % 4 == 0: four q a copy, 16-byte aligned
+#pragma unroll
+      for (int rr = a_r; rr < P32_NC; rr += P32_THREADS / 32) {
+        float* d = as + rr * P32_BM + a_q;
+        if (r0 + rr < R && a_in)
+          cp_async16(d, a_src + (int64_t)(r0 + rr) * R);
+        else
+          d[0] = d[1] = d[2] = d[3] = 0.0f;
+      }
+    } else {
+#pragma unroll 4
+      for (int rr = a_r; rr < P32_NC; rr += P32_THREADS / P32_BM) {
+        float* d = as + rr * P32_BM + a_q;
+        if (r0 + rr < R && a_in)
+          cp_async4(d, a_src + (int64_t)(r0 + rr) * R);
+        else
+          *d = 0.0f;
+      }
     }
-    for (int e = tid; e < F_NC * BN; e += F_THREADS) {
-      const int rr = e / BN, col = e - rr * BN;
-      float* d = &bs[b][rr][col];
-      if (r0 + rr < R && src[col] >= 0)
-        cp_async4(d, Tt + src[col] + (int64_t)(r0 + rr) * C);
-      else
-        *d = 0.0f;
+    if (vec_b) {  // C % 4 == 0: four contexts of one variant a copy
+#pragma unroll
+      for (int rr = b_r; rr < P32_NC; rr += P32_THREADS / 32) {
+        float* d = bs + rr * P32_BN + b_col;
+        if (r0 + rr < R && b_off >= 0)
+          cp_async16(d, b_src + (int64_t)(r0 + rr) * C);
+        else
+          d[0] = d[1] = d[2] = d[3] = 0.0f;
+      }
+    } else {
+#pragma unroll 4
+      for (int rr = b_r; rr < P32_NC; rr += P32_THREADS / P32_BN) {
+        float* d = bs + rr * P32_BN + b_col;
+        if (r0 + rr < R && b_off >= 0)
+          cp_async4(d, b_src + (int64_t)(r0 + rr) * C);
+        else
+          *d = 0.0f;
+      }
     }
   };
 
-  float acc[4][4];
+  // the thread's sums: q rows qa.. qa + 3 and qb.., columns ca.. and cb..
+  // (thread (ty, tx) of 16 x 16: a warp reads two rows' float4s of V[k]'s
+  // tile, a broadcast, and 16 of the columns', each quarter warp 128
+  // contiguous bytes: no bank conflict)
+  const int qa = 4 * (tid / 16), qb = qa + 64;
+  const int ca = 4 * (tid % 16), cb = ca + 64;
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  const int chunks = (R + F_NC - 1) / F_NC;
-  load(0, 0);
-  cp_async_commit();
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) load((c + 1) & 1, c + 1);
+  const int chunks = (R + P32_NC - 1) / P32_NC;
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < chunks) load(c, c);
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // chunk c landed for every thread
-    const int b = c & 1;
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    // chunk c landed for every thread, and every thread is done with
+    // chunk c - 1, whose stage the next load takes
+    __syncthreads();
+    const int next = c + STAGES - 1;
+    if (next < chunks) load(next % STAGES, next);
+    cp_async_commit();
+    const float* as = sm + (c % STAGES) * P32_STAGE;
+    const float* bs = as + P32_NC * P32_BM;
+#pragma unroll 8
+    for (int rr = 0; rr < P32_NC; ++rr) {
+      float a0[4], a1[4], b0[4], b1[4];
+      load4(as + rr * P32_BM + qa, a0);
+      load4(as + rr * P32_BM + qb, a1);
+      load4(bs + rr * P32_BN + ca, b0);
+      load4(bs + rr * P32_BN + cb, b1);
+      const float av[8] = {a0[0], a0[1], a0[2], a0[3],
+                           a1[0], a1[1], a1[2], a1[3]};
+      const float bv[8] = {b0[0], b0[1], b0[2], b0[3],
+                           b1[0], b1[1], b1[2], b1[3]};
 #pragma unroll
-    for (int rr = 0; rr < F_NC; ++rr) {
-      float a[4], v[4];
-      load4(&as[b][rr][tq * 4], a);
-      load4(&bs[b][rr][tc * 4], v);
+      for (int i = 0; i < 8; ++i)  // a row of sums at a time
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    __syncthreads();  // every thread is done with buffer b before its reload
   }
   cp_async_wait<0>();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + tq * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int q = q0 + (i < 4 ? qa : qb) + (i & 3);
+    if (q >= R) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tc * 4 + j;
-      if (q < R && dst[col] >= 0) At[dst[col] + (int64_t)q * C] = acc[i][j];
+    for (int j = 0; j < 8; ++j) {
+      const int col = (j < 4 ? ca : cb) + (j & 3);
+      if (dst[col] >= 0) At[dst[col] + (int64_t)q * C] = acc[i][j];
     }
   }
 }
@@ -538,10 +625,17 @@ extern "C" int crm_best_rho_rotate_f32(const float* V, const float* T,
   transpose<<<tgrid, 256, 0, stream>>>(T, Tt, RC, S);
   if ((err = (int)cudaGetLastError())) return err;
 
-  const int qtiles = (R + BM - 1) / BM;
-  const unsigned blocks = (unsigned)(max_tiles(nrho, C, S, genes) * qtiles);
-  auto gemm = rotate_gemm_f32_kernel;
-  gemm<<<blocks, F_THREADS, 0, stream>>>(V, Tt, rank, list, count, At, nrho,
-                                         R, C, S, qtiles);
+  const int qtiles = (R + P32_BM - 1) / P32_BM;
+  const unsigned blocks =
+      (unsigned)(max_tiles_f32(nrho, C, S, genes) * qtiles);
+  const int smem = rotate_f32_smem();
+  static const int set = (int)cudaFuncSetAttribute(
+      rotate_product_f32_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if ((err = set)) return err;
+  auto gemm = rotate_product_f32_kernel;
+  gemm<<<blocks, P32_THREADS, smem, stream>>>(V, Tt, rank, list, count, At,
+                                            nrho, R, C, S, qtiles,
+                                            R % 4 == 0, C % 4 == 0);
   return (int)cudaGetLastError();
 }

@@ -16,9 +16,11 @@ rho holds no value (the kernel leaves it unwritten).  K5 reads the
 factor through the slot (:mod:`.score_core`); :func:`gather` returns the
 per-gene layout.
 
-The float32 context (the screen's) takes f32 V and T: an instantiation of
-its own (``crm_best_rho_rotate_f32``: the same slots and lists, the product
-in FP32 FMA with f32 sums), whose factors are f32.
+The float32 context (the screen's) takes f32 V and T: an entry of its own
+(``crm_best_rho_rotate_f32``: the same slots and lists, the product in FP32
+FMA with f32 sums, a 128 x 128 tile of one rho's columns a block, 8 x 8
+sums a thread over a three-stage cp.async ring of 32-row chunks), whose
+factors are f32.
 """
 from __future__ import annotations
 

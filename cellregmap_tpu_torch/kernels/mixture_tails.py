@@ -4,9 +4,12 @@ saddlepoint, per (Q, lambda) pair in one fused pass.
 The JAX package's ``liu_sf`` / ``_ncx2_sf`` / ``saddlepoint_sf``
 (cellregmap_tpu/models/pvalues.py:31-145) as called by
 ``interaction_batch`` (engine.py:794-801).  On a CUDA tensor
-:func:`mixture_tails` launches ``csrc/mixture_tails.cu`` (one thread per
-pair); on a CPU tensor it runs :func:`mixture_tails_plain`, the torch ports
-in ``models.pvalues``.
+:func:`mixture_tails` launches ``csrc/mixture_tails.cu`` (a group of lanes
+a pair, the power of two >= C / 2 of them, two weights a lane, so that
+the sums over the weights are butterflies of shuffles; the bisection keeps
+the reference's midpoints; a noncentral Liu series on the whole warp); on
+a CPU tensor it runs :func:`mixture_tails_plain`, the torch ports in
+``models.pvalues``.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from . import _build
 from ..models.pvalues import liu_sf_torch, saddlepoint_sf_torch
 
 launches = 0
+MAX_C = 64  # weights a pair the kernel takes (api.CARD_MAX_CONTEXTS)
 
 
 def mixture_tails_plain(Q, lam, n_iters: int = 40):
@@ -41,6 +45,9 @@ def mixture_tails(Q: torch.Tensor, lam: torch.Tensor, n_iters: int = 40):
     if Q.device.type == "cpu":
         return mixture_tails_plain(Q, lam, n_iters)
     P, C = lam.shape
+    if C > MAX_C:
+        raise ValueError(f"mixture_tails: at most {MAX_C} weights a pair, "
+                         f"got {C}")
     _build.require(Q, "mixture_tails: Q", torch.float64, (P,))
     _build.require(lam, "mixture_tails: lam", torch.float64, (P, C))
     out = call(_build.load("mixture_tails", _bind), Q, lam, n_iters,

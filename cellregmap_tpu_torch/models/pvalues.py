@@ -100,11 +100,14 @@ def _ncx2_sf(x, df, ncp, n_terms: int = 64):
 def liu_sf_torch(q, lam):
     """mod-Liu Pr(Q > q) in torch, batched: q (...,), lam (..., C); the JAX
     package's ``liu_sf`` (cellregmap_tpu/models/pvalues.py:31-69) op for
-    op.  Returns the p-values (...,)."""
+    op: the powers as products, as its ``integer_pow`` takes them (torch's
+    ``lam ** 4`` is ``pow``, an ulp off (lam^2)^2, which can tip the
+    branch below where s1^2 and s2 tie).  Returns the p-values (...,)."""
+    l2 = lam * lam
     c1 = lam.sum(dim=-1)
-    c2 = (lam ** 2).sum(dim=-1)
-    c3 = (lam ** 3).sum(dim=-1)
-    c4 = (lam ** 4).sum(dim=-1)
+    c2 = l2.sum(dim=-1)
+    c3 = (l2 * lam).sum(dim=-1)
+    c4 = (l2 * l2).sum(dim=-1)
     s1 = c3 / torch.sqrt(c2) ** 3
     s2 = c4 / c2 ** 2
     has_ncp = s1 ** 2 > s2

@@ -24,12 +24,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``pvalue_method="auto"`` (the device tails, K6a and K6b), its refined
    pairs against the davies run;
 5. the float32 context's instantiations (K1 T, A^T A and A^T W, K2, K3's
-   localize and converge, K4, K5 on f32 operands, K6a in f32) on the
-   operands of one screen batch (1024 variants of the headline dataset,
-   cast to f32 on the card), each against its plain f32 version (n-term
-   sums within sqrt(n) eps(f32) of the terms' magnitudes; the tolerances of
-   ``check_f32_kernels``), timed beside it, its bound and its library
-   call;
+   localize and converge, K4, K5 on f32 operands, K6a in f32) and K6b on
+   the operands of one screen batch (1024 variants of the headline
+   dataset, cast to f32 on the card), each against its plain version
+   (n-term sums within sqrt(n) eps(f32) of the terms' magnitudes; the
+   tolerances of ``check_f32_kernels``), timed beside it, its bound and
+   its library call (K4-f32 also beside one f32 ``matmul`` of the same
+   flops);
 6. ``screen_2k``: ``scan_interaction_screen`` on the headline dataset, all
    2048 variants, significance 5e-8: every f64 Davies hit of phase 4
    confirmed with its value, the screen within 0.5 decades of the f64
@@ -37,7 +38,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside the f64 scan under davies and auto (the spread of 3 runs), the
    f32 instantiations' launch counts; then ``screen_multigene_16`` (16
    genes, 2048 variants, gene_batch 16): pairs/s, launch counts with the
-   gene axis, gene 0 against its single-gene screen;
+   gene axis, gene 0 against its single-gene screen, K4-f32 and K6b on
+   its first batch (16 genes x 84 variants);
 7. a second interaction size users run (10k cells, 20 contexts, 125
    donors, 512 variants), and K1 on the three contractions of its batch,
    captured from that run;
@@ -127,6 +129,9 @@ import numpy as np
 PEAK_F64_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+# the FP64 rate of the CUDA cores (the same data sheet): K6b's divisions,
+# transcendentals and scalar steps do not run on the tensor cores
+PEAK_F64_CUDA_FLOPS = 34e12
 F64 = 8
 DELTA_CFG = (-18.0, 18.0, 64, 60)          # the interaction's grid
 ASSOC_DELTA_CFG = (-18.0, 18.0, 256, 60)   # the association's grid
@@ -296,7 +301,11 @@ def check_kernels(ctx, G, n):
               f"{r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
               + (f"; distinct rho {r['distinct_rho']}"
-                 if "distinct_rho" in r else ""), flush=True)
+                 if "distinct_rho" in r else "")
+              + ("; " + json.dumps({k: r[k] for k in (
+                  "device", "pairs", "operations", "gammaincc_iterations",
+                  "near_mean", "rel_near", "rel_far")})
+                 if r["name"] == "mixture_tails" else ""), flush=True)
     return rows
 
 
@@ -468,39 +477,273 @@ def k6a_c64_matrices(S=BATCH, C=64, seed=64):
     return torch.as_tensor(B @ np.swapaxes(B, 1, 2) / 96.0, device=CARD)
 
 
-def check_mixture_tails(Q, lam, n_iters=40):
-    """K6b on one batch's (Q, lambda): both tails within 1e-9 relative
-    (floor 1e-300) of the plain version, NaN where it is NaN.  Its
-    operation bound counts, per pair, the saddlepoint's n_iters + 60
-    bisection steps (4 C flop each), the moment and K sums (~15 C) and the
-    64-term Liu series at 20 flop a term: a floor, since the gammaincc
-    iterations are not counted."""
+GAMMAINCC_MAX_IT = 2000       # csrc/mixture_tails.cu's MAX_IT
+
+
+def gammaincc_iterations(a, x):
+    """The iterations ``csrc/mixture_tails.cu``'s gammaincc runs for each
+    (a, x) (NumPy arrays of one shape), its loops rendered in NumPy: the
+    series of P(a, x) where x < a + 1, else Lentz's continued fraction,
+    each to its break; 0 for the early returns.  Returns (series
+    iterations, continued-fraction iterations), arrays like a."""
+    a = np.asarray(a, float)
+    x = np.broadcast_to(np.asarray(x, float), a.shape).copy()
+    special = (np.isnan(a) | np.isnan(x) | (a <= 0) | (x <= 0)
+               | np.isinf(x))
+    ser = ~special & (x < a + 1.0)
+    cf = ~special & ~ser
+    n_ser = np.zeros(a.shape, dtype=np.int64)
+    n_cf = np.zeros(a.shape, dtype=np.int64)
+    eps = np.finfo(float).eps
+    with np.errstate(all="ignore"):
+        ap, term = a[ser].copy(), 1.0 / a[ser]
+        total, xs = term.copy(), x[ser]
+        live = np.ones(ap.shape, bool)
+        cnt = np.zeros(ap.shape, dtype=np.int64)
+        for _ in range(GAMMAINCC_MAX_IT):
+            if not live.any():
+                break
+            ap = np.where(live, ap + 1.0, ap)
+            term = np.where(live, term * xs / ap, term)
+            total = np.where(live, total + term, total)
+            cnt += live
+            live &= ~(np.abs(term) < np.abs(total) * eps)
+        n_ser[ser] = cnt
+        tiny = 1e-300
+        ac, xc = a[cf], x[cf]
+        b = xc + 1.0 - ac
+        c = np.full(ac.shape, 1.0 / tiny)
+        d = 1.0 / b
+        live = np.ones(ac.shape, bool)
+        cnt = np.zeros(ac.shape, dtype=np.int64)
+        for i in range(1, GAMMAINCC_MAX_IT + 1):
+            if not live.any():
+                break
+            an = -i * (i - ac)
+            b = np.where(live, b + 2.0, b)
+            dn = an * d + b
+            dn = np.where(np.abs(dn) < tiny, tiny, dn)
+            cn = b + an / c
+            cn = np.where(np.abs(cn) < tiny, tiny, cn)
+            dn = 1.0 / dn
+            d, c = np.where(live, dn, d), np.where(live, cn, c)
+            cnt += live
+            live &= ~(np.abs(d * c - 1.0) < eps)
+        n_cf[cf] = cnt
+    return n_ser, n_cf
+
+
+def k6b_operations(Q, lam, n_bisect):
+    """The FP64 operations K6b's pairs need, counted from the loops these
+    inputs run (``csrc/mixture_tails.cu`` rendered in NumPy): a division,
+    a transcendental (log, exp, lgamma, log1p, erf, sqrt) and an add or a
+    multiply one operation each, an FMA two.  Per pair: the moments (7 a
+    weight) and the Liu match (~40); each gammaincc it runs (one for the
+    central tail, 64 where the match is noncentral) 10 for its prefactor
+    and Poisson weight, 4 a series iteration (an add, a division, a
+    multiply, an add) and 10 a continued-fraction iteration (two
+    divisions, an FMA, six adds or multiplies); n_bisect bisection steps
+    of 4 a weight (an FMA, a division, an add) and 2; K and K'' at the
+    saddlepoint 10 a weight, and ~30 for the Lugannani-Rice tail.
+    Returns (operations, gammaincc calls, their iterations)."""
+    lam = np.asarray(lam, float)
+    q = np.asarray(Q, float)
+    P, C = lam.shape
+    with np.errstate(all="ignore"):
+        l2 = lam * lam
+        c1, c2 = lam.sum(1), l2.sum(1)
+        c3, c4 = (l2 * lam).sum(1), (l2 * l2).sum(1)
+        r2 = np.sqrt(c2)
+        s1 = c3 / (r2 * r2 * r2)
+        s2 = c4 / (c2 * c2)
+        has_ncp = s1 * s1 > s2
+        a = 1.0 / (s1 - np.sqrt(np.maximum(s1 * s1 - s2, 0.0)))
+        ncp_1 = s1 * (a * a * a) - a * a
+        ncp = np.where(has_ncp, ncp_1, 0.0)
+        dof = np.where(has_ncp, a * a - 2.0 * ncp_1, 1.0 / s2)
+        sigma_x = np.sqrt(2.0 * (dof + 2.0 * ncp))
+        xh = np.maximum((q - c1) / np.sqrt(2.0 * c2) * sigma_x + dof + ncp,
+                        0.0) / 2.0
+    series = ncp > 0
+    k = np.arange(64.0)
+    a_all = np.concatenate([dof[~series] / 2.0,
+                            ((dof[series, None] + 2.0 * k) / 2.0).ravel()])
+    x_all = np.concatenate([xh[~series],
+                            np.repeat(xh[series], 64)])
+    n_ser, n_cf = gammaincc_iterations(a_all, x_all)
+    calls = a_all.size
+    ops = (P * (7 * C + 40 + n_bisect * (4 * C + 2) + 10 * C + 30)
+           + 10 * calls + 4 * int(n_ser.sum()) + 10 * int(n_cf.sum()))
+    return ops, calls, int(n_ser.sum() + n_cf.sum())
+
+
+# K6b's saddlepoint near the mean.  At Q a relative distance d from its
+# mean the Lugannani-Rice tail takes w from t Q - K(t), two nearly equal
+# terms, and adds log(v / w) / w, so float64 rounding alone moves it by
+# ~1e-16 / d^2 relative (tests/test_torch_emulated_k4f32_k6b.py, against
+# 50 digits), and two float64 evaluations whose sums run in other orders
+# part by that much.  A pair within SADDLE_NEAR_D of its mean is held, not
+# to the plain version, but to the same formula in extended precision
+# (saddlepoint_extended), within 1e-9 + min(SADDLE_NEAR_MEAN / d^2,
+# SADDLE_CAP) relative: that rounding with a tenfold margin, never more
+# than 1e-6.  Every other pair, and the Liu tail of every pair, is held to
+# the plain version within 1e-9.
+SADDLE_NEAR_MEAN = 1e-15
+SADDLE_NEAR_D = 1e-3     # where SADDLE_NEAR_MEAN / d^2 reaches 1e-9
+SADDLE_CAP = 1e-6
+
+
+def saddlepoint_extended(Q, lam, n_iters=40):
+    """The plain saddlepoint's formula (``models.pvalues.
+    saddlepoint_sf_torch``: its bracket, its ``n_iters + 60`` bisection
+    steps, K, K'' and the Lugannani-Rice z) in NumPy's long double, of Q
+    (P,) against lam (P, C) (float64 arrays); 1 - ndtr(z) in float64 from
+    z (well conditioned there).  Returns (tail, v) as float64; the tail is
+    NaN where the formula gives way to Liu's value (|v| < 1e-8 or lmax <=
+    0)."""
+    import math
+
+    ld = np.longdouble
+    assert np.finfo(ld).eps < 1e-18, "long double is no wider than float64"
+    L, q = np.asarray(lam, ld), np.asarray(Q, ld)
+    lmax, mean = L.max(-1), L.sum(-1)
+    with np.errstate(all="ignore"):
+        hi = 1.0 / (2.0 * lmax)
+        span = np.maximum(mean, 1.0) / np.maximum(q, np.finfo(float).tiny)
+        a = -np.abs(hi) * 1e3 - span * 1e3 - 1e3
+        b = hi * (1.0 - 1e-12)
+        for _ in range(n_iters + 60):
+            mid = 0.5 * (a + b)
+            below = (L / (1.0 - 2.0 * mid[:, None] * L)).sum(-1) < q
+            a, b = np.where(below, mid, a), np.where(below, b, mid)
+        t = 0.5 * (a + b)
+        K = -0.5 * np.log1p(-2.0 * t[:, None] * L).sum(-1)
+        w = np.sign(t) * np.sqrt(np.maximum(2.0 * (t * q - K), 0.0))
+        kpp = (2.0 * L ** 2 / (1.0 - 2.0 * t[:, None] * L) ** 2).sum(-1)
+        v = t * np.sqrt(kpp)
+        z = (w + np.log(v / w) / w).astype(float)
+    tail = np.array([0.5 * math.erfc(x / math.sqrt(2.0)) for x in z])
+    tail[(np.abs(v) < 1e-8) | (lmax <= 0)] = np.nan
+    return tail, v.astype(float)
+
+
+def tails_gaps(got, want, Q, lam, n_iters=40, rtol=1e-9):
+    """K6b's rule measured: ``got`` and ``want`` (the plain version) are
+    (pv_liu, pv_saddlepoint) of Q (P,) against lam (P, C), tensors or
+    arrays.  Each tail is held to ``want`` within ``rtol`` relative (floor
+    1e-300), but the saddlepoint of a pair within SADDLE_NEAR_D of its mean
+    whose formula is taken: that is held to ``saddlepoint_extended``
+    within rtol + min(SADDLE_NEAR_MEAN / d^2, SADDLE_CAP).  Returns a dict:
+    ``nan_equal`` (NaN exactly where ``want`` is NaN), ``excess`` (the
+    largest |err| - tolerance |reference|; <= 1e-300 passes), ``rel_liu``
+    and ``rel_far`` (the largest relative errors against ``want``: Liu,
+    the saddlepoint off the near pairs), ``near_mean`` (how many near
+    pairs), ``near_d_min``, ``rel_near`` (their largest relative error
+    against the extended evaluation), ``rel_near_plain`` (the plain
+    version's own there) and ``rel_near_vs_plain``."""
+    def arr(t):
+        return np.asarray(t.cpu() if hasattr(t, "cpu") else t, float)
+
+    g_liu, g_sp, w_liu, w_sp, q, L = map(arr, (*got, *want, Q, lam))
+    with np.errstate(all="ignore"):
+        mean = L.sum(-1)
+        d = np.abs(q - mean) / np.abs(mean)
+    cand = np.flatnonzero(d < SADDLE_NEAR_D)
+    ref, tol = w_sp.copy(), np.full(q.shape, rtol)
+    near = np.zeros(q.shape, bool)
+    if cand.size:
+        ext, _ = saddlepoint_extended(q[cand], L[cand], n_iters)
+        take = ~np.isnan(ext)
+        idx = cand[take]
+        near[idx], ref[idx] = True, ext[take]
+        tol[idx] = rtol + np.minimum(SADDLE_NEAR_MEAN / d[idx] ** 2,
+                                     SADDLE_CAP)
+
+    def rel(a, b, sel):
+        sel = sel & ~np.isnan(b)
+        if not sel.any():
+            return 0.0
+        return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-300))[sel]
+                     .max())
+
+    out = dict(nan_equal=bool(np.array_equal(np.isnan(g_liu),
+                                             np.isnan(w_liu))
+                              and np.array_equal(np.isnan(g_sp),
+                                                 np.isnan(w_sp))),
+               excess=-np.inf)
+    for g, r, tl in ((g_liu, w_liu, rtol), (g_sp, ref, tol)):
+        fin = ~np.isnan(r)
+        if fin.any():
+            gap = np.where(np.isnan(g), np.inf,
+                           np.abs(g - r) - tl * np.abs(r))
+            out["excess"] = max(out["excess"], float(gap[fin].max()))
+    every = np.ones(q.shape, bool)
+    out.update(rel_liu=rel(g_liu, w_liu, every),
+               rel_far=rel(g_sp, w_sp, ~near),
+               near_mean=int(near.sum()),
+               near_d_min=float(d[near].min()) if near.any() else None,
+               rel_near=rel(g_sp, ref, near),
+               rel_near_plain=rel(w_sp, ref, near),
+               rel_near_vs_plain=rel(g_sp, w_sp, near))
+    return out
+
+
+def check_tails(got, want, Q, lam, label, n_iters=40):
+    """Assert K6b's rule (``tails_gaps``) on ``got``; returns the gaps."""
+    gaps = tails_gaps(got, want, Q, lam, n_iters)
+    assert gaps["nan_equal"], f"{label}: NaN where the plain is not"
+    assert gaps["excess"] <= 1e-300, f"{label}: {gaps}"
+    return gaps
+
+
+def check_mixture_tails(Q, lam, n_iters=40, tag=None):
+    """K6b on one batch's (Q, lambda) by ``check_tails``'s rule (1e-9
+    relative of the plain version, floor 1e-300, NaN where it is NaN; the
+    saddlepoint of the pairs near their mean against its formula in
+    extended precision), and a second launch bit-equal to the first; the
+    row keeps the rule's gaps (``tails_gaps``).  Its operation bound
+    counts what these pairs run (``k6b_operations``: the gammaincc
+    iterations of each pair's Liu tail, rendered in NumPy, and the n_iters
+    + 60 bisection steps), at the FP64 CUDA-core rate.  One row,
+    ``mixture_tails[ (<tag>)]``."""
     import torch
 
     from cellregmap_tpu_torch.kernels import mixture_tails as k6b
 
     got = k6b.mixture_tails(Q, lam, n_iters)
     want = k6b.mixture_tails_plain(Q, lam, n_iters)
+    again = k6b.mixture_tails(Q, lam, n_iters)
     torch.cuda.synchronize()
-    err = 0.0
-    for g, w, name in zip(got, want, ("pv_liu", "pv_saddlepoint")):
-        nan = torch.isnan(w)
-        assert torch.equal(torch.isnan(g), nan), f"mixture_tails {name}: NaN"
-        gap = float(((g - w).abs() - 1e-9 * w.abs())[~nan].max())
-        assert gap <= 1e-300, f"mixture_tails {name}: excess {gap}"
-        err = max(err, float((g - w)[~nan].abs().max()))
+    name = tagged("mixture_tails", tag) if tag else "mixture_tails"
+    gaps = check_tails(got, want, Q, lam, name, n_iters)
+    for g, a, which in zip(got, again, ("pv_liu", "pv_saddlepoint")):
+        assert torch.equal(a.view(torch.int64), g.view(torch.int64)), \
+            f"{name} {which}: a second launch differs"
+    err = max(float((g - w)[~torch.isnan(w)].abs().max())
+              for g, w in zip(got, want))
     P, C = lam.shape
-    flops = P * ((n_iters + 60) * 4 * C + 15 * C + 64 * 20)
-    b_ms, b_by = bound(flops, F64 * (P * C + P + 2 * P))
+    ops, calls, its = k6b_operations(Q.cpu().numpy(), lam.cpu().numpy(),
+                                     n_iters + 60)
+    t_ops = ops / PEAK_F64_CUDA_FLOPS * 1e3
+    t_bytes = F64 * (P * C + P + 2 * P) / PEAK_HBM_BYTES * 1e3
     return dict(
-        name="mixture_tails", route="cuda",
+        name=name, route="cuda",
         source="cellregmap_tpu_torch/csrc/mixture_tails.cu",
         replaces="cellregmap_tpu/models/pvalues.py:31", max_abs_err=err,
         ms=cuda_ms(lambda: k6b.mixture_tails(Q, lam, n_iters)),
         plain_ms=cuda_ms(lambda: k6b.mixture_tails_plain(Q, lam, n_iters)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None, device=device_ms(
+            lambda: k6b.mixture_tails(Q, lam, n_iters)),
+        pairs=P, contexts=C, operations=ops, gammaincc_calls=calls,
+        gammaincc_iterations=its,
+        **{k: gaps[k] for k in ("near_mean", "near_d_min", "rel_near",
+                                "rel_near_plain", "rel_far", "rel_liu")},
         min_pv=[float(t[~torch.isnan(t)].min()) for t in got],
-        tolerance="|err| <= 1e-9 |plain| + 1e-300, NaN where plain is NaN")
+        tolerance="|err| <= 1e-9 |plain| + 1e-300, NaN where plain is NaN; "
+                  "the saddlepoint within 1e-3 of the mean against its "
+                  "formula in long double, 1e-9 + min(1e-15 / d^2, 1e-6)")
 
 
 def _rel(a, b):
@@ -552,6 +795,19 @@ def k4_library_ms(V, T, kb, chunk=64):
             torch.bmm(V[kb[sl]].transpose(1, 2), T[:, :, sl].permute(2, 0, 1))
 
     return cuda_ms(library)
+
+
+def k4_matmul_ms(V, T, n_pairs):
+    """cuBLAS's rate at K4's shapes: one ``matmul`` of V[0]^T (R x R)
+    against T as (R, C S), its columns repeated to C n_pairs (the distinct
+    pairs' work), in T's type (TF32 off for f32)."""
+    import torch
+
+    R, C, S = T.shape
+    X = T.reshape(R, C * S)
+    X = X.repeat(1, -(-n_pairs // S))[:, :C * n_pairs].contiguous()
+    Vt = V[0].T.contiguous()
+    return cuda_ms(lambda: torch.matmul(Vt, X))
 
 
 def check_best_rho_rotate(V, T, kb, what):
@@ -3126,8 +3382,9 @@ def check_f32_kernels(ctx32, G32, n):
     optimum within 1e-6 of max(|lml|, 1), the argmax a tie within 1e-6)
     and converge (rtol 1e-9), K4 (as K1; the chunked f32 ``bmm``), K5 on
     f32 operands (1e-10 of max|plain|: f64 arithmetic) and K6a in f32
-    (1e-5 of each matrix's largest |lambda|; ``eigvalsh`` in f32).  Rows
-    named ``<kernel> (..., f32)``."""
+    (1e-5 of each matrix's largest |lambda|; ``eigvalsh`` in f32), then
+    K6b on the batch's 1024 pairs (``check_mixture_tails``).  Rows named
+    ``<kernel> (..., f32)`` and K6b's ``mixture_tails (screen batch)``."""
     import torch
 
     from cellregmap_tpu_torch import engine
@@ -3139,7 +3396,7 @@ def check_f32_kernels(ctx32, G32, n):
                                          delta_cfg=DELTA_CFG,
                                          device_pvalues=True),
         ["kr_contract", "delta_grid", "reml_localize", "reml_converge",
-         "best_rho_rotate", "score_core", "sym_eigvalsh"])
+         "best_rho_rotate", "score_core", "sym_eigvalsh", "mixture_tails"])
     rows = []
     for (args, _), name in zip(calls["kr_contract"], K1_CALLS):
         U, V, Gm = args
@@ -3198,40 +3455,74 @@ def check_f32_kernels(ctx32, G32, n):
              tolerance="delta, lml, scale, beta rel <= 1e-9")]
 
     (args, _), = calls["best_rho_rotate"]
-    V, T, kbest = args
-    (At, slot), (At_p, slot_p) = (k4.best_rho_rotate(V, T, kbest),
-                                  k4.best_rho_rotate_plain(V, T, kbest))
-    assert torch.equal(slot, slot_p), "best_rho_rotate (f32): the slots"
-    mags = k4.gather(k4.best_rho_rotate_plain(V.double().abs(),
-                                              T.double().abs(), kbest)[0],
-                     slot_p)
-    err, ulp = _f32_sums_check(k4.gather(At, slot), k4.gather(At_p, slot_p),
-                               mags, V.shape[1], "best_rho_rotate (f32)")
-    del At, At_p, mags
-    b_ms, b_by, n_k, _ = k4_bound(V, T, kbest)
-    rows.append(dict(
-        name="best_rho_rotate (f32)", route="cuda",
-        source="cellregmap_tpu_torch/csrc/best_rho_rotate.cu",
-        replaces="cellregmap_tpu/engine.py:672", max_abs_err=err,
-        ms=cuda_ms(lambda: k4.best_rho_rotate(V, T, kbest)),
-        plain_ms=cuda_ms(lambda: k4.best_rho_rotate_plain(V, T, kbest)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=k4_library_ms(V, T, kbest), eps32_of_sums=ulp,
-        tolerance="slots equal; |err| <= sqrt(R) eps(f32) x sum |terms|",
-        distinct_rho=n_k))
+    rows.append(check_best_rho_rotate_f32(*args, "best_rho_rotate (f32)"))
     (args, _), = calls["score_core"]
     rows.append(check_score_core(args, tag="f32"))
     (A,), _ = calls["sym_eigvalsh"][0]
     assert A.dtype == torch.float32
     rows.append(check_sym_eigvalsh(A, tol=1e-5, tag="f32"))
+    (tails, _), = calls["mixture_tails"]
+    rows.append(check_mixture_tails(*tails, tag="screen batch"))
+    del calls, args, tails
+    torch.cuda.empty_cache()
     for r in rows:
         fp32 = r.get("bound_fp32_ms")
+        extra = {k: r[k] for k in ("matmul_ms", "device", "distinct_pairs",
+                                   "pairs", "contexts", "operations",
+                                   "gammaincc_calls", "gammaincc_iterations",
+                                   "near_mean", "near_d_min", "rel_near",
+                                   "rel_near_plain", "rel_far") if k in r}
         print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
               f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
               f"{r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
-              + (f"  bound_fp32_ms {fp32:.4f}" if fp32 else ""), flush=True)
+              + (f"  bound_fp32_ms {fp32:.4f}" if fp32 else "")
+              + (f"; {json.dumps(extra)}" if extra else ""), flush=True)
     return rows
+
+
+def check_best_rho_rotate_f32(V, T, kbest, name):
+    """K4-f32 on one call against its plain version: the slots equal, the
+    factors gathered through them within sqrt(R) eps(f32) of the terms'
+    magnitudes, a second launch bit-equal; timed beside its plain version,
+    the chunked f32 ``bmm`` (``library_ms``; a single phenotype's k_best
+    only, as the gene-axis rows of f64 K4) and one f32 ``matmul`` of the
+    same flops (``matmul_ms``: cuBLAS's FP32 rate at these shapes).
+    Its bound: ``k4_bound`` at the 67 TFLOP/s of the FP32 pipes."""
+    import torch
+
+    from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
+
+    (At, slot), (At_p, slot_p) = (k4.best_rho_rotate(V, T, kbest),
+                                  k4.best_rho_rotate_plain(V, T, kbest))
+    assert torch.equal(slot, slot_p), f"{name}: the slots"
+    got = k4.gather(At, slot)
+    del At
+    want = k4.gather(At_p, slot_p)
+    del At_p
+    mags = k4.gather(k4.best_rho_rotate_plain(V.double().abs(),
+                                              T.double().abs(), kbest)[0],
+                     slot_p)
+    err, ulp = _f32_sums_check(got, want, mags, V.shape[1], name)
+    del want, mags
+    assert torch.equal(k4.gather(*k4.best_rho_rotate(V, T, kbest)), got), \
+        f"{name}: a second launch differs"
+    del got
+    torch.cuda.empty_cache()
+    b_ms, b_by, n_k, n_pairs = k4_bound(V, T, kbest)
+    return dict(
+        name=name, route="cuda",
+        source="cellregmap_tpu_torch/csrc/best_rho_rotate.cu",
+        replaces="cellregmap_tpu/engine.py:672", max_abs_err=err,
+        ms=cuda_ms(lambda: k4.best_rho_rotate(V, T, kbest)),
+        plain_ms=cuda_ms(lambda: k4.best_rho_rotate_plain(V, T, kbest),
+                         reps=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=k4_library_ms(V, T, kbest) if kbest.ndim == 1 else None,
+        matmul_ms=k4_matmul_ms(V, T, n_pairs),
+        device=device_ms(lambda: k4.best_rho_rotate(V, T, kbest)),
+        eps32_of_sums=ulp, distinct_rho=n_k, distinct_pairs=n_pairs,
+        tolerance="slots equal; |err| <= sqrt(R) eps(f32) x sum |terms|")
 
 
 # the float32 context's kernel modules on the interaction path
@@ -3395,8 +3686,11 @@ def screen_multigene_phase(d, cfg):
     variant confirmed in every gene, and gene 0 against its single-gene
     screen on the card (screen p-values within rtol 0.05, the JAX suite's
     tolerance across two f32 programs; confirmed values within the Davies
-    ladder's accuracy, ``davies_tolerance``).  Returns (summary, f32 launch
-    counts)."""
+    ladder's accuracy, ``davies_tolerance``); then K4-f32 and K6b on the
+    first batch the screen gives them (16 genes x 84 variants: its memory
+    rule), held to their plain versions and timed, their launches this
+    run's.  Returns (summary, f32 launch counts, those two kernel
+    rows)."""
     import torch
 
     import cellregmap_tpu_torch as crp
@@ -3414,7 +3708,7 @@ def screen_multigene_phase(d, cfg):
     first_s, _ = _timed(run, 1)
     kernels.reset_launches()
     steady_s, (pv, info) = _timed(run, 1)
-    counts32 = kernels.launch_counts_f32()
+    counts, counts32 = kernels.launch_counts(), kernels.launch_counts_f32()
     assert pv.shape == (genes, G.shape[1])
     assert np.isfinite(info["screen_pv"]).all()
     assert np.all(info["confirmed"][:, GXE_SNP]), "the planted variant"
@@ -3430,6 +3724,19 @@ def screen_multigene_phase(d, cfg):
     assert np.all(np.abs(pv[0][both] - pv0[both])
                   <= davies_tolerance(pv0[both])), \
         f"screen_multigene_16: confirmed rel {conf_rel}"
+    # the path's own batch (the first of a gene tile): K4-f32 and K6b
+    # held and timed, their launches this run's
+    calls = capture_kernel_inputs(run, ["best_rho_rotate", "mixture_tails"])
+    (args, _) = calls["best_rho_rotate"][0]
+    (tails, _) = calls["mixture_tails"][0]
+    del calls
+    rows = [check_best_rho_rotate_f32(
+                *args, f"best_rho_rotate ({genes} genes, f32)"),
+            check_mixture_tails(*tails, tag=f"{genes} genes, screen")]
+    rows[0]["launches"] = counts32["best_rho_rotate"]
+    rows[1]["launches"] = counts["mixture_tails"]
+    rows[0]["batch"] = int(args[1].shape[2])
+    del args, tails
     torch.cuda.empty_cache()
     pairs = genes * G.shape[1]
     out = dict(label="screen_multigene_16", genes=genes,
@@ -3439,9 +3746,18 @@ def screen_multigene_phase(d, cfg):
                gene0_vs_single=dict(rho1_identical=float(same.mean()),
                                     screen_pv_rel_max=rel,
                                     confirmed_rel_max=conf_rel),
-               launches_f32=counts32)
+               launches=counts, launches_f32=counts32)
     print("scan screen_multigene_16: " + json.dumps(out), flush=True)
-    return out, counts32
+    for r in rows:
+        print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
+              f"({r['tolerance']}); ms {r['ms']:.4f}  plain_ms "
+              f"{r['plain_ms']:.4f}  library_ms {r['library_ms']}  "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}); "
+              + json.dumps({k: r[k] for k in (
+                  "matmul_ms", "device", "distinct_pairs", "batch", "pairs",
+                  "operations", "gammaincc_iterations", "near_mean",
+                  "rel_near", "rel_far") if k in r}), flush=True)
+    return out, counts32, rows
 
 
 def ptxas_report(log):
@@ -3543,19 +3859,22 @@ def main() -> int:
     rows32.append(check_localize_f32_p7(d))
     torch.cuda.empty_cache()
     mark("headline scans, f32 kernels")
-    _, c_screen = screen_phase(d, cfg, pv_dav, info_auto)
-    screen_multigene_phase(d, cfg)
+    scr, c_screen = screen_phase(d, cfg, pv_dav, info_auto)
+    _, _, rows_smg = screen_multigene_phase(d, cfg)
     mark("screens")
-    # each f32 row's launches: its instantiation's on one screen_2k run
-    # (the p = 7 localize is off that path and keeps its 0)
+    # each f32 row's launches: its instantiation's on one screen_2k run,
+    # K6b's (f64) from that run's counts (the p = 7 localize is off the
+    # path and keeps its 0; the multigene screen's rows come counted)
     for r in rows32:
         if "off_main_path" in r:
             continue
         base = r["name"].split(" (")[0]
+        c = scr["launches"] if base == "mixture_tails" else c_screen
         per = {"kr_contract": len(K1_CALLS), "reml_newton": 2}.get(base, 1)
-        assert c_screen[base] % per == 0 and c_screen[base] > 0, r["name"]
-        r["launches"] = c_screen[base] // per
-    rows += rows32
+        assert c[base] % per == 0 and c[base] > 0, r["name"]
+        r["launches"] = c[base] // per
+    assert all(r["launches"] > 0 for r in rows_smg), rows_smg
+    rows += rows32 + rows_smg
 
     # cells10k (R = 2500, C = 20: the localize stages its rows in chunks),
     # its first batch's K1, K3 and K4 operands captured from the run

@@ -82,7 +82,8 @@ one JSON line per call and one of the whole;
 ``--out`` also writes that line to a file; ``--kernels`` picks some of
 k1, k1f32, k2, k2f32, k3, k10, k10mg, k6a, k9, k4, k3reg, k5, k3conv,
 k3conv32, k8, scan, assoc (``assoc_ab``: the fast association scans
-end to end, f64 and f32, host clock), k3loc32, k10f32, e2e32.  K8 (``csrc/fast_scan.cu``): the
+end to end, f64 and f32, host clock), k3loc32, k10f32, e2e32, k4f32, k6b,
+e2e_tails.  K8 (``csrc/fast_scan.cu``): the
 headline's Ls
 fast-scan batch (512 variants at the null's best rho and delta) and the
 ``assoc_multigene_16`` tile's batch (16 genes, each at its own), on the
@@ -112,6 +113,19 @@ again each scan, as a scanner's first scan makes it) and the float32
 side's scanner set up once, then ``--scan-reps`` rounds of one timed scan
 a side, the side that runs first alternating (10 rounds or more to tell
 a change from the spread), and each side's device milliseconds a scan.
+K4's float32 product (``k4f32``) on one screen batch's rotation (the
+headline's context cast to f32, 1024 variants, one gene) and on
+``screen_multigene_16``'s 16-gene tile of it, the factors per (gene,
+variant) within sqrt(R) eps(f32) of the terms' magnitudes; K6b (``k6b``,
+``csrc/mixture_tails.cu``) on the (Q, lambda) pairs of the headline's f64
+auto batch (512), of that screen batch (1024) and of the 16-gene tile (16
+x 1024); both also on the first batch ``scan_interaction_multigene_screen``
+gives them (16 genes x 84 variants: its memory rule); K6b's tails by
+``chip_smoke.check_tails`` against this checkout's plain version, each
+side's gaps to that rule in the row (``gaps``).
+``e2e_tails``: the scans those two feed, as ``e2e32`` runs its own:
+``screen_2k``, ``screen_multigene_16`` and the headline scan under auto
+(``scan_interaction`` of 2048 variants).
 
     python3 scripts/profile_kernel_ab.py --other <checkout> [--out FILE]
         [--kernels k10,k10mg,k6a,scan] [--scan-reps 5]
@@ -134,6 +148,7 @@ from cellregmap_tpu_torch.kernels import _build  # noqa: E402
 from cellregmap_tpu_torch.kernels import best_rho_rotate as k4  # noqa: E402
 from cellregmap_tpu_torch.kernels import delta_grid as k2  # noqa: E402
 from cellregmap_tpu_torch.kernels import kr_contract as k1  # noqa: E402
+from cellregmap_tpu_torch.kernels import mixture_tails as k6b  # noqa: E402
 from cellregmap_tpu_torch.kernels import null_fit as k10  # noqa: E402
 from cellregmap_tpu_torch.kernels import reml_newton as k3  # noqa: E402
 from cellregmap_tpu_torch.kernels import score_core as k5  # noqa: E402
@@ -148,7 +163,13 @@ KERNELS = {"k1": "kr_contract", "k2": "delta_grid", "k3": "reml_newton",
            "k3reg": "reml_newton", "k5": "score_core", "k3conv": "reml_newton",
            "k3conv32": "reml_newton", "k8": "fast_scan", "scan": None,
            "assoc": None, "k3loc32": "reml_newton", "k10f32": "null_fit",
-           "e2e32": None}
+           "e2e32": None, "k4f32": "best_rho_rotate",
+           "k6b": "mixture_tails", "e2e_tails": None}
+# the end-to-end rows of each end-to-end selection
+E2E_ROWS = {"e2e32": ("screen_2k", "screen_multigene_16",
+                      "scan_association f32", "assoc_multigene_16 f32"),
+            "e2e_tails": ("screen_2k", "screen_multigene_16",
+                          "headline auto")}
 
 
 def load_other(root: Path, name="other_crp"):
@@ -371,11 +392,12 @@ def assoc_ab(d, Ls, other, reps):
     return out
 
 
-def e2e32_ab(d, Ls, other, reps):
-    """The scans of the module doc's ``e2e32`` entry, ``reps`` rounds of
-    one timed run a side, the side that runs first alternating from round
-    to round (other first in the even rounds); then each side's device
-    milliseconds a scan, summed over its kernels (``cs.device_split``)."""
+def e2e_ab(d, Ls, other, reps, rows):
+    """The scans ``rows`` (of the module doc's ``e2e32`` and ``e2e_tails``
+    entries), ``reps`` rounds of one timed run a side, the side that runs
+    first alternating from round to round (other first in the even
+    rounds); then each side's device milliseconds a scan, summed over its
+    kernels (``cs.device_split``)."""
     G = d["G"]
     rng = np.random.default_rng(cs.SCREEN_MULTIGENE["seed"])
     Y13 = d["y"][:, None] + 0.1 * rng.normal(
@@ -396,6 +418,9 @@ def e2e32_ab(d, Ls, other, reps):
                                device="cuda",
                                config=pkg.ScanConfig(snp_batch=cs.BATCH,
                                                      dtype="float32"))
+        crm_auto = pkg.CellRegMap(
+            y=d["y"], E=d["E"], W=d["W"], Ls=Ls, device="cuda",
+            config=pkg.ScanConfig(snp_batch=cs.BATCH, pvalue_method="auto"))
         runs[side] = {
             "screen_2k": (lambda c=crm: c.scan_interaction_screen(
                 G, significance=cs.SCREEN_SIGNIFICANCE)),
@@ -407,9 +432,10 @@ def e2e32_ab(d, Ls, other, reps):
                 lambda c=crm32: fresh(c).scan_association(G)),
             "assoc_multigene_16 f32": (
                 lambda c=crm32: c.scan_association_fast_multigene(
-                    Y11, G, gene_batch=16))}
+                    Y11, G, gene_batch=16)),
+            "headline auto": lambda c=crm_auto: c.scan_interaction(G)}
     out = {}
-    for kind in runs["this"]:
+    for kind in rows:
         got = {side: runs[side][kind]() for side in ("this", "other")}
         pv = {side: np.asarray(g[0]) for side, g in got.items()}
         assert all(np.isfinite(v).all() for v in pv.values()), kind
@@ -430,7 +456,7 @@ def e2e32_ab(d, Ls, other, reps):
                                 device_ms=sum(cs.device_split(
                                     runs[side][kind], reps=1).values()))
                      for side, t in times.items()}
-        print(json.dumps({"e2e32": kind, **out[kind]}), flush=True)
+        print(json.dumps({"e2e": kind, **out[kind]}), flush=True)
     return out
 
 
@@ -732,6 +758,73 @@ def f32_null_fit_calls(d, n, Ls):
                 ["null_fit"])["null_fit"][0])]
 
 
+def k4f32_k6b_calls(d, n, Ls):
+    """([(label, K4-f32's args)], [(label, K6b's args)]): K4-f32 on one
+    screen batch (the headline's context cast to f32 on the card, 1024
+    variants) and on ``screen_multigene_16``'s 16-gene tile of it (Y = y +
+    0.1 N(0, 1), rng 13); K6b on the headline's f64 auto batch (512
+    pairs), the screen batch's 1024 and the tile's 16 x 1024, each batch
+    run with its device tails."""
+    f32 = torch.float32
+    ctx = engine.build_null_context(d["y"], d["W"], d["E"], Ls=Ls,
+                                    device="cuda")
+    G = torch.as_tensor(d["G"][:, :cs.BATCH], device="cuda").contiguous()
+    head = cs.capture_kernel_inputs(
+        lambda: engine.interaction_batch(ctx, G, G, n,
+                                         delta_cfg=cs.DELTA_CFG,
+                                         device_pvalues=True),
+        ["mixture_tails"])
+    ctx32 = engine.NullContext(*(t.to(f32) for t in ctx))
+    G32 = torch.as_tensor(d["G"][:, :2 * cs.BATCH], device="cuda",
+                          dtype=f32).contiguous()
+    names = ["best_rho_rotate", "mixture_tails"]
+    one = cs.capture_kernel_inputs(
+        lambda: engine.interaction_batch(ctx32, G32, G32, n,
+                                         delta_cfg=cs.DELTA_CFG,
+                                         device_pvalues=True), names)
+    rng = np.random.default_rng(cs.SCREEN_MULTIGENE["seed"])
+    Y = d["y"][:, None] + 0.1 * rng.normal(
+        size=(n, cs.SCREEN_MULTIGENE["genes"]))
+    ctx_g = cs._gene_ctx(ctx32, Y)
+    genes = cs.capture_kernel_inputs(
+        lambda: engine.interaction_multigene_batch(
+            ctx_g, G32, G32, n, delta_cfg=cs.DELTA_CFG,
+            device_pvalues=True), names)
+    # the multigene screen's own first batch (its memory rule: 84
+    # variants a 16-gene tile)
+    crm = crp.CellRegMap(y=d["y"], E=d["E"], W=d["W"], Ls=Ls,
+                         config=crp.ScanConfig(snp_batch=cs.BATCH),
+                         device="cuda")
+    path = cs.capture_kernel_inputs(
+        lambda: crm.scan_interaction_multigene_screen(
+            Y, d["G"], gene_batch=cs.SCREEN_MULTIGENE["genes"],
+            significance=cs.SCREEN_SIGNIFICANCE), names)
+    path = {k: v[0][0] for k, v in path.items()}
+    S = path["best_rho_rotate"][1].shape[2]
+    return ([("screen batch, S = 1024", one["best_rho_rotate"][0][0]),
+             ("16 genes x 1024", genes["best_rho_rotate"][0][0]),
+             (f"screen_multigene_16's batch, 16 genes x {S}",
+              path["best_rho_rotate"])],
+            [("headline auto batch, P = 512", head["mixture_tails"][0][0]),
+             ("screen batch, P = 1024", one["mixture_tails"][0][0]),
+             ("16 genes x 1024, P = 16384",
+              genes["mixture_tails"][0][0]),
+             (f"screen_multigene_16's batch, "
+              f"P = {cs.SCREEN_MULTIGENE['genes'] * S}",
+              path["mixture_tails"])])
+
+
+def tails_check(want, Q, lam, label, gaps):
+    """K6b's rule (``chip_smoke.check_tails``) on this checkout's tails;
+    each side's gaps to the rule (``chip_smoke.tails_gaps``: the other
+    checkout's held to it too) into ``gaps``."""
+    def check(side, got):
+        gaps[side] = cs.tails_gaps(got, want, Q, lam)
+        if side == "this":
+            cs.check_tails(got, want, Q, lam, f"K6b {label}")
+    return check
+
+
 def factors(got):
     """K4's factors per (gene, variant): this checkout's (At_slots, slot)
     gathered, an older checkout's At as it is."""
@@ -773,7 +866,7 @@ def main():
     picked = opt.kernels.split(",")
     assert set(picked) <= set(KERNELS), f"--kernels: some of {list(KERNELS)}"
     sources = tuple(sorted({KERNELS[k] for k in picked} - {None}))
-    if "scan" in picked or "assoc" in picked or "e2e32" in picked:
+    if {"scan", "assoc", "e2e32", "e2e_tails"} & set(picked):
         sources = _build.SOURCES
 
     other = load_other(opt.other.resolve())
@@ -1004,6 +1097,38 @@ def main():
                 check, reps=10))
             del plain
 
+    if "k4f32" in picked or "k6b" in picked:
+        rot, tails = k4f32_k6b_calls(d, n, Ls)
+        for label, (V, T, kb) in rot if "k4f32" in picked else []:
+            ref = factors(k4.best_rho_rotate_plain(V, T, kb))
+            mags = factors(k4.best_rho_rotate_plain(V.double().abs(),
+                                                    T.double().abs(), kb))
+
+            def check(side, got, ref=ref, mags=mags, R=V.shape[1],
+                      label=label):
+                cs._f32_sums_check(factors(got), ref, mags, R,
+                                   f"K4-f32 {label} ({side})")
+
+            out["calls"].append(compare(
+                f"best_rho_rotate ({label}, f32)",
+                lambda a=(V, T, kb): k4.best_rho_rotate(*a),
+                lambda a=(V, T, kb): ok["k4f32"].best_rho_rotate(*a),
+                check, reps=20))
+            del ref, mags
+            torch.cuda.empty_cache()
+        for label, (Q, lam) in tails if "k6b" in picked else []:
+            gaps = {}
+            out["calls"].append(compare(
+                f"mixture_tails ({label})",
+                lambda a=(Q, lam): k6b.mixture_tails(*a),
+                lambda a=(Q, lam): ok["k6b"].mixture_tails(*a),
+                tails_check(k6b.mixture_tails_plain(Q, lam), Q, lam, label,
+                            gaps),
+                reps=20))
+            out["calls"][-1]["gaps"] = gaps
+            print(json.dumps({"gaps": label, **gaps}), flush=True)
+        del rot, tails
+
     if "k10" in picked or "k10mg" in picked:
         for label, (args, kw) in k10_calls(d, n, Ls, picked):
             data, n_c, restricted = args[:3]
@@ -1066,8 +1191,9 @@ def main():
         out["scans"] = scan_ab(d, Ls, other, opt.scan_reps)
     if "assoc" in picked:
         out["assoc"] = assoc_ab(d, Ls, other, opt.scan_reps)
-    if "e2e32" in picked:
-        out["e2e32"] = e2e32_ab(d, Ls, other, opt.scan_reps)
+    for key in E2E_ROWS:
+        if key in picked:
+            out[key] = e2e_ab(d, Ls, other, opt.scan_reps, E2E_ROWS[key])
 
     if "k9" in picked:
         rows = []

@@ -551,6 +551,91 @@ def test_mixture_tails_kernel_matches_plain(cuda, C):
     assert_tails_close(got[1], k6b.mixture_tails_plain(q, lam)[1])
 
 
+@pytest.mark.cuda
+def test_mixture_tails_refuses_past_64_weights(cuda):
+    """K6b holds two weights a lane of a warp: the wrapper raises before
+    any launch past 64."""
+    from cellregmap_tpu_torch.kernels import mixture_tails as k6b
+
+    before = k6b.launches
+    with pytest.raises(ValueError, match="at most 64 weights"):
+        k6b.mixture_tails(torch.ones(3, dtype=torch.float64, device=cuda),
+                          torch.ones((3, 65), dtype=torch.float64,
+                                     device=cuda))
+    assert k6b.launches == before
+
+
+def _bits(t):
+    """A float64 tensor's bits (NaN compares equal to itself)."""
+    return t.contiguous().view(torch.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [512, 1024, 16384])
+@pytest.mark.parametrize("C", [10, 50, 64])
+def test_mixture_tails_kernel_at_the_paths_batches(cuda, P, C):
+    """K6b (a warp a pair with its bisection speculated up to 2048 pairs at
+    C <= 16, else a group of lanes a pair; the whole warp on a noncentral
+    Liu series) at the headline auto batch's size (512 pairs), a screen
+    batch's (1024) and the 16-gene screen's (16 x 1024), C = 10, 50 and
+    64, on ``tail_battery``'s pairs, by ``chip_smoke.check_tails``: both
+    tails within 1e-9 relative of the plain version, but the saddlepoint
+    of the pairs within 1e-3 of their mean (among this many pairs some Q
+    lie within 1e-4 of it, where the float64 formula itself is only good
+    to ~1e-8), held to its formula in long double; and a second launch
+    bit-equal to the first (no atomics, sums in one fixed order)."""
+    import chip_smoke
+    from cellregmap_tpu_torch.kernels import mixture_tails as k6b
+
+    q, lam = (torch.as_tensor(a, device=cuda)
+              for a in tail_battery(P + C, n=P, C=C))
+    got = k6b.mixture_tails(q, lam)
+    want = k6b.mixture_tails_plain(q, lam)
+    chip_smoke.check_tails(got, want, q, lam, f"K6b P = {P}, C = {C}")
+    again = k6b.mixture_tails(q, lam)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("genes,nrho,R,C,S", [
+    (1, 11, 1000, 10, 1024),      # a screen batch (screen_2k)
+    (16, 11, 1000, 10, 1024),     # screen_multigene_16's batch: m = 11
+    (1, 3, 2500, 20, 512),        # cells10k's R and C
+    (3, 5, 1001, 12, 300)])       # R % 4 != 0; C % 4 == 0
+def test_best_rho_rotate_f32_kernel_at_the_paths_batches(cuda, genes, nrho,
+                                                         R, C, S):
+    """K4-f32 (128 x 128 tiles of 8 x 8 FP32 sums a thread) at the
+    screens' shapes and at R = 2500: the slots equal the plain version's,
+    the factors within sqrt(R) eps(f32) of the terms' magnitudes, and a
+    second launch bit-equal to the first (each sum over r in order)."""
+    from cellregmap_tpu_torch.kernels import best_rho_rotate as k4
+
+    rng = np.random.default_rng(R + genes)
+    V = torch.as_tensor(rng.standard_normal((nrho, R, R), dtype=np.float32)
+                        / np.float32(np.sqrt(R)), device=cuda)
+    T = torch.as_tensor(rng.standard_normal((R, C, S), dtype=np.float32),
+                        device=cuda)
+    kb = torch.as_tensor(rng.integers(0, nrho, size=(genes, S)),
+                         device=cuda)
+    if genes == 1:
+        kb = kb[0]
+    before = k4.launches_f32
+    At, slot = k4.best_rho_rotate(V, T, kb)
+    assert k4.launches_f32 == before + 1 and At.dtype == torch.float32
+    At_p, slot_p = k4.best_rho_rotate_plain(V, T, kb)
+    assert At.shape == At_p.shape and torch.equal(slot, slot_p)
+    got, want = k4.gather(At, slot), k4.gather(At_p, slot_p)
+    del At_p
+    mags = k4.gather(k4.best_rho_rotate_plain(V.double().abs(),
+                                              T.double().abs(), kb)[0],
+                     slot_p)
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= np.sqrt(R) * EPS32 * mags + 1e-30).all()), \
+        float((err / (mags + 1e-30)).max() / EPS32)
+    del mags, err, want
+    assert torch.equal(k4.gather(*k4.best_rho_rotate(V, T, kb)), got)
+
+
 def _multigene_ctx(cuda, genes, seed=5):
     """A gene-batched null context on the card: ``genes`` phenotypes
     sharing one factorization, and its genotypes."""
@@ -1766,12 +1851,12 @@ def test_f32_null_fit_at_scale_on_card(cuda, genes, p):
         assert all(torch.equal(a[genes - 1], b) for a, b in zip(fits, one))
 
 # the wrappers whose calls the paths of ``_unmoved_outputs`` record (the
-# engine's names): every kernel but K8; the float32 context's converge,
-# localize and null fit and what reads their results (K4, K5, K6a, K6b)
-# are left out of its paths
+# engine's names): every kernel but K8 and K6b; the float32 context's
+# converge, localize and null fit and what reads their results (K4, K5,
+# K6a, K6b) are left out of its paths
 UNMOVED_F64 = ("kr_contract", "delta_grid", "reml_localize", "reml_converge",
-               "best_rho_rotate", "score_core", "sym_eigvalsh",
-               "mixture_tails", "null_fit", "family_eval")
+               "best_rho_rotate", "score_core", "sym_eigvalsh", "null_fit",
+               "family_eval")
 UNMOVED_F32 = ("kr_contract", "delta_grid", "family_eval")
 
 
@@ -1793,8 +1878,8 @@ def _digest(out):
 
 
 def _unmoved_outputs(cuda):
-    """Every kernel but K8 and the float32 converge, localize and null fit
-    (and K4 on the float32 localize's k_best), through the engine's
+    """Every kernel but K8, K6b and the float32 converge, localize and
+    null fit (and K4 on the float32 localize's k_best), through the engine's
     paths on seeded inputs: interaction batches with the device tails at p
     = 1 (under hybrid localization and without), 3, 8 and 20 (the
     register and product localize, the converge's instantiations); a
@@ -1875,9 +1960,10 @@ def _unmoved_outputs(cuda):
 # sha256 of ``_unmoved_outputs`` recorded on the tree before the float32
 # converge and K8 were redesigned (an NVIDIA H100 80GB HBM3), less the
 # float32 localize's, K10's and K4's float32 entries since the float32
-# localize and K10 were: those kernels are deterministic (no atomics, fixed
-# summation orders), so the same sources, and the f64 instantiations of
-# the converge's and the localize's shared templates, give the same bits
+# localize and K10 were, and K6b's since it was: those kernels are
+# deterministic (no atomics, fixed summation orders), so the same sources,
+# and the f64 instantiations of the converge's and the localize's shared
+# templates, give the same bits
 UNMOVED_DIGESTS = {
     "interaction p=1 kr_contract 0":
         "de1e48165c3594d27b21a0933dfec3edd0598b40c5c889c3d08d7f41c31814fc",
@@ -1897,8 +1983,6 @@ UNMOVED_DIGESTS = {
         "576f622892987304cfa18dfc7ae214f245c7617afd4ba9212366f251bb703533",
     "interaction p=1 sym_eigvalsh 0":
         "3a64d07a071d298cc82865bb7513188f5ab04a84a07dfd2615bd67f7c49c3f63",
-    "interaction p=1 mixture_tails 0":
-        "2b7bd37ddc9b0909a6b752747d8f41abacc0ded321c5d8c79b736742c90ed791",
     "refit p=1 delta_grid 0":
         "777041b3dcb006cc8ef0c2ee831b562e419615c4087c1f9f029892a7de139ee5",
     "refit p=1 reml_converge 0":
@@ -1943,8 +2027,6 @@ UNMOVED_DIGESTS = {
         "fd7f88524f03b531d4d111d52850f18227a08b2598dff0172151499cc693bd7a",
     "interaction p=3 sym_eigvalsh 0":
         "64763a7465969c98190adb0eacac2c241c7a0e6670aa9cf2aa7347776100bb6b",
-    "interaction p=3 mixture_tails 0":
-        "3259f1ae59bf22459de406247eb244625c23e1dd2e1831f6cc82cf47b9b89d80",
     "interaction p=8 kr_contract 0":
         "e55e3f9ac590aa85c359d89c65303c6a8e2fc5f7a6c3eb6367bec54958154aa6",
     "interaction p=8 kr_contract 1":
@@ -1963,8 +2045,6 @@ UNMOVED_DIGESTS = {
         "25f3a35839cc4198166ef6189cf25b2706e5a13c4b900795233c5f13649f4538",
     "interaction p=8 sym_eigvalsh 0":
         "c0710d8f74acc4c9aaca329342270dca7439d5ce3e0bbc9d1ce730dda7e6dd24",
-    "interaction p=8 mixture_tails 0":
-        "3c182320d3da641e7c2ea604a982e7a6a3d242be5d8af52dd651b5dcdb427d84",
     "interaction p=20 kr_contract 0":
         "814dcfce362afc4570d44047b2c40567a3503e07d1ff7dd2286739ae6c9f94b5",
     "interaction p=20 kr_contract 1":
@@ -1983,8 +2063,6 @@ UNMOVED_DIGESTS = {
         "82383edbc17cd463c64f77a0196dd8d204de088c36e6e0992fb6a576458708c7",
     "interaction p=20 sym_eigvalsh 0":
         "c11b509070622a36d38b5519bf4a1e31901e598afd77f24513e4bd12950ac32b",
-    "interaction p=20 mixture_tails 0":
-        "8149b1ee4b476273cfafae1cf721835f1453df2e58b85b43567a3db3dfd77323",
     "refit p=20 delta_grid 0":
         "b019505846c0a976fed28e2a1382e77ae3b1febea9e64f66980192a48f36610b",
     "refit p=20 reml_converge 0":
@@ -2078,9 +2156,10 @@ UNMOVED_DIGESTS = {
 
 @pytest.mark.cuda
 def test_unmoved_kernels_bits_unchanged(cuda):
-    """Every entry point but K8's and the float32 converge's, localize's
-    and null fit's (the f64 converge and localize among them) returns, bit
-    for bit, what it returned before those were redesigned."""
+    """Every entry point but K8's, K6b's and the float32 converge's,
+    localize's and null fit's (the f64 converge and localize among them)
+    returns, bit for bit, what it returned before those were
+    redesigned."""
     got = _unmoved_outputs(cuda)
     assert got.keys() == UNMOVED_DIGESTS.keys()
     assert {k: v for k, v in got.items() if v != UNMOVED_DIGESTS[k]} == {}
