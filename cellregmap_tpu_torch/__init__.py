@@ -16,7 +16,11 @@ the interaction scans in the float32 context (f32 instantiations of K1-K4
 and K6a, K5 on f32 operands), and the screen -> confirm scans
 (``run_interaction_screen``) screen every variant there and re-test the
 hits in float64.  Every scan takes ``checkpoint=`` (the gene-batched
-screen aside, as in the JAX package).  Everything else is torch on the
+screen aside, as in the JAX package).  ``plink_scan`` streams variant
+blocks from PLINK filesets through the scans (with a CLI,
+``python -m cellregmap_tpu_torch.plink_scan``), and ``ops.lowrank`` holds
+the reference's low-rank covariance shims (``QSCov``, ``PMat``,
+``ScoreStatistic``, ``economic_qs``).  Everything else is torch on the
 same device.  The port imports neither jax nor the JAX package.
 """
 from ._config import DEFAULT_CONFIG, ScanConfig
@@ -27,9 +31,12 @@ from .api import (CellRegMap, estimate_betas, get_L_values, run_association,
                   run_interaction_multigene, run_interaction_screen)
 from .models.pvalues import (davies_pvalue, liu_sf, lrt_pvalues, qmin,
                              saddlepoint_sf, score_statistic_liu_params)
+from .plink_scan import scan_interaction_plink
 from .sim import (Simulation, Variances, create_variances, sample_phenotype,
                   sample_phenotype_gxe)
 from .utils.maf import compute_maf
+
+__version__ = "0.1.0"
 
 __all__ = ["CellRegMap", "DEFAULT_CONFIG", "ScanConfig", "Simulation",
            "Term", "Variances", "compute_maf", "create_variances",
@@ -38,5 +45,5 @@ __all__ = ["CellRegMap", "DEFAULT_CONFIG", "ScanConfig", "Simulation",
            "run_association_fast_multigene", "run_association_multigene",
            "run_interaction", "run_interaction_multigene",
            "run_interaction_screen", "sample_phenotype",
-           "sample_phenotype_gxe", "saddlepoint_sf",
-           "score_statistic_liu_params"]
+           "sample_phenotype_gxe", "saddlepoint_sf", "scan_interaction_plink",
+           "score_statistic_liu_params", "__version__"]

@@ -1,11 +1,13 @@
-"""Build-on-first-use + ctypes loader for the port's Davies library.
+"""Build-on-first-use + ctypes loaders for the port's native host
+libraries: the Davies tail (``native/qfc.cc``) and the PLINK .bed decoder
+(``native/bedreader.cc``).
 
-``cellregmap_tpu_torch/native/qfc.cc`` is compiled with g++ into the
-package's ``build/`` directory (ignored by git), keyed by a hash of the
-source.  The build writes a temporary file and renames it, so concurrent
-processes (test workers) never load a half-written library.  Without a
-toolchain the p-value ladder falls back to the Imhof quadrature and
-modified Liu, only slower.
+Each source is compiled with g++ into the package's ``build/`` directory
+(ignored by git), keyed by a hash of the source.  The build writes a
+temporary file and renames it, so concurrent processes (test workers)
+never load a half-written library.  Without a toolchain the p-value
+ladder falls back to the Imhof quadrature and modified Liu, and the .bed
+reader to its NumPy decoder, only slower.
 """
 from __future__ import annotations
 
@@ -25,11 +27,12 @@ _LIB = None
 _TRIED = False
 
 
-def build_qfc() -> Path | None:
-    """Compile native/qfc.cc into build/ (no-op when already built)."""
-    src = _PKG / "native" / "qfc.cc"
+def _build_native(source: str, lib_prefix: str) -> Path | None:
+    """Compile native/``source`` into build/ (no-op when already built);
+    None when g++ fails or is missing."""
+    src = _PKG / "native" / source
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libqfc_{digest}.so"
+    out = BUILD_DIR / f"{lib_prefix}_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -42,6 +45,17 @@ def build_qfc() -> Path | None:
         return None
     os.replace(tmp, out)
     return out
+
+
+def build_qfc() -> Path | None:
+    """Compile native/qfc.cc into build/ (no-op when already built)."""
+    return _build_native("qfc.cc", "libqfc")
+
+
+def build_bed() -> Path | None:
+    """Compile native/bedreader.cc into build/ (no-op when already
+    built)."""
+    return _build_native("bedreader.cc", "libbed")
 
 
 class QfcLib:

@@ -102,7 +102,18 @@ Phases, in order; any failure raises and the script exits non-zero:
     before) through ``run_interaction`` at 1000 cells, 10 contexts, 50
     donors and 512 variants: launch counts, the first 64 variants against
     the CPU, and K3 at 80 rho points against its plain version;
-18. one JSON line of the kernels (every row's times a wrapper call, as
+18. ``plink``: a seeded donor-level cohort written as a PLINK fileset
+    (2000 cells, C = 10, 100 donors, 8192 variants; missing calls, a
+    monomorphic variant, three planted GxC variants) through the PLINK
+    drivers on the card: ``scan_interaction_plink`` in blocks of 2048
+    (decode / expand-and-standardize / scan seconds; stopped after two
+    blocks and resumed equal to one run; its head against a direct scan
+    and the CPU port), the screen on one block, the fast association on
+    the cohort, the effect sizes on a block of 512, the gene-batched cis
+    scan (16 genes, one tile), the CLI in subprocesses, each driver's
+    kernels' launch counts, the native .bed decoder built; then the
+    low-rank shims on the headline's hK against the CPU port;
+19. one JSON line of the kernels (every row's times a wrapper call, as
     its launches count them; a row timed over a batch's several calls
     keeps the batch's times beside), then the result line.
 
@@ -3760,6 +3771,380 @@ def screen_multigene_phase(d, cfg):
     return out, counts32, rows
 
 
+# plink: a donor-level cohort written as a PLINK fileset at the headline's
+# width (2000 cells, C = 10, 100 donors, 11 rho, snp_batch 512), 8192
+# variants read in blocks of 2048; GxC planted on four variants (two in
+# block 0, one in blocks 1 and 2), a monomorphic variant and a few missing
+# calls
+PLINK = dict(n_cells=2000, n_contexts=10, n_donors=100, n_variants=8192,
+             block=2048, planted=(7, 1500, 2100, 5000), monomorphic=17,
+             seed=18)
+PLINK_GENES = dict(genes=16, window=512, stride=256)
+PLINK_CLI_GENES = 4
+
+
+def plink_cohort(prefix, n_cells, n_contexts, n_donors, n_variants, planted,
+                 monomorphic, seed, **_):
+    """Write the cohort's fileset at ``prefix``; returns the cell-level
+    data (y, E, hK, d2c, the donor genotypes Gd)."""
+    from cellregmap_tpu_torch.utils import plink
+
+    rng = np.random.default_rng(seed)
+    maf = rng.uniform(0.05, 0.45, size=n_variants)
+    Gd = rng.binomial(2, maf, size=(n_donors, n_variants)).astype(float)
+    Gd[:, monomorphic] = 0.0
+    Gd[0, :16] = np.nan
+    Gd[rng.integers(0, n_donors, 48), rng.integers(0, n_variants, 48)] = \
+        np.nan
+    d2c = np.repeat(np.arange(n_donors), -(-n_cells // n_donors))[:n_cells]
+    E = rng.normal(size=(n_cells, n_contexts)) / np.sqrt(n_contexts)
+    hK = np.zeros((n_cells, n_donors))
+    hK[np.arange(n_cells), d2c] = 1.0
+    Gp = Gd[:, list(planted)]
+    Gp = np.where(np.isnan(Gp), np.nanmean(Gp, 0), Gp)[d2c]
+    Gp = (Gp - Gp.mean(0)) / Gp.std(0)
+    y = (rng.normal(size=n_cells) + 0.5 * E @ rng.normal(size=n_contexts)
+         + 0.4 * hK @ rng.normal(size=n_donors)
+         + 0.3 * np.sqrt(n_contexts) * (Gp * E[:, :1]).sum(1))
+    plink.write_bed(prefix, Gd)
+    return dict(y=y, E=E, hK=hK, d2c=d2c, Gd=Gd)
+
+
+def _grew(before, names, what):
+    """Assert that every kernel in ``names`` launched since ``before``."""
+    from cellregmap_tpu_torch import kernels
+
+    now = kernels.launch_counts()
+    grew = {k: now[k] - before[k] for k in names}
+    assert all(v > 0 for v in grew.values()), f"{what}: {grew}"
+    return grew
+
+
+def shims_check(d, device=CARD, tol=1e-10):
+    """The low-rank shims (``ops.lowrank``) on the card against the CPU
+    port, on the headline's hK (2000 x 100): ``economic_qs_linear``'s
+    reconstruction, ``QSCov.solve`` and ``logdet``, ``ScoreStatistic``'s
+    statistic and weights, each within ``tol`` of the CPU's largest
+    entry; on the card, also host arrays given no device, which go
+    there."""
+    import torch
+
+    from cellregmap_tpu_torch.ops import lowrank as lr
+
+    rng = np.random.default_rng(100)
+    rhs = rng.normal(size=(d["hK"].shape[0], 3))
+    out = {}
+    for dev in (device, "cpu"):
+        hK = torch.as_tensor(d["hK"], device=dev)
+        Q0, S0 = lr.economic_qs_linear(hK)
+        cov = lr.QSCov(Q0, S0, 0.5, 0.7)
+        ss = lr.ScoreStatistic(lr.PMat(cov, d["W"]), cov, d["E"])
+        out[dev] = dict(
+            K=(Q0 * S0) @ Q0.T, solve=cov.solve(rhs), logdet=cov.logdet(),
+            Q=ss.statistic(d["y"]),
+            weights=torch.sort(ss.distr_weights()).values)
+        assert all(t.device.type == torch.device(dev).type
+                   for t in out[dev].values()), dev
+    if torch.device(device).type == "cuda":
+        # host arrays, given no device, go to the card
+        Q0, S0 = lr.economic_qs_linear(d["hK"])
+        cov = lr.QSCov(Q0.cpu().numpy(), S0.cpu().numpy(), 0.5, 0.7)
+        out["host"] = dict(K=(Q0 * S0) @ Q0.T, solve=cov.solve(rhs))
+        assert all(t.device.type == "cuda" for t in out["host"].values())
+    errs = {}
+    for src in [device] + ["host"] * ("host" in out):
+        for k, got in out[src].items():
+            got, want = got.cpu(), out["cpu"][k]
+            assert got.shape == want.shape, (k, got.shape, want.shape)
+            key = k if src == device else f"host_{k}"
+            errs[key] = float((got - want).abs().max())
+            assert errs[key] <= tol * max(1.0, float(want.abs().max())), (
+                key, errs)
+    return errs
+
+
+def plink_phase(d, cfg, device=CARD, spec=PLINK, genes=PLINK_GENES):
+    """The PLINK drivers and their CLI on the card, over a fileset that
+    the phase writes (``PLINK``): ``scan_interaction_plink`` (its time
+    split: decode, expand-and-standardize, scan), checkpointed, stopped
+    after two blocks and resumed equal to one uninterrupted run (rtol
+    1e-12); its first block's first 64 variants against a direct
+    ``scan_interaction`` of the same columns (1e-12) and the CPU port
+    (1e-8, identical rho1); ``scan_interaction_screen_plink`` on one
+    block (every f64 Davies hit confirmed with its value);
+    ``scan_association_plink(fast=True)`` on the cohort;
+    ``estimate_betas_plink`` on one block of 512;
+    ``scan_interaction_multigene_plink`` (16 genes, 512-variant windows
+    at a stride of 256, one tile); the CLI in a subprocess, once in
+    interaction mode and once with Y + windows; each driver's kernels'
+    launch counts grown; the native decoder built and loaded.  Then the
+    low-rank shims (:func:`shims_check`)."""
+    import os
+    import tempfile
+
+    import torch
+
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import kernels
+    from cellregmap_tpu_torch import plink_scan as ps
+    from cellregmap_tpu_torch.parallel.checkpoint import ScanCheckpoint
+    from cellregmap_tpu_torch.utils import plink
+    from cellregmap_tpu_torch.utils.native import build_bed
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    assert build_bed() is not None, "bedreader.cc did not build"
+    assert plink._get_bed_lib() is not None, "the .bed decoder did not load"
+    block, m = spec["block"], spec["n_variants"]
+    k15 = ("kr_contract", "delta_grid", "reml_newton", "best_rho_rotate",
+           "score_core")
+    out = dict(spec={k: v for k, v in spec.items() if k != "planted"})
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "cohort")
+        t0 = time.perf_counter()
+        c = plink_cohort(prefix, **spec)
+        out["write_s"] = time.perf_counter() - t0
+        d2c = c["d2c"]
+        Ls = crp.get_L_values(c["hK"], c["E"])
+        t0 = time.perf_counter()
+        crm = crp.CellRegMap(y=c["y"], E=c["E"], Ls=Ls, config=cfg,
+                             device=device)
+        crm._ctx
+        sync()
+        out["setup_s"] = time.perf_counter() - t0
+
+        # the time split, block by block through the driver's own steps
+        reader = plink.PlinkReader(prefix)
+        split = dict(decode=0.0, expand_standardize=0.0, scan=0.0)
+        cols = []
+        for v0 in range(0, m, block):
+            t0 = time.perf_counter()
+            Gd = reader.read(v0, min(v0 + block, m))
+            t1 = time.perf_counter()
+            Gc, _, _ = ps._prepare_block(Gd, d2c, 0.0, True)
+            t2 = time.perf_counter()
+            crm.scan_interaction(Gc)
+            sync()
+            t3 = time.perf_counter()
+            split["decode"] += t1 - t0
+            split["expand_standardize"] += t2 - t1
+            split["scan"] += t3 - t2
+            cols.append(Gc)
+        out["interaction_split_s"] = split
+
+        # the driver, uninterrupted, then a direct scan of its columns
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        pv, info, vidx = ps.scan_interaction_plink(crm, prefix,
+                                                   donor_to_cell=d2c,
+                                                   block_size=block)
+        sync()
+        out["interaction_driver_s"] = time.perf_counter() - t0
+        out["interaction_launches"] = _grew(before, k15, "plink scan")
+        Gall = np.concatenate(cols, axis=1)
+        assert spec["monomorphic"] not in vidx
+        assert pv.shape == vidx.shape == (Gall.shape[1],)
+        assert np.all((pv > 0) & (pv <= 1)), "plink: p-value outside (0, 1]"
+        t0 = time.perf_counter()
+        pv_d, info_d = crm.scan_interaction(Gall)
+        sync()
+        out["interaction_direct_s"] = time.perf_counter() - t0
+        head = cols[0][:, :64]
+        pv_h, info_h = crm.scan_interaction(head)
+        np.testing.assert_allclose(pv[:64], pv_h, rtol=0, atol=1e-12)
+        out["direct_max_abs_gap"] = float(np.abs(pv - pv_d).max())
+        planted = pv[np.searchsorted(vidx, spec["planted"])]
+        assert np.all(planted < 1e-6), f"plink: planted pv {planted}"
+        cpu = crp.CellRegMap(y=c["y"], E=c["E"], Ls=Ls, config=cfg,
+                             device="cpu")
+        pv_c, info_c = cpu.scan_interaction(head)
+        out["cpu_max_abs_gap"] = float(np.abs(pv[:64] - pv_c).max())
+        assert out["cpu_max_abs_gap"] <= 1e-8, out["cpu_max_abs_gap"]
+        assert np.array_equal(info["rho1"][:64], info_c["rho1"])
+        del cpu, cols
+
+        # checkpointed, stopped after two blocks, resumed
+        ck = os.path.join(tmp, "ck")
+        real, calls = crm.scan_interaction, []
+
+        def stopping(G, **kw):
+            if len(calls) == 2:
+                raise _Stop("scan_interaction")
+            calls.append(G.shape[1])
+            return real(G, **kw)
+
+        crm.scan_interaction = stopping
+        try:
+            ps.scan_interaction_plink(crm, prefix, donor_to_cell=d2c,
+                                      block_size=block, checkpoint=ck)
+            raise AssertionError("plink: the stop did not stop the scan")
+        except _Stop:
+            pass
+        finally:
+            del crm.scan_interaction
+        cursor = ScanCheckpoint(ck).load()["cursor"]
+        assert cursor == 2, cursor
+        t0 = time.perf_counter()
+        pv_r, info_r, vidx_r = ps.scan_interaction_plink(
+            crm, prefix, donor_to_cell=d2c, block_size=block, checkpoint=ck)
+        out["resume_s"] = time.perf_counter() - t0
+        assert np.array_equal(vidx_r, vidx)
+        np.testing.assert_allclose(pv_r, pv, rtol=1e-12)
+        for k in ("rho1", "e2", "g2", "eps2", "Q", "maf"):
+            np.testing.assert_allclose(info_r[k], info[k], rtol=1e-12,
+                                       err_msg=k)
+        assert ScanCheckpoint(ck).load() is None, "plink: checkpoint kept"
+
+        # the screen on one block: a fileset of the cohort's first block
+        first = os.path.join(tmp, "first_block")
+        plink.write_bed(first, c["Gd"][:, :block])
+        before32 = kernels.launch_counts_f32()
+        t0 = time.perf_counter()
+        spv, sinfo, svidx = ps.scan_interaction_screen_plink(
+            crm, first, donor_to_cell=d2c, block_size=block,
+            significance=SCREEN_SIGNIFICANCE)
+        out["screen_s"] = time.perf_counter() - t0
+        now32 = kernels.launch_counts_f32()
+        assert all(now32[k] > before32[k] for k in k15), now32
+        in1 = vidx < block
+        assert np.array_equal(svidx, vidx[in1])
+        below = pv[in1] < SCREEN_SIGNIFICANCE
+        assert below.any(), "plink screen: no f64 hit; the check is vacuous"
+        assert np.all(sinfo["confirmed"][below]), "plink screen: a miss"
+        assert np.all(np.abs(spv[below] - pv[in1][below])
+                      <= davies_tolerance(pv[in1][below]))
+        assert np.array_equal(spv < SCREEN_SIGNIFICANCE, below)
+        out["screen_hits"] = int(below.sum())
+
+        # the fast association on the cohort (a fresh null fit)
+        crm_a = crm.with_phenotype(c["y"])
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        apv, ainfo, avidx = ps.scan_association_plink(
+            crm_a, prefix, donor_to_cell=d2c, block_size=block, fast=True)
+        sync()
+        out["association_fast_s"] = time.perf_counter() - t0
+        out["association_fast_launches"] = _grew(
+            before, ("null_fit", "fast_scan"), "plink association")
+        assert np.array_equal(avidx, vidx)
+        assert np.all((apv > 0) & (apv <= 1))
+        np.testing.assert_allclose(
+            apv[:64], crm_a.scan_association_fast(head)[0], rtol=0,
+            atol=1e-12)
+        t0 = time.perf_counter()
+        crm_a.scan_association_fast(Gall)
+        sync()
+        out["association_fast_direct_s"] = time.perf_counter() - t0
+        del Gall
+
+        # the effect sizes on one block of 512 (raw genotypes)
+        b512 = os.path.join(tmp, "block512")
+        plink.write_bed(b512, c["Gd"][:, :512])
+        crm_b = crp.CellRegMap(y=c["y"], E=c["E"], Ls=Ls, config=cfg,
+                               device=device)
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        bg, bgxe, bmaf, bvidx = ps.estimate_betas_plink(
+            crm_b, b512, donor_to_cell=d2c, block_size=512)
+        sync()
+        out["betas_s"] = time.perf_counter() - t0
+        out["betas_launches"] = _grew(before, ("woodbury_family",),
+                                      "plink betas")
+        assert bg.shape == bvidx.shape and bgxe.shape == (len(d2c), bg.size)
+        assert np.isfinite(bg).all() and np.isfinite(bgxe).all()
+        # a direct call on the block's columns (the same batch: a batch of
+        # another width sums K9's terms in another order, ~1e-11 apart)
+        raw, bmaf_d, _ = ps._prepare_block(reader.read(0, 512), d2c, 0.0,
+                                           False)
+        t0 = time.perf_counter()
+        bg_d, bgxe_d = crm_b.predict_interaction(raw, bmaf_d)
+        out["betas_direct_s"] = time.perf_counter() - t0
+        assert np.array_equal(bmaf, bmaf_d)
+        np.testing.assert_allclose(bg, bg_d, rtol=0, atol=1e-12)
+        np.testing.assert_allclose(bgxe, bgxe_d, rtol=0, atol=1e-12)
+        del crm_b, bgxe, bgxe_d
+
+        # the gene-batched cis scan: one tile of 16 genes
+        rng = np.random.default_rng(spec["seed"] + 1)
+        G_n = genes["genes"]
+        Y = c["y"][:, None] + 0.1 * rng.normal(size=(len(d2c), G_n))
+        starts = genes["stride"] * np.arange(G_n)
+        windows = np.stack([starts, starts + genes["window"]], axis=1)
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        res = ps.scan_interaction_multigene_plink(
+            crm, prefix, Y, windows, donor_to_cell=d2c, gene_batch=G_n)
+        sync()
+        out["multigene_s"] = time.perf_counter() - t0
+        out["multigene_launches"] = _grew(before, k15[1:],
+                                          "plink multigene")
+        out["multigene_pairs"] = int(res["pvalues"].size)
+        assert np.all((res["pvalues"] > 0) & (res["pvalues"] <= 1))
+        for g in range(G_n):
+            vi = res["variant_index"][res["gene"] == g]
+            assert np.array_equal(vi, vidx[(vidx >= windows[g, 0])
+                                           & (vidx < windows[g, 1])]), g
+        g = 3
+        sel = res["gene"] == g
+        Gw, _, _ = ps._prepare_block(
+            reader.read(int(windows[g, 0]), int(windows[g, 1])), d2c, 0.0,
+            True)
+        assert Gw.shape[1] == int(sel.sum())
+        pv_g, _ = crm.with_phenotype(Y[:, g]).scan_interaction(Gw)
+        np.testing.assert_allclose(res["pvalues"][sel], pv_g, rtol=0,
+                                   atol=1e-9)
+
+        # the CLI, in subprocesses: interaction mode, then Y + windows
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        dev_args = [] if device == CARD else ["--device", str(device)]
+        data = os.path.join(tmp, "data.npz")
+        np.savez(data, y=c["y"], E=c["E"], hK=c["hK"], donor_to_cell=d2c)
+        cli = {}
+        for mode, data_path, outp in (
+                ("interaction", data, os.path.join(tmp, "cli.npz")),
+                ("multigene", os.path.join(tmp, "data_mg.npz"),
+                 os.path.join(tmp, "cli_mg.npz"))):
+            if mode == "multigene":
+                np.savez(data_path, Y=Y[:, :PLINK_CLI_GENES],
+                         windows=windows[:PLINK_CLI_GENES], E=c["E"],
+                         hK=c["hK"], donor_to_cell=d2c)
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "cellregmap_tpu_torch.plink_scan",
+                 "--bed", first, "--data", data_path, "--out", outp,
+                 "--snp-batch", str(cfg.snp_batch), *dev_args],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=600)
+            assert r.returncode == 0, f"CLI {mode}:\n{r.stderr[-4000:]}"
+            line = json.loads(r.stdout.strip().splitlines()[-1])
+            dev_type = torch.device(device).type
+            assert line["device"].startswith(dev_type), line
+            cli[mode] = dict(line, s=time.perf_counter() - t0)
+            with np.load(outp) as z:
+                # another process's host setup: equal to rounding
+                if mode == "interaction":
+                    assert np.array_equal(z["variant_index"], vidx[in1])
+                    assert np.array_equal(z["rho1"], info["rho1"][in1])
+                    np.testing.assert_allclose(z["pvalues"], pv[in1],
+                                               rtol=1e-9, atol=1e-12)
+                else:
+                    for g in range(PLINK_CLI_GENES):
+                        sel = res["gene"] == g
+                        zs = z["gene"] == g
+                        assert np.array_equal(z["variant_index"][zs],
+                                              res["variant_index"][sel])
+                        np.testing.assert_allclose(
+                            z["pvalues"][zs], res["pvalues"][sel], rtol=0,
+                            atol=1e-9)
+        out["cli"] = cli
+    out["shims_max_abs_err"] = shims_check(d, device)
+    print("plink: " + json.dumps(out), flush=True)
+    return out
+
+
 def ptxas_report(log):
     """Each kernel of an ``nvcc -Xptxas -v`` log with its registers, stack
     and spills: ["name: Used N registers, ...; S bytes stack frame, ...",
@@ -3995,6 +4380,10 @@ def main() -> int:
     _, c_rho80, rho80_rows = rho80_phase(cfg)
     rows += rho80_rows
     mark("covariates_24, n_rho = 80")
+
+    # --- the PLINK drivers and their CLI; the low-rank shims ---
+    plink_phase(d, cfg)
+    mark("plink")
 
     # each row's launches: its wrapper's count on the run its operands
     # came from (tagged rows: their phase's run), divided by the wrapper's

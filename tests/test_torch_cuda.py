@@ -211,6 +211,53 @@ def test_scan_on_card_matches_cpu(cuda):
     assert np.array_equal(info_g["rho1"], info_c["rho1"])
 
 
+@pytest.mark.cuda
+def test_plink_interaction_on_card_matches_scan(cuda, tmp_path):
+    """The streaming interaction driver on the card, over a small PLINK
+    fileset in three blocks: every kept column equals a direct
+    ``scan_interaction`` of the same standardized columns (1e-12), the
+    first block's head the CPU port's (1e-8, identical rho1), and the
+    native decoder is built."""
+    import cellregmap_tpu_torch as crp
+    from cellregmap_tpu_torch import kernels, plink_scan
+    from cellregmap_tpu_torch.utils import plink
+
+    rng = np.random.default_rng(3)
+    n_donors, n, C, m = 30, 300, 4, 150
+    Gd = rng.binomial(2, rng.uniform(0.05, 0.5, size=m),
+                      size=(n_donors, m)).astype(float)
+    Gd[0, :5] = np.nan
+    Gd[:, 9] = 1.0
+    prefix = str(tmp_path / "cohort")
+    plink.write_bed(prefix, Gd)
+    d2c = np.arange(n) % n_donors
+    E = rng.normal(size=(n, C)) / np.sqrt(C)
+    hK = np.zeros((n, n_donors))
+    hK[np.arange(n), d2c] = 1.0
+    y = rng.normal(size=n) + 0.3 * hK @ rng.normal(size=n_donors)
+    cfg = crp.ScanConfig(snp_batch=32)
+    Ls = crp.get_L_values(hK, E)
+    crm = crp.CellRegMap(y=y, E=E, Ls=Ls, config=cfg, device=cuda)
+    assert plink._get_bed_lib() is not None
+    kernels.reset_launches()
+    pv, info, vidx = plink_scan.scan_interaction_plink(
+        crm, prefix, donor_to_cell=d2c, block_size=64)
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("kr_contract", "delta_grid",
+                                       "reml_newton", "best_rho_rotate",
+                                       "score_core"))
+    assert 9 not in vidx and pv.shape == vidx.shape
+    mu = np.nanmean(Gd, axis=0)
+    Gc = np.where(np.isnan(Gd), mu, Gd)[d2c][:, vidx]
+    Gc = (Gc - Gc.mean(0)) / Gc.std(0)
+    pv_d, info_d = crm.scan_interaction(Gc)
+    np.testing.assert_allclose(pv, pv_d, rtol=0, atol=1e-12)
+    cpu = crp.CellRegMap(y=y, E=E, Ls=Ls, config=cfg, device="cpu")
+    pv_c, info_c = cpu.scan_interaction(Gc[:, :32])
+    assert np.max(np.abs(pv[:32] - pv_c)) <= 1e-8
+    assert np.array_equal(info["rho1"][:32], info_c["rho1"])
+
+
 def _fit_calls(cuda, p, nrho, f32, S=70):
     """The fit wrappers' arguments on the card: the interaction batch
     (REML) and the association refit (ML)."""

@@ -53,7 +53,9 @@ def test_import_leaves_jax_out():
     r = _python(
         "import sys, cellregmap_tpu_torch, cellregmap_tpu_torch.api, "
         "cellregmap_tpu_torch.engine, cellregmap_tpu_torch.kernels, "
-        "cellregmap_tpu_torch.models.pvalues, chip_smoke\n"
+        "cellregmap_tpu_torch.models.pvalues, "
+        "cellregmap_tpu_torch.plink_scan, cellregmap_tpu_torch.utils.plink, "
+        "cellregmap_tpu_torch.ops.lowrank, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cellregmap_tpu')]\n"
         "assert not bad, bad\nprint('clean')")
